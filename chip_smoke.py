@@ -21,9 +21,20 @@ Phases, each printing one line:
              Every reply must be finite, every kernel's launch count must rise
              by exactly its launches per forward times the forwards run, and
              replies must match the same requests through the port on the CPU.
+4. decode  - a GPT-2 small (768 x 12, vocab 50257, 1024 positions) with
+             seeded random weights is exported with the port's
+             export_gpt_for_serving and loaded by a ModelServer on the card
+             with 8 slots of 1024 positions over a device-resident paged KV
+             cache; 8 ServingClients send 16 decode requests of 32 new tokens.
+             The flash-decode and LayerNorm launch counts must be exactly 12
+             and 25 times the forwards run (grid steps plus prefill chunks),
+             every served token must be a top logit of the same sequence
+             through the port on the CPU, and one sequence's prefill and
+             steps on the card must match the CPU's logits.
 
 Options for measurement runs: --profile PATH traces one more serving round
-under torch.profiler; --rpc-probe times replies on new rpc connections.
+and one more served decode round (the same 16 requests) under
+torch.profiler; --rpc-probe times replies on new rpc connections.
 
 Any failure is fatal (non-zero exit, no result line). Before the last line
 it prints the card's name and power limit and a JSON line of per-kernel
@@ -139,14 +150,16 @@ def measure(torch, name, shape, err, tolerance, inputs, kernel, plain,
             library, bytes_moved, flops, **extra):
     """One kernel's line: its error against the plain version (which must
     be within `tolerance`); the device times of kernel, plain version and
-    library call on `inputs`, each call on a copy cold in L2, and the
-    kernel's time on one copy warm in L2; and the bound."""
+    library call (None where no one PyTorch call computes the function) on
+    `inputs`, each call on a copy cold in L2, and the kernel's time on one
+    copy warm in L2; and the bound."""
     if not err <= tolerance:
         raise AssertionError("%s %s: max error %r > %g"
                              % (name, shape, err, tolerance))
     cold = cold_copies(torch, inputs, bytes_moved)
-    (k, timed_by), (p, _), (lib, _) = (device_ms(torch, f, cold)
-                                       for f in (kernel, plain, library))
+    (k, timed_by), (p, _) = (device_ms(torch, f, cold)
+                             for f in (kernel, plain))
+    lib = device_ms(torch, library, cold)[0] if library else None
     warm, _ = device_ms(torch, kernel, [inputs])
     bms, by = bound(bytes_moved, flops)
     return dict(name=name, shape=list(shape), max_abs_err=err,
@@ -233,8 +246,52 @@ def kernels_phase(torch, dev):
         sdpa, flash_bytes, live_flops,
         dense_bound_ms=bound(flash_bytes, dense_flops)[0],
         live_key_share=live_flops / dense_flops))
+    rows += flash_decode_rows(torch, dev, randn)
     for r in rows:
         log("kernels", **r)
+    return rows
+
+
+def flash_decode_rows(torch, dev, randn):
+    """The paged flash-decode kernel at the decode path's two shapes, over
+    GPT-2 small's pools (512 blocks of 16 positions, 12 heads of 64): a
+    prefill chunk (S=1, C=32, past 480) and a decode step (S=8, C=1, ragged
+    pasts with a dead row, one position, a block boundary and a full
+    table). No one PyTorch call computes paged attention, so it has no
+    library time."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_reference)
+    H, D, bs, nb, mb = 12, 64, 16, 512, 64
+    kp, vp = randn(nb, bs, H, D), randn(nb, bs, H, D)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED))
+    tables = perm.reshape(8, mb).to(torch.int32).to(dev)
+    rows = []
+    for S, C, lengths in ((1, 32, [480]),
+                          (8, 1, [0, 1, 16, 1024, 350, 511, 200, 777])):
+        q = randn(S, C, H, D)
+        tab = tables[:S].contiguous()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        o, m, l = paged_flash_decode(q, kp, vp, tab, lens)
+        ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tab, lens)
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+        if not max_err(m, rm) <= 1e-5:
+            raise AssertionError("flash_decode (%d, %d): m error %r > 1e-5"
+                                 % (S, C, max_err(m, rm)))
+        dead = [i for i, n in enumerate(lengths) if n == 0]
+        if dead and not (o[dead].eq(0).all() and l[dead].eq(0).all()
+                         and m[dead].eq(-1e30).all()):
+            raise AssertionError("flash_decode: a sequence with no past did "
+                                 "not give o = 0, m = -1e30, l = 0 exactly")
+        live = sum(lengths)
+        fd_bytes = (2 * live * H * D + 2 * S * C * H * D + 2 * S * C * H
+                    + S * mb + S) * 4
+        rows.append(measure(
+            torch, "flash_decode", (S, C, H, D), max_err(o, ro), 2e-5,
+            (q, kp, vp, tab, lens), paged_flash_decode,
+            paged_flash_decode_reference, None, fd_bytes,
+            4 * C * H * D * live, m_err=max_err(m, rm),
+            l_rel_err=float(((l - rl).abs() / rl.clamp_min(1e-30)).max()),
+            live_positions=live, lengths=lengths))
     return rows
 
 
@@ -359,9 +416,12 @@ def serve_phase(torch, dev, cfg, lengths, directory, rounds=3, clients=8,
     n_long = sum(forwards.get(b, 0) for b in BUCKETS if b >= 512)
     want = {"layer_norm": LN_PER_FORWARD * (n_short + n_long),
             "softmax": ATTN_PER_FORWARD * n_short,
-            "flash_attention_fwd": ATTN_PER_FORWARD * n_long}
+            "flash_attention_fwd": ATTN_PER_FORWARD * n_long,
+            "flash_decode": 0}
     if dev.type == "cuda":
-        if counts != want or min(counts.values()) == 0:
+        if counts != want or not all(
+                want[k] for k in ("layer_norm", "softmax",
+                                  "flash_attention_fwd")):
             raise AssertionError("launch counts %s, expected %s from "
                                  "forwards %s" % (counts, want, forwards))
     for i, out in replies.items():
@@ -404,11 +464,223 @@ def serve_phase(torch, dev, cfg, lengths, directory, rounds=3, clients=8,
     return fields, counts, profile
 
 
+# ------------------------------------------------------------------- decode
+GPT2_SMALL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
+                  max_len=1024)
+DECODE_SLOTS, DECODE_CACHE_LEN = 8, 1024
+DECODE_PROMPTS = [1, 8, 17, 31, 33, 64, 100, 127, 160, 200, 255, 300, 380,
+                  450, 600, 700]
+DECODE_NEW = 32
+
+
+def gpt_params(rs, cfg):
+    """Seeded random GPT weights named as both packages name them: N(0,
+    0.02) noise, LayerNorm gains 1 + noise."""
+    from incubator_mxnet_tpu_torch.models.gpt import (gpt_config,
+                                                      gpt_param_shapes)
+    params = {}
+    for name, shape in gpt_param_shapes(gpt_config(cfg)).items():
+        noise = rs.standard_normal(shape).astype(np.float32) * 0.02
+        params[name] = noise + 1.0 if name.endswith("_g") else noise
+    return params
+
+
+def run_decode_clients(addr, prompts, clients, max_new):
+    """Run in a client process: `clients` ServingClient threads send the
+    decode `prompts` (client j sends prompts j, j + clients, ... in turn).
+    Returns the generated tokens, every request's latency in seconds and the
+    wall time."""
+    from incubator_mxnet_tpu_torch.serving import ServingClient
+    tokens, latencies, errors = {}, {}, []
+    lock = threading.Lock()
+
+    def client(ids):
+        try:
+            with ServingClient(addr) as c:
+                for i in ids:
+                    t0 = time.perf_counter()
+                    out = c.decode("gpt", prompts[i], max_new_tokens=max_new)
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        tokens[i] = out
+                        latencies[i] = dt
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            with lock:
+                errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(prompts), clients),))
+               for j in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a decode client did not finish in 600 s")
+    if errors:
+        raise errors[0]
+    return tokens, latencies, time.perf_counter() - t0
+
+
+def prefill_chunks(prompt_lengths, chunk):
+    """Forwards the family's prefill runs: ceil((P - 1) / chunk) for a
+    prompt of P > 1 tokens."""
+    return sum(-(-(p - 1) // chunk) for p in prompt_lengths if p > 1)
+
+
+def decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
+                 max_new=DECODE_NEW, slots=DECODE_SLOTS,
+                 cache_len=DECODE_CACHE_LEN, profile=False):
+    """Export, serve generation and check; returns the decode line's fields,
+    the launch counts of the served run and, with `profile`, the profile of
+    one more served round of the same requests (after the counts and stats
+    are read, so the measured round carries no tracing cost)."""
+    from incubator_mxnet_tpu_torch.generate import export_gpt_for_serving
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder, gpt_logits
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import (ModelServer, ServingClient,
+                                                   load_served_model)
+
+    rs = np.random.RandomState(SEED)
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    model = GPTDecoder(device="cpu", **cfg).load_params(gpt_params(rs, cfg))
+    export_gpt_for_serving(directory, cfg, model)
+    del model
+    export_s = time.perf_counter() - t0
+    prompts = [rs.randint(0, cfg["vocab_size"], n).astype(np.int32)
+               for n in prompt_lengths]
+
+    t0 = time.perf_counter()
+    server = ModelServer(device=dev).load(
+        "gpt", directory=directory, slots=slots, cache_len=cache_len).start()
+    load_s = time.perf_counter() - t0
+    profile_out = None
+    try:
+        with ServingClient(server.addr) as c:          # warm-up
+            c.decode("gpt", prompts[-1][:40], max_new_tokens=4)
+        addr = tuple(server.addr)
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            pool.apply(run_decode_clients, (addr, prompts[:1], 1, 1))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            before = server.stats()["gpt"]["decode"]
+            reset_launch_counts()
+            tokens, latencies, wall = pool.apply(
+                run_decode_clients, (addr, prompts, clients, max_new))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            stats = server.stats()["gpt"]["decode"]
+            if profile:
+                profile_out = profile_round(torch, lambda: pool.apply(
+                    run_decode_clients, (addr, prompts, clients, max_new)))
+                profile_out.update(
+                    grid_steps=server.stats()["gpt"]["decode"]["steps"]
+                    - stats["steps"],
+                    prefill_chunks=prefill_chunks(prompt_lengths,
+                                                  server.served("gpt")
+                                                  .prefill_chunk))
+        served = server.served("gpt")
+        fed, card_rows = decode_rows(served, prompts[6], slots, cache_len)
+    finally:
+        server.stop()
+
+    steps = stats["steps"] - before["steps"]
+    chunks = prefill_chunks(prompt_lengths, served.prefill_chunk)
+    forwards = steps + chunks
+    L = cfg["num_layers"]
+    want = {"layer_norm": (2 * L + 1) * forwards, "softmax": 0,
+            "flash_attention_fwd": 0, "flash_decode": L * forwards}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError("decode launch counts %s, expected %s from %d "
+                             "grid steps and %d prefill chunks"
+                             % (counts, want, steps, chunks))
+    if len(tokens) != len(prompts):
+        raise AssertionError("%d of %d decode replies"
+                             % (len(tokens), len(prompts)))
+    for i, toks in tokens.items():
+        if toks.shape != (max_new,) or toks.min() < 0 \
+                or toks.max() >= cfg["vocab_size"]:
+            raise AssertionError("decode reply %d: %s" % (i, toks))
+
+    # every served token against the port on the CPU: one full forward over
+    # prompt + tokens[:-1]; the served token's logit must be within 1e-3 of
+    # its row's max (near-ties among 50257 logits may flip on fp32 order)
+    cpu = load_served_model(directory, device="cpu")
+    cparams = cpu.model.params()
+    exact, worst = 0, 0.0
+    cpu_t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, toks in sorted(tokens.items()):
+            p = prompts[i]
+            seq = np.concatenate([p, toks[:-1]]).astype(np.int64)
+            rows = gpt_logits(cparams, cfg, torch.from_numpy(seq[None]))[0]
+            rows = rows[len(p) - 1:].numpy()
+            got = rows[np.arange(max_new), toks]
+            gap = rows.max(axis=1) - got
+            worst = max(worst, float(gap.max()))
+            exact += int((rows.argmax(axis=1) == toks).sum())
+            if not (gap <= 1e-3).all():
+                raise AssertionError(
+                    "request %d (prompt %d): a served token's CPU logit is "
+                    "%g below its row's max (limit 1e-3)"
+                    % (i, len(p), float(gap.max())))
+        # one sequence's prefill and steps on the card against the CPU's
+        # rows (fp32 with TF32 off: only the order of sums differs)
+        cpu_rows = gpt_logits(cparams, cfg, torch.tensor([fed]))[0]
+        cpu_rows = cpu_rows[len(prompts[6]) - 1:].numpy()
+    check_err = float(np.abs(card_rows - cpu_rows).max())
+    if not np.allclose(card_rows, cpu_rows, rtol=1e-4, atol=1e-4):
+        raise AssertionError("decode logits on the card and the CPU differ "
+                             "by %g (rtol 1e-4, atol 1e-4)" % check_err)
+    cpu_s = time.perf_counter() - cpu_t0
+
+    lat = np.asarray([latencies[i] for i in sorted(latencies)])
+    generated = sum(int(t.size) for t in tokens.values())
+    fields = dict(requests=len(tokens), clients=clients, slots=slots,
+                  cache_len=cache_len, prompt_lengths=list(prompt_lengths),
+                  prefill_chunk=served.prefill_chunk,
+                  max_new_tokens=max_new, tokens_generated=generated,
+                  grid_steps=steps, prefill_chunks=chunks,
+                  forwards=forwards, launches=counts,
+                  p50_ms=float(np.percentile(lat, 50) * 1e3),
+                  p99_ms=float(np.percentile(lat, 99) * 1e3),
+                  tokens_per_s=generated / wall, wall_s=wall,
+                  step_ewma_ms=stats["step_ewma_s"] * 1e3,
+                  exact_argmax=exact, max_logit_gap=worst,
+                  logits_check_max_abs_err=check_err,
+                  export_s=export_s, load_s=load_s, cpu_check_s=cpu_s)
+    return fields, counts, profile_out
+
+
+def decode_rows(served, prompt, slots, cache_len, steps=8):
+    """The family's prefill of `prompt` and `steps` greedy grid steps on its
+    device, in a cache of its own (one active slot of `slots`). Returns the
+    tokens fed and the steps' logits rows."""
+    cache = served.make_cache(slots, cache_len)
+    slot = cache.alloc()
+    served.prefill_fn(slot, prompt[:-1], cache)
+    tokens = np.zeros(slots, np.int32)
+    active = np.zeros(slots, bool)
+    active[slot] = True
+    seq, rows = [int(t) for t in prompt], []
+    for _ in range(steps):
+        tokens[slot] = seq[-1]
+        rows.append(served.step_fn(tokens, cache, active)[slot])
+        seq.append(int(np.argmax(rows[-1])))
+    cache.free(slot)
+    return seq[:-1], np.stack(rows)
+
+
 def _kernel_class(name):
     n = name.lower()
     for key, cls in (("ln_warp", "layer_norm"), ("ln_block", "layer_norm"),
                      ("softmax_warp", "softmax"), ("softmax_block", "softmax"),
                      ("flash_fwd", "flash_attention_fwd"),
+                     ("flash_decode", "flash_decode"),
                      ("memcpy", "copy"), ("memset", "copy")):
         if key in n:
             return cls
@@ -528,6 +800,8 @@ KERNEL_META = {
     "flash_attention_fwd": (
         "incubator_mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:42"),
+    "flash_decode": ("incubator_mxnet_tpu_torch/csrc/flash_decode.cu",
+                     "incubator_mxnet_tpu/ops/pallas/flash_decode.py:86"),
 }
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
@@ -584,13 +858,27 @@ def main(argv=None):
     if args.rpc_probe:
         log("rpc_probe", card=card, **rpc_probe())
 
+    dfields, dcounts, dprofile = decode_phase(
+        torch, dev, GPT2_SMALL, DECODE_PROMPTS,
+        os.path.join(HERE, "build", "chip_smoke", "gpt2_small"),
+        profile=args.profile is not None)
+    log("decode", card=card, **dfields)
+    if dprofile is not None:
+        log("decode_profile", card=card, **dprofile)
+
+    # launches: each main path's run (serve, then decode), counts reset to 0
+    # just before it and read just after; the line carries their sum
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            launches=counts[name] + dcounts[name],
+            launches_by_path={"serve": counts[name],
+                              "decode": dcounts[name]},
+            max_abs_err=max(x["max_abs_err"] for x in krows
+                            if x["name"] == name),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             warm_ms=r["warm_ms"], shape=r["shape"]))
     print(card, flush=True)

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -211,15 +213,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Above 48 KB a block's shared memory must be asked for explicitly. The
+// setting holds per device and instantiation, so it is made on the first
+// launch of each and remembered (a device numbered past kMaxDevices asks on
+// every launch).
 template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* out, float* lse, int bh, int T, float scale, int causal,
-           cudaStream_t stream) {
-  // above 48 KB a block's shared memory must be asked for explicitly; the
-  // setting is per device, so it is made on every launch
+cudaError_t allow_smem(int device) {
+  static std::atomic<bool> done[kMaxDevices];
+  const bool known = device >= 0 && device < kMaxDevices;
+  if (known && done[device].load(std::memory_order_acquire))
+    return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile<D>::kBytes);
+  if (e == cudaSuccess && known)
+    done[device].store(true, std::memory_order_release);
+  return e;
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* bias,
+           float* out, float* lse, int bh, int T, float scale, int causal,
+           int device, cudaStream_t stream) {
+  const cudaError_t e = allow_smem<D>(device);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((T + kBlockQ - 1) / kBlockQ), (unsigned)bh);
   flash_fwd_kernel<D><<<grid, kThreads, Tile<D>::kBytes, stream>>>(
@@ -243,11 +261,14 @@ extern "C" int mxtpu_flash_attention_fwd_f32(
   if (e != cudaSuccess) return (int)e;
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, bias, out, lse, bh, T, scale, causal, stream);
+      return launch<32>(q, k, v, bias, out, lse, bh, T, scale, causal, device,
+                        stream);
     case 64:
-      return launch<64>(q, k, v, bias, out, lse, bh, T, scale, causal, stream);
+      return launch<64>(q, k, v, bias, out, lse, bh, T, scale, causal, device,
+                        stream);
     case 128:
-      return launch<128>(q, k, v, bias, out, lse, bh, T, scale, causal, stream);
+      return launch<128>(q, k, v, bias, out, lse, bh, T, scale, causal,
+                         device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

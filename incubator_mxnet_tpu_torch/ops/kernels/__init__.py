@@ -5,19 +5,23 @@ and are built at first use by ``_build``."""
 
 from .flash_attention import (flash_attention, flash_attention_forward,
                               flash_attention_reference)
+from .flash_decode import (paged_causal_attention, paged_flash_decode,
+                           paged_flash_decode_reference)
 from .fused_norm import (layer_norm, layer_norm_reference, softmax,
                          softmax_reference)
 
 __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_reference", "layer_norm", "layer_norm_reference",
-           "softmax", "softmax_reference", "WRAPPERS", "launch_counts",
-           "reset_launch_counts"]
+           "paged_causal_attention", "paged_flash_decode",
+           "paged_flash_decode_reference", "softmax", "softmax_reference",
+           "WRAPPERS", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> the wrapper that launches it and counts its launches
 WRAPPERS = {
     "layer_norm": layer_norm,
     "softmax": softmax,
     "flash_attention_fwd": flash_attention_forward,
+    "flash_decode": paged_flash_decode,
 }
 
 

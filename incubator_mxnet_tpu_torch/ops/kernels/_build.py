@@ -43,6 +43,10 @@ _SIGNATURES = {
     # q, k, v, bias, out, lse, bh, T, D, scale, causal, device, stream
     "mxtpu_flash_attention_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _F, _I, _I, _P),
+    # q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H, D, num_blocks,
+    # block_size, max_blocks, scale, device, stream
+    "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -3,12 +3,16 @@
 - ``wire``      - array manifest <-> payload framing (no pickling);
 - ``scheduler`` - shape-bucketed continuous batcher (pad-or-pack, join
                   windows, deadline shed);
+- ``decode``    - continuous-batching decode loop over a KV-cache slot grid;
+- ``kv_cache``  - the dense slot-granular KV cache;
 - ``loader``    - checkpoint export/load and the model-family registry;
 - ``server``    - ModelServer: many models, one RPC endpoint;
 - ``client``    - ServingClient: typed calls with wire-level deadlines.
 """
 
 from .client import DeadlineExceeded, Draining, ServingClient, ServingError
+from .decode import DecodeLoop, DecodeRequest
+from .kv_cache import KVCache
 from .loader import (SERVING_FAMILIES, ServedModel, export_for_serving,
                      generation_steps, load_served_model, publish_generation,
                      read_generation, serving_family)
@@ -17,7 +21,8 @@ from .scheduler import (ContinuousBatcher, Request, ShedError, bucket_for,
 from .server import ModelServer
 
 __all__ = [
-    "ContinuousBatcher", "DeadlineExceeded", "Draining", "ModelServer",
+    "ContinuousBatcher", "DeadlineExceeded", "DecodeLoop", "DecodeRequest",
+    "Draining", "KVCache", "ModelServer",
     "Request", "SERVING_FAMILIES", "ServedModel", "ServingClient",
     "ServingError", "ShedError", "bucket_for", "default_buckets",
     "export_for_serving", "generation_steps", "load_served_model",

@@ -2,7 +2,7 @@
 ``kvstore.rpc.Connection``.
 
 Counterpart of ``incubator_mxnet_tpu/serving/client.py`` (ping, models,
-stats, infer), wire-compatible with the servers of both packages.
+stats, infer, decode), wire-compatible with the servers of both packages.
 ``deadline_ms`` becomes the relative ``_deadline_ms`` budget, which the
 server moves onto its own monotonic clock; a shed comes back as
 ``DeadlineExceeded`` with the stage that dropped it. A DRAINING shed is
@@ -146,3 +146,17 @@ class ServingClient:
             {"op": "serve.infer", "model": model, "arrays": manifest},
             payload, deadline_ms=deadline_ms)
         return unpack_arrays(meta["arrays"], rpayload)
+
+    def decode(self, model, prompt, max_new_tokens=16, eos_id=None,
+               deadline_ms=None):
+        """Greedy-generate after ``prompt`` (1-D int tokens). Returns the
+        generated int32 token array (eos, when hit, is its last entry)."""
+        prompt = np.asarray(prompt, np.int32).ravel()
+        manifest, payload = pack_arrays({"tokens": prompt})
+        req = {"op": "serve.decode", "model": model, "arrays": manifest,
+               "max_new_tokens": int(max_new_tokens)}
+        if eos_id is not None:
+            req["eos_id"] = int(eos_id)
+        meta, rpayload = self._call_retrying(req, payload,
+                                             deadline_ms=deadline_ms)
+        return unpack_arrays(meta["arrays"], rpayload)["tokens"]

@@ -1,0 +1,369 @@
+"""Continuous-batching autoregressive decode over a fixed slot grid.
+
+Counterpart of ``incubator_mxnet_tpu/serving/decode.py``. The decode batch is
+a FIXED grid of KV-cache slots: requests are admitted into free slots BETWEEN
+steps, run however many steps they need, and release their slot the moment
+they finish (iteration-level join and leave, as in Orca). The step contract
+is model-agnostic:
+
+    step_fn(tokens, cache, active) -> logits
+
+with ``tokens (slots,) int32`` (the pad token in inactive rows), ``cache``
+the KV cache (the step reads and writes its entries for ALL slots at once;
+inactive rows compute values that are never observed) and ``active (slots,)
+bool``; logits come back as a (slots, V) array. Without a ``prefill_fn`` a
+prompt is fed one token per step through the same path; with one (the
+gpt_decoder family) the prompt prefix is committed in chunked forwards at
+admission and the grid only feeds the last prompt token. Sampling is greedy
+argmax.
+
+Deadline shed: at join the loop estimates ``steps * EWMA(step seconds)``;
+mid-generation an expired deadline retires the slot (stage "decode") unless
+the sequence finished on that very step. KV pool exhaustion sheds as stage
+"capacity". The JAX package's telemetry, trace spans and flight records are
+not part of the port yet; ``stats()`` carries the counts.
+"""
+
+import collections
+import threading
+import time
+
+import numpy as np
+
+from .scheduler import Request
+
+__all__ = ["DecodeRequest", "DecodeLoop", "check_token_ids"]
+
+
+def check_token_ids(tokens, vocab_size):
+    """Refuse token ids outside [0, vocab_size) on the host: on the card an
+    out-of-range embedding index is a device fault, not an error."""
+    tokens = np.asarray(tokens)
+    if tokens.size and (tokens.min() < 0 or tokens.max() >= vocab_size):
+        raise ValueError("token ids must lie in [0, %d), got [%d, %d]"
+                         % (vocab_size, tokens.min(), tokens.max()))
+    return tokens
+
+
+def _is_capacity_error(e):
+    """KV pool exhaustion is pressure, not a bug. Imported lazily: generate
+    imports serving.loader, which would otherwise cycle back here."""
+    from ..generate.paged_kv import KVPoolExhausted
+    return isinstance(e, KVPoolExhausted)
+
+
+class DecodeRequest(Request):
+    """Generate up to `max_new_tokens` after `prompt` (1-D int tokens);
+    stops early at `eos_id`. Result: {"tokens": generated int32 array}."""
+
+    def __init__(self, model, prompt, max_new_tokens, eos_id=None,
+                 deadline=None):
+        prompt = np.asarray(prompt, np.int32).ravel()
+        if prompt.size < 1:
+            raise ValueError("prompt must hold at least one token")
+        super().__init__(model, {"tokens": prompt.reshape(1, -1)},
+                         deadline=deadline)
+        self.prompt = prompt
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_id = eos_id
+
+
+class _Seq:
+    """Per-slot progress: prompt feeding, then greedy generation off the
+    model's logits."""
+
+    def __init__(self, req):
+        self.req = req
+        self.fed = 0
+        self.generated = []
+
+    def next_input(self):
+        if self.fed < self.req.prompt.size:
+            return int(self.req.prompt[self.fed])
+        return self.generated[-1]
+
+    def consume(self, logits):
+        """Account one executed step; once the whole prompt is in, the
+        step's logits predict the next token."""
+        self.fed += 1
+        if self.fed >= self.req.prompt.size:
+            self.generated.append(int(np.argmax(logits)))
+
+    @property
+    def finished(self):
+        if len(self.generated) >= self.req.max_new_tokens:
+            return True
+        return (self.req.eos_id is not None and self.generated
+                and self.generated[-1] == self.req.eos_id)
+
+
+class DecodeLoop:
+    """One per served generative model; owns its KV cache exclusively.
+
+    A ``prefill_fn`` comes with the family's ``prefill_chunk``, the prompt
+    positions it commits per forward, which the admission estimate counts.
+    Requests ask for at most ``max_new_tokens_cap`` tokens."""
+
+    def __init__(self, name, step_fn, cache, pad_token=0,
+                 max_new_tokens_cap=64, prefill_fn=None,
+                 prefill_chunk=None):
+        self.name = name
+        self._step_fn = step_fn
+        self._cache = cache
+        if prefill_fn is not None and not (prefill_chunk or 0) >= 1:
+            raise ValueError("a prefill_fn needs its prefill_chunk (>= 1), "
+                             "got %r" % (prefill_chunk,))
+        self._prefill_fn = prefill_fn
+        self._prefill_chunk = prefill_chunk
+        self._pad = int(pad_token)
+        self._cap = int(max_new_tokens_cap)
+        self._cond = threading.Condition()
+        self._pending = collections.deque()
+        self._active = {}               # slot -> _Seq
+        self._stopping = False
+        self._draining = False
+        self._in_step = False           # a step_fn call is running now
+        self._steps = 0
+        self._prefills = 0
+        self._tokens = {"prefill": 0, "decode": 0}
+        self._retired = collections.Counter()     # slot retirements by reason
+        self._shed_stages = collections.Counter()
+        self._ewma_step = None
+        self._thread = threading.Thread(
+            target=self._run, name="serve-decode-%s" % name, daemon=True)
+
+    # ---------------------------------------------------------- admission
+    def submit(self, req):
+        if req.max_new_tokens > self._cap:
+            req.max_new_tokens = self._cap
+        now = time.monotonic()
+        if req.deadline is not None and now >= req.deadline:
+            self._shed(req, "queue", "deadline expired before admission")
+            return req
+        if req.prompt.size + req.max_new_tokens > self._cache.max_len:
+            req.fail(ValueError(
+                "prompt %d + max_new_tokens %d exceeds the KV cache "
+                "max_len %d" % (req.prompt.size, req.max_new_tokens,
+                                self._cache.max_len)))
+            return req
+        with self._cond:
+            if self._stopping:
+                req.fail(RuntimeError("decode loop %r is stopped"
+                                      % self.name))
+                return req
+            if self._draining:
+                self._shed(req, "draining",
+                           "model is draining for a weight swap; retry")
+                return req
+            self._pending.append(req)
+            self._cond.notify_all()
+        return req
+
+    def _shed(self, req, stage, detail=""):
+        if req.shed(stage, detail):
+            self._shed_stages[stage] += 1
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self, timeout=5.0):
+        with self._cond:
+            self._stopping = True
+            self._cond.notify_all()
+        if self._thread.ident is not None:      # started
+            self._thread.join(timeout)
+        with self._cond:
+            while self._pending:
+                self._pending.popleft().fail(
+                    RuntimeError("decode loop %r stopped" % self.name))
+            for slot, seq in list(self._active.items()):
+                seq.req.fail(RuntimeError("decode loop %r stopped"
+                                          % self.name))
+                self._cache.free(slot)
+            self._active.clear()
+
+    # ------------------------------------------------------ drain/re-admit
+    @property
+    def draining(self):
+        return self._draining
+
+    def drain(self, timeout=30.0):
+        """Fence the decode plane. New submits shed with the RETRIABLE
+        "draining" stage; queued requests are shed at once; ACTIVE sequences
+        get `timeout` seconds to finish, and stragglers are then shed and
+        their slots freed on the loop's next retire pass. True when the grid
+        is empty and no step is in flight."""
+        deadline = time.monotonic() + float(timeout)
+        with self._cond:
+            self._draining = True
+            while self._pending:
+                self._shed(self._pending.popleft(), "draining",
+                           "drained before admission; retry")
+            self._cond.notify_all()
+            while self._active or self._in_step:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._cond.wait(min(left, 0.05))
+            for seq in list(self._active.values()):
+                self._shed(seq.req, "draining",
+                           "fenced at the drain deadline; the session "
+                           "re-prefills on retry")
+            while self._active or self._in_step:
+                left = deadline + float(timeout) - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(min(left, 0.05))
+        return True
+
+    def admit(self):
+        """Re-open admission after a drain()."""
+        with self._cond:
+            self._draining = False
+            self._cond.notify_all()
+
+    def reset_service_estimates(self):
+        """Forget the EWMA step time (warm-up steps skew it)."""
+        with self._cond:
+            self._ewma_step = None
+
+    def stats(self):
+        """Queue and grid state, grid steps and prefill calls run, tokens
+        committed by phase, slot retirements by reason and sheds by
+        stage."""
+        with self._cond:
+            return {"pending": len(self._pending),
+                    "active": len(self._active),
+                    "draining": self._draining,
+                    "steps": self._steps,
+                    "prefills": self._prefills,
+                    "tokens": dict(self._tokens),
+                    "retired": dict(self._retired),
+                    "shed": dict(self._shed_stages),
+                    "step_ewma_s": self._ewma_step}
+
+    # -------------------------------------------------------- decode loop
+    def _est_steps(self, req):
+        """Forwards a request still needs: with a prefill_fn the prompt
+        prefix lands in ceil((P-1)/chunk) chunked forwards plus one step for
+        the last prompt token; without, one step per prompt token; plus
+        max_new decode steps either way."""
+        if self._prefill_fn is not None and req.prompt.size > 1:
+            chunks = -(-(req.prompt.size - 1) // self._prefill_chunk)
+            return chunks + 1 + req.max_new_tokens
+        return req.prompt.size + req.max_new_tokens
+
+    def _admit_locked(self):
+        """Join point: fill free slots from the FIFO between steps, running
+        the family's chunked prefill of the prompt prefix on admission."""
+        if self._draining:
+            return
+        now = time.monotonic()
+        est = self._ewma_step or 0.0
+        while self._pending and self._cache.in_use < self._cache.slots:
+            req = self._pending[0]
+            if req.done:                # cancelled while queued
+                self._pending.popleft()
+                continue
+            if req.deadline is not None and \
+                    now + est * self._est_steps(req) > req.deadline:
+                self._pending.popleft()
+                self._shed(req, "join", "full generation can't meet "
+                           "the deadline")
+                continue
+            slot = self._cache.alloc()
+            if slot is None:
+                return
+            self._pending.popleft()
+            seq = _Seq(req)
+            if self._prefill_fn is not None and req.prompt.size > 1:
+                try:
+                    self._prefill_fn(slot, req.prompt[:-1], self._cache)
+                except Exception as e:  # noqa: BLE001 - a broken prefill
+                    # fails this request, not the serving loop
+                    if _is_capacity_error(e):
+                        self._shed(req, "capacity", str(e))
+                    elif req.fail(e):
+                        self._retired["error"] += 1
+                    self._cache.free(slot)
+                    continue
+                seq.fed = req.prompt.size - 1
+                self._prefills += 1
+                self._tokens["prefill"] += req.prompt.size - 1
+            self._active[slot] = seq
+
+    def _run(self):
+        slots = self._cache.slots
+        while True:
+            with self._cond:
+                while (not self._stopping and not self._pending
+                        and not self._active):
+                    self._cond.wait(0.1)
+                if self._stopping:
+                    return
+                self._admit_locked()
+                active = dict(self._active)
+                if active:
+                    self._in_step = True
+            if not active:
+                continue
+            tokens = np.full(slots, self._pad, np.int32)
+            mask = np.zeros(slots, bool)
+            for slot, seq in active.items():
+                tokens[slot] = seq.next_input()
+                mask[slot] = True
+            t0 = time.perf_counter()
+            try:
+                logits = np.asarray(self._step_fn(tokens, self._cache, mask))
+            except Exception as e:  # noqa: BLE001 - a broken step fails
+                # the in-flight sequences, not the serving loop; pool
+                # exhaustion sheds them as a capacity event (freeing their
+                # blocks is the relief)
+                capacity = _is_capacity_error(e)
+                with self._cond:
+                    for slot, seq in list(self._active.items()):
+                        if capacity:
+                            self._shed(seq.req, "capacity", str(e))
+                        elif seq.req.fail(e):
+                            self._retired["error"] += 1
+                        self._cache.free(slot)
+                    self._active.clear()
+                    self._in_step = False
+                    self._cond.notify_all()
+                continue
+            dt = time.perf_counter() - t0
+            now = time.monotonic()
+            with self._cond:
+                self._ewma_step = dt if self._ewma_step is None else \
+                    0.7 * self._ewma_step + 0.3 * dt
+                self._steps += 1
+                # token accounting in the retire pass, after consume, so the
+                # final step of a retiring sequence counts too
+                for slot, seq in list(self._active.items()):
+                    before = len(seq.generated)
+                    seq.consume(logits[slot])
+                    phase = "decode" if len(seq.generated) > before \
+                        else "prefill"
+                    self._tokens[phase] += 1
+                    if seq.req.done:    # cancelled mid-flight: release
+                        reason = "cancelled"
+                    elif seq.finished:
+                        # finished beats the deadline check: this step paid
+                        # for the final token, so it is delivered
+                        reason = "ok"
+                        seq.req.complete({"tokens": np.asarray(
+                            seq.generated, np.int32)})
+                    elif seq.req.deadline is not None \
+                            and now > seq.req.deadline:
+                        reason = "deadline"
+                        self._shed(seq.req, "decode",
+                                   "deadline passed mid-generation")
+                    else:
+                        continue
+                    self._retired[reason] += 1
+                    self._cache.free(slot)
+                    del self._active[slot]
+                self._in_step = False
+                self._cond.notify_all()     # wake a waiting drain()

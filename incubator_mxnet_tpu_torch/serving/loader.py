@@ -8,9 +8,12 @@ construction config, plus a ``generation`` number that the directory's
 either package loads what the other exported.
 
 The port runs eager PyTorch: no AOT program is built, bound or exported.
-``encode`` runs under ``torch.inference_mode()`` on the model's device.
-Built-in family: ``bert_encoder``. The JAX package's ``lstm_lm`` family, the
-int8 path and live weight swaps come with later slices.
+A family's forwards run under ``torch.inference_mode()`` on the model's
+device. Built-in family: ``bert_encoder``; ``gpt_decoder``
+(``generate/family.py``) registers when ``generate`` is imported, which
+``load_served_model`` does for a checkpoint of that family. The JAX
+package's ``lstm_lm`` family, the int8 path and live weight swaps come with
+later slices.
 """
 
 import json
@@ -43,20 +46,45 @@ def serving_family(name):
 
 
 class ServedModel:
-    """What a family builder hands the server: ``encode_fn(arrays,
-    bucket) -> {name: np.ndarray}`` plus the facts the scheduler needs."""
+    """What a family builder hands the server: the forward surfaces plus the
+    facts the schedulers need. ``encode_fn(arrays, bucket) -> {name:
+    np.ndarray}`` serves one-shot requests through the ContinuousBatcher;
+    ``step_fn(tokens, cache, active) -> (slots, V) logits`` with
+    ``make_cache(slots, max_len)`` serves generation through the
+    DecodeLoop, which commits a prompt prefix through ``prefill_fn(slot,
+    tokens, cache)`` in chunks of ``prefill_chunk`` when the family has
+    one."""
 
-    def __init__(self, family, config, encode_fn, pad_token=0,
-                 quantized=False, device=None):
-        if encode_fn is None:
-            raise ValueError("a ServedModel needs encode_fn")
+    def __init__(self, family, config, encode_fn=None, step_fn=None,
+                 make_cache=None, pad_token=0, quantized=False, device=None,
+                 prefill_fn=None, prefill_chunk=None):
+        if encode_fn is None and step_fn is None:
+            raise ValueError("a ServedModel needs encode_fn, step_fn, "
+                             "or both")
+        if (step_fn is None) != (make_cache is None):
+            raise ValueError("step_fn and make_cache come together")
+        if prefill_fn is not None and step_fn is None:
+            raise ValueError("prefill_fn requires step_fn")
         self.family = family
         self.config = dict(config)
         self.encode_fn = encode_fn
+        self.step_fn = step_fn
+        self.make_cache = make_cache
+        self.prefill_fn = prefill_fn
+        self.prefill_chunk = (int(prefill_chunk)
+                              if prefill_chunk is not None else None)
         self.pad_token = int(pad_token)
         self.quantized = bool(quantized)
         self.device = device
         self.generation = 0
+
+    @property
+    def has_encode(self):
+        return self.encode_fn is not None
+
+    @property
+    def has_decode(self):
+        return self.step_fn is not None
 
 
 # ----------------------------------------------------------- generations
@@ -148,7 +176,13 @@ def load_served_model(directory, quantize=None, generation=None, device=None):
     if not isinstance(info, dict) or "family" not in info:
         raise ValueError("checkpoint under %r has no serving stanza - "
                          "export it with export_for_serving()" % directory)
-    builder = SERVING_FAMILIES.get(info["family"])
+    family = info["family"]
+    builder = SERVING_FAMILIES.get(family)
+    if builder is None and family == "gpt_decoder":
+        # the generative family registers when generate/ is imported; a
+        # server that never touched it can still load its checkpoints
+        from .. import generate  # noqa: F401
+        builder = SERVING_FAMILIES.get(family)
     if builder is None:
         raise ValueError("serving family %r is not part of this port"
                          % info["family"])

@@ -2,14 +2,16 @@
 
 Counterpart of ``incubator_mxnet_tpu/serving/server.py``. One
 ``kvstore.rpc.Server`` fronts any number of loaded models; each model has
-its own ``ContinuousBatcher`` thread. A connection's handler thread blocks
-on its request while the batcher coalesces the waiting requests into
-shared forward steps on the server's device.
+its own scheduler threads, a ``ContinuousBatcher`` for encode and a
+``DecodeLoop`` for generation. A connection's handler thread blocks on its
+request while the scheduler coalesces the waiting requests into shared
+forward steps on the server's device.
 
-Ops: ``serve.ping``, ``serve.models``, ``serve.infer`` and ``serve.stats``
-(the batchers' own counts). Decode, deploy, drain/admit, generations,
-metrics and tracez come with later slices and answer with an error that
-says so.
+Ops: ``serve.ping``, ``serve.models``, ``serve.infer``, ``serve.decode``
+(greedy generation through the model's ``DecodeLoop`` over its KV-cache
+slot grid) and ``serve.stats`` (the schedulers' own counts). Deploy,
+drain/admit, generations, metrics and tracez come with later slices and
+answer with an error that says so.
 
 ``device=None`` is ``cuda:0`` and raises without CUDA; ``device="cpu"``
 serves through the plain path.
@@ -21,21 +23,31 @@ import time
 
 from ..context import resolve_device
 from ..kvstore import rpc as _rpc
+from .decode import DecodeLoop, DecodeRequest, check_token_ids
 from .loader import ServedModel, load_served_model
 from .scheduler import ContinuousBatcher, Request, ShedError
 from .wire import pack_arrays, unpack_arrays
 
 __all__ = ["ModelServer"]
 
-_LATER_OPS = ("serve.decode", "serve.generation", "serve.drain",
-              "serve.admit", "serve.deploy", "serve.metrics", "serve.tracez")
+_LATER_OPS = ("serve.generation", "serve.drain", "serve.admit",
+              "serve.deploy", "serve.metrics", "serve.tracez")
 
 
 class _Tenant:
-    def __init__(self, name, served, batcher):
+    """One loaded model and its schedulers: a batcher for encode, a decode
+    loop for generation, each present when the family has that path."""
+
+    def __init__(self, name, served, batcher, decode_loop):
         self.name = name
         self.served = served
         self.batcher = batcher
+        self.decode_loop = decode_loop
+
+    def stop(self):
+        for sched in (self.batcher, self.decode_loop):
+            if sched is not None:
+                sched.stop()
 
 
 class ModelServer:
@@ -58,16 +70,18 @@ class ModelServer:
             tenants = list(self._models.values())
             self._models = {}
         for t in tenants:
-            t.batcher.stop()
+            t.stop()
 
     # -------------------------------------------------------------- models
     def load(self, name, directory=None, served=None, quantize=None,
-             max_batch=None, max_wait_ms=None, buckets=None,
-             generation=None):
+             max_batch=None, max_wait_ms=None, buckets=None, slots=None,
+             cache_len=None, generation=None):
         """Load a model under ``name`` from a serving checkpoint directory
-        (or an already-built ServedModel) onto the server's device and
-        start its batcher. Unnamed knobs follow the MXTPU_SERVE_* env
-        defaults."""
+        (or an already-built ServedModel) onto the server's device and start
+        its schedulers: a batcher when the family encodes, a decode loop
+        over a cache of ``slots`` slots of ``cache_len`` positions when it
+        generates. Unnamed knobs follow the MXTPU_SERVE_* env defaults
+        (``MXTPU_SERVE_SLOTS`` 8, ``MXTPU_SERVE_CACHE_LEN`` 512)."""
         if (directory is None) == (served is None):
             raise ValueError("pass exactly one of directory/served")
         if served is None:
@@ -76,14 +90,27 @@ class ModelServer:
                                        device=self.device)
         elif not isinstance(served, ServedModel):
             raise TypeError("served must be a loader.ServedModel")
-        batcher = ContinuousBatcher(
-            name, served.encode_fn, max_batch=max_batch, buckets=buckets,
-            max_wait_ms=max_wait_ms, pad_value=served.pad_token).start()
+        batcher = decode_loop = None
+        if served.has_encode:
+            batcher = ContinuousBatcher(
+                name, served.encode_fn, max_batch=max_batch,
+                buckets=buckets, max_wait_ms=max_wait_ms,
+                pad_value=served.pad_token).start()
+        if served.has_decode:
+            n_slots = int(slots if slots is not None else
+                          os.environ.get("MXTPU_SERVE_SLOTS", "8"))
+            n_len = int(cache_len if cache_len is not None else
+                        os.environ.get("MXTPU_SERVE_CACHE_LEN", "512"))
+            decode_loop = DecodeLoop(
+                name, served.step_fn, served.make_cache(n_slots, n_len),
+                pad_token=served.pad_token, prefill_fn=served.prefill_fn,
+                prefill_chunk=served.prefill_chunk).start()
+        tenant = _Tenant(name, served, batcher, decode_loop)
         with self._lock:
             if name in self._models:
-                batcher.stop()
+                tenant.stop()
                 raise ValueError("model %r is already loaded" % name)
-            self._models[name] = _Tenant(name, served, batcher)
+            self._models[name] = tenant
         return self
 
     def unload(self, name):
@@ -91,12 +118,15 @@ class ModelServer:
             tenant = self._models.pop(name, None)
         if tenant is None:
             raise KeyError("model %r is not loaded" % name)
-        tenant.batcher.stop()
+        tenant.stop()
 
     def reset_service_estimates(self, name):
         """Drop a model's EWMA service estimates (warm-up forwards skew
         them)."""
-        self._tenant(name).batcher.reset_service_estimates()
+        t = self._tenant(name)
+        for sched in (t.batcher, t.decode_loop):
+            if sched is not None:
+                sched.reset_service_estimates()
 
     def served(self, name):
         """The ServedModel loaded under ``name``."""
@@ -111,13 +141,21 @@ class ModelServer:
         return t
 
     def stats(self):
-        """{model: {"family", "generation", "batch": batcher stats}}."""
+        """{model: {"family", "generation", "batch": batcher stats,
+        "decode": decode loop stats}}, each scheduler's entry present when
+        the model has it."""
         with self._lock:
             tenants = list(self._models.items())
-        return {name: {"family": t.served.family,
-                       "generation": int(t.served.generation),
-                       "batch": t.batcher.stats()}
-                for name, t in tenants}
+        out = {}
+        for name, t in tenants:
+            ent = {"family": t.served.family,
+                   "generation": int(t.served.generation)}
+            if t.batcher is not None:
+                ent["batch"] = t.batcher.stats()
+            if t.decode_loop is not None:
+                ent["decode"] = t.decode_loop.stats()
+            out[name] = ent
+        return out
 
     # ------------------------------------------------------------- handler
     def _handle(self, meta, payload):
@@ -132,10 +170,15 @@ class ModelServer:
             return {"models": {name: {"family": t.served.family,
                                       "config": t.served.config,
                                       "quantized": t.served.quantized,
-                                      "modes": ["encode"]}
+                                      "modes": [m for m, on in (
+                                          ("encode", t.served.has_encode),
+                                          ("decode", t.served.has_decode))
+                                          if on]}
                                for name, t in tenants}}, b""
         if op == "serve.infer":
             return self._infer(meta, payload)
+        if op == "serve.decode":
+            return self._decode(meta, payload)
         if op == "serve.stats":
             return {"stats": self.stats()}, b""
         if op in _LATER_OPS:
@@ -156,12 +199,7 @@ class ModelServer:
             return None
         return time.monotonic() + (float(dl) - time.time())
 
-    def _infer(self, meta, payload):
-        name = meta.get("model", "")
-        tenant = self._tenant(name)
-        arrays = unpack_arrays(meta.get("arrays", []), payload)
-        req = Request(name, arrays, deadline=self._mono_deadline(meta))
-        tenant.batcher.submit(req)
+    def _wait(self, req):
         timeout = self._timeout
         if req.deadline is not None:
             timeout = min(timeout,
@@ -169,14 +207,55 @@ class ModelServer:
         try:
             result = req.wait(timeout)
         except ShedError as e:
-            return {"error": str(e), "shed": e.stage,
-                    "draining": False,
-                    "deadline_exceeded": e.stage != "overload"}, b""
+            return self._shed_reply(e), b""
         except TimeoutError as e:
-            # nobody reads a late reply: cancel so the batcher drops it;
-            # losing the cancel race means it settled at the buzzer
+            # nobody reads a late reply: cancel so the scheduler drops it
+            # (and frees its decode slot); losing the cancel race means it
+            # settled at the buzzer
             if req.cancel("handler timed out after %.1fs" % timeout):
                 return {"error": "Timeout: %s" % e}, b""
-            result = req.wait(0)
+            try:
+                result = req.wait(0)
+            except ShedError as e2:
+                return self._shed_reply(e2), b""
         manifest, out_payload = pack_arrays(result)
         return {"ok": True, "arrays": manifest}, out_payload
+
+    @staticmethod
+    def _shed_reply(e):
+        """Wire shape of a shed: "draining" is retriable, overload is load
+        shedding, every other stage is a deadline story."""
+        return {"error": str(e), "shed": e.stage,
+                "draining": e.stage == "draining",
+                "deadline_exceeded": e.stage not in ("overload",
+                                                     "draining")}
+
+    def _infer(self, meta, payload):
+        name = meta.get("model", "")
+        tenant = self._tenant(name)
+        if tenant.batcher is None:
+            raise ValueError("model %r has no encode path" % name)
+        arrays = unpack_arrays(meta.get("arrays", []), payload)
+        req = Request(name, arrays, deadline=self._mono_deadline(meta))
+        tenant.batcher.submit(req)
+        return self._wait(req)
+
+    def _decode(self, meta, payload):
+        name = meta.get("model", "")
+        tenant = self._tenant(name)
+        if tenant.decode_loop is None:
+            raise ValueError("model %r has no decode path" % name)
+        arrays = unpack_arrays(meta.get("arrays", []), payload)
+        if "tokens" not in arrays:
+            raise ValueError("decode needs a 'tokens' prompt array")
+        vocab = tenant.served.config.get("vocab_size")
+        if vocab is not None:
+            # refused here, before it can fail the whole decode grid
+            check_token_ids(arrays["tokens"], int(vocab))
+        req = DecodeRequest(
+            name, arrays["tokens"],
+            max_new_tokens=int(meta.get("max_new_tokens", 16)),
+            eos_id=meta.get("eos_id"),
+            deadline=self._mono_deadline(meta))
+        tenant.decode_loop.submit(req)
+        return self._wait(req)

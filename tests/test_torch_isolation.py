@@ -50,16 +50,22 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["flash_attention_fwd.cu", "fused_norm.cu", "runtime.cu"]
+    assert names == ["flash_attention_fwd.cu", "flash_decode.cu",
+                     "fused_norm.cu", "runtime.cu"]
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
 
 
 def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this card has CUDA; the check is for hosts without it")
+    from incubator_mxnet_tpu_torch.generate import (
+        GPTPagedLM, PagedKVCache, export_gpt_for_serving)
     from incubator_mxnet_tpu_torch.models.bert import BERTModel
-    from incubator_mxnet_tpu_torch.serving import (ModelServer,
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
+    from incubator_mxnet_tpu_torch.serving import (KVCache, ModelServer,
                                                    load_served_model)
+    gpt_cfg = dict(vocab_size=10, units=8, num_layers=1, num_heads=2,
+                   max_len=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         port.default_device()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -72,12 +78,29 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         BERTModel(num_layers=1, units=8, hidden_size=8, num_heads=2,
                   vocab_size=10, max_length=8, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTDecoder(**gpt_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(1, {"k0": ("kv", (2, 4))})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KVCache(1, {"k0": ("kv", (2, 4))})
     # asked for explicitly, the CPU works
     m = BERTModel(num_layers=1, units=8, hidden_size=8, num_heads=2,
                   vocab_size=10, max_length=8, device="cpu")
     assert m.device.type == "cpu"
     srv = ModelServer(device="cpu")
     srv.stop()
+    gpt = GPTDecoder(device="cpu", **gpt_cfg)
+    params = dict(gpt.named_parameters())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTPagedLM(params, gpt_cfg)
+    assert GPTPagedLM(params, gpt_cfg, device="cpu").make_cache(1) \
+        .pool("k0").device.type == "cpu"
+    ckpt = str(tmp_path / "gpt")
+    export_gpt_for_serving(ckpt, gpt_cfg, gpt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_served_model(ckpt)
+    assert load_served_model(ckpt, device="cpu").family == "gpt_decoder"
 
 
 def test_contexts():

@@ -8,7 +8,9 @@ JAX package, so it runs on the card's machine, which has no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances (TF32 off): LayerNorm and softmax atol 1e-5, flash attention
-atol 2e-5; the kernels sum in another order than the plain versions.
+atol 2e-5, flash decode atol 2e-5 on o, 1e-5 on m and rtol 1e-5 on l; the
+kernels sum in another order than the plain versions. The GPT test holds
+whole generations on the card and the CPU token for token.
 """
 
 import math
@@ -123,6 +125,117 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention_forward(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_forward(q.transpose(0, 1), q, q)
+
+
+def _paged_inputs(S, C, H, D, bs, mb, lengths, device, seed):
+    """q and pools drawn on the card, each sequence's table a disjoint
+    shuffled set of pool blocks."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nb = S * mb
+    q = torch.randn(S, C, H, D, generator=gen, device=device)
+    kp = torch.randn(nb, bs, H, D, generator=gen, device=device)
+    vp = torch.randn(nb, bs, H, D, generator=gen, device=device)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(seed))
+    tables = perm.reshape(S, mb).to(torch.int32).to(device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 32])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_decode_kernel_matches_plain(cuda, C, D):
+    """Ragged lengths: a dead row, one position, block boundaries (16, 48)
+    and a full table (64 blocks of 16 = 1024)."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_reference)
+    lengths = [0, 1, 16, 1024, 350, 48, 1023, 17]
+    q, kp, vp, tables, lens = _paged_inputs(8, C, 4, D, 16, 64, lengths,
+                                            cuda, seed=C * D)
+    n0 = paged_flash_decode.launches
+    o, m, l = paged_flash_decode(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == n0 + 1
+    ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tables, lens)
+    assert (o - ro).abs().max().item() <= 2e-5
+    assert (m - rm).abs().max().item() <= 1e-5
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    assert (o[0] == 0).all() and (l[0] == 0).all()
+    assert (m[0] == -1e30).all()
+
+
+@pytest.mark.needs_cuda
+def test_flash_decode_kernel_at_the_prefill_shape(cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_reference)
+    q, kp, vp, tables, lens = _paged_inputs(1, 32, 12, 64, 16, 64, [480],
+                                            cuda, seed=5)
+    o, m, l = paged_flash_decode(q, kp, vp, tables, lens)
+    ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tables, lens)
+    assert (o - ro).abs().max().item() <= 2e-5
+    assert (m - rm).abs().max().item() <= 1e-5
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+
+
+@pytest.mark.needs_cuda
+def test_paged_causal_attention_on_the_card_matches_the_cpu(cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_causal_attention)
+    q, kp, vp, tables, lens = _paged_inputs(3, 5, 2, 64, 16, 4, [0, 7, 64],
+                                            cuda, seed=9)
+    kn, vn = torch.randn_like(q), torch.randn_like(q)
+    got = paged_causal_attention(q, kn, vn, kp, vp, tables, lens)
+    want = paged_causal_attention(*(t.cpu() for t in (q, kn, vn, kp, vp,
+                                                      tables, lens)))
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.needs_cuda
+def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode)
+    q, kp, vp, tables, lens = _paged_inputs(2, 1, 2, 64, 16, 2, [3, 5],
+                                            cuda, seed=1)
+    with pytest.raises(TypeError):
+        paged_flash_decode(q.double(), kp.double(), vp.double(), tables, lens)
+    with pytest.raises(TypeError, match="int32"):
+        paged_flash_decode(q, kp, vp, tables.long(), lens)
+    with pytest.raises(ValueError, match="tensor on"):
+        paged_flash_decode(q, kp, vp, tables.cpu(), lens)
+    strided = torch.randn(2, 1, 2, 128, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_flash_decode(strided, kp, vp, tables, lens)
+    q48 = torch.randn(2, 1, 2, 48, device=cuda)
+    kp48 = torch.randn(4, 16, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_flash_decode(q48, kp48, kp48, tables, lens)
+
+
+@pytest.mark.needs_cuda
+def test_gpt_paged_forward_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer GPT through the kernels (LayerNorm and flash decode) against
+    the same weights through the plain versions on the CPU: a prefill chunk
+    and a decode step over a device-resident paged cache."""
+    from incubator_mxnet_tpu_torch.generate import GenerateEngine, GPTPagedLM
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
+    from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
+    cfg = dict(vocab_size=97, units=128, num_layers=2, num_heads=2,
+               max_len=128)
+    params = dict(GPTDecoder(device="cpu", seed=4, **cfg).named_parameters())
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        lm = GPTPagedLM(params, cfg, device=dev)
+        eng = GenerateEngine(lm, lm.make_cache(2, max_len=128),
+                             prefill_chunk=16)
+        before = launch_counts()
+        outs[dev.type] = eng.generate([list(range(1, 40)), [5, 6]],
+                                      max_new_tokens=6)
+        after = launch_counts()
+        if dev.type == "cuda":
+            # prefill: 3 chunks (38 tokens by 16) + 1 (1 token); 6 steps
+            assert after["flash_decode"] - before["flash_decode"] == 2 * 10
+            assert after["layer_norm"] - before["layer_norm"] == 5 * 10
+    assert outs["cuda"] == outs["cpu"]
 
 
 @pytest.mark.needs_cuda

@@ -31,10 +31,21 @@ Phases, each printing one line:
              every served token must be a top logit of the same sequence
              through the port on the CPU, and one sequence's prefill and
              steps on the card must match the CPU's logits.
+5. train   - BERT-base pretraining (MLM + NSP, tied decoder, dropout 0,
+             fp32) through ShardedTrainer with AdamW at lr 1e-4 on the card,
+             at T = 128 x B = 64 (attention through the softmax kernel) and
+             T = 512 x B = 8 (flash attention forward and backward), on
+             bench.py's batch: a warm-up step, then measured steps. Step 1's
+             loss and every gradient must match the port on the CPU, the
+             run must end at its lowest loss, every kernel's launch count
+             must be exactly its launches per step times the steps, and
+             three steps of a 2-layer model at full width must match the
+             CPU's.
 
-Options for measurement runs: --profile PATH traces one more serving round
-and one more served decode round (the same 16 requests) under
-torch.profiler; --rpc-probe times replies on new rpc connections.
+Options for measurement runs: --profile PATH traces one more serving round,
+one more served decode round (the same 16 requests) and one more training
+step of each shape under torch.profiler; --rpc-probe times replies on new
+rpc connections.
 
 Any failure is fatal (non-zero exit, no result line). Before the last line
 it prints the card's name and power limit and a JSON line of per-kernel
@@ -70,6 +81,15 @@ BUCKETS = (128, 512)
 # softmax below MXTPU_FLASH_MIN_T (512) and flash attention from it up
 LN_PER_FORWARD = 25
 ATTN_PER_FORWARD = 12
+
+
+def expected_counts(**nonzero):
+    """{kernel: launches} with every registered kernel at 0 but those
+    given."""
+    from incubator_mxnet_tpu_torch.ops.kernels import WRAPPERS
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(nonzero)
+    return want
 
 
 def log(phase, **fields):
@@ -247,9 +267,163 @@ def kernels_phase(torch, dev):
         dense_bound_ms=bound(flash_bytes, dense_flops)[0],
         live_key_share=live_flops / dense_flops))
     rows += flash_decode_rows(torch, dev, randn)
+    rows += flash_backward_rows(torch, dev, randn)
+    rows.append(trainer_adam_row(torch, dev, randn))
     for r in rows:
         log("kernels", **r)
     return rows
+
+
+def flash_backward_rows(torch, dev, randn):
+    """The dQ and the dK/dV kernel at the training path's shape, (8 * 12,
+    512, 64): with the serve phase's ragged padding mask (a sample with no
+    live key among them), then dense, as BERT pretraining runs it. Each
+    kernel's row has its own time and the bound of the products its output
+    needs alone (dQ: S, dP and dQ; dK/dV: S, dP, dK and dV); the pair
+    fields are the whole backward (the wrapper: delta and both kernels)
+    against five products, its plain version and the backward of
+    F.scaled_dot_product_attention. No one PyTorch call computes dQ or
+    dK/dV alone, so the rows' own library time is null."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
+    B, H, T, D = 8, 12, 512, 64
+    BH, scale = B * H, 1.0 / math.sqrt(D)
+    rows = []
+    for lengths in ([512, 300, 0, 511, 64, 1, 450, 129], [T] * B):
+        dense = min(lengths) == T
+        q, k, v, do = (randn(BH, T, D) for _ in range(4))
+        bias = None
+        if not dense:
+            live = torch.arange(T, device=dev)[None, :] < torch.tensor(
+                lengths, device=dev)[:, None]
+            bias = torch.zeros(B, T, device=dev).masked_fill(~live, -1e30)
+            bias = bias[:, None, :].expand(B, H, T).reshape(BH, T) \
+                .contiguous()
+        out, lse = flash_attention_forward(q, k, v, bias, scale)
+        delta = (do * out).sum(dim=-1)
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, bias,
+                                              scale)
+        ref = flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                 bias, scale)
+        errs = [max_err(a, b) for a, b in zip((dq, dk, dv), ref)]
+        dead = [i for i, n in enumerate(lengths) if n == 0]
+        if dead and not all(g.view(B, H, T, D)[dead].eq(0).all()
+                            for g in (dq, dk, dv)):
+            raise AssertionError("flash backward: a sample with no live "
+                                 "key did not give exact zero gradients")
+
+        live_keys = H * sum(lengths)       # (bh, key) pairs with a live key
+        # one T x live x D product per (bh) over the live keys: 2 T D ops
+        # per live (bh, key) pair
+        prod = 2 * T * D * live_keys
+        qkvd = BH * T * D * 4                       # bytes of one of q, ...
+        row = BH * T * 4                            # of lse, delta or bias
+        # a kernel reads q, k, v, do, lse, delta (and the bias)
+        io = 4 * qkvd + 2 * row + (0 if dense else row)
+
+        def sdpa_graph(q, k, v, do):
+            qs, ks, vs = (t.view(B, H, T, D).detach().requires_grad_()
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(
+                qs, ks, vs, scale=scale,
+                attn_mask=None if bias is None else bias.view(B, H, 1, T))
+            return o, (qs, ks, vs), do.view(B, H, T, D)
+
+        # the pair reads q, k, v, do, out, lse (and the bias) and writes
+        # dq, dk, dv
+        pair_bytes = 8 * qkvd + row + (0 if dense else row)
+        inputs = (q, k, v, do, out, lse, delta)
+        cold = cold_copies(torch, inputs, pair_bytes)
+        graphs = [sdpa_graph(c[0], c[1], c[2], c[3]) for c in cold]
+        pair = dict(
+            pair_ms=device_ms(torch, lambda q, k, v, do, out, lse, _d:
+                              flash_attention_backward(q, k, v, out, lse,
+                                                       do, bias, scale),
+                              cold)[0],
+            pair_plain_ms=device_ms(
+                torch, lambda q, k, v, do, out, lse, _d:
+                flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                   bias, scale), cold)[0],
+            pair_library_ms=device_ms(
+                torch, lambda o, leaves, g: torch.autograd.grad(
+                    o, leaves, g, retain_graph=True), graphs)[0],
+            pair_bound_ms=bound(pair_bytes, 5 * prod)[0],
+            pair_dense_bound_ms=bound(pair_bytes, 5 * 2 * BH * T * T * D)[0],
+            lengths=lengths, live_key_share=sum(lengths) / (B * T))
+        for name, err, fn, n_prod, out_bytes in (
+                ("flash_attention_bwd_dq", errs[0], flash_attention_bwd_dq,
+                 3, qkvd),
+                ("flash_attention_bwd_dkv", max(errs[1:]),
+                 flash_attention_bwd_dkv, 4, 2 * qkvd)):
+            rows.append(measure(
+                torch, name, (BH, T, D), err, 2e-5, inputs,
+                lambda q, k, v, do, out, lse, delta, fn=fn:
+                fn(q, k, v, do, lse, delta, bias, scale, False),
+                lambda q, k, v, do, out, lse, delta:
+                flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                   bias, scale),
+                None, io + out_bytes, n_prod * prod, dq_err=errs[0],
+                dk_err=errs[1], dv_err=errs[2],
+                plain_computes="dq, dk and dv", **pair))
+    return rows
+
+
+def trainer_adam_row(torch, dev, randn):
+    """The fused AdamW update over BERT-base pretraining's parameters (206
+    fp32 tensors, 110,106,428 elements, tied decoder), once, held bitwise
+    against the plain per-tensor version on copies; then timed against it
+    and against torch.optim.AdamW(fused=True).step() on the same tensors.
+    Each call moves 3 GB, 60 times the L2, so every call is cold."""
+    from incubator_mxnet_tpu_torch.models.bert import pretrain_param_shapes
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
+        multi_trainer_adam, multi_trainer_adam_reference)
+    cfg = BERT_BASE
+    shapes = list(pretrain_param_shapes(
+        cfg["vocab_size"], cfg["units"], cfg["hidden_size"],
+        cfg["num_layers"], cfg["max_length"], tie_decoder=True).values())
+    ws = [0.02 * randn(*s) for s in shapes]
+    gs = [1e-3 * randn(*s) for s in shapes]
+    ms = [1e-4 * randn(*s) for s in shapes]
+    vs = [1e-8 * randn(*s).abs() for s in shapes]
+    hp = dict(lr=TRAIN_LR, wd=0.01, b1=0.9, b2=0.999, eps=1e-8, t=1,
+              adamw=True)
+    ref = [[t.clone() for t in grp] for grp in (ws, gs, ms, vs)]
+    multi_trainer_adam(ws, gs, ms, vs, **hp)
+    multi_trainer_adam_reference(*ref, **hp)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(ws + ms + vs,
+                                                   ref[0] + ref[2] + ref[3]))
+    err = max(max_err(a, b) for a, b in zip(ws + ms + vs,
+                                            ref[0] + ref[2] + ref[3]))
+    if not same:
+        raise AssertionError("trainer_adam: the kernel and its plain "
+                             "version differ (max %r); they must agree "
+                             "bitwise" % err)
+    del ref
+    n = sum(t.numel() for t in ws)
+    bytes_moved = 28 * n                    # read w, g, m, v; write w, m, v
+    inputs = [(ws, gs, ms, vs)]
+    k_ms, timed_by = device_ms(torch, lambda w, g, m, v:
+                               multi_trainer_adam(w, g, m, v, **hp), inputs)
+    p_ms, _ = device_ms(torch, lambda w, g, m, v:
+                        multi_trainer_adam_reference(w, g, m, v, **hp),
+                        inputs)
+    params = [torch.nn.Parameter(w.clone()) for w in ws]
+    for p, g in zip(params, gs):
+        p.grad = g.clone()
+    opt = torch.optim.AdamW(params, lr=TRAIN_LR, weight_decay=0.01,
+                            eps=1e-8, fused=True)
+    lib_ms, _ = device_ms(torch, opt.step, [()])
+    del params, opt
+    bms, by = bound(bytes_moved, 15 * n)
+    return dict(name="trainer_adam", shape=[len(shapes), n],
+                max_abs_err=err, tolerance=0.0, bitwise=same, ms=k_ms,
+                warm_ms=None, timed_by=timed_by, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by, tensors=len(shapes),
+                elements=n, bytes=bytes_moved)
 
 
 def flash_decode_rows(torch, dev, randn):
@@ -414,10 +588,9 @@ def serve_phase(torch, dev, cfg, lengths, directory, rounds=3, clients=8,
 
     n_short = sum(forwards.get(b, 0) for b in BUCKETS if b < 512)
     n_long = sum(forwards.get(b, 0) for b in BUCKETS if b >= 512)
-    want = {"layer_norm": LN_PER_FORWARD * (n_short + n_long),
-            "softmax": ATTN_PER_FORWARD * n_short,
-            "flash_attention_fwd": ATTN_PER_FORWARD * n_long,
-            "flash_decode": 0}
+    want = expected_counts(layer_norm=LN_PER_FORWARD * (n_short + n_long),
+                           softmax=ATTN_PER_FORWARD * n_short,
+                           flash_attention_fwd=ATTN_PER_FORWARD * n_long)
     if dev.type == "cuda":
         if counts != want or not all(
                 want[k] for k in ("layer_norm", "softmax",
@@ -592,8 +765,8 @@ def decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
     chunks = prefill_chunks(prompt_lengths, served.prefill_chunk)
     forwards = steps + chunks
     L = cfg["num_layers"]
-    want = {"layer_norm": (2 * L + 1) * forwards, "softmax": 0,
-            "flash_attention_fwd": 0, "flash_decode": L * forwards}
+    want = expected_counts(layer_norm=(2 * L + 1) * forwards,
+                           flash_decode=L * forwards)
     if dev.type == "cuda" and counts != want:
         raise AssertionError("decode launch counts %s, expected %s from %d "
                              "grid steps and %d prefill chunks"
@@ -675,11 +848,259 @@ def decode_rows(served, prompt, slots, cache_len, steps=8):
     return seq[:-1], np.stack(rows)
 
 
+# -------------------------------------------------------------------- train
+# (T, B): bench_bert's default shape (attention through the softmax kernel)
+# and BERT's full length with the long config's batch (flash attention)
+TRAIN_SHAPES = ((128, 64), (512, 8))
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+CHECK_LAYERS, CHECK_STEPS = 2, 3
+MASK_ID = 103                          # [MASK] in BERT's vocabulary
+# launches of each kernel in one BERTForPretrain step of L layers: LayerNorm
+# 2 L + 1 times in the encoder's forward and once in the MLM head (26 for
+# BERT-base; the backwards are plain PyTorch); one attention forward a
+# layer, through softmax or flash attention, and with flash one dQ and one
+# dK/dV backward a layer; one fused AdamW update
+
+
+def pretrain_params(rs, cfg):
+    """Seeded random BERTForPretrain weights with the decoder tied to the
+    word embedding, named as both packages name them."""
+    from incubator_mxnet_tpu_torch.models.bert import pretrain_param_shapes
+    params = {}
+    for name, shape in pretrain_param_shapes(
+            cfg["vocab_size"], cfg["units"], cfg["hidden_size"],
+            cfg["num_layers"], cfg["max_length"], tie_decoder=True).items():
+        noise = rs.standard_normal(shape).astype(np.float32) * 0.02
+        params[name] = noise + 1.0 if name.endswith("gamma") else noise
+    return params
+
+
+def pretrain_batch(rs, B, T, V):
+    """bench_bert's batch: random ids, zero token types, 15 % of each row's
+    positions (from a permutation) replaced by [MASK] and labelled with the
+    ids they hid, and random NSP labels. Returns (data, label)."""
+    n_mask = max(1, int(T * 0.15))
+    ids = rs.randint(0, V, (B, T)).astype(np.int32)
+    types = np.zeros((B, T), np.int32)
+    pos = np.stack([rs.permutation(T)[:n_mask] for _ in range(B)]) \
+        .astype(np.int32)
+    mlm_lab = np.take_along_axis(ids, pos, axis=1)
+    masked = ids.copy()
+    np.put_along_axis(masked, pos, MASK_ID, axis=1)
+    nsp_lab = rs.randint(0, 2, (B,)).astype(np.int32)
+    return [masked, types, pos], [mlm_lab, nsp_lab]
+
+
+def pretrain_loss(out, mlm_lab, nsp_lab):
+    """bench_bert's objective: the mean MLM cross-entropy over the gathered
+    positions plus the mean NSP cross-entropy, in fp32."""
+    import torch
+    mlm_logits, nsp_logits = out
+    logp = torch.log_softmax(mlm_logits.float(), dim=-1)
+    mlm = -logp.gather(-1, mlm_lab.long()[:, :, None]).mean()
+    nlogp = torch.log_softmax(nsp_logits.float(), dim=-1)
+    return mlm - nlogp.gather(-1, nsp_lab.long()[:, None]).mean()
+
+
+def pretrain_trainer(torch, dev, cfg, params):
+    """A tied BERTForPretrain (dropout 0) on `dev` carrying `params`, behind
+    bench.py's adapter (positional data to the keyword-only mlm_positions),
+    in a ShardedTrainer with AdamW at TRAIN_LR."""
+    from incubator_mxnet_tpu_torch.models.bert import (BERTForPretrain,
+                                                       BERTModel)
+    from incubator_mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    class PretrainStep(torch.nn.Module):
+        def __init__(self, pretrain):
+            super().__init__()
+            self.pretrain = pretrain
+
+        def forward(self, ids, types, pos):
+            return self.pretrain(ids, types, mlm_positions=pos)
+
+    model = BERTForPretrain(bert=BERTModel(device=dev, dropout=0.0, **cfg),
+                            vocab_size=cfg["vocab_size"], tie_decoder=True,
+                            device=dev)
+    model.load_params(params)
+    return ShardedTrainer(PretrainStep(model), pretrain_loss,
+                          make_mesh({"dp": 1}, devices=[dev]),
+                          optimizer="adamw",
+                          optimizer_params={"learning_rate": TRAIN_LR},
+                          data_specs=[None, None, None], device=dev)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_shape(torch, dev, cfg, T, B, steps, profile=False):
+    """One shape of the train phase: step 1 (the warm-up) against the CPU,
+    then `steps` measured steps with exact launch counts, then the reduced-
+    depth check. Returns the train line's fields, the launch counts of the
+    measured steps, the profile of one more step (with `profile`) and the
+    checks that failed."""
+    from incubator_mxnet_tpu_torch.models.bert import use_flash
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    cpu = torch.device("cpu")
+    rs = np.random.RandomState(SEED + T)
+    params = pretrain_params(rs, cfg)
+    data, label = pretrain_batch(rs, B, T, cfg["vocab_size"])
+    failures = []
+
+    tr = pretrain_trainer(torch, dev, cfg, params)
+    t0 = time.perf_counter()
+    loss1 = float(tr.step(data, label))
+    _sync(torch, dev)
+    first_step_s = time.perf_counter() - t0
+    grads = {n: p.grad.detach().to(cpu) for n, p in
+             tr._block.named_parameters()}
+
+    # step 1 through the port on the CPU: the same weights and batch
+    t0 = time.perf_counter()
+    ctr = pretrain_trainer(torch, cpu, cfg, params)
+    cpu_loss1 = float(ctr.step(data, label))
+    cgrads = {n: p.grad.detach() for n, p in ctr._block.named_parameters()}
+    rel = {}
+    for n, ref in cgrads.items():
+        scale = ref
+        if n.endswith("attention.key.bias"):
+            # its exact gradient is 0 (adding q.b to every score of a
+            # query's row leaves the softmax unchanged), so both sides hold
+            # roundoff: it is held to the scale of its layer's key weight
+            scale = cgrads[n[:-len("bias")] + "weight"]
+        rel[n] = max_err(grads[n], ref) / max(float(scale.abs().max()),
+                                              1e-30)
+    del ctr, grads, cgrads
+    cpu_step_s = time.perf_counter() - t0
+    if not abs(loss1 - cpu_loss1) <= 1e-4 * abs(cpu_loss1):
+        failures.append("step 1 loss %r on the card, %r on the CPU (rtol "
+                        "1e-4)" % (loss1, cpu_loss1))
+    bad = sorted((n, r) for n, r in rel.items() if not r <= 1e-4)
+    if bad:
+        failures.append("%d gradients differ from the CPU's by more than "
+                        "1e-4 of their max: %s" % (len(bad), bad[:8]))
+
+    # measured steps on the fixed batch, as bench.py's _train_rate reuses it
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = tr.step(data, label)
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = launch_counts()
+    fused = tr._fused_launches
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    L = cfg["num_layers"]
+    flash = use_flash(T, 0.0)
+    want = expected_counts(
+        layer_norm=(2 * L + 2) * steps, softmax=0 if flash else L * steps,
+        flash_attention_fwd=L * steps if flash else 0,
+        flash_attention_bwd_dq=L * steps if flash else 0,
+        flash_attention_bwd_dkv=L * steps if flash else 0,
+        trainer_adam=steps)
+    if dev.type == "cuda" and (counts != want or fused != 1):
+        failures.append("launch counts %s (fused %s), expected %s from %d "
+                        "steps" % (counts, fused, want, steps))
+    # Adam without warm-up moves every element by about lr in the first
+    # updates, and the loss on the fixed batch need not fall at every step
+    # (PERF.md): the run must end at its lowest loss
+    run = [loss1] + losses
+    if not (np.isfinite(run).all() and min(run) == run[-1] < run[0]):
+        failures.append("losses %s: not finite, or the last is not the "
+                        "lowest" % run)
+    prof = profile_round(torch, lambda: tr.step(data, label)) \
+        if profile else None
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    check = reduced_depth_check(torch, dev, cfg, T, B)
+    failures += check.pop("failures")
+    ms = np.asarray(times) * 1e3
+    fields = dict(T=T, B=B, steps=steps, step_ms_median=float(np.median(ms)),
+                  step_ms_max=float(ms.max()), step_ms=ms.tolist(),
+                  tokens_per_s=B * T / float(np.median(ms)) * 1e3,
+                  loss_step1=loss1, cpu_loss_step1=cpu_loss1,
+                  losses=losses,
+                  grad_worst_rel_err=sorted(rel.items(),
+                                            key=lambda kv: -kv[1])[:5],
+                  fused_launches=fused, launches=counts, flash=flash,
+                  peak_mem_bytes=peak, first_step_s=first_step_s,
+                  cpu_step_s=cpu_step_s, reduced_depth=check)
+    return fields, counts, prof, failures
+
+
+def reduced_depth_check(torch, dev, cfg, T, B):
+    """CHECK_STEPS steps of a CHECK_LAYERS-layer model at full width on the
+    card and on the CPU from the same weights and batch: losses within rtol
+    1e-4, and every parameter within 2 * lr * steps of the CPU's, the most
+    Adam can move an element (so a gradient near 0 whose sign flips between
+    the two is tolerated, a wrong update is not). Returns its fields, with
+    the checks that failed under "failures"."""
+    small = dict(cfg, num_layers=CHECK_LAYERS)
+    rs = np.random.RandomState(SEED + T + 1)
+    params = pretrain_params(rs, small)
+    data, label = pretrain_batch(rs, B, T, small["vocab_size"])
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        tr = pretrain_trainer(torch, d, small, params)
+        losses = [float(tr.step(data, label)) for _ in range(CHECK_STEPS)]
+        out[d.type] = (losses, {n: v.detach().to("cpu") for n, v in
+                                tr.param_values.items()})
+        del tr
+    (lc, pc), (lh, ph) = out[dev.type], out["cpu"]
+    limit = 2 * TRAIN_LR * CHECK_STEPS
+    worst = max(max_err(pc[n], ph[n]) for n in ph)
+    failures = []
+    if not np.allclose(lc, lh, rtol=1e-4, atol=0):
+        failures.append("%d layers: losses %s on the card, %s on the CPU "
+                        "(rtol 1e-4)" % (CHECK_LAYERS, lc, lh))
+    if not worst <= limit:
+        failures.append("%d layers: a parameter differs from the CPU's by "
+                        "%g after %d steps (limit %g)"
+                        % (CHECK_LAYERS, worst, CHECK_STEPS, limit))
+    return dict(layers=CHECK_LAYERS, steps=CHECK_STEPS, losses=lc,
+                cpu_losses=lh, param_max_abs_err=worst, limit=limit,
+                failures=failures)
+
+
+def train_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
+                profile=False, card=None):
+    """Every shape of the train phase, each logged as a `train` line (and a
+    `train_profile` line) as soon as it has run; raises when a check of a
+    shape failed. Returns the summed launch counts of the measured steps."""
+    total = {}
+    for T, B in shapes:
+        fields, counts, prof, failures = train_shape(torch, dev, cfg, T, B,
+                                                     steps, profile)
+        log("train", card=card, **fields)
+        if prof is not None:
+            log("train_profile", card=card, T=T, B=B, **prof)
+        if failures:
+            raise AssertionError("train T=%d B=%d: %s"
+                                 % (T, B, "; ".join(failures)))
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def _kernel_class(name):
     n = name.lower()
     for key, cls in (("ln_warp", "layer_norm"), ("ln_block", "layer_norm"),
                      ("softmax_warp", "softmax"), ("softmax_block", "softmax"),
                      ("flash_fwd", "flash_attention_fwd"),
+                     ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                     ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
+                     ("trainer_adam", "trainer_adam"),
                      ("flash_decode", "flash_decode"),
                      ("memcpy", "copy"), ("memset", "copy")):
         if key in n:
@@ -802,6 +1223,14 @@ KERNEL_META = {
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:42"),
     "flash_decode": ("incubator_mxnet_tpu_torch/csrc/flash_decode.cu",
                      "incubator_mxnet_tpu/ops/pallas/flash_decode.py:86"),
+    "flash_attention_bwd_dq": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:177"),
+    "flash_attention_bwd_dkv": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
+    "trainer_adam": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                     "incubator_mxnet_tpu/ops/pallas/fused_optim.py:231"),
 }
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
@@ -813,7 +1242,9 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="PATH",
                     help="after the measured serving rounds, trace one more "
                          "under torch.profiler and write its device-time "
-                         "breakdown to PATH (JSON)")
+                         "breakdown to PATH (JSON); trace one more served "
+                         "decode round and one more training step of each "
+                         "shape, and print their breakdowns")
     ap.add_argument("--rpc-probe", action="store_true",
                     help="time replies on new rpc connections with and "
                          "without the rpc layer's receive buffer")
@@ -866,21 +1297,26 @@ def main(argv=None):
     if dprofile is not None:
         log("decode_profile", card=card, **dprofile)
 
-    # launches: each main path's run (serve, then decode), counts reset to 0
-    # just before it and read just after; the line carries their sum
+    tcounts = train_phase(torch, dev, BERT_BASE,
+                          profile=args.profile is not None, card=card)
+
+    # launches: each main path's run (serve, decode, then each train shape),
+    # counts reset to 0 just before it and read just after; the line
+    # carries their sum
+    by_path = {"serve": counts, "decode": dcounts, "train": tcounts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name] + dcounts[name],
-            launches_by_path={"serve": counts[name],
-                              "decode": dcounts[name]},
+            launches=sum(c[name] for c in by_path.values()),
+            launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(x["max_abs_err"] for x in krows
                             if x["name"] == name),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            warm_ms=r["warm_ms"], shape=r["shape"]))
+            warm_ms=r["warm_ms"], shape=r["shape"],
+            **{k: v for k, v in r.items() if k.startswith("pair_")}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,22 @@
-"""BERT encoder as PyTorch modules.
+"""BERT encoder and pretraining heads as PyTorch modules.
 
-Counterpart of ``incubator_mxnet_tpu/models/bert.py`` (the encoder, without
-the pretraining heads, ring attention or tensor-parallel rules, which come
-with later slices). Parameter names are exactly the JAX package's
+Counterpart of ``incubator_mxnet_tpu/models/bert.py``: ``BERTModel`` (the
+encoder) and ``BERTForPretrain`` (the MLM and NSP heads, gather-first MLM,
+tied decoder), without ring attention or the tensor-parallel rules, which
+come with later slices. Parameter names are exactly the JAX package's
 ``_collect_params_with_prefix()`` keys (``word_embed.weight``,
-``encoder.layers.0.attention.query.weight``, ...), dense weights are
-(out, in) and LayerNorm holds ``gamma``/``beta`` with eps 1e-5, so weights
-cross between the packages by name: ``params_from_jax`` and
-``BERTModel.load_params``.
+``encoder.layers.0.attention.query.weight``, ...; ``bert.`` before them in
+``BERTForPretrain``), dense weights are (out, in) and LayerNorm holds
+``gamma``/``beta`` with eps 1e-5, so weights cross between the packages by
+name: ``params_from_jax``, ``pretrain_params_from_jax`` and the models'
+``load_params``.
 
 Attention follows the JAX package's choice: the flash-attention kernel when
 T >= ``MXTPU_FLASH_MIN_T`` (default 512), attention dropout is 0 and
 ``MXTPU_DISABLE_FLASH`` is not 1; otherwise scores, the additive
 ``(1 - mask) * -1e30`` padding bias and the softmax kernel. The kernel takes
-any T, so the JAX package's ``T % 128`` condition is gone.
+any T, so the JAX package's ``T % 128`` condition is gone. Both paths, and
+LayerNorm, are differentiable through ``torch.autograd``.
 
 The modules are built in inference mode (``eval()``), as the JAX package's
 forward runs outside ``autograd.record()``; ``train()`` turns dropout on.
@@ -31,9 +34,11 @@ from ..ops.kernels.flash_attention import flash_attention
 from ..ops.nn import (activation, embedding, fully_connected, layer_norm,
                       leaky_relu, softmax)
 
-__all__ = ["BERTModel", "BERTEncoder", "TransformerEncoderLayer",
-           "MultiHeadAttention", "PositionwiseFFN", "bert_base", "bert_large",
-           "bert_param_shapes", "params_from_jax", "use_flash"]
+__all__ = ["BERTModel", "BERTForPretrain", "BERTEncoder",
+           "TransformerEncoderLayer", "MultiHeadAttention", "PositionwiseFFN",
+           "bert_base", "bert_large", "bert_param_shapes",
+           "pretrain_param_shapes", "params_from_jax",
+           "pretrain_params_from_jax", "use_flash"]
 
 
 def use_flash(T, dropout_rate):
@@ -167,6 +172,40 @@ class BERTEncoder(nn.Module):
         return x
 
 
+def _reset(named_params, device, seed):
+    """N(0, 0.02) weights, gamma 1, biases and beta 0, from a generator
+    seeded with ``seed`` on ``device``, in the order given."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in named_params:
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                p.normal_(0.0, 0.02, generator=gen)
+            elif leaf == "gamma":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def _load(model, state):
+    """Copy ``state`` (name -> tensor on the model's device) into
+    ``model``; the key sets and every shape must match."""
+    own = dict(model.named_parameters())
+    if set(state) != set(own):
+        raise KeyError(
+            "parameter sets differ: missing %s, extra %s"
+            % (sorted(set(own) - set(state))[:8],
+               sorted(set(state) - set(own))[:8]))
+    with torch.no_grad():
+        for name, p in own.items():
+            if state[name].shape != p.shape:
+                raise ValueError("%s: shape %s, model has %s"
+                                 % (name, tuple(state[name].shape),
+                                    tuple(p.shape)))
+            p.copy_(state[name])
+    return model
+
+
 class BERTModel(nn.Module):
     """Token + segment + position embeddings -> encoder -> (sequence,
     pooled).
@@ -203,36 +242,13 @@ class BERTModel(nn.Module):
         return self.word_embed.weight.device
 
     def reset_parameters(self, seed=0):
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf == "weight":
-                    p.normal_(0.0, 0.02, generator=gen)
-                elif leaf == "gamma":
-                    p.fill_(1.0)
-                else:
-                    p.zero_()
+        _reset(self.named_parameters(), self.device, seed)
 
     def load_params(self, params):
         """Copy a JAX-named parameter dict (numpy arrays, tensors or the
         JAX package's NDArrays) into this model; every key and shape must
         match."""
-        state = params_from_jax(params, self.device)
-        own = dict(self.named_parameters())
-        if set(state) != set(own):
-            raise KeyError(
-                "parameter sets differ: missing %s, extra %s"
-                % (sorted(set(own) - set(state))[:8],
-                   sorted(set(state) - set(own))[:8]))
-        with torch.no_grad():
-            for name, p in own.items():
-                if state[name].shape != p.shape:
-                    raise ValueError("%s: shape %s, model has %s"
-                                     % (name, tuple(state[name].shape),
-                                        tuple(p.shape)))
-                p.copy_(state[name])
-        return self
+        return _load(self, params_from_jax(params, self.device))
 
     def forward(self, token_ids, token_types=None, valid_mask=None):
         B, T = token_ids.shape[0], token_ids.shape[-1]
@@ -245,6 +261,73 @@ class BERTModel(nn.Module):
         seq = self.encoder(x, valid_mask)
         pooled = self.pooler(seq[:, 0].reshape(B, self._units))
         return seq, pooled
+
+
+class BERTForPretrain(nn.Module):
+    """MLM + NSP heads over a ``BERTModel`` (the benchmarked training
+    configuration of the JAX package).
+
+    ``mlm_dense`` (tanh) -> ``mlm_ln`` -> ``mlm_decoder`` (vocab logits)
+    over the sequence output, and ``nsp`` (2 logits) over the pooled
+    output. With ``tie_decoder=True`` the decoder's weight is the word
+    embedding's one ``nn.Parameter`` (listed once by ``named_parameters``,
+    so an optimizer updates it once). When ``mlm_positions`` (B, M) is given
+    (keyword-only) the masked positions' hidden states are gathered first,
+    so the vocab projection runs on those rows only; without it the logits
+    cover every position.
+
+    ``device=None`` is ``cuda:0`` and raises without CUDA; a given ``bert``
+    must lie on that device. Without ``bert`` a ``BERTModel(vocab_size)`` is
+    built there. The heads are drawn as ``BERTModel``'s weights are, from
+    ``seed``."""
+
+    def __init__(self, bert=None, vocab_size=30522, tie_decoder=False,
+                 device=None, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        if bert is None:
+            bert = BERTModel(vocab_size=vocab_size, device=device, seed=seed)
+        elif bert.device != device:
+            raise ValueError("BERTForPretrain: bert is on %s, not %s"
+                             % (bert.device, device))
+        units = bert._units
+        self.bert = bert
+        self.mlm_dense = Dense(units, units, activation="tanh", device=device)
+        self.mlm_ln = LayerNorm(units, device=device)
+        self.mlm_decoder = Dense(units, vocab_size, device=device)
+        self.nsp = Dense(units, 2, device=device)
+        self.tie_decoder = bool(tie_decoder)
+        if self.tie_decoder:
+            if tuple(bert.word_embed.weight.shape) != (vocab_size, units):
+                raise ValueError("tie_decoder: the word embedding is %s, the "
+                                 "decoder needs (%d, %d)"
+                                 % (tuple(bert.word_embed.weight.shape),
+                                    vocab_size, units))
+            self.mlm_decoder.weight = bert.word_embed.weight
+        # a tied decoder weight is listed once, as bert.word_embed.weight
+        _reset([(n, p) for n, p in self.named_parameters()
+                if not n.startswith("bert.")], device, seed + 1)
+        self.eval()
+
+    @property
+    def device(self):
+        return self.bert.device
+
+    def load_params(self, params):
+        """Copy a JAX-named pretraining parameter dict into this model (see
+        ``pretrain_params_from_jax``)."""
+        return _load(self, pretrain_params_from_jax(params, self.device,
+                                                    self.tie_decoder))
+
+    def forward(self, token_ids, token_types=None, valid_mask=None, *,
+                mlm_positions=None):
+        seq, pooled = self.bert(token_ids, token_types, valid_mask)
+        if mlm_positions is not None:
+            idx = mlm_positions.long()[:, :, None].expand(
+                -1, -1, seq.shape[-1])
+            seq = torch.gather(seq, 1, idx)             # (B, M, units)
+        mlm = self.mlm_decoder(self.mlm_ln(self.mlm_dense(seq)))
+        return mlm, self.nsp(pooled)
 
 
 def bert_base(vocab_size=30522, dropout=0.1, **kwargs):
@@ -326,3 +409,64 @@ def params_from_jax(params, device):
                              % (name, tuple(tensors[name].shape), shape))
     return {name: t.to(device=device, dtype=torch.float32)
             for name, t in tensors.items()}
+
+
+def _head_shapes(vocab_size, units, tie_decoder):
+    shapes = {"mlm_dense.weight": (units, units), "mlm_dense.bias": (units,),
+              "mlm_ln.gamma": (units,), "mlm_ln.beta": (units,),
+              "mlm_decoder.bias": (vocab_size,),
+              "nsp.weight": (2, units), "nsp.bias": (2,)}
+    if not tie_decoder:
+        shapes["mlm_decoder.weight"] = (vocab_size, units)
+    return shapes
+
+
+def pretrain_param_shapes(vocab_size, units, hidden_size, num_layers,
+                          max_length=512, token_type_vocab=2,
+                          tie_decoder=False):
+    """{JAX parameter name: shape} of a BERTForPretrain's distinct
+    parameters: the encoder's under ``bert.`` and the heads'. A tied
+    decoder's weight is ``bert.word_embed.weight`` and is not listed again
+    as ``mlm_decoder.weight``."""
+    shapes = {"bert." + k: v for k, v in bert_param_shapes(
+        vocab_size, units, hidden_size, num_layers, max_length,
+        token_type_vocab).items()}
+    shapes.update(_head_shapes(vocab_size, units, tie_decoder))
+    return shapes
+
+
+def pretrain_params_from_jax(params, device, tie_decoder):
+    """Carry a BERTForPretrain parameter dict named as the JAX package's
+    ``_collect_params_with_prefix()`` names it onto ``device`` as float32
+    tensors. With ``tie_decoder`` the JAX dict also lists the shared matrix
+    as ``mlm_decoder.weight``; it is accepted only if it equals
+    ``bert.word_embed.weight``, and dropped. The key set must be exactly the
+    configuration's and every shape must match, else KeyError /
+    ValueError."""
+    tensors = {str(k): _to_tensor(v) for k, v in params.items()}
+    if tie_decoder and "mlm_decoder.weight" in tensors:
+        dec = tensors.pop("mlm_decoder.weight")
+        emb = tensors.get("bert.word_embed.weight")
+        if emb is None or dec.shape != emb.shape or not torch.equal(dec, emb):
+            raise ValueError("tie_decoder: mlm_decoder.weight is not "
+                             "bert.word_embed.weight; a tied decoder's "
+                             "weight is the word embedding")
+    out = {"bert." + k: v for k, v in params_from_jax(
+        {k[len("bert."):]: v for k, v in tensors.items()
+         if k.startswith("bert.")}, device).items()}
+    vocab_size, units = out["bert.word_embed.weight"].shape
+    bias = tensors.get("mlm_decoder.bias")
+    expected = _head_shapes(bias.shape[0] if bias is not None else vocab_size,
+                            units, tie_decoder)
+    heads = {k: v for k, v in tensors.items() if not k.startswith("bert.")}
+    missing = sorted(set(expected) - set(heads))
+    extra = sorted(set(heads) - set(expected))
+    if missing or extra:
+        raise KeyError("BERTForPretrain parameter names do not match: "
+                       "missing %s, extra %s" % (missing[:8], extra[:8]))
+    for name, t in heads.items():
+        if tuple(t.shape) != expected[name]:
+            raise ValueError("%s: shape %s, expected %s"
+                             % (name, tuple(t.shape), expected[name]))
+        out[name] = t.to(device=device, dtype=torch.float32)
+    return out

@@ -3,15 +3,22 @@ package (``incubator_mxnet_tpu/ops/pallas/``), with their plain versions and
 launch counts. The CUDA sources are in ``incubator_mxnet_tpu_torch/csrc/``
 and are built at first use by ``_build``."""
 
-from .flash_attention import (flash_attention, flash_attention_forward,
+from .flash_attention import (flash_attention, flash_attention_backward,
+                              flash_attention_backward_reference,
+                              flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_forward,
                               flash_attention_reference)
 from .flash_decode import (paged_causal_attention, paged_flash_decode,
                            paged_flash_decode_reference)
 from .fused_norm import (layer_norm, layer_norm_reference, softmax,
                          softmax_reference)
+from .fused_optim import multi_trainer_adam, multi_trainer_adam_reference
 
-__all__ = ["flash_attention", "flash_attention_forward",
+__all__ = ["flash_attention", "flash_attention_backward",
+           "flash_attention_backward_reference", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_forward",
            "flash_attention_reference", "layer_norm", "layer_norm_reference",
+           "multi_trainer_adam", "multi_trainer_adam_reference",
            "paged_causal_attention", "paged_flash_decode",
            "paged_flash_decode_reference", "softmax", "softmax_reference",
            "WRAPPERS", "launch_counts", "reset_launch_counts"]
@@ -21,7 +28,10 @@ WRAPPERS = {
     "layer_norm": layer_norm,
     "softmax": softmax,
     "flash_attention_fwd": flash_attention_forward,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_decode": paged_flash_decode,
+    "trainer_adam": multi_trainer_adam,
 }
 
 

@@ -43,6 +43,18 @@ _SIGNATURES = {
     # q, k, v, bias, out, lse, bh, T, D, scale, causal, device, stream
     "mxtpu_flash_attention_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _F, _I, _I, _P),
+    # q, k, v, dout, lse, delta, bias, dq, bh, T, D, scale, causal, device,
+    # stream
+    "mxtpu_flash_attention_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _F, _I, _I, _P),
+    # q, k, v, dout, lse, delta, bias, dk, dv, bh, T, D, scale, causal,
+    # device, stream
+    "mxtpu_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _F, _I, _I, _P),
+    # table, n_tensors, n_chunks, lr, wd, b1, b2, 1 - b1, 1 - b2, 1 - b1^t,
+    # 1 - b2^t, eps, lr * wd, adamw, device, stream
+    "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                               _F, _F, _I, _I, _P),
     # q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H, D, num_blocks,
     # block_size, max_blocks, scale, device, stream
     "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

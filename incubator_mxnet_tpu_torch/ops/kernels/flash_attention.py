@@ -1,16 +1,20 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain PyTorch versions.
 
-Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``,
-forward only (the dQ and dK/dV kernels come with the training slice). The
-kernel is in ``csrc/flash_attention_fwd.cu``. It takes any T; the JAX
+Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``. The
+forward kernel is in ``csrc/flash_attention_fwd.cu``, the dQ and dK/dV
+kernels in ``csrc/flash_attention_bwd.cu``. They take any T; the JAX
 package's ``T % 128`` rule was the TPU's tiling and does not apply.
 
 ``flash_attention_forward`` works on (B*H, T, D) and returns ``(out, lse)``
-with lse as (B*H, T). For a CPU tensor it takes the plain version; for a
-CUDA tensor it launches the kernel or raises, and adds one to its
-``launches`` count. ``flash_attention`` is the public (B, H, T, D) API of
-the JAX package.
+with lse as (B*H, T); ``flash_attention_backward`` takes the forward's
+inputs, ``out``, ``lse`` and the output's cotangent and returns
+``(dq, dk, dv)``, recomputing P from the lse. For CPU tensors they take the
+plain versions; for CUDA tensors they launch the kernels or raise, and each
+kernel's wrapper adds one to its ``launches`` count. ``flash_attention`` is
+the public (B, H, T, D) API of the JAX package, differentiable in q, k and v
+through ``torch.autograd``. Its padding bias is a constant, as in the JAX
+package; the cotangent of a learned ``kv_bias`` is not ported yet.
 """
 
 import torch
@@ -18,7 +22,9 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_forward",
-           "flash_attention_reference"]
+           "flash_attention_reference", "flash_attention_backward",
+           "flash_attention_backward_reference", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -104,17 +110,151 @@ def flash_attention_forward(q, k, v, bias=None, scale=None, causal=False):
 flash_attention_forward.launches = 0
 
 
+def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
+                                       scale=1.0, causal=False):
+    """Plain attention backward on (BH, T, D) as the TPU kernels compute it
+    (``_recompute_p_ds``): P = exp(s - lse) from the forward's lse, with s
+    the scaled, biased and causally masked scores; delta = rowsum(dO * O);
+    dS = P * (dP - delta) * scale. Returns ``(dq, dk, dv)``. A row whose
+    keys are all masked (lse 0, out 0) gives P = 0 and so no gradient."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()[:, None, :]
+    if causal:
+        pos = torch.arange(q.shape[1], device=q.device)
+        s = s.masked_fill(pos[:, None] < pos[None, :], _NEG_INF)
+    p = torch.exp(s - lse.float()[..., None])
+    delta = (dof * out.float()).sum(dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd_cuda(q, k, v, do, lse, delta, bias):
+    _check_cuda(q, k, v, bias)
+    bh, T, _D = q.shape
+    if do.device != q.device or do.dtype != torch.float32 \
+            or do.shape != q.shape or not do.is_contiguous() \
+            or do.data_ptr() % 16:
+        raise ValueError("flash_attention backward: do must be a contiguous, "
+                         "16-byte aligned float32 %s tensor on %s"
+                         % (tuple(q.shape), q.device))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.device != q.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != (bh, T) or not t.is_contiguous():
+            raise ValueError("flash_attention backward: %s must be a "
+                             "contiguous float32 (%d, %d) tensor on %s"
+                             % (name, bh, T, q.device))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal):
+    """The dQ kernel on CUDA tensors: (BH, T, D) q, k, v, do; (BH, T) lse
+    and delta = rowsum(dO * O); bias (BH, T) or None. Returns dq."""
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias)
+    bh, T, D = q.shape
+    dq = torch.empty_like(q)
+    if bh == 0 or T == 0:
+        return dq
+    rc = _build.library().mxtpu_flash_attention_bwd_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if bias is None else bias.data_ptr(), dq.data_ptr(),
+        bh, T, D, float(scale), int(bool(causal)), q.device.index,
+        _stream(q))
+    _build.check(rc, "flash_attention_bwd_dq")
+    _build.count_launch(flash_attention_bwd_dq)
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale, causal):
+    """The dK/dV kernel on CUDA tensors, with the dQ kernel's arguments.
+    Returns ``(dk, dv)``."""
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias)
+    bh, T, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if bh == 0 or T == 0:
+        return dk, dv
+    rc = _build.library().mxtpu_flash_attention_bwd_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if bias is None else bias.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, T, D, float(scale), int(bool(causal)),
+        q.device.index, _stream(q))
+    _build.check(rc, "flash_attention_bwd_dkv")
+    _build.count_launch(flash_attention_bwd_dkv)
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
+                             causal=False):
+    """Gradients of attention on (BH, T, D) from the forward's ``out`` and
+    ``lse`` and the output's cotangent ``do``: ``(dq, dk, dv)``. The mask
+    bias gets no gradient."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                  bias, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention: unsupported device %s" % q.device)
+    # delta = rowsum(dO * O): one reduction, as in the TPU kernel's caller
+    delta = (do * out).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale,
+                                     causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``flash_attention_forward``, backward through
+    ``flash_attention_backward`` from the saved (q, k, v, bias, out, lse),
+    as the JAX package's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, causal):
+        out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do.contiguous(), bias, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, scale=None, causal=False, kv_mask=None,
                     kv_bias=None):
     """q, k, v: (B, H, T, D). Returns (B, H, T, D).
 
     kv_mask: optional (B, T), nonzero = live key, 0 = padding; padded keys
     get no attention, and a query row whose keys are all masked returns
-    exact zeros. kv_bias: optional additive per-key bias, (B, H, T) or
-    (B, T)."""
+    exact zeros (and gives zero gradients). kv_bias: optional additive
+    per-key bias, (B, H, T) or (B, T); one that requires grad raises
+    NotImplementedError. Differentiable in q, k and v."""
     B, H, T, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    if isinstance(kv_bias, torch.Tensor) and kv_bias.requires_grad:
+        raise NotImplementedError(
+            "flash_attention: the gradient of a learned kv_bias (the TPU "
+            "kernel's has_dbias path) is not ported yet")
     bias = None
     if kv_mask is not None or kv_bias is not None:
         b1 = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
@@ -128,8 +268,11 @@ def flash_attention(q, k, v, scale=None, causal=False, kv_mask=None,
             neg = torch.zeros((B, T), dtype=torch.float32, device=q.device)
             b1 = b1 + neg.masked_fill(~live, _NEG_INF)[:, None, :]
         bias = b1.reshape(B * H, T).contiguous()
-    out, _lse = flash_attention_forward(
-        q.reshape(B * H, T, D).contiguous(),
-        k.reshape(B * H, T, D).contiguous(),
-        v.reshape(B * H, T, D).contiguous(), bias, float(scale), causal)
+    q3, k3, v3 = (t.reshape(B * H, T, D).contiguous() for t in (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _FlashAttention.apply(q3, k3, v3, bias, float(scale),
+                                    bool(causal))
+    else:
+        out, _lse = flash_attention_forward(q3, k3, v3, bias, float(scale),
+                                            causal)
     return out.reshape(B, H, T, D)

@@ -1,13 +1,16 @@
-"""LayerNorm and row softmax over the last axis: the CUDA kernels' wrappers
-and their plain PyTorch versions.
+"""LayerNorm and row softmax over the last axis: the CUDA kernels' wrappers,
+their plain PyTorch versions, and their gradients.
 
-Counterpart of ``incubator_mxnet_tpu/ops/pallas/fused_norm.py`` (forward
-only; the gradients come with the training slice). The kernels are in
-``csrc/fused_norm.cu``.
+Counterpart of ``incubator_mxnet_tpu/ops/pallas/fused_norm.py``. The
+forward kernels are in ``csrc/fused_norm.cu``. The JAX package's backwards
+(``_ln_bwd``, ``_softmax_bwd``) are plain jnp, not Pallas kernels, so here
+they are plain PyTorch, written as they are, in ``torch.autograd.Function``s
+around the forward kernels.
 
 A wrapper takes the plain version for a tensor on the CPU, and only then.
 For a CUDA tensor it launches its kernel or raises: float32, contiguous,
 any row count. Each launch adds one to the wrapper's ``launches`` count.
+Inputs that need no gradient skip the autograd Function.
 """
 
 import torch
@@ -65,8 +68,7 @@ def _rows(what, x):
     return rows, C
 
 
-def layer_norm(x, gamma, beta, eps=1e-5):
-    """LayerNorm over the last axis of ``x``; gamma and beta are (C,)."""
+def _layer_norm_forward(x, gamma, beta, eps):
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -89,11 +91,51 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return out
 
 
+def _ln_backward(x, gamma, g, eps):
+    """``_ln_bwd``: mean and rstd recomputed in fp32; (dx, dgamma, dbeta)."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C).float()
+    gf = g.reshape(-1, C).float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = xc * inv
+    dgamma = (gf * xhat).sum(dim=0).to(gamma.dtype)
+    dbeta = gf.sum(dim=0).to(gamma.dtype)
+    dy = gf * gamma.float()
+    dx = inv / C * (C * dy - dy.sum(dim=-1, keepdim=True)
+                    - xhat * (dy * xhat).sum(dim=-1, keepdim=True))
+    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _layer_norm_forward(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = _ln_backward(x, gamma, g, ctx.eps)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm(x, gamma, beta, eps=1e-5):
+    """LayerNorm over the last axis of ``x``; gamma and beta are (C,).
+    Differentiable in all three."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, gamma, beta)):
+        return _LayerNorm.apply(x, gamma, beta, eps)
+    return _layer_norm_forward(x, gamma, beta, eps)
+
+
 layer_norm.launches = 0
 
 
-def softmax(x):
-    """Softmax over the last axis of ``x``."""
+def _softmax_forward(x):
     if x.device.type == "cpu":
         return softmax_reference(x)
     if x.device.type != "cuda":
@@ -110,6 +152,29 @@ def softmax(x):
     _build.check(rc, "softmax")
     _build.count_launch(softmax)
     return out
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax_forward(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # _softmax_bwd: y * (g - sum(g * y)) in fp32
+        (y,) = ctx.saved_tensors
+        yf, gf = y.float(), g.float()
+        dx = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
+        return dx.to(y.dtype)
+
+
+def softmax(x):
+    """Softmax over the last axis of ``x``; differentiable."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Softmax.apply(x)
+    return _softmax_forward(x)
 
 
 softmax.launches = 0

@@ -5,6 +5,9 @@ the Pallas kernels in interpret mode (as tests/test_pallas.py does) where
 they tile, and the JAX package's own jnp path where they do not (odd row
 counts). Both sides get the same numpy inputs from a seed. Tolerance
 rtol = atol = 1e-5: fp32 on both sides, sums taken in another order.
+Gradients go through the port's autograd Functions (plain PyTorch
+backwards written as the JAX package's ``_ln_bwd`` and ``_softmax_bwd``)
+and through ``jax.vjp`` of the Pallas kernels' custom VJPs.
 
 The CUDA kernels are held against the plain versions on a card in
 tests/test_torch_kernels_cuda.py.
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from incubator_mxnet_tpu.ops import nn as jnn
@@ -108,6 +112,51 @@ def test_softmax_odd_rows_and_options_match_jax_op(rows):
     want1 = np.asarray(jnn.softmax(jnp.asarray(x), axis=1))
     got1 = tnn.softmax(torch.from_numpy(x), axis=1).numpy()
     np.testing.assert_allclose(got1, want1, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("rows,C", [(8, 128), (32, 768), (24, 100)])
+def test_layer_norm_gradients_match_pallas_interpret(rows, C):
+    """dx, dgamma and dbeta of the port's autograd Function against the
+    JAX custom VJP around the Pallas kernel."""
+    x, g, b = _ln_inputs(rows, C, rows + C + 1)
+    ct = np.random.RandomState(rows).randn(rows, C).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, g, b: fused_layer_norm(x, g, b, eps=1e-5,
+                                                      interpret=True),
+                     jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(ct))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, g, b)]
+    fused_norm.layer_norm(*leaves, eps=1e-5).backward(torch.from_numpy(ct))
+    for name, t, w in zip(("dx", "dgamma", "dbeta"), leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (8, 4, 128), (16, 33)])
+def test_softmax_gradient_matches_pallas_interpret(shape):
+    rs = np.random.RandomState(len(shape) + 10)
+    x = (rs.randn(*shape) * 3).astype(np.float32)
+    ct = rs.randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: fused_softmax(x, interpret=True),
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(ct))
+    xt = torch.from_numpy(x).requires_grad_()
+    fused_norm.softmax(xt).backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_inputs_without_grad_skip_the_autograd_function():
+    """Inference keeps the plain call: no graph node, the same values."""
+    x = torch.randn(4, 32)
+    g, b = torch.ones(32), torch.zeros(32)
+    assert fused_norm.layer_norm(x, g, b).grad_fn is None
+    assert fused_norm.softmax(x).grad_fn is None
+    xg = x.clone().requires_grad_()
+    y = fused_norm.layer_norm(xg, g, b)
+    assert y.grad_fn is not None
+    assert torch.equal(y.detach(), fused_norm.layer_norm(x, g, b))
+    with torch.no_grad():
+        assert fused_norm.softmax(xg).grad_fn is None
 
 
 def test_cpu_tensors_take_the_plain_path_without_launching():

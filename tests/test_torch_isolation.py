@@ -50,8 +50,9 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["flash_attention_fwd.cu", "flash_decode.cu",
-                     "fused_norm.cu", "runtime.cu"]
+    assert names == ["flash_attention_bwd.cu", "flash_attention_fwd.cu",
+                     "flash_decode.cu", "fused_norm.cu", "fused_optim.cu",
+                     "runtime.cu"]
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
 
 
@@ -60,8 +61,10 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
         pytest.skip("this card has CUDA; the check is for hosts without it")
     from incubator_mxnet_tpu_torch.generate import (
         GPTPagedLM, PagedKVCache, export_gpt_for_serving)
-    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.models.bert import (BERTForPretrain,
+                                                       BERTModel)
     from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
+    from incubator_mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
     from incubator_mxnet_tpu_torch.serving import (KVCache, ModelServer,
                                                    load_served_model)
     gpt_cfg = dict(vocab_size=10, units=8, num_layers=1, num_heads=2,
@@ -84,6 +87,22 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
         PagedKVCache(1, {"k0": ("kv", (2, 4))})
     with pytest.raises(RuntimeError, match="CUDA"):
         KVCache(1, {"k0": ("kv", (2, 4))})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh({"dp": 1})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BERTForPretrain(vocab_size=10)
+    tiny = dict(num_layers=1, units=8, hidden_size=8, num_heads=2,
+                vocab_size=10, max_length=8)
+    cpu_bert = BERTModel(device="cpu", **tiny)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BERTForPretrain(bert=cpu_bert, vocab_size=10)
+    pre = BERTForPretrain(bert=cpu_bert, vocab_size=10, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedTrainer(pre, lambda out, y: out[1].sum(), optimizer="adamw")
+    assert make_mesh({"dp": 1}, devices=["cpu"]).device.type == "cpu"
+    tr = ShardedTrainer(pre, lambda out, y: out[1].sum(), optimizer="adamw",
+                        device="cpu")
+    assert all(p.device.type == "cpu" for p in tr.param_values.values())
     # asked for explicitly, the CPU works
     m = BERTModel(num_layers=1, units=8, hidden_size=8, num_heads=2,
                   vocab_size=10, max_length=8, device="cpu")

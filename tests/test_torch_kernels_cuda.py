@@ -8,9 +8,12 @@ JAX package, so it runs on the card's machine, which has no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances (TF32 off): LayerNorm and softmax atol 1e-5, flash attention
-atol 2e-5, flash decode atol 2e-5 on o, 1e-5 on m and rtol 1e-5 on l; the
-kernels sum in another order than the plain versions. The GPT test holds
-whole generations on the card and the CPU token for token.
+forward and backward atol 2e-5, flash decode atol 2e-5 on o, 1e-5 on m and
+rtol 1e-5 on l; the kernels sum in another order than the plain versions.
+The fused Adam / AdamW kernel equals its plain version bitwise: both round
+every operation on its own, in the same order, from the same f32 scalars.
+The GPT test holds whole generations on the card and the CPU token for
+token.
 """
 
 import math
@@ -20,7 +23,12 @@ import torch
 
 from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
 from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_forward, flash_attention_reference)
+    flash_attention, flash_attention_backward,
+    flash_attention_backward_reference, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_forward,
+    flash_attention_reference)
+from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
+    multi_trainer_adam, multi_trainer_adam_reference)
 
 
 @pytest.fixture
@@ -125,6 +133,131 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention_forward(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_forward(q.transpose(0, 1), q, q)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 64, 100, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_match_plain(cuda, T, D, causal):
+    """dq, dk, dv against the plain version from the same forward, with a
+    row of every key masked (exact zero gradients), a half-masked row and a
+    non-contiguous cotangent."""
+    BH = 6
+    gen = torch.Generator(device=cuda).manual_seed(T * D + causal)
+    q, k, v = (torch.randn(BH, T, D, generator=gen, device=cuda)
+               for _ in range(3))
+    bias = torch.randn(BH, T, generator=gen, device=cuda)
+    bias[0] = -1e30
+    bias[1, T // 2:] = -1e30
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    do = torch.randn(BH, D, T, generator=gen, device=cuda).transpose(1, 2)
+    n0 = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, lse,
+                                          do.contiguous(), bias, scale,
+                                          causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                              scale, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 2e-5
+    assert (dq[0] == 0).all() and (dk[0] == 0).all() and (dv[0] == 0).all()
+
+
+@pytest.mark.needs_cuda
+def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
+    """The public (B, H, T, D) API's gradients through the kernels against
+    the same inputs through the plain versions on the CPU, with a padding
+    mask that kills one sample."""
+    B, H, T, D = 2, 3, 200, 64
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(B, H, T, D, generator=gen) for _ in range(3))
+    mask = (torch.arange(T)[None] < torch.tensor([[0], [150]])).float()
+    g = torch.randn(B, H, T, D, generator=gen)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, kv_mask=mask.to(dev))
+        out.backward(g.to(dev))
+        grads[dev.type] = [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert all((t[0] == 0).all() for t in grads["cuda"])
+
+
+@pytest.mark.needs_cuda
+def test_flash_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(2, 16, 64, device=cuda)
+    lse = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="do must be"):
+        flash_attention_bwd_dq(q, q, q, q.transpose(1, 2).contiguous()
+                               .transpose(1, 2), lse, lse, None, 0.125,
+                               False)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_dkv(q, q, q, q, lse[:, :8], lse, None, 0.125,
+                                False)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_dq(q.double(), q.double(), q.double(), q, lse,
+                               lse, None, 0.125, False)
+    with pytest.raises(ValueError, match="tensor on|q on"):
+        flash_attention_bwd_dkv(q, q.cpu(), q, q, lse, lse, None, 0.125,
+                                False)
+
+
+def _adam_state(sizes, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    groups = []
+    for scale in (1.0, 1e-3, 1e-3, 1e-6):     # w, g, m, v (v >= 0)
+        groups.append([torch.randn(n, generator=gen, device=device) * scale
+                       for n in sizes])
+    groups[3] = [t.abs() for t in groups[3]]
+    return groups
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("adamw", [False, True], ids=["adam", "adamw"])
+@pytest.mark.parametrize("t", [1, 1000])
+def test_trainer_adam_kernel_equals_plain_bitwise(cuda, adamw, t):
+    """Many tensors of sizes 1, 3 and 4097 (unaligned tails), one of 1 M
+    elements (31 chunks) and one misaligned view: w, m and v bitwise."""
+    sizes = [1, 3, 4097] * 20 + [1 << 20, 5]
+    ws, gs, ms, vs = _adam_state(sizes, cuda, seed=t + adamw)
+    for group, scale in zip((ws, gs, ms, vs), (1.0, 1e-3, 1e-3, 1e-6)):
+        buf = torch.rand(4098, device=cuda) * scale
+        group.append(buf[1:])      # contiguous, not 16-byte aligned
+    w0 = [x.clone() for x in ws]
+    ref = [[x.clone() for x in group] for group in (ws, gs, ms, vs)]
+    hp = dict(lr=1e-3, wd=0.01, b1=0.9, b2=0.999, eps=1e-8, t=t,
+              adamw=adamw)
+    n0 = multi_trainer_adam.launches
+    multi_trainer_adam(ws, gs, ms, vs, **hp)
+    torch.cuda.synchronize()
+    assert multi_trainer_adam.launches == n0 + 1
+    multi_trainer_adam_reference(*ref, **hp)
+    for got, want in zip((ws, ms, vs), (ref[0], ref[2], ref[3])):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(ws[-3], w0[-3]) and not torch.equal(ws[-1], w0[-1])
+
+
+@pytest.mark.needs_cuda
+def test_trainer_adam_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    w = [torch.zeros(8, device=cuda)]
+    hp = dict(lr=1e-3, wd=0.0, b1=0.9, b2=0.999, eps=1e-8, t=1)
+    with pytest.raises(TypeError, match="float32"):
+        multi_trainer_adam([w[0].double()], [w[0].double()],
+                           [w[0].double()], [w[0].double()], **hp)
+    with pytest.raises(ValueError, match="shape"):
+        multi_trainer_adam(w, [torch.zeros(4, device=cuda)], w, w, **hp)
+    with pytest.raises(ValueError, match="on"):
+        multi_trainer_adam(w, [torch.zeros(8)], w, w, **hp)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.zeros(16, device=cuda)[::2]
+        multi_trainer_adam([strided], w, w, w, **hp)
 
 
 def _paged_inputs(S, C, H, D, bs, mb, lengths, device, seed):

@@ -10,7 +10,7 @@ Phases, each printing one line:
 1. device  - the card (nvidia-smi name and power limit), torch and CUDA
              versions, and the time to build the kernels from csrc/ with nvcc.
 2. kernels - each hand-written kernel against its plain PyTorch version on
-             the card, at the shapes the serving path gives it: max error,
+             the card, at the shapes its path gives it: max error,
              kernel / plain / library device time with the inputs out of
              L2 (the kernel's time with them in L2 beside), and the least
              time the card could take (its bound).
@@ -41,10 +41,23 @@ Phases, each printing one line:
              must be exactly its launches per step times the steps, and
              three steps of a 2-layer model at full width must match the
              CPU's.
+6. resnet_train - ResNet-50 v1 (fp32, TF32 off) through ShardedTrainer with
+             SGD at lr 0.1 and momentum 0.9, on bench_resnet50's batch (128
+             images of 224 x 224, random labels) with seeded Xavier weights:
+             step 1 at B = 32 against the port on the CPU (loss, every
+             gradient and running statistic), a warm-up step and measured
+             steps with exactly one fused SGD-momentum launch a step and no
+             other kernel, then 3 steps of the full model at B = 8 x 64 x 64
+             against the CPU.
+7. bottleneck - bench_fused_block: three stacked stage-1 bottleneck units
+             (B = 128, 56 x 56, C = 256, M = 64, bf16) through the fused
+             kernel, exactly one launch a unit, against the same stack
+             through the plain version, and the stack's device time beside
+             the cuDNN conv stack's.
 
 Options for measurement runs: --profile PATH traces one more serving round,
 one more served decode round (the same 16 requests) and one more training
-step of each shape under torch.profiler; --rpc-probe times replies on new
+step of each shape (BERT and ResNet) under torch.profiler; --rpc-probe times replies on new
 rpc connections.
 
 Any failure is fatal (non-zero exit, no result line). Before the last line
@@ -68,10 +81,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory rate and fp32 rate
-# outside the tensor cores, which is the arithmetic these kernels use.
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory rate, the fp32
+# rate outside the tensor cores (the arithmetic of the fp32 kernels) and the
+# bf16 tensor-core rate (the least time for a bf16 function).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 L2_BYTES = 50 << 20
 
 SEED = 1234
@@ -152,10 +167,11 @@ def cold_copies(torch, inputs, bytes_moved):
     return [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n - 1)]
 
 
-def bound(bytes_moved, flops):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound(bytes_moved, flops, flops_per_s=FP32_FLOPS_PER_S):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the operations at `flops_per_s`."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -167,12 +183,13 @@ def max_err(a, b):
 
 # ------------------------------------------------------------------ kernels
 def measure(torch, name, shape, err, tolerance, inputs, kernel, plain,
-            library, bytes_moved, flops, **extra):
+            library, bytes_moved, flops, peak_flops=FP32_FLOPS_PER_S,
+            **extra):
     """One kernel's line: its error against the plain version (which must
     be within `tolerance`); the device times of kernel, plain version and
     library call (None where no one PyTorch call computes the function) on
     `inputs`, each call on a copy cold in L2, and the kernel's time on one
-    copy warm in L2; and the bound."""
+    copy warm in L2; and the bound, the operations at `peak_flops`."""
     if not err <= tolerance:
         raise AssertionError("%s %s: max error %r > %g"
                              % (name, shape, err, tolerance))
@@ -181,7 +198,7 @@ def measure(torch, name, shape, err, tolerance, inputs, kernel, plain,
                              for f in (kernel, plain))
     lib = device_ms(torch, library, cold)[0] if library else None
     warm, _ = device_ms(torch, kernel, [inputs])
-    bms, by = bound(bytes_moved, flops)
+    bms, by = bound(bytes_moved, flops, peak_flops)
     return dict(name=name, shape=list(shape), max_abs_err=err,
                 tolerance=tolerance, ms=k, warm_ms=warm, timed_by=timed_by,
                 plain_ms=p, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -269,6 +286,8 @@ def kernels_phase(torch, dev):
     rows += flash_decode_rows(torch, dev, randn)
     rows += flash_backward_rows(torch, dev, randn)
     rows.append(trainer_adam_row(torch, dev, randn))
+    rows.append(trainer_sgd_mom_row(torch, dev, randn))
+    rows += bottleneck_rows(torch, dev)
     for r in rows:
         log("kernels", **r)
     return rows
@@ -424,6 +443,63 @@ def trainer_adam_row(torch, dev, randn):
                 warm_ms=None, timed_by=timed_by, plain_ms=p_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by, tensors=len(shapes),
                 elements=n, bytes=bytes_moved)
+
+
+def trainer_sgd_mom_row(torch, dev, randn):
+    """The fused SGD-momentum update over ResNet-50 v1's trainable tensors
+    (193 fp32 tensors, 25,575,912 elements), once, held bitwise against the
+    plain per-tensor version on copies; then timed against it and against
+    torch.optim.SGD(momentum=0.9, fused=True).step() on the same tensors.
+    That call keeps torch's buffer, buf = momentum * buf + g, w -= lr * buf,
+    the same update as mom = momentum * mom - lr * g at a constant lr. Each
+    call moves 511.5 MB, ten times the L2, so every call is cold."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
+        multi_trainer_sgd_mom, multi_trainer_sgd_mom_reference)
+    net = _ResNet(preact=False, device=dev, **RESNET50)
+    shapes = [tuple(p.shape) for _n, p in sorted(net.named_parameters())
+              if p.requires_grad]
+    del net
+    ws = [0.02 * randn(*s) for s in shapes]
+    gs = [1e-3 * randn(*s) for s in shapes]
+    ms = [1e-3 * randn(*s) for s in shapes]
+    hp = dict(lr=RESNET_LR, wd=0.0, momentum=RESNET_MOMENTUM)
+    ref = [[t.clone() for t in grp] for grp in (ws, gs, ms)]
+    multi_trainer_sgd_mom(ws, gs, ms, **hp)
+    multi_trainer_sgd_mom_reference(*ref, **hp)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(ws + ms, ref[0] + ref[2]))
+    err = max(max_err(a, b) for a, b in zip(ws + ms, ref[0] + ref[2]))
+    if not same:
+        raise AssertionError("trainer_sgd_mom: the kernel and its plain "
+                             "version differ (max %r); they must agree "
+                             "bitwise" % err)
+    del ref
+    n = sum(t.numel() for t in ws)
+    bytes_moved = 20 * n                    # read w, g, mom; write w, mom
+    inputs = [(ws, gs, ms)]
+    k_ms, timed_by = device_ms(torch, lambda w, g, m:
+                               multi_trainer_sgd_mom(w, g, m, **hp), inputs)
+    p_ms, _ = device_ms(torch, lambda w, g, m:
+                        multi_trainer_sgd_mom_reference(w, g, m, **hp),
+                        inputs)
+    params = [torch.nn.Parameter(w.clone()) for w in ws]
+    for p, g in zip(params, gs):
+        p.grad = g.clone()
+    opt = torch.optim.SGD(params, lr=RESNET_LR, momentum=RESNET_MOMENTUM,
+                          fused=True)
+    opt.step()                      # creates the momentum buffers
+    lib_ms, _ = device_ms(torch, opt.step, [()])
+    del params, opt
+    bms, by = bound(bytes_moved, 6 * n)
+    return dict(name="trainer_sgd_mom", shape=[len(shapes), n],
+                max_abs_err=err, tolerance=0.0, bitwise=same, ms=k_ms,
+                warm_ms=None, timed_by=timed_by, plain_ms=p_ms,
+                library_ms=lib_ms, library_call="torch.optim.SGD(momentum="
+                "0.9, fused=True).step(), buf = momentum * buf + g",
+                bound_ms=bms, bound_by=by, tensors=len(shapes), elements=n,
+                bytes=bytes_moved)
 
 
 def flash_decode_rows(torch, dev, randn):
@@ -1093,6 +1169,469 @@ def train_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
     return total
 
 
+# ------------------------------------------------------------ resnet_train
+# bench.py's bench_resnet50 at BENCH_DTYPE=float32: resnet50_v1, SGD at lr
+# 0.1 with momentum 0.9, batch 128 at 224 x 224, 1000 classes
+RESNET50 = dict(kind="bottleneck", layers=[3, 4, 6, 3],
+                channels=[64, 256, 512, 1024, 2048], classes=1000)
+RESNET_B, RESNET_SIZE, RESNET_STEPS = 128, 224, 5
+RESNET_CHECK_B = 32              # step 1 against the CPU (host memory)
+RESNET_REDUCED = (8, 64, 3)      # B, size, steps of the card-vs-CPU run
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+
+
+def resnet_params(rs, net):
+    """Seeded numpy weights for `net` in mx.init.Xavier()'s form (uniform,
+    factor_type "avg", magnitude 3), gamma and running_var 1, biases, beta
+    and running_mean 0, named as both packages name them."""
+    params = {}
+    for name, t in list(net.named_parameters()) + list(net.named_buffers()):
+        shape, leaf = tuple(t.shape), name.rsplit(".", 1)[-1]
+        if leaf == "weight":
+            rf = int(np.prod(shape[2:])) if len(shape) > 2 else 1
+            scale = math.sqrt(3.0 / ((shape[1] * rf + shape[0] * rf) / 2.0))
+            params[name] = rs.uniform(-scale, scale, shape).astype(
+                np.float32)
+        else:
+            fill = 1.0 if leaf in ("gamma", "running_var") else 0.0
+            params[name] = np.full(shape, fill, np.float32)
+    return params
+
+
+def resnet_loss(out, label):
+    """bench_resnet50's objective: log-softmax in fp32 (in fp64 for the
+    fp64 reference), pick the label, mean."""
+    import torch
+    if out.dtype != torch.float64:
+        out = out.float()
+    logp = torch.log_softmax(out, dim=-1)
+    return -logp.gather(-1, label.long()[:, None]).mean()
+
+
+def resnet_net(torch, dev, cfg, params):
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet, params_from_jax)
+    return params_from_jax(params, _ResNet(preact=False, device=dev, **cfg))
+
+
+def resnet_trainer(torch, dev, cfg, params):
+    """A ResNet v1 of `cfg` on `dev` carrying `params`, in a ShardedTrainer
+    with SGD at RESNET_LR and momentum RESNET_MOMENTUM."""
+    from incubator_mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+    return ShardedTrainer(resnet_net(torch, dev, cfg, params), resnet_loss,
+                          make_mesh({"dp": 1}, devices=[dev]),
+                          optimizer="sgd",
+                          optimizer_params={"learning_rate": RESNET_LR,
+                                            "momentum": RESNET_MOMENTUM},
+                          device=dev)
+
+
+def resnet_fp64_step(torch, cfg, state, data, label):
+    """One training step in float64 on the CPU from `state` (a
+    ShardedTrainer.state_dict(): param/<name> for parameters and running
+    statistics, opt0/<name> for momenta), with the trainer's update written
+    out (mom = momentum * mom - lr * g, w += mom): the reference that
+    measures how far fp32 itself lands from the exact result. Returns (loss,
+    gradients, running statistics after the forward, the new state keyed
+    as `state`)."""
+    params = {k[len("param/"):]: v for k, v in state.items()
+              if k.startswith("param/")}
+    net = resnet_net(torch, torch.device("cpu"), cfg, params).double()
+    net.train()
+    trained = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
+    loss = resnet_loss(net(torch.from_numpy(data).double()),
+                       torch.from_numpy(label))
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in trained}
+    stats = {n: v.clone() for n, v in net.named_buffers()}
+    new = {}
+    with torch.no_grad():
+        for n, p in trained:
+            mom = state["opt0/" + n].double().mul(RESNET_MOMENTUM) \
+                .sub(RESNET_LR * p.grad)
+            p.add_(mom)
+            new["opt0/" + n] = mom
+    new.update({"param/" + n: v.detach()
+                for n, v in list(net.named_parameters())
+                + list(net.named_buffers())})
+    return float(loss.detach()), grads, stats, new
+
+
+def scale_name(name):
+    """The tensor whose largest magnitude scales `name`'s error. A v1 conv
+    bias feeds a BatchNorm, which takes the batch mean away: its exact
+    gradient is 0, so the card and the CPU both hold only roundoff there,
+    and it is held to the scale of its conv's weight."""
+    if name.endswith(".bias") and not name.endswith("output.bias"):
+        return name[:-len("bias")] + "weight"
+    return name
+
+
+# how far the card may land from the CPU's fp32 result, in units of the
+# CPU's own fp32 distance from the fp64 result: the two fp32 results are
+# each about that far from the exact one, so twice it by the triangle
+# inequality, and twice that again for the card's other summation orders
+FLOOR_FACTOR = 4.0
+
+
+def floor_check(card, cpu, exact):
+    """Per tensor (name -> tensor, all on the CPU): the card's error against
+    the CPU's fp32 result, the CPU's own error against fp64, and whether
+    the card is within 1e-4 of the tensor's largest magnitude (of its conv
+    weight's for a conv bias) or within FLOOR_FACTOR times the CPU's own
+    error. Returns (rows sorted worst first, names that failed)."""
+    rows, bad = [], []
+    for n, ref in cpu.items():
+        err = max_err(card[n], ref)
+        floor = max_err(ref, exact[n])
+        scale = max(float(exact[scale_name(n)].abs().max()), 1e-30)
+        limit = max(1e-4 * scale, FLOOR_FACTOR * floor)
+        rows.append((n, err / scale, floor / scale, err / limit))
+        if not err <= limit:
+            bad.append((n, err / scale, floor / scale))
+    rows.sort(key=lambda r: -r[3])
+    return rows, bad
+
+
+def resnet_step1_check(torch, dev, cfg, params, data, label):
+    """Step 1 on `dev`, on the CPU in fp32 and on the CPU in fp64 from the
+    same weights and batch. The loss, every gradient and every moved
+    running statistic of the card must be within 1e-4 (of the loss; of the
+    tensor's largest magnitude) of the CPU's fp32 result, or within
+    FLOOR_FACTOR times the CPU's own fp32 error against fp64 where that is
+    larger: this configuration's step-1 gradient is not determined to 1e-4
+    by its inputs (PERF.md). Returns fields and failures."""
+    cpu = torch.device("cpu")
+    out = {}
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        tr = resnet_trainer(torch, d, cfg, params)
+        start = tr.state_dict()
+        loss = float(tr.step(data, label))
+        grads = {n: p.grad.detach().to(cpu) for n, p in
+                 tr._block.named_parameters() if p.grad is not None}
+        stats = {n: v.detach().to(cpu) for n, v in
+                 tr._block.named_buffers()}
+        out[d.type] = (loss, grads, stats, time.perf_counter() - t0)
+        del tr
+    t0 = time.perf_counter()
+    l64, g64, s64, _ = resnet_fp64_step(torch, cfg, start, data, label)
+    fp64_s = time.perf_counter() - t0
+    (lc, gc, sc, card_s), (lh, gh, sh, cpu_s) = out[dev.type], out["cpu"]
+    grows, gbad = floor_check(gc, gh, g64)
+    srows, sbad = floor_check(sc, sh, s64)
+    failures = []
+    if not abs(lc - lh) <= max(1e-4 * abs(l64),
+                               FLOOR_FACTOR * abs(lh - l64)):
+        failures.append("step 1 loss %r on the card, %r on the CPU, %r in "
+                        "fp64" % (lc, lh, l64))
+    for what, bad in (("gradients", gbad), ("running statistics", sbad)):
+        if bad:
+            failures.append("%d %s differ from the CPU's by more than 1e-4 "
+                            "of their max and %g times the CPU's own fp32 "
+                            "error: %s" % (len(bad), what, FLOOR_FACTOR,
+                                           bad[:8]))
+    return dict(B=int(data.shape[0]), loss_step1=lc, cpu_loss_step1=lh,
+                fp64_loss_step1=l64,
+                grads_within_1e4_of_max=sum(r[1] <= 1e-4 for r in grows),
+                grads=len(grows), grad_worst=grows[:5],
+                grad_worst_rel_err=max(r[1] for r in grows),
+                cpu_fp32_grad_worst_rel_err=max(r[2] for r in grows),
+                stat_worst_rel_err=max(r[1] for r in srows),
+                stat_worst=srows[:3], card_step1_s=card_s,
+                cpu_step1_s=cpu_s, cpu_fp64_step1_s=fp64_s), failures
+
+
+def resnet_reduced_check(torch, dev, cfg, params, B, size, steps):
+    """`steps` steps at full width and depth on a small batch, the card
+    following the CPU: before each step the card's trainer loads the CPU
+    trainer's state (parameters, running statistics, momenta, step) and
+    both take the step. Held: the card's loss within rtol 1e-4 of the
+    CPU's, its moved running statistics within 1e-4 of their largest
+    magnitude, and its new parameters and momenta equal, bitwise, to the
+    update of the loaded state by the card's own gradients. The gradients
+    themselves are compared and reported, not held: after a step or two at
+    lr 0.1 on 8 images, ReLU inputs within ~1e-6 of zero are common, and
+    each package's roundoff flips some of their gates (PERF.md)."""
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
+        multi_trainer_sgd_mom_reference)
+    rs = np.random.RandomState(SEED + 1)
+    data = rs.rand(B, 3, size, size).astype(np.float32)
+    label = rs.randint(0, cfg["classes"], (B,)).astype(np.float32)
+    cpu = torch.device("cpu")
+    card, host = (resnet_trainer(torch, d, cfg, params) for d in (dev, cpu))
+    failures, per_step = [], []
+    for i in range(steps):
+        start = host.state_dict()
+        card.load_state_dict(start)
+        lc, lh = float(card.step(data, label)), float(host.step(data, label))
+        new = card.state_dict()
+        names = card._diff_names
+        grads = {n: card._params[n].grad for n in names}
+        ws = [start["param/" + n].to(dev) for n in names]
+        ms = [start["opt0/" + n].to(dev) for n in names]
+        multi_trainer_sgd_mom_reference(ws, [grads[n] for n in names], ms,
+                                        RESNET_LR, 0.0, RESNET_MOMENTUM)
+        unequal = [n for n, w, m in zip(names, ws, ms)
+                   if not (torch.equal(new["param/" + n], w)
+                           and torch.equal(new["opt0/" + n], m))]
+        stats = {k: max_err(new[k].to(cpu), v) / max(float(v.abs().max()),
+                                                     1e-30)
+                 for k, v in host.state_dict().items()
+                 if k.startswith("param/") and ".running_" in k}
+        host_grads = {n: host._params[n].grad for n in names}
+        grad_rel = {n: max_err(grads[n].to(cpu), g) / max(float(
+            host_grads[scale_name(n)].abs().max()), 1e-30)
+            for n, g in host_grads.items()}
+        if not abs(lc - lh) <= 1e-4 * abs(lh):
+            failures.append("reduced run: step %d loss %r on the card, %r "
+                            "on the CPU (rtol 1e-4)" % (i + 1, lc, lh))
+        bad = sorted((k, r) for k, r in stats.items() if not r <= 1e-4)
+        if bad:
+            failures.append("reduced run: step %d: %d running statistics "
+                            "differ from the CPU's by more than 1e-4 of "
+                            "their max: %s" % (i + 1, len(bad), bad[:8]))
+        if unequal:
+            failures.append("reduced run: step %d: the update of %d tensors "
+                            "is not the SGD-momentum update of the loaded "
+                            "state by the card's gradients: %s"
+                            % (i + 1, len(unequal), unequal[:8]))
+        per_step.append(dict(
+            loss=lc, cpu_loss=lh, stat_worst_rel_err=max(stats.values()),
+            update_bitwise=not unequal,
+            grads_within_1e4_of_max=sum(r <= 1e-4 for r in
+                                        grad_rel.values()),
+            grads=len(grad_rel),
+            grad_worst=sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]))
+    return dict(B=B, size=size, steps=per_step), failures
+
+
+def resnet_train_phase(torch, dev, cfg=RESNET50, B=RESNET_B,
+                       size=RESNET_SIZE, check_B=RESNET_CHECK_B,
+                       steps=RESNET_STEPS, reduced=RESNET_REDUCED,
+                       profile=False, card=None):
+    """ResNet v1 training through ShardedTrainer with SGD and momentum:
+    step 1 at B = check_B against the CPU, then a warm-up step and `steps`
+    measured steps at B with exact launch counts, then the reduced run.
+    Logs the `resnet_train` line (and `resnet_profile`); raises when a check
+    failed. Returns the launch counts of the measured steps."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    rs = np.random.RandomState(SEED)
+    params = resnet_params(rs, _ResNet(preact=False,
+                                       device=torch.device("cpu"), **cfg))
+    data = rs.rand(B, 3, size, size).astype(np.float32)
+    label = rs.randint(0, cfg["classes"], (B,)).astype(np.float32)
+    check, failures = resnet_step1_check(torch, dev, cfg, params,
+                                         data[:check_B], label[:check_B])
+
+    tr = resnet_trainer(torch, dev, cfg, params)
+    t0 = time.perf_counter()
+    warm = float(tr.step(data, label))
+    _sync(torch, dev)
+    first_step_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = tr.step(data, label)
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = launch_counts()
+    fused = tr._fused_launches
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    want = expected_counts(trainer_sgd_mom=steps)
+    if dev.type == "cuda" and (counts != want or fused != 1):
+        failures.append("launch counts %s (fused %s), expected %s from %d "
+                        "steps" % (counts, fused, want, steps))
+    if not np.isfinite([warm] + losses).all():
+        failures.append("losses %s are not all finite" % ([warm] + losses))
+    prof = profile_round(torch, lambda: tr.step(data, label)) \
+        if profile else None
+    n_trained = sum(p.numel() for p in tr._params.values()
+                    if p.requires_grad)
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    red, red_failures = resnet_reduced_check(torch, dev, cfg, params,
+                                             *reduced)
+    failures += red_failures
+    ms = np.asarray(times) * 1e3
+    log("resnet_train", card=card, B=B, size=size, steps=steps,
+        step_ms_median=float(np.median(ms)), step_ms_max=float(ms.max()),
+        step_ms=ms.tolist(), images_per_s=B / float(np.median(ms)) * 1e3,
+        warmup_loss=warm, losses=losses, fused_launches=fused,
+        launches=counts, peak_mem_bytes=peak, first_step_s=first_step_s,
+        trained_elements=n_trained, step1=check, reduced=red)
+    if prof is not None:
+        log("resnet_profile", card=card, B=B, size=size, **prof)
+    if failures:
+        raise AssertionError("resnet_train: %s" % "; ".join(failures))
+    return counts
+
+
+# -------------------------------------------------------------- bottleneck
+# bench.py's bench_fused_block: stage-1 geometry, bf16, K stacked units
+BLOCK_SHAPE = dict(B=128, H=56, W=56, C=256, M=64)
+BLOCK_DEPTH = 3
+
+
+def block_inputs(torch, dev, B, H, W, C, M, K, dtype):
+    """bench_fused_block's draws from RandomState(0): x (scale 0.5), then
+    per unit w1, (s1, b1), w2, (s2, b2), w3, (s3, b3) with weights at scale
+    0.05, s in [0.5, 1.5) and b ~ 0.1 N(0, 1). x and the weights in
+    `dtype`, s and b fp32. Returns (x, [unit args, ...])."""
+    rng = np.random.RandomState(0)
+
+    def mk(*shape, scale=0.05):
+        a = rng.randn(*shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def vec(n):
+        s = rng.rand(n).astype(np.float32) + 0.5
+        b = rng.randn(n).astype(np.float32) * 0.1
+        return torch.from_numpy(s).to(dev), torch.from_numpy(b).to(dev)
+    x = mk(B, H, W, C, scale=0.5)
+    units = []
+    for _ in range(K):
+        w1, (s1, b1) = mk(C, M), vec(M)
+        w2, (s2, b2) = mk(9, M, M), vec(M)
+        w3, (s3, b3) = mk(M, C), vec(C)
+        units.append((w1, s1, b1, w2, s2, b2, w3, s3, b3))
+    return x, units
+
+
+def block_library(torch):
+    """The library arm, as bench_fused_block's XLA arm: cuDNN convolutions
+    in x's dtype over channels-last tensors, folded BN and ReLU as PyTorch
+    ops. Returns fn(x, *unit) for one unit on NHWC x; a unit's weights are
+    laid out for cuDNN on its first call and kept (by the address of w1)."""
+    import torch.nn.functional as F
+    cl = torch.channels_last
+    prepared = {}
+
+    def prepare(w1, s1, b1, w2, s2, b2, w3, s3, b3):
+        C, M = w1.shape
+        return (w1.t().reshape(M, C, 1, 1).contiguous(memory_format=cl),
+                w2.reshape(3, 3, M, M).permute(3, 2, 0, 1)
+                .contiguous(memory_format=cl),
+                w3.t().reshape(C, M, 1, 1).contiguous(memory_format=cl),
+                [v.to(w1.dtype).view(1, -1, 1, 1)
+                 for v in (s1, b1, s2, b2, s3, b3)])
+
+    def unit(x, *u):
+        key = u[0].data_ptr()
+        if key not in prepared:
+            prepared[key] = prepare(*u)
+        k1, k2, k3, (s1, b1, s2, b2, s3, b3) = prepared[key]
+        xn = x.permute(0, 3, 1, 2)              # NCHW view, channels last
+        h = torch.relu(F.conv2d(xn, k1) * s1 + b1)
+        h = torch.relu(F.conv2d(h, k2, padding=1) * s2 + b2)
+        h = torch.relu(F.conv2d(h, k3) * s3 + b3 + xn)
+        return h.permute(0, 2, 3, 1)
+    return unit
+
+
+def block_cost(B, H, W, C, M, elem_bytes):
+    """(bytes, flops) of one unit: x read and the output written once, the
+    weights read once; 2 B H W (C M + 9 M M + M C) operations."""
+    weights = (C * M + 9 * M * M + M * C) * elem_bytes + (4 * M + 2 * C) * 4
+    return (2 * B * H * W * C * elem_bytes + weights,
+            2 * B * H * W * (C * M + 9 * M * M + M * C))
+
+
+def block_tolerance(torch, ref):
+    """bf16: 2 * 2**-8 of the output's largest magnitude (one bf16 step
+    where the two round a value from fp32 sums taken in other orders);
+    fp32: 1e-4."""
+    if ref.dtype == torch.bfloat16:
+        return 2 * 2 ** -8 * float(ref.float().abs().max())
+    return 1e-4
+
+
+def bottleneck_rows(torch, dev):
+    """The fused bottleneck kernel on one unit at bench_fused_block's shape,
+    in bf16 (its configuration) and fp32, against the plain version (fp32
+    convs on the same values), with the cuDNN stack in x's dtype as the
+    library call."""
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        bottleneck_reference, fused_bottleneck)
+    s = BLOCK_SHAPE
+    rows = []
+    # bf16 last: the kernels line carries the row of the main path's dtype
+    for dtype, peak in ((torch.float32, FP32_FLOPS_PER_S),
+                        (torch.bfloat16, BF16_FLOPS_PER_S)):
+        x, units = block_inputs(torch, dev, K=1, dtype=dtype, **s)
+        args = (x,) + units[0]
+        got, ref = fused_bottleneck(*args), bottleneck_reference(*args)
+        bytes_moved, flops = block_cost(elem_bytes=x.element_size(), **s)
+        rows.append(measure(
+            torch, "fused_bottleneck",
+            (s["B"], s["H"], s["W"], s["C"], s["M"]), max_err(got, ref),
+            block_tolerance(torch, ref), args, fused_bottleneck,
+            bottleneck_reference, block_library(torch), bytes_moved,
+            flops, peak_flops=peak, dtype=str(dtype).replace("torch.", ""),
+            ref_max_abs=float(ref.float().abs().max())))
+    return rows
+
+
+def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
+                     card=None):
+    """bench_fused_block on the card: K stacked bf16 units through the
+    kernel (exactly K launches a stack) against the same stack through the
+    plain version, then the device time of a stack, kernel against the
+    cuDNN stack. Logs the `bottleneck` line; raises when a check failed.
+    Returns the launch counts of the checked stack."""
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        bottleneck_reference, fused_bottleneck)
+    x, units = block_inputs(torch, dev, K=K, dtype=torch.bfloat16, **shape)
+
+    def stack(fn):
+        def run(h):
+            for u in units:
+                h = fn(h, *u)
+            return h
+        return run
+
+    reset_launch_counts()
+    got = stack(fused_bottleneck)(x)
+    _sync(torch, dev)
+    counts = launch_counts()
+    ref = stack(bottleneck_reference)(x)
+    err, tol = max_err(got, ref), block_tolerance(torch, ref)
+    failures = []
+    if not err <= tol:
+        failures.append("stack of %d: max error %r > %g" % (K, err, tol))
+    if not torch.isfinite(got.float()).all():
+        failures.append("stack of %d: non-finite output" % K)
+    if dev.type == "cuda" and counts != expected_counts(fused_bottleneck=K):
+        failures.append("launch counts %s, expected %d fused_bottleneck"
+                        % (counts, K))
+    times = {}
+    if dev.type == "cuda":
+        library = block_library(torch)
+        for name, fn in (("kernel", fused_bottleneck),
+                         ("library", library),
+                         ("plain", bottleneck_reference)):
+            times[name + "_ms"] = device_ms(torch, stack(fn), [(x,)])[0]
+    _bytes, flops = block_cost(elem_bytes=2, **shape)
+    log("bottleneck", card=card, K=K, dtype="bfloat16", max_abs_err=err,
+        tolerance=tol, launches=counts, stack_gflop=K * flops / 1e9,
+        **times)
+    if failures:
+        raise AssertionError("bottleneck: %s" % "; ".join(failures))
+    return counts
+
+
 def _kernel_class(name):
     n = name.lower()
     for key, cls in (("ln_warp", "layer_norm"), ("ln_block", "layer_norm"),
@@ -1101,10 +1640,16 @@ def _kernel_class(name):
                      ("flash_bwd_dq", "flash_attention_bwd_dq"),
                      ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
                      ("trainer_adam", "trainer_adam"),
+                     ("trainer_sgd_mom", "trainer_sgd_mom"),
+                     ("fused_bottleneck", "fused_bottleneck"),
                      ("flash_decode", "flash_decode"),
-                     ("memcpy", "copy"), ("memset", "copy")):
+                     ("memcpy", "copy"), ("memset", "copy"),
+                     ("max_pool", "pool"), ("avg_pool", "pool")):
         if key in n:
             return cls
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "winograd",
+                            "implicit")):
+        return "conv"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
         return "matmul"
     return "other"
@@ -1231,6 +1776,11 @@ KERNEL_META = {
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
     "trainer_adam": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
                      "incubator_mxnet_tpu/ops/pallas/fused_optim.py:231"),
+    "trainer_sgd_mom": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                        "incubator_mxnet_tpu/ops/pallas/fused_optim.py:102"),
+    "fused_bottleneck": (
+        "incubator_mxnet_tpu_torch/csrc/fused_bottleneck.cu",
+        "incubator_mxnet_tpu/ops/pallas/fused_bottleneck.py:48"),
 }
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
@@ -1299,11 +1849,15 @@ def main(argv=None):
 
     tcounts = train_phase(torch, dev, BERT_BASE,
                           profile=args.profile is not None, card=card)
+    rcounts = resnet_train_phase(torch, dev, profile=args.profile is not None,
+                                 card=card)
+    bcounts = bottleneck_phase(torch, dev, card=card)
 
-    # launches: each main path's run (serve, decode, then each train shape),
-    # counts reset to 0 just before it and read just after; the line
-    # carries their sum
-    by_path = {"serve": counts, "decode": dcounts, "train": tcounts}
+    # launches: each main path's run (serve, decode, each train shape, the
+    # ResNet steps, the bottleneck stack), counts reset to 0 just before it
+    # and read just after; the line carries their sum
+    by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
+               "resnet_train": rcounts, "bottleneck": bcounts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]
@@ -1313,6 +1867,7 @@ def main(argv=None):
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(x["max_abs_err"] for x in krows
                             if x["name"] == name),
+            dtype=r.get("dtype"),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             warm_ms=r["warm_ms"], shape=r["shape"],

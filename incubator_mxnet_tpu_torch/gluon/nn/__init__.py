@@ -1,0 +1,12 @@
+"""gluon.nn: the layers of the ResNet path (counterpart of
+``incubator_mxnet_tpu/gluon/nn/``). The other layers, the advanced
+activations of ``activations.py`` among them, wait for the gluon core and
+the rest of the op surface (ROADMAP Queue 1 items 3 and 9)."""
+
+from .basic_layers import (Activation, BatchNorm, Dense, Flatten,
+                           HybridSequential, init_params)
+from .conv_layers import AvgPool2D, Conv2D, GlobalAvgPool2D, MaxPool2D
+
+__all__ = ["Activation", "BatchNorm", "Dense", "Flatten", "HybridSequential",
+           "init_params", "Conv2D", "MaxPool2D", "AvgPool2D",
+           "GlobalAvgPool2D"]

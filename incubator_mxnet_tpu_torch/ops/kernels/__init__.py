@@ -10,15 +10,20 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_reference)
 from .flash_decode import (paged_causal_attention, paged_flash_decode,
                            paged_flash_decode_reference)
+from .fused_bottleneck import bottleneck_reference, fused_bottleneck
 from .fused_norm import (layer_norm, layer_norm_reference, softmax,
                          softmax_reference)
-from .fused_optim import multi_trainer_adam, multi_trainer_adam_reference
+from .fused_optim import (multi_trainer_adam, multi_trainer_adam_reference,
+                          multi_trainer_sgd_mom,
+                          multi_trainer_sgd_mom_reference)
 
-__all__ = ["flash_attention", "flash_attention_backward",
+__all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_forward",
-           "flash_attention_reference", "layer_norm", "layer_norm_reference",
-           "multi_trainer_adam", "multi_trainer_adam_reference",
+           "flash_attention_reference", "fused_bottleneck", "layer_norm",
+           "layer_norm_reference", "multi_trainer_adam",
+           "multi_trainer_adam_reference", "multi_trainer_sgd_mom",
+           "multi_trainer_sgd_mom_reference",
            "paged_causal_attention", "paged_flash_decode",
            "paged_flash_decode_reference", "softmax", "softmax_reference",
            "WRAPPERS", "launch_counts", "reset_launch_counts"]
@@ -32,6 +37,8 @@ WRAPPERS = {
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_decode": paged_flash_decode,
     "trainer_adam": multi_trainer_adam,
+    "trainer_sgd_mom": multi_trainer_sgd_mom,
+    "fused_bottleneck": fused_bottleneck,
 }
 
 

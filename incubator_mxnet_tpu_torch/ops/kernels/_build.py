@@ -55,6 +55,12 @@ _SIGNATURES = {
     # 1 - b2^t, eps, lr * wd, adamw, device, stream
     "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                                _F, _F, _I, _I, _P),
+    # table, n_tensors, n_chunks, lr, wd, momentum, device, stream
+    "mxtpu_trainer_sgd_mom_f32": (_P, _I, _I, _F, _F, _F, _I, _P),
+    # x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, C, M, bf16,
+    # device, stream
+    "mxtpu_fused_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H, D, num_blocks,
     # block_size, max_blocks, scale, device, stream
     "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -1,11 +1,13 @@
-"""ShardedTrainer's fused Adam / AdamW update: the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""ShardedTrainer's fused optimizer updates, Adam / AdamW and SGD with
+momentum: the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Counterpart of ``multi_trainer_adam`` and ``_trainer_adam_kernel`` in
-``incubator_mxnet_tpu/ops/pallas/fused_optim.py`` (the trainer formulation:
-no rescale or clip; Adam through mhat / vhat; AdamW adds ``lr*wd * w``). The
-kernel is in ``csrc/fused_optim.cu``. The JAX function returns new arrays;
-this one updates the fp32 ``ws``, ``ms`` and ``vs`` in place, so the state is
+Counterparts of ``multi_trainer_adam`` (``_trainer_adam_kernel``) and
+``multi_trainer_sgd_mom`` (``_sgd_mom_kernel`` with rescale 1 and clip off)
+in ``incubator_mxnet_tpu/ops/pallas/fused_optim.py``: the trainer
+formulation, no rescale or clip; Adam through mhat / vhat; AdamW adds
+``lr*wd * w``; SGD ``mom = momentum * mom - lr * (g + wd * w)``, ``w += mom``.
+The kernels are in ``csrc/fused_optim.cu``. The JAX functions return new
+arrays; these update the fp32 weights and state in place, so the state is
 never packed into one buffer and split again.
 
 The scalars are the f32 values the TPU kernel computes with: lr, wd, b1, b2
@@ -18,9 +20,12 @@ every division is a true division (PyTorch on CUDA divides by a Python
 scalar through its f32 reciprocal) and every operation rounds on its own, as
 the kernel's do.
 
-For CPU tensors ``multi_trainer_adam`` takes the plain version; for CUDA
-tensors it launches the kernel once for all of them or raises, and adds one
-to its ``launches`` count.
+SGD's scalars are lr, wd and momentum rounded to f32, as the TPU kernel's
+SMEM row holds them; its plain version takes them the same way.
+
+For CPU tensors each wrapper takes its plain version; for CUDA tensors it
+launches its kernel once for all of them or raises, and adds one to its
+``launches`` count.
 """
 
 import numpy as np
@@ -29,7 +34,8 @@ import torch
 from . import _build
 
 __all__ = ["multi_trainer_adam", "multi_trainer_adam_reference",
-           "adam_scalars"]
+           "multi_trainer_sgd_mom", "multi_trainer_sgd_mom_reference",
+           "adam_scalars", "sgd_mom_scalars"]
 
 CHUNK = 32768          # elements a block updates (csrc/fused_optim.cu kChunk)
 
@@ -72,23 +78,47 @@ def multi_trainer_adam_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
     return ws, ms, vs
 
 
-def _check_cuda(ws, gs, ms, vs):
+def _table(what, groups):
+    """The device table of one launch: a (w, g, state..., n, first chunk)
+    row for each tensor of n > 0 elements, and the number of chunks; None
+    when every tensor is empty. ``groups`` is ((name, tensors), ...) with
+    the weights first; every tensor must be fp32, contiguous, on the
+    weights' device and of its weight's shape."""
+    ws = groups[0][1]
     dev = ws[0].device
-    for name, group in (("w", ws), ("g", gs), ("m", ms), ("v", vs)):
+    if dev.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (what, dev))
+    for name, group in groups:
         for i, t in enumerate(group):
             if t.device != dev:
-                raise ValueError("multi_trainer_adam: %s[%d] on %s, w[0] on "
-                                 "%s" % (name, i, t.device, dev))
+                raise ValueError("%s: %s[%d] on %s, w[0] on %s"
+                                 % (what, name, i, t.device, dev))
             if t.dtype != torch.float32:
-                raise TypeError("multi_trainer_adam: the CUDA kernel takes "
-                                "float32, %s[%d] is %s" % (name, i, t.dtype))
+                raise TypeError("%s: the CUDA kernel takes float32, %s[%d] "
+                                "is %s" % (what, name, i, t.dtype))
             if not t.is_contiguous():
-                raise ValueError("multi_trainer_adam: %s[%d] is not "
-                                 "contiguous" % (name, i))
+                raise ValueError("%s: %s[%d] is not contiguous"
+                                 % (what, name, i))
             if t.shape != ws[i].shape:
-                raise ValueError("multi_trainer_adam: %s[%d] has shape %s, "
-                                 "w[%d] %s" % (name, i, tuple(t.shape), i,
-                                               tuple(ws[i].shape)))
+                raise ValueError("%s: %s[%d] has shape %s, w[%d] %s"
+                                 % (what, name, i, tuple(t.shape), i,
+                                    tuple(ws[i].shape)))
+    rows, chunk0 = [], 0
+    for tensors in zip(*(g for _n, g in groups)):
+        n = tensors[0].numel()
+        if n == 0:
+            continue
+        rows.append(tuple(t.data_ptr() for t in tensors) + (n, chunk0))
+        chunk0 += -(-n // CHUNK)
+    if not rows:
+        return None
+    if chunk0 > 2 ** 31 - 1:
+        raise ValueError("%s: %d chunks exceed the grid" % (what, chunk0))
+    # the table rides a pinned buffer and an asynchronous copy on the
+    # launching stream, so the step does not wait for the device
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory() \
+        .to(dev, non_blocking=True)
+    return table, len(rows), chunk0
 
 
 def multi_trainer_adam(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, adamw=False):
@@ -101,34 +131,19 @@ def multi_trainer_adam(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, adamw=False):
                          "%d v" % (len(ws), len(gs), len(ms), len(vs)))
     if not ws:
         return ws, ms, vs
-    dev = ws[0].device
     if all(x.device.type == "cpu" for x in ws + gs + ms + vs):
         return multi_trainer_adam_reference(ws, gs, ms, vs, lr, wd, b1, b2,
                                             eps, t, adamw)
-    if dev.type != "cuda":
-        raise ValueError("multi_trainer_adam: unsupported device %s" % dev)
-    _check_cuda(ws, gs, ms, vs)
-    rows, chunk0 = [], 0
-    for w, g, m, v in zip(ws, gs, ms, vs):
-        n = w.numel()
-        if n == 0:
-            continue
-        rows.append((w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                     n, chunk0))
-        chunk0 += -(-n // CHUNK)
-    if not rows:
+    launch = _table("multi_trainer_adam",
+                    (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
+    if launch is None:
         return ws, ms, vs
-    if chunk0 > 2 ** 31 - 1:
-        raise ValueError("multi_trainer_adam: %d chunks exceed the grid"
-                         % chunk0)
-    # the table rides a pinned buffer and an asynchronous copy on the
-    # launching stream, so the step does not wait for the device
-    table = torch.tensor(rows, dtype=torch.int64).pin_memory() \
-        .to(dev, non_blocking=True)
+    table, n_tensors, n_chunks = launch
+    dev = ws[0].device
     sc = adam_scalars(lr, wd, b1, b2, eps, t)
     lib = _build.library()
     rc = lib.mxtpu_trainer_adam_f32(
-        table.data_ptr(), len(rows), chunk0, *(float(sc[k]) for k in (
+        table.data_ptr(), n_tensors, n_chunks, *(float(sc[k]) for k in (
             "lr", "wd", "b1", "b2", "one_minus_b1", "one_minus_b2", "bias1",
             "bias2", "eps", "lrwd")),
         int(bool(adamw)), dev.index,
@@ -139,3 +154,59 @@ def multi_trainer_adam(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, adamw=False):
 
 
 multi_trainer_adam.launches = 0
+
+
+def sgd_mom_scalars(lr, wd, momentum):
+    """lr, wd and momentum as the f32 values the kernel computes with."""
+    f = np.float32
+    return dict(lr=f(lr), wd=f(wd), momentum=f(momentum))
+
+
+def multi_trainer_sgd_mom_reference(ws, gs, moms, lr, wd, momentum):
+    """Plain per-tensor SGD with momentum in the trainer formulation, in
+    place on ``ws`` and ``moms``, with the kernel's f32 scalars (as 0-dim
+    tensors on the tensors' device) and order of operations."""
+    sc = sgd_mom_scalars(lr, wd, momentum)
+    consts = {}
+    with torch.no_grad():
+        for w, g, m in zip(ws, gs, moms):
+            if w.device not in consts:
+                consts[w.device] = {k: torch.tensor(val, dtype=torch.float32,
+                                                    device=w.device)
+                                    for k, val in sc.items()}
+            c = consts[w.device]
+            m.mul_(c["momentum"]).sub_(c["lr"] * (g + c["wd"] * w))
+            w.add_(m)
+    return ws, moms
+
+
+def multi_trainer_sgd_mom(ws, gs, moms, lr, wd, momentum):
+    """One SGD-with-momentum step over the tensors ``ws`` with gradients
+    ``gs`` and momenta ``moms``, both updated in place (fp32, one launch on
+    CUDA). Returns ``(ws, moms)``."""
+    ws, gs, moms = list(ws), list(gs), list(moms)
+    if not (len(ws) == len(gs) == len(moms)):
+        raise ValueError("multi_trainer_sgd_mom: %d weights, %d grads, %d "
+                         "momenta" % (len(ws), len(gs), len(moms)))
+    if not ws:
+        return ws, moms
+    if all(x.device.type == "cpu" for x in ws + gs + moms):
+        return multi_trainer_sgd_mom_reference(ws, gs, moms, lr, wd,
+                                               momentum)
+    launch = _table("multi_trainer_sgd_mom",
+                    (("w", ws), ("g", gs), ("mom", moms)))
+    if launch is None:
+        return ws, moms
+    table, n_tensors, n_chunks = launch
+    dev = ws[0].device
+    sc = sgd_mom_scalars(lr, wd, momentum)
+    rc = _build.library().mxtpu_trainer_sgd_mom_f32(
+        table.data_ptr(), n_tensors, n_chunks, float(sc["lr"]),
+        float(sc["wd"]), float(sc["momentum"]), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "multi_trainer_sgd_mom")
+    _build.count_launch(multi_trainer_sgd_mom)
+    return ws, moms
+
+
+multi_trainer_sgd_mom.launches = 0

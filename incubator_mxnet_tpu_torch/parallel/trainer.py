@@ -4,17 +4,22 @@ update a step.
 Counterpart of ``incubator_mxnet_tpu/parallel/trainer.py``. The JAX trainer
 compiles the whole step into one XLA program over a mesh; here the step runs
 eagerly on one device: ``block(*data)``, ``loss(out, *label)`` averaged in
-fp32, ``loss.backward()``, then the update. Adam and AdamW go through the
-fused multi-tensor kernel (``ops/kernels/fused_optim.py``, one launch for
-every parameter); SGD without momentum runs its plain update, as the JAX
-package has no kernel for it. ``MXTPU_FUSED_OPTIM=0`` selects the JAX
-package's per-parameter update (``_apply_opt_fp``) instead, as it does
-there.
+fp32, ``loss.backward()``, then the update. Adam, AdamW and SGD with
+momentum go through the fused multi-tensor kernels
+(``ops/kernels/fused_optim.py``, one launch for every parameter); SGD
+without momentum runs its plain update, as the JAX package has no kernel
+for it. ``MXTPU_FUSED_OPTIM=0`` selects the JAX package's per-parameter
+update (``_apply_opt_fp``) instead, as it does there.
+
+Buffers of the block (BatchNorm's running statistics) are the JAX
+trainer's aux state: the forward in training mode moves them, and
+``param_values``, ``state_dict`` and ``load_state_dict`` carry them beside
+the parameters, as do parameters that take no gradient (gluon's
+``differentiable=False``).
 
 What this slice does not carry raises NotImplementedError naming its
 ROADMAP item: bf16 compute or parameters, ZeRO-1, gradient accumulation,
-sharding rules, meshes over more than one device, SGD with momentum and
-``step_guarded``.
+sharding rules, meshes over more than one device and ``step_guarded``.
 """
 
 import os
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 from ..context import resolve_device
-from ..ops.kernels.fused_optim import adam_scalars, multi_trainer_adam
+from ..ops.kernels.fused_optim import (adam_scalars, multi_trainer_adam,
+                                      multi_trainer_sgd_mom)
 
 __all__ = ["ShardedTrainer"]
 
@@ -58,8 +64,8 @@ class ShardedTrainer:
     Arguments follow the JAX ShardedTrainer. ``optimizer`` is 'sgd', 'adam'
     or 'adamw'; ``optimizer_params`` reads learning_rate (0.01), momentum
     (0), wd (0), beta1 (0.9), beta2 (0.999) and epsilon (1e-8).
-    ``opt_state_dtype`` 'bfloat16' stores the Adam moments in bf16, lifted to
-    fp32 around the update. ``data_specs`` and ``label_spec`` place nothing
+    ``opt_state_dtype`` 'bfloat16' stores the Adam moments or the SGD
+    momentum in bf16, lifted to fp32 around the update. ``data_specs`` and ``label_spec`` place nothing
     on one device; a list of data specs must have one entry per data array.
     ``device=None`` is ``cuda:0`` and raises without CUDA; a given ``mesh``
     must hold that device.
@@ -106,9 +112,6 @@ class ShardedTrainer:
         self._beta1 = float(hp.get("beta1", 0.9))
         self._beta2 = float(hp.get("beta2", 0.999))
         self._eps = float(hp.get("epsilon", 1e-8))
-        if optimizer == "sgd" and self._momentum != 0.0:
-            raise _not_yet("sgd with momentum (its fused kernel ports with "
-                           "ResNet-50)", "Queue 2 item 4")
         self._state_dtype = _dtype("opt_state_dtype", opt_state_dtype) \
             or torch.float32
         self._step_count = 0
@@ -124,12 +127,17 @@ class ShardedTrainer:
         self._diff_names = sorted(n for n, p in params.items()
                                   if p.requires_grad)
         self._aux = dict(block.named_buffers())
-        self._opt_state = {}
-        if optimizer != "sgd":
-            self._opt_state = {
-                n: tuple(torch.zeros_like(params[n], dtype=self._state_dtype)
-                         for _ in range(2))
-                for n in self._diff_names}
+        # the JAX trainer's _init_opt_state: (mom,) for SGD with momentum,
+        # (m, v) for Adam / AdamW, nothing for plain SGD
+        slots = 0 if self._plain_sgd else (1 if optimizer == "sgd" else 2)
+        self._opt_state = {
+            n: tuple(torch.zeros_like(params[n], dtype=self._state_dtype)
+                     for _ in range(slots))
+            for n in self._diff_names} if slots else {}
+
+    @property
+    def _plain_sgd(self):
+        return self._opt == "sgd" and self._momentum == 0.0
 
     # ------------------------------------------------------------ the step
     def _prep_batch(self, data, label):
@@ -165,7 +173,7 @@ class ShardedTrainer:
               else torch.zeros_like(w) for n, w in zip(names, ws)]
         self._fused_launches = 0
         with torch.no_grad():
-            if self._opt == "sgd":
+            if self._plain_sgd:
                 for w, g in zip(ws, gs):
                     w.copy_(w - self._lr * (g + self._wd * w))
             elif os.environ.get("MXTPU_FUSED_OPTIM", "1") != "0":
@@ -176,26 +184,39 @@ class ShardedTrainer:
                     self._apply_opt_fp(w, g, self._opt_state[n], t)
 
     def _apply_fused(self, names, ws, gs, t):
-        """All parameters in one fused launch; bf16 stored moments are
-        lifted to fp32 for it and rounded back, as the JAX package's
+        """All parameters in one fused launch; bf16 stored state is lifted
+        to fp32 for it and rounded back, as the JAX package's
         ``_apply_fused`` does."""
+        if not names:
+            return
         lift = self._state_dtype != torch.float32
-        ms = [self._opt_state[n][0] for n in names]
-        vs = [self._opt_state[n][1] for n in names]
-        ms32 = [m.float() for m in ms] if lift else ms
-        vs32 = [v.float() for v in vs] if lift else vs
-        multi_trainer_adam(ws, gs, ms32, vs32, self._lr, self._wd,
-                           self._beta1, self._beta2, self._eps, t,
-                           adamw=self._opt == "adamw")
+        slots = [[self._opt_state[n][i] for n in names]
+                 for i in range(len(self._opt_state[names[0]]))]
+        slots32 = [[s.float() for s in slot] for slot in slots] if lift \
+            else slots
+        if self._opt == "sgd":
+            multi_trainer_sgd_mom(ws, gs, slots32[0], self._lr, self._wd,
+                                  self._momentum)
+        else:
+            multi_trainer_adam(ws, gs, slots32[0], slots32[1], self._lr,
+                               self._wd, self._beta1, self._beta2,
+                               self._eps, t, adamw=self._opt == "adamw")
         if lift:
-            for dst, src in zip(ms + vs, ms32 + vs32):
-                dst.copy_(src)
+            for slot, slot32 in zip(slots, slots32):
+                for dst, src in zip(slot, slot32):
+                    dst.copy_(src)
 
     def _apply_opt_fp(self, w, g, st, t):
-        """The JAX package's per-parameter Adam / AdamW (``_apply_opt_fp``):
+        """The JAX package's per-parameter update (``_apply_opt_fp``):
         Python-float hyper-parameters round to f32 where they meet a tensor,
         1 - beta**t is f32 (as JAX's f32 step number makes it), and the
         divisions are true divisions."""
+        if self._opt == "sgd":
+            (mom,) = st
+            mf = self._momentum * mom.float() - self._lr * (g + self._wd * w)
+            w.add_(mf)
+            mom.copy_(mf)
+            return
         m, v = st
         mf, vf = m.float(), v.float()
         sc = adam_scalars(self._lr, self._wd, self._beta1, self._beta2,
@@ -258,7 +279,8 @@ class ShardedTrainer:
     def state_dict(self):
         """Flat name -> tensor dict of the full training state in the JAX
         package's layout: ``param/<name>`` (parameters and buffers),
-        ``opt0/<name>`` and ``opt1/<name>`` (Adam's m and v) and ``step``."""
+        ``opt0/<name>`` and ``opt1/<name>`` (Adam's m and v, or SGD's
+        momentum as ``opt0``) and ``step``."""
         flat = {"param/" + n: v.detach().clone()
                 for n, v in self.param_values.items()}
         for n, st in self._opt_state.items():

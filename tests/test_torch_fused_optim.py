@@ -119,3 +119,48 @@ def test_mismatched_lists_raise_and_empty_lists_pass():
     with pytest.raises(ValueError, match="weights"):
         tfo.multi_trainer_adam(w, [], w, w, t=1, **HP)
     assert tfo.multi_trainer_adam([], [], [], [], t=1, **HP) == ([], [], [])
+
+
+SGD_HP = dict(lr=0.1, wd=1e-4, momentum=0.9)
+
+
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+def test_sgd_mom_plain_update_matches_pallas_interpret(wd):
+    """multi_trainer_sgd_mom: the plain version against the JAX package's
+    _sgd_mom_kernel in interpret mode (rescale 1, clip off), three steps
+    from non-zero momenta, within rtol 1e-6 and atol 1e-9. Not bitwise: on
+    the CPU, XLA contracts ``momentum * mom - lr * (...)`` into one FMA,
+    where the port (and its CUDA kernel) rounds the product on its own, so
+    a momentum where the two terms nearly cancel differs by about one ulp of
+    ``momentum * mom`` (~1e-10 at these magnitudes)."""
+    ws, gs, ms, _ = _state(20 + int(wd > 0))
+    hp = dict(SGD_HP, wd=wd)
+    jw, jm = [jnp.asarray(a) for a in ws], [jnp.asarray(a) for a in ms]
+    tw, tm = _torch(ws), _torch(ms)
+    for step in range(3):
+        g = [a * (step + 1) for a in gs]
+        jw, jm = jfo.multi_trainer_sgd_mom(jw, [jnp.asarray(a) for a in g],
+                                           jm, interpret=True, **hp)
+        out = tfo.multi_trainer_sgd_mom(tw, _torch(g), tm, **hp)
+        assert out[0] is not tw and [id(t) for t in out[0]] \
+            == [id(t) for t in tw]
+    for what, got, want in (("w", tw, jw), ("mom", tm, jm)):
+        for i, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-9, err_msg="%s[%d]" % (what, i))
+
+
+def test_sgd_mom_scalars_are_f32_and_cpu_update_does_not_launch():
+    assert WRAPPERS["trainer_sgd_mom"] is tfo.multi_trainer_sgd_mom
+    sc = tfo.sgd_mom_scalars(0.1, 1e-4, 0.9)
+    assert sc == dict(lr=np.float32(0.1), wd=np.float32(1e-4),
+                      momentum=np.float32(0.9))
+    n0 = tfo.multi_trainer_sgd_mom.launches
+    ws, gs, ms, _ = (_torch(g) for g in _state(6))
+    gs0 = [g.clone() for g in gs]
+    tfo.multi_trainer_sgd_mom(ws, gs, ms, **SGD_HP)
+    assert tfo.multi_trainer_sgd_mom.launches == n0
+    assert all(torch.equal(a, b) for a, b in zip(gs, gs0))
+    with pytest.raises(ValueError, match="momenta"):
+        tfo.multi_trainer_sgd_mom(ws, gs, ms[:1], **SGD_HP)
+    assert tfo.multi_trainer_sgd_mom([], [], [], **SGD_HP) == ([], [])

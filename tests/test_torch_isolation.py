@@ -51,8 +51,8 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in _build.sources())
     assert names == ["flash_attention_bwd.cu", "flash_attention_fwd.cu",
-                     "flash_decode.cu", "fused_norm.cu", "fused_optim.cu",
-                     "runtime.cu"]
+                     "flash_decode.cu", "fused_bottleneck.cu",
+                     "fused_norm.cu", "fused_optim.cu", "runtime.cu"]
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
 
 
@@ -120,6 +120,36 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         load_served_model(ckpt)
     assert load_served_model(ckpt, device="cpu").family == "gpt_decoder"
+
+
+def test_resnet_entry_points_raise_without_cuda_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this card has CUDA; the check is for hosts without it")
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.ops.kernels import (
+        fused_bottleneck, multi_trainer_sgd_mom)
+    for build in (vision.resnet50_v1, vision.resnet18_v2,
+                  lambda: vision.get_model("resnet34_v1"),
+                  lambda: nn.Conv2D(4, 3, in_channels=3),
+                  lambda: nn.Dense(4, in_units=3),
+                  lambda: nn.BatchNorm(in_channels=3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    net = vision.resnet18_v1(device="cpu", classes=7)
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vision.resnet18_v1(device="cuda")
+    # the kernels' wrappers run where their tensors lie: plain on the CPU
+    w, g, m = torch.ones(3), torch.ones(3), torch.zeros(3)
+    multi_trainer_sgd_mom([w], [g], [m], lr=0.5, wd=0.0, momentum=0.9)
+    assert torch.equal(w, torch.full((3,), 0.5))
+    x = torch.zeros(1, 2, 2, 4)
+    out = fused_bottleneck(x, torch.zeros(4, 2), torch.ones(2),
+                           torch.zeros(2), torch.zeros(9, 2, 2),
+                           torch.ones(2), torch.zeros(2), torch.zeros(2, 4),
+                           torch.ones(4), torch.zeros(4))
+    assert out.device.type == "cpu" and out.shape == x.shape
 
 
 def test_contexts():

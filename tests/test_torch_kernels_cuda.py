@@ -10,8 +10,11 @@ JAX package, so it runs on the card's machine, which has no JAX:
 Tolerances (TF32 off): LayerNorm and softmax atol 1e-5, flash attention
 forward and backward atol 2e-5, flash decode atol 2e-5 on o, 1e-5 on m and
 rtol 1e-5 on l; the kernels sum in another order than the plain versions.
-The fused Adam / AdamW kernel equals its plain version bitwise: both round
-every operation on its own, in the same order, from the same f32 scalars.
+The fused Adam / AdamW and SGD-momentum kernels equal their plain versions
+bitwise: both round every operation on its own, in the same order, from the
+same f32 scalars. The fused bottleneck is held within atol 1e-4 in fp32 and
+within 2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step
+where the two round a value from fp32 sums taken in other orders).
 The GPT test holds whole generations on the card and the CPU token for
 token.
 """
@@ -28,7 +31,8 @@ from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dq, flash_attention_forward,
     flash_attention_reference)
 from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
-    multi_trainer_adam, multi_trainer_adam_reference)
+    multi_trainer_adam, multi_trainer_adam_reference, multi_trainer_sgd_mom,
+    multi_trainer_sgd_mom_reference)
 
 
 @pytest.fixture
@@ -398,3 +402,199 @@ def test_bert_on_the_card_matches_the_cpu(cuda, T):
     assert after[attn] - before[attn] == 2
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+def test_trainer_sgd_mom_kernel_equals_plain_bitwise(cuda, wd):
+    """Ragged sizes around the 32768-element chunk (0, 1, 3, 32767, 32768,
+    32769), one of 1 M elements and one contiguous view that is not 16-byte
+    aligned (the scalar path): w and mom bitwise after two steps."""
+    sizes = [0, 1, 3, 32767, 32768, 32769] * 3 + [1 << 20, 5]
+    ws, gs, ms, _ = _adam_state(sizes, cuda, seed=11 + int(wd > 0))
+    for group, scale in zip((ws, gs, ms), (1.0, 1e-3, 1e-3)):
+        buf = torch.rand(4098, device=cuda) * scale
+        group.append(buf[1:])
+    ref = [[x.clone() for x in group] for group in (ws, gs, ms)]
+    w0 = [x.clone() for x in ws]
+    hp = dict(lr=0.1, wd=wd, momentum=0.9)
+    n0 = multi_trainer_sgd_mom.launches
+    for _ in range(2):
+        multi_trainer_sgd_mom(ws, gs, ms, **hp)
+        multi_trainer_sgd_mom_reference(*ref, **hp)
+    torch.cuda.synchronize()
+    assert multi_trainer_sgd_mom.launches == n0 + 2
+    for got, want in zip((ws, ms), (ref[0], ref[2])):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(ws[-1], w0[-1]) and not torch.equal(ws[-3],
+                                                                w0[-3])
+
+
+@pytest.mark.needs_cuda
+def test_trainer_sgd_mom_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    w = [torch.zeros(8, device=cuda)]
+    hp = dict(lr=0.1, wd=0.0, momentum=0.9)
+    with pytest.raises(TypeError, match="float32"):
+        multi_trainer_sgd_mom([w[0].double()], [w[0].double()],
+                              [w[0].double()], **hp)
+    with pytest.raises(ValueError, match="shape"):
+        multi_trainer_sgd_mom(w, [torch.zeros(4, device=cuda)], w, **hp)
+    with pytest.raises(ValueError, match="on"):
+        multi_trainer_sgd_mom(w, w, [torch.zeros(8)], **hp)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.zeros(16, device=cuda)[::2]
+        multi_trainer_sgd_mom([strided], w, w, **hp)
+    assert multi_trainer_sgd_mom([torch.zeros(0, device=cuda)],
+                                 [torch.zeros(0, device=cuda)],
+                                 [torch.zeros(0, device=cuda)], **hp)
+
+
+def _bottleneck_inputs(B, H, W, C, M, dtype, device, seed):
+    """bench_fused_block's draws: x * 0.5 and weights * 0.05 of x's dtype,
+    s in [0.5, 1.5) and b ~ 0.1 N(0, 1) in fp32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def mk(*shape, scale=0.05):
+        return (torch.randn(*shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    def sb(n):
+        return (torch.rand(n, generator=gen, device=device) + 0.5,
+                torch.randn(n, generator=gen, device=device) * 0.1)
+    x = mk(B, H, W, C, scale=0.5)
+    w1, (s1, b1) = mk(C, M), sb(M)
+    w2, (s2, b2) = mk(9, M, M), sb(M)
+    w3, (s3, b3) = mk(M, C), sb(C)
+    return x, w1, s1, b1, w2, s2, b2, w3, s3, b3
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,M", [(2, 56, 56, 256, 64),
+                                       (3, 13, 11, 64, 16),
+                                       (1, 8, 8, 32, 8),
+                                       (2, 7, 9, 300, 64),
+                                       (1, 1, 3, 5, 1)])
+def test_fused_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, M):
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        bottleneck_reference, fused_bottleneck)
+    args = _bottleneck_inputs(B, H, W, C, M, dtype, cuda, seed=B * H + C)
+    n0 = fused_bottleneck.launches
+    got = fused_bottleneck(*args)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches == n0 + 1
+    want = bottleneck_reference(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4
+    else:
+        assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+
+
+@pytest.mark.needs_cuda
+def test_fused_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        fused_bottleneck)
+    args = list(_bottleneck_inputs(1, 4, 4, 8, 4, torch.float32, cuda, 0))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_bottleneck(*[a.double() for a in args])
+    bad = list(args)
+    bad[1] = args[1].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="w1"):
+        fused_bottleneck(*bad)
+    bad = list(args)
+    bad[4] = torch.zeros(9, 4, 5, device=cuda)
+    with pytest.raises(ValueError, match="w2"):
+        fused_bottleneck(*bad)
+    bad = list(args)
+    bad[0] = torch.zeros(1, 4, 8, 4, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_bottleneck(*bad)
+    bad = list(args)
+    bad[2] = args[2].cpu()
+    with pytest.raises(ValueError, match="s1 on"):
+        fused_bottleneck(*bad)
+    wide = _bottleneck_inputs(1, 4, 4, 8, 65, torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="M <= 64"):
+        fused_bottleneck(*wide)
+
+
+@pytest.mark.needs_cuda
+def test_max_pool_ties_route_to_the_first_maximum(cuda):
+    """After the stem's ReLU many 3x3/2 windows hold only zeros: CUDA's
+    max-pool gradient, like the CPU's (and JAX's on the CPU), sends each
+    window's gradient to its first maximum."""
+    from incubator_mxnet_tpu_torch.ops.nn import pooling
+    gen = torch.Generator().manual_seed(5)
+    x = torch.relu(torch.randn(2, 3, 17, 17, generator=gen))
+    x[:, :, 4:9, 4:9] = 0.0
+    x[0, 1, 10:13, 10:13] = 0.5
+    dy = torch.randn(2, 3, 9, 9, generator=gen)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xi = x.to(dev).requires_grad_()
+        out = pooling(xi, kernel=(3, 3), pool_type="max", stride=(2, 2),
+                      pad=(1, 1))
+        out.backward(dy.to(dev))
+        grads.append(xi.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.needs_cuda
+def test_small_resnet_step_on_the_card_matches_the_cpu(cuda):
+    """Two SGD-momentum steps of a small bottleneck ResNet (v1) through
+    ShardedTrainer on the card and on the CPU from the same weights: one
+    trainer_sgd_mom launch a step, losses within rtol 1e-4, and every
+    parameter, momentum and running statistic within 1e-4 of its tensor's
+    largest magnitude. A v1 conv bias feeds a BatchNorm, which takes the
+    batch mean away: its exact gradient is 0 and both sides hold roundoff
+    there, so it (and its momentum) is held to its conv weight's scale."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet, params_from_jax)
+    from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
+    from incubator_mxnet_tpu_torch.parallel import ShardedTrainer
+
+    def loss(out, lab):
+        logp = torch.log_softmax(out.float(), dim=-1)
+        return -logp.gather(-1, lab.long()[:, None]).mean()
+
+    def small(dev):
+        return _ResNet("bottleneck", [1, 1], [8, 16, 32], preact=False,
+                       classes=10, device=dev, seed=3)
+
+    start = {k: v.clone() for k, v in small("cpu").state_dict().items()}
+    gen = torch.Generator().manual_seed(0)
+    data = torch.rand(4, 3, 32, 32, generator=gen)
+    label = torch.randint(0, 10, (4,), generator=gen).float()
+    states = {}
+    for dev in (cuda, torch.device("cpu")):
+        net = params_from_jax(start, small(dev))
+        tr = ShardedTrainer(net, loss, optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.1,
+                                              "momentum": 0.9},
+                            device=dev)
+        before = launch_counts()
+        losses = [float(tr.step(data, label)) for _ in range(2)]
+        after = launch_counts()
+        if dev.type == "cuda":
+            assert after["trainer_sgd_mom"] - before["trainer_sgd_mom"] == 2
+            assert tr._fused_launches == 1
+        states[dev.type] = (losses, {k: v.cpu() for k, v in
+                                     tr.state_dict().items()})
+    (lc, sc), (lh, sh) = states["cuda"], states["cpu"]
+    torch.testing.assert_close(torch.tensor(lc), torch.tensor(lh),
+                               rtol=1e-4, atol=0)
+    assert set(sc) == set(sh)
+    for k, ref in sh.items():
+        if k == "step":
+            continue
+        if k.endswith(".bias") and not k.endswith("output.bias"):
+            ref_scale = sh[k[:-len("bias")] + "weight"]
+        else:
+            ref_scale = ref
+        scale = max(float(ref_scale.abs().max()), 1e-30)
+        assert (sc[k] - ref).abs().max().item() <= 1e-4 * scale, k

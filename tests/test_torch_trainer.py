@@ -1,5 +1,5 @@
-"""The PyTorch port's BERT pretraining (BERTForPretrain + ShardedTrainer)
-against the JAX package's.
+"""The PyTorch port's training (ShardedTrainer) against the JAX package's:
+BERT pretraining with AdamW, and a small ResNet with SGD and momentum.
 
 A tiny BERTForPretrain (2 layers, units 16, 2 heads, vocab 60, as
 tests/test_bert_model.py builds it) is initialized by the JAX package from
@@ -29,6 +29,7 @@ from jax.sharding import PartitionSpec as P
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu import nd
 from incubator_mxnet_tpu.gluon.block import HybridBlock
+from incubator_mxnet_tpu.gluon.model_zoo.vision import resnet as jresnet
 from incubator_mxnet_tpu.models import bert as jbert
 from incubator_mxnet_tpu.parallel import ShardedTrainer as JaxTrainer
 from incubator_mxnet_tpu.parallel import make_mesh as jax_mesh
@@ -36,6 +37,8 @@ from incubator_mxnet_tpu_torch.models.bert import (BERTForPretrain,
                                                    BERTModel,
                                                    pretrain_param_shapes,
                                                    pretrain_params_from_jax)
+from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+    _ResNet, params_from_jax)
 from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
 from incubator_mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
 
@@ -335,16 +338,16 @@ def test_what_this_slice_does_not_carry_raises():
     def make(**kw):
         return ShardedTrainer(net, _loss, device="cpu", **kw)
 
-    for kw, item in ((dict(compute_dtype="bfloat16"), "item 5"),
-                     (dict(param_dtype="bfloat16"), "item 5"),
-                     (dict(zero1=True), "item 11"),
-                     (dict(grad_accum=2), "item 11"),
-                     (dict(rules=[("dense", P("tp"))]), "item 11"),
-                     (dict(optimizer="sgd",
-                           optimizer_params={"momentum": 0.9}),
-                      "Queue 2 item 4")):
+    for build, item in ((lambda: make(compute_dtype="bfloat16"), "item 5"),
+                        (lambda: make(param_dtype="bfloat16"), "item 5"),
+                        (lambda: make(zero1=True), "item 11"),
+                        (lambda: make(grad_accum=2), "item 11"),
+                        (lambda: make(rules=[("dense", P("tp"))]),
+                         "item 11"),
+                        (lambda: _ResNet(**RESNET, remat_stages={"stage1"},
+                                         device="cpu"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
-            make(**kw)
+            build()
     with pytest.raises(NotImplementedError, match="step_guarded"):
         make(optimizer="adamw").step_guarded(*_batch())
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -369,3 +372,91 @@ def test_plain_sgd_steps_downhill():
     torch.testing.assert_close(lin.weight.detach(),
                                w0 - 0.1 * (g + 0.01 * w0))
     assert float(tr.step(x, y)) < loss0
+
+
+# ------------------------------------------------------------------ ResNet
+RESNET = dict(kind="bottleneck", layers=[1, 2], channels=[8, 16, 32],
+              preact=False, classes=10)
+SGD_HP = {"learning_rate": 0.1, "momentum": 0.9}
+
+
+def _resnet_batch(seed=2, B=4, size=32):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(B, 3, size, size).astype(np.float32),
+            rs.randint(0, RESNET["classes"], (B,)).astype(np.float32))
+
+
+def _jax_ce(out, lab):
+    logp = jax.nn.log_softmax(out.astype(jnp.float32), axis=-1)
+    return -jnp.take_along_axis(logp, lab.astype(jnp.int32)[:, None],
+                                axis=-1).mean()
+
+
+def _ce(out, lab):
+    logp = torch.log_softmax(out.float(), dim=-1)
+    return -logp.gather(-1, lab.long()[:, None]).mean()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_resnet_run(fused):
+    """The JAX net's initial state and, after STEPS SGD-momentum steps of
+    its ShardedTrainer, the losses and the state by structural name:
+    params (parameters and running statistics) and momenta."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MXTPU_FUSED_OPTIM_INTERPRET", "1")
+    mp.setenv("MXTPU_FUSED_OPTIM", "1" if fused else "0")
+    try:
+        np.random.seed(0)
+        net = jresnet._ResNet(**RESNET)
+        net.initialize(mx.init.Xavier())
+        net(nd.array(np.zeros((1, 3, 32, 32), np.float32)))
+        by_struct = net._collect_params_with_prefix()
+        init = {k: p.data().asnumpy() for k, p in by_struct.items()}
+        tr = JaxTrainer(net, _jax_ce, jax_mesh({"dp": 1},
+                                               devices=jax.devices()[:1]),
+                        optimizer="sgd", optimizer_params=dict(SGD_HP),
+                        data_specs=P(), label_spec=P())
+        x, y = _resnet_batch()
+        losses = [float(jax.device_get(tr.step(nd.array(x), nd.array(y))))
+                  for _ in range(STEPS)]
+        assert tr._fused_launches == (1 if fused else 0)
+        flat = {k: np.asarray(jax.device_get(v))
+                for k, v in tr.state_dict().items()}
+        params = {k: flat["param/" + p.name] for k, p in by_struct.items()}
+        moms = {k: flat["opt0/" + p.name] for k, p in by_struct.items()
+                if "opt0/" + p.name in flat}
+    finally:
+        mp.undo()
+    return dict(init=init, losses=losses, params=params, moms=moms)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "per_param"])
+def test_three_sgd_momentum_steps_of_a_resnet_match_the_jax_trainer(
+        fused, monkeypatch):
+    """MXTPU_FUSED_OPTIM=0 selects the per-parameter update on both sides."""
+    monkeypatch.setenv("MXTPU_FUSED_OPTIM", "1" if fused else "0")
+    want = _jax_resnet_run(fused)
+    net = params_from_jax(want["init"], _ResNet(**RESNET, device="cpu"))
+    tr = ShardedTrainer(net, _ce, make_mesh({"dp": 1}, devices=["cpu"]),
+                        optimizer="sgd", optimizer_params=dict(SGD_HP),
+                        device="cpu")
+    x, y = _resnet_batch()
+    losses = [float(tr.step(x, y)) for _ in range(STEPS)]
+    assert tr._fused_launches == (1 if fused else 0)
+    np.testing.assert_allclose(losses, want["losses"], rtol=1e-5)
+    assert losses[-1] < losses[0]
+    flat = tr.state_dict()
+    params = {k[len("param/"):]: v.numpy() for k, v in flat.items()
+              if k.startswith("param/")}
+    moms = {k[len("opt0/"):]: v.numpy() for k, v in flat.items()
+            if k.startswith("opt0/")}
+    assert set(params) == set(want["params"])
+    assert set(moms) == set(want["moms"]) and len(moms) == len(
+        tr._diff_names)
+    for got, ref in ((params, want["params"]), (moms, want["moms"])):
+        for k, v in got.items():
+            np.testing.assert_allclose(v, ref[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+    # the running statistics moved
+    assert not np.array_equal(params["features.1.running_var"],
+                              want["init"]["features.1.running_var"])

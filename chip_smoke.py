@@ -49,7 +49,19 @@ Phases, each printing one line:
              steps with exactly one fused SGD-momentum launch a step and no
              other kernel, then 3 steps of the full model at B = 8 x 64 x 64
              against the CPU.
-7. bottleneck - bench_fused_block: three stacked stage-1 bottleneck units
+7. gluon_train - the same model and batch through the eager gluon API:
+             the zoo's resnet50_v1 initialized with mx.init.Xavier() from
+             numpy's global RNG, then autograd.record -> loss.backward ->
+             gluon.Trainer('sgd', lr 0.1, momentum 0.9).step: step 1 at
+             B = 32 against the port on the CPU (loss, gradients, running
+             statistics, and the card's update bitwise against the plain
+             update of its own gradients), a warm-up step and measured steps
+             with exactly one flat SGD-momentum launch a step and no other
+             kernel (the batch copied from the host each step, as
+             ShardedTrainer.step copies it, then again with the batch left
+             on the card), the ratio to resnet_train's step, then steps
+             with 'adam' and 'adamw', one launch of their flavour a step.
+8. bottleneck - bench_fused_block: three stacked stage-1 bottleneck units
              (B = 128, 56 x 56, C = 256, M = 64, bf16) through the fused
              kernel, exactly one launch a unit, against the same stack
              through the plain version, and the stack's device time beside
@@ -57,7 +69,8 @@ Phases, each printing one line:
 
 Options for measurement runs: --profile PATH traces one more serving round,
 one more served decode round (the same 16 requests) and one more training
-step of each shape (BERT and ResNet) under torch.profiler; --rpc-probe times replies on new
+step of each shape (BERT, ResNet through ShardedTrainer and through gluon)
+under torch.profiler; --rpc-probe times replies on new
 rpc connections.
 
 Any failure is fatal (non-zero exit, no result line). Before the last line
@@ -287,6 +300,7 @@ def kernels_phase(torch, dev):
     rows += flash_backward_rows(torch, dev, randn)
     rows.append(trainer_adam_row(torch, dev, randn))
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
+    rows += flat_rows(torch, dev, randn)
     rows += bottleneck_rows(torch, dev)
     for r in rows:
         log("kernels", **r)
@@ -500,6 +514,82 @@ def trainer_sgd_mom_row(torch, dev, randn):
                 "0.9, fused=True).step(), buf = momentum * buf + g",
                 bound_ms=bms, bound_by=by, tensors=len(shapes), elements=n,
                 bytes=bytes_moved)
+
+
+def flat_rows(torch, dev, randn):
+    """The eager seam's three flavours over ResNet-50 v1's trainable
+    tensors (193 fp32 tensors, 25,575,912 elements) with the gluon
+    Trainer's rescale 1/128: each once, held bitwise against its plain
+    version (the per-parameter rule tensor by tensor) on copies; then
+    timed against it and against torch.optim.SGD(momentum=0.9) / Adam /
+    AdamW(fused=True).step() on the same tensors. SGD moves 511.5 MB a
+    call, Adam and AdamW 716.1 MB, every call cold in the 50 MB L2."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    from incubator_mxnet_tpu_torch.ops.kernels import fused_optim as fo
+    net = _ResNet(preact=False, device=dev, **RESNET50)
+    shapes = [tuple(p.shape) for _n, p in sorted(net.named_parameters())
+              if p.requires_grad]
+    del net
+    n = sum(math.prod(sh) for sh in shapes)
+    rescale = 1.0 / RESNET_B
+    flavours = (
+        ("sgd_mom_flat", fo.fused_sgd_mom_flat,
+         fo.fused_sgd_mom_flat_reference, 1,
+         dict(lr=RESNET_LR, wd=0.0, momentum=RESNET_MOMENTUM), 20, 8,
+         lambda ps: torch.optim.SGD(ps, lr=RESNET_LR,
+                                    momentum=RESNET_MOMENTUM, fused=True)),
+        ("adam_flat", fo.fused_adam_flat, fo.fused_adam_flat_reference, 2,
+         dict(lr=1e-3, wd=0.0, b1=0.9, b2=0.999, eps=1e-8, t=1), 28, 15,
+         lambda ps: torch.optim.Adam(ps, lr=1e-3, fused=True)),
+        ("adamw_flat", fo.fused_adamw_flat, fo.fused_adamw_flat_reference,
+         2, dict(lr=1e-3, wd=0.01, eta=1.0, b1=0.9, b2=0.999, eps=1e-8,
+                 t=1), 28, 17,
+         lambda ps: torch.optim.AdamW(ps, lr=1e-3, weight_decay=0.01,
+                                      fused=True)),
+    )
+    rows = []
+    for name, kernel, plain, n_states, hp, per_elem, ops, library in \
+            flavours:
+        groups = [[0.02 * randn(*sh) for sh in shapes],
+                  [0.1 * randn(*sh) for sh in shapes],
+                  [1e-3 * randn(*sh) for sh in shapes]]
+        if n_states == 2:
+            groups.append([1e-6 * randn(*sh).abs() for sh in shapes])
+        hp = dict(hp, rescale=rescale, clip=-1.0)
+        ref = [[t.clone() for t in grp] for grp in groups]
+        kernel(*groups, **hp)
+        plain(*ref, **hp)
+        torch.cuda.synchronize()
+        pairs = [(a, b) for i in [0] + list(range(2, len(groups)))
+                 for a, b in zip(groups[i], ref[i])]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        err = max(max_err(a, b) for a, b in pairs)
+        if not same:
+            raise AssertionError("%s: the kernel and its plain version "
+                                 "differ (max %r); they must agree bitwise"
+                                 % (name, err))
+        del ref, pairs
+        inputs = [tuple(groups)]
+        k_ms, timed_by = device_ms(torch, lambda *g: kernel(*g, **hp),
+                                   inputs)
+        p_ms, _ = device_ms(torch, lambda *g: plain(*g, **hp), inputs)
+        params = [torch.nn.Parameter(w.clone()) for w in groups[0]]
+        for p_, g in zip(params, groups[1]):
+            p_.grad = g.clone()
+        opt = library(params)
+        opt.step()                  # creates the library's state
+        lib_ms, _ = device_ms(torch, opt.step, [()])
+        del params, opt, groups, inputs
+        torch.cuda.empty_cache()
+        bms, by = bound(per_elem * n, ops * n)
+        rows.append(dict(name=name, shape=[len(shapes), n],
+                         max_abs_err=err, tolerance=0.0, bitwise=same,
+                         ms=k_ms, warm_ms=None, timed_by=timed_by,
+                         plain_ms=p_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by, tensors=len(shapes), elements=n,
+                         bytes=per_elem * n, rescale=rescale))
+    return rows
 
 
 def flash_decode_rows(torch, dev, randn):
@@ -1236,11 +1326,12 @@ def resnet_fp64_step(torch, cfg, state, data, label):
     as `state`)."""
     params = {k[len("param/"):]: v for k, v in state.items()
               if k.startswith("param/")}
+    from incubator_mxnet_tpu_torch import autograd
     net = resnet_net(torch, torch.device("cpu"), cfg, params).double()
-    net.train()
     trained = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
-    loss = resnet_loss(net(torch.from_numpy(data).double()),
-                       torch.from_numpy(label))
+    with autograd.train_mode():
+        out = net(torch.from_numpy(data).double())
+    loss = resnet_loss(out, torch.from_numpy(label))
     loss.backward()
     grads = {n: p.grad.clone() for n, p in trained}
     stats = {n: v.clone() for n, v in net.named_buffers()}
@@ -1414,16 +1505,11 @@ def resnet_train_phase(torch, dev, cfg=RESNET50, B=RESNET_B,
     step 1 at B = check_B against the CPU, then a warm-up step and `steps`
     measured steps at B with exact launch counts, then the reduced run.
     Logs the `resnet_train` line (and `resnet_profile`); raises when a check
-    failed. Returns the launch counts of the measured steps."""
-    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
-        _ResNet)
+    failed. Returns the launch counts of the measured steps and the median
+    step in ms."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
-    rs = np.random.RandomState(SEED)
-    params = resnet_params(rs, _ResNet(preact=False,
-                                       device=torch.device("cpu"), **cfg))
-    data = rs.rand(B, 3, size, size).astype(np.float32)
-    label = rs.randint(0, cfg["classes"], (B,)).astype(np.float32)
+    params, data, label = resnet_batch(torch, cfg, B, size)
     check, failures = resnet_step1_check(torch, dev, cfg, params,
                                          data[:check_B], label[:check_B])
 
@@ -1474,7 +1560,226 @@ def resnet_train_phase(torch, dev, cfg=RESNET50, B=RESNET_B,
         log("resnet_profile", card=card, B=B, size=size, **prof)
     if failures:
         raise AssertionError("resnet_train: %s" % "; ".join(failures))
-    return counts
+    return counts, float(np.median(ms))
+
+
+def resnet_batch(torch, cfg, B, size):
+    """bench_resnet50's batch as the resnet_train phase draws it from
+    RandomState(SEED), after its weights: (weights, data, labels)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    rs = np.random.RandomState(SEED)
+    params = resnet_params(rs, _ResNet(preact=False,
+                                       device=torch.device("cpu"), **cfg))
+    data = rs.rand(B, 3, size, size).astype(np.float32)
+    label = rs.randint(0, cfg["classes"], (B,)).astype(np.float32)
+    return params, data, label
+
+
+# ------------------------------------------------------------- gluon_train
+# the eager gluon loop on the same model and batch: record, backward,
+# gluon.Trainer.step, one flat launch a step
+GLUON_STEPS = 5
+GLUON_ADAM_STEPS = 2
+GLUON_FLAT = {"sgd": "sgd_mom_flat", "adam": "adam_flat",
+              "adamw": "adamw_flat"}
+GLUON_HP = {"sgd": {"learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM},
+            "adam": {"learning_rate": 1e-3},
+            "adamw": {"learning_rate": 1e-3, "wd": 0.01}}
+
+
+def gluon_net(torch, dev, cfg, sample):
+    """ResNet v1 of `cfg` as a gluon user builds it: the zoo's net,
+    initialize(Xavier) on `dev` from numpy's global RNG seeded with SEED,
+    shapes completed by one forward of `sample`."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    np.random.seed(SEED)
+    net = _ResNet(preact=False, **cfg)
+    net.initialize(mx.init.Xavier(), ctx=dev)
+    with mx.autograd.predict_mode():
+        net(mx.nd.array(sample, ctx=dev))
+    return net
+
+
+def gluon_step(mx, net, trainer, loss_fn, x, y, before_update=None):
+    """autograd.record -> loss.backward -> trainer.step(B); the mean loss
+    as an NDArray."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    if before_update is not None:
+        before_update()
+    trainer.step(x.shape[0])
+    return loss.mean()
+
+
+def gluon_step1_check(torch, dev, cfg, data, label):
+    """Step 1 of the eager loop at B = len(data) on `dev`, on the CPU in
+    fp32 and in fp64 from the same weights: the loss, every gradient and
+    moved running statistic held as resnet_step1_check holds them, and the
+    update the card applied equal, bitwise, to the plain SGD-momentum
+    update of the card's own gradients (rescale 1 / B)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
+        fused_sgd_mom_flat_reference)
+    cpu = torch.device("cpu")
+    start = None
+    out, fields = {}, {}
+    for d, dtype in ((dev, "float32"), (cpu, "float32"), (cpu, "float64")):
+        t0 = time.perf_counter()
+        net = gluon_net(torch, d, cfg, data[:1])
+        params = net._collect_params_with_prefix()
+        if start is None:
+            start = {k: p.data().asnumpy() for k, p in params.items()}
+        else:
+            for k, p in params.items():
+                p.set_data(start[k])
+        if dtype == "float64":
+            net.cast("float64")
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              dict(GLUON_HP["sgd"]))
+        snap = {}
+
+        def grab():
+            for k, p in params.items():
+                if p.grad_req != "null":
+                    snap[k] = p.grad()._t.detach().clone()
+            snap["__stats__"] = {k: p.data()._t.detach().to(cpu).clone()
+                                 for k, p in params.items()
+                                 if ".running_" in k}
+        loss = gluon_step(mx, net, tr, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                          mx.nd.array(data, ctx=d, dtype=dtype),
+                          mx.nd.array(label, ctx=d), grab)
+        stats = snap.pop("__stats__")
+        out[(d.type, dtype)] = (float(loss.asscalar()), snap, stats, params)
+        fields["%s_%s_s" % (d.type, dtype)] = time.perf_counter() - t0
+    (lc, gc, sc, pc), (lh, gh, sh, _), (l64, g64, s64, _) = (
+        out[(dev.type, "float32")], out[("cpu", "float32")],
+        out[("cpu", "float64")])
+    cpu_g = {k: v.to(cpu) for k, v in gc.items()}
+    grows, gbad = floor_check(cpu_g, gh, g64)
+    srows, sbad = floor_check(sc, sh, s64)
+    failures = []
+    if not abs(lc - lh) <= max(1e-4 * abs(l64), FLOOR_FACTOR * abs(lh - l64)):
+        failures.append("gluon step 1 loss %r on the card, %r on the CPU, "
+                        "%r in fp64" % (lc, lh, l64))
+    for what, bad in (("gradients", gbad), ("running statistics", sbad)):
+        if bad:
+            failures.append("gluon: %d %s differ from the CPU's by more "
+                            "than 1e-4 of their max and %g times the CPU's "
+                            "own fp32 error: %s" % (len(bad), what,
+                                                    FLOOR_FACTOR, bad[:8]))
+    names = sorted(gc)
+    ws = [torch.from_numpy(start[k]).to(dev) for k in names]
+    moms = [torch.zeros_like(w) for w in ws]
+    fused_sgd_mom_flat_reference(ws, [gc[k] for k in names], moms,
+                                 RESNET_LR, 0.0, RESNET_MOMENTUM,
+                                 1.0 / len(data), -1.0)
+    unequal = [k for k, w in zip(names, ws)
+               if not torch.equal(pc[k].data()._t.detach(), w)]
+    if unequal:
+        failures.append("gluon: the card's update of %d tensors is not the "
+                        "plain SGD-momentum update of its gradients: %s"
+                        % (len(unequal), unequal[:8]))
+    fields.update(B=int(len(data)), loss_step1=lc, cpu_loss_step1=lh,
+                  fp64_loss_step1=l64,
+                  grads_within_1e4_of_max=sum(r[1] <= 1e-4 for r in grows),
+                  grads=len(grows), grad_worst=grows[:3],
+                  grad_worst_rel_err=max(r[1] for r in grows),
+                  cpu_fp32_grad_worst_rel_err=max(r[2] for r in grows),
+                  stat_worst_rel_err=max(r[1] for r in srows),
+                  update_bitwise=not unequal)
+    return fields, failures
+
+
+def gluon_train_phase(torch, dev, cfg=RESNET50, B=RESNET_B, size=RESNET_SIZE,
+                      check_B=RESNET_CHECK_B, steps=GLUON_STEPS,
+                      adam_steps=GLUON_ADAM_STEPS, sharded_ms=None,
+                      profile=False, card=None):
+    """ResNet v1 training through the eager gluon API on resnet_train's
+    batch: step 1 at B = check_B against the CPU, then gluon.Trainer('sgd')
+    for a warm-up step and `steps` measured steps with exactly one flat
+    SGD launch a step and no other kernel, the batch copied from the host
+    each step as ShardedTrainer.step copies it; `steps` more with the batch
+    left on the card; then `adam_steps` steps each of 'adam' and 'adamw'
+    with one launch of their flavour a step. Logs the `gluon_train` line
+    (and `gluon_profile`); raises when a check failed. Returns {path:
+    launch counts} of the measured runs."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    _params, data, label = resnet_batch(torch, cfg, B, size)
+    check, failures = gluon_step1_check(torch, dev, cfg, data[:check_B],
+                                        label[:check_B])
+    net = gluon_net(torch, dev, cfg, data[:1])
+    resident = mx.nd.array(data, ctx=dev), mx.nd.array(label, ctx=dev)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(tr, from_host):
+        x, y = (mx.nd.array(data, ctx=dev), mx.nd.array(label, ctx=dev)) \
+            if from_host else resident
+        return gluon_step(mx, net, tr, loss_fn, x, y)
+
+    runs, by_path, tr = {}, {}, None
+    for path, opt, n, from_host in (
+            ("gluon_train", "sgd", steps, True),
+            ("gluon_train_resident", "sgd", steps, False),
+            ("gluon_train_adam", "adam", adam_steps, True),
+            ("gluon_train_adamw", "adamw", adam_steps, True)):
+        if tr is None or tr.optimizer.__class__.__name__.lower() != opt:
+            tr = mx.gluon.Trainer(net.collect_params(), opt,
+                                  dict(GLUON_HP[opt]))
+        if path == "gluon_train":
+            t0 = time.perf_counter()
+            warm = float(step(tr, True).asscalar())
+            first_step_s = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        launches0 = tr._updaters[0].fused_launches
+        losses, times = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = step(tr, from_host)
+            _sync(torch, dev)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss.asscalar()))
+        counts = launch_counts()
+        by_path[path] = counts
+        want = expected_counts(**{GLUON_FLAT[opt]: n})
+        groups = tr._updaters[0].fused_launches - launches0
+        if groups != n or (dev.type == "cuda" and counts != want):
+            failures.append("%s: launch counts %s (fused groups %d), "
+                            "expected %s from %d steps" % (path, counts,
+                                                           groups, want, n))
+        if not np.isfinite(losses).all():
+            failures.append("%s: losses %s are not all finite"
+                            % (path, losses))
+        ms = np.asarray(times) * 1e3
+        runs[path] = dict(optimizer=opt, batch_from_host=from_host, steps=n,
+                          step_ms_median=float(np.median(ms)),
+                          step_ms_max=float(ms.max()), step_ms=ms.tolist(),
+                          losses=losses)
+        if path == "gluon_train":
+            peak = torch.cuda.max_memory_allocated(dev) \
+                if dev.type == "cuda" else None
+            prof = profile_round(torch, lambda: step(tr, True)) \
+                if profile else None
+    sgd_ms = runs["gluon_train"]["step_ms_median"]
+    log("gluon_train", card=card, B=B, size=size, warmup_loss=warm,
+        first_step_s=first_step_s, step_ms_median=sgd_ms,
+        step_ms_max=runs["gluon_train"]["step_ms_max"],
+        images_per_s=B / sgd_ms * 1e3, peak_mem_bytes=peak,
+        sharded_step_ms_median=sharded_ms,
+        ratio_to_sharded=sgd_ms / sharded_ms if sharded_ms else None,
+        runs=runs, launches=by_path, step1=check)
+    if prof is not None:
+        log("gluon_profile", card=card, B=B, size=size, **prof)
+    if failures:
+        raise AssertionError("gluon_train: %s" % "; ".join(failures))
+    return by_path
 
 
 # -------------------------------------------------------------- bottleneck
@@ -1639,8 +1944,10 @@ def _kernel_class(name):
                      ("flash_fwd", "flash_attention_fwd"),
                      ("flash_bwd_dq", "flash_attention_bwd_dq"),
                      ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
-                     ("trainer_adam", "trainer_adam"),
-                     ("trainer_sgd_mom", "trainer_sgd_mom"),
+                     ("traineradam", "trainer_adam"),
+                     ("sgdmom", "sgd_mom (trainer or flat)"),
+                     ("flatadamw", "adamw_flat"),
+                     ("flatadam", "adam_flat"),
                      ("fused_bottleneck", "fused_bottleneck"),
                      ("flash_decode", "flash_decode"),
                      ("memcpy", "copy"), ("memset", "copy"),
@@ -1781,6 +2088,12 @@ KERNEL_META = {
     "fused_bottleneck": (
         "incubator_mxnet_tpu_torch/csrc/fused_bottleneck.cu",
         "incubator_mxnet_tpu/ops/pallas/fused_bottleneck.py:48"),
+    "sgd_mom_flat": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                     "incubator_mxnet_tpu/ops/pallas/fused_optim.py:102"),
+    "adam_flat": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                  "incubator_mxnet_tpu/ops/pallas/fused_optim.py:114"),
+    "adamw_flat": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                   "incubator_mxnet_tpu/ops/pallas/fused_optim.py:133"),
 }
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
@@ -1849,15 +2162,18 @@ def main(argv=None):
 
     tcounts = train_phase(torch, dev, BERT_BASE,
                           profile=args.profile is not None, card=card)
-    rcounts = resnet_train_phase(torch, dev, profile=args.profile is not None,
-                                 card=card)
+    rcounts, resnet_ms = resnet_train_phase(
+        torch, dev, profile=args.profile is not None, card=card)
+    gcounts = gluon_train_phase(torch, dev, sharded_ms=resnet_ms,
+                                profile=args.profile is not None, card=card)
     bcounts = bottleneck_phase(torch, dev, card=card)
 
     # launches: each main path's run (serve, decode, each train shape, the
-    # ResNet steps, the bottleneck stack), counts reset to 0 just before it
-    # and read just after; the line carries their sum
+    # ResNet steps, the gluon steps of each optimizer, the bottleneck
+    # stack), counts reset to 0 just before it and read just after; the
+    # line carries their sum
     by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
-               "resnet_train": rcounts, "bottleneck": bcounts}
+               "resnet_train": rcounts, "bottleneck": bcounts, **gcounts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]

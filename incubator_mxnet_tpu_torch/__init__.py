@@ -5,12 +5,22 @@ does what it does in PyTorch on an NVIDIA H100, with the JAX package's Pallas
 kernels written again by hand for Hopper (``csrc/``, built at first use into
 ``build/torch_kernels/``). It imports neither JAX nor the JAX package.
 
-Ported so far: serving a BERT encoder (``serving``, ``models.bert``) with the
-LayerNorm, row-softmax and flash-attention-forward kernels
-(``ops.kernels``).
+Ported so far: serving a BERT encoder and GPT generation (``serving``,
+``models``, ``generate``), ShardedTrainer training (``parallel``), and the
+eager gluon surface: ``nd`` (NDArray), ``autograd``, ``gluon`` (Block,
+Parameter, layers, losses, Trainer, the ResNet zoo), ``init``,
+``optimizer``, ``kvstore`` and ``lr_scheduler``, with the hand-written
+kernels of ``ops.kernels``.
 """
 
-from . import context
+from . import (autograd, context, gluon, initializer, kvstore, lr_scheduler,
+               ndarray, optimizer)
+from .base import MXNetError
 from .context import cpu, default_device, gpu, num_gpus, tpu
 
-__all__ = ["context", "cpu", "gpu", "tpu", "num_gpus", "default_device"]
+nd = ndarray
+init = initializer
+
+__all__ = ["autograd", "context", "gluon", "init", "initializer", "kvstore",
+           "lr_scheduler", "nd", "ndarray", "optimizer", "MXNetError", "cpu",
+           "gpu", "tpu", "num_gpus", "default_device"]

@@ -1,7 +1,15 @@
-"""Gluon's layers and model zoo as ``torch.nn.Module``s. Counterpart of
-``incubator_mxnet_tpu/gluon/`` for the layers the ResNet path uses; the
-block, parameter and trainer core is ROADMAP Queue 1 items 3 and 4."""
+"""Gluon of the PyTorch port: Block / HybridBlock, Parameter /
+ParameterDict, the layers of ``nn``, the losses, the local ``Trainer`` and
+the ResNet model zoo (counterpart of ``incubator_mxnet_tpu/gluon/``). The
+other layers, ``rnn``, ``contrib``, ``data`` and ``utils`` wait for ROADMAP
+Queue 1 items 3, 9 and 10."""
 
-from . import model_zoo, nn
+from . import loss, model_zoo, nn
+from .block import Block, HybridBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
+from .trainer import Trainer
 
-__all__ = ["nn", "model_zoo"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError", "Trainer", "nn", "loss",
+           "model_zoo"]

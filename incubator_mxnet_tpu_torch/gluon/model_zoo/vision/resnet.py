@@ -1,35 +1,38 @@
-"""ResNet v1 / v2 families as ``torch.nn.Module``s.
+"""ResNet v1 / v2 families on the port's HybridBlock.
 
 Counterpart of ``incubator_mxnet_tpu/gluon/model_zoo/vision/resnet.py``:
 one generic residual unit driven by a conv-plan table (``_conv_plan``,
 ``_ResidualUnit``, v1 and v2 orderings) and one assembler (``_ResNet``),
 with ``ResNetV1``/``ResNetV2``, the ``BasicBlock``/``Bottleneck`` shells,
-``resnet_spec``, ``get_resnet`` and ``resnet{18,34,50,101,152}_v{1,2}``.
-Parameter and buffer names are the JAX net's
+``resnet_spec``, ``get_resnet`` and ``resnet{18,34,50,101,152}_v{1,2}``,
+built as the JAX package builds them: the same layers, the same deferred
+``in_channels``, the same names. So ``np.random.seed(s);
+net.initialize(mx.init.Xavier(), ctx=...)`` and a first forward draw the
+JAX net's weights, and parameter and buffer names are the JAX net's
 ``_collect_params_with_prefix()`` keys (``features.0.weight``,
-``features.1.gamma``, ..., ``output.bias``), so JAX weights and running
-statistics come across by name with ``params_from_jax``. v1 bottlenecks
-keep the reference's biased 1x1 convs: ResNet-50 v1 trains 25,575,912
-elements in 193 tensors.
+``features.1.gamma``, ..., ``output.bias``). v1 bottlenecks keep the
+reference's biased 1x1 convs: ResNet-50 v1 trains 25,575,912 elements in
+193 tensors.
 
-Differences from the JAX package: every layer is given its ``in_channels``
-(3 for the RGB stem; deferred shape inference is ROADMAP Queue 1 item 3),
-and per-stage rematerialization (``remat_stages``, ``MXTPU_RESNET_REMAT``)
-is Queue 1 item 6 and raises. A model is built on ``device`` (None is
-``cuda:0`` and raises without CUDA; ``device="cpu"`` for the plain path),
-starts from ``init_params(seed)`` (Xavier weights), and is in inference
-mode (``eval()``), as the JAX net's forward outside ``autograd.record()``.
+Built with ``device=...`` (a ``torch.device`` or its name), a model is
+ready at once, as ``ShardedTrainer`` and ``params_from_jax`` take it: every
+shape is inferred on that device and the weights start from
+``init_params(seed)`` (Xavier's form from a seeded ``torch.Generator``;
+numpy's global RNG is not touched). Without ``device`` it is a gluon net
+whose parameters wait for ``initialize``. Per-stage rematerialization
+(``remat_stages``, ``MXTPU_RESNET_REMAT``) is ROADMAP Queue 1 item 6 and
+raises.
 """
 
 import os
 
 import numpy as np
 import torch
-from torch import nn as tnn
 
+from .... import initializer as _init
 from ....context import resolve_device
-from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
-                   GlobalAvgPool2D, HybridSequential, MaxPool2D, init_params)
+from ...block import HybridBlock
+from ... import nn
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -57,7 +60,7 @@ def _conv_plan(kind, channels, stride, preact):
             (channels, 1, 1, 0, True)]
 
 
-class _ResidualUnit(tnn.Module):
+class _ResidualUnit(HybridBlock):
     """One residual unit. ``preact=False`` is the v1 ordering
     (conv-BN-relu ... + identity, relu after the add); ``preact=True`` is
     the v2 ordering (BN-relu-conv ..., identity added raw, and the
@@ -65,56 +68,46 @@ class _ResidualUnit(tnn.Module):
 
     def __init__(self, kind, channels, stride, downsample=False,
                  in_channels=0, preact=False, remat=False,
-                 remat_policy="full", prefix=None, device=None):
-        super().__init__()
+                 remat_policy="full", **kwargs):
+        super().__init__(**kwargs)
         if remat:
             raise _no_remat("_ResidualUnit(remat=True)")
-        if not in_channels:
-            raise NotImplementedError(
-                "_ResidualUnit without in_channels (deferred shape "
-                "inference) is not ported yet (ROADMAP Queue 1 item 3)")
-        device = resolve_device(device)
         self._preact = preact
-        self.body = HybridSequential()
-        c_in = in_channels
         plan = _conv_plan(kind, channels, stride, preact)
+        self.body = nn.HybridSequential(prefix="")
         for i, (c, k, s, p, bias) in enumerate(plan):
             if preact:
-                self.body.add(BatchNorm(in_channels=c_in, device=device),
-                              Activation("relu"))
-            self.body.add(Conv2D(c, kernel_size=k, strides=s, padding=p,
-                                 use_bias=bias, in_channels=c_in,
-                                 device=device))
+                self.body.add(nn.BatchNorm(), nn.Activation("relu"))
+            self.body.add(nn.Conv2D(c, kernel_size=k, strides=s, padding=p,
+                                    use_bias=bias))
             if not preact:
-                self.body.add(BatchNorm(in_channels=c, device=device))
+                self.body.add(nn.BatchNorm())
                 if i < len(plan) - 1:
-                    self.body.add(Activation("relu"))
-            c_in = c
+                    self.body.add(nn.Activation("relu"))
         if not downsample:
             self.downsample = None
         elif preact:
-            self.downsample = Conv2D(channels, 1, stride, use_bias=False,
-                                     in_channels=in_channels, device=device)
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
         else:
-            self.downsample = HybridSequential()
+            self.downsample = nn.HybridSequential(prefix="")
             self.downsample.add(
-                Conv2D(channels, 1, stride, use_bias=False,
-                       in_channels=in_channels, device=device),
-                BatchNorm(in_channels=channels, device=device))
+                nn.Conv2D(channels, 1, stride, use_bias=False,
+                          in_channels=in_channels),
+                nn.BatchNorm())
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         if self._preact:
             # v2: the first BN-relu of the body also feeds the shortcut
             cells = list(self.body)
             pre = cells[1](cells[0](x))
-            shortcut = self.downsample(pre) if self.downsample is not None \
-                else x
+            shortcut = self.downsample(pre) if self.downsample else x
             out = pre
             for layer in cells[2:]:
                 out = layer(out)
             return out + shortcut
-        shortcut = self.downsample(x) if self.downsample is not None else x
-        return torch.relu(self.body(x) + shortcut)
+        shortcut = self.downsample(x) if self.downsample else x
+        return F.Activation(self.body(x) + shortcut, act_type="relu")
 
 
 def _unit_cls(name, kind, preact):
@@ -134,7 +127,7 @@ BasicBlockV2 = _unit_cls("BasicBlockV2", "basic", True)
 BottleneckV2 = _unit_cls("BottleneckV2", "bottleneck", True)
 
 
-class _ResNet(tnn.Module):
+class _ResNet(HybridBlock):
     """Assembler: stem -> stages of residual units -> pool -> classifier.
 
     v2 (preact) wraps the stages with the reference's extra input BN
@@ -142,80 +135,85 @@ class _ResNet(tnn.Module):
 
     def __init__(self, kind, layers, channels, preact, classes=1000,
                  thumbnail=False, unit_factory=None, remat_stages=None,
-                 remat_policy=None, prefix=None, device=None, seed=0):
-        super().__init__()
+                 remat_policy=None, device=None, seed=0, **kwargs):
+        super().__init__(**kwargs)
         assert len(layers) == len(channels) - 1
         if remat_stages is None:
             env = os.environ.get("MXTPU_RESNET_REMAT", "")
             remat_stages = {s.strip() for s in env.split(",") if s.strip()}
         if remat_stages:
             raise _no_remat("remat_stages=%s" % sorted(remat_stages))
-        device = resolve_device(device)
         self._preact = preact
         if unit_factory is None:
             def unit_factory(out_c, stride, downsample, in_c):
                 return _ResidualUnit(kind, out_c, stride, downsample,
                                      in_channels=in_c, preact=preact,
-                                     device=device)
-        self.features = HybridSequential()
-        if preact:
-            self.features.add(BatchNorm(scale=False, center=False,
-                                        in_channels=3, device=device))
-        if thumbnail:
-            self.features.add(Conv2D(channels[0], 3, 1, 1, use_bias=False,
-                                     in_channels=3, device=device))
-        else:
-            self.features.add(Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                     in_channels=3, device=device),
-                              BatchNorm(in_channels=channels[0],
-                                        device=device),
-                              Activation("relu"), MaxPool2D(3, 2, 1))
-        in_c = channels[0]
-        for i, (n_units, out_c) in enumerate(zip(layers, channels[1:])):
-            stage = HybridSequential()
-            for j in range(n_units):
-                stride = 2 if (i > 0 and j == 0) else 1
-                stage.add(unit_factory(out_c, stride,
-                                       j == 0 and out_c != in_c, in_c))
-                in_c = out_c
-            self.features.add(stage)
-        if preact:
-            self.features.add(BatchNorm(in_channels=in_c, device=device),
-                              Activation("relu"))
-        self.features.add(GlobalAvgPool2D())
-        if preact:
-            self.features.add(Flatten())
-        self.output = Dense(classes, in_units=channels[-1], device=device)
-        self.device = device
-        init_params(self, seed)
-        self.eval()
+                                     prefix="")
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if preact:
+                self.features.add(nn.BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(nn.Conv2D(channels[0], 3, 1, 1,
+                                            use_bias=False))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False),
+                                  nn.BatchNorm(), nn.Activation("relu"),
+                                  nn.MaxPool2D(3, 2, 1))
+            in_c = channels[0]
+            for i, (n_units, out_c) in enumerate(zip(layers, channels[1:])):
+                stage = nn.HybridSequential(prefix="stage%d_" % (i + 1))
+                with stage.name_scope():
+                    for j in range(n_units):
+                        stride = 2 if (i > 0 and j == 0) else 1
+                        stage.add(unit_factory(out_c, stride,
+                                               j == 0 and out_c != in_c,
+                                               in_c))
+                        in_c = out_c
+                self.features.add(stage)
+            if preact:
+                self.features.add(nn.BatchNorm(), nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            if preact:
+                self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=channels[-1])
+        if device is not None:
+            self._materialize(resolve_device(device), seed,
+                              8 if thumbnail else 32)
 
-    def forward(self, x):
+    def _materialize(self, device, seed, size):
+        """Every shape inferred on ``device`` (zeros: no draw from numpy's
+        RNG), then ``init_params(seed)``."""
+        self.initialize(_init.Zero(), ctx=device)
+        self.infer_shape(torch.zeros(1, 3, size, size, device=device))
+        nn.init_params(self, seed)
+
+    @property
+    def device(self):
+        return self.output.weight.data().context
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
-def _block_factory(block, device):
+def _block_factory(block):
     """ResNetV1/V2 instantiate the block class the caller passes."""
     def make(out_c, stride, downsample, in_c):
-        return block(out_c, stride, downsample, in_channels=in_c,
-                     device=device)
+        return block(out_c, stride, downsample, in_channels=in_c, prefix="")
     return make
 
 
 class ResNetV1(_ResNet):
-    def __init__(self, block, layers, channels, device=None, **kwargs):
-        device = resolve_device(device)
+    def __init__(self, block, layers, channels, **kwargs):
         super().__init__("custom", layers, channels, preact=False,
-                         unit_factory=_block_factory(block, device),
-                         device=device, **kwargs)
+                         unit_factory=_block_factory(block), **kwargs)
 
 
 class ResNetV2(_ResNet):
-    def __init__(self, block, layers, channels, device=None, **kwargs):
-        device = resolve_device(device)
+    def __init__(self, block, layers, channels, **kwargs):
         super().__init__("custom", layers, channels, preact=True,
-                         unit_factory=_block_factory(block, device),
-                         device=device, **kwargs)
+                         unit_factory=_block_factory(block), **kwargs)
 
 
 # depth -> (unit kind, units per stage, channels incl. stem)
@@ -232,7 +230,8 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
     """ResNet-``num_layers`` v``version`` from ``resnet_spec``; ``ctx`` and
     ``root`` are accepted and not read, as in the JAX package (``device``
-    places the model)."""
+    builds the model ready on that device; without it, ``initialize``
+    places it)."""
     if num_layers not in resnet_spec:
         raise ValueError("no resnet spec for depth %r" % (num_layers,))
     if version not in (1, 2):
@@ -274,7 +273,8 @@ def _to_tensor(v):
 
 
 def params_from_jax(params, net):
-    """Fill ``net``'s parameters and running statistics from ``params``, a
+    """Fill ``net``'s parameters and running statistics (every shape known)
+    from ``params``, a
     {name: array} dict named as the JAX net's
     ``_collect_params_with_prefix()`` (numpy arrays, tensors or the JAX
     package's NDArrays). Every name and shape is checked both ways

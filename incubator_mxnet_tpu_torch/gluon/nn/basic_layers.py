@@ -1,71 +1,41 @@
-"""Gluon's basic layers as ``torch.nn.Module``s.
+"""Gluon's basic layers on the port's HybridBlock and Parameter.
 
-Counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``:
-``HybridSequential``, ``Dense``, ``BatchNorm``, ``Activation`` and
-``Flatten``, with gluon's constructor arguments and defaults. Parameter
-names are gluon's (``weight``, ``bias``, ``gamma``, ``beta``; BatchNorm's
-``running_mean`` and ``running_var`` are buffers) and a ``HybridSequential``
-names its children ``"0"``, ``"1"``, ..., so ``named_parameters()`` and
-``named_buffers()`` of a model give the JAX package's
-``_collect_params_with_prefix()`` keys.
+Counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py`` for the
+layers of the ResNet path: ``HybridSequential``, ``Dense``, ``BatchNorm``,
+``Activation`` and ``Flatten``, with gluon's
+constructor arguments, defaults, initializers and deferred shape inference
+(``in_units`` / ``in_channels`` 0 are completed from the first input).
+Parameter names are gluon's (``weight``, ``bias``, ``gamma``, ``beta``;
+BatchNorm's ``running_mean`` and ``running_var`` are auxiliary state, torch
+buffers), and a ``HybridSequential`` names its children ``"0"``, ``"1"``,
+..., so ``named_parameters()`` and ``named_buffers()`` of a model give the
+JAX package's ``_collect_params_with_prefix()`` keys.
 
-What gluon's block core does and this slice does not, raising
-NotImplementedError that names its ROADMAP item: deferred shape inference
-(``in_units`` / ``in_channels`` must be given) and initializers other than
-the defaults (Queue 1 item 3), parameter sharing through ``params=``, and
-dtypes other than float32 (item 5). Layers with parameters take
-``device`` (None is ``cuda:0`` and raises without CUDA). ``init_params``
-draws gluon's usual start, ``mx.init.Xavier()`` weights and the layers'
-default constants, from a seeded ``torch.Generator``.
+BatchNorm normalizes with the batch statistics when
+``autograd.is_training()`` (inside ``autograd.record()`` or
+``train_mode()``) and not ``use_global_stats``, and then writes the moved
+statistics into its running-statistic tensors in place, as gluon does
+outside a trace. ``init_params`` draws gluon's usual start
+(``mx.init.Xavier()``'s form) from a seeded ``torch.Generator`` for nets
+whose shapes are known. Sequential, Dropout, Embedding, LayerNorm,
+InstanceNorm and the Lambda blocks wait for ROADMAP Queue 1 items 2, 3
+and 9.
 """
 
 import math
 
 import torch
-from torch import nn
 
-from ...context import resolve_device
-from ...ops.nn import activation, batch_norm, flatten, fully_connected
+from ... import autograd as _ag
+from ..block import HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation", "Flatten",
-           "init_params"]
-
-
-def _not_yet(what, item):
-    return NotImplementedError("%s is not ported yet (ROADMAP Queue 1 %s)"
-                               % (what, item))
-
-
-def _require(layer, what, value):
-    """Deferred shape inference is not ported: ``value`` must be given."""
-    if not value:
-        raise _not_yet("%s without %s (deferred shape inference)"
-                       % (layer, what), "item 3")
-    return int(value)
-
-
-def _default_init(layer, **given):
-    """Initializer arguments other than gluon's defaults are not ported."""
-    for name, (value, default) in given.items():
-        if value != default:
-            raise _not_yet("%s(%s=%r): initializers" % (layer, name, value),
-                           "item 3")
-
-
-def _check_float32(layer, dtype):
-    if str(dtype).replace("torch.", "") != "float32":
-        raise _not_yet("%s(dtype=%r)" % (layer, dtype), "item 5")
-
-
-def _param(shape, device, fill=0.0, requires_grad=True):
-    return nn.Parameter(torch.full(shape, fill, dtype=torch.float32,
-                                   device=device),
-                        requires_grad=requires_grad)
+__all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
+           "Flatten", "init_params"]
 
 
 def _xavier_(w, gen):
     """``mx.init.Xavier()``: uniform in +-sqrt(3 / ((fan_in + fan_out) /
-    2)), fans counted over the receptive field (initializer.py:193-209)."""
+    2)), fans counted over the receptive field (initializer.py)."""
     rf = math.prod(w.shape[2:]) if w.dim() > 2 else 1
     fan_in, fan_out = w.shape[1] * rf, w.shape[0] * rf
     scale = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
@@ -93,113 +63,185 @@ def init_params(block, seed=0):
     return block
 
 
-class HybridSequential(nn.Sequential):
-    """Stack of layers run in order; children are named "0", "1", ...
-    ``prefix`` is accepted for gluon's signature: names are structural."""
+class HybridSequential(HybridBlock):
+    """Stack of HybridBlocks, run in order; children are named "0", "1",
+    ..."""
 
     def __init__(self, prefix=None, params=None):
-        if params is not None:
-            raise _not_yet("HybridSequential(params=...): parameter sharing",
-                           "item 3")
-        super().__init__()
+        super().__init__(prefix=prefix, params=params)
 
     def add(self, *blocks):
         for block in blocks:
-            self.append(block)
+            self.register_child(block)
+
+    def hybrid_forward(self, F, x, *args):
+        for block in self._children.values():
+            x = block(x, *args)
+            args = []
+            if isinstance(x, (tuple, list)):
+                args = x[1:]
+                x = x[0]
+        if args:
+            return tuple([x] + list(args))
+        return x
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
+    def __iter__(self):
+        return iter(self._children.values())
 
 
-class Dense(nn.Module):
-    """y = act(x W^T + b), weight (units, in_units); ``flatten`` folds every
-    axis after the first into the input."""
+class Dense(HybridBlock):
+    """Fully-connected layer: y = act(x W^T + b) (reference: Dense)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0, prefix=None,
-                 device=None):
-        super().__init__()
-        _check_float32("Dense", dtype)
-        _default_init("Dense", weight_initializer=(weight_initializer, None),
-                      bias_initializer=(bias_initializer, "zeros"))
-        in_units = _require("Dense", "in_units", in_units)
-        device = resolve_device(device)
-        self._units, self._flatten, self._act_type = units, flatten, \
-            activation
-        self.weight = _param((units, in_units), device)
-        self.bias = _param((units,), device) if use_bias else None
+                 bias_initializer="zeros", in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
+        self._flatten = flatten
+        self._act_type = activation
+        with self.name_scope():
+            self.weight = self.params.get("weight", shape=(units, in_units),
+                                          init=weight_initializer,
+                                          dtype=dtype,
+                                          allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get("bias", shape=(units,),
+                                            init=_init_of(bias_initializer),
+                                            dtype=dtype,
+                                            allow_deferred_init=True)
+            else:
+                self.bias = None
 
-    def forward(self, x):
-        out = fully_connected(x, self.weight, self.bias,
-                              no_bias=self.bias is None,
-                              flatten=self._flatten)
-        return activation(out, self._act_type) if self._act_type else out
+    def _shape_hook(self, x, *args):
+        in_units = x.shape[-1] if not self._flatten \
+            else int(math.prod(x.shape[1:]))
+        self.weight.shape_inferred((self._units, in_units))
+        if self.bias is not None:
+            self.bias.shape_inferred((self._units,))
+        for p in (self.weight, self.bias):
+            if p is not None and p._deferred_init is not None:
+                p._finish_deferred_init()
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               no_bias=bias is None, flatten=self._flatten)
+        if self._act_type:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
+    def __repr__(self):
+        shape = self.weight.shape
+        return "Dense(%s -> %s, %s)" % (
+            shape[1] if shape and len(shape) > 1 else None,
+            shape[0] if shape else None, self._act_type or "linear")
 
 
-class BatchNorm(nn.Module):
-    """Batch normalization over ``axis`` with moving statistics as buffers.
-    In training mode (``train()``, and not ``use_global_stats``) it
-    normalizes with the batch statistics and writes the moved statistics
-    into its buffers under ``torch.no_grad()``, as gluon does outside a
-    trace; otherwise it uses the moving ones. ``scale=False`` /
-    ``center=False`` hold gamma / beta as tensors that take no gradient
-    (gluon's ``differentiable=False``), and gamma then acts as ones."""
+class Activation(HybridBlock):
+    def __init__(self, activation, **kwargs):
+        self._act_type = activation  # before super(): _alias() uses it
+        super().__init__(**kwargs)
+
+    def _alias(self):
+        return self._act_type
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return "Activation(%s)" % self._act_type
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization with moving statistics as auxiliary state
+    (reference: BatchNorm)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False,
                  beta_initializer="zeros", gamma_initializer="ones",
                  running_mean_initializer="zeros",
                  running_variance_initializer="ones", in_channels=0,
-                 prefix=None, device=None):
-        super().__init__()
-        _default_init(
-            "BatchNorm", beta_initializer=(beta_initializer, "zeros"),
-            gamma_initializer=(gamma_initializer, "ones"),
-            running_mean_initializer=(running_mean_initializer, "zeros"),
-            running_variance_initializer=(running_variance_initializer,
-                                          "ones"))
-        c = _require("BatchNorm", "in_channels", in_channels)
-        device = resolve_device(device)
-        self._axis, self._momentum, self._epsilon = axis, momentum, epsilon
-        self._scale, self._use_global_stats = scale, use_global_stats
-        self.gamma = _param((c,), device, 1.0, requires_grad=scale)
-        self.beta = _param((c,), device, 0.0, requires_grad=center)
-        self.register_buffer("running_mean",
-                             torch.zeros(c, dtype=torch.float32,
-                                         device=device))
-        self.register_buffer("running_var",
-                             torch.ones(c, dtype=torch.float32,
-                                        device=device))
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self._in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=_init_of(gamma_initializer),
+                                         allow_deferred_init=True,
+                                         differentiable=scale)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=_init_of(beta_initializer),
+                                        allow_deferred_init=True,
+                                        differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=_init_of(running_mean_initializer),
+                allow_deferred_init=True, differentiable=False, aux=True)
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=_init_of(running_variance_initializer),
+                allow_deferred_init=True, differentiable=False, aux=True)
 
-    def forward(self, x):
-        training = self.training and not self._use_global_stats
-        out, new_mean, new_var = batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            eps=self._epsilon, momentum=self._momentum,
-            fix_gamma=not self._scale,
+    def _shape_hook(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape_inferred((c,))
+            if p._deferred_init is not None:
+                p._finish_deferred_init()
+
+    def cast(self, dtype):
+        if dtype in ("float16", "bfloat16"):
+            dtype = "float32"  # keep BN stats in fp32 (reference does too)
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        training = _ag.is_training() and not self._use_global_stats
+        out, new_mean, new_var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             training=training)
         if training:
             with torch.no_grad():
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
+                for p, new in ((self.running_mean, new_mean),
+                               (self.running_var, new_var)):
+                    p.data()._t.copy_(getattr(new, "_t", new))
         return out
 
-
-class Activation(nn.Module):
-    """relu / sigmoid / tanh by name."""
-
-    def __init__(self, activation, prefix=None):
-        super().__init__()
-        self._act_type = activation
-
-    def forward(self, x):
-        return activation(x, self._act_type)
+    def __repr__(self):
+        return "BatchNorm(axis=%s, momentum=%s, eps=%s, in_channels=%s)" % (
+            self._axis, self._momentum, self._epsilon,
+            self.gamma.shape[0] if self.gamma.shape else None)
 
 
-class Flatten(nn.Module):
-    """(N, ...) -> (N, prod(...))."""
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
 
-    def __init__(self, prefix=None):
-        super().__init__()
+    def __repr__(self):
+        return "Flatten"
 
-    def forward(self, x):
-        return flatten(x)
+
+def _init_of(name_or_init):
+    if name_or_init is None or not isinstance(name_or_init, str):
+        return name_or_init
+    from ... import initializer as _init
+    return _init.create(name_or_init)

@@ -1,5 +1,14 @@
-"""The ``nd.save`` / ``nd.load`` checkpoint container of the PyTorch port."""
+"""The imperative NDArray frontend (the ``mx.nd`` namespace) of the PyTorch
+port: the NDArray class, creation, ``save`` / ``load``, and one function
+for every op name of the registry (``register.py``)."""
 
-from .ndarray import load, save
+from .. import ops as _ops  # noqa: F401
+from ..ops import nn as _nn, tensor as _tensor  # noqa: F401  (bind the ops)
+from .ndarray import (NDArray, arange, array, empty, full, invoke, load,
+                      ones, save, waitall, zeros)
+from .register import _init_op_functions
 
-__all__ = ["load", "save"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
+           "save", "load", "waitall", "invoke"]
+
+_init_op_functions(globals())

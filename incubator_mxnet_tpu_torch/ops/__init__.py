@@ -1,2 +1,3 @@
-"""Operators of the PyTorch port: ``nn`` (the BERT path's subset) and the
+"""Operators of the PyTorch port: ``nn`` and ``tensor`` (bound to the op
+names of ``registry``), the optimizer rules of ``_optim_kernels``, and the
 hand-written Hopper ``kernels``."""

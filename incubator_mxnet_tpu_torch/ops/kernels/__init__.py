@@ -13,14 +13,21 @@ from .flash_decode import (paged_causal_attention, paged_flash_decode,
 from .fused_bottleneck import bottleneck_reference, fused_bottleneck
 from .fused_norm import (layer_norm, layer_norm_reference, softmax,
                          softmax_reference)
-from .fused_optim import (multi_trainer_adam, multi_trainer_adam_reference,
+from .fused_optim import (fused_adam_flat, fused_adam_flat_reference,
+                          fused_adamw_flat, fused_adamw_flat_reference,
+                          fused_sgd_mom_flat, fused_sgd_mom_flat_reference,
+                          multi_trainer_adam, multi_trainer_adam_reference,
                           multi_trainer_sgd_mom,
                           multi_trainer_sgd_mom_reference)
 
 __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_forward",
-           "flash_attention_reference", "fused_bottleneck", "layer_norm",
+           "flash_attention_reference", "fused_adam_flat",
+           "fused_adam_flat_reference", "fused_adamw_flat",
+           "fused_adamw_flat_reference", "fused_bottleneck",
+           "fused_sgd_mom_flat", "fused_sgd_mom_flat_reference",
+           "layer_norm",
            "layer_norm_reference", "multi_trainer_adam",
            "multi_trainer_adam_reference", "multi_trainer_sgd_mom",
            "multi_trainer_sgd_mom_reference",
@@ -39,6 +46,9 @@ WRAPPERS = {
     "trainer_adam": multi_trainer_adam,
     "trainer_sgd_mom": multi_trainer_sgd_mom,
     "fused_bottleneck": fused_bottleneck,
+    "sgd_mom_flat": fused_sgd_mom_flat,
+    "adam_flat": fused_adam_flat,
+    "adamw_flat": fused_adamw_flat,
 }
 
 

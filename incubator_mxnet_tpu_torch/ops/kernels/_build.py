@@ -55,8 +55,17 @@ _SIGNATURES = {
     # 1 - b2^t, eps, lr * wd, adamw, device, stream
     "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                                _F, _F, _I, _I, _P),
-    # table, n_tensors, n_chunks, lr, wd, momentum, device, stream
-    "mxtpu_trainer_sgd_mom_f32": (_P, _I, _I, _F, _F, _F, _I, _P),
+    # table, n_tensors, n_chunks, lr, wd, momentum, rescale, clip, device,
+    # stream
+    "mxtpu_trainer_sgd_mom_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _I, _P),
+    # table, n_tensors, n_chunks, coef, wd, b1, b2, 1 - b1, 1 - b2, eps,
+    # rescale, clip, device, stream
+    "mxtpu_flat_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                            _I, _P),
+    # table, n_tensors, n_chunks, lr, wd, eta, b1, b2, 1 - b1, 1 - b2,
+    # 1 - b1^t, 1 - b2^t, eps, rescale, clip, device, stream
+    "mxtpu_flat_adamw_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                             _F, _F, _F, _I, _P),
     # x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, C, M, bf16,
     # device, stream
     "mxtpu_fused_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,5 +1,7 @@
-"""ShardedTrainer's fused optimizer updates, Adam / AdamW and SGD with
-momentum: the CUDA kernels' wrappers and their plain PyTorch versions.
+"""Fused optimizer updates: the CUDA kernels' wrappers and their plain
+PyTorch versions. ShardedTrainer's Adam / AdamW and SGD with momentum
+(``multi_trainer_*``), and the eager gluon Trainer's flat SGD-momentum, Adam
+and AdamW with their rescale / clip prologue (``fused_*_flat``).
 
 Counterparts of ``multi_trainer_adam`` (``_trainer_adam_kernel``) and
 ``multi_trainer_sgd_mom`` (``_sgd_mom_kernel`` with rescale 1 and clip off)
@@ -23,21 +25,47 @@ the kernel's do.
 SGD's scalars are lr, wd and momentum rounded to f32, as the TPU kernel's
 SMEM row holds them; its plain version takes them the same way.
 
+The eager flavours are counterparts of ``fused_sgd_mom_flat``,
+``fused_adam_flat`` and ``fused_adamw_flat`` (``_sgd_mom_kernel``,
+``_adam_kernel``, ``_adamw_kernel`` through ``_launch``), reached through the
+``ops/_optim_kernels.py`` seam. They take lists of tensors, not one packed
+buffer: there are no ``flatten_group`` / ``split_group`` copies. Their plain
+versions are the per-parameter rules of ``ops/_optim_kernels.py`` applied
+tensor by tensor. SGD shares ``multi_trainer_sgd_mom``'s kernel: the trainer
+launches it with rescale 1 and the clip off, where the prologue changes no
+bit. Adam's ``coef`` and AdamW's ``1 - b**t`` are computed once on the host
+(``adam_coef``, ``adamw_bias``) and passed to both. fp32 is the only dtype
+the gluon Trainer sends (``Optimizer._fusable``); bf16 buffers, which the
+JAX seam also takes, raise NotImplementedError (ROADMAP Queue 2 item 11).
+
 For CPU tensors each wrapper takes its plain version; for CUDA tensors it
 launches its kernel once for all of them or raises, and adds one to its
 ``launches`` count.
 """
 
+import os
+
 import numpy as np
 import torch
 
 from . import _build
+from .. import _optim_kernels as _rules
 
 __all__ = ["multi_trainer_adam", "multi_trainer_adam_reference",
            "multi_trainer_sgd_mom", "multi_trainer_sgd_mom_reference",
-           "adam_scalars", "sgd_mom_scalars"]
+           "fused_sgd_mom_flat", "fused_sgd_mom_flat_reference",
+           "fused_adam_flat", "fused_adam_flat_reference",
+           "fused_adamw_flat", "fused_adamw_flat_reference",
+           "adam_scalars", "sgd_mom_scalars", "fused_optim_enabled"]
 
 CHUNK = 32768          # elements a block updates (csrc/fused_optim.cu kChunk)
+
+
+def fused_optim_enabled():
+    """``MXTPU_FUSED_OPTIM=0`` turns the eager fused path off (the
+    optimizers then take their per-parameter rules), as in the JAX
+    package."""
+    return os.environ.get("MXTPU_FUSED_OPTIM", "1") != "0"
 
 
 def adam_scalars(lr, wd, b1, b2, eps, t):
@@ -202,7 +230,7 @@ def multi_trainer_sgd_mom(ws, gs, moms, lr, wd, momentum):
     sc = sgd_mom_scalars(lr, wd, momentum)
     rc = _build.library().mxtpu_trainer_sgd_mom_f32(
         table.data_ptr(), n_tensors, n_chunks, float(sc["lr"]),
-        float(sc["wd"]), float(sc["momentum"]), dev.index,
+        float(sc["wd"]), float(sc["momentum"]), 1.0, -1.0, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "multi_trainer_sgd_mom")
     _build.count_launch(multi_trainer_sgd_mom)
@@ -210,3 +238,139 @@ def multi_trainer_sgd_mom(ws, gs, moms, lr, wd, momentum):
 
 
 multi_trainer_sgd_mom.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the eager gluon Trainer's flavours (the _optim_kernels seam)
+# ---------------------------------------------------------------------------
+
+def _group(what, groups):
+    """The lists of one call as lists, of equal lengths; bf16 raises."""
+    groups = [(name, list(ts)) for name, ts in groups]
+    lens = {len(ts) for _n, ts in groups}
+    if len(lens) != 1:
+        raise ValueError("%s: %s" % (what, ", ".join(
+            "%d %s" % (len(ts), name) for name, ts in groups)))
+    for name, ts in groups:
+        for i, t in enumerate(ts):
+            if t.dtype == torch.bfloat16:
+                raise NotImplementedError(
+                    "%s: %s[%d] is bfloat16; the bf16 flavour of the eager "
+                    "seam is not ported yet (ROADMAP Queue 2 item 11)"
+                    % (what, name, i))
+    return groups
+
+
+def _on_cpu(groups):
+    return all(t.device.type == "cpu" for _n, ts in groups for t in ts)
+
+
+def _launch(what, wrapper, groups, entry, scalars):
+    """One launch of ``entry`` over the table of ``groups``; counts it."""
+    launch = _table(what, groups)
+    if launch is None:
+        return
+    table, n_tensors, n_chunks = launch
+    dev = groups[0][1][0].device
+    rc = getattr(_build.library(), entry)(
+        table.data_ptr(), n_tensors, n_chunks,
+        *(float(np.float32(x)) for x in scalars), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, what)
+    _build.count_launch(wrapper)
+
+
+def fused_sgd_mom_flat_reference(ws, gs, moms, lr, wd, momentum, rescale,
+                                 clip):
+    """``_sgd_mom_update`` tensor by tensor, in place."""
+    for w, g, m in zip(ws, gs, moms):
+        _rules._sgd_mom_update(w, g, m, lr, wd, momentum, rescale, clip)
+    return ws, moms
+
+
+def fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip):
+    """One SGD-momentum step with the rescale / clip prologue over the
+    tensors ``ws``, gradients ``gs`` and momenta ``moms``, in place (fp32,
+    one launch on CUDA). Returns ``(ws, moms)``."""
+    groups = _group("fused_sgd_mom_flat",
+                    (("w", ws), ("g", gs), ("mom", moms)))
+    ws, gs, moms = (ts for _n, ts in groups)
+    if not ws:
+        return ws, moms
+    if _on_cpu(groups):
+        return fused_sgd_mom_flat_reference(ws, gs, moms, lr, wd, momentum,
+                                            rescale, clip)
+    _launch("fused_sgd_mom_flat", fused_sgd_mom_flat, groups,
+            "mxtpu_trainer_sgd_mom_f32",
+            (lr, wd, momentum, rescale, clip))
+    return ws, moms
+
+
+fused_sgd_mom_flat.launches = 0
+
+
+def fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
+                              rescale, clip):
+    """``_adam_update`` tensor by tensor, in place."""
+    coef = _rules.adam_coef(lr, b1, b2, t)
+    for w, g, m, v in zip(ws, gs, ms, vs):
+        _rules._adam_update(w, g, m, v, lr, wd, b1, b2, eps, t, rescale,
+                            clip, coef=coef)
+    return ws, ms, vs
+
+
+def fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale, clip):
+    """One Adam step of step number ``t`` with the rescale / clip prologue,
+    in place (fp32, one launch on CUDA). Returns ``(ws, ms, vs)``."""
+    groups = _group("fused_adam_flat",
+                    (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
+    ws, gs, ms, vs = (ts for _n, ts in groups)
+    if not ws:
+        return ws, ms, vs
+    if _on_cpu(groups):
+        return fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps,
+                                         t, rescale, clip)
+    f = np.float32
+    _launch("fused_adam_flat", fused_adam_flat, groups,
+            "mxtpu_flat_adam_f32",
+            (_rules.adam_coef(lr, b1, b2, t), wd, b1, b2, 1 - f(b1),
+             1 - f(b2), eps, rescale, clip))
+    return ws, ms, vs
+
+
+fused_adam_flat.launches = 0
+
+
+def fused_adamw_flat_reference(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
+                               rescale, clip):
+    """``_adamw_update`` tensor by tensor, in place."""
+    bias = _rules.adamw_bias(b1, b2, t)
+    for w, g, m, v in zip(ws, gs, ms, vs):
+        _rules._adamw_update(w, g, m, v, lr, wd, eta, b1, b2, eps, t,
+                             rescale, clip, bias=bias)
+    return ws, ms, vs
+
+
+def fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t, rescale,
+                     clip):
+    """One AdamW step of step number ``t`` with the rescale / clip
+    prologue, in place (fp32, one launch on CUDA). Returns
+    ``(ws, ms, vs)``."""
+    groups = _group("fused_adamw_flat",
+                    (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
+    ws, gs, ms, vs = (ts for _n, ts in groups)
+    if not ws:
+        return ws, ms, vs
+    if _on_cpu(groups):
+        return fused_adamw_flat_reference(ws, gs, ms, vs, lr, wd, eta, b1,
+                                          b2, eps, t, rescale, clip)
+    f = np.float32
+    bias1, bias2 = _rules.adamw_bias(b1, b2, t)
+    _launch("fused_adamw_flat", fused_adamw_flat, groups,
+            "mxtpu_flat_adamw_f32",
+            (lr, wd, eta, b1, b2, 1 - f(b1), 1 - f(b2), bias1, bias2, eps,
+             rescale, clip))
+    return ws, ms, vs
+
+
+fused_adamw_flat.launches = 0

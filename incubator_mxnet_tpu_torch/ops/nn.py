@@ -10,19 +10,27 @@ training mode is the JAX package's one-pass custom VJP (``_make_bn_train``)
 written again as a ``torch.autograd.Function``; it is not
 ``F.batch_norm``, whose running variance is unbiased and whose momentum is
 the weight of the new statistic.
+
+The functions of the eager gluon path are bound to their op names in
+``ops/registry.py`` (FullyConnected, Convolution, BatchNorm, Pooling,
+Activation, Flatten, softmax, log_softmax), which the ``nd`` namespace
+calls.
 """
 
 import torch
 import torch.nn.functional as F
 
 from .kernels import fused_norm
+from .registry import register
 
 __all__ = ["fully_connected", "embedding", "layer_norm", "softmax",
-           "activation", "leaky_relu", "convolution", "pooling",
-           "batch_norm", "flatten"]
+           "log_softmax", "activation", "leaky_relu", "convolution",
+           "pooling", "batch_norm", "flatten"]
 
 
-def fully_connected(data, weight, bias=None, no_bias=False, flatten=True):
+@register("FullyConnected")
+def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                    flatten=True):
     """y = x @ W^T + b, with weight (num_hidden, in_units) as in the
     reference."""
     if flatten and data.dim() > 2:
@@ -48,6 +56,7 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     return fused_norm.layer_norm(moved, gamma, beta, eps).movedim(-1, axis)
 
 
+@register("softmax")
 def softmax(data, axis=-1, temperature=None, length=None, use_length=False):
     """Softmax over ``axis``; temperature and the length mask apply before
     the kernel, as in the JAX package."""
@@ -67,14 +76,28 @@ def softmax(data, axis=-1, temperature=None, length=None, use_length=False):
     return fused_norm.softmax(moved).movedim(-1, axis)
 
 
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None):
+    """log(softmax) over ``axis`` in one plain PyTorch operation, as the
+    JAX package computes it (no kernel)."""
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return torch.log_softmax(data, dim=axis)
+
+
+@register("Activation")
 def activation(data, act_type="relu"):
-    """relu / sigmoid / tanh by act_type."""
+    """relu / sigmoid / tanh / softrelu / softsign by act_type."""
     if act_type == "relu":
         return torch.relu(data)
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":
         return torch.tanh(data)
+    if act_type == "softrelu":
+        return F.softplus(data)
+    if act_type == "softsign":
+        return F.softsign(data)
     raise ValueError("unknown act_type %r" % act_type)
 
 
@@ -98,6 +121,7 @@ def _tup(v, n):
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
+@register("Convolution")
 def convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
                 no_bias=False, layout=None, **_ignored):
@@ -120,6 +144,7 @@ _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
+@register("Pooling")
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
             count_include_pad=True, p_value=2, **_ignored):
@@ -219,6 +244,7 @@ class _BatchNormTrain(torch.autograd.Function):
             None
 
 
+@register("BatchNorm", num_outputs=3)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False, axis=1,
                training=False, **_ignored):
@@ -247,6 +273,7 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, moving_mean, moving_var
 
 
+@register("Flatten")
 def flatten(data):
     """(N, ...) -> (N, prod(...))."""
     return data.reshape(data.shape[0], -1)

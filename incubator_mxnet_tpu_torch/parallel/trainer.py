@@ -12,7 +12,9 @@ for it. ``MXTPU_FUSED_OPTIM=0`` selects the JAX package's per-parameter
 update (``_apply_opt_fp``) instead, as it does there.
 
 Buffers of the block (BatchNorm's running statistics) are the JAX
-trainer's aux state: the forward in training mode moves them, and
+trainer's aux state: the forward in training mode (``autograd.train_mode()``
+around it, which the gluon layers read, and the module's ``train()``)
+moves them, and
 ``param_values``, ``state_dict`` and ``load_state_dict`` carry them beside
 the parameters, as do parameters that take no gradient (gluon's
 ``differentiable=False``).
@@ -27,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from .. import autograd
 from ..context import resolve_device
 from ..ops.kernels.fused_optim import (adam_scalars, multi_trainer_adam,
                                       multi_trainer_sgd_mom)
@@ -157,7 +160,7 @@ class ShardedTrainer:
         was_training = self._block.training
         self._block.train()
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), autograd.train_mode():
                 out = self._block(*datas)
                 loss = self._loss(out, *labels).float().mean()
             loss.backward()

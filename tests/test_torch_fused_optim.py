@@ -1,4 +1,6 @@
-"""The PyTorch port's trainer Adam / AdamW update against the JAX package's.
+"""The PyTorch port's fused optimizer updates against the JAX package's:
+the trainer Adam / AdamW and SGD-momentum kernels, and the eager gluon
+seam's flat SGD-momentum, Adam and AdamW.
 
 The JAX side runs ``multi_trainer_adam`` with ``interpret=True``, which runs
 the Pallas ``_trainer_adam_kernel`` over the packed buffer; the port's
@@ -7,6 +9,16 @@ from a seed; w, m, v within rtol 1e-6, atol 1e-9 (each is a handful of
 correctly rounded f32 operations on both sides, and the f32 ``b**t`` of two
 libraries may differ in its last bit). The CUDA kernel is held bitwise
 against the plain version on a card in tests/test_torch_kernels_cuda.py.
+
+The eager seam: the port's plain flat rules against the JAX package's
+``_multi_*_update(..., interpret=True)``, which runs the Pallas
+``_sgd_mom_kernel`` / ``_adam_kernel`` / ``_adamw_kernel`` over the packed
+buffer on the CPU, with rescale 1/32 and the clip on and off, within
+rtol 1e-6 and atol 1e-9: XLA on the CPU contracts a product and the sum
+after it into one FMA where the port rounds each on its own, and Adam's
+``coef`` and AdamW's ``1 - b**t`` come from torch's f32 ``pow`` on the host
+in the port and from XLA's in the JAX package, which may differ in the
+last bit.
 """
 
 import numpy as np
@@ -15,7 +27,9 @@ import torch
 
 import jax.numpy as jnp
 
+from incubator_mxnet_tpu.ops import _optim_kernels as jseam
 from incubator_mxnet_tpu.ops.pallas import fused_optim as jfo
+from incubator_mxnet_tpu_torch.ops import _optim_kernels as tseam
 from incubator_mxnet_tpu_torch.ops.kernels import WRAPPERS
 from incubator_mxnet_tpu_torch.ops.kernels import fused_optim as tfo
 
@@ -164,3 +178,58 @@ def test_sgd_mom_scalars_are_f32_and_cpu_update_does_not_launch():
     with pytest.raises(ValueError, match="momenta"):
         tfo.multi_trainer_sgd_mom(ws, gs, ms[:1], **SGD_HP)
     assert tfo.multi_trainer_sgd_mom([], [], [], **SGD_HP) == ([], [])
+
+
+FLAT = {
+    "sgd_mom": (dict(lr=0.1, wd=1e-4, momentum=0.9), 1),
+    "adam": (dict(lr=1e-3, wd=1e-4, b1=0.9, b2=0.999, eps=1e-8, t=3), 2),
+    "adamw": (dict(lr=1e-3, wd=1e-2, eta=0.5, b1=0.9, b2=0.999, eps=1e-8,
+                   t=3), 2),
+}
+
+
+@pytest.mark.parametrize("flavour", sorted(FLAT))
+@pytest.mark.parametrize("clip", [-1.0, 0.2], ids=["noclip", "clip"])
+def test_flat_plain_rules_match_the_jax_seam_interpret(flavour, clip):
+    hp, n_states = FLAT[flavour]
+    ws, gs, ms, vs = _state(30 + n_states)
+    gs = [g * 500 for g in gs]          # O(1) after 1/32: the clip engages
+    groups = [ws, gs, ms] + ([vs] if n_states == 2 else [])
+    jout = getattr(jseam, "_multi_%s_update" % flavour)(
+        *[[jnp.asarray(a) for a in g] for g in groups], rescale=1.0 / 32,
+        clip=clip, interpret=True, **hp)
+    tgroups = [_torch(g) for g in groups]
+    tout = getattr(tseam, "_multi_%s_update" % flavour)(
+        *tgroups, rescale=1.0 / 32, clip=clip, **hp)
+    assert [id(t) for t in tout[0]] == [id(t) for t in tgroups[0]]
+    for what, got, want in zip("wmv", tout, jout):
+        for i, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-9,
+                                       err_msg="%s %s[%d]" % (flavour, what,
+                                                              i))
+
+
+def test_flat_wrappers_count_no_cpu_launch_and_refuse_bf16():
+    for name in ("sgd_mom_flat", "adam_flat", "adamw_flat"):
+        assert WRAPPERS[name] is getattr(tfo, "fused_" + name)
+    n0 = tfo.fused_adam_flat.launches
+    ws, gs, ms, vs = (_torch(g) for g in _state(8))
+    tfo.fused_adam_flat(ws, gs, ms, vs, rescale=1.0, clip=-1.0,
+                        **FLAT["adam"][0])
+    assert tfo.fused_adam_flat.launches == n0
+    w = [torch.zeros(3, dtype=torch.bfloat16)]
+    with pytest.raises(NotImplementedError, match="Queue 2 item 11"):
+        tfo.fused_sgd_mom_flat(w, w, w, rescale=1.0, clip=-1.0,
+                               **FLAT["sgd_mom"][0])
+    with pytest.raises(ValueError, match="1 w, 2 g"):
+        tfo.fused_sgd_mom_flat(ws[:1], gs[:2], ms[:1], rescale=1.0,
+                               clip=-1.0, **FLAT["sgd_mom"][0])
+
+
+def test_clip_lets_a_nan_gradient_through():
+    w, m = torch.ones(3), torch.zeros(3)
+    g = torch.tensor([float("nan"), 5.0, -5.0])
+    tfo.fused_sgd_mom_flat([w], [g], [m], 0.1, 0.0, 0.9, 1.0, 1.0)
+    assert torch.isnan(w[0]) and torch.isnan(m[0])
+    assert torch.equal(m[1:], torch.tensor([-0.1, 0.1]))

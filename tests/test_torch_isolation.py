@@ -129,13 +129,14 @@ def test_resnet_entry_points_raise_without_cuda_unless_asked_for_the_cpu():
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
     from incubator_mxnet_tpu_torch.ops.kernels import (
         fused_bottleneck, multi_trainer_sgd_mom)
+    # gluon nets are placed by initialize(ctx); ctx=None is cuda:0
     for build in (vision.resnet50_v1, vision.resnet18_v2,
                   lambda: vision.get_model("resnet34_v1"),
                   lambda: nn.Conv2D(4, 3, in_channels=3),
                   lambda: nn.Dense(4, in_units=3),
                   lambda: nn.BatchNorm(in_channels=3)):
         with pytest.raises(RuntimeError, match="CUDA"):
-            build()
+            build().initialize()
     net = vision.resnet18_v1(device="cpu", classes=7)
     assert {p.device.type for p in net.parameters()} == {"cpu"}
     with pytest.raises(RuntimeError, match="CUDA"):

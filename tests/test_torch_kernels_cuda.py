@@ -10,11 +10,13 @@ JAX package, so it runs on the card's machine, which has no JAX:
 Tolerances (TF32 off): LayerNorm and softmax atol 1e-5, flash attention
 forward and backward atol 2e-5, flash decode atol 2e-5 on o, 1e-5 on m and
 rtol 1e-5 on l; the kernels sum in another order than the plain versions.
-The fused Adam / AdamW and SGD-momentum kernels equal their plain versions
+The fused Adam / AdamW and SGD-momentum kernels, of the trainer and of the
+eager gluon seam (rescale / clip prologue), equal their plain versions
 bitwise: both round every operation on its own, in the same order, from the
-same f32 scalars. The fused bottleneck is held within atol 1e-4 in fp32 and
-within 2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step
-where the two round a value from fp32 sums taken in other orders).
+same f32 scalars; a NaN gradient comes out as NaN at the same places.
+The fused bottleneck is held within atol 1e-4 in fp32 and within
+2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step where
+the two round a value from fp32 sums taken in other orders).
 The GPT test holds whole generations on the card and the CPU token for
 token.
 """
@@ -31,7 +33,10 @@ from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dq, flash_attention_forward,
     flash_attention_reference)
 from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
-    multi_trainer_adam, multi_trainer_adam_reference, multi_trainer_sgd_mom,
+    fused_adam_flat, fused_adam_flat_reference, fused_adamw_flat,
+    fused_adamw_flat_reference, fused_sgd_mom_flat,
+    fused_sgd_mom_flat_reference, multi_trainer_adam,
+    multi_trainer_adam_reference, multi_trainer_sgd_mom,
     multi_trainer_sgd_mom_reference)
 
 
@@ -598,3 +603,189 @@ def test_small_resnet_step_on_the_card_matches_the_cpu(cuda):
             ref_scale = ref
         scale = max(float(ref_scale.abs().max()), 1e-30)
         assert (sc[k] - ref).abs().max().item() <= 1e-4 * scale, k
+
+
+# ------------------------------------------------ the eager seam's flavours
+_FLAT = {
+    "sgd_mom": (fused_sgd_mom_flat, fused_sgd_mom_flat_reference, 1,
+                dict(lr=0.1, wd=1e-4, momentum=0.9)),
+    "adam": (fused_adam_flat, fused_adam_flat_reference, 2,
+             dict(lr=1e-3, wd=1e-4, b1=0.9, b2=0.999, eps=1e-8, t=3)),
+    "adamw": (fused_adamw_flat, fused_adamw_flat_reference, 2,
+              dict(lr=1e-3, wd=1e-2, eta=0.5, b1=0.9, b2=0.999, eps=1e-8,
+                   t=3)),
+}
+
+
+def _same_bits(a, b):
+    """Equal values, NaN at the same places."""
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0),
+                                               b.masked_fill(nb, 0))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("flavour", sorted(_FLAT))
+@pytest.mark.parametrize("clip", [-1.0, 2e-3], ids=["noclip", "clip"])
+def test_flat_kernels_equal_plain_bitwise(cuda, flavour, clip):
+    """The eager seam's flavours over one table: sizes 0, 1, 3, 32767,
+    32768, 32769, 2**20 and a contiguous view that is not 16-byte aligned,
+    rescale 1/128, clip off and on, and a NaN in one gradient; w and its
+    states bitwise (NaN at the same places) after two steps."""
+    kernel, plain, n_states, hp = _FLAT[flavour]
+    sizes = [0, 1, 3, 32767, 32768, 32769, 1 << 20]
+    ws, gs, ms, vs = _adam_state(sizes, cuda, seed=21 + len(flavour))
+    gs = [g * 1e3 for g in gs]      # O(1): after 1/128 the clip engages
+    for group, scale in zip((ws, gs, ms, vs), (1.0, 1.0, 1e-3, 1e-6)):
+        buf = torch.rand(4098, device=cuda) * scale
+        group.append(buf[1:])
+    gs[2][1] = float("nan")
+    groups = [ws, gs, ms] + ([vs] if n_states == 2 else [])
+    ref = [[x.clone() for x in g] for g in groups]
+    w0 = [x.clone() for x in ws]
+    n0 = kernel.launches
+    for _ in range(2):
+        kernel(*groups, rescale=1.0 / 128, clip=clip, **hp)
+        plain(*ref, rescale=1.0 / 128, clip=clip, **hp)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 2
+    for i in [0] + list(range(2, len(groups))):
+        for a, b in zip(groups[i], ref[i]):
+            assert _same_bits(a, b), (flavour, i, a.numel())
+    assert ws[2].isnan().any() and not ws[3].isnan().any()
+    assert not torch.equal(ws[-1], w0[-1])
+
+
+@pytest.mark.needs_cuda
+def test_flat_sgd_prologue_is_a_no_op_at_rescale_1(cuda):
+    """rescale 1 with the clip off changes no bit: the eager flavour and
+    the trainer's launch of the same kernel give the same update."""
+    ws, gs, ms, _ = _adam_state([5, 40000], cuda, seed=31)
+    ref = [[x.clone() for x in g] for g in (ws, gs, ms)]
+    fused_sgd_mom_flat(ws, gs, ms, 0.1, 1e-4, 0.9, 1.0, -1.0)
+    multi_trainer_sgd_mom(*ref, lr=0.1, wd=1e-4, momentum=0.9)
+    torch.cuda.synchronize()
+    for a, b in zip(ws + ms, ref[0] + ref[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.needs_cuda
+def test_flat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    w = [torch.zeros(8, device=cuda)]
+    hp = dict(lr=0.1, wd=0.0, momentum=0.9, rescale=1.0, clip=-1.0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        fused_sgd_mom_flat([w[0].bfloat16()], [w[0].bfloat16()],
+                           [w[0].bfloat16()], **hp)
+    with pytest.raises(TypeError, match="float32"):
+        fused_sgd_mom_flat([w[0].double()], [w[0].double()],
+                           [w[0].double()], **hp)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.zeros(16, device=cuda)[::2]
+        fused_adam_flat([strided], w, w, w, lr=1e-3, wd=0.0, b1=0.9,
+                        b2=0.999, eps=1e-8, t=1, rescale=1.0, clip=-1.0)
+    with pytest.raises(ValueError, match="2 g"):
+        fused_sgd_mom_flat(w, w + w, w, **hp)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adam", "adamw"])
+def test_eager_gluon_step_on_the_card_matches_the_cpu(cuda, optimizer):
+    """Two steps of autograd.record -> backward -> gluon.Trainer.step on a
+    small bottleneck ResNet v1 on the card and on the CPU from the same
+    weights: one launch of the optimizer's flat kernel a step and none of
+    the trainer flavours, and losses within rtol 1e-4. SGD: every parameter
+    within 1e-4 of its tensor's largest magnitude (a v1 conv bias, whose
+    exact gradient is 0, of its conv weight's). Adam / AdamW normalize each
+    element's gradient, so an element whose gradient is roundoff on both
+    sides (those conv biases) moves by up to lr a step either way: every
+    parameter within 2 * lr * steps, as for BERT's AdamW."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch import autograd, gluon, init, nd
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
+    hp = {"sgd": {"learning_rate": 0.1, "momentum": 0.9},
+          "adam": {"learning_rate": 1e-3},
+          "adamw": {"learning_rate": 1e-3, "wd": 0.01}}[optimizer]
+    rs = np.random.RandomState(0)
+    x = rs.rand(4, 3, 32, 32).astype(np.float32)
+    y = rs.randint(0, 10, (4,)).astype(np.float32)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        np.random.seed(3)
+        net = _ResNet("bottleneck", [1, 1], [8, 16, 32], preact=False,
+                      classes=10)
+        net.initialize(init.Xavier(), ctx=dev)
+        tr = gluon.Trainer(net.collect_params(), optimizer, dict(hp))
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses = []
+        for _ in range(2):
+            with autograd.record():
+                loss = loss_fn(net(nd.array(x, ctx=dev)),
+                               nd.array(y, ctx=dev))
+            loss.backward()
+            before = launch_counts()
+            tr.step(4)
+            after = launch_counts()
+            if dev.type == "cuda":
+                flat = {"sgd": "sgd_mom_flat"}.get(optimizer,
+                                                   optimizer + "_flat")
+                moved = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+                assert moved == {flat: 1}, moved
+            losses.append(float(loss.mean().asscalar()))
+        runs[dev.type] = (losses, {k: p.data().asnumpy() for k, p in
+                                   net._collect_params_with_prefix().items()})
+    (lc, pc), (lh, ph) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+    for k, ref in ph.items():
+        scale_key = k[:-len("bias")] + "weight" if k.endswith(".bias") \
+            and not k.startswith("output") else k
+        limit = 1e-4 * max(float(np.abs(ph[scale_key]).max()), 1e-30) \
+            if optimizer == "sgd" else 2 * hp["learning_rate"] * 2
+        assert np.abs(pc[k] - ref).max() <= limit, k
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+def test_two_groups_launch_twice_and_equal_the_per_parameter_rules(
+        cuda, optimizer, monkeypatch):
+    """gluon.Trainer with wd_mult 0 on the biases: two (lr, wd) groups, so
+    two launches of the flat kernel a step; two steps on the card equal,
+    bitwise, the same steps with MXTPU_FUSED_OPTIM=0 (the per-parameter
+    rules, plain PyTorch on the card)."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch import autograd, gluon, init, nd
+    from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
+    hp = {"sgd": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3,
+                  "clip_gradient": 0.5},
+          "adamw": {"learning_rate": 1e-3, "wd": 0.01}}[optimizer]
+    flat = {"sgd": "sgd_mom_flat", "adamw": "adamw_flat"}[optimizer]
+    rs = np.random.RandomState(1)
+    x = rs.rand(16, 40).astype(np.float32)
+    y = rs.randint(0, 5, (16,)).astype(np.float32)
+    runs = []
+    for fused in ("1", "0"):
+        monkeypatch.setenv("MXTPU_FUSED_OPTIM", fused)
+        np.random.seed(2)
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(64, activation="relu"), gluon.nn.Dense(5))
+        net.initialize(init.Xavier(), ctx=cuda)
+        net(nd.array(x, ctx=cuda))
+        for p in net.collect_params().values():
+            if p.name.endswith("bias"):
+                p.wd_mult = 0.0
+        tr = gluon.Trainer(net.collect_params(), optimizer, dict(hp))
+        before = launch_counts()[flat]
+        for _ in range(2):
+            with autograd.record():
+                loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                    net(nd.array(x, ctx=cuda)), nd.array(y, ctx=cuda))
+            loss.backward()
+            tr.step(16)
+        torch.cuda.synchronize()
+        assert launch_counts()[flat] - before == (4 if fused == "1" else 0)
+        runs.append([p.data()._t.clone() for p in
+                     net.collect_params().values()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -66,12 +66,25 @@ Phases, each printing one line:
              kernel, exactly one launch a unit, against the same stack
              through the plain version, and the stack's device time beside
              the cuDNN conv stack's.
+9. lstm_decode - the PTB word LM (lstm_lm_ptb: 650 x 2, tied, vocab 10000)
+             with seeded random weights, exported with export_for_serving
+             and served by a ModelServer on the card (8 slots, the state of
+             each in the device-resident KVCache) to 8 ServingClients in a
+             process of their own: 16 requests of 32 new tokens, prompts of
+             1 to 64 tokens, once in fp32 and once with the int8 vocab head.
+             int8_matmul launches must equal the int8 run's grid steps and
+             be 0 in fp32, every other kernel 0; every served row must hold
+             against the CPU port's replay of the same grid with the card's
+             tokens forced; the kernel must equal its plain version exactly
+             on codes captured from the served path. (The kernels phase
+             times the int8 kernel at the decode shape and at
+             bench_int8_matmul's 4096^3.)
 
 Options for measurement runs: --profile PATH traces one more serving round,
-one more served decode round (the same 16 requests) and one more training
+one more served decode round (the same 16 requests), one more training
 step of each shape (BERT, ResNet through ShardedTrainer and through gluon)
-under torch.profiler; --rpc-probe times replies on new
-rpc connections.
+and one more word-LM round in each mode under torch.profiler; --rpc-probe
+times replies on new rpc connections.
 
 Any failure is fatal (non-zero exit, no result line). Before the last line
 it prints the card's name and power limit and a JSON line of per-kernel
@@ -95,11 +108,13 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory rate, the fp32
-# rate outside the tensor cores (the arithmetic of the fp32 kernels) and the
-# bf16 tensor-core rate (the least time for a bf16 function).
+# rate outside the tensor cores (the arithmetic of the fp32 kernels), the
+# bf16 tensor-core rate (the least time for a bf16 function) and the int8
+# tensor-core rate (the least time for an int8 product).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 L2_BYTES = 50 << 20
 
 SEED = 1234
@@ -155,9 +170,14 @@ def device_events(prof):
 
 def device_ms(torch, fn, inputs, iters=20):
     """(ms, "profiler" | "events"): mean device time per call of
-    fn(*inputs[i % len(inputs)]), the summed durations of the kernels and
-    copies a torch.profiler trace records over `iters` calls; the CUDA-event
-    call time where the trace holds no device activity."""
+    fn(*inputs[i % len(inputs)]) over `iters` calls, from a torch.profiler
+    trace: for each kernel or copy name, its mean duration times the
+    launches a call makes, since a trace can lose a few of a run's device
+    events (seen on the card: 19 of 20), and the sum of what it kept would
+    undercount. A name seen at least iters / 2 times counts round(seen /
+    iters) launches a call; one seen less often (a one-off in the first
+    call) counts its share. The CUDA-event call time where the trace holds
+    no device activity."""
     from torch.profiler import ProfilerActivity, profile
     fn(*inputs[-1])             # the copy the rotation reaches last
     torch.cuda.synchronize()
@@ -166,9 +186,14 @@ def device_ms(torch, fn, inputs, iters=20):
         for i in range(iters):
             fn(*inputs[i % len(inputs)])
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in device_events(prof))
-    if us:
-        return us / iters / 1e3, "profiler"
+    by_name = {}
+    for e in device_events(prof):
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if by_name:
+        return sum(us / n * (max(1, round(n / iters)) if 2 * n >= iters
+                             else n / iters)
+                   for n, us in by_name.values()) / 1e3, "profiler"
     return call_ms(torch, fn, inputs, iters), "events"
 
 
@@ -302,6 +327,7 @@ def kernels_phase(torch, dev):
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
     rows += flat_rows(torch, dev, randn)
     rows += bottleneck_rows(torch, dev)
+    rows += int8_matmul_rows(torch, dev)
     for r in rows:
         log("kernels", **r)
     return rows
@@ -824,11 +850,11 @@ def gpt_params(rs, cfg):
     return params
 
 
-def run_decode_clients(addr, prompts, clients, max_new):
+def run_decode_clients(addr, prompts, clients, max_new, model="gpt"):
     """Run in a client process: `clients` ServingClient threads send the
-    decode `prompts` (client j sends prompts j, j + clients, ... in turn).
-    Returns the generated tokens, every request's latency in seconds and the
-    wall time."""
+    decode `prompts` to `model` (client j sends prompts j, j + clients, ...
+    in turn). Returns the generated tokens, every request's latency in
+    seconds and the wall time."""
     from incubator_mxnet_tpu_torch.serving import ServingClient
     tokens, latencies, errors = {}, {}, []
     lock = threading.Lock()
@@ -838,7 +864,7 @@ def run_decode_clients(addr, prompts, clients, max_new):
             with ServingClient(addr) as c:
                 for i in ids:
                     t0 = time.perf_counter()
-                    out = c.decode("gpt", prompts[i], max_new_tokens=max_new)
+                    out = c.decode(model, prompts[i], max_new_tokens=max_new)
                     dt = time.perf_counter() - t0
                     with lock:
                         tokens[i] = out
@@ -1012,6 +1038,332 @@ def decode_rows(served, prompt, slots, cache_len, steps=8):
         seq.append(int(np.argmax(rows[-1])))
     cache.free(slot)
     return seq[:-1], np.stack(rows)
+
+
+# -------------------------------------------------------------- lstm decode
+# the PTB word LM of the reference's example/rnn/word_lm (lstm_lm_ptb):
+# 650 x 2, tied, vocabulary 10000; served with dropout 0
+PTB_LSTM = dict(mode="lstm", vocab_size=10000, num_embed=650, num_hidden=650,
+                num_layers=2, tie_weights=True)
+LSTM_SLOTS, LSTM_CACHE_LEN = 8, 128
+LSTM_PROMPTS = [1, 5, 9, 13, 17, 22, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64]
+LSTM_NEW = 32
+# a served int8 logit may sit this many output units (x_amax * w_amax /
+# 127**2) further from its row's max on the card than on the CPU: one
+# activation code that the two devices' roundoff puts on either side of a
+# rounding boundary moves every logit by its weight code, at most 127
+# units; two such codes are allowed
+INT8_FLIP_UNITS = 2 * 127
+
+
+def lstm_model(torch, cfg, rs):
+    """The port's RNNModel on the CPU with every parameter (the tied
+    weight once) drawn from uniform(-0.1, 0.1) of `rs` in the order the
+    model registers them: the PTB word LM's usual start."""
+    from incubator_mxnet_tpu_torch import init
+    from incubator_mxnet_tpu_torch.models import RNNModel
+    model = RNNModel(dropout=0.0, **cfg)
+    model.initialize(init.Zero(), ctx="cpu")
+    for p in model.collect_params().values():
+        p.set_data(rs.uniform(-0.1, 0.1, p.shape).astype(np.float32))
+    return model
+
+
+class StepLog:
+    """Records a served model's decode grid on its way through the
+    DecodeLoop: the cache's state rows when the first recorded step starts,
+    then for every step the tokens, the active mask, the slots allocated
+    (so zeroed) since the step before, and the logits the step returned.
+    Holds references and small copies only: no device work is added."""
+
+    def __init__(self, served):
+        self.steps, self.start = [], None
+        self._fresh = set()
+        step_fn, make_cache = served.step_fn, served.make_cache
+
+        def make(slots, max_len):
+            cache = make_cache(slots, max_len)
+            alloc = cache.alloc
+
+            def logged_alloc():
+                slot = alloc()
+                if slot is not None:
+                    self._fresh.add(slot)
+                return slot
+            cache.alloc = logged_alloc
+            return cache
+
+        def step(tokens, cache, active):
+            if not self.steps:
+                self.start = {n: t.cpu().clone()
+                              for n, t in cache.data.items()}
+            fresh, self._fresh = sorted(self._fresh), set()
+            out = step_fn(tokens, cache, active)
+            self.steps.append((np.array(tokens, copy=True),
+                               np.array(active, copy=True), fresh, out))
+            return out
+
+        served.step_fn, served.make_cache = step, make
+
+    def clear(self):
+        self.steps, self.start = [], None
+        self._fresh = set()
+
+
+def replay_on_cpu(torch, served_cpu, log, slots, cache_len, tol_fn):
+    """The recorded grid again through the CPU port, with the card's tokens
+    forced: the same start state, the same zeroed slots before each step.
+    For every active slot of every step, the card's argmax must have a CPU
+    logit within tol_fn(cpu logits of the step) of its row's max. Returns
+    (rows checked, rows whose CPU argmax is the card's, the worst gap)."""
+    cache = served_cpu.make_cache(slots, cache_len)
+    for name, t in log.start.items():
+        cache.data[name].copy_(t)
+    rows = exact = 0
+    worst = 0.0
+    for tokens, active, fresh, card_out in log.steps:
+        for name in cache.data:
+            cache.data[name][fresh] = 0
+        cpu_out = served_cpu.step_fn(tokens, cache, active)
+        tol = tol_fn(cpu_out)
+        for s in np.flatnonzero(active):
+            tok = int(np.argmax(card_out[s]))
+            gap = float(cpu_out[s].max() - cpu_out[s][tok])
+            worst = max(worst, gap)
+            rows += 1
+            exact += int(np.argmax(cpu_out[s]) == tok)
+            if not gap <= tol:
+                raise AssertionError(
+                    "lstm decode: a served token's CPU logit is %g below "
+                    "its row's max (limit %g)" % (gap, tol))
+    return rows, exact, worst
+
+
+def int8_matmul_rows(torch, dev):
+    """The int8 kernel at bench_int8_matmul's 4096^3 and at the word LM's
+    served decode shape (8 slots x 650 inputs x 10000 outputs, K padded to
+    656 with zeros as Int8Dense keeps it), on random codes: exact against
+    the plain version, timed beside it and beside torch._int_mm where that
+    call takes the shape. (The lstm_decode phase holds the kernel to its
+    plain version on codes captured from the served path.)"""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul_nk, int8_matmul_nk_reference)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def codes(rows, cols, live=None):
+        t = torch.randint(-127, 128, (rows, cols), generator=gen,
+                          device=dev, dtype=torch.int8)
+        if live is not None:
+            t[:, live:] = 0
+        return t
+
+    H, V = PTB_LSTM["num_hidden"], PTB_LSTM["vocab_size"]
+    K = H + (-H % 16)
+    rows = []
+    # the decode row last: the kernels line carries the main path's shape
+    for label, (x, y) in (("4096^3", (codes(4096, 4096),
+                                      codes(4096, 4096))),
+                          ("decode", (codes(LSTM_SLOTS, K, H),
+                                      codes(V, K, H)))):
+        M, K = x.shape
+        N = y.shape[0]
+        b_kn = y.t().contiguous()
+        if not torch.equal(int8_matmul_nk(x, y),
+                           int8_matmul_nk_reference(x, y)):
+            raise AssertionError("int8_matmul %s: the kernel differs from "
+                                 "its plain version" % label)
+        library, note = None, None
+        # torch._int_mm on the same operands (the weight as the (K, N)
+        # column-major view of its (N, K) rows), else on a row-major copy
+        for call, fn in (("_int_mm(a, w.t())",
+                          lambda x, y, b: torch._int_mm(x, y.t())),
+                         ("_int_mm(a, w.t().contiguous())",
+                          lambda x, y, b: torch._int_mm(x, b))):
+            try:
+                fn(x, y, b_kn)
+            except RuntimeError as e:
+                note = "torch._int_mm refuses (%d, %d) x (%d, %d): %s" % (
+                    M, K, K, N, str(e).splitlines()[0][:160])
+                continue
+            library, note = fn, call
+            break
+        rows.append(measure(
+            torch, "int8_matmul", (M, K, N), 0.0, 0.0, (x, y, b_kn),
+            lambda x, y, b: int8_matmul_nk(x, y),
+            lambda x, y, b: int8_matmul_nk_reference(x, y), library,
+            M * K + N * K + 4 * M * N, 2 * M * N * K,
+            peak_flops=INT8_OPS_PER_S, dtype="int8", case=label,
+            library_note=note))
+    return rows
+
+
+def lstm_host_split(torch, dev, served, step_fn, make_cache, slots,
+                    reps=50):
+    """Host-clock ms of one grid step called directly (all slots live, the
+    logits to the host) and of the vocab head alone on (slots, hidden)
+    activations, synchronised after `reps` calls: where a served step's
+    time goes between the recurrence and the head."""
+    hidden = int(served.config.get("num_hidden", 650))
+    cache = make_cache(slots, 16)
+    for _ in range(slots):
+        cache.alloc()
+    tokens = np.arange(slots, dtype=np.int32)
+    active = np.ones(slots, bool)
+    head = served.int8_head or served.model.decoder
+    h = torch.rand(slots, hidden, device=dev) * 2 - 1
+    out = {}
+    with torch.inference_mode():
+        for name, call in (("step_ms", lambda: step_fn(tokens, cache,
+                                                        active)),
+                           ("head_ms", lambda: head(h))):
+            call()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            _sync(torch, dev)
+            out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
+                      max_new=LSTM_NEW, slots=LSTM_SLOTS,
+                      cache_len=LSTM_CACHE_LEN, card=None, profile=False):
+    """Export the word LM, then serve it through ModelServer twice, in fp32
+    and in int8, the same requests from `clients` clients in a process of
+    their own; check launch counts, replies and every served row against
+    the CPU port's replay of the grid, and the int8 kernel exactly on codes
+    from the served path. With `profile`, one more round of the same
+    requests in each mode is traced after the measured one (its `lstm_profile`
+    line). Logs one `lstm_decode` line per mode and one `lstm_decode_ratio`
+    line; returns {"lstm_decode_fp32": counts, "lstm_decode_int8":
+    counts}."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul_nk, int8_matmul_nk_reference)
+    from incubator_mxnet_tpu_torch.serving import (ModelServer, ServingClient,
+                                                   export_for_serving,
+                                                   load_served_model)
+
+    rs = np.random.RandomState(SEED)
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    export_for_serving(directory, "lstm_lm", cfg, lstm_model(torch, cfg, rs))
+    export_s = time.perf_counter() - t0
+    prompts = [rs.randint(0, cfg["vocab_size"], n).astype(np.int32)
+               for n in prompt_lengths]
+    by_path, fields = {}, {}
+    for quantize in (False, True):
+        mode = "int8" if quantize else "fp32"
+        served = load_served_model(directory, quantize=quantize, device=dev)
+        raw = (served.step_fn, served.make_cache)
+        log_ = StepLog(served)
+        captured = []
+        if quantize:
+            head = served.int8_head
+            accumulate = head._accumulate
+
+            def capture(qx, accumulate=accumulate, head=head):
+                if log_.steps and not captured:     # a measured step's codes
+                    captured.append(F.pad(qx, (0, head._pad)).contiguous())
+                return accumulate(qx)
+            head._accumulate = capture
+        server = ModelServer(device=dev).load(
+            "lm", served=served, slots=slots, cache_len=cache_len).start()
+        try:
+            with ServingClient(server.addr) as c:          # warm-up
+                c.decode("lm", prompts[-1][:8], max_new_tokens=4)
+            addr = tuple(server.addr)
+            with multiprocessing.get_context("spawn").Pool(1) as pool:
+                pool.apply(run_decode_clients, (addr, prompts[:1], 1, 1,
+                                                "lm"))
+                _sync(torch, dev)
+                before = server.stats()["lm"]["decode"]
+                log_.clear()
+                reset_launch_counts()
+                tokens, latencies, wall = pool.apply(
+                    run_decode_clients,
+                    (addr, prompts, clients, max_new, "lm"))
+                _sync(torch, dev)
+                counts = launch_counts()
+                stats = server.stats()["lm"]["decode"]
+                logged = log_.steps[:]
+                if profile:
+                    traced = profile_round(torch, lambda: pool.apply(
+                        run_decode_clients,
+                        (addr, prompts, clients, max_new, "lm")))
+                    traced["grid_steps"] = \
+                        server.stats()["lm"]["decode"]["steps"] \
+                        - stats["steps"]
+                    traced.update(lstm_host_split(torch, dev, served, *raw,
+                                                  slots))
+                    log("lstm_profile", card=card, mode=mode, **traced)
+        finally:
+            server.stop()
+        log_.steps = logged
+        steps = stats["steps"] - before["steps"]
+        want = expected_counts(int8_matmul=steps if quantize else 0)
+        if dev.type == "cuda" and counts != want:
+            raise AssertionError("lstm decode (%s) launch counts %s, "
+                                 "expected %s from %d grid steps"
+                                 % (mode, counts, want, steps))
+        if len(log_.steps) != steps:
+            raise AssertionError("lstm decode (%s): %d steps recorded, %d "
+                                 "run" % (mode, len(log_.steps), steps))
+        if len(tokens) != len(prompts):
+            raise AssertionError("%d of %d lstm decode replies"
+                                 % (len(tokens), len(prompts)))
+        for i, toks in tokens.items():
+            if toks.shape != (max_new,) or toks.min() < 0 \
+                    or toks.max() >= cfg["vocab_size"]:
+                raise AssertionError("lstm decode reply %d: %s" % (i, toks))
+
+        # every served row against the CPU port's replay of the same grid
+        cpu = load_served_model(directory, quantize=quantize, device="cpu")
+        w_amax = cpu.int8_head._w_amax if quantize else 0.0
+
+        def tol_fn(_cpu_out, w_amax=w_amax):
+            # h = o * tanh(c) lies in (-1, 1), so x_amax < 1
+            return 1e-3 + INT8_FLIP_UNITS * w_amax / 127.0 ** 2
+
+        t0 = time.perf_counter()
+        rows, exact, worst = replay_on_cpu(torch, cpu, log_, slots,
+                                           cache_len, tol_fn)
+        cpu_s = time.perf_counter() - t0
+        generated = sum(int(t.size) for t in tokens.values())
+        lat = np.asarray([latencies[i] for i in sorted(latencies)])
+        fields[mode] = dict(
+            quantize=quantize, requests=len(tokens), clients=clients,
+            slots=slots, cache_len=cache_len,
+            prompt_lengths=list(prompt_lengths), max_new_tokens=max_new,
+            tokens_generated=generated, grid_steps=steps, launches=counts,
+            p50_ms=float(np.percentile(lat, 50) * 1e3),
+            p99_ms=float(np.percentile(lat, 99) * 1e3),
+            tokens_per_s=generated / wall, wall_s=wall,
+            step_ewma_ms=stats["step_ewma_s"] * 1e3,
+            replay_rows=rows, replay_exact_argmax_share=exact / rows,
+            max_logit_gap=worst, gap_limit=tol_fn(None), cpu_check_s=cpu_s,
+            export_s=export_s)
+        by_path["lstm_decode_" + mode] = counts
+        if quantize:
+            if not captured:
+                raise AssertionError("no int8 step's codes were captured")
+            a = captured[0]
+            if not int(a.abs().max()) > 0:
+                raise AssertionError("the captured int8 codes are all 0")
+            got = int8_matmul_nk(a, served.int8_head._qw)
+            exact_kernel = torch.equal(
+                got, int8_matmul_nk_reference(a, served.int8_head._qw))
+            fields[mode]["served_codes_kernel_exact"] = exact_kernel
+            if not exact_kernel:
+                raise AssertionError("int8_matmul on served codes differs "
+                                     "from its plain version")
+        log("lstm_decode", card=card, mode=mode, **fields[mode])
+    ratio = fields["int8"]["step_ewma_ms"] / fields["fp32"]["step_ewma_ms"]
+    log("lstm_decode_ratio", card=card, int8_over_fp32_step_ewma=ratio)
+    return by_path
 
 
 # -------------------------------------------------------------------- train
@@ -1891,8 +2243,8 @@ def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
                      card=None):
     """bench_fused_block on the card: K stacked bf16 units through the
     kernel (exactly K launches a stack) against the same stack through the
-    plain version, then the device time of a stack, kernel against the
-    cuDNN stack. Logs the `bottleneck` line; raises when a check failed.
+    plain version, then the time of a stack by CUDA events, kernel against
+    the cuDNN stack. Logs the `bottleneck` line; raises when a check failed.
     Returns the launch counts of the checked stack."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
@@ -1927,7 +2279,9 @@ def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
         for name, fn in (("kernel", fused_bottleneck),
                          ("library", library),
                          ("plain", bottleneck_reference)):
-            times[name + "_ms"] = device_ms(torch, stack(fn), [(x,)])[0]
+            # milliseconds of device work a call: CUDA events give the
+            # device time, where a trace may lose some of its 3 launches
+            times[name + "_ms"] = call_ms(torch, stack(fn), [(x,)], iters=20)
     _bytes, flops = block_cost(elem_bytes=2, **shape)
     log("bottleneck", card=card, K=K, dtype="bfloat16", max_abs_err=err,
         tolerance=tol, launches=counts, stack_gflop=K * flops / 1e9,
@@ -1950,6 +2304,7 @@ def _kernel_class(name):
                      ("flatadam", "adam_flat"),
                      ("fused_bottleneck", "fused_bottleneck"),
                      ("flash_decode", "flash_decode"),
+                     ("int8_mm_kernel", "int8_matmul"),
                      ("memcpy", "copy"), ("memset", "copy"),
                      ("max_pool", "pool"), ("avg_pool", "pool")):
         if key in n:
@@ -2094,6 +2449,8 @@ KERNEL_META = {
                   "incubator_mxnet_tpu/ops/pallas/fused_optim.py:114"),
     "adamw_flat": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
                    "incubator_mxnet_tpu/ops/pallas/fused_optim.py:133"),
+    "int8_matmul": ("incubator_mxnet_tpu_torch/csrc/int8_matmul.cu",
+                    "incubator_mxnet_tpu/ops/pallas/int8_matmul.py:32"),
 }
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
@@ -2167,13 +2524,18 @@ def main(argv=None):
     gcounts = gluon_train_phase(torch, dev, sharded_ms=resnet_ms,
                                 profile=args.profile is not None, card=card)
     bcounts = bottleneck_phase(torch, dev, card=card)
+    lcounts = lstm_decode_phase(
+        torch, dev, PTB_LSTM, LSTM_PROMPTS,
+        os.path.join(HERE, "build", "chip_smoke", "lstm_ptb"), card=card,
+        profile=args.profile is not None)
 
     # launches: each main path's run (serve, decode, each train shape, the
     # ResNet steps, the gluon steps of each optimizer, the bottleneck
-    # stack), counts reset to 0 just before it and read just after; the
-    # line carries their sum
+    # stack, the word LM's fp32 and int8 decode), counts reset to 0 just
+    # before it and read just after; the line carries their sum
     by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
-               "resnet_train": rcounts, "bottleneck": bcounts, **gcounts}
+               "resnet_train": rcounts, "bottleneck": bcounts, **gcounts,
+               **lcounts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]

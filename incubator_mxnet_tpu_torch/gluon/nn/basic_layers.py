@@ -1,8 +1,9 @@
 """Gluon's basic layers on the port's HybridBlock and Parameter.
 
 Counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py`` for the
-layers of the ResNet path: ``HybridSequential``, ``Dense``, ``BatchNorm``,
-``Activation`` and ``Flatten``, with gluon's
+layers of the ResNet and word-LM paths: ``HybridSequential``, ``Dense``,
+``BatchNorm``, ``Activation``, ``Dropout``, ``Embedding`` and ``Flatten``,
+with gluon's
 constructor arguments, defaults, initializers and deferred shape inference
 (``in_units`` / ``in_channels`` 0 are completed from the first input).
 Parameter names are gluon's (``weight``, ``bias``, ``gamma``, ``beta``;
@@ -17,9 +18,9 @@ BatchNorm normalizes with the batch statistics when
 statistics into its running-statistic tensors in place, as gluon does
 outside a trace. ``init_params`` draws gluon's usual start
 (``mx.init.Xavier()``'s form) from a seeded ``torch.Generator`` for nets
-whose shapes are known. Sequential, Dropout, Embedding, LayerNorm,
-InstanceNorm and the Lambda blocks wait for ROADMAP Queue 1 items 2, 3
-and 9.
+whose shapes are known. ``Dense(..., params=other.params)`` shares
+``other``'s weight of the same name (a tied decoder). Sequential, LayerNorm,
+InstanceNorm and the Lambda blocks wait for ROADMAP Queue 1 items 3 and 9.
 """
 
 import math
@@ -30,7 +31,7 @@ from ... import autograd as _ag
 from ..block import HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
-           "Flatten", "init_params"]
+           "Dropout", "Embedding", "Flatten", "init_params"]
 
 
 def _xavier_(w, gen):
@@ -230,6 +231,53 @@ class BatchNorm(HybridBlock):
         return "BatchNorm(axis=%s, momentum=%s, eps=%s, in_channels=%s)" % (
             self._axis, self._momentum, self._epsilon,
             self.gamma.shape[0] if self.gamma.shape else None)
+
+
+class Dropout(HybridBlock):
+    """Identity outside training and at rate 0; dropping while training is
+    random and waits for the Dropout op (ROADMAP Queue 1 item 5)."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0 or not _ag.is_training():
+            return x
+        raise NotImplementedError("Dropout(%s) while training: the random "
+                                  "Dropout op is not ported yet (ROADMAP "
+                                  "Queue 1 item 5)" % self._rate)
+
+    def __repr__(self):
+        return "Dropout(p = %s, axes=%s)" % (self._rate, self._axes)
+
+
+class Embedding(HybridBlock):
+    """Rows of a (input_dim, output_dim) weight at integer ids (reference:
+    Embedding); ids outside [0, input_dim) raise ValueError. The gradient
+    is dense; ``sparse_grad`` waits for ROADMAP Queue 1 item 4."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        if sparse_grad:
+            raise NotImplementedError("Embedding(sparse_grad=True): sparse "
+                                      "gradients are not ported yet (ROADMAP "
+                                      "Queue 1 item 4)")
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+    def __repr__(self):
+        return "Embedding(%d -> %d)" % (self._input_dim, self._output_dim)
 
 
 class Flatten(HybridBlock):

@@ -71,18 +71,18 @@ def _as_tensor(value, like):
     return value
 
 
-def _mx_shape(old, new):
-    """MXNet's reshape codes 0 (keep this axis) and -1 (infer)."""
-    out = []
-    for i, s in enumerate(new):
-        if s == 0:
-            out.append(old[i])
-        elif s < -1:
+def _mx_shape(old, new, reverse=False):
+    """MXNet's reshape codes 0 (keep this axis) and -1 (infer); with
+    ``reverse`` both shapes are read from the right, as the reference's
+    ``Reshape`` op reads them."""
+    for s in new:
+        if s < -1:
             raise NotImplementedError("reshape code %d is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)" % s)
-        else:
-            out.append(s)
-    return tuple(out)
+                                      "(ROADMAP Queue 1 item 4)" % s)
+    src = list(old)[::-1] if reverse else list(old)
+    tgt = list(new)[::-1] if reverse else list(new)
+    out = [src[i] if s == 0 else s for i, s in enumerate(tgt)]
+    return tuple(out[::-1] if reverse else out)
 
 
 def _axes(axis, ndim, exclude=False):
@@ -328,9 +328,11 @@ class NDArray:
     def __rtruediv__(self, other):
         return self._binary(other, lambda a, b: a / b, reverse=True)
 
-
     def __pow__(self, other):
         return self._binary(other, lambda a, b: a ** b)
+
+    def __rpow__(self, other):
+        return self._binary(other, lambda a, b: a ** b, reverse=True)
 
     def __neg__(self):
         return invoke(torch.neg, self)
@@ -382,7 +384,7 @@ class NDArray:
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
         shape = shape or tuple(kwargs.get("shape", ()))
-        new = _mx_shape(self.shape, shape)
+        new = _mx_shape(self.shape, shape, kwargs.get("reverse", False))
         return invoke(lambda t: t.reshape(new), self)
 
     def flatten(self):

@@ -13,6 +13,8 @@ from .flash_decode import (paged_causal_attention, paged_flash_decode,
 from .fused_bottleneck import bottleneck_reference, fused_bottleneck
 from .fused_norm import (layer_norm, layer_norm_reference, softmax,
                          softmax_reference)
+from .int8_matmul import (int8_matmul, int8_matmul_nk,
+                          int8_matmul_nk_reference, int8_matmul_reference)
 from .fused_optim import (fused_adam_flat, fused_adam_flat_reference,
                           fused_adamw_flat, fused_adamw_flat_reference,
                           fused_sgd_mom_flat, fused_sgd_mom_flat_reference,
@@ -24,6 +26,8 @@ __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward"
            "flash_attention_backward_reference", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_forward",
            "flash_attention_reference", "fused_adam_flat",
+           "int8_matmul", "int8_matmul_nk", "int8_matmul_nk_reference",
+           "int8_matmul_reference",
            "fused_adam_flat_reference", "fused_adamw_flat",
            "fused_adamw_flat_reference", "fused_bottleneck",
            "fused_sgd_mom_flat", "fused_sgd_mom_flat_reference",
@@ -49,6 +53,7 @@ WRAPPERS = {
     "sgd_mom_flat": fused_sgd_mom_flat,
     "adam_flat": fused_adam_flat,
     "adamw_flat": fused_adamw_flat,
+    "int8_matmul": int8_matmul,
 }
 
 

@@ -70,6 +70,8 @@ _SIGNATURES = {
     # device, stream
     "mxtpu_fused_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, w, c, M, N, K, device, stream
+    "mxtpu_int8_matmul_nk": (_P, _P, _P, _I, _I, _I, _I, _P),
     # q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H, D, num_blocks,
     # block_size, max_blocks, scale, device, stream
     "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

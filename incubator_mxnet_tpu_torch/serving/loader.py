@@ -9,11 +9,18 @@ either package loads what the other exported.
 
 The port runs eager PyTorch: no AOT program is built, bound or exported.
 A family's forwards run under ``torch.inference_mode()`` on the model's
-device. Built-in family: ``bert_encoder``; ``gpt_decoder``
-(``generate/family.py``) registers when ``generate`` is imported, which
-``load_served_model`` does for a checkpoint of that family. The JAX
-package's ``lstm_lm`` family, the int8 path and live weight swaps come with
-later slices.
+device. Built-in families:
+
+- ``bert_encoder``: models.bert.BERTModel, the pooled embedding (and the
+  sequence output with ``emit_seq``);
+- ``lstm_lm``: models.lstm_lm.RNNModel step decode, its recurrent state in
+  the device-resident KVCache's state grid (one row per slot); with
+  ``quantize`` its vocab projection runs int8 (serving.quant.Int8Dense).
+
+``gpt_decoder`` (``generate/family.py``) registers when ``generate`` is
+imported, which ``load_served_model`` does for a checkpoint of that family.
+Live weight swaps (with the int8 head's re-quantization) wait for ROADMAP
+Queue 1 item 3.
 """
 
 import json
@@ -25,6 +32,9 @@ import torch
 
 from ..context import resolve_device
 from ..utils.checkpoint import CheckpointManager
+from .decode import check_token_ids
+from .kv_cache import KVCache
+from .quant import Int8Dense, int8_serving_enabled
 
 __all__ = ["ServedModel", "serving_family", "export_for_serving",
            "load_served_model", "SERVING_FAMILIES", "GENERATION_POINTER",
@@ -53,11 +63,13 @@ class ServedModel:
     ``make_cache(slots, max_len)`` serves generation through the
     DecodeLoop, which commits a prompt prefix through ``prefill_fn(slot,
     tokens, cache)`` in chunks of ``prefill_chunk`` when the family has
-    one."""
+    one. ``params_swapper``, where a family has one, is the live weight
+    swap, which no family of the port implements yet (ROADMAP Queue 1 item
+    3)."""
 
     def __init__(self, family, config, encode_fn=None, step_fn=None,
                  make_cache=None, pad_token=0, quantized=False, device=None,
-                 prefill_fn=None, prefill_chunk=None):
+                 prefill_fn=None, prefill_chunk=None, params_swapper=None):
         if encode_fn is None and step_fn is None:
             raise ValueError("a ServedModel needs encode_fn, step_fn, "
                              "or both")
@@ -76,6 +88,7 @@ class ServedModel:
         self.pad_token = int(pad_token)
         self.quantized = bool(quantized)
         self.device = device
+        self.params_swapper = params_swapper
         self.generation = 0
 
     @property
@@ -127,11 +140,13 @@ def generation_steps(directory):
 def export_for_serving(directory, family, config, model, generation=None):
     """Write a serving checkpoint of ``model`` (an ``nn.Module`` whose
     parameter names are the JAX package's) under a new generation, and
-    publish the generation pointer to it."""
+    publish the generation pointer to it. A tensor shared by two names (a
+    tied decoder) is written under both, as the JAX package writes it."""
     if family not in SERVING_FAMILIES:
         raise ValueError("unknown serving family %r (registered: %s)"
                          % (family, sorted(SERVING_FAMILIES)))
-    params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    params = {k: v.detach().cpu()
+              for k, v in model.named_parameters(remove_duplicate=False)}
     mgr = _serve_mgr(directory)
     gens = generation_steps(directory)
     if generation is None:
@@ -155,7 +170,8 @@ def load_served_model(directory, quantize=None, generation=None, device=None):
     """Restore a serving checkpoint and build its family on ``device``
     (None: ``cuda:0``, raising without CUDA; ``"cpu"`` for the plain
     path). The generation pointer picks the checkpoint unless
-    ``generation`` names a retained one."""
+    ``generation`` names a retained one. ``quantize=None`` reads
+    ``MXTPU_SERVE_INT8`` (``int8_serving_enabled``)."""
     device = resolve_device(device)
     mgr = _serve_mgr(directory)
     step = None
@@ -186,6 +202,8 @@ def load_served_model(directory, quantize=None, generation=None, device=None):
     if builder is None:
         raise ValueError("serving family %r is not part of this port"
                          % info["family"])
+    if quantize is None:
+        quantize = int8_serving_enabled()
     served = builder(dict(info.get("config") or {}), params,
                      bool(quantize), device)
     served.generation = int(meta.get("generation") or 0)
@@ -242,3 +260,87 @@ def _build_bert_encoder(config, params, quantize, device):
 
     return ServedModel("bert_encoder", config, encode, quantized=False,
                        device=device)
+
+
+def _set_params(model, params):
+    """Copy a restored param dict into a built gluon model by its
+    ``_collect_params_with_prefix`` names (a tied weight under each of its
+    names); every model param must be present in the checkpoint."""
+    targets = model._collect_params_with_prefix()
+    missing = sorted(set(targets) - set(params))
+    if missing:
+        raise IOError("serving checkpoint is missing params: %s"
+                      % ", ".join(missing[:8]))
+    for name, p in targets.items():
+        p.set_data(params[name])
+
+
+@serving_family("lstm_lm")
+def _build_lstm_lm(config, params, quantize, device):
+    """Autoregressive word-LM step decode. The recurrent state ((h, c) of
+    every layer, or h) lives in the KVCache's state grid on ``device``, one
+    (layers, hidden) row per slot, so sequences join and leave the fixed
+    decode batch between steps. A step runs embed -> RNN (T = 1) -> the
+    vocab head for all slots at once, writes the new states back into the
+    cache on the device and returns only the (slots, V) logits to the host.
+    With ``quantize`` the head is an ``Int8Dense`` built once from the
+    decoder's weight and bias. There is no prefill_fn: the DecodeLoop feeds
+    a prompt one token a step, as in the JAX package."""
+    from .. import initializer as _init
+    from ..models.lstm_lm import RNNModel
+    mode = str(config.get("mode", "lstm"))
+    layers = int(config.get("num_layers", 2))
+    hidden = int(config.get("num_hidden", 650))
+    vocab = int(config.get("vocab_size", 10000))
+    cfg = dict(mode=mode, vocab_size=vocab,
+               num_embed=int(config.get("num_embed", hidden)),
+               num_hidden=hidden, num_layers=layers, dropout=0.0,
+               tie_weights=bool(config.get("tie_weights", False)))
+    model = RNNModel(prefix="serve_lm_", **cfg)
+    model.initialize(_init.Zero(), ctx=device)
+    _set_params(model, params)
+
+    state_names = ("h", "c")[:2 if mode == "lstm" else 1]
+    int8_head = None
+    if quantize:
+        dec = model.decoder
+        int8_head = Int8Dense(dec.weight.data()._t,
+                              dec.bias.data()._t if dec.bias is not None
+                              else None, device=device)
+
+    def make_cache(slots, max_len):
+        return KVCache(slots, {s: ("state", (layers, hidden))
+                               for s in state_names}, max_len=max_len,
+                       device=device)
+
+    def step(tokens, cache, _active):
+        """DecodeLoop contract: tokens (slots,) over the FULL grid; every
+        slot's state is read and replaced; returns (slots, V) logits."""
+        s = int(tokens.shape[0])
+        ids = check_token_ids(np.asarray(tokens), vocab)
+        with torch.inference_mode():
+            inp = torch.from_numpy(ids.astype(np.int64).reshape(1, s)) \
+                .to(device)
+            states = [cache.data[n].transpose(0, 1) for n in state_names]
+            emb = model.encoder(inp)
+            out, new_states = model.rnn(emb, states)
+            if int8_head is None:
+                logits = model.decoder(out)
+            else:
+                logits = int8_head(out.reshape(s, hidden))
+            for n, st in zip(state_names, new_states):
+                cache.data[n].copy_(st.transpose(0, 1))
+            return logits.reshape(s, -1).cpu().numpy()
+
+    def swap(*_args, **_kwargs):
+        raise NotImplementedError("lstm_lm: live weight swap, and the int8 "
+                                  "head's re-quantization on swap, are not "
+                                  "ported yet (ROADMAP Queue 1 item 3)")
+
+    served = ServedModel("lstm_lm", config, step_fn=step,
+                         make_cache=make_cache, pad_token=0,
+                         quantized=bool(quantize), device=device,
+                         params_swapper=swap)
+    served.model = model
+    served.int8_head = int8_head
+    return served

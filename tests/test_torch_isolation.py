@@ -52,7 +52,8 @@ def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in _build.sources())
     assert names == ["flash_attention_bwd.cu", "flash_attention_fwd.cu",
                      "flash_decode.cu", "fused_bottleneck.cu",
-                     "fused_norm.cu", "fused_optim.cu", "runtime.cu"]
+                     "fused_norm.cu", "fused_optim.cu", "int8_matmul.cu",
+                     "runtime.cu"]
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
 
 
@@ -65,7 +66,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
                                                        BERTModel)
     from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
     from incubator_mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
-    from incubator_mxnet_tpu_torch.serving import (KVCache, ModelServer,
+    from incubator_mxnet_tpu_torch.serving import (Int8Dense, KVCache,
+                                                   ModelServer,
                                                    load_served_model)
     gpt_cfg = dict(vocab_size=10, units=8, num_layers=1, num_heads=2,
                    max_len=8)
@@ -89,6 +91,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
         KVCache(1, {"k0": ("kv", (2, 4))})
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh({"dp": 1})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Int8Dense([[1.0, -2.0]])
     with pytest.raises(RuntimeError, match="CUDA"):
         BERTForPretrain(vocab_size=10)
     tiny = dict(num_layers=1, units=8, hidden_size=8, num_heads=2,

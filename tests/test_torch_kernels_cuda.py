@@ -18,7 +18,10 @@ The fused bottleneck is held within atol 1e-4 in fp32 and within
 2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step where
 the two round a value from fp32 sums taken in other orders).
 The GPT test holds whole generations on the card and the CPU token for
-token.
+token. The int8 x int8 -> int32 matmul equals its plain version exactly
+(integer sums are exact in any order), at every shape, aligned or not; the
+lstm_lm family's served logits on the card are held to the CPU's replay of
+the same grid (see its test for the int8 rule).
 """
 
 import math
@@ -789,3 +792,177 @@ def test_two_groups_launch_twice_and_equal_the_per_parameter_rules(
                      net.collect_params().values()])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------- int8 matmul
+def _int8(shape, gen, device, extremes=False):
+    t = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    if extremes:
+        flat = t.view(-1)
+        flat[::3] = 127
+        flat[1::3] = -127
+        flat[2::7] = -128
+    return t.to(device)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 128])
+def test_int8_matmul_kernel_equals_plain_exactly(cuda, M):
+    """Every (K, N) of K in {1, 31, 32, 650, 4096} and N in {1, 7, 128,
+    10000} at this M, through both entries: integer sums are exact, so the
+    kernel equals its plain version bit for bit; one launch a call."""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul, int8_matmul_nk, int8_matmul_nk_reference,
+        int8_matmul_reference)
+    gen = torch.Generator().manual_seed(M)
+    for K in (1, 31, 32, 650, 4096):
+        for N in (1, 7, 128, 10000):
+            a, w = _int8((M, K), gen, cuda), _int8((N, K), gen, cuda)
+            n0 = int8_matmul.launches
+            got = int8_matmul_nk(a, w)
+            got_kn = int8_matmul(a, w.t().contiguous())
+            torch.cuda.synchronize()
+            assert int8_matmul.launches == n0 + 2
+            assert got.dtype == torch.int32 and got.shape == (M, N)
+            want = int8_matmul_nk_reference(a, w)
+            assert torch.equal(got, want), (M, K, N)
+            assert torch.equal(got_kn, int8_matmul_reference(
+                a, w.t().contiguous())), (M, K, N)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("M,K,N", [(8, 656, 10000), (8, 650, 10000),
+                                   (33, 64, 300), (130, 4096, 129)])
+def test_int8_matmul_kernel_at_the_extremes_and_on_misaligned_views(
+        cuda, M, K, N):
+    """+-127 and -128 everywhere (sums near the int32 range's scale), and
+    operands whose data start 1 byte past a 16-byte boundary, which take the
+    kernel's byte-wide loads instead of its 16-byte copies."""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul_nk, int8_matmul_nk_reference)
+    gen = torch.Generator().manual_seed(K)
+    a, w = _int8((M, K), gen, cuda, True), _int8((N, K), gen, cuda, True)
+    assert torch.equal(int8_matmul_nk(a, w), int8_matmul_nk_reference(a, w))
+    buf_a = torch.empty(M * K + 1, dtype=torch.int8, device=cuda)
+    buf_w = torch.empty(N * K + 1, dtype=torch.int8, device=cuda)
+    ma = buf_a[1:].view(M, K)
+    mw = buf_w[1:].view(N, K)
+    ma.copy_(a)
+    mw.copy_(w)
+    assert ma.data_ptr() % 16 == 1 and ma.is_contiguous()
+    got = int8_matmul_nk(ma, mw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_nk_reference(a, w))
+
+
+@pytest.mark.needs_cuda
+def test_int8_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        K_MAX, int8_matmul, int8_matmul_nk)
+    a = torch.zeros(4, 32, dtype=torch.int8, device=cuda)
+    w = torch.zeros(8, 32, dtype=torch.int8, device=cuda)
+    n0 = int8_matmul.launches
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul_nk(a.float(), w)
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul_nk(a, w.int())
+    with pytest.raises(ValueError, match="contraction"):
+        int8_matmul_nk(a, w[:, :16].contiguous())
+    with pytest.raises(ValueError, match="2-D"):
+        int8_matmul_nk(a[None], w)
+    with pytest.raises(ValueError, match="2-D"):
+        int8_matmul(a, w[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul_nk(a[:, ::2], w[:, :16].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        int8_matmul_nk(a, w.cpu())
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_matmul_nk(a.cpu(), w)
+    big = torch.zeros(1, K_MAX + 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        int8_matmul_nk(big, big)
+    assert int8_matmul.launches == n0
+
+
+def _lstm_served(tmp_path, quantize, device):
+    """A small tied word LM (vocab 300, 50 x 2: K = 50 is padded to 64 in
+    the int8 head), exported from uniform(-0.3, 0.3) weights of
+    RandomState(0) and loaded by the lstm_lm family on ``device``."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch import init
+    from incubator_mxnet_tpu_torch.models import RNNModel
+    from incubator_mxnet_tpu_torch.serving import (export_for_serving,
+                                                   load_served_model)
+    cfg = dict(mode="lstm", vocab_size=300, num_embed=50, num_hidden=50,
+               num_layers=2, tie_weights=True)
+    d = tmp_path / "lm"
+    if not d.exists():
+        m = RNNModel(dropout=0.0, **cfg)
+        m.initialize(init.Zero(), ctx="cpu")
+        rs = np.random.RandomState(0)
+        for _, p in sorted(m._collect_params_with_prefix().items()):
+            p.set_data(rs.uniform(-0.3, 0.3, p.shape).astype(np.float32))
+        export_for_serving(str(d), "lstm_lm", cfg, m)
+    return load_served_model(str(d), quantize=quantize, device=device)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("quantize", [False, True], ids=["fp32", "int8"])
+def test_lstm_lm_family_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                    quantize):
+    """The family's DecodeLoop on the card, then the same grid on the CPU
+    with the card's tokens forced (requests queued before each loop starts,
+    and no eos: both grids admit and retire alike). At every step, every
+    active slot's card argmax has a CPU logit within 1e-3 of its row's max;
+    in int8 widened by 2 * 127 output units (x_amax * w_amax / 127**2, with
+    x_amax < 1 for an LSTM's h): an activation code that the two devices'
+    roundoff puts on either side of a rounding boundary moves a logit by
+    its weight code, at most 127 units. int8: one int8_matmul launch a step,
+    and none in fp32."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import DecodeLoop, DecodeRequest
+    card = _lstm_served(tmp_path, quantize, cuda)
+    host = _lstm_served(tmp_path, quantize, "cpu")
+    prompts = [[1], [5, 9, 2, 77], list(range(10, 30)), [299, 0, 3],
+               [42] * 9, [7, 8]]
+    card_log, host_log = [], []
+
+    def record(tokens, cache, active):
+        out = card.step_fn(tokens, cache, active)
+        card_log.append((tokens.copy(), active.copy(), out))
+        return out
+
+    def forced(tokens, cache, active):
+        t, a, _ = card_log[len(host_log)]
+        assert (a == active).all()
+        host_log.append(host.step_fn(t, cache, a))
+        return host_log[-1]
+
+    for fn, served in ((record, card), (forced, host)):
+        loop = DecodeLoop("lm", fn, served.make_cache(3, 64))
+        reqs = [loop.submit(DecodeRequest("lm", p, max_new_tokens=8))
+                for p in prompts]
+        if fn is record:
+            reset_launch_counts()
+        loop.start()
+        try:
+            for r in reqs:
+                r.wait(120.0)
+        finally:
+            loop.stop()
+        if fn is record:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    steps = len(card_log)
+    assert steps == len(host_log) > 0
+    assert counts == dict.fromkeys(counts, 0) | {
+        "int8_matmul": steps if quantize else 0}
+    tol = 1e-3
+    if quantize:
+        tol += 2 * 127 * host.int8_head._w_amax / 127.0 ** 2
+    for (_t, a, card_out), cpu_out in zip(card_log, host_log):
+        for s in np.flatnonzero(a):
+            tok = int(np.argmax(card_out[s]))
+            assert cpu_out[s].max() - cpu_out[s][tok] <= tol

@@ -351,6 +351,29 @@ def test_jax_loads_a_port_exported_checkpoint(tmp_path):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_quantize_none_follows_the_env_knob_in_both(tmp_path, monkeypatch):
+    """``load_served_model(quantize=None)`` reads MXTPU_SERVE_INT8, as the
+    JAX package's does (the port read None as off), for the same JAX-written
+    lstm_lm checkpoint in both packages."""
+    from incubator_mxnet_tpu.models.lstm_lm import RNNModel as JaxRNNModel
+    cfg = dict(mode="lstm", vocab_size=30, num_embed=8, num_hidden=8,
+               num_layers=1)
+    m = JaxRNNModel(prefix="tq_", dropout=0.0, **cfg)
+    m.initialize(mx.init.Normal(0.02))
+    m(nd.array(np.zeros((1, 2), np.int32)), m.begin_state(batch_size=2))
+    jserving.export_for_serving(str(tmp_path), "lstm_lm", cfg, m)
+    for value, want in (("1", True), ("0", False)):
+        monkeypatch.setenv("MXTPU_SERVE_INT8", value)
+        assert jserving.load_served_model(str(tmp_path)).quantized is want
+        served = serving.load_served_model(str(tmp_path), device="cpu")
+        assert served.quantized is want
+        assert (served.int8_head is not None) is want
+    for explicit in (False, True):          # an explicit choice wins
+        assert serving.load_served_model(
+            str(tmp_path), quantize=explicit,
+            device="cpu").quantized is explicit
+
+
 def test_loader_guards(tmp_path):
     with pytest.raises(ValueError, match="unknown serving family"):
         serving.export_for_serving(str(tmp_path), "nope", {}, None)

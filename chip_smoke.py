@@ -79,6 +79,23 @@ Phases, each printing one line:
              on codes captured from the served path. (The kernels phase
              times the int8 kernel at the decode shape and at
              bench_int8_matmul's 4096^3.)
+10. attention_bias - flash_attention with a learned kv_bias under
+             autograd at BERT-base's geometry (B 8, H 12, T 512, D 64, the
+             ragged padding mask of the flash backward rows): a (B, H, T)
+             bias, then a (B, T) bias with causal=True, forward and
+             (out ** 2).sum().backward() each. Exactly one dK/dV-with-dbias
+             launch a backward; q, k, v and kv_bias gradients within 1e-4
+             of each tensor's max of the CPU port's, masked keys' bias
+             gradients exactly 0.
+11. seam_bf16 - the ops/_optim_kernels.py seam's _multi_sgd_mom_update,
+             _multi_adam_update and _multi_adamw_update on bf16 groups of
+             ResNet-50 v1's 193 trainable shapes, 2 steps each: one bf16
+             flat launch a call, w and states bitwise against the plain
+             version on the card, and compared with the CPU port.
+12. rtc     - mx.rtc.CudaModule compiles the reference's axpy (cold, then
+             from the cubin cache) and a template through exports; both
+             launch on nd arrays of 2**24 elements on mx.gpu(0) and equal
+             plain torch exactly; a CPU array is refused.
 
 Options for measurement runs: --profile PATH traces one more serving round,
 one more served decode round (the same 16 requests), one more training
@@ -219,6 +236,14 @@ def max_err(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
+def same_bits(a, b):
+    """Equal values of one dtype, NaN at the same places."""
+    import torch
+    na, nb = a.isnan(), b.isnan()
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
 # ------------------------------------------------------------------ kernels
 def measure(torch, name, shape, err, tolerance, inputs, kernel, plain,
             library, bytes_moved, flops, peak_flops=FP32_FLOPS_PER_S,
@@ -326,8 +351,10 @@ def kernels_phase(torch, dev):
     rows.append(trainer_adam_row(torch, dev, randn))
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
     rows += flat_rows(torch, dev, randn)
+    rows += flat_rows(torch, dev, randn, torch.bfloat16)
     rows += bottleneck_rows(torch, dev)
     rows += int8_matmul_rows(torch, dev)
+    rows.append(rtc_axpy_row(torch, dev, randn))
     for r in rows:
         log("kernels", **r)
     return rows
@@ -342,12 +369,16 @@ def flash_backward_rows(torch, dev, randn):
     fields are the whole backward (the wrapper: delta and both kernels)
     against five products, its plain version and the backward of
     F.scaled_dot_product_attention. No one PyTorch call computes dQ or
-    dK/dV alone, so the rows' own library time is null."""
+    dK/dV alone, so the rows' own library time is null. Beside them, the
+    dK/dV kernel's dbias variant (a learned per-key bias's cotangent) on the
+    same inputs: dk and dv within 2e-5 of the plain version, dbias within
+    2e-5 / scale (dS before the scale, summed over the rows dK sums over);
+    its bound adds one add a live score and the (BH, T) dbias write."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_forward)
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_dbias,
+        flash_attention_bwd_dq, flash_attention_forward)
     B, H, T, D = 8, 12, 512, 64
     BH, scale = B * H, 1.0 / math.sqrt(D)
     rows = []
@@ -427,6 +458,31 @@ def flash_backward_rows(torch, dev, randn):
                 None, io + out_bytes, n_prod * prod, dq_err=errs[0],
                 dk_err=errs[1], dv_err=errs[2],
                 plain_computes="dq, dk and dv", **pair))
+
+        dk, dv, db = flash_attention_bwd_dkv_dbias(q, k, v, do, lse, delta,
+                                                   bias, scale, False)
+        ref = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                                 scale, needs_dbias=True)
+        db_errs = [max_err(a, b) for a, b in zip((dk, dv, db), ref[1:])]
+        if not max(db_errs[:2]) <= 2e-5:
+            raise AssertionError("flash_attention_bwd_dkv_dbias: dk / dv "
+                                 "error %r > 2e-5" % (db_errs[:2],))
+        if dead and not db.view(B, H, T)[dead].eq(0).all():
+            raise AssertionError("flash_attention_bwd_dkv_dbias: a sample "
+                                 "with no live key did not give dbias 0")
+        rows.append(measure(
+            torch, "flash_attention_bwd_dkv_dbias", (BH, T, D), db_errs[2],
+            2e-5 / scale, inputs,
+            lambda q, k, v, do, out, lse, delta:
+            flash_attention_bwd_dkv_dbias(q, k, v, do, lse, delta, bias,
+                                          scale, False),
+            lambda q, k, v, do, out, lse, delta:
+            flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                               scale, needs_dbias=True),
+            None, io + 2 * qkvd + row, 4 * prod + T * live_keys,
+            dk_err=db_errs[0], dv_err=db_errs[1], dbias_err=db_errs[2],
+            plain_computes="dq, dk, dv and dbias", lengths=lengths,
+            live_key_share=sum(lengths) / (B * T)))
     return rows
 
 
@@ -542,14 +598,19 @@ def trainer_sgd_mom_row(torch, dev, randn):
                 bytes=bytes_moved)
 
 
-def flat_rows(torch, dev, randn):
+def flat_rows(torch, dev, randn, dtype=None):
     """The eager seam's three flavours over ResNet-50 v1's trainable
-    tensors (193 fp32 tensors, 25,575,912 elements) with the gluon
-    Trainer's rescale 1/128: each once, held bitwise against its plain
-    version (the per-parameter rule tensor by tensor) on copies; then
-    timed against it and against torch.optim.SGD(momentum=0.9) / Adam /
-    AdamW(fused=True).step() on the same tensors. SGD moves 511.5 MB a
-    call, Adam and AdamW 716.1 MB, every call cold in the 50 MB L2."""
+    tensors (193 tensors, 25,575,912 elements) with the gluon Trainer's
+    rescale 1/128: each once, held bitwise against its plain version (the
+    per-parameter rule tensor by tensor) on copies; then timed against it
+    and against torch.optim.SGD(momentum=0.9) / Adam / AdamW(fused=True)
+    .step() on the same tensors. In fp32 SGD moves 511.5 MB a call, Adam
+    and AdamW 716.1 MB, every call cold in the 50 MB L2; in bf16 (rows
+    named *_bf16, the bf16 kernels) half as much, still five and seven
+    times the L2."""
+    dtype = dtype or torch.float32
+    elem = torch.empty((), dtype=dtype).element_size()
+    suffix = "" if dtype == torch.float32 else "_bf16"
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
         _ResNet)
     from incubator_mxnet_tpu_torch.ops.kernels import fused_optim as fo
@@ -562,26 +623,29 @@ def flat_rows(torch, dev, randn):
     flavours = (
         ("sgd_mom_flat", fo.fused_sgd_mom_flat,
          fo.fused_sgd_mom_flat_reference, 1,
-         dict(lr=RESNET_LR, wd=0.0, momentum=RESNET_MOMENTUM), 20, 8,
+         dict(lr=RESNET_LR, wd=0.0, momentum=RESNET_MOMENTUM), 5 * elem, 8,
          lambda ps: torch.optim.SGD(ps, lr=RESNET_LR,
                                     momentum=RESNET_MOMENTUM, fused=True)),
         ("adam_flat", fo.fused_adam_flat, fo.fused_adam_flat_reference, 2,
-         dict(lr=1e-3, wd=0.0, b1=0.9, b2=0.999, eps=1e-8, t=1), 28, 15,
+         dict(lr=1e-3, wd=0.0, b1=0.9, b2=0.999, eps=1e-8, t=1), 7 * elem,
+         15,
          lambda ps: torch.optim.Adam(ps, lr=1e-3, fused=True)),
         ("adamw_flat", fo.fused_adamw_flat, fo.fused_adamw_flat_reference,
          2, dict(lr=1e-3, wd=0.01, eta=1.0, b1=0.9, b2=0.999, eps=1e-8,
-                 t=1), 28, 17,
+                 t=1), 7 * elem, 17,
          lambda ps: torch.optim.AdamW(ps, lr=1e-3, weight_decay=0.01,
                                       fused=True)),
     )
     rows = []
     for name, kernel, plain, n_states, hp, per_elem, ops, library in \
             flavours:
+        name += suffix
         groups = [[0.02 * randn(*sh) for sh in shapes],
                   [0.1 * randn(*sh) for sh in shapes],
                   [1e-3 * randn(*sh) for sh in shapes]]
         if n_states == 2:
             groups.append([1e-6 * randn(*sh).abs() for sh in shapes])
+        groups = [[t.to(dtype) for t in g] for g in groups]
         hp = dict(hp, rescale=rescale, clip=-1.0)
         ref = [[t.clone() for t in grp] for grp in groups]
         kernel(*groups, **hp)
@@ -589,7 +653,7 @@ def flat_rows(torch, dev, randn):
         torch.cuda.synchronize()
         pairs = [(a, b) for i in [0] + list(range(2, len(groups)))
                  for a, b in zip(groups[i], ref[i])]
-        same = all(torch.equal(a, b) for a, b in pairs)
+        same = all(same_bits(a, b) for a, b in pairs)
         err = max(max_err(a, b) for a, b in pairs)
         if not same:
             raise AssertionError("%s: the kernel and its plain version "
@@ -614,7 +678,8 @@ def flat_rows(torch, dev, randn):
                          ms=k_ms, warm_ms=None, timed_by=timed_by,
                          plain_ms=p_ms, library_ms=lib_ms, bound_ms=bms,
                          bound_by=by, tensors=len(shapes), elements=n,
-                         bytes=per_elem * n, rescale=rescale))
+                         bytes=per_elem * n, rescale=rescale,
+                         dtype=str(dtype)[6:]))
     return rows
 
 
@@ -2291,6 +2356,297 @@ def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
     return counts
 
 
+# ------------------------------------------------------------ attention_bias
+ATTN_BIAS_LENGTHS = [512, 300, 0, 511, 64, 1, 450, 129]
+
+
+def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
+                         card=None):
+    """flash_attention with a learned kv_bias under autograd at BERT-base's
+    geometry (B 8, H 12, T 512, D 64) with the ragged kv_mask of the flash
+    backward rows: a (B, H, T) bias, then a (B, T) bias with causal=True.
+    Each runs the forward and (out ** 2).sum().backward(); the launches
+    must be exactly one flash forward, one dQ and one dK/dV-with-dbias a
+    backward (and no dK/dV without it), and the gradients of q, k, v and
+    kv_bias must be finite, within 1e-4 of each tensor's max of the same
+    inputs through the port on the CPU, and exactly 0 at every masked key's
+    bias. Logs the `attention_bias` line; returns the launch counts."""
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention)
+    lengths = lengths or ATTN_BIAS_LENGTHS
+    rs = np.random.RandomState(SEED + 7)
+    mask = (np.arange(T)[None, :] < np.array(lengths)[:, None]) \
+        .astype(np.float32)
+    cases = []
+    for form, causal in (("bht", False), ("bt_causal", True)):
+        arrays = [rs.randn(B, H, T, D).astype(np.float32) for _ in range(3)]
+        arrays.append(rs.randn(*((B, T) if causal else (B, H, T)))
+                      .astype(np.float32))
+        cases.append((form, causal, arrays))
+
+    def run(device, causal, arrays):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_()
+                  for a in arrays]
+        out = flash_attention(*leaves[:3], causal=causal,
+                              kv_mask=torch.from_numpy(mask).to(device),
+                              kv_bias=leaves[3])
+        loss = (out ** 2).sum()
+        loss.backward()
+        return float(loss.detach()), [t.grad.cpu() for t in leaves]
+
+    reset_launch_counts()
+    card_runs = [run(dev, causal, arrays) for _f, causal, arrays in cases]
+    _sync(torch, dev)
+    counts = launch_counts()
+    n = len(cases)
+    failures = []
+    want = expected_counts(flash_attention_fwd=n, flash_attention_bwd_dq=n,
+                           flash_attention_bwd_dkv_dbias=n)
+    if dev.type == "cuda" and counts != want:
+        failures.append("launch counts %s, expected %s" % (
+            {k: v for k, v in counts.items() if v},
+            {k: v for k, v in want.items() if v}))
+    fields = {}
+    for (form, causal, arrays), (loss, grads) in zip(cases, card_runs):
+        cpu_loss, cpu_grads = run(torch.device("cpu"), causal, arrays)
+        rel = {}
+        for name, got, ref in zip(("q", "k", "v", "kv_bias"), grads,
+                                  cpu_grads):
+            top = float(ref.abs().max())
+            err = max_err(got, ref)
+            rel[name] = err / top if top else err
+            if not torch.isfinite(got).all():
+                failures.append("%s: d%s not finite" % (form, name))
+            elif not err <= 1e-4 * top:
+                failures.append("%s: d%s error %r > 1e-4 x %r"
+                                % (form, name, err, top))
+        for i, live in enumerate(lengths):
+            if not (grads[3][i][..., live:] == 0).all():
+                failures.append("%s: sample %d's masked keys got a kv_bias "
+                                "gradient" % (form, i))
+        if not abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss):
+            failures.append("%s: loss %r, CPU %r" % (form, loss, cpu_loss))
+        fields[form] = dict(loss=loss, cpu_loss=cpu_loss,
+                            grad_err_over_max=rel)
+    log("attention_bias", card=card, B=B, H=H, T=T, D=D, lengths=lengths,
+        launches={k: v for k, v in counts.items() if v}, **fields)
+    if failures:
+        raise AssertionError("attention_bias: %s" % "; ".join(failures))
+    return counts
+
+
+# ----------------------------------------------------------------- seam_bf16
+SEAM_STEPS = 2
+
+
+def seam_bf16_phase(torch, dev, cfg=None, steps=SEAM_STEPS, card=None):
+    """The ops/_optim_kernels.py seam's three calls, _multi_sgd_mom_update,
+    _multi_adam_update and _multi_adamw_update, on bf16 groups of ResNet-50
+    v1's trainable shapes (193 tensors, 25,575,912 elements), `steps` steps
+    each with rescale 1/128: exactly one bf16 flat launch a call and no
+    other kernel; after the steps, w and every state bitwise equal to the
+    plain version (the bf16 rules tensor by tensor) on the card, and
+    compared with the same steps through the port on the CPU (elements that
+    differ and the largest difference are logged, not required to be 0).
+    Logs the `seam_bf16` line; returns the launch counts."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        _ResNet)
+    from incubator_mxnet_tpu_torch.ops import _optim_kernels as seam
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.ops.kernels import fused_optim as fo
+    net = _ResNet(preact=False, device=torch.device("cpu"),
+                  **(cfg or RESNET50))
+    shapes = [tuple(p.shape) for _n, p in sorted(net.named_parameters())
+              if p.requires_grad]
+    del net
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def make(scale, absolute=False):
+        out = []
+        for sh in shapes:
+            t = torch.randn(*sh, generator=gen, device=dev) * scale
+            out.append((t.abs() if absolute else t).to(torch.bfloat16))
+        return out
+
+    hp = dict(rescale=1.0 / RESNET_B, clip=-1.0)
+    flavours = (
+        ("sgd_mom", 1, dict(lr=RESNET_LR, wd=1e-4,
+                            momentum=RESNET_MOMENTUM),
+         fo.fused_sgd_mom_flat_reference),
+        ("adam", 2, dict(lr=1e-3, wd=0.0, b1=0.9, b2=0.999, eps=1e-8),
+         fo.fused_adam_flat_reference),
+        ("adamw", 2, dict(lr=1e-3, wd=0.01, eta=1.0, b1=0.9, b2=0.999,
+                          eps=1e-8), fo.fused_adamw_flat_reference),
+    )
+    state = {}
+    for name, n_states, _hp, _plain in flavours:
+        groups = [make(0.02), make(0.1), make(1e-3)]
+        if n_states == 2:
+            groups.append(make(1e-6, absolute=True))
+        state[name] = dict(card=groups,
+                           plain=[[t.clone() for t in g] for g in groups],
+                           cpu=[[t.to("cpu", copy=True) for t in g]
+                                for g in groups])
+
+    def step_args(name, fhp, step):
+        a = dict(fhp, **hp)
+        if name != "sgd_mom":
+            a["t"] = step + 1
+        return a
+
+    reset_launch_counts()
+    for name, _n, fhp, _plain in flavours:
+        fn = getattr(seam, "_multi_%s_update" % name)
+        for step in range(steps):
+            fn(*state[name]["card"], **step_args(name, fhp, step))
+    _sync(torch, dev)
+    counts = launch_counts()
+    want = expected_counts(sgd_mom_flat_bf16=steps, adam_flat_bf16=steps,
+                           adamw_flat_bf16=steps)
+    failures = []
+    if dev.type == "cuda" and counts != want:
+        failures.append("launch counts %s, expected %s" % (
+            {k: v for k, v in counts.items() if v},
+            {k: v for k, v in want.items() if v}))
+    fields = {}
+    for name, n_states, fhp, plain in flavours:
+        st = state.pop(name)
+        fn = getattr(seam, "_multi_%s_update" % name)
+        for step in range(steps):
+            plain(*st["plain"], **step_args(name, fhp, step))
+            fn(*st["cpu"], **step_args(name, fhp, step))
+        _sync(torch, dev)
+        kept = [0] + list(range(2, 2 + n_states))     # w and the states
+        bitwise = all(same_bits(a, b) for i in kept
+                      for a, b in zip(st["card"][i], st["plain"][i]))
+        differ, worst = 0, 0.0
+        for i in kept:
+            for a, b in zip(st["card"][i], st["cpu"][i]):
+                a = a.cpu()
+                differ += int((a.float() != b.float()).sum())
+                worst = max(worst, max_err(a, b))
+        if not bitwise:
+            failures.append("%s: the bf16 kernel and its plain version "
+                            "differ" % name)
+        fields[name] = dict(bitwise_plain=bitwise, cpu_elements_differ=differ,
+                            cpu_max_abs_diff=worst)
+    n = sum(math.prod(sh) for sh in shapes)
+    log("seam_bf16", card=card, tensors=len(shapes), elements=n, steps=steps,
+        launches={k: v for k, v in counts.items() if v}, **fields)
+    if failures:
+        raise AssertionError("seam_bf16: %s" % "; ".join(failures))
+    return counts
+
+
+# ----------------------------------------------------------------------- rtc
+RTC_N = 1 << 24
+RTC_ALPHA = float(np.float32(0.37))
+# --fmad=false: y + alpha * x rounds the product on its own, as torch does
+RTC_OPTIONS = ("--fmad=false",)
+RTC_AXPY_SIG = "const float *x, float *y, float alpha"
+# the reference's test_cuda_rtc axpy, and a template reached through exports
+RTC_AXPY = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+"""
+RTC_SCALE = r"""
+template <typename T>
+__global__ void scale(const T *x, T *y, T alpha, int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) y[i] = alpha * x[i];
+}
+"""
+
+
+def rtc_axpy_row(torch, dev, randn, n=RTC_N):
+    """The `rtc_axpy` kernel row, in the kernels phase (early in the run,
+    where a trace keeps its device events): the reference's axpy through
+    mx.rtc on n floats, exactly equal to plain torch (y.add_(alpha * x)),
+    timed against it and against the library call y.add_(x, alpha=alpha);
+    12 bytes an element."""
+    from incubator_mxnet_tpu_torch import rtc
+    axpy = rtc.CudaModule(RTC_AXPY, options=RTC_OPTIONS).get_kernel(
+        "axpy", RTC_AXPY_SIG)
+    grid, block = ((n + 255) // 256, 1, 1), (256, 1, 1)
+    x, y = randn(n), randn(n)
+    want = y + RTC_ALPHA * x
+    axpy.launch([x, y, RTC_ALPHA], dev, grid, block)
+    err = max_err(y, want)
+    if not torch.equal(y, want):
+        raise AssertionError("rtc_axpy: differs from plain torch (max %r)"
+                             % err)
+    return measure(
+        torch, "rtc_axpy", (n,), err, 0.0, (x, y),
+        lambda x, y: axpy.launch([x, y, RTC_ALPHA], dev, grid, block),
+        lambda x, y: y.add_(RTC_ALPHA * x),
+        lambda x, y: y.add_(x, alpha=RTC_ALPHA), 12 * n, 2 * n,
+        library_call="y.add_(x, alpha=alpha)", options=list(RTC_OPTIONS))
+
+
+def rtc_phase(torch, dev, n=RTC_N, card=None):
+    """mx.rtc on the card: CudaModule compiles the reference's axpy (with
+    --fmad=false, so that y + alpha * x rounds the product on its own, as
+    plain torch does) cold and then loads it from the cubin cache, and a
+    templated scale<float> reached through exports; both launch once on nd
+    arrays of n elements on mx.gpu(0) and must equal plain torch exactly.
+    A CPU array with the GPU context must be refused. Logs the `rtc` line;
+    returns the launch counts."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import rtc
+    mod = rtc.CudaModule(RTC_AXPY, options=RTC_OPTIONS)
+    if mod.from_cache:            # a cold compile is what is timed
+        for path in (mod.cache_path, mod.cache_path.with_suffix(".json")):
+            path.unlink()
+        mod = rtc.CudaModule(RTC_AXPY, options=RTC_OPTIONS)
+    cached = rtc.CudaModule(RTC_AXPY, options=RTC_OPTIONS)
+    templ = rtc.CudaModule(RTC_SCALE, exports=["scale<float>"])
+    failures = []
+    if mod.from_cache or not cached.from_cache or cached.cubin != mod.cubin:
+        failures.append("cache: cold from_cache=%s, second from_cache=%s"
+                        % (mod.from_cache, cached.from_cache))
+    axpy = cached.get_kernel("axpy", RTC_AXPY_SIG)
+    scale = templ.get_kernel("scale<float>",
+                             "const float *x, float *y, float alpha, int n")
+    ctx = mx.gpu(0)
+    rs = np.random.RandomState(SEED + 13)
+    x0, y0 = (rs.randn(n).astype(np.float32) for _ in range(2))
+    alpha = RTC_ALPHA
+    x, y = mx.nd.array(x0, ctx=ctx), mx.nd.array(y0, ctx=ctx)
+    z = mx.nd.zeros((n,), ctx=ctx)
+    grid, block = ((n + 255) // 256, 1, 1), (256, 1, 1)
+    axpy.launch([x, y, alpha], ctx, grid, block)
+    scale.launch([x, z, alpha, n], ctx, grid, block)
+    torch.cuda.synchronize()
+    counts = {"rtc_axpy": axpy.launches, "rtc_scale<float>": scale.launches}
+    if counts != {"rtc_axpy": 1, "rtc_scale<float>": 1}:
+        failures.append("launch counts %s" % counts)
+    xt = torch.from_numpy(x0).to(dev)
+    want_y = torch.from_numpy(y0).to(dev) + alpha * xt
+    errs = {"axpy": max_err(y._t, want_y), "scale": max_err(z._t,
+                                                            alpha * xt)}
+    if not (torch.equal(y._t, want_y) and torch.equal(z._t, alpha * xt)):
+        failures.append("results differ from plain torch: %s" % errs)
+    try:
+        axpy.launch([x._t.cpu(), y, alpha], ctx, grid, block)
+        failures.append("a CPU array was launched on the GPU context")
+    except ValueError:
+        pass
+    log("rtc", card=card, n=n, compile_cold_ms=mod.compile_ms,
+        compile_cached_ms=cached.compile_ms,
+        compile_template_ms=templ.compile_ms,
+        template_from_cache=templ.from_cache, cubin_bytes=len(mod.cubin),
+        lowered={"scale<float>": scale.symbol}, launches=counts,
+        max_abs_err=errs)
+    if failures:
+        raise AssertionError("rtc: %s" % "; ".join(failures))
+    return counts
+
+
 def _kernel_class(name):
     n = name.lower()
     for key, cls in (("ln_warp", "layer_norm"), ("ln_block", "layer_norm"),
@@ -2451,6 +2807,18 @@ KERNEL_META = {
                    "incubator_mxnet_tpu/ops/pallas/fused_optim.py:133"),
     "int8_matmul": ("incubator_mxnet_tpu_torch/csrc/int8_matmul.cu",
                     "incubator_mxnet_tpu/ops/pallas/int8_matmul.py:32"),
+    "flash_attention_bwd_dkv_dbias": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
+    "sgd_mom_flat_bf16": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                          "incubator_mxnet_tpu/ops/pallas/fused_optim.py:102"),
+    "adam_flat_bf16": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                       "incubator_mxnet_tpu/ops/pallas/fused_optim.py:114"),
+    "adamw_flat_bf16": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                        "incubator_mxnet_tpu/ops/pallas/fused_optim.py:133"),
+    # the kernel is user source (RTC_AXPY above) compiled by the port's rtc
+    "rtc_axpy": ("incubator_mxnet_tpu_torch/rtc.py",
+                 "incubator_mxnet_tpu/rtc.py:59"),
 }
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
@@ -2528,21 +2896,26 @@ def main(argv=None):
         torch, dev, PTB_LSTM, LSTM_PROMPTS,
         os.path.join(HERE, "build", "chip_smoke", "lstm_ptb"), card=card,
         profile=args.profile is not None)
+    acounts = attention_bias_phase(torch, dev, card=card)
+    scounts = seam_bf16_phase(torch, dev, card=card)
+    rtc_counts = rtc_phase(torch, dev, card=card)
 
     # launches: each main path's run (serve, decode, each train shape, the
     # ResNet steps, the gluon steps of each optimizer, the bottleneck
-    # stack, the word LM's fp32 and int8 decode), counts reset to 0 just
+    # stack, the word LM's fp32 and int8 decode, the learned-bias
+    # attention, the bf16 seam, the rtc launches), counts reset to 0 just
     # before it and read just after; the line carries their sum
     by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
                "resnet_train": rcounts, "bottleneck": bcounts, **gcounts,
-               **lcounts}
+               **lcounts, "attention_bias": acounts, "seam_bf16": scounts,
+               "rtc": rtc_counts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(c[name] for c in by_path.values()),
-            launches_by_path={p: c[name] for p, c in by_path.items()},
+            launches=sum(c.get(name, 0) for c in by_path.values()),
+            launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=max(x["max_abs_err"] for x in krows
                             if x["name"] == name),
             dtype=r.get("dtype"),

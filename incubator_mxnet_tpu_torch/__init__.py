@@ -10,11 +10,12 @@ Ported so far: serving a BERT encoder and GPT generation (``serving``,
 eager gluon surface: ``nd`` (NDArray), ``autograd``, ``gluon`` (Block,
 Parameter, layers, losses, Trainer, the ResNet zoo), ``init``,
 ``optimizer``, ``kvstore`` and ``lr_scheduler``, with the hand-written
-kernels of ``ops.kernels``.
+kernels of ``ops.kernels``; and ``rtc``, CUDA source compiled at run time
+(NVRTC) and launched on the card.
 """
 
 from . import (autograd, context, gluon, initializer, kvstore, lr_scheduler,
-               ndarray, optimizer)
+               ndarray, optimizer, rtc)
 from .base import MXNetError
 from .context import cpu, default_device, gpu, num_gpus, tpu
 
@@ -22,5 +23,6 @@ nd = ndarray
 init = initializer
 
 __all__ = ["autograd", "context", "gluon", "init", "initializer", "kvstore",
-           "lr_scheduler", "nd", "ndarray", "optimizer", "MXNetError", "cpu",
+           "lr_scheduler", "nd", "ndarray", "optimizer", "rtc", "MXNetError",
+           "cpu",
            "gpu", "tpu", "num_gpus", "default_device"]

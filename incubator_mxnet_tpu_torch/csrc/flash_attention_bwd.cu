@@ -2,9 +2,10 @@
 // Hopper (sm_90a): one kernel for dQ and one for dK and dV.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_attention.py: _dq_kernel and
-// _dkv_kernel (reached through _bwd_call and the custom VJP _flash_bwd of
-// _flash_core). delta = rowsum(dO * O) is one PyTorch reduction in the
-// wrapper, as it is one jnp reduction in _bwd_call.
+// _dkv_kernel, the latter with and without has_dbias (reached through
+// _bwd_call and the custom VJP _flash_bwd of _flash_core). delta =
+// rowsum(dO * O) is one PyTorch reduction in the wrapper, as it is one jnp
+// reduction in _bwd_call.
 //
 // What bounds it on the H100: operations. The gradient needs five T x T x D
 // products per (batch, head): S = Q K^T, dP = dO V^T, dQ = dS K, dK = dS^T Q
@@ -27,6 +28,15 @@
 // rows, writes them to a shared 64 x 64 tile, and accumulates D / 32 output
 // columns per lane from conflict-free reads. Tensor cores (wgmma with TMA)
 // are later work.
+//
+// The cotangent of a learned per-key bias (has_dbias): dbias[key] = sum over
+// query rows of P * (dP - delta), the unscaled dS. The dK/dV kernel forms it
+// beside dS: each lane sums its two query rows of every Q tile into its own
+// partial for each of its warp's eight keys, and the warp adds its lanes'
+// partials once, at the end, with shuffles. It costs one add a score and
+// writes (B*H, T) floats, where the TPU kernel writes (B*H, 8, T) with only
+// sublane 0 live. A null dbias pointer launches the kernel without it, the
+// instruction stream of the dK/dV kernel as it was before dbias existed.
 //
 // Semantics follow the TPU kernels: s = q.k * scale + bias[key], causal
 // scores above the diagonal are -1e30, and p = exp(s - lse). A query row
@@ -204,7 +214,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kDbias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -212,7 +222,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const float* __restrict__ bias, float* __restrict__ dk,
-                     float* __restrict__ dv, int T, float scale, int causal) {
+                     float* __restrict__ dv, float* __restrict__ dbias,
+                     int T, float scale, int causal) {
   constexpr int QS = BwdTile<D>::kPadded;
   constexpr int D4 = D / 4;
   constexpr int DV = D / 32;
@@ -235,10 +246,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_tile<D>(Vs, D, v + base, k0, T);
 
   float bias_j[kRowsPerWarp], dk_acc[kRowsPerWarp][DV], dv_acc[kRowsPerWarp][DV];
+  float db_acc[kRowsPerWarp];   // this lane's query rows, each of the keys
 #pragma unroll
   for (int jj = 0; jj < kRowsPerWarp; ++jj) {
     const int kj = k0 + row0 + jj;
     bias_j[jj] = (bias != nullptr && kj < T) ? bias[bh * T + kj] : 0.f;
+    db_acc[jj] = 0.f;
 #pragma unroll
     for (int c = 0; c < DV; ++c) dk_acc[jj][c] = dv_acc[jj][c] = 0.f;
   }
@@ -294,10 +307,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool live = kj < T;
       const float pa = (live && in_a) ? expf(sa - lse_a) : 0.f;
       const float pb = (live && in_b) ? expf(sb - lse_b) : 0.f;
+      // dL/ds, unscaled: the bias cotangent's terms; dS is it times scale
+      const float dsa = pa * (dp[jj][0] - delta_a);
+      const float dsb = pb * (dp[jj][1] - delta_b);
       Ps[(row0 + jj) * kBlock + lane] = pa;
       Ps[(row0 + jj) * kBlock + lane + 32] = pb;
-      dSs[(row0 + jj) * kBlock + lane] = pa * (dp[jj][0] - delta_a) * scale;
-      dSs[(row0 + jj) * kBlock + lane + 32] = pb * (dp[jj][1] - delta_b) * scale;
+      dSs[(row0 + jj) * kBlock + lane] = dsa * scale;
+      dSs[(row0 + jj) * kBlock + lane + 32] = dsb * scale;
+      if (kDbias) db_acc[jj] += dsa + dsb;
     }
     __syncwarp();
 
@@ -322,6 +339,18 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncwarp();   // P and dS are rewritten by the next tile
+  }
+
+  if (kDbias) {
+#pragma unroll
+    for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+      float sum = db_acc[jj];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const int kj = k0 + row0 + jj;
+      if (lane == 0 && kj < T) dbias[bh * T + kj] = sum;
+    }
   }
 
 #pragma unroll
@@ -371,19 +400,36 @@ int launch_dq(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               const float* bias, float* dk, float* dv, int bh, int T,
-               float scale, int causal, int device, cudaStream_t stream) {
+template <int D, bool kDbias>
+int launch_dkv_kernel(const float* q, const float* k, const float* v,
+                      const float* dout, const float* lse, const float* delta,
+                      const float* bias, float* dk, float* dv, float* dbias,
+                      int bh, int T, float scale, int causal, int device,
+                      cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>,
+  const cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D, kDbias>,
                                    BwdTile<D>::kDkvBytes, device, done);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, BwdTile<D>::kDkvBytes, stream>>>(
-      q, k, v, dout, lse, delta, bias, dk, dv, T, scale, causal);
+  flash_bwd_dkv_kernel<D, kDbias>
+      <<<grid, kThreads, BwdTile<D>::kDkvBytes, stream>>>(
+          q, k, v, dout, lse, delta, bias, dk, dv, dbias, T, scale, causal);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const float* q, const float* k, const float* v,
+               const float* dout, const float* lse, const float* delta,
+               const float* bias, float* dk, float* dv, float* dbias, int bh,
+               int T, float scale, int causal, int device,
+               cudaStream_t stream) {
+  if (dbias != nullptr)
+    return launch_dkv_kernel<D, true>(q, k, v, dout, lse, delta, bias, dk,
+                                      dv, dbias, bh, T, scale, causal,
+                                      device, stream);
+  return launch_dkv_kernel<D, false>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                     nullptr, bh, T, scale, causal, device,
+                                     stream);
 }
 
 int check_args(int bh, int T, int device) {
@@ -395,7 +441,8 @@ int check_args(int bh, int T, int device) {
 
 // C entry points, bound with ctypes. q, k, v, dout (and dq, dk, dv): (bh, T,
 // D) contiguous fp32, 16-byte aligned; lse, delta: (bh, T) fp32; bias: (bh,
-// T) fp32 or null. D is 32, 64 or 128. Each makes `device` current for this
+// T) fp32 or null; dbias: (bh, T) fp32 output, or null for none. D is 32, 64
+// or 128. Each makes `device` current for this
 // library's runtime, launches on `stream`, allocates nothing, and returns
 // cudaGetLastError().
 extern "C" int mxtpu_flash_attention_bwd_dq_f32(
@@ -424,21 +471,21 @@ extern "C" int mxtpu_flash_attention_bwd_dq_f32(
 extern "C" int mxtpu_flash_attention_bwd_dkv_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, const float* bias, float* dk,
-    float* dv, int bh, int T, int D, float scale, int causal, int device,
-    void* stream_ptr) {
+    float* dv, float* dbias, int bh, int T, int D, float scale, int causal,
+    int device, void* stream_ptr) {
   const int rc = check_args(bh, T, device);
   if (rc != 0) return rc;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (D) {
     case 32:
-      return launch_dkv<32>(q, k, v, dout, lse, delta, bias, dk, dv, bh, T,
-                            scale, causal, device, stream);
+      return launch_dkv<32>(q, k, v, dout, lse, delta, bias, dk, dv, dbias,
+                            bh, T, scale, causal, device, stream);
     case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, bias, dk, dv, bh, T,
-                            scale, causal, device, stream);
+      return launch_dkv<64>(q, k, v, dout, lse, delta, bias, dk, dv, dbias,
+                            bh, T, scale, causal, device, stream);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, bias, dk, dv, bh, T,
-                             scale, causal, device, stream);
+      return launch_dkv<128>(q, k, v, dout, lse, delta, bias, dk, dv, dbias,
+                             bh, T, scale, causal, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

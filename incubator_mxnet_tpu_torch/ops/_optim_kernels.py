@@ -9,13 +9,19 @@ plain versions, these rules applied tensor by tensor, for CPU tensors).
 
 The JAX rules return new arrays; these update ``w`` and the states in place
 (the module's forward reads those tensors) and return them. Every
-hyper-parameter is rounded to f32 and enters as a 0-dim tensor on the
-tensors' device, so that each operation is one correctly rounded f32
-operation, as in the CUDA kernels (PyTorch on CUDA divides by a Python
-scalar through its f32 reciprocal). Adam's ``coef = lr * sqrt(1 - b2**t) /
-(1 - b1**t)`` and AdamW's ``1 - b1**t``, ``1 - b2**t`` are computed once on
-the host in f32 (``adam_coef``, ``adamw_bias``) and shared with the kernels.
-``clip <= 0`` means no clip; the clip lets a NaN gradient through.
+hyper-parameter is rounded to f32 and enters as a 0-dim tensor of the
+weight's dtype on the tensors' device, so that each operation is one
+correctly rounded operation of that dtype, as in the CUDA kernels (PyTorch
+on CUDA divides by a Python scalar through its f32 reciprocal). For bf16
+tensors this is what the JAX rules do with their weak-typed Python-float
+scalars: each scalar is rounded to bf16 before it meets a tensor, and each
+operation rounds its f32 result to bf16. A 0-dim f32 tensor would not do:
+on the CPU, torch multiplies a bf16 tensor by it without rounding the
+scalar to bf16 first. Adam's ``coef = lr * sqrt(1 - b2**t) / (1 - b1**t)``
+and AdamW's ``1 - b1**t``, ``1 - b2**t`` are computed once on the host in
+f32 (``adam_coef``, ``adamw_bias``), rounded to the tensors' dtype, and
+shared with the kernels. ``clip <= 0`` means no clip; the clip lets a NaN
+gradient through.
 
 The lazy / row-sparse rules wait for the sparse NDArray (ROADMAP Queue 1
 item 9) and raise.
@@ -34,14 +40,14 @@ _F32 = torch.float32
 
 
 @functools.lru_cache(maxsize=256)
-def _const(device, value):
-    return torch.tensor(value, dtype=_F32, device=device)
+def _const(device, dtype, value):
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
-def consts(device, **values):
-    """{name: 0-dim f32 tensor on ``device``} of the values rounded to
-    f32 (cached: the rules never write them)."""
-    return {k: _const(device, float(np.float32(v))) for k, v in
+def consts(device, dtype=_F32, **values):
+    """{name: 0-dim ``dtype`` tensor on ``device``} of the values rounded
+    to f32 and then to ``dtype`` (cached: the rules never write them)."""
+    return {k: _const(device, dtype, float(np.float32(v))) for k, v in
             values.items()}
 
 
@@ -71,7 +77,8 @@ def _prologue(g, c, clip):
 
 def _sgd_update(w, g, lr, wd, rescale, clip):
     """w -= lr * (g' + wd * w), g' the rescaled, clipped gradient."""
-    c = consts(w.device, lr=lr, wd=wd, rescale=rescale, clip=clip)
+    c = consts(w.device, w.dtype, lr=lr, wd=wd, rescale=rescale,
+               clip=clip)
     with torch.no_grad():
         g = _prologue(g, c, clip)
         w.sub_(c["lr"] * (g + c["wd"] * w))
@@ -80,8 +87,8 @@ def _sgd_update(w, g, lr, wd, rescale, clip):
 
 def _sgd_mom_update(w, g, mom, lr, wd, momentum, rescale, clip):
     """mom = momentum * mom - lr * (g' + wd * w); w += mom."""
-    c = consts(w.device, lr=lr, wd=wd, momentum=momentum, rescale=rescale,
-               clip=clip)
+    c = consts(w.device, w.dtype, lr=lr, wd=wd, momentum=momentum,
+               rescale=rescale, clip=clip)
     with torch.no_grad():
         g = _prologue(g, c, clip)
         mom.mul_(c["momentum"]).sub_(c["lr"] * (g + c["wd"] * w))
@@ -92,8 +99,8 @@ def _sgd_mom_update(w, g, mom, lr, wd, momentum, rescale, clip):
 def _nag_update(w, g, mom, lr, wd, momentum, rescale, clip):
     """g'' = g' + wd * w; mom = momentum * mom + g'';
     w -= lr * (momentum * mom + g'')."""
-    c = consts(w.device, lr=lr, wd=wd, momentum=momentum, rescale=rescale,
-               clip=clip)
+    c = consts(w.device, w.dtype, lr=lr, wd=wd, momentum=momentum,
+               rescale=rescale, clip=clip)
     with torch.no_grad():
         g = _prologue(g, c, clip)
         g = g + c["wd"] * w
@@ -107,7 +114,7 @@ def _adam_update(w, g, m, v, lr, wd, b1, b2, eps, t, rescale, clip,
     """g'' = g' + wd * w; m, v moved; w -= coef * m / (sqrt(v) + eps)."""
     if coef is None:
         coef = adam_coef(lr, b1, b2, t)
-    c = consts(w.device, coef=coef, wd=wd, b1=b1, b2=b2,
+    c = consts(w.device, w.dtype, coef=coef, wd=wd, b1=b1, b2=b2,
                one_minus_b1=1 - np.float32(b1),
                one_minus_b2=1 - np.float32(b2), eps=eps, rescale=rescale,
                clip=clip)
@@ -126,7 +133,7 @@ def _adamw_update(w, g, m, v, lr, wd, eta, b1, b2, eps, t, rescale, clip,
     + wd * w) with mhat = m / (1 - b1**t), vhat = v / (1 - b2**t)."""
     if bias is None:
         bias = adamw_bias(b1, b2, t)
-    c = consts(w.device, lr=lr, wd=wd, eta=eta, b1=b1, b2=b2,
+    c = consts(w.device, w.dtype, lr=lr, wd=wd, eta=eta, b1=b1, b2=b2,
                one_minus_b1=1 - np.float32(b1),
                one_minus_b2=1 - np.float32(b2), bias1=bias[0],
                bias2=bias[1], eps=eps, rescale=rescale, clip=clip)

@@ -5,7 +5,9 @@ and are built at first use by ``_build``."""
 
 from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_backward_reference,
-                              flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_bwd_dkv,
+                              flash_attention_bwd_dkv_dbias,
+                              flash_attention_bwd_dq,
                               flash_attention_forward,
                               flash_attention_reference)
 from .flash_decode import (paged_causal_attention, paged_flash_decode,
@@ -15,15 +17,19 @@ from .fused_norm import (layer_norm, layer_norm_reference, softmax,
                          softmax_reference)
 from .int8_matmul import (int8_matmul, int8_matmul_nk,
                           int8_matmul_nk_reference, int8_matmul_reference)
-from .fused_optim import (fused_adam_flat, fused_adam_flat_reference,
-                          fused_adamw_flat, fused_adamw_flat_reference,
-                          fused_sgd_mom_flat, fused_sgd_mom_flat_reference,
+from .fused_optim import (fused_adam_flat, fused_adam_flat_bf16,
+                          fused_adam_flat_reference, fused_adamw_flat,
+                          fused_adamw_flat_bf16, fused_adamw_flat_reference,
+                          fused_sgd_mom_flat, fused_sgd_mom_flat_bf16,
+                          fused_sgd_mom_flat_reference,
                           multi_trainer_adam, multi_trainer_adam_reference,
                           multi_trainer_sgd_mom,
                           multi_trainer_sgd_mom_reference)
 
 __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dkv_dbias", "fused_adam_flat_bf16",
+           "fused_adamw_flat_bf16", "fused_sgd_mom_flat_bf16",
            "flash_attention_bwd_dq", "flash_attention_forward",
            "flash_attention_reference", "fused_adam_flat",
            "int8_matmul", "int8_matmul_nk", "int8_matmul_nk_reference",
@@ -46,6 +52,7 @@ WRAPPERS = {
     "flash_attention_fwd": flash_attention_forward,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_bwd_dkv_dbias": flash_attention_bwd_dkv_dbias,
     "flash_decode": paged_flash_decode,
     "trainer_adam": multi_trainer_adam,
     "trainer_sgd_mom": multi_trainer_sgd_mom,
@@ -53,6 +60,9 @@ WRAPPERS = {
     "sgd_mom_flat": fused_sgd_mom_flat,
     "adam_flat": fused_adam_flat,
     "adamw_flat": fused_adamw_flat,
+    "sgd_mom_flat_bf16": fused_sgd_mom_flat_bf16,
+    "adam_flat_bf16": fused_adam_flat_bf16,
+    "adamw_flat_bf16": fused_adamw_flat_bf16,
     "int8_matmul": int8_matmul,
 }
 

@@ -47,10 +47,10 @@ _SIGNATURES = {
     # stream
     "mxtpu_flash_attention_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                          _I, _I, _F, _I, _I, _P),
-    # q, k, v, dout, lse, delta, bias, dk, dv, bh, T, D, scale, causal,
-    # device, stream
+    # q, k, v, dout, lse, delta, bias, dk, dv, dbias, bh, T, D, scale,
+    # causal, device, stream
     "mxtpu_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _F, _I, _I, _P),
+                                          _P, _I, _I, _I, _F, _I, _I, _P),
     # table, n_tensors, n_chunks, lr, wd, b1, b2, 1 - b1, 1 - b2, 1 - b1^t,
     # 1 - b2^t, eps, lr * wd, adamw, device, stream
     "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
@@ -66,6 +66,12 @@ _SIGNATURES = {
     # 1 - b1^t, 1 - b2^t, eps, rescale, clip, device, stream
     "mxtpu_flat_adamw_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                              _F, _F, _F, _I, _P),
+    # the bf16 flavours of the three eager entries, with the same arguments
+    "mxtpu_flat_sgd_mom_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _I, _P),
+    "mxtpu_flat_adam_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                             _I, _P),
+    "mxtpu_flat_adamw_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                              _F, _F, _F, _I, _P),
     # x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, C, M, bf16,
     # device, stream
     "mxtpu_fused_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

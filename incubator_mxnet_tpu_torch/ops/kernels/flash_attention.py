@@ -9,12 +9,16 @@ package's ``T % 128`` rule was the TPU's tiling and does not apply.
 ``flash_attention_forward`` works on (B*H, T, D) and returns ``(out, lse)``
 with lse as (B*H, T); ``flash_attention_backward`` takes the forward's
 inputs, ``out``, ``lse`` and the output's cotangent and returns
-``(dq, dk, dv)``, recomputing P from the lse. For CPU tensors they take the
-plain versions; for CUDA tensors they launch the kernels or raise, and each
-kernel's wrapper adds one to its ``launches`` count. ``flash_attention`` is
-the public (B, H, T, D) API of the JAX package, differentiable in q, k and v
-through ``torch.autograd``. Its padding bias is a constant, as in the JAX
-package; the cotangent of a learned ``kv_bias`` is not ported yet.
+``(dq, dk, dv)``, recomputing P from the lse, and with ``needs_dbias`` also
+the per-key bias's cotangent, (B*H, T). For CPU tensors they take the plain
+versions; for CUDA tensors they launch the kernels or raise, and each
+kernel's wrapper adds one to its ``launches`` count: the dK/dV kernel
+without dbias counts on ``flash_attention_bwd_dkv``, with it on
+``flash_attention_bwd_dkv_dbias``. ``flash_attention`` is the public
+(B, H, T, D) API of the JAX package, differentiable through
+``torch.autograd`` in q, k, v and a learned ``kv_bias`` (the TPU kernel's
+``has_dbias`` path); its padding mask is a constant, as in the JAX package,
+and costs no dbias.
 """
 
 import torch
@@ -24,7 +28,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_reference", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv"]
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_dbias"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -111,12 +115,15 @@ flash_attention_forward.launches = 0
 
 
 def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
-                                       scale=1.0, causal=False):
+                                       scale=1.0, causal=False,
+                                       needs_dbias=False):
     """Plain attention backward on (BH, T, D) as the TPU kernels compute it
     (``_recompute_p_ds``): P = exp(s - lse) from the forward's lse, with s
     the scaled, biased and causally masked scores; delta = rowsum(dO * O);
-    dS = P * (dP - delta) * scale. Returns ``(dq, dk, dv)``. A row whose
-    keys are all masked (lse 0, out 0) gives P = 0 and so no gradient."""
+    dS = P * (dP - delta) * scale. Returns ``(dq, dk, dv)``, and with
+    ``needs_dbias`` also dbias = the sum over query rows of P * (dP -
+    delta), (BH, T) float32. A row whose keys are all masked (lse 0, out 0)
+    gives P = 0 and so no gradient; so does a masked key."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if bias is not None:
@@ -127,11 +134,15 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
     p = torch.exp(s - lse.float()[..., None])
     delta = (dof * out.float()).sum(dim=-1)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
+    ds_bias = p * (dp - delta[..., None])
+    ds = ds_bias * scale
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if needs_dbias:
+        grads += (ds_bias.sum(dim=-2),)
+    return grads
 
 
 def _check_bwd_cuda(q, k, v, do, lse, delta, bias):
@@ -177,52 +188,79 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal):
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale, causal):
-    """The dK/dV kernel on CUDA tensors, with the dQ kernel's arguments.
-    Returns ``(dk, dv)``."""
+def _dkv(what, wrapper, q, k, v, do, lse, delta, bias, scale, causal,
+         dbias):
+    """One launch of the dK/dV kernel, with the dbias output when ``dbias``;
+    counted on ``wrapper``. Returns ``(dk, dv[, dbias])``."""
     _check_bwd_cuda(q, k, v, do, lse, delta, bias)
     bh, T, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    outs = (torch.empty_like(k), torch.empty_like(v))
+    if dbias:
+        outs += (torch.empty((bh, T), dtype=torch.float32, device=q.device),)
     if bh == 0 or T == 0:
-        return dk, dv
+        return outs
     rc = _build.library().mxtpu_flash_attention_bwd_dkv_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
-        None if bias is None else bias.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, T, D, float(scale), int(bool(causal)),
-        q.device.index, _stream(q))
-    _build.check(rc, "flash_attention_bwd_dkv")
-    _build.count_launch(flash_attention_bwd_dkv)
-    return dk, dv
+        None if bias is None else bias.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr() if dbias else None, bh, T, D,
+        float(scale), int(bool(causal)), q.device.index, _stream(q))
+    _build.check(rc, what)
+    _build.count_launch(wrapper)
+    return outs
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale, causal):
+    """The dK/dV kernel on CUDA tensors, with the dQ kernel's arguments.
+    Returns ``(dk, dv)``."""
+    return _dkv("flash_attention_bwd_dkv", flash_attention_bwd_dkv, q, k, v,
+                do, lse, delta, bias, scale, causal, False)
 
 
 flash_attention_bwd_dkv.launches = 0
 
 
+def flash_attention_bwd_dkv_dbias(q, k, v, do, lse, delta, bias, scale,
+                                  causal):
+    """The dK/dV kernel with the per-key bias's cotangent (the TPU kernel's
+    ``has_dbias`` variant), with the dQ kernel's arguments. Returns ``(dk,
+    dv, dbias)``, dbias (BH, T) float32."""
+    return _dkv("flash_attention_bwd_dkv_dbias",
+                flash_attention_bwd_dkv_dbias, q, k, v, do, lse, delta, bias,
+                scale, causal, True)
+
+
+flash_attention_bwd_dkv_dbias.launches = 0
+
+
 def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
-                             causal=False):
+                             causal=False, needs_dbias=False):
     """Gradients of attention on (BH, T, D) from the forward's ``out`` and
-    ``lse`` and the output's cotangent ``do``: ``(dq, dk, dv)``. The mask
-    bias gets no gradient."""
+    ``lse`` and the output's cotangent ``do``: ``(dq, dk, dv)``, and with
+    ``needs_dbias`` the per-key bias's cotangent (BH, T) after them, from
+    the dK/dV kernel's dbias variant. Without it the bias (a padding mask)
+    gets no gradient and costs none."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, do,
-                                                  bias, scale, causal)
+                                                  bias, scale, causal,
+                                                  needs_dbias)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
     # delta = rowsum(dO * O): one reduction, as in the TPU kernel's caller
     delta = (do * out).sum(dim=-1)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale,
-                                     causal)
-    return dq, dk, dv
+    dkv = flash_attention_bwd_dkv_dbias if needs_dbias \
+        else flash_attention_bwd_dkv
+    return (dq,) + tuple(dkv(q, k, v, do, lse, delta, bias, scale, causal))
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward through ``flash_attention_forward``, backward through
     ``flash_attention_backward`` from the saved (q, k, v, bias, out, lse),
-    as the JAX package's custom VJP does."""
+    as the JAX package's custom VJP does. The bias gets its cotangent only
+    when it needs one (a learned ``kv_bias`` upstream)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, causal):
@@ -234,9 +272,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, do.contiguous(), bias, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None, None
+        needs_dbias = ctx.needs_input_grad[3]
+        grads = flash_attention_backward(
+            q, k, v, out, lse, do.contiguous(), bias, ctx.scale, ctx.causal,
+            needs_dbias)
+        dbias = grads[3] if needs_dbias else None
+        return grads[0], grads[1], grads[2], dbias, None, None
 
 
 def flash_attention(q, k, v, scale=None, causal=False, kv_mask=None,
@@ -245,16 +286,14 @@ def flash_attention(q, k, v, scale=None, causal=False, kv_mask=None,
 
     kv_mask: optional (B, T), nonzero = live key, 0 = padding; padded keys
     get no attention, and a query row whose keys are all masked returns
-    exact zeros (and gives zero gradients). kv_bias: optional additive
-    per-key bias, (B, H, T) or (B, T); one that requires grad raises
-    NotImplementedError. Differentiable in q, k and v."""
+    exact zeros (and gives zero gradients). kv_bias: optional learned
+    additive per-key bias, (B, H, T) or (B, T). Differentiable in q, k, v
+    and kv_bias; a masked key's kv_bias gradient is exactly 0. The bias
+    tensor stays in the graph only when kv_bias requires grad, so a mask
+    alone launches the dK/dV kernel without dbias."""
     B, H, T, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    if isinstance(kv_bias, torch.Tensor) and kv_bias.requires_grad:
-        raise NotImplementedError(
-            "flash_attention: the gradient of a learned kv_bias (the TPU "
-            "kernel's has_dbias path) is not ported yet")
     bias = None
     if kv_mask is not None or kv_bias is not None:
         b1 = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
@@ -269,7 +308,8 @@ def flash_attention(q, k, v, scale=None, causal=False, kv_mask=None,
             b1 = b1 + neg.masked_fill(~live, _NEG_INF)[:, None, :]
         bias = b1.reshape(B * H, T).contiguous()
     q3, k3, v3 = (t.reshape(B * H, T, D).contiguous() for t in (q, k, v))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
         out = _FlashAttention.apply(q3, k3, v3, bias, float(scale),
                                     bool(causal))
     else:

@@ -35,8 +35,12 @@ tensor by tensor. SGD shares ``multi_trainer_sgd_mom``'s kernel: the trainer
 launches it with rescale 1 and the clip off, where the prologue changes no
 bit. Adam's ``coef`` and AdamW's ``1 - b**t`` are computed once on the host
 (``adam_coef``, ``adamw_bias``) and passed to both. fp32 is the only dtype
-the gluon Trainer sends (``Optimizer._fusable``); bf16 buffers, which the
-JAX seam also takes, raise NotImplementedError (ROADMAP Queue 2 item 11).
+the gluon Trainer sends (``Optimizer._fusable``); the seam also takes bf16
+lists, as the JAX seam does, and launches the bf16 flavour of the same
+kernel (``mxtpu_flat_*_bf16``, counted on ``fused_*_flat_bf16``): every
+scalar rounded to bf16 on the host and every operation rounded to bf16, so
+that it equals the per-parameter rules on bf16 tensors bitwise. A call's
+lists hold one dtype; a mix raises ValueError.
 
 For CPU tensors each wrapper takes its plain version; for CUDA tensors it
 launches its kernel once for all of them or raises, and adds one to its
@@ -56,7 +60,8 @@ __all__ = ["multi_trainer_adam", "multi_trainer_adam_reference",
            "fused_sgd_mom_flat", "fused_sgd_mom_flat_reference",
            "fused_adam_flat", "fused_adam_flat_reference",
            "fused_adamw_flat", "fused_adamw_flat_reference",
-           "adam_scalars", "sgd_mom_scalars", "fused_optim_enabled"]
+           "fused_sgd_mom_flat_bf16", "fused_adam_flat_bf16",
+           "fused_adamw_flat_bf16", "adam_scalars", "sgd_mom_scalars", "fused_optim_enabled"]
 
 CHUNK = 32768          # elements a block updates (csrc/fused_optim.cu kChunk)
 
@@ -106,12 +111,12 @@ def multi_trainer_adam_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
     return ws, ms, vs
 
 
-def _table(what, groups):
+def _table(what, groups, dtype=torch.float32):
     """The device table of one launch: a (w, g, state..., n, first chunk)
     row for each tensor of n > 0 elements, and the number of chunks; None
     when every tensor is empty. ``groups`` is ((name, tensors), ...) with
-    the weights first; every tensor must be fp32, contiguous, on the
-    weights' device and of its weight's shape."""
+    the weights first; every tensor must be of ``dtype``, contiguous, on
+    the weights' device and of its weight's shape."""
     ws = groups[0][1]
     dev = ws[0].device
     if dev.type != "cuda":
@@ -121,9 +126,9 @@ def _table(what, groups):
             if t.device != dev:
                 raise ValueError("%s: %s[%d] on %s, w[0] on %s"
                                  % (what, name, i, t.device, dev))
-            if t.dtype != torch.float32:
-                raise TypeError("%s: the CUDA kernel takes float32, %s[%d] "
-                                "is %s" % (what, name, i, t.dtype))
+            if t.dtype != dtype:
+                raise TypeError("%s: the CUDA kernel takes %s, %s[%d] is %s"
+                                % (what, str(dtype)[6:], name, i, t.dtype))
             if not t.is_contiguous():
                 raise ValueError("%s: %s[%d] is not contiguous"
                                  % (what, name, i))
@@ -244,20 +249,20 @@ multi_trainer_sgd_mom.launches = 0
 # the eager gluon Trainer's flavours (the _optim_kernels seam)
 # ---------------------------------------------------------------------------
 
+_FLAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _group(what, groups):
-    """The lists of one call as lists, of equal lengths; bf16 raises."""
+    """The lists of one call as lists, of equal lengths and one dtype."""
     groups = [(name, list(ts)) for name, ts in groups]
     lens = {len(ts) for _n, ts in groups}
     if len(lens) != 1:
         raise ValueError("%s: %s" % (what, ", ".join(
             "%d %s" % (len(ts), name) for name, ts in groups)))
-    for name, ts in groups:
-        for i, t in enumerate(ts):
-            if t.dtype == torch.bfloat16:
-                raise NotImplementedError(
-                    "%s: %s[%d] is bfloat16; the bf16 flavour of the eager "
-                    "seam is not ported yet (ROADMAP Queue 2 item 11)"
-                    % (what, name, i))
+    dtypes = {t.dtype for _n, ts in groups for t in ts}
+    if len(dtypes) > 1:
+        raise ValueError("%s: one call takes one dtype, these lists mix %s"
+                         % (what, ", ".join(sorted(map(str, dtypes)))))
     return groups
 
 
@@ -265,17 +270,32 @@ def _on_cpu(groups):
     return all(t.device.type == "cpu" for _n, ts in groups for t in ts)
 
 
-def _launch(what, wrapper, groups, entry, scalars):
-    """One launch of ``entry`` over the table of ``groups``; counts it."""
-    launch = _table(what, groups)
+def _bf16(x):
+    """``x`` rounded to f32, then to bf16 (ties to even), as a float."""
+    return float(torch.tensor(float(np.float32(x)), dtype=torch.bfloat16))
+
+
+def _launch(what, groups, entries, scalars, clip):
+    """One launch of the fp32 or bf16 flavour over the table of ``groups``,
+    counted on that flavour's wrapper. ``entries`` is ((fp32 wrapper, C
+    entry), (bf16 wrapper, C entry)); ``scalars`` are rounded to f32, or to
+    bf16 for bf16 lists, and ``clip`` after them is -1 when off."""
+    dtype = groups[0][1][0].dtype
+    if dtype not in _FLAT_DTYPES:
+        raise TypeError("%s: the CUDA kernel takes float32 or bfloat16, "
+                        "got %s" % (what, dtype))
+    launch = _table(what, groups, dtype)
     if launch is None:
         return
     table, n_tensors, n_chunks = launch
+    bf16 = dtype == torch.bfloat16
+    wrapper, entry = entries[bf16]
+    rnd = _bf16 if bf16 else (lambda x: float(np.float32(x)))
+    clip = rnd(clip) if float(np.float32(clip)) > 0 else -1.0
     dev = groups[0][1][0].device
     rc = getattr(_build.library(), entry)(
-        table.data_ptr(), n_tensors, n_chunks,
-        *(float(np.float32(x)) for x in scalars), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        table.data_ptr(), n_tensors, n_chunks, *map(rnd, scalars), clip,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
     _build.count_launch(wrapper)
 
@@ -290,8 +310,8 @@ def fused_sgd_mom_flat_reference(ws, gs, moms, lr, wd, momentum, rescale,
 
 def fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip):
     """One SGD-momentum step with the rescale / clip prologue over the
-    tensors ``ws``, gradients ``gs`` and momenta ``moms``, in place (fp32,
-    one launch on CUDA). Returns ``(ws, moms)``."""
+    tensors ``ws``, gradients ``gs`` and momenta ``moms``, in place (fp32 or
+    bf16, one launch on CUDA). Returns ``(ws, moms)``."""
     groups = _group("fused_sgd_mom_flat",
                     (("w", ws), ("g", gs), ("mom", moms)))
     ws, gs, moms = (ts for _n, ts in groups)
@@ -300,13 +320,24 @@ def fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip):
     if _on_cpu(groups):
         return fused_sgd_mom_flat_reference(ws, gs, moms, lr, wd, momentum,
                                             rescale, clip)
-    _launch("fused_sgd_mom_flat", fused_sgd_mom_flat, groups,
-            "mxtpu_trainer_sgd_mom_f32",
-            (lr, wd, momentum, rescale, clip))
+    _launch("fused_sgd_mom_flat", groups,
+            ((fused_sgd_mom_flat, "mxtpu_trainer_sgd_mom_f32"),
+             (fused_sgd_mom_flat_bf16, "mxtpu_flat_sgd_mom_bf16")),
+            (lr, wd, momentum, rescale), clip)
     return ws, moms
 
 
 fused_sgd_mom_flat.launches = 0
+
+
+def fused_sgd_mom_flat_bf16(ws, gs, moms, lr, wd, momentum, rescale, clip):
+    """``fused_sgd_mom_flat`` on bf16 lists: the bf16 kernel's entry, whose
+    launches are counted here."""
+    _require_bf16("fused_sgd_mom_flat_bf16", ws)
+    return fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip)
+
+
+fused_sgd_mom_flat_bf16.launches = 0
 
 
 def fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
@@ -321,7 +352,7 @@ def fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
 
 def fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale, clip):
     """One Adam step of step number ``t`` with the rescale / clip prologue,
-    in place (fp32, one launch on CUDA). Returns ``(ws, ms, vs)``."""
+    in place (fp32 or bf16, one launch on CUDA). Returns ``(ws, ms, vs)``."""
     groups = _group("fused_adam_flat",
                     (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
     ws, gs, ms, vs = (ts for _n, ts in groups)
@@ -331,14 +362,27 @@ def fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale, clip):
         return fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps,
                                          t, rescale, clip)
     f = np.float32
-    _launch("fused_adam_flat", fused_adam_flat, groups,
-            "mxtpu_flat_adam_f32",
+    _launch("fused_adam_flat", groups,
+            ((fused_adam_flat, "mxtpu_flat_adam_f32"),
+             (fused_adam_flat_bf16, "mxtpu_flat_adam_bf16")),
             (_rules.adam_coef(lr, b1, b2, t), wd, b1, b2, 1 - f(b1),
-             1 - f(b2), eps, rescale, clip))
+             1 - f(b2), eps, rescale), clip)
     return ws, ms, vs
 
 
 fused_adam_flat.launches = 0
+
+
+def fused_adam_flat_bf16(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale,
+                         clip):
+    """``fused_adam_flat`` on bf16 lists: the bf16 kernel's entry, whose
+    launches are counted here."""
+    _require_bf16("fused_adam_flat_bf16", ws)
+    return fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale,
+                           clip)
+
+
+fused_adam_flat_bf16.launches = 0
 
 
 def fused_adamw_flat_reference(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
@@ -354,7 +398,7 @@ def fused_adamw_flat_reference(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
 def fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t, rescale,
                      clip):
     """One AdamW step of step number ``t`` with the rescale / clip
-    prologue, in place (fp32, one launch on CUDA). Returns
+    prologue, in place (fp32 or bf16, one launch on CUDA). Returns
     ``(ws, ms, vs)``."""
     groups = _group("fused_adamw_flat",
                     (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
@@ -366,11 +410,31 @@ def fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t, rescale,
                                           b2, eps, t, rescale, clip)
     f = np.float32
     bias1, bias2 = _rules.adamw_bias(b1, b2, t)
-    _launch("fused_adamw_flat", fused_adamw_flat, groups,
-            "mxtpu_flat_adamw_f32",
+    _launch("fused_adamw_flat", groups,
+            ((fused_adamw_flat, "mxtpu_flat_adamw_f32"),
+             (fused_adamw_flat_bf16, "mxtpu_flat_adamw_bf16")),
             (lr, wd, eta, b1, b2, 1 - f(b1), 1 - f(b2), bias1, bias2, eps,
-             rescale, clip))
+             rescale), clip)
     return ws, ms, vs
 
 
 fused_adamw_flat.launches = 0
+
+
+def fused_adamw_flat_bf16(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
+                          rescale, clip):
+    """``fused_adamw_flat`` on bf16 lists: the bf16 kernel's entry, whose
+    launches are counted here."""
+    _require_bf16("fused_adamw_flat_bf16", ws)
+    return fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
+                            rescale, clip)
+
+
+fused_adamw_flat_bf16.launches = 0
+
+
+def _require_bf16(what, ws):
+    ws = list(ws)
+    if ws and ws[0].dtype != torch.bfloat16:
+        raise TypeError("%s: takes bfloat16 lists, w[0] is %s"
+                        % (what, ws[0].dtype))

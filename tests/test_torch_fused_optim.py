@@ -19,6 +19,12 @@ after it into one FMA where the port rounds each on its own, and Adam's
 ``coef`` and AdamW's ``1 - b**t`` come from torch's f32 ``pow`` on the host
 in the port and from XLA's in the JAX package, which may differ in the
 last bit.
+
+bf16: the port's per-parameter rules and ``_multi_*_update`` seam on bf16
+tensors against the JAX package's rules (jitted, Python-float scalars) and
+its seam in interpret mode, bitwise. Both round every scalar to bf16 before
+it meets a tensor and every operation's f32 result to bf16, so nothing is
+left to differ; the fp32 pins above are unchanged.
 """
 
 import numpy as np
@@ -211,17 +217,29 @@ def test_flat_plain_rules_match_the_jax_seam_interpret(flavour, clip):
 
 
 def test_flat_wrappers_count_no_cpu_launch_and_refuse_bf16():
+    """The flat wrappers, fp32 and bf16, are registered and launch nothing
+    on the CPU; a call that mixes bf16 with fp32 is refused."""
     for name in ("sgd_mom_flat", "adam_flat", "adamw_flat"):
         assert WRAPPERS[name] is getattr(tfo, "fused_" + name)
+        assert WRAPPERS[name + "_bf16"] is getattr(tfo,
+                                                   "fused_%s_bf16" % name)
     n0 = tfo.fused_adam_flat.launches
     ws, gs, ms, vs = (_torch(g) for g in _state(8))
     tfo.fused_adam_flat(ws, gs, ms, vs, rescale=1.0, clip=-1.0,
                         **FLAT["adam"][0])
     assert tfo.fused_adam_flat.launches == n0
+    n0 = tfo.fused_adam_flat_bf16.launches
+    bws, bgs, bms, bvs = ([t.bfloat16() for t in g] for g in (ws, gs, ms, vs))
+    tfo.fused_adam_flat_bf16(bws, bgs, bms, bvs, rescale=1.0, clip=-1.0,
+                             **FLAT["adam"][0])
+    assert tfo.fused_adam_flat_bf16.launches == n0
     w = [torch.zeros(3, dtype=torch.bfloat16)]
-    with pytest.raises(NotImplementedError, match="Queue 2 item 11"):
-        tfo.fused_sgd_mom_flat(w, w, w, rescale=1.0, clip=-1.0,
-                               **FLAT["sgd_mom"][0])
+    with pytest.raises(ValueError, match="mix"):
+        tfo.fused_sgd_mom_flat(w, [torch.zeros(3)], w, rescale=1.0,
+                               clip=-1.0, **FLAT["sgd_mom"][0])
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfo.fused_sgd_mom_flat_bf16(ws[:1], gs[:1], ms[:1], rescale=1.0,
+                                    clip=-1.0, **FLAT["sgd_mom"][0])
     with pytest.raises(ValueError, match="1 w, 2 g"):
         tfo.fused_sgd_mom_flat(ws[:1], gs[:2], ms[:1], rescale=1.0,
                                clip=-1.0, **FLAT["sgd_mom"][0])
@@ -233,3 +251,85 @@ def test_clip_lets_a_nan_gradient_through():
     tfo.fused_sgd_mom_flat([w], [g], [m], 0.1, 0.0, 0.9, 1.0, 1.0)
     assert torch.isnan(w[0]) and torch.isnan(m[0])
     assert torch.equal(m[1:], torch.tensor([-0.1, 0.1]))
+
+
+# ------------------------------------------------------------------ bf16
+BF16_SHAPES = [(3, 5), (7,), (2, 2, 4), (1,)]   # tests/test_fused_optim.py
+RULE_HP = dict(lr=0.1, wd=1e-4, rescale=1.0 / 32)
+RULES = {
+    "sgd": (dict(RULE_HP), 0),
+    "sgd_mom": (dict(RULE_HP, momentum=0.9), 1),
+    "nag": (dict(RULE_HP, momentum=0.9), 1),
+    "adam": (dict(RULE_HP, b1=0.9, b2=0.999, eps=1e-8, t=3), 2),
+    "adamw": (dict(RULE_HP, eta=0.5, b1=0.9, b2=0.999, eps=1e-8, t=3), 2),
+}
+
+
+def _bf16_state(seed, shapes):
+    """w, g, m (randn) and v (|randn|) cast to bf16, as numpy f32 arrays
+    that bf16 holds exactly and as JAX bf16 arrays."""
+    rs = np.random.RandomState(seed)
+    groups = [[rs.randn(*s) for s in shapes] for _ in range(3)]
+    groups.append([np.abs(rs.randn(*s)) for s in shapes])
+    jgroups = [[jnp.asarray(a.astype(np.float32), jnp.bfloat16) for a in g]
+               for g in groups]
+    return jgroups
+
+
+def _t(jarrays):
+    return [torch.from_numpy(np.asarray(a.astype(jnp.float32)).copy())
+            .bfloat16() for a in jarrays]
+
+
+def _assert_bits(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == torch.bfloat16, what
+        b32 = np.asarray(jnp.asarray(b).astype(jnp.float32))
+        np.testing.assert_array_equal(a.float().numpy(), b32,
+                                      err_msg="%s[%d]" % (what, i))
+
+
+@pytest.mark.parametrize("clip", [-1.0, 2.0], ids=["noclip", "clip"])
+@pytest.mark.parametrize("rule", sorted(RULES))
+@pytest.mark.parametrize("shapes", [BF16_SHAPES, [(200000,)]],
+                         ids=["seam_shapes", "200k"])
+def test_bf16_rules_equal_the_jax_rules_bitwise(rule, clip, shapes):
+    """Each per-parameter rule on bf16 tensors, tensor by tensor, against
+    the JAX rule called as the seam's tests call it (Python floats): the
+    weight and every state bitwise. The 200,000-element vector is the
+    input on which the port once differed (ROADMAP Queue 3 item 4)."""
+    hp, n_states = RULES[rule]
+    jw, jg, jm, jv = _bf16_state(40 + n_states, shapes)
+    jrule = getattr(jseam, "_%s_update" % rule)
+    trule = getattr(tseam, "_%s_update" % rule)
+    states = [jm, jv][:n_states]
+    for i in range(len(shapes)):
+        jargs = [jw[i], jg[i]] + [s[i] for s in states]
+        targs = _t(jargs)
+        want = jrule(*jargs, clip=clip, **hp)
+        want = want if isinstance(want, tuple) else (want,)
+        got = trule(*targs, clip=clip, **hp)
+        got = got if isinstance(got, tuple) else (got,)
+        assert got[0] is targs[0]
+        _assert_bits(got, want, "%s[%d]" % (rule, i))
+
+
+@pytest.mark.parametrize("clip", [-1.0, 2.0], ids=["noclip", "clip"])
+@pytest.mark.parametrize("flavour", sorted(FLAT))
+def test_bf16_seam_equals_the_jax_seam_interpret_bitwise(flavour, clip):
+    """The port's ``_multi_*_update`` on bf16 groups (its plain version on
+    the CPU: the bf16 rules tensor by tensor) against the JAX seam, whose
+    Pallas kernel runs in interpret mode over the packed bf16 buffer, two
+    steps, w and every state bitwise."""
+    hp, n_states = FLAT[flavour]
+    hp = dict(hp, rescale=1.0 / 32, clip=clip)
+    jw, jg, jm, jv = _bf16_state(50 + n_states, BF16_SHAPES)
+    jgroups = [jw, jg, jm] + ([jv] if n_states == 2 else [])
+    tgroups = [_t(g) for g in jgroups]
+    for step in range(2):
+        jout = getattr(jseam, "_multi_%s_update" % flavour)(
+            *jgroups, interpret=True, **hp)
+        tout = getattr(tseam, "_multi_%s_update" % flavour)(*tgroups, **hp)
+        jgroups = [jout[0], jg] + list(jout[1:])
+        for what, got, want in zip("wmv", tout, jout):
+            _assert_bits(got, want, "%s %s step %d" % (flavour, what, step))

@@ -10,10 +10,17 @@ JAX package, so it runs on the card's machine, which has no JAX:
 Tolerances (TF32 off): LayerNorm and softmax atol 1e-5, flash attention
 forward and backward atol 2e-5, flash decode atol 2e-5 on o, 1e-5 on m and
 rtol 1e-5 on l; the kernels sum in another order than the plain versions.
+The learned bias's cotangent (the dK/dV kernel's dbias) is held at 2e-5 /
+scale: it is dS before the scale, summed over the same rows as dK, so it
+carries dK's tolerance in its own units; through autograd on the card
+against the CPU, every gradient within 1e-4 of its tensor's max.
 The fused Adam / AdamW and SGD-momentum kernels, of the trainer and of the
 eager gluon seam (rescale / clip prologue), equal their plain versions
 bitwise: both round every operation on its own, in the same order, from the
-same f32 scalars; a NaN gradient comes out as NaN at the same places.
+same f32 scalars; a NaN gradient comes out as NaN at the same places. So do
+the seam's bf16 flavours, which round every operation and every scalar to
+bf16. Kernels compiled at run time by mx.rtc equal plain torch exactly on
+the axpy they compute.
 The fused bottleneck is held within atol 1e-4 in fp32 and within
 2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step where
 the two round a value from fp32 sums taken in other orders).
@@ -33,11 +40,12 @@ from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
 from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_backward,
     flash_attention_backward_reference, flash_attention_bwd_dkv,
-    flash_attention_bwd_dq, flash_attention_forward,
-    flash_attention_reference)
+    flash_attention_bwd_dkv_dbias, flash_attention_bwd_dq,
+    flash_attention_forward, flash_attention_reference)
 from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
-    fused_adam_flat, fused_adam_flat_reference, fused_adamw_flat,
-    fused_adamw_flat_reference, fused_sgd_mom_flat,
+    fused_adam_flat, fused_adam_flat_bf16, fused_adam_flat_reference,
+    fused_adamw_flat, fused_adamw_flat_bf16, fused_adamw_flat_reference,
+    fused_sgd_mom_flat, fused_sgd_mom_flat_bf16,
     fused_sgd_mom_flat_reference, multi_trainer_adam,
     multi_trainer_adam_reference, multi_trainer_sgd_mom,
     multi_trainer_sgd_mom_reference)
@@ -676,9 +684,8 @@ def test_flat_sgd_prologue_is_a_no_op_at_rescale_1(cuda):
 def test_flat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     w = [torch.zeros(8, device=cuda)]
     hp = dict(lr=0.1, wd=0.0, momentum=0.9, rescale=1.0, clip=-1.0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fused_sgd_mom_flat([w[0].bfloat16()], [w[0].bfloat16()],
-                           [w[0].bfloat16()], **hp)
+    with pytest.raises(ValueError, match="mix"):
+        fused_sgd_mom_flat([w[0].bfloat16()], w, [w[0].bfloat16()], **hp)
     with pytest.raises(TypeError, match="float32"):
         fused_sgd_mom_flat([w[0].double()], [w[0].double()],
                            [w[0].double()], **hp)
@@ -966,3 +973,220 @@ def test_lstm_lm_family_on_the_card_matches_the_cpu(cuda, tmp_path,
         for s in np.flatnonzero(a):
             tok = int(np.argmax(card_out[s]))
             assert cpu_out[s].max() - cpu_out[s][tok] <= tol
+
+
+# ------------------------------------------- the learned kv_bias's cotangent
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 64, 100, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dkv_dbias_kernel_matches_plain(cuda, T, D, causal):
+    """The dK/dV kernel's dbias variant against the plain backward: dk and
+    dv within 2e-5 and bitwise equal to the variant without dbias, dbias
+    within 2e-5 / scale; a row of keys all masked and a half-masked row
+    give dbias exactly 0 at their masked keys; one launch of the variant,
+    none of the plain dK/dV kernel."""
+    BH = 6
+    gen = torch.Generator(device=cuda).manual_seed(T * D + causal + 7)
+    q, k, v, do = (torch.randn(BH, T, D, generator=gen, device=cuda)
+                   for _ in range(4))
+    bias = torch.randn(BH, T, generator=gen, device=cuda)
+    bias[0] = -1e30
+    bias[1, T // 2:] = -1e30
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    delta = (do * out).sum(dim=-1)
+    n0 = (flash_attention_bwd_dkv.launches,
+          flash_attention_bwd_dkv_dbias.launches)
+    dk, dv, db = flash_attention_bwd_dkv_dbias(q, k, v, do, lse, delta, bias,
+                                               scale, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dkv_dbias.launches) == (n0[0], n0[1] + 1)
+    dk0, dv0 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale,
+                                       causal)
+    assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                              scale, causal,
+                                              needs_dbias=True)
+    assert db.shape == (BH, T) and torch.isfinite(db).all()
+    assert (dk - want[1]).abs().max().item() <= 2e-5
+    assert (dv - want[2]).abs().max().item() <= 2e-5
+    assert (db - want[3]).abs().max().item() <= 2e-5 / scale
+    assert (db[0] == 0).all() and (db[1, T // 2:] == 0).all()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("form", ["bht", "bt_causal"])
+def test_flash_autograd_with_learned_kv_bias_matches_the_cpu(cuda, form):
+    """flash_attention with a learned kv_bias ((B, H, T), or (B, T) with
+    causal=True) and a padding mask, under autograd, on the card and on the
+    CPU from the same inputs: q, k, v and kv_bias gradients within 1e-4 of
+    each tensor's max, a padded key's bias gradient exactly 0, and one
+    dbias launch per backward."""
+    B, H, T, D = 2, 3, 200, 64
+    causal = form == "bt_causal"
+    gen = torch.Generator().manual_seed(12 + causal)
+    q, k, v = (torch.randn(B, H, T, D, generator=gen) for _ in range(3))
+    kb = torch.randn(*((B, T) if causal else (B, H, T)), generator=gen)
+    mask = (torch.arange(T)[None] < torch.tensor([[T], [150]])).float()
+    g = torch.randn(B, H, T, D, generator=gen)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v, kb)]
+        n0 = flash_attention_bwd_dkv_dbias.launches
+        out = flash_attention(*leaves[:3], causal=causal,
+                              kv_mask=mask.to(dev), kv_bias=leaves[3])
+        out.backward(g.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert flash_attention_bwd_dkv_dbias.launches == n0 + 1
+        grads[dev.type] = [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+    assert (grads["cuda"][3][1][..., 150:] == 0).all()
+
+
+# ------------------------------------------------- the seam's bf16 flavours
+_FLAT_BF16 = {"sgd_mom": fused_sgd_mom_flat_bf16,
+              "adam": fused_adam_flat_bf16, "adamw": fused_adamw_flat_bf16}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("flavour", sorted(_FLAT))
+@pytest.mark.parametrize("clip", [-1.0, 2e-3], ids=["noclip", "clip"])
+def test_flat_bf16_kernels_equal_plain_bitwise(cuda, flavour, clip):
+    """The bf16 flavour of each flat kernel over one table: sizes 0, 1, 3,
+    7, 8, 9, 32767, 32768, 32769 and 2**20 (tails of every length short of
+    a 16-byte access), a view one element (2 bytes) off 16-byte alignment
+    (scalar loads) and one 8 elements (16 bytes) in (vector loads), a NaN
+    in one gradient, rescale 1/128, the clip off and on: w and its states
+    bitwise against the bf16 rules tensor by tensor after two steps; the
+    launches are counted on the bf16 wrapper, none on the fp32 one."""
+    kernel, plain, n_states, hp = _FLAT[flavour]
+    sizes = [0, 1, 3, 7, 8, 9, 32767, 32768, 32769, 1 << 20, 4096, 4096]
+    groups32 = _adam_state(sizes, cuda, seed=41 + len(flavour))
+    groups32[1] = [x * 1e3 for x in groups32[1]]
+    ws, gs, ms, vs = ([x.bfloat16() for x in g] for g in groups32)
+    for g in (ws, gs, ms, vs):      # the last two become offset views
+        for j, off in ((-2, 1), (-1, 8)):
+            base = torch.empty(g[j].numel() + off, dtype=torch.bfloat16,
+                               device=cuda)
+            base[off:].copy_(g[j])
+            g[j] = base[off:]
+    assert ws[-2].data_ptr() % 16 == 2 and ws[-1].data_ptr() % 16 == 0
+    gs[2][1] = float("nan")
+    groups = [ws, gs, ms] + ([vs] if n_states == 2 else [])
+    ref = [[x.clone() for x in g] for g in groups]
+    bf16 = _FLAT_BF16[flavour]
+    n0 = (kernel.launches, bf16.launches)
+    for step in range(2):
+        (kernel if step == 0 else bf16)(*groups, rescale=1.0 / 128,
+                                        clip=clip, **hp)
+        plain(*ref, rescale=1.0 / 128, clip=clip, **hp)
+    torch.cuda.synchronize()
+    assert (kernel.launches, bf16.launches) == (n0[0], n0[1] + 2)
+    for i in [0] + list(range(2, len(groups))):
+        for a, b in zip(groups[i], ref[i]):
+            assert a.dtype == torch.bfloat16
+            assert _same_bits(a.float(), b.float()), (flavour, i, a.numel())
+    assert ws[2].isnan().any() and not ws[3].isnan().any()
+
+
+# ---------------------------------------------------------------- mx.rtc
+_AXPY = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+
+extern "C" __global__ void saxpy(const float *x, float *y, float alpha) {
+    extern __shared__ float smem[];
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    smem[threadIdx.x] = x[i];
+    y[i] += alpha * smem[threadIdx.x];
+}
+"""
+
+_SCALE = r"""
+template <typename T>
+__global__ void scale(const T *x, T *y, T a, int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) y[i] = a * x[i];
+}
+
+extern "C" __global__ void big_smem(const float *x, float *y, int n) {
+    extern __shared__ float buf[];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) y[i] = buf[n - 1 - i];
+}
+"""
+
+
+@pytest.mark.needs_cuda
+def test_rtc_reference_axpy_compiles_and_launches(cuda):
+    """The reference's own test_cuda_rtc: axpy, then saxpy through dynamic
+    shared memory, on nd arrays on mx.gpu(0)."""
+    import incubator_mxnet_tpu_torch as mx
+    module = mx.rtc.CudaModule(_AXPY)
+    axpy = module.get_kernel("axpy", "const float *x, float *y, float alpha")
+    x = mx.nd.ones((10,), ctx=mx.gpu(0))
+    y = mx.nd.zeros((10,), ctx=mx.gpu(0))
+    axpy.launch([x, y, 3.0], mx.gpu(0), (1, 1, 1), (10, 1, 1))
+    assert (y.asnumpy() == 3).all() and axpy.launches == 1
+    saxpy = module.get_kernel("saxpy", "const float *x, float *y, float alpha")
+    saxpy.launch([x, y, 4.0], mx.gpu(0), (1, 1, 1), (10, 1, 1), 10 * 4)
+    assert (y.asnumpy() == 7).all()
+    saxpy.launch([x, y, 5.0], mx.gpu(0), (2, 1, 1), (5, 1, 1), 5 * 4)
+    assert (y.asnumpy() == 12).all() and saxpy.launches == 2
+
+
+@pytest.mark.needs_cuda
+def test_rtc_exports_templates_cache_and_large_shared_memory(cuda):
+    """A template instantiation reached through exports, at two types; a
+    second module of the same source loads the cached cubin; a kernel with
+    64 KB of dynamic shared memory; plain torch tensors as arguments."""
+    from incubator_mxnet_tpu_torch import rtc
+    exports = ["scale<float>", "scale<double>"]
+    first = rtc.CudaModule(_SCALE, exports=exports)
+    second = rtc.CudaModule(_SCALE, exports=exports)
+    assert second.from_cache and second.cubin == first.cubin
+    assert first.cache_path.parent == rtc.CACHE_DIR
+    n = 1000
+    for name, ctype, dtype in (("scale<float>", "float", torch.float32),
+                               ("scale<double>", "double", torch.float64)):
+        k = second.get_kernel(name, "const %s *x, %s *y, %s a, int n"
+                              % (ctype, ctype, ctype))
+        assert k.symbol != name          # the lowered (mangled) name
+        x = torch.randn(n, device=cuda, dtype=dtype)
+        y = torch.empty_like(x)
+        k.launch([x, y, 2.5, n], cuda, ((n + 127) // 128, 1, 1),
+                 (128, 1, 1))
+        torch.cuda.synchronize()
+        assert torch.equal(y, 2.5 * x)
+    big = first.get_kernel("big_smem", "const float *x, float *y, int n")
+    m = 16384                                     # 64 KB of floats
+    x = torch.randn(m, device=cuda)
+    y = torch.empty_like(x)
+    big.launch([x, y, m], cuda, (1, 1, 1), (256, 1, 1), 4 * m)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x.flip(0))
+
+
+@pytest.mark.needs_cuda
+def test_rtc_refuses_cpu_arrays_wrong_types_and_bad_source(cuda):
+    from incubator_mxnet_tpu_torch import rtc
+    k = rtc.CudaModule(_AXPY).get_kernel(
+        "axpy", "const float *x, float *y, float alpha")
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k.launch([x.cpu(), x, 1.0], cuda, (1, 1, 1), (4, 1, 1))
+    with pytest.raises(TypeError, match="float64"):
+        k.launch([x.double(), x, 1.0], cuda, (1, 1, 1), (4, 1, 1))
+    with pytest.raises(ValueError, match="GPU context"):
+        k.launch([x, x, 1.0], torch.device("cpu"), (1, 1, 1), (4, 1, 1))
+    assert k.launches == 0
+    with pytest.raises(rtc.RtcError, match="error"):
+        rtc.CudaModule('extern "C" __global__ void k( { }')

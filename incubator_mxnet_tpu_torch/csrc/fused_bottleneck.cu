@@ -10,15 +10,16 @@
 // What bounds it on the H100: at the stage-1 shape (B = 128, 56 x 56,
 // C = 256, M = 64, bf16) the unit reads x once and writes the output once,
 // 411 MB, 0.123 ms at 3.35 TB/s; its 55.9 GFLOP take 0.057 ms at the bf16
-// tensor-core peak, so bytes bound it. This kernel does its products on the
-// CUDA cores in fp32 (FMA), where the same operations take 0.83 ms at
-// 67 TFLOP/s: the operations bind it, several times over its byte bound.
-// Tensor-core products (mma.sync or wgmma on bf16) are later work.
+// tensor-core peak, so bytes bound it. In fp32 the same operations take
+// 0.83 ms on the CUDA cores at 67 TFLOP/s: the operations bound it.
 //
-// What the design does about it: the TPU kernel holds one whole image
-// (~17 MB) in VMEM; an SM has 227 KB of shared memory. Here one block owns
-// an 8 x 8 tile of output pixels and keeps the unit's intermediates on the
-// SM, never in device memory:
+// Two kernels, one per dtype, picked by the C entry's route (the Python
+// wrapper's _route):
+//
+// fp32 (fused_bottleneck_kernel<float>): the TPU kernel holds one whole
+// image (~17 MB) in VMEM; an SM has 227 KB of shared memory. Here one
+// block owns an 8 x 8 tile of output pixels and keeps the unit's
+// intermediates on the SM, never in device memory:
 //   1. h1 = relu(x . w1 * s1 + b1) on the tile plus a one-pixel halo
 //      (10 x 10 pixels; halo pixels are recomputed by the neighbouring
 //      tiles), streaming x and w1 through shared memory 32 input channels
@@ -30,19 +31,47 @@
 //   3. out = relu(h2 . w3 * s3 + b3 + x) in passes of 256 output channels,
 //      w3 streamed 16 rows at a time, x re-read for the residual (it was
 //      read moments before, so it comes from L2), written once.
-// Each product is a register tile: 256 threads as 16 x 16, a thread owning
-// pixels tp + 16 i and channels tn + 16 j, so that a warp reads two
-// pixels' values (broadcast) and 16 consecutive channels from shared
-// memory, conflict-free (channel-major rows padded to an odd stride).
+// Each product is a register tile of fp32 FMAs on the CUDA cores: 256
+// threads as 16 x 16, a thread owning pixels tp + 16 i and channels
+// tn + 16 j, so that a warp reads two pixels' values (broadcast) and 16
+// consecutive channels from shared memory, conflict-free (channel-major
+// rows padded to an odd stride). TF32 would change its numbers, so it
+// stays on the CUDA cores.
 //
-// Arithmetic: fp32 FMA accumulation; each BN is a multiply and an add
-// rounded on their own (__fmul_rn, __fadd_rn), as the plain version does
-// them; h1 and h2 are rounded to x's dtype exactly where the TPU kernel
-// calls .astype(x.dtype). The sums run in another order than cuDNN's, so
-// the kernel is held to its plain version within a tolerance, not bitwise.
+// bf16 (tc::fused_bottleneck_tc_kernel): the same three phases as bf16 x
+// bf16 -> fp32 products on the tensor cores (mma.sync.m16n8k16, operands
+// from shared memory through ldmatrix, .trans for the (K, N) row-major
+// weights). One block of 8 warps owns an 8 x 14 output tile (112 pixels,
+// 7 rows of 16 of the mma); its halo is 10 x 16 = 160 pixels, so phase 1
+// recomputes 1.43 x the tile's pixels (1.56 x at 8 x 8) and a block re-reads
+// the 139 KB of weights for 112 pixels instead of 64. h1 and h2 live in
+// shared memory in bf16, pixel-major, each pixel's 64 (zero-padded)
+// channels in a 144-byte row, so that ldmatrix reads them conflict-free and
+// the 3x3 conv is 9 products whose A rows are h1's rows shifted by the tap:
+// no copy per tap. x's halo and every weight chunk arrive by 16-byte
+// cp.async, double-buffered (64 channels of x and w1 a step, a tap of w2,
+// 64 output channels of w3), zero-filled outside the image and past C and
+// M. Phase 3 stages bn3's fp32 result in shared memory so that the
+// residual is read and the output written 16 bytes a thread. 101 KB of
+// shared memory a block: two blocks an SM, 16 warps. With so few warps
+// the latency of each step between two barriers weighs more than its
+// bytes or its tensor-core operations, so the epilogues read nothing from
+// device memory: the BN scales and shifts come from shared memory (s3, b3
+// copied with each chunk of w3), and a pass's residual is loaded into
+// registers before its products, whose time hides its latency. A C or M that is not a multiple of 8, or a base that is not
+// 16-byte aligned, takes the same kernel with element-wise loads and
+// stores.
+//
+// Arithmetic: fp32 accumulation; each BN is a multiply and an add rounded
+// on their own (__fmul_rn, __fadd_rn), as the plain version does them; h1
+// and h2 are rounded to x's dtype exactly where the TPU kernel calls
+// .astype(x.dtype), and the padding of h1 is 0, not relu(b1). The sums run
+// in another order than cuDNN's, so the kernels are held to their plain
+// version within a tolerance, not bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -70,18 +99,11 @@ constexpr size_t kSmemBytes =
     (size_t)(kH1Floats + kH2Floats + kScratchFloats) * sizeof(float);
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // v rounded to T and back: .astype(x.dtype) of the TPU kernel
 template <typename T>
@@ -285,30 +307,542 @@ int launch(const void* x, const void* w1, const float* s1, const float* b1,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16: on tensor cores
+// The bf16 unit as three bf16 x bf16 -> fp32 products on mma.sync
+// m16n8k16, fed by ldmatrix. Output tile 8 x 14 pixels: at 56 x 56 it
+// covers the image without waste in 4 x 7 tiles, and its halo is 10 x 16 =
+// 160 pixels, 10 rows of 16 of the mma (phase 1 computes 1.43 x the tile's
+// pixels, against 1.56 x for 8 x 8). M is zero-padded to 64.
+namespace tc {
+
+constexpr int kThreads = 256;                 // 8 warps
+constexpr int kTH = 8, kTW = 14;              // output tile
+constexpr int kHW = kTW + 2;                  // halo width (16)
+constexpr int kHaloPx = (kTH + 2) * kHW;      // 160 = 10 m16 tiles
+constexpr int kTilePx = kTH * kTW;            // 112 = 7 m16 tiles
+constexpr int kMp = 64;                       // M padded
+constexpr int kKC = 64;                       // channels a chunk: x, w1, w3
+constexpr int kRow = 72;                      // bf16 a smem row: 144 bytes,
+                                              // conflict-free for ldmatrix
+constexpr int kStageRow = 72;                 // fp32 a row of the out stage
+
+// shared memory, in bytes: h1 (halo px x kRow), h2 (tile px x kRow), then
+// one region that holds, phase by phase, two (x chunk, w1 chunk) buffers;
+// two taps of w2; two chunks of w3 and the fp32 output stage
+constexpr int kH1 = kHaloPx * kRow * 2;                  // 23040
+constexpr int kH2 = kTilePx * kRow * 2;                  // 16128
+constexpr int kWBuf = kMp * kRow * 2;                    // 9216: 64 rows
+constexpr int kXBuf = kHaloPx * kRow * 2;                // 23040
+constexpr int kP1Buf = kXBuf + kWBuf;                    // 32256
+constexpr int kStage = kTilePx * kStageRow * 4;          // 32256
+constexpr int kRegion = 2 * kP1Buf > 2 * kWBuf + kStage ? 2 * kP1Buf
+                                                        : 2 * kWBuf + kStage;
+constexpr int kSmemBytes = kH1 + kH2 + kRegion;          // 103680
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared; ok false writes 4 zero bytes instead
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of four n8 tiles (columns n0 .. n0 + 31) at k-step k0 of a
+// (k, n) row-major bf16 tile with rows of kRow: two ldmatrix.x4.trans.
+__device__ __forceinline__ void load_b(unsigned tile, int k0, int n0,
+                                       int lane, unsigned (*b)[2]) {
+  const int k = k0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp) {
+    unsigned r[4];
+    ldsm_x4_trans(tile + 2 * (k * kRow + n0 + 16 * jp + 8 * (lane >> 4)), r);
+    b[2 * jp][0] = r[0];
+    b[2 * jp][1] = r[1];
+    b[2 * jp + 1][0] = r[2];
+    b[2 * jp + 1][1] = r[3];
+  }
+}
+
+// rows [0, rows) x 64 columns of a bf16 tile with rows of kRow from a
+// row-major source with `ld` elements a row: element (r, n) is
+// src[(r0 + r) * ld + n0 + n] where r0 + r < r_end and n0 + n < n_end,
+// else 0. VEC: 16-byte cp.async (ld, n0 and n_end multiples of 8, src
+// 16-byte aligned); else element by element.
+template <bool VEC>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long ld, int r0, int r_end,
+                                          int n0, int n_end, int rows) {
+  if constexpr (VEC) {
+    for (int e = threadIdx.x; e < rows * 8; e += kThreads) {
+      const int r = e >> 3, n = 8 * (e & 7);
+      const bool ok = r0 + r < r_end && n0 + n < n_end;
+      cp_async16(dst + r * kRow + n,
+                 ok ? src + (long long)(r0 + r) * ld + n0 + n : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * 64; e += kThreads) {
+      const int r = e >> 6, n = e & 63;
+      const bool ok = r0 + r < r_end && n0 + n < n_end;
+      dst[r * kRow + n] =
+          ok ? src[(long long)(r0 + r) * ld + n0 + n] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// channels c0 .. c0 + 63 of x on the tile's 160 halo pixels (hy, hx) ->
+// image (y0 - 1 + hy, x0 - 1 + hx); 0 outside the image and past C
+template <bool VEC>
+__device__ __forceinline__ void load_x_halo(bf16* dst, const bf16* x,
+                                            long long img, int y0, int x0,
+                                            int H, int W, int C, int c0) {
+  if constexpr (VEC) {
+    for (int e = threadIdx.x; e < kHaloPx * 8; e += kThreads) {
+      const int px = e >> 3, c = 8 * (e & 7);
+      const int gy = y0 - 1 + px / kHW, gx = x0 - 1 + px % kHW;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
+      cp_async16(dst + px * kRow + c,
+                 ok ? x + (img + (long long)gy * W + gx) * C + c0 + c : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kHaloPx * 64; e += kThreads) {
+      const int px = e >> 6, c = e & 63;
+      const int gy = y0 - 1 + px / kHW, gx = x0 - 1 + px % kHW;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
+      dst[px * kRow + c] = ok ? x[(img + (long long)gy * W + gx) * C + c0 + c]
+                              : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// VEC: x, out, w1, w2, w3 16-byte aligned, C % 8 == 0 and M % 8 == 0
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ w1,
+                           const float* __restrict__ s1,
+                           const float* __restrict__ b1,
+                           const bf16* __restrict__ w2,
+                           const float* __restrict__ s2,
+                           const float* __restrict__ b2,
+                           const bf16* __restrict__ w3,
+                           const float* __restrict__ s3,
+                           const float* __restrict__ b3,
+                           bf16* __restrict__ out, int H, int W, int C,
+                           int M, int tiles_x) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  // the BN scales and shifts, read by the epilogues from shared memory:
+  // s1, b1, s2, b2 (0 past M), and s3, b3 of a pass's 64 channels (a ring
+  // of two, copied with the pass's chunk of w3)
+  __shared__ float bn12[4][kMp];
+  __shared__ float bn3[2][2][kKC];
+  bf16* h1s = reinterpret_cast<bf16*>(smem_tc);                 // [160][kRow]
+  bf16* h2s = reinterpret_cast<bf16*>(smem_tc + kH1);           // [112][kRow]
+  unsigned char* region = smem_tc + kH1 + kH2;
+  // phase 1: buffer b holds the x chunk then the w1 chunk
+  auto xbuf = [&](int b) {
+    return reinterpret_cast<bf16*>(region + b * kP1Buf);
+  };
+  auto w1buf = [&](int b) {
+    return reinterpret_cast<bf16*>(region + b * kP1Buf + kXBuf);
+  };
+  // phases 2 and 3: two weight buffers (a tap of w2, a chunk of w3)
+  auto wbuf = [&](int b) {
+    return reinterpret_cast<bf16*>(region + b * kWBuf);
+  };
+  float* stage = reinterpret_cast<float*>(region + 2 * kWBuf);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = 32 * (warp & 1);          // the warp's 32 columns
+  const int mr = warp >> 1;                // its m16 tiles: mr + 4 i
+  const int y0 = (blockIdx.x / tiles_x) * kTH;
+  const int x0 = (blockIdx.x % tiles_x) * kTW;
+  const long long img = (long long)blockIdx.y * H * W;
+  // ldmatrix A lanes: row lane % 16 of an m16 tile, k half lane / 16
+  const int a_row = lane & 15, a_k = 8 * (lane >> 4);
+
+  for (int i = threadIdx.x; i < kMp; i += kThreads) {
+    const bool ok = i < M;
+    bn12[0][i] = ok ? s1[i] : 0.f;
+    bn12[1][i] = ok ? b1[i] : 0.f;
+    bn12[2][i] = ok ? s2[i] : 0.f;
+    bn12[3][i] = ok ? b2[i] : 0.f;
+  }
+  // s3, b3 of channels c0 .. c0 + 63 into ring slot `slot` (0 past C)
+  auto load_bn3 = [&](int slot, int c0) {
+    for (int i = threadIdx.x; i < 2 * kKC; i += kThreads) {
+      const int c = c0 + i % kKC;
+      const float* src = i < kKC ? s3 : b3;
+      cp_async4(&bn3[slot][i / kKC][i % kKC], c < C ? src + c : src, c < C);
+    }
+  };
+  // output item e of a pass: 8 channels c0 + 8 (e % 8) .. of tile pixel
+  // e / 8, at element `at` of x and out; false outside the image, past C
+  // or past the tile
+  auto out_item = [&](int e, int c0, long long& at) {
+    const int p = e >> 3, n = 8 * (e & 7);
+    const int gy = y0 + p / kTW, gx = x0 + p % kTW;
+    at = (img + (long long)gy * W + gx) * C + c0 + n;
+    return e < kTilePx * 8 && gy < H && gx < W && c0 + n < C;
+  };
+
+  // ---- 1. h1 on the halo: (160, C) . (C, 64)
+  const int nch = (C + kKC - 1) / kKC;
+  load_x_halo<VEC>(xbuf(0), x, img, y0, x0, H, W, C, 0);
+  load_tile<VEC>(w1buf(0), w1, M, 0, C, 0, M, kKC);
+  cp_async_commit();
+  {
+    float acc[3][4][4];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait_all();
+      __syncthreads();   // chunk ch is in; chunk ch - 1's buffer is free
+      if (ch + 1 < nch) {
+        const int b = (ch + 1) & 1;
+        load_x_halo<VEC>(xbuf(b), x, img, y0, x0, H, W, C, (ch + 1) * kKC);
+        load_tile<VEC>(w1buf(b), w1, M, (ch + 1) * kKC, C, 0, M, kKC);
+      }
+      cp_async_commit();
+      const unsigned xs = smem_u32(xbuf(ch & 1));
+      const unsigned ws = smem_u32(w1buf(ch & 1));
+#pragma unroll
+      for (int ks = 0; ks < kKC; ks += 16) {
+        unsigned b[4][2];
+        load_b(ws, ks, n0, lane, b);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const int mt = mr + 4 * i;
+          if (mt >= kHaloPx / 16) continue;
+          unsigned a[4];
+          ldsm_x4(xs + 2 * ((mt * 16 + a_row) * kRow + ks + a_k), a);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+        }
+      }
+    }
+    __syncthreads();     // every warp is done with the phase-1 buffers
+    load_tile<VEC>(wbuf(0), w2, M, 0, M, 0, M, kMp);      // tap 0 of w2
+    cp_async_commit();
+    // h1 = relu(bn1), rounded to bf16; 0 at halo pixels outside the image
+    // (the 3x3 conv's padding) and in the padded channels
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int mt = mr + 4 * i;
+      if (mt >= kHaloPx / 16) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + 8 * h;
+        const int gy = y0 - 1 + p / kHW, gx = x0 - 1 + p % kHW;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = inside && n + e < M
+                       ? bn_relu(acc[i][j][2 * h + e], bn12[0][n + e],
+                                 bn12[1][n + e])
+                       : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(h1s + p * kRow + n) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+    }
+  }
+
+  // ---- 2. h2 on the tile: 9 shifted (112, 64) . (64, 64) products
+  {
+    float acc[2][4][4];
+    int base[2];          // the lane's A row at tap (0, 0), as a halo index
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = (mr + 4 * i) * 16 + a_row;
+      base[i] = (p / kTW) * kHW + p % kTW;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+    }
+    const unsigned h1a = smem_u32(h1s);
+    for (int tap = 0; tap < 9; ++tap) {
+      cp_async_wait_all();
+      __syncthreads();   // tap in (and h1 written); the other buffer free
+      if (tap + 1 < 9)
+        load_tile<VEC>(wbuf((tap + 1) & 1), w2 + (long long)(tap + 1) * M * M,
+                       M, 0, M, 0, M, kMp);
+      cp_async_commit();
+      const unsigned ws = smem_u32(wbuf(tap & 1));
+      const int off = (tap / 3) * kHW + tap % 3;
+#pragma unroll
+      for (int ks = 0; ks < kMp; ks += 16) {
+        unsigned b[4][2];
+        load_b(ws, ks, n0, lane, b);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (mr + 4 * i >= kTilePx / 16) continue;
+          unsigned a[4];
+          ldsm_x4(h1a + 2 * ((base[i] + off) * kRow + ks + a_k), a);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+        }
+      }
+    }
+    __syncthreads();     // every warp is done with w2's buffers
+    load_tile<VEC>(wbuf(0), w3, C, 0, M, 0, C, kMp);       // chunk 0 of w3
+    load_bn3(0, 0);
+    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = mr + 4 * i;
+      if (mt >= kTilePx / 16) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = n + e < M
+                       ? bn_relu(acc[i][j][2 * h + e], bn12[2][n + e],
+                                 bn12[3][n + e])
+                       : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(h2s + p * kRow + n) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+    }
+  }
+
+  // ---- 3. out = relu(h2 . w3 * s3 + b3 + x): (112, 64) . (64, C) in
+  // chunks of 64 output channels, staged in fp32 through shared memory so
+  // that x is read and the output written 16 bytes a thread
+  const unsigned h2a = smem_u32(h2s);
+  for (int c0 = 0, pass = 0; c0 < C; c0 += kKC, ++pass) {
+    cp_async_wait_all();
+    __syncthreads();     // chunk in (and h2 written); the stage is free
+    if (c0 + kKC < C) {
+      load_tile<VEC>(wbuf((pass + 1) & 1), w3, C, 0, M, c0 + kKC, C, kMp);
+      load_bn3((pass + 1) & 1, c0 + kKC);
+    }
+    cp_async_commit();
+    // this pass's residual, read now so that its latency hides behind the
+    // products and the stage
+    constexpr int kItems = (kTilePx * 8 + kThreads - 1) / kThreads;
+    [[maybe_unused]] uint4 xres[kItems];
+    if constexpr (VEC) {
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        long long at;
+        xres[it] = out_item(threadIdx.x + it * kThreads, c0, at)
+                       ? __ldg(reinterpret_cast<const uint4*>(x + at))
+                       : make_uint4(0, 0, 0, 0);
+      }
+    }
+    const unsigned ws = smem_u32(wbuf(pass & 1));
+    const float* s3c = bn3[pass & 1][0];
+    const float* b3c = bn3[pass & 1][1];
+    float acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kMp; ks += 16) {
+      unsigned b[4][2];
+      load_b(ws, ks, n0, lane, b);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int mt = mr + 4 * i;
+        if (mt >= kTilePx / 16) continue;
+        unsigned a[4];
+        ldsm_x4(h2a + 2 * ((mt * 16 + a_row) * kRow + ks + a_k), a);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+      }
+    }
+    // h3 = bn3(acc) in fp32 -> the stage
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = mr + 4 * i;
+      if (mt >= kTilePx / 16) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = c0 + n + e < C
+                       ? __fadd_rn(__fmul_rn(acc[i][j][2 * h + e],
+                                             s3c[n + e]),
+                                   b3c[n + e])
+                       : 0.f;
+          *reinterpret_cast<float2*>(stage + p * kStageRow + n) =
+              make_float2(v[0], v[1]);
+        }
+      }
+    }
+    __syncthreads();
+    if constexpr (VEC) {
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int e = threadIdx.x + it * kThreads;
+        long long at;
+        if (!out_item(e, c0, at)) continue;
+        const int p = e >> 3, n = 8 * (e & 7);
+        const float4 lo = *reinterpret_cast<const float4*>(
+            stage + p * kStageRow + n);
+        const float4 hi = *reinterpret_cast<const float4*>(
+            stage + p * kStageRow + n + 4);
+        const __nv_bfloat162* xp =
+            reinterpret_cast<const __nv_bfloat162*>(&xres[it]);
+        const float h3[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        uint4 ov;
+        __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&ov);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 xf = __bfloat1622float2(xp[q]);
+          op[q] = __floats2bfloat162_rn(
+              fmaxf(__fadd_rn(h3[2 * q], xf.x), 0.f),
+              fmaxf(__fadd_rn(h3[2 * q + 1], xf.y), 0.f));
+        }
+        *reinterpret_cast<uint4*>(out + at) = ov;
+      }
+    } else {
+      for (int e = threadIdx.x; e < kTilePx * kKC; e += kThreads) {
+        const int p = e >> 6, n = e & 63;
+        const int gy = y0 + p / kTW, gx = x0 + p % kTW;
+        if (gy >= H || gx >= W || c0 + n >= C) continue;
+        const long long at = (img + (long long)gy * W + gx) * C + c0 + n;
+        out[at] = __float2bfloat16_rn(fmaxf(
+            __fadd_rn(stage[p * kStageRow + n], __bfloat162float(x[at])),
+            0.f));
+      }
+    }
+  }
+}
+
+template <bool VEC>
+int launch(const void* x, const void* w1, const float* s1, const float* b1,
+           const void* w2, const float* s2, const float* b2, const void* w3,
+           const float* s3, const float* b3, void* out, int B, int H, int W,
+           int C, int M, cudaStream_t stream) {
+  auto kernel = fused_bottleneck_tc_kernel<VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_x = (W + kTW - 1) / kTW;
+  const int tiles_y = (H + kTH - 1) / kTH;
+  const dim3 grid(tiles_x * tiles_y, B);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), s1, b1,
+      static_cast<const bf16*>(w2), s2, b2, static_cast<const bf16*>(w3), s3,
+      b3, static_cast<bf16*>(out), H, W, C, M, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // C entry point, bound with ctypes. x, out: (B, H, W, C) contiguous NHWC;
 // w1 (C, M), w2 (9, M, M) with taps ky * 3 + kx, w3 (M, C), all of x's
-// dtype (bf16 when `bf16` is 1, else fp32); s1, b1 (M), s2, b2 (M), s3, b3
-// (C) fp32. 1 <= M <= 64, 1 <= B <= 65535. Launches on `stream`,
-// allocates nothing, and returns the first CUDA error (0 on success).
+// dtype; s1, b1 (M), s2, b2 (M), s3, b3 (C) fp32. 1 <= M <= 64,
+// 1 <= B <= 65535. `route` is the wrapper's choice: 0 fp32; 1 bf16 on the
+// tensor cores with 16-byte loads (x, w1, w2, w3 and out 16-byte aligned,
+// C % 8 == 0 and M % 8 == 0, else refused with cudaErrorInvalidValue);
+// 2 bf16 on the tensor cores with element-wise loads (any operands).
+// Launches on `stream`, allocates nothing, and returns the first CUDA
+// error (0 on success).
 extern "C" int mxtpu_fused_bottleneck(const void* x, const void* w1,
                                       const float* s1, const float* b1,
                                       const void* w2, const float* s2,
                                       const float* b2, const void* w3,
                                       const float* s3, const float* b3,
                                       void* out, int B, int H, int W, int C,
-                                      int M, int bf16, int device,
+                                      int M, int route, int device,
                                       void* stream_ptr) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || M <= 0 ||
-      M > kMaxM)
+      M > kMaxM || route < 0 || route > 2)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(w1) |
+                          reinterpret_cast<uintptr_t>(w2) |
+                          reinterpret_cast<uintptr_t>(w3) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (route == 1 && (bases % 16 != 0 || C % 8 != 0 || M % 8 != 0))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out,
-                                 B, H, W, C, M, stream);
+  if (route == 1)
+    return tc::launch<true>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H,
+                            W, C, M, stream);
+  if (route == 2)
+    return tc::launch<false>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B,
+                             H, W, C, M, stream);
   return launch<float>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W,
                        C, M, stream);
 }

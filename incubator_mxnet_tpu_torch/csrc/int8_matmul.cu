@@ -7,36 +7,49 @@
 //
 // Layout: A is (M, K) and W is (N, K), both row-major, so both operands are
 // K-contiguous; C = A W^T is (M, N) int32, row-major. W (N, K) is the
-// (out, in) layout of a Dense weight, and the natural B operand ("col") of
-// the tensor cores' integer MMA.
+// (out, in) layout of a Dense weight, and the K-major B operand that the
+// tensor cores' integer products (mma.sync "col", wgmma) require.
 //
-// What bounds it on the H100: at the decode shape (M = 8 slots, K = 650,
-// N = 10000) bytes: the 6.5 MB weight is read once, 1.9 us at 3.35 TB/s,
+// What bounds it on the H100: at the decode shape (M = 8 slots, K = 656,
+// N = 10000) bytes: the 6.5 MB weight is read once, 2 us at 3.35 TB/s,
 // against 0.1 GOP. At 4096^3 operations: 137 GOP at the dense int8
-// tensor-core rate (1979 TOP/s) is 69 us.
+// tensor-core rate (1979 TOP/s) is 69 us, and only wgmma reaches that rate;
+// the int32 output (67 of the 100 MB it moves) costs 20 us of bytes.
 //
-// What the design does about it: one block owns a BM x BN tile of C and
-// walks K in stages of 64 bytes; each stage of A and W rows is copied into
-// shared memory with 16-byte cp.async, STAGES - 1 stages in flight ahead of
-// the one being multiplied, so a block keeps several KB of the weight in
-// flight. Warps multiply with mma.sync.m16n8k32 (s8 x s8 -> s32) from
-// fragments read out of shared memory rows padded to 80 bytes, which makes
-// the fragment reads free of bank conflicts. Rows of C at or past M and
-// columns at or past N are masked; rows of A and W past the edge, and K past
-// its end, are zero-filled, which adds nothing to an integer sum. For M up
-// to 16 (decode) the tile is 16 x 64 with 4 stages, so that the grid has
-// more blocks than the card has SMs; above it the tile is 128 x 128.
+// Three routes, picked by the Python wrapper (ops/kernels/int8_matmul.py
+// _route) and checked here:
+//   small (M <= 16, decode): one block owns a 16 x 64 tile of C and walks K
+//     in stages of 64 bytes copied with 16-byte cp.async, 4 stages in
+//     flight, so the grid has more blocks than the card has SMs; warps
+//     multiply with mma.sync.m16n8k32 (s8 x s8 -> s32) from rows padded to
+//     80 bytes (conflict-free fragment reads). Misaligned operands take the
+//     same tile with byte-wide loads.
+//   tma (M > 16, both bases 16-byte aligned, K % 16 == 0): one persistent
+//     block an SM walks 128 x 256 tiles of C. One producer thread keeps a
+//     ring of 4 stages of 128 bytes of K (A 16 KB + W 32 KB a stage, 192 KB
+//     of dynamic shared memory) filled with TMA loads (cp.async.bulk.tensor,
+//     128-byte swizzle), each stage's arrival counted by an mbarrier; two
+//     consumer warpgroups of 64 x 256 each run wgmma.m64n256k32 (s8 x s8 ->
+//     s32) on the swizzled tiles straight from shared memory and hand a
+//     stage back through a second mbarrier once its products have
+//     completed, so loads run 3 stages ahead of the tensor cores, into the
+//     next tile while the consumers store this one. TMA zero-fills rows
+//     past M or N and bytes past K, which adds nothing to an integer sum.
+//     The epilogue stores 8 bytes a thread (a quad of threads writes 32
+//     contiguous bytes of a row). At full rate a stage's 48 KB feeds 1024
+//     tensor-core clocks of an SM, ~11.6 TB/s from L2 across the card, so
+//     L2 is the expected limit; a cluster of two blocks sharing W through
+//     TMA multicast would halve W's share of that traffic.
+//   bytes (anything else: a view at an odd offset, a K such as 650): a
+//     128 x 128 tile of mma.sync with byte-wide loads, correct and slow;
+//     Int8Dense keeps its weight zero-padded in K to a multiple of 16 so
+//     that the serving path never takes it.
 //
-// 16-byte copies need 16-byte aligned rows: both base pointers aligned and
-// K a multiple of 16. Anything else (a view with an odd offset, a K such as
-// 650) takes the same kernel with byte-wide loads, which are correct and
-// slow; Int8Dense keeps its weight zero-padded in K to a multiple of 16 so
-// that the serving path takes the 16-byte copies.
-//
-// Integer sums are exact in any order: the result equals the plain
-// version's bit for bit. The wrapper refuses K >= 2^31 / 128^2, from which
+// Integer sums are exact in any order: every route equals the plain
+// version bit for bit. The wrapper refuses K >= 2^31 / 128^2, from which
 // on an int32 sum of int8 products could leave the int32 range.
 
+#include <cuda.h>    // CUtensorMap and its enums (no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -188,43 +201,356 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 
 // Decode tile: 16 x 64, 4 warps side by side in N, 4 stages (25.6 KB).
 constexpr int kSmallBM = 16, kSmallBN = 64;
-// Large tile: 128 x 128, 8 warps as 2 x 4 (warp tile 64 x 32), 2 stages
-// (40 KB of static shared memory).
-constexpr int kLargeBM = 128, kLargeBN = 128;
+// Byte-load tile: 128 x 128, 8 warps as 2 x 4 (warp tile 64 x 32), 2
+// stages (40 KB of static shared memory).
+constexpr int kBytesBM = 128, kBytesBN = 128;
 
 template <bool VEC>
-cudaError_t launch(const int8_t* a, const int8_t* w, int32_t* c, int M,
-                   int N, int K, cudaStream_t stream) {
-  if (M <= kSmallBM) {
-    const dim3 grid((N + kSmallBN - 1) / kSmallBN, 1);
-    int8_mm_kernel<kSmallBM, kSmallBN, 1, 4, 4, VEC>
-        <<<grid, 128, 0, stream>>>(a, w, c, M, N, K);
-  } else {
-    const dim3 grid((N + kLargeBN - 1) / kLargeBN,
-                    (M + kLargeBM - 1) / kLargeBM);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    int8_mm_kernel<kLargeBM, kLargeBN, 2, 4, 2, VEC>
-        <<<grid, 256, 0, stream>>>(a, w, c, M, N, K);
-  }
+cudaError_t launch_small(const int8_t* a, const int8_t* w, int32_t* c, int M,
+                         int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + kSmallBN - 1) / kSmallBN, 1);
+  int8_mm_kernel<kSmallBM, kSmallBN, 1, 4, 4, VEC>
+      <<<grid, 128, 0, stream>>>(a, w, c, M, N, K);
   return cudaGetLastError();
 }
+
+cudaError_t launch_bytes(const int8_t* a, const int8_t* w, int32_t* c, int M,
+                         int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + kBytesBN - 1) / kBytesBN,
+                  (M + kBytesBM - 1) / kBytesBM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  int8_mm_kernel<kBytesBM, kBytesBN, 2, 4, 2, false>
+      <<<grid, 256, 0, stream>>>(a, w, c, M, N, K);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- tma: wgmma + TMA
+namespace tma {
+
+constexpr int kBM = 128, kBN = 256;      // block tile of C
+constexpr int kBK = 128;                 // K bytes a stage: 4 wgmma k-steps
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;            // warpgroups, 64 rows of C each
+constexpr int kThreads = kConsumers * 128 + 32;   // + the producer warp
+constexpr int kABytes = kBM * kBK;       // 16 KB
+constexpr int kStageBytes = kABytes + kBN * kBK;  // + 32 KB of W
+// stages, then full[kStages] and empty[kStages] mbarriers, and room to
+// align the base to the 1024 bytes of a 128-byte swizzle atom
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of `bar` with parity `parity` has completed. A wait
+// that outlasts 2^25 polls (far beyond any load's latency) traps, so that a
+// broken pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned polls = 0; !done; ++polls) {
+    if (polls == (1u << 25)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of `map` at (k, row) -> shared memory at dst; its bytes count
+// against `bar`'s transaction.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         unsigned bar, int k, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(k),
+      "r"(row)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile written by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across wgmma
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// d (64 x 256 s32, the wgmma accumulator fragment) += A (64 x 32 s8, from
+// desc_a) x B (256 x 32 s8, from desc_b)^T: both operands K-major.
+__device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Persistent: block b owns output tiles b, b + gridDim.x, ... (N fastest),
+// so that the producer loads the next tile's first stages while the
+// consumers store this one's accumulators. `it` counts stages over all of
+// a block's tiles: stage it uses slot it % kStages in round it / kStages.
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_mm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_w,
+                       int32_t* __restrict__ c, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned full = base + kStages * kStageBytes;   // mbarriers
+  const unsigned empty = full + kStages * 8;
+  const int ktiles = (K + kBK - 1) / kBK;
+  const long long tiles_n = (N + kBN - 1) / kBN;
+  const long long tiles = tiles_n * ((M + kBM - 1) / kBM);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);                  // the producer's arrive
+      mbar_init(empty + 8 * s, kConsumers * 4);    // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * 128) {
+    // producer: one thread keeps the ring full, kStages stages ahead
+    if (threadIdx.x != kConsumers * 128) return;
+    unsigned it = 0;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (int)(t / tiles_n) * kBM, n0 = (int)(t % tiles_n) * kBN;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const unsigned s = it % kStages;
+        // round r of a slot waits for the consumers' release of round r - 1
+        // (round 0 passes: the phase "before" the first counts as complete)
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const unsigned dst = base + s * kStageBytes;
+        mbar_expect_tx(full + 8 * s, kStageBytes);
+        tma_load(dst, &map_a, full + 8 * s, kt * kBK, m0);
+        tma_load(dst + kABytes, &map_w, full + 8 * s, kt * kBK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 of a tile
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const bool pairs = (N % 2) == 0;
+  unsigned it = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (int)(t / tiles_n) * kBM, n0 = (int)(t % tiles_n) * kBN;
+    int d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const unsigned s = it % kStages;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      const unsigned a_tile = base + s * kStageBytes + wg * 64 * kBK;
+      const unsigned w_tile = base + s * kStageBytes + kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        wgmma_s8_n256(d, sw128_desc(a_tile + kk * 32),
+                      sw128_desc(w_tile + kk * 32));
+      wgmma_commit();
+      // the products of the stage before have completed: hand its slot
+      // back
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+
+    // accumulator fragment: d[4j + 2h + e] is row 16 warp + lane / 4 + 8 h,
+    // column 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 256
+    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      int32_t* out = c + (long long)row * N;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = col0 + 8 * j;
+        const int v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (pairs && col + 1 < N) {
+          *reinterpret_cast<int2*>(out + col) = make_int2(v0, v1);
+        } else {
+          if (col < N) out[col] = v0;
+          if (col + 1 < N) out[col + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: the library
+// is linked without -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// (rows, K) int8 row-major at `ptr`, read in boxes of 128 bytes x box_rows
+// with the 128-byte swizzle; reads past the edges fill zeros.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+              int rows, int K, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};    // bytes between rows
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch(const int8_t* a, const int8_t* w, int32_t* c, int M,
+                   int N, int K, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)((N + kBN - 1) / kBN) *
+                          ((M + kBM - 1) / kBM);
+  const dim3 grid((unsigned)(tiles < sms ? tiles : sms));
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map_a, map_w;
+  if (!make_map(encode, &map_a, a, M, K, kBM) ||
+      !make_map(encode, &map_w, w, N, K, kBN))
+    return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(int8_mm_tma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes);
+  if (e != cudaSuccess) return e;
+  int8_mm_tma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_w, c,
+                                                             M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace tma
 
 }  // namespace
 
 // C (M, N) int32 = A (M, K) int8 x W (N, K) int8 transposed; contiguous
-// operands, any M, N >= 1 and K >= 1, any alignment.
+// operands, any M, N >= 1 and K >= 1. `route` is the wrapper's choice:
+// 0 small (M <= 16), 1 tma (both bases 16-byte aligned and K % 16 == 0),
+// 2 bytes (any operands); a route whose condition fails is refused with
+// cudaErrorInvalidValue, so the wrapper and this file cannot disagree.
 extern "C" int mxtpu_int8_matmul_nk(const void* a, const void* w, void* c,
-                                    int M, int N, int K, int device,
-                                    void* stream_ptr) {
+                                    int M, int N, int K, int route,
+                                    int device, void* stream_ptr) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       K % 16 == 0;
+  if ((route == 0 && M > kSmallBM) || (route == 1 && !aligned) ||
+      route < 0 || route > 2)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* a8 = static_cast<const int8_t*>(a);
   const auto* w8 = static_cast<const int8_t*>(w);
   auto* c32 = static_cast<int32_t*>(c);
-  const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && K % 16 == 0;
-  return (int)(vec ? launch<true>(a8, w8, c32, M, N, K, stream)
-                   : launch<false>(a8, w8, c32, M, N, K, stream));
+  if (route == 0)
+    return (int)(aligned ? launch_small<true>(a8, w8, c32, M, N, K, stream)
+                         : launch_small<false>(a8, w8, c32, M, N, K, stream));
+  if (route == 1)
+    return (int)tma::launch(a8, w8, c32, M, N, K, device, stream);
+  return (int)launch_bytes(a8, w8, c32, M, N, K, stream);
 }

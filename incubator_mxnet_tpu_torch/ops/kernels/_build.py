@@ -72,12 +72,12 @@ _SIGNATURES = {
                              _I, _P),
     "mxtpu_flat_adamw_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                               _F, _F, _F, _I, _P),
-    # x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, C, M, bf16,
+    # x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, C, M, route,
     # device, stream
     "mxtpu_fused_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),
-    # a, w, c, M, N, K, device, stream
-    "mxtpu_int8_matmul_nk": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # a, w, c, M, N, K, route, device, stream
+    "mxtpu_int8_matmul_nk": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H, D, num_blocks,
     # block_size, max_blocks, scale, device, stream
     "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

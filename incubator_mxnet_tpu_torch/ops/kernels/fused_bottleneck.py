@@ -10,13 +10,18 @@ shift in fp32. It computes
     relu(bn3(conv3(relu(bn2(conv2(relu(bn1(conv1(x)))))))) + x)
 
 with fp32 accumulation, h1 and h2 rounded to x's dtype where the TPU kernel
-rounds them, and the output in x's dtype (fp32 or bf16). The kernel is in
-``csrc/fused_bottleneck.cu``: one block owns an 8 x 8 tile of output pixels
-and keeps h1 (on the tile and a one-pixel halo) and h2 in shared memory.
+rounds them, and the output in x's dtype (fp32 or bf16). The kernels are in
+``csrc/fused_bottleneck.cu``: a block owns a tile of output pixels (8 x 8
+in fp32 on the CUDA cores, 8 x 14 in bf16 on the tensor cores) and keeps h1
+(on the tile and a one-pixel halo) and h2 in shared memory.
 
 For a CPU tensor ``fused_bottleneck`` takes the plain version; for CUDA
 tensors it launches the kernel or raises, and adds one to its ``launches``
-count. The kernel takes M up to 64 and any B, H, W and C.
+count. The kernel takes M up to 64 and any B, H, W and C. ``_route`` picks
+its route from the dtype, the shape and the operands' addresses:
+``"fp32"``; ``"bf16"`` (16-byte loads: every bf16 base 16-byte aligned,
+C % 8 == 0 and M % 8 == 0); ``"bf16_scalar"`` (element-wise loads, any
+operands). The C entry refuses a route whose condition fails.
 """
 
 import torch
@@ -28,6 +33,19 @@ __all__ = ["fused_bottleneck", "bottleneck_reference"]
 
 MAX_M = 64                 # widest bottleneck the kernel holds (kMaxM)
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the C entry's route codes
+ROUTES = {"fp32": 0, "bf16": 1, "bf16_scalar": 2}
+
+
+def _route(dtype, C, M, ptrs):
+    """The kernel's route for x of `dtype` with C channels, a bottleneck of
+    width M, and the byte addresses `ptrs` of x, w1, w2, w3 and the
+    output."""
+    if dtype == torch.float32:
+        return "fp32"
+    if C % 8 == 0 and M % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "bf16"
+    return "bf16_scalar"
 
 
 def bottleneck_reference(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
@@ -106,10 +124,11 @@ def fused_bottleneck(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     B, H, W, C, M = _check_cuda(*args)
     out = torch.empty_like(x)
     dev = x.device
+    route = _route(x.dtype, C, M, [t.data_ptr() for t in (x, w1, w2, w3,
+                                                            out)])
     rc = _build.library().mxtpu_fused_bottleneck(
         *(t.data_ptr() for t in args), out.data_ptr(), B, H, W, C, M,
-        int(x.dtype == torch.bfloat16), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ROUTES[route], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_bottleneck")
     _build.count_launch(fused_bottleneck)
     return out

@@ -16,6 +16,12 @@ Both add one to ``int8_matmul.launches`` where they launch the kernel. The
 kernel takes any M, N and K up to ``K_MAX``: the TPU wrapper's tiling assert
 (``M % min(512, M) == 0``) does not carry over. For CPU tensors both take
 the plain version; for CUDA tensors they launch the kernel or raise.
+
+``_route`` picks the kernel's route from the shape and the operands'
+addresses: ``"small"`` for M <= 16 (the decode tile, ``mma.sync``),
+``"tma"`` for larger M with both bases 16-byte aligned and K % 16 == 0
+(``wgmma`` fed by TMA), ``"bytes"`` for anything else (byte-wide loads).
+The C entry refuses a route whose condition fails.
 """
 
 import torch
@@ -28,6 +34,21 @@ __all__ = ["int8_matmul", "int8_matmul_nk", "int8_matmul_reference",
 #: the longest contraction whose int32 sum of int8 products cannot overflow:
 #: K * 128 * 128 < 2**31
 K_MAX = (2 ** 31 - 1) // (128 * 128)
+
+#: the C entry's route codes
+ROUTES = {"small": 0, "tma": 1, "bytes": 2}
+#: rows of C a block of the bytes route owns (the grid's y extent)
+_BYTES_BLOCK_M = 128
+
+
+def _route(M, K, a_ptr, w_ptr):
+    """The kernel's route for an (M, K) x (N, K) product whose operands
+    start at byte addresses a_ptr and w_ptr."""
+    if M <= 16:
+        return "small"
+    if a_ptr % 16 == 0 and w_ptr % 16 == 0 and K % 16 == 0:
+        return "tma"
+    return "bytes"
 
 
 def int8_matmul_nk_reference(a, w):
@@ -65,7 +86,7 @@ def _check_cuda(a, w, what):
     if K > K_MAX:
         raise ValueError("int8_matmul: K = %d can overflow an int32 sum "
                          "(the kernel takes K <= %d)" % (K, K_MAX))
-    if max(M, N) >= 2 ** 31 or (M > 16 and -(-M // 128) > 65535):
+    if max(M, N) >= 2 ** 31:
         raise ValueError("int8_matmul: (%d, %d) is outside the kernel's "
                          "grid" % (M, N))
     return M, N, K
@@ -75,11 +96,15 @@ def _launch(a, w, what):
     M, N, K = _check_cuda(a, w, what)
     if M == 0 or N == 0 or K == 0:
         return torch.zeros((M, N), dtype=torch.int32, device=a.device)
+    route = _route(M, K, a.data_ptr(), w.data_ptr())
+    if route == "bytes" and -(-M // _BYTES_BLOCK_M) > 65535:
+        raise ValueError("int8_matmul: M = %d is outside the byte-load "
+                         "route's grid" % M)
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     dev = a.device
     rc = _build.library().mxtpu_int8_matmul_nk(
-        a.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, ROUTES[route],
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "int8_matmul")
     _build.count_launch(int8_matmul)
     return out

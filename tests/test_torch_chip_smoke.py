@@ -1,0 +1,172 @@
+"""chip_smoke.py's measurement helpers, on the CPU with fake clocks.
+
+The script itself runs only on a CUDA card. What is checked here needs no
+card: that a reading below a row's bound (which no card can beat: a
+torch.profiler trace that lost device events) is retaken with CUDA events
+and flagged if it stays below, and that every ``__global__`` kernel of the
+port's CUDA sources maps to its kernel's class in ``--profile``'s device
+time breakdown.
+"""
+
+import pathlib
+import re
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+# the bytes that take 1 ms at the card's memory rate: a 1 ms bound
+ONE_MS_OF_BYTES = int(chip_smoke.HBM_BYTES_PER_S / 1e3)
+
+
+def _fake_clocks(monkeypatch, profiler, events):
+    """device_ms and call_ms that return, for each function, the time the
+    test gives it; records which clock read which function."""
+    seen = []
+
+    def device_ms(torch_, fn, inputs, iters=20):
+        seen.append(("profiler", fn.__name__))
+        return profiler[fn.__name__], "profiler"
+
+    def call_ms(torch_, fn, inputs, iters=50, warmup=5):
+        seen.append(("events", fn.__name__))
+        return events[fn.__name__]
+
+    monkeypatch.setattr(chip_smoke, "device_ms", device_ms)
+    monkeypatch.setattr(chip_smoke, "call_ms", call_ms)
+    return seen
+
+
+def kernel(x):
+    return x
+
+
+def plain(x):
+    return x
+
+
+def library(x):
+    return x
+
+
+def _measure(library_fn=library):
+    return chip_smoke.measure(
+        torch, "k", (4,), 0.0, 0.0, (torch.zeros(4),), kernel, plain,
+        library_fn, ONE_MS_OF_BYTES, 0)
+
+
+def test_measure_retakes_readings_below_the_bound_on_cuda_events(
+        monkeypatch):
+    seen = _fake_clocks(monkeypatch,
+                        profiler=dict(kernel=1.5, plain=0.4, library=0.3),
+                        events=dict(kernel=9.0, plain=2.0, library=0.6))
+    row = _measure()
+    assert row["bound_ms"] == pytest.approx(1.0)
+    assert row["bound_by"] == "bytes"
+    # the kernel read above its bound: the profiler's number stands
+    assert (row["ms"], row["timed_by"]) == (1.5, "profiler")
+    # the plain version read below: retaken on CUDA events, now above
+    assert (row["plain_ms"], row["plain_timed_by"]) == (2.0, "events")
+    # the library read below twice: kept, but flagged as no time
+    assert (row["library_ms"], row["library_timed_by"]) == (0.6, "events")
+    assert row["below_bound"] is True
+    assert row["below_bound_columns"] == ["library_ms"]
+    assert ("events", "kernel") not in seen
+    assert ("events", "plain") in seen and ("events", "library") in seen
+
+
+def test_measure_keeps_profiler_readings_at_or_above_the_bound(monkeypatch):
+    seen = _fake_clocks(monkeypatch,
+                        profiler=dict(kernel=1.0, plain=3.0),
+                        events=dict(kernel=0.1, plain=0.1))
+    row = _measure(library_fn=None)
+    assert (row["ms"], row["timed_by"]) == (1.0, "profiler")
+    assert (row["plain_ms"], row["plain_timed_by"]) == (3.0, "profiler")
+    assert (row["library_ms"], row["library_timed_by"]) == (None, None)
+    assert row["below_bound"] is False
+    assert row["below_bound_columns"] == []
+    assert all(clock == "profiler" for clock, _ in seen)
+
+
+def test_measure_refuses_an_error_over_its_tolerance(monkeypatch):
+    _fake_clocks(monkeypatch, profiler=dict(kernel=1.0, plain=1.0),
+                 events=dict(kernel=1.0, plain=1.0))
+    with pytest.raises(AssertionError, match="max error"):
+        chip_smoke.measure(torch, "k", (4,), 1e-3, 1e-4,
+                           (torch.zeros(4),), kernel, plain, None,
+                           ONE_MS_OF_BYTES, 0)
+
+
+def test_bound_check_flags_only_columns_below_the_bound():
+    assert chip_smoke.bound_check(1.0, ms=1.0, plain_ms=None,
+                                  library_ms=2.0) == dict(
+        below_bound=False, below_bound_columns=[])
+    assert chip_smoke.bound_check(1.0, ms=0.5, plain_ms=0.9,
+                                  library_ms=2.0) == dict(
+        below_bound=True, below_bound_columns=["ms", "plain_ms"])
+
+
+# ------------------------------------------------------ profile classes
+GLOBAL = re.compile(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
+                    r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+# kernel classes of the port's hand kernels in --profile's breakdown
+PORT_CLASSES = {"layer_norm", "softmax", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                "trainer_adam", "sgd_mom (trainer or flat)", "adamw_flat",
+                "adam_flat", "fused_bottleneck", "flash_decode",
+                "int8_matmul"}
+
+
+def _profiled_names(path):
+    """The names a trace gives the file's kernels: each __global__'s name,
+    and for a kernel templated on an update functor (`class Op`), one name
+    per functor the file defines (a struct with a call operator), as the
+    demangled instantiation spells it."""
+    src = path.read_text()
+    kernels = GLOBAL.findall(src)
+    assert kernels, "no __global__ kernel found in %s" % path.name
+    functors = re.findall(r"struct (\w+) \{[^}]*?operator\(\)", src)
+    out = []
+    for params, name in kernels:
+        if "class Op" in params:
+            assert functors
+            out += ["%s<2, %s<F32>, F32>" % (name, f) for f in functors]
+        else:
+            out.append(name)
+    return out
+
+
+def _sources():
+    return sorted((REPO / "incubator_mxnet_tpu_torch" / "csrc").glob("*.cu"))
+
+
+def test_every_cuda_source_has_a_global_kernel_found_by_the_scan():
+    found = {p.name: _profiled_names(p) for p in _sources()
+             if "__global__" in p.read_text()}
+    assert "int8_mm_tma_kernel" in found["int8_matmul.cu"]
+    assert "fused_bottleneck_tc_kernel" in found["fused_bottleneck.cu"]
+    assert len(found["fused_optim.cu"]) >= 4
+
+
+@pytest.mark.parametrize("path", [p for p in _sources()
+                                  if "__global__" in p.read_text()],
+                         ids=lambda p: p.name)
+def test_kernel_class_maps_every_global_kernel_to_its_kernel(path):
+    for name in _profiled_names(path):
+        cls = chip_smoke._kernel_class("void (anonymous namespace)::%s("
+                                       "int, float*)" % name)
+        assert cls in PORT_CLASSES, (path.name, name, cls)
+
+
+def test_kernel_class_tells_library_kernels_apart():
+    assert chip_smoke._kernel_class(
+        "sm90_xmma_gemm_s8s8_s32_tn_n_tilesize128x256x128") == "matmul"
+    assert chip_smoke._kernel_class(
+        "cudnn::fprop_implicit_gemm_bf16") == "conv"
+    assert chip_smoke._kernel_class("Memcpy DtoD") == "copy"
+    assert chip_smoke._kernel_class("elementwise_kernel") == "other"

@@ -76,3 +76,21 @@ def test_cpu_call_does_not_launch_and_is_registered():
     tfb.fused_bottleneck(*(torch.from_numpy(a)
                            for a in _inputs(1, 4, 4, 8, 2)))
     assert tfb.fused_bottleneck.launches == n0
+
+
+@pytest.mark.parametrize("dtype,C,M,ptrs,route", [
+    (torch.float32, 256, 64, [0, 16, 32, 48, 64], "fp32"),
+    (torch.float32, 5, 63, [2, 4, 6, 8, 10], "fp32"),
+    (torch.bfloat16, 256, 64, [0, 16, 32, 48, 64], "bf16"),
+    (torch.bfloat16, 304, 8, [0, 16, 32, 48, 64], "bf16"),
+    (torch.bfloat16, 300, 8, [0, 16, 32, 48, 64], "bf16_scalar"),
+    (torch.bfloat16, 5, 64, [0, 16, 32, 48, 64], "bf16_scalar"),
+    (torch.bfloat16, 256, 63, [0, 16, 32, 48, 64], "bf16_scalar"),
+    (torch.bfloat16, 256, 64, [2, 16, 32, 48, 64], "bf16_scalar"),
+    (torch.bfloat16, 256, 64, [0, 16, 32, 48, 72], "bf16_scalar")])
+def test_route_follows_dtype_alignment_and_widths(dtype, C, M, ptrs, route):
+    """fp32 keeps its CUDA-core kernel; bf16 takes the tensor-core kernel
+    with 16-byte loads when x, w1, w2, w3 and the output start on 16-byte
+    boundaries and C and M are multiples of 8, else element-wise loads."""
+    assert tfb._route(dtype, C, M, ptrs) == route
+    assert tfb.ROUTES[route] in (0, 1, 2)

@@ -10,6 +10,8 @@ extremes. The CUDA kernel itself is held to this plain version on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,3 +82,22 @@ def test_cpu_path_does_not_launch_and_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         int8_matmul_nk(a.to("meta"), torch.zeros(4, 3, dtype=torch.int8,
                                                       device="meta"))
+
+
+@pytest.mark.parametrize("M,K,a_ptr,w_ptr,route", [
+    (1, 656, 0, 0, "small"), (16, 656, 0, 0, "small"),
+    (16, 650, 1, 3, "small"), (17, 656, 0, 0, "tma"),
+    (17, 656, 16, 4096, "tma"), (17, 650, 0, 0, "bytes"),
+    (17, 656, 1, 0, "bytes"), (17, 656, 0, 8, "bytes"),
+    (4096, 4096, 256, 512, "tma"), (128, K_MAX, 0, 0, "bytes"),
+    (128, K_MAX - K_MAX % 16, 0, 0, "tma"),
+    (128, K_MAX - K_MAX % 16, 0, 2, "bytes")])
+def test_route_follows_m_alignment_and_k(M, K, a_ptr, w_ptr, route):
+    """The wrapper's route: the decode tile up to M = 16 whatever the
+    alignment; above it wgmma + TMA when both bases are 16-byte aligned and
+    K % 16 == 0 (TMA's row stride), else byte-wide loads. K_MAX (131071) is
+    odd, so it takes the byte route."""
+    im = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.kernels.int8_matmul")
+    assert im._route(M, K, a_ptr, w_ptr) == route
+    assert im.ROUTES[route] in (0, 1, 2)

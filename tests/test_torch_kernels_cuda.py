@@ -23,10 +23,13 @@ bf16. Kernels compiled at run time by mx.rtc equal plain torch exactly on
 the axpy they compute.
 The fused bottleneck is held within atol 1e-4 in fp32 and within
 2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step where
-the two round a value from fp32 sums taken in other orders).
+the two round a value from fp32 sums taken in other orders), on both of
+its bf16 routes (16-byte and element-wise loads).
 The GPT test holds whole generations on the card and the CPU token for
 token. The int8 x int8 -> int32 matmul equals its plain version exactly
-(integer sums are exact in any order), at every shape, aligned or not; the
+(integer sums are exact in any order), at every shape, aligned or not, on
+each of its three routes (small, tma, bytes), each case asserting the
+route the wrapper picks; the
 lstm_lm family's served logits on the card are held to the CPU's replay of
 the same grid (see its test for the int8 rule).
 """
@@ -511,6 +514,53 @@ def test_fused_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, M):
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("H,W", [(57, 55), (13, 11), (1, 3)])
+@pytest.mark.parametrize("C", [5, 64, 256, 300])
+@pytest.mark.parametrize("M", [1, 8, 16, 63, 64])
+def test_fused_bottleneck_bf16_tensor_cores_match_plain(cuda, H, W, C, M):
+    """The bf16 kernel on image sizes that are not multiples of its 8 x 14
+    tile, C and M on both sides of its 16-byte route (C % 8, M % 8): within
+    2 * 2**-8 of the output's max of the plain version, and two calls equal
+    bitwise."""
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        _route, bottleneck_reference, fused_bottleneck)
+    B = 2 if H * W < 100 else 1
+    args = _bottleneck_inputs(B, H, W, C, M, torch.bfloat16, cuda,
+                              seed=H * W + 7 * C + M)
+    ptrs = [t.data_ptr() for t in (args[0], args[1], args[4], args[7])]
+    want_route = "bf16" if C % 8 == 0 and M % 8 == 0 else "bf16_scalar"
+    assert _route(torch.bfloat16, C, M, ptrs + [ptrs[0]]) == want_route
+    got = fused_bottleneck(*args)
+    again = fused_bottleneck(*args)
+    torch.cuda.synchronize()
+    want = bottleneck_reference(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.needs_cuda
+def test_fused_bottleneck_bf16_misaligned_views_take_the_scalar_route(cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        _route, bottleneck_reference, fused_bottleneck)
+    args = list(_bottleneck_inputs(2, 9, 15, 64, 16, torch.bfloat16, cuda,
+                                   seed=3))
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    x = buf[1:].view(args[0].shape)
+    x.copy_(args[0])
+    args[0] = x
+    assert _route(torch.bfloat16, 64, 16,
+                  [x.data_ptr(), args[1].data_ptr(), args[4].data_ptr(),
+                   args[7].data_ptr(), args[1].data_ptr()]) == "bf16_scalar"
+    got = fused_bottleneck(*args)
+    want = bottleneck_reference(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+
+
+@pytest.mark.needs_cuda
 def test_fused_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(
         cuda):
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
@@ -889,6 +939,82 @@ def test_int8_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="overflow"):
         int8_matmul_nk(big, big)
     assert int8_matmul.launches == n0
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("M", [17, 64, 65, 128, 129, 300])
+def test_int8_matmul_tma_route_equals_plain_exactly(cuda, M):
+    """M > 16 with aligned operands and K % 16 == 0 takes the wgmma + TMA
+    route: every (K, N) of K in {16, 656, 4000, 4096} and N in {8, 129,
+    256, 10000} (ragged edges of the 128 x 256 tile in M, N and K) equals
+    the plain version bit for bit."""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        _route, int8_matmul, int8_matmul_nk, int8_matmul_nk_reference)
+    gen = torch.Generator().manual_seed(1000 + M)
+    for K in (16, 656, 4000, 4096):
+        for N in (8, 129, 256, 10000):
+            a, w = _int8((M, K), gen, cuda), _int8((N, K), gen, cuda)
+            assert _route(M, K, a.data_ptr(), w.data_ptr()) == "tma"
+            n0 = int8_matmul.launches
+            got = int8_matmul_nk(a, w)
+            torch.cuda.synchronize()
+            assert int8_matmul.launches == n0 + 1
+            assert torch.equal(got, int8_matmul_nk_reference(a, w)), (M, K, N)
+
+
+@pytest.mark.needs_cuda
+def test_int8_matmul_tma_route_at_4096_cubed(cuda):
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        _route, int8_matmul_nk, int8_matmul_nk_reference)
+    gen = torch.Generator().manual_seed(4096)
+    a, w = _int8((4096, 4096), gen, cuda), _int8((4096, 4096), gen, cuda)
+    assert _route(4096, 4096, a.data_ptr(), w.data_ptr()) == "tma"
+    assert torch.equal(int8_matmul_nk(a, w), int8_matmul_nk_reference(a, w))
+
+
+@pytest.mark.needs_cuda
+def test_int8_matmul_tma_route_at_the_longest_contraction(cuda):
+    """K = 131056, the largest multiple of 16 under K_MAX, at M = N = 128:
+    +-127 and -128 codes, then every code -128, whose sums (128^2 K) come
+    within 0.02 % of the int32 range."""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        K_MAX, _route, int8_matmul_nk, int8_matmul_nk_reference)
+    K = K_MAX - K_MAX % 16
+    assert K == 131056
+    gen = torch.Generator().manual_seed(K)
+    a, w = _int8((128, K), gen, cuda, True), _int8((128, K), gen, cuda, True)
+    assert _route(128, K, a.data_ptr(), w.data_ptr()) == "tma"
+    assert torch.equal(int8_matmul_nk(a, w), int8_matmul_nk_reference(a, w))
+    low = torch.full((128, K), -128, dtype=torch.int8, device=cuda)
+    got = int8_matmul_nk(low, low)
+    assert torch.equal(got, int8_matmul_nk_reference(low, low))
+    assert int(got[0, 0]) == 128 * 128 * K
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("M,K,N,offset,route", [
+    (8, 656, 10000, 0, "small"), (16, 656, 10000, 0, "small"),
+    (8, 656, 10000, 1, "small"), (17, 656, 10000, 0, "tma"),
+    (17, 656, 10000, 1, "bytes"), (130, 650, 129, 0, "bytes"),
+    (300, 4096, 256, 1, "bytes"), (64, 4096, 256, 16, "tma")])
+def test_int8_matmul_routes_on_views(cuda, M, K, N, offset, route):
+    """Operands whose data start `offset` bytes into a buffer: the wrapper's
+    route follows the alignment and K, and every route equals the plain
+    version exactly."""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        _route, int8_matmul_nk, int8_matmul_nk_reference)
+    gen = torch.Generator().manual_seed(M * K + offset)
+    a, w = _int8((M, K), gen, cuda, True), _int8((N, K), gen, cuda, True)
+    va = torch.empty(M * K + offset, dtype=torch.int8,
+                     device=cuda)[offset:].view(M, K)
+    vw = torch.empty(N * K + offset, dtype=torch.int8,
+                     device=cuda)[offset:].view(N, K)
+    va.copy_(a)
+    vw.copy_(w)
+    assert _route(M, K, va.data_ptr(), vw.data_ptr()) == route
+    got = int8_matmul_nk(va, vw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_nk_reference(a, w))
 
 
 def _lstm_served(tmp_path, quantize, device):

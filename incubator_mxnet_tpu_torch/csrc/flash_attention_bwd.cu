@@ -11,39 +11,74 @@
 // products per (batch, head): S = Q K^T, dP = dO V^T, dQ = dS K, dK = dS^T Q
 // and dV = P^T dO, 10 * T * T * D operations, against some 7 * T * D * 4 bytes
 // of q, k, v, out, dO, dq, dk, dv. At (B*H, T, D) = (96, 512, 64) that is
-// 16.1 GFLOP, 0.24 ms at the 67 TFLOP/s of fp32 on the CUDA cores, while the
-// bytes would take 0.03 ms.
+// 16.1 GFLOP: 0.24 ms at the 67 TFLOP/s of fp32 on the CUDA cores, 0.098 ms
+// as three TF32 tensor-core products each (494.7 TFLOP/s), while the bytes
+// would take 0.03 ms.
 //
-// What the design does about it: the JAX split. The dQ kernel gives one
-// block to each (64-row Q tile, b*h); it keeps the Q and dO tiles in shared
-// memory and walks the 64-key K/V tiles, recomputing P = exp(S - lse) and
-// dP, forming dS = P * (dP - delta) * scale in registers, and accumulating
-// dQ += dS K with the accumulator in registers. The dK/dV kernel gives one
-// block to each (64-key K tile, b*h), keeps the K and V tiles and walks the
-// Q tiles, accumulating dV += P^T dO and dK += dS^T Q in registers. Both
-// recompute S and dP, so together they do seven products where five would
-// do; in exchange neither needs atomics or a second pass. The layout is the
-// forward kernel's: eight warps of eight rows, a lane scores two columns
-// from float4 reads of the warp's (broadcast) row and of its padded column
-// rows, writes them to a shared 64 x 64 tile, and accumulates D / 32 output
-// columns per lane from conflict-free reads. Tensor cores (wgmma with TMA)
-// are later work.
+// What the design does about it:
+// - Every product runs on the tensor cores (mma.sync m16n8k8, tf32) and stays
+//   fp32-accurate by the 3xTF32 split: x = hi + lo with hi = tf32(x) and
+//   lo = tf32(x - hi), rounded as cvt.rna.tf32 rounds (nearest, ties away),
+//   and a * b = hi*lo + lo*hi + hi*hi (the lo*lo term dropped, as CUTLASS's
+//   OpMultiplyAddFastF32).
+// - Sums that round to nearest. The H100's tensor cores align an mma's
+//   products and its C input to the largest and cut the rest toward zero
+//   (chip_smoke.py's tc_rounding line: 1 - 0.125 ulp comes back as 1), so a
+//   sum carried through C for 512 keys would drift. Each k-step's three
+//   products go into a fresh accumulator, which is added to the running fp32
+//   sum on the CUDA cores. dK and dV sum over every query of the sequence
+//   and can reach |60| where few keys are live; there the partial sums of
+//   every 64 queries are folded into running sums (dk's in registers, dv's
+//   in shared memory) with an exact 2Sum, and the rounding error starts the
+//   next partial (compensated summation), so a sum over any T rounds about
+//   as if once.
+// - The JAX split of the work: the dQ kernel gives one block to each (64-row
+//   Q tile, b*h), keeps the Q and dO tiles in shared memory and walks the
+//   keys 32 at a time; the dK/dV kernel gives one block to each (64-key
+//   tile, b*h), keeps K and V and walks the queries 32 at a time. Both recompute S
+//   and dP, so together they do seven products where five would do; in
+//   exchange neither needs atomics, and each output element is written by
+//   one block: two calls on the same inputs are bitwise equal.
+// - Four warps a block, each owning 16 rows (dQ) or 16 keys (dK/dV). In the
+//   second product of each kernel the contraction index inside each group
+//   of 8 is permuted (mma k-slot t holds element 2t, slot t + 4 element
+//   2t + 1), so that the accumulator fragments of the S-shaped products are
+//   its A fragments: dS feeds dQ += dS K, P^T and dS^T feed dV += P^T dO and
+//   dK += dS^T Q, straight from registers.
+// - Tiles sit in shared memory with rows of D + 4 floats: the fragment reads
+//   (rows g, columns t; rows 2t + e, columns g) hit 32 distinct banks, and
+//   each is a base register per thread plus a constant offset.
+// - The streamed tiles (K, V and the key bias for dQ; Q, dO, lse and delta
+//   for dK/dV) come through a two-stage cp.async ring: tile i + 1 lands while
+//   tile i's products run. Once a stage has landed, the block splits its two
+//   matrices into tf32 halves in shared memory (hi in place, lo beside), so
+//   each value is split once rather than by every warp at every use; the
+//   resident A operands (Q and dO, or K and V) are split as they are read.
+//   At D = 64 a block holds 87-104 KB (dQ: Q, dO, two 32-key K/V stages and
+//   the remainders; dK/dV: K, V, two 32-query stages, the remainders and
+//   dv's running sums), so two blocks of 128 threads share an SM.
+// - Key tiles with no live key are skipped. A key whose bias is at or below
+//   -0.5e30 (the mask's -1e30, plus any learned bias) has p = exp(s - lse) =
+//   0 exactly in fp32, so its dS is 0 and it adds exact zeros: the dQ kernel
+//   votes on each key tile's biases first and walks only tiles with a live
+//   key, and a dK/dV block whose 64 keys are all dead writes zeros to dk and
+//   dv (and dbias) and returns. A tile with any live key is computed whole.
+//   The causal walk still ends at the diagonal.
 //
 // The cotangent of a learned per-key bias (has_dbias): dbias[key] = sum over
 // query rows of P * (dP - delta), the unscaled dS. The dK/dV kernel forms it
-// beside dS: each lane sums its two query rows of every Q tile into its own
-// partial for each of its warp's eight keys, and the warp adds its lanes'
-// partials once, at the end, with shuffles. It costs one add a score and
-// writes (B*H, T) floats, where the TPU kernel writes (B*H, 8, T) with only
-// sublane 0 live. A null dbias pointer launches the kernel without it, the
-// instruction stream of the dK/dV kernel as it was before dbias existed.
+// beside dS: each thread sums its query columns for its two keys, and the
+// four threads of a quad add theirs at the end with shuffles. It writes (B*H,
+// T) floats, where the TPU kernel writes (B*H, 8, T) with only sublane 0
+// live. A null dbias pointer launches the instantiation without it; dk and dv
+// come out bitwise the same in both.
 //
 // Semantics follow the TPU kernels: s = q.k * scale + bias[key], causal
 // scores above the diagonal are -1e30, and p = exp(s - lse). A query row
 // whose keys are all masked has lse = 0 and out = 0 from the forward; its
 // scores keep the -1e30 bias, so p = 0, its dq is exactly 0 and it adds
-// nothing to dk and dv. Causal tiles wholly above the diagonal are skipped.
-// Any T: rows and keys past T are zero-filled in the tiles and get p = 0.
+// nothing to dk and dv. Any T: rows and keys past T are zero-filled in the
+// tiles and get p = 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,45 +88,203 @@
 namespace {
 
 constexpr int kBlock = 64;        // rows of a Q tile and keys of a K tile
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = kBlock / kWarps;
+constexpr int kWarps = 4;         // each owns 16 of the block's 64
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
+constexpr float kDeadBias = -0.5e30f;   // a bias at or below it: p = 0
+constexpr int kDkvRows = 32;      // queries of a dK/dV stage
+constexpr int kDqKeys = 32;       // keys of a dQ stage
 
 template <int D>
 struct BwdTile {
-  static constexpr int kPadded = D + 4;   // a row read by one lane each
-  static constexpr int kDense = kBlock * D;
-  static constexpr int kPad = kBlock * kPadded;
-  static constexpr int kSq = kBlock * kBlock;
-  // dQ: Q and dO dense, K and V padded, one dS tile
-  static constexpr size_t kDqBytes = sizeof(float) * (2 * kDense + 2 * kPad + kSq);
-  // dK/dV: K and V dense, Q and dO padded, a P tile and a dS tile
+  static constexpr int kLd = D + 4;           // padded row of a tile
+  static constexpr int kTile = kBlock * kLd;  // floats of a 64 x D tile
+  static constexpr int kNT = D / 8;           // mma n-tiles across D
+  // keys of one dQ pass over S and dP: the whole 32-key stage, or half of it
+  // at D = 128, where dQ's accumulators take 64 registers
+  static constexpr int kChunkDq = D == 128 ? 16 : 32;
+  // dQ: Q and dO, two stages of kDqKeys keys' K, V and key bias, and the
+  // tf32 remainders of a stage's K and V; the count and the list of live
+  // key tiles follow (an int each, sized at launch)
+  static constexpr int kDqStage = 2 * kDqKeys * kLd + kDqKeys;
+  static constexpr size_t kDqBytes =
+      sizeof(float) * (2 * kTile + 2 * kDqStage + 2 * kDqKeys * kLd);
+  // dK/dV: K and V, two stages of kDkvRows queries' Q, dO, lse and delta,
+  // the tf32 remainders of a stage's Q and dO, then each thread's running dv
+  // sums (D / 2 floats)
+  static constexpr int kDkvStage = 2 * kDkvRows * kLd + 2 * kDkvRows;
   static constexpr size_t kDkvBytes =
-      sizeof(float) * (2 * kDense + 2 * kPad + 2 * kSq);
+      sizeof(float) * (2 * kTile + 2 * kDkvStage + 2 * kDkvRows * kLd +
+                       kThreads * D / 2);
 };
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// Element (r, c) of a tile is at r * (D + 4) + c: a row 4 banks on from the
+// one before, so that a warp's fragment reads (rows g, columns t; and rows
+// 2t + e, columns g) hit 32 distinct banks, and every read is one base
+// register per thread plus a constant.
+template <int D>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * BwdTile<D>::kLd + c;
 }
 
-// rows [r0, r0 + kBlock) of a (T, D) matrix into shared memory with row
-// stride `stride` floats, zero past T
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const float* src, int r0, int T) {
-  constexpr int D4 = D / 4;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = threadIdx.x; i < kBlock * D4; i += kThreads) {
-    const int r = i / D4, c4 = i % D4;
-    float4 val = zero4;
-    if (r0 + r < T)
-      val = reinterpret_cast<const float4*>(src + (long long)(r0 + r) * D)[c4];
-    reinterpret_cast<float4*>(dst + r * stride)[c4] = val;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared; valid false writes zeros instead.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + R) of a (T, D) matrix into a swizzled tile, zero past T
+template <int D, int R = kBlock>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int T) {
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < R * C4; i += kThreads) {
+    const int r = i / C4, c = (i % C4) * 4;
+    const bool ok = r0 + r < T;
+    cp_async16(dst + at<D>(r, c),
+               ok ? src + (long long)(r0 + r) * D + c : src, ok);
   }
+}
+
+// values [r0, r0 + R) of a (T,) row into shared memory, zero past T
+template <int R = kBlock>
+__device__ __forceinline__ void load_row(float* dst, const float* src, int r0,
+                                         int T) {
+  if (threadIdx.x < R) {
+    const bool ok = r0 + (int)threadIdx.x < T;
+    cp_async4(dst + threadIdx.x, ok ? src + r0 + threadIdx.x : src, ok);
+  }
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero: cvt.rna.tf32.f32's rounding (infinities and NaNs stay), in the two
+// integer operations it comes to, where the instruction itself lowers to a
+// longer sequence
+__device__ __forceinline__ unsigned tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to within 2^-22 |x|, both tf32
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d = a (16 x 8, row) * b (8 x 8, col) + c, tf32 inputs, fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         const unsigned* b, const float* c) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// acc += a * b to fp32 accuracy: the two cross terms and hi * hi into a fresh
+// accumulator, which is added to acc rounding to nearest
+__device__ __forceinline__ void mma3(float* acc, const unsigned* ahi,
+                                     const unsigned* alo, const unsigned* bhi,
+                                     const unsigned* blo) {
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  float t[4];
+  mma_tf32(t, ahi, blo, zero);
+  mma_tf32(t, alo, bhi, t);
+  mma_tf32(t, ahi, bhi, t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+}
+
+// A fragment of rows r and r + 8 from a tile whose columns are the
+// contraction index: k-slots t and t + 4 are columns c and c + 4 (c = 8 kk
+// + t).
+template <int D>
+__device__ __forceinline__ void frag_a(const float* tile, int r, int c,
+                                       unsigned* hi, unsigned* lo) {
+  split(tile[at<D>(r, c)], hi[0], lo[0]);
+  split(tile[at<D>(r + 8, c)], hi[1], lo[1]);
+  split(tile[at<D>(r, c + 4)], hi[2], lo[2]);
+  split(tile[at<D>(r + 8, c + 4)], hi[3], lo[3]);
+}
+
+// B fragment of column n from a tile split into tf32 halves (hi in place,
+// lo in a tile of the same layout): nk, a tile whose rows are the n index
+// and whose columns the contraction index (c = 8 kk + t); kn, a tile whose
+// rows are the contraction index in the permuted order of frag_acc (k = 8 kk
+// + 2t: rows k and k + 1)
+template <int D>
+__device__ __forceinline__ void pre_b_nk(const float* hit, const float* lot,
+                                         int n, int c, unsigned* hi,
+                                         unsigned* lo) {
+  hi[0] = __float_as_uint(hit[at<D>(n, c)]);
+  hi[1] = __float_as_uint(hit[at<D>(n, c + 4)]);
+  lo[0] = __float_as_uint(lot[at<D>(n, c)]);
+  lo[1] = __float_as_uint(lot[at<D>(n, c + 4)]);
+}
+
+template <int D>
+__device__ __forceinline__ void pre_b_kn(const float* hit, const float* lot,
+                                         int k, int n, unsigned* hi,
+                                         unsigned* lo) {
+  hi[0] = __float_as_uint(hit[at<D>(k, n)]);
+  hi[1] = __float_as_uint(hit[at<D>(k + 1, n)]);
+  lo[0] = __float_as_uint(lot[at<D>(k, n)]);
+  lo[1] = __float_as_uint(lot[at<D>(k + 1, n)]);
+}
+
+// R rows of a tile into tf32 halves: hi in place, lo to `lo` (the same
+// layout)
+template <int D, int R>
+__device__ __forceinline__ void split_tile(float* tile, float* lo) {
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < R * C4; i += kThreads) {
+    const int o = at<D>(i / C4, (i % C4) * 4);
+    float4 x = *reinterpret_cast<float4*>(tile + o), h, l;
+    h.x = __uint_as_float(tf32(x.x)); l.x = __uint_as_float(tf32(x.x - h.x));
+    h.y = __uint_as_float(tf32(x.y)); l.y = __uint_as_float(tf32(x.y - h.y));
+    h.z = __uint_as_float(tf32(x.z)); l.z = __uint_as_float(tf32(x.z - h.z));
+    h.w = __uint_as_float(tf32(x.w)); l.w = __uint_as_float(tf32(x.w - h.w));
+    *reinterpret_cast<float4*>(tile + o) = h;
+    *reinterpret_cast<float4*>(lo + o) = l;
+  }
+}
+
+// The A fragment of a k-step from the accumulator fragment of the n-tile
+// that an S-shaped product left: (c0, c1, c2, c3) hold (row g, cols 2t,
+// 2t + 1) and (row g + 8, the same), taken as k-slots (t, t + 4) of rows g
+// and g + 8: the contraction runs over the tile's columns permuted, which
+// pre_b_kn matches.
+__device__ __forceinline__ void frag_acc(const float* c, unsigned* hi,
+                                         unsigned* lo) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ bool live_key(const float* brow, int key, int T) {
+  return key < T && (brow == nullptr || !(brow[key] <= kDeadBias));
 }
 
 template <int D>
@@ -102,116 +295,152 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta,
                     const float* __restrict__ bias, float* __restrict__ dq,
                     int T, float scale, int causal) {
-  constexpr int KS = BwdTile<D>::kPadded;
-  constexpr int D4 = D / 4;
-  constexpr int DV = D / 32;
+  using Tile = BwdTile<D>;
+  constexpr int NT = Tile::kNT, CH = Tile::kChunkDq, NJ = CH / 8;
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BwdTile<D>::kDense;
-  float* Ks = dOs + BwdTile<D>::kDense;
-  float* Vs = Ks + BwdTile<D>::kPad;
-  float* dSs = Vs + BwdTile<D>::kPad;
+  float* dOs = Qs + Tile::kTile;
+  float* stages = dOs + Tile::kTile;   // K, V, key bias; two of them
+  float* lo_k = stages + 2 * Tile::kDqStage;    // the tf32 remainders
+  float* lo_v = lo_k + kDqKeys * Tile::kLd;
+  int* n_live = reinterpret_cast<int*>(lo_v + kDqKeys * Tile::kLd);
+  int* tiles = n_live + 1;
+  constexpr int KT = kDqKeys;
 
-  const int lane = threadIdx.x % 32;
-  const int row0 = (threadIdx.x / 32) * kRowsPerWarp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kBlock;
   const long long bh = blockIdx.y;
   const long long base = bh * T * D;
+  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
 
-  load_tile<D>(Qs, D, q + base, q0, T);
-  load_tile<D>(dOs, D, dout + base, q0, T);
+  // the 32-key tiles to walk: up to the causal diagonal, and only those with
+  // a live key (a dead tile adds exact zeros)
+  int n_tiles = (T + KT - 1) / KT;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlock, T) - 1) / KT + 1);
+  for (int i = warp; i < n_tiles; i += kWarps) {
+    const bool live = __any_sync(0xffffffffu, live_key(brow, i * KT + lane, T));
+    if (lane == 0) tiles[i] = live;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (tiles[i]) tiles[n++] = i;
+    *n_live = n;
+  }
+  __syncthreads();
+  const int nl = *n_live;
 
-  float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp], acc[kRowsPerWarp][DV];
+  // this thread's accumulator rows; columns 8n + 2t and + 1
+  const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
+  float acc[NT][4];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
-    lse_r[r] = qi < T ? lse[bh * T + qi] : 0.f;
-    delta_r[r] = qi < T ? delta[bh * T + qi] : 0.f;
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  if (nl > 0) {
+    auto issue = [&](int i) {
+      float* st = stages + (i & 1) * Tile::kDqStage;
+      const int k0 = tiles[i] * KT;
+      load_tile<D, KT>(st, k + base, k0, T);
+      load_tile<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
+      if (brow != nullptr) load_row<KT>(st + 2 * KT * Tile::kLd, brow, k0, T);
+    };
+    load_tile<D>(Qs, q + base, q0, T);
+    load_tile<D>(dOs, dout + base, q0, T);
+    issue(0);
+    cp_async_commit();
+    const float lse_a = row_a < T ? lse[bh * T + row_a] : 0.f;
+    const float lse_b = row_b < T ? lse[bh * T + row_b] : 0.f;
+    const float delta_a = row_a < T ? delta[bh * T + row_a] : 0.f;
+    const float delta_b = row_b < T ? delta[bh * T + row_b] : 0.f;
+
+    for (int i = 0; i < nl; ++i) {
+      if (i + 1 < nl) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();                // tile i (and Q, dO) have landed
+      __syncthreads();
+      float* Kw = stages + (i & 1) * Tile::kDqStage;
+      split_tile<D, KT>(Kw, lo_k);
+      split_tile<D, KT>(Kw + KT * Tile::kLd, lo_v);
+      __syncthreads();
+      const float* Ks = Kw;
+      const float* Vs = Ks + KT * Tile::kLd;
+      const float* Bs = Vs + KT * Tile::kLd;
+      const int k0 = tiles[i] * KT;
+
 #pragma unroll
-    for (int c = 0; c < DV; ++c) acc[r][c] = 0.f;
+      for (int c0 = 0; c0 < KT; c0 += CH) {
+        // S = Q K^T and dP = dO V^T over the chunk's keys
+        float s[NJ][4], dp[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          unsigned qh[4], ql[4], oh[4], ol[4];
+          frag_a<D>(Qs, 16 * warp + g, 8 * kk + t, qh, ql);
+          frag_a<D>(dOs, 16 * warp + g, 8 * kk + t, oh, ol);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            unsigned kh[2], kl[2], vh[2], vl[2];
+            pre_b_nk<D>(Ks, lo_k, c0 + 8 * j + g, 8 * kk + t, kh, kl);
+            pre_b_nk<D>(Vs, lo_v, c0 + 8 * j + g, 8 * kk + t, vh, vl);
+            mma3(s[j], qh, ql, kh, kl);
+            mma3(dp[j], oh, ol, vh, vl);
+          }
+        }
+        // dS = P * (dP - delta) * scale, P = exp(S * scale + bias - lse)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            const int key = k0 + col;
+            const bool lo_row = e < 2;
+            float x = s[j][e] * scale + (brow != nullptr ? Bs[col] : 0.f);
+            if (causal && key > (lo_row ? row_a : row_b)) x = kNegInf;
+            const float p = key < T ? expf(x - (lo_row ? lse_a : lse_b)) : 0.f;
+            s[j][e] = p * (dp[j][e] - (lo_row ? delta_a : delta_b)) * scale;
+          }
+        // dQ += dS K over the chunk's keys
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          unsigned ah[4], al[4];
+          frag_acc(s[j], ah, al);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            unsigned kh[2], kl[2];
+            pre_b_kn<D>(Ks, lo_k, c0 + 8 * j + 2 * t, 8 * n + g, kh, kl);
+            mma3(acc[n], ah, al, kh, kl);
+          }
+        }
+      }
+      __syncthreads();                   // the stage is refilled next
+    }
   }
 
-  const int q_last = min(q0 + kBlock, T) - 1;
-  const int n_tiles = (T + kBlock - 1) / kBlock;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlock;
-    if (causal && k0 > q_last) break;   // uniform across the block
-    __syncthreads();                     // the previous tile is consumed
-    load_tile<D>(Ks, KS, k + base, k0, T);
-    load_tile<D>(Vs, KS, v + base, k0, T);
-    __syncthreads();
-
-    // s = q.k and dp = do.v for keys k0 + lane and k0 + lane + 32
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    const float4* ka = reinterpret_cast<const float4*>(Ks + lane * KS);
-    const float4* kb = reinterpret_cast<const float4*>(Ks + (lane + 32) * KS);
-    const float4* va = reinterpret_cast<const float4*>(Vs + lane * KS);
-    const float4* vb = reinterpret_cast<const float4*>(Vs + (lane + 32) * KS);
-#pragma unroll 2
-    for (int d4 = 0; d4 < D4; ++d4) {
-      const float4 a = ka[d4], b = kb[d4], x = va[d4], y = vb[d4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qr = reinterpret_cast<const float4*>(Qs + (row0 + r) * D)[d4];
-        const float4 orow = reinterpret_cast<const float4*>(dOs + (row0 + r) * D)[d4];
-        s[r][0] = dot4(qr, a, s[r][0]);
-        s[r][1] = dot4(qr, b, s[r][1]);
-        dp[r][0] = dot4(orow, x, dp[r][0]);
-        dp[r][1] = dot4(orow, y, dp[r][1]);
-      }
-    }
-
-    const int key_a = k0 + lane, key_b = k0 + lane + 32;
-    const bool in_a = key_a < T, in_b = key_b < T;
-    float bias_a = 0.f, bias_b = 0.f;
-    if (bias != nullptr) {
-      if (in_a) bias_a = bias[bh * T + key_a];
-      if (in_b) bias_b = bias[bh * T + key_b];
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qi = q0 + row0 + r;
-      float sa = s[r][0] * scale + bias_a;
-      float sb = s[r][1] * scale + bias_b;
-      if (causal) {
-        if (key_a > qi) sa = kNegInf;
-        if (key_b > qi) sb = kNegInf;
-      }
-      const float pa = in_a ? expf(sa - lse_r[r]) : 0.f;
-      const float pb = in_b ? expf(sb - lse_r[r]) : 0.f;
-      dSs[(row0 + r) * kBlock + lane] = pa * (dp[r][0] - delta_r[r]) * scale;
-      dSs[(row0 + r) * kBlock + lane + 32] = pb * (dp[r][1] - delta_r[r]) * scale;
-    }
-    __syncwarp();
-
-    // dq[r] += sum_j ds[r, j] k[j]
-    const int kn = min(kBlock, T - k0);
-    for (int j = 0; j < kn; ++j) {
-      float kk[DV];
-#pragma unroll
-      for (int c = 0; c < DV; ++c) kk[c] = Ks[j * KS + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float ds = dSs[(row0 + r) * kBlock + j];
-#pragma unroll
-        for (int c = 0; c < DV; ++c) acc[r][c] = fmaf(ds, kk[c], acc[r][c]);
-      }
-    }
-    __syncwarp();   // dS is rewritten by the next tile
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row_a < T)
+      *reinterpret_cast<float2*>(dq + base + (long long)row_a * D + col) =
+          make_float2(acc[n][0], acc[n][1]);
+    if (row_b < T)
+      *reinterpret_cast<float2*>(dq + base + (long long)row_b * D + col) =
+          make_float2(acc[n][2], acc[n][3]);
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= T) continue;
-    float* o = dq + base + (long long)qi * D;
-#pragma unroll
-    for (int c = 0; c < DV; ++c) o[lane + 32 * c] = acc[r][c];
-  }
+// a + b rounded to a float, and in err its rounding error exactly (2Sum:
+// for any magnitudes of a and b)
+__device__ __forceinline__ float two_sum(float a, float b, float& err) {
+  const float s = a + b;
+  const float bb = s - a;
+  err = (a - (s - bb)) + (b - bb);
+  return s;
 }
 
 template <int D, bool kDbias>
@@ -224,162 +453,210 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ bias, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ dbias,
                      int T, float scale, int causal) {
-  constexpr int QS = BwdTile<D>::kPadded;
-  constexpr int D4 = D / 4;
-  constexpr int DV = D / 32;
+  using Tile = BwdTile<D>;
+  constexpr int NT = Tile::kNT, R = kDkvRows, NJ = R / 8;
 
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BwdTile<D>::kDense;
-  float* Qs = Vs + BwdTile<D>::kDense;
-  float* dOs = Qs + BwdTile<D>::kPad;
-  float* Ps = dOs + BwdTile<D>::kPad;     // [key row][query]
-  float* dSs = Ps + BwdTile<D>::kSq;
+  float* Vs = Ks + Tile::kTile;
+  float* stages = Vs + Tile::kTile;    // Q, dO, lse, delta; two of them
+  float* lo_q = stages + 2 * Tile::kDkvStage;   // the tf32 remainders
+  float* lo_o = lo_q + kDkvRows * Tile::kLd;
+  // this thread's running dv: float4 (n, thread) at [n][threadIdx.x]
+  float4* sums = reinterpret_cast<float4*>(lo_o + kDkvRows * Tile::kLd);
 
-  const int lane = threadIdx.x % 32;
-  const int row0 = (threadIdx.x / 32) * kRowsPerWarp;   // this warp's keys
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int k0 = blockIdx.x * kBlock;
   const long long bh = blockIdx.y;
   const long long base = bh * T * D;
+  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
 
-  load_tile<D>(Ks, D, k + base, k0, T);
-  load_tile<D>(Vs, D, v + base, k0, T);
-
-  float bias_j[kRowsPerWarp], dk_acc[kRowsPerWarp][DV], dv_acc[kRowsPerWarp][DV];
-  float db_acc[kRowsPerWarp];   // this lane's query rows, each of the keys
+  // this thread's accumulator rows are keys key_a and key_b; columns 8n + 2t
+  // and + 1. The products go to dk_t and dv_t, which are added every 64
+  // queries to the running sums (dk_s, and dv's in shared memory, where
+  // registers ran out), with their rounding error carried into the next
+  // partial (compensated summation: a sum over thousands of queries rounds
+  // about as if once).
+  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+  float dk_t[NT][4], dv_t[NT][4], dk_s[NT][4];
 #pragma unroll
-  for (int jj = 0; jj < kRowsPerWarp; ++jj) {
-    const int kj = k0 + row0 + jj;
-    bias_j[jj] = (bias != nullptr && kj < T) ? bias[bh * T + kj] : 0.f;
-    db_acc[jj] = 0.f;
+  for (int n = 0; n < NT; ++n) {
 #pragma unroll
-    for (int c = 0; c < DV; ++c) dk_acc[jj][c] = dv_acc[jj][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_t[n][e] = dv_t[n][e] = dk_s[n][e] = 0.f;
+    sums[n * kThreads + threadIdx.x] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  float db_a = 0.f, db_b = 0.f;
 
-  // causal: the Q tiles before this K tile see none of its keys
-  const int n_tiles = (T + kBlock - 1) / kBlock;
-  for (int t = causal ? blockIdx.x : 0; t < n_tiles; ++t) {
-    const int q0 = t * kBlock;
-    __syncthreads();                     // the previous tile is consumed
-    load_tile<D>(Qs, QS, q + base, q0, T);
-    load_tile<D>(dOs, QS, dout + base, q0, T);
-    __syncthreads();
+  // a block whose keys are all dead writes zeros
+  const bool any = threadIdx.x < kBlock && live_key(brow, k0 + threadIdx.x, T);
+  if (__syncthreads_or(any)) {
+    const float bias_a = (brow != nullptr && key_a < T) ? brow[key_a] : 0.f;
+    const float bias_b = (brow != nullptr && key_b < T) ? brow[key_b] : 0.f;
+    // causal: the query tiles before this key tile see none of its keys
+    const int t0 = causal ? k0 / R : 0;
+    const int n_q = (T + R - 1) / R;
+    auto issue = [&](int i) {
+      float* st = stages + ((i - t0) & 1) * Tile::kDkvStage;
+      const int r0 = i * R;
+      load_tile<D, R>(st, q + base, r0, T);
+      load_tile<D, R>(st + R * Tile::kLd, dout + base, r0, T);
+      load_row<R>(st + 2 * R * Tile::kLd, lse + bh * T, r0, T);
+      load_row<R>(st + 2 * R * Tile::kLd + R, delta + bh * T, r0, T);
+    };
+    load_tile<D, kBlock>(Ks, k + base, k0, T);
+    load_tile<D, kBlock>(Vs, v + base, k0, T);
+    issue(t0);
+    cp_async_commit();
 
-    const int ra = q0 + lane, rb = q0 + lane + 32;
-    const bool in_a = ra < T, in_b = rb < T;
-    const float lse_a = in_a ? lse[bh * T + ra] : 0.f;
-    const float lse_b = in_b ? lse[bh * T + rb] : 0.f;
-    const float delta_a = in_a ? delta[bh * T + ra] : 0.f;
-    const float delta_b = in_b ? delta[bh * T + rb] : 0.f;
+    for (int i = t0; i < n_q; ++i) {
+      if (i + 1 < n_q) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();                // tile i (and K, V) have landed
+      __syncthreads();
+      float* Qw = stages + ((i - t0) & 1) * Tile::kDkvStage;
+      split_tile<D, R>(Qw, lo_q);
+      split_tile<D, R>(Qw + R * Tile::kLd, lo_o);
+      __syncthreads();
+      const float* Qs = Qw;
+      const float* dOs = Qs + R * Tile::kLd;
+      const float* Ls = dOs + R * Tile::kLd;
+      const float* Dl = Ls + R;
+      const int r0 = i * R;
 
-    // s = k.q and dp = v.do for query rows ra and rb
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
+      // S^T = K Q^T and dP^T = V dO^T over the tile's queries
+      float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int jj = 0; jj < kRowsPerWarp; ++jj)
-      s[jj][0] = s[jj][1] = dp[jj][0] = dp[jj][1] = 0.f;
-    const float4* qa = reinterpret_cast<const float4*>(Qs + lane * QS);
-    const float4* qb = reinterpret_cast<const float4*>(Qs + (lane + 32) * QS);
-    const float4* oa = reinterpret_cast<const float4*>(dOs + lane * QS);
-    const float4* ob = reinterpret_cast<const float4*>(dOs + (lane + 32) * QS);
-#pragma unroll 2
-    for (int d4 = 0; d4 < D4; ++d4) {
-      const float4 a = qa[d4], b = qb[d4], x = oa[d4], y = ob[d4];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int jj = 0; jj < kRowsPerWarp; ++jj) {
-        const float4 kr = reinterpret_cast<const float4*>(Ks + (row0 + jj) * D)[d4];
-        const float4 vr = reinterpret_cast<const float4*>(Vs + (row0 + jj) * D)[d4];
-        s[jj][0] = dot4(a, kr, s[jj][0]);
-        s[jj][1] = dot4(b, kr, s[jj][1]);
-        dp[jj][0] = dot4(x, vr, dp[jj][0]);
-        dp[jj][1] = dot4(y, vr, dp[jj][1]);
-      }
-    }
-
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < kRowsPerWarp; ++jj) {
-      const int kj = k0 + row0 + jj;
-      float sa = s[jj][0] * scale + bias_j[jj];
-      float sb = s[jj][1] * scale + bias_j[jj];
-      if (causal) {
-        if (kj > ra) sa = kNegInf;
-        if (kj > rb) sb = kNegInf;
-      }
-      const bool live = kj < T;
-      const float pa = (live && in_a) ? expf(sa - lse_a) : 0.f;
-      const float pb = (live && in_b) ? expf(sb - lse_b) : 0.f;
-      // dL/ds, unscaled: the bias cotangent's terms; dS is it times scale
-      const float dsa = pa * (dp[jj][0] - delta_a);
-      const float dsb = pb * (dp[jj][1] - delta_b);
-      Ps[(row0 + jj) * kBlock + lane] = pa;
-      Ps[(row0 + jj) * kBlock + lane + 32] = pb;
-      dSs[(row0 + jj) * kBlock + lane] = dsa * scale;
-      dSs[(row0 + jj) * kBlock + lane + 32] = dsb * scale;
-      if (kDbias) db_acc[jj] += dsa + dsb;
-    }
-    __syncwarp();
-
-    // dv[j] += sum_r p[r, j] do[r];  dk[j] += sum_r ds[r, j] q[r]
-    const int qn = min(kBlock, T - q0);
-    for (int r = 0; r < qn; ++r) {
-      float oo[DV], qq[DV];
+      for (int kk = 0; kk < D / 8; ++kk) {
+        unsigned kh[4], kl[4], vh[4], vl[4];
+        frag_a<D>(Ks, 16 * warp + g, 8 * kk + t, kh, kl);
+        frag_a<D>(Vs, 16 * warp + g, 8 * kk + t, vh, vl);
 #pragma unroll
-      for (int c = 0; c < DV; ++c) {
-        oo[c] = dOs[r * QS + lane + 32 * c];
-        qq[c] = Qs[r * QS + lane + 32 * c];
-      }
-#pragma unroll
-      for (int jj = 0; jj < kRowsPerWarp; ++jj) {
-        const float p = Ps[(row0 + jj) * kBlock + r];
-        const float ds = dSs[(row0 + jj) * kBlock + r];
-#pragma unroll
-        for (int c = 0; c < DV; ++c) {
-          dv_acc[jj][c] = fmaf(p, oo[c], dv_acc[jj][c]);
-          dk_acc[jj][c] = fmaf(ds, qq[c], dk_acc[jj][c]);
+        for (int j = 0; j < NJ; ++j) {
+          unsigned qh[2], ql[2], oh[2], ol[2];
+          pre_b_nk<D>(Qs, lo_q, 8 * j + g, 8 * kk + t, qh, ql);
+          pre_b_nk<D>(dOs, lo_o, 8 * j + g, 8 * kk + t, oh, ol);
+          mma3(s[j], kh, kl, qh, ql);
+          mma3(dp[j], vh, vl, oh, ol);
         }
       }
+      // P^T, and dS^T = P^T * (dP^T - delta) * scale; dbias sums the
+      // unscaled dS over the queries
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int query = r0 + col;
+          const bool lo_row = e < 2;
+          const int key = lo_row ? key_a : key_b;
+          float x = s[j][e] * scale + (lo_row ? bias_a : bias_b);
+          if (causal && key > query) x = kNegInf;
+          const float p = (key < T && query < T) ? expf(x - Ls[col]) : 0.f;
+          const float ds = p * (dp[j][e] - Dl[col]);
+          if (kDbias) {
+            if (lo_row) db_a += ds;
+            else db_b += ds;
+          }
+          s[j][e] = p;
+          dp[j][e] = ds * scale;
+        }
+      // dV += P^T dO and dK += dS^T Q over the tile's queries
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        unsigned ph[4], pl[4], dh[4], dl[4];
+        frag_acc(s[j], ph, pl);
+        frag_acc(dp[j], dh, dl);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          unsigned bh2[2], bl2[2];
+          pre_b_kn<D>(dOs, lo_o, 8 * j + 2 * t, 8 * n + g, bh2, bl2);
+          mma3(dv_t[n], ph, pl, bh2, bl2);
+          pre_b_kn<D>(Qs, lo_q, 8 * j + 2 * t, 8 * n + g, bh2, bl2);
+          mma3(dk_t[n], dh, dl, bh2, bl2);
+        }
+      }
+      // every 64 queries and at the end, into the running sums; the rounding
+      // error starts the next partial
+      if (((i - t0) & 1) || i + 1 == n_q) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dk_s[n][e] = two_sum(dk_s[n][e], dk_t[n][e], dk_t[n][e]);
+        float4 b = sums[n * kThreads + threadIdx.x];
+        b.x = two_sum(b.x, dv_t[n][0], dv_t[n][0]);
+        b.y = two_sum(b.y, dv_t[n][1], dv_t[n][1]);
+        b.z = two_sum(b.z, dv_t[n][2], dv_t[n][2]);
+        b.w = two_sum(b.w, dv_t[n][3], dv_t[n][3]);
+        sums[n * kThreads + threadIdx.x] = b;
+      }
+      }
+      __syncthreads();                   // the stage is refilled next
     }
-    __syncwarp();   // P and dS are rewritten by the next tile
   }
 
   if (kDbias) {
+    // the four threads of a quad hold the same two keys
 #pragma unroll
-    for (int jj = 0; jj < kRowsPerWarp; ++jj) {
-      float sum = db_acc[jj];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const int kj = k0 + row0 + jj;
-      if (lane == 0 && kj < T) dbias[bh * T + kj] = sum;
+    for (int off = 1; off < 4; off <<= 1) {
+      db_a += __shfl_xor_sync(0xffffffffu, db_a, off);
+      db_b += __shfl_xor_sync(0xffffffffu, db_b, off);
+    }
+    if (t == 0) {
+      if (key_a < T) dbias[bh * T + key_a] = db_a;
+      if (key_b < T) dbias[bh * T + key_b] = db_b;
     }
   }
 
 #pragma unroll
-  for (int jj = 0; jj < kRowsPerWarp; ++jj) {
-    const int kj = k0 + row0 + jj;
-    if (kj >= T) continue;
-    float* ok = dk + base + (long long)kj * D;
-    float* ov = dv + base + (long long)kj * D;
-#pragma unroll
-    for (int c = 0; c < DV; ++c) {
-      ok[lane + 32 * c] = dk_acc[jj][c];
-      ov[lane + 32 * c] = dv_acc[jj][c];
+  for (int n = 0; n < NT; ++n) {
+    const float4 a = make_float4(dk_s[n][0], dk_s[n][1], dk_s[n][2], dk_s[n][3]);
+    const float4 b = sums[n * kThreads + threadIdx.x];
+    const int col = 8 * n + 2 * t;
+    if (key_a < T) {
+      const long long o = base + (long long)key_a * D + col;
+      *reinterpret_cast<float2*>(dk + o) =
+          make_float2(a.x + dk_t[n][0], a.y + dk_t[n][1]);
+      *reinterpret_cast<float2*>(dv + o) =
+          make_float2(b.x + dv_t[n][0], b.y + dv_t[n][1]);
+    }
+    if (key_b < T) {
+      const long long o = base + (long long)key_b * D + col;
+      *reinterpret_cast<float2*>(dk + o) =
+          make_float2(a.z + dk_t[n][2], a.w + dk_t[n][3]);
+      *reinterpret_cast<float2*>(dv + o) =
+          make_float2(b.z + dv_t[n][2], b.w + dv_t[n][3]);
     }
   }
 }
 
 constexpr int kMaxDevices = 64;
 
-// Above 48 KB a block's shared memory must be asked for explicitly. The
-// setting holds per device and kernel, so it is made on the first launch of
-// each and remembered (a device numbered past kMaxDevices asks every time).
+// Above 48 KB a block's shared memory must be asked for explicitly. The dQ
+// kernel's grows with T (its list of live key tiles), so each kernel is
+// allowed the device's whole opt-in size (less its static shared memory)
+// once; a launch still takes only what it asks for. The setting holds per
+// device and kernel, so it is made on the first launch of each and
+// remembered (a device numbered past kMaxDevices asks every time).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
-                       std::atomic<bool>* done) {
+cudaError_t allow_smem(Kernel kernel, int device, std::atomic<bool>* done) {
   const bool known = device >= 0 && device < kMaxDevices;
   if (known && done[device].load(std::memory_order_acquire))
     return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin - (int)attr.sharedSizeBytes);
   if (e == cudaSuccess && known)
     done[device].store(true, std::memory_order_release);
   return e;
@@ -391,11 +668,13 @@ int launch_dq(const float* q, const float* k, const float* v,
               const float* bias, float* dq, int bh, int T, float scale,
               int causal, int device, cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>,
-                                   BwdTile<D>::kDqBytes, device, done);
+  const cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, device, done);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, BwdTile<D>::kDqBytes, stream>>>(
+  const int n_tiles = (T + kBlock - 1) / kBlock;
+  const size_t bytes =
+      BwdTile<D>::kDqBytes + sizeof(int) * ((T + kDqKeys - 1) / kDqKeys + 1);
+  const dim3 grid((unsigned)n_tiles, (unsigned)bh);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
       q, k, v, dout, lse, delta, bias, dq, T, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -407,8 +686,8 @@ int launch_dkv_kernel(const float* q, const float* k, const float* v,
                       int bh, int T, float scale, int causal, int device,
                       cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D, kDbias>,
-                                   BwdTile<D>::kDkvBytes, device, done);
+  const cudaError_t e =
+      allow_smem(flash_bwd_dkv_kernel<D, kDbias>, device, done);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
   flash_bwd_dkv_kernel<D, kDbias>

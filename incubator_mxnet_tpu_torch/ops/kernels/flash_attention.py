@@ -116,30 +116,39 @@ flash_attention_forward.launches = 0
 
 def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
                                        scale=1.0, causal=False,
-                                       needs_dbias=False):
+                                       needs_dbias=False,
+                                       compute_dtype=torch.float32):
     """Plain attention backward on (BH, T, D) as the TPU kernels compute it
     (``_recompute_p_ds``): P = exp(s - lse) from the forward's lse, with s
     the scaled, biased and causally masked scores; delta = rowsum(dO * O);
     dS = P * (dP - delta) * scale. Returns ``(dq, dk, dv)``, and with
     ``needs_dbias`` also dbias = the sum over query rows of P * (dP -
-    delta), (BH, T) float32. A row whose keys are all masked (lse 0, out 0)
-    gives P = 0 and so no gradient; so does a masked key."""
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta), (BH, T). A row whose keys are all masked (lse 0, out 0) gives
+    P = 0 and so no gradient; so does a masked key.
+
+    The formulas run in ``compute_dtype``: float32 (the default) returns
+    the gradients in the inputs' dtypes and dbias in float32; float64
+    evaluates the same formulas on the same inputs in float64 and returns
+    float64, the oracle that the CUDA kernels are held to on the card."""
+    cd = compute_dtype
+    qf, kf, vf, dof = q.to(cd), k.to(cd), v.to(cd), do.to(cd)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float()[:, None, :]
+        s = s + bias.to(cd)[:, None, :]
     if causal:
         pos = torch.arange(q.shape[1], device=q.device)
         s = s.masked_fill(pos[:, None] < pos[None, :], _NEG_INF)
-    p = torch.exp(s - lse.float()[..., None])
-    delta = (dof * out.float()).sum(dim=-1)
+    p = torch.exp(s - lse.to(cd)[..., None])
+    delta = (dof * out.to(cd)).sum(dim=-1)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds_bias = p * (dp - delta[..., None])
     ds = ds_bias * scale
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)
-    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    grads = (dq, dk, dv)
+    if cd == torch.float32:
+        grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if needs_dbias:
         grads += (ds_bias.sum(dim=-2),)
     return grads

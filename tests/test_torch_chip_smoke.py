@@ -3,9 +3,11 @@
 The script itself runs only on a CUDA card. What is checked here needs no
 card: that a reading below a row's bound (which no card can beat: a
 torch.profiler trace that lost device events) is retaken with CUDA events
-and flagged if it stays below, and that every ``__global__`` kernel of the
-port's CUDA sources maps to its kernel's class in ``--profile``'s device
-time breakdown.
+and flagged if it stays below, with the lower of a row's two bounds where it
+has a tensor-core bound beside the CUDA-core one; that the SDPA backend is
+named from its kernels; and that every ``__global__`` kernel of the port's
+CUDA sources maps to its kernel's class in ``--profile``'s device time
+breakdown.
 """
 
 import pathlib
@@ -110,6 +112,72 @@ def test_bound_check_flags_only_columns_below_the_bound():
                                   library_ms=2.0) == dict(
         below_bound=True, below_bound_columns=["ms", "plain_ms"])
 
+
+
+def test_measure_with_a_tensor_core_bound_retakes_only_below_the_lower(
+        monkeypatch):
+    """A row whose work may run on the tensor cores (3xTF32 at a third of
+    the TF32 rate) carries both bounds: bound_ms at the fp32 CUDA-core rate
+    and tc_bound_ms at the tensor-core rate. A reading between the two is a
+    time and stands; only one below the lower bound is retaken and
+    flagged."""
+    flops = 67e9                       # 1 ms at 67 TFLOP/s
+    tc_ms = flops / chip_smoke.TF32X3_FLOPS_PER_S * 1e3
+    # 0.1 ms of bytes: both bounds are set by the operations, and the
+    # bytes are enough that two cold copies suffice
+    bytes_moved = ONE_MS_OF_BYTES // 10
+    assert chip_smoke.TF32X3_FLOPS_PER_S == pytest.approx(494.7e12 / 3)
+    assert tc_ms == pytest.approx(3 * 67 / 494.7)       # 0.406 ms
+    seen = _fake_clocks(monkeypatch,
+                        profiler=dict(kernel=0.6, plain=0.2, library=0.3),
+                        events=dict(kernel=9.0, plain=0.3, library=0.5))
+    row = chip_smoke.measure(
+        torch, "k", (4,), 0.0, 0.0, (torch.zeros(4),), kernel, plain,
+        library, bytes_moved, flops,
+        tc_peak_flops=chip_smoke.TF32X3_FLOPS_PER_S)
+    assert row["bound_ms"] == pytest.approx(1.0)
+    assert row["bound_by"] == "operations"
+    assert row["tc_bound_ms"] == pytest.approx(tc_ms)
+    # between the bounds: below the CUDA-core bound, above the tensor cores'
+    assert (row["ms"], row["timed_by"]) == (0.6, "profiler")
+    # below both: retaken, and the retake's 0.3 is still below
+    assert (row["plain_ms"], row["plain_timed_by"]) == (0.3, "events")
+    assert (row["library_ms"], row["library_timed_by"]) == (0.5, "events")
+    assert row["below_bound_columns"] == ["plain_ms"]
+    assert ("events", "kernel") not in seen
+
+
+def test_measure_without_a_tensor_core_bound_has_no_tc_field(monkeypatch):
+    _fake_clocks(monkeypatch, profiler=dict(kernel=2.0, plain=2.0),
+                 events=dict(kernel=2.0, plain=2.0))
+    row = _measure(library_fn=None)
+    assert "tc_bound_ms" not in row
+
+
+def test_pair_bound_of_the_flash_backward_at_the_training_shape():
+    """The dense pair's five products at (96, 512, 64): 16.1 GFLOP, 0.24 ms
+    on the fp32 CUDA cores and 97.6 us as 3xTF32 on the tensor cores."""
+    BH, T, D = 96, 512, 64
+    flops = 5 * 2 * BH * T * T * D
+    pair_bytes = 8 * BH * T * D * 4 + BH * T * 4
+    ms, by = chip_smoke.bound(pair_bytes, flops)
+    tc, tc_by = chip_smoke.bound(pair_bytes, flops,
+                                 chip_smoke.TF32X3_FLOPS_PER_S)
+    assert (by, tc_by) == ("operations", "operations")
+    assert ms == pytest.approx(0.2404, abs=1e-4)
+    assert tc == pytest.approx(0.0976, abs=1e-4)
+
+
+@pytest.mark.parametrize("names, backend", [
+    (["fmha_cutlassB_f32_aligned_64x64_k64_sm80(AttentionBackwardKernel)"],
+     "efficient (CUTLASS fmha)"),
+    (["void pytorch_flash::flash_bwd_dq_dk_dv_loop_seqk_parallel_kernel"],
+     "flash"),
+    (["cudnn_generated_fort_native_sdpa_sm90_flash_bprop"], "cudnn"),
+    (["ampere_sgemm_128x64_nn", "softmax_warp_backward"],
+     "math (matmuls and softmax)")])
+def test_sdpa_backend_is_named_from_its_kernels(names, backend):
+    assert chip_smoke.sdpa_backend(names) == backend
 
 # ------------------------------------------------------ profile classes
 GLOBAL = re.compile(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"

@@ -13,8 +13,17 @@ its gradient and those of q, k and v against ``jax.grad`` through the JAX
 ``flash_attention(..., interpret=True)``, for the (B, H, T) and the causal
 (B, T) form of tests/test_pallas.py and with a kv_mask, at rtol = atol =
 1e-5.
+
+The card holds the kernels to the plain formulas evaluated in float64
+(``compute_dtype=torch.float64``). Here that evaluation is held to the JAX
+package's gradients at the same 1e-5, the default float32 path is pinned
+bit for bit to the formulas as they stood, and the numerical premise of the
+kernels' 3xTF32 products (fp32 operands split into two TF32 halves, three
+TF32 products) is checked on the CPU by emulation: within 2e-5 of float64
+at the training path's ragged shape.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -36,13 +45,11 @@ fa = importlib.import_module(
     "incubator_mxnet_tpu_torch.ops.kernels.flash_attention")
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("D", [32, 64])
-@pytest.mark.parametrize("T", [64, 128, 256])
-def test_flash_gradients_match_pallas_interpret(T, D, causal):
-    """dq, dk, dv of sum(out * g) with a kv_mask whose first sample has no
-    live key (its gradients are exact zeros on both sides) and whose second
-    is ragged."""
+@functools.lru_cache(maxsize=None)
+def _pallas_case(T, D, causal):
+    """Inputs of sum(out * g) with a kv_mask whose first sample has no live
+    key and whose second is ragged, and jax.grad of it in q, k, v through
+    the JAX flash attention in interpret mode (shared by the tests below)."""
     B, H = 2, 2
     rs = np.random.RandomState(T + D + causal)
     q, k, v, g = (rs.randn(B, H, T, D).astype(np.float32) for _ in range(4))
@@ -56,6 +63,17 @@ def test_flash_gradients_match_pallas_interpret(T, D, causal):
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return (q, k, v, g, mask), tuple(np.asarray(w) for w in want)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("T", [64, 128, 256])
+def test_flash_gradients_match_pallas_interpret(T, D, causal):
+    """dq, dk, dv of sum(out * g) with a kv_mask whose first sample has no
+    live key (its gradients are exact zeros on both sides) and whose second
+    is ragged."""
+    (q, k, v, g, mask), want = _pallas_case(T, D, causal)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     out = tflash(*leaves, causal=causal, kv_mask=torch.from_numpy(mask))
     out.backward(torch.from_numpy(g))
@@ -64,6 +82,154 @@ def test_flash_gradients_match_pallas_interpret(T, D, causal):
                                    atol=ATOL, err_msg="d" + name)
         assert (t.grad[0] == 0).all() and (np.asarray(w)[0] == 0).all()
 
+
+
+def _mask_bias(mask, H):
+    """(B, T) kv_mask -> the (B*H, T) additive bias flash_attention builds."""
+    B, T = mask.shape
+    neg = torch.zeros(B, T).masked_fill(torch.from_numpy(mask) == 0,
+                                        fa._NEG_INF)
+    return neg[:, None, :].expand(B, H, T).reshape(B * H, T).contiguous()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("T", [64, 128, 256])
+def test_float64_backward_matches_pallas_interpret(T, D, causal):
+    """The plain backward's formulas in float64 (the card's oracle), from
+    the plain forward's out and lse, against the JAX package's gradients of
+    the same loss at rtol = atol = 1e-5; float64 results, exact zeros for
+    the sample with no live key."""
+    (q, k, v, g, mask), want = _pallas_case(T, D, causal)
+    B, H, _, _ = q.shape
+    q3, k3, v3, g3 = (torch.from_numpy(a).reshape(B * H, T, D)
+                      for a in (q, k, v, g))
+    bias = _mask_bias(mask, H)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa.flash_attention_reference(q3, k3, v3, bias, scale, causal)
+    got = fa.flash_attention_backward_reference(
+        q3, k3, v3, out, lse, g3, bias, scale, causal,
+        compute_dtype=torch.float64)
+    for name, t, w in zip("qkv", got, want):
+        assert t.dtype == torch.float64
+        np.testing.assert_allclose(t.reshape(B, H, T, D).numpy(), w,
+                                   rtol=RTOL, atol=ATOL, err_msg="d" + name)
+        assert (t.reshape(B, H, T, D)[0] == 0).all()
+
+
+def _backward_as_it_stood(q, k, v, out, lse, do, bias, scale, causal):
+    """flash_attention_backward_reference's float32 formulas, written out
+    as they stood before its compute_dtype argument."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = s + bias.float()[:, None, :]
+    if causal:
+        pos = torch.arange(q.shape[1])
+        s = s.masked_fill(pos[:, None] < pos[None, :], -1e30)
+    p = torch.exp(s - lse.float()[..., None])
+    delta = (dof * out.float()).sum(dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds_bias = p * (dp - delta[..., None])
+    ds = ds_bias * scale
+    return (torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf),
+            torch.matmul(p.transpose(-1, -2), dof), ds_bias.sum(dim=-2))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_float32_backward_is_bitwise_what_it_was(causal):
+    """The default compute_dtype (float32), which the CPU path and every
+    caller without the argument take, gives the same bits as the formulas
+    did before the argument existed, dbias included."""
+    rs = np.random.RandomState(21 + causal)
+    BH, T, D = 4, 96, 32
+    q, k, v, do = (torch.from_numpy(rs.randn(BH, T, D).astype(np.float32))
+                   for _ in range(4))
+    bias = torch.from_numpy(rs.randn(BH, T).astype(np.float32))
+    bias[1, 40:] = -1e30
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa.flash_attention_reference(q, k, v, bias, scale, causal)
+    got = fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, bias, scale, causal, needs_dbias=True)
+    explicit = fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, bias, scale, causal, needs_dbias=True,
+        compute_dtype=torch.float32)
+    before = _backward_as_it_stood(q, k, v, out, lse, do, bias, scale,
+                                   causal)
+    for a, b, c in zip(got, explicit, before):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _tf32(x):
+    """x rounded to TF32's 10 mantissa bits, to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 rounds (and as the kernels split)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b from TF32 halves: hi = tf32(x), lo = tf32(x - hi), and the
+    three products hi*lo + lo*hi + hi*hi in float32 (lo*lo dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.matmul(ah, bl) + torch.matmul(al, bh)) + torch.matmul(ah,
+                                                                        bh)
+
+
+def test_tf32_split_rounds_like_cvt_rna():
+    """Ties go away from zero; hi keeps 10 mantissa bits; hi + lo is x to
+    within 2^-22 of |x|."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4,
+                      1 + 3 * one_ulp / 4, 0.0, 3.0e-39])
+    want = torch.tensor([1 + one_ulp, -(1 + one_ulp), 1.0, 1 + one_ulp, 0.0,
+                         _tf32(torch.tensor([3.0e-39]))[0].item()])
+    assert torch.equal(_tf32(x), want)
+    rs = np.random.RandomState(3)
+    y = torch.from_numpy((rs.randn(10000) * 10.0 ** rs.uniform(
+        -20, 20, 10000)).astype(np.float32))
+    hi = _tf32(y)
+    lo = _tf32(y - hi)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    err = ((hi.double() + lo.double()) - y.double()).abs()
+    assert (err <= 2.0 ** -22 * y.double().abs()).all()
+
+
+def test_3xtf32_products_keep_the_backward_within_2e5_of_float64():
+    """The design's numerical premise, checked on the method and not on the
+    kernels (which run only on a card): the backward's five products in
+    3xTF32, at the training path's ragged shape (12, 512, 64) with key
+    lengths 512, 300, 0, 511, 64, 1, 450, 129 across the rows and the
+    forward's dead-row convention (lse 0), stay within 2e-5 of the same
+    formulas in float64, as the card's oracle requires. Plain TF32 (one
+    product of the hi halves) misses that by orders of magnitude."""
+    BH, T, D = 12, 512, 64
+    rs = np.random.RandomState(9)
+    q, k, v, do = (torch.from_numpy(rs.randn(BH, T, D).astype(np.float32))
+                   for _ in range(4))
+    lengths = [512, 300, 0, 511, 64, 1, 450, 129]
+    bias = torch.zeros(BH, T)
+    for i in range(BH):
+        bias[i, lengths[i % len(lengths)]:] = fa._NEG_INF
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa.flash_attention_reference(q, k, v, bias, scale)
+    exact = fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, bias, scale, compute_dtype=torch.float64)
+
+    def backward(mm):
+        s = mm(q, k.transpose(-1, -2)) * scale + bias[:, None, :]
+        p = torch.exp(s - lse[..., None])
+        delta = (do * out).sum(dim=-1)
+        ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+        return (mm(ds, k), mm(ds.transpose(-1, -2), q),
+                mm(p.transpose(-1, -2), do))
+
+    errs = [(a.double() - b).abs().max().item()
+            for a, b in zip(backward(_mm_3xtf32), exact)]
+    assert max(errs) <= 2e-5, errs
+    tf32_errs = [(a.double() - b).abs().max().item() for a, b in zip(
+        backward(lambda a, b: torch.matmul(_tf32(a), _tf32(b))), exact)]
+    assert min(tf32_errs) > 100 * 2e-5, tf32_errs
 
 def test_learned_kv_bias_gradient_raises_on_every_device():
     """A kv_bias that needs a gradient gets one on the CPU (the plain

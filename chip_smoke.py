@@ -16,11 +16,13 @@ Phases, each printing one line:
              time the card could take (its bound). A profiler reading below
              the bound is retaken on CUDA events, and each column names its
              clock; the int8 and bottleneck rows name the route their
-             kernel took. The flash backward rows are held to the plain
-             formulas in float64 and carry a second bound at the
-             tensor-core rate (3xTF32); a tc_rounding line shows how one
-             tf32 mma.sync rounds an fp32 sum, and the flash backward pair
-             names the SDPA backend its library column ran.
+             kernel took. The flash forward rows (dense and ragged) and
+             the flash backward rows carry a second bound at the
+             tensor-core rate (3xTF32) and name the SDPA backend their
+             library column ran; the backward rows are held to the plain
+             formulas in float64; a tc_rounding line shows how one tf32
+             mma.sync rounds an fp32 sum. The flash forward and decode
+             kernels must give the same bits on two calls.
 3. serve   - a BERT-base (768 x 12, vocab 30522) with seeded random weights
              is exported with the port's export_for_serving, loaded by a
              ModelServer on the card with buckets (128, 512), and 8
@@ -316,8 +318,6 @@ def measure(torch, name, shape, err, tolerance, inputs, kernel, plain,
 def kernels_phase(torch, dev):
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
-    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_forward, flash_attention_reference)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -350,47 +350,7 @@ def kernels_phase(torch, dev):
         lambda s: torch.softmax(s, dim=-1), 2 * s.numel() * 4,
         5 * s.numel()))
 
-    # flash forward at the 512 bucket: ragged key lengths, one sample with
-    # every key masked (its rows must come out exactly 0)
-    B, H, T, D = 8, 12, 512, 64
-    lengths = torch.tensor([512, 300, 0, 511, 64, 1, 450, 129], device=dev)
-    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).float()
-    q, k, v = randn(B, H, T, D), randn(B, H, T, D), randn(B, H, T, D)
-    scale = 1.0 / math.sqrt(D)
-    bias = torch.zeros(B, T, device=dev).masked_fill(mask == 0, -1e30)
-    bias = bias[:, None, :].expand(B, H, T).reshape(B * H, T).contiguous()
-    q3, k3, v3 = (t.reshape(B * H, T, D) for t in (q, k, v))
-    out, lse = flash_attention_forward(q3, k3, v3, bias, scale)
-    ref, ref_lse = flash_attention_reference(q3, k3, v3, bias, scale)
-    if out.reshape(B, H, T, D)[2].abs().max().item() != 0.0:
-        raise AssertionError("flash_attention_fwd: a fully masked sample "
-                             "did not give exact zeros")
-    pub = flash_attention(q, k, v, scale=scale, kv_mask=mask)
-    if not max_err(pub, ref.reshape(B, H, T, D)) <= 2e-5:
-        raise AssertionError("flash_attention (B, H, T, D) API disagrees")
-
-    def sdpa(q3, k3, v3, bias):
-        # the same function through the library: per-key bias as its mask
-        return F.scaled_dot_product_attention(
-            q3.view(B, H, T, D), k3.view(B, H, T, D), v3.view(B, H, T, D),
-            attn_mask=bias.view(B, H, 1, T), scale=scale)
-
-    # the work this run's data needs: QK^T and PV over the live keys only
-    # (the dense count, every query against every key, rides beside it)
-    live_flops = 4 * H * T * D * int(lengths.sum())
-    dense_flops = 4 * B * H * T * T * D
-    flash_bytes = (4 * B * H * T * D + 2 * B * H * T) * 4
-    rows.append(measure(
-        torch, "flash_attention_fwd", (B, H, T, D),
-        max(max_err(out, ref), max_err(lse, ref_lse)), 2e-5,
-        (q3, k3, v3, bias),
-        lambda q3, k3, v3, bias: flash_attention_forward(q3, k3, v3, bias,
-                                                         scale),
-        lambda q3, k3, v3, bias: flash_attention_reference(q3, k3, v3, bias,
-                                                           scale),
-        sdpa, flash_bytes, live_flops,
-        dense_bound_ms=bound(flash_bytes, dense_flops)[0],
-        live_key_share=live_flops / dense_flops))
+    rows += flash_forward_rows(torch, dev, randn)
     rows += flash_decode_rows(torch, dev, randn)
     log("tc_rounding", **tensor_core_rounding(torch, dev))
     rows += flash_backward_rows(torch, dev, randn)
@@ -403,6 +363,94 @@ def kernels_phase(torch, dev):
     rows.append(rtc_axpy_row(torch, dev, randn))
     for r in rows:
         log("kernels", **r)
+    return rows
+
+
+def flash_forward_cost(H, T, D, lengths):
+    """(bytes, live_flops, dense_flops) of the flash forward over B = len(
+    lengths) samples whose keys past lengths[b] are masked: q, k, v read
+    and out written once, lse written, and the bias read where any key is
+    masked; QK^T and PV over the live keys, and over every key."""
+    B = len(lengths)
+    dense = min(lengths) == T
+    flash_bytes = (4 * B * H * T * D + B * H * T
+                   + (0 if dense else B * H * T)) * 4
+    return (flash_bytes, 4 * H * T * D * sum(lengths),
+            4 * B * H * T * T * D)
+
+
+def flash_forward_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
+                       lengths=(512, 300, 0, 511, 64, 1, 450, 129)):
+    """The flash forward at the 512 bucket's shape, (8 * 12, 512, 64):
+    dense (no bias, as BERT pretraining runs it), then with the serve
+    phase's ragged padding mask, one sample with every key masked (its rows
+    must come out exactly 0). Each row's bound counts the work this run's
+    data needs: QK^T and PV over the live keys only (the dense count, every
+    query against every key, rides beside it). The kernel runs both
+    products on the tensor cores in 3xTF32, so each row also carries the
+    same work at that rate (`tc_bound_ms`); `bound_ms` stays the fp32
+    CUDA-core count. The library column is F.scaled_dot_product_attention
+    on the same inputs (the bias as its mask); the trace's kernel names say
+    which backend ran (`library_backend`)."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_forward, flash_attention_reference)
+    scale = 1.0 / math.sqrt(D)
+    rows = []
+    for lens in ([T] * B, list(lengths)):
+        dense = min(lens) == T
+        q, k, v = randn(B, H, T, D), randn(B, H, T, D), randn(B, H, T, D)
+        q3, k3, v3 = (t.reshape(B * H, T, D) for t in (q, k, v))
+        mask = bias = None
+        if not dense:
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None]).float()
+            bias = torch.zeros(B, T, device=dev).masked_fill(mask == 0,
+                                                             -1e30)
+            bias = bias[:, None, :].expand(B, H, T).reshape(B * H, T) \
+                .contiguous()
+        out, lse = flash_attention_forward(q3, k3, v3, bias, scale)
+        again = flash_attention_forward(q3, k3, v3, bias, scale)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError("flash_attention_fwd: two calls on the "
+                                 "same inputs differ")
+        ref, ref_lse = flash_attention_reference(q3, k3, v3, bias, scale)
+        dead = [i for i, n in enumerate(lens) if n == 0]
+        if dead and not (out.view(B, H, T, D)[dead].eq(0).all()
+                         and lse.view(B, H, T)[dead].eq(0).all()):
+            raise AssertionError("flash_attention_fwd: a fully masked "
+                                 "sample did not give exact zeros")
+        pub = flash_attention(q, k, v, scale=scale, kv_mask=mask)
+        if not max_err(pub, ref.reshape(B, H, T, D)) <= 2e-5:
+            raise AssertionError("flash_attention (B, H, T, D) API "
+                                 "disagrees")
+
+        def sdpa(q3, k3, v3, bias=None):
+            # the same function through the library: per-key bias as mask
+            return F.scaled_dot_product_attention(
+                q3.view(B, H, T, D), k3.view(B, H, T, D),
+                v3.view(B, H, T, D), scale=scale,
+                attn_mask=None if bias is None else bias.view(B, H, 1, T))
+
+        inputs = (q3, k3, v3) if dense else (q3, k3, v3, bias)
+        names = device_kernel_names(torch, sdpa, inputs)
+        flash_bytes, live_flops, dense_flops = flash_forward_cost(H, T, D,
+                                                                  lens)
+        rows.append(measure(
+            torch, "flash_attention_fwd", (B, H, T, D),
+            max(max_err(out, ref), max_err(lse, ref_lse)), 2e-5, inputs,
+            lambda q3, k3, v3, bias=None: flash_attention_forward(
+                q3, k3, v3, bias, scale),
+            lambda q3, k3, v3, bias=None: flash_attention_reference(
+                q3, k3, v3, bias, scale),
+            sdpa, flash_bytes, live_flops,
+            tc_peak_flops=TF32X3_FLOPS_PER_S,
+            dense_bound_ms=bound(flash_bytes, dense_flops)[0],
+            dense_tc_bound_ms=bound(flash_bytes, dense_flops,
+                                    TF32X3_FLOPS_PER_S)[0],
+            live_key_share=live_flops / dense_flops, lengths=lens,
+            library_backend=sdpa_backend(names),
+            library_kernels=[n[:120] for n in names[:4]]))
     return rows
 
 
@@ -866,7 +914,9 @@ def flash_decode_rows(torch, dev, randn):
     prefill chunk (S=1, C=32, past 480) and a decode step (S=8, C=1, ragged
     pasts with a dead row, one position, a block boundary and a full
     table). No one PyTorch call computes paged attention, so it has no
-    library time."""
+    library time: SDPA would need each sequence's pages gathered into a
+    dense K and V first (the plain version's work), and the row says so
+    (`library_note`)."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
         paged_flash_decode, paged_flash_decode_reference)
     H, D, bs, nb, mb = 12, 64, 16, 512, 64
@@ -880,6 +930,10 @@ def flash_decode_rows(torch, dev, randn):
         tab = tables[:S].contiguous()
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         o, m, l = paged_flash_decode(q, kp, vp, tab, lens)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (o, m, l), paged_flash_decode(q, kp, vp, tab, lens))):
+            raise AssertionError("flash_decode: two calls on the same "
+                                 "inputs differ")
         ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tab, lens)
         torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
         if not max_err(m, rm) <= 1e-5:
@@ -898,6 +952,9 @@ def flash_decode_rows(torch, dev, randn):
             (q, kp, vp, tab, lens), paged_flash_decode,
             paged_flash_decode_reference, None, fd_bytes,
             4 * C * H * D * live, m_err=max_err(m, rm),
+            library_note="no single PyTorch call computes paged attention: "
+                         "SDPA needs the pages gathered into a dense K "
+                         "and V first",
             l_rel_err=float(((l - rl).abs() / rl.clamp_min(1e-30)).max()),
             live_positions=live, lengths=lengths))
     return rows
@@ -3113,7 +3170,8 @@ def main(argv=None):
             library_timed_by=r["library_timed_by"],
             below_bound=r["below_bound"],
             below_bound_columns=r["below_bound_columns"],
-            **{k: v for k, v in r.items() if k.startswith("pair_")}))
+            **{k: v for k, v in r.items() if k.startswith("pair_") or k in (
+                "tc_bound_ms", "library_backend", "library_note")}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

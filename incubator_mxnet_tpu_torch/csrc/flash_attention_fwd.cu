@@ -6,29 +6,52 @@
 //
 // What bounds it on the H100: operations. At (B*H, T, D) = (96, 512, 64) the
 // two products take 4 * BH * T * T * D = 6.4 GFLOP against about 50 MB of q,
-// k, v and out: some 130 operations per byte. This kernel multiplies in fp32
-// on the CUDA cores (67 TFLOP/s), so its bound there is about 0.1 ms; the
-// bytes alone would take 0.015 ms.
+// k, v and out: some 130 operations per byte. On the fp32 CUDA cores (67
+// TFLOP/s) that is 96 us; as three TF32 tensor-core products each (494.7 / 3
+// TFLOP/s) 39 us; the bytes alone would take 15 us. With a padding mask the
+// work is what the live keys need.
 //
-// What the design does about it: one block per (64-row Q tile, b*h), eight
-// warps of eight query rows each. The block walks the 64-key K/V tiles in
-// order, staged in shared memory, so each K/V tile is read from device
-// memory once per Q tile and the T x T scores never leave the SM. A lane
-// scores two keys for each of its warp's eight rows from float4 reads of Q
-// (a broadcast) and of K (rows padded by 4 floats, so the reads do not
-// conflict); it then updates the running max m, sum l and the output
-// accumulator, all in registers, writes its probabilities to the warp's rows
-// of a shared P tile, and accumulates P.V with two (or D / 32) output columns
-// per lane, reading V from shared memory without conflicts. Tensor cores
-// (wgmma, with TMA feeding the tiles) are later work.
+// What the design does about it (the building blocks, shared with the
+// backward, are in flash_tf32.cuh):
+// - Both products, S = Q K^T and O += P V, run on the tensor cores (mma.sync
+//   m16n8k8, tf32) in 3xTF32, each k-step's three products into a fresh
+//   accumulator added on the CUDA cores: fp32-accurate, where plain TF32
+//   would miss the port's 2e-5 by orders of magnitude.
+// - One block owns a 64-row Q tile of one b*h; four warps own 16 rows each.
+//   The Q tile is split into tf32 halves once; at D <= 64 each warp then
+//   holds its rows' hi and lo A fragments in registers for the whole key
+//   walk (D registers a thread), at D = 128 they stay split in shared memory
+//   and are read per k-step (the registers would spill).
+// - K, V and the key bias stream in 32-key stages through a two-stage
+//   cp.async ring: stage i + 1 lands while stage i's products run. Once a
+//   stage has landed, the block splits K and V into tf32 halves in shared
+//   memory (hi in place, lo beside), so each value is split once.
+// - P never leaves registers: the contraction index of P V is permuted
+//   (frag_acc / pre_b_kn), so S's accumulator fragments, turned into
+//   probabilities in place, are P V's A fragments.
+// - The online softmax keeps m per fragment row (rows g and g + 8 of the
+//   warp), reduced over the quad of threads that share a row with two
+//   shuffles a tile; each thread sums its own columns' p into l, rescaled
+//   with m, and the quad adds its four partial sums once at the end.
+// - Key tiles with no live key are skipped. A key whose bias is at or below
+//   -0.5e30 (the mask's -1e30, plus any learned bias) gets p = exp(s - m) =
+//   0 exactly whenever its row has a live key, and a row without one comes
+//   out as zeros: the block votes once on each 32-key tile's biases (a warp
+//   per tile) and walks only tiles with a live key. A Q tile with none
+//   writes zeros and lse 0 without a pass over K. Tiles wholly above the
+//   causal diagonal are not visited either.
+// - 70 KB of shared memory a block at D = 64 (Q's hi, two stages, the
+//   remainders of K and V, over which Q's remainder is staged before the
+//   walk) and registers capped at 168 a thread: three blocks of four warps
+//   an SM.
 //
 // Semantics follow the TPU kernel: the additive per-key bias (kv_mask as
 // where(live, 0, -1e30), plus a learned kv_bias) is added to the scaled
-// scores; causal masking replaces scores above the diagonal by -1e30 and
-// skips K tiles that lie wholly above it; a query row whose running max stays
-// at or below -0.5e30 (all its keys masked) gives exact zeros and lse = 0.
-// Any T: positions past T in the last Q and K tiles are masked out. lse is
-// emitted as (B*H, T), without the TPU's 8-sublane replication.
+// scores; causal masking replaces scores above the diagonal by -1e30; a
+// query row whose running max stays at or below -0.5e30 (all its keys
+// masked) gives exact zeros and lse = 0. Any T: positions past T in the
+// last Q and K tiles are zero-filled and masked out. lse is emitted as
+// (B*H, T), without the TPU's 8-sublane replication.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,210 +60,247 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+#include "flash_tf32.cuh"
+
+constexpr int kFwdKeys = 32;      // keys of a K/V stage
 
 template <int D>
-struct Tile {
-  static constexpr int kKStride = D + 4;   // padded K row (floats)
-  static constexpr int kQ = kBlockQ * D;
-  static constexpr int kK = kBlockK * kKStride;
-  static constexpr int kV = kBlockK * D;
-  static constexpr int kP = kBlockQ * kBlockK;
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP);
+struct FwdTile {
+  static constexpr int kLd = D + 4;           // padded row of a tile
+  static constexpr int kTile = kBlock * kLd;  // floats of a 64 x D tile
+  static constexpr int kNT = D / 8;           // mma n-tiles across D
+  // Q's A fragments in registers for the whole walk (D a thread)
+  static constexpr bool kQRegs = D <= 64;
+  // a stage: K and V (kFwdKeys rows each), then the keys' bias
+  static constexpr int kStage = 2 * kFwdKeys * kLd + kFwdKeys;
+  // the tf32 remainders of a stage's K and V: 64 padded rows, a tile's
+  // size, which holds Q's remainder while Q's fragments are taken (at D =
+  // 128, where they are read all along, Q's remainder has its own tile)
+  static constexpr int kLo = 2 * kFwdKeys * kLd;
+  // Q's hi, two stages, the remainders (and Q's); the count and the list
+  // of live key tiles follow (an int each, sized at launch)
+  static constexpr size_t kBytes =
+      sizeof(float) * (kTile + 2 * kStage + kLo + (kQRegs ? 0 : kTile));
+  // blocks an SM that the registers are capped for: three at D <= 64 (168
+  // registers a thread, a few spilled), which their 37-70 KB of shared
+  // memory allow; one at D = 128. Timed against no hint in turns on the
+  // card, the hint was faster at every D.
+  static constexpr int kMinBlocks = D <= 64 ? 3 : 1;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, FwdTile<D>::kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ out, float* __restrict__ lse, int T,
                  float scale, int causal) {
-  constexpr int KS = Tile<D>::kKStride;
-  constexpr int D4 = D / 4;
-  constexpr int DV = D / 32;   // output columns per lane
+  using Tile = FwdTile<D>;
+  constexpr int NT = Tile::kNT, KT = kFwdKeys, NJ = KT / 8, KK = D / 8;
+  constexpr bool kQRegs = Tile::kQRegs;
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + Tile<D>::kQ;
-  float* Vs = Ks + Tile<D>::kK;
-  float* Ps = Vs + Tile<D>::kV;
+  float* stages = Qs + Tile::kTile;            // K, V, key bias; two of them
+  float* lo_k = stages + 2 * Tile::kStage;     // the tf32 remainders
+  float* lo_v = lo_k + KT * Tile::kLd;
+  float* lo_q = kQRegs ? lo_k : lo_k + Tile::kLo;
+  int* n_live = reinterpret_cast<int*>(lo_q + Tile::kTile);
+  int* tiles = n_live + 1;
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int row0 = (tid / 32) * kRowsPerWarp;   // this warp's first tile row
-  const int q0 = blockIdx.x * kBlockQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kBlock;
   const long long bh = blockIdx.y;
   const long long base = bh * T * D;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
 
-  // Q tile, zero past T
-  for (int i = tid; i < kBlockQ * D4; i += kThreads) {
-    const int r = i / D4, c4 = i % D4;
-    float4 val = zero4;
-    if (q0 + r < T)
-      val = reinterpret_cast<const float4*>(q + base + (long long)(q0 + r) * D)[c4];
-    reinterpret_cast<float4*>(Qs + r * D)[c4] = val;
+  // the 32-key tiles to walk: up to the causal diagonal, and only those with
+  // a live key
+  int n_tiles = (T + KT - 1) / KT;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlock, T) - 1) / KT + 1);
+  for (int i = warp; i < n_tiles; i += kWarps) {
+    const bool live = __any_sync(0xffffffffu, live_key(brow, i * KT + lane, T));
+    if (lane == 0) tiles[i] = live;
   }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DV];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DV; ++c) acc[r][c] = 0.f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (tiles[i]) tiles[n++] = i;
+    *n_live = n;
   }
+  __syncthreads();
+  const int nl = *n_live;
 
-  const int q_last = min(q0 + kBlockQ, T) - 1;
-  const int n_tiles = (T + kBlockK - 1) / kBlockK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    if (causal && k0 > q_last) break;   // uniform across the block
-    __syncthreads();                     // the previous tile is consumed
-    for (int i = tid; i < kBlockK * D4; i += kThreads) {
-      const int r = i / D4, c4 = i % D4;
-      float4 kv = zero4, vv = zero4;
-      if (k0 + r < T) {
-        const long long off = base + (long long)(k0 + r) * D;
-        kv = reinterpret_cast<const float4*>(k + off)[c4];
-        vv = reinterpret_cast<const float4*>(v + off)[c4];
-      }
-      reinterpret_cast<float4*>(Ks + r * KS)[c4] = kv;
-      reinterpret_cast<float4*>(Vs + r * D)[c4] = vv;
-    }
+  // this thread's rows row_a and row_b; columns 8n + 2t and + 1. m is the
+  // rows' running max (the quad's), l this thread's share of their sums.
+  const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  if (nl > 0) {
+    auto issue = [&](int i) {
+      float* st = stages + (i & 1) * Tile::kStage;
+      const int k0 = tiles[i] * KT;
+      load_tile<D, KT>(st, k + base, k0, T);
+      load_tile<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
+      if (brow != nullptr) load_row<KT>(st + 2 * KT * Tile::kLd, brow, k0, T);
+    };
+    load_tile<D>(Qs, q + base, q0, T);
+    cp_async_commit();
+    issue(0);
+    cp_async_commit();
+
+    // Q into tf32 halves, once
+    cp_async_wait<1>();
     __syncthreads();
+    split_tile<D, kBlock>(Qs, lo_q);
+    __syncthreads();
+    unsigned qh[kQRegs ? KK : 1][4], ql[kQRegs ? KK : 1][4];
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+        pre_a<D>(Qs, lo_q, 16 * warp + g, 8 * kk + t, qh[kk], ql[kk]);
+    }
+    // (the walk's first barrier orders these reads before lo_k is written)
 
-    // scores for keys k0 + lane and k0 + lane + 32
-    float s[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-    const float4* ka = reinterpret_cast<const float4*>(Ks + lane * KS);
-    const float4* kb = reinterpret_cast<const float4*>(Ks + (lane + 32) * KS);
-#pragma unroll 4
-    for (int d4 = 0; d4 < D4; ++d4) {
-      const float4 a = ka[d4];
-      const float4 b = kb[d4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qa = reinterpret_cast<const float4*>(Qs + (row0 + r) * D)[d4];
-        s[r][0] = dot4(qa, a, s[r][0]);
-        s[r][1] = dot4(qa, b, s[r][1]);
-      }
-    }
+    for (int i = 0; i < nl; ++i) {
+      if (i + 1 < nl) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();                // stage i has landed
+      __syncthreads();
+      float* Kw = stages + (i & 1) * Tile::kStage;
+      split_tile<D, KT>(Kw, lo_k);
+      split_tile<D, KT>(Kw + KT * Tile::kLd, lo_v);
+      __syncthreads();
+      const float* Ks = Kw;
+      const float* Vs = Ks + KT * Tile::kLd;
+      const float* Bs = Vs + KT * Tile::kLd;
+      const int k0 = tiles[i] * KT;
 
-    const int key_a = k0 + lane, key_b = k0 + lane + 32;
-    const bool in_a = key_a < T, in_b = key_b < T;
-    float bias_a = 0.f, bias_b = 0.f;
-    if (bias != nullptr) {
-      if (in_a) bias_a = bias[bh * T + key_a];
-      if (in_b) bias_b = bias[bh * T + key_b];
-    }
+      // S = Q K^T over the stage's keys
+      float s[NJ][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qi = q0 + row0 + r;
-      float sa = s[r][0] * scale + bias_a;
-      float sb = s[r][1] * scale + bias_b;
-      if (causal) {
-        if (key_a > qi) sa = kNegInf;
-        if (key_b > qi) sb = kNegInf;
+      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        unsigned ah[4], al[4];
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qh[kk][e];
+            al[e] = ql[kk][e];
+          }
+        } else {
+          pre_a<D>(Qs, lo_q, 16 * warp + g, 8 * kk + t, ah, al);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          unsigned kh[2], kl[2];
+          pre_b_nk<D>(Ks, lo_k, 8 * j + g, 8 * kk + t, kh, kl);
+          mma3(s[j], ah, al, kh, kl);
+        }
       }
-      if (!in_a) sa = -INFINITY;
-      if (!in_b) sb = -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(sa, sb)));
-      const float pa = in_a ? expf(sa - m_new) : 0.f;
-      const float pb = in_b ? expf(sb - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(pa + pb);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DV; ++c) acc[r][c] *= alpha;
-      Ps[(row0 + r) * kBlockK + lane] = pa;
-      Ps[(row0 + r) * kBlockK + lane + 32] = pb;
-    }
-    __syncwarp();
 
-    const int kn = min(kBlockK, T - k0);
-    for (int j = 0; j < kn; ++j) {
-      float vv[DV];
+      // scale, bias and masks; the rows' new max over the quad
+      float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int c = 0; c < DV; ++c) vv[c] = Vs[j * D + lane + 32 * c];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float p = Ps[(row0 + r) * kBlockK + j];
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int key = k0 + col;
+          const bool lo_row = e < 2;
+          float x = s[j][e] * scale + (brow != nullptr ? Bs[col] : 0.f);
+          if (causal && key > (lo_row ? row_a : row_b)) x = kNegInf;
+          if (key >= T) x = -INFINITY;
+          s[j][e] = x;
+          if (lo_row) mx_a = fmaxf(mx_a, x);
+          else mx_b = fmaxf(mx_b, x);
+        }
 #pragma unroll
-        for (int c = 0; c < DV; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
       }
+      const float alpha_a = expf(m_a - mx_a), alpha_b = expf(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo_row = e < 2;
+          const float p = expf(s[j][e] - (lo_row ? m_a : m_b));
+          s[j][e] = p;
+          if (lo_row) l_a += p;
+          else l_b += p;
+        }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][0] *= alpha_a;
+        acc[n][1] *= alpha_a;
+        acc[n][2] *= alpha_b;
+        acc[n][3] *= alpha_b;
+      }
+
+      // O += P V over the stage's keys, P straight from the registers
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        unsigned ph[4], pl[4];
+        frag_acc(s[j], ph, pl);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          unsigned vh[2], vl[2];
+          pre_b_kn<D>(Vs, lo_v, 8 * j + 2 * t, 8 * n + g, vh, vl);
+          mma3(acc[n], ph, pl, vh, vl);
+        }
+      }
+      __syncthreads();                   // the stage is refilled next
     }
-    __syncwarp();   // P is rewritten by the next tile
   }
 
+  // the quad's four shares of each row's sum
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= T) continue;
-    const bool dead = m[r] <= 0.5f * kNegInf;
-    const float l_safe = fmaxf(l[r], 1e-30f);
-    float* o = out + base + (long long)qi * D;
-#pragma unroll
-    for (int c = 0; c < DV; ++c)
-      o[lane + 32 * c] = dead ? 0.f : acc[r][c] / l_safe;
-    if (lane == 0) lse[bh * T + qi] = dead ? 0.f : m[r] + logf(l_safe);
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-}
-
-constexpr int kMaxDevices = 64;
-
-// Above 48 KB a block's shared memory must be asked for explicitly. The
-// setting holds per device and instantiation, so it is made on the first
-// launch of each and remembered (a device numbered past kMaxDevices asks on
-// every launch).
-template <int D>
-cudaError_t allow_smem(int device) {
-  static std::atomic<bool> done[kMaxDevices];
-  const bool known = device >= 0 && device < kMaxDevices;
-  if (known && done[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tile<D>::kBytes);
-  if (e == cudaSuccess && known)
-    done[device].store(true, std::memory_order_release);
-  return e;
+  const bool dead_a = m_a <= 0.5f * kNegInf, dead_b = m_b <= 0.5f * kNegInf;
+  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row_a < T)
+      *reinterpret_cast<float2*>(out + base + (long long)row_a * D + col) =
+          dead_a ? make_float2(0.f, 0.f)
+                 : make_float2(acc[n][0] / la, acc[n][1] / la);
+    if (row_b < T)
+      *reinterpret_cast<float2*>(out + base + (long long)row_b * D + col) =
+          dead_b ? make_float2(0.f, 0.f)
+                 : make_float2(acc[n][2] / lb, acc[n][3] / lb);
+  }
+  if (t == 0) {
+    if (row_a < T) lse[bh * T + row_a] = dead_a ? 0.f : m_a + logf(la);
+    if (row_b < T) lse[bh * T + row_b] = dead_b ? 0.f : m_b + logf(lb);
+  }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias,
            float* out, float* lse, int bh, int T, float scale, int causal,
            int device, cudaStream_t stream) {
-  const cudaError_t e = allow_smem<D>(device);
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t e = allow_smem(flash_fwd_kernel<D>, device, done);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((T + kBlockQ - 1) / kBlockQ), (unsigned)bh);
-  flash_fwd_kernel<D><<<grid, kThreads, Tile<D>::kBytes, stream>>>(
+  const size_t bytes = FwdTile<D>::kBytes +
+                       sizeof(int) * ((T + kFwdKeys - 1) / kFwdKeys + 1);
+  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
       q, k, v, bias, out, lse, T, scale, causal);
   return (int)cudaGetLastError();
 }

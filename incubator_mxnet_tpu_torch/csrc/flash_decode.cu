@@ -14,60 +14,106 @@
 // row once, sum_s len_s * H * D * 4 * 2 bytes (8 sequences of ~350 positions
 // at H * D = 768: ~17 MB, ~5 us at 3.35 TB/s), and does 4 * C * D operations
 // per live key and head, 2 per byte at C = 1. Only at C ~ 64 and more would
-// the fp32 CUDA cores (67 TFLOP/s) bound it instead.
+// the fp32 CUDA cores (67 TFLOP/s) bound it instead. At these sizes the
+// latency of a pass over the past weighs as much as its bytes: a 1024-
+// position past walked by one block is a chain of dependent tile loads.
 //
-// What the design does about it: it reads only live positions. A block
-// belongs to one (head, sequence, tile of up to 8 query rows) and loads its
-// own table row and length (the TPU kernel's scalar prefetch); its four warps
-// walk the live positions in tiles of 32 keys, warp w taking tiles w, w + 4,
-// ..., so padded table entries and positions past lengths[s] are never read.
-// A warp stages its tile of K and V rows in shared memory with cp.async (16
-// bytes a copy, each 256-byte head row read as one coalesced run), scores one
-// key per lane against the tile's query rows, and keeps the running max, sum
-// and the D-wide accumulator of each query row in registers (D / 32 columns
-// per lane). The query rows of a block share every K and V tile it loads. At
-// the end the four warps' partial (m, l, acc) are merged through shared
-// memory in one pass, so the kernel is one launch with no second combine
-// kernel. A sequence with no past gives o = 0, m = -1e30 and l = 0 exactly,
-// as in the TPU kernel. The (1, 8, H) sublane-replicated m and l outputs were
+// What the design does about it:
+// - Split-KV over a thread-block cluster. The (head, sequence, tile of up to
+//   QT query rows) work of one cluster of nsplit <= 8 blocks. The host picks
+//   nsplit from the table's capacity (max_blocks * block_size) and C alone,
+//   so that a full table gives a block at most eight tiles for one query
+//   row and four for a chunk; it never reads lengths. On the device, the
+//   past of lengths[s] positions is cut into nact <= nsplit contiguous runs
+//   of whole 32-key tiles, as many as there are tiles, and block r walks
+//   run r; the blocks past nact leave at once. The walking blocks merge
+//   their partials (m, l, acc) in the same launch: each stores its partial
+//   of row r into the shared memory of the block of rank r % nact
+//   (distributed shared memory: the stores do not wait), one cluster
+//   barrier, and each block merges its rows in rank order. A past of one
+//   tile takes one block and no barrier; a sequence with no past writes
+//   o = 0, m = -1e30, l = 0 at once. No second kernel, no scratch in device
+//   memory.
+// - A block's run streams through a ring of two to four cp.async stages of
+//   32 K and V rows (16 bytes a copy, each head row read as one coalesced
+//   run): the loads of later tiles are in flight while a tile is scored.
+//   Each thread reads its key's table entry a tile ahead, and the query
+//   rows come by cp.async too, so no load stalls a thread before the first
+//   wait. Padded table entries and positions past lengths[s] are never
+//   read.
+// - The four warps share each tile, warp w taking keys 8w..8w+7, and each
+//   keeps its own online softmax over every query row (a running max m, a
+//   sum l and the D-wide accumulator), merged with the others' at the end.
+//   Up to 8 rows (decode, short chunks) the CUDA cores score: a quad of
+//   lanes a key, each lane a quarter of its D products (float4 reads of K
+//   rows padded to D + 16 floats, conflict-free), summed with two shuffles;
+//   the probabilities go through shared memory to P V, D / 32 columns a
+//   lane. From 16 rows on (prefill chunks) a row-serial loop would be the
+//   kernel's time, so both products run on the tensor cores as the flash
+//   forward's do (flash_tf32.cuh: 3xTF32 mma.sync m16n8k8, each k-step into
+//   a fresh accumulator, K, V and Q split into tf32 halves once, P from the
+//   S accumulator straight into P V's A fragment).
+// - All C rows of a prefill chunk (up to 32; 16 at D = 128, where the
+//   accumulators would spill) share one cluster, so each K and V row is read
+//   once per head, whatever C.
+// - Deterministic: the runs depend on the host's shapes and lengths[s]
+//   only, and every merge adds in a fixed order, so two calls are bitwise
+//   equal.
+//
+// A sequence with no past gives o = 0, m = -1e30 and l = 0 exactly, as in
+// the TPU kernel. The (1, 8, H) sublane-replicated m and l outputs were
 // Mosaic's layout and are gone: m and l are (S, C, H).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
 #include <atomic>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileK = 32;          // keys per warp tile: one per lane
-constexpr float kNegInf = -1e30f;
+#include "flash_tf32.cuh"
 
+constexpr int kTileK = 32;        // keys of a stage: 8 a warp
+constexpr int kMaxSplit = 8;      // blocks of a cluster (the portable limit)
+constexpr int kMaxStages = 4;
+constexpr size_t kSmemOptin = 232448;   // a block's shared memory, sm_90
+
+// Query rows a block carries: 1 for decode, 8 for short chunks, else 32 (16
+// at D = 128). From 16 rows on, the products run on the tensor cores
+// (3xTF32, as the flash forward's); below, on the CUDA cores.
 template <int D, int QT>
 struct Smem {
-  static constexpr int kKStride = D + 4;           // padded K row (floats)
-  static constexpr int kQ = QT * D;                 // the block's query rows
-  static constexpr int kK = kTileK * kKStride;      // per warp
-  static constexpr int kV = kTileK * D;             // per warp
-  static constexpr int kAcc = QT * D;               // per warp, for the merge
-  static constexpr int kML = 2 * QT;                // per warp: m then l
-  static constexpr size_t kBytes =
-      sizeof(float) * (kQ + kWarps * (kK + kV + kAcc + kML));
+  static constexpr bool kTC = QT >= 16;
+  // K and V rows (floats): on the tensor cores D + 4, the fragment reads'
+  // conflict-free pitch; on the CUDA cores K rows D + 16, so that the two
+  // keys of a quarter-warp's float4 reads fall on distinct banks
+  static constexpr int kKStride = kTC ? D + 4 : D + 16;
+  static constexpr int kVStride = kTC ? D + 4 : D;
+  static constexpr int kStage = kTileK * (kKStride + kVStride);   // K, V
+  static constexpr int kQStride = kTC ? D + 4 : D;
+  static constexpr int kQ = QT * kQStride;          // the block's query rows
+  static constexpr int kQLo = kTC ? kQ : 0;         // their tf32 remainders
+  static constexpr int kLo = kTC ? kStage : 0;      // a stage's remainders
+  static constexpr int kP = kTC ? 0 : kWarps * QT * 8;   // each warp's p
+  static constexpr int kPart = QT * D + 2 * QT;     // acc, then m, then l
+  static constexpr int kStat = QT * (kMaxSplit + 2);  // rows' merge weights
+  // the ring, which the warps' partials reuse once the walk is done
+  __host__ __device__ static constexpr int ring(int stages) {
+    return stages * kStage > kWarps * kPart ? stages * kStage
+                                            : kWarps * kPart;
+  }
+  // query rows (and remainders), p, a stage's remainders, the ring, the
+  // cluster's partials of the rows this block merges, the rows' weights
+  __host__ __device__ static constexpr size_t bytes(int stages,
+                                                    int nsplit) {
+    return sizeof(float) *
+           (kQ + kQLo + kP + kLo + ring(stages) + nsplit * kPart + kStat);
+  }
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -76,22 +122,18 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// 16-byte global -> shared copy; with valid false it writes 16 zero bytes
-// and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned saddr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
-               "l"(gmem), "r"(src_bytes));
+// wait until at most n of this thread's cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// grid (H, S, ceil(C / QT)); QT query rows per block (1 for decode, 8 else)
+// grid (nsplit * ceil(C / QT), H, S), clusters of (nsplit, 1, 1): the
+// blocks of a cluster share one (head, sequence, query tile)
 template <int D, int QT>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const float* __restrict__ q,
@@ -101,144 +143,328 @@ flash_decode_kernel(const float* __restrict__ q,
                     const int* __restrict__ lengths,
                     float* __restrict__ out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int C, int H, int num_blocks,
-                    int block_size, int max_blocks, float scale) {
+                    int block_size, int max_blocks, float scale, int nsplit,
+                    int stages) {
   using Sm = Smem<D, QT>;
-  constexpr int KS = Sm::kKStride;
+  constexpr bool kTC = Sm::kTC;
+  constexpr int KS = Sm::kKStride, VS = Sm::kVStride, QS = Sm::kQStride;
   constexpr int D4 = D / 4;
-  constexpr int DV = D / 32;      // output columns per lane
+  constexpr int DS = D / 16;      // float4 a lane reads of a K row
+  constexpr int DV = D / 32;      // output columns a lane (CUDA cores)
+  constexpr int MT = kTC ? QT / 16 : 1;   // mma m-tiles (tensor cores)
+  constexpr int NT = D / 8;               // mma n-tiles across D
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* Ks = Qs + Sm::kQ + warp * (Sm::kK + Sm::kV);
-  float* Vs = Ks + Sm::kK;
-  float* Acc = Qs + Sm::kQ + kWarps * (Sm::kK + Sm::kV);   // [warp][QT][D]
-  float* ML = Acc + kWarps * Sm::kAcc;                      // [warp][2][QT]
+  float* q_lo = Qs + Sm::kQ;
+  float* Ps = q_lo + Sm::kQLo;
+  float* lo_k = Ps + Sm::kP;
+  float* lo_v = lo_k + kTileK * KS;
+  float* ring = lo_k + Sm::kLo;
+  float* parts = ring + Sm::ring(stages);   // by rank, of the rows it owns
+  // per row: the partials' weights exp(m - M) (kMaxSplit), then M and L
+  float* stat = parts + nsplit * Sm::kPart;
+  constexpr int SW = kMaxSplit + 2;
 
-  const int h = blockIdx.x;
-  const int s = blockIdx.y;
-  const int c0 = blockIdx.z * QT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c0 = (blockIdx.x / nsplit) * QT;
+  const int h = blockIdx.y;
+  const int s = blockIdx.z;
   const int nq = min(QT, C - c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const long long pos_stride = (long long)H * D;   // floats per pool position
 
-  // the block's query rows, zero past C
-  for (int i = threadIdx.x; i < QT * D4; i += kThreads) {
-    const int r = i / D4, c4 = i % D4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nq)
-      val = reinterpret_cast<const float4*>(
-          q + (((long long)s * C + c0 + r) * H + h) * D)[c4];
-    reinterpret_cast<float4*>(Qs + r * D)[c4] = val;
-  }
   // positions past the table's reach do not exist (as in the lax oracle)
   const int len = max(0, min(lengths[s], max_blocks * block_size));
+  // the ranks that walk: one a tile at most, so that a short past takes
+  // few blocks, and one block no cluster barrier at all; the others leave
+  // at once (through the barrier, when there is one: it counts every block
+  // of the cluster)
+  const int nact = max(1, min(nsplit, (len + kTileK - 1) / kTileK));
+  if (rank >= nact) {
+    if (nact > 1) cluster.sync();
+    return;
+  }
+  if (len == 0) {                        // no past: o = 0, m = -1e30, l = 0
+    for (int i = threadIdx.x; i < nq * D; i += kThreads) {
+      const long long orow = ((long long)s * C + c0 + i / D) * H + h;
+      out[orow * D + i % D] = 0.f;
+      if (i % D == 0) {
+        m_out[orow] = kNegInf;
+        l_out[orow] = 0.f;
+      }
+    }
+    return;
+  }
+  // the block's query rows, zero past C, land with the first tile
+  for (int i = threadIdx.x; i < QT * D4; i += kThreads) {
+    const int r = i / D4, c4 = i % D4;
+    const bool ok = r < nq;
+    cp_async16(Qs + r * QS + 4 * c4,
+               ok ? q + (((long long)s * C + c0 + r) * H + h) * D + 4 * c4
+                  : q,
+               ok);
+  }
+  // this block's run: the rank-th of nact runs of whole tiles
   const int* tab = tables + (long long)s * max_blocks;
-  __syncthreads();
+  const int per = ((len + nact - 1) / nact + kTileK - 1) / kTileK * kTileK;
+  const int p_begin = min(len, rank * per);
+  const int p_end = min(len, p_begin + per);
+  const int n_t = (p_end - p_begin + kTileK - 1) / kTileK;
 
-  float m[QT], l[QT], acc[QT][DV];
+  // tile i of the run into its stage: thread (key, sub) copies every 4th
+  // 16-byte piece of its key's K and V rows. The key's table entry is read
+  // a tile ahead (entry), so that its latency hides behind a tile's work;
+  // a pool row is clamped into the pool, so a bad entry cannot read
+  // outside it.
+  const int key = threadIdx.x / 4, sub = threadIdx.x % 4;
+  auto entry = [&](int i) {
+    const int pos = p_begin + i * kTileK + key;
+    return pos < p_end ? tab[pos / block_size] : 0;
+  };
+  auto issue = [&](int i, int blk) {
+    float* Ks = ring + (i % stages) * Sm::kStage;
+    float* Vs = Ks + kTileK * KS;
+    const int pos = p_begin + i * kTileK + key;
+    const bool ok = pos < p_end;
+    blk = min(max(blk, 0), num_blocks - 1);
+    const long long row =
+        ok ? ((long long)blk * block_size + pos % block_size) * pos_stride +
+                 (long long)h * D
+           : 0;
 #pragma unroll
-  for (int r = 0; r < QT; ++r) {
+    for (int c = sub; c < D4; c += 4) {
+      cp_async16(Ks + key * KS + 4 * c, k_pool + row + 4 * c, ok);
+      cp_async16(Vs + key * VS + 4 * c, v_pool + row + 4 * c, ok);
+    }
+  };
+
+  // CUDA cores: each warp's running max m and the D-wide accumulator of
+  // every row (D / 32 columns a lane), each lane its key's share of l.
+  // Tensor cores: the same per fragment row (rows g and g + 8 of each
+  // m-tile), l the thread's two columns' share.
+  float m[kTC ? 1 : QT], l[kTC ? 1 : QT], acc[kTC ? 1 : QT][DV];
+  float mf[MT][2], lf[MT][2], of[kTC ? MT : 1][kTC ? NT : 1][4];
+#pragma unroll
+  for (int r = 0; r < (kTC ? 1 : QT); ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < DV; ++c) acc[r][c] = 0.f;
   }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    mf[mt][0] = mf[mt][1] = kNegInf;
+    lf[mt][0] = lf[mt][1] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < (kTC ? MT : 1); ++mt)
+#pragma unroll
+    for (int n = 0; n < (kTC ? NT : 1); ++n)
+      of[mt][n][0] = of[mt][n][1] = of[mt][n][2] = of[mt][n][3] = 0.f;
 
-  const int n_tiles = (len + kTileK - 1) / kTileK;
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const int p0 = t * kTileK;
-    const int pos = p0 + lane;
-    const bool live = pos < len;
-    // this lane's key: its pool row (a table entry out of range is clamped
-    // into the pool, so a bad table cannot read outside it)
-    long long row = 0;
-    if (live) {
-      int blk = tab[pos / block_size];
-      blk = min(max(blk, 0), num_blocks - 1);
-      row = ((long long)blk * block_size + pos % block_size) * pos_stride +
-            (long long)h * D;
+  // the first stages - 1 tiles, their entries read together
+  int first[kMaxStages - 1];
+#pragma unroll
+  for (int i = 0; i < kMaxStages - 1; ++i)
+    first[i] = i < stages - 1 && i < n_t ? entry(i) : 0;
+#pragma unroll
+  for (int i = 0; i < kMaxStages - 1; ++i) {
+    if (i < stages - 1) {
+      if (i < n_t) issue(i, first[i]);
+      cp_async_commit();
     }
-    __syncwarp();                   // the previous tile is consumed
-#pragma unroll 4
-    for (int it = 0; it < D4; ++it) {
-      const int i = lane + 32 * it;
-      const int r = i / D4, c4 = i % D4;
-      const long long src = __shfl_sync(0xffffffffu, row, r);
-      const bool ok = __shfl_sync(0xffffffffu, live ? 1 : 0, r) != 0;
-      cp_async16(Ks + r * KS + 4 * c4, k_pool + src + 4 * c4, ok);
-      cp_async16(Vs + r * D + 4 * c4, v_pool + src + 4 * c4, ok);
-    }
-    cp_async_wait_all();
-    __syncwarp();
+  }
+  int ahead = stages - 1 < n_t ? entry(stages - 1) : 0;
+  float* Pw = Ps + warp * QT * 8;
+  for (int i = 0; i < n_t; ++i) {
+    const int j = i + stages - 1;        // the tile that goes in flight
+    if (j < n_t) issue(j, ahead);
+    cp_async_commit();
+    ahead = j + 1 < n_t ? entry(j + 1) : 0;
+    cp_async_wait_upto(stages - 1);      // tile i (and Q) have landed
+    __syncthreads();
+    float* Ks = ring + (i % stages) * Sm::kStage;
+    float* Vs = Ks + kTileK * KS;
+    const int p0 = p_begin + i * kTileK;
 
-    // score key p0 + lane against each query row
-    float sc[QT];
+    if constexpr (kTC) {
+      // the stage (and, once, Q) into tf32 halves
+      split_tile<D, kTileK>(Ks, lo_k);
+      split_tile<D, kTileK>(Vs, lo_v);
+      if (i == 0) split_tile<D, QT>(Qs, q_lo);
+      __syncthreads();
+      // S = Q K^T over this warp's eight keys, every row
+      float sc[MT][4];
 #pragma unroll
-    for (int r = 0; r < QT; ++r) sc[r] = 0.f;
-    const float4* kr = reinterpret_cast<const float4*>(Ks + lane * KS);
-#pragma unroll 4
-    for (int d4 = 0; d4 < D4; ++d4) {
-      const float4 kk = kr[d4];
+      for (int mt = 0; mt < MT; ++mt) sc[mt][0] = sc[mt][1] = sc[mt][2] = sc[mt][3] = 0.f;
 #pragma unroll
-      for (int r = 0; r < QT; ++r)
-        sc[r] = dot4(reinterpret_cast<const float4*>(Qs + r * D)[d4], kk,
-                     sc[r]);
-    }
-
-    float pr[QT];
+      for (int kk = 0; kk < D / 8; ++kk) {
+        unsigned bh[2], bl[2];
+        pre_b_nk<D>(Ks, lo_k, 8 * warp + g, 8 * kk + t, bh, bl);
 #pragma unroll
-    for (int r = 0; r < QT; ++r) {
-      const float sv = live ? sc[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      pr[r] = live ? expf(sv - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(pr[r]);
-      m[r] = m_new;
+        for (int mt = 0; mt < MT; ++mt) {
+          unsigned ah[4], al[4];
+          pre_a<D>(Qs, q_lo, 16 * mt + g, 8 * kk + t, ah, al);
+          mma3(sc[mt], ah, al, bh, bl);
+        }
+      }
+      // the online softmax over the warp's keys: this thread's two
+      // columns, then the quad
+      const bool v0 = p0 + 8 * warp + 2 * t < p_end;
+      const bool v1 = p0 + 8 * warp + 2 * t + 1 < p_end;
+      unsigned ph[MT][4], pl[MT][4];
 #pragma unroll
-      for (int c = 0; c < DV; ++c) acc[r][c] *= alpha;
-    }
-
-    // acc += P . V, key j's probability from lane j
-    const int kn = min(kTileK, len - p0);
-    for (int j = 0; j < kn; ++j) {
-      float vv[DV];
+      for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int c = 0; c < DV; ++c) vv[c] = Vs[j * D + lane + 32 * c];
+        for (int hf = 0; hf < 2; ++hf) {
+          float x0 = v0 ? sc[mt][2 * hf] * scale : -INFINITY;
+          float x1 = v1 ? sc[mt][2 * hf + 1] * scale : -INFINITY;
+          float mx = fmaxf(x0, x1);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(mf[mt][hf], mx);
+          const float alpha = expf(mf[mt][hf] - m_new);
+          mf[mt][hf] = m_new;
+          x0 = expf(x0 - m_new);
+          x1 = expf(x1 - m_new);
+          lf[mt][hf] = lf[mt][hf] * alpha + x0 + x1;
+          sc[mt][2 * hf] = x0;
+          sc[mt][2 * hf + 1] = x1;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            of[mt][n][2 * hf] *= alpha;
+            of[mt][n][2 * hf + 1] *= alpha;
+          }
+        }
+        frag_acc(sc[mt], ph[mt], pl[mt]);
+      }
+      // O += P V over the warp's keys, P straight from the registers
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        unsigned vh[2], vl[2];
+        pre_b_kn<D>(Vs, lo_v, 8 * warp + 2 * t, 8 * n + g, vh, vl);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3(of[mt][n], ph[mt], pl[mt], vh, vl);
+      }
+    } else {
+      // score this warp's key 8w + g against every query row: lane t takes
+      // columns 4t + 16j
+      const int kl = 8 * warp + g;
+      const bool valid = p0 + kl < p_end;
+      float4 kr[DS];
+#pragma unroll
+      for (int j = 0; j < DS; ++j)
+        kr[j] = *reinterpret_cast<const float4*>(Ks + kl * KS + 4 * t + 16 * j);
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, pr[r], j);
+        float d = 0.f;
 #pragma unroll
-        for (int c = 0; c < DV; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+        for (int j = 0; j < DS; ++j)
+          d = dot4(*reinterpret_cast<const float4*>(Qs + r * QS + 4 * t + 16 * j),
+                   kr[j], d);
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        const float sv = valid ? d * scale : -INFINITY;
+        float mt = sv;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        const float m_new = fmaxf(m[r], mt);
+        const float p = valid ? expf(sv - m_new) : 0.f;
+        const float alpha = expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] = l[r] * alpha + p;
+#pragma unroll
+        for (int c = 0; c < DV; ++c) acc[r][c] *= alpha;
+        if (t == 0) Pw[r * 8 + g] = p;
+      }
+      __syncwarp();
+
+      // acc += P V over the warp's eight keys
+      float vv[8][DV];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < DV; ++c)
+          vv[j][c] = Vs[(8 * warp + j) * VS + lane + 32 * c];
+#pragma unroll
+      for (int r = 0; r < QT; ++r) {
+        const float4 pa = *reinterpret_cast<const float4*>(Pw + r * 8);
+        const float4 pb = *reinterpret_cast<const float4*>(Pw + r * 8 + 4);
+        const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < DV; ++c)
+            acc[r][c] = fmaf(pr[j], vv[j][c], acc[r][c]);
+      }
+    }
+    __syncthreads();                     // the stage is refilled next
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' partials over the ring: acc (QT x D), then m, then l
+  float* wp = ring + warp * Sm::kPart;
+  if constexpr (kTC) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * mt + g + 8 * hf;
+        float lr = lf[mt][hf];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<float2*>(wp + r * D + 8 * n + 2 * t) =
+              make_float2(of[mt][n][2 * hf], of[mt][n][2 * hf + 1]);
+        if (t == 0) {
+          wp[QT * D + r] = mf[mt][hf];
+          wp[QT * D + QT + r] = lr;
+        }
+      }
+  } else {
+#pragma unroll
+    for (int r = 0; r < QT; ++r) {
+      float lr = l[r];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        lr += __shfl_xor_sync(0xffffffffu, lr, off);
+#pragma unroll
+      for (int c = 0; c < DV; ++c) wp[r * D + lane + 32 * c] = acc[r][c];
+      if (lane == 0) {
+        wp[QT * D + r] = m[r];
+        wp[QT * D + QT + r] = lr;
       }
     }
   }
-
-  // merge the warps' partial softmax states
-  float* acc_w = Acc + warp * Sm::kAcc;
-  float* ml_w = ML + warp * Sm::kML;
-#pragma unroll
-  for (int r = 0; r < QT; ++r) {
-#pragma unroll
-    for (int c = 0; c < DV; ++c) acc_w[r * D + lane + 32 * c] = acc[r][c];
-    if (lane == 0) {
-      ml_w[r] = m[r];
-      ml_w[QT + r] = l[r];
-    }
-  }
   __syncthreads();
-  for (int i = threadIdx.x; i < nq * D; i += kThreads) {
-    const int r = i / D, d = i % D;
+  // each row's weights over the four warps: M, exp(m_w - M) and L
+  if ((int)threadIdx.x < nq) {
+    const int r = threadIdx.x;
     float M = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, ML[w * Sm::kML + r]);
-    float L = 0.f, O = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      M = fmaxf(M, ring[w * Sm::kPart + QT * D + r]);
+    float L = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(ML[w * Sm::kML + r] - M);
-      L = fmaf(ML[w * Sm::kML + QT + r], e, L);
-      O = fmaf(Acc[w * Sm::kAcc + r * D + d], e, O);
+      const float e = expf(ring[w * Sm::kPart + QT * D + r] - M);
+      stat[r * SW + w] = e;
+      L = fmaf(ring[w * Sm::kPart + QT * D + QT + r], e, L);
     }
+    stat[r * SW + kMaxSplit] = M;
+    stat[r * SW + kMaxSplit + 1] = L;
+  }
+  __syncthreads();
+  // o = acc / l, dead rows 0, for the row at orow
+  auto emit = [&](int r, int d, float O) {
+    const float M = stat[r * SW + kMaxSplit];
+    const float L = stat[r * SW + kMaxSplit + 1];
     const bool dead = M <= 0.5f * kNegInf;
     const long long orow = ((long long)s * C + c0 + r) * H + h;
     out[orow * D + d] = dead ? 0.f : O / fmaxf(L, 1e-30f);
@@ -246,40 +472,92 @@ flash_decode_kernel(const float* __restrict__ q,
       m_out[orow] = M;
       l_out[orow] = dead ? 0.f : L;
     }
+  };
+  if (nact == 1) {                       // the block's partial is the result
+    for (int i = threadIdx.x; i < nq * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      float O = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        O = fmaf(ring[w * Sm::kPart + r * D + d], stat[r * SW + w], O);
+      emit(r, d, O);
+    }
+    return;
   }
-}
+  // the block's partial; row r goes to the block of rank r % nact, which
+  // merges it (distributed shared memory: the stores do not wait)
+  for (int i = threadIdx.x; i < nq * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float O = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      O = fmaf(ring[w * Sm::kPart + r * D + d], stat[r * SW + w], O);
+    float* dst = cluster.map_shared_rank(parts, r % nact) + rank * Sm::kPart;
+    dst[r * D + d] = O;
+    if (d == 0) {
+      dst[QT * D + r] = stat[r * SW + kMaxSplit];
+      dst[QT * D + QT + r] = stat[r * SW + kMaxSplit + 1];
+    }
+  }
+  cluster.sync();                        // every partial is with its owner
 
-constexpr int kMaxDevices = 64;
-
-// Above 48 KB a block's shared memory must be asked for explicitly. The
-// setting holds per device and instantiation, so it is made on the first
-// launch of each and remembered (a device numbered past kMaxDevices asks on
-// every launch).
-template <int D, int QT>
-cudaError_t allow_smem(int device) {
-  static std::atomic<bool> done[kMaxDevices];
-  const bool known = device >= 0 && device < kMaxDevices;
-  if (known && done[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_kernel<D, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Smem<D, QT>::kBytes);
-  if (e == cudaSuccess && known)
-    done[device].store(true, std::memory_order_release);
-  return e;
+  // this block's rows: the weights of the cluster's partials, then the
+  // partials merged in rank order
+  const int mine = nq > rank ? (nq - rank + nact - 1) / nact : 0;
+  if ((int)threadIdx.x < mine) {
+    const int r = rank + threadIdx.x * nact;
+    float M = kNegInf;
+    for (int b = 0; b < nact; ++b)
+      M = fmaxf(M, parts[b * Sm::kPart + QT * D + r]);
+    float L = 0.f;
+    for (int b = 0; b < nact; ++b) {
+      const float e = expf(parts[b * Sm::kPart + QT * D + r] - M);
+      stat[r * SW + b] = e;
+      L = fmaf(parts[b * Sm::kPart + QT * D + QT + r], e, L);
+    }
+    stat[r * SW + kMaxSplit] = M;
+    stat[r * SW + kMaxSplit + 1] = L;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < mine * D; i += kThreads) {
+    const int r = rank + (i / D) * nact, d = i % D;
+    float O = 0.f;
+    for (int b = 0; b < nact; ++b)
+      O = fmaf(parts[b * Sm::kPart + r * D + d], stat[r * SW + b], O);
+    emit(r, d, O);
+  }
 }
 
 template <int D, int QT>
 int launch(const float* q, const float* k_pool, const float* v_pool,
            const int* tables, const int* lengths, float* out, float* m,
            float* l, int S, int C, int H, int num_blocks, int block_size,
-           int max_blocks, float scale, int device, cudaStream_t stream) {
-  const cudaError_t e = allow_smem<D, QT>(device);
+           int max_blocks, float scale, int nsplit, int stages, int device,
+           cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t e = allow_smem(flash_decode_kernel<D, QT>, device, done);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)H, (unsigned)S, (unsigned)((C + QT - 1) / QT));
-  flash_decode_kernel<D, QT><<<grid, kThreads, Smem<D, QT>::kBytes, stream>>>(
-      q, k_pool, v_pool, tables, lengths, out, m, l, C, H, num_blocks,
-      block_size, max_blocks, scale);
+  // a deep ring of wide stages may not fit beside the cluster's partials
+  while (stages > 2 && Smem<D, QT>::bytes(stages, nsplit) > kSmemOptin)
+    --stages;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nsplit * ((C + QT - 1) / QT)), (unsigned)H,
+                     (unsigned)S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Smem<D, QT>::bytes(stages, nsplit);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, flash_decode_kernel<D, QT>, q, k_pool, v_pool, tables, lengths,
+      out, m, l, C, H, num_blocks, block_size, max_blocks, scale, nsplit,
+      stages);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
@@ -287,14 +565,20 @@ template <int D>
 int launch_d(const float* q, const float* k_pool, const float* v_pool,
              const int* tables, const int* lengths, float* out, float* m,
              float* l, int S, int C, int H, int num_blocks, int block_size,
-             int max_blocks, float scale, int device, cudaStream_t stream) {
+             int max_blocks, float scale, int nsplit, int stages, int device,
+             cudaStream_t stream) {
+  constexpr int kWide = D == 128 ? 16 : 32;
   if (C == 1)
     return launch<D, 1>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C,
-                        H, num_blocks, block_size, max_blocks, scale, device,
-                        stream);
-  return launch<D, 8>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H,
-                      num_blocks, block_size, max_blocks, scale, device,
-                      stream);
+                        H, num_blocks, block_size, max_blocks, scale, nsplit,
+                        stages, device, stream);
+  if (C <= 8)
+    return launch<D, 8>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C,
+                        H, num_blocks, block_size, max_blocks, scale, nsplit,
+                        stages, device, stream);
+  return launch<D, kWide>(q, k_pool, v_pool, tables, lengths, out, m, l, S,
+                          C, H, num_blocks, block_size, max_blocks, scale,
+                          nsplit, stages, device, stream);
 }
 
 }  // namespace
@@ -302,8 +586,15 @@ int launch_d(const float* q, const float* k_pool, const float* v_pool,
 // C entry point, bound with ctypes. q, out: (S, C, H, D); k_pool, v_pool:
 // (num_blocks, block_size, H, D); m, l: (S, C, H); all contiguous fp32,
 // 16-byte aligned. tables: (S, max_blocks) int32; lengths: (S,) int32. D is
-// 32, 64 or 128. Makes `device` current for this library's runtime, launches
-// on `stream`, allocates nothing, and returns cudaGetLastError().
+// 32, 64 or 128. Picks the split from the table's capacity and C: enough
+// blocks a cluster (at most 8) that a full table gives each at most eight
+// 32-key tiles for one query row, four for more, and ring stages for a full
+// run: two (fewer if the run
+// is shorter), up to four for runs of 16 tiles and more, since a deeper
+// ring costs shared memory and so blocks resident an SM (and no deeper than
+// fits beside the cluster's partials). Makes
+// `device` current for this library's runtime, launches on `stream`,
+// allocates nothing, and returns cudaGetLastError().
 extern "C" int mxtpu_flash_decode_f32(
     const float* q, const float* k_pool, const float* v_pool,
     const int* tables, const int* lengths, float* out, float* m, float* l,
@@ -311,24 +602,37 @@ extern "C" int mxtpu_flash_decode_f32(
     int max_blocks, float scale, int device, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (S <= 0 || S > 65535 || C <= 0 || (C + 7) / 8 > 65535 || H <= 0 ||
-      num_blocks <= 0 || block_size <= 0 || max_blocks <= 0 ||
+      H > 65535 || num_blocks <= 0 || block_size <= 0 || max_blocks <= 0 ||
       (long long)max_blocks * block_size > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  const long long tiles =
+      ((long long)max_blocks * block_size + kTileK - 1) / kTileK;
+  // a full table's tiles a block: a decode row's tile is a few
+  // instructions, so eight a block and fewer blocks to schedule; a chunk's
+  // rows make a tile worth splitting further, four a block
+  const int run_tiles = C == 1 ? 8 : 4;
+  const int nsplit = (int)std::min<long long>(
+      kMaxSplit, std::max<long long>(1, (tiles + run_tiles - 1) / run_tiles));
+  const long long run = (tiles + nsplit - 1) / nsplit;   // tiles a block
+  const int stages =
+      run <= 2 ? (int)run
+               : (int)std::min<long long>(kMaxStages,
+                                          std::max<long long>(2, run / 4));
   switch (D) {
     case 32:
       return launch_d<32>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C,
-                          H, num_blocks, block_size, max_blocks, scale, device,
-                          stream);
+                          H, num_blocks, block_size, max_blocks, scale,
+                          nsplit, stages, device, stream);
     case 64:
       return launch_d<64>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C,
-                          H, num_blocks, block_size, max_blocks, scale, device,
-                          stream);
+                          H, num_blocks, block_size, max_blocks, scale,
+                          nsplit, stages, device, stream);
     case 128:
       return launch_d<128>(q, k_pool, v_pool, tables, lengths, out, m, l, S,
                            C, H, num_blocks, block_size, max_blocks, scale,
-                           device, stream);
+                           nsplit, stages, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

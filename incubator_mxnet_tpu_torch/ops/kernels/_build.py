@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` (all started
 together) for ``sm_90a`` and linked into one shared library with a plain C
 interface, ``build/torch_kernels/libmxtpu_torch_kernels.so`` under the
-checkout. A stamp file beside it holds the hash of the sources and flags; a
-changed source rebuilds it. A failed build raises ``KernelBuildError``
+checkout. A stamp file beside it holds the hash of the sources, the headers
+they share (``csrc/*.cuh``) and the flags; a changed source or header
+rebuilds it. A failed build raises ``KernelBuildError``
 carrying the compiler's output: there is no fallback.
 
 Nothing here runs at import time. The CPU tests import every module of the
@@ -101,6 +102,12 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    """The headers the sources share; they are compiled through the
+    sources, and hashed into the stamp beside them."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc():
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  shutil.which("nvcc") or "",
@@ -157,7 +164,7 @@ def library():
         srcs = sources()
         if not srcs:
             raise KernelBuildError("no CUDA sources under %s" % CSRC)
-        stamp = _stamp(srcs)
+        stamp = _stamp(srcs + headers())
         lib_path = BUILD_DIR / LIB_NAME
         stamp_path = BUILD_DIR / (LIB_NAME + ".sha256")
         fresh = (lib_path.exists() and stamp_path.exists()

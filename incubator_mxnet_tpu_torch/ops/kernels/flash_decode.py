@@ -105,9 +105,9 @@ def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError("paged_flash_decode: block_tables must be (%d, MB) "
                          "with MB >= 1, got %s"
                          % (S, tuple(block_tables.shape)))
-    if S > 65535 or (C + 7) // 8 > 65535:
-        raise ValueError("paged_flash_decode: S = %d or C = %d exceeds the "
-                         "kernel's grid" % (S, C))
+    if S > 65535 or H > 65535 or (C + 7) // 8 > 65535:
+        raise ValueError("paged_flash_decode: S = %d, H = %d or C = %d "
+                         "exceeds the kernel's grid" % (S, H, C))
     if k_pool.shape[0] > 2 ** 31 - 1 \
             or block_tables.shape[1] * k_pool.shape[1] > 2 ** 31 - 1:
         raise ValueError("paged_flash_decode: pool %s and table %s exceed "

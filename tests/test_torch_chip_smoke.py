@@ -238,3 +238,59 @@ def test_kernel_class_tells_library_kernels_apart():
         "cudnn::fprop_implicit_gemm_bf16") == "conv"
     assert chip_smoke._kernel_class("Memcpy DtoD") == "copy"
     assert chip_smoke._kernel_class("elementwise_kernel") == "other"
+
+
+# ------------------------------------------------ the flash forward rows
+def test_flash_forward_bounds_at_the_serving_shape():
+    """(8 * 12, 512, 64): ragged with key lengths 512, 300, 0, 511, 64, 1,
+    450 and 129, 3.09 GFLOP over the live keys, 46.2 us on the fp32 CUDA
+    cores and 18.8 us as 3xTF32 on the tensor cores; dense, 6.44 GFLOP,
+    96.2 and 39.1 us. Operations bound both: the bytes take 15 us."""
+    tc = chip_smoke.TF32X3_FLOPS_PER_S
+    nbytes, live, dense = chip_smoke.flash_forward_cost(
+        12, 512, 64, [512, 300, 0, 511, 64, 1, 450, 129])
+    assert live == pytest.approx(3.094e9, rel=1e-3)
+    assert chip_smoke.bound(nbytes, live) == (pytest.approx(0.0462,
+                                                            abs=1e-4),
+                                              "operations")
+    assert chip_smoke.bound(nbytes, live, tc)[0] == pytest.approx(
+        0.0188, abs=1e-4)
+    nbytes, live, dense = chip_smoke.flash_forward_cost(12, 512, 64,
+                                                        [512] * 8)
+    assert live == dense == pytest.approx(6.442e9, rel=1e-3)
+    assert chip_smoke.bound(nbytes, dense)[0] == pytest.approx(0.0962,
+                                                               abs=1e-4)
+    assert chip_smoke.bound(nbytes, dense, tc)[0] == pytest.approx(
+        0.0391, abs=1e-4)
+    assert nbytes / chip_smoke.HBM_BYTES_PER_S == pytest.approx(1.5e-5,
+                                                                rel=0.05)
+
+
+def test_flash_forward_rows_on_the_cpu_dense_then_ragged(monkeypatch):
+    """The rows' drive at a small shape on the CPU (the plain versions,
+    fake clocks): a dense row, then a ragged one with a fully masked
+    sample; both with the tensor-core bound beside the CUDA-core one, the
+    live-key share, and the SDPA backend named from the kernel names a
+    trace of its call gives (faked here: the CPU has no device trace)."""
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (1.0,
+                                                              "profiler"))
+    monkeypatch.setattr(chip_smoke, "device_kernel_names",
+                        lambda torch_, fn, inputs: [
+                            "fmha_cutlassF_f32_aligned_64x64_rf_sm80"])
+    gen = torch.Generator().manual_seed(0)
+    rows = chip_smoke.flash_forward_rows(
+        torch, torch.device("cpu"),
+        lambda *shape: torch.randn(*shape, generator=gen),
+        B=2, H=2, T=100, D=32, lengths=(100, 0))
+    assert [r["name"] for r in rows] == ["flash_attention_fwd"] * 2
+    dense, ragged = rows
+    assert dense["lengths"] == [100, 100] and ragged["lengths"] == [100, 0]
+    assert (dense["live_key_share"], ragged["live_key_share"]) == (1.0, 0.5)
+    for r in rows:
+        assert r["max_abs_err"] == 0.0     # the CPU runs the plain version
+        assert r["tc_bound_ms"] <= r["bound_ms"]
+        assert r["library_backend"] == "efficient (CUTLASS fmha)"
+        assert r["ms"] == r["plain_ms"] == r["library_ms"] == 1.0
+    # half the keys live: the CUDA-core work halves and the bytes bind
+    assert (dense["bound_by"], ragged["bound_by"]) == ("operations", "bytes")

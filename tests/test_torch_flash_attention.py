@@ -133,3 +133,118 @@ def test_cpu_path_does_not_launch():
     q = torch.randn(2, 16, 32)
     flash_attention_forward(q, q, q)
     assert flash_attention_forward.launches == n0
+
+
+def _tf32(x):
+    """x rounded to TF32's 10 mantissa bits, to nearest with ties away from
+    zero, as the kernels split (cvt.rna.tf32.f32's rounding)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """One k-step of the kernel's 3xTF32 product into a fresh accumulator:
+    hi*lo + lo*hi + hi*hi of the operands' tf32 halves, in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.matmul(ah, bl) + torch.matmul(al, bh)) + torch.matmul(ah,
+                                                                        bh)
+
+
+def _forward_as_the_kernel_computes_it(q, k, v, bias, scale, causal):
+    """The CUDA forward's arithmetic on (BH, T, D) float32, emulated tile by
+    tile: 64-row Q tiles, 32-key stages (a stage whose biases are all at or
+    below -0.5e30 is skipped for its row of BH, stages past the causal
+    diagonal are not visited); S = Q K^T and O += P V as one fresh 3xTF32
+    accumulator an 8-wide k-step, each added to the running fp32 sum; the
+    online softmax's max, rescale and sum; dead rows zero with lse 0."""
+    BH, T, D = q.shape
+    out = torch.zeros_like(q)
+    lse = torch.zeros(BH, T)
+    for q0 in range(0, T, 64):
+        rows = torch.arange(q0, min(q0 + 64, T))
+        Q = q[:, rows]
+        m = torch.full((BH, len(rows)), -1e30)
+        l = torch.zeros(BH, len(rows))
+        acc = torch.zeros(BH, len(rows), D)
+        for k0 in range(0, T, 32):
+            if causal and k0 > rows[-1]:
+                break
+            keys = torch.arange(k0, min(k0 + 32, T))
+            live = (bias[:, keys] > -0.5e30).any(dim=1)[:, None, None]
+            s = torch.zeros(BH, len(rows), len(keys))
+            for kk in range(0, D, 8):
+                s = s + _mm3(Q[..., kk:kk + 8],
+                             k[:, keys, kk:kk + 8].transpose(1, 2))
+            x = s * scale + bias[:, None, keys]
+            if causal:
+                x = x.masked_fill(keys[None, :] > rows[:, None], -1e30)
+            mx = torch.maximum(m, x.amax(dim=-1))
+            alpha = torch.exp(m - mx)
+            p = torch.exp(x - mx[..., None])
+            new_acc = acc * alpha[..., None]
+            for j in range(0, len(keys), 8):
+                new_acc = new_acc + _mm3(p[..., j:j + 8],
+                                         v[:, keys[j:j + 8]])
+            acc = torch.where(live, new_acc, acc)
+            l = torch.where(live[..., 0], l * alpha + p.sum(dim=-1), l)
+            m = torch.where(live[..., 0], mx, m)
+        dead = m <= -0.5e30
+        l_safe = l.clamp_min(1e-30)
+        out[:, rows] = (acc / l_safe[..., None]).masked_fill(dead[..., None],
+                                                             0.0)
+        lse[:, rows] = (m + torch.log(l_safe)).masked_fill(dead, 0.0)
+    return out, lse
+
+
+def _attention_f64(q, k, v, bias, scale, causal):
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * scale
+    s = s + bias.double()[:, None, :]
+    if causal:
+        pos = torch.arange(q.shape[1])
+        s = s.masked_fill(pos[:, None] < pos[None, :], -1e30)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l_safe = p.sum(dim=-1).clamp_min(1e-30)
+    dead = m <= -0.5e30
+    out = (torch.matmul(p, v.double()) / l_safe[..., None]).masked_fill(
+        dead[..., None], 0.0)
+    return out, (m + torch.log(l_safe)).masked_fill(dead, 0.0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_tiles_stay_within_2e5_of_float64_and_match_pallas(causal):
+    """The forward kernel's numerical method, checked on the CPU (the kernel
+    runs only on a card): its 3xTF32 products with fresh accumulators and
+    its dead-tile skipping, emulated at a small ragged shape (3 samples x 2
+    heads, T = 256, D = 64, key lengths 256, 77 and 0), stay within 2e-5 of
+    the same attention in float64 and within 1e-5 of the JAX package's
+    Pallas forward in interpret mode; the sample with no live key is exact
+    zeros with lse 0. Plain TF32 (one product of the hi halves) would miss
+    2e-5."""
+    B, H, T, D = 3, 2, 256, 64
+    q, k, v = _qkv(B, H, T, D, 41 + causal)
+    m = _mask(B, T, [256, 77, 0])
+    bias = np.repeat(np.where(m == 0, -1e30, 0.0).astype(np.float32), H, 0)
+    scale = 1.0 / math.sqrt(D)
+    tq, tk, tv = (torch.from_numpy(a.reshape(B * H, T, D)) for a in (q, k, v))
+    got, got_lse = _forward_as_the_kernel_computes_it(
+        tq, tk, tv, torch.from_numpy(bias), scale, causal)
+    exact, exact_lse = _attention_f64(tq, tk, tv, torch.from_numpy(bias),
+                                      scale, causal)
+    assert (got.double() - exact).abs().max().item() <= 2e-5
+    assert (got_lse.double() - exact_lse).abs().max().item() <= 2e-5
+    assert (got[2 * H:] == 0).all() and (got_lse[2 * H:] == 0).all()
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             kv_mask=jnp.asarray(m), causal=causal,
+                             interpret=True))
+    np.testing.assert_allclose(got.numpy().reshape(B, H, T, D), want,
+                               rtol=RTOL, atol=ATOL)
+    s1 = torch.matmul(_tf32(tq), _tf32(tk).transpose(1, 2)) * scale
+    s1 = s1 + torch.from_numpy(bias)[:, None, :]
+    if causal:
+        s1 = s1.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1),
+                            -1e30)
+    p1 = torch.softmax(s1, dim=-1)
+    tf32_out = torch.matmul(_tf32(p1), _tf32(tv))[:2 * H]
+    assert (tf32_out.double() - exact[:2 * H]).abs().max().item() > 2e-5

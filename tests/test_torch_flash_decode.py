@@ -121,3 +121,77 @@ def test_flash_decode_wrapper_counts_only_kernel_launches():
     with pytest.raises(ValueError, match="unsupported device"):
         tfd.paged_flash_decode(torch.zeros(1, 1, 1, 32, device="meta"),
                                None, None, None, None)
+
+
+def _split_kv_as_the_kernel_merges_it(q, kp, vp, tables, lengths, nsplit,
+                                      tile=32):
+    """The CUDA kernel's split-KV, emulated in float32 numpy: each
+    sequence's live positions cut into nact contiguous runs of whole 32-key
+    tiles, nact the number of tiles up to nsplit (at least one run), as
+    many tiles a run as ceil(ceil(len / nact) / 32); each run's partial (m, l, acc) with acc unnormalised, a run past
+    the length giving (-1e30, 0, 0); then the (m, l, acc) combine: M the
+    max of the runs' m, L and O their l and acc weighted by exp(m - M); a
+    sequence whose M stays at or below -0.5e30 gives o = 0 and l = 0."""
+    S, C, H, D = q.shape
+    bs = kp.shape[1]
+    scale = np.float32(1.0 / np.sqrt(D))
+    o = np.zeros((S, C, H, D), np.float32)
+    m_out = np.zeros((S, C, H), np.float32)
+    l_out = np.zeros((S, C, H), np.float32)
+    for s in range(S):
+        n = int(min(lengths[s], tables.shape[1] * bs))
+        pos = np.arange(n)
+        rows = tables[s][pos // bs], pos % bs
+        k, v = kp[rows], vp[rows]                           # (n, H, D)
+        nact = max(1, min(nsplit, -(-n // tile)))
+        per = -(-(-(-n // nact)) // tile) * tile
+        parts = []
+        for r in range(nact):
+            lo, hi = min(n, r * per), min(n, r * per + per)
+            if hi == lo:
+                parts.append((np.full((C, H), -1e30, np.float32),
+                              np.zeros((C, H), np.float32),
+                              np.zeros((C, H, D), np.float32)))
+                continue
+            sc = np.einsum("chd,phd->chp", q[s], k[lo:hi]) * scale
+            m = sc.max(axis=-1)
+            p = np.exp(sc - m[..., None])
+            parts.append((m, p.sum(axis=-1),
+                          np.einsum("chp,phd->chd", p, v[lo:hi])))
+        M = np.max([p[0] for p in parts], axis=0)
+        L = np.zeros((C, H), np.float32)
+        O = np.zeros((C, H, D), np.float32)
+        for m, l, acc in parts:
+            e = np.exp(m - M)
+            L = L + l * e
+            O = O + acc * e[..., None]
+        dead = M <= np.float32(-0.5e30)
+        o[s] = np.where(dead[..., None], 0.0, O / np.maximum(L, 1e-30)[
+            ..., None])
+        m_out[s] = M
+        l_out[s] = np.where(dead, 0.0, L)
+    return o, m_out, l_out
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+@pytest.mark.parametrize("seed,S,H,D,bs,mb", [
+    (11, 4, 2, 64, 16, 8), (12, 5, 3, 32, 8, 16)])
+def test_split_kv_merge_matches_jax_lax_and_pallas(nsplit, seed, S, H, D,
+                                                   bs, mb):
+    """The decode kernel's split-KV method at C = 1 (the kernel itself runs
+    only on a card): partials over contiguous runs, merged by (m, l, acc),
+    against the JAX package's lax oracle and its Pallas kernel in interpret
+    mode. Pasts cover none, one position, a block edge, a tile edge and a
+    full table, so that some runs are short or empty; the empty past comes
+    out as o = 0, m = -1e30 and l = 0 exactly."""
+    cap = bs * mb
+    lengths = [0, 1, bs, 33, cap, cap - 1][:S]
+    q, kp, vp, tables, lengths = _inputs(seed, S, 1, H, D, bs, mb, lengths)
+    got = tuple(torch.from_numpy(a) for a in
+                _split_kv_as_the_kernel_merges_it(q, kp, vp, tables,
+                                                  lengths, nsplit))
+    _close(got, _jax_lax(q, kp, vp, tables, lengths))
+    _close(got, _jax_kernel(q, kp, vp, tables, lengths))
+    o, m, l = got
+    assert (o[0] == 0).all() and (l[0] == 0).all()
+    assert (m[0] == np.float32(-1e30)).all()

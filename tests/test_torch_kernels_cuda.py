@@ -1452,3 +1452,220 @@ def test_rtc_refuses_cpu_arrays_wrong_types_and_bad_source(cuda):
     assert k.launches == 0
     with pytest.raises(rtc.RtcError, match="error"):
         rtc.CudaModule('extern "C" __global__ void k( { }')
+
+
+# ------------------------------- the flash forward on the tensor cores
+def _fwd_against_plain(q, k, v, bias, causal=False):
+    """The forward kernel once, held to its plain version at atol 2e-5 on
+    out and lse; returns both."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    n0 = flash_attention_forward.launches
+    got = flash_attention_forward(q, k, v, bias, scale, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_forward.launches == n0 + 1
+    want = flash_attention_reference(q, k, v, bias, scale, causal)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 2e-5
+    return got
+
+
+def _randn(gen, *shape, device):
+    return torch.randn(*shape, generator=gen, device=device)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T, n", [(T, n) for T in (512, 777)
+                                  for n in (1, 63, 64, 65, 511, 777)
+                                  if n <= T])
+def test_flash_fwd_key_lengths_at_tile_edges(cuda, T, n):
+    """Live keys ending at, before and after the 32- and 64-key edges (the
+    tiles past the last live key are skipped): out and lse within 2e-5 of
+    the plain version, one row with no live key exact zeros and lse 0."""
+    BH, D = 3, 64
+    gen = torch.Generator(device=cuda).manual_seed(T * 1000 + n)
+    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    bias = torch.zeros(BH, T, device=cuda)
+    bias[:2, n:] = -1e30
+    bias[2] = -1e30
+    out, lse = _fwd_against_plain(q, k, v, bias)
+    assert (out[2] == 0).all() and (lse[2] == 0).all()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_fwd_dead_tiles_beside_live_ones(cuda, D):
+    """Per (b*h) row: a live tile between dead ones; a single live key in
+    the last tile; live keys only in the middle of a tile; a tile of -60
+    biases beside live keys; and a row whose only keys above -0.5e30 are
+    -60 biases: very negative but finite, so not dead. That tile must be
+    computed, not skipped: the row's output is a softmax over those keys,
+    not zeros."""
+    BH, T = 5, 512
+    gen = torch.Generator(device=cuda).manual_seed(99 + D)
+    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    bias = torch.full((BH, T), -1e30, device=cuda)
+    bias[0, 64:128] = 0.0
+    bias[1, T - 1] = 0.5
+    bias[2, 200:230] = _randn(gen, 30, device=cuda)
+    bias[3, 128:192] = -60.0
+    bias[3, 300:400] = 0.0
+    bias[4, 128:192] = -60.0
+    out, lse = _fwd_against_plain(q, k, v, bias)
+    assert out[4].abs().max().item() > 0
+    assert lse[4].max().item() < -50.0
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_fully_masked_sample_gives_exact_zeros(cuda, causal):
+    """chip_smoke.py's ragged serving shape, (8 * 12, 512, 64) with key
+    lengths 512, 300, 0, 511, 64, 1, 450 and 129: the sample with no live
+    key skips every tile and writes exact zeros and lse 0."""
+    B, H, T, D = 8, 12, 512, 64
+    gen = torch.Generator(device=cuda).manual_seed(1234 + causal)
+    q, k, v = (_randn(gen, B * H, T, D, device=cuda) for _ in range(3))
+    live = torch.arange(T, device=cuda)[None] < torch.tensor(
+        [512, 300, 0, 511, 64, 1, 450, 129], device=cuda)[:, None]
+    bias = torch.zeros(B, T, device=cuda).masked_fill(~live, -1e30)
+    bias = bias[:, None].expand(B, H, T).reshape(B * H, T).contiguous()
+    out, lse = _fwd_against_plain(q, k, v, bias, causal)
+    assert (out.view(B, H, T, D)[2] == 0).all()
+    assert (lse.view(B, H, T)[2] == 0).all()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 33, 100, 300, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_fwd_causal_with_t_not_a_multiple_of_64(cuda, T, D):
+    """Causal, with a padding mask that kills the first keys of one row (so
+    its first query rows see no live key and come out zero) and the last
+    keys of another."""
+    BH = 4
+    gen = torch.Generator(device=cuda).manual_seed(T * D + 7)
+    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    bias = _randn(gen, BH, T, device=cuda)
+    bias[1, :T // 3] = -1e30
+    bias[2, T // 2:] = -1e30
+    out, lse = _fwd_against_plain(q, k, v, bias, causal=True)
+    assert (out[1, :T // 3] == 0).all() and (lse[1, :T // 3] == 0).all()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_fwd_learned_bias_plus_mask(cuda, causal, D):
+    """A learned bias added to a padding mask, as flash_attention builds it
+    for kv_bias and kv_mask together; and the public (B, H, T, D) API with
+    both against the plain version."""
+    B, H, T = 2, 3, 300
+    gen = torch.Generator(device=cuda).manual_seed(7 + causal + D)
+    q, k, v = (_randn(gen, B, H, T, D, device=cuda) for _ in range(3))
+    learned = 2 * _randn(gen, B, H, T, device=cuda)
+    mask = (torch.arange(T, device=cuda)[None] < torch.tensor(
+        [[T], [130]], device=cuda)).float()
+    bias = (learned + (1 - mask)[:, None, :] * -1e30).reshape(B * H, T) \
+        .contiguous()
+    q3, k3, v3 = (t.reshape(B * H, T, D) for t in (q, k, v))
+    out, _ = _fwd_against_plain(q3, k3, v3, bias, causal)
+    pub = flash_attention(q, k, v, kv_mask=mask, kv_bias=learned,
+                          causal=causal)
+    assert (pub - out.view(B, H, T, D)).abs().max().item() <= 2e-5
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T, D, causal", [(100, 32, False), (512, 64, True),
+                                          (777, 128, False)])
+def test_flash_fwd_two_calls_are_bitwise_equal(cuda, T, D, causal):
+    """One block per output row and a fixed walk: the same inputs give the
+    same bits."""
+    BH = 4
+    gen = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    bias = _randn(gen, BH, T, device=cuda)
+    bias[1, T // 3:] = -1e30
+    first = _fwd_against_plain(q, k, v, bias, causal)
+    second = _fwd_against_plain(q, k, v, bias, causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ------------------------------------------------- split-KV flash decode
+def _decode_against_plain(q, kp, vp, tables, lens):
+    """The decode kernel once, held to its plain version: o within 2e-5, m
+    within 1e-5, l within rtol 1e-5; a sequence with no past gives o = 0,
+    m = -1e30 and l = 0 exactly. Returns (o, m, l)."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_reference)
+    n0 = paged_flash_decode.launches
+    o, m, l = paged_flash_decode(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == n0 + 1
+    ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tables, lens)
+    assert torch.isfinite(o).all()
+    assert (o - ro).abs().max().item() <= 2e-5
+    assert (m - rm).abs().max().item() <= 1e-5
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    dead = (lens == 0).nonzero().flatten().tolist()
+    for s in dead:
+        assert (o[s] == 0).all() and (l[s] == 0).all()
+        assert (m[s] == -1e30).all()
+    return o, m, l
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("bs", [16, 8])
+@pytest.mark.parametrize("C", [1, 8, 32, 33])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_decode_split_kv_pasts_and_chunks(cuda, bs, C, D):
+    """A table of 1024 positions (a cluster of four blocks of eight tiles
+    for one query row, of eight blocks of four tiles for a chunk) and seven
+    sequences, an odd count: pasts of 0, 1, 16, 1023, 1024 (the full
+    table), 500 and 33; chunks of 1, 8, 32 and 33 query rows (33 takes two
+    query tiles); blocks of 16 and of 8 positions."""
+    lengths = [0, 1, 16, 1023, 1024, 500, 33]
+    q, kp, vp, tables, lens = _paged_inputs(7, C, 2, D, bs, 1024 // bs,
+                                            lengths, cuda,
+                                            seed=C * D + bs)
+    _decode_against_plain(q, kp, vp, tables, lens)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("bs, mb", [(16, 1), (8, 13), (16, 40), (16, 200)])
+@pytest.mark.parametrize("C", [1, 32])
+def test_flash_decode_splits_of_other_capacities(cuda, bs, mb, C):
+    """Capacities that give one block and one stage (16), one block of
+    four tiles (104), three or five blocks (640) and eight blocks of
+    thirteen tiles each, walked through a three-stage ring (3200); pasts
+    from 0 to the full table, five sequences."""
+    cap = bs * mb
+    lengths = sorted({0, 1, cap // 3, cap - 1, cap})[:5]
+    lengths += [cap] * (5 - len(lengths))
+    q, kp, vp, tables, lens = _paged_inputs(5, C, 3, 64, bs, mb, lengths,
+                                            cuda, seed=cap + C)
+    _decode_against_plain(q, kp, vp, tables, lens)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("S, C", [(8, 1), (1, 32), (3, 33)])
+def test_flash_decode_two_calls_are_bitwise_equal(cuda, S, C):
+    """The split depends on the shapes alone and every merge adds in a
+    fixed order: two calls on the same inputs give the same bits."""
+    lengths = [1024, 700, 0, 1, 350, 511, 200, 777][:S]
+    q, kp, vp, tables, lens = _paged_inputs(S, C, 12, 64, 16, 64, lengths,
+                                            cuda, seed=S * C)
+    first = _decode_against_plain(q, kp, vp, tables, lens)
+    second = _decode_against_plain(q, kp, vp, tables, lens)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("C", [1, 32])
+def test_flash_decode_long_table_at_d128(cuda, C):
+    """A table of 4096 positions: eight blocks of sixteen tiles, so the
+    host asks for the deepest ring; at D = 128 with a chunk's 16-row tiles
+    that ring would not fit beside the cluster's partials, and the launch
+    takes a shallower one."""
+    lengths = [4096, 0, 2500]
+    q, kp, vp, tables, lens = _paged_inputs(3, C, 2, 128, 16, 256, lengths,
+                                            cuda, seed=4096 + C)
+    _decode_against_plain(q, kp, vp, tables, lens)

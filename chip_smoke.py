@@ -22,7 +22,13 @@ Phases, each printing one line:
              library column ran; the backward rows are held to the plain
              formulas in float64; a tc_rounding line shows how one tf32
              mma.sync rounds an fp32 sum. The flash forward and decode
-             kernels must give the same bits on two calls.
+             kernels must give the same bits on two calls. A launch_floor
+             line times an empty kernel launched the same way; the
+             LayerNorm rows (a decode step's 8 rows, a prefill chunk's 32,
+             full batches of both buckets) and the int8 decode row carry
+             it and their gap over max(bound, floor), and the int8 decode
+             row's library column runs torch._int_mm on A zero-padded to
+             24 rows.
 3. serve   - a BERT-base (768 x 12, vocab 30522) with seeded random weights
              is exported with the port's export_for_serving, loaded by a
              ModelServer on the card with buckets (128, 512), and 8
@@ -315,8 +321,59 @@ def measure(torch, name, shape, err, tolerance, inputs, kernel, plain,
                 **extra)
 
 
-def kernels_phase(torch, dev):
+def launch_floor(torch, dev):
+    """An empty kernel (csrc/runtime.cu mxtpu_noop) launched through the
+    port's ctypes path on PyTorch's current stream and timed as the kernel
+    rows are (`device_ms`): what a launch alone costs on the card, the floor
+    under a kernel whose work takes less. `events_ms` is its CUDA-event
+    time a call back to back: the rate at which the host issues launches."""
+    from incubator_mxnet_tpu_torch.ops.kernels import _build
+    lib = _build.library()
+
+    def noop():
+        _build.check(lib.mxtpu_noop(
+            dev.index, torch.cuda.current_stream(dev).cuda_stream), "noop")
+    ms, clock = device_ms(torch, noop, [()])
+    return dict(ms=ms, timed_by=clock, events_ms=call_ms(torch, noop, [()]))
+
+
+def with_floor(row, floor_ms):
+    """The row with the launch floor beside it and its gap over the larger
+    of its bound and that floor: the time a faster body could still win."""
+    if floor_ms is not None:
+        row.update(floor_ms=floor_ms,
+                   gap_ms=row["ms"] - max(row["bound_ms"], floor_ms))
+    return row
+
+
+# LayerNorm's row counts on the main paths: a decode grid step (8 slots), a
+# prefill chunk (32 rows), and full batches of the two serving buckets
+LN_SHAPES = ((8, 768), (32, 768), (1024, 768), (4096, 768))
+
+
+def layer_norm_rows(torch, dev, randn, floor_ms=None, shapes=LN_SHAPES):
+    """LayerNorm against its plain version (atol 1e-5) at each shape, each
+    row naming the route its kernel took, with F.layer_norm as the library
+    call and the launch floor and gap beside it."""
     import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
+    rows = []
+    for R, C in shapes:
+        x, g, b = randn(R, C), 1 + 0.1 * randn(C), 0.1 * randn(C)
+        y = fused_norm.layer_norm(x, g, b)
+        route = fused_norm._route(C, x.data_ptr(), g.data_ptr(),
+                                  b.data_ptr(), y.data_ptr())
+        rows.append(with_floor(measure(
+            torch, "layer_norm", (R, C),
+            max_err(y, fused_norm.layer_norm_reference(x, g, b)), 1e-5,
+            (x, g, b), fused_norm.layer_norm, fused_norm.layer_norm_reference,
+            lambda x, g, b: F.layer_norm(x, (C,), g, b, 1e-5),
+            (2 * R * C + 2 * C) * 4, 8 * R * C, kernel_route=route),
+            floor_ms))
+    return rows
+
+
+def kernels_phase(torch, dev):
     from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -324,19 +381,9 @@ def kernels_phase(torch, dev):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    rows = []
-
-    # LayerNorm at the row counts a full batch of each bucket gives
-    C = 768
-    for R in (1024, 4096):
-        x, g, b = randn(R, C), 1 + 0.1 * randn(C), 0.1 * randn(C)
-        rows.append(measure(
-            torch, "layer_norm", (R, C),
-            max_err(fused_norm.layer_norm(x, g, b),
-                    fused_norm.layer_norm_reference(x, g, b)), 1e-5,
-            (x, g, b), fused_norm.layer_norm, fused_norm.layer_norm_reference,
-            lambda x, g, b: F.layer_norm(x, (C,), g, b, 1e-5),
-            (2 * R * C + 2 * C) * 4, 8 * R * C))
+    floor = launch_floor(torch, dev)
+    log("launch_floor", **floor)
+    rows = layer_norm_rows(torch, dev, randn, floor["ms"])
 
     # softmax over the 128 bucket's attention scores with a -1e30 pad bias
     B, H, T = 8, 12, 128
@@ -359,7 +406,7 @@ def kernels_phase(torch, dev):
     rows += flat_rows(torch, dev, randn)
     rows += flat_rows(torch, dev, randn, torch.bfloat16)
     rows += bottleneck_rows(torch, dev)
-    rows += int8_matmul_rows(torch, dev)
+    rows += int8_matmul_rows(torch, dev, floor["ms"])
     rows.append(rtc_axpy_row(torch, dev, randn))
     for r in rows:
         log("kernels", **r)
@@ -1438,13 +1485,21 @@ def replay_on_cpu(torch, served_cpu, log, slots, cache_len, tol_fn):
     return rows, exact, worst
 
 
-def int8_matmul_rows(torch, dev):
+# torch._int_mm takes more than 16 rows: the library column of a decode-
+# shape row runs it on A zero-padded to this many
+INT_MM_MIN_ROWS = 24
+
+
+def int8_matmul_rows(torch, dev, floor_ms=None, cases=None):
     """The int8 kernel at bench_int8_matmul's 4096^3 and at the word LM's
     served decode shape (8 slots x 650 inputs x 10000 outputs, K padded to
     656 with zeros as Int8Dense keeps it), on random codes: exact against
-    the plain version, timed beside it and beside torch._int_mm where that
-    call takes the shape. (The lstm_decode phase holds the kernel to its
-    plain version on codes captured from the served path.)"""
+    the plain version, timed beside it and beside torch._int_mm, which at
+    the decode shape runs on A zero-padded to INT_MM_MIN_ROWS rows
+    (`library_rows` says so). `cases` is ((label, route, (M, K, N, live
+    K)), ...). (The lstm_decode phase holds the kernel to its plain version
+    on codes captured from the served path.)"""
+    import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
         _route, int8_matmul_nk, int8_matmul_nk_reference)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1456,15 +1511,15 @@ def int8_matmul_rows(torch, dev):
             t[:, live:] = 0
         return t
 
-    H, V = PTB_LSTM["num_hidden"], PTB_LSTM["vocab_size"]
-    K = H + (-H % 16)
+    if cases is None:
+        H, V = PTB_LSTM["num_hidden"], PTB_LSTM["vocab_size"]
+        K = H + (-H % 16)
+        # the decode row last: the kernels line carries the main path's shape
+        cases = (("4096^3", "tma", (4096, 4096, 4096, None)),
+                 ("decode", "small", (LSTM_SLOTS, K, V, H)))
     rows = []
-    # the decode row last: the kernels line carries the main path's shape
-    for label, want, (x, y) in (
-            ("4096^3", "tma", (codes(4096, 4096), codes(4096, 4096))),
-            ("decode", "small", (codes(LSTM_SLOTS, K, H), codes(V, K, H)))):
-        M, K = x.shape
-        N = y.shape[0]
+    for label, want, (M, K, N, live) in cases:
+        x, y = codes(M, K, live), codes(N, K, live)
         route = _route(M, K, x.data_ptr(), y.data_ptr())
         if dev.type == "cuda" and route != want:
             raise AssertionError("int8_matmul %s: route %s, expected %s"
@@ -1474,28 +1529,33 @@ def int8_matmul_rows(torch, dev):
                            int8_matmul_nk_reference(x, y)):
             raise AssertionError("int8_matmul %s: the kernel differs from "
                                  "its plain version" % label)
+        lib_rows = INT_MM_MIN_ROWS if M <= 16 else M
+        x_lib = F.pad(x, (0, 0, 0, lib_rows - M)) if lib_rows != M else x
         library, note = None, None
         # torch._int_mm on the same operands (the weight as the (K, N)
         # column-major view of its (N, K) rows), else on a row-major copy
         for call, fn in (("_int_mm(a, w.t())",
-                          lambda x, y, b: torch._int_mm(x, y.t())),
+                          lambda x, y, b, xl: torch._int_mm(xl, y.t())),
                          ("_int_mm(a, w.t().contiguous())",
-                          lambda x, y, b: torch._int_mm(x, b))):
+                          lambda x, y, b, xl: torch._int_mm(xl, b))):
             try:
-                fn(x, y, b_kn)
+                fn(x, y, b_kn, x_lib)
             except RuntimeError as e:
                 note = "torch._int_mm refuses (%d, %d) x (%d, %d): %s" % (
-                    M, K, K, N, str(e).splitlines()[0][:160])
+                    lib_rows, K, K, N, str(e).splitlines()[0][:160])
                 continue
             library, note = fn, call
+            if lib_rows != M:
+                note += " with a zero-padded to %d rows" % lib_rows
             break
-        rows.append(measure(
-            torch, "int8_matmul", (M, K, N), 0.0, 0.0, (x, y, b_kn),
-            lambda x, y, b: int8_matmul_nk(x, y),
-            lambda x, y, b: int8_matmul_nk_reference(x, y), library,
+        rows.append(with_floor(measure(
+            torch, "int8_matmul", (M, K, N), 0.0, 0.0, (x, y, b_kn, x_lib),
+            lambda x, y, b, xl: int8_matmul_nk(x, y),
+            lambda x, y, b, xl: int8_matmul_nk_reference(x, y), library,
             M * K + N * K + 4 * M * N, 2 * M * N * K,
             peak_flops=INT8_OPS_PER_S, dtype="int8", case=label,
-            kernel_route=route, library_note=note))
+            kernel_route=route, library_note=note, library_rows=lib_rows),
+            floor_ms if M <= 16 else None))
     return rows
 
 
@@ -2894,6 +2954,7 @@ def rtc_phase(torch, dev, n=RTC_N, card=None):
 def _kernel_class(name):
     n = name.lower()
     for key, cls in (("ln_warp", "layer_norm"), ("ln_block", "layer_norm"),
+                     ("noop_kernel", "noop"),
                      ("softmax_warp", "softmax"), ("softmax_block", "softmax"),
                      ("flash_fwd", "flash_attention_fwd"),
                      ("flash_bwd_dq", "flash_attention_bwd_dq"),
@@ -3171,7 +3232,8 @@ def main(argv=None):
             below_bound=r["below_bound"],
             below_bound_columns=r["below_bound_columns"],
             **{k: v for k, v in r.items() if k.startswith("pair_") or k in (
-                "tc_bound_ms", "library_backend", "library_note")}))
+                "tc_bound_ms", "library_backend", "library_note",
+                "kernel_route", "floor_ms", "gap_ms")}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

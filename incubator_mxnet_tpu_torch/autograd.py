@@ -21,7 +21,7 @@ attention, BatchNorm's one-pass VJP) are engaged as under any torch graph.
 ``is_training()`` is the training flag the layers read (BatchNorm's batch
 statistics), as in the JAX package; ``record()`` sets it unless
 ``train_mode=False``. A user-defined ``Function`` is not ported yet
-(ROADMAP Queue 1 item 1) and raises.
+(ROADMAP Queue 1 item 4) and raises.
 """
 
 import threading
@@ -197,7 +197,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 class Function:
     """A user-defined differentiable function (forward and backward over
-    NDArrays). Not ported yet: it raises (ROADMAP Queue 1 item 1)."""
+    NDArrays). Not ported yet: it raises (ROADMAP Queue 1 item 4)."""
 
     def __init__(self):
         self._saved = None
@@ -217,6 +217,6 @@ class Function:
 
     def __call__(self, *inputs):
         raise NotImplementedError(
-            "autograd.Function is not ported yet (ROADMAP Queue 1 item 1); "
+            "autograd.Function is not ported yet (ROADMAP Queue 1 item 4); "
             "a torch.autograd.Function over the NDArrays' tensors is the "
             "way to a custom gradient meanwhile")

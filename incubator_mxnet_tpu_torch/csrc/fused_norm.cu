@@ -8,16 +8,30 @@
 // once, and the arithmetic is a few operations per element, far below the
 // ~20 fp32 operations per byte at which the CUDA cores would be the limit.
 // At (R, C) = (1024, 768) the 6.3 MB of traffic needs about 1.9 us at
-// 3.35 TB/s.
+// 3.35 TB/s. A decode step's LayerNorm (8 rows) or a prefill chunk's (32
+// rows) moves 25-100 KB, far less than a launch costs: there what bounds a
+// call is latency, the launch's own and one trip to memory.
 //
-// What the design does about it: a row of up to 1024 elements belongs to one
-// warp and stays in that warp's registers (ceil(C / 32) values per lane,
-// neighbouring lanes on neighbouring addresses), so device memory sees one
-// read and one write per element. The statistics are warp-shuffle
-// reductions: no shared memory and no block barrier. Rows longer than 1024
-// take one block per row and read the row once per pass; L2 holds it between
-// passes. The grid covers any row count and masks the ragged end, so the
-// TPU kernel's rows % 8 and vector-memory rules do not apply here.
+// LayerNorm's routes, picked by the wrapper (ops/kernels/fused_norm.py
+// _route) and checked here:
+//   warp (C <= 1024, C % 4 == 0, the four bases 16-byte aligned): one warp
+//     owns a row in registers, read and written with 16-byte float4
+//     accesses, neighbouring lanes on neighbouring vectors. Each C bucket of
+//     128 has its own instantiation, so a lane holds exactly the vectors its
+//     row needs (C = 768: six float4, none masked). gamma and beta are
+//     loaded with x, before the two shuffle reductions, so their latency
+//     hides behind x's. Four rows a block.
+//   warp_scalar (C % 4 != 0 or a misaligned base): the same kernel
+//     instantiated on single floats.
+//   long (C > 1024): one block a row of 256 threads reading the row once a
+//     pass; L2 holds it between passes.
+// A block a row over several warps at few rows was timed on the card
+// against the warp route at 1 to 256 rows of 768 and was no faster at any
+// count: spreading 8 or 32 rows over more SMs does not shorten a call
+// whose time is a launch and one trip to memory.
+// Any row count: the grid masks the ragged end, so the TPU kernel's rows % 8
+// and vector-memory rules do not apply here. Softmax keeps one warp a row
+// of up to 1024 values (ceil(C / 32) a lane) and the long-row block above.
 //
 // Numerics follow the TPU kernels: LayerNorm takes the mean, then the
 // centred variance, then (x - mean) * rsqrt(var + eps) * gamma + beta.
@@ -27,6 +41,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -71,7 +86,32 @@ __device__ float block_max(float v, float* red) {
 
 // ---------------------------------------------------------------- LayerNorm
 
-template <int VPL>   // values per lane: 32 * VPL >= C
+constexpr int kLnBucket = 128;   // C values a warp-route instantiation adds
+constexpr int kLnMaxC = 1024;    // longest row of the warp route
+
+// VW consecutive floats at p (VW = 4: one 16-byte access)
+template <int VW>
+__device__ __forceinline__ void load_vec(float* v, const float* p) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// One warp a row: NV vectors of VW floats a lane, 32 * NV * VW >= C and
+// C % VW == 0. x, gamma and beta are all requested before the first sum.
+template <int VW, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 ln_warp_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, float* __restrict__ y,
@@ -80,30 +120,49 @@ ln_warp_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= rows) return;   // the whole warp leaves together
+  const int nvec = C / VW;
   const float* xr = x + row * C;
-  float v[VPL];
+  float v[NV][VW], g[NV][VW], b[NV][VW];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = lane + i * kWarp;
+    if (j < nvec) {
+      load_vec<VW>(v[i], xr + j * VW);
+      load_vec<VW>(g[i], gamma + j * VW);
+      load_vec<VW>(b[i], beta + j * VW);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VW; ++k) v[i][k] = g[i][k] = b[i][k] = 0.f;
+    }
+  }
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + i * kWarp;
-    v[i] = c < C ? xr[c] : 0.f;
-    s += v[i];
-  }
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < VW; ++k) s += v[i][k];
   const float mean = warp_sum(s) / C;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + i * kWarp;
-    const float d = c < C ? v[i] - mean : 0.f;
-    v[i] = d;
-    q += d * d;
+  for (int i = 0; i < NV; ++i) {
+    const bool live = lane + i * kWarp < nvec;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      const float d = live ? v[i][k] - mean : 0.f;
+      v[i][k] = d;
+      q += d * d;
+    }
   }
   const float inv = rsqrtf(warp_sum(q) / C + eps);
   float* yr = y + row * C;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + i * kWarp;
-    if (c < C) yr[c] = v[i] * inv * gamma[c] + beta[c];
+  for (int i = 0; i < NV; ++i) {
+    const int j = lane + i * kWarp;
+    if (j < nvec) {
+      float o[VW];
+#pragma unroll
+      for (int k = 0; k < VW; ++k) o[k] = v[i][k] * inv * g[i][k] + b[i][k];
+      store_vec<VW>(yr + j * VW, o);
+    }
   }
 }
 
@@ -186,6 +245,64 @@ unsigned warp_grid(int rows) {
   return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+// LayerNorm's route codes, as ops/kernels/fused_norm.py ROUTES gives them.
+enum LnRoute { kLnWarp = 0, kLnWarpScalar = 1, kLnLong = 2 };
+
+template <int VW, int NV>
+void launch_ln_warp(const float* x, const float* gamma, const float* beta,
+                    float* y, int rows, int C, float eps,
+                    cudaStream_t stream) {
+  ln_warp_kernel<VW, NV><<<warp_grid(rows), kWarpsPerBlock * kWarp, 0,
+                           stream>>>(x, gamma, beta, y, rows, C, eps);
+}
+
+// the warp route's instantiation for C's bucket of 128
+template <int VW>
+void launch_ln_warp_bucket(const float* x, const float* gamma,
+                           const float* beta, float* y, int rows, int C,
+                           float eps, cudaStream_t stream) {
+  constexpr int kPerBucket = kLnBucket / (kWarp * VW);   // vectors a lane
+  switch ((C + kLnBucket - 1) / kLnBucket) {
+    case 1:
+      return launch_ln_warp<VW, 1 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    case 2:
+      return launch_ln_warp<VW, 2 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    case 3:
+      return launch_ln_warp<VW, 3 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    case 4:
+      return launch_ln_warp<VW, 4 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    case 5:
+      return launch_ln_warp<VW, 5 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    case 6:
+      return launch_ln_warp<VW, 6 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    case 7:
+      return launch_ln_warp<VW, 7 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+    default:
+      return launch_ln_warp<VW, 8 * kPerBucket>(x, gamma, beta, y, rows, C,
+                                                eps, stream);
+  }
+}
+
+// Make `device` current for this library's runtime unless it already is:
+// the query is a thread-local read, the switch is not.
+cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return e;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes. Each makes `device` current for this
@@ -193,30 +310,36 @@ unsigned warp_grid(int rows) {
 // allocates nothing, and returns cudaGetLastError() so that a refused launch
 // surfaces in the caller.
 
+// y = LayerNorm(x) over rows of C. `route` is the wrapper's choice (LnRoute);
+// a route whose conditions fail is refused with cudaErrorInvalidValue, so
+// the wrapper and this file cannot disagree: warp takes C <= 1024 with
+// C % 4 == 0 and four 16-byte aligned bases, warp_scalar C <= 1024, and
+// long C > 1024.
 extern "C" int mxtpu_layer_norm_f32(const float* x, const float* gamma,
                                     const float* beta, float* y, int rows,
-                                    int C, float eps, int device,
+                                    int C, float eps, int route, int device,
                                     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(gamma) &&
+                   aligned16(beta) && aligned16(y);
+  const bool ok = route == kLnLong         ? C > kLnMaxC
+                  : route == kLnWarp       ? C <= kLnMaxC && vec
+                  : route == kLnWarpScalar ? C <= kLnMaxC
+                                           : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
-  const dim3 block(kWarpsPerBlock * kWarp);
-  if (C <= 128) {
-    ln_warp_kernel<4><<<warp_grid(rows), block, 0, stream>>>(
-        x, gamma, beta, y, rows, C, eps);
-  } else if (C <= 256) {
-    ln_warp_kernel<8><<<warp_grid(rows), block, 0, stream>>>(
-        x, gamma, beta, y, rows, C, eps);
-  } else if (C <= 512) {
-    ln_warp_kernel<16><<<warp_grid(rows), block, 0, stream>>>(
-        x, gamma, beta, y, rows, C, eps);
-  } else if (C <= 1024) {
-    ln_warp_kernel<32><<<warp_grid(rows), block, 0, stream>>>(
-        x, gamma, beta, y, rows, C, eps);
-  } else {
-    ln_block_kernel<<<(unsigned)rows, kRowThreads, 0, stream>>>(
-        x, gamma, beta, y, C, eps);
+  switch (route) {
+    case kLnWarp:
+      launch_ln_warp_bucket<4>(x, gamma, beta, y, rows, C, eps, stream);
+      break;
+    case kLnWarpScalar:
+      launch_ln_warp_bucket<1>(x, gamma, beta, y, rows, C, eps, stream);
+      break;
+    default:
+      ln_block_kernel<<<(unsigned)rows, kRowThreads, 0, stream>>>(
+          x, gamma, beta, y, C, eps);
   }
   return (int)cudaGetLastError();
 }

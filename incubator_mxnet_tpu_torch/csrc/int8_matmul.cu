@@ -18,12 +18,17 @@
 //
 // Three routes, picked by the Python wrapper (ops/kernels/int8_matmul.py
 // _route) and checked here:
-//   small (M <= 16, decode): one block owns a 16 x 64 tile of C and walks K
-//     in stages of 64 bytes copied with 16-byte cp.async, 4 stages in
-//     flight, so the grid has more blocks than the card has SMs; warps
-//     multiply with mma.sync.m16n8k32 (s8 x s8 -> s32) from rows padded to
-//     80 bytes (conflict-free fragment reads). Misaligned operands take the
-//     same tile with byte-wide loads.
+//   small (M <= 16, decode): one block of 4 warps owns a 16 x 32 tile of C
+//     and requests all of its K share before it multiplies, in stages of
+//     256 bytes copied with 16-byte cp.async (at the decode shape, K = 656,
+//     three stages: all of the tile's bytes in flight at once). The warps
+//     split each stage's k-steps of 32 among them, so no warp walks a chain
+//     of dependent stages, and multiply with mma.sync.m16n8k32 (s8 x s8 ->
+//     s32) from rows padded to 272 bytes (conflict-free fragment reads);
+//     their int32 partials meet in shared memory once the last stage is
+//     consumed, with no atomics and no scratch in device memory. Longer K
+//     streams through the three stages. Misaligned operands take the same
+//     kernel with byte-wide loads.
 //   tma (M > 16, both bases 16-byte aligned, K % 16 == 0): one persistent
 //     block an SM walks 128 x 256 tiles of C. One producer thread keeps a
 //     ring of 4 stages of 128 bytes of K (A 16 KB + W 32 KB a stage, 192 KB
@@ -199,20 +204,148 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
       }
 }
 
-// Decode tile: 16 x 64, 4 warps side by side in N, 4 stages (25.6 KB).
-constexpr int kSmallBM = 16, kSmallBN = 64;
+// --------------------------------------------- small: split K over warps
+namespace small {
+
+constexpr int kBM = 16, kBN = 32;    // the tile of C a block owns
+constexpr int kWarps = 4;            // each takes every 4th k-step of 32
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 256;          // K bytes a stage
+constexpr int kRowC = kChunk + 16;   // padded row (272 bytes: conflict-free
+                                     // fragment reads, 4 banks a row on)
+constexpr int kStages = 3;           // all requested before the first wait
+constexpr int kStageBytes = (kBM + kBN) * kRowC;
+constexpr int kNT = kBN / 8;         // n8 tiles of a warp's 16 x 32 partial
+constexpr int kRedRow = kBN + 4;     // a partial's row in the reduction
+static_assert(kWarps * kBM * kRedRow * 4 <= kStages * kStageBytes,
+              "reduction space");
+
+// One block owns a 16 x 32 tile of C and requests its whole share of A and
+// W, in stages of 256 bytes of K, before it multiplies: at the decode shape
+// (K = 656) three stages, all of the tile's bytes in flight at once, over
+// 313 blocks. Its 4 warps split each stage's k-steps (warp w takes steps
+// w, w + 4, ...), so no warp walks a chain of dependent stages; each keeps
+// a 16 x 32 int32 partial in registers. The partials meet in shared memory
+// once the last stage is consumed, and each thread adds the 4 partials of
+// 4 outputs in warp order and stores them. Integer sums are exact in any order; nothing
+// is atomic and nothing but A, W and C goes through device memory.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    int8_mm_small_kernel(const int8_t* __restrict__ a,
+                         const int8_t* __restrict__ w,
+                         int32_t* __restrict__ c, int M, int N, int K) {
+  __shared__ __align__(16) int8_t smem[kStages * kStageBytes];   // 39 KB
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;    // mma fragment coordinates
+  const long long n0 = (long long)blockIdx.x * kBN;
+  const int nchunks = (K + kChunk - 1) / kChunk;
+
+  // stage `s` <- A's rows 0..15 and W's rows n0.., K columns k0 .. + 255
+  auto load = [&](int s, int k0) {
+    int8_t* dst = smem + s * kStageBytes;
+    if constexpr (VEC) {
+      for (int ch = tid; ch < (kBM + kBN) * (kChunk / 16); ch += kThreads) {
+        const int r = ch / (kChunk / 16), j = ch % (kChunk / 16);
+        const int k = k0 + j * 16;
+        const bool is_a = r < kBM;
+        const long long row = is_a ? r : n0 + (r - kBM);
+        const int8_t* base = is_a ? a : w;
+        const bool ok = row < (is_a ? M : N) && k < K;
+        cp_async16(dst + r * kRowC + j * 16, ok ? base + row * K + k : base,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < (kBM + kBN) * kChunk; e += kThreads) {
+        const int r = e / kChunk, kk = e % kChunk;
+        const int k = k0 + kk;
+        const bool is_a = r < kBM;
+        const long long row = is_a ? r : n0 + (r - kBM);
+        const int8_t* base = is_a ? a : w;
+        const bool ok = row < (is_a ? M : N) && k < K;
+        dst[r * kRowC + kk] = ok ? base[row * K + k] : (int8_t)0;
+      }
+    }
+  };
+
+  int acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    if (s < nchunks) load(s, s * kChunk);
+    cp_async_commit();    // always: the wait below counts groups
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<kStages - 1>();   // stage ch has landed ...
+    __syncthreads();                // ... for every thread
+    const int8_t* As = smem + (ch % kStages) * kStageBytes;
+    const int8_t* Ws = As + kBM * kRowC;
+    const int steps = (min(kChunk, K - ch * kChunk) + 31) / 32;
+    for (int st = warp; st < steps; st += kWarps) {
+      const int ks = st * 32;
+      unsigned af[4], bf[kNT][2];
+      const int8_t* p = As + g * kRowC + ks + t * 4;
+      af[0] = *reinterpret_cast<const unsigned*>(p);
+      af[1] = *reinterpret_cast<const unsigned*>(p + 8 * kRowC);
+      af[2] = *reinterpret_cast<const unsigned*>(p + 16);
+      af[3] = *reinterpret_cast<const unsigned*>(p + 8 * kRowC + 16);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int8_t* q = Ws + (j * 8 + g) * kRowC + ks + t * 4;
+        bf[j][0] = *reinterpret_cast<const unsigned*>(q);
+        bf[j][1] = *reinterpret_cast<const unsigned*>(q + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) mma_s8(acc[j], af, bf[j]);
+    }
+    __syncthreads();                // stage ch is no longer read by anyone
+    if (ch + kStages < nchunks)
+      load(ch % kStages, (ch + kStages) * kChunk);
+    cp_async_commit();
+  }
+
+  // the warps' partials (accumulator fragment: rows g and g + 8, columns
+  // 8 j + 2 t and + 1) into the stages' space, then each output's partials
+  // added in warp order
+  cp_async_wait<0>();
+  int* red = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int* dst = red + (warp * kBM + g + 8 * h) * kRedRow + j * 8 + 2 * t;
+      dst[0] = acc[j][2 * h];
+      dst[1] = acc[j][2 * h + 1];
+    }
+  __syncthreads();
+  for (int i = tid; i < kBM * kBN; i += kThreads) {
+    const int row = i / kBN, col = i % kBN;
+    if (row >= M || n0 + col >= N) continue;
+    int sum = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v)
+      sum += red[(v * kBM + row) * kRedRow + col];
+    c[(long long)row * N + n0 + col] = sum;
+  }
+}
+
+template <bool VEC>
+cudaError_t launch(const int8_t* a, const int8_t* w, int32_t* c, int M,
+                   int N, int K, cudaStream_t stream) {
+  int8_mm_small_kernel<VEC><<<(unsigned)((N + kBN - 1) / kBN), kThreads, 0,
+                              stream>>>(a, w, c, M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace small
+
 // Byte-load tile: 128 x 128, 8 warps as 2 x 4 (warp tile 64 x 32), 2
 // stages (40 KB of static shared memory).
 constexpr int kBytesBM = 128, kBytesBN = 128;
-
-template <bool VEC>
-cudaError_t launch_small(const int8_t* a, const int8_t* w, int32_t* c, int M,
-                         int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + kSmallBN - 1) / kSmallBN, 1);
-  int8_mm_kernel<kSmallBM, kSmallBN, 1, 4, 4, VEC>
-      <<<grid, 128, 0, stream>>>(a, w, c, M, N, K);
-  return cudaGetLastError();
-}
 
 cudaError_t launch_bytes(const int8_t* a, const int8_t* w, int32_t* c, int M,
                          int N, int K, cudaStream_t stream) {
@@ -538,7 +671,7 @@ extern "C" int mxtpu_int8_matmul_nk(const void* a, const void* w, void* c,
   const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                        K % 16 == 0;
-  if ((route == 0 && M > kSmallBM) || (route == 1 && !aligned) ||
+  if ((route == 0 && M > small::kBM) || (route == 1 && !aligned) ||
       route < 0 || route > 2)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
@@ -548,8 +681,8 @@ extern "C" int mxtpu_int8_matmul_nk(const void* a, const void* w, void* c,
   const auto* w8 = static_cast<const int8_t*>(w);
   auto* c32 = static_cast<int32_t*>(c);
   if (route == 0)
-    return (int)(aligned ? launch_small<true>(a8, w8, c32, M, N, K, stream)
-                         : launch_small<false>(a8, w8, c32, M, N, K, stream));
+    return (int)(aligned ? small::launch<true>(a8, w8, c32, M, N, K, stream)
+                         : small::launch<false>(a8, w8, c32, M, N, K, stream));
   if (route == 1)
     return (int)tma::launch(a8, w8, c32, M, N, K, device, stream);
   return (int)launch_bytes(a8, w8, c32, M, N, K, stream);

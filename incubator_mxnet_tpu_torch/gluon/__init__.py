@@ -2,8 +2,8 @@
 ParameterDict, the layers of ``nn``, the fused layers of ``rnn``, the
 losses, the local ``Trainer`` and the ResNet model zoo (counterpart of
 ``incubator_mxnet_tpu/gluon/``). The other layers, the recurrent cells,
-``contrib``, ``data`` and ``utils`` wait for ROADMAP Queue 1 items 3, 9 and
-10."""
+``contrib``, ``data`` and ``utils`` wait for ROADMAP Queue 1 items 6, 10 and
+11."""
 
 from . import loss, model_zoo, nn, rnn
 from .block import Block, HybridBlock

@@ -24,8 +24,8 @@ the JAX package. Layers read the training flag from
 
 ``hybridize()`` keeps its API and runs the block eagerly, giving the same
 numbers; the compiled form (a per-shape cache, such as a CUDA graph, in
-place of the JAX package's jitted program) is ROADMAP Queue 1 item 3.
-``export`` and ``SymbolBlock`` wait for the symbol frontend (item 9).
+place of the JAX package's jitted program) is ROADMAP Queue 1 item 6.
+``export`` and ``SymbolBlock`` wait for the symbol frontend (item 10).
 """
 
 import re
@@ -382,4 +382,4 @@ class HybridBlock(Block):
     def export(self, path, epoch=0):
         raise NotImplementedError("HybridBlock.export: the symbol frontend "
                                   "is not ported yet (ROADMAP Queue 1 item "
-                                  "9)")
+                                  "10)")

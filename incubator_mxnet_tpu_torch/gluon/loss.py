@@ -5,7 +5,7 @@ Counterpart of ``incubator_mxnet_tpu/gluon/loss.py`` for ``Loss``,
 Each class binds its constructor options and runs its kernel on the
 tensors of NDArray inputs, recorded under ``autograd.record()``, or on
 tensors directly. The other losses of the JAX package wait for ROADMAP
-Queue 1 item 2.
+Queue 1 item 5.
 """
 
 import functools

@@ -1,6 +1,6 @@
 """Vision model zoo: the ResNet families (counterpart of
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/``). The zoo's other families
-wait for the rest of the op surface (ROADMAP Queue 1 item 9);
+wait for the rest of the op surface (ROADMAP Queue 1 item 10);
 ``get_model`` names them and raises."""
 
 from .resnet import *  # noqa: F401,F403
@@ -39,6 +39,6 @@ def get_model(name, **kwargs):
         return _models[name](**kwargs)
     if name in _LATER:
         raise NotImplementedError("model %s is not ported yet (ROADMAP "
-                                  "Queue 1 item 9)" % name)
+                                  "Queue 1 item 10)" % name)
     raise ValueError("Model %s not supported. Available: %s"
                      % (name, sorted(_models)))

@@ -20,7 +20,7 @@ shape is inferred on that device and the weights start from
 ``init_params(seed)`` (Xavier's form from a seeded ``torch.Generator``;
 numpy's global RNG is not touched). Without ``device`` it is a gluon net
 whose parameters wait for ``initialize``. Per-stage rematerialization
-(``remat_stages``, ``MXTPU_RESNET_REMAT``) is ROADMAP Queue 1 item 6 and
+(``remat_stages``, ``MXTPU_RESNET_REMAT``) is ROADMAP Queue 1 item 9 and
 raises.
 """
 
@@ -43,7 +43,7 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
 
 def _no_remat(what):
     return NotImplementedError("%s: per-stage rematerialization is not "
-                               "ported yet (ROADMAP Queue 1 item 6)" % what)
+                               "ported yet (ROADMAP Queue 1 item 9)" % what)
 
 
 def _conv_plan(kind, channels, stride, preact):

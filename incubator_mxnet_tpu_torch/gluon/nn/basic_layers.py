@@ -20,7 +20,7 @@ outside a trace. ``init_params`` draws gluon's usual start
 (``mx.init.Xavier()``'s form) from a seeded ``torch.Generator`` for nets
 whose shapes are known. ``Dense(..., params=other.params)`` shares
 ``other``'s weight of the same name (a tied decoder). Sequential, LayerNorm,
-InstanceNorm and the Lambda blocks wait for ROADMAP Queue 1 items 3 and 9.
+InstanceNorm and the Lambda blocks wait for ROADMAP Queue 1 items 6 and 10.
 """
 
 import math

@@ -7,7 +7,7 @@ MaxPool2D, AvgPool2D and GlobalAvgPool2D, with gluon's constructor
 arguments and defaults, NCHW. ``layout`` is accepted and not read, as in the
 JAX package. ``ceil_mode=True`` raises at the call. The 1-D and 3-D layers,
 the global max pools, the transposed convolutions and ReflectionPad2D wait
-for the rest of the op surface (ROADMAP Queue 1 item 9).
+for the rest of the op surface (ROADMAP Queue 1 item 10).
 """
 
 from ..block import HybridBlock

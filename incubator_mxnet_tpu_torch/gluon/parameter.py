@@ -40,7 +40,7 @@ def _first_ctx(ctx):
         if len(ctx) != 1:
             raise NotImplementedError(
                 "a Parameter on %d devices: per-device replicas are the "
-                "scale-out slice's (ROADMAP Queue 1 item 11)" % len(ctx))
+                "scale-out slice's (ROADMAP Queue 1 item 12)" % len(ctx))
         ctx = ctx[0]
     return resolve_device(ctx)
 
@@ -63,7 +63,7 @@ class Parameter:
         if stype != "default" or grad_stype != "default":
             raise NotImplementedError(
                 "Parameter %s: sparse storage (stype=%r, grad_stype=%r) is "
-                "not ported yet (ROADMAP Queue 1 item 9)"
+                "not ported yet (ROADMAP Queue 1 item 4)"
                 % (name, stype, grad_stype))
         self.name = name
         self._grad_req = grad_req if differentiable else "null"

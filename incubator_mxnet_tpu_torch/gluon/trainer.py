@@ -10,7 +10,7 @@ and AdamW update every dense fp32 parameter of a group in one launch of the
 fused kernel (``ops/kernels/fused_optim.py``).
 
 The dist kvstores, the bucketed overlap pipeline and ``update_on_kvstore``
-wait for the scale-out slice (ROADMAP Queue 1 item 11) and raise.
+wait for the scale-out slice (ROADMAP Queue 1 item 12) and raise.
 """
 
 import functools
@@ -45,7 +45,7 @@ def _kv_ready(method):
 
 def _dist(what):
     return NotImplementedError("Trainer: %s is not ported yet (ROADMAP "
-                               "Queue 1 item 11)" % what)
+                               "Queue 1 item 12)" % what)
 
 
 class Trainer:

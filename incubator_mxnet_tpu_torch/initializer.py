@@ -7,7 +7,7 @@ initializer draws from numpy's global RNG in the JAX package's order and
 writes the draw into the parameter's tensor in place, rounded to its dtype,
 so ``np.random.seed(s); net.initialize(mx.init.Xavier())`` gives the JAX
 package's weights bitwise. Bilinear, LSTMBias, FusedRNN and Mixed wait for
-the layers that use them (ROADMAP Queue 1 items 3 and 9).
+the layers that use them (ROADMAP Queue 1 items 6 and 10).
 """
 
 import math

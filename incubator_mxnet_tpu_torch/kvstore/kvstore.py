@@ -6,7 +6,7 @@ pushed values). ``pull`` copies into its ``out`` arrays in place, so a
 parameter pulled into keeps the tensor its module reads. The dist types,
 store-side optimizers (``set_optimizer``, the ``update_on_kvstore`` path),
 gradient compression and row-sparse pulls wait for the scale-out slice and
-the sparse NDArray (ROADMAP Queue 1 items 11 and 9) and raise.
+the sparse NDArray (ROADMAP Queue 1 items 12 and 4) and raise.
 """
 
 import torch
@@ -25,7 +25,7 @@ def create(name="local"):
         return KVStoreDevice("device")
     if name.startswith("dist"):
         raise NotImplementedError("kvstore %r is not ported yet (ROADMAP "
-                                  "Queue 1 item 11)" % name)
+                                  "Queue 1 item 12)" % name)
     raise ValueError("unknown kvstore type %r" % name)
 
 
@@ -59,12 +59,12 @@ class KVStore:
     # -- config --------------------------------------------------------------
     def set_gradient_compression(self, compression_params):
         raise NotImplementedError("gradient compression is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
+                                  "(ROADMAP Queue 1 item 12)")
 
     def set_optimizer(self, optimizer):
         raise NotImplementedError("store-side optimizers (update_on_kvstore) "
                                   "are not ported yet (ROADMAP Queue 1 item "
-                                  "11)")
+                                  "12)")
 
     # -- data plane ----------------------------------------------------------
     def init(self, key, value):
@@ -108,7 +108,7 @@ class KVStore:
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         raise NotImplementedError("row_sparse_pull is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+                                  "(ROADMAP Queue 1 item 4)")
 
 
 class KVStoreLocal(KVStore):

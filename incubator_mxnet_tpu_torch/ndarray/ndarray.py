@@ -85,14 +85,60 @@ def _mx_shape(old, new, reverse=False):
     return tuple(out[::-1] if reverse else out)
 
 
+#: dtypes that jnp.sum (x64 off) sums into int32
+_INT32_SUMS = (torch.bool, torch.int8, torch.int16, torch.int32)
+
+
+def _floating(t):
+    """``t`` itself if floating, else as float32 (jnp's mean and sqrt)."""
+    return t if t.is_floating_point() else t.float()
+
+
 def _axes(axis, ndim, exclude=False):
+    """The dims a reduction over ``axis`` takes. As the reference's
+    ``_reduce`` reads it, ``exclude`` applies only when an axis is given:
+    ``axis=None`` reduces every axis."""
     if axis is None:
-        return tuple(range(ndim)) if not exclude else ()
+        return tuple(range(ndim))
     axes = (axis,) if isinstance(axis, int) else tuple(axis)
     axes = tuple(a % ndim for a in axes)
     if exclude:
         axes = tuple(a for a in range(ndim) if a not in axes)
     return axes
+
+
+def _flip_negative_steps(key, t):
+    """(key, dims): torch indexing refuses a slice with a negative step, as
+    jnp indexing does not. Each such slice over dim d becomes the slice that
+    selects the same elements, in the same order, of ``t.flip(d)``; ``dims``
+    lists the dims to flip (empty when the key has no negative step)."""
+    parts = list(key) if isinstance(key, tuple) else [key]
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in parts):
+        return key, ()
+
+    def width(k):          # the dims of t that one key entry consumes
+        if k is None or k is Ellipsis:
+            return 0
+        if isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            return k.dim()
+        return 1
+
+    rest = t.dim() - sum(width(k) for k in parts)
+    dims, d = [], 0
+    for i, k in enumerate(parts):
+        if k is Ellipsis:
+            d += rest
+        elif isinstance(k, slice) and k.step is not None and k.step < 0:
+            n = t.shape[d]
+            start, stop, step = k.indices(n)
+            # element n - 1 - j of the flipped dim is element j of t
+            parts[i] = slice(n - 1 - start, n - 1 - stop, -step)
+            dims.append(d)
+            d += 1
+        else:
+            d += width(k)
+    return (tuple(parts) if isinstance(key, tuple) else parts[0]), tuple(dims)
 
 
 class NDArray:
@@ -238,7 +284,7 @@ class NDArray:
         if stype not in (None, "default"):
             raise NotImplementedError("attach_grad(stype=%r): sparse "
                                       "gradients are not ported yet (ROADMAP "
-                                      "Queue 1 item 9)" % stype)
+                                      "Queue 1 item 4)" % stype)
         self._mark_variable(None, grad_req)
 
     def _mark_variable(self, grad, grad_req):
@@ -291,13 +337,20 @@ class NDArray:
             else one(key)
 
     def __getitem__(self, key):
-        key = self._key(key)
+        key, flips = _flip_negative_steps(self._key(key), self._t)
+        if flips:
+            return invoke(lambda t: t.flip(flips)[key], self)
         return invoke(lambda t: t[key], self)
 
     def __setitem__(self, key, value):
-        key = self._key(key)
+        key, flips = _flip_negative_steps(self._key(key), self._t)
         with torch.no_grad():
-            self._t[key] = _as_tensor(value, self._t)
+            if not flips:
+                self._t[key] = _as_tensor(value, self._t)
+                return
+            flipped = self._t.flip(flips)
+            flipped[key] = _as_tensor(value, self._t)
+            self._t.copy_(flipped.flip(flips))
 
     # ------------------------------------------------------------ arithmetic
     def _binary(self, other, fn, reverse=False):
@@ -392,20 +445,30 @@ class NDArray:
 
     def sum(self, axis=None, keepdims=False, exclude=False):
         dims = _axes(axis, self.ndim, exclude)
-        return invoke(lambda t: t.sum(dim=dims, keepdim=keepdims)
-                      if dims else t, self)
+        # jnp.sum sums bool and signed integers of up to 32 bits in int32
+        acc = torch.int32 if self._t.dtype in _INT32_SUMS else None
+        # (torch reads dim=() as every dim; axis=() reduces none)
+        return invoke(lambda t: t.sum(dim=dims, keepdim=keepdims, dtype=acc)
+                      if dims else t.to(acc or t.dtype), self)
 
     def mean(self, axis=None, keepdims=False, exclude=False):
         dims = _axes(axis, self.ndim, exclude)
-        return invoke(lambda t: t.mean(dim=dims, keepdim=keepdims)
-                      if dims else t, self)
+        # jnp.mean of an integer or bool array is float32
+        return invoke(lambda t: _floating(t).mean(dim=dims, keepdim=keepdims)
+                      if dims else _floating(t), self)
 
     def max(self, axis=None, keepdims=False):
         dims = _axes(axis, self.ndim)
         return invoke(lambda t: t.amax(dim=dims, keepdim=keepdims), self)
 
     def norm(self):
-        return invoke(torch.linalg.vector_norm, self)
+        if self._t.is_floating_point():
+            return invoke(torch.linalg.vector_norm, self)
+        # the reference's sqrt(sum(square(x))): an integer sum of squares,
+        # then a float32 square root
+        return invoke(lambda t: torch.sqrt(
+            (t * t).sum(dtype=torch.int32 if t.dtype in _INT32_SUMS
+                        else None).float()), self)
 
     def softmax(self, axis=-1):
         from . import softmax

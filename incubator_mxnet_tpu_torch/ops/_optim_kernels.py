@@ -24,7 +24,7 @@ shared with the kernels. ``clip <= 0`` means no clip; the clip lets a NaN
 gradient through.
 
 The lazy / row-sparse rules wait for the sparse NDArray (ROADMAP Queue 1
-item 9) and raise.
+item 4) and raise.
 """
 
 import functools
@@ -152,7 +152,7 @@ def _lazy(name):
     def raise_(*_a, **_k):
         raise NotImplementedError(
             "%s: lazy row-sparse updates wait for the sparse NDArray "
-            "(ROADMAP Queue 1 item 9)" % name)
+            "(ROADMAP Queue 1 item 4)" % name)
     raise_.__name__ = name
     return raise_
 

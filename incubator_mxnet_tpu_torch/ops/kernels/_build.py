@@ -37,8 +37,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of each C entry point (all return an int error code)
 _SIGNATURES = {
-    # x, gamma, beta, y, rows, C, eps, device, stream
-    "mxtpu_layer_norm_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, gamma, beta, y, rows, C, eps, route, device, stream
+    "mxtpu_layer_norm_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # x, y, rows, C, device, stream
     "mxtpu_softmax_f32": (_P, _P, _I, _I, _I, _P),
     # q, k, v, bias, out, lse, bh, T, D, scale, causal, device, stream
@@ -79,6 +79,8 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _P),
     # a, w, c, M, N, K, route, device, stream
     "mxtpu_int8_matmul_nk": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # device, stream: an empty kernel (a launch's floor)
+    "mxtpu_noop": (_I, _P),
     # q, k_pool, v_pool, tables, lengths, out, m, l, S, C, H, D, num_blocks,
     # block_size, max_blocks, scale, device, stream
     "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

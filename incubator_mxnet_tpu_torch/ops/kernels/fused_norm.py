@@ -11,6 +11,12 @@ A wrapper takes the plain version for a tensor on the CPU, and only then.
 For a CUDA tensor it launches its kernel or raises: float32, contiguous,
 any row count. Each launch adds one to the wrapper's ``launches`` count.
 Inputs that need no gradient skip the autograd Function.
+
+``_route`` picks the LayerNorm kernel's route from the row length and the
+four tensors' addresses: ``"warp"`` (a warp a row, 16-byte accesses) for
+C <= 1024 with C % 4 == 0 and 16-byte aligned bases, ``"warp_scalar"`` for
+the other rows of up to 1024, ``"long"`` (a block a row) above 1024. The C
+entry refuses a route whose conditions fail.
 """
 
 import torch
@@ -18,9 +24,24 @@ import torch
 from . import _build
 
 __all__ = ["layer_norm", "softmax", "layer_norm_reference",
-           "softmax_reference"]
+           "softmax_reference", "ROUTES"]
 
 _INT_MAX = 2 ** 31 - 1
+
+#: the C entry's LayerNorm route codes
+ROUTES = {"warp": 0, "warp_scalar": 1, "long": 2}
+#: the longest row of the warp routes (one row in a warp's registers)
+MAX_WARP_C = 1024
+
+
+def _route(C, x_ptr, g_ptr, b_ptr, y_ptr):
+    """The LayerNorm kernel's route for rows of ``C`` whose x, gamma, beta
+    and output start at those byte addresses."""
+    if C > MAX_WARP_C:
+        return "long"
+    vec = C % 4 == 0 and all(p % 16 == 0 for p in (x_ptr, g_ptr, b_ptr,
+                                                    y_ptr))
+    return "warp" if vec else "warp_scalar"
 
 
 def layer_norm_reference(x, gamma, beta, eps=1e-5):
@@ -81,10 +102,9 @@ def _layer_norm_forward(x, gamma, beta, eps):
     out = torch.empty_like(x)
     if rows == 0 or C == 0:
         return out
-    lib = _build.library()
-    rc = lib.mxtpu_layer_norm_f32(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        rows, C, float(eps), x.device.index,
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr())
+    rc = _build.library().mxtpu_layer_norm_f32(
+        *ptrs, rows, C, float(eps), ROUTES[_route(C, *ptrs)], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "layer_norm")
     _build.count_launch(layer_norm)

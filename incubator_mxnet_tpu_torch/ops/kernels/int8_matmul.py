@@ -18,7 +18,8 @@ kernel takes any M, N and K up to ``K_MAX``: the TPU wrapper's tiling assert
 the plain version; for CUDA tensors they launch the kernel or raise.
 
 ``_route`` picks the kernel's route from the shape and the operands'
-addresses: ``"small"`` for M <= 16 (the decode tile, ``mma.sync``),
+addresses: ``"small"`` for M <= 16 (the decode tile: each block requests
+all of its K share at once and its warps split the k-steps, ``mma.sync``),
 ``"tma"`` for larger M with both bases 16-byte aligned and K % 16 == 0
 (``wgmma`` fed by TMA), ``"bytes"`` for anything else (byte-wide loads).
 The C entry refuses a route whose condition fails.

@@ -4,7 +4,7 @@ Counterpart of the part of ``incubator_mxnet_tpu/ops/losses.py`` that
 ``gluon.loss`` binds here: ``l2_loss``, ``l1_loss`` and ``softmax_ce``. Each
 reduces with the mean over every axis except ``batch_axis`` (the
 reference's ``F.mean(..., exclude=True)``). The other losses of that file
-wait for ROADMAP Queue 1 item 2.
+wait for ROADMAP Queue 1 item 5.
 """
 
 import torch

@@ -153,7 +153,7 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
     reduce_window gradient does on the CPU); avg divides by the whole
     window with ``count_include_pad``, else by its in-image part.
     ``pooling_convention="full"`` (ceil mode) and ``lp`` are Queue 1
-    item 9."""
+    item 5."""
     sd = data.dim() - 2
     if sd not in _MAX_POOL:
         raise ValueError("pooling: data must be 3-D to 5-D, got %d-D"
@@ -162,7 +162,7 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
         raise ValueError("unknown pool_type %r" % pool_type)
     if pool_type == "lp":
         raise NotImplementedError("pooling: pool_type 'lp' is not ported "
-                                  "yet (ROADMAP Queue 1 item 9)")
+                                  "yet (ROADMAP Queue 1 item 5)")
     if global_pool:
         dims = tuple(range(2, data.dim()))
         if pool_type == "max":
@@ -177,7 +177,7 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
     if pooling_convention == "full":
         raise NotImplementedError("pooling: pooling_convention 'full' (ceil "
                                   "mode) is not ported yet (ROADMAP Queue 1 "
-                                  "item 9)")
+                                  "item 5)")
     kernel = _tup(kernel, sd)
     stride = _tup(stride, sd) if stride is not None else (1,) * sd
     pad = _tup(pad, sd) if pad is not None else (0,) * sd

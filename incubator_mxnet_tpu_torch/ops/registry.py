@@ -8,7 +8,7 @@ of the table to one. This slice binds the ops of the eager gluon ResNet path
 (FullyConnected, Convolution, BatchNorm, Pooling, Activation, Flatten,
 softmax, log_softmax, pick, in ``ops/nn.py`` and ``ops/tensor.py``);
 ``get_op`` of any other name of the table raises NotImplementedError naming
-ROADMAP Queue 1 item 9, and of a name outside it KeyError.
+ROADMAP Queue 1 item 10, and of a name outside it KeyError.
 """
 
 __all__ = ["OpInfo", "register", "get_op", "list_ops", "table_names",
@@ -237,7 +237,7 @@ def get_op(name):
         return _OP_REGISTRY[name]
     if name in _CANONICAL:
         raise NotImplementedError(
-            "op %r is not ported yet (ROADMAP Queue 1 item 9)" % name)
+            "op %r is not ported yet (ROADMAP Queue 1 item 10)" % name)
     raise KeyError(name)
 
 

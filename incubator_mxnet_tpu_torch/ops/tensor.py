@@ -1,7 +1,7 @@
 """Tensor operators of the eager gluon path: ``pick`` and ``Embedding``.
 
 Counterpart of the part of ``incubator_mxnet_tpu/ops/tensor.py`` that the
-ported paths call; the rest of that file is ROADMAP Queue 1 item 9.
+ported paths call; the rest of that file is ROADMAP Queue 1 item 5.
 """
 
 import torch

@@ -17,8 +17,8 @@ states are updated in place: the module's forward reads those tensors.
 
 The other optimizers of the JAX package (LBSGD, Signum, SGLD, AdaGrad,
 RMSProp, AdaDelta, Adamax, Nadam, Ftrl, FTML, DCASGD) are registered by name
-and raise NotImplementedError (ROADMAP Queue 1 item 4); lazy row-sparse
-updates wait for the sparse NDArray (item 9).
+and raise NotImplementedError (ROADMAP Queue 1 item 14); lazy row-sparse
+updates wait for the sparse NDArray (item 4).
 """
 
 import pickle
@@ -317,7 +317,7 @@ def _later(name):
     class _Later(Optimizer):
         def __init__(self, *args, **kwargs):
             raise NotImplementedError(
-                "optimizer %r is not ported yet (ROADMAP Queue 1 item 4)"
+                "optimizer %r is not ported yet (ROADMAP Queue 1 item 14)"
                 % name.lower())
     _Later.__name__ = _Later.__qualname__ = name
     return register(_Later)

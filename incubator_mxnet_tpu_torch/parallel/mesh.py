@@ -3,7 +3,7 @@
 Counterpart of ``incubator_mxnet_tpu/parallel/mesh.py``. This slice trains
 on one device, so a mesh names its axes and holds that device; an axis
 larger than 1 raises NotImplementedError until scale-out over NCCL is ported
-(ROADMAP Queue 1 item 11).
+(ROADMAP Queue 1 item 12).
 """
 
 from ..context import resolve_device
@@ -50,5 +50,5 @@ def make_mesh(axes, devices=None):
     if big:
         raise NotImplementedError(
             "make_mesh: axes %s span more than one device; scale-out over "
-            "NCCL is ROADMAP Queue 1 item 11" % big)
+            "NCCL is ROADMAP Queue 1 item 12" % big)
     return Mesh(dict(zip(names, sizes)), devices[:1])

@@ -84,23 +84,23 @@ class ShardedTrainer:
                              "runs on %s" % (mesh.device, self._device))
         if rules:
             raise _not_yet("parameter sharding rules (tp/ep)",
-                           "Queue 1 item 11")
+                           "Queue 1 item 12")
         if _dtype("compute_dtype", compute_dtype) not in (None,
                                                           torch.float32):
             raise _not_yet("compute_dtype %s" % compute_dtype,
-                           "Queue 1 item 5, bf16 compute")
+                           "Queue 1 item 8, bf16 compute")
         if _dtype("param_dtype", param_dtype) not in (None, torch.float32):
             raise _not_yet("param_dtype %s" % param_dtype,
-                           "Queue 1 item 5, bf16-stored parameters")
+                           "Queue 1 item 8, bf16-stored parameters")
         if zero1 not in (False, True, "manual", "auto"):
             raise ValueError("zero1 must be False/True/'manual'/'auto', got "
                              "%r" % (zero1,))
         if zero1:
-            raise _not_yet("zero1", "Queue 1 item 11")
+            raise _not_yet("zero1", "Queue 1 item 12")
         if int(grad_accum) < 1:
             raise ValueError("grad_accum must be >= 1")
         if int(grad_accum) > 1:
-            raise _not_yet("grad_accum > 1", "Queue 1 item 11")
+            raise _not_yet("grad_accum > 1", "Queue 1 item 12")
         if optimizer not in ("sgd", "adam", "adamw"):
             raise ValueError("unknown optimizer %r" % (optimizer,))
         self._block = block
@@ -268,7 +268,7 @@ class ShardedTrainer:
 
     def step_guarded(self, data, label, loss_scale=1.0):
         raise _not_yet("step_guarded (the numeric guard)",
-                       "Queue 1 item 5 and item 12, resilience/")
+                       "Queue 1 item 8 and item 13, resilience/")
 
     # --------------------------------------------------------------- state
     @property

@@ -187,7 +187,7 @@ PORT_CLASSES = {"layer_norm", "softmax", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                 "trainer_adam", "sgd_mom (trainer or flat)", "adamw_flat",
                 "adam_flat", "fused_bottleneck", "flash_decode",
-                "int8_matmul"}
+                "int8_matmul", "noop"}
 
 
 def _profiled_names(path):
@@ -294,3 +294,66 @@ def test_flash_forward_rows_on_the_cpu_dense_then_ragged(monkeypatch):
         assert r["ms"] == r["plain_ms"] == r["library_ms"] == 1.0
     # half the keys live: the CUDA-core work halves and the bytes bind
     assert (dense["bound_by"], ragged["bound_by"]) == ("operations", "bytes")
+
+
+# ------------------------------------- LayerNorm and int8 decode rows
+def _randn_cpu(seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return lambda *shape: torch.randn(*shape, generator=gen)
+
+
+def test_layer_norm_rows_name_shape_route_floor_and_gap(monkeypatch):
+    """The LayerNorm rows at the main paths' row counts (a decode grid
+    step's 8, a prefill chunk's 32, full batches of the two serving
+    buckets), on the CPU with fake clocks: each names the route the wrapper
+    picks for its tensors (CPU allocations are 64-byte aligned, so the
+    16-byte warp route), and carries the launch floor and its gap over
+    max(bound, floor)."""
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (0.01,
+                                                              "profiler"))
+    rows = chip_smoke.layer_norm_rows(torch, torch.device("cpu"),
+                                      _randn_cpu(), floor_ms=0.002)
+    assert [r["shape"] for r in rows] == [[8, 768], [32, 768], [1024, 768],
+                                          [4096, 768]]
+    assert [r["kernel_route"] for r in rows] == ["warp"] * 4
+    for r in rows:
+        assert r["name"] == "layer_norm" and r["max_abs_err"] == 0.0
+        assert r["tolerance"] == 1e-5 and r["bound_by"] == "bytes"
+        R, C = r["shape"]
+        assert r["bound_ms"] == pytest.approx(
+            (2 * R * C + 2 * C) * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+        assert r["floor_ms"] == 0.002
+        assert r["gap_ms"] == pytest.approx(
+            0.01 - max(r["bound_ms"], 0.002))
+    # a decode step's LayerNorm: its bytes are far below the floor
+    assert rows[0]["bound_ms"] < 0.0001 and rows[-1]["bound_ms"] > 0.002
+
+
+def test_int8_decode_row_times_int_mm_on_a_padded_a(monkeypatch):
+    """The int8 decode row on the CPU (the plain version, fake clocks) at a
+    small decode-like shape: exact, route and floor named, and its library
+    column torch._int_mm on A zero-padded to 24 rows, labelled so; a row
+    above 16 rows takes no padding and no floor."""
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (0.003,
+                                                              "profiler"))
+    seen = []
+    real = torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm",
+                        lambda a, b: seen.append(tuple(a.shape)) or real(a, b))
+    rows = chip_smoke.int8_matmul_rows(
+        torch, torch.device("cpu"), floor_ms=0.002,
+        cases=(("decode", "small", (8, 64, 40, 50)),
+               ("wide", "tma", (32, 64, 40, None))))
+    dec, wide = rows
+    assert dec["shape"] == [8, 64, 40] and dec["case"] == "decode"
+    assert dec["kernel_route"] == "small" and dec["max_abs_err"] == 0.0
+    assert dec["library_rows"] == chip_smoke.INT_MM_MIN_ROWS == 24
+    assert "zero-padded to 24 rows" in dec["library_note"]
+    assert dec["floor_ms"] == 0.002
+    assert dec["gap_ms"] == pytest.approx(0.003 - max(dec["bound_ms"],
+                                                      0.002))
+    assert (24, 64) in seen
+    assert wide["library_rows"] == 32 and "floor_ms" not in wide
+    assert "padded" not in wide["library_note"]

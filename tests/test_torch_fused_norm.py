@@ -201,3 +201,21 @@ def test_wrappers_refuse_other_devices():
         fused_norm.layer_norm(x, x[0], x[0])
     with pytest.raises(ValueError, match="unsupported device"):
         fused_norm.softmax(x)
+
+
+@pytest.mark.parametrize("C,ptrs,route", [
+    (768, (0, 16, 32, 48), "warp"), (768, (256,) * 4, "warp"),
+    (1024, (0,) * 4, "warp"), (100, (0,) * 4, "warp"),
+    (64, (0,) * 4, "warp"), (1000, (0,) * 4, "warp"), (4, (0,) * 4, "warp"),
+    (768, (4, 0, 0, 0), "warp_scalar"), (768, (0, 0, 0, 8), "warp_scalar"),
+    (768, (0, 1, 0, 0), "warp_scalar"), (769, (0,) * 4, "warp_scalar"),
+    (1023, (0,) * 4, "warp_scalar"), (1, (0,) * 4, "warp_scalar"),
+    (1025, (0,) * 4, "long"), (3000, (4,) * 4, "long"),
+    (4096, (0,) * 4, "long")])
+def test_layer_norm_route_follows_c_and_alignment(C, ptrs, route):
+    """The LayerNorm kernel's route: rows of up to 1024 values in a warp's
+    registers, with 16-byte accesses when C % 4 == 0 and x, gamma, beta and
+    the output all start on 16-byte boundaries, else single floats; a block
+    a row, read once a pass, above 1024 values."""
+    assert fused_norm._route(C, *ptrs) == route
+    assert fused_norm.ROUTES[route] in range(3)

@@ -6,7 +6,7 @@ test_ndarray.py and test_loss_optim_metric.py: the tests that touch only
 names this port has, each under its own name, with ``ctx=CPU`` wherever
 the original leaves the context to its default (the port's default is
 ``cuda:0``). The rest of those files wait for the ops, layers and
-optimizers of ROADMAP Queue 1 items 1-4 and 9.
+optimizers of ROADMAP Queue 1 items 4, 5, 6, 10 and 14.
 """
 
 import math

@@ -86,6 +86,7 @@ def test_cpu_path_does_not_launch_and_refuses_other_devices():
 
 @pytest.mark.parametrize("M,K,a_ptr,w_ptr,route", [
     (1, 656, 0, 0, "small"), (16, 656, 0, 0, "small"),
+    (8, 656, 0, 0, "small"), (8, 16, 0, 0, "small"), (8, 4096, 1, 0, "small"),
     (16, 650, 1, 3, "small"), (17, 656, 0, 0, "tma"),
     (17, 656, 16, 4096, "tma"), (17, 650, 0, 0, "bytes"),
     (17, 656, 1, 0, "bytes"), (17, 656, 0, 8, "bytes"),
@@ -93,8 +94,8 @@ def test_cpu_path_does_not_launch_and_refuses_other_devices():
     (128, K_MAX - K_MAX % 16, 0, 0, "tma"),
     (128, K_MAX - K_MAX % 16, 0, 2, "bytes")])
 def test_route_follows_m_alignment_and_k(M, K, a_ptr, w_ptr, route):
-    """The wrapper's route: the decode tile up to M = 16 whatever the
-    alignment; above it wgmma + TMA when both bases are 16-byte aligned and
+    """The wrapper's route: the decode tile (K split over a cluster) up to
+    M = 16 whatever the alignment and K; above it wgmma + TMA when both bases are 16-byte aligned and
     K % 16 == 0 (TMA's row stride), else byte-wide loads. K_MAX (131071) is
     odd, so it takes the byte route."""
     im = importlib.import_module(

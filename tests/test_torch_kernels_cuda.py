@@ -29,6 +29,10 @@ The fused bottleneck is held within atol 1e-4 in fp32 and within
 2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step where
 the two round a value from fp32 sums taken in other orders), on both of
 its bf16 routes (16-byte and element-wise loads).
+LayerNorm is held at atol 1e-5 on each of its three routes (a warp a row in
+16-byte and scalar forms, and the long-row block), each case asserting the
+route the wrapper picks; its C entry refuses a route whose conditions
+fail.
 The GPT test holds whole generations on the card and the CPU token for
 token. The int8 x int8 -> int32 matmul equals its plain version exactly
 (integer sums are exact in any order), at every shape, aligned or not, on
@@ -86,6 +90,83 @@ def test_layer_norm_kernel_matches_plain(cuda, rows, C):
     assert fused_norm.layer_norm.launches == n0 + 1
     want = fused_norm.layer_norm_reference(x, g, b)
     assert (got - want).abs().max().item() <= 1e-5
+
+
+def _ln_expected_route(C, vec=True):
+    if C > 1024:
+        return "long"
+    return "warp" if vec else "warp_scalar"
+
+
+def _ln_route_of(x, g, b, y):
+    return fused_norm._route(x.shape[-1], x.data_ptr(), g.data_ptr(),
+                             b.data_ptr(), y.data_ptr())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("rows", [1, 7, 8, 31, 32, 63, 64, 65, 1024, 4097])
+def test_layer_norm_routes_match_plain(cuda, rows):
+    """Every C of 64, 100, 128, 768, 1000, 1024 and 1025 at this row count:
+    the route the wrapper takes (a warp a row with 16-byte accesses up to
+    1024 values, the long-row block above) and the kernel within 1e-5 of
+    the plain version, one launch a call."""
+    for C in (64, 100, 128, 768, 1000, 1024, 1025):
+        x, g, b = _ln_inputs(rows, C, cuda)
+        n0 = fused_norm.layer_norm.launches
+        got = fused_norm.layer_norm(x, g, b)
+        torch.cuda.synchronize()
+        assert fused_norm.layer_norm.launches == n0 + 1
+        assert _ln_route_of(x, g, b, got) == _ln_expected_route(C), (rows, C)
+        want = fused_norm.layer_norm_reference(x, g, b)
+        assert (got - want).abs().max().item() <= 1e-5, (rows, C)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("rows", [8, 64, 1024])
+def test_layer_norm_scalar_route_on_views_and_odd_c(cuda, rows):
+    """A row 4 bytes past a 16-byte boundary, and C = 767 and 770 (not a
+    multiple of 4), take the scalar form of the warp route and hold
+    1e-5."""
+    x, g, b = _ln_inputs(rows, 768, cuda)
+    buf = torch.empty(rows * 768 + 1, device=cuda)
+    view = buf[1:].view(rows, 768)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    got = fused_norm.layer_norm(view, g, b)
+    assert _ln_route_of(view, g, b, got) == "warp_scalar"
+    torch.cuda.synchronize()
+    assert (got - fused_norm.layer_norm_reference(x, g, b)).abs().max() \
+        .item() <= 1e-5
+    for C in (767, 770):
+        x, g, b = _ln_inputs(rows, C, cuda)
+        got = fused_norm.layer_norm(x, g, b)
+        assert _ln_route_of(x, g, b, got) == "warp_scalar"
+        torch.cuda.synchronize()
+        want = fused_norm.layer_norm_reference(x, g, b)
+        assert (got - want).abs().max().item() <= 1e-5, (rows, C)
+
+
+@pytest.mark.needs_cuda
+def test_layer_norm_c_entry_refuses_a_route_whose_conditions_fail(cuda):
+    """The C entry refuses, before any launch, the 16-byte warp route for a
+    misaligned base or C % 4 != 0, the warp routes above 1024 values, the
+    long route at or below it, and an unknown route code."""
+    from incubator_mxnet_tpu_torch.ops.kernels import _build
+    x, g, b = _ln_inputs(8, 768, cuda)
+    view = torch.empty(8 * 768 + 1, device=cuda)[1:].view(8, 768)
+    odd = _ln_inputs(8, 770, cuda)
+    wide = _ln_inputs(8, 1028, cuda)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for (t, gg, bb), C, route in (((view, g, b), 768, 0), (odd, 770, 0),
+                                  (wide, 1028, 0), (wide, 1028, 1),
+                                  ((x, g, b), 768, 2), ((x, g, b), 768, 3)):
+        y = torch.empty_like(t)
+        rc = lib.mxtpu_layer_norm_f32(
+            t.data_ptr(), gg.data_ptr(), bb.data_ptr(), y.data_ptr(), 8, C,
+            1e-5, route, cuda.index, stream)
+        assert rc != 0, (C, route)
+    assert fused_norm.ROUTES == {"warp": 0, "warp_scalar": 1, "long": 2}
 
 
 @pytest.mark.needs_cuda
@@ -1020,6 +1101,48 @@ def test_int8_matmul_routes_on_views(cuda, M, K, N, offset, route):
     got = int8_matmul_nk(va, vw)
     torch.cuda.synchronize()
     assert torch.equal(got, int8_matmul_nk_reference(a, w))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("M", list(range(1, 17)))
+def test_int8_matmul_small_route_equals_plain_at_the_extremes(cuda, M):
+    """The small route (K split over a cluster of 1, 2, 4 or 8 blocks) bit
+    for bit at every K of 16, 48, 100, 192, 200, 640, 656 and 2000 (100 on
+    the byte-wide loads: K % 16 != 0) and N of 8, 65 and 10000, on the
+    extreme codes (+-127 and -128), one launch a call."""
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        _route, int8_matmul, int8_matmul_nk, int8_matmul_nk_reference)
+    gen = torch.Generator().manual_seed(2000 + M)
+    for K in (16, 48, 100, 192, 200, 640, 656, 2000):
+        for N in (8, 65, 10000):
+            a = _int8((M, K), gen, cuda, extremes=True)
+            w = _int8((N, K), gen, cuda, extremes=True)
+            assert _route(M, K, a.data_ptr(), w.data_ptr()) == "small"
+            n0 = int8_matmul.launches
+            got = int8_matmul_nk(a, w)
+            torch.cuda.synchronize()
+            assert int8_matmul.launches == n0 + 1
+            assert torch.equal(got, int8_matmul_nk_reference(a, w)), (M, K, N)
+
+
+@pytest.mark.needs_cuda
+def test_int8_matmul_c_entry_refuses_a_route_whose_conditions_fail(cuda):
+    """The small route above 16 rows, the tma route on a misaligned base or
+    K % 16 != 0, and an unknown route code are refused before any launch."""
+    from incubator_mxnet_tpu_torch.ops.kernels import _build
+    from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import ROUTES
+    a = torch.zeros(17, 656, dtype=torch.int8, device=cuda)
+    w = torch.zeros(64, 656, dtype=torch.int8, device=cuda)
+    c = torch.empty(17, 64, dtype=torch.int32, device=cuda)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for (M, K, ap, route) in ((17, 656, a.data_ptr(), ROUTES["small"]),
+                              (17, 656, a.data_ptr() + 1, ROUTES["tma"]),
+                              (17, 650, a.data_ptr(), ROUTES["tma"]),
+                              (17, 656, a.data_ptr(), 3)):
+        rc = lib.mxtpu_int8_matmul_nk(ap, w.data_ptr(), c.data_ptr(), M, 64,
+                                      K, route, cuda.index, stream)
+        assert rc != 0, (M, K, route)
 
 
 def _lstm_served(tmp_path, quantize, device):

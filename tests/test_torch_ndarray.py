@@ -8,7 +8,7 @@ binds (FullyConnected, Convolution, BatchNorm, Pooling, Activation, Flatten,
 softmax, log_softmax, pick). Elementwise results are exact (atol 0); sums,
 products and the softmax family within rtol 1e-6 / atol 1e-6 (summation
 order). The op table is the JAX package's name for name; an op that is not
-ported yet raises NotImplementedError naming ROADMAP Queue 1 item 9.
+ported yet raises NotImplementedError naming ROADMAP Queue 1 item 10.
 """
 
 import numpy as np
@@ -128,6 +128,70 @@ def test_reshape_reductions_astype_copyto_match_jax():
         ta.reshape(-3, 5)
 
 
+INT = np.array([[1, 2, 3], [4, 5, 7]], np.int32)
+
+
+def _typed_pair(x):
+    return (jmx.nd.array(x, dtype=x.dtype),
+            nd.array(x, ctx=CPU, dtype=x.dtype))
+
+
+def _same(got, want, rtol=1e-6):
+    got, want = got.asnumpy(), want.asnumpy()
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        got.shape, got.dtype, want.shape, want.dtype)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("x", [A, INT], ids=["float32", "int32"])
+@pytest.mark.parametrize("op", ["sum", "mean"])
+def test_exclude_without_an_axis_reduces_every_axis_as_jax(x, op):
+    """ROADMAP Queue 3 item 5: ``exclude`` applies only when an axis is
+    given (the reference's ``ops/tensor.py`` ``_reduce``); the port gave
+    the array back unreduced. The reference: () holding 8.978549 / 0.748
+    (float) and 22 / 3.6666667 (int)."""
+    ja, ta = _typed_pair(x)
+    f = lambda a: getattr(a, op)(exclude=True)
+    _same(f(ta), f(ja))
+    assert f(ta).shape == ()
+    # axis=() reduces nothing in both packages
+    _same(getattr(ta, op)(axis=()), getattr(ja, op)(axis=()))
+
+
+@pytest.mark.parametrize("op", ["sum", "sum1", "mean", "norm"])
+def test_int32_reductions_keep_the_reference_dtypes(op):
+    """ROADMAP Queue 3 item 6: on int32 arrays ``sum`` stays int32 (the
+    port gave int64), ``mean`` and ``norm`` give float32 (the port
+    raised): 22, [6, 16], 3.6666667 and 10.198039."""
+    ja, ta = _typed_pair(INT)
+    f = {"sum": lambda a: a.sum(), "sum1": lambda a: a.sum(axis=1),
+         "mean": lambda a: a.mean(), "norm": lambda a: a.norm()}[op]
+    _same(f(ta), f(ja))
+    assert f(ta).dtype == (np.int32 if op.startswith("sum") else np.float32)
+
+
+NEGATIVE_STEPS = [np.s_[::-1], np.s_[::-2, 1::-1], np.s_[..., ::-1],
+                  np.s_[1, ::-3], np.s_[None, 2:0:-1, :], np.s_[0:3:-1],
+                  np.s_[-1::-1, 3]]
+
+
+@pytest.mark.parametrize("key", NEGATIVE_STEPS, ids=str)
+def test_negative_slice_steps_get_and_set_as_jax(key):
+    """ROADMAP Queue 3 item 7: torch indexing refuses a negative slice
+    step, jnp indexing takes it; ``x[::-1]`` raised in the port. Reading
+    and writing through the same key match the reference."""
+    ja, ta = _pair(A)
+    _same(ta[key], ja[key], rtol=0)
+    value = np.arange(A[key].size, dtype=np.float32).reshape(A[key].shape)
+    jb, tb = _pair(A)
+    jb[key] = value
+    tb[key] = value
+    _same(tb, jb, rtol=0)
+    jb[key] = 5.0
+    tb[key] = 5.0
+    _same(tb, jb, rtol=0)
+
+
 def test_bound_ops_match_jax():
     rs = np.random.RandomState(1)
     x = rs.randn(2, 3, 6, 6).astype(np.float32)
@@ -186,9 +250,9 @@ def test_op_table_is_the_jax_packages_and_unported_ops_raise():
     assert registry.get_op("BatchNorm").num_outputs == 3
     for name in ("dot", "Dropout", "SoftmaxOutput", "concat"):
         assert callable(getattr(nd, name))
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             registry.get_op(name)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             getattr(nd, name)(nd.zeros((2, 2), ctx=CPU))
     with pytest.raises(KeyError):
         registry.get_op("no_such_op")

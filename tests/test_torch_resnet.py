@@ -237,17 +237,17 @@ def test_params_from_jax_checks_names_and_shapes_both_ways():
 
 
 def test_what_this_slice_does_not_carry_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         vision.resnet50_v1(device="cpu", remat_stages={"stage1"})
     monkeypatch.setenv("MXTPU_RESNET_REMAT", "stage1")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         vision.resnet18_v1(device="cpu")
     monkeypatch.delenv("MXTPU_RESNET_REMAT")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tnn.MaxPool2D(2, ceil_mode=True)(torch.zeros(1, 1, 4, 4))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tops.pooling(torch.zeros(1, 1, 4, 4), kernel=(2, 2), pool_type="lp")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         vision.get_model("densenet121", device="cpu")
     with pytest.raises(RuntimeError, match="pretrained"):
         vision.resnet18_v1(pretrained=True, device="cpu")

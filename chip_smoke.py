@@ -77,10 +77,11 @@ Phases, each printing one line:
              on the card), the ratio to resnet_train's step, then steps
              with 'adam' and 'adamw', one launch of their flavour a step.
 8. bottleneck - bench_fused_block: three stacked stage-1 bottleneck units
-             (B = 128, 56 x 56, C = 256, M = 64, bf16) through the fused
-             kernel, exactly one launch a unit, against the same stack
-             through the plain version, and the stack's device time beside
-             the cuDNN conv stack's.
+             (B = 128, 56 x 56, C = 256, M = 64) through the fused kernel,
+             in bf16 and then in fp32 (the 3xTF32 tensor-core route),
+             exactly one launch a unit on the dtype's route, against the
+             same stack through the plain version, and the stack's device
+             time beside the cuDNN conv stack's (fp32: TF32 off).
 9. lstm_decode - the PTB word LM (lstm_lm_ptb: 650 x 2, tied, vocab 10000)
              with seeded random weights, exported with export_for_serving
              and served by a ModelServer on the card (8 slots, the state of
@@ -2575,18 +2576,20 @@ def block_tolerance(torch, ref):
     return 1e-4
 
 
-def bottleneck_rows(torch, dev):
+def bottleneck_rows(torch, dev, shape=BLOCK_SHAPE):
     """The fused bottleneck kernel on one unit at bench_fused_block's shape,
-    in bf16 (its configuration) and fp32, against the plain version (fp32
-    convs on the same values), with the cuDNN stack in x's dtype as the
-    library call."""
+    in fp32 and bf16 (its configuration), against the plain version (fp32
+    convs on the same values), with the cuDNN unit in x's dtype (TF32 off)
+    as the library call. The fp32 row also carries its work's bound at the
+    3xTF32 tensor-core rate its kernel runs at (`tc_bound_ms`)."""
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         _route, bottleneck_reference, fused_bottleneck)
-    s = BLOCK_SHAPE
+    s = shape
     rows = []
     # bf16 last: the kernels line carries the row of the main path's dtype
-    for dtype, peak in ((torch.float32, FP32_FLOPS_PER_S),
-                        (torch.bfloat16, BF16_FLOPS_PER_S)):
+    for dtype, peak, tc_peak in (
+            (torch.float32, FP32_FLOPS_PER_S, TF32X3_FLOPS_PER_S),
+            (torch.bfloat16, BF16_FLOPS_PER_S, None)):
         x, units = block_inputs(torch, dev, K=1, dtype=dtype, **s)
         args = (x,) + units[0]
         got, ref = fused_bottleneck(*args), bottleneck_reference(*args)
@@ -2603,61 +2606,76 @@ def bottleneck_rows(torch, dev):
             (s["B"], s["H"], s["W"], s["C"], s["M"]), max_err(got, ref),
             block_tolerance(torch, ref), args, fused_bottleneck,
             bottleneck_reference, block_library(torch), bytes_moved,
-            flops, peak_flops=peak, dtype=str(dtype).replace("torch.", ""),
-            kernel_route=route, ref_max_abs=float(ref.float().abs().max())))
+            flops, peak_flops=peak, tc_peak_flops=tc_peak,
+            dtype=str(dtype).replace("torch.", ""), kernel_route=route,
+            ref_max_abs=float(ref.float().abs().max())))
     return rows
 
 
 def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
                      card=None):
-    """bench_fused_block on the card: K stacked bf16 units through the
-    kernel (exactly K launches a stack) against the same stack through the
-    plain version, then the time of a stack by CUDA events, kernel against
-    the cuDNN stack. Logs the `bottleneck` line; raises when a check failed.
-    Returns the launch counts of the checked stack."""
+    """bench_fused_block on the card, in bf16 (its configuration) and then
+    in fp32 from the same draws: K stacked units through the kernel
+    (exactly K launches a stack, on the dtype's route) against the same
+    stack through the plain version, then the time of a stack by CUDA
+    events, kernel against the cuDNN stack (fp32: TF32 off, as main sets
+    it). Logs a `bottleneck` line a dtype; raises when a check failed.
+    Returns the launch counts of each checked stack, by path: `bottleneck`
+    (bf16) and `bottleneck_fp32`."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
-        bottleneck_reference, fused_bottleneck)
-    x, units = block_inputs(torch, dev, K=K, dtype=torch.bfloat16, **shape)
-
-    def stack(fn):
-        def run(h):
-            for u in units:
-                h = fn(h, *u)
-            return h
-        return run
-
-    reset_launch_counts()
-    got = stack(fused_bottleneck)(x)
-    _sync(torch, dev)
-    counts = launch_counts()
-    ref = stack(bottleneck_reference)(x)
-    err, tol = max_err(got, ref), block_tolerance(torch, ref)
+        _route, bottleneck_reference, fused_bottleneck)
+    by_path = {}
     failures = []
-    if not err <= tol:
-        failures.append("stack of %d: max error %r > %g" % (K, err, tol))
-    if not torch.isfinite(got.float()).all():
-        failures.append("stack of %d: non-finite output" % K)
-    if dev.type == "cuda" and counts != expected_counts(fused_bottleneck=K):
-        failures.append("launch counts %s, expected %d fused_bottleneck"
-                        % (counts, K))
-    times = {}
-    if dev.type == "cuda":
-        library = block_library(torch)
-        for name, fn in (("kernel", fused_bottleneck),
-                         ("library", library),
-                         ("plain", bottleneck_reference)):
-            # milliseconds of device work a call: CUDA events give the
-            # device time, where a trace may lose some of its 3 launches
-            times[name + "_ms"] = call_ms(torch, stack(fn), [(x,)], iters=20)
-    _bytes, flops = block_cost(elem_bytes=2, **shape)
-    log("bottleneck", card=card, K=K, dtype="bfloat16", max_abs_err=err,
-        tolerance=tol, launches=counts, stack_gflop=K * flops / 1e9,
-        **times)
+    for path, dtype in (("bottleneck", torch.bfloat16),
+                        ("bottleneck_fp32", torch.float32)):
+        x, units = block_inputs(torch, dev, K=K, dtype=dtype, **shape)
+
+        def stack(fn):
+            def run(h):
+                for u in units:
+                    h = fn(h, *u)
+                return h
+            return run
+
+        reset_launch_counts()
+        got = stack(fused_bottleneck)(x)
+        _sync(torch, dev)
+        counts = by_path[path] = launch_counts()
+        route = _route(dtype, shape["C"], shape["M"],
+                       [t.data_ptr() for t in (x, units[0][0], units[0][3],
+                                               units[0][6], got)])
+        ref = stack(bottleneck_reference)(x)
+        err, tol = max_err(got, ref), block_tolerance(torch, ref)
+        name = "%s stack of %d" % (dtype, K)
+        if not err <= tol:
+            failures.append("%s: max error %r > %g" % (name, err, tol))
+        if not torch.isfinite(got.float()).all():
+            failures.append("%s: non-finite output" % name)
+        if dev.type == "cuda" and counts != expected_counts(
+                fused_bottleneck=K):
+            failures.append("%s: launch counts %s, expected %d "
+                            "fused_bottleneck" % (name, counts, K))
+        times = {}
+        if dev.type == "cuda":
+            library = block_library(torch)
+            for label, fn in (("kernel", fused_bottleneck),
+                              ("library", library),
+                              ("plain", bottleneck_reference)):
+                # milliseconds of device work a call: CUDA events give the
+                # device time, where a trace may lose some of its launches
+                times[label + "_ms"] = call_ms(torch, stack(fn), [(x,)],
+                                               iters=20)
+        _bytes, flops = block_cost(elem_bytes=x.element_size(), **shape)
+        log("bottleneck", card=card, K=K, dtype=str(dtype).replace(
+            "torch.", ""), kernel_route=route, max_abs_err=err,
+            tolerance=tol, launches=counts, stack_gflop=K * flops / 1e9,
+            **times)
+        del x, units, got, ref
     if failures:
         raise AssertionError("bottleneck: %s" % "; ".join(failures))
-    return counts
+    return by_path
 
 
 # ------------------------------------------------------------ attention_bias
@@ -3207,11 +3225,11 @@ def main(argv=None):
 
     # launches: each main path's run (serve, decode, each train shape, the
     # ResNet steps, the gluon steps of each optimizer, the bottleneck
-    # stack, the word LM's fp32 and int8 decode, the learned-bias
-    # attention, the bf16 seam, the rtc launches), counts reset to 0 just
-    # before it and read just after; the line carries their sum
+    # stacks in bf16 and fp32, the word LM's fp32 and int8 decode, the
+    # learned-bias attention, the bf16 seam, the rtc launches), counts reset
+    # to 0 just before it and read just after; the line carries their sum
     by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
-               "resnet_train": rcounts, "bottleneck": bcounts, **gcounts,
+               "resnet_train": rcounts, **bcounts, **gcounts,
                **lcounts, "attention_bias": acounts, "seam_bf16": scounts,
                "rtc": rtc_counts}
     kernels = []

@@ -11,301 +11,529 @@
 // C = 256, M = 64, bf16) the unit reads x once and writes the output once,
 // 411 MB, 0.123 ms at 3.35 TB/s; its 55.9 GFLOP take 0.057 ms at the bf16
 // tensor-core peak, so bytes bound it. In fp32 the same operations take
-// 0.83 ms on the CUDA cores at 67 TFLOP/s: the operations bound it.
+// 0.83 ms on the CUDA cores at 67 TFLOP/s and 0.34 ms as three TF32
+// tensor-core products each (494.7 / 3 TFLOP/s), against 0.25 ms for the
+// 822 MB of x and output: the operations bound it.
 //
 // Two kernels, one per dtype, picked by the C entry's route (the Python
-// wrapper's _route):
-//
-// fp32 (fused_bottleneck_kernel<float>): the TPU kernel holds one whole
-// image (~17 MB) in VMEM; an SM has 227 KB of shared memory. Here one
-// block owns an 8 x 8 tile of output pixels and keeps the unit's
+// wrapper's _route). The TPU kernel holds one whole image (~17 MB) in VMEM;
+// an SM has 227 KB of shared memory. Here one block of 8 warps owns an
+// 8 x 14 output tile (112 pixels, 7 rows of 16 of the mma; at 56 x 56 the
+// tiles cover the image without waste in 4 x 7) and keeps the unit's
 // intermediates on the SM, never in device memory:
 //   1. h1 = relu(x . w1 * s1 + b1) on the tile plus a one-pixel halo
-//      (10 x 10 pixels; halo pixels are recomputed by the neighbouring
-//      tiles), streaming x and w1 through shared memory 32 input channels
-//      at a time; halo pixels outside the image are the 3x3 conv's zero
-//      padding. h1 stays in shared memory, channel-major.
+//      (10 x 16 = 160 pixels, 10 rows of 16; halo pixels are recomputed by
+//      the neighbouring tiles, 1.43 x the tile's pixels), streaming x and w1
+//      through shared memory; halo pixels outside the image are the 3x3
+//      conv's zero padding (0, not relu(b1)).
 //   2. h2 = relu(sum over the 9 taps of h1(shifted) . w2[tap] * s2 + b2) on
-//      the 64 tile pixels, one tap of w2 in shared memory at a time; h2
-//      stays in shared memory.
-//   3. out = relu(h2 . w3 * s3 + b3 + x) in passes of 256 output channels,
-//      w3 streamed 16 rows at a time, x re-read for the residual (it was
-//      read moments before, so it comes from L2), written once.
-// Each product is a register tile of fp32 FMAs on the CUDA cores: 256
-// threads as 16 x 16, a thread owning pixels tp + 16 i and channels
-// tn + 16 j, so that a warp reads two pixels' values (broadcast) and 16
-// consecutive channels from shared memory, conflict-free (channel-major
-// rows padded to an odd stride). TF32 would change its numbers, so it
-// stays on the CUDA cores.
+//      the 112 tile pixels: 9 products whose A rows are h1's rows shifted
+//      by the tap, no copy per tap.
+//   3. out = relu(h2 . w3 * s3 + b3 + x) in passes of 64 output channels.
+// h1 and h2 live in shared memory pixel-major, each pixel's 64 channels
+// (M zero-padded) in a padded row. x's halo and every weight chunk arrive by
+// cp.async, double-buffered, zero-filled outside the image and past C and
+// M. The epilogues read nothing from device memory but the residual: the BN
+// scales and shifts come from shared memory (s3, b3 copied with each chunk
+// of w3). A block re-reads the weights for 112 pixels (272 KB in fp32, 139
+// KB in bf16).
+//
+// fp32 (f32::fused_bottleneck_f32_kernel): the three products on the tensor
+// cores (mma.sync m16n8k8, tf32) in 3xTF32, each operand split at its
+// fragment load into hi = tf32(v) and lo = v - hi (which the tensor cores
+// read cut to tf32): a * b = hi*lo + lo*hi + hi*hi. The tensor cores cut an
+// mma's sum toward zero (chip_smoke.py's tc_rounding line), so the products
+// of each group of k-steps go into a fresh accumulator, cross terms first,
+// which is then added to the running fp32 sum on the CUDA cores: one k-step
+// a group in phase 1, whose three m16 tiles a warp leave no registers for
+// more, two in phases 2 and 3. Those adds and the splits are most of the
+// issue slots around the products. Rows of x's chunk, h1 and h2 are padded
+// to 4 mod 32 floats (A reads, rows g and columns t, hit 32 banks), rows of
+// a weight tile to 8 mod 32 (B reads, rows t and columns g). Each warp owns
+// 32 output channels and every fourth m16 row of the tile. x and w1 come 32
+// channels a step, a tap of w2 and 64 output channels of w3 a step; h2 is
+// written over h1 once phase 2 is done, so that two blocks fit an SM (108
+// KB of shared memory each, 16 warps; 128 registers a thread, a few spilled).
+// A pass's residual is read after its products, all of its loads before the
+// first store. C, M and bases that allow it (C % 4 == 0, M % 4 == 0,
+// 16-byte aligned) take 16-byte copies and 8-byte residual loads and
+// stores; any other operands take the same kernel with 4-byte copies and
+// element-wise loads and stores.
 //
 // bf16 (tc::fused_bottleneck_tc_kernel): the same three phases as bf16 x
 // bf16 -> fp32 products on the tensor cores (mma.sync.m16n8k16, operands
 // from shared memory through ldmatrix, .trans for the (K, N) row-major
-// weights). One block of 8 warps owns an 8 x 14 output tile (112 pixels,
-// 7 rows of 16 of the mma); its halo is 10 x 16 = 160 pixels, so phase 1
-// recomputes 1.43 x the tile's pixels (1.56 x at 8 x 8) and a block re-reads
-// the 139 KB of weights for 112 pixels instead of 64. h1 and h2 live in
-// shared memory in bf16, pixel-major, each pixel's 64 (zero-padded)
-// channels in a 144-byte row, so that ldmatrix reads them conflict-free and
-// the 3x3 conv is 9 products whose A rows are h1's rows shifted by the tap:
-// no copy per tap. x's halo and every weight chunk arrive by 16-byte
-// cp.async, double-buffered (64 channels of x and w1 a step, a tap of w2,
-// 64 output channels of w3), zero-filled outside the image and past C and
-// M. Phase 3 stages bn3's fp32 result in shared memory so that the
-// residual is read and the output written 16 bytes a thread. 101 KB of
-// shared memory a block: two blocks an SM, 16 warps. With so few warps
-// the latency of each step between two barriers weighs more than its
-// bytes or its tensor-core operations, so the epilogues read nothing from
-// device memory: the BN scales and shifts come from shared memory (s3, b3
-// copied with each chunk of w3), and a pass's residual is loaded into
-// registers before its products, whose time hides its latency. A C or M that is not a multiple of 8, or a base that is not
-// 16-byte aligned, takes the same kernel with element-wise loads and
-// stores.
+// weights), the same tile and halo. h1 and h2 live in shared memory in
+// bf16, each pixel's 64 (zero-padded) channels in a 144-byte row, so that
+// ldmatrix reads them conflict-free. x's halo and every weight chunk arrive
+// by 16-byte cp.async, double-buffered (64 channels of x and w1 a step, a
+// tap of w2, 64 output channels of w3). Phase 3 stages bn3's fp32 result in
+// shared memory so that the residual is read and the output written 16
+// bytes a thread; its residual is loaded into registers before its
+// products. 101 KB of shared memory a block: two blocks an SM, 16 warps.
+// With so few warps the latency of each step between two barriers weighs
+// more than its bytes or its tensor-core operations, hence the epilogues
+// that read from shared memory. A C or M that is not a multiple
+// of 8, or a base that is not 16-byte aligned, takes the same kernel with
+// element-wise loads and stores.
 //
 // Arithmetic: fp32 accumulation; each BN is a multiply and an add rounded
 // on their own (__fmul_rn, __fadd_rn), as the plain version does them; h1
 // and h2 are rounded to x's dtype exactly where the TPU kernel calls
-// .astype(x.dtype), and the padding of h1 is 0, not relu(b1). The sums run
-// in another order than cuDNN's, so the kernels are held to their plain
-// version within a tolerance, not bitwise.
+// .astype(x.dtype) (in fp32, not at all), and the padding of h1 is 0, not
+// relu(b1). The sums run in another order than cuDNN's, and fp32's products
+// carry 3xTF32's error (~2^-21 of each product), so the kernels are held to
+// their plain version within a tolerance, not bitwise; two calls give the
+// same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 8;                   // output tile: kTile x kTile px
-constexpr int kHalo = kTile + 2;           // the tile plus a one-pixel halo
-constexpr int kHaloPx = kHalo * kHalo;     // 100
-constexpr int kTilePx = kTile * kTile;     // 64
+// The flash kernels' 3xTF32 and cp.async helpers, included as they are, in
+// a namespace of their own: the block constants there are the flash
+// kernels'.
+namespace tf32x3 {
+#include "flash_tf32.cuh"
+}  // namespace tf32x3
+
 constexpr int kMaxM = 64;                  // widest bottleneck (stage 1)
-constexpr int kKC = 32;                    // input channels a step, phase 1
-constexpr int kCC = 256;                   // output channels a pass, phase 3
-constexpr int kK3 = 16;                    // rows of w3 a step, phase 3
-constexpr int kHaloStride = kHaloPx + 1;   // odd row strides: no conflicts
-constexpr int kPxStride = kTilePx + 1;
-constexpr int kP1 = 7;                     // halo pixels a thread: 7 x 16 >= 100
-
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-constexpr int kH1Floats = kMaxM * kHaloStride;
-constexpr int kH2Floats = kMaxM * kPxStride;
-// one phase's staging at a time: x and w1 chunks, a tap of w2, rows of w3
-constexpr int kScratchFloats = cmax(kKC * kHaloStride + kKC * kMaxM,
-                                    cmax(kMaxM * kMaxM, kK3 * kCC));
-constexpr size_t kSmemBytes =
-    (size_t)(kH1Floats + kH2Floats + kScratchFloats) * sizeof(float);
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-// v rounded to T and back: .astype(x.dtype) of the TPU kernel
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
 
 // BN (folded) then ReLU, the multiply and the add rounded on their own
 __device__ __forceinline__ float bn_relu(float acc, float s, float b) {
   return fmaxf(__fadd_rn(__fmul_rn(acc, s), b), 0.f);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                        const float* __restrict__ s1,
-                        const float* __restrict__ b1,
-                        const T* __restrict__ w2,
-                        const float* __restrict__ s2,
-                        const float* __restrict__ b2,
-                        const T* __restrict__ w3,
-                        const float* __restrict__ s3,
-                        const float* __restrict__ b3, T* __restrict__ out,
-                        int H, int W, int C, int M, int tiles_x) {
-  extern __shared__ float smem[];
-  float* h1s = smem;                        // [kMaxM][kHaloStride]
-  float* h2s = h1s + kH1Floats;             // [kMaxM][kPxStride]
-  float* scratch = h2s + kH2Floats;
+// -------------------------------------------- fp32: on tensor cores, 3xTF32
+namespace f32 {
 
-  const int tid = threadIdx.x;
-  const int tn = tid % 16, tp = tid / 16;
-  const int y0 = (blockIdx.x / tiles_x) * kTile;
-  const int x0 = (blockIdx.x % tiles_x) * kTile;
-  const long long img = (long long)blockIdx.y * H * W;  // first pixel
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::mma_tf32;
 
-  // ---- 1. h1 on the tile and its halo: (100, C) . (C, M)
-  {
-    float* xs = scratch;                          // [kKC][kHaloStride]
-    float* w1s = scratch + kKC * kHaloStride;     // [kKC][kMaxM]
-    float acc[kP1][4];
+// x = hi + lo for a 3xTF32 product, in three operations where
+// tf32x3::split takes five: hi = tf32(x) (to nearest, ties away), lo = x -
+// hi (exact in fp32) left with its low 13 bits, which the tensor cores do
+// not read: they take lo cut toward zero to tf32, within 2^-21 |x| of x.
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+constexpr int kThreads = 256;                 // 8 warps
+constexpr int kTH = 8, kTW = 14;              // output tile
+constexpr int kHW = kTW + 2;                  // halo width (16)
+constexpr int kHaloPx = (kTH + 2) * kHW;      // 160 = 10 m16 tiles
+constexpr int kTilePx = kTH * kTW;            // 112 = 7 m16 tiles
+constexpr int kMp = 64;                       // M padded
+constexpr int kXC = 32;                       // channels of x a phase-1 step
+constexpr int kOC = 64;                       // output channels a pass
+// k-steps a fresh accumulator takes, phase by phase: two in phases 2 and
+// 3; one in phase 1, whose three m16 tiles a warp leave no registers for two
+constexpr int kG1 = 1, kG2 = 2, kG3 = 2;
+constexpr int kXRow = kXC + 4;                // floats a row: x chunk,
+constexpr int kHRow = kMp + 4;                // h1 and h2 (A reads),
+constexpr int kWRow = kMp + 8;                // weight tiles (B reads)
+
+// shared memory, in bytes: h (h1 on the halo, then h2 on the tile over it),
+// then one region that holds two (x chunk, w1 chunk) buffers in phase 1 and
+// two weight tiles (a tap of w2, a chunk of w3) in phases 2 and 3
+constexpr int kH = kHaloPx * kHRow * 4;       // 43520
+constexpr int kXBuf = kHaloPx * kXRow * 4;    // 23040
+constexpr int kP1Buf = kXBuf + kXC * kWRow * 4;   // 32256
+constexpr int kWBuf = kMp * kWRow * 4;        // 18432
+constexpr int kRegion = 2 * kP1Buf;           // 64512
+static_assert(2 * kWBuf <= kRegion, "the weight tiles fit the region");
+constexpr int kSmemBytes = kH + kRegion;      // 108032
+
+// rows [0, rows) x 64 columns of a weight tile from a row-major source with
+// `ld` floats a row: element (r, n) is src[(r0 + r) * ld + n0 + n] where
+// r0 + r < r_end and n0 + n < n_end, else 0. VEC: 16-byte copies (ld, n0
+// and n_end multiples of 4, src 16-byte aligned); else 4-byte copies.
+template <bool VEC>
+__device__ __forceinline__ void load_w(float* dst, const float* src,
+                                       long long ld, int r0, int r_end,
+                                       int n0, int n_end, int rows) {
+  constexpr int kV = VEC ? 4 : 1;
+  constexpr int kPer = kMp / kV;               // copies a row
+  for (int e = threadIdx.x; e < rows * kPer; e += kThreads) {
+    const int r = e / kPer, n = kV * (e % kPer);
+    const bool ok = r0 + r < r_end && n0 + n < n_end;
+    const float* s = ok ? src + (long long)(r0 + r) * ld + n0 + n : src;
+    if constexpr (VEC)
+      cp_async16(dst + r * kWRow + n, s, ok);
+    else
+      cp_async4(dst + r * kWRow + n, s, ok);
+  }
+}
+
+// channels c0 .. c0 + 31 of x on the tile's 160 halo pixels (hy, hx) ->
+// image (y0 - 1 + hy, x0 - 1 + hx); 0 outside the image and past C
+template <bool VEC>
+__device__ __forceinline__ void load_x_halo(float* dst, const float* x,
+                                            long long img, int y0, int x0,
+                                            int H, int W, int C, int c0) {
+  constexpr int kV = VEC ? 4 : 1;
+  constexpr int kPer = kXC / kV;
+  for (int e = threadIdx.x; e < kHaloPx * kPer; e += kThreads) {
+    const int px = e / kPer, c = kV * (e % kPer);
+    const int gy = y0 - 1 + px / kHW, gx = x0 - 1 + px % kHW;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
+    const float* s =
+        ok ? x + (img + (long long)gy * W + gx) * C + c0 + c : x;
+    if constexpr (VEC)
+      cp_async16(dst + px * kXRow + c, s, ok);
+    else
+      cp_async4(dst + px * kXRow + c, s, ok);
+  }
+}
+
+// tf32 halves of an A fragment: k-slots t and t + 4 of fragment rows g (at
+// a[0]) and g + 8 (at b[0]); a and b already point at the lane's column t
+__device__ __forceinline__ void frag_a(const float* a, const float* b,
+                                       unsigned* hi, unsigned* lo) {
+  split(a[0], hi[0], lo[0]);
+  split(b[0], hi[1], lo[1]);
+  split(a[4], hi[2], lo[2]);
+  split(b[4], hi[3], lo[3]);
+}
+
+// tf32 halves of the B fragments of four n8 tiles (columns 8 j apart) at
+// one k-step of a weight tile; w points at the lane's element (row t,
+// column g of the first tile)
+__device__ __forceinline__ void frag_b(const float* w, unsigned (*hi)[2],
+                                       unsigned (*lo)[2]) {
 #pragma unroll
-    for (int i = 0; i < kP1; ++i)
+  for (int j = 0; j < 4; ++j) {
+    split(w[8 * j], hi[j][0], lo[j][0]);
+    split(w[4 * kWRow + 8 * j], hi[j][1], lo[j][1]);
+  }
+}
+
+// acc[i][j] += A . B over K contraction values, for the warp's m16 tiles
+// i < ni and its four n8 tiles j: a[i][0] and a[i][1] point at fragment
+// rows g and g + 8 of tile i, w at the lane's element of a weight tile, all
+// at k-step 0. Each group of G k-steps goes into a fresh accumulator, the
+// cross terms (hi*lo, lo*hi) before hi*hi, which is then added to acc.
+template <int MI, int K, int G>
+__device__ __forceinline__ void products(float (*acc)[4][4],
+                                         const float* (*a)[2], int ni,
+                                         const float* w) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int c0 = 0; c0 < C; c0 += kKC) {
-      for (int e = tid; e < kHaloPx * kKC; e += kThreads) {
-        const int k = e % kKC, p = e / kKC;
-        const int gy = y0 - 1 + p / kHalo, gx = x0 - 1 + p % kHalo;
-        float v = 0.f;
-        if (c0 + k < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = to_f(x[(img + (long long)gy * W + gx) * C + c0 + k]);
-        xs[k * kHaloStride + p] = v;
-      }
-      for (int e = tid; e < kKC * kMaxM; e += kThreads) {
-        const int k = e / kMaxM, n = e % kMaxM;
-        w1s[e] = (c0 + k < C && n < M)
-                     ? to_f(w1[(long long)(c0 + k) * M + n]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kKC; ++k) {
-        float a[kP1], b[4];
+  for (int k0 = 0; k0 < K; k0 += 8 * G) {
+    unsigned bhi[G][4][2], blo[G][4][2];
 #pragma unroll
-        for (int i = 0; i < kP1; ++i)
-          a[i] = xs[k * kHaloStride + min(tp + 16 * i, kHaloPx - 1)];
+    for (int s = 0; s < G; ++s)
+      frag_b(w + (k0 + 8 * s) * kWRow, bhi[s], blo[s]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = w1s[k * kMaxM + tn + 16 * j];
+    for (int i = 0; i < MI; ++i) {
+      if (i >= ni) continue;
+      unsigned ahi[G][4], alo[G][4];
 #pragma unroll
-        for (int i = 0; i < kP1; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kP1; ++i) {
-      const int p = tp + 16 * i;
-      if (p >= kHaloPx) continue;
-      const int gy = y0 - 1 + p / kHalo, gx = x0 - 1 + p % kHalo;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      for (int s = 0; s < G; ++s)
+        frag_a(a[i][0] + k0 + 8 * s, a[i][1] + k0 + 8 * s, ahi[s], alo[s]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int n = tn + 16 * j;
-        if (n < M)
-          h1s[n * kHaloStride + p] =
-              inside ? round_to<T>(bn_relu(acc[i][j], s1[n], b1[n])) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 2. h2 on the tile: 9 shifted (64, M) . (M, M) products
-  {
-    float* w2s = scratch;                         // [kMaxM][kMaxM], one tap
-    float acc[4][4];
-    int base[4];                                  // halo index at tap (0, 0)
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = tp + 16 * i;
-      base[i] = (p / kTile) * kHalo + p % kTile;
+        for (int s = 0; s < G; ++s) {
+          mma_tf32(t, ahi[s], blo[s][j], t);
+          mma_tf32(t, alo[s], bhi[s][j], t);
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-    for (int tap = 0; tap < 9; ++tap) {
-      for (int e = tid; e < kMaxM * kMaxM; e += kThreads) {
-        const int k = e / kMaxM, n = e % kMaxM;
-        w2s[e] = (k < M && n < M)
-                     ? to_f(w2[((long long)tap * M + k) * M + n]) : 0.f;
-      }
-      __syncthreads();
-      const int off = (tap / 3) * kHalo + tap % 3;
-#pragma unroll 4
-      for (int k = 0; k < M; ++k) {
-        float a[4], b[4];
+        for (int s = 0; s < G; ++s) mma_tf32(t, ahi[s], bhi[s][j], t);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = h1s[k * kHaloStride + base[i] + off];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = w2s[k * kMaxM + tn + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = tn + 16 * j;
-        if (n < M)
-          h2s[n * kPxStride + tp + 16 * i] =
-              round_to<T>(bn_relu(acc[i][j], s2[n], b2[n]));
-      }
-  }
-  __syncthreads();
-
-  // ---- 3. out = relu(h2 . w3 * s3 + b3 + x): (64, M) . (M, C)
-  float* w3s = scratch;                           // [kK3][kCC]
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    float acc[4][16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < M; k0 += kK3) {
-      for (int e = tid; e < kK3 * kCC; e += kThreads) {
-        const int k = e / kCC, n = e % kCC;
-        w3s[e] = (k0 + k < M && c0 + n < C)
-                     ? to_f(w3[(long long)(k0 + k) * C + c0 + n]) : 0.f;
-      }
-      __syncthreads();
-      const int kn = min(kK3, M - k0);
-#pragma unroll 2
-      for (int k = 0; k < kn; ++k) {
-        float a[4], b[16];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = h2s[(k0 + k) * kPxStride + tp + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) b[j] = w3s[k * kCC + tn + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = tp + 16 * i;
-      const int gy = y0 + p / kTile, gx = x0 + p % kTile;
-      if (gy >= H || gx >= W) continue;
-      const long long pix = (img + (long long)gy * W + gx) * C;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = c0 + tn + 16 * j;
-        if (c >= C) continue;
-        const float h3 = __fadd_rn(__fmul_rn(acc[i][j], s3[c]), b3[c]);
-        out[pix + c] = from_f<T>(fmaxf(__fadd_rn(h3, to_f(x[pix + c])), 0.f));
+        for (int v = 0; v < 4; ++v) acc[i][j][v] += t[v];
       }
     }
   }
 }
 
-template <typename T>
+// VEC: x, out, w1, w2, w3 16-byte aligned, C % 4 == 0 and M % 4 == 0
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_bottleneck_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w1,
+                            const float* __restrict__ s1,
+                            const float* __restrict__ b1,
+                            const float* __restrict__ w2,
+                            const float* __restrict__ s2,
+                            const float* __restrict__ b2,
+                            const float* __restrict__ w3,
+                            const float* __restrict__ s3,
+                            const float* __restrict__ b3,
+                            float* __restrict__ out, int H, int W, int C,
+                            int M, int tiles_x) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  // the BN scales and shifts, read by the epilogues from shared memory:
+  // s1, b1, s2, b2 (0 past M), and s3, b3 of a pass's 64 channels (a ring
+  // of two, copied with the pass's chunk of w3)
+  __shared__ float bn12[4][kMp];
+  __shared__ float bn3[2][2][kOC];
+  float* hs = reinterpret_cast<float*>(smem_f32);   // [160 | 112][kHRow]
+  unsigned char* region = smem_f32 + kH;
+  auto xbuf = [&](int b) {
+    return reinterpret_cast<float*>(region + b * kP1Buf);
+  };
+  auto w1buf = [&](int b) {
+    return reinterpret_cast<float*>(region + b * kP1Buf + kXBuf);
+  };
+  auto wbuf = [&](int b) {
+    return reinterpret_cast<float*>(region + b * kWBuf);
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = 32 * (warp & 1);          // the warp's 32 columns
+  const int mr = warp >> 1;                // its m16 tiles: mr + 4 i
+  const int y0 = (blockIdx.x / tiles_x) * kTH;
+  const int x0 = (blockIdx.x % tiles_x) * kTW;
+  const long long img = (long long)blockIdx.y * H * W;
+  const int bcol = t * kWRow + n0 + g;     // the lane's B element, k-step 0
+  // the warp's m16 tiles that exist: of the halo's 10, of the tile's 7
+  const int ni1 = (kHaloPx / 16 - mr + 3) / 4;
+  const int ni23 = (kTilePx / 16 - mr + 3) / 4;
+
+  for (int i = threadIdx.x; i < kMp; i += kThreads) {
+    const bool ok = i < M;
+    bn12[0][i] = ok ? s1[i] : 0.f;
+    bn12[1][i] = ok ? b1[i] : 0.f;
+    bn12[2][i] = ok ? s2[i] : 0.f;
+    bn12[3][i] = ok ? b2[i] : 0.f;
+  }
+  // s3, b3 of channels c0 .. c0 + 63 into ring slot `slot` (0 past C)
+  auto load_bn3 = [&](int slot, int c0) {
+    for (int i = threadIdx.x; i < 2 * kOC; i += kThreads) {
+      const int c = c0 + i % kOC;
+      const float* src = i < kOC ? s3 : b3;
+      cp_async4(&bn3[slot][i / kOC][i % kOC], c < C ? src + c : src, c < C);
+    }
+  };
+
+  // ---- 1. h1 on the halo: (160, C) . (C, 64)
+  const int nch = (C + kXC - 1) / kXC;
+  load_x_halo<VEC>(xbuf(0), x, img, y0, x0, H, W, C, 0);
+  load_w<VEC>(w1buf(0), w1, M, 0, C, 0, M, kXC);
+  cp_async_commit();
+  {
+    float acc[3][4][4] = {};
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<0>();
+      __syncthreads();   // chunk ch is in; chunk ch - 1's buffer is free
+      if (ch + 1 < nch) {
+        const int b = (ch + 1) & 1;
+        load_x_halo<VEC>(xbuf(b), x, img, y0, x0, H, W, C, (ch + 1) * kXC);
+        load_w<VEC>(w1buf(b), w1, M, (ch + 1) * kXC, C, 0, M, kXC);
+      }
+      cp_async_commit();
+      const float* xs = xbuf(ch & 1) + g * kXRow + t;
+      const float* a[3][2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        a[i][0] = xs + (mr + 4 * i) * 16 * kXRow;
+        a[i][1] = a[i][0] + 8 * kXRow;
+      }
+      products<3, kXC, kG1>(acc, a, ni1, w1buf(ch & 1) + bcol);
+    }
+    __syncthreads();     // every warp is done with the phase-1 buffers
+    load_w<VEC>(wbuf(0), w2, M, 0, M, 0, M, kMp);        // tap 0 of w2
+    cp_async_commit();
+    // h1 = relu(bn1); 0 at halo pixels outside the image (the 3x3 conv's
+    // padding) and in the padded channels
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int mt = mr + 4 * i;
+      if (mt >= kHaloPx / 16) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + 8 * h;
+        const int gy = y0 - 1 + p / kHW, gx = x0 - 1 + p % kHW;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = inside && n + e < M
+                       ? bn_relu(acc[i][j][2 * h + e], bn12[0][n + e],
+                                 bn12[1][n + e])
+                       : 0.f;
+          *reinterpret_cast<float2*>(hs + p * kHRow + n) =
+              make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+
+  // ---- 2. h2 on the tile: 9 shifted (112, 64) . (64, 64) products
+  {
+    float acc[2][4][4] = {};
+    const float* arow[2][2];   // the lane's A rows g, g + 8 at tap (0, 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (mr + 4 * i) * 16 + g + 8 * h;
+        arow[i][h] = hs + ((p / kTW) * kHW + p % kTW) * kHRow + t;
+      }
+    for (int tap = 0; tap < 9; ++tap) {
+      cp_async_wait<0>();
+      __syncthreads();   // tap in (and h1 written); the other buffer free
+      if (tap + 1 < 9)
+        load_w<VEC>(wbuf((tap + 1) & 1), w2 + (long long)(tap + 1) * M * M,
+                    M, 0, M, 0, M, kMp);
+      cp_async_commit();
+      const int off = ((tap / 3) * kHW + tap % 3) * kHRow;
+      const float* a[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) a[i][h] = arow[i][h] + off;
+      products<2, kMp, kG2>(acc, a, ni23, wbuf(tap & 1) + bcol);
+    }
+    __syncthreads();     // every warp is done with h1 and w2's buffers
+    load_w<VEC>(wbuf(0), w3, C, 0, M, 0, C, kMp);        // chunk 0 of w3
+    load_bn3(0, 0);
+    cp_async_commit();
+    // h2 = relu(bn2), over h1's rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = mr + 4 * i;
+      if (mt >= kTilePx / 16) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = n + e < M
+                       ? bn_relu(acc[i][j][2 * h + e], bn12[2][n + e],
+                                 bn12[3][n + e])
+                       : 0.f;
+          *reinterpret_cast<float2*>(hs + p * kHRow + n) =
+              make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+
+  // ---- 3. out = relu(h2 . w3 * s3 + b3 + x): (112, 64) . (64, C) in
+  // passes of 64 output channels, straight from the accumulator fragments
+  // (a quad of lanes covers 8 channels, 32 contiguous bytes)
+  const float* h2a = hs + g * kHRow + t;
+  for (int c0 = 0, pass = 0; c0 < C; c0 += kOC, ++pass) {
+    cp_async_wait<0>();
+    __syncthreads();     // chunk in (and h2 written); the other buffer free
+    if (c0 + kOC < C) {
+      load_w<VEC>(wbuf((pass + 1) & 1), w3, C, 0, M, c0 + kOC, C, kMp);
+      load_bn3((pass + 1) & 1, c0 + kOC);
+    }
+    cp_async_commit();
+    float acc[2][4][4] = {};
+    const float* a[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      a[i][0] = h2a + (mr + 4 * i) * 16 * kHRow;
+      a[i][1] = a[i][0] + 8 * kHRow;
+    }
+    products<2, kMp, kG3>(acc, a, ni23, wbuf(pass & 1) + bcol);
+    // this pass's residual at the lane's channels c0 + n0 + 8 j + 2 t (+ 1)
+    // of fragment rows g + 8 h: read after the products (before them, its
+    // 32 values a thread crowd their registers into local memory), all of
+    // it before the first store (read beside each store, it ran slower).
+    // at[i][h]: x's element at channel c0 + n0 + 2 t, or -1 outside the image
+    long long at[2][2];
+    float xr[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (mr + 4 * i) * 16 + g + 8 * h;
+        const int gy = y0 + p / kTW, gx = x0 + p % kTW;
+        at[i][h] = p < kTilePx && gy < H && gx < W
+                       ? (img + (long long)gy * W + gx) * C + c0 + n0 + 2 * t
+                       : -1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + n0 + 8 * j + 2 * t;
+          const long long e0 = at[i][h] + 8 * j;
+          if constexpr (VEC) {
+            const float2 v =
+                at[i][h] >= 0 && c < C
+                    ? __ldg(reinterpret_cast<const float2*>(x + e0))
+                    : make_float2(0.f, 0.f);
+            xr[i][j][2 * h] = v.x;
+            xr[i][j][2 * h + 1] = v.y;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              xr[i][j][2 * h + e] =
+                  at[i][h] >= 0 && c + e < C ? __ldg(x + e0 + e) : 0.f;
+          }
+        }
+      }
+    const float* s3c = bn3[pass & 1][0];
+    const float* b3c = bn3[pass & 1][1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (at[i][h] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(acc[i][j][2 * h + e],
+                                                       s3c[n + e]),
+                                             b3c[n + e]),
+                                   xr[i][j][2 * h + e]),
+                         0.f);
+          float* o = out + at[i][h] + 8 * j;
+          if constexpr (VEC) {
+            if (c0 + n < C)
+              *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (c0 + n + e < C) o[e] = v[e];
+          }
+        }
+      }
+  }
+}
+
+template <bool VEC>
 int launch(const void* x, const void* w1, const float* s1, const float* b1,
            const void* w2, const float* s2, const float* b2, const void* w3,
            const float* s3, const float* b3, void* out, int B, int H, int W,
            int C, int M, cudaStream_t stream) {
-  auto kernel = fused_bottleneck_kernel<T>;
+  auto kernel = fused_bottleneck_f32_kernel<VEC>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int tiles_y = (H + kTile - 1) / kTile;
+  const int tiles_x = (W + kTW - 1) / kTW;
+  const int tiles_y = (H + kTH - 1) / kTH;
   const dim3 grid(tiles_x * tiles_y, B);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), s1, b1,
-      static_cast<const T*>(w2), s2, b2, static_cast<const T*>(w3), s3, b3,
-      static_cast<T*>(out), H, W, C, M, tiles_x);
+      static_cast<const float*>(x), static_cast<const float*>(w1), s1, b1,
+      static_cast<const float*>(w2), s2, b2, static_cast<const float*>(w3),
+      s3, b3, static_cast<float*>(out), H, W, C, M, tiles_x);
   return (int)cudaGetLastError();
 }
+
+}  // namespace f32
 
 // ------------------------------------------------- bf16: on tensor cores
 // The bf16 unit as three bf16 x bf16 -> fp32 products on mma.sync
@@ -805,17 +1033,29 @@ int launch(const void* x, const void* w1, const float* s1, const float* b1,
 
 }  // namespace tc
 
+// Make `device` current for this library's runtime unless it already is:
+// the query is a thread-local read, the switch is not.
+cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return e;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. x, out: (B, H, W, C) contiguous NHWC;
 // w1 (C, M), w2 (9, M, M) with taps ky * 3 + kx, w3 (M, C), all of x's
 // dtype; s1, b1 (M), s2, b2 (M), s3, b3 (C) fp32. 1 <= M <= 64,
-// 1 <= B <= 65535. `route` is the wrapper's choice: 0 fp32; 1 bf16 on the
-// tensor cores with 16-byte loads (x, w1, w2, w3 and out 16-byte aligned,
-// C % 8 == 0 and M % 8 == 0, else refused with cudaErrorInvalidValue);
-// 2 bf16 on the tensor cores with element-wise loads (any operands).
-// Launches on `stream`, allocates nothing, and returns the first CUDA
-// error (0 on success).
+// 1 <= B <= 65535. `route` is the wrapper's choice: 0 fp32 on the tensor
+// cores in 3xTF32 (any operands: 16-byte copies where x, w1, w2, w3 and out
+// are 16-byte aligned and C % 4 == 0 and M % 4 == 0, else 4-byte ones); 1
+// bf16 on the tensor cores with 16-byte loads (x, w1, w2, w3 and out
+// 16-byte aligned, C % 8 == 0 and M % 8 == 0, else refused with
+// cudaErrorInvalidValue); 2 bf16 on the tensor cores with element-wise
+// loads (any operands). Makes `device` current if it is not, launches on
+// `stream`, allocates nothing, and returns the first CUDA error (0 on
+// success).
 extern "C" int mxtpu_fused_bottleneck(const void* x, const void* w1,
                                       const float* s1, const float* b1,
                                       const void* w2, const float* s2,
@@ -834,7 +1074,7 @@ extern "C" int mxtpu_fused_bottleneck(const void* x, const void* w1,
                           reinterpret_cast<uintptr_t>(out);
   if (route == 1 && (bases % 16 != 0 || C % 8 != 0 || M % 8 != 0))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
+  const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (route == 1)
@@ -843,6 +1083,9 @@ extern "C" int mxtpu_fused_bottleneck(const void* x, const void* w1,
   if (route == 2)
     return tc::launch<false>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B,
                              H, W, C, M, stream);
-  return launch<float>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W,
-                       C, M, stream);
+  if (bases % 16 == 0 && C % 4 == 0 && M % 4 == 0)
+    return f32::launch<true>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B,
+                             H, W, C, M, stream);
+  return f32::launch<false>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H,
+                            W, C, M, stream);
 }

@@ -11,17 +11,23 @@ shift in fp32. It computes
 
 with fp32 accumulation, h1 and h2 rounded to x's dtype where the TPU kernel
 rounds them, and the output in x's dtype (fp32 or bf16). The kernels are in
-``csrc/fused_bottleneck.cu``: a block owns a tile of output pixels (8 x 8
-in fp32 on the CUDA cores, 8 x 14 in bf16 on the tensor cores) and keeps h1
-(on the tile and a one-pixel halo) and h2 in shared memory.
+``csrc/fused_bottleneck.cu``: a block owns an 8 x 14 tile of output pixels,
+keeps h1 (on the tile and a one-pixel halo) and h2 in shared memory, and
+runs the three products on the tensor cores: bf16 x bf16 -> fp32 in bf16,
+and in fp32 as three TF32 products each (3xTF32: the operands split into
+tf32 halves, hi*lo + lo*hi + hi*hi of every one or two k-steps into a fresh
+accumulator added in fp32), which keeps fp32's accuracy to ~2^-21 of each
+product.
 
 For a CPU tensor ``fused_bottleneck`` takes the plain version; for CUDA
 tensors it launches the kernel or raises, and adds one to its ``launches``
 count. The kernel takes M up to 64 and any B, H, W and C. ``_route`` picks
 its route from the dtype, the shape and the operands' addresses:
-``"fp32"``; ``"bf16"`` (16-byte loads: every bf16 base 16-byte aligned,
-C % 8 == 0 and M % 8 == 0); ``"bf16_scalar"`` (element-wise loads, any
-operands). The C entry refuses a route whose condition fails.
+``"fp32"`` (any operands: the C entry takes 16-byte copies where every base
+is 16-byte aligned, C % 4 == 0 and M % 4 == 0, else 4-byte ones); ``"bf16"``
+(16-byte loads: every bf16 base 16-byte aligned, C % 8 == 0 and
+M % 8 == 0); ``"bf16_scalar"`` (element-wise loads, any operands). The C
+entry refuses a route whose condition fails.
 """
 
 import torch

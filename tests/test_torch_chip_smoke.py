@@ -10,6 +10,7 @@ CUDA sources maps to its kernel's class in ``--profile``'s device time
 breakdown.
 """
 
+import json
 import pathlib
 import re
 import sys
@@ -218,6 +219,7 @@ def test_every_cuda_source_has_a_global_kernel_found_by_the_scan():
              if "__global__" in p.read_text()}
     assert "int8_mm_tma_kernel" in found["int8_matmul.cu"]
     assert "fused_bottleneck_tc_kernel" in found["fused_bottleneck.cu"]
+    assert "fused_bottleneck_f32_kernel" in found["fused_bottleneck.cu"]
     assert len(found["fused_optim.cu"]) >= 4
 
 
@@ -357,3 +359,47 @@ def test_int8_decode_row_times_int_mm_on_a_padded_a(monkeypatch):
     assert (24, 64) in seen
     assert wide["library_rows"] == 32 and "floor_ms" not in wide
     assert "padded" not in wide["library_note"]
+
+
+# --------------------------------------------------- the bottleneck rows
+SMALL_BLOCK = dict(B=2, H=9, W=7, C=16, M=8)
+
+
+def test_bottleneck_rows_fp32_carries_the_3xtf32_bound(monkeypatch):
+    """The bottleneck rows on the CPU (the plain version, fake clocks) at a
+    small shape: fp32 first, then bf16 (the row the kernels line keeps);
+    each names its route, and only the fp32 row carries the bound of its
+    work at the 3xTF32 tensor-core rate beside the CUDA-core one."""
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (1.0,
+                                                              "profiler"))
+    rows = chip_smoke.bottleneck_rows(torch, torch.device("cpu"),
+                                      shape=SMALL_BLOCK)
+    f32, bf16 = rows
+    assert [r["dtype"] for r in rows] == ["float32", "bfloat16"]
+    assert [r["kernel_route"] for r in rows] == ["fp32", "bf16"]
+    assert f32["tolerance"] == 1e-4 and f32["max_abs_err"] == 0.0
+    nbytes, flops = chip_smoke.block_cost(elem_bytes=4, **SMALL_BLOCK)
+    assert f32["bound_ms"] == chip_smoke.bound(nbytes, flops)[0]
+    assert f32["tc_bound_ms"] == chip_smoke.bound(
+        nbytes, flops, chip_smoke.TF32X3_FLOPS_PER_S)[0]
+    assert f32["tc_bound_ms"] <= f32["bound_ms"]
+    assert "tc_bound_ms" not in bf16
+
+
+def test_bottleneck_phase_checks_a_bf16_and_an_fp32_stack(capsys):
+    """The bottleneck drive on the CPU at a small shape: one stack in bf16
+    and one in fp32 from the same draws, each checked against the plain
+    stack (fp32 at 1e-4) and logged on its own line with its route; the
+    launch counts come back by path (launch counts and times only on the
+    card)."""
+    counts = chip_smoke.bottleneck_phase(torch, torch.device("cpu"),
+                                         shape=SMALL_BLOCK, K=3)
+    assert sorted(counts) == ["bottleneck", "bottleneck_fp32"]
+    lines = [json.loads(line.split(": ", 1)[1])
+             for line in capsys.readouterr().out.splitlines()
+             if line.startswith("bottleneck: ")]
+    assert [(r["dtype"], r["kernel_route"]) for r in lines] == [
+        ("bfloat16", "bf16"), ("float32", "fp32")]
+    assert lines[1]["tolerance"] == 1e-4
+    assert all(r["K"] == 3 and r["max_abs_err"] == 0.0 for r in lines)

@@ -8,6 +8,9 @@ and the output to bf16 at the same places from fp32 sums taken in other
 orders, so a value may land one bf16 step apart: bf16 is held within
 2 * 2**-8 of the output's largest magnitude. The CUDA kernel itself is
 held to the plain version on the card (tests/test_torch_kernels_cuda.py).
+The fp32 kernel's numerical method (3xTF32 products on the tensor cores,
+each k-step into a fresh accumulator) is emulated here on the CPU, with the
+tensor cores' truncating sums, at the stage-1 geometry.
 """
 
 import importlib
@@ -89,8 +92,142 @@ def test_cpu_call_does_not_launch_and_is_registered():
     (torch.bfloat16, 256, 64, [2, 16, 32, 48, 64], "bf16_scalar"),
     (torch.bfloat16, 256, 64, [0, 16, 32, 48, 72], "bf16_scalar")])
 def test_route_follows_dtype_alignment_and_widths(dtype, C, M, ptrs, route):
-    """fp32 keeps its CUDA-core kernel; bf16 takes the tensor-core kernel
-    with 16-byte loads when x, w1, w2, w3 and the output start on 16-byte
-    boundaries and C and M are multiples of 8, else element-wise loads."""
+    """fp32 takes its one route whatever the shape and addresses (the C
+    entry picks 16-byte or 4-byte copies inside it); bf16 takes the
+    tensor-core kernel with 16-byte loads when x, w1, w2, w3 and the output
+    start on 16-byte boundaries and C and M are multiples of 8, else
+    element-wise loads."""
     assert tfb._route(dtype, C, M, ptrs) == route
     assert tfb.ROUTES[route] in (0, 1, 2)
+
+
+# ------------------------------------------- the fp32 kernel's arithmetic
+def _tf32(x):
+    """x rounded to TF32's 10 mantissa bits, to nearest with ties away from
+    zero, as the kernel splits (csrc/flash_tf32.cuh: tf32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _ulp24(v):
+    """The step of a 24-bit significand at magnitude v (float64)."""
+    return torch.exp2(torch.floor(torch.log2(v.clamp_min(2.0 ** -126)))
+                      - 23)
+
+
+def _mma(c, a, b):
+    """One mma.sync m16n8k8 (tf32 in, fp32 accumulator) on each row: c (R,
+    N) plus the 8 products of a (R, 8) and b (8, N), which are exact; as the
+    card's tensor cores add them (chip_smoke.py's tc_rounding line), every
+    term aligned to the largest and cut toward zero at its 24 bits, and the
+    sum cut toward zero at 24 bits of its own."""
+    terms = torch.cat([c.double()[:, None, :],
+                       a.double()[:, :, None] * b.double()[None, :, :]], 1)
+    q = _ulp24(terms.abs().amax(dim=1, keepdim=True))
+    s = (torch.trunc(terms / q) * q).sum(dim=1)
+    q = torch.maximum(_ulp24(s.abs()), q[:, 0])
+    return (torch.trunc(s / q) * q).float()
+
+
+def test_mma_model_cuts_the_sum_toward_zero():
+    """The model's rounding on the cases of chip_smoke.py's tc_rounding
+    line, each the result the H100 gives (NVIDIA H100 80GB HBM3): a term
+    under one ulp of the largest is cut away toward zero, not rounded."""
+    u = 2.0 ** -23
+
+    def one(c, terms):
+        a = torch.zeros(1, 8)
+        a[0, :len(terms)] = torch.tensor(terms)
+        return _mma(torch.tensor([[c]]), a, torch.ones(8, 1)).item()
+    assert one(1.0, [-0.125 * u]) == 1.0
+    assert one(1.0, [0.75 * u]) == 1.0
+    assert one(1.0, [1.5 * u]) == 1.0 + u
+    assert one(-1.0, [-0.75 * u]) == -1.0
+    assert one(0.0, [1.0, 0.75 * u]) == 1.0
+    assert one(1.0, [0.0] + [0.125 * u] * 7) == 1.0
+    assert one(0.0, []) == 0.0
+
+
+def _cut_tf32(x):
+    """x cut toward zero to TF32's 10 mantissa bits: how the tensor cores
+    read an operand whose low 13 bits are set."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(acc, a, b, group):
+    """acc + a @ b as the fp32 kernel computes it: a and b split into hi =
+    tf32(v) and lo = v - hi, which the tensor cores read cut to tf32; for
+    each `group` of 8-wide k-steps in order, the cross terms hi*lo and
+    lo*hi of each k-step, then hi*hi of each, into a fresh accumulator (one
+    mma each), added to acc in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _cut_tf32(a - ah), _cut_tf32(b - bh)
+    for k0 in range(0, a.shape[1], 8 * group):
+        steps = [slice(k, k + 8) for k in range(k0, k0 + 8 * group, 8)]
+        t = torch.zeros_like(acc)
+        for ks in steps:
+            t = _mma(_mma(t, ah[:, ks], bl[ks]), al[:, ks], bh[ks])
+        for ks in steps:
+            t = _mma(t, ah[:, ks], bh[ks])
+        acc = acc + t
+    return acc
+
+
+def _unit(mm, x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
+    """The unit through mm(acc, a, b, group) in the kernel's order and
+    groups: phase 1 over C in order, one k-step a fresh accumulator; phase 2
+    tap by tap (ky * 3 + kx) and phase 3 in passes of 64 output channels,
+    two k-steps a fresh accumulator; each BN a multiply and an add rounded on
+    their own; h1 padded with 0."""
+    B, H, W, C = x.shape
+    M = w1.shape[1]
+    rows = x.reshape(-1, C)
+    zero = rows.new_zeros(rows.shape[0], M)
+    h1 = torch.relu(mm(zero, rows, w1, 1) * s1 + b1).reshape(B, H, W, M)
+    hp = torch.nn.functional.pad(h1, (0, 0, 1, 1, 1, 1))
+    acc = zero
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        acc = mm(acc, hp[:, ky:ky + H, kx:kx + W].reshape(-1, M), w2[tap], 2)
+    h2 = torch.relu(acc * s2 + b2)
+    h3 = torch.cat([mm(rows.new_zeros(rows.shape[0], min(64, C - c0)), h2,
+                       w3[:, c0:c0 + 64], 2) for c0 in range(0, C, 64)], 1)
+    return torch.relu(h3 * s3 + b3 + rows).reshape(B, H, W, C)
+
+
+def test_3xtf32_with_fresh_accumulators_holds_the_stage1_unit_to_1e4():
+    """The fp32 kernel's numerical method, checked on the method and not on
+    the kernel (which runs only on a card): bench_fused_block's unit at its
+    stage-1 geometry with the batch cut to 1 (56 x 56, C = 256, M = 64; x at
+    scale 0.5, weights at 0.05, as its RandomState(0) draws), every product
+    in 3xTF32 with the kernel's fresh accumulators (one k-step's three mma
+    in phase 1, two k-steps' six in phases 2 and 3) and the tensor cores'
+    truncating sums, stays within 1e-4 of the same unit in float64
+    (measured ~3e-7), the card's tolerance against the plain version.
+    Plain TF32 (one product of the hi halves) misses it."""
+    rng = np.random.RandomState(0)
+
+    def mk(*shape, scale=0.05):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32) * scale)
+
+    def vec(n):
+        return (torch.from_numpy(rng.rand(n).astype(np.float32) + 0.5),
+                torch.from_numpy(rng.randn(n).astype(np.float32) * 0.1))
+    B, H, W, C, M = 1, 56, 56, 256, 64
+    x = mk(B, H, W, C, scale=0.5)
+    w1, (s1, b1) = mk(C, M), vec(M)
+    w2, (s2, b2) = mk(9, M, M), vec(M)
+    w3, (s3, b3) = mk(M, C), vec(C)
+    args = (x, w1, s1, b1, w2, s2, b2, w3, s3, b3)
+    exact = _unit(lambda acc, a, b, group: acc + a @ b,
+                  *(t.double() for t in args))
+    got = _unit(_mm_3xtf32, *args)
+    assert got.dtype == torch.float32
+    err = (got.double() - exact).abs().max().item()
+    assert err <= 1e-4, err
+    tf32 = _unit(lambda acc, a, b, group: acc + _tf32(a) @ _tf32(b),
+                 *args)
+    assert (tf32.double() - exact).abs().max().item() > 1e-4
+    # the plain version in float32 (the card's oracle) within 1e-4 too
+    plain = tfb.bottleneck_reference(*args)
+    assert (plain.double() - exact).abs().max().item() <= 1e-4

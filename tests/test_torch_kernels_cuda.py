@@ -25,10 +25,12 @@ same f32 scalars; a NaN gradient comes out as NaN at the same places. So do
 the seam's bf16 flavours, which round every operation and every scalar to
 bf16. Kernels compiled at run time by mx.rtc equal plain torch exactly on
 the axpy they compute.
-The fused bottleneck is held within atol 1e-4 in fp32 and within
-2 * 2**-8 of the output's largest magnitude in bf16 (one bf16 step where
-the two round a value from fp32 sums taken in other orders), on both of
-its bf16 routes (16-byte and element-wise loads).
+The fused bottleneck is held within atol 1e-4 in fp32 (3xTF32 products on
+the tensor cores, ~2^-21 of each product) and within 2 * 2**-8 of the
+output's largest magnitude in bf16 (one bf16 step where the two round a
+value from fp32 sums taken in other orders), on both of its bf16 routes
+(16-byte and element-wise loads) and on the fp32 route's 16-byte and
+4-byte copies.
 LayerNorm is held at atol 1e-5 on each of its three routes (a warp a row in
 16-byte and scalar forms, and the long-row block), each case asserting the
 route the wrapper picks; its C entry refuses a route whose conditions
@@ -603,26 +605,36 @@ def test_fused_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, M):
 @pytest.mark.parametrize("H,W", [(57, 55), (13, 11), (1, 3)])
 @pytest.mark.parametrize("C", [5, 64, 256, 300])
 @pytest.mark.parametrize("M", [1, 8, 16, 63, 64])
-def test_fused_bottleneck_bf16_tensor_cores_match_plain(cuda, H, W, C, M):
-    """The bf16 kernel on image sizes that are not multiples of its 8 x 14
-    tile, C and M on both sides of its 16-byte route (C % 8, M % 8): within
-    2 * 2**-8 of the output's max of the plain version, and two calls equal
-    bitwise."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_fused_bottleneck_bf16_tensor_cores_match_plain(cuda, H, W, C, M,
+                                                        dtype):
+    """Both tensor-core kernels on image sizes that are not multiples of
+    their 8 x 14 tile, C and M on both sides of each one's 16-byte copies
+    (bf16: C % 8 and M % 8, two routes; fp32: C % 4 and M % 4 inside the
+    one "fp32" route): bf16 within 2 * 2**-8 of the output's max of the
+    plain version, fp32 (3xTF32) within 1e-4; two calls equal bitwise."""
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         _route, bottleneck_reference, fused_bottleneck)
     B = 2 if H * W < 100 else 1
-    args = _bottleneck_inputs(B, H, W, C, M, torch.bfloat16, cuda,
+    args = _bottleneck_inputs(B, H, W, C, M, dtype, cuda,
                               seed=H * W + 7 * C + M)
     ptrs = [t.data_ptr() for t in (args[0], args[1], args[4], args[7])]
-    want_route = "bf16" if C % 8 == 0 and M % 8 == 0 else "bf16_scalar"
-    assert _route(torch.bfloat16, C, M, ptrs + [ptrs[0]]) == want_route
+    if dtype == torch.float32:
+        want_route = "fp32"
+    else:
+        want_route = "bf16" if C % 8 == 0 and M % 8 == 0 else "bf16_scalar"
+    assert _route(dtype, C, M, ptrs + [ptrs[0]]) == want_route
     got = fused_bottleneck(*args)
     again = fused_bottleneck(*args)
     torch.cuda.synchronize()
     want = bottleneck_reference(*args)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4
+    else:
+        assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
     assert torch.equal(got, again)
 
 
@@ -644,6 +656,31 @@ def test_fused_bottleneck_bf16_misaligned_views_take_the_scalar_route(cuda):
     want = bottleneck_reference(*args)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+
+
+@pytest.mark.needs_cuda
+def test_fused_bottleneck_fp32_misaligned_view_takes_the_4_byte_copies(
+        cuda):
+    """An fp32 x that starts 4 bytes past a 16-byte boundary (C and M
+    multiples of 4) takes the fp32 route's 4-byte copies: within 1e-4 of
+    the plain version, two calls equal bitwise."""
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        _route, bottleneck_reference, fused_bottleneck)
+    args = list(_bottleneck_inputs(2, 9, 15, 64, 16, torch.float32, cuda,
+                                   seed=4))
+    buf = torch.empty(args[0].numel() + 1, device=cuda)
+    x = buf[1:].view(args[0].shape)
+    x.copy_(args[0])
+    args[0] = x
+    assert x.data_ptr() % 16 == 4
+    assert _route(torch.float32, 64, 16,
+                  [x.data_ptr(), args[1].data_ptr(), args[4].data_ptr(),
+                   args[7].data_ptr(), args[1].data_ptr()]) == "fp32"
+    got = fused_bottleneck(*args)
+    again = fused_bottleneck(*args)
+    want = bottleneck_reference(*args)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, again)
 
 
 @pytest.mark.needs_cuda

@@ -36,6 +36,13 @@ Phases, each printing one line:
              Every reply must be finite, every kernel's launch count must rise
              by exactly its launches per forward times the forwards run, and
              replies must match the same requests through the port on the CPU.
+             Each (rows, bucket, inputs) shape runs as a CUDA graph after its
+             first forward; the batcher's whole grid (1, 2, 4 and 8 rows in
+             each bucket) is captured before the measured rounds, whose
+             launches are counted from a reset just before them; the line
+             carries the graphs captured and replayed, and one replayed
+             forward a bucket must equal the eager forward on the card within
+             1e-6 of each row's max (REPLAY_REL_LIMIT; 0 is expected).
 4. decode  - a GPT-2 small (768 x 12, vocab 50257, 1024 positions) with
              seeded random weights is exported with the port's
              export_gpt_for_serving and loaded by a ModelServer on the card
@@ -45,7 +52,9 @@ Phases, each printing one line:
              and 25 times the forwards run (grid steps plus prefill chunks),
              every served token must be a top logit of the same sequence
              through the port on the CPU, and one sequence's prefill and
-             steps on the card must match the CPU's logits.
+             steps on the card must match the CPU's logits. The grid step and
+             the prefill chunk (padded to 32) are CUDA graphs; one more step
+             replayed must equal it run eagerly from the same cache.
 5. train   - BERT-base pretraining (MLM + NSP, tied decoder, dropout 0,
              fp32) through ShardedTrainer with AdamW at lr 1e-4 on the card,
              at T = 128 x B = 64 (attention through the softmax kernel) and
@@ -94,8 +103,22 @@ Phases, each printing one line:
              tokens forced; the kernel must equal its plain version exactly
              on codes captured from the served path. (The kernels phase
              times the int8 kernel at the decode shape and at
-             bench_int8_matmul's 4096^3.)
-10. attention_bias - flash_attention with a learned kv_bias under
+             bench_int8_matmul's 4096^3.) The grid step, the int8 head in
+             it, is a CUDA graph; one step replayed must equal it run
+             eagerly.
+10. deploy  - live weight swaps through ServingClient.deploy: GPT-2 small
+             (with a 2-layer draft) at generations 0 and 1, 16 decode
+             requests of 32 tokens sent over and over from a client process
+             that sends serve.deploy partway, until a pass has run after the
+             swap (a 50 ms drain window, so that sessions are fenced and
+             retried through Draining); the int8 word LM deployed to
+             generation 1 between two rounds (its head re-quantized in
+             place, bit for bit a fresh one); BERT-base deployed during a
+             storm of 8 clients. No request fails, every reply checked holds
+             against the CPU port at the generation that served it, no
+             graph is captured again, launch counts are exact, and each
+             line prints the drain, swap and admit milliseconds.
+11. attention_bias - flash_attention with a learned kv_bias under
              autograd at BERT-base's geometry (B 8, H 12, T 512, D 64, the
              ragged padding mask of the flash backward rows): a (B, H, T)
              bias, then a (B, T) bias with causal=True, forward and
@@ -103,12 +126,12 @@ Phases, each printing one line:
              launch a backward; q, k, v and kv_bias gradients within 1e-4
              of each tensor's max of the CPU port's, masked keys' bias
              gradients exactly 0.
-11. seam_bf16 - the ops/_optim_kernels.py seam's _multi_sgd_mom_update,
+12. seam_bf16 - the ops/_optim_kernels.py seam's _multi_sgd_mom_update,
              _multi_adam_update and _multi_adamw_update on bf16 groups of
              ResNet-50 v1's 193 trainable shapes, 2 steps each: one bf16
              flat launch a call, w and states bitwise against the plain
              version on the card, and compared with the CPU port.
-12. rtc     - mx.rtc.CudaModule compiles the reference's axpy (cold, then
+13. rtc     - mx.rtc.CudaModule compiles the reference's axpy (cold, then
              from the cubin cache) and a template through exports; both
              launch on nd arrays of 2**24 elements on mx.gpu(0) and equal
              plain torch exactly; a CPU array is refused.
@@ -157,6 +180,9 @@ L2_BYTES = 50 << 20
 
 SEED = 1234
 BUCKETS = (128, 512)
+# the serve phase's request lengths: 8 in each bucket
+SERVE_LENGTHS = [20, 37, 64, 90, 101, 115, 127, 128,
+                 300, 333, 370, 401, 444, 480, 509, 512]
 # launches of each kernel in one BERT-base forward (12 layers): LayerNorm
 # once for the embeddings and twice a layer; one attention a layer, through
 # softmax below MXTPU_FLASH_MIN_T (512) and flash attention from it up
@@ -175,6 +201,55 @@ def expected_counts(**nonzero):
 
 def log(phase, **fields):
     print("%s: %s" % (phase, json.dumps(fields, sort_keys=True)), flush=True)
+
+
+#: a replayed CUDA graph against the same step run eagerly on the card from
+#: the same state, as a share of each row's largest magnitude (the kernels
+#: run in the same order, so 0 is expected)
+REPLAY_REL_LIMIT = 1e-6
+
+
+def row_rel_diff(got, want):
+    """max over rows (the last axis) of max |got - want| / max |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    g = got.reshape(-1, got.shape[-1])
+    w = want.reshape(-1, want.shape[-1])
+    scale = np.maximum(np.abs(w).max(axis=1), 1e-30)
+    return float((np.abs(g - w).max(axis=1) / scale).max())
+
+
+def graphs_off(served, fn):
+    """fn() with the served model's graphs off (its eager forward on the
+    card, the path before graphs), then on again."""
+    served.graphs = False
+    try:
+        return fn()
+    finally:
+        served.graphs = True
+
+
+def replay_vs_eager(what, served, call):
+    """``call()`` on a served model whose shape is captured (a replay),
+    then again with its graphs off (the eager forward on the card); each
+    output (a dict's values, a tuple's items or one array) held to the
+    other within REPLAY_REL_LIMIT of its rows' max. ``call`` must leave
+    the state it reads as it found it, or restore it itself. Returns the
+    largest relative difference."""
+    got = call()
+    want = graphs_off(served, call)
+    if isinstance(got, dict):
+        pairs = [(got[k], want[k]) for k in sorted(got)]
+    elif isinstance(got, tuple):
+        pairs = list(zip(got, want))
+    else:
+        pairs = [(got, want)]
+    worst = max(row_rel_diff(g, w) for g, w in pairs)
+    if not worst <= REPLAY_REL_LIMIT:
+        raise AssertionError("%s: a replayed graph and the eager forward "
+                             "differ by %g of a row's max (limit %g)"
+                             % (what, worst, REPLAY_REL_LIMIT))
+    return worst
 
 
 def card_line():
@@ -1092,30 +1167,71 @@ def serve_phase(torch, dev, cfg, lengths, directory, rounds=3, clients=8,
     del model
     reqs = make_requests(rs, cfg, lengths)
 
-    reset_launch_counts()
     server = ModelServer(device=dev).load(
         "bert", directory=directory, buckets=BUCKETS, max_wait_ms=2).start()
     try:
         with ServingClient(server.addr) as c:      # warm-up, one per bucket
             for n in BUCKETS:
                 c.infer("bert", make_requests(rs, cfg, [n])[0])
+        # the batcher pads a batch to 1, 2, 4 or 8 rows: capture the rest of
+        # that grid before the measured rounds (the JAX package's
+        # compilecache/warmup.py compiles its bucket grid before a replica
+        # takes traffic)
+        served = server.served("bert")
+        t0 = time.perf_counter()
+        for b in BUCKETS:
+            for rows in (2, 4, 8):
+                part = make_requests(rs, cfg, [b] * rows)
+                served.encode_fn({k: np.concatenate([r[k] for r in part])
+                                  for k in part[0]}, b)
+        capture_s = time.perf_counter() - t0
         # the clients run in a process of their own, as a deployment's
         # callers do, so that they do not share the server's interpreter lock
         addr = tuple(server.addr)
         with multiprocessing.get_context("spawn").Pool(1) as pool:
             pool.apply(run_clients, (addr, reqs[:1], 1, 1))   # start-up
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            before = dict(server.stats()["bert"]["batch"]["forwards"])
+            reset_launch_counts()
             replies, latencies, wall = pool.apply(
                 run_clients, (addr, reqs, clients, rounds))
             profile = None
             if profile_path is not None:
+                fwd0 = sum(server.stats()["bert"]["batch"]["forwards"]
+                           .values())
                 profile = profile_round(torch, lambda: pool.apply(
                     run_clients, (addr, reqs, clients, 1)))
+                fwd1 = sum(server.stats()["bert"]["batch"]["forwards"]
+                           .values())
+                profile["forwards"] = fwd1 - fwd0
+                # the same round again with the graphs off: the eager
+                # forwards' launches and idle share in the same run
+                profile["eager"] = graphs_off(
+                    server.served("bert"), lambda: profile_round(
+                        torch, lambda: pool.apply(
+                            run_clients, (addr, reqs, clients, 1))))
+                profile["eager"]["forwards"] = sum(
+                    server.stats()["bert"]["batch"]["forwards"].values()) \
+                    - fwd1
         n_measured = len(latencies)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         counts = launch_counts()
         stats = server.stats()["bert"]["batch"]
-        forwards = stats["forwards"]
+        graphs = server.stats()["bert"]["graphs"]
+        forwards = {b: n - before.get(b, 0)
+                    for b, n in stats["forwards"].items()}
+        replay = {}
+        if dev.type == "cuda":
+            for b in BUCKETS:
+                i = min((j for j, n in enumerate(lengths)
+                         if bucket_for(n, BUCKETS) == b),
+                        key=lambda j: lengths[j])
+                padded = {k: pad_to_bucket(a, b) for k, a in reqs[i].items()}
+                replay[str(b)] = replay_vs_eager(
+                    "serve bucket %d" % b, served,
+                    lambda padded=padded, b=b: served.encode_fn(padded, b))
         if profile is not None:     # direct forwards: after the counts
             profile["host"] = host_split(torch, server, rs, cfg)
             os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
@@ -1172,7 +1288,8 @@ def serve_phase(torch, dev, cfg, lengths, directory, rounds=3, clients=8,
                   requests_per_s=n_measured / wall,
                   forward_ewma_ms={str(k): v * 1e3 for k, v
                                    in stats["service_ewma_s"].items()},
-                  cpu_max_abs_err=cpu_err)
+                  graphs=graphs, grid_capture_s=capture_s,
+                  replay_vs_eager_rel=replay, cpu_max_abs_err=cpu_err)
     return fields, counts, profile
 
 
@@ -1286,17 +1403,26 @@ def decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
                 torch.cuda.synchronize()
             counts = launch_counts()
             stats = server.stats()["gpt"]["decode"]
+            graphs = server.stats()["gpt"]["graphs"]
             if profile:
                 profile_out = profile_round(torch, lambda: pool.apply(
                     run_decode_clients, (addr, prompts, clients, max_new)))
+                steps1 = server.stats()["gpt"]["decode"]["steps"]
                 profile_out.update(
-                    grid_steps=server.stats()["gpt"]["decode"]["steps"]
-                    - stats["steps"],
+                    grid_steps=steps1 - stats["steps"],
                     prefill_chunks=prefill_chunks(prompt_lengths,
                                                   server.served("gpt")
                                                   .prefill_chunk))
+                eager = graphs_off(server.served("gpt"), lambda: profile_round(
+                    torch, lambda: pool.apply(
+                        run_decode_clients,
+                        (addr, prompts, clients, max_new))))
+                eager["grid_steps"] = \
+                    server.stats()["gpt"]["decode"]["steps"] - steps1
+                profile_out["eager"] = eager
         served = server.served("gpt")
-        fed, card_rows = decode_rows(served, prompts[6], slots, cache_len)
+        fed, card_rows, replay = decode_rows(served, prompts[6], slots,
+                                             cache_len)
     finally:
         server.stop()
 
@@ -1362,6 +1488,7 @@ def decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
                   p99_ms=float(np.percentile(lat, 99) * 1e3),
                   tokens_per_s=generated / wall, wall_s=wall,
                   step_ewma_ms=stats["step_ewma_s"] * 1e3,
+                  graphs=graphs, replay_vs_eager_rel=replay,
                   exact_argmax=exact, max_logit_gap=worst,
                   logits_check_max_abs_err=check_err,
                   export_s=export_s, load_s=load_s, cpu_check_s=cpu_s)
@@ -1371,7 +1498,10 @@ def decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
 def decode_rows(served, prompt, slots, cache_len, steps=8):
     """The family's prefill of `prompt` and `steps` greedy grid steps on its
     device, in a cache of its own (one active slot of `slots`). Returns the
-    tokens fed and the steps' logits rows."""
+    tokens fed, the steps' logits rows and, on a card, the largest relative
+    difference between one more step replayed and the same step run
+    eagerly from the same cache (the step is rolled back in between: the
+    forward reads only the committed positions)."""
     cache = served.make_cache(slots, cache_len)
     slot = cache.alloc()
     served.prefill_fn(slot, prompt[:-1], cache)
@@ -1383,8 +1513,18 @@ def decode_rows(served, prompt, slots, cache_len, steps=8):
         tokens[slot] = seq[-1]
         rows.append(served.step_fn(tokens, cache, active)[slot])
         seq.append(int(np.argmax(rows[-1])))
+    replay = None
+    if served.graphs:
+        tokens[slot] = seq[-1]
+        n = int(cache.lengths[slot])
+
+        def one_step():
+            out = served.step_fn(tokens, cache, active)
+            cache.truncate(slot, n)
+            return out
+        replay = replay_vs_eager("gpt decode step", served, one_step)
     cache.free(slot)
-    return seq[:-1], np.stack(rows)
+    return seq[:-1], np.stack(rows), replay
 
 
 # -------------------------------------------------------------- lstm decode
@@ -1560,6 +1700,29 @@ def int8_matmul_rows(torch, dev, floor_ms=None, cases=None):
     return rows
 
 
+def lstm_replay_vs_eager(served, step_fn, make_cache, slots):
+    """One grid step of the word LM over `slots` live slots replayed (the
+    served program of that slot count), then run eagerly on the card from
+    the same state; logits and new states held within REPLAY_REL_LIMIT of
+    their rows' max. Returns the largest relative difference."""
+    cache = make_cache(slots, 16)
+    for _ in range(slots):
+        cache.alloc()
+    vocab = int(served.config.get("vocab_size", 10000))
+    tokens = (np.arange(slots, dtype=np.int32) * 7919) % vocab
+    active = np.ones(slots, bool)
+    step_fn(tokens, cache, active)          # a state that is not zero
+    start = {n: t.clone() for n, t in cache.data.items()}
+
+    def one_step():
+        out = step_fn(tokens, cache, active)
+        states = tuple(cache.data[n].cpu().numpy() for n in sorted(start))
+        for n, t in start.items():
+            cache.data[n].copy_(t)
+        return (out,) + states
+    return replay_vs_eager("lstm decode step", served, one_step)
+
+
 def lstm_host_split(torch, dev, served, step_fn, make_cache, slots,
                     reps=50):
     """Host-clock ms of one grid step called directly (all slots live, the
@@ -1601,7 +1764,6 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
     line). Logs one `lstm_decode` line per mode and one `lstm_decode_ratio`
     line; returns {"lstm_decode_fp32": counts, "lstm_decode_int8":
     counts}."""
-    import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
     from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
@@ -1625,14 +1787,16 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
         log_ = StepLog(served)
         captured = []
         if quantize:
-            head = served.int8_head
-            accumulate = head._accumulate
+            head, logged_step = served.int8_head, served.step_fn
 
-            def capture(qx, accumulate=accumulate, head=head):
-                if log_.steps and not captured:     # a measured step's codes
-                    captured.append(F.pad(qx, (0, head._pad)).contiguous())
-                return accumulate(qx)
-            head._accumulate = capture
+            def step_and_keep_codes(tokens, cache, active):
+                out = logged_step(tokens, cache, active)
+                if len(log_.steps) == 1 and not captured:
+                    # the first measured step's activation codes (under a
+                    # graph, the buffer its replay wrote)
+                    captured.append(head.codes.clone())
+                return out
+            served.step_fn = step_and_keep_codes
         server = ModelServer(device=dev).load(
             "lm", served=served, slots=slots, cache_len=cache_len).start()
         try:
@@ -1645,6 +1809,7 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
                 _sync(torch, dev)
                 before = server.stats()["lm"]["decode"]
                 log_.clear()
+                captured.clear()
                 reset_launch_counts()
                 tokens, latencies, wall = pool.apply(
                     run_decode_clients,
@@ -1652,14 +1817,22 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
                 _sync(torch, dev)
                 counts = launch_counts()
                 stats = server.stats()["lm"]["decode"]
+                graphs = server.stats()["lm"]["graphs"]
                 logged = log_.steps[:]
+                replay = (lstm_replay_vs_eager(served, *raw, slots)
+                          if served.graphs else None)
                 if profile:
                     traced = profile_round(torch, lambda: pool.apply(
                         run_decode_clients,
                         (addr, prompts, clients, max_new, "lm")))
-                    traced["grid_steps"] = \
-                        server.stats()["lm"]["decode"]["steps"] \
-                        - stats["steps"]
+                    steps1 = server.stats()["lm"]["decode"]["steps"]
+                    traced["grid_steps"] = steps1 - stats["steps"]
+                    traced["eager"] = graphs_off(served, lambda: profile_round(
+                        torch, lambda: pool.apply(
+                            run_decode_clients,
+                            (addr, prompts, clients, max_new, "lm"))))
+                    traced["eager"]["grid_steps"] = \
+                        server.stats()["lm"]["decode"]["steps"] - steps1
                     traced.update(lstm_host_split(torch, dev, served, *raw,
                                                   slots))
                     log("lstm_profile", card=card, mode=mode, **traced)
@@ -1685,7 +1858,7 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
 
         # every served row against the CPU port's replay of the same grid
         cpu = load_served_model(directory, quantize=quantize, device="cpu")
-        w_amax = cpu.int8_head._w_amax if quantize else 0.0
+        w_amax = cpu.int8_head.w_amax if quantize else 0.0
 
         def tol_fn(_cpu_out, w_amax=w_amax):
             # h = o * tanh(c) lies in (-1, 1), so x_amax < 1
@@ -1706,6 +1879,7 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
             p99_ms=float(np.percentile(lat, 99) * 1e3),
             tokens_per_s=generated / wall, wall_s=wall,
             step_ewma_ms=stats["step_ewma_s"] * 1e3,
+            graphs=graphs, replay_vs_eager_rel=replay,
             replay_rows=rows, replay_exact_argmax_share=exact / rows,
             max_logit_gap=worst, gap_limit=tol_fn(None), cpu_check_s=cpu_s,
             export_s=export_s)
@@ -1726,6 +1900,468 @@ def lstm_decode_phase(torch, dev, cfg, prompt_lengths, directory, clients=8,
         log("lstm_decode", card=card, mode=mode, **fields[mode])
     ratio = fields["int8"]["step_ewma_ms"] / fields["fp32"]["step_ewma_ms"]
     log("lstm_decode_ratio", card=card, int8_over_fp32_step_ewma=ratio)
+    return by_path
+
+
+# ------------------------------------------------------------------- deploy
+# GPT-2 small with a 2-layer draft of the same width in the checkpoint, so
+# that the swap's all-or-nothing check covers both parameter sets
+DEPLOY_DRAFT = dict(GPT2_SMALL, num_layers=2)
+# the drain window of the deploy phase's swaps: short, so that sessions
+# still generating at its end are fenced (shed "draining") and retried
+DEPLOY_DRAIN_S = 0.05
+# replies the clients see before one of them sends serve.deploy
+DEPLOY_AFTER = 4
+
+
+def run_deploy_storm(addr, model, payloads, clients, rounds, deploy_after,
+                     generation, max_new=None):
+    """Run in a client process: `clients` ServingClient threads send the
+    payloads (client j sends j, j + clients, ... in turn): decode prompts
+    when `max_new` is given, infer requests else. Once `deploy_after`
+    replies are back, one more ServingClient sends serve.deploy of
+    `generation` (the server loads its params before it drains, so the
+    swap lands a while later). Each client makes at least `rounds` passes
+    over its payloads and goes on until it has made one whole pass that
+    began after the deploy's reply: there is traffic before, during and
+    after the swap. Returns every reply as (index, start, end, output) on
+    this process's monotonic clock, and the deploy's reply with its start
+    and end."""
+    from incubator_mxnet_tpu_torch.serving import ServingClient
+    records, errors, deployed = [], [], {}
+    cond = threading.Condition()
+
+    def client(ids):
+        try:
+            with ServingClient(addr) as c:
+                passes = 0
+                while True:
+                    begun = time.monotonic()
+                    for i in ids:
+                        t0 = time.monotonic()
+                        if max_new is None:
+                            out = c.infer(model, payloads[i])
+                        else:
+                            out = c.decode(model, payloads[i],
+                                           max_new_tokens=max_new)
+                        with cond:
+                            records.append((i, t0, time.monotonic(), out))
+                            cond.notify_all()
+                    passes += 1
+                    with cond:
+                        if errors:
+                            return
+                        if passes >= rounds and "end" in deployed \
+                                and begun > deployed["end"]:
+                            return
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            with cond:
+                errors.append(e)
+                cond.notify_all()
+
+    def deployer():
+        try:
+            with cond:
+                while len(records) < deploy_after and not errors:
+                    cond.wait(1.0)
+            with ServingClient(addr) as c:
+                t0 = time.monotonic()
+                reply = c.deploy(model, generation=generation)
+                with cond:
+                    deployed.update(reply=reply, start=t0,
+                                    end=time.monotonic())
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            with cond:
+                errors.append(e)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(payloads), clients),))
+               for j in range(clients)]
+    threads.append(threading.Thread(target=deployer))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a deploy-phase client did not finish in 600 s")
+    if errors:
+        raise errors[0]
+    return records, deployed
+
+
+def program_ids(served):
+    """{program key: id of its graph} of a served model's captured
+    programs: a recapture would change an id."""
+    return {k: id(p.graph) for progs in (served.programs,
+                                         served.decode_programs)
+            for k, p in progs.items() if p is not None and p.graph}
+
+
+def check_no_recapture(what, before, after):
+    lost = {k for k in before if after.get(k) != before[k]}
+    if lost:
+        raise AssertionError("%s: programs %s were captured again across "
+                             "the swap" % (what, sorted(map(str, lost))))
+
+
+def deploy_gpt(torch, dev, cfg, prompt_lengths, directory, clients=8,
+               max_new=DECODE_NEW, slots=DECODE_SLOTS,
+               cache_len=DECODE_CACHE_LEN, draft_cfg=DEPLOY_DRAFT):
+    """GPT-2 small exported as generations 0 and 1 (seeded apart, each with
+    its draft), served at generation 0 with 8 slots; 16 decode requests of
+    32 tokens from a client process, sent again and again until a pass has
+    run after the swap, and serve.deploy of generation 1 sent partway.
+    Every request completes (fenced sessions retried through Draining),
+    every served token is a top logit of its sequence
+    through the CPU port at the generation that served it, no program is
+    captured again, and the launch counts are one forward's launches per
+    replay. Returns the line's fields and the served run's counts."""
+    from incubator_mxnet_tpu_torch.generate import export_gpt_for_serving
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder, gpt_logits
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import (ModelServer, ServingClient,
+                                                   load_served_model)
+    rs = np.random.RandomState(SEED + 13)
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    for _gen in range(2):
+        model = GPTDecoder(device="cpu", **cfg).load_params(gpt_params(rs,
+                                                                       cfg))
+        draft = GPTDecoder(device="cpu", **draft_cfg).load_params(
+            gpt_params(rs, draft_cfg))
+        export_gpt_for_serving(directory, cfg, model, draft=draft)
+        del model, draft
+    export_s = time.perf_counter() - t0
+    prompts = [rs.randint(0, cfg["vocab_size"], n).astype(np.int32)
+               for n in prompt_lengths]
+    old_drain = os.environ.get("MXTPU_DEPLOY_DRAIN_TIMEOUT_S")
+    os.environ["MXTPU_DEPLOY_DRAIN_TIMEOUT_S"] = str(DEPLOY_DRAIN_S)
+    server = ModelServer(device=dev).load(
+        "gpt", directory=directory, generation=0, slots=slots,
+        cache_len=cache_len).start()
+    try:
+        with ServingClient(server.addr) as c:          # warm-up: captures
+            c.decode("gpt", prompts[-1][:40], max_new_tokens=4)
+        served = server.served("gpt")
+        _sync(torch, dev)
+        before = server.stats()["gpt"]
+        programs = program_ids(served)
+        reset_launch_counts()
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            records, deployed = pool.apply(run_deploy_storm, (
+                tuple(server.addr), "gpt", prompts, clients, 1,
+                DEPLOY_AFTER, 1, max_new))
+        _sync(torch, dev)
+        counts = launch_counts()
+        after = server.stats()["gpt"]
+        check_no_recapture("gpt", programs, program_ids(served))
+    finally:
+        server.stop()
+        if old_drain is None:
+            os.environ.pop("MXTPU_DEPLOY_DRAIN_TIMEOUT_S", None)
+        else:
+            os.environ["MXTPU_DEPLOY_DRAIN_TIMEOUT_S"] = old_drain
+    reply = deployed["reply"]
+    if reply.get("generation") != 1 or after["generation"] != 1:
+        raise AssertionError("gpt deploy: %s, serving generation %s"
+                             % (reply, after["generation"]))
+    if set(r[0] for r in records) != set(range(len(prompts))) or not any(
+            r[1] > deployed["end"] for r in records):
+        raise AssertionError("gpt deploy: %d replies, none after the swap "
+                             "or some request never answered" % len(records))
+    steps = after["decode"]["steps"] - before["decode"]["steps"]
+    replays = after["graphs"]["replayed"] - before["graphs"]["replayed"]
+    if after["graphs"]["captured"] != before["graphs"]["captured"]:
+        raise AssertionError("gpt deploy: graphs captured %d -> %d"
+                             % (before["graphs"]["captured"],
+                                after["graphs"]["captured"]))
+    # every forward of the measured run is a replay (the warm-up captured
+    # both shapes): the grid steps and the prefill chunks, which retried
+    # sessions prefill again
+    chunks = replays - steps
+    L = cfg["num_layers"]
+    want = expected_counts(layer_norm=(2 * L + 1) * replays,
+                           flash_decode=L * replays)
+    if dev.type == "cuda" and (
+            counts != want or
+            chunks < prefill_chunks(prompt_lengths, served.prefill_chunk)):
+        raise AssertionError("gpt deploy launch counts %s, expected %s from "
+                             "%d replays for %d grid steps"
+                             % (counts, want, replays, steps))
+
+    # each reply through the CPU port at the generation that served it: a
+    # reply that ended before the deploy began is generation 0's, one that
+    # began after it ended generation 1's; any other holds under one of
+    # them (a drained swap never lands mid-sequence)
+    cpus = {g: load_served_model(directory, device="cpu", generation=g)
+            for g in (0, 1)}
+    by_gen, worst = {0: 0, 1: 0}, 0.0
+    gap_of = {}             # (prompt, tokens, generation) -> CPU gap
+    cpu_t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, start, end, toks in sorted(records, key=lambda r: r[:2]):
+            if toks.shape != (max_new,):
+                raise AssertionError("gpt deploy reply %d: %s" % (i, toks))
+            p = prompts[i]
+            if end < deployed["start"]:
+                gens = (0,)
+            elif start > deployed["end"]:
+                gens = (1,)
+            else:
+                gens = (0, 1)
+            gaps = {}
+            for g in gens:
+                key = (i, toks.tobytes(), g)
+                if key not in gap_of:
+                    seq = torch.from_numpy(np.concatenate([p, toks[:-1]])
+                                           .astype(np.int64)[None])
+                    rows = gpt_logits(cpus[g].model.params(), cfg, seq)[0]
+                    rows = rows[len(p) - 1:].numpy()
+                    gap_of[key] = float((rows.max(axis=1)
+                                         - rows[np.arange(max_new),
+                                                toks]).max())
+                gaps[g] = gap_of[key]
+            g = min(gaps, key=gaps.get)
+            if not gaps[g] <= 1e-3:
+                raise AssertionError(
+                    "gpt deploy reply %d: a served token's CPU logit is %s "
+                    "below its row's max at generations %s (limit 1e-3)"
+                    % (i, gaps, gens))
+            by_gen[g] += 1
+            worst = max(worst, gaps[g])
+    shed = after["decode"]["shed"].get("draining", 0) \
+        - before["decode"]["shed"].get("draining", 0)
+    fields = dict(model="gpt2_small", requests=len(records),
+                  clients=clients, slots=slots, max_new_tokens=max_new,
+                  deploy=reply, drain_window_s=DEPLOY_DRAIN_S,
+                  draining_sheds=shed, served_by_generation=by_gen,
+                  cpu_forwards=len(gap_of),
+                  grid_steps=steps, graph_replays=replays,
+                  prefill_chunks=chunks,
+                  graphs_before=before["graphs"], graphs_after=after["graphs"],
+                  launches=counts, max_logit_gap=worst, export_s=export_s,
+                  cpu_check_s=time.perf_counter() - cpu_t0)
+    return fields, counts
+
+
+def deploy_lstm(torch, dev, cfg, prompt_lengths, directory, clients=8,
+                max_new=LSTM_NEW, slots=LSTM_SLOTS,
+                cache_len=LSTM_CACHE_LEN):
+    """The int8 word LM served at generation 0, deployed to generation 1
+    between two rounds of the same 16 requests: the head's codes, scale and
+    bias equal a fresh Int8Dense of the new decoder weight bit for bit, in
+    the same buffers; no program is captured again; the second round's
+    every row holds against the CPU port's replay at generation 1 (the
+    PERF.md section 2 rule); one int8_matmul launch a grid step."""
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import (Int8Dense, ModelServer,
+                                                   ServingClient,
+                                                   export_for_serving,
+                                                   load_served_model)
+    rs = np.random.RandomState(SEED + 17)
+    shutil.rmtree(directory, ignore_errors=True)
+    for _gen in range(2):
+        export_for_serving(directory, "lstm_lm", cfg,
+                           lstm_model(torch, cfg, rs))
+    prompts = [rs.randint(0, cfg["vocab_size"], n).astype(np.int32)
+               for n in prompt_lengths]
+    served = load_served_model(directory, quantize=True, device=dev,
+                               generation=0)
+    log_ = StepLog(served)
+    head = served.int8_head
+    buffers = (head._qw.data_ptr(), head._w_amax.data_ptr(),
+               head._bias.data_ptr())
+    server = ModelServer(device=dev).load(
+        "lm", served=served, slots=slots, cache_len=cache_len).start()
+    try:
+        addr = tuple(server.addr)
+        with ServingClient(addr) as c:                 # warm-up: captures
+            c.decode("lm", prompts[-1][:8], max_new_tokens=4)
+        _sync(torch, dev)
+        before = server.stats()["lm"]
+        programs = program_ids(served)
+        reset_launch_counts()
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            pool.apply(run_decode_clients, (addr, prompts, clients, max_new,
+                                            "lm"))
+            with ServingClient(addr) as c:
+                reply = c.deploy("lm", generation=1, directory=directory)
+            log_.clear()
+            tokens, _lat, _wall = pool.apply(
+                run_decode_clients, (addr, prompts, clients, max_new, "lm"))
+        _sync(torch, dev)
+        counts = launch_counts()
+        after = server.stats()["lm"]
+        check_no_recapture("lstm", programs, program_ids(served))
+    finally:
+        server.stop()
+    steps = after["decode"]["steps"] - before["decode"]["steps"]
+    want = expected_counts(int8_matmul=steps)
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError("lstm deploy launch counts %s, expected %s"
+                             % (counts, want))
+    if after["graphs"]["captured"] != before["graphs"]["captured"]:
+        raise AssertionError("lstm deploy: graphs captured %d -> %d"
+                             % (before["graphs"]["captured"],
+                                after["graphs"]["captured"]))
+    if reply.get("generation") != 1 or len(tokens) != len(prompts):
+        raise AssertionError("lstm deploy: %s, %d replies"
+                             % (reply, len(tokens)))
+    dec = served.model.decoder
+    fresh = Int8Dense(dec.weight.data()._t, dec.bias.data()._t)
+    same_bits = all(torch.equal(getattr(head, b), getattr(fresh, b))
+                    for b in ("_qw", "_w_amax", "_bias"))
+    in_place = buffers == (head._qw.data_ptr(), head._w_amax.data_ptr(),
+                           head._bias.data_ptr())
+    if not (same_bits and in_place):
+        raise AssertionError("lstm deploy: the int8 head is %s a fresh one "
+                             "and %s in place" % (
+                                 "equal to" if same_bits else "not",
+                                 "" if in_place else "not"))
+    cpu = load_served_model(directory, quantize=True, device="cpu",
+                            generation=1)
+    w_amax = cpu.int8_head.w_amax
+
+    def tol_fn(_cpu_out):
+        return 1e-3 + INT8_FLIP_UNITS * w_amax / 127.0 ** 2
+
+    rows, exact, worst = replay_on_cpu(torch, cpu, log_, slots, cache_len,
+                                       tol_fn)
+    fields = dict(model="lstm_lm_ptb_int8", requests=2 * len(prompts),
+                  deploy=reply, grid_steps=steps,
+                  graphs_before=before["graphs"], graphs_after=after["graphs"],
+                  head_requantized_bitwise=same_bits,
+                  head_buffers_in_place=in_place, launches=counts,
+                  replay_rows=rows, replay_exact_argmax_share=exact / rows,
+                  max_logit_gap=worst, gap_limit=tol_fn(None))
+    return fields, counts
+
+
+def deploy_bert(torch, dev, cfg, lengths, directory, clients=8, rounds=2):
+    """BERT-base exported as generations 0 and 1, served at generation 0 in
+    buckets (128, 512); 8 clients in a process of their own send the 16
+    requests over and over, and one more client sends serve.deploy of
+    generation 1 during the storm (see run_deploy_storm for how long it
+    lasts). No request fails; the replies that began
+    after the swap match the CPU port at generation 1 (the shortest request
+    of each bucket, rtol = atol = 1e-4); no program is captured again."""
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import (ModelServer, ServingClient,
+                                                   export_for_serving,
+                                                   load_served_model)
+    from incubator_mxnet_tpu_torch.serving.scheduler import (bucket_for,
+                                                             pad_to_bucket)
+    rs = np.random.RandomState(SEED + 19)
+    shutil.rmtree(directory, ignore_errors=True)
+    for _gen in range(2):
+        model = BERTModel(device=dev, dropout=0.0, **cfg)
+        model.load_params(bert_base_params(rs, cfg))
+        export_for_serving(directory, "bert_encoder", dict(cfg, emit_seq=True),
+                           model)
+        del model
+    reqs = make_requests(rs, cfg, lengths)
+    server = ModelServer(device=dev).load(
+        "bert", directory=directory, generation=0, buckets=BUCKETS,
+        max_wait_ms=2).start()
+    try:
+        with ServingClient(server.addr) as c:          # warm-up, one a bucket
+            for n in BUCKETS:
+                c.infer("bert", make_requests(rs, cfg, [n])[0])
+        served = server.served("bert")
+        _sync(torch, dev)
+        before = server.stats()["bert"]
+        programs = program_ids(served)
+        reset_launch_counts()
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            records, deployed = pool.apply(run_deploy_storm, (
+                tuple(server.addr), "bert", reqs, clients, rounds,
+                len(reqs), 1))
+        _sync(torch, dev)
+        counts = launch_counts()
+        after = server.stats()["bert"]
+    finally:
+        server.stop()
+    # the storm forms batches of new row counts before and after the swap,
+    # each captured once: every program is captured exactly once, and those
+    # of the warm-up keep their graphs
+    check_no_recapture("bert", programs, program_ids(served))
+    if dev.type == "cuda" and \
+            after["graphs"]["captured"] != after["graphs"]["programs"]:
+        raise AssertionError("bert deploy: %d captures for %d programs"
+                             % (after["graphs"]["captured"],
+                                after["graphs"]["programs"]))
+    fwd = {b: after["batch"]["forwards"].get(b, 0)
+           - before["batch"]["forwards"].get(b, 0) for b in BUCKETS}
+    n_short = sum(v for b, v in fwd.items() if b < 512)
+    n_long = sum(v for b, v in fwd.items() if b >= 512)
+    want = expected_counts(layer_norm=LN_PER_FORWARD * (n_short + n_long),
+                           softmax=ATTN_PER_FORWARD * n_short,
+                           flash_attention_fwd=ATTN_PER_FORWARD * n_long)
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError("bert deploy launch counts %s, expected %s"
+                             % (counts, want))
+    if len(records) < rounds * len(reqs) or \
+            deployed["reply"].get("generation") != 1:
+        raise AssertionError("bert deploy: %d replies for %d rounds of %d, "
+                             "deploy %s" % (len(records), rounds, len(reqs),
+                                            deployed["reply"]))
+    for i, _s, _e, out in records:
+        if not all(np.isfinite(v).all() for v in out.values()):
+            raise AssertionError("bert deploy reply %d is not finite" % i)
+    late = {}
+    for i, start, _end, out in records:
+        if start > deployed["end"]:
+            b = bucket_for(lengths[i], BUCKETS)
+            if b not in late or lengths[i] < lengths[late[b][0]]:
+                late[b] = (i, out)
+    if set(late) != set(BUCKETS):
+        raise AssertionError("bert deploy: no reply after the swap in "
+                             "buckets %s" % sorted(set(BUCKETS) - set(late)))
+    cpu = load_served_model(directory, device="cpu", generation=1)
+    cpu_err = {}
+    for b, (i, out) in sorted(late.items()):
+        padded = {k: pad_to_bucket(a, b) for k, a in reqs[i].items()}
+        ref = cpu.encode_fn(padded, b)
+        for key in ("pooled", "seq"):
+            if not np.allclose(out[key], ref[key], rtol=1e-4, atol=1e-4):
+                raise AssertionError(
+                    "bert deploy bucket %d %s: card at generation 1 and the "
+                    "CPU differ by %g" % (b, key,
+                                          np.abs(out[key] - ref[key]).max()))
+            cpu_err["%d/%s" % (b, key)] = float(np.abs(out[key]
+                                                       - ref[key]).max())
+    fields = dict(model="bert_base", requests=len(records), clients=clients,
+                  deploy=deployed["reply"],
+                  after_swap=sum(1 for r in records
+                                 if r[1] > deployed["end"]),
+                  forwards={str(b): v for b, v in fwd.items()},
+                  graphs_before=before["graphs"], graphs_after=after["graphs"],
+                  launches=counts, cpu_max_abs_err=cpu_err)
+    return fields, counts
+
+
+def deploy_phase(torch, dev, card=None):
+    """The three deploys (GPT-2 small, the int8 word LM, BERT-base); logs
+    one deploy line each and returns their launch counts by path."""
+    root = os.path.join(HERE, "build", "chip_smoke")
+    by_path = {}
+    for path, run in (
+            ("deploy_gpt", lambda: deploy_gpt(
+                torch, dev, GPT2_SMALL, DECODE_PROMPTS,
+                os.path.join(root, "deploy_gpt2"))),
+            ("deploy_lstm_int8", lambda: deploy_lstm(
+                torch, dev, PTB_LSTM, LSTM_PROMPTS,
+                os.path.join(root, "deploy_lstm"))),
+            ("deploy_bert", lambda: deploy_bert(
+                torch, dev, BERT_BASE, SERVE_LENGTHS,
+                os.path.join(root, "deploy_bert")))):
+        fields, counts = run()
+        log("deploy", card=card, **fields)
+        by_path[path] = counts
     return by_path
 
 
@@ -3045,9 +3681,30 @@ def profile_round(torch, run_round):
     summary = dict(wall_ms=wall_ms, device_busy_ms=busy,
                    idle_share=1 - busy / wall_ms if wall_ms else None,
                    by_class_ms=by_class,
+                   device_ops=sum(n for n, _ms in by_name.values()),
+                   host_launches=host_launches(prof),
                    top=[dict(name=n[:90], calls=c, ms=ms)
                         for n, (c, ms) in top])
     return summary
+
+
+#: host-side calls that put work on the card: kernel launches (through the
+#: runtime API, and cuLaunchKernel, which the ctypes-bound kernels' own
+#: runtime may call), graph launches, and copies and memsets
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
+
+
+def host_launches(prof):
+    """{host API name: calls} in a torch.profiler trace, for the names of
+    LAUNCH_APIS that appear (a name missing from the trace is not counted:
+    the profiler may not see a runtime linked into another library)."""
+    out = {}
+    for e in prof.events():
+        if e.name in LAUNCH_APIS:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
 
 
 def probe_replies(addr, sizes, reps, rcvbuf):
@@ -3188,10 +3845,8 @@ def main(argv=None):
 
     krows = kernels_phase(torch, dev)
 
-    lengths = [20, 37, 64, 90, 101, 115, 127, 128,
-               300, 333, 370, 401, 444, 480, 509, 512]
     fields, counts, profile = serve_phase(
-        torch, dev, BERT_BASE, lengths,
+        torch, dev, BERT_BASE, SERVE_LENGTHS,
         os.path.join(HERE, "build", "chip_smoke", "bert_base"),
         profile_path=args.profile)
     log("serve", card=card, **fields)
@@ -3219,6 +3874,7 @@ def main(argv=None):
         torch, dev, PTB_LSTM, LSTM_PROMPTS,
         os.path.join(HERE, "build", "chip_smoke", "lstm_ptb"), card=card,
         profile=args.profile is not None)
+    dcounts_by_path = deploy_phase(torch, dev, card=card)
     acounts = attention_bias_phase(torch, dev, card=card)
     scounts = seam_bf16_phase(torch, dev, card=card)
     rtc_counts = rtc_phase(torch, dev, card=card)
@@ -3230,8 +3886,8 @@ def main(argv=None):
     # to 0 just before it and read just after; the line carries their sum
     by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
                "resnet_train": rcounts, **bcounts, **gcounts,
-               **lcounts, "attention_bias": acounts, "seam_bf16": scounts,
-               "rtc": rtc_counts}
+               **lcounts, **dcounts_by_path, "attention_bias": acounts,
+               "seam_bf16": scounts, "rtc": rtc_counts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]

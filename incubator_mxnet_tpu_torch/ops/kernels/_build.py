@@ -23,7 +23,8 @@ import time
 from pathlib import Path
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "library", "build_info",
-           "check", "count_launch", "sources", "BUILD_DIR", "LIB_NAME"]
+           "check", "count_launch", "recording_launches", "add_launches",
+           "sources", "BUILD_DIR", "LIB_NAME"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -90,6 +91,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _state = {"lib": None, "built": False, "seconds": 0.0}
+_capture = threading.local()      # .launches: {wrapper: n} while capturing
 
 
 class KernelBuildError(RuntimeError):
@@ -205,6 +207,36 @@ def check(rc, what):
 
 def count_launch(wrapper):
     """Add one to ``wrapper.launches``; batchers of several models launch
-    from their own threads."""
+    from their own threads. While this thread captures a CUDA graph
+    (``recording_launches``) the kernel is recorded, not run: the call is
+    counted in the capture's record instead, and each replay of the graph
+    adds the record (``add_launches``)."""
+    record = getattr(_capture, "launches", None)
+    if record is not None:
+        record[wrapper] = record.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+class recording_launches:
+    """Context manager: the wrapper calls made on this thread inside it go
+    to the dict it returns (``{wrapper: calls}``), not to the counts."""
+
+    def __enter__(self):
+        if getattr(_capture, "launches", None) is not None:
+            raise RuntimeError("launches are already being recorded on this "
+                               "thread")
+        _capture.launches = {}
+        return _capture.launches
+
+    def __exit__(self, *_exc):
+        _capture.launches = None
+
+
+def add_launches(record):
+    """Add a capture's record (``{wrapper: calls}``) to the counts: one
+    replay of the graph launched each of those kernels that many times."""
+    with _count_lock:
+        for wrapper, n in record.items():
+            wrapper.launches += n

@@ -2,7 +2,8 @@
 ``kvstore.rpc.Connection``.
 
 Counterpart of ``incubator_mxnet_tpu/serving/client.py`` (ping, models,
-stats, infer, decode), wire-compatible with the servers of both packages.
+stats, infer, decode, and the deploy plane: deploy, drain, admit,
+generation), wire-compatible with the servers of both packages.
 ``deadline_ms`` becomes the relative ``_deadline_ms`` budget, which the
 server moves onto its own monotonic clock; a shed comes back as
 ``DeadlineExceeded`` with the stage that dropped it. A DRAINING shed is
@@ -160,3 +161,39 @@ class ServingClient:
         meta, rpayload = self._call_retrying(req, payload,
                                              deadline_ms=deadline_ms)
         return unpack_arrays(meta["arrays"], rpayload)["tokens"]
+
+    # ------------------------------------------------------ deploy plane
+    def deploy(self, model, generation=None, directory=None):
+        """Drain, swap and re-admit ``model`` on the CURRENT replica (a
+        rollout coordinator runs one client per replica). Defaults: the
+        generation pointer of the directory the replica loaded from."""
+        req = {"op": "serve.deploy", "model": model}
+        if generation is not None:
+            req["generation"] = int(generation)
+        if directory is not None:
+            req["directory"] = directory
+        meta, _ = self._call(req)
+        return meta
+
+    def drain(self, model, timeout=None):
+        req = {"op": "serve.drain", "model": model}
+        if timeout is not None:
+            req["timeout"] = float(timeout)
+        meta, _ = self._call(req)
+        return meta
+
+    def admit(self, model):
+        meta, _ = self._call({"op": "serve.admit", "model": model})
+        return meta
+
+    def generation(self, model=None):
+        """{model: {"generation", "draining"}} of the current replica, or
+        just ``model``'s entry when named."""
+        meta, _ = self._call({"op": "serve.generation"})
+        gens = meta["generations"]
+        if model is None:
+            return gens
+        if model not in gens:
+            raise ServingError("model %r is not loaded (have: %s)"
+                               % (model, sorted(gens)))
+        return gens[model]

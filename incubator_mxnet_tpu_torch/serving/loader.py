@@ -7,9 +7,13 @@ construction config, plus a ``generation`` number that the directory's
 ``GENERATION.json`` pointer publishes. The layout is the JAX package's, so
 either package loads what the other exported.
 
-The port runs eager PyTorch: no AOT program is built, bound or exported.
 A family's forwards run under ``torch.inference_mode()`` on the model's
-device. Built-in families:
+device. On a CUDA device each served shape runs as a CUDA graph, the
+port's counterpart of the JAX package's AOT programs
+(``compilecache/aot.py`` ``BlockProgram``): captured on the shape's first
+call and replayed after, reading the weights in place. On the CPU there are
+no programs. A graph has no serialized form, so no executable is exported
+or bound. Built-in families:
 
 - ``bert_encoder``: models.bert.BERTModel, the pooled embedding (and the
   sequence output with ``emit_seq``);
@@ -19,17 +23,24 @@ device. Built-in families:
 
 ``gpt_decoder`` (``generate/family.py``) registers when ``generate`` is
 imported, which ``load_served_model`` does for a checkpoint of that family.
-Live weight swaps (with the int8 head's re-quantization) wait for ROADMAP
-Queue 1 item 3.
+
+Every export is a generation. ``ServedModel.swap_params`` swaps a retained
+generation's weights in live (``ModelServer.deploy`` drains the model
+first): the family checks the incoming shapes and dtypes against the served
+ones (``GenerationMismatchError`` on any drift, before a weight moves) and
+copies them into the served tensors in place, so every captured graph reads
+the new weights: zero recaptures. The int8 head is re-quantized in place.
 """
 
 import json
+import logging
 import os
 import time
 
 import numpy as np
 import torch
 
+from ..compilecache.aot import BlockProgram
 from ..context import resolve_device
 from ..utils.checkpoint import CheckpointManager
 from .decode import check_token_ids
@@ -37,12 +48,23 @@ from .kv_cache import KVCache
 from .quant import Int8Dense, int8_serving_enabled
 
 __all__ = ["ServedModel", "serving_family", "export_for_serving",
-           "load_served_model", "SERVING_FAMILIES", "GENERATION_POINTER",
-           "publish_generation", "read_generation", "generation_steps"]
+           "load_served_model", "SERVING_FAMILIES",
+           "GenerationMismatchError", "GENERATION_POINTER",
+           "publish_generation", "read_generation", "generation_steps",
+           "load_generation_params"]
+
+log = logging.getLogger(__name__)
 
 SERVING_FAMILIES = {}
 
 GENERATION_POINTER = "GENERATION.json"
+
+
+class GenerationMismatchError(ValueError):
+    """A live weight swap was refused: the incoming generation's params do
+    not match the served ones that the captured graphs read (missing
+    params, or shape/dtype drift). The served weights are untouched; the
+    deploy must re-export instead."""
 
 
 def serving_family(name):
@@ -63,13 +85,23 @@ class ServedModel:
     ``make_cache(slots, max_len)`` serves generation through the
     DecodeLoop, which commits a prompt prefix through ``prefill_fn(slot,
     tokens, cache)`` in chunks of ``prefill_chunk`` when the family has
-    one. ``params_swapper``, where a family has one, is the live weight
-    swap, which no family of the port implements yet (ROADMAP Queue 1 item
-    3)."""
+    one.
+
+    The program surfaces are family-owned: ``program_factory`` (``(rows,
+    bucket, names) -> BlockProgram``, caching into ``programs``) and
+    ``decode_program_factory`` (``(slots) -> BlockProgram``, caching into
+    ``decode_programs``). A program is a CUDA graph captured on its first
+    call (``new_program``); the family's programs share one graph memory
+    pool, since one scheduler thread replays them. ``graphs`` is True on a
+    CUDA device; set it False and every forward runs eagerly on the card
+    (``chip_smoke.py`` compares the two). ``params_swapper`` is the live
+    weight swap."""
 
     def __init__(self, family, config, encode_fn=None, step_fn=None,
                  make_cache=None, pad_token=0, quantized=False, device=None,
-                 prefill_fn=None, prefill_chunk=None, params_swapper=None):
+                 prefill_fn=None, prefill_chunk=None, params_swapper=None,
+                 program_factory=None, decode_program_factory=None,
+                 programs=None, decode_programs=None):
         if encode_fn is None and step_fn is None:
             raise ValueError("a ServedModel needs encode_fn, step_fn, "
                              "or both")
@@ -89,6 +121,15 @@ class ServedModel:
         self.quantized = bool(quantized)
         self.device = device
         self.params_swapper = params_swapper
+        self.program_factory = program_factory
+        self.decode_program_factory = decode_program_factory
+        self.programs = programs if programs is not None else {}
+        self.decode_programs = (decode_programs
+                                if decode_programs is not None else {})
+        self.graphs = device is not None and \
+            torch.device(device).type == "cuda"
+        self.graph_counts = {"captured": 0, "replayed": 0}
+        self._graph_pool = None
         self.generation = 0
 
     @property
@@ -98,6 +139,87 @@ class ServedModel:
     @property
     def has_decode(self):
         return self.step_fn is not None
+
+    # ------------------------------------------------------- programs
+    def new_program(self, name, fn, example_inputs, bound=()):
+        """A BlockProgram of this family (see ``compilecache.aot``): its
+        graph goes into the family's memory pool and its captures and
+        replays into ``graph_counts``."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return BlockProgram(name, fn, example_inputs, pool=self._graph_pool,
+                            bound=bound, counts=self.graph_counts)
+
+    def program_for(self, rows, bucket, names):
+        """The encode program of this (rows, bucket, input-name)
+        signature, captured on its first call. None on the CPU, with
+        ``graphs`` off, or for a family without a program factory: the
+        forward runs eagerly."""
+        if self.program_factory is None or not self.graphs:
+            return None
+        return self.program_factory(int(rows), int(bucket), tuple(names))
+
+    def decode_program_for(self, slots):
+        """The decode-step program of this slot count, or None (see
+        ``program_for``)."""
+        if self.decode_program_factory is None or not self.graphs:
+            return None
+        return self.decode_program_factory(int(slots))
+
+    def graph_stats(self):
+        """{"captured", "replayed": CUDA graphs since load, "programs":
+        programs held}."""
+        out = dict(self.graph_counts)
+        out["programs"] = sum(1 for progs in (self.programs,
+                                              self.decode_programs)
+                              for p in progs.values() if p is not None)
+        return out
+
+    def export_executables(self):
+        """{executable name: blob} for a checkpoint ``executables``
+        section: always empty here. A CUDA graph has no serialized form
+        (``BlockProgram.dump`` raises), which the JAX package's contract
+        covers as a backend without executable serialization: the program
+        is captured again on demand."""
+        out = {}
+        for progs in (self.programs, self.decode_programs):
+            for prog in progs.values():
+                if prog is None:
+                    continue
+                try:
+                    out[prog.name] = prog.dump()
+                except NotImplementedError as e:
+                    log.info("serving: %r not serializable (%s)",
+                             prog.name, e)
+        return out
+
+    def bind_executable(self, name, blob):
+        """Rebind a serialized executable from a checkpoint: always False
+        here (no CUDA graph is serialized); the program is captured on
+        demand, as the JAX package does with a foreign blob."""
+        log.info("serving: executable %r (%d bytes) is not bound; its "
+                 "program is captured on demand", name, len(blob or b""))
+        return False
+
+    # ---------------------------------------------------------- swaps
+    def swap_params(self, params, generation):
+        """Replace the served weights IN PLACE with ``params``, the live
+        weight push. The family swapper checks the incoming avals first
+        (GenerationMismatchError on any drift: the current weights keep
+        serving) and then copies every weight into the tensor that the
+        eager path and every captured graph read: zero recaptures. On a
+        CUDA device the copies are complete when this returns. The caller
+        (ModelServer.deploy) owns the scheduling contract: the model must
+        be drained, never mid-batch."""
+        if self.params_swapper is None:
+            raise RuntimeError("serving family %r does not support live "
+                               "param swap" % self.family)
+        self.params_swapper(params)
+        if self.device is not None and torch.device(self.device).type \
+                == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.generation = int(generation)
+        return self
 
 
 # ----------------------------------------------------------- generations
@@ -134,6 +256,67 @@ def generation_steps(directory):
         if meta.get("generation") is not None:
             out[int(meta["generation"])] = int(s)
     return out
+
+
+def load_generation_params(directory, generation=None, pin=False):
+    """Params + meta of one retained generation (default: the pointer's)
+    without building the family: the swap payload for
+    ``ServedModel.swap_params``. Params are CPU tensors, in pinned memory
+    with ``pin`` (a faster copy to the card). Raises FileNotFoundError when
+    the generation is not retained on disk."""
+    mgr = _serve_mgr(directory)
+    if generation is None:
+        ptr = read_generation(directory)
+        if not ptr:
+            raise FileNotFoundError("no generation pointer under %r"
+                                    % directory)
+        generation = ptr["generation"]
+    generation = int(generation)
+    gens = generation_steps(directory)
+    if generation not in gens:
+        raise FileNotFoundError(
+            "generation %d is not retained under %r (have: %s)"
+            % (generation, directory, sorted(gens)))
+    _step, params, _trainer, meta = mgr.restore(gens[generation])
+    if pin:
+        params = {k: v.pin_memory() for k, v in params.items()}
+    return params, meta
+
+
+def _aval(value):
+    """(shape, numpy dtype) of a tensor, either package's NDArray or an
+    array."""
+    if hasattr(value, "_t") and isinstance(value._t, torch.Tensor):
+        value = value._t                        # the port's NDArray
+    if isinstance(value, torch.Tensor):
+        return (tuple(value.shape),
+                torch.empty((), dtype=value.dtype).numpy().dtype)
+    if hasattr(value, "asnumpy"):               # the JAX package's NDArray
+        value = value.asnumpy()
+    value = np.asarray(value)
+    return tuple(value.shape), value.dtype
+
+
+def check_generation_avals(current, new, context=""):
+    """Check an incoming param dict against the served one: every current
+    param must be in ``new`` with the same shape and dtype. Raises
+    GenerationMismatchError naming the drift; extras in ``new`` are ignored
+    (forward-compatible checkpoints)."""
+    where = " (%s)" % context if context else ""
+    missing = sorted(set(current) - set(new))
+    if missing:
+        raise GenerationMismatchError(
+            "incoming generation is missing params%s: %s"
+            % (where, ", ".join(missing[:8])))
+    drift = []
+    for name in sorted(current):
+        (cs, cd), (ns, nd_) = _aval(current[name]), _aval(new[name])
+        if cs != ns or cd != nd_:
+            drift.append("%s: %s%s -> %s%s" % (name, cd, cs, nd_, ns))
+    if drift:
+        raise GenerationMismatchError(
+            "incoming generation's avals drifted%s - the captured graphs "
+            "read the served shapes: %s" % (where, "; ".join(drift[:8])))
 
 
 # ------------------------------------------------------------ export/load
@@ -211,12 +394,79 @@ def load_served_model(directory, quantize=None, generation=None, device=None):
 
 
 # ------------------------------------------------------- builtin families
-def _ids_tensor(arrays, name, limit, device):
+def _host_ids(arrays, name, limit):
+    """Token ids checked on the host, as an int64 CPU tensor (on the card
+    an out-of-range embedding index is a device fault)."""
     a = np.asarray(arrays[name])
     if a.size and (a.min() < 0 or a.max() >= limit):
         raise ValueError("%s must lie in [0, %d), got [%d, %d]"
                          % (name, limit, a.min(), a.max()))
-    return torch.from_numpy(a.astype(np.int64)).to(device)
+    return torch.from_numpy(a.astype(np.int64))
+
+
+def _src_tensor(value):
+    """A checkpoint value (tensor, either package's NDArray, array) as a
+    tensor."""
+    if hasattr(value, "_t") and isinstance(value._t, torch.Tensor):
+        return value._t
+    if isinstance(value, torch.Tensor):
+        return value
+    if hasattr(value, "asnumpy"):
+        value = value.asnumpy()
+    return torch.from_numpy(np.array(value))
+
+
+def _swap_in_place(current, copy, program_dicts):
+    """Run ``copy()`` under no_grad and refuse a copy that moved a served
+    tensor (``current() -> {name: tensor}``) while programs exist: their
+    graphs would go on reading the old one."""
+    before = {n: t.data_ptr() for n, t in current().items()}
+    with torch.no_grad():
+        copy()
+    moved = sorted(n for n, t in current().items()
+                   if t.data_ptr() != before[n])
+    if moved and any(program_dicts):
+        raise RuntimeError("a weight swap moved %s instead of copying in "
+                           "place; the captured graphs read the old "
+                           "tensors" % ", ".join(moved[:8]))
+
+
+def _module_swapper(module, program_dicts):
+    """``params_swapper`` of an ``nn.Module`` whose parameter names are the
+    checkpoint's (BERT): check the incoming avals against every parameter
+    (all or nothing), then copy each into its tensor in place."""
+    def current():
+        return dict(module.named_parameters())
+
+    def swap(params):
+        check_generation_avals(current(), params)
+        _swap_in_place(current, lambda: [
+            p.copy_(_src_tensor(params[n])) for n, p in current().items()],
+            program_dicts)
+    return swap
+
+
+def _gluon_swapper(model, program_dicts, after=None):
+    """``params_swapper`` of a gluon-backed family: check the incoming
+    avals against the served params (all or nothing: any drift raises
+    before a weight moves), then copy the new weights into the served
+    tensors in place (``Parameter.set_data`` does, the shapes being
+    equal), so that the eager path and every program of ``program_dicts``
+    read them. ``after`` runs last, for family-private derived state (the
+    lstm int8 head's re-quantization)."""
+    def current():
+        return {n: p.data()._t
+                for n, p in model._collect_params_with_prefix().items()}
+
+    def swap(params):
+        targets = model._collect_params_with_prefix()
+        check_generation_avals(current(), params)
+        _swap_in_place(current, lambda: [p.set_data(params[n])
+                                         for n, p in targets.items()],
+                       program_dicts)
+        if after is not None:
+            after()
+    return swap
 
 
 @serving_family("bert_encoder")
@@ -225,7 +475,10 @@ def _build_bert_encoder(config, params, quantize, device):
     token_types (B, T) int and valid_mask (B, T) float (zero-padded to the
     bucket, so padding is masked). Output: pooled (B, units), plus seq
     (B, T, units) when the config sets emit_seq. ``quantize`` is ignored,
-    as in the JAX package's family."""
+    as in the JAX package's family. On CUDA each (rows, bucket, input
+    names) signature is one program (``encode/r%dxb%d/names``): the rows
+    are the batcher's powers of two, and the names count because a mask or
+    token types change the forward."""
     from ..models.bert import BERTModel
     cfg = dict(vocab_size=int(config.get("vocab_size", 30522)),
                units=int(config.get("units", 768)),
@@ -243,23 +496,56 @@ def _build_bert_encoder(config, params, quantize, device):
     emit_seq = bool(config.get("emit_seq", False))
     vocab = cfg["vocab_size"]
     type_vocab = model.token_type_embed.weight.shape[0]
+    programs = {}
+
+    def forward(names):
+        """The encoder over inputs in sorted-name order."""
+        def fn(ids, *rest):
+            extra = dict(zip(names[1:], rest))
+            return model(ids, extra.get("token_types"),
+                         extra.get("valid_mask"))
+        return fn
+
+    def program_for(rows, bucket, names):
+        key = (rows, bucket, names)
+        if key not in programs:
+            ex = [torch.zeros((rows, bucket), dtype=torch.float32
+                              if n == "valid_mask" else torch.int64,
+                              device=device) for n in names]
+            programs[key] = served.new_program(
+                "encode/r%dxb%d/%s" % (rows, bucket, "+".join(names)),
+                forward(names), ex)
+        return programs[key]
 
     def encode(arrays, _bucket):
-        ids = _ids_tensor(arrays, "token_ids", vocab, device)
-        types = (_ids_tensor(arrays, "token_types", type_vocab, device)
-                 if "token_types" in arrays else None)
-        mask = (torch.from_numpy(np.asarray(arrays["valid_mask"],
-                                            np.float32)).to(device)
-                if "valid_mask" in arrays else None)
+        names = tuple(n for n in sorted(arrays) if n in (
+            "token_ids", "token_types", "valid_mask"))
+        ins = []
+        for n in names:
+            if n == "valid_mask":
+                ins.append(torch.from_numpy(np.asarray(arrays[n],
+                                                       np.float32)))
+            else:
+                ins.append(_host_ids(arrays, n, vocab if n == "token_ids"
+                                     else type_vocab))
         with torch.inference_mode():
-            seq, pooled = model(ids, types, mask)
+            prog = served.program_for(ins[0].shape[0], ins[0].shape[1],
+                                      names)
+            if prog is None:
+                seq, pooled = forward(names)(*(t.to(device) for t in ins))
+            else:
+                seq, pooled = prog(*ins)
             out = {"pooled": pooled.cpu().numpy()}
             if emit_seq:
                 out["seq"] = seq.cpu().numpy()
         return out
 
-    return ServedModel("bert_encoder", config, encode, quantized=False,
-                       device=device)
+    served = ServedModel("bert_encoder", config, encode, quantized=False,
+                         device=device, program_factory=program_for,
+                         programs=programs,
+                         params_swapper=_module_swapper(model, [programs]))
+    served.model = model
+    return served
 
 
 def _set_params(model, params):
@@ -283,9 +569,11 @@ def _build_lstm_lm(config, params, quantize, device):
     decode batch between steps. A step runs embed -> RNN (T = 1) -> the
     vocab head for all slots at once, writes the new states back into the
     cache on the device and returns only the (slots, V) logits to the host.
-    With ``quantize`` the head is an ``Int8Dense`` built once from the
-    decoder's weight and bias. There is no prefill_fn: the DecodeLoop feeds
-    a prompt one token a step, as in the JAX package."""
+    With ``quantize`` the head is an ``Int8Dense`` quantized from the
+    decoder's weight and bias, and re-quantized in place by a swap. On CUDA
+    each slot count is one program (``decode/s%d``), the int8 head inside
+    it. There is no prefill_fn: the DecodeLoop feeds a prompt one token a
+    step, as in the JAX package."""
     from .. import initializer as _init
     from ..models.lstm_lm import RNNModel
     mode = str(config.get("mode", "lstm"))
@@ -301,46 +589,77 @@ def _build_lstm_lm(config, params, quantize, device):
     _set_params(model, params)
 
     state_names = ("h", "c")[:2 if mode == "lstm" else 1]
+    dec = model.decoder
     int8_head = None
     if quantize:
-        dec = model.decoder
         int8_head = Int8Dense(dec.weight.data()._t,
                               dec.bias.data()._t if dec.bias is not None
                               else None, device=device)
+    embed = model.encoder.weight.data()._t
+    decode_programs = {}
 
     def make_cache(slots, max_len):
         return KVCache(slots, {s: ("state", (layers, hidden))
                                for s in state_names}, max_len=max_len,
                        device=device)
 
+    def forward(ids, *states):
+        """ids (1, S) int64 (checked on the host), states in the cache's
+        (S, layers, hidden) layout -> (logits (S, V), new states in that
+        layout)."""
+        s = ids.shape[1]
+        emb = torch.nn.functional.embedding(ids, embed)
+        out, new_states = model.rnn(emb, [st.transpose(0, 1)
+                                          for st in states])
+        if int8_head is None:
+            logits = model.decoder(out)
+        else:
+            logits = int8_head(out.reshape(s, hidden))
+        return (logits.reshape(s, -1),) + tuple(st.transpose(0, 1)
+                                                for st in new_states)
+
+    def decode_program_for(slots):
+        if slots not in decode_programs:
+            ex = [torch.zeros((1, slots), dtype=torch.int64, device=device)]
+            ex += [torch.zeros((slots, layers, hidden), device=device)
+                   for _ in state_names]
+            decode_programs[slots] = served.new_program(
+                "decode/s%d" % slots, forward, ex)
+        return decode_programs[slots]
+
     def step(tokens, cache, _active):
         """DecodeLoop contract: tokens (slots,) over the FULL grid; every
         slot's state is read and replaced; returns (slots, V) logits."""
         s = int(tokens.shape[0])
         ids = check_token_ids(np.asarray(tokens), vocab)
+        ids = torch.from_numpy(ids.astype(np.int64).reshape(1, s))
+        states = [cache.data[n] for n in state_names]
         with torch.inference_mode():
-            inp = torch.from_numpy(ids.astype(np.int64).reshape(1, s)) \
-                .to(device)
-            states = [cache.data[n].transpose(0, 1) for n in state_names]
-            emb = model.encoder(inp)
-            out, new_states = model.rnn(emb, states)
-            if int8_head is None:
-                logits = model.decoder(out)
+            prog = served.decode_program_for(s)
+            if prog is None:
+                outs = forward(ids.to(device), *states)
             else:
-                logits = int8_head(out.reshape(s, hidden))
-            for n, st in zip(state_names, new_states):
-                cache.data[n].copy_(st.transpose(0, 1))
-            return logits.reshape(s, -1).cpu().numpy()
+                outs = prog(ids, *states)
+            for n, st in zip(state_names, outs[1:]):
+                cache.data[n].copy_(st)
+            return outs[0].cpu().numpy()
 
-    def swap(*_args, **_kwargs):
-        raise NotImplementedError("lstm_lm: live weight swap, and the int8 "
-                                  "head's re-quantization on swap, are not "
-                                  "ported yet (ROADMAP Queue 1 item 3)")
+    def requantize_head():
+        # the int8 head is quantized FROM the decoder weight: a swap
+        # re-quantizes it in place, where the graphs read it
+        if int8_head is not None:
+            int8_head.requantize_(dec.weight.data()._t,
+                                  dec.bias.data()._t if dec.bias is not None
+                                  else None)
 
     served = ServedModel("lstm_lm", config, step_fn=step,
                          make_cache=make_cache, pad_token=0,
                          quantized=bool(quantize), device=device,
-                         params_swapper=swap)
+                         decode_program_factory=decode_program_for,
+                         decode_programs=decode_programs,
+                         params_swapper=_gluon_swapper(
+                             model, [decode_programs],
+                             after=requantize_head))
     served.model = model
     served.int8_head = int8_head
     return served

@@ -11,9 +11,12 @@ at join, is shed instead of served late. Only requests with the same array
 names, dtypes and trailing dims co-batch.
 
 ``forward_fn(arrays, bucket)`` is any callable over numpy arrays; the
-serving loader builds it from a checkpoint. The JAX package's telemetry,
-cost and tracing hooks are not part of this port yet; ``stats()`` also
-counts forwards per bucket.
+serving loader builds it from a checkpoint. ``drain()`` fences admission
+for a live weight swap (new requests shed with the retriable "draining"
+stage, the queue is served out, no forward is left in flight) and
+``admit()`` re-opens it. The JAX package's telemetry, cost and tracing
+hooks are not part of this port yet; ``stats()`` also counts forwards per
+bucket.
 """
 
 import collections
@@ -31,8 +34,10 @@ _req_ids = itertools.count(1)
 
 
 class ShedError(RuntimeError):
-    """Request was shed (deadline unmeetable or queue overloaded), not
-    served. ``stage`` says where: queue | join | overload."""
+    """Request was shed (deadline unmeetable, queue overloaded, or the
+    model is draining for a deploy), not served. ``stage`` says where:
+    queue | join | overload | decode | capacity | draining. "draining" is
+    retriable: the client retries it."""
 
     def __init__(self, stage, detail=""):
         super().__init__("shed at %s%s" % (stage, ": " + detail
@@ -171,6 +176,8 @@ class ContinuousBatcher:
         self._ewma = {}                 # bucket -> smoothed service secs
         self._forwards = {}             # bucket -> forwards run
         self._stopping = False
+        self._draining = False
+        self._in_flight = False         # a forward is running right now
         self._batches = 0
         self._thread = threading.Thread(
             target=self._run, name="serve-batch-%s" % name, daemon=True)
@@ -197,6 +204,10 @@ class ContinuousBatcher:
         with self._cond:
             if self._stopping:
                 req.fail(RuntimeError("batcher %r is stopped" % self.name))
+                return req
+            if self._draining:
+                req.shed("draining",
+                         "model is draining for a weight swap; retry")
                 return req
             if self._pending >= self._depth:
                 req.shed("overload", "queue depth %d reached" % self._depth)
@@ -225,6 +236,48 @@ class ContinuousBatcher:
                         RuntimeError("batcher %r stopped" % self.name))
             self._pending = 0
 
+    # ------------------------------------------------------ drain/re-admit
+    @property
+    def draining(self):
+        return self._draining
+
+    def drain(self, timeout=30.0):
+        """Fence admission for a live weight swap: new submits shed with
+        the RETRIABLE "draining" stage, already-queued requests are served
+        out, and the call blocks until nothing is queued and no forward is
+        in flight; a swap must never land mid-batch. Past ``timeout``
+        seconds the still-queued requests are shed ("draining", so clients
+        retry them) and only the in-flight forward is waited for (one more
+        ``timeout`` window). True when quiesced; False means a forward is
+        STILL running: do not swap."""
+        deadline = time.monotonic() + float(timeout)
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()     # the worker skips the join window
+            while self._pending or self._in_flight:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._cond.wait(min(left, 0.05))
+            if self._pending:
+                for q in self._queues.values():
+                    while q:
+                        q.popleft().shed("draining", "not served before "
+                                         "the drain deadline; retry")
+                self._pending = 0
+            while self._in_flight:
+                left = deadline + float(timeout) - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(min(left, 0.05))
+        return True
+
+    def admit(self):
+        """Re-open admission after a drain()."""
+        with self._cond:
+            self._draining = False
+            self._cond.notify_all()
+
     def reset_service_estimates(self):
         """Forget the EWMA service times (early samples carry warm-up)."""
         with self._cond:
@@ -235,6 +288,7 @@ class ContinuousBatcher:
             return {
                 "pending": self._pending,
                 "batches": self._batches,
+                "draining": self._draining,
                 "per_bucket": {b: len(q) for b, q in self._queues.items()
                                if q},
                 "forwards": dict(self._forwards),
@@ -286,9 +340,11 @@ class ContinuousBatcher:
                 bucket = self._pick_bucket_locked()
                 if bucket is None:
                     continue
-                if self._max_wait > 0:
+                if self._max_wait > 0 and not self._draining:
+                    # a drain skips the join window: nothing new is
+                    # admitted, so waiting only stretches the outage
                     until = self._queues[bucket][0].arrival + self._max_wait
-                    while (not self._stopping
+                    while (not self._stopping and not self._draining
                            and self._rows_queued_locked(bucket)
                            < self._max_batch
                            and time.monotonic() < until):
@@ -300,8 +356,16 @@ class ContinuousBatcher:
                         continue
                     bucket = refreshed
                 taken, _rows = self._take_locked(bucket)
+                if taken:
+                    self._in_flight = True
+                    self._cond.notify_all()
             if taken:
-                self._serve_batch(bucket, taken)
+                try:
+                    self._serve_batch(bucket, taken)
+                finally:
+                    with self._cond:
+                        self._in_flight = False
+                        self._cond.notify_all()
 
     def _serve_batch(self, bucket, taken):
         now = time.monotonic()

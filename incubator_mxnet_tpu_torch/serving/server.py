@@ -9,9 +9,12 @@ forward steps on the server's device.
 
 Ops: ``serve.ping``, ``serve.models``, ``serve.infer``, ``serve.decode``
 (greedy generation through the model's ``DecodeLoop`` over its KV-cache
-slot grid) and ``serve.stats`` (the schedulers' own counts). Deploy,
-drain/admit, generations, metrics and tracez come with later slices and
-answer with an error that says so.
+slot grid), ``serve.stats`` (the schedulers' own counts and each model's
+CUDA graphs captured and replayed), and the deploy plane:
+``serve.generation``, ``serve.drain``, ``serve.admit`` and
+``serve.deploy`` (drain, swap a retained generation's weights in place,
+re-admit: ``deploy``). Metrics and tracez come with the telemetry plane
+(ROADMAP Queue 1 item 13) and answer with an error that says so.
 
 ``device=None`` is ``cuda:0`` and raises without CUDA; ``device="cpu"``
 serves through the plain path.
@@ -24,25 +27,32 @@ import time
 from ..context import resolve_device
 from ..kvstore import rpc as _rpc
 from .decode import DecodeLoop, DecodeRequest, check_token_ids
-from .loader import ServedModel, load_served_model
+from .loader import (ServedModel, load_generation_params, load_served_model,
+                     read_generation)
 from .scheduler import ContinuousBatcher, Request, ShedError
 from .wire import pack_arrays, unpack_arrays
 
 __all__ = ["ModelServer"]
 
-_LATER_OPS = ("serve.generation", "serve.drain", "serve.admit",
-              "serve.deploy", "serve.metrics", "serve.tracez")
+_LATER_OPS = ("serve.metrics", "serve.tracez")
 
 
 class _Tenant:
     """One loaded model and its schedulers: a batcher for encode, a decode
-    loop for generation, each present when the family has that path."""
+    loop for generation, each present when the family has that path, and
+    the directory it was loaded from (the deploy source)."""
 
-    def __init__(self, name, served, batcher, decode_loop):
+    def __init__(self, name, served, batcher, decode_loop, directory=None):
         self.name = name
         self.served = served
         self.batcher = batcher
         self.decode_loop = decode_loop
+        self.directory = directory
+
+    @property
+    def draining(self):
+        return any(s is not None and s.draining
+                   for s in (self.batcher, self.decode_loop))
 
     def stop(self):
         for sched in (self.batcher, self.decode_loop):
@@ -105,7 +115,8 @@ class ModelServer:
                 name, served.step_fn, served.make_cache(n_slots, n_len),
                 pad_token=served.pad_token, prefill_fn=served.prefill_fn,
                 prefill_chunk=served.prefill_chunk).start()
-        tenant = _Tenant(name, served, batcher, decode_loop)
+        tenant = _Tenant(name, served, batcher, decode_loop,
+                         directory=directory)
         with self._lock:
             if name in self._models:
                 tenant.stop()
@@ -141,7 +152,8 @@ class ModelServer:
         return t
 
     def stats(self):
-        """{model: {"family", "generation", "batch": batcher stats,
+        """{model: {"family", "generation", "graphs": CUDA graphs captured
+        and replayed (``ServedModel.graph_stats``), "batch": batcher stats,
         "decode": decode loop stats}}, each scheduler's entry present when
         the model has it."""
         with self._lock:
@@ -149,13 +161,93 @@ class ModelServer:
         out = {}
         for name, t in tenants:
             ent = {"family": t.served.family,
-                   "generation": int(t.served.generation)}
+                   "generation": int(t.served.generation),
+                   "graphs": t.served.graph_stats()}
             if t.batcher is not None:
                 ent["batch"] = t.batcher.stats()
             if t.decode_loop is not None:
                 ent["decode"] = t.decode_loop.stats()
             out[name] = ent
         return out
+
+    # ----------------------------------------------------- live deploys
+    @staticmethod
+    def _drain_timeout():
+        return float(os.environ.get("MXTPU_DEPLOY_DRAIN_TIMEOUT_S", "30"))
+
+    def drain(self, name, timeout=None):
+        """Fence ``name`` for a swap: new requests shed retriable
+        DRAINING, in-flight work finishes (bounded). True = quiesced."""
+        t = self._tenant(name)
+        timeout = self._drain_timeout() if timeout is None \
+            else float(timeout)
+        ok = True
+        for sched in (t.batcher, t.decode_loop):
+            if sched is not None:
+                ok = sched.drain(timeout) and ok
+        return ok
+
+    def admit(self, name):
+        """Re-open admission on ``name`` after a drain."""
+        t = self._tenant(name)
+        for sched in (t.batcher, t.decode_loop):
+            if sched is not None:
+                sched.admit()
+
+    def generations(self):
+        """{model: {"generation", "draining"}}: what serve.generation
+        returns and a rollout coordinator reads."""
+        with self._lock:
+            tenants = list(self._models.items())
+        return {name: {"generation": int(t.served.generation),
+                       "draining": t.draining}
+                for name, t in tenants}
+
+    def deploy(self, name, generation=None, directory=None):
+        """Live weight push: load the target generation's params onto the
+        host (pinned on a CUDA server), drain the model (never swap
+        mid-batch), swap them in place into the tensors every captured
+        graph reads, re-admit. ``generation=None`` follows the directory's
+        generation pointer; ``directory=None`` is the directory the model
+        was loaded from. Deploying the live generation is a no-op; a
+        generation that is not retained raises before the drain. Any
+        failure re-admits the old weights. The reply carries the drain,
+        swap and admit milliseconds (the admission outage)."""
+        t = self._tenant(name)
+        directory = directory or t.directory
+        if directory is None:
+            raise ValueError("model %r was not loaded from a directory; "
+                             "pass an explicit deploy directory" % name)
+        if generation is None:
+            ptr = read_generation(directory)
+            if not ptr:
+                raise ValueError("no generation pointer under %r"
+                                 % directory)
+            generation = ptr["generation"]
+        generation, prev = int(generation), int(t.served.generation)
+        if generation == prev:
+            return {"ok": True, "model": name, "generation": generation,
+                    "previous": prev, "noop": True}
+        # the params land on the host before the drain, so the admission
+        # outage is the quiesce and one in-place copy to the device
+        params, _meta = load_generation_params(
+            directory, generation, pin=self.device.type == "cuda")
+        t0 = time.perf_counter()
+        t1 = t2 = None
+        try:
+            if not self.drain(name):
+                raise RuntimeError(
+                    "model %r did not quiesce within the drain deadline; "
+                    "swap aborted" % name)
+            t1 = time.perf_counter()
+            t.served.swap_params(params, generation)
+            t2 = time.perf_counter()
+        finally:
+            self.admit(name)
+        t3 = time.perf_counter()
+        return {"ok": True, "model": name, "generation": generation,
+                "previous": prev, "drain_ms": (t1 - t0) * 1e3,
+                "swap_ms": (t2 - t1) * 1e3, "admit_ms": (t3 - t2) * 1e3}
 
     # ------------------------------------------------------------- handler
     def _handle(self, meta, payload):
@@ -181,6 +273,20 @@ class ModelServer:
             return self._decode(meta, payload)
         if op == "serve.stats":
             return {"stats": self.stats()}, b""
+        if op == "serve.generation":
+            return {"generations": self.generations()}, b""
+        if op == "serve.drain":
+            drained = self.drain(meta.get("model", ""),
+                                 timeout=meta.get("timeout"))
+            return {"ok": True, "model": meta.get("model", ""),
+                    "drained": drained}, b""
+        if op == "serve.admit":
+            self.admit(meta.get("model", ""))
+            return {"ok": True, "model": meta.get("model", "")}, b""
+        if op == "serve.deploy":
+            return self.deploy(meta.get("model", ""),
+                               generation=meta.get("generation"),
+                               directory=meta.get("directory")), b""
         if op in _LATER_OPS:
             raise ValueError("serving op %r is not supported by the PyTorch "
                              "port yet" % op)

@@ -403,3 +403,87 @@ def test_bottleneck_phase_checks_a_bf16_and_an_fp32_stack(capsys):
         ("bfloat16", "bf16"), ("float32", "fp32")]
     assert lines[1]["tolerance"] == 1e-4
     assert all(r["K"] == 3 and r["max_abs_err"] == 0.0 for r in lines)
+
+
+# ------------------------------------------------ graphs and the deploy phase
+class _FakeServed:
+    """A served model whose output depends on whether its graphs are on."""
+
+    def __init__(self, drift=0.0):
+        self.graphs = True
+        self.drift = drift
+        self.programs, self.decode_programs = {}, {}
+
+    def call(self):
+        rows = torch.arange(12.0).reshape(3, 4) + 1
+        if self.graphs:
+            rows = rows * (1 + self.drift)
+        return {"pooled": rows.numpy(), "seq": rows.numpy()[None]}
+
+
+def test_replay_vs_eager_holds_each_row_and_restores_the_graphs():
+    served = _FakeServed()
+    assert chip_smoke.replay_vs_eager("same", served, served.call) == 0.0
+    assert served.graphs is True
+    served = _FakeServed(drift=1e-3)
+    with pytest.raises(AssertionError, match="replayed graph"):
+        chip_smoke.replay_vs_eager("drift", served, served.call)
+    assert served.graphs is True
+    # relative to each row's own max: a row of small values is not hidden
+    # behind a large one
+    got = [[1.0, 2.0], [1e-3, 2e-3 * (1 + 1e-5)]]
+    assert chip_smoke.row_rel_diff(got, [[1.0, 2.0], [1e-3, 2e-3]]) \
+        == pytest.approx(1e-5)
+
+
+def test_no_recapture_compares_each_program_graph():
+    class Prog:
+        def __init__(self):
+            self.graph = object()
+
+    served = _FakeServed()
+    served.programs = {(1, 128, ("token_ids",)): Prog()}
+    served.decode_programs = {8: Prog(), 4: None}
+    before = chip_smoke.program_ids(served)
+    assert len(before) == 2
+    served.programs[(2, 128, ("token_ids",))] = Prog()     # a new shape
+    chip_smoke.check_no_recapture("m", before, chip_smoke.program_ids(served))
+    served.decode_programs[8] = Prog()                      # captured again
+    with pytest.raises(AssertionError, match="captured again"):
+        chip_smoke.check_no_recapture("m", before,
+                                      chip_smoke.program_ids(served))
+
+
+def test_run_deploy_storm_deploys_partway_on_the_cpu(tmp_path):
+    """The deploy phase's client side against an in-process CPU server:
+    every request comes back, the deploy goes out after ``deploy_after``
+    replies, and each client makes at least ``rounds`` passes and one more
+    that began after the deploy's reply."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.serving import (ModelServer,
+                                                   export_for_serving)
+    cfg = dict(vocab_size=50, units=16, hidden_size=32, num_layers=1,
+               num_heads=2, max_length=32)
+    d = str(tmp_path)
+    for g in range(2):
+        export_for_serving(d, "bert_encoder", cfg,
+                           BERTModel(device="cpu", dropout=0.0, seed=g, **cfg))
+    rs = np.random.RandomState(0)
+    reqs = [{"token_ids": rs.randint(0, 50, (1, n)).astype(np.int32)}
+            for n in (3, 9, 16, 5)]
+    srv = ModelServer(device="cpu").load("bert", directory=d, generation=0,
+                                         buckets=(16,), max_wait_ms=0).start()
+    try:
+        records, deployed = chip_smoke.run_deploy_storm(
+            tuple(srv.addr), "bert", reqs, 2, 3, 4, 1)
+        assert srv.generations()["bert"]["generation"] == 1
+    finally:
+        srv.stop()
+    assert deployed["reply"]["generation"] == 1
+    assert deployed["start"] <= deployed["end"]
+    for i in range(4):
+        assert sum(1 for r in records if r[0] == i) >= 3
+        assert any(r[0] == i and r[1] > deployed["end"] for r in records)
+    assert len([r for r in records if r[2] < deployed["start"]]) >= 4
+    assert all(r[3]["pooled"].shape == (1, 16) for r in records)

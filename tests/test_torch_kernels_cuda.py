@@ -36,7 +36,12 @@ LayerNorm is held at atol 1e-5 on each of its three routes (a warp a row in
 route the wrapper picks; its C entry refuses a route whose conditions
 fail.
 The GPT test holds whole generations on the card and the CPU token for
-token. The int8 x int8 -> int32 matmul equals its plain version exactly
+token. A served shape's CUDA graph (compilecache.aot.BlockProgram) replays
+the eager forward's kernels in the same order on the same inputs, so a
+replay is held to the eager forward on the card within 1e-6 of each row's
+max (0 is expected), and its launches are counted at each replay; a live
+weight swap keeps every graph and every weight's address, and the int8
+head re-quantized in place equals a fresh one bit for bit. The int8 x int8 -> int32 matmul equals its plain version exactly
 (integer sums are exact in any order), at every shape, aligned or not, on
 each of its three routes (small, tma, bytes), each case asserting the
 route the wrapper picks; the
@@ -1259,7 +1264,7 @@ def test_lstm_lm_family_on_the_card_matches_the_cpu(cuda, tmp_path,
         "int8_matmul": steps if quantize else 0}
     tol = 1e-3
     if quantize:
-        tol += 2 * 127 * host.int8_head._w_amax / 127.0 ** 2
+        tol += 2 * 127 * host.int8_head.w_amax / 127.0 ** 2
     for (_t, a, card_out), cpu_out in zip(card_log, host_log):
         for s in np.flatnonzero(a):
             tok = int(np.argmax(card_out[s]))
@@ -1829,3 +1834,286 @@ def test_flash_decode_long_table_at_d128(cuda, C):
     q, kp, vp, tables, lens = _paged_inputs(3, C, 2, 128, 16, 256, lengths,
                                             cuda, seed=4096 + C)
     _decode_against_plain(q, kp, vp, tables, lens)
+
+
+# ------------------------------------- one CUDA graph per served shape
+def _graph_counts(served):
+    return {k: served.graph_counts[k] for k in ("captured", "replayed")}
+
+
+def _within_row_max(got, want, rel=1e-6):
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).reshape(-1, want.shape[-1]).max(axis=1)
+    err = np.abs(got - want).reshape(-1, want.shape[-1]).max(axis=1)
+    assert (err <= rel * np.maximum(scale, 1e-30)).all(), err.max()
+    return float(err.max())
+
+
+def _bert_served(tmp_path, device, T_max=600, seed=3, generation=None):
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.serving import (export_for_serving,
+                                                   load_served_model)
+    cfg = dict(vocab_size=100, units=64, hidden_size=128, num_layers=2,
+               num_heads=2, max_length=T_max)
+    d = tmp_path / "bert"
+    if not d.exists():
+        for g in range(2):
+            m = BERTModel(device="cpu", dropout=0.0, seed=seed + g, **cfg)
+            export_for_serving(str(d), "bert_encoder",
+                               dict(cfg, emit_seq=True), m)
+    return str(d), load_served_model(str(d), device=device,
+                                     generation=generation)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [16, 512])
+@pytest.mark.parametrize("names", [("token_ids",),
+                                   ("token_ids", "token_types",
+                                    "valid_mask")])
+def test_bert_encode_graph_replays_the_eager_forward(cuda, tmp_path, T,
+                                                     names):
+    """bert_encoder on the card: the first call of a (rows, bucket, names)
+    signature runs eagerly and captures its program, later calls replay it.
+    Replays equal the eager forward on the same inputs (within 1e-6 of each
+    row's max), and each replay adds one forward's launches to the counts
+    (softmax below 512, flash from 512 up)."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
+    _d, served = _bert_served(tmp_path, cuda)
+    rs = np.random.RandomState(T)
+    arrays = {"token_ids": rs.randint(0, 100, (4, T)).astype(np.int32),
+              "token_types": rs.randint(0, 2, (4, T)).astype(np.int32),
+              "valid_mask": (np.arange(T)[None] < np.array(
+                  [[T], [T // 2], [1], [T - 3]])).astype(np.float32)}
+    arrays = {k: v for k, v in arrays.items() if k in names}
+    first = served.encode_fn(arrays, T)
+    assert _graph_counts(served) == {"captured": 1, "replayed": 0}
+    before = launch_counts()
+    replayed = [served.encode_fn(arrays, T) for _ in range(3)]
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert _graph_counts(served) == {"captured": 1, "replayed": 3}
+    attn = "flash_attention_fwd" if T >= 512 else "softmax"
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta == dict.fromkeys(delta, 0) | {"layer_norm": 3 * 5,
+                                               attn: 3 * 2}
+    served.graphs = False
+    eager = served.encode_fn(arrays, T)
+    served.graphs = True
+    for out in [first] + replayed:
+        for key in ("pooled", "seq"):
+            _within_row_max(out[key], eager[key])
+
+
+@pytest.mark.needs_cuda
+def test_gpt_graphs_replay_eager_and_survive_a_swap(cuda, tmp_path):
+    """gpt_decoder on the card: the grid step (gptdecode/s3) and a padded
+    prefill chunk (gptprefill/s3xc32) replay the eager forward within 1e-6
+    of each row's max, with 2 flash_decode and 5 layer_norm launches a
+    replay; a swap to generation 1 (target and draft) recaptures nothing,
+    moves no weight, keeps the session's committed prefix, and the next
+    step equals a freshly loaded generation 1 on the same cache."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.generate import export_gpt_for_serving
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
+    from incubator_mxnet_tpu_torch.ops.kernels import launch_counts
+    from incubator_mxnet_tpu_torch.serving import (load_generation_params,
+                                                   load_served_model)
+    cfg = dict(vocab_size=97, units=128, num_layers=2, num_heads=2,
+               max_len=128)
+    dcfg = dict(cfg, units=64, num_layers=1)
+    d = str(tmp_path / "gpt")
+    for g in range(2):
+        export_gpt_for_serving(d, cfg, GPTDecoder(device="cpu", seed=g, **cfg),
+                               draft=GPTDecoder(device="cpu", seed=10 + g,
+                                                **dcfg))
+    served = load_served_model(d, device=cuda, generation=0)
+    cache = served.make_cache(3, 128)
+    slot = cache.alloc()
+    served.prefill_fn(slot, np.arange(1, 60) % 97, cache)   # 2 chunks
+    assert _graph_counts(served) == {"captured": 1, "replayed": 1}
+    toks = np.zeros(3, np.int32)
+    active = np.zeros(3, bool)
+    active[slot] = True
+
+    def step_pair(tok):
+        """One step replayed, rolled back, and run eagerly."""
+        toks[slot] = tok
+        n = int(cache.lengths[slot])
+        before = launch_counts()
+        got = served.step_fn(toks, cache, active)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        cache.truncate(slot, n)
+        served.graphs = False
+        want = served.step_fn(toks, cache, active)
+        served.graphs = True
+        return got, want, {k: after[k] - before[k] for k in after}
+
+    served.step_fn(toks, cache, active)                  # capture
+    cache.truncate(slot, int(cache.lengths[slot]) - 1)
+    got, want, delta = step_pair(5)
+    assert delta == dict.fromkeys(delta, 0) | {"flash_decode": 2,
+                                               "layer_norm": 5}
+    _within_row_max(got, want)
+    captured = _graph_counts(served)["captured"]
+    ptrs = [p.data_ptr() for m in (served.model, served.draft)
+            for p in m.parameters()]
+    params1, _ = load_generation_params(d, 1)
+    served.swap_params(params1, 1)
+    assert _graph_counts(served)["captured"] == captured
+    assert ptrs == [p.data_ptr() for m in (served.model, served.draft)
+                    for p in m.parameters()]
+    got1, want1, _ = step_pair(7)
+    _within_row_max(got1, want1)
+    fresh = load_served_model(d, device=cuda, generation=1)
+    fresh.graphs = False
+    cache.truncate(slot, int(cache.lengths[slot]) - 1)
+    toks[slot] = 7
+    _within_row_max(got1, fresh.step_fn(toks, cache, active))
+    assert not np.allclose(got1, got)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("quantize", [False, True], ids=["fp32", "int8"])
+def test_lstm_graph_replays_eager_and_requantizes_in_place(cuda, tmp_path,
+                                                           quantize):
+    """lstm_lm on the card: the decode/s4 program (with the int8 head in
+    it) replays the eager step within 1e-6 of each row's max, logits and
+    states; after a swap the graph is not recaptured, no weight or int8
+    buffer moves, the head's codes, scale and bias equal a fresh Int8Dense
+    of the new decoder weight bit for bit, and the replayed step equals
+    the eager one of the new weights."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.serving import Int8Dense
+    card = _lstm_served(tmp_path, quantize, cuda)
+    cache = card.make_cache(4, 16)
+    for _ in range(4):
+        cache.alloc()
+    tokens = np.array([3, 77, 299, 0], np.int32)
+    active = np.ones(4, bool)
+    card.step_fn(tokens, cache, active)                  # capture
+
+    def pair():
+        start = {n: t.clone() for n, t in cache.data.items()}
+        got = card.step_fn(tokens, cache, active)
+        got_states = {n: t.cpu().numpy() for n, t in cache.data.items()}
+        for n, t in cache.data.items():
+            t.copy_(start[n])
+        card.graphs = False
+        want = card.step_fn(tokens, cache, active)
+        card.graphs = True
+        for n, t in cache.data.items():
+            _within_row_max(got_states[n], t.cpu().numpy())
+        _within_row_max(got, want)
+        return got
+
+    before = pair()
+    head = card.int8_head
+    captured = _graph_counts(card)["captured"]
+    ptrs = [p.data()._t.data_ptr()
+            for p in card.model.collect_params().values()]
+    if quantize:
+        ptrs += [head._qw.data_ptr(), head._w_amax.data_ptr(),
+                 head._bias.data_ptr()]
+    rs = np.random.RandomState(5)
+    new = {n: rs.uniform(-0.3, 0.3, tuple(p.shape)).astype(np.float32)
+           for n, p in card.model._collect_params_with_prefix().items()}
+    new["decoder.weight"] = new["encoder.weight"]       # tied
+    card.swap_params(new, 1)
+    assert _graph_counts(card)["captured"] == captured
+    after_ptrs = [p.data()._t.data_ptr()
+                  for p in card.model.collect_params().values()]
+    if quantize:
+        after_ptrs += [head._qw.data_ptr(), head._w_amax.data_ptr(),
+                       head._bias.data_ptr()]
+        dec = card.model.decoder
+        fresh = Int8Dense(dec.weight.data()._t, dec.bias.data()._t)
+        assert torch.equal(head._qw, fresh._qw)
+        assert torch.equal(head._w_amax, fresh._w_amax)
+        assert torch.equal(head._bias, fresh._bias)
+    assert after_ptrs == ptrs
+    assert not np.allclose(pair(), before)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", [(300, 50), (10000, 650), (64, 64)])
+def test_int8_dense_requantize_equals_a_fresh_head(cuda, shape):
+    """Int8Dense.requantize_ writes the codes (K padding kept zero), the
+    amax and the bias of a new weight into the head's own buffers: bit for
+    bit a fresh Int8Dense of that weight, and its calls equal the fresh
+    head's."""
+    from incubator_mxnet_tpu_torch.serving import Int8Dense
+    gen = torch.Generator(device=cuda).manual_seed(shape[0])
+    w0, w1 = (torch.randn(*shape, generator=gen, device=cuda) * s
+              for s in (0.1, 0.7))
+    b0, b1 = (torch.randn(shape[0], generator=gen, device=cuda)
+              for _ in range(2))
+    head = Int8Dense(w0, b0)
+    ptrs = (head._qw.data_ptr(), head._w_amax.data_ptr(),
+            head._bias.data_ptr())
+    head.requantize_(w1, b1)
+    fresh = Int8Dense(w1, b1)
+    assert ptrs == (head._qw.data_ptr(), head._w_amax.data_ptr(),
+                    head._bias.data_ptr())
+    assert torch.equal(head._qw, fresh._qw)
+    assert torch.equal(head._w_amax, fresh._w_amax)
+    assert torch.equal(head._bias, fresh._bias)
+    x = torch.rand(8, shape[1], generator=gen, device=cuda) * 2 - 1
+    assert torch.equal(head(x), fresh(x))
+    with pytest.raises(ValueError, match="requantize_"):
+        head.requantize_(w1[:, :-1], b1)
+
+
+@pytest.mark.needs_cuda
+def test_model_server_deploy_on_the_card_keeps_every_graph(cuda, tmp_path):
+    """serve.deploy through a ServingClient against a ModelServer on the
+    card: the bert replies follow generation 0, then 1, as the CPU port's
+    at each generation (rtol = atol = 1e-4); the deploy recaptures nothing
+    and reports its drain, swap and admit milliseconds."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.serving import (ModelServer,
+                                                   ServingClient,
+                                                   load_served_model)
+    d, _ = _bert_served(tmp_path, "cpu")
+    ids = np.random.RandomState(1).randint(0, 100, (1, 20)).astype(np.int32)
+    srv = ModelServer(device=cuda).load("bert", directory=d, generation=0,
+                                        buckets=(32,), max_wait_ms=0).start()
+    try:
+        with ServingClient(srv.addr) as c:
+            outs = [c.infer("bert", {"token_ids": ids})["pooled"]
+                    for _ in range(2)]
+            graphs = c.stats()["bert"]["graphs"]
+            rep = c.deploy("bert")
+            outs.append(c.infer("bert", {"token_ids": ids})["pooled"])
+            after = c.stats()["bert"]["graphs"]
+    finally:
+        srv.stop()
+    assert rep["generation"] == 1 and rep["previous"] == 0
+    assert all(rep[k] >= 0 for k in ("drain_ms", "swap_ms", "admit_ms"))
+    assert after["captured"] == graphs["captured"] == 1
+    assert after["replayed"] == graphs["replayed"] + 1
+    padded = {"token_ids": np.pad(ids, ((0, 0), (0, 12)))}
+    for gen, out in ((0, outs[0]), (0, outs[1]), (1, outs[2])):
+        want = load_served_model(d, device="cpu", generation=gen) \
+            .encode_fn(padded, 32)["pooled"]
+        np.testing.assert_allclose(out, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.needs_cuda
+def test_a_capture_failure_raises_instead_of_running_eagerly(cuda):
+    """A forward that reads a device value back to the host runs as the
+    warm-up and then cannot be captured: the program raises CaptureError
+    naming itself. (Last in the file: it ends in a failed capture.)"""
+    from incubator_mxnet_tpu_torch.compilecache import (BlockProgram,
+                                                        CaptureError)
+
+    def reads_back(x):
+        return x * float(x.sum())
+
+    prog = BlockProgram("probe/host_read", reads_back,
+                        [torch.ones(4, device=cuda)])
+    with pytest.raises(CaptureError, match="probe/host_read"):
+        prog(torch.ones(4, device=cuda))
+    assert prog.graph is None

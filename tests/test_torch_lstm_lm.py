@@ -13,7 +13,8 @@ against the JAX package's, on the CPU.
 - A checkpoint exported by the port loads in the JAX package, tied weight
   under both names, and decodes the same tokens there.
 - ``ModelServer(device="cpu")`` answers ``ServingClient.decode`` with the
-  family's tokens; live weight swap waits for ROADMAP Queue 1 item 3.
+  family's tokens; the family's live weight swap refuses a param set that
+  does not match (``tests/test_torch_deploy.py`` swaps).
 """
 
 import numpy as np
@@ -211,5 +212,5 @@ def test_model_server_decodes_and_swap_waits(jax_export):
         srv.stop()
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(serving.GenerationMismatchError, match="missing"):
         tserved.params_swapper({})

@@ -442,7 +442,7 @@ def test_model_server_answers_concurrent_requests_in_two_buckets(
 def test_model_server_errors_and_deadlines(port_server):
     with serving.ServingClient(port_server.addr) as c:
         with pytest.raises(serving.ServingError, match="not supported"):
-            c._call({"op": "serve.deploy", "model": "bert"})
+            c._call({"op": "serve.metrics", "model": "bert"})
         with pytest.raises(serving.ServingError, match="no decode path"):
             c.decode("bert", [1, 2, 3])
         with pytest.raises(serving.ServingError, match="unknown serving op"):

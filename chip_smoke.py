@@ -117,7 +117,11 @@ Phases, each printing one line:
              storm of 8 clients. No request fails, every reply checked holds
              against the CPU port at the generation that served it, no
              graph is captured again, launch counts are exact, and each
-             line prints the drain, swap and admit milliseconds.
+             line prints the drain, swap and admit milliseconds. Each
+             deploy reads mxtpu_jit_compiles_total (the server's CUDA graph
+             captures) over serve.metrics before and after its swap: it
+             must move by exactly the captures of shapes first served
+             meanwhile (none for GPT-2 and the word LM).
 11. attention_bias - flash_attention with a learned kv_bias under
              autograd at BERT-base's geometry (B 8, H 12, T 512, D 64, the
              ragged padding mask of the flash backward rows): a (B, H, T)
@@ -135,6 +139,29 @@ Phases, each printing one line:
              from the cubin cache) and a template through exports; both
              launch on nd arrays of 2**24 elements on mx.gpu(0) and equal
              plain torch exactly; a CPU array is refused.
+14. telemetry - the serving plane's telemetry. GPT-2 small (the decode
+             phase's export) served by a ModelServer on the card to a client
+             process: the 16 decode requests of 32 tokens once with telemetry
+             off and once on with every request head-sampled (sample rate 1,
+             what MXTPU_TRACE_SAMPLE=1 sets), tokens/s and step_ewma_ms of
+             each printed, not gated. In the traced round each request's
+             spans (its client.decode root from the client's ring, the
+             server's over serve.tracez) stitch into one tree with
+             serve.queue, serve.join, decode.prefill and one decode.step a
+             token; TTFT and TPOT from the spans alone agree with the
+             histograms' means (0.2 s and 0.1 s); over serve.metrics the
+             round's ok requests are 16, its committed decode tokens the
+             tokens returned, its decode steps the grid steps, and the
+             server's compiles its captured graphs. The KV census (memz,
+             also over the debug endpoint's /memz) equals the paged pools'
+             bytes exactly, and memz's device reading equals the
+             allocator's. BERT-base under MXTPU_COSTS=1: an (8, 128) and an
+             (8, 512) program, each counted at its first call, whose FLOPs
+             agree with the analytic count within 1 % and whose MFU lies in
+             (0, 1); no count may fail. Last, a 2-layer GPT-2 width model
+             served on the card in a process started with MXTPU_LOCKDEP=1
+             must show no lock-order or blocking violation. Launch counts
+             of the traced round and the encodes are exact.
 
 Options for measurement runs: --profile PATH traces one more serving round,
 one more served decode round (the same 16 requests), one more training
@@ -153,11 +180,13 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -489,19 +518,6 @@ def kernels_phase(torch, dev):
     return rows
 
 
-def flash_forward_cost(H, T, D, lengths):
-    """(bytes, live_flops, dense_flops) of the flash forward over B = len(
-    lengths) samples whose keys past lengths[b] are masked: q, k, v read
-    and out written once, lse written, and the bias read where any key is
-    masked; QK^T and PV over the live keys, and over every key."""
-    B = len(lengths)
-    dense = min(lengths) == T
-    flash_bytes = (4 * B * H * T * D + B * H * T
-                   + (0 if dense else B * H * T)) * 4
-    return (flash_bytes, 4 * H * T * D * sum(lengths),
-            4 * B * H * T * T * D)
-
-
 def flash_forward_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
                        lengths=(512, 300, 0, 511, 64, 1, 450, 129)):
     """The flash forward at the 512 bucket's shape, (8 * 12, 512, 64):
@@ -518,6 +534,7 @@ def flash_forward_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
         flash_attention, flash_attention_forward, flash_attention_reference)
+    from incubator_mxnet_tpu_torch.telemetry.costs import flash_forward_cost
     scale = 1.0 / math.sqrt(D)
     rows = []
     for lens in ([T] * B, list(lengths)):
@@ -1042,6 +1059,7 @@ def flash_decode_rows(torch, dev, randn):
     (`library_note`)."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
         paged_flash_decode, paged_flash_decode_reference)
+    from incubator_mxnet_tpu_torch.telemetry.costs import flash_decode_cost
     H, D, bs, nb, mb = 12, 64, 16, 512, 64
     kp, vp = randn(nb, bs, H, D), randn(nb, bs, H, D)
     perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED))
@@ -1068,13 +1086,12 @@ def flash_decode_rows(torch, dev, randn):
             raise AssertionError("flash_decode: a sequence with no past did "
                                  "not give o = 0, m = -1e30, l = 0 exactly")
         live = sum(lengths)
-        fd_bytes = (2 * live * H * D + 2 * S * C * H * D + 2 * S * C * H
-                    + S * mb + S) * 4
+        fd_bytes, fd_flops = flash_decode_cost(S, C, H, D, live, mb)
         rows.append(measure(
             torch, "flash_decode", (S, C, H, D), max_err(o, ro), 2e-5,
             (q, kp, vp, tab, lens), paged_flash_decode,
-            paged_flash_decode_reference, None, fd_bytes,
-            4 * C * H * D * live, m_err=max_err(m, rm),
+            paged_flash_decode_reference, None, fd_bytes, fd_flops,
+            m_err=max_err(m, rm),
             library_note="no single PyTorch call computes paged attention: "
                          "SDPA needs the pages gathered into a dense K "
                          "and V first",
@@ -1314,11 +1331,13 @@ def gpt_params(rs, cfg):
     return params
 
 
-def run_decode_clients(addr, prompts, clients, max_new, model="gpt"):
+def run_decode_clients(addr, prompts, clients, max_new, model="gpt",
+                       trace_ids=None):
     """Run in a client process: `clients` ServingClient threads send the
     decode `prompts` to `model` (client j sends prompts j, j + clients, ...
     in turn). Returns the generated tokens, every request's latency in
-    seconds and the wall time."""
+    seconds and the wall time; a `trace_ids` dict gets each head-sampled
+    request's trace id."""
     from incubator_mxnet_tpu_torch.serving import ServingClient
     tokens, latencies, errors = {}, {}, []
     lock = threading.Lock()
@@ -1333,6 +1352,8 @@ def run_decode_clients(addr, prompts, clients, max_new, model="gpt"):
                     with lock:
                         tokens[i] = out
                         latencies[i] = dt
+                        if trace_ids is not None:
+                            trace_ids[i] = c.last_trace_id
         except Exception as e:  # noqa: BLE001 - re-raised below
             with lock:
                 errors.append(e)
@@ -1643,6 +1664,7 @@ def int8_matmul_rows(torch, dev, floor_ms=None, cases=None):
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels.int8_matmul import (
         _route, int8_matmul_nk, int8_matmul_nk_reference)
+    from incubator_mxnet_tpu_torch.telemetry.costs import int8_matmul_cost
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def codes(rows, cols, live=None):
@@ -1693,7 +1715,7 @@ def int8_matmul_rows(torch, dev, floor_ms=None, cases=None):
             torch, "int8_matmul", (M, K, N), 0.0, 0.0, (x, y, b_kn, x_lib),
             lambda x, y, b, xl: int8_matmul_nk(x, y),
             lambda x, y, b, xl: int8_matmul_nk_reference(x, y), library,
-            M * K + N * K + 4 * M * N, 2 * M * N * K,
+            *int8_matmul_cost(M, N, K),
             peak_flops=INT8_OPS_PER_S, dtype="int8", case=label,
             kernel_route=route, library_note=note, library_rows=lib_rows),
             floor_ms if M <= 16 else None))
@@ -2004,6 +2026,27 @@ def check_no_recapture(what, before, after):
                              "the swap" % (what, sorted(map(str, lost))))
 
 
+def served_compiles(addr):
+    """mxtpu_jit_compiles_total{where="serving"} of the server at `addr`
+    (its CUDA graph captures), read over serve.metrics."""
+    from incubator_mxnet_tpu_torch.serving import ServingClient
+    with ServingClient(addr) as c:
+        return prom_value(prom_samples(c.metrics()),
+                          "mxtpu_jit_compiles_total", where="serving")
+
+
+def check_compiles(what, compiles, before, after):
+    """A swap costs no compile: across it the server's compile count, read
+    over serve.metrics, moves only by the captures of shapes first served
+    meanwhile (none where every shape was warm), as its stats count them."""
+    moved = compiles[-1] - compiles[0]
+    captured = after["graphs"]["captured"] - before["graphs"]["captured"]
+    if moved != captured:
+        raise AssertionError("%s deploy: mxtpu_jit_compiles_total moved by "
+                             "%s across the swap, %d graphs were captured"
+                             % (what, moved, captured))
+
+
 def deploy_gpt(torch, dev, cfg, prompt_lengths, directory, clients=8,
                max_new=DECODE_NEW, slots=DECODE_SLOTS,
                cache_len=DECODE_CACHE_LEN, draft_cfg=DEPLOY_DRAFT):
@@ -2047,6 +2090,7 @@ def deploy_gpt(torch, dev, cfg, prompt_lengths, directory, clients=8,
         _sync(torch, dev)
         before = server.stats()["gpt"]
         programs = program_ids(served)
+        compiles = [served_compiles(server.addr)]
         reset_launch_counts()
         with multiprocessing.get_context("spawn").Pool(1) as pool:
             records, deployed = pool.apply(run_deploy_storm, (
@@ -2055,7 +2099,9 @@ def deploy_gpt(torch, dev, cfg, prompt_lengths, directory, clients=8,
         _sync(torch, dev)
         counts = launch_counts()
         after = server.stats()["gpt"]
+        compiles.append(served_compiles(server.addr))
         check_no_recapture("gpt", programs, program_ids(served))
+        check_compiles("gpt", compiles, before, after)
     finally:
         server.stop()
         if old_drain is None:
@@ -2140,6 +2186,7 @@ def deploy_gpt(torch, dev, cfg, prompt_lengths, directory, clients=8,
                   grid_steps=steps, graph_replays=replays,
                   prefill_chunks=chunks,
                   graphs_before=before["graphs"], graphs_after=after["graphs"],
+                  compiles_before_after=compiles,
                   launches=counts, max_logit_gap=worst, export_s=export_s,
                   cpu_check_s=time.perf_counter() - cpu_t0)
     return fields, counts
@@ -2186,8 +2233,10 @@ def deploy_lstm(torch, dev, cfg, prompt_lengths, directory, clients=8,
         with multiprocessing.get_context("spawn").Pool(1) as pool:
             pool.apply(run_decode_clients, (addr, prompts, clients, max_new,
                                             "lm"))
+            compiles = [served_compiles(addr)]
             with ServingClient(addr) as c:
                 reply = c.deploy("lm", generation=1, directory=directory)
+            compiles.append(served_compiles(addr))
             log_.clear()
             tokens, _lat, _wall = pool.apply(
                 run_decode_clients, (addr, prompts, clients, max_new, "lm"))
@@ -2195,6 +2244,7 @@ def deploy_lstm(torch, dev, cfg, prompt_lengths, directory, clients=8,
         counts = launch_counts()
         after = server.stats()["lm"]
         check_no_recapture("lstm", programs, program_ids(served))
+        check_compiles("lstm", compiles, before, after)
     finally:
         server.stop()
     steps = after["decode"]["steps"] - before["decode"]["steps"]
@@ -2231,6 +2281,7 @@ def deploy_lstm(torch, dev, cfg, prompt_lengths, directory, clients=8,
                                        tol_fn)
     fields = dict(model="lstm_lm_ptb_int8", requests=2 * len(prompts),
                   deploy=reply, grid_steps=steps,
+                  compiles_before_after=compiles,
                   graphs_before=before["graphs"], graphs_after=after["graphs"],
                   head_requantized_bitwise=same_bits,
                   head_buffers_in_place=in_place, launches=counts,
@@ -2275,6 +2326,7 @@ def deploy_bert(torch, dev, cfg, lengths, directory, clients=8, rounds=2):
         _sync(torch, dev)
         before = server.stats()["bert"]
         programs = program_ids(served)
+        compiles = [served_compiles(server.addr)]
         reset_launch_counts()
         with multiprocessing.get_context("spawn").Pool(1) as pool:
             records, deployed = pool.apply(run_deploy_storm, (
@@ -2283,12 +2335,14 @@ def deploy_bert(torch, dev, cfg, lengths, directory, clients=8, rounds=2):
         _sync(torch, dev)
         counts = launch_counts()
         after = server.stats()["bert"]
+        compiles.append(served_compiles(server.addr))
     finally:
         server.stop()
     # the storm forms batches of new row counts before and after the swap,
     # each captured once: every program is captured exactly once, and those
     # of the warm-up keep their graphs
     check_no_recapture("bert", programs, program_ids(served))
+    check_compiles("bert", compiles, before, after)
     if dev.type == "cuda" and \
             after["graphs"]["captured"] != after["graphs"]["programs"]:
         raise AssertionError("bert deploy: %d captures for %d programs"
@@ -2335,7 +2389,7 @@ def deploy_bert(torch, dev, cfg, lengths, directory, clients=8, rounds=2):
             cpu_err["%d/%s" % (b, key)] = float(np.abs(out[key]
                                                        - ref[key]).max())
     fields = dict(model="bert_base", requests=len(records), clients=clients,
-                  deploy=deployed["reply"],
+                  deploy=deployed["reply"], compiles_before_after=compiles,
                   after_swap=sum(1 for r in records
                                  if r[1] > deployed["end"]),
                   forwards={str(b): v for b, v in fwd.items()},
@@ -3805,6 +3859,432 @@ BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
                  num_heads=12, max_length=512)
 
 
+# ---------------------------------------------------------------- telemetry
+#: TTFT and TPOT derived from the spans against the histograms' means, in
+#: seconds: the limits of the JAX package's journey drill
+TTFT_LIMIT_S, TPOT_LIMIT_S = 0.2, 0.1
+#: a served encode program's counted FLOPs against the analytic count
+FLOPS_REL_LIMIT = 0.01
+#: requests sent per encode program measured under MXTPU_COSTS=1 (the first
+#: is its counted warm-up, the rest replays)
+COST_CALLS = 4
+
+
+def prom_samples(text):
+    """{(name, ((label, value), ...)): value} of a Prometheus text
+    exposition (the labels sorted, their escapes undone)."""
+    unescape = {"n": "\n", "\\": "\\", '"': '"'}
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([A-Za-z_:][\w:]*)(?:\{(.*)\})? (\S+)$", line)
+        if m is None:
+            raise AssertionError("not a Prometheus sample: %r" % line)
+        labels = tuple(sorted(
+            (k, re.sub(r"\\(.)", lambda x: unescape.get(x.group(1),
+                                                        x.group(1)), v))
+            for k, v in re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                   m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def prom_value(samples, name, **labels):
+    """One series' value (0 when the series was never written)."""
+    return samples.get((name, tuple(sorted((k, str(v))
+                                           for k, v in labels.items()))),
+                       0.0)
+
+
+def prom_series(samples, name):
+    """{name label: value} of every series of `name` (a per-program
+    instrument)."""
+    return {dict(k[1]).get("name"): v for k, v in samples.items()
+            if k[0] == name}
+
+
+def journey(timeline, prompt_len, max_new):
+    """TTFT (s) and the TPOT gaps (s) of one decode request from its
+    stitched timeline alone, after checking its tree: one root,
+    client.decode, over the server's rpc span, one serve.queue and
+    serve.join, a decode.prefill when the prompt has a prefix, and one
+    decode.step a token. TTFT runs from the queue span's start (the
+    arrival) to the first step's end, the gaps between steps' ends."""
+    roots = [r["name"] for r in timeline["roots"]]
+    if roots != ["client.decode"]:
+        raise AssertionError("trace %s: roots %s, not one client.decode"
+                             % (timeline["trace_id"], roots))
+    names = {}
+    for sp in timeline["spans"]:
+        names[sp["name"]] = names.get(sp["name"], 0) + 1
+    want = {"client.decode": 1, "rpc.serve.decode": 1, "serve.queue": 1,
+            "serve.join": 1, "decode.step": max_new}
+    if prompt_len > 1:
+        want["decode.prefill"] = 1
+    if names != want:
+        raise AssertionError("trace %s: spans %s, expected %s"
+                             % (timeline["trace_id"], names, want))
+    queue = next(sp for sp in timeline["spans"]
+                 if sp["name"] == "serve.queue")
+    ends = sorted(sp["ts_us"] + sp["dur_us"] for sp in timeline["spans"]
+                  if sp["name"] == "decode.step")
+    return ((ends[0] - queue["ts_us"]) / 1e6,
+            [(b - a) / 1e6 for a, b in zip(ends, ends[1:])])
+
+
+def run_traced_decode(addr, prompts, clients, max_new, sample):
+    """Run in a client process: the decode round of run_decode_clients with
+    every request head-sampled (`sample` 1, what MXTPU_TRACE_SAMPLE=1 sets)
+    or none (0). With sampling, each request's stitched timeline: its
+    client.decode span from this process's ring and the server's spans of
+    its trace, fetched over serve.tracez. Returns tokens, latencies, wall
+    time and the timelines."""
+    from incubator_mxnet_tpu_torch.serving import ServingClient
+    from incubator_mxnet_tpu_torch.telemetry import tracing
+    tracing.set_sample_rate(sample)
+    tracing.clear_spans()
+    tids = {}
+    tokens, latencies, wall = run_decode_clients(addr, prompts, clients,
+                                                 max_new, trace_ids=tids)
+    timelines = {}
+    if sample:
+        with ServingClient(addr) as c:
+            for i, tid in sorted(tids.items()):
+                if tid is None:
+                    raise AssertionError("request %d was not sampled" % i)
+                remote = c.tracez(tid)["spans"]
+                timelines[i] = tracing.build_timeline(
+                    tracing.spans_for_trace(tid) + remote, trace_id=tid)
+    return tokens, latencies, wall, timelines
+
+
+def bert_encode_flops(B, T, units, hidden_size, num_layers):
+    """The analytic FLOPs of one BERT encode: per layer the Q, K, V and
+    output projections and the two feed-forward matmuls, attention's QK^T
+    and PV over every key; and the pooler."""
+    return num_layers * (2 * B * T * units * (4 * units + 2 * hidden_size)
+                         + 4 * B * T * T * units) + 2 * B * units * units
+
+
+def gpt_pool_bytes(cfg, slots, cache_len, block_size):
+    """Device bytes of the gpt family's paged pools: K and V of each layer,
+    slots * ceil(cache_len / block_size) blocks of block_size positions of
+    every head, fp32."""
+    blocks = slots * -(-cache_len // block_size)
+    return 2 * cfg["num_layers"] * blocks * block_size * cfg["units"] * 4
+
+
+def decode_telemetry(torch, dev, cfg, prompt_lengths, directory, clients,
+                     max_new, slots, cache_len):
+    """The GPT decode round with telemetry off, then on with every request
+    sampled; returns the fields, the counts of the traced round and its
+    forwards (grid steps plus prefill chunks)."""
+    from incubator_mxnet_tpu_torch import telemetry
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import ModelServer, ServingClient
+    from incubator_mxnet_tpu_torch.telemetry import debugz, memz
+    rs = np.random.RandomState(SEED + 15)
+    prompts = [rs.randint(0, cfg["vocab_size"], n).astype(np.int32)
+               for n in prompt_lengths]
+    telemetry.enable()
+    memz.enable()
+    server = ModelServer(device=dev).load(
+        "gpt", directory=directory, slots=slots, cache_len=cache_len).start()
+    addr = tuple(server.addr)
+    compiles0 = served_compiles(addr)
+    rounds = {}
+    try:
+        with ServingClient(addr) as c:          # warm-up: the captures
+            c.decode("gpt", prompts[-1][:40], max_new_tokens=4)
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            pool.apply(run_traced_decode, (addr, prompts[:1], 1, 1, 0))
+            for mode in ("off", "on"):
+                (telemetry.enable if mode == "on" else telemetry.disable)()
+                server.reset_service_estimates("gpt")
+                _sync(torch, dev)
+                before = server.stats()["gpt"]
+                metrics0 = prom_samples(served_metrics(addr)) \
+                    if mode == "on" else None
+                reset_launch_counts()
+                tokens, _lat, wall, timelines = pool.apply(
+                    run_traced_decode, (addr, prompts, clients, max_new,
+                                        1 if mode == "on" else 0))
+                _sync(torch, dev)
+                counts = launch_counts()
+                after = server.stats()["gpt"]
+                generated = sum(int(t.size) for t in tokens.values())
+                rounds[mode] = dict(
+                    tokens_per_s=generated / wall, wall_s=wall,
+                    step_ewma_ms=after["decode"]["step_ewma_s"] * 1e3,
+                    grid_steps=after["decode"]["steps"]
+                    - before["decode"]["steps"])
+        metrics1 = prom_samples(served_metrics(addr))
+        census = [e for e in memz.kv_census() if e["name"] == "gpt"
+                  and e["slots"] == slots]
+        served = server.served("gpt")
+        cache = server._tenant("gpt").decode_loop._cache
+        # the memory plane over the debug endpoint, on this process's card
+        debugz.start(0)
+        try:
+            url = "http://127.0.0.1:%d" % debugz.port()
+            with urllib.request.urlopen(url + "/memz", timeout=30) as r:
+                memz_page = json.loads(r.read().decode("utf-8"))
+            with urllib.request.urlopen(url + "/statusz", timeout=30) as r:
+                statusz = json.loads(r.read().decode("utf-8"))
+        finally:
+            debugz.stop()
+        _sync(torch, dev)
+        stats = memz.device_stats()
+        allocated = torch.cuda.memory_stats(dev)[
+            "allocated_bytes.all.current"] if dev.type == "cuda" else None
+        graphs = server.stats()["gpt"]["graphs"]
+    finally:
+        server.stop()
+        telemetry.enable()
+
+    # one stitched trace a request, TTFT and TPOT from the spans alone
+    # against the histograms of the same round
+    if sorted(timelines) != list(range(len(prompts))):
+        raise AssertionError("traced %d of %d requests"
+                             % (len(timelines), len(prompts)))
+    ttfts, gaps, steps_spans = [], [], 0
+    for i, tl in sorted(timelines.items()):
+        ttft, g = journey(tl, len(prompts[i]), max_new)
+        ttfts.append(ttft)
+        gaps += g
+        steps_spans += len(g) + 1
+
+    def delta(name, **labels):
+        return prom_value(metrics1, name, **labels) \
+            - prom_value(metrics0, name, **labels)
+
+    n_ttft = delta("mxtpu_serving_ttft_seconds_count", model="gpt")
+    n_tpot = delta("mxtpu_serving_tpot_seconds_count", model="gpt")
+    if (n_ttft, n_tpot) != (len(prompts), len(prompts) * (max_new - 1)):
+        raise AssertionError("TTFT / TPOT observations %s, expected %s"
+                             % ((n_ttft, n_tpot), (len(prompts), len(
+                                 prompts) * (max_new - 1))))
+    ttft_hist = delta("mxtpu_serving_ttft_seconds_sum", model="gpt") / n_ttft
+    tpot_hist = delta("mxtpu_serving_tpot_seconds_sum", model="gpt") / n_tpot
+    ttft_diff = abs(float(np.mean(ttfts)) - ttft_hist)
+    tpot_diff = abs(float(np.mean(gaps)) - tpot_hist)
+    if not (ttft_diff < TTFT_LIMIT_S and tpot_diff < TPOT_LIMIT_S):
+        raise AssertionError("span-derived TTFT / TPOT differ from the "
+                             "histograms by %g / %g s (limits %g / %g)"
+                             % (ttft_diff, tpot_diff, TTFT_LIMIT_S,
+                                TPOT_LIMIT_S))
+    returned = sum(int(t.size) for t in tokens.values())
+    ok = delta("mxtpu_serving_requests_total", model="gpt", status="ok")
+    committed = delta("mxtpu_gen_tokens_committed_total", model="gpt",
+                      phase="decode")
+    steps_metric = delta("mxtpu_serving_decode_steps_total", model="gpt")
+    compiles = prom_value(metrics1, "mxtpu_jit_compiles_total",
+                          where="serving") - compiles0
+    grid = rounds["on"]["grid_steps"]
+    if ok != len(prompts) or committed != returned or \
+            steps_spans != returned or steps_metric != grid or \
+            compiles != graphs["captured"]:
+        raise AssertionError(
+            "serve.metrics: %s requests ok (want %d), %s tokens committed "
+            "and %d decode.step spans (want %d returned), %s decode steps "
+            "(want %d grid steps), %s compiles (want %d captures)"
+            % (ok, len(prompts), committed, steps_spans, returned,
+               steps_metric, grid, compiles, graphs["captured"]))
+
+    # the KV census: the pools' bytes, exactly
+    pool = gpt_pool_bytes(cfg, slots, cache_len, cache.block_size)
+    page = [e for e in memz_page["kv"] if e["name"] == "gpt"
+            and e["slots"] == slots]
+    own = sum(t.numel() * t.element_size() for t in cache.data.values())
+    if not census or own != pool or any(
+            e["pool_bytes"] != pool for e in census + page):
+        raise AssertionError("KV census %s (over /memz %s) against the "
+                             "pools' %d bytes (the cache's tensors: %d)"
+                             % ([e["pool_bytes"] for e in census],
+                                [e["pool_bytes"] for e in page], pool, own))
+    if dev.type == "cuda":
+        # the allocator's reading, and the card named on /statusz
+        mine = [e for e in stats if e["device"] == "cuda:%d" % dev.index]
+        limit = torch.cuda.get_device_properties(dev).total_memory
+        if len(mine) != 1 or mine[0]["bytes_in_use"] != allocated \
+                or mine[0]["bytes_limit"] != limit:
+            raise AssertionError("memz.device_stats() %s against the "
+                                 "allocator's %d bytes" % (stats, allocated))
+        if statusz["device_identity"]["device_kind"] != \
+                torch.cuda.get_device_name(dev):
+            raise AssertionError("statusz device identity %s"
+                                 % statusz.get("device_identity"))
+    forwards = grid + prefill_chunks(prompt_lengths, served.prefill_chunk)
+    fields = dict(requests=len(prompts), traced=len(timelines),
+                  tokens_returned=returned, grid_steps=grid,
+                  ttft_span_mean_s=float(np.mean(ttfts)),
+                  ttft_hist_mean_s=ttft_hist, ttft_diff_s=ttft_diff,
+                  tpot_span_mean_s=float(np.mean(gaps)),
+                  tpot_hist_mean_s=tpot_hist, tpot_diff_s=tpot_diff,
+                  requests_ok=ok, tokens_committed=committed,
+                  decode_steps_metric=steps_metric, compiles=compiles,
+                  graphs=graphs, kv_census_bytes=census[0]["pool_bytes"],
+                  kv_pool_bytes=pool, device_bytes_in_use=allocated,
+                  telemetry_off=rounds["off"], telemetry_on=rounds["on"],
+                  on_vs_off_tokens_per_s=rounds["on"]["tokens_per_s"]
+                  / rounds["off"]["tokens_per_s"])
+    return fields, counts, forwards
+
+
+def served_metrics(addr):
+    """The server's registry over serve.metrics, as Prometheus text."""
+    from incubator_mxnet_tpu_torch.serving import ServingClient
+    with ServingClient(addr) as c:
+        return c.metrics()
+
+
+def encode_costs(torch, dev, cfg, directory, calls=COST_CALLS):
+    """BERT-base under MXTPU_COSTS=1: an (8, 128) and an (8, 512) program,
+    each counted at its first call and replayed after. Returns the fields,
+    the launch counts and the forwards per bucket."""
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import ModelServer, ServingClient
+    from incubator_mxnet_tpu_torch.telemetry import costs
+    rs = np.random.RandomState(SEED + 14)
+    old = os.environ.get("MXTPU_COSTS")
+    os.environ["MXTPU_COSTS"] = "1"
+    costs.reset()
+    server = ModelServer(device=dev).load(
+        "bert", directory=directory, buckets=BUCKETS, max_batch=8).start()
+    try:
+        reset_launch_counts()
+        with ServingClient(server.addr) as c:
+            for b in BUCKETS:
+                part = make_requests(rs, cfg, [b] * 8)
+                batch = {k: np.concatenate([r[k] for r in part])
+                         for k in part[0]}
+                for _ in range(calls):
+                    out = c.infer("bert", batch)
+                    if not np.isfinite(out["pooled"]).all():
+                        raise AssertionError("non-finite encode reply")
+        _sync(torch, dev)
+        counts = launch_counts()
+        samples = prom_samples(served_metrics(server.addr))
+        forwards = server.stats()["bert"]["batch"]["forwards"]
+    finally:
+        server.stop()
+        if old is None:
+            os.environ.pop("MXTPU_COSTS", None)
+        else:
+            os.environ["MXTPU_COSTS"] = old
+    flops = prom_series(samples, "mxtpu_model_flops_per_executable")
+    mfu = prom_series(samples, "mxtpu_model_flops_utilization")
+    failed = prom_series(samples, "mxtpu_costs_capture_errors_total")
+    if any(failed.values()):
+        raise AssertionError("cost counts failed: %s" % failed)
+    programs = {}
+    for b in BUCKETS:
+        name = "encode/r8xb%d/token_ids+token_types+valid_mask" % b
+        want = bert_encode_flops(8, b, cfg["units"], cfg["hidden_size"],
+                                 cfg["num_layers"])
+        got = flops.get(name, 0.0)
+        rel = abs(got - want) / want
+        if not rel <= FLOPS_REL_LIMIT:
+            raise AssertionError("%s: %s FLOPs counted, %d analytic "
+                                 "(limit %g)" % (name, got, want,
+                                                 FLOPS_REL_LIMIT))
+        if not 0.0 < mfu.get(name, 0.0) < 1.0:
+            raise AssertionError("%s: MFU %s outside (0, 1)"
+                                 % (name, mfu.get(name)))
+        cap = costs.captured(name)
+        programs[name] = dict(flops=got, analytic_flops=want, rel_err=rel,
+                              mfu=mfu[name], bytes=cap["bytes"],
+                              peak_tflops=costs.peak_flops() / 1e12)
+    return dict(programs=programs), counts, \
+        {b: forwards.get(str(b), forwards.get(b, 0)) for b in BUCKETS}
+
+
+LOCKDEP_CFG = dict(GPT2_SMALL, num_layers=2)
+
+
+def lockdep_round(directory):
+    """Run in a process started with MXTPU_LOCKDEP=1: GPT-2 small's width at
+    2 layers served on the card with its CUDA graphs (captured under the
+    capture lock) to 4 client threads; prints lockdep's report as JSON."""
+    import torch
+    from incubator_mxnet_tpu_torch.generate import export_gpt_for_serving
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
+    from incubator_mxnet_tpu_torch.serving import ModelServer
+    from incubator_mxnet_tpu_torch.telemetry import lockdep
+    if not lockdep.enabled():
+        raise AssertionError("lockdep_round needs MXTPU_LOCKDEP=1")
+    rs = np.random.RandomState(SEED)
+    shutil.rmtree(directory, ignore_errors=True)
+    export_gpt_for_serving(directory, LOCKDEP_CFG, GPTDecoder(
+        device="cpu", **LOCKDEP_CFG).load_params(gpt_params(rs, LOCKDEP_CFG)))
+    prompts = [rs.randint(0, LOCKDEP_CFG["vocab_size"], n).astype(np.int32)
+               for n in (1, 17, 40, 100)]
+    server = ModelServer(device=torch.device("cuda", 0)).load(
+        "gpt", directory=directory, slots=4, cache_len=256).start()
+    try:
+        tokens, _lat, _wall = run_decode_clients(tuple(server.addr), prompts,
+                                                 4, 8)
+    finally:
+        server.stop()
+    report = lockdep.report()
+    print(json.dumps({"requests": len(tokens), "classes": report["classes"],
+                      "edges": report["edges"],
+                      "violations": [lockdep.format_violation(v)
+                                     for v in report["violations"]]}),
+          flush=True)
+
+
+def lockdep_check(directory):
+    """lockdep_round in a process of its own with MXTPU_LOCKDEP=1 (the
+    witness patches the lock constructors at import); fails on any
+    violation it reports."""
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "chip_smoke.lockdep_round(%r)" % (HERE, directory))
+    env = dict(os.environ, MXTPU_LOCKDEP="1")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError("lockdep round failed (%d):\n%s"
+                             % (r.returncode, r.stderr[-4000:]))
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    if report["violations"] or report["requests"] != 4:
+        raise AssertionError("lockdep: %s" % json.dumps(report, indent=1))
+    return report
+
+
+def telemetry_phase(torch, dev, card=None):
+    """The serving plane's telemetry on the card: the GPT-2 small decode
+    round traced (and untraced, for the overhead), BERT-base's encode
+    programs counted under MXTPU_COSTS=1, the KV census and the allocator
+    through memz, and a lockdep round. Logs one telemetry line; returns the
+    launch counts of its traced round and its encodes."""
+    root = os.path.join(HERE, "build", "chip_smoke")
+    fields, dcounts, forwards = decode_telemetry(
+        torch, dev, GPT2_SMALL, DECODE_PROMPTS,
+        os.path.join(root, "gpt2_small"), 8, DECODE_NEW, DECODE_SLOTS,
+        DECODE_CACHE_LEN)
+    efields, ecounts, efwd = encode_costs(
+        torch, dev, BERT_BASE, os.path.join(root, "bert_base"))
+    L = GPT2_SMALL["num_layers"]
+    want = (expected_counts(layer_norm=(2 * L + 1) * forwards,
+                            flash_decode=L * forwards),
+            expected_counts(layer_norm=LN_PER_FORWARD * sum(efwd.values()),
+                            softmax=ATTN_PER_FORWARD * efwd[128],
+                            flash_attention_fwd=ATTN_PER_FORWARD
+                            * efwd[512]))
+    if dev.type == "cuda" and (dcounts, ecounts) != want:
+        raise AssertionError("telemetry launch counts %s, expected %s"
+                             % ((dcounts, ecounts), want))
+    fields.update(efields, lockdep=lockdep_check(
+        os.path.join(root, "lockdep_gpt")), launches=dcounts,
+        encode_launches=ecounts, encode_forwards=efwd)
+    log("telemetry", card=card, **fields)
+    return {"telemetry": dcounts, "telemetry_encode": ecounts}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -3878,6 +4358,7 @@ def main(argv=None):
     acounts = attention_bias_phase(torch, dev, card=card)
     scounts = seam_bf16_phase(torch, dev, card=card)
     rtc_counts = rtc_phase(torch, dev, card=card)
+    tel_counts = telemetry_phase(torch, dev, card=card)
 
     # launches: each main path's run (serve, decode, each train shape, the
     # ResNet steps, the gluon steps of each optimizer, the bottleneck
@@ -3887,7 +4368,7 @@ def main(argv=None):
     by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
                "resnet_train": rcounts, **bcounts, **gcounts,
                **lcounts, **dcounts_by_path, "attention_bias": acounts,
-               "seam_bf16": scounts, "rtc": rtc_counts}
+               "seam_bf16": scounts, "rtc": rtc_counts, **tel_counts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]

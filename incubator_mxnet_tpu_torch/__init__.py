@@ -10,12 +10,15 @@ Ported so far: serving a BERT encoder and GPT generation (``serving``,
 eager gluon surface: ``nd`` (NDArray), ``autograd``, ``gluon`` (Block,
 Parameter, layers, losses, Trainer, the ResNet zoo), ``init``,
 ``optimizer``, ``kvstore`` and ``lr_scheduler``, with the hand-written
-kernels of ``ops.kernels``; and ``rtc``, CUDA source compiled at run time
-(NVRTC) and launched on the card.
+kernels of ``ops.kernels``; ``rtc``, CUDA source compiled at run time
+(NVRTC) and launched on the card; and the serving plane's observability:
+``telemetry`` (metrics, request traces, flight records, costs, memz,
+lockdep), ``profiler`` and ``utils.failpoints``.
 """
 
+from . import telemetry  # noqa: I001 - first: MXTPU_LOCKDEP=1 patches locks
 from . import (autograd, context, gluon, initializer, kvstore, lr_scheduler,
-               ndarray, optimizer, rtc)
+               ndarray, optimizer, profiler, rtc)
 from .base import MXNetError
 from .context import cpu, default_device, gpu, num_gpus, tpu
 
@@ -23,6 +26,7 @@ nd = ndarray
 init = initializer
 
 __all__ = ["autograd", "context", "gluon", "init", "initializer", "kvstore",
-           "lr_scheduler", "nd", "ndarray", "optimizer", "rtc", "MXNetError",
+           "lr_scheduler", "nd", "ndarray", "optimizer", "profiler", "rtc",
+           "telemetry", "MXNetError",
            "cpu",
            "gpu", "tpu", "num_gpus", "default_device"]

@@ -25,13 +25,30 @@ warm-up's launches are real and count as they run.
 
 A CUDA graph has no serialized form, so ``dump()`` raises, and
 ``ServedModel.export_executables()`` exports nothing.
+
+Telemetry: a capture is the port's compile. Each one is counted, with its
+seconds, under ``mxtpu_jit_compiles_total{where=...}`` and
+``mxtpu_jit_compile_seconds_total`` inside the ``compiling(where)`` region
+that labels it (``where`` is the program's, "serving" for served
+programs), so a weight swap's zero recaptures read over ``serve.metrics``.
+The memory plane records the program's footprint: its static inputs, its
+outputs and the allocator's growth across the capture (the graph pool's
+bytes). Under ``MXTPU_COSTS=1`` the warm-up call is counted
+(``telemetry.costs.count``): the aten products, and the hand kernels' work
+by formula, since a replay cannot be counted. A failed count still serves
+the call and is counted as a failure. Nothing is instrumented inside the
+captured forward: it would fire once, at capture, and never at replay.
 """
 
 import threading
+import time
 
 import torch
 
 from ..ops.kernels import _build
+from ..telemetry import catalog as _cat
+from ..telemetry import costs as _costs
+from ..telemetry import memz as _memz
 
 __all__ = ["BlockProgram", "CaptureError"]
 
@@ -55,11 +72,17 @@ class BlockProgram:
         own;
     bound : objects the graph reads in place (a cache), kept alive with it;
     counts : a dict with "captured" and "replayed" keys that the program
-        adds to (its family's ``ServedModel.graph_counts``)."""
+        adds to (its family's ``ServedModel.graph_counts``);
+    where : the compile label its capture counts under;
+    samples : samples (tokens) one call consumes, for the tokens/s gauge of
+        ``telemetry.costs``."""
 
     def __init__(self, name, fn, example_inputs, pool=None, bound=(),
-                 counts=None):
+                 counts=None, where="other", samples=None):
         self.name = name
+        self.where = where
+        self.samples = samples
+        self.cost = None            # the counted work (MXTPU_COSTS=1)
         self._fn = fn
         self.device = example_inputs[0].device
         if self.device.type != "cuda":
@@ -99,25 +122,39 @@ class BlockProgram:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                result = self._fn(*self.inputs)
+                result, self.cost = _costs.run_counted(
+                    self.name, self._fn, self.inputs, self.samples)
             cur.wait_stream(side)
             for t in (result if isinstance(result, (tuple, list))
                       else (result,)):
                 t.record_stream(cur)    # the caller reads it on its stream
             graph = torch.cuda.CUDAGraph()
-            try:
-                with _build.recording_launches() as record:
-                    with torch.cuda.graph(graph, pool=self.pool,
-                                          capture_error_mode="thread_local"):
-                        outputs = self._fn(*self.inputs)
-            except Exception as e:
-                raise CaptureError("cannot capture %s into a CUDA graph on "
-                                   "%s (%s: %s)" % (self.name, self.device,
-                                                    type(e).__name__, e)) \
-                    from e
+            allocated = torch.cuda.memory_allocated(self.device)
+            t0 = time.perf_counter()
+            with _cat.compiling(self.where):
+                try:
+                    with _build.recording_launches() as record:
+                        with torch.cuda.graph(
+                                graph, pool=self.pool,
+                                capture_error_mode="thread_local"):
+                            outputs = self._fn(*self.inputs)
+                except Exception as e:
+                    raise CaptureError(
+                        "cannot capture %s into a CUDA graph on %s (%s: %s)"
+                        % (self.name, self.device, type(e).__name__, e)) \
+                        from e
+                _cat.note_compile(time.perf_counter() - t0)
+            grown = torch.cuda.memory_allocated(self.device) - allocated
         self.graph, self.outputs = graph, outputs
         self.launches = dict(record)
         self.counts["captured"] += 1
+        out_bytes = sum(t.numel() * t.element_size() for t in (
+            outputs if isinstance(outputs, (tuple, list)) else (outputs,)))
+        _memz.capture_memory(self.name, {
+            "argument_bytes": sum(t.numel() * t.element_size()
+                                  for t in self.inputs),
+            "output_bytes": out_bytes,
+            "temp_bytes": max(0, grown - out_bytes)})
         return result
 
     def dump(self):

@@ -16,8 +16,14 @@ previously committed tokens, which is what plain greedy commits, so
 speculative greedy output equals plain greedy output token for token (pinned
 in the tests, inside the port). All cache mutation happens here; the model
 adapter (``GPTPagedLM``) is a forward over device tensors. Logits come to the
-host for sampling. The JAX package's telemetry and trace spans are not part
-of the port yet; ``last_stats`` carries the counts and times.
+host for sampling. ``last_stats`` carries the counts and times.
+
+Telemetry as in the JAX package: a ``gen.prefill`` span per sequence and a
+``gen.decode_step`` span per plain step (one per speculative round, after
+the fact, with its proposed and accepted counts), the prefill and decode
+histograms, committed tokens by phase, and the speculative proposed and
+accepted counters. The times are taken around forwards whose logits reach
+the host, so they cover the device work.
 """
 
 import time
@@ -28,6 +34,8 @@ import torch
 from ..context import resolve_device
 from ..models.gpt import GPTDecoder, gpt_config
 from ..serving.decode import check_token_ids
+from ..telemetry import catalog as _cat
+from ..telemetry import tracing as _tr
 from .family import _CONFIG_KEYS, PREFILL_CHUNK, commit_chunk, gpt_cache_spec
 from .paged_kv import PagedKVCache
 
@@ -186,13 +194,19 @@ class GenerateEngine:
             # first decode step (its logits choose token 1)
             t0 = time.monotonic()
             for s in seqs:
-                if len(s["ctx"]) > 1:
-                    self._prefill(self.model, self.cache, s["slot"],
-                                  s["ctx"][:-1])
-                    if self.draft is not None:
-                        self._prefill(self.draft, self.draft_cache,
-                                      s["dslot"], s["ctx"][:-1])
-                    stats["prefill_tokens"] += len(s["ctx"]) - 1
+                t_seq = time.monotonic()
+                with _tr.span("gen.prefill", model=self.name,
+                              slot=s["slot"],
+                              tokens=max(len(s["ctx"]) - 1, 0)):
+                    if len(s["ctx"]) > 1:
+                        self._prefill(self.model, self.cache, s["slot"],
+                                      s["ctx"][:-1])
+                        if self.draft is not None:
+                            self._prefill(self.draft, self.draft_cache,
+                                          s["dslot"], s["ctx"][:-1])
+                        stats["prefill_tokens"] += len(s["ctx"]) - 1
+                _cat.gen_prefill_seconds.observe(
+                    time.monotonic() - t_seq, model=self.name)
             stats["prefill_seconds"] = time.monotonic() - t0
 
             t1 = time.monotonic()
@@ -202,6 +216,10 @@ class GenerateEngine:
             else:
                 self._plain_loop(seqs, max_new_tokens, eos_id, stats)
             stats["decode_seconds"] = time.monotonic() - t1
+            _cat.gen_tokens_committed.inc(
+                stats["prefill_tokens"], model=self.name, phase="prefill")
+            _cat.gen_tokens_committed.inc(
+                stats["decode_tokens"], model=self.name, phase="decode")
             self.last_stats = stats
             return [s["out"] for s in seqs]
         finally:
@@ -220,16 +238,23 @@ class GenerateEngine:
             live = [s for s in seqs if not s["done"]]
             if not live:
                 return
-            tokens = np.asarray([[s["ctx"][-1]] for s in live], np.int32)
-            logits = self._step(self.model, self.cache,
-                                [s["slot"] for s in live], tokens)
-            for row, s in enumerate(live):
-                tok = self._sample(logits[row])
-                s["ctx"].append(tok)
-                s["out"].append(tok)
-                stats["decode_tokens"] += 1
-                if tok == eos_id or len(s["out"]) >= max_new_tokens:
-                    s["done"] = True
+            t0 = time.monotonic()
+            with _tr.span("gen.decode_step", model=self.name,
+                          rows=len(live)) as sp:
+                tokens = np.asarray([[s["ctx"][-1]] for s in live],
+                                    np.int32)
+                logits = self._step(self.model, self.cache,
+                                    [s["slot"] for s in live], tokens)
+                for row, s in enumerate(live):
+                    tok = self._sample(logits[row])
+                    s["ctx"].append(tok)
+                    s["out"].append(tok)
+                    stats["decode_tokens"] += 1
+                    if tok == eos_id or len(s["out"]) >= max_new_tokens:
+                        s["done"] = True
+                sp.set_attr("tokens_committed", len(live))
+            _cat.gen_decode_seconds.observe(time.monotonic() - t0,
+                                            model=self.name)
 
     # ------------------------------------------------ speculative decode
     def _speculative_loop(self, s, max_new_tokens, eos_id, stats):
@@ -241,6 +266,7 @@ class GenerateEngine:
         (always ctx[-1]) yields the draft's first proposal."""
         ctx, slot, dslot = s["ctx"], s["slot"], s["dslot"]
         while not s["done"]:
+            t0 = time.monotonic()
             n = len(ctx)
             # never commit past max_new_tokens (a round lands at most k+1
             # tokens) and never let the (k+1)-wide verify overflow the cache;
@@ -281,6 +307,8 @@ class GenerateEngine:
             commit = drafts[:a] + [target[a]]
             stats["proposed"] += k
             stats["accepted"] += a
+            _cat.gen_spec_proposed.inc(k, model=self.name)
+            _cat.gen_spec_accepted.inc(a, model=self.name)
             # 5) roll both caches back to the committed history
             for tok in commit:
                 ctx.append(tok)
@@ -291,3 +319,14 @@ class GenerateEngine:
                     break
             self.cache.truncate(slot, len(ctx) - 1)
             self.draft_cache.truncate(dslot, len(ctx) - 1)
+            dt = time.monotonic() - t0
+            _cat.gen_decode_seconds.observe(dt, model=self.name)
+            cur = _tr.current()
+            if cur is not None:
+                # one span per propose+verify round, with its accounting
+                t1w = time.time()
+                _tr.record_span(
+                    "gen.decode_step", cur.trace_id,
+                    parent_id=cur.span_id, t0=t1w - dt, t1=t1w,
+                    sampled=cur.sampled, model=self.name, speculative=True,
+                    proposed=k, accepted=a, tokens_committed=len(commit))

@@ -200,13 +200,14 @@ def _build_gpt_decoder(config, params, quantize, device):
             decode_programs[key] = served.new_program(
                 name, forward(cache, rows, C),
                 [torch.zeros(size, dtype=torch.int32, device=device)],
-                bound=(cache,))
+                bound=(cache,), samples=rows * C)
         return decode_programs[key]
 
     def run(cache, name, rows, C, packed):
         packed = torch.from_numpy(packed)
         if not served.graphs:
-            return forward(cache, rows, C)(packed.to(device))
+            return served.run_eager(name, forward(cache, rows, C),
+                                    [packed.to(device)], samples=rows * C)
         return program(cache, name, rows, C)(packed)
 
     def step(tokens, cache, active):

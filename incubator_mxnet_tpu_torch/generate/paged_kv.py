@@ -21,8 +21,15 @@ across every kv entry before it is written, so a partial fill never exposes
 a previous sequence's tail. The pools are made outside inference mode, so a
 write in or out of ``torch.inference_mode()`` works.
 
-State-kind entries stay dense ``(slots,) + shape``. The JAX package's
-telemetry gauges and memory-plane hooks are not part of the port yet.
+State-kind entries stay dense ``(slots,) + shape``.
+
+Telemetry as in the JAX package: every block-table change updates the pool
+gauges (blocks in use and free, free fraction, peak, fragmentation) and the
+memory plane's watermark; a pool below a tenth free leaves an
+edge-triggered ``gen.kv_pool_pressure`` flight event; an exhausted pool
+counts ``gen_kv_pool_exhausted`` and leaves memz's forensics before it
+raises. The cache registers itself for memz's KV census, which reads the
+pools' device bytes.
 """
 
 import math
@@ -32,6 +39,9 @@ import torch
 
 from ..context import resolve_device
 from ..serving.kv_cache import _KINDS, _torch_dtype
+from ..telemetry import catalog as _cat
+from ..telemetry import flight as _flight
+from ..telemetry import memz as _memz
 
 __all__ = ["PagedKVCache", "KVPoolExhausted", "DEFAULT_BLOCK_SIZE"]
 
@@ -103,6 +113,10 @@ class PagedKVCache:
         self._live = set()
         self._free_blocks = list(range(self.num_blocks - 1, -1, -1))
         self._tables = {}          # slot -> [block ids], shared by kv entries
+        self._peak_blocks = 0
+        self._pressure_noted = False
+        _memz.register_kv_cache(self)
+        self._note_blocks()
 
     # ------------------------------------------------------------- slots
     @property
@@ -122,6 +136,7 @@ class PagedKVCache:
         for name, (kind, _shape, _dtype) in self.spec.items():
             if kind == "state":
                 self.data[name][slot] = 0
+        self._note_blocks()
         return slot
 
     def free(self, slot):
@@ -131,6 +146,7 @@ class PagedKVCache:
         self._free.append(slot)
         self._free_blocks.extend(reversed(self._tables.pop(slot, [])))
         self.lengths[slot] = 0
+        self._note_blocks()
 
     # ------------------------------------------------------------ access
     def _check(self, slot):
@@ -160,19 +176,21 @@ class PagedKVCache:
         if need <= 0:
             return
         if need > len(self._free_blocks):
+            block = len(table) + len(self._free_blocks)
+            _cat.gen_kv_pool_exhausted.inc(name=self.name)
+            _memz.on_pool_exhausted(self, slot=slot, block=block)
             raise KVPoolExhausted(
                 "paged KV pool exhausted (%d blocks of %d positions); "
                 "slot %d needs block %d"
-                % (self.num_blocks, self.block_size, slot,
-                   len(table) + len(self._free_blocks)),
-                name=self.name, slot=slot,
-                block=len(table) + len(self._free_blocks),
+                % (self.num_blocks, self.block_size, slot, block),
+                name=self.name, slot=slot, block=block,
                 num_blocks=self.num_blocks, block_size=self.block_size)
         fresh = [self._free_blocks.pop() for _ in range(need)]
         idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
         for n in self._kv_names:
             self.data[n].index_fill_(0, idx, 0)
         table.extend(fresh)
+        self._note_blocks()
 
     def append(self, name, slot, value):
         """Write `value` at this slot's current position (all kv entries
@@ -195,6 +213,7 @@ class PagedKVCache:
     def advance(self, slot):
         self._check(slot)
         self.lengths[slot] += 1
+        self._note_blocks()
 
     def extend(self, slot, count):
         """Map blocks for `count` more positions of `slot`, advance it by
@@ -211,6 +230,7 @@ class PagedKVCache:
         rows = [table[p // self.block_size] * self.block_size
                 + p % self.block_size for p in range(pos, pos + count)]
         self.lengths[slot] += count
+        self._note_blocks()
         return rows
 
     def write_rows(self, name, rows, values):
@@ -276,6 +296,7 @@ class PagedKVCache:
         self._free_blocks.extend(reversed(table[keep:]))
         del table[keep:]
         self.lengths[slot] = new_len
+        self._note_blocks()
 
     @property
     def blocks_in_use(self):
@@ -293,3 +314,26 @@ class PagedKVCache:
             return 0.0
         filled = int(sum(int(self.lengths[s]) for s in self._live))
         return 1.0 - filled / float(mapped)
+
+    def _note_blocks(self):
+        in_use = self.blocks_in_use
+        free = self.num_blocks - in_use
+        if in_use > self._peak_blocks:
+            self._peak_blocks = in_use
+        _cat.gen_kv_blocks_in_use.set(in_use, name=self.name)
+        _cat.gen_kv_blocks_free.set(free, name=self.name)
+        _cat.gen_kv_free_fraction.set(free / float(self.num_blocks),
+                                      name=self.name)
+        _cat.gen_kv_blocks_in_use_peak.set(self._peak_blocks,
+                                           name=self.name)
+        _cat.gen_kv_fragmentation.set(self.fragmentation(), name=self.name)
+        _memz.note_kv(self)
+        # near-exhaustion flight event, edge-triggered so a pool parked at
+        # 95% does not fill the ring on every append
+        low = free < 0.1 * self.num_blocks
+        if low and not self._pressure_noted:
+            self._pressure_noted = True
+            _flight.record("gen.kv_pool_pressure", name=self.name,
+                           free=free, total=self.num_blocks)
+        elif not low and self._pressure_noted:
+            self._pressure_noted = False

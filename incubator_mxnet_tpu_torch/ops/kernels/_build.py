@@ -24,6 +24,7 @@ from pathlib import Path
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "library", "build_info",
            "check", "count_launch", "recording_launches", "add_launches",
+           "counting_costs",
            "sources", "BUILD_DIR", "LIB_NAME"]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -91,7 +92,8 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _state = {"lib": None, "built": False, "seconds": 0.0}
-_capture = threading.local()      # .launches: {wrapper: n} while capturing
+_capture = threading.local()      # .launches: {wrapper: n} while capturing;
+#                                   .costs: the counted work (counting_costs)
 
 
 class KernelBuildError(RuntimeError):
@@ -205,18 +207,46 @@ def check(rc, what):
         raise KernelLaunchError("%s: CUDA error %d (%s)" % (what, rc, msg))
 
 
-def count_launch(wrapper):
+def count_launch(wrapper, cost=None):
     """Add one to ``wrapper.launches``; batchers of several models launch
     from their own threads. While this thread captures a CUDA graph
     (``recording_launches``) the kernel is recorded, not run: the call is
     counted in the capture's record instead, and each replay of the graph
-    adds the record (``add_launches``)."""
+    adds the record (``add_launches``). ``cost`` is a zero-argument callable
+    giving the launch's (flops, bytes); it is called only while this
+    thread counts costs (``counting_costs``)."""
+    acc = getattr(_capture, "costs", None)
+    if acc is not None and cost is not None:
+        flops, nbytes = cost()
+        acc["flops"] += flops
+        acc["bytes"] += nbytes
+        ent = acc["kernels"].setdefault(wrapper.__name__, [0, 0.0, 0.0])
+        ent[0] += 1
+        ent[1] += flops
+        ent[2] += nbytes
     record = getattr(_capture, "launches", None)
     if record is not None:
         record[wrapper] = record.get(wrapper, 0) + 1
         return
     with _count_lock:
         wrapper.launches += 1
+
+
+class counting_costs:
+    """Context manager: the kernel launches made on this thread inside it
+    add their (flops, bytes) to the dict it returns, ``{"flops", "bytes",
+    "kernels": {wrapper name: [launches, flops, bytes]}}``
+    (``telemetry.costs.count``)."""
+
+    def __enter__(self):
+        if getattr(_capture, "costs", None) is not None:
+            raise RuntimeError("costs are already being counted on this "
+                               "thread")
+        _capture.costs = {"flops": 0.0, "bytes": 0.0, "kernels": {}}
+        return _capture.costs
+
+    def __exit__(self, *_exc):
+        _capture.costs = None
 
 
 class recording_launches:

@@ -23,6 +23,7 @@ and costs no dbias.
 
 import torch
 
+from ...telemetry import costs as _costs
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_forward",
@@ -84,6 +85,16 @@ def _check_cuda(q, k, v, bias):
                              % (bh, T, q.device))
 
 
+def _forward_cost(bh, T, D, bias, causal):
+    """(flops, bytes) of one forward launch: both products over every key
+    (half of them under a causal mask), as the plain version counts, and
+    the bytes of the kernel's bound with the per-key bias read once."""
+    nbytes, _live, dense = _costs.flash_forward_cost(bh, T, D, [T])
+    if bias is not None:
+        nbytes += bh * T * 4
+    return (dense / 2 if causal else dense), nbytes
+
+
 def flash_attention_forward(q, k, v, bias=None, scale=None, causal=False):
     """Attention forward on (BH, T, D); ``bias`` is an additive per-key
     (BH, T) float32 tensor or None. Returns ``(out, lse)``."""
@@ -107,7 +118,8 @@ def flash_attention_forward(q, k, v, bias=None, scale=None, causal=False):
         int(bool(causal)), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
-    _build.count_launch(flash_attention_forward)
+    _build.count_launch(flash_attention_forward,
+                        lambda: _forward_cost(bh, T, D, bias, causal))
     return out, lse
 
 

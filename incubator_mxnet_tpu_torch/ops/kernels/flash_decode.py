@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ...telemetry import costs as _costs
 from . import _build
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_reference",
@@ -115,6 +116,15 @@ def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
                              tuple(k_pool.shape), tuple(block_tables.shape)))
 
 
+def _decode_cost(S, C, H, D, lengths, mb):
+    """(flops, bytes) of one decode launch over this call's live past (a
+    host read of ``lengths``: called only while costs are counted, on an
+    eager call)."""
+    nbytes, flops = _costs.flash_decode_cost(S, C, H, D,
+                                             int(lengths.sum()), mb)
+    return flops, nbytes
+
+
 def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, scale=None):
     """Attention of ``q`` over the paged PAST of each sequence.
 
@@ -148,7 +158,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, scale=None):
         block_tables.shape[1], float(scale), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_flash_decode")
-    _build.count_launch(paged_flash_decode)
+    _build.count_launch(paged_flash_decode, lambda: _decode_cost(
+        S, C, H, D, lengths, block_tables.shape[1]))
     return out, m, l
 
 

@@ -21,6 +21,7 @@ entry refuses a route whose conditions fail.
 
 import torch
 
+from ...telemetry import costs as _costs
 from . import _build
 
 __all__ = ["layer_norm", "softmax", "layer_norm_reference",
@@ -107,7 +108,7 @@ def _layer_norm_forward(x, gamma, beta, eps):
         *ptrs, rows, C, float(eps), ROUTES[_route(C, *ptrs)], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "layer_norm")
-    _build.count_launch(layer_norm)
+    _build.count_launch(layer_norm, lambda: _costs.rows_cost(rows, C, 2))
     return out
 
 
@@ -170,7 +171,7 @@ def _softmax_forward(x):
         x.data_ptr(), out.data_ptr(), rows, C, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "softmax")
-    _build.count_launch(softmax)
+    _build.count_launch(softmax, lambda: _costs.rows_cost(rows, C))
     return out
 
 

@@ -27,6 +27,7 @@ The C entry refuses a route whose condition fails.
 
 import torch
 
+from ...telemetry import costs as _costs
 from . import _build
 
 __all__ = ["int8_matmul", "int8_matmul_nk", "int8_matmul_reference",
@@ -107,7 +108,8 @@ def _launch(a, w, what):
         a.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, ROUTES[route],
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "int8_matmul")
-    _build.count_launch(int8_matmul)
+    _build.count_launch(int8_matmul,
+                        lambda: _costs.int8_matmul_cost(M, N, K)[::-1])
     return out
 
 

@@ -10,6 +10,13 @@ server moves onto its own monotonic clock; a shed comes back as
 retried after a short backoff (or on the next replica when several
 addresses are given) within the deadline. One client serializes its calls:
 run one per concurrent request stream.
+
+Telemetry: ``infer``, ``decode`` and ``deploy`` open the head-sampled root
+span of their request (``client.infer`` / ``client.decode`` /
+``client.deploy``; ``MXTPU_TRACE_SAMPLE``), whose ids ride the rpc meta to
+the server; ``last_trace_id`` is the sampled call's trace id, and
+``tracez(trace_id)`` fetches the server's stitched timeline of it.
+``metrics()`` reads the server's registry.
 """
 
 import os
@@ -18,6 +25,7 @@ import time
 import numpy as np
 
 from ..kvstore.rpc import Connection
+from ..telemetry import tracing as _tr
 from .wire import pack_arrays, unpack_arrays
 
 __all__ = ["ServingClient", "ServingError", "DeadlineExceeded", "Draining"]
@@ -65,6 +73,9 @@ class ServingClient:
         self._timeout = float(timeout)
         self._conns = {}
         self._cur = 0
+        #: trace id of the most recent infer/decode/deploy call if it was
+        #: head-sampled (MXTPU_TRACE_SAMPLE), else None
+        self.last_trace_id = None
         self._retries = int(
             retry_draining if retry_draining is not None
             else os.environ.get("MXTPU_DEPLOY_RETRY_MAX", "40") or 40)
@@ -139,13 +150,32 @@ class ServingClient:
         meta, _ = self._call({"op": "serve.stats"})
         return meta["stats"]
 
+    def metrics(self, fmt="prom"):
+        """The server's telemetry export, as text ("prom" or "json")."""
+        _meta, payload = self._call({"op": "serve.metrics", "format": fmt})
+        return payload.decode("utf-8")
+
+    def tracez(self, trace_id=None, limit=None):
+        """Recent sampled spans on the current replica; with ``trace_id``,
+        the stitched timeline dict of that one trace (see
+        ``telemetry.tracing.build_timeline``)."""
+        req = {"op": "serve.tracez"}
+        if trace_id is not None:
+            req["trace_id"] = trace_id
+        if limit is not None:
+            req["limit"] = int(limit)
+        meta, _ = self._call(req)
+        return meta["timeline"] if trace_id is not None else meta["spans"]
+
     def infer(self, model, arrays, deadline_ms=None):
         """One-shot forward on ``model``. arrays: name -> (rows, ...) array,
         all with the same leading dim. Returns name -> array."""
         manifest, payload = pack_arrays(arrays)
-        meta, rpayload = self._call_retrying(
-            {"op": "serve.infer", "model": model, "arrays": manifest},
-            payload, deadline_ms=deadline_ms)
+        with _tr.request_span("client.infer", model=model) as sp:
+            self.last_trace_id = sp.trace_id if sp.sampled else None
+            meta, rpayload = self._call_retrying(
+                {"op": "serve.infer", "model": model, "arrays": manifest},
+                payload, deadline_ms=deadline_ms)
         return unpack_arrays(meta["arrays"], rpayload)
 
     def decode(self, model, prompt, max_new_tokens=16, eos_id=None,
@@ -158,8 +188,11 @@ class ServingClient:
                "max_new_tokens": int(max_new_tokens)}
         if eos_id is not None:
             req["eos_id"] = int(eos_id)
-        meta, rpayload = self._call_retrying(req, payload,
-                                             deadline_ms=deadline_ms)
+        with _tr.request_span("client.decode", model=model,
+                              prompt_tokens=int(prompt.size)) as sp:
+            self.last_trace_id = sp.trace_id if sp.sampled else None
+            meta, rpayload = self._call_retrying(req, payload,
+                                                 deadline_ms=deadline_ms)
         return unpack_arrays(meta["arrays"], rpayload)["tokens"]
 
     # ------------------------------------------------------ deploy plane
@@ -172,7 +205,9 @@ class ServingClient:
             req["generation"] = int(generation)
         if directory is not None:
             req["directory"] = directory
-        meta, _ = self._call(req)
+        with _tr.request_span("client.deploy", model=model) as sp:
+            self.last_trace_id = sp.trace_id if sp.sampled else None
+            meta, _ = self._call(req)
         return meta
 
     def drain(self, model, timeout=None):

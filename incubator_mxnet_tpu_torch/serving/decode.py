@@ -20,8 +20,17 @@ argmax.
 Deadline shed: at join the loop estimates ``steps * EWMA(step seconds)``;
 mid-generation an expired deadline retires the slot (stage "decode") unless
 the sequence finished on that very step. KV pool exhaustion sheds as stage
-"capacity". The JAX package's telemetry, trace spans and flight records are
-not part of the port yet; ``stats()`` carries the counts.
+"capacity". ``stats()`` carries the loop's own counts.
+
+Telemetry as in the JAX package: queue wait, prefill time, step time,
+batch occupancy, TTFT and TPOT go to the serving histograms; decode steps,
+committed tokens and results to the counters; sheds and slot retirements
+to the flight ring; and a head-sampled request gets its ``serve.queue``,
+``serve.join``, ``decode.prefill`` and one ``decode.step`` span per grid
+step after the fact. Every instrument sits here, around the family's step
+and prefill calls, never inside them: a family may replay the step as a
+CUDA graph, where anything inside would fire once, at capture. The step's
+logits come back as numpy, so its time covers the device work.
 """
 
 import collections
@@ -30,7 +39,10 @@ import time
 
 import numpy as np
 
-from .scheduler import Request
+from ..telemetry import catalog as _cat
+from ..telemetry import flight as _fl
+from ..telemetry import tracing as _tr
+from .scheduler import Request, shed_request
 
 __all__ = ["DecodeRequest", "DecodeLoop", "check_token_ids"]
 
@@ -76,6 +88,8 @@ class _Seq:
         self.req = req
         self.fed = 0
         self.generated = []
+        self.last_tok = None    # monotonic time of the last committed token
+        #                         (TTFT on the first, TPOT gaps after)
 
     def next_input(self):
         if self.fed < self.req.prompt.size:
@@ -160,8 +174,9 @@ class DecodeLoop:
         return req
 
     def _shed(self, req, stage, detail=""):
-        if req.shed(stage, detail):
+        if req.shed(stage, detail):     # no double count if already done
             self._shed_stages[stage] += 1
+            shed_request(self.name, req, stage, detail)
 
     # ---------------------------------------------------------- lifecycle
     def start(self):
@@ -278,7 +293,19 @@ class DecodeLoop:
                 return
             self._pending.popleft()
             seq = _Seq(req)
+            _cat.serving_queue_seconds.observe(
+                time.monotonic() - req.arrival, model=self.name,
+                exemplar=req.trace[0] if req.trace else None)
+            t_adm = None
+            if req.trace:
+                # retroactive queue span: arrival -> slot grant
+                t_adm = time.time()
+                _tr.record_span(
+                    "serve.queue", req.trace[0], parent_id=req.trace[1],
+                    t0=t_adm - (time.monotonic() - req.arrival), t1=t_adm,
+                    sampled=True, model=self.name, request_id=req.id)
             if self._prefill_fn is not None and req.prompt.size > 1:
+                t0 = time.perf_counter()
                 try:
                     self._prefill_fn(slot, req.prompt[:-1], self._cache)
                 except Exception as e:  # noqa: BLE001 - a broken prefill
@@ -287,12 +314,38 @@ class DecodeLoop:
                         self._shed(req, "capacity", str(e))
                     elif req.fail(e):
                         self._retired["error"] += 1
+                        _cat.serving_requests.inc(model=self.name,
+                                                  status="error")
                     self._cache.free(slot)
                     continue
+                dt = time.perf_counter() - t0
                 seq.fed = req.prompt.size - 1
                 self._prefills += 1
                 self._tokens["prefill"] += req.prompt.size - 1
+                _cat.gen_prefill_seconds.observe(
+                    dt, model=self.name,
+                    exemplar=req.trace[0] if req.trace else None)
+                _cat.serving_forward_seconds.observe(
+                    dt, model=self.name, bucket="prefill")
+                _cat.gen_tokens_committed.inc(
+                    req.prompt.size - 1, model=self.name, phase="prefill")
+                if req.trace:
+                    t1 = time.time()
+                    _tr.record_span(
+                        "decode.prefill", req.trace[0],
+                        parent_id=req.trace[1], t0=t1 - dt, t1=t1,
+                        sampled=True, model=self.name, request_id=req.id,
+                        prefill_tokens=int(req.prompt.size - 1),
+                        chunk=self._prefill_chunk, slot=slot)
+            if req.trace:
+                # join span: slot grant -> active in the step grid (the
+                # chunked prefill, when it ran, sits inside this window)
+                _tr.record_span(
+                    "serve.join", req.trace[0], parent_id=req.trace[1],
+                    t0=t_adm, t1=time.time(), sampled=True,
+                    model=self.name, request_id=req.id, slot=slot)
             self._active[slot] = seq
+        _cat.serving_decode_slots.set(len(self._active), model=self.name)
 
     def _run(self):
         slots = self._cache.slots
@@ -328,13 +381,22 @@ class DecodeLoop:
                             self._shed(seq.req, "capacity", str(e))
                         elif seq.req.fail(e):
                             self._retired["error"] += 1
+                            _cat.serving_requests.inc(model=self.name,
+                                                      status="error")
                         self._cache.free(slot)
                     self._active.clear()
                     self._in_step = False
                     self._cond.notify_all()
                 continue
             dt = time.perf_counter() - t0
+            _cat.serving_decode_steps.inc(model=self.name)
+            _cat.serving_batch_occupancy.observe(len(active),
+                                                 model=self.name)
+            _cat.serving_forward_seconds.observe(dt, model=self.name,
+                                                 bucket="decode")
             now = time.monotonic()
+            step_tokens = {"prefill": 0, "decode": 0}
+            t_wall = None               # epoch stamp, taken once, lazily
             with self._cond:
                 self._ewma_step = dt if self._ewma_step is None else \
                     0.7 * self._ewma_step + 0.3 * dt
@@ -344,17 +406,45 @@ class DecodeLoop:
                 for slot, seq in list(self._active.items()):
                     before = len(seq.generated)
                     seq.consume(logits[slot])
-                    phase = "decode" if len(seq.generated) > before \
-                        else "prefill"
+                    new_tok = len(seq.generated) > before
+                    phase = "decode" if new_tok else "prefill"
                     self._tokens[phase] += 1
+                    step_tokens[phase] += 1
+                    if new_tok:
+                        ex = seq.req.trace[0] if seq.req.trace else None
+                        if before == 0:
+                            _cat.serving_ttft_seconds.observe(
+                                now - seq.req.arrival, model=self.name,
+                                exemplar=ex)
+                        elif seq.last_tok is not None:
+                            _cat.serving_tpot_seconds.observe(
+                                now - seq.last_tok, model=self.name,
+                                exemplar=ex)
+                        seq.last_tok = now
+                    if seq.req.trace:
+                        if t_wall is None:
+                            t_wall = time.time()
+                        _tr.record_span(
+                            "decode.step", seq.req.trace[0],
+                            parent_id=seq.req.trace[1], t0=t_wall - dt,
+                            t1=t_wall, sampled=True, model=self.name,
+                            request_id=seq.req.id, slot=slot,
+                            tokens_committed=int(new_tok),
+                            generated=len(seq.generated))
                     if seq.req.done:    # cancelled mid-flight: release
                         reason = "cancelled"
                     elif seq.finished:
                         # finished beats the deadline check: this step paid
                         # for the final token, so it is delivered
                         reason = "ok"
-                        seq.req.complete({"tokens": np.asarray(
-                            seq.generated, np.int32)})
+                        if seq.req.complete({"tokens": np.asarray(
+                                seq.generated, np.int32)}):
+                            _cat.serving_requests.inc(model=self.name,
+                                                      status="ok")
+                            _cat.serving_request_seconds.observe(
+                                now - seq.req.arrival, model=self.name,
+                                exemplar=seq.req.trace[0]
+                                if seq.req.trace else None)
                     elif seq.req.deadline is not None \
                             and now > seq.req.deadline:
                         reason = "deadline"
@@ -363,7 +453,19 @@ class DecodeLoop:
                     else:
                         continue
                     self._retired[reason] += 1
+                    attrs = {"model": self.name, "reason": reason,
+                             "request_id": seq.req.id, "slot": slot,
+                             "generated": len(seq.generated)}
+                    if seq.req.trace:
+                        attrs["trace_id"] = seq.req.trace[0]
+                    _fl.record("serving.retire", **attrs)
                     self._cache.free(slot)
                     del self._active[slot]
+                _cat.serving_decode_slots.set(len(self._active),
+                                              model=self.name)
                 self._in_step = False
                 self._cond.notify_all()     # wake a waiting drain()
+            for phase, n in step_tokens.items():
+                if n:
+                    _cat.gen_tokens_committed.inc(n, model=self.name,
+                                                  phase=phase)

@@ -13,13 +13,16 @@ shape[, dtype])``:
 The storage is torch tensors on the cache's device. ``generate/paged_kv.py``
 (PagedKVCache) mirrors this exact surface and its error messages over a
 shared block pool, so the DecodeLoop cannot tell the two apart. ``alloc`` as
-a request joins the in-flight batch, ``free`` the moment it retires.
+a request joins the in-flight batch, ``free`` the moment it retires. The
+cache registers itself for the memory plane's KV census
+(``telemetry.memz``), which reads its device bytes.
 """
 
 import numpy as np
 import torch
 
 from ..context import resolve_device
+from ..telemetry import memz as _memz
 
 __all__ = ["KVCache"]
 
@@ -35,12 +38,15 @@ def _torch_dtype(dtype):
 class KVCache:
     """Not thread-safe by itself: the decode loop is the single owner
     (requests never touch the cache directly). ``device=None`` is ``cuda:0``
-    and raises without CUDA; pass ``device="cpu"`` for the host."""
+    and raises without CUDA; pass ``device="cpu"`` for the host. ``name``
+    labels it in the KV census."""
 
-    def __init__(self, slots, spec, max_len=512, device=None):
+    def __init__(self, slots, spec, max_len=512, device=None,
+                 name="default"):
         if slots < 1:
             raise ValueError("need at least one slot, got %r" % slots)
         self.device = resolve_device(device)
+        self.name = name
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.spec = {}
@@ -60,6 +66,7 @@ class KVCache:
         self.lengths = np.zeros(self.slots, np.int64)
         self._free = list(range(self.slots - 1, -1, -1))
         self._live = set()
+        _memz.register_kv_cache(self)
 
     # ------------------------------------------------------------- slots
     @property

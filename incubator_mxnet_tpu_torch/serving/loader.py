@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..compilecache.aot import BlockProgram
+from ..telemetry import costs as _costs
 from ..context import resolve_device
 from ..utils.checkpoint import CheckpointManager
 from .decode import check_token_ids
@@ -130,6 +131,7 @@ class ServedModel:
             torch.device(device).type == "cuda"
         self.graph_counts = {"captured": 0, "replayed": 0}
         self._graph_pool = None
+        self._eager_counted = set()     # program names counted eagerly
         self.generation = 0
 
     @property
@@ -141,14 +143,28 @@ class ServedModel:
         return self.step_fn is not None
 
     # ------------------------------------------------------- programs
-    def new_program(self, name, fn, example_inputs, bound=()):
+    def new_program(self, name, fn, example_inputs, bound=(), samples=None):
         """A BlockProgram of this family (see ``compilecache.aot``): its
-        graph goes into the family's memory pool and its captures and
-        replays into ``graph_counts``."""
+        graph goes into the family's memory pool, its captures and replays
+        into ``graph_counts``, and each capture counts as a "serving"
+        compile. ``samples``: the tokens one call consumes."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return BlockProgram(name, fn, example_inputs, pool=self._graph_pool,
-                            bound=bound, counts=self.graph_counts)
+                            bound=bound, counts=self.graph_counts,
+                            where="serving", samples=samples)
+
+    def run_eager(self, name, fn, inputs, samples=None):
+        """``fn(*inputs)`` without a graph (the CPU, or ``graphs`` off). Its
+        first call under each program ``name`` is counted under
+        ``MXTPU_COSTS=1``, as a BlockProgram's warm-up is; a failed count
+        still runs the call and is counted as a failure."""
+        if name in self._eager_counted:
+            return fn(*inputs)
+        result, cost = _costs.run_counted(name, fn, inputs, samples)
+        if cost is not None:
+            self._eager_counted.add(name)
+        return result
 
     def program_for(self, rows, bucket, names):
         """The encode program of this (rows, bucket, input-name)
@@ -506,6 +522,13 @@ def _build_bert_encoder(config, params, quantize, device):
                          extra.get("valid_mask"))
         return fn
 
+    def input_names(arrays):
+        return tuple(n for n in sorted(arrays) if n in (
+            "token_ids", "token_types", "valid_mask"))
+
+    def program_name(rows, bucket, names):
+        return "encode/r%dxb%d/%s" % (rows, bucket, "+".join(names))
+
     def program_for(rows, bucket, names):
         key = (rows, bucket, names)
         if key not in programs:
@@ -513,13 +536,12 @@ def _build_bert_encoder(config, params, quantize, device):
                               if n == "valid_mask" else torch.int64,
                               device=device) for n in names]
             programs[key] = served.new_program(
-                "encode/r%dxb%d/%s" % (rows, bucket, "+".join(names)),
-                forward(names), ex)
+                program_name(rows, bucket, names), forward(names), ex,
+                samples=rows * bucket)
         return programs[key]
 
     def encode(arrays, _bucket):
-        names = tuple(n for n in sorted(arrays) if n in (
-            "token_ids", "token_types", "valid_mask"))
+        names = input_names(arrays)
         ins = []
         for n in names:
             if n == "valid_mask":
@@ -532,7 +554,10 @@ def _build_bert_encoder(config, params, quantize, device):
             prog = served.program_for(ins[0].shape[0], ins[0].shape[1],
                                       names)
             if prog is None:
-                seq, pooled = forward(names)(*(t.to(device) for t in ins))
+                rows, bucket = ins[0].shape
+                seq, pooled = served.run_eager(
+                    program_name(rows, bucket, names), forward(names),
+                    [t.to(device) for t in ins], samples=rows * bucket)
             else:
                 seq, pooled = prog(*ins)
             out = {"pooled": pooled.cpu().numpy()}
@@ -540,6 +565,14 @@ def _build_bert_encoder(config, params, quantize, device):
                 out["seq"] = seq.cpu().numpy()
         return out
 
+    def cost_name(arrays, _bucket):
+        """The program a batch of these padded arrays runs: the name its
+        cost is counted under (telemetry.costs)."""
+        names = input_names(arrays)
+        rows, bucket = np.shape(arrays[names[0]])[:2]
+        return program_name(rows, bucket, names)
+
+    encode.cost_name = cost_name
     served = ServedModel("bert_encoder", config, encode, quantized=False,
                          device=device, program_factory=program_for,
                          programs=programs,
@@ -601,7 +634,7 @@ def _build_lstm_lm(config, params, quantize, device):
     def make_cache(slots, max_len):
         return KVCache(slots, {s: ("state", (layers, hidden))
                                for s in state_names}, max_len=max_len,
-                       device=device)
+                       device=device, name="lstm_lm")
 
     def forward(ids, *states):
         """ids (1, S) int64 (checked on the host), states in the cache's
@@ -624,7 +657,7 @@ def _build_lstm_lm(config, params, quantize, device):
             ex += [torch.zeros((slots, layers, hidden), device=device)
                    for _ in state_names]
             decode_programs[slots] = served.new_program(
-                "decode/s%d" % slots, forward, ex)
+                "decode/s%d" % slots, forward, ex, samples=slots)
         return decode_programs[slots]
 
     def step(tokens, cache, _active):
@@ -637,7 +670,9 @@ def _build_lstm_lm(config, params, quantize, device):
         with torch.inference_mode():
             prog = served.decode_program_for(s)
             if prog is None:
-                outs = forward(ids.to(device), *states)
+                outs = served.run_eager("decode/s%d" % s, forward,
+                                        [ids.to(device)] + states,
+                                        samples=s)
             else:
                 outs = prog(ids, *states)
             for n, st in zip(state_names, outs[1:]):

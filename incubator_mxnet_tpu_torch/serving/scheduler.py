@@ -14,9 +14,18 @@ names, dtypes and trailing dims co-batch.
 serving loader builds it from a checkpoint. ``drain()`` fences admission
 for a live weight swap (new requests shed with the retriable "draining"
 stage, the queue is served out, no forward is left in flight) and
-``admit()`` re-opens it. The JAX package's telemetry, cost and tracing
-hooks are not part of this port yet; ``stats()`` also counts forwards per
-bucket.
+``admit()`` re-opens it. ``stats()`` also counts forwards per bucket.
+
+Telemetry as in the JAX package: sheds are counted by stage and left on
+the flight ring; queue wait, batch occupancy, forward time and end-to-end
+latency go to the serving histograms; a head-sampled request gets its
+``serve.queue``, ``serve.join`` and ``serve.forward`` spans after the fact.
+The forward's time is taken around ``forward_fn``, whose results come back
+as numpy: the copy to the host waits for the card, so the time covers the
+device work, never just its launch. A forward that names its program
+(``forward_fn.cost_name(arrays, bucket)``) feeds ``telemetry.costs``: the
+program's FLOPs, counted once at its first call under ``MXTPU_COSTS=1``,
+over this forward's time give its MFU.
 """
 
 import collections
@@ -26,6 +35,12 @@ import threading
 import time
 
 import numpy as np
+
+from ..telemetry import catalog as _cat
+from ..telemetry import costs as _costs
+from ..telemetry import flight as _fl
+from ..telemetry import metrics as _met
+from ..telemetry import tracing as _tr
 
 __all__ = ["Request", "ContinuousBatcher", "ShedError", "bucket_for",
            "default_buckets", "pad_batch_rows", "pad_to_bucket"]
@@ -109,6 +124,12 @@ class Request:
             for k, a in self.arrays.items()))
         self.deadline = deadline
         self.arrival = time.monotonic()
+        # request-journey tracing: made inside the server's rpc span
+        # (rpc.Server wraps the handler in from_meta), so current() is that
+        # span; only head-sampled requests carry (trace_id, parent span_id)
+        sp = _tr.current()
+        self.trace = (sp.trace_id, sp.span_id) \
+            if sp is not None and sp.sampled else None
         self._done = threading.Event()
         self._settle = threading.Lock()
         self.result = None
@@ -151,6 +172,24 @@ class Request:
     @property
     def done(self):
         return self._done.is_set()
+
+
+def shed_request(model, req, stage, detail=""):
+    """The telemetry of one shed request (the caller settled it): counted
+    by stage, a ``serving.shed`` flight event carrying the request id (and
+    the trace id when sampled, so /flightz entries join /tracez), and a
+    ``serve.shed`` span for a sampled request."""
+    _cat.serving_shed.inc(model=model, stage=stage)
+    _cat.serving_requests.inc(model=model, status="shed")
+    attrs = {"model": model, "stage": stage, "request_id": req.id}
+    if req.trace:
+        attrs["trace_id"] = req.trace[0]
+        t1 = time.time()
+        _tr.record_span(
+            "serve.shed", req.trace[0], parent_id=req.trace[1],
+            t0=t1 - (time.monotonic() - req.arrival), t1=t1, sampled=True,
+            model=model, stage=stage, request_id=req.id, detail=detail)
+    _fl.record("serving.shed", **attrs)
 
 
 class ContinuousBatcher:
@@ -199,23 +238,28 @@ class ContinuousBatcher:
             return req
         now = time.monotonic()
         if req.deadline is not None and now >= req.deadline:
-            req.shed("queue", "deadline expired before admission")
+            self._shed(req, "queue", "deadline expired before admission")
             return req
         with self._cond:
             if self._stopping:
                 req.fail(RuntimeError("batcher %r is stopped" % self.name))
                 return req
             if self._draining:
-                req.shed("draining",
-                         "model is draining for a weight swap; retry")
+                self._shed(req, "draining",
+                           "model is draining for a weight swap; retry")
                 return req
             if self._pending >= self._depth:
-                req.shed("overload", "queue depth %d reached" % self._depth)
+                self._shed(req, "overload",
+                           "queue depth %d reached" % self._depth)
                 return req
             self._queues[bucket].append(req)
             self._pending += 1
             self._cond.notify_all()
         return req
+
+    def _shed(self, req, stage, detail=""):
+        if req.shed(stage, detail):     # no double count if already done
+            shed_request(self.name, req, stage, detail)
 
     # ---------------------------------------------------------- lifecycle
     def start(self):
@@ -262,8 +306,8 @@ class ContinuousBatcher:
             if self._pending:
                 for q in self._queues.values():
                     while q:
-                        q.popleft().shed("draining", "not served before "
-                                         "the drain deadline; retry")
+                        self._shed(q.popleft(), "draining", "not served "
+                                   "before the drain deadline; retry")
                 self._pending = 0
             while self._in_flight:
                 left = deadline + float(timeout) - time.monotonic()
@@ -340,6 +384,7 @@ class ContinuousBatcher:
                 bucket = self._pick_bucket_locked()
                 if bucket is None:
                     continue
+                t_pick = time.monotonic()   # queue-wait / join-wait split
                 if self._max_wait > 0 and not self._draining:
                     # a drain skips the join window: nothing new is
                     # admitted, so waiting only stretches the outage
@@ -361,13 +406,13 @@ class ContinuousBatcher:
                     self._cond.notify_all()
             if taken:
                 try:
-                    self._serve_batch(bucket, taken)
+                    self._serve_batch(bucket, taken, t_pick)
                 finally:
                     with self._cond:
                         self._in_flight = False
                         self._cond.notify_all()
 
-    def _serve_batch(self, bucket, taken):
+    def _serve_batch(self, bucket, taken, t_pick=None):
         now = time.monotonic()
         est = self._ewma.get(bucket, 0.0)   # 0 before the first sample
         live = []
@@ -375,13 +420,33 @@ class ContinuousBatcher:
             if r.done:
                 continue
             if r.deadline is not None and now + est > r.deadline:
-                r.shed("join", "needs ~%.3fs, %.3fs left"
-                       % (est, r.deadline - now))
+                self._shed(r, "join", "needs ~%.3fs, %.3fs left"
+                           % (est, r.deadline - now))
             else:
                 live.append(r)
         if not live:
             return
         rows = sum(r.rows for r in live)
+        wall_off = time.time() - now    # monotonic -> epoch, once
+        for r in live:
+            _cat.serving_queue_seconds.observe(
+                now - r.arrival, model=self.name,
+                exemplar=r.trace[0] if r.trace else None)
+            if r.trace:
+                # retroactive journey spans: queue (arrival -> bucket pick)
+                # and join (pick -> serve; the coalescing window)
+                joined = now if t_pick is None else max(r.arrival, t_pick)
+                _tr.record_span(
+                    "serve.queue", r.trace[0], parent_id=r.trace[1],
+                    t0=r.arrival + wall_off, t1=joined + wall_off,
+                    sampled=True, model=self.name, request_id=r.id,
+                    bucket=bucket)
+                if joined < now:
+                    _tr.record_span(
+                        "serve.join", r.trace[0], parent_id=r.trace[1],
+                        t0=joined + wall_off, t1=now + wall_off,
+                        sampled=True, model=self.name, request_id=r.id)
+        _cat.serving_batch_occupancy.observe(rows, model=self.name)
         names = sorted(live[0].arrays)
         padded_rows = pad_batch_rows(rows)
         batch = {}
@@ -401,7 +466,9 @@ class ContinuousBatcher:
         except Exception as e:  # noqa: BLE001 - one bad batch fails its
             # own requests, never the worker loop
             for r in live:
-                r.fail(e)
+                if r.fail(e):
+                    _cat.serving_requests.inc(model=self.name,
+                                              status="error")
             return
         with self._cond:
             self._batches += 1
@@ -409,8 +476,33 @@ class ContinuousBatcher:
             prev = self._ewma.get(bucket)
             self._ewma[bucket] = dt if prev is None else \
                 0.7 * prev + 0.3 * dt
+        _cat.serving_forward_seconds.observe(dt, model=self.name,
+                                             bucket=str(bucket))
+        t_done = time.time()
+        for r in live:
+            if r.trace:
+                _tr.record_span(
+                    "serve.forward", r.trace[0], parent_id=r.trace[1],
+                    t0=t_done - dt, t1=t_done, sampled=True,
+                    model=self.name, request_id=r.id, bucket=bucket,
+                    batch_rows=rows)
+        if _met._state["enabled"]:
+            # tokens consumed per second always; MFU when the program's
+            # cost was counted (MXTPU_COSTS=1, see telemetry.costs)
+            if dt > 0:
+                _cat.model_tokens_per_sec.set(
+                    padded_rows * bucket / dt,
+                    name="serving.forward/%s" % self.name)
+            cost_name = getattr(self._forward, "cost_name", None)
+            if cost_name is not None:
+                _costs.observe(cost_name(batch, bucket), dt)
         offset = 0
         for r in live:
-            r.complete({k: np.asarray(v)[offset:offset + r.rows]
-                        for k, v in out.items()})
+            res = {k: np.asarray(v)[offset:offset + r.rows]
+                   for k, v in out.items()}
             offset += r.rows
+            if r.complete(res):
+                _cat.serving_requests.inc(model=self.name, status="ok")
+                _cat.serving_request_seconds.observe(
+                    time.monotonic() - r.arrival, model=self.name,
+                    exemplar=r.trace[0] if r.trace else None)

@@ -13,8 +13,22 @@ slot grid), ``serve.stats`` (the schedulers' own counts and each model's
 CUDA graphs captured and replayed), and the deploy plane:
 ``serve.generation``, ``serve.drain``, ``serve.admit`` and
 ``serve.deploy`` (drain, swap a retained generation's weights in place,
-re-admit: ``deploy``). Metrics and tracez come with the telemetry plane
-(ROADMAP Queue 1 item 13) and answer with an error that says so.
+re-admit: ``deploy``), and the telemetry plane: ``serve.metrics`` (the
+registry as Prometheus text, or JSON with ``format="json"``) and
+``serve.tracez`` (the retained spans, or with ``trace_id`` that request's
+stitched journey timeline). ``serve.stats`` also carries each model's
+p50/p99 latency, mean batch occupancy and request counts from the
+histograms.
+
+Telemetry is on by default, as in the JAX package (``telemetry=False``
+leaves the metrics off unless ``MXTPU_METRICS`` is set). With the metrics
+on, each CUDA graph capture counts under
+``mxtpu_jit_compiles_total{where="serving"}``, so a live weight swap can be
+shown to cost zero captures over ``serve.metrics``; the deploy plane
+leaves ``deploy.*`` flight records and moves
+``deploy_swaps``, ``deploy_seconds``, ``deploy_inflight`` and
+``serving_generation``. ``MXTPU_DEBUGZ_PORT`` starts the debug HTTP
+server (``telemetry.debugz``).
 
 ``device=None`` is ``cuda:0`` and raises without CUDA; ``device="cpu"``
 serves through the plain path.
@@ -26,6 +40,12 @@ import time
 
 from ..context import resolve_device
 from ..kvstore import rpc as _rpc
+from ..telemetry import catalog as _cat
+from ..telemetry import debugz as _dbz
+from ..telemetry import export as _texport
+from ..telemetry import flight as _fl
+from ..telemetry import metrics as _met
+from ..telemetry import tracing as _tr
 from .decode import DecodeLoop, DecodeRequest, check_token_ids
 from .loader import (ServedModel, load_generation_params, load_served_model,
                      read_generation)
@@ -33,8 +53,6 @@ from .scheduler import ContinuousBatcher, Request, ShedError
 from .wire import pack_arrays, unpack_arrays
 
 __all__ = ["ModelServer"]
-
-_LATER_OPS = ("serve.metrics", "serve.tracez")
 
 
 class _Tenant:
@@ -61,7 +79,12 @@ class _Tenant:
 
 
 class ModelServer:
-    def __init__(self, host="127.0.0.1", port=0, device=None):
+    def __init__(self, host="127.0.0.1", port=0, device=None,
+                 telemetry=True):
+        if telemetry:
+            # the capture count is part of the serving product surface: a
+            # weight swap must cost zero captures, read over serve.metrics
+            _met.enable()
         self.device = resolve_device(device)
         self._models = {}
         self._lock = threading.Lock()
@@ -72,6 +95,11 @@ class ModelServer:
     # ----------------------------------------------------------- lifecycle
     def start(self):
         self._rpc.start()
+        _fl.set_identity("serving", 0)
+        if _dbz.start_from_env(role="serving") is not None:
+            _dbz.set_status("serve_addr", "%s:%s" % self.addr)
+            _dbz.set_status("models", lambda: sorted(self._models))
+            _dbz.set_status("generations", self.generations)
         return self
 
     def stop(self):
@@ -81,6 +109,7 @@ class ModelServer:
             self._models = {}
         for t in tenants:
             t.stop()
+        _cat.serving_models.set(0)
 
     # -------------------------------------------------------------- models
     def load(self, name, directory=None, served=None, quantize=None,
@@ -122,11 +151,14 @@ class ModelServer:
                 tenant.stop()
                 raise ValueError("model %r is already loaded" % name)
             self._models[name] = tenant
+            _cat.serving_models.set(len(self._models))
+        _cat.serving_generation.set(int(served.generation), model=name)
         return self
 
     def unload(self, name):
         with self._lock:
             tenant = self._models.pop(name, None)
+            _cat.serving_models.set(len(self._models))
         if tenant is None:
             raise KeyError("model %r is not loaded" % name)
         tenant.stop()
@@ -154,8 +186,10 @@ class ModelServer:
     def stats(self):
         """{model: {"family", "generation", "graphs": CUDA graphs captured
         and replayed (``ServedModel.graph_stats``), "batch": batcher stats,
-        "decode": decode loop stats}}, each scheduler's entry present when
-        the model has it."""
+        "decode": decode loop stats, "p50_s", "p99_s": end-to-end latency
+        quantiles, "mean_batch_occupancy", "requests": {ok, shed,
+        error}}}, each scheduler's entry present when the model has it and
+        the latency and occupancy entries once observed (telemetry on)."""
         with self._lock:
             tenants = list(self._models.items())
         out = {}
@@ -167,6 +201,18 @@ class ModelServer:
                 ent["batch"] = t.batcher.stats()
             if t.decode_loop is not None:
                 ent["decode"] = t.decode_loop.stats()
+            for q, key in ((0.5, "p50_s"), (0.99, "p99_s")):
+                v = _cat.serving_request_seconds.quantile(q, model=name)
+                if v is not None:
+                    ent[key] = round(v, 6)
+            occ = _cat.serving_batch_occupancy
+            n = occ.count(model=name)
+            if n:
+                ent["mean_batch_occupancy"] = round(
+                    occ.sum(model=name) / n, 3)
+            ent["requests"] = {
+                s: _cat.serving_requests.value(model=name, status=s)
+                for s in ("ok", "shed", "error")}
             out[name] = ent
         return out
 
@@ -181,10 +227,15 @@ class ModelServer:
         t = self._tenant(name)
         timeout = self._drain_timeout() if timeout is None \
             else float(timeout)
-        ok = True
-        for sched in (t.batcher, t.decode_loop):
-            if sched is not None:
-                ok = sched.drain(timeout) and ok
+        _fl.record("deploy.drain", model=name,
+                   generation=t.served.generation)
+        # rides the caller's trace when the drain RPC was sampled, so a
+        # deploy's admission outage shows on the request timeline
+        with _tr.span("deploy.drain", model=name):
+            ok = True
+            for sched in (t.batcher, t.decode_loop):
+                if sched is not None:
+                    ok = sched.drain(timeout) and ok
         return ok
 
     def admit(self, name):
@@ -193,6 +244,8 @@ class ModelServer:
         for sched in (t.batcher, t.decode_loop):
             if sched is not None:
                 sched.admit()
+        _fl.record("deploy.admit", model=name,
+                   generation=t.served.generation)
 
     def generations(self):
         """{model: {"generation", "draining"}}: what serve.generation
@@ -234,6 +287,9 @@ class ModelServer:
             directory, generation, pin=self.device.type == "cuda")
         t0 = time.perf_counter()
         t1 = t2 = None
+        _cat.deploy_inflight.set(1)
+        _fl.record("deploy.start", model=name, generation=generation,
+                   previous=prev)
         try:
             if not self.drain(name):
                 raise RuntimeError(
@@ -242,8 +298,20 @@ class ModelServer:
             t1 = time.perf_counter()
             t.served.swap_params(params, generation)
             t2 = time.perf_counter()
+            _fl.record("deploy.swap", model=name, generation=generation,
+                       previous=prev)
+            _cat.serving_generation.set(generation, model=name)
+            _cat.deploy_swaps.inc(model=name, outcome="ok")
+        except BaseException:
+            _cat.deploy_swaps.inc(model=name, outcome="error")
+            _fl.record("deploy.abort", model=name, generation=generation,
+                       previous=prev)
+            raise
         finally:
             self.admit(name)
+            _cat.deploy_inflight.set(0)
+            _cat.deploy_seconds.observe(time.perf_counter() - t0,
+                                        model=name)
         t3 = time.perf_counter()
         return {"ok": True, "model": name, "generation": generation,
                 "previous": prev, "drain_ms": (t1 - t0) * 1e3,
@@ -287,9 +355,23 @@ class ModelServer:
             return self.deploy(meta.get("model", ""),
                                generation=meta.get("generation"),
                                directory=meta.get("directory")), b""
-        if op in _LATER_OPS:
-            raise ValueError("serving op %r is not supported by the PyTorch "
-                             "port yet" % op)
+        if op == "serve.metrics":
+            if meta.get("format") == "json":
+                return {"format": "json"}, \
+                    _texport.render_json().encode("utf-8")
+            return {"format": "prom"}, \
+                _texport.render_prometheus().encode("utf-8")
+        if op == "serve.tracez":
+            # with a trace_id: this server's stitched timeline of that
+            # journey (exemplars and flight events carry the ids to ask
+            # with); bare: the most recent retained spans
+            tid = meta.get("trace_id")
+            if tid is not None:
+                return {"trace_id": tid, "timeline":
+                        _tr.build_timeline(_tr.recent_spans(),
+                                           trace_id=tid)}, b""
+            n = int(meta.get("limit", 256))
+            return {"spans": _tr.recent_spans(n)}, b""
         raise ValueError("unknown serving op %r" % op)
 
     @staticmethod
@@ -319,6 +401,7 @@ class ModelServer:
             # (and frees its decode slot); losing the cancel race means it
             # settled at the buzzer
             if req.cancel("handler timed out after %.1fs" % timeout):
+                _cat.serving_requests.inc(model=req.model, status="error")
                 return {"error": "Timeout: %s" % e}, b""
             try:
                 result = req.wait(0)

@@ -1,0 +1,436 @@
+"""Distributed trace spans with cross-process context propagation.
+
+Counterpart of ``incubator_mxnet_tpu/telemetry/tracing.py``, with the same
+span records, meta keys and timeline format, so spans of either package's
+processes stitch into one journey. A span is a named, timed region tied to
+a trace id. Spans nest through a thread-local stack; crossing a process
+boundary rides the RPC meta dict (``kvstore/rpc.py``): ``inject()`` stamps
+the active span's ``_trace``/``_pspan`` ids into the outgoing meta, and the
+server opens a child span via ``from_meta()``.
+
+Span timings are also recorded as chrome-trace complete events through
+``profiler._record`` (while the profiler runs), with ``trace_id`` /
+``span_id`` / ``parent_id`` in ``args``; ``merge_traces()`` merges such
+dumps into one timeline.
+
+Request-journey head sampling: ``request_span()`` is the root-span origin
+for the serving plane. ``MXTPU_TRACE_SAMPLE`` (a probability in [0, 1],
+parsed ONCE at import) decides per request whether a journey is traced; a
+sampled root marks itself ``sampled`` and ``inject()`` stamps that flag so
+every downstream process keeps the journey's spans even with metrics off.
+``record_span()`` writes retroactive spans (the batcher knows a request's
+queue wait only when it leaves the queue), and ``build_timeline()`` stitches
+one trace id's spans into a parent/child tree tolerant of orphan parents
+and duplicate ids. Finished spans are kept in a ring of
+``MXTPU_TRACE_MAX_SPANS``.
+
+Cheap when off: ``span()`` returns a shared no-op object unless metrics are
+enabled, the profiler is running, or a parent span is already active;
+``request_span()`` with sampling off is one dict lookup and a compare.
+"""
+
+import json
+import os
+import random
+import threading
+import time
+import uuid
+from collections import deque
+
+from .. import profiler
+from . import metrics as _metrics
+
+__all__ = ["span", "from_meta", "current", "inject", "extract",
+           "merge_traces", "Span", "recent_spans", "clear_spans",
+           "dump_spans", "request_span", "record_span", "sample_rate",
+           "set_sample_rate", "spans_for_trace", "build_timeline",
+           "render_timeline"]
+
+# RPC meta keys the propagation rides on (underscore-prefixed like the
+# idempotency keys _client/_seq so servers treat them as annotations).
+TRACE_KEY = "_trace"
+PARENT_KEY = "_pspan"
+SAMPLED_KEY = "_sampled"
+
+
+def _parse_sample_rate():
+    try:
+        r = float(os.environ.get("MXTPU_TRACE_SAMPLE", "0") or 0.0)
+    except ValueError:
+        return 0.0
+    return min(max(r, 0.0), 1.0)
+
+
+# Head-sampling probability, parsed ONCE so request_span's off path is
+# one dict lookup — never an env read per request.
+_sample = {"rate": _parse_sample_rate()}
+
+
+def sample_rate():
+    """The head-sampling probability (MXTPU_TRACE_SAMPLE, clamped to
+    [0, 1])."""
+    return _sample["rate"]
+
+
+def set_sample_rate(rate):
+    """Override the head-sampling probability at runtime (loadstorm
+    samples every request; tests flip it around the env parse)."""
+    _sample["rate"] = min(max(float(rate), 0.0), 1.0)
+    return _sample["rate"]
+
+_tls = threading.local()
+
+
+def _default_max_spans():
+    try:
+        return max(16, int(os.environ.get("MXTPU_TRACE_MAX_SPANS", "4096")))
+    except ValueError:
+        return 4096
+
+
+# Bounded retention of finished spans.  profiler._events only records
+# while the profiler is running, so without this ring spans opened under
+# metrics-only telemetry were kept nowhere; with it /tracez and the
+# atexit trace dump always have the last MXTPU_TRACE_MAX_SPANS spans,
+# and week-long jobs can't grow span storage without bound.
+_finished_lock = threading.Lock()
+_finished = deque(maxlen=_default_max_spans())
+
+
+def _resize(maxlen):
+    """Swap the retention ring's capacity (tests); keeps newest spans."""
+    global _finished
+    with _finished_lock:
+        _finished = deque(_finished, maxlen=max(1, int(maxlen)))
+
+
+def _retain(rec):
+    dropped = False
+    with _finished_lock:
+        if len(_finished) == _finished.maxlen:
+            dropped = True
+        _finished.append(rec)
+    if dropped and _metrics._state["enabled"]:
+        from . import catalog as _cat  # late: catalog imports this module's package
+        _cat.telemetry_spans_dropped.inc()
+
+
+def recent_spans(n=None):
+    """Newest-last list of finished span records (bounded ring)."""
+    with _finished_lock:
+        spans = list(_finished)
+    return spans[-int(n):] if n else spans
+
+
+def clear_spans():
+    with _finished_lock:
+        _finished.clear()
+
+
+def dump_spans(path=None):
+    """Write retained spans as JSONL.  ``path`` defaults to
+    ``MXTPU_TRACE_EXPORT``; no-op (returns None) when neither is set."""
+    path = path or os.environ.get("MXTPU_TRACE_EXPORT")
+    if not path:
+        return None
+    spans = recent_spans()
+    tmp = "%s.tmp.%d" % (path, os.getpid())
+    with open(tmp, "w") as f:
+        for rec in spans:
+            f.write(json.dumps(rec, default=str))
+            f.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def _stack():
+    st = getattr(_tls, "stack", None)
+    if st is None:
+        st = _tls.stack = []
+    return st
+
+
+def _new_id():
+    return uuid.uuid4().hex[:16]
+
+
+def current():
+    """The innermost active Span on this thread, or None."""
+    st = getattr(_tls, "stack", None)
+    return st[-1] if st else None
+
+
+class Span:
+    """A timed region; use as a context manager."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "attrs",
+                 "sampled", "_t0")
+
+    def __init__(self, name, trace_id=None, parent_id=None, attrs=None,
+                 sampled=False):
+        self.name = name
+        self.trace_id = trace_id or _new_id()
+        self.span_id = _new_id()
+        self.parent_id = parent_id
+        self.attrs = attrs or {}
+        self.sampled = sampled
+        self._t0 = None
+
+    def set_attr(self, key, value):
+        self.attrs[key] = value
+
+    def __enter__(self):
+        self._t0 = time.time() * 1e6
+        _stack().append(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        st = _stack()
+        if st and st[-1] is self:
+            st.pop()
+        args = {"trace_id": self.trace_id, "span_id": self.span_id}
+        if self.parent_id:
+            args["parent_id"] = self.parent_id
+        if self.sampled:
+            args["sampled"] = True
+        if exc_type is not None:
+            args["error"] = exc_type.__name__
+        args.update(self.attrs)
+        dur = time.time() * 1e6 - self._t0
+        profiler._record("span", self.name, ts=self._t0,
+                         dur=dur, args=args)
+        rec = {"name": self.name, "ts_us": self._t0, "dur_us": dur}
+        rec.update(args)
+        _retain(rec)
+        return False
+
+
+class _NullSpan:
+    """Shared do-nothing span for the disabled path."""
+
+    __slots__ = ()
+    name = None
+    trace_id = None
+    span_id = None
+    parent_id = None
+    sampled = False
+
+    def set_attr(self, key, value):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+def _active():
+    if _metrics._state["enabled"] or profiler._state["running"]:
+        return True
+    st = getattr(_tls, "stack", None)
+    return bool(st)
+
+
+def span(name, **attrs):
+    """Open a child span of the current thread context (or a new trace).
+
+    Returns NULL_SPAN when telemetry is fully idle, so instrumented
+    code pays one call + two dict lookups when off.
+    """
+    if not _active():
+        return NULL_SPAN
+    parent = current()
+    if parent is not None and parent.trace_id is not None:
+        return Span(name, trace_id=parent.trace_id,
+                    parent_id=parent.span_id, attrs=attrs,
+                    sampled=parent.sampled)
+    return Span(name, attrs=attrs)
+
+
+def request_span(name, **attrs):
+    """Head-sampled ROOT span for one serving request.
+
+    The MXTPU_TRACE_SAMPLE coin flip happens here (the trace HEAD —
+    every downstream hop follows the propagated decision instead of
+    re-flipping). Returns NULL_SPAN for unsampled requests: with
+    sampling off the serving hot path pays one dict lookup + compare,
+    pinned by tests/test_telemetry_overhead.py."""
+    rate = _sample["rate"]
+    if rate <= 0.0 or (rate < 1.0 and random.random() >= rate):
+        return NULL_SPAN
+    return Span(name, attrs=attrs, sampled=True)
+
+
+def from_meta(name, meta, **attrs):
+    """Server-side child span continuing the trace stamped in an RPC
+    meta dict; NULL_SPAN when the caller sent no context."""
+    trace_id = meta.get(TRACE_KEY)
+    if trace_id is None:
+        return NULL_SPAN
+    return Span(name, trace_id=trace_id, parent_id=meta.get(PARENT_KEY),
+                attrs=attrs, sampled=bool(meta.get(SAMPLED_KEY)))
+
+
+def inject(meta):
+    """Stamp the active span's context into an outgoing RPC meta dict
+    (in place; no-op without an active real span or if already stamped).
+    A head-sampled span also stamps the sampled flag so downstream
+    processes keep the journey's spans without their own coin flip."""
+    sp = current()
+    if sp is None or sp.trace_id is None or TRACE_KEY in meta:
+        return meta
+    meta[TRACE_KEY] = sp.trace_id
+    meta[PARENT_KEY] = sp.span_id
+    if sp.sampled:
+        meta[SAMPLED_KEY] = 1
+    return meta
+
+
+def extract(meta):
+    """(trace_id, parent_span_id) from an RPC meta dict, or (None, None)."""
+    return meta.get(TRACE_KEY), meta.get(PARENT_KEY)
+
+
+def record_span(name, trace_id, parent_id=None, t0=None, t1=None,
+                sampled=False, **attrs):
+    """Record an already-timed span without entering a context.
+
+    The schedulers know a request's queue wait only at the moment it
+    leaves the queue — this writes that region retroactively into the
+    retention ring (and the profiler, when running). ``t0``/``t1`` are
+    epoch seconds (``time.time()``); ``t1`` defaults to now, ``t0`` to
+    ``t1`` (a zero-width marker). Returns the span record."""
+    t1 = time.time() if t1 is None else float(t1)
+    t0 = t1 if t0 is None else float(t0)
+    ts = t0 * 1e6
+    dur = max(t1 - t0, 0.0) * 1e6
+    args = {"trace_id": trace_id, "span_id": _new_id()}
+    if parent_id:
+        args["parent_id"] = parent_id
+    if sampled:
+        args["sampled"] = True
+    args.update(attrs)
+    profiler._record("span", name, ts=ts, dur=dur, args=args)
+    rec = {"name": name, "ts_us": ts, "dur_us": dur}
+    rec.update(args)
+    _retain(rec)
+    return rec
+
+
+def spans_for_trace(trace_id, spans=None):
+    """The retained spans (or ``spans``, if given) carrying this trace
+    id, oldest first."""
+    pool = recent_spans() if spans is None else spans
+    out = [s for s in pool if s.get("trace_id") == trace_id]
+    out.sort(key=lambda s: s.get("ts_us") or 0)
+    return out
+
+
+def build_timeline(spans, trace_id=None):
+    """Stitch span records into one request-journey timeline.
+
+    Tolerant by construction: duplicate span ids collapse to the first
+    occurrence (merging local + fetched rings can overlap), spans whose
+    parent id is unknown become ROOTS instead of vanishing (a partial
+    fetch must still render), and empty input yields an empty timeline.
+    Returns ``{"trace_id", "spans", "roots", "start_us", "end_us",
+    "duration_us"}`` where each root/child node is the span record plus
+    a ``"children"`` list, both levels ordered by start time."""
+    if trace_id is not None:
+        spans = [s for s in spans if s.get("trace_id") == trace_id]
+    seen, uniq = set(), []
+    for s in spans:
+        sid = s.get("span_id")
+        if sid is not None and sid in seen:
+            continue
+        if sid is not None:
+            seen.add(sid)
+        uniq.append(s)
+    uniq.sort(key=lambda s: s.get("ts_us") or 0)
+    if not uniq:
+        return {"trace_id": trace_id, "spans": [], "roots": [],
+                "start_us": None, "end_us": None, "duration_us": 0.0}
+    if trace_id is None:
+        trace_id = uniq[0].get("trace_id")
+    nodes = {s["span_id"]: dict(s, children=[])
+             for s in uniq if s.get("span_id") is not None}
+    roots = []
+    for s in uniq:
+        node = nodes.get(s.get("span_id"), dict(s, children=[]))
+        parent = nodes.get(s.get("parent_id"))
+        if parent is not None and parent is not node:
+            parent["children"].append(node)
+        else:
+            roots.append(node)      # true root OR orphan parent id
+    start = min(s.get("ts_us") or 0 for s in uniq)
+    end = max((s.get("ts_us") or 0) + (s.get("dur_us") or 0)
+              for s in uniq)
+    return {"trace_id": trace_id, "spans": uniq, "roots": roots,
+            "start_us": start, "end_us": end,
+            "duration_us": end - start}
+
+
+def render_timeline(timeline, width=80):
+    """Human text for one build_timeline() result: indented tree with
+    per-span offset/duration in ms (the loadstorm slow-trace report and
+    /tracez?trace_id= both render through this)."""
+    lines = ["trace %s  (%.2f ms, %d spans)"
+             % (timeline.get("trace_id"),
+                (timeline.get("duration_us") or 0) / 1e3,
+                len(timeline.get("spans") or []))]
+    t0 = timeline.get("start_us") or 0
+
+    def walk(node, depth):
+        off = ((node.get("ts_us") or 0) - t0) / 1e3
+        dur = (node.get("dur_us") or 0) / 1e3
+        extras = " ".join(
+            "%s=%s" % (k, v) for k, v in sorted(node.items())
+            if k not in ("name", "ts_us", "dur_us", "trace_id", "span_id",
+                         "parent_id", "children", "sampled"))
+        lines.append(("  " * depth + "%-28s +%9.2fms %9.2fms  %s"
+                      % (node.get("name"), off, dur, extras))[:width])
+        for c in sorted(node["children"], key=lambda n: n.get("ts_us") or 0):
+            walk(c, depth + 1)
+
+    for root in timeline.get("roots") or []:
+        walk(root, 0)
+    return "\n".join(lines)
+
+
+def merge_traces(paths, out_path):
+    """Merge chrome-trace JSON dumps (worker + shipped server traces,
+    see profiler.dump(profile_process="server")) into one timeline.
+
+    Each input file's events keep their relative times but get a
+    distinct pid so chrome://tracing shows one row group per process.
+    Tolerant of the ways real dumps go wrong: an empty ``paths`` list
+    (or files with no/absent ``traceEvents``) merges to an empty
+    timeline, and events that carry a ``span_id`` are deduplicated on
+    it — the same span shipped in two dumps (a server trace merged
+    twice) renders once. Returns the merged event list.
+    """
+    merged, seen_spans = [], set()
+    for pid, path in enumerate(paths):
+        with open(path) as f:
+            data = json.load(f)
+        events = data.get("traceEvents")
+        if not isinstance(events, list):
+            continue
+        for ev in events:
+            if not isinstance(ev, dict):
+                continue
+            sid = (ev.get("args") or {}).get("span_id")
+            if sid is not None:
+                if sid in seen_spans:
+                    continue
+                seen_spans.add(sid)
+            ev = dict(ev)
+            ev["pid"] = pid
+            merged.append(ev)
+    with open(out_path, "w") as f:
+        json.dump({"traceEvents": merged, "displayTimeUnit": "ms"}, f)
+    return merged

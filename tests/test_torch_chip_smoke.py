@@ -248,8 +248,9 @@ def test_flash_forward_bounds_at_the_serving_shape():
     450 and 129, 3.09 GFLOP over the live keys, 46.2 us on the fp32 CUDA
     cores and 18.8 us as 3xTF32 on the tensor cores; dense, 6.44 GFLOP,
     96.2 and 39.1 us. Operations bound both: the bytes take 15 us."""
+    from incubator_mxnet_tpu_torch.telemetry.costs import flash_forward_cost
     tc = chip_smoke.TF32X3_FLOPS_PER_S
-    nbytes, live, dense = chip_smoke.flash_forward_cost(
+    nbytes, live, dense = flash_forward_cost(
         12, 512, 64, [512, 300, 0, 511, 64, 1, 450, 129])
     assert live == pytest.approx(3.094e9, rel=1e-3)
     assert chip_smoke.bound(nbytes, live) == (pytest.approx(0.0462,
@@ -257,8 +258,7 @@ def test_flash_forward_bounds_at_the_serving_shape():
                                               "operations")
     assert chip_smoke.bound(nbytes, live, tc)[0] == pytest.approx(
         0.0188, abs=1e-4)
-    nbytes, live, dense = chip_smoke.flash_forward_cost(12, 512, 64,
-                                                        [512] * 8)
+    nbytes, live, dense = flash_forward_cost(12, 512, 64, [512] * 8)
     assert live == dense == pytest.approx(6.442e9, rel=1e-3)
     assert chip_smoke.bound(nbytes, dense)[0] == pytest.approx(0.0962,
                                                                abs=1e-4)
@@ -487,3 +487,114 @@ def test_run_deploy_storm_deploys_partway_on_the_cpu(tmp_path):
         assert any(r[0] == i and r[1] > deployed["end"] for r in records)
     assert len([r for r in records if r[2] < deployed["start"]]) >= 4
     assert all(r[3]["pooled"].shape == (1, 16) for r in records)
+
+
+# ----------------------------------------------------- the telemetry phase
+def test_prom_samples_read_back_what_the_registry_rendered(monkeypatch):
+    """The telemetry phase reads serve.metrics as Prometheus text: every
+    series of a rendering comes back with its labels (escapes undone) and
+    its value, histograms as their _bucket / _sum / _count series."""
+    from incubator_mxnet_tpu_torch.telemetry import export, metrics
+    monkeypatch.setattr(metrics, "_registry", {})
+    was = metrics.enabled()
+    metrics.enable()
+    try:
+        c = metrics.counter("t_total", "help")
+        c.inc(3, model='a"b\\c\nd', status="ok")
+        c.inc(2.5)
+        h = metrics.histogram("t_seconds", buckets=(0.1, 1.0))
+        h.observe(0.05, model="m")
+        h.observe(3.0, model="m")
+        metrics.gauge("t_flops").set(1.5e12, name="encode/r8xb128/x+y")
+        samples = chip_smoke.prom_samples(export.render_prometheus())
+    finally:
+        (metrics.enable if was else metrics.disable)()
+    assert chip_smoke.prom_value(samples, "t_total", model='a"b\\c\nd',
+                                 status="ok") == 3.0
+    assert chip_smoke.prom_value(samples, "t_total") == 2.5
+    assert chip_smoke.prom_value(samples, "t_seconds_count", model="m") == 2
+    assert chip_smoke.prom_value(samples, "t_seconds_sum", model="m") == 3.05
+    assert chip_smoke.prom_value(samples, "t_seconds_bucket", model="m",
+                                 le="0.1") == 1
+    assert chip_smoke.prom_value(samples, "t_seconds_bucket", model="m",
+                                 le="+Inf") == 2
+    assert chip_smoke.prom_value(samples, "t_absent") == 0.0
+    assert chip_smoke.prom_series(samples, "t_flops") == {
+        "encode/r8xb128/x+y": 1.5e12}
+    with pytest.raises(AssertionError, match="Prometheus"):
+        chip_smoke.prom_samples("not a sample line")
+
+
+def _timeline(prompt_len, steps, drop=None):
+    """A decode request's stitched timeline: the client root, the server's
+    rpc span, queue, join, prefill (with a prompt prefix) and one step a
+    token, 10 ms apart."""
+    from incubator_mxnet_tpu_torch.telemetry import tracing
+    spans = [dict(name="client.decode", span_id="c", ts_us=0.0,
+                  dur_us=1e6),
+             dict(name="rpc.serve.decode", span_id="r", parent_id="c",
+                  ts_us=1e3, dur_us=9e5),
+             dict(name="serve.queue", span_id="q", parent_id="r",
+                  ts_us=2e3, dur_us=3e3),
+             dict(name="serve.join", span_id="j", parent_id="r",
+                  ts_us=5e3, dur_us=1e3)]
+    if prompt_len > 1:
+        spans.append(dict(name="decode.prefill", span_id="p",
+                          parent_id="r", ts_us=5e3, dur_us=5e2))
+    spans += [dict(name="decode.step", span_id="s%d" % k, parent_id="r",
+                   ts_us=1e4 * (k + 1), dur_us=2e3) for k in range(steps)]
+    spans = [dict(sp, trace_id="t") for sp in spans if sp["name"] != drop]
+    return tracing.build_timeline(spans, trace_id="t")
+
+
+def test_journey_gives_ttft_and_tpot_from_the_spans_alone():
+    ttft, gaps = chip_smoke.journey(_timeline(5, 4), 5, 4)
+    assert ttft == pytest.approx((1e4 + 2e3 - 2e3) / 1e6)
+    assert gaps == pytest.approx([0.01] * 3)
+    ttft1, _ = chip_smoke.journey(_timeline(1, 2), 1, 2)   # no prefix
+    assert ttft1 == pytest.approx(0.01)
+
+
+@pytest.mark.parametrize("drop,steps,msg", [
+    (None, 3, "spans"),                     # a step short
+    ("serve.join", 4, "spans"),
+    ("decode.prefill", 4, "spans"),
+    ("client.decode", 4, "roots"),          # the server's half alone
+])
+def test_journey_refuses_a_broken_tree(drop, steps, msg):
+    with pytest.raises(AssertionError, match=msg):
+        chip_smoke.journey(_timeline(5, steps, drop), 5, 4)
+
+
+def test_analytic_counts_match_the_counted_programs_on_the_cpu():
+    """The phase's analytic references: BERT's products equal what
+    telemetry.costs counts on the plain path, and the gpt family's pool
+    bytes equal a paged cache's tensors."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.generate.family import gpt_cache_spec
+    from incubator_mxnet_tpu_torch.generate.paged_kv import PagedKVCache
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_config
+    from incubator_mxnet_tpu_torch.telemetry import costs
+    cfg = dict(vocab_size=50, units=32, hidden_size=64, num_layers=2,
+               num_heads=2, max_length=64)
+    model = BERTModel(device="cpu", dropout=0.0, **cfg)
+    ids = torch.from_numpy(np.ones((2, 24), np.int64))
+    with torch.inference_mode():
+        _out, cost = costs.count(lambda i: model(i), ids)
+    assert cost["flops"] == chip_smoke.bert_encode_flops(2, 24, 32, 64, 2)
+    gcfg = dict(vocab_size=50, units=48, num_layers=3, num_heads=3,
+                max_len=64)
+    cache = PagedKVCache(3, gpt_cache_spec(gpt_config(gcfg)), max_len=40,
+                         block_size=16, device="cpu")
+    assert sum(t.numel() * t.element_size() for t in cache.data.values()) \
+        == chip_smoke.gpt_pool_bytes(gcfg, 3, 40, 16)
+
+
+def test_check_compiles_allows_only_the_captures_it_counted():
+    before = {"graphs": {"captured": 4}}
+    chip_smoke.check_compiles("gpt", [9.0, 9.0], before, before)
+    chip_smoke.check_compiles("bert", [9.0, 11.0], before,
+                              {"graphs": {"captured": 6}})
+    with pytest.raises(AssertionError, match="moved by 1"):
+        chip_smoke.check_compiles("gpt", [9.0, 10.0], before, before)

@@ -2101,6 +2101,102 @@ def test_model_server_deploy_on_the_card_keeps_every_graph(cuda, tmp_path):
         np.testing.assert_allclose(out, want, rtol=1e-4, atol=1e-4)
 
 
+def _bert_flops(B, T, units, hidden_size, num_layers):
+    """The products of one BERT forward: the projections and feed-forward
+    matmuls, attention's QK^T and PV over every key, and the pooler."""
+    return num_layers * (2 * B * T * units * (4 * units + 2 * hidden_size)
+                         + 4 * B * T * T * units) + 2 * B * units * units
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [16, 512])
+def test_program_flop_record_includes_the_hand_kernels(cuda, tmp_path,
+                                                       monkeypatch, T):
+    """Under MXTPU_COSTS=1 a served program's warm-up is counted: the aten
+    products through FlopCounterMode and the hand kernels (which launch
+    through ctypes) by their formulas, beside their launches. The sum is
+    the analytic count of the BERT forward's products; at T = 512 the
+    attention products are the flash kernel's, below it aten's."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.telemetry import costs
+    monkeypatch.setenv("MXTPU_COSTS", "1")
+    _d, served = _bert_served(tmp_path, cuda)
+    arrays = {"token_ids": np.ones((4, T), np.int32)}
+    served.encode_fn(arrays, T)
+    (prog,) = served.programs.values()
+    cost = prog.cost
+    assert cost["flops"] == _bert_flops(4, T, 64, 128, 2)
+    assert costs.captured(prog.name)["flops"] == cost["flops"]
+    assert costs.captured(prog.name)["samples"] == 4 * T
+    kernels = cost["kernels"]
+    assert kernels["layer_norm"][:2] == [5, 0.0]
+    if T >= 512:
+        # two layers of 4 rows x 2 heads, head dim 32: QK^T and PV
+        assert kernels["flash_attention_forward"][:2] == [
+            2, 2 * 4 * (4 * 2) * T * T * 32]
+        assert kernels.keys() == {"layer_norm", "flash_attention_forward"}
+    else:
+        assert kernels.keys() == {"layer_norm", "softmax"}
+        assert cost["kernel_flops"] == 0
+    assert cost["bytes"] > sum(k[2] for k in kernels.values()) > 0
+    # a replay is not counted again, and counts its launches as before
+    served.encode_fn(arrays, T)
+    assert prog.cost is cost and _graph_counts(served)["replayed"] == 1
+    costs.reset()
+
+
+@pytest.mark.needs_cuda
+def test_replayed_decode_counts_steps_and_spans_once_per_replay(
+        cuda, tmp_path, monkeypatch):
+    """Telemetry sits around the captured step, never inside it: over
+    served decode requests whose steps replay a CUDA graph,
+    serving_decode_steps and the decode.step spans move once per grid step
+    and token, the capture counts once as a serving compile, and the flash
+    decode program's FLOP record carries its kernel."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.generate import export_gpt_for_serving
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder
+    from incubator_mxnet_tpu_torch.serving import ModelServer, ServingClient
+    from incubator_mxnet_tpu_torch.telemetry import catalog, costs, tracing
+    cfg = dict(vocab_size=97, units=128, num_layers=2, num_heads=2,
+               max_len=128)
+    d = str(tmp_path / "gpt")
+    export_gpt_for_serving(d, cfg, GPTDecoder(device="cpu", seed=1, **cfg))
+    srv = ModelServer(device=cuda).load("gpt", directory=d, slots=2,
+                                        cache_len=128).start()
+    prev = tracing.sample_rate()
+    compiles = catalog.compile_events("serving")
+    monkeypatch.setenv("MXTPU_COSTS", "1")
+    try:
+        with ServingClient(srv.addr) as c:
+            c.decode("gpt", np.arange(1, 40) % 97, max_new_tokens=3)
+            before = c.stats()["gpt"]
+            steps0 = catalog.serving_decode_steps.value(model="gpt")
+            tracing.set_sample_rate(1.0)
+            tids = []
+            for n in (1, 9, 33):
+                out = c.decode("gpt", np.arange(n) % 97, max_new_tokens=5)
+                assert out.shape == (5,)
+                tids.append(c.last_trace_id)
+            after = c.stats()["gpt"]
+    finally:
+        tracing.set_sample_rate(prev)
+        srv.stop()
+    grid = after["decode"]["steps"] - before["decode"]["steps"]
+    assert grid == 15
+    assert catalog.serving_decode_steps.value(model="gpt") - steps0 == grid
+    assert after["graphs"]["replayed"] - before["graphs"]["replayed"] >= grid
+    for tid in tids:
+        names = [s["name"] for s in tracing.spans_for_trace(tid)]
+        assert names.count("decode.step") == 5
+        assert names.count("client.decode") == 1
+    assert catalog.compile_events("serving") - compiles == \
+        after["graphs"]["captured"]
+    step = costs.captured("gptdecode/s2")
+    assert step is not None and step["flops"] > 0
+    costs.reset()
+
+
 @pytest.mark.needs_cuda
 def test_a_capture_failure_raises_instead_of_running_eagerly(cuda):
     """A forward that reads a device value back to the host runs as the

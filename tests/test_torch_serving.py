@@ -441,8 +441,7 @@ def test_model_server_answers_concurrent_requests_in_two_buckets(
 
 def test_model_server_errors_and_deadlines(port_server):
     with serving.ServingClient(port_server.addr) as c:
-        with pytest.raises(serving.ServingError, match="not supported"):
-            c._call({"op": "serve.metrics", "model": "bert"})
+        assert "# TYPE mxtpu_serving_requests_total counter" in c.metrics()
         with pytest.raises(serving.ServingError, match="no decode path"):
             c.decode("bert", [1, 2, 3])
         with pytest.raises(serving.ServingError, match="unknown serving op"):

@@ -1,5 +1,7 @@
-// Attention backward from the saved log-sum-exp (flash attention), fp32, for
-// Hopper (sm_90a): one kernel for dQ and one for dK and dV.
+// Attention backward from the saved log-sum-exp (flash attention), fp32 and
+// bf16, for Hopper (sm_90a): one kernel for dQ and one for dK and dV in
+// each. The fp32 route is described first; the bf16 route's notes stand
+// above its kernels, further down.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_attention.py: _dq_kernel and
 // _dkv_kernel, the latter with and without has_dbias (reached through
@@ -81,6 +83,7 @@
 // nothing to dk and dv. Any T: rows and keys past T are zero-filled in the
 // tiles and get p = 0.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -89,6 +92,7 @@
 namespace {
 
 #include "flash_tf32.cuh"
+#include "flash_bf16.cuh"
 
 constexpr int kDkvRows = 32;      // queries of a dK/dV stage
 constexpr int kDqKeys = 32;       // keys of a dQ stage
@@ -518,6 +522,387 @@ int check_args(int bh, int T, int device) {
   return (int)cudaSetDevice(device);
 }
 
+// ------------------------------------------------------------------ bf16
+//
+// The bf16 flavour (the TPU kernels on bf16 q, k, v and dO under the
+// trainer's compute_dtype), without dbias: every product on the tensor
+// cores as mma.sync m16n8k16 with bf16 operands and fp32 accumulators, one
+// product where the fp32 route takes three. What bounds it: operations, as
+// in fp32 (seven T x T x D products between the two kernels at the bf16
+// rate, 989 TFLOP/s), with half the fp32 bytes. Design, a simple one first
+// (wgmma and TMA are later work):
+// - The fp32 route's split: the dQ kernel owns a 64-row Q tile and walks the
+//   keys (64 a stage at D <= 64, 32 at D = 128), the dK/dV kernel owns a
+//   64-key tile and walks the queries (64 a stage at D <= 64, 16 at D =
+//   128), each through a two-stage cp.async ring; no atomics, and two calls
+//   on the same inputs are bitwise equal.
+// - The resident operands (Q and dO, or K and V) are read once with ldmatrix
+//   into A fragments held in registers; the streamed ones come by ldmatrix
+//   (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) or ldmatrix.trans
+//   (dQ += dS K, dV += P^T dO, dK += dS^T Q).
+// - S and dP stay in registers: p = exp(s - lse) and dS = p * (dP - delta)
+//   * scale in fp32, then p and dS are rounded to bf16 as they are packed
+//   into the second products' A fragments, where the TPU kernel rounds them
+//   to v's dtype (_recompute_p_ds). The sums stay fp32 in the accumulators,
+//   and dq, dk and dv round to bf16 once, at the end.
+// - The dead-tile rules are the fp32 route's: the dQ kernel walks only key
+//   tiles with a live key, and a dK/dV block whose 64 keys are all dead
+//   writes zeros.
+
+template <int D>
+struct BwdTileB {
+  static constexpr int kLd = D + 8;           // bf16 elements a padded row
+  static constexpr int kTile = kBlock * kLd;  // elements of a 64-row tile
+  static constexpr int kKeys = D <= 64 ? 64 : 32;   // keys of a dQ stage
+  static constexpr int kRows = D <= 64 ? 64 : 16;   // queries of a dK/dV stage
+  // dQ: Q and dO, two stages of K and V, two stages of the keys' bias; the
+  // count and the list of live key tiles follow (sized at launch)
+  static constexpr int kDqStage = 2 * kKeys * kLd;
+  static constexpr size_t kDqBytes = sizeof(bf16) * (2 * kTile + 2 * kDqStage) +
+                                     sizeof(float) * 2 * kKeys;
+  // dK/dV: K and V, two stages of Q and dO, two stages of lse and delta
+  static constexpr int kDkvStage = 2 * kRows * kLd;
+  static constexpr size_t kDkvBytes =
+      sizeof(bf16) * (2 * kTile + 2 * kDkvStage) + sizeof(float) * 4 * kRows;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ dq, int T, float scale,
+                         int causal) {
+  using Tile = BwdTileB<D>;
+  constexpr int KT = Tile::kKeys, NJ = KT / 8, KK = D / 16, NT = D / 8;
+
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + Tile::kTile;
+  bf16* stages = dOs + Tile::kTile;            // K, V; two of them
+  float* biases = reinterpret_cast<float*>(stages + 2 * Tile::kDqStage);
+  int* n_live = reinterpret_cast<int*>(biases + 2 * KT);
+  int* tiles = n_live + 1;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kBlock;
+  const long long bh = blockIdx.y;
+  const long long base = bh * T * D;
+  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
+
+  // the key tiles to walk: up to the causal diagonal, and only those with a
+  // live key (a dead tile adds exact zeros)
+  int n_tiles = (T + KT - 1) / KT;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlock, T) - 1) / KT + 1);
+  for (int i = warp; i < n_tiles; i += kWarps) {
+    const bool live = any_live<KT>(brow, i * KT, T);
+    if (lane == 0) tiles[i] = live;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (tiles[i]) tiles[n++] = i;
+    *n_live = n;
+  }
+  __syncthreads();
+  const int nl = *n_live;
+
+  // this thread's accumulator rows; columns 8n + 2t and + 1
+  const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  if (nl > 0) {
+    auto issue = [&](int i) {
+      bf16* st = stages + (i & 1) * Tile::kDqStage;
+      const int k0 = tiles[i] * KT;
+      load_tile_bf16<D, KT>(st, k + base, k0, T);
+      load_tile_bf16<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
+      if (brow != nullptr) load_row<KT>(biases + (i & 1) * KT, brow, k0, T);
+    };
+    load_tile_bf16<D, kBlock>(Qs, q + base, q0, T);
+    load_tile_bf16<D, kBlock>(dOs, dout + base, q0, T);
+    cp_async_commit();
+    issue(0);
+    cp_async_commit();
+    const float lse_a = row_a < T ? lse[bh * T + row_a] : 0.f;
+    const float lse_b = row_b < T ? lse[bh * T + row_b] : 0.f;
+    const float delta_a = row_a < T ? delta[bh * T + row_a] : 0.f;
+    const float delta_b = row_b < T ? delta[bh * T + row_b] : 0.f;
+    cp_async_wait<1>();                  // Q and dO have landed
+    __syncthreads();
+    unsigned qf[KK][4], of[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      frag_a_bf16<D>(qf[kk], Qs, 16 * warp, 16 * kk);
+      frag_a_bf16<D>(of[kk], dOs, 16 * warp, 16 * kk);
+    }
+
+    for (int i = 0; i < nl; ++i) {
+      if (i + 1 < nl) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();                // stage i has landed
+      __syncthreads();
+      const bf16* Ks = stages + (i & 1) * Tile::kDqStage;
+      const bf16* Vs = Ks + KT * Tile::kLd;
+      const float* Bs = biases + (i & 1) * KT;
+      const int k0 = tiles[i] * KT;
+
+      // S = Q K^T and dP = dO V^T over the stage's keys
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+        for (int j2 = 0; j2 < NJ / 2; ++j2) {
+          unsigned b[4];
+          frag_b_nk<D>(b, Ks, 16 * j2, 16 * kk);
+          mma_bf16(s[2 * j2], qf[kk], b);
+          mma_bf16(s[2 * j2 + 1], qf[kk], b + 2);
+          frag_b_nk<D>(b, Vs, 16 * j2, 16 * kk);
+          mma_bf16(dp[2 * j2], of[kk], b);
+          mma_bf16(dp[2 * j2 + 1], of[kk], b + 2);
+        }
+      // dS = P * (dP - delta) * scale, P = exp(S * scale + bias - lse)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int key = k0 + col;
+          const bool lo_row = e < 2;
+          float x = s[j][e] * scale + (brow != nullptr ? Bs[col] : 0.f);
+          if (causal && key > (lo_row ? row_a : row_b)) x = kNegInf;
+          const float p = key < T ? expf(x - (lo_row ? lse_a : lse_b)) : 0.f;
+          s[j][e] = p * (dp[j][e] - (lo_row ? delta_a : delta_b)) * scale;
+        }
+      // dQ += dS K over the stage's keys, dS rounded to bf16
+#pragma unroll
+      for (int kp = 0; kp < KT / 16; ++kp) {
+        unsigned a[4];
+        pack_a(a, s[2 * kp], s[2 * kp + 1]);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          unsigned b[4];
+          frag_b_kn<D>(b, Ks, 16 * kp, 16 * n2);
+          mma_bf16(acc[2 * n2], a, b);
+          mma_bf16(acc[2 * n2 + 1], a, b + 2);
+        }
+      }
+      __syncthreads();                   // the stage is refilled next
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row_a < T)
+      *reinterpret_cast<unsigned*>(dq + base + (long long)row_a * D + col) =
+          pack_bf16(acc[n][0], acc[n][1]);
+    if (row_b < T)
+      *reinterpret_cast<unsigned*>(dq + base + (long long)row_b * D + col) =
+          pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int T, float scale, int causal) {
+  using Tile = BwdTileB<D>;
+  constexpr int R = Tile::kRows, NJ = R / 8, KK = D / 16, NT = D / 8;
+
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + Tile::kTile;
+  bf16* stages = Vs + Tile::kTile;             // Q, dO; two of them
+  float* stats = reinterpret_cast<float*>(stages + 2 * Tile::kDkvStage);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * kBlock;
+  const long long bh = blockIdx.y;
+  const long long base = bh * T * D;
+  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
+
+  // this thread's accumulator rows are keys key_a and key_b; columns 8n + 2t
+  // and + 1
+  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // a block whose keys are all dead writes zeros
+  const bool any = threadIdx.x < kBlock && live_key(brow, k0 + threadIdx.x, T);
+  if (__syncthreads_or(any)) {
+    const float bias_a = (brow != nullptr && key_a < T) ? brow[key_a] : 0.f;
+    const float bias_b = (brow != nullptr && key_b < T) ? brow[key_b] : 0.f;
+    // causal: the query tiles before this key tile see none of its keys
+    const int t0 = causal ? k0 / R : 0;
+    const int n_q = (T + R - 1) / R;
+    auto issue = [&](int i) {
+      const int slot = (i - t0) & 1;
+      bf16* st = stages + slot * Tile::kDkvStage;
+      const int r0 = i * R;
+      load_tile_bf16<D, R>(st, q + base, r0, T);
+      load_tile_bf16<D, R>(st + R * Tile::kLd, dout + base, r0, T);
+      load_row<R>(stats + slot * 2 * R, lse + bh * T, r0, T);
+      load_row<R>(stats + slot * 2 * R + R, delta + bh * T, r0, T);
+    };
+    load_tile_bf16<D, kBlock>(Ks, k + base, k0, T);
+    load_tile_bf16<D, kBlock>(Vs, v + base, k0, T);
+    cp_async_commit();
+    issue(t0);
+    cp_async_commit();
+    cp_async_wait<1>();                  // K and V have landed
+    __syncthreads();
+    unsigned kf[KK][4], vf[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      frag_a_bf16<D>(kf[kk], Ks, 16 * warp, 16 * kk);
+      frag_a_bf16<D>(vf[kk], Vs, 16 * warp, 16 * kk);
+    }
+
+    for (int i = t0; i < n_q; ++i) {
+      if (i + 1 < n_q) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();                // stage i has landed
+      __syncthreads();
+      const int slot = (i - t0) & 1;
+      const bf16* Qs = stages + slot * Tile::kDkvStage;
+      const bf16* dOs = Qs + R * Tile::kLd;
+      const float* Ls = stats + slot * 2 * R;
+      const float* Dl = Ls + R;
+      const int r0 = i * R;
+
+      // S^T = K Q^T and dP^T = V dO^T over the stage's queries
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+        for (int j2 = 0; j2 < NJ / 2; ++j2) {
+          unsigned b[4];
+          frag_b_nk<D>(b, Qs, 16 * j2, 16 * kk);
+          mma_bf16(s[2 * j2], kf[kk], b);
+          mma_bf16(s[2 * j2 + 1], kf[kk], b + 2);
+          frag_b_nk<D>(b, dOs, 16 * j2, 16 * kk);
+          mma_bf16(dp[2 * j2], vf[kk], b);
+          mma_bf16(dp[2 * j2 + 1], vf[kk], b + 2);
+        }
+      // P^T, and dS^T = P^T * (dP^T - delta) * scale
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int query = r0 + col;
+          const bool lo_row = e < 2;
+          const int key = lo_row ? key_a : key_b;
+          float x = s[j][e] * scale + (lo_row ? bias_a : bias_b);
+          if (causal && key > query) x = kNegInf;
+          const float p = (key < T && query < T) ? expf(x - Ls[col]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - Dl[col]) * scale;
+          s[j][e] = p;
+        }
+      // dV += P^T dO and dK += dS^T Q over the stage's queries, P and dS
+      // rounded to bf16
+#pragma unroll
+      for (int kp = 0; kp < R / 16; ++kp) {
+        unsigned pa[4], da[4];
+        pack_a(pa, s[2 * kp], s[2 * kp + 1]);
+        pack_a(da, dp[2 * kp], dp[2 * kp + 1]);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          unsigned b[4];
+          frag_b_kn<D>(b, dOs, 16 * kp, 16 * n2);
+          mma_bf16(dv_acc[2 * n2], pa, b);
+          mma_bf16(dv_acc[2 * n2 + 1], pa, b + 2);
+          frag_b_kn<D>(b, Qs, 16 * kp, 16 * n2);
+          mma_bf16(dk_acc[2 * n2], da, b);
+          mma_bf16(dk_acc[2 * n2 + 1], da, b + 2);
+        }
+      }
+      __syncthreads();                   // the stage is refilled next
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (key_a < T) {
+      const long long o = base + (long long)key_a * D + col;
+      *reinterpret_cast<unsigned*>(dk + o) =
+          pack_bf16(dk_acc[n][0], dk_acc[n][1]);
+      *reinterpret_cast<unsigned*>(dv + o) =
+          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+    }
+    if (key_b < T) {
+      const long long o = base + (long long)key_b * D + col;
+      *reinterpret_cast<unsigned*>(dk + o) =
+          pack_bf16(dk_acc[n][2], dk_acc[n][3]);
+      *reinterpret_cast<unsigned*>(dv + o) =
+          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* dout, const float* lse, const float* delta,
+                   const float* bias, bf16* dq, int bh, int T, float scale,
+                   int causal, int device, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<D>, device, done);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int KT = BwdTileB<D>::kKeys;
+  const size_t bytes =
+      BwdTileB<D>::kDqBytes + sizeof(int) * ((T + KT - 1) / KT + 1);
+  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dout, lse, delta, bias, dq, T, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                    const bf16* dout, const float* lse, const float* delta,
+                    const float* bias, bf16* dk, bf16* dv, int bh, int T,
+                    float scale, int causal, int device,
+                    cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t e =
+      allow_smem(flash_bwd_dkv_bf16_kernel<D>, device, done);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
+  flash_bwd_dkv_bf16_kernel<D>
+      <<<grid, kThreads, BwdTileB<D>::kDkvBytes, stream>>>(
+          q, k, v, dout, lse, delta, bias, dk, dv, T, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes. q, k, v, dout (and dq, dk, dv): (bh, T,
@@ -567,6 +952,65 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_f32(
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, bias, dk, dv, dbias,
                              bh, T, scale, causal, device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 flavour, without dbias: q, k, v, dout, dq, dk, dv (bh, T, D)
+// contiguous bf16, 16-byte aligned; lse, delta and bias as above (fp32). D is
+// 32, 64 or 128.
+extern "C" int mxtpu_flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* bias, void* dq,
+    int bh, int T, int D, float scale, int causal, int device,
+    void* stream_ptr) {
+  const int rc = check_args(bh, T, device);
+  if (rc != 0) return rc;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bf16 *qb = static_cast<const bf16*>(q),
+             *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v),
+             *ob = static_cast<const bf16*>(dout);
+  bf16* dqb = static_cast<bf16*>(dq);
+  switch (D) {
+    case 32:
+      return launch_dq_bf16<32>(qb, kb, vb, ob, lse, delta, bias, dqb, bh, T,
+                                scale, causal, device, stream);
+    case 64:
+      return launch_dq_bf16<64>(qb, kb, vb, ob, lse, delta, bias, dqb, bh, T,
+                                scale, causal, device, stream);
+    case 128:
+      return launch_dq_bf16<128>(qb, kb, vb, ob, lse, delta, bias, dqb, bh,
+                                 T, scale, causal, device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* bias, void* dk,
+    void* dv, int bh, int T, int D, float scale, int causal, int device,
+    void* stream_ptr) {
+  const int rc = check_args(bh, T, device);
+  if (rc != 0) return rc;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bf16 *qb = static_cast<const bf16*>(q),
+             *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v),
+             *ob = static_cast<const bf16*>(dout);
+  bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
+  switch (D) {
+    case 32:
+      return launch_dkv_bf16<32>(qb, kb, vb, ob, lse, delta, bias, dkb, dvb,
+                                 bh, T, scale, causal, device, stream);
+    case 64:
+      return launch_dkv_bf16<64>(qb, kb, vb, ob, lse, delta, bias, dkb, dvb,
+                                 bh, T, scale, causal, device, stream);
+    case 128:
+      return launch_dkv_bf16<128>(qb, kb, vb, ob, lse, delta, bias, dkb,
+                                  dvb, bh, T, scale, causal, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,28 +1,38 @@
-// Row LayerNorm and row softmax over the last axis, fp32, for Hopper (sm_90a).
+// Row LayerNorm and row softmax over the last axis, fp32 and bf16, for
+// Hopper (sm_90a).
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/fused_norm.py: _ln_kernel (reached
 // through _ln_call and fused_layer_norm) and _softmax_kernel (reached through
-// _softmax_core and fused_softmax).
+// _softmax_core and fused_softmax), in both element types the JAX package
+// gives them: fp32, and bf16 under ShardedTrainer's compute_dtype or
+// param_dtype (x, gamma and beta all bf16, as the JAX cast leaves them).
 //
 // What bounds it on the H100: bytes. Each element is read once and written
 // once, and the arithmetic is a few operations per element, far below the
 // ~20 fp32 operations per byte at which the CUDA cores would be the limit.
-// At (R, C) = (1024, 768) the 6.3 MB of traffic needs about 1.9 us at
-// 3.35 TB/s. A decode step's LayerNorm (8 rows) or a prefill chunk's (32
-// rows) moves 25-100 KB, far less than a launch costs: there what bounds a
-// call is latency, the launch's own and one trip to memory.
+// At (R, C) = (1024, 768) the 6.3 MB of fp32 traffic needs about 1.9 us at
+// 3.35 TB/s (bf16: half). A decode step's LayerNorm (8 rows) or a prefill
+// chunk's (32 rows) moves 25-100 KB, far less than a launch costs: there
+// what bounds a call is latency, the launch's own and one trip to memory.
+//
+// Every kernel is a template over the element type T (float or
+// __nv_bfloat16): loads widen to fp32, the arithmetic is fp32, and the
+// result rounds to T once, to nearest even, where the TPU kernel's
+// .astype(o_ref.dtype) rounds.
 //
 // LayerNorm's routes, picked by the wrapper (ops/kernels/fused_norm.py
 // _route) and checked here:
-//   warp (C <= 1024, C % 4 == 0, the four bases 16-byte aligned): one warp
-//     owns a row in registers, read and written with 16-byte float4
-//     accesses, neighbouring lanes on neighbouring vectors. Each C bucket of
-//     128 has its own instantiation, so a lane holds exactly the vectors its
-//     row needs (C = 768: six float4, none masked). gamma and beta are
-//     loaded with x, before the two shuffle reductions, so their latency
-//     hides behind x's. Four rows a block.
-//   warp_scalar (C % 4 != 0 or a misaligned base): the same kernel
-//     instantiated on single floats.
+//   warp (C <= 1024, C a multiple of a 16-byte vector: 4 floats or 8 bf16,
+//     the four bases 16-byte aligned): one warp owns a row in registers,
+//     read and written with 16-byte accesses, neighbouring lanes on
+//     neighbouring vectors. Each C bucket (128 floats or 256 bf16, one
+//     vector a lane) has its own instantiation, so a lane holds exactly the
+//     vectors its row needs (C = 768: six float4 or three 8-bf16 vectors,
+//     none masked). gamma and beta are loaded with x, before the two
+//     shuffle reductions, so their latency hides behind x's. Four rows a
+//     block.
+//   warp_scalar (the vector's multiple or an alignment fails): the same
+//     kernel instantiated on single elements.
 //   long (C > 1024): one block a row of 256 threads reading the row once a
 //     pass; L2 holds it between passes.
 // A block a row over several warps at few rows was timed on the card
@@ -39,6 +49,7 @@
 // partly -inf gives 0 there, and a row that is all -inf gives NaN, as
 // jax.nn.softmax does.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,52 +95,82 @@ __device__ float block_max(float v, float* red) {
   return t;
 }
 
+// ------------------------------------------------------------ element types
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// elements of T in one 16-byte access
+template <typename T>
+constexpr int kVec16 = 16 / (int)sizeof(T);
+
+// VW consecutive elements at p as floats (VW = kVec16<T>: one 16-byte
+// access; VW = 1: one element)
+template <typename T, int VW>
+__device__ __forceinline__ void load_vec(float* v, const T* p) {
+  if constexpr (VW == 1) {
+    v[0] = widen(*p);
+  } else {
+    static_assert(VW == kVec16<T>, "a vector is one 16-byte access");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) v[k] = widen(e[k]);
+  }
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  if constexpr (VW == 1) {
+    *p = narrow<T>(v[0]);
+  } else {
+    static_assert(VW == kVec16<T>, "a vector is one 16-byte access");
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) e[k] = narrow<T>(v[k]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
 // ---------------------------------------------------------------- LayerNorm
 
-constexpr int kLnBucket = 128;   // C values a warp-route instantiation adds
 constexpr int kLnMaxC = 1024;    // longest row of the warp route
 
-// VW consecutive floats at p (VW = 4: one 16-byte access)
-template <int VW>
-__device__ __forceinline__ void load_vec(float* v, const float* p) {
-  if constexpr (VW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  if constexpr (VW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *p = v[0];
-  }
-}
-
-// One warp a row: NV vectors of VW floats a lane, 32 * NV * VW >= C and
+// One warp a row: NV vectors of VW elements a lane, 32 * NV * VW >= C and
 // C % VW == 0. x, gamma and beta are all requested before the first sum.
-template <int VW, int NV>
+template <typename T, int VW, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-ln_warp_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, float* __restrict__ y,
-               int rows, int C, float eps) {
+ln_warp_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+               const T* __restrict__ beta, T* __restrict__ y, int rows, int C,
+               float eps) {
   const int lane = threadIdx.x % kWarp;
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= rows) return;   // the whole warp leaves together
   const int nvec = C / VW;
-  const float* xr = x + row * C;
+  const T* xr = x + row * C;
   float v[NV][VW], g[NV][VW], b[NV][VW];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int j = lane + i * kWarp;
     if (j < nvec) {
-      load_vec<VW>(v[i], xr + j * VW);
-      load_vec<VW>(g[i], gamma + j * VW);
-      load_vec<VW>(b[i], beta + j * VW);
+      load_vec<T, VW>(v[i], xr + j * VW);
+      load_vec<T, VW>(g[i], gamma + j * VW);
+      load_vec<T, VW>(b[i], beta + j * VW);
     } else {
 #pragma unroll
       for (int k = 0; k < VW; ++k) v[i][k] = g[i][k] = b[i][k] = 0.f;
@@ -153,7 +194,7 @@ ln_warp_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     }
   }
   const float inv = rsqrtf(warp_sum(q) / C + eps);
-  float* yr = y + row * C;
+  T* yr = y + row * C;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int j = lane + i * kWarp;
@@ -161,49 +202,51 @@ ln_warp_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       float o[VW];
 #pragma unroll
       for (int k = 0; k < VW; ++k) o[k] = v[i][k] * inv * g[i][k] + b[i][k];
-      store_vec<VW>(yr + j * VW, o);
+      store_vec<T, VW>(yr + j * VW, o);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-ln_block_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, float* __restrict__ y,
-                int C, float eps) {
+ln_block_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                const T* __restrict__ beta, T* __restrict__ y, int C,
+                float eps) {
   __shared__ float red[kRowThreads / kWarp];
   const long long row = blockIdx.x;
-  const float* xr = x + row * C;
+  const T* xr = x + row * C;
   float s = 0.f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) s += xr[c];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) s += widen(xr[c]);
   const float mean = block_sum(s, red) / C;
   float q = 0.f;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float d = xr[c] - mean;
+    const float d = widen(xr[c]) - mean;
     q += d * d;
   }
   const float inv = rsqrtf(block_sum(q, red) / C + eps);
-  float* yr = y + row * C;
+  T* yr = y + row * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x)
-    yr[c] = (xr[c] - mean) * inv * gamma[c] + beta[c];
+    yr[c] = narrow<T>((widen(xr[c]) - mean) * inv * widen(gamma[c]) +
+                      widen(beta[c]));
 }
 
 // ------------------------------------------------------------------ softmax
 
-template <int VPL>
+template <typename T, int VPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-softmax_warp_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    int rows, int C) {
+softmax_warp_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
+                    int C) {
   const int lane = threadIdx.x % kWarp;
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= rows) return;
-  const float* xr = x + row * C;
+  const T* xr = x + row * C;
   float v[VPL];
   float m = -INFINITY;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = lane + i * kWarp;
-    v[i] = c < C ? xr[c] : -INFINITY;
+    v[i] = c < C ? widen(xr[c]) : -INFINITY;
     m = fmaxf(m, v[i]);
   }
   m = warp_max(m);
@@ -216,29 +259,31 @@ softmax_warp_kernel(const float* __restrict__ x, float* __restrict__ y,
     s += e;
   }
   s = warp_sum(s);
-  float* yr = y + row * C;
+  T* yr = y + row * C;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = lane + i * kWarp;
-    if (c < C) yr[c] = v[i] / s;
+    if (c < C) yr[c] = narrow<T>(v[i] / s);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-softmax_block_kernel(const float* __restrict__ x, float* __restrict__ y,
-                     int C) {
+softmax_block_kernel(const T* __restrict__ x, T* __restrict__ y, int C) {
   __shared__ float red[kRowThreads / kWarp];
   const long long row = blockIdx.x;
-  const float* xr = x + row * C;
+  const T* xr = x + row * C;
   float m = -INFINITY;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) m = fmaxf(m, xr[c]);
+  for (int c = threadIdx.x; c < C; c += blockDim.x)
+    m = fmaxf(m, widen(xr[c]));
   m = block_max(m, red);
   float s = 0.f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) s += expf(xr[c] - m);
-  s = block_sum(s, red);
-  float* yr = y + row * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x)
-    yr[c] = expf(xr[c] - m) / s;
+    s += expf(widen(xr[c]) - m);
+  s = block_sum(s, red);
+  T* yr = y + row * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x)
+    yr[c] = narrow<T>(expf(widen(xr[c]) - m) / s);
 }
 
 unsigned warp_grid(int rows) {
@@ -248,45 +293,54 @@ unsigned warp_grid(int rows) {
 // LayerNorm's route codes, as ops/kernels/fused_norm.py ROUTES gives them.
 enum LnRoute { kLnWarp = 0, kLnWarpScalar = 1, kLnLong = 2 };
 
-template <int VW, int NV>
-void launch_ln_warp(const float* x, const float* gamma, const float* beta,
-                    float* y, int rows, int C, float eps,
-                    cudaStream_t stream) {
-  ln_warp_kernel<VW, NV><<<warp_grid(rows), kWarpsPerBlock * kWarp, 0,
-                           stream>>>(x, gamma, beta, y, rows, C, eps);
+template <typename T, int VW, int NV>
+void launch_ln_warp(const T* x, const T* gamma, const T* beta, T* y,
+                    int rows, int C, float eps, cudaStream_t stream) {
+  ln_warp_kernel<T, VW, NV><<<warp_grid(rows), kWarpsPerBlock * kWarp, 0,
+                              stream>>>(x, gamma, beta, y, rows, C, eps);
 }
 
-// the warp route's instantiation for C's bucket of 128
-template <int VW>
-void launch_ln_warp_bucket(const float* x, const float* gamma,
-                           const float* beta, float* y, int rows, int C,
-                           float eps, cudaStream_t stream) {
-  constexpr int kPerBucket = kLnBucket / (kWarp * VW);   // vectors a lane
-  switch ((C + kLnBucket - 1) / kLnBucket) {
+// The warp route's instantiation for C's bucket: kBucket elements a bucket,
+// NB buckets at most (kBucket * NB = 1024), a bucket PB vectors a lane.
+template <typename T, int VW>
+void launch_ln_warp_bucket(const T* x, const T* gamma, const T* beta, T* y,
+                           int rows, int C, float eps, cudaStream_t stream) {
+  // a vector a lane for each bucket of 16-byte vectors (128 floats, 256
+  // bf16); four elements a lane for each 128 of the scalar instantiation
+  constexpr int kBucket = VW == 1 ? 128 : kWarp * VW;
+  constexpr int PB = kBucket / (kWarp * VW);
+  switch ((C + kBucket - 1) / kBucket) {
     case 1:
-      return launch_ln_warp<VW, 1 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
+      return launch_ln_warp<T, VW, 1 * PB>(x, gamma, beta, y, rows, C, eps,
+                                           stream);
     case 2:
-      return launch_ln_warp<VW, 2 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
+      return launch_ln_warp<T, VW, 2 * PB>(x, gamma, beta, y, rows, C, eps,
+                                           stream);
     case 3:
-      return launch_ln_warp<VW, 3 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
+      return launch_ln_warp<T, VW, 3 * PB>(x, gamma, beta, y, rows, C, eps,
+                                           stream);
     case 4:
-      return launch_ln_warp<VW, 4 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
-    case 5:
-      return launch_ln_warp<VW, 5 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
-    case 6:
-      return launch_ln_warp<VW, 6 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
-    case 7:
-      return launch_ln_warp<VW, 7 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
+      return launch_ln_warp<T, VW, 4 * PB>(x, gamma, beta, y, rows, C, eps,
+                                           stream);
     default:
-      return launch_ln_warp<VW, 8 * kPerBucket>(x, gamma, beta, y, rows, C,
-                                                eps, stream);
+      if constexpr (kBucket * 4 >= kLnMaxC) {
+        return;   // unreachable: the entry point refuses C > 1024
+      } else {
+        switch ((C + kBucket - 1) / kBucket) {
+          case 5:
+            return launch_ln_warp<T, VW, 5 * PB>(x, gamma, beta, y, rows, C,
+                                                 eps, stream);
+          case 6:
+            return launch_ln_warp<T, VW, 6 * PB>(x, gamma, beta, y, rows, C,
+                                                 eps, stream);
+          case 7:
+            return launch_ln_warp<T, VW, 7 * PB>(x, gamma, beta, y, rows, C,
+                                                 eps, stream);
+          default:
+            return launch_ln_warp<T, VW, 8 * PB>(x, gamma, beta, y, rows, C,
+                                                 eps, stream);
+        }
+      }
   }
 }
 
@@ -303,25 +357,16 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-// C entry points, bound with ctypes. Each makes `device` current for this
-// library's runtime, launches on `stream` (PyTorch's current stream),
-// allocates nothing, and returns cudaGetLastError() so that a refused launch
-// surfaces in the caller.
-
-// y = LayerNorm(x) over rows of C. `route` is the wrapper's choice (LnRoute);
-// a route whose conditions fail is refused with cudaErrorInvalidValue, so
-// the wrapper and this file cannot disagree: warp takes C <= 1024 with
-// C % 4 == 0 and four 16-byte aligned bases, warp_scalar C <= 1024, and
-// long C > 1024.
-extern "C" int mxtpu_layer_norm_f32(const float* x, const float* gamma,
-                                    const float* beta, float* y, int rows,
-                                    int C, float eps, int route, int device,
-                                    void* stream_ptr) {
+// y = LayerNorm(x) over rows of C on the wrapper's route (LnRoute); a route
+// whose conditions fail is refused with cudaErrorInvalidValue, so the
+// wrapper and this file cannot disagree.
+template <typename T>
+int layer_norm(const T* x, const T* gamma, const T* beta, T* y, int rows,
+               int C, float eps, int route, int device, void* stream_ptr) {
+  constexpr int VW = kVec16<T>;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(gamma) &&
+  const bool vec = C % VW == 0 && aligned16(x) && aligned16(gamma) &&
                    aligned16(beta) && aligned16(y);
   const bool ok = route == kLnLong         ? C > kLnMaxC
                   : route == kLnWarp       ? C <= kLnMaxC && vec
@@ -332,39 +377,81 @@ extern "C" int mxtpu_layer_norm_f32(const float* x, const float* gamma,
   if (e != cudaSuccess) return (int)e;
   switch (route) {
     case kLnWarp:
-      launch_ln_warp_bucket<4>(x, gamma, beta, y, rows, C, eps, stream);
+      launch_ln_warp_bucket<T, VW>(x, gamma, beta, y, rows, C, eps, stream);
       break;
     case kLnWarpScalar:
-      launch_ln_warp_bucket<1>(x, gamma, beta, y, rows, C, eps, stream);
+      launch_ln_warp_bucket<T, 1>(x, gamma, beta, y, rows, C, eps, stream);
       break;
     default:
-      ln_block_kernel<<<(unsigned)rows, kRowThreads, 0, stream>>>(
+      ln_block_kernel<T><<<(unsigned)rows, kRowThreads, 0, stream>>>(
           x, gamma, beta, y, C, eps);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int mxtpu_softmax_f32(const float* x, float* y, int rows, int C,
-                                 int device, void* stream_ptr) {
+template <typename T>
+int softmax(const T* x, T* y, int rows, int C, int device, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const dim3 block(kWarpsPerBlock * kWarp);
   if (C <= 128) {
-    softmax_warp_kernel<4><<<warp_grid(rows), block, 0, stream>>>(
+    softmax_warp_kernel<T, 4><<<warp_grid(rows), block, 0, stream>>>(
         x, y, rows, C);
   } else if (C <= 256) {
-    softmax_warp_kernel<8><<<warp_grid(rows), block, 0, stream>>>(
+    softmax_warp_kernel<T, 8><<<warp_grid(rows), block, 0, stream>>>(
         x, y, rows, C);
   } else if (C <= 512) {
-    softmax_warp_kernel<16><<<warp_grid(rows), block, 0, stream>>>(
+    softmax_warp_kernel<T, 16><<<warp_grid(rows), block, 0, stream>>>(
         x, y, rows, C);
   } else if (C <= 1024) {
-    softmax_warp_kernel<32><<<warp_grid(rows), block, 0, stream>>>(
+    softmax_warp_kernel<T, 32><<<warp_grid(rows), block, 0, stream>>>(
         x, y, rows, C);
   } else {
-    softmax_block_kernel<<<(unsigned)rows, kRowThreads, 0, stream>>>(x, y, C);
+    softmax_block_kernel<T><<<(unsigned)rows, kRowThreads, 0, stream>>>(
+        x, y, C);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. Each makes `device` current for this
+// library's runtime, launches on `stream` (PyTorch's current stream),
+// allocates nothing, and returns cudaGetLastError() so that a refused launch
+// surfaces in the caller.
+//
+// LayerNorm: `route` is the wrapper's choice (LnRoute): warp takes C <= 1024
+// with C a multiple of the 16-byte vector (4 floats, 8 bf16) and four
+// 16-byte aligned bases, warp_scalar C <= 1024, and long C > 1024. The bf16
+// entries take x, gamma, beta and y all bf16 (__nv_bfloat16).
+extern "C" int mxtpu_layer_norm_f32(const float* x, const float* gamma,
+                                    const float* beta, float* y, int rows,
+                                    int C, float eps, int route, int device,
+                                    void* stream_ptr) {
+  return layer_norm<float>(x, gamma, beta, y, rows, C, eps, route, device,
+                           stream_ptr);
+}
+
+extern "C" int mxtpu_layer_norm_bf16(const void* x, const void* gamma,
+                                     const void* beta, void* y, int rows,
+                                     int C, float eps, int route, int device,
+                                     void* stream_ptr) {
+  using B = __nv_bfloat16;
+  return layer_norm<B>(static_cast<const B*>(x), static_cast<const B*>(gamma),
+                       static_cast<const B*>(beta), static_cast<B*>(y), rows,
+                       C, eps, route, device, stream_ptr);
+}
+
+extern "C" int mxtpu_softmax_f32(const float* x, float* y, int rows, int C,
+                                 int device, void* stream_ptr) {
+  return softmax<float>(x, y, rows, C, device, stream_ptr);
+}
+
+extern "C" int mxtpu_softmax_bf16(const void* x, void* y, int rows, int C,
+                                  int device, void* stream_ptr) {
+  using B = __nv_bfloat16;
+  return softmax<B>(static_cast<const B*>(x), static_cast<B*>(y), rows, C,
+                    device, stream_ptr);
 }

@@ -361,10 +361,14 @@ class HybridBlock(Block):
         """Per-layer deferred-shape rule; default: nothing to infer."""
 
     def _param_values(self, nd_mode):
+        """NDArrays in nd mode; on tensors, what torch's registry holds
+        under each name (``_parameters``/``_buffers``), where a caller may
+        have put stand-ins for the step (a trainer's bf16 casts)."""
         vals = {}
         for ln, p in self._reg_params.items():
             d = p.data()
-            vals[ln] = d if nd_mode else d._t
+            vals[ln] = d if nd_mode else \
+                (self._buffers if p._aux else self._parameters)[ln]
         return vals
 
     def forward(self, *args, **extra):

@@ -20,6 +20,11 @@ LayerNorm, are differentiable through ``torch.autograd``.
 
 The modules are built in inference mode (``eval()``), as the JAX package's
 forward runs outside ``autograd.record()``; ``train()`` turns dropout on.
+They run in the dtype their parameters carry: under ShardedTrainer's bf16
+``compute_dtype`` every product, LayerNorm and softmax runs in bf16 (the
+kernels' bf16 flavours), the padding bias follows PyTorch's promotion as
+the JAX package's follows jnp's (a bf16 mask keeps bf16 scores; -1e30 is a
+bf16 value), and the flash path's key bias stays fp32.
 """
 
 import math

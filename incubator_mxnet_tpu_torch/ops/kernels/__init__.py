@@ -6,15 +6,18 @@ and are built at first use by ``_build``."""
 from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_backward_reference,
                               flash_attention_bwd_dkv,
+                              flash_attention_bwd_dkv_bf16,
                               flash_attention_bwd_dkv_dbias,
                               flash_attention_bwd_dq,
+                              flash_attention_bwd_dq_bf16,
                               flash_attention_forward,
+                              flash_attention_fwd_bf16,
                               flash_attention_reference)
 from .flash_decode import (paged_causal_attention, paged_flash_decode,
                            paged_flash_decode_reference)
 from .fused_bottleneck import bottleneck_reference, fused_bottleneck
-from .fused_norm import (layer_norm, layer_norm_reference, softmax,
-                         softmax_reference)
+from .fused_norm import (layer_norm, layer_norm_bf16, layer_norm_reference,
+                         softmax, softmax_bf16, softmax_reference)
 from .int8_matmul import (int8_matmul, int8_matmul_nk,
                           int8_matmul_nk_reference, int8_matmul_reference)
 from .fused_optim import (fused_adam_flat, fused_adam_flat_bf16,
@@ -28,7 +31,9 @@ from .fused_optim import (fused_adam_flat, fused_adam_flat_bf16,
 
 __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dkv_dbias", "fused_adam_flat_bf16",
+           "flash_attention_bwd_dkv_dbias", "flash_attention_bwd_dkv_bf16",
+           "flash_attention_bwd_dq_bf16", "flash_attention_fwd_bf16",
+           "fused_adam_flat_bf16",
            "fused_adamw_flat_bf16", "fused_sgd_mom_flat_bf16",
            "flash_attention_bwd_dq", "flash_attention_forward",
            "flash_attention_reference", "fused_adam_flat",
@@ -37,12 +42,12 @@ __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward"
            "fused_adam_flat_reference", "fused_adamw_flat",
            "fused_adamw_flat_reference", "fused_bottleneck",
            "fused_sgd_mom_flat", "fused_sgd_mom_flat_reference",
-           "layer_norm",
+           "layer_norm", "layer_norm_bf16",
            "layer_norm_reference", "multi_trainer_adam",
            "multi_trainer_adam_reference", "multi_trainer_sgd_mom",
            "multi_trainer_sgd_mom_reference",
            "paged_causal_attention", "paged_flash_decode",
-           "paged_flash_decode_reference", "softmax", "softmax_reference",
+           "paged_flash_decode_reference", "softmax", "softmax_bf16", "softmax_reference",
            "WRAPPERS", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> the wrapper that launches it and counts its launches
@@ -64,6 +69,11 @@ WRAPPERS = {
     "adam_flat_bf16": fused_adam_flat_bf16,
     "adamw_flat_bf16": fused_adamw_flat_bf16,
     "int8_matmul": int8_matmul,
+    "layer_norm_bf16": layer_norm_bf16,
+    "softmax_bf16": softmax_bf16,
+    "flash_attention_fwd_bf16": flash_attention_fwd_bf16,
+    "flash_attention_bwd_dq_bf16": flash_attention_bwd_dq_bf16,
+    "flash_attention_bwd_dkv_bf16": flash_attention_bwd_dkv_bf16,
 }
 
 

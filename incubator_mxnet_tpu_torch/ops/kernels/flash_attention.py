@@ -19,6 +19,17 @@ without dbias counts on ``flash_attention_bwd_dkv``, with it on
 ``torch.autograd`` in q, k, v and a learned ``kv_bias`` (the TPU kernel's
 ``has_dbias`` path); its padding mask is a constant, as in the JAX package,
 and costs no dbias.
+
+Each kernel has an fp32 and a bf16 flavour, as the TPU kernels take the
+input dtype: q, k, v (and do) of one dtype, the key bias and the lse fp32.
+``flash_attention_forward`` and ``flash_attention_backward`` route by dtype;
+the bf16 kernels count on ``flash_attention_fwd_bf16``,
+``flash_attention_bwd_dq_bf16`` and ``flash_attention_bwd_dkv_bf16``. A bf16
+CUDA tensor launches them or raises (no cast to fp32); float16 raises
+TypeError, and the bf16 ``has_dbias`` variant is still to port (ROADMAP
+Queue 2 item 14). The plain versions round where the TPU kernels round:
+p to the input dtype before P V and dS before dS K and dS^T Q (a no-op for
+fp32), with every product taken in fp32 from the rounded values.
 """
 
 import torch
@@ -29,10 +40,23 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_reference", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_dbias"]
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_dbias",
+           "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+           "flash_attention_bwd_dkv_bf16"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
+#: the input dtypes with CUDA kernels; float16 is ROADMAP Queue 2 item 13
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _rounded(x, dtype):
+    """``x`` rounded to a low-precision input ``dtype`` and back, where the
+    TPU kernels feed their second products in the input dtype; float32 and
+    float64 inputs pass through unchanged."""
+    if dtype in (torch.float32, torch.float64):
+        return x
+    return x.to(dtype).to(x.dtype)
 
 
 def flash_attention_reference(q, k, v, bias=None, scale=1.0, causal=False):
@@ -40,7 +64,9 @@ def flash_attention_reference(q, k, v, bias=None, scale=1.0, causal=False):
     scaled, plus the per-key ``bias`` (BH, T), causal scores above the
     diagonal set to -1e30, softmax through max / exp / sum, and rows whose
     max stays at or below -0.5e30 (every key masked) set to exact 0 with
-    lse 0. Returns ``(out, lse)``."""
+    lse 0. Returns ``(out, lse)``. In bf16, as the TPU kernel: both
+    products in fp32 from the bf16 values, p rounded to bf16 before P V, the
+    sum l and the lse from the unrounded p."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()[:, None, :]
@@ -50,21 +76,27 @@ def flash_attention_reference(q, k, v, bias=None, scale=1.0, causal=False):
     m = s.amax(dim=-1).clamp_min(_NEG_INF)
     p = torch.exp(s - m[..., None])
     l_safe = p.sum(dim=-1).clamp_min(1e-30)
-    out = torch.matmul(p, v.float()) / l_safe[..., None]
+    out = torch.matmul(_rounded(p, v.dtype), v.float()) / l_safe[..., None]
     dead = m <= _NEG_INF * 0.5
     out = out.masked_fill(dead[..., None], 0.0)
     lse = (m + torch.log(l_safe)).masked_fill(dead, 0.0)
     return out.to(q.dtype), lse
 
 
-def _check_cuda(q, k, v, bias):
+def _check_cuda(q, k, v, bias, dtype=None):
+    """Device, dtype, shape, contiguity and alignment of a kernel's inputs;
+    ``dtype`` is the one its kernel takes (None: either kernel dtype)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError("flash_attention: %s on %s, q on %s"
                              % (name, t.device, q.device))
-        if t.dtype != torch.float32:
-            raise TypeError("flash_attention: the CUDA kernel takes float32, "
-                            "%s is %s" % (name, t.dtype))
+        if t.dtype not in _KERNEL_DTYPES or t.dtype != q.dtype \
+                or (dtype is not None and t.dtype != dtype):
+            raise TypeError("flash_attention: the CUDA kernels take q, k, v "
+                            "of one dtype, float32 or bfloat16%s; %s is %s "
+                            "(float16 is ROADMAP Queue 2 item 13)"
+                            % ("" if dtype is None else
+                               " (this one %s)" % dtype, name, t.dtype))
         if t.dim() != 3 or t.shape != q.shape:
             raise ValueError("flash_attention: q, k, v must share one "
                              "(BH, T, D) shape, got %s" % (tuple(t.shape),))
@@ -85,45 +117,76 @@ def _check_cuda(q, k, v, bias):
                              % (bh, T, q.device))
 
 
-def _forward_cost(bh, T, D, bias, causal):
+def _forward_cost(bh, T, D, bias, causal, elem_bytes=4):
     """(flops, bytes) of one forward launch: both products over every key
     (half of them under a causal mask), as the plain version counts, and
     the bytes of the kernel's bound with the per-key bias read once."""
-    nbytes, _live, dense = _costs.flash_forward_cost(bh, T, D, [T])
+    nbytes, _live, dense = _costs.flash_forward_cost(bh, T, D, [T],
+                                                     elem_bytes)
     if bias is not None:
         nbytes += bh * T * 4
     return (dense / 2 if causal else dense), nbytes
 
 
+def _forward_launch(entry, wrapper, q, k, v, bias, scale, causal):
+    """One launch of a forward kernel (C entry ``entry``), counted on
+    ``wrapper``. Returns ``(out, lse)``."""
+    bh, T, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, T), dtype=torch.float32, device=q.device)
+    if bh == 0 or T == 0:
+        return out, lse
+    rc = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), bh, T, D, float(scale),
+        int(bool(causal)), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, wrapper.__name__)
+    esize = q.element_size()
+    _build.count_launch(wrapper, lambda: _forward_cost(bh, T, D, bias, causal,
+                                                       esize))
+    return out, lse
+
+
 def flash_attention_forward(q, k, v, bias=None, scale=None, causal=False):
     """Attention forward on (BH, T, D); ``bias`` is an additive per-key
-    (BH, T) float32 tensor or None. Returns ``(out, lse)``."""
+    (BH, T) float32 tensor or None. Returns ``(out, lse)``: out in q's
+    dtype, lse float32. CUDA tensors of bfloat16 go to
+    ``flash_attention_fwd_bf16``."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale, causal)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
-    _check_cuda(q, k, v, bias)
-    bh, T, D = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, T), dtype=torch.float32, device=q.device)
-    if bh == 0 or T == 0:
-        return out, lse
-    lib = _build.library()
-    rc = lib.mxtpu_flash_attention_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), bh, T, D, float(scale),
-        int(bool(causal)), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_attention")
-    _build.count_launch(flash_attention_forward,
-                        lambda: _forward_cost(bh, T, D, bias, causal))
-    return out, lse
+    if q.dtype == torch.bfloat16:
+        return flash_attention_fwd_bf16(q, k, v, bias, scale, causal)
+    _check_cuda(q, k, v, bias, torch.float32)
+    return _forward_launch("mxtpu_flash_attention_fwd_f32",
+                           flash_attention_forward, q, k, v, bias, scale,
+                           causal)
 
 
 flash_attention_forward.launches = 0
+
+
+def flash_attention_fwd_bf16(q, k, v, bias=None, scale=None, causal=False):
+    """The bf16 forward kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v,
+    an fp32 (BH, T) bias or None. Returns ``(out, lse)``, out bf16 and lse
+    fp32."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_fwd_bf16: takes CUDA tensors, got "
+                         "%s" % q.device)
+    _check_cuda(q, k, v, bias, torch.bfloat16)
+    return _forward_launch("mxtpu_flash_attention_fwd_bf16",
+                           flash_attention_fwd_bf16, q, k, v, bias, scale,
+                           causal)
+
+
+flash_attention_fwd_bf16.launches = 0
 
 
 def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
@@ -141,7 +204,10 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
     The formulas run in ``compute_dtype``: float32 (the default) returns
     the gradients in the inputs' dtypes and dbias in float32; float64
     evaluates the same formulas on the same inputs in float64 and returns
-    float64, the oracle that the CUDA kernels are held to on the card."""
+    float64, the oracle that the CUDA kernels are held to on the card. For
+    bf16 inputs p and dS are rounded to bf16 before the second products, as
+    the TPU kernels round them (``_recompute_p_ds``), and delta is taken in
+    fp32 from the bf16 dO and O; dbias stays the unrounded sum."""
     cd = compute_dtype
     qf, kf, vf, dof = q.to(cd), k.to(cd), v.to(cd), do.to(cd)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -155,9 +221,10 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds_bias = p * (dp - delta[..., None])
     ds = ds_bias * scale
-    dq = torch.matmul(ds, kf)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds_r, p_r = _rounded(ds, v.dtype), _rounded(p, v.dtype)
+    dq = torch.matmul(ds_r, kf)
+    dk = torch.matmul(ds_r.transpose(-1, -2), qf)
+    dv = torch.matmul(p_r.transpose(-1, -2), dof)
     grads = (dq, dk, dv)
     if cd == torch.float32:
         grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
@@ -166,15 +233,15 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
     return grads
 
 
-def _check_bwd_cuda(q, k, v, do, lse, delta, bias):
-    _check_cuda(q, k, v, bias)
+def _check_bwd_cuda(q, k, v, do, lse, delta, bias, dtype):
+    _check_cuda(q, k, v, bias, dtype)
     bh, T, _D = q.shape
-    if do.device != q.device or do.dtype != torch.float32 \
+    if do.device != q.device or do.dtype != q.dtype \
             or do.shape != q.shape or not do.is_contiguous() \
             or do.data_ptr() % 16:
         raise ValueError("flash_attention backward: do must be a contiguous, "
-                         "16-byte aligned float32 %s tensor on %s"
-                         % (tuple(q.shape), q.device))
+                         "16-byte aligned %s %s tensor on %s"
+                         % (q.dtype, tuple(q.shape), q.device))
     for name, t in (("lse", lse), ("delta", delta)):
         if t.device != q.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != (bh, T) or not t.is_contiguous():
@@ -190,7 +257,7 @@ def _stream(t):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal):
     """The dQ kernel on CUDA tensors: (BH, T, D) q, k, v, do; (BH, T) lse
     and delta = rowsum(dO * O); bias (BH, T) or None. Returns dq."""
-    _check_bwd_cuda(q, k, v, do, lse, delta, bias)
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.float32)
     bh, T, D = q.shape
     dq = torch.empty_like(q)
     if bh == 0 or T == 0:
@@ -213,7 +280,7 @@ def _dkv(what, wrapper, q, k, v, do, lse, delta, bias, scale, causal,
          dbias):
     """One launch of the dK/dV kernel, with the dbias output when ``dbias``;
     counted on ``wrapper``. Returns ``(dk, dv[, dbias])``."""
-    _check_bwd_cuda(q, k, v, do, lse, delta, bias)
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.float32)
     bh, T, D = q.shape
     outs = (torch.empty_like(k), torch.empty_like(v))
     if dbias:
@@ -254,13 +321,75 @@ def flash_attention_bwd_dkv_dbias(q, k, v, do, lse, delta, bias, scale,
 flash_attention_bwd_dkv_dbias.launches = 0
 
 
+def _backward_cost(bh, T, D, bias, causal, n_prod, n_out, elem_bytes):
+    """(flops, bytes) of one backward launch: ``n_prod`` T x T x D products
+    over every key (half under a causal mask); q, k, v and do read, lse and
+    delta (and the bias) read, ``n_out`` (BH, T, D) outputs written."""
+    flops = 2.0 * n_prod * bh * T * T * D / (2 if causal else 1)
+    nbytes = ((4 + n_out) * bh * T * D * elem_bytes
+              + (2 + (bias is not None)) * bh * T * 4)
+    return flops, float(nbytes)
+
+
+def flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias, scale,
+                                causal):
+    """The bf16 dQ kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v, do;
+    fp32 (BH, T) lse, delta = rowsum(dO * O) in fp32, and bias or None.
+    Returns dq (bf16)."""
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.bfloat16)
+    bh, T, D = q.shape
+    dq = torch.empty_like(q)
+    if bh == 0 or T == 0:
+        return dq
+    rc = _build.library().mxtpu_flash_attention_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if bias is None else bias.data_ptr(), dq.data_ptr(),
+        bh, T, D, float(scale), int(bool(causal)), q.device.index,
+        _stream(q))
+    _build.check(rc, "flash_attention_bwd_dq_bf16")
+    _build.count_launch(flash_attention_bwd_dq_bf16,
+                        lambda: _backward_cost(bh, T, D, bias, causal, 3, 1,
+                                               2))
+    return dq
+
+
+flash_attention_bwd_dq_bf16.launches = 0
+
+
+def flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, bias, scale,
+                                 causal):
+    """The bf16 dK/dV kernel (without dbias) on CUDA tensors, with the bf16
+    dQ kernel's arguments. Returns ``(dk, dv)`` (bf16)."""
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.bfloat16)
+    bh, T, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if bh == 0 or T == 0:
+        return dk, dv
+    rc = _build.library().mxtpu_flash_attention_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if bias is None else bias.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, T, D, float(scale), int(bool(causal)),
+        q.device.index, _stream(q))
+    _build.check(rc, "flash_attention_bwd_dkv_bf16")
+    _build.count_launch(flash_attention_bwd_dkv_bf16,
+                        lambda: _backward_cost(bh, T, D, bias, causal, 4, 2,
+                                               2))
+    return dk, dv
+
+
+flash_attention_bwd_dkv_bf16.launches = 0
+
+
 def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
                              causal=False, needs_dbias=False):
     """Gradients of attention on (BH, T, D) from the forward's ``out`` and
     ``lse`` and the output's cotangent ``do``: ``(dq, dk, dv)``, and with
     ``needs_dbias`` the per-key bias's cotangent (BH, T) after them, from
     the dK/dV kernel's dbias variant. Without it the bias (a padding mask)
-    gets no gradient and costs none."""
+    gets no gradient and costs none. bf16 CUDA tensors go to the bf16
+    kernels, which have no dbias variant yet."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
@@ -269,6 +398,19 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
                                                   needs_dbias)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
+    if q.dtype == torch.bfloat16:
+        if needs_dbias:
+            raise NotImplementedError(
+                "flash_attention: the bf16 dK/dV kernel with a learned "
+                "bias's cotangent is not ported yet (ROADMAP Queue 2 item "
+                "14)")
+        # delta = rowsum(dO * O) in fp32 from the bf16 tensors, as
+        # _bwd_call takes it
+        delta = (do.float() * out.float()).sum(dim=-1)
+        dq = flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias,
+                                         scale, causal)
+        return (dq,) + flash_attention_bwd_dkv_bf16(
+            q, k, v, do, lse, delta, bias, scale, causal)
     # delta = rowsum(dO * O): one reduction, as in the TPU kernel's caller
     delta = (do * out).sum(dim=-1)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal)

@@ -8,15 +8,21 @@ they are plain PyTorch, written as they are, in ``torch.autograd.Function``s
 around the forward kernels.
 
 A wrapper takes the plain version for a tensor on the CPU, and only then.
-For a CUDA tensor it launches its kernel or raises: float32, contiguous,
-any row count. Each launch adds one to the wrapper's ``launches`` count.
-Inputs that need no gradient skip the autograd Function.
+For a CUDA tensor it launches its kernel or raises: float32 or bfloat16
+(x, gamma and beta of one dtype, as the JAX package's compute_dtype cast
+leaves them), contiguous, any row count; float16 raises TypeError. Each
+dtype has its own kernel and its own launch count: ``layer_norm`` and
+``softmax`` count the fp32 kernels and route a bf16 tensor to
+``layer_norm_bf16`` / ``softmax_bf16``, which count the bf16 ones. A bf16
+CUDA tensor launches the bf16 kernel or raises: there is no fallback and no
+cast to fp32. Inputs that need no gradient skip the autograd Function.
 
-``_route`` picks the LayerNorm kernel's route from the row length and the
-four tensors' addresses: ``"warp"`` (a warp a row, 16-byte accesses) for
-C <= 1024 with C % 4 == 0 and 16-byte aligned bases, ``"warp_scalar"`` for
-the other rows of up to 1024, ``"long"`` (a block a row) above 1024. The C
-entry refuses a route whose conditions fail.
+``_route`` picks the LayerNorm kernel's route from the row length, the
+element size and the four tensors' addresses: ``"warp"`` (a warp a row,
+16-byte accesses) for C <= 1024 with C a multiple of a 16-byte vector (4
+floats, 8 bf16) and 16-byte aligned bases, ``"warp_scalar"`` for the other
+rows of up to 1024, ``"long"`` (a block a row) above 1024. The C entry
+refuses a route whose conditions fail.
 """
 
 import torch
@@ -24,8 +30,8 @@ import torch
 from ...telemetry import costs as _costs
 from . import _build
 
-__all__ = ["layer_norm", "softmax", "layer_norm_reference",
-           "softmax_reference", "ROUTES"]
+__all__ = ["layer_norm", "softmax", "layer_norm_bf16", "softmax_bf16",
+           "layer_norm_reference", "softmax_reference", "ROUTES"]
 
 _INT_MAX = 2 ** 31 - 1
 
@@ -35,13 +41,14 @@ ROUTES = {"warp": 0, "warp_scalar": 1, "long": 2}
 MAX_WARP_C = 1024
 
 
-def _route(C, x_ptr, g_ptr, b_ptr, y_ptr):
-    """The LayerNorm kernel's route for rows of ``C`` whose x, gamma, beta
-    and output start at those byte addresses."""
+def _route(C, x_ptr, g_ptr, b_ptr, y_ptr, elem_bytes=4):
+    """The LayerNorm kernel's route for rows of ``C`` elements of
+    ``elem_bytes`` bytes whose x, gamma, beta and output start at those
+    byte addresses."""
     if C > MAX_WARP_C:
         return "long"
-    vec = C % 4 == 0 and all(p % 16 == 0 for p in (x_ptr, g_ptr, b_ptr,
-                                                    y_ptr))
+    vec = C % (16 // elem_bytes) == 0 and all(
+        p % 16 == 0 for p in (x_ptr, g_ptr, b_ptr, y_ptr))
     return "warp" if vec else "warp_scalar"
 
 
@@ -66,14 +73,22 @@ def softmax_reference(x):
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
+#: the dtypes with a CUDA kernel; float16 is ROADMAP Queue 2 item 13
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_cuda(what, *tensors):
-    dev = tensors[0].device
+    dev, dt = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError("%s: tensors on %s and %s" % (what, dev, t.device))
-        if t.dtype != torch.float32:
-            raise TypeError("%s: the CUDA kernel takes float32, got %s"
+        if t.dtype not in _KERNEL_DTYPES:
+            raise TypeError("%s: the CUDA kernels take float32 or bfloat16, "
+                            "got %s (float16 is ROADMAP Queue 2 item 13)"
                             % (what, t.dtype))
+        if t.dtype != dt:
+            raise TypeError("%s: tensors of %s and %s; the kernel takes one "
+                            "dtype" % (what, dt, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: the CUDA kernel takes contiguous tensors"
                              % what)
@@ -90,26 +105,51 @@ def _rows(what, x):
     return rows, C
 
 
+def _layer_norm_launch(what, entry, wrapper, x, gamma, beta, eps):
+    """One launch of a LayerNorm kernel (C entry ``entry``) on CUDA tensors
+    of one dtype, counted on ``wrapper``."""
+    _check_cuda(what, x, gamma, beta)
+    rows, C = _rows(what, x)
+    if tuple(gamma.shape) != (C,) or tuple(beta.shape) != (C,):
+        raise ValueError("%s: gamma %s and beta %s must be (%d,)"
+                         % (what, tuple(gamma.shape), tuple(beta.shape), C))
+    out = torch.empty_like(x)
+    if rows == 0 or C == 0:
+        return out
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr())
+    esize = x.element_size()
+    rc = getattr(_build.library(), entry)(
+        *ptrs, rows, C, float(eps), ROUTES[_route(C, *ptrs, esize)],
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, what)
+    _build.count_launch(wrapper,
+                        lambda: _costs.rows_cost(rows, C, 2, esize))
+    return out
+
+
+def layer_norm_bf16(x, gamma, beta, eps=1e-5):
+    """The bf16 LayerNorm kernel on CUDA tensors: x, gamma and beta all
+    bfloat16, contiguous; fp32 arithmetic, the output rounded to bf16 once.
+    Returns y (bf16). Not differentiable by itself: ``layer_norm`` is."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError("layer_norm_bf16: takes bfloat16 CUDA tensors, got "
+                        "%s on %s" % (x.dtype, x.device))
+    return _layer_norm_launch("layer_norm_bf16", "mxtpu_layer_norm_bf16",
+                              layer_norm_bf16, x, gamma, beta, eps)
+
+
+layer_norm_bf16.launches = 0
+
+
 def _layer_norm_forward(x, gamma, beta, eps):
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError("layer_norm: unsupported device %s" % x.device)
-    _check_cuda("layer_norm", x, gamma, beta)
-    rows, C = _rows("layer_norm", x)
-    if tuple(gamma.shape) != (C,) or tuple(beta.shape) != (C,):
-        raise ValueError("layer_norm: gamma %s and beta %s must be (%d,)"
-                         % (tuple(gamma.shape), tuple(beta.shape), C))
-    out = torch.empty_like(x)
-    if rows == 0 or C == 0:
-        return out
-    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr())
-    rc = _build.library().mxtpu_layer_norm_f32(
-        *ptrs, rows, C, float(eps), ROUTES[_route(C, *ptrs)], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "layer_norm")
-    _build.count_launch(layer_norm, lambda: _costs.rows_cost(rows, C, 2))
-    return out
+    if x.dtype == torch.bfloat16:
+        return layer_norm_bf16(x, gamma, beta, eps)
+    return _layer_norm_launch("layer_norm", "mxtpu_layer_norm_f32",
+                              layer_norm, x, gamma, beta, eps)
 
 
 def _ln_backward(x, gamma, g, eps):
@@ -156,23 +196,46 @@ def layer_norm(x, gamma, beta, eps=1e-5):
 layer_norm.launches = 0
 
 
+def _softmax_launch(what, entry, wrapper, x):
+    """One launch of a softmax kernel (C entry ``entry``), counted on
+    ``wrapper``."""
+    _check_cuda(what, x)
+    rows, C = _rows(what, x)
+    out = torch.empty_like(x)
+    if rows == 0 or C == 0:
+        return out
+    rc = getattr(_build.library(), entry)(
+        x.data_ptr(), out.data_ptr(), rows, C, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, what)
+    esize = x.element_size()
+    _build.count_launch(wrapper,
+                        lambda: _costs.rows_cost(rows, C, 0, esize))
+    return out
+
+
+def softmax_bf16(x):
+    """The bf16 softmax kernel on a contiguous bfloat16 CUDA tensor: fp32
+    arithmetic, the output rounded to bf16 once. Not differentiable by
+    itself: ``softmax`` is."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError("softmax_bf16: takes a bfloat16 CUDA tensor, got %s "
+                        "on %s" % (x.dtype, x.device))
+    return _softmax_launch("softmax_bf16", "mxtpu_softmax_bf16",
+                           softmax_bf16, x)
+
+
+softmax_bf16.launches = 0
+
+
 def _softmax_forward(x):
     if x.device.type == "cpu":
         return softmax_reference(x)
     if x.device.type != "cuda":
         raise ValueError("softmax: unsupported device %s" % x.device)
-    _check_cuda("softmax", x)
-    rows, C = _rows("softmax", x)
-    out = torch.empty_like(x)
-    if rows == 0 or C == 0:
-        return out
-    lib = _build.library()
-    rc = lib.mxtpu_softmax_f32(
-        x.data_ptr(), out.data_ptr(), rows, C, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "softmax")
-    _build.count_launch(softmax, lambda: _costs.rows_cost(rows, C))
-    return out
+    if x.dtype == torch.bfloat16:
+        return softmax_bf16(x)
+    return _softmax_launch("softmax", "mxtpu_softmax_f32", softmax, x)
 
 
 class _Softmax(torch.autograd.Function):

@@ -42,7 +42,14 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
 
 
 def embedding(data, weight):
-    """Integer-id row gather from ``weight`` (input_dim, output_dim)."""
+    """Integer-id row gather from ``weight`` (input_dim, output_dim). A
+    bf16 or fp16 weight on the CPU is gathered from its fp32 widening and
+    the rows rounded back (the same values), so that its gradient is summed
+    in fp32, as PyTorch's CUDA kernel sums it; the CPU kernel would sum
+    the rows of a repeated id in bf16, which loses most of a long sum."""
+    if weight.device.type == "cpu" and weight.dtype in (torch.bfloat16,
+                                                        torch.float16):
+        return F.embedding(data.long(), weight.float()).to(weight.dtype)
     return F.embedding(data.long(), weight)
 
 

@@ -19,12 +19,41 @@ moves them, and
 the parameters, as do parameters that take no gradient (gluon's
 ``differentiable=False``).
 
+Mixed precision follows the JAX trainer:
+
+- ``compute_dtype="bfloat16"``: the step runs the block on bf16 casts of
+  the fp32 parameters and auxiliary state and on bf16 copies of the
+  floating data, as the JAX trainer casts them inside the differentiated
+  function. Each tensor is cast once, so a tied weight stays one tensor and
+  its gradient is summed once; the gradients land on the fp32 masters
+  through the cast, and the update (the fused launch) is the fp32 one.
+  Running statistics written during the step go back to the fp32 aux.
+- ``param_dtype="bfloat16"``: the differentiable parameters are stored in
+  bf16 (aux stays fp32) and the step computes in bf16. The update lifts each
+  parameter and gradient to fp32, runs the per-parameter rules there and
+  writes back with stochastic rounding (``_stochastic_round``), its noise
+  from a ``torch.Generator`` on the trainer's device seeded from the step's
+  key on a stream of its own, as the JAX trainer's ``fold_in(key,
+  0x51A57)`` is. The optimizer state stays fp32 unless ``opt_state_dtype``
+  says otherwise, and the fused launch is off, as in the JAX trainer.
+
+``step_guarded`` is the numeric guard's step (``resilience.GuardedTrainer``):
+the loss is scaled inside the backward and the gradients unscaled, the
+global gradient norm is taken in fp32, the finite check runs on the device,
+and every parameter, auxiliary tensor and optimizer slot is selected
+between its updated and its previous value with ``torch.where``; the host
+learns the verdict from one 3-float read. ``device_snapshot`` and
+``restore_device_snapshot`` copy the state on the device (the rollback
+ring's primitive).
+
 What this slice does not carry raises NotImplementedError naming its
-ROADMAP item: bf16 compute or parameters, ZeRO-1, gradient accumulation,
-sharding rules, meshes over more than one device and ``step_guarded``.
+ROADMAP item: fp16 compute or parameters, ZeRO-1, gradient accumulation,
+sharding rules and meshes over more than one device.
 """
 
+import contextlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -33,11 +62,36 @@ from .. import autograd
 from ..context import resolve_device
 from ..ops.kernels.fused_optim import (adam_scalars, multi_trainer_adam,
                                       multi_trainer_sgd_mom)
+from ..telemetry import catalog as _cat
+from ..telemetry import metrics as _met
 
 __all__ = ["ShardedTrainer"]
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
-           torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+           "float16": torch.float16, torch.float32: torch.float32,
+           torch.bfloat16: torch.bfloat16, torch.float16: torch.float16}
+
+#: the stochastic-rounding stream's tag, the JAX trainer's fold_in constant
+_SR_STREAM = 0x51A57
+
+
+def _stochastic_round(x32, dtype, generator):
+    """Stochastically round float32 to bfloat16 (unbiased: E[out] == x), as
+    the JAX trainer's ``_stochastic_round``: add uniform noise over the 16
+    mantissa bits bf16 drops, then cut them. The bit arithmetic runs on
+    int32, whose wrap-around is the JAX version's uint32 one; +-inf stays
+    +-inf (the noise never reaches its exponent) and NaN stays NaN. The
+    noise is drawn from ``generator``; no torch stream reproduces
+    ``jax.random.bits``, so the two agree in distribution, not bit for
+    bit."""
+    if dtype != torch.bfloat16:
+        raise ValueError("stochastic rounding is implemented for bfloat16 "
+                         "only, not %s" % (dtype,))
+    x32 = x32.float().contiguous()
+    noise = torch.randint(0, 1 << 16, x32.shape, generator=generator,
+                          device=x32.device, dtype=torch.int32)
+    cut = ((x32.view(torch.int32) + noise) & -65536).view(torch.float32)
+    return torch.where(torch.isnan(x32), x32, cut).to(dtype)
 
 
 def _not_yet(what, item):
@@ -85,13 +139,19 @@ class ShardedTrainer:
         if rules:
             raise _not_yet("parameter sharding rules (tp/ep)",
                            "Queue 1 item 12")
-        if _dtype("compute_dtype", compute_dtype) not in (None,
-                                                          torch.float32):
-            raise _not_yet("compute_dtype %s" % compute_dtype,
-                           "Queue 1 item 8, bf16 compute")
-        if _dtype("param_dtype", param_dtype) not in (None, torch.float32):
-            raise _not_yet("param_dtype %s" % param_dtype,
-                           "Queue 1 item 8, bf16-stored parameters")
+        cdt = _dtype("compute_dtype", compute_dtype)
+        pdt = _dtype("param_dtype", param_dtype)
+        if torch.float16 in (cdt, pdt):
+            raise _not_yet("float16 %s" % ("compute" if cdt == torch.float16
+                                           else "parameters"),
+                           "Queue 2 item 13, the fp16 flavours")
+        if pdt is not None and pdt != torch.bfloat16:
+            raise ValueError("param_dtype supports bfloat16 only")
+        if pdt is not None and cdt is None:
+            # bf16-stored weights imply bf16 compute, as in the JAX trainer
+            cdt = pdt
+        self._compute_dtype = cdt
+        self._param_dtype = pdt
         if zero1 not in (False, True, "manual", "auto"):
             raise ValueError("zero1 must be False/True/'manual'/'auto', got "
                              "%r" % (zero1,))
@@ -119,6 +179,8 @@ class ShardedTrainer:
             or torch.float32
         self._step_count = 0
         self._fused_launches = 0
+        self._guard_bufs = None
+        self._telemetry_labels = {"zero": "off", "pipeline": "off"}
 
         params = dict(block.named_parameters())
         for n, p in params.items():
@@ -130,6 +192,13 @@ class ShardedTrainer:
         self._diff_names = sorted(n for n, p in params.items()
                                   if p.requires_grad)
         self._aux = dict(block.named_buffers())
+        if pdt is not None:
+            # bf16-stored parameters: the differentiable ones only; the
+            # module keeps the same Parameter objects
+            with torch.no_grad():
+                for n in self._diff_names:
+                    if params[n].is_floating_point():
+                        params[n].data = params[n].data.to(pdt)
         # the JAX trainer's _init_opt_state: (mom,) for SGD with momentum,
         # (m, v) for Adam / AdamW, nothing for plain SGD
         slots = 0 if self._plain_sgd else (1 if optimizer == "sgd" else 2)
@@ -142,6 +211,45 @@ class ShardedTrainer:
     def _plain_sgd(self):
         return self._opt == "sgd" and self._momentum == 0.0
 
+    @contextlib.contextmanager
+    def _in_compute_dtype(self):
+        """The block runs on ``compute_dtype`` casts of its floating
+        parameters and buffers inside: each distinct tensor is cast once
+        (autograd carries the gradient back through the cast), the casts
+        stand in for the held tensors in every module's ``_parameters`` and
+        ``_buffers`` (gluon blocks read their parameters there too). On
+        the way out the held tensors come back, and a cast that the step
+        wrote in place (a running statistic) is copied into its fp32
+        tensor."""
+        cdt = self._compute_dtype
+        held = list(self._params.values()) + list(self._aux.values())
+        cast = {}
+        for t in held:
+            if cdt is not None and t.is_floating_point() \
+                    and t.dtype != cdt and id(t) not in cast:
+                cast[id(t)] = t.to(cdt)
+        if not cast:
+            yield
+            return
+        versions = {k: c._version for k, c in cast.items()}
+        swapped = []
+        for mod in self._block.modules():
+            for slot in (mod._parameters, mod._buffers):
+                for name, t in slot.items():
+                    if t is not None and id(t) in cast:
+                        swapped.append((slot, name, t))
+                        slot[name] = cast[id(t)]
+        try:
+            yield
+        finally:
+            for slot, name, t in swapped:
+                slot[name] = t
+            with torch.no_grad():
+                for a in self._aux.values():
+                    c = cast.get(id(a))
+                    if c is not None and c._version != versions[id(a)]:
+                        a.copy_(c)
+
     # ------------------------------------------------------------ the step
     def _prep_batch(self, data, label):
         datas = list(data) if isinstance(data, (list, tuple)) else [data]
@@ -153,38 +261,93 @@ class ShardedTrainer:
         return ([_as_tensor(d, self._device) for d in datas],
                 [_as_tensor(l, self._device) for l in labels])
 
-    def _run(self, datas, labels):
-        """Forward, loss and backward in training mode; the step's loss."""
+    def _run(self, datas, labels, scale=None):
+        """Forward, loss and backward in training mode; the step's loss.
+        With ``scale`` the backward runs on loss * scale and the gradients
+        and the returned loss are unscaled on the way out (an overflow
+        shows as inf or NaN)."""
         for n in self._diff_names:
             self._params[n].grad = None
+        cdt = self._compute_dtype
+        if cdt is not None:
+            datas = [d.to(cdt) if d.is_floating_point() else d
+                     for d in datas]
         was_training = self._block.training
         self._block.train()
         try:
-            with torch.enable_grad(), autograd.train_mode():
+            with torch.enable_grad(), autograd.train_mode(), \
+                    self._in_compute_dtype():
                 out = self._block(*datas)
                 loss = self._loss(out, *labels).float().mean()
-            loss.backward()
+            if scale is None:
+                loss.backward()
+            else:
+                # dynamic loss scaling: the scale multiplies inside the
+                # differentiated function; callers see the true loss/grads
+                scaled = loss * scale
+                scaled.backward()
+                inv = 1.0 / scale
+                with torch.no_grad():
+                    for n in self._diff_names:
+                        g = self._params[n].grad
+                        if g is not None:
+                            g.mul_(inv)
+                loss = scaled * inv
         finally:
             self._block.train(was_training)
         return loss.detach()
 
-    def _apply_all(self, t):
-        """The optimizer update of step number ``t`` on every parameter."""
+    def _grads(self, ws):
+        return [self._params[n].grad if self._params[n].grad is not None
+                else torch.zeros_like(w) for n, w in zip(self._diff_names, ws)]
+
+    def _apply_all(self, t, key):
+        """The optimizer update of step number ``t`` on every parameter;
+        ``key`` seeds the stochastic rounding of bf16-stored ones."""
         names = self._diff_names
         ws = [self._params[n].data for n in names]
-        gs = [self._params[n].grad if self._params[n].grad is not None
-              else torch.zeros_like(w) for n, w in zip(names, ws)]
+        gs = self._grads(ws)
         self._fused_launches = 0
         with torch.no_grad():
-            if self._plain_sgd:
+            if self._param_dtype is not None:
+                self._apply_sr(names, ws, gs, t, key)
+            elif self._plain_sgd:
                 for w, g in zip(ws, gs):
-                    w.copy_(w - self._lr * (g + self._wd * w))
+                    self._apply_one(w, g, (), t)
             elif os.environ.get("MXTPU_FUSED_OPTIM", "1") != "0":
                 self._apply_fused(names, ws, gs, t)
                 self._fused_launches = 1
             else:
                 for n, w, g in zip(names, ws, gs):
                     self._apply_opt_fp(w, g, self._opt_state[n], t)
+
+    def _apply_one(self, w, g, st, t):
+        """One parameter's update in place, plain SGD included."""
+        if self._plain_sgd:
+            w.copy_(w - self._lr * (g + self._wd * w))
+        else:
+            self._apply_opt_fp(w, g, st, t)
+
+    def _sr_generator(self, key):
+        """The stochastic-rounding noise of the step keyed ``key`` (an int):
+        a generator on the trainer's device on a stream of its own."""
+        seed = (int(key) * 0x9E3779B97F4A7C15 + _SR_STREAM) % (1 << 63)
+        return torch.Generator(device=self._device).manual_seed(seed)
+
+    def _apply_sr(self, names, ws, gs, t, key):
+        """bf16-stored parameters (the JAX trainer's ``_apply_opt`` with
+        ``sr``): each lifted to fp32 with its gradient, updated there, and
+        written back with stochastic rounding, the noise drawn in parameter
+        order from one generator a step."""
+        gen = self._sr_generator(key)
+        for n, w, g in zip(names, ws, gs):
+            st = self._opt_state.get(n, ())
+            if w.dtype != self._param_dtype:
+                self._apply_one(w, g, st, t)
+                continue
+            w32 = w.float()
+            self._apply_one(w32, g.float(), st, t)
+            w.copy_(_stochastic_round(w32, w.dtype, gen))
 
     def _apply_fused(self, names, ws, gs, t):
         """All parameters in one fused launch; bf16 stored state is lifted
@@ -238,12 +401,29 @@ class ShardedTrainer:
         m.copy_(mf)
         v.copy_(vf)
 
-    def step(self, data, label):
-        """One train step; returns the loss as a device scalar."""
+    def _observe(self, t0, datas):
+        """The step's telemetry, as the JAX trainer records it: host time
+        (the step's work enqueued), the step and its samples."""
+        if t0 is None:
+            return
+        lbl = self._telemetry_labels
+        _cat.trainer_step_seconds.observe(time.perf_counter() - t0, **lbl)
+        _cat.trainer_steps.inc(**lbl)
+        if datas and datas[0].dim():
+            _cat.trainer_samples.inc(int(datas[0].shape[0]))
+
+    def step(self, data, label, key=None):
+        """One train step; returns the loss as a device scalar. ``key`` (an
+        int, default the step count before the step) seeds the stochastic
+        rounding of bf16-stored parameters."""
+        t0 = time.perf_counter() if _met.enabled() else None
         datas, labels = self._prep_batch(data, label)
+        if key is None:
+            key = self._step_count
         self._step_count += 1
         loss = self._run(datas, labels)
-        self._apply_all(self._step_count)
+        self._apply_all(self._step_count, key)
+        self._observe(t0, datas)
         return loss
 
     def step_scan(self, data, label, n_steps, per_step_batches=None):
@@ -261,14 +441,99 @@ class ShardedTrainer:
             d, l = datas, labels
             if per_step_batches:
                 d, l = [a[i] for a in datas], [a[i] for a in labels]
+            key = self._step_count
             self._step_count += 1
             losses.append(self._run(d, l))
-            self._apply_all(self._step_count)
+            self._apply_all(self._step_count, key)
         return torch.stack(losses)
 
-    def step_guarded(self, data, label, loss_scale=1.0):
-        raise _not_yet("step_guarded (the numeric guard)",
-                       "Queue 1 item 8 and item 13, resilience/")
+    def _guarded_state(self):
+        """The tensors a step changes and a skipped step must leave as they
+        were: the differentiable parameters and every optimizer slot (the
+        auxiliary state is taken before the forward, which moves it)."""
+        out = [self._params[n].data for n in self._diff_names]
+        for n in self._diff_names:
+            out += list(self._opt_state.get(n, ()))
+        return out
+
+    def _copy_into(self, key, tensors):
+        """Copy ``tensors`` into this trainer's persistent buffers of that
+        role (made on first use); returns the buffers."""
+        if self._guard_bufs is None:
+            self._guard_bufs = {}
+        bufs = self._guard_bufs.get(key)
+        if bufs is None or len(bufs) != len(tensors) or any(
+                b.shape != t.shape or b.dtype != t.dtype
+                for b, t in zip(bufs, tensors)):
+            bufs = [torch.empty_like(t) for t in tensors]
+            self._guard_bufs[key] = bufs
+        if bufs:
+            torch._foreach_copy_(bufs, tensors)
+        return bufs
+
+    def step_guarded(self, data, label, loss_scale=1.0, key=None):
+        """One numeric-guarded train step (``resilience.GuardedTrainer``'s
+        primitive). Returns ``(loss, notfinite, grad_norm)``: the unscaled
+        loss as a device scalar (inf or NaN on a bad step), whether the loss
+        or the global gradient norm was not finite (the update was then
+        skipped on the device: parameters, auxiliary state and optimizer
+        slots unchanged), and the fp32 global L2 norm of the unscaled
+        gradients as a host float.
+
+        ``loss_scale`` multiplies the loss inside the backward (dynamic
+        loss scaling). The verdict never reaches the host before the
+        update: the previous state is copied once into persistent buffers,
+        the update runs, and each tensor is selected between the two with
+        ``torch.where`` on the device's flag; then one 3-float read."""
+        t0 = time.perf_counter() if _met.enabled() else None
+        datas, labels = self._prep_batch(data, label)
+        if key is None:
+            key = self._step_count
+        self._step_count += 1
+        aux = list(self._aux.values())
+        aux_old = self._copy_into("aux", aux)
+        loss = self._run(datas, labels, scale=float(loss_scale))
+        with torch.no_grad():
+            ws = [self._params[n].data for n in self._diff_names]
+            # the global norm in fp32: one multi-tensor launch of
+            # per-tensor norms, then their norm
+            norms = torch._foreach_norm(self._grads(ws), 2,
+                                        dtype=torch.float32) if ws else []
+            gnorm = torch.linalg.vector_norm(torch.stack(norms)) if ws \
+                else torch.zeros((), device=self._device)
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            live = self._guarded_state()
+            old = self._copy_into("state", live)
+            self._apply_all(self._step_count, key)
+            for t, o in zip(live + aux, old + aux_old):
+                torch.where(ok, t, o, out=t)
+            stats = torch.stack([1.0 - ok.float(), gnorm,
+                                 loss.float()]).cpu()   # the one host read
+        self._observe(t0, datas)
+        return loss, bool(stats[0] > 0.5), float(stats[1])
+
+    def device_snapshot(self):
+        """Copies, on the device, of the full training state (parameters,
+        buffers, optimizer slots) and the step counter: the rollback ring's
+        primitive."""
+        return {
+            "step": self._step_count,
+            "params": {n: v.detach().clone()
+                       for n, v in self.param_values.items()},
+            "opt": {n: tuple(s.detach().clone() for s in st)
+                    for n, st in self._opt_state.items()},
+        }
+
+    def restore_device_snapshot(self, snap):
+        """Rewind to a ``device_snapshot()``: copied into the live tensors
+        (which the block holds), so one snapshot can be restored again."""
+        with torch.no_grad():
+            for n, v in self.param_values.items():
+                v.copy_(snap["params"][n])
+            for n, st in self._opt_state.items():
+                for s, src in zip(st, snap["opt"][n]):
+                    s.copy_(src)
+        self._step_count = int(snap["step"])
 
     # --------------------------------------------------------------- state
     @property
@@ -294,8 +559,9 @@ class ShardedTrainer:
 
     def load_state_dict(self, flat):
         """Restore ``state_dict()`` output (tensors or arrays). Values are
-        cast to the trainer's parameter and state dtypes; a missing key
-        raises KeyError."""
+        cast to the trainer's configured parameter and state dtypes (a
+        bf16-parameter trainer stays bf16 from an fp32 checkpoint); a
+        missing key raises KeyError."""
         def get(key):
             if key not in flat:
                 raise KeyError("checkpoint missing %s" % key)

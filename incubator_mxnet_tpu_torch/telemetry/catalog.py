@@ -1,9 +1,9 @@
 """Central catalog of the port's metric instruments.
 
 Counterpart of ``incubator_mxnet_tpu/telemetry/catalog.py``, of the
-instruments that the port's rpc layer, failpoints, serving plane, deploy
-plane, generation engine, cost accounting, memory plane and observability
-plane touch. Names, labels, help texts and histogram edges are the JAX
+instruments that the port's rpc layer, failpoints, trainer, resilience
+layer, serving plane, deploy plane, generation engine, cost accounting,
+memory plane and observability plane touch. Names, labels, help texts and histogram edges are the JAX
 package's, except where the port counts something else (the compile
 counters count CUDA graph captures), and then the help text says so. Every
 instrumented module imports its instruments from here, so the metric
@@ -59,6 +59,33 @@ jit_compile_seconds = _m.counter(
 # -- fault injection (utils/failpoints.py) ---------------------------
 failpoints_triggered = _m.counter(
     "mxtpu_failpoints_triggered_total", "Failpoint firings by name")
+
+
+# -- trainer (parallel/trainer.py) -----------------------------------
+trainer_steps = _m.counter(
+    "mxtpu_trainer_steps_total",
+    "Optimizer steps by zero/pipeline mode labels")
+trainer_step_seconds = _m.histogram(
+    "mxtpu_trainer_step_seconds", "ShardedTrainer.step wall time")
+trainer_samples = _m.counter(
+    "mxtpu_trainer_samples_total",
+    "Leading-dim samples consumed by step/step_scan (tokens/sec numerator)")
+
+# -- resilience (resilience/) ----------------------------------------
+guard_skipped_steps = _m.counter(
+    "mxtpu_guard_skipped_steps_total",
+    "Optimizer updates skipped by the numeric guard (non-finite "
+    "loss/grad-norm)")
+guard_loss_scale = _m.gauge(
+    "mxtpu_guard_loss_scale", "Current dynamic loss scale")
+guard_rollbacks = _m.counter(
+    "mxtpu_guard_rollbacks_total",
+    "Last-good rewinds by source (ring|checkpoint)")
+rollback_snapshots = _m.counter(
+    "mxtpu_rollback_snapshots_total",
+    "Device-state snapshots taken into the rollback ring")
+watchdog_fires = _m.counter(
+    "mxtpu_watchdog_fires_total", "Watchdog deadline expiries by phase")
 
 
 # -- serving plane (serving/) ----------------------------------------

@@ -87,15 +87,16 @@ def rows_cost(rows, C, params=0, elem_bytes=4):
     return 0.0, float((2 * rows * C + params * C) * elem_bytes)
 
 
-def flash_forward_cost(H, T, D, lengths):
+def flash_forward_cost(H, T, D, lengths, elem_bytes=4):
     """(bytes, live_flops, dense_flops) of the flash forward over B = len(
     lengths) samples whose keys past lengths[b] are masked: q, k, v read
-    and out written once, lse written, and the bias read where any key is
-    masked; QK^T and PV over the live keys, and over every key."""
+    and out written once (``elem_bytes`` an element), lse written, and the
+    fp32 bias read where any key is masked; QK^T and PV over the live keys,
+    and over every key."""
     B = len(lengths)
     dense = min(lengths) == T
-    flash_bytes = (4 * B * H * T * D + B * H * T
-                   + (0 if dense else B * H * T)) * 4
+    flash_bytes = (4 * B * H * T * D * elem_bytes
+                   + (B * H * T + (0 if dense else B * H * T)) * 4)
     return (flash_bytes, 4 * H * T * D * sum(lengths),
             4 * B * H * T * T * D)
 

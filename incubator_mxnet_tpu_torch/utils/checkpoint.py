@@ -9,12 +9,14 @@ checkpoint. Pointers (small JSON documents such as the serving generation
 pointer) publish the same way.
 
 Saves are synchronous (``async_save=False``), as the serving plane uses
-them; background saves come with the training slice.
+them. ``install_preemption_handler`` runs one final save on SIGTERM, as the
+JAX package's does (``resilience.GuardedTrainer`` installs it).
 """
 
 import json
 import os
 import shutil
+import signal
 import time
 import warnings
 import zipfile
@@ -167,3 +169,36 @@ class CheckpointManager:
                     "(%s: %s); falling back to the previous retained step"
                     % (self._dir, s, type(e).__name__, e))
         raise errors[0]
+
+    def install_preemption_handler(self, get_state, signals=(signal.SIGTERM,)):
+        """On SIGTERM (preemption notice), run ONE final synchronous save
+        and chain to the previous handler.
+
+        get_state : callable() -> (step, params_dict[, trainer[, extra]])
+            invoked inside the handler.
+        Returns the uninstall callable."""
+        prev = {}
+
+        def handler(signum, frame):
+            try:
+                state = get_state()
+                step, params = state[0], state[1]
+                trainer = state[2] if len(state) > 2 else None
+                extra = dict(state[3]) if len(state) > 3 else {}
+                extra["preempted"] = True
+                self.save(step, params, trainer=trainer, extra=extra)
+            finally:
+                old = prev.get(signum)
+                if callable(old):
+                    old(signum, frame)
+                elif old == signal.SIG_DFL:
+                    signal.signal(signum, signal.SIG_DFL)
+                    os.kill(os.getpid(), signum)
+
+        for s in signals:
+            prev[s] = signal.signal(s, handler)
+
+        def uninstall():
+            for s, old in prev.items():
+                signal.signal(s, old if old is not None else signal.SIG_DFL)
+        return uninstall

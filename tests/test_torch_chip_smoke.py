@@ -188,7 +188,8 @@ PORT_CLASSES = {"layer_norm", "softmax", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                 "trainer_adam", "sgd_mom (trainer or flat)", "adamw_flat",
                 "adam_flat", "fused_bottleneck", "flash_decode",
-                "int8_matmul", "noop"}
+                "int8_matmul", "noop", "flash_attention_fwd_bf16",
+                "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16"}
 
 
 def _profiled_names(path):
@@ -598,3 +599,168 @@ def test_check_compiles_allows_only_the_captures_it_counted():
                               {"graphs": {"captured": 6}})
     with pytest.raises(AssertionError, match="moved by 1"):
         chip_smoke.check_compiles("gpt", [9.0, 10.0], before, before)
+
+
+# ------------------------------------------------------------- bf16 phase
+@pytest.mark.parametrize("name,cls", [
+    ("void (anonymous namespace)::ln_warp_kernel<__nv_bfloat16, 8, 3>("
+     "__nv_bfloat16 const*)", "layer_norm_bf16"),
+    ("void (anonymous namespace)::ln_warp_kernel<float, 4, 6>(float const*)",
+     "layer_norm"),
+    ("void (anonymous namespace)::softmax_warp_kernel<__nv_bfloat16, 4>("
+     "__nv_bfloat16 const*)", "softmax_bf16"),
+    ("void (anonymous namespace)::flash_fwd_bf16_kernel<64>(__nv_bfloat16 "
+     "const*)", "flash_attention_fwd_bf16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<64, true>(float "
+     "const*)", "flash_attention_bwd_dkv"),
+    ("void (anonymous namespace)::flash_bwd_dkv_bf16_kernel<64>("
+     "__nv_bfloat16 const*)", "flash_attention_bwd_dkv_bf16")])
+def test_kernel_class_gives_the_bf16_flavours_classes_of_their_own(name,
+                                                                   cls):
+    assert chip_smoke._kernel_class(name) == cls
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny shapes: one intra-op thread, restored after the test (several
+    threads a worker, under parallel test workers, spend their time in each
+    small op's barrier)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_bf16_kernel_rows_on_the_cpu(monkeypatch, one_torch_thread):
+    """The bf16 rows' drive at small shapes on the CPU (the plain versions,
+    fake clocks): LayerNorm, softmax, and the flash forward, dQ and dK/dV
+    dense then ragged, each marked bf16, its bytes counted at 2 bytes an
+    element (the lse, delta and bias at 4), its operations at the bf16
+    rate. LayerNorm, softmax and the forward are held element by element
+    (no single tolerance; the share of its own limit that the worst
+    element reaches), the gradients to BF16_REL_TOL of their largest
+    magnitude."""
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (1.0,
+                                                              "profiler"))
+    monkeypatch.setattr(chip_smoke, "device_kernel_names",
+                        lambda torch_, fn, inputs: ["flash_fwd_kernel"])
+    # on the CPU there is no L2 to keep cold: one copy of the inputs
+    monkeypatch.setattr(chip_smoke, "cold_copies",
+                        lambda torch_, inputs, nbytes: [inputs])
+    cpu = torch.device("cpu")
+    rows = chip_smoke.bf16_norm_rows(torch, cpu, _randn_cpu(1), R=16, C=64,
+                                     softmax_shape=(2, 2, 16))
+    rows += chip_smoke.bf16_flash_rows(torch, cpu, _randn_cpu(2), B=2, H=2,
+                                       T=100, D=32, lengths=(100, 0))
+    assert [r["name"] for r in rows] == [
+        "layer_norm_bf16", "softmax_bf16"] + [
+        "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+        "flash_attention_bwd_dkv_bf16"] * 2
+    for r in rows:
+        assert r["dtype"] == "bfloat16" and r["max_abs_err"] == 0.0
+        if r["name"].startswith("flash_attention_bwd"):
+            assert r["tolerance"] > 0
+        else:
+            assert r["tolerance"] is None and r["tolerance_share"] == 0.0
+            assert r["tolerance_rule"].startswith("each element")
+    ln = rows[0]
+    assert ln["bound_ms"] == pytest.approx(
+        (2 * 16 * 64 + 2 * 64) * 2 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    fwd_dense, fwd_ragged = rows[2], rows[5]
+    nbytes = (4 * 2 * 2 * 100 * 32 * 2 + 2 * 2 * 100 * 4)
+    ops = 4 * 2 * 2 * 100 * 100 * 32
+    assert fwd_dense["bound_ms"] == pytest.approx(max(
+        nbytes / chip_smoke.HBM_BYTES_PER_S,
+        ops / chip_smoke.BF16_FLOPS_PER_S) * 1e3)
+    assert fwd_ragged["live_key_share"] == 0.5
+    assert rows[3]["pair_library_backend"] == "flash"
+
+
+def test_bf16_each_holds_every_element_to_its_own_limit():
+    """Softmax rows whose small probabilities were flushed to 0 stay within
+    BF16_REL_TOL of the largest probability everywhere, but not within a
+    bf16 step of each element's own value; the helper names how many
+    elements fall outside."""
+    gen = torch.Generator().manual_seed(3)
+    s = (3 * torch.randn(4, 128, generator=gen)).to(torch.bfloat16)
+    want = torch.softmax(s.float(), dim=-1).to(torch.bfloat16).float()
+    limit = chip_smoke.BF16_STEP * want.abs() + chip_smoke.BF16_SOFTMAX_FLOOR
+    err, share = chip_smoke.bf16_each("softmax", want.clone(), want, limit,
+                                      "same")
+    assert (err, share) == (0.0, 0.0)
+    old = chip_smoke.BF16_REL_TOL * want.abs().max()
+    flushed = want.masked_fill(want < old, 0.0)
+    assert (flushed != want).float().mean() > 0.5
+    assert (flushed - want).abs().max() <= old
+    with pytest.raises(AssertionError, match="elements beyond"):
+        chip_smoke.bf16_each("softmax", flushed, want, limit, "flushed")
+    one_step = want + chip_smoke.BF16_STEP * want.abs()
+    assert chip_smoke.bf16_each("softmax", one_step, want, limit,
+                                "a step")[1] <= 1.0
+
+
+@pytest.fixture
+def gluon_names_unchanged():
+    """Gluon names blocks from per-alias counters global to the process
+    (``_BlockScope``); a test here that builds the port's ResNets and no JAX
+    ones restores them, so that a later test in the same process that
+    compares the two packages' names sees both counters where it would."""
+    from incubator_mxnet_tpu_torch.gluon.block import _BlockScope
+    saved = dict(_BlockScope._counters)
+    yield
+    _BlockScope._counters.clear()
+    _BlockScope._counters.update(saved)
+
+
+def test_train_bf16_phase_checks_each_path_on_the_cpu(capsys,
+                                                      gluon_names_unchanged,
+                                                      one_torch_thread):
+    """The train_bf16 drive on the CPU at a tiny size (launch counts and
+    times only on the card): step 1 of a 2-layer model against itself on
+    the CPU, the full model's step 1 against its own fp32 step 1, the
+    measured steps, the numeric guard (a skipped step leaves every tensor
+    bitwise, a finite one equals step on a restored twin), bf16-stored
+    parameters against the fp32 trajectory, and a small ResNet (its step 1
+    at one unit a stage against itself on the CPU, beside the CPU's own
+    spread under a perturbed batch); each on a line of its own, the timing
+    line last."""
+    cpu = torch.device("cpu")
+    by_path = chip_smoke.train_bf16_phase(
+        torch, cpu, dict(vocab_size=300, units=64, hidden_size=128,
+                         num_layers=2, num_heads=2, max_length=512),
+        shapes=((128, 4), (512, 2)), steps=2,
+        resnet_cfg=dict(kind="bottleneck", layers=[1, 1],
+                        channels=[8, 16, 32], classes=10),
+        resnet_shape=(4, 32), resnet_steps=2, resnet_check=(2, 32))
+    assert sorted(by_path) == ["train_bf16", "train_bf16_params",
+                               "train_bf16_resnet"]
+    lines = {}
+    for line in capsys.readouterr().out.splitlines():
+        phase, _, body = line.partition(": ")
+        lines.setdefault(phase, []).append(json.loads(body))
+    short, flash = lines["train_bf16"]
+    assert (short["flash"], flash["flash"]) == (False, True)
+    assert short["guard"] is None and short["param_dtype"] is None
+    guard = flash["guard"]
+    assert guard["inf_scale_notfinite"] and guard["twin_bitwise"]
+    assert flash["param_dtype"]["dtypes"] == ["torch.bfloat16"]
+    assert flash["param_dtype"]["drift"] < chip_smoke.BF16_PARAM_DRIFT
+    for line in lines["train_bf16"]:
+        assert line["step1"]["layers"] == chip_smoke.BF16_CHECK_LAYERS
+        assert abs(line["loss_step1"] - line["fp32_loss_step1"]) \
+            <= chip_smoke.BF16_VS_FP32_LOSS
+    (resnet,) = lines["resnet_bf16"]
+    assert len(resnet["losses"]) == 2
+    step1 = resnet["step1"]
+    assert step1["layers"] == [1, 1] and step1["loss"] == step1["cpu_loss"]
+    assert step1["logits"] == ["torch.bfloat16"]
+    assert step1["grads"] > 0 and step1["stats"] > 0
+    assert step1["grad_worst_gap"][0][1] == 0.0
+    assert step1["grad_cos"] == pytest.approx(1.0)
+    assert step1["bn_grad_norm_ratio"] == [1.0, 1.0]
+    assert step1["cpu_spread"]["grad_cos"] < 1.0
+    assert step1["cpu_spread"]["fp32_grad_gap_max"] > 0.0
+    (timing,) = lines["train_bf16_timing"]
+    assert sorted(timing) == ["bert_T128_B4", "bert_T512_B2", "card",
+                              "resnet_B4"]

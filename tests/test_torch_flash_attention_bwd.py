@@ -352,3 +352,55 @@ def test_mask_only_backward_asks_for_no_dbias(monkeypatch):
     n0 = flash_attention_bwd_dkv_dbias.launches
     tflash(q, q, q, kv_bias=kb).sum().backward()
     assert flash_attention_bwd_dkv_dbias.launches == n0
+
+
+# ------------------------------------------------------------------- bf16
+def _bf16_case(B, H, T, D, case, seed):
+    """(q, k, v, g as float32 numpy rounded to bf16, the (B, T) int32 mask,
+    causal) of test_torch_flash_attention.py's BF16_CASES."""
+    rs = np.random.RandomState(seed)
+    arrs = [torch.from_numpy(rs.randn(B, H, T, D).astype(np.float32))
+            .to(torch.bfloat16).float().numpy() for _ in range(4)]
+    lens = {"ragged": [T, 77], "dead_row": [T - 5, 0],
+            "causal": [T, T]}[case]
+    mask = (np.arange(T)[None, :] < np.asarray(lens)[:, None]) \
+        .astype(np.int32)
+    return arrs, mask, case == "causal"
+
+
+def _bf16_agreement(got, want):
+    """(max |got - want| / max |want|, share of bitwise-equal elements)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return (float(np.abs(got - want).max() / np.abs(want).max()),
+            float((got == want).mean()))
+
+
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("case", ["causal", "dead_row", "ragged"])
+def test_bf16_gradients_round_as_the_pallas_kernels_do(T, case):
+    """bf16 q, k, v and cotangent through the public API's autograd and
+    through jax.vjp of the JAX flash attention in interpret mode: the JAX
+    kernels round p and dS to bf16 before their second products
+    (_recompute_p_ds) and write dq, dk, dv in bf16; the plain version
+    rounds at the same points. Each gradient within 2**-8 of its largest
+    magnitude, at least 99 % of its elements bitwise equal, and a sample
+    whose keys are all masked gets exact zeros."""
+    B, H, D = 2, 2, 64
+    (q, k, v, g), mask, causal = _bf16_case(B, H, T, D, case, T + 1)
+    jm = jnp.asarray(mask)
+    _out, vjp = jax.vjp(lambda a, b, c: jflash(a, b, c, causal=causal,
+                                               kv_mask=jm, interpret=True),
+                        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g, jnp.bfloat16))
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+              for a in (q, k, v)]
+    out = tflash(*leaves, causal=causal,
+                 kv_mask=torch.from_numpy(mask))
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    dead = torch.from_numpy(mask.sum(1) == 0)
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16, name
+        err, share = _bf16_agreement(leaf.grad.float(),
+                                    np.asarray(w.astype(jnp.float32)))
+        assert err <= 2.0 ** -8 and share >= 0.99, (name, err, share)
+        assert (leaf.grad[dead] == 0).all(), name

@@ -126,7 +126,21 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path):
     assert load_served_model(ckpt, device="cpu").family == "gpt_decoder"
 
 
-def test_resnet_entry_points_raise_without_cuda_unless_asked_for_the_cpu():
+@pytest.fixture
+def gluon_names_unchanged():
+    """Gluon names blocks from per-alias counters global to the process
+    (``_BlockScope``); a test that builds the port's nets and no JAX ones
+    restores them, so that a later test in the same process that compares
+    the two packages' names sees both counters where it would."""
+    from incubator_mxnet_tpu_torch.gluon.block import _BlockScope
+    saved = dict(_BlockScope._counters)
+    yield
+    _BlockScope._counters.clear()
+    _BlockScope._counters.update(saved)
+
+
+def test_resnet_entry_points_raise_without_cuda_unless_asked_for_the_cpu(
+        gluon_names_unchanged):
     if torch.cuda.is_available():
         pytest.skip("this card has CUDA; the check is for hosts without it")
     from incubator_mxnet_tpu_torch.gluon import nn

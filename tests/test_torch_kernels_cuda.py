@@ -35,6 +35,11 @@ LayerNorm is held at atol 1e-5 on each of its three routes (a warp a row in
 16-byte and scalar forms, and the long-row block), each case asserting the
 route the wrapper picks; its C entry refuses a route whose conditions
 fail.
+The bf16 flavours of LayerNorm, softmax and the flash forward and backward
+are held to their plain versions on the same bf16 inputs within 2 * 2**-8
+of each output's largest magnitude (both round to bf16 from fp32 sums
+taken in other orders, and P and dS round at the same points but may land
+on neighbouring bf16 values), the lse within 1e-4, dead rows exactly 0.
 The GPT test holds whole generations on the card and the CPU token for
 token. A served shape's CUDA graph (compilecache.aot.BlockProgram) replays
 the eager forward's kernels in the same order on the same inputs, so a
@@ -58,8 +63,10 @@ from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
 from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_backward,
     flash_attention_backward_reference, flash_attention_bwd_dkv,
-    flash_attention_bwd_dkv_dbias, flash_attention_bwd_dq,
-    flash_attention_forward, flash_attention_reference)
+    flash_attention_bwd_dkv_bf16, flash_attention_bwd_dkv_dbias,
+    flash_attention_bwd_dq, flash_attention_bwd_dq_bf16,
+    flash_attention_forward, flash_attention_fwd_bf16,
+    flash_attention_reference)
 from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
     fused_adam_flat, fused_adam_flat_bf16, fused_adam_flat_reference,
     fused_adamw_flat, fused_adamw_flat_bf16, fused_adamw_flat_reference,
@@ -2195,6 +2202,230 @@ def test_replayed_decode_counts_steps_and_spans_once_per_replay(
     step = costs.captured("gptdecode/s2")
     assert step is not None and step["flops"] > 0
     costs.reset()
+
+
+# ------------------------------------------------------------ bf16 flavours
+# The bf16 LayerNorm, softmax and flash kernels against their plain versions
+# on the same bf16 inputs, element by element where both sides round once:
+# LayerNorm and softmax compute in fp32 and round to bf16, so each element
+# within one bf16 step (2**-7) of its own value, plus 2**-16 of its row's
+# largest for LayerNorm's cancellation and 1e-6 for softmax; the flash
+# forward's O also within 2**-7 of the same attention over |V| (each p may
+# round to a neighbouring bf16 value). The gradients, whose sums mix dS
+# rounded on both sides, within 2 * 2**-8 of their largest magnitude. The
+# lse within 1e-4, dead rows exactly 0; float16 raises TypeError, and each
+# call counts one launch of its bf16 kernel and none of the fp32 one.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_close(got, want, what, ref_max=None):
+    """Within 2 * 2**-8 of ``ref_max``, by default want's largest
+    magnitude (a gradient that is exactly 0, as dq and dk are at T = 1, is
+    held to its siblings' scale)."""
+    assert got.dtype == BF16, what
+    if ref_max is None:
+        ref_max = want.float().abs().max().item()
+    lim = 2 * 2.0 ** -8 * max(ref_max, 1e-30)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= lim, (what, err, lim)
+
+
+def _bf16_each(got, want, limit, what):
+    """Each element within ``limit`` (broadcast to want's shape)."""
+    assert got.dtype == BF16, what
+    gap = (got.float() - want.float()).abs()
+    out = gap > limit.float().expand_as(gap)
+    assert not bool(out.any()), (what, int(out.sum()), gap.max().item())
+
+
+def _one_step(want, floor):
+    """One bf16 step of each element of ``want``, plus ``floor``."""
+    return 2.0 ** -7 * want.float().abs() + floor
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("rows", [1, 8, 33, 256, 8192])
+@pytest.mark.parametrize("C", [768, 96, 770, 33, 1000, 2000])
+def test_layer_norm_bf16_kernel_matches_plain(cuda, rows, C):
+    """Each route: the 16-byte warp route (C % 8 == 0, at most 1024), its
+    scalar form (770, 33, 1000 hold C % 8 != 0) and the long-row block."""
+    x, g, b = (t.to(BF16) for t in _ln_inputs(rows, C, cuda))
+    n0 = (fused_norm.layer_norm.launches, fused_norm.layer_norm_bf16.launches)
+    got = fused_norm.layer_norm(x, g, b)
+    torch.cuda.synchronize()
+    assert (fused_norm.layer_norm.launches,
+            fused_norm.layer_norm_bf16.launches) == (n0[0], n0[1] + 1)
+    route = fused_norm._route(C, x.data_ptr(), g.data_ptr(), b.data_ptr(),
+                              got.data_ptr(), 2)
+    assert route == ("long" if C > 1024 else
+                     "warp" if C % 8 == 0 else "warp_scalar"), (C, route)
+    want = fused_norm.layer_norm_reference(x, g, b)
+    _bf16_each(got, want, _one_step(want, 2.0 ** -16 * want.float().abs()
+                                    .amax(dim=-1, keepdim=True)), (rows, C))
+
+
+@pytest.mark.needs_cuda
+def test_layer_norm_bf16_misaligned_view_takes_the_scalar_route(cuda):
+    x, g, b = (t.to(BF16) for t in _ln_inputs(64, 768, cuda))
+    view = torch.empty(64 * 768 + 1, dtype=BF16, device=cuda)[1:] \
+        .view(64, 768)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 2
+    got = fused_norm.layer_norm(view, g, b)
+    assert fused_norm._route(768, view.data_ptr(), g.data_ptr(),
+                             b.data_ptr(), got.data_ptr(), 2) == "warp_scalar"
+    want = fused_norm.layer_norm_reference(x, g, b)
+    _bf16_each(got, want, _one_step(want, 2.0 ** -16 * want.float().abs()
+                                    .amax(dim=-1, keepdim=True)), "view")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", [(64, 12, 128, 128), (3, 7), (33, 257),
+                                   (2, 2000)])
+def test_softmax_bf16_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = 3 * torch.randn(*shape, generator=gen, device=cuda)
+    if len(shape) == 4:             # the padding bias of the T = 128 path
+        x[:, :, :, 100:] = -1e30
+    x = x.to(BF16)
+    n0 = (fused_norm.softmax.launches, fused_norm.softmax_bf16.launches)
+    got = fused_norm.softmax(x)
+    torch.cuda.synchronize()
+    assert (fused_norm.softmax.launches,
+            fused_norm.softmax_bf16.launches) == (n0[0], n0[1] + 1)
+    want = fused_norm.softmax_reference(x)
+    _bf16_each(got, want, _one_step(want, 1e-6), shape)
+
+
+def _flash_bf16_inputs(BH, T, D, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(BH, T, D, generator=gen, device=device)
+                   .to(BF16) for _ in range(4))
+    bias = torch.zeros(BH, T, device=device)
+    bias[0] = -1e30                        # every key of one row masked
+    bias[1, T // 2:] = -1e30
+    return q, k, v, do, bias
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 100, 128, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_forward_matches_plain(cuda, T, D, causal):
+    q, k, v, _do, bias = _flash_bf16_inputs(6, T, D, cuda, T * D + causal)
+    scale = 1.0 / math.sqrt(D)
+    n0 = (flash_attention_forward.launches, flash_attention_fwd_bf16.launches)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    again = flash_attention_forward(q, k, v, bias, scale, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_forward.launches,
+            flash_attention_fwd_bf16.launches) == (n0[0], n0[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = flash_attention_reference(q, k, v, bias, scale, causal)
+    mass = flash_attention_reference(q, k, v.abs(), bias, scale, causal)[0]
+    _bf16_each(out, ref, _one_step(ref, 2.0 ** -7 * mass.float()),
+               (T, D, causal))
+    assert lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert (out[0] == 0).all() and (lse[0] == 0).all()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 100, 128, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_backward_matches_plain(cuda, T, D, causal):
+    q, k, v, do, bias = _flash_bf16_inputs(6, T, D, cuda, T * D + 7)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    n0 = (flash_attention_bwd_dq_bf16.launches,
+          flash_attention_bwd_dkv_bf16.launches,
+          flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    got = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                   causal)
+    again = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                     causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq_bf16.launches,
+            flash_attention_bwd_dkv_bf16.launches,
+            flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (n0[0] + 2, n0[1] + 2,
+                                                  n0[2], n0[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                              scale, causal)
+    top = max(w.float().abs().max().item() for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        _bf16_close(g, w, (name, T, D, causal),
+                    max(w.float().abs().max().item(), top / 64))
+        assert (g[0] == 0).all(), name
+
+
+@pytest.mark.needs_cuda
+def test_flash_bf16_autograd_on_the_card_matches_the_cpu(cuda):
+    """The public (B, H, T, D) API on bf16 leaves: bf16 gradients through
+    the bf16 kernels against the plain versions on the CPU, one sample's
+    keys all masked."""
+    B, H, T, D = 2, 3, 200, 64
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to(BF16)
+                  for _ in range(4))
+    mask = (torch.arange(T)[None] < torch.tensor([[0], [150]])).float()
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, kv_mask=mask.to(dev))
+        assert out.dtype == BF16
+        out.backward(g.to(dev))
+        grads[dev.type] = [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _bf16_close(got, want, "autograd")
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.needs_cuda
+def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    h, b16 = x.half(), x.to(BF16)
+    with pytest.raises(TypeError, match="float16"):
+        fused_norm.layer_norm(h, h[0], h[0])
+    with pytest.raises(TypeError, match="float16"):
+        fused_norm.softmax(h)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_norm.layer_norm(b16, x[0], x[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_norm.layer_norm_bf16(b16.t(), b16[:, 0], b16[:, 0])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_norm.softmax_bf16(x)
+    q = torch.randn(2, 16, 64, device=cuda)
+    qh, qb = q.half(), q.to(BF16)
+    lse = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(TypeError, match="float16"):
+        flash_attention_forward(qh, qh, qh)
+    with pytest.raises(TypeError):
+        flash_attention_forward(qb, q, qb)
+    with pytest.raises(TypeError):
+        flash_attention_fwd_bf16(q, q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_forward(qb.transpose(0, 1), qb, qb)
+    unaligned = torch.empty(2 * 16 * 64 + 1, dtype=BF16,
+                            device=cuda)[1:].view(2, 16, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_forward(unaligned, qb, qb)
+    with pytest.raises(ValueError, match="do must be"):
+        flash_attention_bwd_dq_bf16(qb, qb, qb, q, lse, lse, None, 0.125,
+                                    False)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_dkv_bf16(qh, qh, qh, qh, lse, lse, None, 0.125,
+                                     False)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_dq(qb, qb, qb, qb, lse, lse, None, 0.125, False)
+    out, lse = flash_attention_forward(qb, qb, qb)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        flash_attention_backward(qb, qb, qb, out, lse, qb, lse, 0.125,
+                                 needs_dbias=True)
 
 
 @pytest.mark.needs_cuda

@@ -236,7 +236,21 @@ def test_params_from_jax_checks_names_and_shapes_both_ways():
         params_from_jax(bad, net)
 
 
-def test_what_this_slice_does_not_carry_raises(monkeypatch):
+@pytest.fixture
+def gluon_names_unchanged():
+    """Gluon names blocks from per-alias counters global to the process
+    (``_BlockScope``); a test that builds the port's nets and no JAX ones
+    restores them, so that a later test in the same process that compares
+    the two packages' names sees both counters where it would."""
+    from incubator_mxnet_tpu_torch.gluon.block import _BlockScope
+    saved = dict(_BlockScope._counters)
+    yield
+    _BlockScope._counters.clear()
+    _BlockScope._counters.update(saved)
+
+
+def test_what_this_slice_does_not_carry_raises(monkeypatch,
+                                              gluon_names_unchanged):
     with pytest.raises(NotImplementedError, match="item 9"):
         vision.resnet50_v1(device="cpu", remat_stages={"stage1"})
     monkeypatch.setenv("MXTPU_RESNET_REMAT", "stage1")

@@ -55,6 +55,26 @@ Phases, each printing one line:
              steps on the card must match the CPU's logits. The grid step and
              the prefill chunk (padded to 32) are CUDA graphs; one more step
              replayed must equal it run eagerly from the same cache.
+4b. generate_bf16 - GPT-2 small with seeded bf16 weights through
+             GenerateEngine (GPTPagedLM computes in bf16) on the card, 8
+             slots of 1024 positions, DECODE_PROMPTS in two batches of 8,
+             32 greedy tokens each: over bf16 pools with
+             MXTPU_GEN_BLOCK_SIZE=32 and MXTPU_GEN_PREFILL_CHUNK=16 (the
+             environment restored after), over fp32 pools at the defaults,
+             and speculatively over the first batch, with a bf16 2-layer
+             draft (the target's first two layers) and with the target as
+             its own draft. Three prompts' logits over each pool dtype
+             against the port on the CPU within 2**-5 of each row's max,
+             greedy tokens equal wherever the top-2 margin exceeds twice
+             that (every step that differs is printed with its margin),
+             every token of each run's first batch within twice 2**-5 of
+             its row's max below the top of the CPU's full-sequence
+             forward over that run's own context, exact launch counts (the
+             bf16 decode kernel 12 and the bf16 LayerNorm 25 a forward, no
+             fp32 decode or LayerNorm launch), the self-drafted run
+             accepting at least 0.8 of its proposals, the speculative
+             tokens against the plain run's under the margin rule;
+             tokens/s and step ms of each run, the acceptance rates.
 5. train   - BERT-base pretraining (MLM + NSP, tied decoder, dropout 0,
              fp32) through ShardedTrainer with AdamW at lr 1e-4 on the card,
              at T = 128 x B = 64 (attention through the softmax kernel) and
@@ -96,7 +116,12 @@ Phases, each printing one line:
              from this run. The kernels phase holds the five bf16 kernels
              to their plain versions on the card at these shapes (2 *
              2**-8 of each output's max, the lse within 1e-4, dead rows
-             exactly 0, the flash kernels bitwise on two calls).
+             exactly 0, the flash kernels bitwise on two calls), and the
+             bf16 decode kernel (bf16 q over bf16 and over fp32 pools, at
+             the decode and prefill shapes: o within a bf16 step of its own
+             value + 1e-5, m and l as in fp32) and the bf16 dK/dV kernel
+             with dbias (dense and ragged: dK, dV as above, dbias within
+             1e-4 of its max of the float64 formulas, a masked key's 0).
 7. gluon_train - the same model and batch through the eager gluon API:
              the zoo's resnet50_v1 initialized with mx.init.Xavier() from
              numpy's global RNG, then autograd.record -> loss.backward ->
@@ -150,10 +175,11 @@ Phases, each printing one line:
              autograd at BERT-base's geometry (B 8, H 12, T 512, D 64, the
              ragged padding mask of the flash backward rows): a (B, H, T)
              bias, then a (B, T) bias with causal=True, forward and
-             (out ** 2).sum().backward() each. Exactly one dK/dV-with-dbias
-             launch a backward; q, k, v and kv_bias gradients within 1e-4
-             of each tensor's max of the CPU port's, masked keys' bias
-             gradients exactly 0.
+             (out ** 2).sum().backward() each, on fp32 and then on bf16 q,
+             k and v. Exactly one dK/dV-with-dbias launch of the dtype a
+             backward; q, k, v and kv_bias gradients within 1e-4 (bf16:
+             2 * 2**-8) of each tensor's max of the CPU port's, masked
+             keys' bias gradients exactly 0.
 12. seam_bf16 - the ops/_optim_kernels.py seam's _multi_sgd_mom_update,
              _multi_adam_update and _multi_adamw_update on bf16 groups of
              ResNet-50 v1's 193 trainable shapes, 2 steps each: one bf16
@@ -195,8 +221,8 @@ and one more word-LM round in each mode under torch.profiler; --rpc-probe
 times replies on new rpc connections.
 
 Any failure is fatal (non-zero exit, no result line). Before the last line
-it prints the card's name and power limit and a JSON line of per-kernel
-numbers; the last line is {"ok": true, "device": {...}}. It needs one card,
+it prints a phase_seconds line (each phase's wall seconds), the card's name
+and power limit and a JSON line of per-kernel numbers; the last line is {"ok": true, "device": {...}}. It needs one card,
 exits non-zero without CUDA, and imports nothing of JAX.
 """
 
@@ -530,10 +556,12 @@ def kernels_phase(torch, dev):
 
     rows += flash_forward_rows(torch, dev, randn)
     rows += flash_decode_rows(torch, dev, randn)
+    rows += flash_decode_bf16_rows(torch, dev, randn)
     log("tc_rounding", **tensor_core_rounding(torch, dev))
     rows += flash_backward_rows(torch, dev, randn)
     rows += bf16_norm_rows(torch, dev, randn)
     rows += bf16_flash_rows(torch, dev, randn)
+    rows += bf16_dbias_rows(torch, dev, randn)
     rows.append(trainer_adam_row(torch, dev, randn))
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
     rows += flat_rows(torch, dev, randn)
@@ -1388,6 +1416,175 @@ def flash_decode_rows(torch, dev, randn):
     return rows
 
 
+#: the bf16 decode kernel's o against its plain version: both widen the
+#: same stored values and sum in fp32 (in another order), then round o once
+#: to bf16, so each element is held to one bf16 step (BF16_STEP) of its own
+#: value plus DECODE_BF16_FLOOR, what the fp32 sums' order leaves near a
+#: zero crossing (an average of up to 1024 unit-normal V rows); m at 1e-5
+#: and l at rtol 1e-5, as in fp32, since p and its sums stay fp32
+DECODE_BF16_FLOOR = 1e-5
+
+
+def flash_decode_bf16_rows(torch, dev, randn):
+    """The bf16 decode kernel (bf16 q) at the decode path's two shapes, the
+    prefill chunk (1, 32, 12, 64) and the decode step (8, 1, 12, 64) with
+    flash_decode_rows' pasts, over GPT-2 small's pools in fp32 (a bf16 GPT
+    over the default spec) and in bf16 (a bf16 spec; the kernels line
+    carries this last row). Each against the
+    plain version on the same tensors element by element, bitwise on two
+    calls, dead rows exact; bounds count the pools' bytes at their element
+    size and q and o at 2 bytes, and the operations at the rate of the
+    products' type: bf16 x bf16 at the bf16 tensor-core rate; bf16 q over
+    fp32 pools, an fp32 product, at the fp32 rate with the fp32-accurate
+    tensor-core rate as `tc_bound_ms`, as the fp32 rows. No library column,
+    as in fp32."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_reference)
+    from incubator_mxnet_tpu_torch.telemetry.costs import flash_decode_cost
+    H, D, bs, nb, mb = 12, 64, 16, 512, 64
+    kp32, vp32 = randn(nb, bs, H, D), randn(nb, bs, H, D)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED))
+    tables = perm.reshape(8, mb).to(torch.int32).to(dev)
+    rows = []
+    for pools in ("float32", "bfloat16"):
+        dt = getattr(torch, pools)
+        peaks = (dict(peak_flops=BF16_FLOPS_PER_S) if pools == "bfloat16"
+                 else dict(tc_peak_flops=TF32X3_FLOPS_PER_S))
+        kp, vp = kp32.to(dt), vp32.to(dt)
+        for S, C, lengths in ((1, 32, [480]),
+                              (8, 1, [0, 1, 16, 1024, 350, 511, 200, 777])):
+            q = randn(S, C, H, D).to(torch.bfloat16)
+            tab = tables[:S].contiguous()
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            o, m, l = paged_flash_decode(q, kp, vp, tab, lens)
+            if not all(same_bits(a, b) for a, b in zip(
+                    (o, m, l), paged_flash_decode(q, kp, vp, tab, lens))):
+                raise AssertionError("flash_decode_bf16: two calls on the "
+                                     "same inputs differ")
+            ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tab, lens)
+            if o.dtype != torch.bfloat16:
+                raise AssertionError("flash_decode_bf16: o is %s" % o.dtype)
+            err, share = bf16_each(
+                "flash_decode_bf16", o, ro,
+                BF16_STEP * ro.float().abs() + DECODE_BF16_FLOOR,
+                (S, C, pools))
+            torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+            if not max_err(m, rm) <= 1e-5:
+                raise AssertionError("flash_decode_bf16 (%d, %d): m error "
+                                     "%r > 1e-5" % (S, C, max_err(m, rm)))
+            dead = [i for i, n in enumerate(lengths) if n == 0]
+            if dead and not (o[dead].eq(0).all() and l[dead].eq(0).all()
+                             and m[dead].eq(-1e30).all()):
+                raise AssertionError("flash_decode_bf16: a sequence with no "
+                                     "past did not give o = 0, m = -1e30, "
+                                     "l = 0 exactly")
+            live = sum(lengths)
+            fd_bytes, fd_flops = flash_decode_cost(S, C, H, D, live, mb, 2,
+                                                   kp.element_size())
+            rows.append(measure(
+                torch, "flash_decode_bf16", (S, C, H, D), err, None,
+                (q, kp, vp, tab, lens), paged_flash_decode,
+                paged_flash_decode_reference, None, fd_bytes, fd_flops,
+                **peaks, dtype="bfloat16", pool_dtype=pools,
+                m_err=max_err(m, rm),
+                tolerance_rule="each element of o within 2**-7 of its own "
+                "value + 1e-5; m 1e-5, l rtol 1e-5",
+                tolerance_share=share,
+                library_note="no single PyTorch call computes paged "
+                             "attention: SDPA needs the pages gathered into "
+                             "a dense K and V first",
+                l_rel_err=float(((l - rl).abs()
+                                 / rl.clamp_min(1e-30)).max()),
+                live_positions=live, lengths=lengths))
+    return rows
+
+
+#: the bf16 dK/dV kernel's dbias (fp32) against the plain formulas in
+#: float64 on the same bf16 inputs, as a share of the larger of its largest
+#: magnitude and delta's (its terms p * (dP - delta) may cancel): the
+#: kernel's S and dP are fp32 sums of exact bf16 products (the tensor
+#: cores' truncating sums) and dbias an fp32 sum over 512 queries of the
+#: unrounded dS
+DBIAS_BF16_TOL = 1e-4
+
+
+def bf16_dbias_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
+                    lengths=BF16_LENGTHS):
+    """The bf16 dK/dV kernel with the learned bias's cotangent (the TPU
+    kernel's has_dbias on bf16 q, k, v) at the training shape (8 * 12, 512,
+    64), dense and then with the ragged mask: dK and dV within BF16_REL_TOL
+    of their largest magnitude of the plain version's (dS rounded to bf16
+    at the same point), dbias within DBIAS_BF16_TOL (of its largest or
+    delta's) of the float64 plain formulas on the same bf16 inputs, a masked key's dbias
+    exactly 0, the same bits on two calls. The bound counts the work of
+    the live keys at the bf16 rate and the fp32 dbias written."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_backward_reference,
+        flash_attention_bwd_dkv_dbias_bf16, flash_attention_forward)
+    bf = torch.bfloat16
+    BH, scale = B * H, 1.0 / math.sqrt(D)
+    rows = []
+    for lens in ([T] * B, list(lengths)):
+        dense = min(lens) == T
+        q, k, v, do = (randn(BH, T, D).to(bf) for _ in range(4))
+        bias = 0.5 * randn(B, H, T)
+        if not dense:
+            live = torch.arange(T, device=dev)[None, :] < torch.tensor(
+                lens, device=dev)[:, None]
+            bias = bias.masked_fill(~live[:, None, :], -1e30)
+        bias = bias.reshape(BH, T).contiguous()
+        out, lse = flash_attention_forward(q, k, v, bias, scale)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        got = flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta,
+                                                 bias, scale, False)
+        again = flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta,
+                                                   bias, scale, False)
+        if not all(same_bits(a, b) for a, b in zip(got, again)):
+            raise AssertionError("flash_attention_bwd_dkv_dbias_bf16: two "
+                                 "calls on the same inputs differ")
+        want = flash_attention_backward_reference(
+            q, k, v, out, lse, do, bias, scale, needs_dbias=True)
+        g_err = {n: bf16_close("flash_attention_bwd_dkv_dbias_bf16 " + n,
+                               g, w, lens)
+                 for n, g, w in zip(("dk", "dv"), got[:2], want[1:3])}
+        db64 = flash_attention_backward_reference(
+            q, k, v, out, lse, do, bias, scale, needs_dbias=True,
+            compute_dtype=torch.float64)[3]
+        db_err = max_err(got[2], db64)
+        db_top = max(float(db64.abs().max()), float(delta.abs().max()))
+        if got[2].dtype != torch.float32 or not db_err <= \
+                DBIAS_BF16_TOL * db_top:
+            raise AssertionError("flash_attention_bwd_dkv_dbias_bf16 %s: "
+                                 "dbias error %r > %g x %r" % (
+                                     lens, db_err, DBIAS_BF16_TOL, db_top))
+        dead_keys = bias <= -0.5e30
+        if not got[2][dead_keys].eq(0).all():
+            raise AssertionError("flash_attention_bwd_dkv_dbias_bf16: a "
+                                 "masked key's dbias is not exactly 0")
+        del again, want, db64
+        live_keys = H * sum(lens)
+        prod = 2 * T * D * live_keys
+        qkvd, row = BH * T * D * 2, BH * T * 4
+        io = 4 * qkvd + 3 * row + 2 * qkvd + row      # dk, dv and dbias out
+        rows.append(measure(
+            torch, "flash_attention_bwd_dkv_dbias_bf16", (BH, T, D),
+            max(g_err[n][0] for n in g_err), min(g_err[n][1] for n in g_err),
+            (q, k, v, do, out, lse, delta),
+            lambda q, k, v, do, out, lse, delta:
+            flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta,
+                                               bias, scale, False),
+            lambda q, k, v, do, out, lse, delta:
+            flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                               scale, needs_dbias=True),
+            None, io, 4 * prod, BF16_FLOPS_PER_S, dtype="bfloat16",
+            errors={**{n: g_err[n][0] for n in g_err}, "dbias": db_err},
+            tolerances={**{n: g_err[n][1] for n in g_err},
+                        "dbias": DBIAS_BF16_TOL * db_top},
+            plain_computes="dq, dk, dv and dbias", lengths=lens,
+            live_key_share=sum(lens) / (B * T)))
+    return rows
+
+
 # -------------------------------------------------------------------- serve
 def bert_base_params(rs, cfg):
     """Seeded random BERT weights named as both packages name them."""
@@ -1617,6 +1814,376 @@ def gpt_params(rs, cfg):
         noise = rs.standard_normal(shape).astype(np.float32) * 0.02
         params[name] = noise + 1.0 if name.endswith("_g") else noise
     return params
+
+
+# --------------------------------------------------------------- generate_bf16
+#: a bf16 GPT's logits against the port's on the CPU with the same weights,
+#: each row within 2**-5 of its largest |logit| (tests/test_torch_gpt.py's
+#: bound against the JAX package: the same bf16 steps, another order of
+#: fp32 sums); greedy tokens must agree wherever the top-2 margin exceeds
+#: twice it
+GEN_BF16_ROW_TOL = 2.0 ** -5
+#: the CPU check's prompt lengths and new tokens (GPT-2 small in bf16 on the
+#: host's cores)
+GEN_BF16_CHECK = ([1, 17, 64], 4)
+#: the first configuration's knobs, which reach the kernel: 32-position
+#: blocks and 16-position prefill chunks
+GEN_BF16_KNOBS = {"MXTPU_GEN_BLOCK_SIZE": "32",
+                  "MXTPU_GEN_PREFILL_CHUNK": "16"}
+#: the least share of its proposals that the target accepts from itself as
+#: its draft: a proposal is the argmax of a 1-row forward and its check that
+#: of a (k + 1)-row one, which may part only where the top two logits lie
+#: within the two forwards' rounding (bf16 pools against fp32 pools parted
+#: at about 1 % of the steps); a broken accept path accepts next to nothing
+GEN_BF16_SELF_ACCEPT = 0.8
+
+
+class set_env:
+    """Context manager: the given environment settings inside, the old
+    ones (or none) restored after."""
+
+    def __init__(self, settings):
+        self.settings = settings
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.settings}
+        os.environ.update(self.settings)
+
+    def __exit__(self, *_exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class CountingLM:
+    """A GPTPagedLM that counts its forwards (and the one-row decode steps
+    among them)."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.num_layers = lm.num_layers
+        self.forwards = 0
+
+    def forward(self, tokens, *rest):
+        self.forwards += 1
+        return self.lm.forward(tokens, *rest)
+
+
+def recording_engine(torch, **kw):
+    """A GenerateEngine that keeps, for every target step, each slot's
+    greedy token, top-2 margin and largest |logit| (and the logits, with
+    ``keep_logits``)."""
+    from incubator_mxnet_tpu_torch.generate import GenerateEngine
+
+    class Recording(GenerateEngine):
+        def __init__(self, *a, keep_logits=False, **k):
+            super().__init__(*a, **k)
+            self.keep_logits = keep_logits
+            self.steps = []
+
+        def _step(self, adapter, cache, slots, tokens, commit=True):
+            out = super()._step(adapter, cache, slots, tokens, commit)
+            if adapter is self.model:
+                top = np.sort(out, axis=-1)[:, -2:]
+                self.steps.append(dict(
+                    slots=list(slots), margin=top[:, 1] - top[:, 0],
+                    top=np.abs(out).max(-1),
+                    logits=out.copy() if self.keep_logits else None))
+            return out
+    return Recording(**kw)
+
+
+def step_margins(engine, n_seqs):
+    """{seq: [(margin, largest |logit|) of each plain step]} of a fresh
+    cache's run (sequence i holds slot i)."""
+    out = {i: [] for i in range(n_seqs)}
+    for st in engine.steps:
+        for row, slot in enumerate(st["slots"]):
+            out[slot].append((float(st["margin"][row]),
+                              float(st["top"][row])))
+    return out
+
+
+def tokens_agree(what, got, want, margins, bound=GEN_BF16_ROW_TOL):
+    """Each sequence's tokens against the reference's up to the first that
+    differs, which must sit at a top-2 margin of at most twice ``bound`` of
+    its row's largest |logit| in the reference's run. Returns the steps
+    that differ, with their margins (printed by the caller)."""
+    diffs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None and len(g) == len(w):
+            continue
+        if j is None:
+            raise AssertionError("%s: sequence %d has %d tokens, the "
+                                 "reference %d" % (what, i, len(g), len(w)))
+        gap, top = margins[i][j]
+        diffs.append(dict(seq=i, step=j, got=int(g[j]), want=int(w[j]),
+                          margin_over_top=gap / top))
+        if not gap <= 2 * bound * top:
+            raise AssertionError(
+                "%s: sequence %d differs at step %d (%d, the reference %d) "
+                "where the reference's top-2 margin is %r of its row's "
+                "largest, over twice %g" % (what, i, j, g[j], w[j],
+                                            gap / top, bound))
+    return diffs
+
+
+def gpt_bf16_params(torch, cfg, seed):
+    """gpt_params drawn from `seed`, rounded to bf16 tensors on the host."""
+    return {n: torch.from_numpy(a).to(torch.bfloat16)
+            for n, a in gpt_params(np.random.RandomState(seed), cfg).items()}
+
+
+def bf16_spec(cfg):
+    """A gpt cache spec whose kv entries are bf16."""
+    from incubator_mxnet_tpu_torch.generate.family import gpt_cache_spec
+    return {n: (kind, shape, "bfloat16")
+            for n, (kind, shape) in gpt_cache_spec(cfg).items()}
+
+
+def generate_bf16_cpu_check(torch, dev, cfg, params, rs, spec, knobs):
+    """GEN_BF16_CHECK's prompts through GenerateEngine over the cache
+    `spec` under the environment `knobs` on the card and on the CPU with the
+    same weights: every step's logits row within GEN_BF16_ROW_TOL of the
+    CPU's largest while the two contexts agree, tokens under the margin
+    rule."""
+    from incubator_mxnet_tpu_torch.generate import GPTPagedLM, PagedKVCache
+    lengths, new = GEN_BF16_CHECK
+    prompts = [list(rs.randint(0, cfg["vocab_size"], n)) for n in lengths]
+    runs = {}
+    with set_env(knobs):
+        for where in (dev, torch.device("cpu")):
+            lm = GPTPagedLM(params, cfg, device=where)
+            cache = PagedKVCache(len(prompts), spec,
+                                 max_len=DECODE_CACHE_LEN, device=where)
+            eng = recording_engine(torch, model=lm, cache=cache,
+                                   keep_logits=True)
+            runs[where.type] = (eng.generate(prompts, new), eng)
+    (got, card), (want, cpu) = runs[dev.type], runs["cpu"]
+    worst = 0.0
+    for j, (a, b) in enumerate(zip(card.steps, cpu.steps)):
+        for row, slot in enumerate(b["slots"]):
+            if got[slot][:j] != want[slot][:j]:
+                continue
+            gap = np.abs(a["logits"][row] - b["logits"][row]).max()
+            worst = max(worst, float(gap / b["top"][row]))
+    if not worst <= GEN_BF16_ROW_TOL:
+        raise AssertionError("generate_bf16: card logits %r of the CPU's "
+                             "row max apart (limit %g)"
+                             % (worst, GEN_BF16_ROW_TOL))
+    diffs = tokens_agree("generate_bf16 card vs CPU", got, want,
+                         step_margins(cpu, len(prompts)))
+    return dict(prompts=lengths, new_tokens=new, logits_gap_over_max=worst,
+                token_diffs=diffs)
+
+
+class TeacherForced:
+    """Each generated token against the port's full-sequence forward
+    (``gpt_logits``) on the CPU with the same weights, over that sequence's
+    own prompt and earlier tokens: the token's logit must lie within twice
+    ``bound`` of its row's largest |logit| below the row's top, as a greedy
+    token does whose run's logits each lie within ``bound`` of the
+    reference's. This holds every step of every sequence, past the first
+    that differs from another run, and a token that a broken accept or
+    commit let through fails it (a random token of GPT-2's vocabulary lies
+    about four standard deviations of the logits below the top). A
+    sequence's logits are computed once and kept for the runs that repeat
+    it."""
+
+    def __init__(self, torch, cfg, params, bound=GEN_BF16_ROW_TOL):
+        from incubator_mxnet_tpu_torch.models.gpt import gpt_logits
+        self.torch, self.bound, self.seen = torch, bound, {}
+        self.logits = lambda seq: gpt_logits(params, cfg, torch.tensor(
+            [seq], dtype=torch.int64))[0].float()
+
+    def check(self, what, prompts, outs):
+        """(largest shortfall of a token below its row's top, as a share of
+        the row's largest |logit|; tokens that are not the reference's
+        argmax; tokens checked)."""
+        worst, off, n = 0.0, 0, 0
+        with self.torch.inference_mode():
+            for i, (p, out) in enumerate(zip(prompts, outs)):
+                seq = tuple(int(t) for t in list(p) + list(out)[:-1])
+                if seq not in self.seen:
+                    rows = self.logits(list(seq))[len(p) - 1:]
+                    self.seen[seq] = (rows.max(-1).values,
+                                      rows.abs().max(-1).values, rows)
+                best, top, rows = self.seen[seq]
+                for j, tok in enumerate(out):
+                    short = float(best[j] - rows[j, int(tok)])
+                    share = short / float(top[j])
+                    if not share <= 2 * self.bound:
+                        raise AssertionError(
+                            "%s: sequence %d step %d token %d lies %r of "
+                            "its row's largest below the reference's top, "
+                            "over twice %g" % (what, i, j, tok, share,
+                                               self.bound))
+                    worst, off, n = max(worst, share), off + (short > 0), \
+                        n + 1
+        return dict(worst_short_over_top=worst, not_argmax=off, tokens=n)
+
+
+def generate_bf16_phase(torch, dev, cfg=None, draft_cfg=None,
+                        prompt_lengths=None, max_new=DECODE_NEW,
+                        slots=DECODE_SLOTS, cache_len=DECODE_CACHE_LEN,
+                        card=None):
+    """bf16 GPT generation through GenerateEngine on the card: GPT-2 small
+    with bf16 weights drawn from a seed (GPTPagedLM computes in them), 8
+    slots of 1024 positions, DECODE_PROMPTS' lengths in batches of `slots`
+    prompts, `max_new` greedy tokens each, in three configurations: bf16
+    pools under GEN_BF16_KNOBS (read by PagedKVCache and the engine: the
+    kernel walks 32-position blocks), fp32 pools at the defaults (bf16 q
+    over fp32 pools), and speculative decoding over the first batch, with a
+    bf16 2-layer draft (the target's first two layers) and with the target
+    itself as its draft (every proposal but a near tie's is accepted, so
+    the accept-and-commit path of several tokens runs). Checks: the CPU
+    check (generate_bf16_cpu_check) over bf16 and over fp32 pools; every
+    token of each run's first batch against the CPU's full-sequence
+    forward (TeacherForced); exact launch counts of each run (the bf16
+    decode kernel L times a forward, the bf16 LayerNorm 2L + 1 times, no
+    fp32 decode or LayerNorm launch); the self-drafted run's acceptance at
+    least GEN_BF16_SELF_ACCEPT; the speculative tokens against the
+    fp32-pool run's under the margin rule. Logs tokens/s and step ms of
+    each run beside the card; returns the launch counts by path."""
+    from incubator_mxnet_tpu_torch.generate import GPTPagedLM, PagedKVCache
+    from incubator_mxnet_tpu_torch.models.gpt import (gpt_config,
+                                                      gpt_param_shapes)
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    cfg = cfg or GPT2_SMALL
+    draft_cfg = draft_cfg or DEPLOY_DRAFT
+    prompt_lengths = prompt_lengths or DECODE_PROMPTS
+    rs = np.random.RandomState(SEED + 16)
+    params = gpt_bf16_params(torch, cfg, SEED + 16)
+    L, Ld = cfg["num_layers"], draft_cfg["num_layers"]
+    target = CountingLM(GPTPagedLM(params, cfg, device=dev))
+    if any(p.dtype != torch.bfloat16
+           for p in target.lm.model.parameters()):
+        raise AssertionError("generate_bf16: the model is not bf16")
+    fields, counts_by_path = {}, {}
+    fields["cpu_check"] = generate_bf16_cpu_check(
+        torch, dev, cfg, params, rs, bf16_spec(cfg), GEN_BF16_KNOBS)
+    fields["cpu_check_fp32_pools"] = generate_bf16_cpu_check(
+        torch, dev, cfg, params, rs, target.lm.cache_spec(), {})
+    prompts = [list(rs.randint(0, cfg["vocab_size"], n))
+               for n in prompt_lengths]
+    batches = [prompts[i:i + slots] for i in range(0, len(prompts), slots)]
+    forced = TeacherForced(torch, cfg, params)
+
+    def plain(spec, knobs):
+        with set_env(knobs):
+            target.forwards = 0
+            engines, out = [], []
+            _sync(torch, dev)
+            reset_launch_counts()
+            for batch in batches:
+                cache = PagedKVCache(slots, spec, max_len=cache_len,
+                                     device=dev)
+                eng = recording_engine(torch, model=target, cache=cache)
+                out.append(eng.generate(batch, max_new))
+                engines.append(eng)
+            _sync(torch, dev)
+            counts = launch_counts()
+            return out, engines, counts, cache
+
+    def expect(what, counts, forwards, draft_forwards=0, draft_layers=Ld):
+        want = expected_counts(
+            flash_decode_bf16=L * forwards + draft_layers * draft_forwards,
+            layer_norm_bf16=(2 * L + 1) * forwards
+            + (2 * draft_layers + 1) * draft_forwards)
+        if dev.type == "cuda" and counts != want:
+            raise AssertionError("generate_bf16 %s: launch counts %s, "
+                                 "expected %s" % (
+                                     what, {k: v for k, v in counts.items()
+                                            if v},
+                                     {k: v for k, v in want.items() if v}))
+
+    def rates(engines):
+        st = [e.last_stats for e in engines]
+        dec = sum(s["decode_seconds"] for s in st)
+        steps = sum(len(e.steps) for e in engines)
+        return dict(tokens_per_s=sum(s["decode_tokens"] for s in st) / dec,
+                    step_ms=dec / steps * 1e3, decode_steps=steps,
+                    prefill_s=sum(s["prefill_seconds"] for s in st),
+                    prefill_tokens=sum(s["prefill_tokens"] for s in st))
+
+    tok_a, eng_a, counts, cache = plain(bf16_spec(cfg), GEN_BF16_KNOBS)
+    if (cache.block_size, eng_a[0].prefill_chunk) != (32, 16) \
+            or cache.pool("k0").dtype != torch.bfloat16:
+        raise AssertionError("generate_bf16: the knobs did not reach the "
+                             "cache and engine (block %d, chunk %d)" % (
+                                 cache.block_size, eng_a[0].prefill_chunk))
+    expect("bf16 pools", counts, target.forwards)
+    counts_by_path["generate_bf16"] = counts
+    fields["bf16_pools"] = dict(
+        block_size=32, prefill_chunk=16, forwards=target.forwards,
+        teacher_forced=forced.check("generate_bf16 bf16 pools", batches[0],
+                                    tok_a[0]), **rates(eng_a))
+    tok_b, eng_b, counts, cache = plain(target.lm.cache_spec(), {})
+    if cache.block_size != 16 or cache.pool("k0").dtype != torch.float32:
+        raise AssertionError("generate_bf16: the fp32-pool run's cache is "
+                             "%s at block %d" % (cache.pool("k0").dtype,
+                                                 cache.block_size))
+    expect("fp32 pools", counts, target.forwards)
+    counts_by_path["generate_bf16_fp32_pools"] = counts
+    fields["fp32_pools"] = dict(
+        block_size=16, prefill_chunk=32, forwards=target.forwards,
+        teacher_forced=forced.check("generate_bf16 fp32 pools", batches[0],
+                                    tok_b[0]), **rates(eng_b))
+    # the bf16 pools' tokens against the fp32 pools': another rounding of
+    # the committed K and V, under the margin rule
+    fields["bf16_vs_fp32_pools_diffs"] = [
+        tokens_agree("generate_bf16 bf16 vs fp32 pools", a, b,
+                     step_margins(e, len(b)))
+        for a, b, e in zip(tok_a, tok_b, eng_b)]
+
+    def speculative(what, draft, layers):
+        target.forwards = 0
+        _sync(torch, dev)
+        reset_launch_counts()
+        eng = recording_engine(
+            torch, model=target,
+            cache=target.lm.make_cache(slots, cache_len), draft=draft,
+            draft_cache=draft.lm.make_cache(slots, cache_len))
+        tok = eng.generate(batches[0], max_new)
+        _sync(torch, dev)
+        counts = launch_counts()
+        expect(what, counts, target.forwards, draft.forwards, layers)
+        st = eng.last_stats
+        return counts, dict(
+            spec_k=eng.spec_k, draft_layers=layers, proposed=st["proposed"],
+            accepted=st["accepted"],
+            acceptance=st["accepted"] / max(1, st["proposed"]),
+            tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+            target_forwards=target.forwards, draft_forwards=draft.forwards,
+            teacher_forced=forced.check("generate_bf16 %s" % what,
+                                        batches[0], tok),
+            diffs=tokens_agree("generate_bf16 %s vs plain" % what, tok,
+                               tok_b[0], step_margins(eng_b[0],
+                                                      len(tok_b[0]))))
+
+    # speculative: the target's first Ld layers as the draft, bf16
+    keep = set(gpt_param_shapes(gpt_config(draft_cfg)))
+    counts_by_path["generate_bf16_spec"], fields["speculative"] = \
+        speculative("speculative", CountingLM(GPTPagedLM(
+            {n: t for n, t in params.items() if n in keep}, draft_cfg,
+            device=dev)), Ld)
+    # the target as its own draft: the proposals are the target's argmax
+    # of 1-row forwards, verified by (k + 1)-row ones
+    counts_by_path["generate_bf16_self_spec"], fields["self_speculative"] = \
+        speculative("self-drafted", CountingLM(target.lm), L)
+    acc = fields["self_speculative"]["acceptance"]
+    if not acc >= GEN_BF16_SELF_ACCEPT:
+        raise AssertionError("generate_bf16: the self-drafted run accepted "
+                             "%r of its proposals (floor %g)"
+                             % (acc, GEN_BF16_SELF_ACCEPT))
+    log("generate_bf16", card=card, model="gpt2_small bf16",
+        slots=slots, cache_len=cache_len, prompts=list(prompt_lengths),
+        max_new=max_new, **fields)
+    return counts_by_path
 
 
 def run_decode_clients(addr, prompts, clients, max_new, model="gpt",
@@ -4200,13 +4767,17 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
                          card=None):
     """flash_attention with a learned kv_bias under autograd at BERT-base's
     geometry (B 8, H 12, T 512, D 64) with the ragged kv_mask of the flash
-    backward rows: a (B, H, T) bias, then a (B, T) bias with causal=True.
-    Each runs the forward and (out ** 2).sum().backward(); the launches
-    must be exactly one flash forward, one dQ and one dK/dV-with-dbias a
-    backward (and no dK/dV without it), and the gradients of q, k, v and
-    kv_bias must be finite, within 1e-4 of each tensor's max of the same
-    inputs through the port on the CPU, and exactly 0 at every masked key's
-    bias. Logs the `attention_bias` line; returns the launch counts."""
+    backward rows: a (B, H, T) bias, then a (B, T) bias with causal=True,
+    each on fp32 q, k and v and then on bf16 ones (the bias fp32). Each
+    runs the forward and (out ** 2).sum().backward() (the sum in fp32); the
+    launches must be exactly one flash forward, one dQ and one
+    dK/dV-with-dbias of the inputs' dtype a backward (and no dK/dV without
+    it), and the gradients of q, k, v and kv_bias must be finite, within
+    1e-4 of each tensor's max of the same inputs through the port on the
+    CPU in fp32 (BF16_REL_TOL in bf16: the card's bf16 output may round to
+    a neighbouring value, which moves delta and so every gradient), and
+    exactly 0 at every masked key's bias. Logs the `attention_bias` line;
+    returns the launch counts."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
@@ -4216,53 +4787,67 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
     mask = (np.arange(T)[None, :] < np.array(lengths)[:, None]) \
         .astype(np.float32)
     cases = []
-    for form, causal in (("bht", False), ("bt_causal", True)):
-        arrays = [rs.randn(B, H, T, D).astype(np.float32) for _ in range(3)]
-        arrays.append(rs.randn(*((B, T) if causal else (B, H, T)))
-                      .astype(np.float32))
-        cases.append((form, causal, arrays))
+    for dtype in (torch.float32, torch.bfloat16):
+        for form, causal in (("bht", False), ("bt_causal", True)):
+            arrays = [rs.randn(B, H, T, D).astype(np.float32)
+                      for _ in range(3)]
+            arrays.append(rs.randn(*((B, T) if causal else (B, H, T)))
+                          .astype(np.float32))
+            if dtype == torch.bfloat16:
+                form += "_bf16"
+            cases.append((form, causal, dtype, arrays))
 
-    def run(device, causal, arrays):
-        leaves = [torch.from_numpy(a).to(device).requires_grad_()
-                  for a in arrays]
+    def run(device, causal, dtype, arrays):
+        leaves = [torch.from_numpy(a).to(device).to(dtype).requires_grad_()
+                  for a in arrays[:3]]
+        leaves.append(torch.from_numpy(arrays[3]).to(device)
+                      .requires_grad_())
         out = flash_attention(*leaves[:3], causal=causal,
                               kv_mask=torch.from_numpy(mask).to(device),
                               kv_bias=leaves[3])
-        loss = (out ** 2).sum()
+        loss = (out.float() ** 2).sum()
         loss.backward()
         return float(loss.detach()), [t.grad.cpu() for t in leaves]
 
     reset_launch_counts()
-    card_runs = [run(dev, causal, arrays) for _f, causal, arrays in cases]
+    card_runs = [run(dev, causal, dtype, arrays)
+                 for _f, causal, dtype, arrays in cases]
     _sync(torch, dev)
     counts = launch_counts()
-    n = len(cases)
+    n = len(cases) // 2
     failures = []
     want = expected_counts(flash_attention_fwd=n, flash_attention_bwd_dq=n,
-                           flash_attention_bwd_dkv_dbias=n)
+                           flash_attention_bwd_dkv_dbias=n,
+                           flash_attention_fwd_bf16=n,
+                           flash_attention_bwd_dq_bf16=n,
+                           flash_attention_bwd_dkv_dbias_bf16=n)
     if dev.type == "cuda" and counts != want:
         failures.append("launch counts %s, expected %s" % (
             {k: v for k, v in counts.items() if v},
             {k: v for k, v in want.items() if v}))
     fields = {}
-    for (form, causal, arrays), (loss, grads) in zip(cases, card_runs):
-        cpu_loss, cpu_grads = run(torch.device("cpu"), causal, arrays)
+    for (form, causal, dtype, arrays), (loss, grads) in zip(cases,
+                                                            card_runs):
+        cpu_loss, cpu_grads = run(torch.device("cpu"), causal, dtype, arrays)
+        tol = BF16_REL_TOL if dtype == torch.bfloat16 else 1e-4
         rel = {}
         for name, got, ref in zip(("q", "k", "v", "kv_bias"), grads,
                                   cpu_grads):
             top = float(ref.abs().max())
             err = max_err(got, ref)
             rel[name] = err / top if top else err
+            if got.dtype != (torch.float32 if name == "kv_bias" else dtype):
+                failures.append("%s: d%s is %s" % (form, name, got.dtype))
             if not torch.isfinite(got).all():
                 failures.append("%s: d%s not finite" % (form, name))
-            elif not err <= 1e-4 * top:
-                failures.append("%s: d%s error %r > 1e-4 x %r"
-                                % (form, name, err, top))
+            elif not err <= tol * top:
+                failures.append("%s: d%s error %r > %g x %r"
+                                % (form, name, err, tol, top))
         for i, live in enumerate(lengths):
             if not (grads[3][i][..., live:] == 0).all():
                 failures.append("%s: sample %d's masked keys got a kv_bias "
                                 "gradient" % (form, i))
-        if not abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss):
+        if not abs(loss - cpu_loss) <= tol * abs(cpu_loss):
             failures.append("%s: loss %r, CPU %r" % (form, loss, cpu_loss))
         fields[form] = dict(loss=loss, cpu_loss=cpu_loss,
                             grad_err_over_max=rel)
@@ -4485,7 +5070,8 @@ def rtc_phase(torch, dev, n=RTC_N, card=None):
 
 #: kernel classes whose bf16 instantiations are classes of their own
 BF16_CLASSES = ("layer_norm", "softmax", "flash_attention_fwd",
-                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                "flash_decode")
 
 
 def _kernel_class(name):
@@ -4696,6 +5282,12 @@ KERNEL_META = {
         "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:177"),
     "flash_attention_bwd_dkv_bf16": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
+    # the bf16 generation path's decode kernel and the bf16 has_dbias
+    "flash_decode_bf16": ("incubator_mxnet_tpu_torch/csrc/flash_decode.cu",
+                          "incubator_mxnet_tpu/ops/pallas/flash_decode.py:86"),
+    "flash_attention_bwd_dkv_dbias_bf16": (
         "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
 }
@@ -5168,48 +5760,62 @@ def main(argv=None):
         built_here=_build.build_info()["built"],
         count=torch.cuda.device_count())
 
-    krows = kernels_phase(torch, dev)
+    seconds = {"build": time.perf_counter() - t0}
 
-    fields, counts, profile = serve_phase(
-        torch, dev, BERT_BASE, SERVE_LENGTHS,
+    def phase(name, fn, *args, **kwargs):
+        """fn(*args, **kwargs), its wall seconds kept under `name`."""
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    krows = phase("kernels", kernels_phase, torch, dev)
+
+    fields, counts, profile = phase(
+        "serve", serve_phase, torch, dev, BERT_BASE, SERVE_LENGTHS,
         os.path.join(HERE, "build", "chip_smoke", "bert_base"),
         profile_path=args.profile)
     log("serve", card=card, **fields)
     if profile is not None:
         log("profile", card=card, path=args.profile, **profile)
     if args.rpc_probe:
-        log("rpc_probe", card=card, **rpc_probe())
+        log("rpc_probe", card=card, **phase("rpc_probe", rpc_probe))
 
-    dfields, dcounts, dprofile = decode_phase(
-        torch, dev, GPT2_SMALL, DECODE_PROMPTS,
+    dfields, dcounts, dprofile = phase(
+        "decode", decode_phase, torch, dev, GPT2_SMALL, DECODE_PROMPTS,
         os.path.join(HERE, "build", "chip_smoke", "gpt2_small"),
         profile=args.profile is not None)
     log("decode", card=card, **dfields)
     if dprofile is not None:
         log("decode_profile", card=card, **dprofile)
+    gen_counts = phase("generate_bf16", generate_bf16_phase, torch, dev,
+                       card=card)
 
     fp32_lines, resnet_line = {}, {}
-    tcounts = train_phase(torch, dev, BERT_BASE,
-                          profile=args.profile is not None, card=card,
-                          record=fp32_lines)
-    rcounts, resnet_ms = resnet_train_phase(
-        torch, dev, profile=args.profile is not None, card=card,
-        record=resnet_line)
-    bf16_counts = train_bf16_phase(
-        torch, dev, BERT_BASE, fp32=fp32_lines, resnet_fp32=resnet_line,
+    tcounts = phase("train", train_phase, torch, dev, BERT_BASE,
+                    profile=args.profile is not None, card=card,
+                    record=fp32_lines)
+    rcounts, resnet_ms = phase(
+        "resnet_train", resnet_train_phase, torch, dev,
+        profile=args.profile is not None, card=card, record=resnet_line)
+    bf16_counts = phase(
+        "train_bf16", train_bf16_phase, torch, dev, BERT_BASE,
+        fp32=fp32_lines, resnet_fp32=resnet_line,
         profile=args.profile is not None, card=card)
-    gcounts = gluon_train_phase(torch, dev, sharded_ms=resnet_ms,
-                                profile=args.profile is not None, card=card)
-    bcounts = bottleneck_phase(torch, dev, card=card)
-    lcounts = lstm_decode_phase(
-        torch, dev, PTB_LSTM, LSTM_PROMPTS,
-        os.path.join(HERE, "build", "chip_smoke", "lstm_ptb"), card=card,
-        profile=args.profile is not None)
-    dcounts_by_path = deploy_phase(torch, dev, card=card)
-    acounts = attention_bias_phase(torch, dev, card=card)
-    scounts = seam_bf16_phase(torch, dev, card=card)
-    rtc_counts = rtc_phase(torch, dev, card=card)
-    tel_counts = telemetry_phase(torch, dev, card=card)
+    gcounts = phase("gluon_train", gluon_train_phase, torch, dev,
+                    sharded_ms=resnet_ms, profile=args.profile is not None,
+                    card=card)
+    bcounts = phase("bottleneck", bottleneck_phase, torch, dev, card=card)
+    lcounts = phase(
+        "lstm_decode", lstm_decode_phase, torch, dev, PTB_LSTM,
+        LSTM_PROMPTS, os.path.join(HERE, "build", "chip_smoke", "lstm_ptb"),
+        card=card, profile=args.profile is not None)
+    dcounts_by_path = phase("deploy", deploy_phase, torch, dev, card=card)
+    acounts = phase("attention_bias", attention_bias_phase, torch, dev,
+                    card=card)
+    scounts = phase("seam_bf16", seam_bf16_phase, torch, dev, card=card)
+    rtc_counts = phase("rtc", rtc_phase, torch, dev, card=card)
+    tel_counts = phase("telemetry", telemetry_phase, torch, dev, card=card)
 
     # launches: each main path's run (serve, decode, each train shape, the
     # bf16 train steps of each shape, the bf16-parameter steps and the bf16
@@ -5217,8 +5823,8 @@ def main(argv=None):
     # bottleneck stacks in bf16 and fp32, the word LM's fp32 and int8 decode, the
     # learned-bias attention, the bf16 seam, the rtc launches), counts reset
     # to 0 just before it and read just after; the line carries their sum
-    by_path = {"serve": counts, "decode": dcounts, "train": tcounts,
-               **bf16_counts,
+    by_path = {"serve": counts, "decode": dcounts, **gen_counts,
+               "train": tcounts, **bf16_counts,
                "resnet_train": rcounts, **bcounts, **gcounts,
                **lcounts, **dcounts_by_path, "attention_bias": acounts,
                "seam_bf16": scounts, "rtc": rtc_counts, **tel_counts}
@@ -5242,6 +5848,8 @@ def main(argv=None):
             **{k: v for k, v in r.items() if k.startswith("pair_") or k in (
                 "tc_bound_ms", "library_backend", "library_note",
                 "kernel_route", "floor_ms", "gap_ms")}))
+    seconds["total"] = time.perf_counter() - t0
+    log("phase_seconds", card=card, **seconds)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

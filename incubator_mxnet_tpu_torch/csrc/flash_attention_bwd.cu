@@ -525,7 +525,8 @@ int check_args(int bh, int T, int device) {
 // ------------------------------------------------------------------ bf16
 //
 // The bf16 flavour (the TPU kernels on bf16 q, k, v and dO under the
-// trainer's compute_dtype), without dbias: every product on the tensor
+// trainer's compute_dtype), the dK/dV kernel with and without has_dbias
+// (a learned key bias trained in bf16): every product on the tensor
 // cores as mma.sync m16n8k16 with bf16 operands and fp32 accumulators, one
 // product where the fp32 route takes three. What bounds it: operations, as
 // in fp32 (seven T x T x D products between the two kernels at the bf16
@@ -548,6 +549,12 @@ int check_args(int bh, int T, int device) {
 // - The dead-tile rules are the fp32 route's: the dQ kernel walks only key
 //   tiles with a live key, and a dK/dV block whose 64 keys are all dead
 //   writes zeros.
+// - dbias (kDbias): each thread sums, in fp32 registers, the unscaled and
+//   unrounded dS = p * (dP - delta) of its two keys over the queries it
+//   holds, as _dkv_kernel sums ds_bias; the quad's four partial sums meet
+//   by two shuffles at the end. dK takes the same dS times scale, rounded to
+//   bf16 as it is packed. A masked key's p is 0 for every query, so its
+//   dbias is exactly 0. The extra work is one add a score.
 
 template <int D>
 struct BwdTileB {
@@ -715,7 +722,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool kDbias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -725,7 +732,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ delta,
                           const float* __restrict__ bias,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int T, float scale, int causal) {
+                          float* __restrict__ dbias, int T, float scale,
+                          int causal) {
   using Tile = BwdTileB<D>;
   constexpr int R = Tile::kRows, NJ = R / 8, KK = D / 16, NT = D / 8;
 
@@ -750,6 +758,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  float db_a = 0.f, db_b = 0.f;            // dbias of keys key_a, key_b
 
   // a block whose keys are all dead writes zeros
   const bool any = threadIdx.x < kBlock && live_key(brow, k0 + threadIdx.x, T);
@@ -812,7 +821,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           mma_bf16(dp[2 * j2], vf[kk], b);
           mma_bf16(dp[2 * j2 + 1], vf[kk], b + 2);
         }
-      // P^T, and dS^T = P^T * (dP^T - delta) * scale
+      // P^T, and dS^T = P^T * (dP^T - delta) * scale; dbias sums the
+      // unscaled, unrounded dS over the queries in fp32
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -824,7 +834,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           float x = s[j][e] * scale + (lo_row ? bias_a : bias_b);
           if (causal && key > query) x = kNegInf;
           const float p = (key < T && query < T) ? expf(x - Ls[col]) : 0.f;
-          dp[j][e] = p * (dp[j][e] - Dl[col]) * scale;
+          const float ds = p * (dp[j][e] - Dl[col]);
+          if (kDbias) {
+            if (lo_row) db_a += ds;
+            else db_b += ds;
+          }
+          dp[j][e] = ds * scale;
           s[j][e] = p;
         }
       // dV += P^T dO and dK += dS^T Q over the stage's queries, P and dS
@@ -846,6 +861,20 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         }
       }
       __syncthreads();                   // the stage is refilled next
+    }
+  }
+
+  if (kDbias) {
+    // the four threads of a quad hold the same two keys; a masked key's
+    // p is 0 for every query, so its dbias is exactly 0
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      db_a += __shfl_xor_sync(0xffffffffu, db_a, off);
+      db_b += __shfl_xor_sync(0xffffffffu, db_b, off);
+    }
+    if (t == 0) {
+      if (key_a < T) dbias[bh * T + key_a] = db_a;
+      if (key_b < T) dbias[bh * T + key_b] = db_b;
     }
   }
 
@@ -886,21 +915,36 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaGetLastError();
 }
 
+template <int D, bool kDbias>
+int launch_dkv_bf16_kernel(const bf16* q, const bf16* k, const bf16* v,
+                           const bf16* dout, const float* lse,
+                           const float* delta, const float* bias, bf16* dk,
+                           bf16* dv, float* dbias, int bh, int T, float scale,
+                           int causal, int device, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t e =
+      allow_smem(flash_bwd_dkv_bf16_kernel<D, kDbias>, device, done);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
+  flash_bwd_dkv_bf16_kernel<D, kDbias>
+      <<<grid, kThreads, BwdTileB<D>::kDkvBytes, stream>>>(
+          q, k, v, dout, lse, delta, bias, dk, dv, dbias, T, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                     const bf16* dout, const float* lse, const float* delta,
-                    const float* bias, bf16* dk, bf16* dv, int bh, int T,
-                    float scale, int causal, int device,
+                    const float* bias, bf16* dk, bf16* dv, float* dbias,
+                    int bh, int T, float scale, int causal, int device,
                     cudaStream_t stream) {
-  static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e =
-      allow_smem(flash_bwd_dkv_bf16_kernel<D>, device, done);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dkv_bf16_kernel<D>
-      <<<grid, kThreads, BwdTileB<D>::kDkvBytes, stream>>>(
-          q, k, v, dout, lse, delta, bias, dk, dv, T, scale, causal);
-  return (int)cudaGetLastError();
+  if (dbias != nullptr)
+    return launch_dkv_bf16_kernel<D, true>(q, k, v, dout, lse, delta, bias,
+                                           dk, dv, dbias, bh, T, scale,
+                                           causal, device, stream);
+  return launch_dkv_bf16_kernel<D, false>(q, k, v, dout, lse, delta, bias,
+                                          dk, dv, nullptr, bh, T, scale,
+                                          causal, device, stream);
 }
 
 }  // namespace
@@ -957,9 +1001,9 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_f32(
   }
 }
 
-// The bf16 flavour, without dbias: q, k, v, dout, dq, dk, dv (bh, T, D)
-// contiguous bf16, 16-byte aligned; lse, delta and bias as above (fp32). D is
-// 32, 64 or 128.
+// The bf16 flavour: q, k, v, dout, dq, dk, dv (bh, T, D) contiguous bf16,
+// 16-byte aligned; lse, delta, bias and dbias as above (fp32; dbias null for
+// none). D is 32, 64 or 128.
 extern "C" int mxtpu_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* bias, void* dq,
@@ -991,8 +1035,8 @@ extern "C" int mxtpu_flash_attention_bwd_dq_bf16(
 extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* bias, void* dk,
-    void* dv, int bh, int T, int D, float scale, int causal, int device,
-    void* stream_ptr) {
+    void* dv, float* dbias, int bh, int T, int D, float scale, int causal,
+    int device, void* stream_ptr) {
   const int rc = check_args(bh, T, device);
   if (rc != 0) return rc;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -1004,13 +1048,14 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
   switch (D) {
     case 32:
       return launch_dkv_bf16<32>(qb, kb, vb, ob, lse, delta, bias, dkb, dvb,
-                                 bh, T, scale, causal, device, stream);
+                                 dbias, bh, T, scale, causal, device, stream);
     case 64:
       return launch_dkv_bf16<64>(qb, kb, vb, ob, lse, delta, bias, dkb, dvb,
-                                 bh, T, scale, causal, device, stream);
+                                 dbias, bh, T, scale, causal, device, stream);
     case 128:
       return launch_dkv_bf16<128>(qb, kb, vb, ob, lse, delta, bias, dkb,
-                                  dvb, bh, T, scale, causal, device, stream);
+                                  dvb, dbias, bh, T, scale, causal, device,
+                                  stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

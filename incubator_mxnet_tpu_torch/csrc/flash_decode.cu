@@ -1,5 +1,5 @@
 // Paged attention of C query rows per sequence over its past (flash decode),
-// fp32, for Hopper (sm_90a).
+// for Hopper (sm_90a): fp32, and bf16 q over bf16 or fp32 pools.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_decode.py: _decode_kernel
 // (reached through _kernel_call and paged_flash_decode). The TPU kernel takes
@@ -63,13 +63,44 @@
 // A sequence with no past gives o = 0, m = -1e30 and l = 0 exactly, as in
 // the TPU kernel. The (1, 8, H) sublane-replicated m and l outputs were
 // Mosaic's layout and are gone: m and l are (S, C, H).
+//
+// The bf16 flavour (the TPU kernel on a bf16 GPT's q, over a bf16 spec's
+// pools or the default fp32 ones). It computes what _decode_kernel computes
+// there: scores as fp32 sums of q . k with both widened from their stored
+// dtype, p and its sums in fp32, o normalised and written once in q's dtype,
+// m and l fp32. What bounds it: bytes, as in fp32, with a bf16 pool's K and
+// V rows half as many (8 sequences of ~350 positions at H * D = 768: ~8.6
+// MB, ~2.6 us at 3.35 TB/s). The design is the fp32 kernel's, templated on
+// the element types of q (TQ) and of the pools (TK), a simple first version:
+// - A bf16 pool's K and V rows come through the same cp.async ring at half
+//   the bytes: a 16-byte copy is 8 bf16 values, a D-wide head row is D / 8
+//   copies (D = 32, 64, 128: whole copies, whatever the block size, since
+//   each position's row is copied on its own after its table lookup). Once
+//   a stage has landed, the block widens it into one fp32 tile laid out as
+//   the fp32 ring's stage (one shared-memory pass and a barrier), and every
+//   product after that is the fp32 kernel's code on that tile: no converted
+//   copy of a pool in device memory, and the fp32 instantiation unchanged.
+// - bf16 q is widened as it is loaded into the block's fp32 query rows.
+// - On the tensor cores (chunks of 16 rows and more) both products stay on
+//   the 3xTF32 route: a bf16 value is exact in TF32 (its remainder is 0),
+//   so Q K^T sums exact products, and P, an fp32 value, is split into TF32
+//   hi and lo as in fp32, so P V keeps P at about fp32 precision. Rounding
+//   P to bf16 for an m16n8k16 bf16 product would add up to 2**-9 relative
+//   error a weight where the TPU kernel keeps p in fp32; the bf16 inputs'
+//   zero remainders waste two of QK^T's three products, which a faster
+//   bf16 route (one m16n8k16 for QK^T, P split in bf16 hi + lo for PV)
+//   would save: later work.
+// - o rounds once to bf16 (round to nearest even), at the end; m and l
+//   are the fp32 kernel's.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -82,10 +113,14 @@ constexpr int kMaxSplit = 8;      // blocks of a cluster (the portable limit)
 constexpr int kMaxStages = 4;
 constexpr size_t kSmemOptin = 232448;   // a block's shared memory, sm_90
 
+using bf16 = __nv_bfloat16;
+
 // Query rows a block carries: 1 for decode, 8 for short chunks, else 32 (16
 // at D = 128). From 16 rows on, the products run on the tensor cores
-// (3xTF32, as the flash forward's); below, on the CUDA cores.
-template <int D, int QT>
+// (3xTF32, as the flash forward's); below, on the CUDA cores. kKvBf16: the
+// pools hold bf16, whose ring stages are raw bf16 rows, widened into one
+// fp32 tile (kWide) laid out as an fp32 stage.
+template <int D, int QT, bool kKvBf16 = false>
 struct Smem {
   static constexpr bool kTC = QT >= 16;
   // K and V rows (floats): on the tensor cores D + 4, the fragment reads'
@@ -101,19 +136,38 @@ struct Smem {
   static constexpr int kP = kTC ? 0 : kWarps * QT * 8;   // each warp's p
   static constexpr int kPart = QT * D + 2 * QT;     // acc, then m, then l
   static constexpr int kStat = QT * (kMaxSplit + 2);  // rows' merge weights
+  // a ring stage (floats): K and V rows as the pools hold them
+  static constexpr int kRaw = kKvBf16 ? kTileK * D : kStage;
+  static constexpr int kWide = kKvBf16 ? kStage : 0;   // the widened stage
   // the ring, which the warps' partials reuse once the walk is done
   __host__ __device__ static constexpr int ring(int stages) {
-    return stages * kStage > kWarps * kPart ? stages * kStage
-                                            : kWarps * kPart;
+    return stages * kRaw > kWarps * kPart ? stages * kRaw : kWarps * kPart;
   }
-  // query rows (and remainders), p, a stage's remainders, the ring, the
-  // cluster's partials of the rows this block merges, the rows' weights
+  // query rows (and remainders), p, a stage's remainders, the widened
+  // stage, the ring, the cluster's partials of the rows this block merges,
+  // the rows' weights
   __host__ __device__ static constexpr size_t bytes(int stages,
                                                     int nsplit) {
-    return sizeof(float) *
-           (kQ + kQLo + kP + kLo + ring(stages) + nsplit * kPart + kStat);
+    return sizeof(float) * (kQ + kQLo + kP + kLo + kWide + ring(stages) +
+                            nsplit * kPart + kStat);
   }
 };
+
+// eight bf16 values (16 bytes) widened to fp32 at dst (16-byte aligned)
+__device__ __forceinline__ void widen8(uint4 raw, float* dst) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dst[2 * i] = __uint_as_float(w[i] << 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+}
+
+// o in q's dtype: fp32 as it is, bf16 rounded to nearest even
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -134,18 +188,20 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 
 // grid (nsplit * ceil(C / QT), H, S), clusters of (nsplit, 1, 1): the
 // blocks of a cluster share one (head, sequence, query tile)
-template <int D, int QT>
+template <int D, int QT, typename TQ, typename TK>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool,
+flash_decode_kernel(const TQ* __restrict__ q,
+                    const TK* __restrict__ k_pool,
+                    const TK* __restrict__ v_pool,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths,
-                    float* __restrict__ out, float* __restrict__ m_out,
+                    TQ* __restrict__ out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int C, int H, int num_blocks,
                     int block_size, int max_blocks, float scale, int nsplit,
                     int stages) {
-  using Sm = Smem<D, QT>;
+  constexpr bool kKvBf16 = std::is_same<TK, bf16>::value;
+  constexpr bool kQBf16 = std::is_same<TQ, bf16>::value;
+  using Sm = Smem<D, QT, kKvBf16>;
   constexpr bool kTC = Sm::kTC;
   constexpr int KS = Sm::kKStride, VS = Sm::kVStride, QS = Sm::kQStride;
   constexpr int D4 = D / 4;
@@ -153,6 +209,7 @@ flash_decode_kernel(const float* __restrict__ q,
   constexpr int DV = D / 32;      // output columns a lane (CUDA cores)
   constexpr int MT = kTC ? QT / 16 : 1;   // mma m-tiles (tensor cores)
   constexpr int NT = D / 8;               // mma n-tiles across D
+  constexpr int D8 = D / 8;               // 16-byte copies of a bf16 row
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -160,7 +217,8 @@ flash_decode_kernel(const float* __restrict__ q,
   float* Ps = q_lo + Sm::kQLo;
   float* lo_k = Ps + Sm::kP;
   float* lo_v = lo_k + kTileK * KS;
-  float* ring = lo_k + Sm::kLo;
+  float* wide = lo_k + Sm::kLo;           // a bf16 stage widened to fp32
+  float* ring = wide + Sm::kWide;
   float* parts = ring + Sm::ring(stages);   // by rank, of the rows it owns
   // per row: the partials' weights exp(m - M) (kMaxSplit), then M and L
   float* stat = parts + nsplit * Sm::kPart;
@@ -174,7 +232,7 @@ flash_decode_kernel(const float* __restrict__ q,
   const int nq = min(QT, C - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const long long pos_stride = (long long)H * D;   // floats per pool position
+  const long long pos_stride = (long long)H * D;   // elements a position
 
   // positions past the table's reach do not exist (as in the lax oracle)
   const int len = max(0, min(lengths[s], max_blocks * block_size));
@@ -190,7 +248,7 @@ flash_decode_kernel(const float* __restrict__ q,
   if (len == 0) {                        // no past: o = 0, m = -1e30, l = 0
     for (int i = threadIdx.x; i < nq * D; i += kThreads) {
       const long long orow = ((long long)s * C + c0 + i / D) * H + h;
-      out[orow * D + i % D] = 0.f;
+      store_out(out + orow * D + i % D, 0.f);
       if (i % D == 0) {
         m_out[orow] = kNegInf;
         l_out[orow] = 0.f;
@@ -198,14 +256,28 @@ flash_decode_kernel(const float* __restrict__ q,
     }
     return;
   }
-  // the block's query rows, zero past C, land with the first tile
-  for (int i = threadIdx.x; i < QT * D4; i += kThreads) {
-    const int r = i / D4, c4 = i % D4;
-    const bool ok = r < nq;
-    cp_async16(Qs + r * QS + 4 * c4,
-               ok ? q + (((long long)s * C + c0 + r) * H + h) * D + 4 * c4
-                  : q,
-               ok);
+  // the block's query rows, zero past C, land with the first tile; bf16
+  // rows are widened as they are read (the first tile's barrier publishes
+  // them)
+  if constexpr (kQBf16) {
+    for (int i = threadIdx.x; i < QT * D8; i += kThreads) {
+      const int r = i / D8, c8 = i % D8;
+      const uint4 raw =
+          r < nq ? *reinterpret_cast<const uint4*>(
+                       q + (((long long)s * C + c0 + r) * H + h) * D + 8 * c8)
+                 : make_uint4(0u, 0u, 0u, 0u);
+      widen8(raw, Qs + r * QS + 8 * c8);
+    }
+  } else {
+    for (int i = threadIdx.x; i < QT * D4; i += kThreads) {
+      const int r = i / D4, c4 = i % D4;
+      const bool ok = r < nq;
+      cp_async16(Qs + r * QS + 4 * c4,
+                 ok ? reinterpret_cast<const float*>(q) +
+                          (((long long)s * C + c0 + r) * H + h) * D + 4 * c4
+                    : reinterpret_cast<const float*>(q),
+                 ok);
+    }
   }
   // this block's run: the rank-th of nact runs of whole tiles
   const int* tab = tables + (long long)s * max_blocks;
@@ -225,8 +297,7 @@ flash_decode_kernel(const float* __restrict__ q,
     return pos < p_end ? tab[pos / block_size] : 0;
   };
   auto issue = [&](int i, int blk) {
-    float* Ks = ring + (i % stages) * Sm::kStage;
-    float* Vs = Ks + kTileK * KS;
+    float* stage = ring + (i % stages) * Sm::kRaw;
     const int pos = p_begin + i * kTileK + key;
     const bool ok = pos < p_end;
     blk = min(max(blk, 0), num_blocks - 1);
@@ -234,10 +305,27 @@ flash_decode_kernel(const float* __restrict__ q,
         ok ? ((long long)blk * block_size + pos % block_size) * pos_stride +
                  (long long)h * D
            : 0;
+    if constexpr (kKvBf16) {
+      // raw bf16 rows, D a key: 8 values a copy
+      bf16* Kr = reinterpret_cast<bf16*>(stage);
+      bf16* Vr = Kr + kTileK * D;
 #pragma unroll
-    for (int c = sub; c < D4; c += 4) {
-      cp_async16(Ks + key * KS + 4 * c, k_pool + row + 4 * c, ok);
-      cp_async16(Vs + key * VS + 4 * c, v_pool + row + 4 * c, ok);
+      for (int c = sub; c < D8; c += 4) {
+        cp_async16(reinterpret_cast<float*>(Kr + key * D + 8 * c),
+                   reinterpret_cast<const float*>(k_pool + row + 8 * c), ok);
+        cp_async16(reinterpret_cast<float*>(Vr + key * D + 8 * c),
+                   reinterpret_cast<const float*>(v_pool + row + 8 * c), ok);
+      }
+    } else {
+      float* Ks = stage;
+      float* Vs = Ks + kTileK * KS;
+#pragma unroll
+      for (int c = sub; c < D4; c += 4) {
+        cp_async16(Ks + key * KS + 4 * c,
+                   reinterpret_cast<const float*>(k_pool) + row + 4 * c, ok);
+        cp_async16(Vs + key * VS + 4 * c,
+                   reinterpret_cast<const float*>(v_pool) + row + 4 * c, ok);
+      }
     }
   };
 
@@ -286,7 +374,21 @@ flash_decode_kernel(const float* __restrict__ q,
     ahead = j + 1 < n_t ? entry(j + 1) : 0;
     cp_async_wait_upto(stages - 1);      // tile i (and Q) have landed
     __syncthreads();
-    float* Ks = ring + (i % stages) * Sm::kStage;
+    float* Ks = ring + (i % stages) * Sm::kRaw;
+    if constexpr (kKvBf16) {
+      // the stage's bf16 rows into the fp32 tile that the products read
+      const bf16* Kr = reinterpret_cast<const bf16*>(Ks);
+      const bf16* Vr = Kr + kTileK * D;
+      for (int j = threadIdx.x; j < kTileK * D8; j += kThreads) {
+        const int r = j / D8, c = (j % D8) * 8;
+        widen8(*reinterpret_cast<const uint4*>(Kr + r * D + c),
+               wide + r * KS + c);
+        widen8(*reinterpret_cast<const uint4*>(Vr + r * D + c),
+               wide + kTileK * KS + r * VS + c);
+      }
+      Ks = wide;
+      __syncthreads();
+    }
     float* Vs = Ks + kTileK * KS;
     const int p0 = p_begin + i * kTileK;
 
@@ -467,7 +569,7 @@ flash_decode_kernel(const float* __restrict__ q,
     const float L = stat[r * SW + kMaxSplit + 1];
     const bool dead = M <= 0.5f * kNegInf;
     const long long orow = ((long long)s * C + c0 + r) * H + h;
-    out[orow * D + d] = dead ? 0.f : O / fmaxf(L, 1e-30f);
+    store_out(out + orow * D + d, dead ? 0.f : O / fmaxf(L, 1e-30f));
     if (d == 0) {
       m_out[orow] = M;
       l_out[orow] = dead ? 0.f : L;
@@ -528,23 +630,24 @@ flash_decode_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D, int QT>
-int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int* tables, const int* lengths, float* out, float* m,
+template <int D, int QT, typename TQ, typename TK>
+int launch(const TQ* q, const TK* k_pool, const TK* v_pool,
+           const int* tables, const int* lengths, TQ* out, float* m,
            float* l, int S, int C, int H, int num_blocks, int block_size,
            int max_blocks, float scale, int nsplit, int stages, int device,
            cudaStream_t stream) {
+  using Sm = Smem<D, QT, std::is_same<TK, bf16>::value>;
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e = allow_smem(flash_decode_kernel<D, QT>, device, done);
+  const cudaError_t e =
+      allow_smem(flash_decode_kernel<D, QT, TQ, TK>, device, done);
   if (e != cudaSuccess) return (int)e;
   // a deep ring of wide stages may not fit beside the cluster's partials
-  while (stages > 2 && Smem<D, QT>::bytes(stages, nsplit) > kSmemOptin)
-    --stages;
+  while (stages > 2 && Sm::bytes(stages, nsplit) > kSmemOptin) --stages;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(nsplit * ((C + QT - 1) / QT)), (unsigned)H,
                      (unsigned)S);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Smem<D, QT>::bytes(stages, nsplit);
+  cfg.dynamicSmemBytes = Sm::bytes(stages, nsplit);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -554,16 +657,16 @@ int launch(const float* q, const float* k_pool, const float* v_pool,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, flash_decode_kernel<D, QT>, q, k_pool, v_pool, tables, lengths,
-      out, m, l, C, H, num_blocks, block_size, max_blocks, scale, nsplit,
-      stages);
+      &cfg, flash_decode_kernel<D, QT, TQ, TK>, q, k_pool, v_pool, tables,
+      lengths, out, m, l, C, H, num_blocks, block_size, max_blocks, scale,
+      nsplit, stages);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_d(const float* q, const float* k_pool, const float* v_pool,
-             const int* tables, const int* lengths, float* out, float* m,
+template <int D, typename TQ, typename TK>
+int launch_d(const TQ* q, const TK* k_pool, const TK* v_pool,
+             const int* tables, const int* lengths, TQ* out, float* m,
              float* l, int S, int C, int H, int num_blocks, int block_size,
              int max_blocks, float scale, int nsplit, int stages, int device,
              cudaStream_t stream) {
@@ -581,25 +684,20 @@ int launch_d(const float* q, const float* k_pool, const float* v_pool,
                           nsplit, stages, device, stream);
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes. q, out: (S, C, H, D); k_pool, v_pool:
-// (num_blocks, block_size, H, D); m, l: (S, C, H); all contiguous fp32,
-// 16-byte aligned. tables: (S, max_blocks) int32; lengths: (S,) int32. D is
-// 32, 64 or 128. Picks the split from the table's capacity and C: enough
-// blocks a cluster (at most 8) that a full table gives each at most eight
-// 32-key tiles for one query row, four for more, and ring stages for a full
-// run: two (fewer if the run
-// is shorter), up to four for runs of 16 tiles and more, since a deeper
-// ring costs shared memory and so blocks resident an SM (and no deeper than
-// fits beside the cluster's partials). Makes
-// `device` current for this library's runtime, launches on `stream`,
-// allocates nothing, and returns cudaGetLastError().
-extern "C" int mxtpu_flash_decode_f32(
-    const float* q, const float* k_pool, const float* v_pool,
-    const int* tables, const int* lengths, float* out, float* m, float* l,
-    int S, int C, int H, int D, int num_blocks, int block_size,
-    int max_blocks, float scale, int device, void* stream_ptr) {
+// Picks the split from the table's capacity and C: enough blocks a cluster
+// (at most 8) that a full table gives each at most eight 32-key tiles for
+// one query row, four for more, and ring stages for a full run: two (fewer
+// if the run is shorter), up to four for runs of 16 tiles and more, since a
+// deeper ring costs shared memory and so blocks resident an SM (and no
+// deeper than fits beside the cluster's partials). Makes `device` current
+// for this library's runtime, launches on `stream`, allocates nothing, and
+// returns cudaGetLastError().
+template <typename TQ, typename TK>
+int decode(const void* q, const void* k_pool, const void* v_pool,
+           const int* tables, const int* lengths, void* out, float* m,
+           float* l, int S, int C, int H, int D, int num_blocks,
+           int block_size, int max_blocks, float scale, int device,
+           void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (S <= 0 || S > 65535 || C <= 0 || (C + 7) / 8 > 65535 || H <= 0 ||
       H > 65535 || num_blocks <= 0 || block_size <= 0 || max_blocks <= 0 ||
@@ -620,20 +718,62 @@ extern "C" int mxtpu_flash_decode_f32(
       run <= 2 ? (int)run
                : (int)std::min<long long>(kMaxStages,
                                           std::max<long long>(2, run / 4));
+  const TQ* qt = static_cast<const TQ*>(q);
+  const TK* kt = static_cast<const TK*>(k_pool);
+  const TK* vt = static_cast<const TK*>(v_pool);
+  TQ* ot = static_cast<TQ*>(out);
   switch (D) {
     case 32:
-      return launch_d<32>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C,
-                          H, num_blocks, block_size, max_blocks, scale,
-                          nsplit, stages, device, stream);
+      return launch_d<32>(qt, kt, vt, tables, lengths, ot, m, l, S, C, H,
+                          num_blocks, block_size, max_blocks, scale, nsplit,
+                          stages, device, stream);
     case 64:
-      return launch_d<64>(q, k_pool, v_pool, tables, lengths, out, m, l, S, C,
-                          H, num_blocks, block_size, max_blocks, scale,
-                          nsplit, stages, device, stream);
+      return launch_d<64>(qt, kt, vt, tables, lengths, ot, m, l, S, C, H,
+                          num_blocks, block_size, max_blocks, scale, nsplit,
+                          stages, device, stream);
     case 128:
-      return launch_d<128>(q, k_pool, v_pool, tables, lengths, out, m, l, S,
-                           C, H, num_blocks, block_size, max_blocks, scale,
-                           nsplit, stages, device, stream);
+      return launch_d<128>(qt, kt, vt, tables, lengths, ot, m, l, S, C, H,
+                           num_blocks, block_size, max_blocks, scale, nsplit,
+                           stages, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. q, out: (S, C, H, D); k_pool, v_pool:
+// (num_blocks, block_size, H, D); m, l: (S, C, H) fp32; all contiguous,
+// 16-byte aligned. tables: (S, max_blocks) int32; lengths: (S,) int32. D is
+// 32, 64 or 128.
+//
+// fp32 q, pools and o.
+extern "C" int mxtpu_flash_decode_f32(
+    const float* q, const float* k_pool, const float* v_pool,
+    const int* tables, const int* lengths, float* out, float* m, float* l,
+    int S, int C, int H, int D, int num_blocks, int block_size,
+    int max_blocks, float scale, int device, void* stream_ptr) {
+  return decode<float, float>(q, k_pool, v_pool, tables, lengths, out, m, l,
+                              S, C, H, D, num_blocks, block_size, max_blocks,
+                              scale, device, stream_ptr);
+}
+
+// bf16 q and o over pools of kv_dtype: 0 bf16, 1 fp32. Any other code (an
+// fp16 pool, a pair this library was not built for) returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int mxtpu_flash_decode_bf16(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int* tables, const int* lengths, void* out, float* m, float* l,
+    int S, int C, int H, int D, int num_blocks, int block_size,
+    int max_blocks, float scale, int kv_dtype, int device,
+    void* stream_ptr) {
+  if (kv_dtype == 0)
+    return decode<bf16, bf16>(q, k_pool, v_pool, tables, lengths, out, m, l,
+                              S, C, H, D, num_blocks, block_size, max_blocks,
+                              scale, device, stream_ptr);
+  if (kv_dtype == 1)
+    return decode<bf16, float>(q, k_pool, v_pool, tables, lengths, out, m,
+                               l, S, C, H, D, num_blocks, block_size,
+                               max_blocks, scale, device, stream_ptr);
+  return (int)cudaErrorInvalidValue;
 }

@@ -37,7 +37,7 @@ from ..serving.decode import check_token_ids
 from ..telemetry import catalog as _cat
 from ..telemetry import tracing as _tr
 from .family import _CONFIG_KEYS, PREFILL_CHUNK, commit_chunk, gpt_cache_spec
-from .paged_kv import PagedKVCache
+from .paged_kv import PagedKVCache, _env_int
 
 __all__ = ["GenerateEngine", "GPTPagedLM"]
 
@@ -46,7 +46,9 @@ class GPTPagedLM:
     """Adapter over ``gpt_forward_paged`` on ``device`` (None: ``cuda:0``,
     raising without CUDA; ``"cpu"`` for the plain path).
 
-    ``params`` is a flat JAX-named dict (numpy arrays, tensors or NDArrays).
+    ``params`` is a flat JAX-named dict (numpy arrays, ml_dtypes bfloat16
+    arrays, tensors or NDArrays); float32 and bfloat16 weights keep their
+    dtype, and the model computes in it (``models/gpt.params_from_jax``).
     ``forward(tokens, lengths, tables, k_pools, v_pools)`` takes host
     tokens, lengths and tables and device pools, and returns device tensors
     ``(logits (S, C, V), new_k, new_v)``."""
@@ -85,11 +87,13 @@ class GenerateEngine:
     ``GPTPagedLM`` contract). ``spec_k`` > 0 with a draft turns on
     speculative decoding, greedy only: temperature sampling with a draft
     raises, since the accept rule compares draft tokens to the target's
-    argmax.
+    argmax. ``spec_k=None`` reads ``MXTPU_GEN_SPEC_K`` (default 4) and
+    ``prefill_chunk=None`` reads ``MXTPU_GEN_PREFILL_CHUNK`` (default 32),
+    as in the JAX package; an argument wins.
     """
 
     def __init__(self, model, cache, draft=None, draft_cache=None,
-                 spec_k=4, prefill_chunk=PREFILL_CHUNK, temperature=0.0,
+                 spec_k=None, prefill_chunk=None, temperature=0.0,
                  seed=0, name="gpt"):
         if (draft is None) != (draft_cache is None):
             raise ValueError("draft model and draft cache come together")
@@ -97,8 +101,11 @@ class GenerateEngine:
         self.cache = cache
         self.draft = draft
         self.draft_cache = draft_cache
-        self.spec_k = int(spec_k)
-        self.prefill_chunk = int(prefill_chunk)
+        self.spec_k = int(spec_k if spec_k is not None
+                          else _env_int("MXTPU_GEN_SPEC_K", 4))
+        self.prefill_chunk = int(
+            prefill_chunk if prefill_chunk is not None
+            else _env_int("MXTPU_GEN_PREFILL_CHUNK", PREFILL_CHUNK))
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.temperature = float(temperature)

@@ -11,8 +11,9 @@ step's tokens, lengths and block tables as one int32 buffer, runs
 ``gpt_forward_paged`` under ``torch.inference_mode()``, then commits the new
 K and V of the live rows with one indexed write per pool, outside the
 forward, as the JAX package commits outside its program, and returns the
-logits to the host. A prefill chunk is padded to ``PREFILL_CHUNK``
-positions, as in the JAX package, so that one program serves every chunk:
+logits to the host. A prefill chunk is padded to the family's chunk,
+``MXTPU_GEN_PREFILL_CHUNK`` positions (default 32) read when the family is
+built, as in the JAX package, so that one program serves every chunk:
 pad tokens sit after the valid ones, causal masking keeps them out of every
 committed position's window, and their K and V are not committed.
 
@@ -40,7 +41,7 @@ from ..models.gpt import GPTDecoder, gpt_config, params_from_jax
 from ..serving.decode import check_token_ids
 from ..serving.loader import GenerationMismatchError, ServedModel, \
     _aval, _serve_mgr, generation_steps, publish_generation, serving_family
-from .paged_kv import PagedKVCache
+from .paged_kv import PagedKVCache, _env_int
 
 __all__ = ["export_gpt_for_serving", "gpt_cache_spec", "commit_chunk",
            "PREFILL_CHUNK"]
@@ -49,8 +50,9 @@ log = logging.getLogger(__name__)
 
 _DRAFT_PREFIX = "draft/"
 
-#: prompt positions per prefill forward; the served model carries it to the
-#: DecodeLoop, whose admission estimate counts chunks of this size
+#: prompt positions per prefill forward unless MXTPU_GEN_PREFILL_CHUNK says
+#: otherwise; the served model carries it to the DecodeLoop, whose admission
+#: estimate counts chunks of this size
 PREFILL_CHUNK = 32
 
 
@@ -72,10 +74,15 @@ _CONFIG_KEYS = ("vocab_size", "units", "num_layers", "num_heads", "max_len",
 
 
 def _decoder(config, params, device, what):
+    """A served GPTDecoder with a checkpoint's weights, in float32 whatever
+    their dtype: the JAX family cannot load a bfloat16 checkpoint
+    (``jnp.asarray`` of the restored bf16 NDArrays raises), so a bf16 one is
+    served as the port always served it, widened to fp32 (ROADMAP Queue 3).
+    ``GPTPagedLM`` is the path that computes in bf16."""
     model = GPTDecoder(device=device,
                        **{k: config[k] for k in _CONFIG_KEYS if k in config})
     try:
-        return model.load_params(params)
+        return model.load_params(params).float()
     except (KeyError, ValueError) as e:
         raise IOError("gpt serving checkpoint does not match the %s config: "
                       "%s" % (what, e)) from e
@@ -85,7 +92,8 @@ def commit_chunk(cache, num_layers, new_k, new_v, counts):
     """Commit chunk positions into the cache: ``counts`` is ``[(slot, row,
     n)]``, the first n positions of row ``row`` of new_k / new_v (per-layer
     (S, C, H, D) tensors) go to ``slot``. Every slot is extended first, then
-    each pool takes one indexed write of all its new rows."""
+    each pool takes one indexed write of all its new rows, cast to the
+    pool's dtype."""
     dst, src = [], []
     C = new_k[0].shape[1]
     for slot, row, n in counts:
@@ -159,7 +167,7 @@ def _build_gpt_decoder(config, params, quantize, device):
                          {k[len(_DRAFT_PREFIX):]: v for k, v in params.items()
                           if k.startswith(_DRAFT_PREFIX)}, device, "draft")
     L = cfg["num_layers"]
-    chunk = PREFILL_CHUNK
+    chunk = _env_int("MXTPU_GEN_PREFILL_CHUNK", PREFILL_CHUNK)
     caches = {}                 # slots -> the last cache made of that size
     decode_programs = {}        # (name, id(cache)) -> BlockProgram
 
@@ -223,9 +231,8 @@ def _build_gpt_decoder(config, params, quantize, device):
             return outs[0][:, 0].cpu().numpy()
 
     def prefill(slot, tokens, cache):
-        """Commit a prompt prefix into one slot in chunks padded to
-        ``PREFILL_CHUNK`` positions; only the valid positions are
-        committed."""
+        """Commit a prompt prefix into one slot in chunks padded to the
+        family's chunk; only the valid positions are committed."""
         name = "gptprefill/s%dxc%d" % (cache.slots, chunk)
         tokens = np.asarray(tokens, np.int32).ravel()
         with torch.inference_mode():

@@ -33,6 +33,7 @@ pools' device bytes.
 """
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -45,8 +46,17 @@ from ..telemetry import memz as _memz
 
 __all__ = ["PagedKVCache", "KVPoolExhausted", "DEFAULT_BLOCK_SIZE"]
 
-#: default block size (positions per block)
+#: default block size (positions per block); MXTPU_GEN_BLOCK_SIZE
 DEFAULT_BLOCK_SIZE = 16
+
+
+def _env_int(name, default):
+    """An integer setting from the environment: ``default`` when it is
+    unset, empty or not an integer, as the JAX package reads its knobs."""
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 class KVPoolExhausted(ValueError):
@@ -69,27 +79,35 @@ class PagedKVCache:
 
     Not thread-safe by itself: the decode loop is the single owner.
 
-    ``num_blocks=None`` is ``slots * ceil(max_len / block_size)``, full
-    capacity parity with the dense grid. Size it smaller to oversubscribe
-    (appends then raise ``KVPoolExhausted``). ``device=None`` is ``cuda:0``
-    and raises without CUDA; pass ``device="cpu"`` for the host.
+    An argument wins over the environment, as in the JAX package:
+    ``block_size=None`` reads ``MXTPU_GEN_BLOCK_SIZE`` (default 16), and
+    ``num_blocks=None`` reads ``MXTPU_GEN_NUM_BLOCKS``, which oversubscribes
+    every pool of the process; where that is unset or 0 the pool holds
+    ``slots * ceil(max_len / block_size)`` blocks, full capacity parity with
+    the dense grid. Size it smaller to oversubscribe (appends then raise
+    ``KVPoolExhausted``). A kv entry's spec may carry its dtype third
+    (``("kv", (H, D), "bfloat16")``); the default is float32.
+    ``device=None`` is ``cuda:0`` and raises without CUDA; pass
+    ``device="cpu"`` for the host.
     """
 
-    def __init__(self, slots, spec, max_len=512,
-                 block_size=DEFAULT_BLOCK_SIZE, num_blocks=None,
-                 name="default", device=None):
+    def __init__(self, slots, spec, max_len=512, block_size=None,
+                 num_blocks=None, name="default", device=None):
         if slots < 1:
             raise ValueError("need at least one slot, got %r" % slots)
         self.device = resolve_device(device)
         self.slots = int(slots)
         self.max_len = int(max_len)
-        self.block_size = int(block_size)
+        self.block_size = int(block_size or
+                              _env_int("MXTPU_GEN_BLOCK_SIZE",
+                                       DEFAULT_BLOCK_SIZE))
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1, got %r"
                              % self.block_size)
         self.max_blocks_per_slot = max(
             1, math.ceil(self.max_len / self.block_size))
         self.num_blocks = int(num_blocks or
+                              _env_int("MXTPU_GEN_NUM_BLOCKS", 0) or
                               self.slots * self.max_blocks_per_slot)
         self.name = name
         self.spec = {}
@@ -235,12 +253,15 @@ class PagedKVCache:
 
     def write_rows(self, name, rows, values):
         """Copy `values` (n,) + shape into the kv entry's flat pool rows
-        `rows` (a long tensor on the cache's device): one indexed write."""
-        kind, shape, _dtype = self.spec[name]
+        `rows` (a long tensor on the cache's device): one indexed write,
+        the values cast to the pool's dtype first (a bf16 model's K and V
+        into an fp32 pool, as the JAX package's numpy pools cast on
+        append)."""
+        kind, shape, dtype = self.spec[name]
         if kind != "kv":
             raise ValueError("%r is a %r entry, not kv" % (name, kind))
         flat = self.data[name].view((-1,) + shape)
-        flat.index_copy_(0, rows, values.reshape((-1,) + shape))
+        flat.index_copy_(0, rows, values.reshape((-1,) + shape).to(dtype))
 
     def prefix(self, name, slot):
         """The filled (length, ...) contents of a kv entry for one slot, as

@@ -374,11 +374,18 @@ def bert_param_shapes(vocab_size, units, hidden_size, num_layers,
 
 
 def _to_tensor(v):
+    """A tensor of ``v`` (a tensor, an array or the JAX package's NDArray)
+    in its own dtype. A bfloat16 numpy array (ml_dtypes' type, which numpy
+    does not know by itself) is recognised by its dtype's name and size and
+    carried over bit for bit, without importing ml_dtypes."""
     if isinstance(v, torch.Tensor):
         return v.detach()
     if hasattr(v, "asnumpy"):           # the JAX package's NDArray
         v = v.asnumpy()
-    return torch.from_numpy(np.array(v))
+    a = np.array(v)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(params, device):

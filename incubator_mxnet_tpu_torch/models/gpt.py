@@ -23,6 +23,11 @@ JAX package's ``_ln`` arithmetic), the full-sequence softmax through the
 softmax kernel, and the MLP's GELU is the tanh approximation that
 ``jax.nn.gelu`` defaults to. The MoE feed-forward (``moe_experts > 0``,
 ``parallel/moe.py`` in the JAX package) is not part of the port yet.
+
+The forwards compute in the weights' dtype, float32 or bfloat16, as the JAX
+package's do: bf16 weights give bf16 activations, logits and new K/V, the
+LayerNorm and attention kernels' bf16 flavours, and bf16 products through
+``torch.matmul`` (fp32 sums). A bf16 model may read fp32 or bf16 pools.
 """
 
 import math
@@ -174,10 +179,16 @@ def gpt_forward_paged(params, cfg, tokens, lengths, block_tables, k_pools,
     return torch.matmul(x, params["wte"].t()), new_k, new_v
 
 
+#: the dtypes a weight keeps; any other float dtype is carried as float32
+_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def params_from_jax(params, cfg, device):
     """Carry a GPT parameter dict named as the JAX package names it onto
-    ``device`` as float32 tensors. The key set must be exactly ``cfg``'s
-    and every shape must match, else KeyError / ValueError."""
+    ``device``. A float32 or bfloat16 weight keeps its dtype, as the JAX
+    package's ``jnp.asarray`` keeps it, so bf16 weights compute in bf16;
+    any other dtype is carried as float32. The key set must be exactly
+    ``cfg``'s and every shape must match, else KeyError / ValueError."""
     expected = gpt_param_shapes(gpt_config(cfg))
     tensors = {str(k): _to_tensor(v) for k, v in params.items()}
     missing = sorted(set(expected) - set(tensors))
@@ -189,7 +200,8 @@ def params_from_jax(params, cfg, device):
         if tuple(tensors[name].shape) != shape:
             raise ValueError("%s: shape %s, expected %s"
                              % (name, tuple(tensors[name].shape), shape))
-    return {name: t.to(device=device, dtype=torch.float32)
+    return {name: t.to(device=device, dtype=t.dtype if t.dtype in
+                       _WEIGHT_DTYPES else torch.float32)
             for name, t in tensors.items()}
 
 
@@ -246,10 +258,14 @@ class GPTDecoder(nn.Module):
     def load_params(self, params):
         """Copy a JAX-named parameter dict (numpy arrays, tensors or the JAX
         package's NDArrays) into this model; every key and shape must
-        match."""
+        match. Each parameter takes the incoming weight's dtype (float32 or
+        bfloat16, see ``params_from_jax``), so the model computes in the
+        dtype it was given."""
         state = params_from_jax(params, self._cfg, self.device)
         with torch.no_grad():
             for name, p in self.named_parameters():
+                if p.dtype != state[name].dtype:
+                    p.data = torch.empty_like(state[name])
                 p.copy_(state[name])
         return self
 

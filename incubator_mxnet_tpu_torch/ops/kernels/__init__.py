@@ -8,12 +8,14 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_bwd_dkv,
                               flash_attention_bwd_dkv_bf16,
                               flash_attention_bwd_dkv_dbias,
+                              flash_attention_bwd_dkv_dbias_bf16,
                               flash_attention_bwd_dq,
                               flash_attention_bwd_dq_bf16,
                               flash_attention_forward,
                               flash_attention_fwd_bf16,
                               flash_attention_reference)
 from .flash_decode import (paged_causal_attention, paged_flash_decode,
+                           paged_flash_decode_bf16,
                            paged_flash_decode_reference)
 from .fused_bottleneck import bottleneck_reference, fused_bottleneck
 from .fused_norm import (layer_norm, layer_norm_bf16, layer_norm_reference,
@@ -32,6 +34,7 @@ from .fused_optim import (fused_adam_flat, fused_adam_flat_bf16,
 __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_dbias", "flash_attention_bwd_dkv_bf16",
+           "flash_attention_bwd_dkv_dbias_bf16", "paged_flash_decode_bf16",
            "flash_attention_bwd_dq_bf16", "flash_attention_fwd_bf16",
            "fused_adam_flat_bf16",
            "fused_adamw_flat_bf16", "fused_sgd_mom_flat_bf16",
@@ -74,6 +77,8 @@ WRAPPERS = {
     "flash_attention_fwd_bf16": flash_attention_fwd_bf16,
     "flash_attention_bwd_dq_bf16": flash_attention_bwd_dq_bf16,
     "flash_attention_bwd_dkv_bf16": flash_attention_bwd_dkv_bf16,
+    "flash_attention_bwd_dkv_dbias_bf16": flash_attention_bwd_dkv_dbias_bf16,
+    "flash_decode_bf16": paged_flash_decode_bf16,
 }
 
 

@@ -57,15 +57,15 @@ _SIGNATURES = {
     # causal, device, stream
     "mxtpu_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _I, _I, _I, _F, _I, _I, _P),
-    # the bf16 flavours: the forward's and the dQ kernel's arguments as in
-    # fp32; the dK/dV kernel's without dbias (q, k, v, dout, lse, delta,
-    # bias, dk, dv, bh, T, D, scale, causal, device, stream)
+    # the bf16 flavours, with the fp32 entries' arguments (dbias null for
+    # none)
     "mxtpu_flash_attention_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _F, _I, _I, _P),
     "mxtpu_flash_attention_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _F, _I, _I, _P),
     "mxtpu_flash_attention_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _P, _I, _I, _I, _F, _I, _I, _P),
+                                           _P, _P, _I, _I, _I, _F, _I, _I,
+                                           _P),
     # table, n_tensors, n_chunks, lr, wd, b1, b2, 1 - b1, 1 - b2, 1 - b1^t,
     # 1 - b2^t, eps, lr * wd, adamw, device, stream
     "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
@@ -99,6 +99,10 @@ _SIGNATURES = {
     # block_size, max_blocks, scale, device, stream
     "mxtpu_flash_decode_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _I, _P),
+    # bf16 q and out over pools of kv_dtype (0 bf16, 1 fp32): the fp32
+    # entry's arguments with kv_dtype before device
+    "mxtpu_flash_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

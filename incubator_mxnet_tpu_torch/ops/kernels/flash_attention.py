@@ -24,12 +24,13 @@ Each kernel has an fp32 and a bf16 flavour, as the TPU kernels take the
 input dtype: q, k, v (and do) of one dtype, the key bias and the lse fp32.
 ``flash_attention_forward`` and ``flash_attention_backward`` route by dtype;
 the bf16 kernels count on ``flash_attention_fwd_bf16``,
-``flash_attention_bwd_dq_bf16`` and ``flash_attention_bwd_dkv_bf16``. A bf16
+``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkv_bf16`` and, with
+a learned bias's cotangent, ``flash_attention_bwd_dkv_dbias_bf16``. A bf16
 CUDA tensor launches them or raises (no cast to fp32); float16 raises
-TypeError, and the bf16 ``has_dbias`` variant is still to port (ROADMAP
-Queue 2 item 14). The plain versions round where the TPU kernels round:
-p to the input dtype before P V and dS before dS K and dS^T Q (a no-op for
-fp32), with every product taken in fp32 from the rounded values.
+TypeError (ROADMAP Queue 2 item 13). The plain versions round where the TPU
+kernels round: p to the input dtype before P V and dS before dS K and dS^T
+Q (a no-op for fp32), with every product taken in fp32 from the rounded
+values; dbias stays the fp32 sum of the unrounded, unscaled dS.
 """
 
 import torch
@@ -42,7 +43,8 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_backward_reference", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_dbias",
            "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
-           "flash_attention_bwd_dkv_bf16"]
+           "flash_attention_bwd_dkv_bf16",
+           "flash_attention_bwd_dkv_dbias_bf16"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -321,13 +323,15 @@ def flash_attention_bwd_dkv_dbias(q, k, v, do, lse, delta, bias, scale,
 flash_attention_bwd_dkv_dbias.launches = 0
 
 
-def _backward_cost(bh, T, D, bias, causal, n_prod, n_out, elem_bytes):
+def _backward_cost(bh, T, D, bias, causal, n_prod, n_out, elem_bytes,
+                   dbias=False):
     """(flops, bytes) of one backward launch: ``n_prod`` T x T x D products
     over every key (half under a causal mask); q, k, v and do read, lse and
-    delta (and the bias) read, ``n_out`` (BH, T, D) outputs written."""
+    delta (and the bias) read, ``n_out`` (BH, T, D) outputs written, and
+    the fp32 (BH, T) dbias with ``dbias``."""
     flops = 2.0 * n_prod * bh * T * T * D / (2 if causal else 1)
     nbytes = ((4 + n_out) * bh * T * D * elem_bytes
-              + (2 + (bias is not None)) * bh * T * 4)
+              + (2 + (bias is not None) + bool(dbias)) * bh * T * 4)
     return flops, float(nbytes)
 
 
@@ -357,29 +361,52 @@ def flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias, scale,
 flash_attention_bwd_dq_bf16.launches = 0
 
 
+def _dkv_bf16(wrapper, q, k, v, do, lse, delta, bias, scale, causal,
+              dbias):
+    """One launch of the bf16 dK/dV kernel, with the fp32 dbias output when
+    ``dbias``; counted on ``wrapper``. Returns ``(dk, dv[, dbias])``."""
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.bfloat16)
+    bh, T, D = q.shape
+    outs = (torch.empty_like(k), torch.empty_like(v))
+    if dbias:
+        outs += (torch.empty((bh, T), dtype=torch.float32, device=q.device),)
+    if bh == 0 or T == 0:
+        return outs
+    rc = _build.library().mxtpu_flash_attention_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if bias is None else bias.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr() if dbias else None, bh, T, D,
+        float(scale), int(bool(causal)), q.device.index, _stream(q))
+    _build.check(rc, wrapper.__name__)
+    _build.count_launch(wrapper, lambda: _backward_cost(
+        bh, T, D, bias, causal, 4, 2, 2, dbias))
+    return outs
+
+
 def flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, bias, scale,
                                  causal):
     """The bf16 dK/dV kernel (without dbias) on CUDA tensors, with the bf16
     dQ kernel's arguments. Returns ``(dk, dv)`` (bf16)."""
-    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.bfloat16)
-    bh, T, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if bh == 0 or T == 0:
-        return dk, dv
-    rc = _build.library().mxtpu_flash_attention_bwd_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
-        None if bias is None else bias.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, T, D, float(scale), int(bool(causal)),
-        q.device.index, _stream(q))
-    _build.check(rc, "flash_attention_bwd_dkv_bf16")
-    _build.count_launch(flash_attention_bwd_dkv_bf16,
-                        lambda: _backward_cost(bh, T, D, bias, causal, 4, 2,
-                                               2))
-    return dk, dv
+    return _dkv_bf16(flash_attention_bwd_dkv_bf16, q, k, v, do, lse, delta,
+                     bias, scale, causal, False)
 
 
 flash_attention_bwd_dkv_bf16.launches = 0
+
+
+def flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta, bias, scale,
+                                       causal):
+    """The bf16 dK/dV kernel with the per-key bias's cotangent (the TPU
+    kernel's ``has_dbias`` variant on bf16 inputs), with the bf16 dQ
+    kernel's arguments. Returns ``(dk, dv, dbias)``: dk and dv bf16 from dS
+    rounded to bf16, dbias (BH, T) fp32, the sum over query rows of the
+    unrounded, unscaled dS."""
+    return _dkv_bf16(flash_attention_bwd_dkv_dbias_bf16, q, k, v, do, lse,
+                     delta, bias, scale, causal, True)
+
+
+flash_attention_bwd_dkv_dbias_bf16.launches = 0
 
 
 def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
@@ -389,7 +416,7 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
     ``needs_dbias`` the per-key bias's cotangent (BH, T) after them, from
     the dK/dV kernel's dbias variant. Without it the bias (a padding mask)
     gets no gradient and costs none. bf16 CUDA tensors go to the bf16
-    kernels, which have no dbias variant yet."""
+    kernels, dbias included."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
@@ -399,18 +426,14 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
     if q.dtype == torch.bfloat16:
-        if needs_dbias:
-            raise NotImplementedError(
-                "flash_attention: the bf16 dK/dV kernel with a learned "
-                "bias's cotangent is not ported yet (ROADMAP Queue 2 item "
-                "14)")
         # delta = rowsum(dO * O) in fp32 from the bf16 tensors, as
         # _bwd_call takes it
         delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias,
                                          scale, causal)
-        return (dq,) + flash_attention_bwd_dkv_bf16(
-            q, k, v, do, lse, delta, bias, scale, causal)
+        dkv = flash_attention_bwd_dkv_dbias_bf16 if needs_dbias \
+            else flash_attention_bwd_dkv_bf16
+        return (dq,) + dkv(q, k, v, do, lse, delta, bias, scale, causal)
     # delta = rowsum(dO * O): one reduction, as in the TPU kernel's caller
     delta = (do * out).sum(dim=-1)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal)

@@ -8,8 +8,13 @@ prefill and speculative verification go through it too.
 
 ``paged_flash_decode`` is attention of ``q`` over each sequence's paged past
 and returns ``(o, m, l)``. For a CPU tensor it takes the plain version; for a
-CUDA tensor it launches the kernel or raises, and adds one to its
-``launches`` count. ``paged_causal_attention`` is the whole decode-step
+CUDA tensor it launches a kernel or raises, and adds one to that kernel's
+``launches`` count: fp32 q over fp32 pools launches the fp32 kernel (counted
+on ``paged_flash_decode``), bf16 q over bf16 or fp32 pools the bf16 one
+(counted on ``paged_flash_decode_bf16``), the pairs a bf16 GPT feeds over a
+bf16 spec or the default one. Any other pair (an fp16 tensor, fp32 q over
+bf16 pools, K and V of two dtypes) raises TypeError naming it; no pool is
+ever converted. o comes back in q's dtype, m and l in fp32. ``paged_causal_attention`` is the whole decode-step
 attention: the past term through ``paged_flash_decode``, the in-chunk causal
 term and the two-way softmax merge in plain PyTorch, as the JAX package
 computes them in lax outside its Pallas call.
@@ -22,8 +27,8 @@ import torch
 from ...telemetry import costs as _costs
 from . import _build
 
-__all__ = ["paged_flash_decode", "paged_flash_decode_reference",
-           "paged_causal_attention"]
+__all__ = ["paged_flash_decode", "paged_flash_decode_bf16",
+           "paged_flash_decode_reference", "paged_causal_attention"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -65,14 +70,26 @@ def paged_flash_decode_reference(q, k_pool, v_pool, block_tables, lengths,
             l.transpose(1, 2).contiguous())
 
 
+#: (q dtype, pool dtype) -> the C entry's pool code, for each pair a CUDA
+#: kernel takes: the fp32 kernel's one pair, the bf16 kernel's two
+_PAIRS = {(torch.float32, torch.float32): None,
+          (torch.bfloat16, torch.bfloat16): 0,
+          (torch.bfloat16, torch.float32): 1}
+
+
 def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
+    pair = (q.dtype, k_pool.dtype)
+    if pair not in _PAIRS or v_pool.dtype != k_pool.dtype:
+        raise TypeError(
+            "paged_flash_decode: no CUDA kernel takes q %s over k_pool %s "
+            "and v_pool %s; the kernels take float32 q over float32 pools "
+            "and bfloat16 q over bfloat16 or float32 pools (float16 is "
+            "ROADMAP Queue 2 item 13)" % (q.dtype, k_pool.dtype,
+                                          v_pool.dtype))
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.device != q.device:
             raise ValueError("paged_flash_decode: %s on %s, q on %s"
                              % (name, t.device, q.device))
-        if t.dtype != torch.float32:
-            raise TypeError("paged_flash_decode: the CUDA kernel takes "
-                            "float32, %s is %s" % (name, t.dtype))
         if t.dim() != 4:
             raise ValueError("paged_flash_decode: %s must be 4-D, got %s"
                              % (name, tuple(t.shape)))
@@ -116,13 +133,38 @@ def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
                              tuple(k_pool.shape), tuple(block_tables.shape)))
 
 
-def _decode_cost(S, C, H, D, lengths, mb):
+def _decode_cost(S, C, H, D, lengths, mb, q_bytes, kv_bytes):
     """(flops, bytes) of one decode launch over this call's live past (a
     host read of ``lengths``: called only while costs are counted, on an
     eager call)."""
-    nbytes, flops = _costs.flash_decode_cost(S, C, H, D,
-                                             int(lengths.sum()), mb)
+    nbytes, flops = _costs.flash_decode_cost(
+        S, C, H, D, int(lengths.sum()), mb, q_bytes, kv_bytes)
     return flops, nbytes
+
+
+def _launch(entry, wrapper, q, k_pool, v_pool, block_tables, lengths,
+            scale, *codes):
+    """One launch of a decode kernel (C entry ``entry``, given ``codes``
+    before the device), counted on ``wrapper``. Returns ``(o, m, l)``."""
+    _check_cuda(q, k_pool, v_pool, block_tables, lengths)
+    S, C, H, D = q.shape
+    out = torch.empty_like(q)
+    m = torch.empty((S, C, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((S, C, H), dtype=torch.float32, device=q.device)
+    if S == 0 or C == 0 or H == 0:
+        return out, m, l
+    num_blocks, block_size = k_pool.shape[0], k_pool.shape[1]
+    rc = getattr(_build.library(), entry)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), S, C, H, D, num_blocks, block_size,
+        block_tables.shape[1], float(scale), *codes, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, wrapper.__name__)
+    qb, kvb = q.element_size(), k_pool.element_size()
+    _build.count_launch(wrapper, lambda: _decode_cost(
+        S, C, H, D, lengths, block_tables.shape[1], qb, kvb))
+    return out, m, l
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, scale=None):
@@ -133,37 +175,42 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, scale=None):
     (S,) int32, the committed past positions of each sequence. Returns
     ``(o, m, l)``: the normalised output (S, C, H, D) and the online-softmax
     row max and denominator, both (S, C, H), for merging with in-chunk
-    terms. A sequence with no past gives o = 0, m = -1e30 and l = 0."""
-    S, C, H, D = q.shape
+    terms. A sequence with no past gives o = 0, m = -1e30 and l = 0. A
+    bf16 ``q`` on CUDA goes to ``paged_flash_decode_bf16``."""
     if scale is None:
-        scale = 1.0 / math.sqrt(D)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return paged_flash_decode_reference(q, k_pool, v_pool, block_tables,
                                             lengths, scale)
     if q.device.type != "cuda":
         raise ValueError("paged_flash_decode: unsupported device %s"
                          % q.device)
-    _check_cuda(q, k_pool, v_pool, block_tables, lengths)
-    out = torch.empty_like(q)
-    m = torch.empty((S, C, H), dtype=torch.float32, device=q.device)
-    l = torch.empty((S, C, H), dtype=torch.float32, device=q.device)
-    if S == 0 or C == 0 or H == 0:
-        return out, m, l
-    num_blocks, block_size = k_pool.shape[0], k_pool.shape[1]
-    lib = _build.library()
-    rc = lib.mxtpu_flash_decode_f32(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), S, C, H, D, num_blocks, block_size,
-        block_tables.shape[1], float(scale), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "paged_flash_decode")
-    _build.count_launch(paged_flash_decode, lambda: _decode_cost(
-        S, C, H, D, lengths, block_tables.shape[1]))
-    return out, m, l
+    if q.dtype == torch.bfloat16:
+        return paged_flash_decode_bf16(q, k_pool, v_pool, block_tables,
+                                       lengths, scale)
+    return _launch("mxtpu_flash_decode_f32", paged_flash_decode, q, k_pool,
+                   v_pool, block_tables, lengths, scale)
 
 
 paged_flash_decode.launches = 0
+
+
+def paged_flash_decode_bf16(q, k_pool, v_pool, block_tables, lengths,
+                            scale=None):
+    """The bf16 decode kernel on CUDA tensors: bfloat16 q (S, C, H, D) over
+    bfloat16 or float32 pools (both of one dtype), read in place. Returns
+    ``(o, m, l)``, o bf16 (rounded once), m and l fp32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise TypeError("paged_flash_decode_bf16: takes a bfloat16 CUDA q, "
+                        "got %s on %s" % (q.dtype, q.device))
+    return _launch("mxtpu_flash_decode_bf16", paged_flash_decode_bf16, q,
+                   k_pool, v_pool, block_tables, lengths, scale,
+                   _PAIRS.get((q.dtype, k_pool.dtype)))
+
+
+paged_flash_decode_bf16.launches = 0
 
 
 def paged_causal_attention(q, k_new, v_new, k_pool, v_pool, block_tables,

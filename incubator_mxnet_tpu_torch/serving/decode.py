@@ -34,6 +34,7 @@ logits come back as numpy, so its time covers the device work.
 """
 
 import collections
+import os
 import threading
 import time
 
@@ -115,22 +116,26 @@ class DecodeLoop:
     """One per served generative model; owns its KV cache exclusively.
 
     A ``prefill_fn`` comes with the family's ``prefill_chunk``, the prompt
-    positions it commits per forward, which the admission estimate counts.
-    Requests ask for at most ``max_new_tokens_cap`` tokens."""
+    positions it commits per forward, which the admission estimate counts;
+    None reads ``MXTPU_GEN_PREFILL_CHUNK`` (default 32), at least 1.
+    Requests ask for at most ``max_new_tokens_cap`` tokens; None reads
+    ``MXTPU_SERVE_MAX_NEW_TOKENS`` (default 64). An argument wins over the
+    environment, as in the JAX package."""
 
     def __init__(self, name, step_fn, cache, pad_token=0,
-                 max_new_tokens_cap=64, prefill_fn=None,
+                 max_new_tokens_cap=None, prefill_fn=None,
                  prefill_chunk=None):
         self.name = name
         self._step_fn = step_fn
         self._cache = cache
-        if prefill_fn is not None and not (prefill_chunk or 0) >= 1:
-            raise ValueError("a prefill_fn needs its prefill_chunk (>= 1), "
-                             "got %r" % (prefill_chunk,))
         self._prefill_fn = prefill_fn
-        self._prefill_chunk = prefill_chunk
+        self._prefill_chunk = max(1, int(
+            prefill_chunk if prefill_chunk is not None
+            else os.environ.get("MXTPU_GEN_PREFILL_CHUNK", "32") or 32))
         self._pad = int(pad_token)
-        self._cap = int(max_new_tokens_cap)
+        self._cap = int(max_new_tokens_cap if max_new_tokens_cap is not None
+                        else os.environ.get("MXTPU_SERVE_MAX_NEW_TOKENS",
+                                            "64"))
         self._cond = threading.Condition()
         self._pending = collections.deque()
         self._active = {}               # slot -> _Seq
@@ -209,9 +214,18 @@ class DecodeLoop:
         "draining" stage; queued requests are shed at once; ACTIVE sequences
         get `timeout` seconds to finish, and stragglers are then shed and
         their slots freed on the loop's next retire pass. True when the grid
-        is empty and no step is in flight."""
-        deadline = time.monotonic() + float(timeout)
+        is empty and no step is in flight.
+
+        The window starts once the drain holds the loop's lock: an admission
+        pass runs its prompts' chunked prefills under that lock (hundreds of
+        ms for a few long prompts), and a deadline taken before it would
+        leave the active sequences and the in-flight step none of their
+        window (the JAX package's drain takes it before). So `timeout`
+        bounds the windows, not the call: a drain that arrives during an
+        admission pass first waits for that pass's prefills, and its wall
+        time is at most that pass plus twice `timeout`."""
         with self._cond:
+            deadline = time.monotonic() + float(timeout)
             self._draining = True
             while self._pending:
                 self._shed(self._pending.popleft(), "draining",

@@ -30,8 +30,14 @@ _KINDS = ("state", "kv")
 
 
 def _torch_dtype(dtype):
+    """The torch dtype of a spec's dtype field: a torch dtype, a numpy
+    dtype or its name. ``"bfloat16"`` (or ml_dtypes' numpy type, by its
+    name) is torch.bfloat16 without importing ml_dtypes."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if getattr(dtype, "__name__", None) == "bfloat16" \
+            or str(dtype) == "bfloat16":
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 

@@ -300,17 +300,17 @@ def load_generation_params(directory, generation=None, pin=False):
 
 
 def _aval(value):
-    """(shape, numpy dtype) of a tensor, either package's NDArray or an
-    array."""
+    """(shape, dtype name) of a tensor, either package's NDArray or an
+    array; a bfloat16 tensor and an ml_dtypes bfloat16 array are both
+    ``"bfloat16"``."""
     if hasattr(value, "_t") and isinstance(value._t, torch.Tensor):
         value = value._t                        # the port's NDArray
     if isinstance(value, torch.Tensor):
-        return (tuple(value.shape),
-                torch.empty((), dtype=value.dtype).numpy().dtype)
+        return tuple(value.shape), str(value.dtype).replace("torch.", "")
     if hasattr(value, "asnumpy"):               # the JAX package's NDArray
         value = value.asnumpy()
     value = np.asarray(value)
-    return tuple(value.shape), value.dtype
+    return tuple(value.shape), value.dtype.name
 
 
 def check_generation_avals(current, new, context=""):

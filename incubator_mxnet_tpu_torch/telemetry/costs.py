@@ -101,13 +101,14 @@ def flash_forward_cost(H, T, D, lengths, elem_bytes=4):
             4 * B * H * T * T * D)
 
 
-def flash_decode_cost(S, C, H, D, live, mb):
+def flash_decode_cost(S, C, H, D, live, mb, q_bytes=4, kv_bytes=4):
     """(bytes, flops) of one paged flash-decode call: the K and V rows of
-    the ``live`` past positions read once, q read and out written, m and l
-    written, the block tables and lengths read; QK^T and PV of each of
-    the C chunk positions against the live past."""
-    fd_bytes = (2 * live * H * D + 2 * S * C * H * D + 2 * S * C * H
-                + S * mb + S) * 4
+    the ``live`` past positions read once (``kv_bytes`` an element: 2 for
+    a bf16 pool), q read and out written (``q_bytes`` an element), m and l
+    written in fp32, the int32 block tables and lengths read; QK^T and PV
+    of each of the C chunk positions against the live past."""
+    fd_bytes = (2 * live * H * D * kv_bytes + 2 * S * C * H * D * q_bytes
+                + (2 * S * C * H + S * mb + S) * 4)
     return fd_bytes, 4 * C * H * D * live
 
 

@@ -764,3 +764,141 @@ def test_train_bf16_phase_checks_each_path_on_the_cpu(capsys,
     (timing,) = lines["train_bf16_timing"]
     assert sorted(timing) == ["bert_T128_B4", "bert_T512_B2", "card",
                               "resnet_B4"]
+
+
+# ----------------------------------------------------------- generate_bf16
+GEN_CFG = dict(vocab_size=300, units=64, num_layers=2, num_heads=2,
+               max_len=256)
+
+
+def test_generate_bf16_phase_checks_each_run_on_the_cpu(capsys,
+                                                        one_torch_thread):
+    """The generate_bf16 drive on the CPU at a tiny size (launch counts only
+    on the card): the CPU check over bf16 and fp32 pools, each run's first
+    batch held token by token against the full-sequence forward, the
+    2-layer-drafted and the self-drafted speculative runs, the latter above
+    its acceptance floor; the knobs set for the first run only."""
+    cpu = torch.device("cpu")
+    before = {k: chip_smoke.os.environ.get(k)
+              for k in chip_smoke.GEN_BF16_KNOBS}
+    by_path = chip_smoke.generate_bf16_phase(
+        torch, cpu, cfg=GEN_CFG, draft_cfg=dict(GEN_CFG, num_layers=1),
+        prompt_lengths=[1, 8, 17, 31, 33, 64, 100], max_new=8, slots=4,
+        cache_len=256)
+    assert sorted(by_path) == ["generate_bf16", "generate_bf16_fp32_pools",
+                               "generate_bf16_self_spec",
+                               "generate_bf16_spec"]
+    assert {k: chip_smoke.os.environ.get(k)
+            for k in chip_smoke.GEN_BF16_KNOBS} == before
+    (line,) = [json.loads(l.partition(": ")[2])
+               for l in capsys.readouterr().out.splitlines()
+               if l.startswith("generate_bf16: ")]
+    for check in ("cpu_check", "cpu_check_fp32_pools"):
+        assert line[check]["logits_gap_over_max"] == 0.0
+        assert line[check]["token_diffs"] == []
+    for run in ("bf16_pools", "fp32_pools", "speculative",
+                "self_speculative"):
+        forced = line[run]["teacher_forced"]
+        assert forced["tokens"] == 4 * 8
+        assert forced["worst_short_over_top"] <= 2 * \
+            chip_smoke.GEN_BF16_ROW_TOL
+    assert (line["bf16_pools"]["block_size"],
+            line["bf16_pools"]["prefill_chunk"]) == (32, 16)
+    spec, self_spec = line["speculative"], line["self_speculative"]
+    assert (spec["draft_layers"], self_spec["draft_layers"]) == (1, 2)
+    assert self_spec["acceptance"] >= chip_smoke.GEN_BF16_SELF_ACCEPT
+    assert self_spec["accepted"] > 0
+
+
+def _greedy(params, prompt, steps):
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_logits
+    seq = list(prompt)
+    for _ in range(steps):
+        seq.append(int(gpt_logits(params, GEN_CFG, torch.tensor(
+            [seq]))[0, -1].float().argmax()))
+    return seq[len(prompt):]
+
+
+def test_teacher_forced_refuses_a_token_far_below_the_top(one_torch_thread):
+    """The full-sequence greedy tokens pass (each is its row's top); a token
+    swapped for its row's lowest fails, and a sequence seen once is not
+    computed again."""
+    params = chip_smoke.gpt_bf16_params(torch, GEN_CFG, 5)
+    forced = chip_smoke.TeacherForced(torch, GEN_CFG, params)
+    prompts = [[3, 1, 4], [15]]
+    outs = [_greedy(params, p, 5) for p in prompts]
+    got = forced.check("greedy", prompts, outs)
+    assert got == dict(worst_short_over_top=0.0, not_argmax=0, tokens=10)
+    assert len(forced.seen) == 2
+    forced.check("again", prompts, outs)
+    assert len(forced.seen) == 2
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_logits
+    row = gpt_logits(params, GEN_CFG, torch.tensor(
+        [prompts[0] + outs[0][:2]]))[0, -1].float()
+    bad = outs[0][:2] + [int(row.argmin())]
+    with pytest.raises(AssertionError, match="sequence 0 step 2"):
+        forced.check("swapped", prompts[:1], [bad])
+
+
+@pytest.mark.parametrize("got,margin,ok", [
+    ([[1, 2, 3]], 0.0, True),          # the same tokens
+    ([[1, 2, 9]], 0.05, True),          # parts at a near tie: 5 % <= 2/32
+    ([[1, 2, 9]], 0.07, False),         # parts where the top is clear
+    ([[1, 2]], 0.0, False)])            # a shorter sequence
+def test_tokens_agree_lets_sequences_part_only_at_a_near_tie(got, margin,
+                                                             ok):
+    want = [[1, 2, 3]]
+    margins = {0: [(0.0, 1.0), (0.0, 1.0), (margin, 1.0)]}
+    if ok:
+        diffs = chip_smoke.tokens_agree("t", got, want, margins)
+        assert [d["step"] for d in diffs] == ([2] if got != want else [])
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.tokens_agree("t", got, want, margins)
+
+
+def test_set_env_sets_then_restores_each_setting(monkeypatch):
+    monkeypatch.setenv("MXTPU_GEN_BLOCK_SIZE", "8")
+    monkeypatch.delenv("MXTPU_GEN_PREFILL_CHUNK", raising=False)
+    env = chip_smoke.os.environ
+    with chip_smoke.set_env(chip_smoke.GEN_BF16_KNOBS):
+        assert (env["MXTPU_GEN_BLOCK_SIZE"],
+                env["MXTPU_GEN_PREFILL_CHUNK"]) == ("32", "16")
+    assert env["MXTPU_GEN_BLOCK_SIZE"] == "8"
+    assert "MXTPU_GEN_PREFILL_CHUNK" not in env
+
+
+def test_flash_decode_bf16_rows_bound_each_pair_at_its_products_rate(
+        monkeypatch):
+    """The bf16 decode rows on the CPU (the plain version, fake clocks):
+    over bf16 pools the operations count at the bf16 tensor-core rate; bf16
+    q over fp32 pools is an fp32 product, at the fp32 rate with the
+    fp32-accurate tensor-core rate as tc_bound_ms, as the fp32 rows."""
+    from incubator_mxnet_tpu_torch.telemetry.costs import flash_decode_cost
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (1.0,
+                                                              "profiler"))
+    monkeypatch.setattr(chip_smoke, "cold_copies",
+                        lambda torch_, inputs, nbytes: [inputs])
+    rows = chip_smoke.flash_decode_bf16_rows(torch, torch.device("cpu"),
+                                             _randn_cpu(4))
+    assert [(r["pool_dtype"], r["shape"]) for r in rows] == [
+        (p, s) for p in ("float32", "bfloat16")
+        for s in ([1, 32, 12, 64], [8, 1, 12, 64])]
+    for r in rows:
+        kv = 2 if r["pool_dtype"] == "bfloat16" else 4
+        S, C, H, D = r["shape"]
+        nbytes, ops = flash_decode_cost(S, C, H, D, r["live_positions"], 64,
+                                        2, kv)
+        peak = (chip_smoke.BF16_FLOPS_PER_S if kv == 2
+                else chip_smoke.FP32_FLOPS_PER_S)
+        assert r["bound_ms"] == pytest.approx(max(
+            nbytes / chip_smoke.HBM_BYTES_PER_S, ops / peak) * 1e3)
+        if kv == 2:
+            assert "tc_bound_ms" not in r
+        else:
+            assert r["tc_bound_ms"] == pytest.approx(max(
+                nbytes / chip_smoke.HBM_BYTES_PER_S,
+                ops / chip_smoke.TF32X3_FLOPS_PER_S) * 1e3)
+    prefill_bf16 = rows[2]
+    assert prefill_bf16["bound_by"] == "bytes"

@@ -366,6 +366,49 @@ def test_decode_drain_fences_active_sessions_retriable():
         loop.stop()
 
 
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_decode_drain_window_starts_once_it_holds_the_loop(pkg):
+    """A drain that arrives while an admission pass holds the loop's lock
+    (its prompt's chunked prefill, 1.5 s here; hundreds of ms for a few
+    long prompts on the card) waits for that pass. The port's window starts
+    once the drain holds the lock, so the admitted session finishes inside
+    it and the drain succeeds; the JAX package's deadline was taken before
+    the wait, so the session is fenced and the drain reports a step still
+    in flight (ROADMAP, reference faults)."""
+    from incubator_mxnet_tpu.serving import decode as jdecode
+    from incubator_mxnet_tpu.serving import kv_cache as jkv
+
+    def slow_prefill(slot, tokens, cache):
+        time.sleep(1.5)
+
+    if pkg == "port":
+        loop_cls, req_cls, cache = DecodeLoop, DecodeRequest, _toy_cache()
+    else:
+        loop_cls, req_cls = jdecode.DecodeLoop, jdecode.DecodeRequest
+        cache = jkv.KVCache(2, {"h": ("state", (1,))}, max_len=64)
+    loop = loop_cls("lm", _counting_step(delay=0.05), cache, pad_token=0,
+                    prefill_fn=slow_prefill, prefill_chunk=8)
+    loop.start()
+    try:
+        r = loop.submit(req_cls("lm", [1, 2, 3], max_new_tokens=4))
+        time.sleep(0.2)                 # admitted, its prefill under way
+        t0 = time.monotonic()
+        # the lock comes free after the prefill, while the first of the
+        # session's four 50 ms steps runs: past the reference's two windows
+        ok = loop.drain(timeout=0.5)
+        assert time.monotonic() - t0 >= 1.1     # waited for the admission
+        if pkg == "port":
+            assert ok is True
+            np.testing.assert_array_equal(r.wait(5.0)["tokens"],
+                                          [4, 5, 6, 7])
+        else:
+            assert ok is False
+            with pytest.raises(jserving.ShedError, match="draining"):
+                r.wait(5.0)
+    finally:
+        loop.stop()
+
+
 def test_decode_drain_waits_for_natural_finish():
     loop = DecodeLoop("lm", _counting_step(delay=0.01), _toy_cache(),
                       pad_token=0)

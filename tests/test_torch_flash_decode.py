@@ -95,6 +95,45 @@ def test_flash_decode_bf16_on_the_plain_path():
     _close(got, want, atol=3e-2, rtol_l=2e-2)
 
 
+#: bf16 q over bf16 or fp32 pools (the two pairs a bf16 GPT feeds): both
+#: sides score and sum in fp32 from the same stored values and round only o
+#: to bf16, so o is held to one bf16 step of its own value (the fp32 sums
+#: differ in order and may round to a neighbouring bf16 value) plus 1e-6;
+#: m and l at ATOL and RTOL_L as in fp32
+BF16_STEP = 2.0 ** -8
+
+
+@pytest.mark.parametrize("pools", ["bfloat16", "float32"])
+@pytest.mark.parametrize("C,bs", [(1, 8), (1, 32), (3, 8), (5, 32)])
+def test_flash_decode_bf16_pairs_match_jax(pools, C, bs):
+    """paged_flash_decode on bf16 q over bf16 and fp32 pools against the
+    JAX package on the same values: at C = 1 its Pallas decode kernel in
+    interpret mode, at C > 1 its lax oracle; block sizes 8 and 32, a dead
+    row, a block boundary and a full table."""
+    S, H, D, mb = 4, 2, 16, 3
+    q, kp, vp, tables, lengths = _inputs(40 + C + bs, S, C, H, D, bs, mb,
+                                         [0, bs, bs * mb, 2 * bs - 3])
+    q = q.astype(jnp.bfloat16)
+    pdt = jnp.bfloat16 if pools == "bfloat16" else jnp.float32
+    kp, vp = kp.astype(pdt), vp.astype(pdt)
+    oracle = _jax_kernel if C == 1 else _jax_lax
+    want = oracle(q, kp, vp, tables, lengths)
+    tdt = getattr(torch, pools)
+    got = tfd.paged_flash_decode(
+        torch.from_numpy(np.asarray(q, np.float32)).bfloat16(),
+        torch.from_numpy(np.asarray(kp, np.float32)).to(tdt),
+        torch.from_numpy(np.asarray(vp, np.float32)).to(tdt),
+        torch.from_numpy(tables), torch.from_numpy(lengths))
+    assert got[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
+    o, jo = got[0].float().numpy(), np.asarray(want[0], np.float32)
+    assert (np.abs(o - jo) <= BF16_STEP * np.abs(jo) + 1e-6).all()
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=RTOL_L, atol=1e-6)
+    assert (got[0][0] == 0).all() and (got[2][0] == 0).all()
+
+
 @pytest.mark.parametrize("C", [1, 4, 8])
 @pytest.mark.parametrize("past", [0, 5, 11])
 def test_paged_causal_attention_matches_jax(C, past):

@@ -12,6 +12,10 @@
 - ``ModelServer(device="cpu")`` serving a checkpoint written by the JAX
   package's ``export_gpt_for_serving``, with tokens equal to the JAX
   engine's greedy tokens; and the port's own export.
+- The generation plane's five knobs read alike by both packages; a bf16
+  GPT's greedy tokens against the JAX engine's over fp32 and bf16 pools
+  (equal wherever the top-2 margin exceeds twice the logits' bound); a
+  bf16 checkpoint, which the JAX family cannot load, served in fp32.
 """
 
 import numpy as np
@@ -266,6 +270,68 @@ def test_engine_speculative_equals_plain_greedy(target_lm, draft_lm):
     assert st["proposed"] > 0 and st["accepted"] == st["proposed"]
 
 
+#: as tests/test_torch_gpt.py's bound on a bf16 GPT's logits against the
+#: JAX package's: 2**-5 of the row's largest |logit|
+BF16_ROW_TOL = 2.0 ** -5
+BF16_CFG = {"vocab_size": 64, "units": 32, "num_layers": 2, "num_heads": 2,
+            "max_len": 64}
+
+
+def _bf16_spec(cfg):
+    H = cfg["num_heads"]
+    spec = {}
+    for i in range(cfg["num_layers"]):
+        for n in ("k%d" % i, "v%d" % i):
+            spec[n] = ("kv", (H, cfg["units"] // H), "bfloat16")
+    return spec
+
+
+@pytest.mark.parametrize("pools", ["float32", "bfloat16"])
+def test_bf16_engine_greedy_matches_jax_engine(pools):
+    """GenerateEngine.generate in each package over the same bf16 weights
+    (ml_dtypes numpy), fp32 pools (the default spec) or bf16 ones: greedy
+    tokens equal wherever the step's top-2 margin exceeds twice
+    BF16_ROW_TOL of its row's largest |logit| (read from the JAX
+    package's full-sequence forward on the JAX engine's context); the
+    first token that differs must sit at a narrower margin."""
+    import ml_dtypes
+    cfg = BF16_CFG
+    params = {n: a.astype(ml_dtypes.bfloat16)
+              for n, a in _params(cfg, 21, 0.5).items()}
+    jlm = jgen.GPTPagedLM(params, cfg)
+    tlm = tgen.GPTPagedLM(params, cfg, device="cpu")
+    if pools == "bfloat16":
+        jcache = jgen.PagedKVCache(3, _bf16_spec(cfg), max_len=64)
+        tcache = tgen.PagedKVCache(3, _bf16_spec(cfg), max_len=64,
+                                   device="cpu")
+        assert tcache.pool("k0").dtype == torch.bfloat16
+    else:
+        jcache, tcache = jlm.make_cache(3, max_len=64), tlm.make_cache(3)
+    prompts = [[3, 5, 7, 2, 11, 1, 4], [5], [i % 64 for i in range(1, 20)]]
+    want = jgen.GenerateEngine(jlm, jcache, prefill_chunk=4).generate(
+        prompts, max_new_tokens=8)
+    got = tgen.GenerateEngine(tlm, tcache, prefill_chunk=4).generate(
+        prompts, max_new_tokens=8)
+    for p, g, w in zip(prompts, got, want):
+        assert len(g) == len(w) == 8
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        logits = jgen_logits(params, cfg, p + w[:j])
+        top = np.sort(logits)[::-1]
+        assert top[0] - top[1] <= 2 * BF16_ROW_TOL * np.abs(logits).max(), \
+            (p, j, g, w)
+
+
+def jgen_logits(params, cfg, context):
+    """The JAX package's full-sequence logits of the next token after
+    ``context``, as float32 numpy."""
+    import jax.numpy as jnp
+    out = jgpt.gpt_logits({n: jnp.asarray(a) for n, a in params.items()},
+                          cfg, jnp.asarray([context], jnp.int32))
+    return np.asarray(out[0, -1].astype(jnp.float32))
+
+
 def test_engine_guards_eos_and_sampling(target_lm, draft_lm):
     with pytest.raises(ValueError, match="greedy-only"):
         tgen.GenerateEngine(target_lm, target_lm.make_cache(2),
@@ -372,27 +438,83 @@ def test_decode_loop_family_prefill_and_failures():
     assert cache.in_use == 0
 
 
-@pytest.mark.parametrize("chunk", [None, 0])
-def test_decode_loop_prefill_needs_its_chunk(chunk):
-    """The family that prefills owns the chunk size: a loop given a
-    prefill_fn without a chunk of at least 1 refuses to start."""
-    with pytest.raises(ValueError, match="needs its prefill_chunk"):
-        DecodeLoop("pf", _counting_step(), _paged_state_cache(),
-                   prefill_fn=lambda slot, tokens, cache: None,
-                   prefill_chunk=chunk)
+#: the generation plane's five knobs, each set alone, together, with values
+#: the readers refuse, and under explicit arguments (which win)
+KNOB_CASES = {
+    "unset": ({}, False),
+    "block_size": ({"MXTPU_GEN_BLOCK_SIZE": "8"}, False),
+    "num_blocks": ({"MXTPU_GEN_BLOCK_SIZE": "8",
+                    "MXTPU_GEN_NUM_BLOCKS": "5"}, False),
+    "prefill_chunk": ({"MXTPU_GEN_PREFILL_CHUNK": "12"}, False),
+    "prefill_chunk_zero": ({"MXTPU_GEN_PREFILL_CHUNK": "0"}, False),
+    "spec_k": ({"MXTPU_GEN_SPEC_K": "2"}, False),
+    "max_new_tokens": ({"MXTPU_SERVE_MAX_NEW_TOKENS": "7"}, False),
+    "not_integers": ({"MXTPU_GEN_BLOCK_SIZE": "x", "MXTPU_GEN_NUM_BLOCKS":
+                      "", "MXTPU_GEN_SPEC_K": "y"}, False),
+    "all_with_arguments": ({"MXTPU_GEN_BLOCK_SIZE": "8",
+                            "MXTPU_GEN_NUM_BLOCKS": "5",
+                            "MXTPU_GEN_PREFILL_CHUNK": "12",
+                            "MXTPU_GEN_SPEC_K": "2",
+                            "MXTPU_SERVE_MAX_NEW_TOKENS": "7"}, True),
+}
 
 
-def test_paged_cache_geometry_comes_from_its_arguments(monkeypatch):
-    """Block size and pool size are arguments (16, and full parity with the
-    dense grid), not environment settings."""
-    monkeypatch.setenv("MXTPU_GEN_BLOCK_SIZE", "4")
-    monkeypatch.setenv("MXTPU_GEN_NUM_BLOCKS", "3")
-    cache = tgen.PagedKVCache(2, _kv_spec(), max_len=40, device="cpu")
-    assert cache.block_size == 16
-    assert cache.num_blocks == 2 * 3
-    small = tgen.PagedKVCache(2, _kv_spec(), max_len=40, block_size=4,
-                              num_blocks=3, device="cpu")
-    assert (small.block_size, small.num_blocks) == (4, 3)
+def _knob_reading(pkg_gen, pkg_family, loop_cls, cache_kw, family_args,
+                  explicit):
+    """What one package makes of the environment: the paged cache's block
+    size and block count, the gpt family's prefill chunk, the engine's
+    spec_k and chunk, the DecodeLoop's chunk and new-token cap (a refusal
+    reads as its exception type)."""
+    def attempt(fn):
+        try:
+            return fn()
+        except ValueError as e:
+            return type(e).__name__
+    kw = dict(block_size=4, num_blocks=9) if explicit else {}
+    cache = pkg_gen.PagedKVCache(2, {"k0": ("kv", (2, 4))}, max_len=64,
+                                 **cache_kw, **kw)
+    served = pkg_family(*family_args)
+    ekw = dict(spec_k=3, prefill_chunk=5) if explicit else {}
+    engine = attempt(lambda: pkg_gen.GenerateEngine(object(), cache, **ekw))
+    lkw = dict(prefill_chunk=6, max_new_tokens_cap=9) if explicit else {}
+    loop = attempt(lambda: loop_cls("k", lambda *a: None, cache, **lkw))
+    return {"block_size": cache.block_size, "num_blocks": cache.num_blocks,
+            "family_chunk": served.prefill_chunk,
+            "engine": engine if isinstance(engine, str)
+            else (engine.spec_k, engine.prefill_chunk),
+            "loop": loop if isinstance(loop, str)
+            else (loop._prefill_chunk, loop._cap)}
+
+
+@pytest.mark.parametrize("case", sorted(KNOB_CASES))
+def test_generation_knobs_read_as_in_jax(case, monkeypatch):
+    """MXTPU_GEN_BLOCK_SIZE, MXTPU_GEN_NUM_BLOCKS, MXTPU_GEN_PREFILL_CHUNK,
+    MXTPU_GEN_SPEC_K and MXTPU_SERVE_MAX_NEW_TOKENS read by both packages
+    with the same precedence (argument, then environment, then default):
+    the paged cache's geometry, the gpt family's chunk, the engine's spec_k
+    and chunk, and the DecodeLoop's chunk and cap come out equal."""
+    from incubator_mxnet_tpu.serving import decode as jdecode
+    from incubator_mxnet_tpu.serving import loader as jloader
+    from incubator_mxnet_tpu_torch.serving import loader as tloader
+    env, explicit = KNOB_CASES[case]
+    for name in ("MXTPU_GEN_BLOCK_SIZE", "MXTPU_GEN_NUM_BLOCKS",
+                 "MXTPU_GEN_PREFILL_CHUNK", "MXTPU_GEN_SPEC_K",
+                 "MXTPU_SERVE_MAX_NEW_TOKENS"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    params = _params(DCFG, 1)
+    port = _knob_reading(tgen, tloader.SERVING_FAMILIES["gpt_decoder"],
+                         DecodeLoop, {"device": "cpu"},
+                         (DCFG, params, False, "cpu"), explicit)
+    ref = _knob_reading(jgen, jloader.SERVING_FAMILIES["gpt_decoder"],
+                        jdecode.DecodeLoop, {}, (DCFG, params, False),
+                        explicit)
+    assert port == ref
+    if case == "num_blocks":
+        assert (port["block_size"], port["num_blocks"]) == (8, 5)
+    if case == "all_with_arguments":
+        assert port["engine"] == (3, 5) and port["loop"] == (6, 9)
 
 
 def test_decode_loop_drain_and_admit():
@@ -454,6 +576,31 @@ def test_port_serves_a_jax_written_checkpoint(tmp_path):
     # another, so each takes exactly N grid steps
     assert st["prefills"] == 2 and st["tokens"]["prefill"] == 6 + 38
     assert st["steps"] == 3 * 8
+
+
+def test_bf16_checkpoint_serves_in_fp32_where_jax_cannot_load_it(tmp_path):
+    """A gpt_decoder checkpoint of bf16 weights (the JAX package's own
+    export of a cast model): the JAX serving family cannot load it
+    (``jnp.asarray`` of the restored bf16 NDArrays raises TypeError in
+    ``_PagedProgramSet``), so there is no reference to match, and the port
+    serves it as it served every checkpoint, widened to fp32 (ROADMAP
+    Queue 3). Its logits equal the port's fp32 model on the widened
+    weights."""
+    model, cfg = _jax_gpt("xbf_")
+    model.cast("bfloat16")
+    ckpt = str(tmp_path / "gpt_bf16")
+    jgen.export_gpt_for_serving(ckpt, cfg, model)
+    with pytest.raises(TypeError):
+        jserving.load_served_model(ckpt)
+    served = serving.load_served_model(ckpt, device="cpu")
+    assert all(p.dtype == torch.float32
+               for p in served.model.parameters())
+    params = {k: np.asarray(v.data()._data, np.float32)
+              for k, v in model._collect_params_with_prefix().items()}
+    want = GPTDecoder(device="cpu", **cfg).load_params(params)
+    tokens = torch.tensor([[3, 5, 7, 2]])
+    np.testing.assert_array_equal(served.model(tokens).numpy(),
+                                  want(tokens).numpy())
 
 
 def test_port_export_loads_in_both_packages(tmp_path):

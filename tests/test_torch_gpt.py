@@ -4,7 +4,9 @@ Same numpy weights (carried across by name with ``params_from_jax``) and
 tokens on both sides, on the CPU: the full-sequence ``gpt_logits`` and the
 paged ``gpt_forward_paged`` (logits, new_k, new_v) at rtol = atol = 1e-5
 (fp32 both sides, another summation order). The JAX side's paged forward
-takes its lax attention path, as its serving family does.
+takes its lax attention path, as its serving family does. bf16 weights
+(ml_dtypes numpy) through both packages' GPTPagedLM compute in bf16 on
+both sides, each logits and K/V row within 2**-5 of its largest.
 """
 
 import numpy as np
@@ -159,3 +161,98 @@ def test_decoder_module_load_params_and_guards():
         tgpt.GPTDecoder(device="cpu", moe_experts=2, **CFG)
     with pytest.raises(ValueError, match="divide"):
         tgpt.gpt_config(dict(CFG, num_heads=5))
+
+
+# ------------------------------------------------------------------- bf16
+#: bf16 logits and new K/V against the JAX package's, each (s, c) row
+#: within 2**-5 of its own largest magnitude: the port's LayerNorm kernel
+#: rounds once where the JAX GPT's jnp _ln rounds at every bf16 operation
+#: (mean, centring, square, variance, rsqrt, scale, shift), addmm rounds
+#: x @ W + b once where jnp rounds the product and the sum, and GELU rounds
+#: once where jax.nn.gelu's composite rounds each step; a few bf16 steps
+#: (2**-8 relative each) apart, carried through two layers. Measured: up to
+#: 0.018 of the row's max on the logits, 0.015 on the new K/V.
+BF16_ROW_TOL = 2.0 ** -5
+BF16_CFG = {"vocab_size": 64, "units": 32, "num_layers": 2, "num_heads": 2,
+            "max_len": 64}
+
+
+def _bf16_params(cfg, seed, scale):
+    """Weights drawn from a seed, rounded to bf16: an ml_dtypes dict, the
+    form the JAX package's bf16 arrays take on the host."""
+    import ml_dtypes
+    return {n: a.astype(ml_dtypes.bfloat16)
+            for n, a in _params(cfg, seed, scale).items()}
+
+
+def _row_gap(got, want):
+    """The largest |got - want| of each last-axis row over that row's
+    largest |want| (rows of (S, C, ...) flattened past C)."""
+    g = got.float().numpy().reshape(got.shape[0], got.shape[1], -1)
+    w = np.asarray(want, np.float32).reshape(g.shape)
+    return float((np.abs(g - w).max(-1)
+                  / np.maximum(np.abs(w).max(-1), 1e-30)).max())
+
+
+@pytest.mark.parametrize("pools", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,past", [(1, [5, 0]), (3, [5, 0])])
+def test_bf16_weights_compute_in_bf16_as_in_jax(pools, C, past):
+    """The same bf16 weights (ml_dtypes numpy) in the JAX GPTPagedLM and the
+    port's on the CPU, over fp32 pools (bf16 weights over the default spec)
+    and bf16 pools: bf16 logits and new K/V on both sides, each row within
+    BF16_ROW_TOL of its largest; a sequence with no past included."""
+    import ml_dtypes
+    from incubator_mxnet_tpu import generate as jgen
+    from incubator_mxnet_tpu_torch import generate as tgen
+    cfg = BF16_CFG
+    params = _bf16_params(cfg, 0, 0.5)
+    tlm = tgen.GPTPagedLM(params, cfg, device="cpu")
+    assert all(p.dtype == torch.bfloat16 for p in tlm.model.parameters())
+    S, bs, mb, L = 2, 4, 4, cfg["num_layers"]
+    H = cfg["num_heads"]
+    D = cfg["units"] // H
+    rs = np.random.RandomState(C)
+    tokens = rs.randint(0, cfg["vocab_size"], (S, C)).astype(np.int32)
+    lengths = np.asarray(past, np.int32)
+    tables = rs.permutation(S * mb).reshape(S, mb).astype(np.int32)
+    kps, vps = ([rs.randn(S * mb, bs, H, D).astype(np.float32)
+                 for _ in range(L)] for _ in range(2))
+    if pools == "bfloat16":
+        kps, vps = ([a.astype(ml_dtypes.bfloat16) for a in p]
+                    for p in (kps, vps))
+    want = jgen.GPTPagedLM(params, cfg).forward(tokens, lengths, tables,
+                                                kps, vps)
+    got = tlm.forward(tokens, lengths, tables,
+                      *([tgpt._to_tensor(a) for a in p] for p in (kps, vps)))
+    assert want[0].dtype == ml_dtypes.bfloat16
+    assert got[0].dtype == got[1][0].dtype == got[2][0].dtype \
+        == torch.bfloat16
+    assert _row_gap(got[0], want[0]) <= BF16_ROW_TOL
+    for i in range(L):
+        assert _row_gap(got[1][i], want[1][i]) <= BF16_ROW_TOL, ("k", i)
+        assert _row_gap(got[2][i], want[2][i]) <= BF16_ROW_TOL, ("v", i)
+
+
+def test_bf16_weights_carry_over_from_numpy_and_torch():
+    """params_from_jax keeps float32 and bfloat16 as given (an ml_dtypes
+    array bit for bit, without ml_dtypes in the port) and carries any other
+    float dtype as float32; GPTDecoder.load_params takes the weights'
+    dtype."""
+    import ml_dtypes
+    params = _bf16_params(CFG, 3, 0.05)
+    got = tgpt.params_from_jax(params, CFG, "cpu")
+    assert got["wte"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got["wte"].view(torch.int16).numpy(),
+        params["wte"].view(np.int16))
+    mixed = dict(params, wpe=params["wpe"].astype(np.float64),
+                 lnf_g=torch.from_numpy(params["lnf_g"].astype(np.float32)))
+    got = tgpt.params_from_jax(mixed, CFG, "cpu")
+    assert (got["wpe"].dtype, got["lnf_g"].dtype, got["h0_qkv_w"].dtype) \
+        == (torch.float32, torch.float32, torch.bfloat16)
+    m = tgpt.GPTDecoder(device="cpu", **CFG).load_params(
+        {n: torch.from_numpy(a.astype(np.float32)).bfloat16()
+         for n, a in params.items()})
+    assert m.wte.dtype == torch.bfloat16 and isinstance(m.wte,
+                                                        torch.nn.Parameter)
+    assert np.asarray(params["wte"]).dtype == ml_dtypes.bfloat16

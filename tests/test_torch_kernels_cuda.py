@@ -40,6 +40,12 @@ are held to their plain versions on the same bf16 inputs within 2 * 2**-8
 of each output's largest magnitude (both round to bf16 from fp32 sums
 taken in other orders, and P and dS round at the same points but may land
 on neighbouring bf16 values), the lse within 1e-4, dead rows exactly 0.
+The bf16 dK/dV kernel's dbias variant holds dk and dv to the same rule and
+its fp32 dbias within 1e-4 of its largest of the float64 formulas on the
+same bf16 inputs. The bf16 decode kernel (bf16 q over bf16 or fp32 pools)
+holds each element of o within a bf16 step (2**-7) of its own value plus
+1e-5 of the plain version's (both round o once from fp32 sums taken in
+other orders), m within 1e-5 and l within rtol 1e-5 (p stays fp32).
 The GPT test holds whole generations on the card and the CPU token for
 token. A served shape's CUDA graph (compilecache.aot.BlockProgram) replays
 the eager forward's kernels in the same order on the same inputs, so a
@@ -2422,10 +2428,131 @@ def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
                                      False)
     with pytest.raises(TypeError):
         flash_attention_bwd_dq(qb, qb, qb, qb, lse, lse, None, 0.125, False)
-    out, lse = flash_attention_forward(qb, qb, qb)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        flash_attention_backward(qb, qb, qb, out, lse, qb, lse, 0.125,
-                                 needs_dbias=True)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 128, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_dkv_dbias_kernel_matches_plain(cuda, T, D, causal):
+    """The bf16 dK/dV kernel's dbias variant (the TPU kernel's has_dbias on
+    bf16 inputs), through flash_attention_backward(needs_dbias=True): one
+    launch of it and none of the bf16 dK/dV kernel without dbias; dk and dv
+    bitwise those of the variant without dbias and within 2 * 2**-8 of the
+    plain version's largest; dbias fp32 within 1e-4 (of its largest or of
+    delta's) of the float64 formulas' on the same bf16 inputs; a row of
+    keys all masked and a half-masked row give dbias exactly 0 at their
+    masked keys; the same bits on two calls."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv_dbias_bf16)
+    q, k, v, do, bias = _flash_bf16_inputs(6, T, D, cuda, T * D + 11)
+    bias[2:] = torch.randn(4, T, device=cuda)       # a learned bias
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    n0 = (flash_attention_bwd_dkv_bf16.launches,
+          flash_attention_bwd_dkv_dbias_bf16.launches,
+          flash_attention_bwd_dkv_dbias.launches)
+    got = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                   causal, needs_dbias=True)
+    again = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                     causal, needs_dbias=True)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv_bf16.launches,
+            flash_attention_bwd_dkv_dbias_bf16.launches,
+            flash_attention_bwd_dkv_dbias.launches) == (n0[0], n0[1] + 2,
+                                                        n0[2])
+    assert len(got) == 4 and all(torch.equal(a, b)
+                                 for a, b in zip(got, again))
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dk0, dv0 = flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, bias,
+                                            scale, causal)
+    assert torch.equal(got[1], dk0) and torch.equal(got[2], dv0)
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                              scale, causal,
+                                              needs_dbias=True)
+    top = max(w.float().abs().max().item() for w in want[:3])
+    for name, g, w in zip(("dk", "dv"), got[1:3], want[1:3]):
+        _bf16_close(g, w, (name, T, D, causal),
+                    max(w.float().abs().max().item(), top / 64))
+    db64 = flash_attention_backward_reference(
+        q, k, v, out, lse, do, bias, scale, causal, needs_dbias=True,
+        compute_dtype=torch.float64)[3]
+    db = got[3]
+    assert db.dtype == torch.float32 and db.shape == (6, T)
+    # a key's dbias sums p * (dP - delta) terms, which may cancel (to 0 at
+    # T = 1): the scale is the larger of its largest value and delta's
+    assert (db - db64).abs().max().item() <= 1e-4 * max(
+        db64.abs().max().item(), delta.abs().max().item())
+    assert (db[0] == 0).all() and (db[1, T // 2:] == 0).all()
+
+
+def _paged_bf16(q, kp, vp, pools):
+    """bf16 q over pools of ``pools`` (the two pairs a bf16 GPT feeds)."""
+    dt = getattr(torch, pools)
+    return q.to(BF16), kp.to(dt), vp.to(dt)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("pools", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bs", [16, 8, 32, 12])
+@pytest.mark.parametrize("C", [1, 3, 8, 32, 33])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_decode_bf16_kernel_matches_plain(cuda, pools, bs, C, D):
+    """The bf16 decode kernel on bf16 q over bf16 or fp32 pools, read in
+    place: one launch of it and none of the fp32 kernel; o bf16, each
+    element within a bf16 step (2**-7) of its own value plus 1e-5 of the
+    plain version's, m within 1e-5 and l within rtol 1e-5 (p and its sums
+    stay fp32); dead rows exact; the same bits on two calls. Blocks of 16,
+    8, 32 and 12 positions (12: a block that is no multiple of 8 positions,
+    16-byte rows all the same), a table of about 1024 positions, chunks
+    from decode to two query tiles."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_bf16,
+        paged_flash_decode_reference)
+    mb = -(-1024 // bs)
+    cap = mb * bs
+    lengths = [0, 1, bs, cap, 350, 2 * bs - 1, cap - 1, 17]
+    q, kp, vp, tables, lens = _paged_inputs(8, C, 4, D, bs, mb, lengths,
+                                            cuda, seed=C * D + bs)
+    q, kp, vp = _paged_bf16(q, kp, vp, pools)
+    n0 = (paged_flash_decode.launches, paged_flash_decode_bf16.launches)
+    o, m, l = paged_flash_decode(q, kp, vp, tables, lens)
+    again = paged_flash_decode(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert (paged_flash_decode.launches,
+            paged_flash_decode_bf16.launches) == (n0[0], n0[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip((o, m, l), again))
+    ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tables, lens)
+    assert o.dtype == BF16 and m.dtype == l.dtype == torch.float32
+    _bf16_each(o, ro, 2.0 ** -7 * ro.float().abs() + 1e-5,
+               (pools, bs, C, D))
+    assert (m - rm).abs().max().item() <= 1e-5
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    assert (o[0] == 0).all() and (l[0] == 0).all()
+    assert (m[0] == -1e30).all()
+
+
+@pytest.mark.needs_cuda
+def test_flash_decode_refuses_pairs_without_a_kernel(cuda):
+    """No kernel takes an fp16 tensor, fp32 q over bf16 pools, or K and V
+    of two dtypes: each raises TypeError naming the pair, and nothing
+    launches; the bf16 wrapper refuses an fp32 q."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode, paged_flash_decode_bf16)
+    q, kp, vp, tables, lens = _paged_inputs(2, 1, 2, 64, 16, 2, [3, 5],
+                                            cuda, seed=2)
+    n0 = (paged_flash_decode.launches, paged_flash_decode_bf16.launches)
+    for qq, kk, vv in ((q.to(BF16), kp.half(), vp.half()),
+                       (q.half(), kp.half(), vp.half()),
+                       (q, kp.to(BF16), vp.to(BF16)),
+                       (q.to(BF16), kp.to(BF16), vp)):
+        with pytest.raises(TypeError, match="no CUDA kernel takes q %s"
+                           % qq.dtype):
+            paged_flash_decode(qq, kk, vv, tables, lens)
+    with pytest.raises(TypeError, match="bfloat16 CUDA q"):
+        paged_flash_decode_bf16(q, kp, vp, tables, lens)
+    assert (paged_flash_decode.launches,
+            paged_flash_decode_bf16.launches) == n0
 
 
 @pytest.mark.needs_cuda

@@ -96,6 +96,25 @@ def test_kernel_formulas_add_up_under_counting_costs():
                                                  2 * 8 * 16 * 32)
 
 
+@pytest.mark.parametrize("q_bytes,kv_bytes", [(4, 4), (2, 2), (2, 4)])
+def test_flash_decode_cost_counts_each_dtype_bytes(q_bytes, kv_bytes):
+    """The decode formula's bytes at each dtype pair the kernels take (fp32,
+    bf16 q over bf16 pools, bf16 q over fp32 pools): the live K and V rows
+    at the pools' element size, q and o at q's, m, l, tables and lengths
+    at 4; the operations do not depend on the dtype. The fp32 default is
+    the pair (4, 4)."""
+    S, C, H, D, live, mb = 8, 1, 12, 64, 3000, 64
+    nbytes, flops = costs.flash_decode_cost(S, C, H, D, live, mb, q_bytes,
+                                            kv_bytes)
+    assert nbytes == (2 * live * H * D * kv_bytes
+                      + 2 * S * C * H * D * q_bytes
+                      + 4 * (2 * S * C * H + S * mb + S))
+    assert flops == 4 * C * H * D * live
+    if (q_bytes, kv_bytes) == (4, 4):
+        assert costs.flash_decode_cost(S, C, H, D, live, mb) == (nbytes,
+                                                                 flops)
+
+
 def test_mfu_formula_and_the_h100_default_peaks(monkeypatch):
     monkeypatch.delenv("MXTPU_PEAK_TFLOPS", raising=False)
     monkeypatch.delenv("MXTPU_PEAK_GBS", raising=False)

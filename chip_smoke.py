@@ -122,6 +122,34 @@ Phases, each printing one line:
              value + 1e-5, m and l as in fp32) and the bf16 dK/dV kernel
              with dbias (dense and ragged: dK, dV as above, dbias within
              1e-4 of its max of the float64 formulas, a masked key's 0).
+6c. train_fp16 - the same BERT-base pretraining under ShardedTrainer's
+             compute_dtype="float16" (fp16 compute over fp32 masters, the
+             fp32 fused AdamW) at both train shapes, on the train phase's
+             weights and batches, under dynamic loss scaling: step 1 of a
+             2-layer model at full width against the CPU port with the
+             same option (a guarded step at the guard's 2**16 on 256
+             tokens: loss rtol 1e-3, every gradient within 2**-7 of its
+             tensor's max), the full model's plain
+             step 1 within 5e-3 of the train phase's fp32 step 1, then 5
+             measured resilience.GuardedTrainer steps at the default guard
+             (2**16; each step's scale before and after and its verdict on
+             the line, the scales equal to NumericGuard's replay of the
+             verdicts, accepted losses finite) with exact fp16 launch
+             counts (26 layer_norm_f16, 12 softmax_f16 or 12 of each fp16
+             flash kernel a step, one trainer_adam, no fp32 or bf16
+             LayerNorm, softmax or flash launch) equal to the train_bf16
+             phase's bf16 counts, then a forced overflow: a guard at
+             2**40 drives the logits' cotangents past 65504, every such
+             step is skipped with every parameter and Adam slot bitwise
+             unchanged, the scale halves until a step is finite, and the
+             next steps are finite too; and a timing line with the fp16
+             median guarded step beside bf16's and fp32's. The kernels
+             phase holds the five fp16 kernels to their plain versions on
+             the card at these shapes (each element of LN, softmax and O
+             within 2**-10 of its own value plus a floor, the lse within
+             1e-4, the gradients within 2 * 2**-11 of their max, dead rows
+             exactly 0, the flash kernels bitwise on two calls, an inf in
+             dO giving non-finite dq, dk and dv).
 7. gluon_train - the same model and batch through the eager gluon API:
              the zoo's resnet50_v1 initialized with mx.init.Xavier() from
              numpy's global RNG, then autograd.record -> loss.backward ->
@@ -559,8 +587,9 @@ def kernels_phase(torch, dev):
     rows += flash_decode_bf16_rows(torch, dev, randn)
     log("tc_rounding", **tensor_core_rounding(torch, dev))
     rows += flash_backward_rows(torch, dev, randn)
-    rows += bf16_norm_rows(torch, dev, randn)
-    rows += bf16_flash_rows(torch, dev, randn)
+    for dtype in ("bfloat16", "float16"):
+        rows += half_norm_rows(torch, dev, randn, dtype)
+        rows += half_flash_rows(torch, dev, randn, dtype)
     rows += bf16_dbias_rows(torch, dev, randn)
     rows.append(trainer_adam_row(torch, dev, randn))
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
@@ -918,13 +947,36 @@ BF16_SOFTMAX_FLOOR = 1e-6
 #: the training path's attention shapes: (B, H, T) of T = 128 x B = 64 and
 #: T = 512 x B = 8, and the lengths of the ragged rows
 BF16_LENGTHS = (512, 300, 0, 511, 64, 1, 450, 129)
+#: the fp16 flavours' rules: fp16 keeps three more mantissa bits than bf16,
+#: so one step is 2**-10 of the value beside it and the gradients' limit
+#: 2 * 2**-11 of their largest magnitude; the floors are bf16's divided by
+#: 8, or 2**-24 (fp16's smallest subnormal), whichever is larger
+FP16_REL_TOL = 2 * 2.0 ** -11
+FP16_STEP = 2.0 ** -10
+FP16_LN_FLOOR = max(BF16_LN_FLOOR / 8, 2.0 ** -24)
+FP16_SOFTMAX_FLOOR = max(BF16_SOFTMAX_FLOOR / 8, 2.0 ** -24)
+#: H100 SXM dense fp16 tensor-core rate (NVIDIA data sheet), bf16's
+FP16_FLOPS_PER_S = 989e12
+#: each 16-bit dtype's kernel names (suffix), rules and peak rate; `fwd`
+#: is the flash forward's floor as a share of the same attention over |V|
+HALF_RULES = {
+    "bfloat16": dict(suffix="bf16", step=BF16_STEP, rel=BF16_REL_TOL,
+                     ln_floor=BF16_LN_FLOOR, softmax_floor=BF16_SOFTMAX_FLOOR,
+                     fwd=BF16_STEP, flops=BF16_FLOPS_PER_S,
+                     names=("2**-7", "2**-16", "1e-6", "2**-7")),
+    "float16": dict(suffix="f16", step=FP16_STEP, rel=FP16_REL_TOL,
+                    ln_floor=FP16_LN_FLOOR, softmax_floor=FP16_SOFTMAX_FLOOR,
+                    fwd=FP16_STEP, flops=FP16_FLOPS_PER_S,
+                    names=("2**-10", "2**-19", "1.25e-7", "2**-10")),
+}
 
 
-def bf16_close(name, got, want, what):
-    """(max |got - want|, its tolerance): BF16_REL_TOL of want's largest
-    magnitude; raises beyond it."""
+def bf16_close(name, got, want, what, rel=BF16_REL_TOL):
+    """(max |got - want|, its tolerance): `rel` of want's largest
+    magnitude (BF16_REL_TOL, or FP16_REL_TOL for fp16); raises beyond
+    it."""
     err = max_err(got, want)
-    tol = BF16_REL_TOL * float(want.float().abs().max())
+    tol = rel * float(want.float().abs().max())
     if not err <= tol:
         raise AssertionError("%s %s: max error %r > %g" % (name, what, err,
                                                            tol))
@@ -951,33 +1003,37 @@ def bf16_each(name, got, want, limit, what):
     return float(gap.max()), float(share.max())
 
 
-def bf16_norm_rows(torch, dev, randn, R=8192, C=768, softmax_shape=(64, 12,
-                                                                    128)):
-    """The bf16 LayerNorm at the training path's (B * T, 768) and the bf16
-    softmax over the T = 128 path's attention scores with a padding bias,
-    each against its plain version on the same bf16 inputs, with
-    F.layer_norm and torch.softmax in bf16 as the library calls."""
+def half_norm_rows(torch, dev, randn, dtype="bfloat16", R=8192, C=768,
+                   softmax_shape=(64, 12, 128)):
+    """The 16-bit (``dtype``: bfloat16 or float16) LayerNorm at the
+    training path's (B * T, 768) and softmax over the T = 128 path's
+    attention scores with a padding bias (-inf in fp16), each against its
+    plain version on the same inputs of that dtype, element by element
+    (HALF_RULES), with F.layer_norm and torch.softmax in that dtype as the
+    library calls."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
-    bf = torch.bfloat16
+    bf = getattr(torch, dtype)
+    rule = HALF_RULES[dtype]
+    sfx, (n_step, n_ln, n_sm, _n_fwd) = rule["suffix"], rule["names"]
     rows = []
     x, g, b = randn(R, C).to(bf), (1 + 0.1 * randn(C)).to(bf), \
         (0.1 * randn(C)).to(bf)
     y = fused_norm.layer_norm(x, g, b)     # the bf16 kernel on the card
     want = fused_norm.layer_norm_reference(x, g, b).float()
     err, share = bf16_each(
-        "layer_norm_bf16", y, want,
-        BF16_STEP * want.abs()
-        + BF16_LN_FLOOR * want.abs().amax(dim=-1, keepdim=True), (R, C))
+        "layer_norm_" + sfx, y, want,
+        rule["step"] * want.abs()
+        + rule["ln_floor"] * want.abs().amax(dim=-1, keepdim=True), (R, C))
     rows.append(measure(
-        torch, "layer_norm_bf16", (R, C), err, None, (x, g, b),
+        torch, "layer_norm_" + sfx, (R, C), err, None, (x, g, b),
         fused_norm.layer_norm, fused_norm.layer_norm_reference,
         lambda x, g, b: F.layer_norm(x, (C,), g, b, 1e-5),
-        (2 * R * C + 2 * C) * 2, 8 * R * C, BF16_FLOPS_PER_S,
-        dtype="bfloat16", kernel_route=fused_norm._route(
+        (2 * R * C + 2 * C) * 2, 8 * R * C, rule["flops"],
+        dtype=dtype, kernel_route=fused_norm._route(
             C, x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), 2),
-        tolerance_rule="each element within 2**-7 of its own value + "
-        "2**-16 of its row's largest", tolerance_share=share))
+        tolerance_rule="each element within %s of its own value + %s of "
+        "its row's largest" % (n_step, n_ln), tolerance_share=share))
     B, H, T = softmax_shape
     lengths = torch.randint(1, T + 1, (B,), device=dev,
                             generator=torch.Generator(device=dev)
@@ -986,42 +1042,51 @@ def bf16_norm_rows(torch, dev, randn, R=8192, C=768, softmax_shape=(64, 12,
     s = (3 * randn(B, H, T, T)
          + ((1 - live) * -1e30)[:, None, None, :]).to(bf)
     want = fused_norm.softmax_reference(s).float()
-    err, share = bf16_each("softmax_bf16", fused_norm.softmax(s), want,
-                           BF16_STEP * want.abs() + BF16_SOFTMAX_FLOOR,
+    err, share = bf16_each("softmax_" + sfx, fused_norm.softmax(s), want,
+                           rule["step"] * want.abs() + rule["softmax_floor"],
                            (B, H, T, T))
     rows.append(measure(
-        torch, "softmax_bf16", (B, H, T, T), err, None, (s,),
+        torch, "softmax_" + sfx, (B, H, T, T), err, None, (s,),
         fused_norm.softmax, fused_norm.softmax_reference,
         lambda s: torch.softmax(s, dim=-1), 2 * s.numel() * 2,
-        5 * s.numel(), BF16_FLOPS_PER_S, dtype="bfloat16",
-        tolerance_rule="each element within 2**-7 of its own value + 1e-6",
-        tolerance_share=share))
+        5 * s.numel(), rule["flops"], dtype=dtype,
+        tolerance_rule="each element within %s of its own value + %s"
+        % (n_step, n_sm), tolerance_share=share))
     return rows
 
 
-def bf16_flash_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
-                    lengths=BF16_LENGTHS):
-    """The bf16 flash forward and backward kernels at the T = 512 training
-    shape, (8 * 12, 512, 64): dense (BERT pretraining's batch has no
-    padding), then with the ragged mask of the fp32 rows (a sample with no
-    live key, whose rows must come out exactly 0). Each against the plain
-    version on the same bf16 inputs: each element of O within BF16_STEP of
-    its own magnitude plus BF16_STEP of the same attention over |V| (each
-    p may round to a neighbouring bf16 value on either side, and the
-    kernel rounds it against the running max, so an element may move by a
-    bf16 step of every p * |v| it sums), the lse within BF16_LSE_TOL, the
-    gradients within BF16_REL_TOL of their largest magnitude; the forward
-    must give the same bits on two calls, and so must the backward. Bounds count the live keys' work at the bf16 rate.
-    The forward's library column is F.scaled_dot_product_attention in bf16
-    (the bias as its mask); the backward rows carry the pair (delta and both
-    kernels) beside SDPA's bf16 backward, whose backends are named."""
+def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
+                    D=64, lengths=BF16_LENGTHS):
+    """The 16-bit (``dtype``: bfloat16 or float16) flash forward and
+    backward kernels at the T = 512 training shape, (8 * 12, 512, 64):
+    dense (BERT pretraining's batch has no padding), then with the ragged
+    mask of the fp32 rows (a sample with no live key, whose rows must come
+    out exactly 0). Each against the plain version on the same inputs of
+    that dtype: each element of O within one step of the dtype (HALF_RULES:
+    2**-7 in bf16, 2**-10 in fp16) of its own magnitude plus one step of
+    the same attention over |V| (each p may round to a neighbouring value
+    on either side, and the kernel rounds it against the running max, so an
+    element may move by a step of every p * |v| it sums), the lse within
+    BF16_LSE_TOL, the gradients within the dtype's `rel` of their largest
+    magnitude; the forward must give the same bits on two calls, and so
+    must the backward. In fp16 an inf planted in dO must make dq, dk and dv
+    non-finite: the kernels round without saturating. Bounds count the
+    live keys' work at the 16-bit rate. The forward's library column is
+    F.scaled_dot_product_attention in that dtype (the bias as its mask, at
+    most the dtype's lowest value); the backward rows carry the pair (delta
+    and both kernels) beside SDPA's backward, whose backends are named."""
+    import importlib
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_bwd_dkv_bf16, flash_attention_bwd_dq_bf16,
         flash_attention_forward, flash_attention_reference)
+    # the module (the package's ``flash_attention`` name is the function)
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.kernels.flash_attention")
     from incubator_mxnet_tpu_torch.telemetry.costs import flash_forward_cost
-    bf = torch.bfloat16
+    bf = getattr(torch, dtype)
+    rule = HALF_RULES[dtype]
+    sfx, rel = rule["suffix"], rule["rel"]
     BH, scale = B * H, 1.0 / math.sqrt(D)
     rows = []
     for lens in ([T] * B, list(lengths)):
@@ -1038,58 +1103,79 @@ def bf16_flash_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
         out, lse = flash_attention_forward(q, k, v, bias, scale)
         again = flash_attention_forward(q, k, v, bias, scale)
         if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
-            raise AssertionError("flash_attention_fwd_bf16: two calls on "
-                                 "the same inputs differ")
+            raise AssertionError("flash_attention_fwd_%s: two calls on the "
+                                 "same inputs differ" % sfx)
         ref, ref_lse = flash_attention_reference(q, k, v, bias, scale)
         mass = flash_attention_reference(q, k, v.abs(), bias, scale)[0]
         err, share = bf16_each(
-            "flash_attention_fwd_bf16", out, ref,
-            BF16_STEP * (ref.float().abs() + mass.float()), lens)
+            "flash_attention_fwd_" + sfx, out, ref,
+            rule["step"] * ref.float().abs() + rule["fwd"] * mass.float(),
+            lens)
         del mass
         lse_err = max_err(lse, ref_lse)
         if not lse_err <= BF16_LSE_TOL:
-            raise AssertionError("flash_attention_fwd_bf16: lse error %r > "
-                                 "%g" % (lse_err, BF16_LSE_TOL))
+            raise AssertionError("flash_attention_fwd_%s: lse error %r > %g"
+                                 % (sfx, lse_err, BF16_LSE_TOL))
         dead = [i for i, n in enumerate(lens) if n == 0]
         grads = flash_attention_backward(q, k, v, out, lse, do, bias, scale)
         again = flash_attention_backward(q, k, v, out, lse, do, bias, scale)
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError("flash backward bf16: two calls on the "
-                                 "same inputs differ")
+            raise AssertionError("flash backward %s: two calls on the same "
+                                 "inputs differ" % sfx)
         want = flash_attention_backward_reference(q, k, v, out, lse, do,
                                                   bias, scale)
-        g_err = {n: bf16_close("flash backward bf16 " + n, g, w, lens)
+        g_err = {n: bf16_close("flash backward %s %s" % (sfx, n), g, w,
+                               lens, rel)
                  for n, g, w in zip(("dq", "dk", "dv"), grads, want)}
         if dead and not (out.view(B, H, T, D)[dead].eq(0).all()
                          and lse.view(B, H, T)[dead].eq(0).all()
                          and all(g.view(B, H, T, D)[dead].eq(0).all()
                                  for g in grads)):
-            raise AssertionError("flash bf16: a sample with no live key did "
-                                 "not give exact zeros")
+            raise AssertionError("flash %s: a sample with no live key did "
+                                 "not give exact zeros" % sfx)
+        overflow = None
+        if dtype == "float16":
+            # an overflowed cotangent (a loss scale past fp16's range) must
+            # reach every gradient as inf or NaN, never saturate
+            do_inf = do.clone()
+            do_inf[0, 3] = float("inf")
+            bad = flash_attention_backward(q, k, v, out, lse, do_inf, bias,
+                                           scale)
+            overflow = [not bool(torch.isfinite(g).all()) for g in bad]
+            if not all(overflow):
+                raise AssertionError("flash backward f16: an inf in dO left "
+                                     "%s finite" % [n for n, o in zip(
+                                         ("dq", "dk", "dv"), overflow)
+                                         if not o])
+            del bad, do_inf
         del again, want, grads
+
+        lowest = torch.finfo(bf).min
 
         def sdpa(q, k, v, bias=None):
             return F.scaled_dot_product_attention(
                 q.view(B, H, T, D), k.view(B, H, T, D), v.view(B, H, T, D),
                 scale=scale,
                 attn_mask=None if bias is None else
-                bias.view(B, H, 1, T).to(bf))
+                bias.view(B, H, 1, T).clamp_min(lowest).to(bf))
 
         inputs = (q, k, v) if dense else (q, k, v, bias)
         names = device_kernel_names(torch, sdpa, inputs)
         fbytes, live_flops, dense_flops = flash_forward_cost(H, T, D, lens, 2)
         rows.append(measure(
-            torch, "flash_attention_fwd_bf16", (B, H, T, D), err, None,
+            torch, "flash_attention_fwd_" + sfx, (B, H, T, D), err, None,
             inputs,
             lambda q, k, v, bias=None: flash_attention_forward(
                 q, k, v, bias, scale),
             lambda q, k, v, bias=None: flash_attention_reference(
                 q, k, v, bias, scale),
-            sdpa, fbytes, live_flops, BF16_FLOPS_PER_S, dtype="bfloat16",
+            sdpa, fbytes, live_flops, rule["flops"], dtype=dtype,
             lse_err=lse_err, lengths=lens,
-            tolerance_rule="each element within 2**-7 of its own value + "
-            "2**-7 of the same attention over |V|", tolerance_share=share,
-            dense_bound_ms=bound(fbytes, dense_flops, BF16_FLOPS_PER_S)[0],
+            tolerance_rule="each element within %s of its own value + %s "
+            "of the same attention over |V|" % (rule["names"][0],
+                                                rule["names"][3]),
+            tolerance_share=share,
+            dense_bound_ms=bound(fbytes, dense_flops, rule["flops"])[0],
             live_key_share=live_flops / dense_flops,
             library_backend=sdpa_backend(names),
             library_kernels=[n[:120] for n in names[:4]]))
@@ -1107,7 +1193,7 @@ def bf16_flash_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
             o = F.scaled_dot_product_attention(
                 qs, ks, vs, scale=scale,
                 attn_mask=None if bias is None else
-                bias.view(B, H, 1, T).to(bf))
+                bias.view(B, H, 1, T).clamp_min(lowest).to(bf))
             return o, (qs, ks, vs), do.view(B, H, T, D)
 
         def sdpa_backward(o, leaves, g):
@@ -1116,7 +1202,7 @@ def bf16_flash_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
         pair_bytes = 8 * qkvd + row + (0 if dense else row)
         cold = cold_copies(torch, bw_inputs, pair_bytes)
         graphs = [sdpa_graph(c[0], c[1], c[2], c[3]) for c in cold]
-        pair_bound = bound(pair_bytes, 5 * prod, BF16_FLOPS_PER_S)[0]
+        pair_bound = bound(pair_bytes, 5 * prod, rule["flops"])[0]
         sdpa_names = device_kernel_names(torch, sdpa_backward, graphs[0])
         pair = dict(
             pair_ms=timed(torch, lambda q, k, v, do, out, lse, _d:
@@ -1133,13 +1219,14 @@ def bf16_flash_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
             pair_library_backend=sdpa_backend(sdpa_names),
             pair_library_kernels=[n[:120] for n in sdpa_names[:4]],
             pair_bound_ms=pair_bound, lengths=lens,
-            live_key_share=sum(lens) / (B * T))
+            live_key_share=sum(lens) / (B * T),
+            pair_dO_inf_nonfinite=overflow)
         del graphs, cold
-        for name, tensors, fn, n_prod, out_bytes in (
-                ("flash_attention_bwd_dq_bf16", ("dq",),
-                 flash_attention_bwd_dq_bf16, 3, qkvd),
-                ("flash_attention_bwd_dkv_bf16", ("dk", "dv"),
-                 flash_attention_bwd_dkv_bf16, 4, 2 * qkvd)):
+        for name, tensors, n_prod, out_bytes in (
+                ("flash_attention_bwd_dq_" + sfx, ("dq",), 3, qkvd),
+                ("flash_attention_bwd_dkv_" + sfx, ("dk", "dv"), 4,
+                 2 * qkvd)):
+            fn = getattr(fa, name)
             rows.append(measure(
                 torch, name, (BH, T, D),
                 max(g_err[n][0] for n in tensors),
@@ -1149,8 +1236,8 @@ def bf16_flash_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
                 lambda q, k, v, do, out, lse, delta:
                 flash_attention_backward_reference(q, k, v, out, lse, do,
                                                    bias, scale),
-                None, io + out_bytes, n_prod * prod, BF16_FLOPS_PER_S,
-                dtype="bfloat16",
+                None, io + out_bytes, n_prod * prod, rule["flops"],
+                dtype=dtype,
                 errors={n: g_err[n][0] for n in tensors},
                 tolerances={n: g_err[n][1] for n in tensors},
                 plain_computes="dq, dk and dv", **pair))
@@ -3888,25 +3975,57 @@ RESNET_BF16_NORM, RESNET_BF16_COS = 0.25, 0.8
 #: wrong bf16 path gives against it. The check of the path is the step-1
 #: comparison above
 RESNET_BF16_LOSS_RTOL = 1e-2
+#: the fp16 path's bounds (train_fp16), from the bf16 path's (2e-2 and
+#: 2**-6): the loss's 5e-3 (bf16's scaled for fp16's three more mantissa
+#: bits, with a factor of 2 kept) tightened to 1e-3 after the card read
+#: 4.3e-7 and 2.5e-5; the gradients' 2**-8 so scaled read 0.998 of itself
+#: (the position embedding's, 3.90e-3 of its max, at T = 128 on 2 samples,
+#: where a sum of two rows cancels), so they are held to 2**-7, the margin
+#: bf16's own reading leaves under 2**-6 (PERF.md, the fp16 findings)
+FP16_LOSS_RTOL, FP16_GRAD_REL = 1e-3, 2.0 ** -7
+#: the full model's fp16 step 1 against the card's own fp32 step 1
+FP16_VS_FP32_LOSS = 5e-3
+#: each 16-bit compute dtype's step-1 bounds: (loss rtol, gradient share)
+HALF_STEP1 = {"bfloat16": (BF16_LOSS_RTOL, BF16_GRAD_REL),
+              "float16": (FP16_LOSS_RTOL, FP16_GRAD_REL)}
+#: fp16's step-1 check runs as the fp16 path does, under the guard's
+#: default loss scale (without it the attention's query and key gradients,
+#: ~1e-7 at initialisation, fall below fp16's normal range and the card and
+#: the CPU round their subnormals apart: 11 gradients read up to 0.049 of
+#: their max; PERF.md, the fp16 findings); and on FP16_CHECK_TOKENS tokens
+#: a shape (B = 2 at T = 128, 1 at T = 512), since PyTorch's CPU fp16
+#: matmul has no fast kernel on the card machine's host (the 2-layer step
+#: at T = 128 x B = 64 took 571 s there)
+FP16_CHECK_SCALE = 2.0 ** 16
+FP16_CHECK_TOKENS = 256
 
 
-def bf16_step1_check(torch, dev, cfg, T, B):
+def half_step1_check(torch, dev, cfg, T, B, dtype="bfloat16"):
     """Step 1 of a BF16_CHECK_LAYERS-layer model at full width under
-    compute_dtype bf16 on the card and on the CPU, from the same weights and
-    batch: the loss within BF16_LOSS_RTOL and every gradient within
-    BF16_GRAD_REL of its tensor's largest magnitude (an attention key bias,
-    whose exact gradient is 0, at its layer's key weight's). Returns its
-    fields and the checks that failed."""
+    compute_dtype ``dtype`` (bfloat16 or float16; a plain step, no loss
+    scale) on the card and on the CPU, from the same weights and batch: the
+    loss within HALF_STEP1's rtol and every gradient within its share of
+    its tensor's largest magnitude (an attention key bias, whose exact
+    gradient is 0, at its layer's key weight's). Returns its fields and the
+    checks that failed."""
+    loss_rtol, grad_rel = HALF_STEP1[dtype]
+    loss_scale = None
+    if dtype == "float16":
+        B, loss_scale = max(1, FP16_CHECK_TOKENS // T), FP16_CHECK_SCALE
     small = dict(cfg, num_layers=BF16_CHECK_LAYERS)
     rs = np.random.RandomState(SEED + T + 2)
     params = pretrain_params(rs, small)
     data, label = pretrain_batch(rs, B, T, small["vocab_size"])
     got = {}
     for d in (dev, torch.device("cpu")):
-        tr = pretrain_trainer(torch, d, small, params,
-                              compute_dtype="bfloat16")
+        tr = pretrain_trainer(torch, d, small, params, compute_dtype=dtype)
         t0 = time.perf_counter()
-        loss = float(tr.step(data, label))
+        if loss_scale is None:
+            loss = float(tr.step(data, label))
+        else:
+            loss, skipped, _gn = tr.step_guarded(data, label,
+                                                 loss_scale=loss_scale)
+            loss = float("nan") if skipped else float(loss)
         _sync(torch, d)
         got[d.type] = (loss, {n: p.grad.detach().to("cpu") for n, p in
                               tr._block.named_parameters()},
@@ -3920,17 +4039,17 @@ def bf16_step1_check(torch, dev, cfg, T, B):
             scale = gh[n[:-len("bias")] + "weight"]
         rel[n] = max_err(gc[n], ref) / max(float(scale.abs().max()), 1e-30)
     failures = []
-    if not abs(lc - lh) <= BF16_LOSS_RTOL * abs(lh):
+    if not abs(lc - lh) <= loss_rtol * abs(lh):
         failures.append("%d layers: step 1 loss %r on the card, %r on the "
                         "CPU (rtol %g)" % (BF16_CHECK_LAYERS, lc, lh,
-                                           BF16_LOSS_RTOL))
-    bad = sorted((n, r) for n, r in rel.items() if not r <= BF16_GRAD_REL)
+                                           loss_rtol))
+    bad = sorted((n, r) for n, r in rel.items() if not r <= grad_rel)
     if bad:
         failures.append("%d gradients differ from the CPU's by more than %g "
-                        "of their max: %s" % (len(bad), BF16_GRAD_REL,
-                                              bad[:8]))
-    return dict(layers=BF16_CHECK_LAYERS, loss=lc, cpu_loss=lh,
-                cpu_step_s=cpu_s,
+                        "of their max: %s" % (len(bad), grad_rel, bad[:8]))
+    return dict(layers=BF16_CHECK_LAYERS, B=B, loss_scale=loss_scale,
+                loss=lc,
+                cpu_loss=lh, cpu_step_s=cpu_s,
                 grad_worst_rel_err=sorted(rel.items(),
                                           key=lambda kv: -kv[1])[:5]), \
         failures
@@ -4052,7 +4171,7 @@ def train_bf16_shape(torch, dev, cfg, T, B, steps, fp32=None,
     from incubator_mxnet_tpu_torch.models.bert import use_flash
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
-    check, failures = bf16_step1_check(torch, dev, cfg, T, B)
+    check, failures = half_step1_check(torch, dev, cfg, T, B)
     rs = np.random.RandomState(SEED + T)
     params = pretrain_params(rs, cfg)
     data, label = pretrain_batch(rs, B, T, cfg["vocab_size"])
@@ -4327,19 +4446,22 @@ def train_bf16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
                      resnet_shape=(RESNET_B, RESNET_SIZE),
                      resnet_steps=RESNET_BF16_STEPS, resnet_fp32=None,
                      resnet_check=RESNET_BF16_CHECK, profile=False,
-                     card=None):
+                     card=None, record=None):
     """The train_bf16 phase: each BERT shape (a `train_bf16` line, and
     `train_bf16_profile` with `profile`), then ResNet-50 (a
     `resnet_bf16` line), then the `train_bf16_timing` line (median step and
     tokens or images a second of bf16 beside fp32, from this run); raises
     when a check failed. `fp32` maps (T, B) to the train phase's lines and
     `resnet_fp32` is the resnet_train line's fields; the fp32 steps run
-    here where they are missing. Returns the launch counts by path."""
+    here where they are missing. Returns the launch counts by path;
+    `record`, a dict, gets each BERT shape's line under (T, B)."""
     fp32 = fp32 or {}
     by_path, timing = {}, {}
     for T, B in shapes:
         fields, counts, prof, failures = train_bf16_shape(
             torch, dev, cfg, T, B, steps, fp32.get((T, B)), profile)
+        if record is not None:
+            record[(T, B)] = fields
         log("train_bf16", card=card, **fields)
         if prof is not None:
             log("train_bf16_profile", card=card, T=T, B=B, **prof)
@@ -4369,6 +4491,219 @@ def train_bf16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
                                    "fp32_step_ms_median",
                                    "fp32_images_per_s")}
     log("train_bf16_timing", card=card, **timing)
+    return by_path
+
+
+# --------------------------------------------------------------- train_fp16
+# BERT-base pretraining under compute_dtype="float16" (fp16 compute, fp32
+# masters, the fp32 fused AdamW) at the train phase's shapes, weights and
+# batches, under dynamic loss scaling: resilience.GuardedTrainer's
+# NumericGuard feeds step_guarded its scale
+#: the fp16 kernels of the training path and their bf16 counterparts
+FP16_KERNELS = ("layer_norm", "softmax", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: the forced overflow: a guard that starts (and tops out) at 2**40, which
+#: drives the MLM and NSP logits' cotangents far past fp16's 65504; it must
+#: back off to a finite step within FP16_OVERFLOW_MAX_STEPS skipped steps,
+#: and FP16_AFTER_OVERFLOW more steps must then be accepted with finite
+#: losses (within FP16_AFTER_OVERFLOW + 3 steps: near the range's edge the
+#: guard may skip one again; PERF.md, the fp16 findings)
+FP16_OVERFLOW_SCALE = 2.0 ** 40
+FP16_OVERFLOW_MAX_STEPS = 40
+FP16_AFTER_OVERFLOW = 2
+
+
+def live_state(tr):
+    """The trainer's parameters, buffers and optimizer slots, live."""
+    out = list(tr.param_values.values())
+    for st in tr._opt_state.values():
+        out += list(st)
+    return out
+
+
+def fp16_forced_overflow(torch, dev, tr, data, label):
+    """GuardedTrainer steps of `tr` from a NumericGuard at
+    FP16_OVERFLOW_SCALE: every overflowing step must be skipped with every
+    parameter, buffer and optimizer slot bitwise unchanged, the scale must
+    halve on each until a step is finite, and training must then go on with
+    finite losses. Returns its fields and the checks that failed."""
+    from incubator_mxnet_tpu_torch.resilience import (GuardedTrainer,
+                                                      NumericGuard)
+    failures = []
+    g = GuardedTrainer(tr, guard=NumericGuard(
+        init_scale=FP16_OVERFLOW_SCALE, max_scale=FP16_OVERFLOW_SCALE),
+        rollback_after=FP16_OVERFLOW_MAX_STEPS + 1, enabled=True)
+    before = [t.clone() for t in live_state(tr)]
+    scales, changed, finite = [], 0, False
+    t0 = time.perf_counter()
+    while not finite and len(scales) <= FP16_OVERFLOW_MAX_STEPS:
+        scales.append(g.loss_scale)
+        skipped = g.skipped_steps
+        loss = float(g.step(data, label))
+        finite = g.skipped_steps == skipped
+        if not finite:
+            changed += sum(not torch.equal(a, b)
+                           for a, b in zip(before, live_state(tr)))
+    _sync(torch, dev)
+    bad = len(scales) - finite
+    halving = all(b == a / 2 for a, b in zip(scales, scales[1:]))
+    after = None
+    if not finite or bad < 1 or changed or not halving:
+        failures.append("forced overflow: %d skipped steps from scale %g "
+                        "(scales %s, a finite step %s), %d tensor readings "
+                        "changed by a skipped step"
+                        % (bad, FP16_OVERFLOW_SCALE, scales,
+                           "reached" if finite else "not reached", changed))
+    else:
+        # training goes on: the guard may still skip a step near the edge
+        # of fp16's range (and halve the scale again), but accepted steps
+        # follow, with finite losses
+        after = [loss]
+        while len(after) <= FP16_AFTER_OVERFLOW + 3:
+            skipped = g.skipped_steps
+            loss = float(g.step(data, label))
+            if g.skipped_steps == skipped:
+                after.append(loss)
+                if len(after) > FP16_AFTER_OVERFLOW:
+                    break
+        if not (len(after) > FP16_AFTER_OVERFLOW
+                and np.isfinite(after).all()):
+            failures.append("after the forced overflow: accepted losses %s, "
+                            "%d skipped steps in all (%d before the first "
+                            "finite one)" % (after, g.skipped_steps, bad))
+    skipped_after = g.skipped_steps - bad
+    del before, g
+    return dict(init_scale=FP16_OVERFLOW_SCALE, skipped=bad, scales=scales,
+                finite_scale=scales[-1] if finite else None,
+                state_bitwise=not changed, losses_after=after,
+                skipped_after=skipped_after,
+                seconds=time.perf_counter() - t0), failures
+
+
+def train_fp16_shape(torch, dev, cfg, T, B, steps, fp32=None, bf16=None):
+    """One shape of the train_fp16 phase. `fp32` and `bf16` are the train
+    and train_bf16 phases' lines of the same shape (their step-1 loss and
+    median step; bf16's launch counts); without `fp32` its step 1 runs
+    here. Returns the line's fields, the launch counts by path and the
+    checks that failed."""
+    from incubator_mxnet_tpu_torch.models.bert import use_flash
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.resilience import (GuardedTrainer,
+                                                      NumericGuard)
+    check, failures = half_step1_check(torch, dev, cfg, T, B, "float16")
+    rs = np.random.RandomState(SEED + T)
+    params = pretrain_params(rs, cfg)
+    data, label = pretrain_batch(rs, B, T, cfg["vocab_size"])
+    if fp32 is None:
+        fp32 = dict(loss_step1=fp32_reference(torch, dev, cfg, params, data,
+                                              label, 0)[0])
+
+    tr = pretrain_trainer(torch, dev, cfg, params, compute_dtype="float16")
+    loss1 = float(tr.step(data, label))      # the plain step: no loss scale
+    if not abs(loss1 - fp32["loss_step1"]) <= FP16_VS_FP32_LOSS:
+        failures.append("fp16 step 1 loss %r, fp32 %r (limit %g)"
+                        % (loss1, fp32["loss_step1"], FP16_VS_FP32_LOSS))
+    _sync(torch, dev)
+    # the measured steps: GuardedTrainer at the default guard, the guard's
+    # verdicts replayed through a NumericGuard of the same settings
+    g = GuardedTrainer(tr, guard=NumericGuard(), enabled=True)
+    replay = NumericGuard()
+    reset_launch_counts()
+    losses, times, scales, skipped, replayed = [], [], [], [], []
+    for _ in range(steps):
+        before, n = g.loss_scale, g.skipped_steps
+        t0 = time.perf_counter()
+        loss = g.step(data, label)
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        bad = g.skipped_steps > n
+        if bad:
+            replay.on_bad_step()
+        else:
+            replay.on_good_step()
+        scales.append([before, g.loss_scale])
+        replayed.append(replay.scale)
+        skipped.append(bad)
+        losses.append(float(loss))
+    counts = {"train_fp16": launch_counts()}
+    del g
+    fused = tr._fused_launches
+    L = cfg["num_layers"]
+    flash = use_flash(T, 0.0)
+    want = expected_counts(
+        layer_norm_f16=(2 * L + 2) * steps,
+        softmax_f16=0 if flash else L * steps,
+        flash_attention_fwd_f16=L * steps if flash else 0,
+        flash_attention_bwd_dq_f16=L * steps if flash else 0,
+        flash_attention_bwd_dkv_f16=L * steps if flash else 0,
+        trainer_adam=steps)
+    got = counts["train_fp16"]
+    if dev.type == "cuda" and (got != want or fused != 1):
+        failures.append("fp16 launch counts %s (fused %s), expected %s from "
+                        "%d steps" % (got, fused, want, steps))
+    as_bf16 = None
+    if bf16 is not None and dev.type == "cuda":
+        as_bf16 = {k: [got[k + "_f16"], bf16["launches"][k + "_bf16"]]
+                   for k in FP16_KERNELS}
+        if any(a != b for a, b in as_bf16.values()):
+            failures.append("fp16 launches against bf16's at the same steps "
+                            "differ: %s" % as_bf16)
+    accepted = [l for l, b in zip(losses, skipped) if not b]
+    if not (accepted and np.isfinite(accepted).all()):
+        failures.append("fp16 accepted steps' losses %s are not all finite"
+                        % accepted)
+    if [s[1] for s in scales] != replayed:
+        failures.append("guard scales %s, NumericGuard's replay of the "
+                        "verdicts %s" % (scales, replayed))
+    overflow, o_failures = fp16_forced_overflow(torch, dev, tr, data, label)
+    failures += o_failures
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ms = np.asarray(times) * 1e3
+    med = float(np.median(ms))
+    fields = dict(T=T, B=B, steps=steps, step_ms_median=med,
+                  step_ms=ms.tolist(), tokens_per_s=B * T / med * 1e3,
+                  guarded=True, loss_step1=loss1,
+                  fp32_loss_step1=fp32["loss_step1"],
+                  loss_step1_diff=loss1 - fp32["loss_step1"], losses=losses,
+                  scales=scales, skipped=skipped, replayed_scales=replayed,
+                  fused_launches=fused, launches=got,
+                  launches_against_bf16=as_bf16, flash=flash, step1=check,
+                  forced_overflow=overflow)
+    return fields, counts, failures
+
+
+def train_fp16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
+                     fp32=None, bf16=None, card=None):
+    """The train_fp16 phase: each BERT shape (a `train_fp16` line), then the
+    `train_fp16_timing` line (fp16's median guarded step and tokens a second
+    beside the same run's fp32 and bf16 plain steps: a first reading, not a
+    claim); raises when a check failed. `fp32` and `bf16` map (T, B) to the
+    train and train_bf16 phases' lines. Returns the launch counts by path."""
+    fp32, bf16 = fp32 or {}, bf16 or {}
+    by_path, timing = {}, {}
+    for T, B in shapes:
+        fields, counts, failures = train_fp16_shape(
+            torch, dev, cfg, T, B, steps, fp32.get((T, B)), bf16.get((T, B)))
+        log("train_fp16", card=card, **fields)
+        if failures:
+            raise AssertionError("train_fp16 T=%d B=%d: %s"
+                                 % (T, B, "; ".join(failures)))
+        for path, c in counts.items():
+            tot = by_path.setdefault(path, {})
+            for k, n in c.items():
+                tot[k] = tot.get(k, 0) + n
+        f32, b16 = fp32.get((T, B), {}), bf16.get((T, B), {})
+        timing["bert_T%d_B%d" % (T, B)] = dict(
+            fp16_step_ms_median=fields["step_ms_median"],
+            fp16_tokens_per_s=fields["tokens_per_s"], fp16_guarded=True,
+            fp32_step_ms_median=f32.get("step_ms_median"),
+            fp32_tokens_per_s=f32.get("tokens_per_s"),
+            bf16_step_ms_median=b16.get("step_ms_median"),
+            bf16_tokens_per_s=b16.get("tokens_per_s"))
+    log("train_fp16_timing", card=card, **timing)
     return by_path
 
 
@@ -5072,6 +5407,9 @@ def rtc_phase(torch, dev, n=RTC_N, card=None):
 BF16_CLASSES = ("layer_norm", "softmax", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                 "flash_decode")
+#: the kernels with an fp16 flavour, whose instantiations on __half the
+#: profiler names
+FP16_CLASSES = BF16_CLASSES[:5]
 
 
 def _kernel_class(name):
@@ -5094,6 +5432,8 @@ def _kernel_class(name):
         if key in n:
             if cls in BF16_CLASSES and ("bf16" in n or "bfloat16" in n):
                 return cls + "_bf16"
+            if cls in FP16_CLASSES and "__half" in n:
+                return cls + "_f16"
             return cls
     if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "winograd",
                             "implicit")):
@@ -5288,6 +5628,20 @@ KERNEL_META = {
     "flash_decode_bf16": ("incubator_mxnet_tpu_torch/csrc/flash_decode.cu",
                           "incubator_mxnet_tpu/ops/pallas/flash_decode.py:86"),
     "flash_attention_bwd_dkv_dbias_bf16": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
+    # the fp16 flavours of the training path's kernels (compute_dtype)
+    "layer_norm_f16": ("incubator_mxnet_tpu_torch/csrc/fused_norm.cu",
+                       "incubator_mxnet_tpu/ops/pallas/fused_norm.py:51"),
+    "softmax_f16": ("incubator_mxnet_tpu_torch/csrc/fused_norm.cu",
+                    "incubator_mxnet_tpu/ops/pallas/fused_norm.py:127"),
+    "flash_attention_fwd_f16": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:42"),
+    "flash_attention_bwd_dq_f16": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:177"),
+    "flash_attention_bwd_dkv_f16": (
         "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
 }
@@ -5798,10 +6152,14 @@ def main(argv=None):
     rcounts, resnet_ms = phase(
         "resnet_train", resnet_train_phase, torch, dev,
         profile=args.profile is not None, card=card, record=resnet_line)
+    bf16_lines = {}
     bf16_counts = phase(
         "train_bf16", train_bf16_phase, torch, dev, BERT_BASE,
         fp32=fp32_lines, resnet_fp32=resnet_line,
-        profile=args.profile is not None, card=card)
+        profile=args.profile is not None, card=card, record=bf16_lines)
+    fp16_counts = phase(
+        "train_fp16", train_fp16_phase, torch, dev, BERT_BASE,
+        fp32=fp32_lines, bf16=bf16_lines, card=card)
     gcounts = phase("gluon_train", gluon_train_phase, torch, dev,
                     sharded_ms=resnet_ms, profile=args.profile is not None,
                     card=card)
@@ -5824,7 +6182,7 @@ def main(argv=None):
     # learned-bias attention, the bf16 seam, the rtc launches), counts reset
     # to 0 just before it and read just after; the line carries their sum
     by_path = {"serve": counts, "decode": dcounts, **gen_counts,
-               "train": tcounts, **bf16_counts,
+               "train": tcounts, **bf16_counts, **fp16_counts,
                "resnet_train": rcounts, **bcounts, **gcounts,
                **lcounts, **dcounts_by_path, "attention_bias": acounts,
                "seam_bf16": scounts, "rtc": rtc_counts, **tel_counts}

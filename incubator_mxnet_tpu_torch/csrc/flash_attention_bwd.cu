@@ -1,7 +1,8 @@
-// Attention backward from the saved log-sum-exp (flash attention), fp32 and
-// bf16, for Hopper (sm_90a): one kernel for dQ and one for dK and dV in
-// each. The fp32 route is described first; the bf16 route's notes stand
-// above its kernels, further down.
+// Attention backward from the saved log-sum-exp (flash attention), fp32,
+// bf16 and fp16, for Hopper (sm_90a): one kernel for dQ and one for dK and
+// dV in each. The fp32 route is described first; the 16-bit route's notes
+// (bf16 and fp16, one body over the element type) stand above its kernels,
+// further down.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_attention.py: _dq_kernel and
 // _dkv_kernel, the latter with and without has_dbias (reached through
@@ -84,15 +85,17 @@
 // tiles and get p = 0.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
 #include "flash_tf32.cuh"
-#include "flash_bf16.cuh"
+#include "flash_b16.cuh"
 
 constexpr int kDkvRows = 32;      // queries of a dK/dV stage
 constexpr int kDqKeys = 32;       // keys of a dQ stage
@@ -522,15 +525,17 @@ int check_args(int bh, int T, int device) {
   return (int)cudaSetDevice(device);
 }
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------- bf16 and fp16
 //
-// The bf16 flavour (the TPU kernels on bf16 q, k, v and dO under the
-// trainer's compute_dtype), the dK/dV kernel with and without has_dbias
-// (a learned key bias trained in bf16): every product on the tensor
-// cores as mma.sync m16n8k16 with bf16 operands and fp32 accumulators, one
-// product where the fp32 route takes three. What bounds it: operations, as
-// in fp32 (seven T x T x D products between the two kernels at the bf16
-// rate, 989 TFLOP/s), with half the fp32 bytes. Design, a simple one first
+// The 16-bit flavours (the TPU kernels on bf16 or fp16 q, k, v and dO under
+// the trainer's compute_dtype), one body over the element type E; the
+// dK/dV kernel with and without has_dbias (a learned key bias trained in
+// bf16; the fp16 has_dbias instantiation is not built, its wrapper refuses
+// it): every product on the tensor cores as mma.sync m16n8k16 with E
+// operands and fp32 accumulators, one product where the fp32 route takes
+// three. What bounds it: operations, as in fp32 (seven T x T x D products
+// between the two kernels at the 16-bit rate, 989 TFLOP/s), with half the
+// fp32 bytes. Design, a simple one first
 // (wgmma and TMA are later work):
 // - The fp32 route's split: the dQ kernel owns a 64-row Q tile and walks the
 //   keys (64 a stage at D <= 64, 32 at D = 128), the dK/dV kernel owns a
@@ -542,10 +547,13 @@ int check_args(int bh, int T, int device) {
 //   (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) or ldmatrix.trans
 //   (dQ += dS K, dV += P^T dO, dK += dS^T Q).
 // - S and dP stay in registers: p = exp(s - lse) and dS = p * (dP - delta)
-//   * scale in fp32, then p and dS are rounded to bf16 as they are packed
+//   * scale in fp32, then p and dS are rounded to E as they are packed
 //   into the second products' A fragments, where the TPU kernel rounds them
 //   to v's dtype (_recompute_p_ds). The sums stay fp32 in the accumulators,
-//   and dq, dk and dv round to bf16 once, at the end.
+//   and dq, dk and dv round to E once, at the end. In fp16 a dS past 65504
+//   (a loss scale that overflows) rounds to inf and so does every gradient
+//   it feeds: the rounding never saturates, so the guard's finite check
+//   sees the overflow.
 // - The dead-tile rules are the fp32 route's: the dQ kernel walks only key
 //   tiles with a live key, and a dK/dV block whose 64 keys are all dead
 //   writes zeros.
@@ -553,44 +561,41 @@ int check_args(int bh, int T, int device) {
 //   unrounded dS = p * (dP - delta) of its two keys over the queries it
 //   holds, as _dkv_kernel sums ds_bias; the quad's four partial sums meet
 //   by two shuffles at the end. dK takes the same dS times scale, rounded to
-//   bf16 as it is packed. A masked key's p is 0 for every query, so its
+//   E as it is packed. A masked key's p is 0 for every query, so its
 //   dbias is exactly 0. The extra work is one add a score.
 
 template <int D>
 struct BwdTileB {
-  static constexpr int kLd = D + 8;           // bf16 elements a padded row
+  static constexpr int kLd = D + 8;           // elements a padded row
   static constexpr int kTile = kBlock * kLd;  // elements of a 64-row tile
   static constexpr int kKeys = D <= 64 ? 64 : 32;   // keys of a dQ stage
   static constexpr int kRows = D <= 64 ? 64 : 16;   // queries of a dK/dV stage
   // dQ: Q and dO, two stages of K and V, two stages of the keys' bias; the
   // count and the list of live key tiles follow (sized at launch)
   static constexpr int kDqStage = 2 * kKeys * kLd;
-  static constexpr size_t kDqBytes = sizeof(bf16) * (2 * kTile + 2 * kDqStage) +
+  static constexpr size_t kDqBytes = kB16Bytes * (2 * kTile + 2 * kDqStage) +
                                      sizeof(float) * 2 * kKeys;
   // dK/dV: K and V, two stages of Q and dO, two stages of lse and delta
   static constexpr int kDkvStage = 2 * kRows * kLd;
   static constexpr size_t kDkvBytes =
-      sizeof(bf16) * (2 * kTile + 2 * kDkvStage) + sizeof(float) * 4 * kRows;
+      kB16Bytes * (2 * kTile + 2 * kDkvStage) + sizeof(float) * 4 * kRows;
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ bias,
-                         bf16* __restrict__ dq, int T, float scale,
-                         int causal) {
+flash_bwd_dq_b16_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                        const E* __restrict__ v, const E* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ bias, E* __restrict__ dq,
+                        int T, float scale, int causal) {
   using Tile = BwdTileB<D>;
   constexpr int KT = Tile::kKeys, NJ = KT / 8, KK = D / 16, NT = D / 8;
 
   extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dOs = Qs + Tile::kTile;
-  bf16* stages = dOs + Tile::kTile;            // K, V; two of them
+  E* Qs = reinterpret_cast<E*>(smem4);
+  E* dOs = Qs + Tile::kTile;
+  E* stages = dOs + Tile::kTile;               // K, V; two of them
   float* biases = reinterpret_cast<float*>(stages + 2 * Tile::kDqStage);
   int* n_live = reinterpret_cast<int*>(biases + 2 * KT);
   int* tiles = n_live + 1;
@@ -628,14 +633,14 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 
   if (nl > 0) {
     auto issue = [&](int i) {
-      bf16* st = stages + (i & 1) * Tile::kDqStage;
+      E* st = stages + (i & 1) * Tile::kDqStage;
       const int k0 = tiles[i] * KT;
-      load_tile_bf16<D, KT>(st, k + base, k0, T);
-      load_tile_bf16<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
+      load_tile16<D, KT>(st, k + base, k0, T);
+      load_tile16<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
       if (brow != nullptr) load_row<KT>(biases + (i & 1) * KT, brow, k0, T);
     };
-    load_tile_bf16<D, kBlock>(Qs, q + base, q0, T);
-    load_tile_bf16<D, kBlock>(dOs, dout + base, q0, T);
+    load_tile16<D, kBlock>(Qs, q + base, q0, T);
+    load_tile16<D, kBlock>(dOs, dout + base, q0, T);
     cp_async_commit();
     issue(0);
     cp_async_commit();
@@ -648,8 +653,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     unsigned qf[KK][4], of[KK][4];
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
-      frag_a_bf16<D>(qf[kk], Qs, 16 * warp, 16 * kk);
-      frag_a_bf16<D>(of[kk], dOs, 16 * warp, 16 * kk);
+      frag_a16<D>(qf[kk], Qs, 16 * warp, 16 * kk);
+      frag_a16<D>(of[kk], dOs, 16 * warp, 16 * kk);
     }
 
     for (int i = 0; i < nl; ++i) {
@@ -657,8 +662,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       cp_async_commit();
       cp_async_wait<1>();                // stage i has landed
       __syncthreads();
-      const bf16* Ks = stages + (i & 1) * Tile::kDqStage;
-      const bf16* Vs = Ks + KT * Tile::kLd;
+      const E* Ks = stages + (i & 1) * Tile::kDqStage;
+      const E* Vs = Ks + KT * Tile::kLd;
       const float* Bs = biases + (i & 1) * KT;
       const int k0 = tiles[i] * KT;
 
@@ -674,11 +679,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         for (int j2 = 0; j2 < NJ / 2; ++j2) {
           unsigned b[4];
           frag_b_nk<D>(b, Ks, 16 * j2, 16 * kk);
-          mma_bf16(s[2 * j2], qf[kk], b);
-          mma_bf16(s[2 * j2 + 1], qf[kk], b + 2);
+          mma16<E>(s[2 * j2], qf[kk], b);
+          mma16<E>(s[2 * j2 + 1], qf[kk], b + 2);
           frag_b_nk<D>(b, Vs, 16 * j2, 16 * kk);
-          mma_bf16(dp[2 * j2], of[kk], b);
-          mma_bf16(dp[2 * j2 + 1], of[kk], b + 2);
+          mma16<E>(dp[2 * j2], of[kk], b);
+          mma16<E>(dp[2 * j2 + 1], of[kk], b + 2);
         }
       // dS = P * (dP - delta) * scale, P = exp(S * scale + bias - lse)
 #pragma unroll
@@ -693,17 +698,17 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
           const float p = key < T ? expf(x - (lo_row ? lse_a : lse_b)) : 0.f;
           s[j][e] = p * (dp[j][e] - (lo_row ? delta_a : delta_b)) * scale;
         }
-      // dQ += dS K over the stage's keys, dS rounded to bf16
+      // dQ += dS K over the stage's keys, dS rounded to E
 #pragma unroll
       for (int kp = 0; kp < KT / 16; ++kp) {
         unsigned a[4];
-        pack_a(a, s[2 * kp], s[2 * kp + 1]);
+        pack_a<E>(a, s[2 * kp], s[2 * kp + 1]);
 #pragma unroll
         for (int n2 = 0; n2 < D / 16; ++n2) {
           unsigned b[4];
           frag_b_kn<D>(b, Ks, 16 * kp, 16 * n2);
-          mma_bf16(acc[2 * n2], a, b);
-          mma_bf16(acc[2 * n2 + 1], a, b + 2);
+          mma16<E>(acc[2 * n2], a, b);
+          mma16<E>(acc[2 * n2 + 1], a, b + 2);
         }
       }
       __syncthreads();                   // the stage is refilled next
@@ -715,32 +720,29 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const int col = 8 * n + 2 * t;
     if (row_a < T)
       *reinterpret_cast<unsigned*>(dq + base + (long long)row_a * D + col) =
-          pack_bf16(acc[n][0], acc[n][1]);
+          pack16<E>(acc[n][0], acc[n][1]);
     if (row_b < T)
       *reinterpret_cast<unsigned*>(dq + base + (long long)row_b * D + col) =
-          pack_bf16(acc[n][2], acc[n][3]);
+          pack16<E>(acc[n][2], acc[n][3]);
   }
 }
 
-template <int D, bool kDbias>
+template <typename E, int D, bool kDbias>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const float* __restrict__ bias,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          float* __restrict__ dbias, int T, float scale,
-                          int causal) {
+flash_bwd_dkv_b16_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v, const E* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ bias, E* __restrict__ dk,
+                         E* __restrict__ dv, float* __restrict__ dbias, int T,
+                         float scale, int causal) {
   using Tile = BwdTileB<D>;
   constexpr int R = Tile::kRows, NJ = R / 8, KK = D / 16, NT = D / 8;
 
   extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + Tile::kTile;
-  bf16* stages = Vs + Tile::kTile;             // Q, dO; two of them
+  E* Ks = reinterpret_cast<E*>(smem4);
+  E* Vs = Ks + Tile::kTile;
+  E* stages = Vs + Tile::kTile;                // Q, dO; two of them
   float* stats = reinterpret_cast<float*>(stages + 2 * Tile::kDkvStage);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -770,15 +772,15 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     const int n_q = (T + R - 1) / R;
     auto issue = [&](int i) {
       const int slot = (i - t0) & 1;
-      bf16* st = stages + slot * Tile::kDkvStage;
+      E* st = stages + slot * Tile::kDkvStage;
       const int r0 = i * R;
-      load_tile_bf16<D, R>(st, q + base, r0, T);
-      load_tile_bf16<D, R>(st + R * Tile::kLd, dout + base, r0, T);
+      load_tile16<D, R>(st, q + base, r0, T);
+      load_tile16<D, R>(st + R * Tile::kLd, dout + base, r0, T);
       load_row<R>(stats + slot * 2 * R, lse + bh * T, r0, T);
       load_row<R>(stats + slot * 2 * R + R, delta + bh * T, r0, T);
     };
-    load_tile_bf16<D, kBlock>(Ks, k + base, k0, T);
-    load_tile_bf16<D, kBlock>(Vs, v + base, k0, T);
+    load_tile16<D, kBlock>(Ks, k + base, k0, T);
+    load_tile16<D, kBlock>(Vs, v + base, k0, T);
     cp_async_commit();
     issue(t0);
     cp_async_commit();
@@ -787,8 +789,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     unsigned kf[KK][4], vf[KK][4];
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
-      frag_a_bf16<D>(kf[kk], Ks, 16 * warp, 16 * kk);
-      frag_a_bf16<D>(vf[kk], Vs, 16 * warp, 16 * kk);
+      frag_a16<D>(kf[kk], Ks, 16 * warp, 16 * kk);
+      frag_a16<D>(vf[kk], Vs, 16 * warp, 16 * kk);
     }
 
     for (int i = t0; i < n_q; ++i) {
@@ -797,8 +799,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       cp_async_wait<1>();                // stage i has landed
       __syncthreads();
       const int slot = (i - t0) & 1;
-      const bf16* Qs = stages + slot * Tile::kDkvStage;
-      const bf16* dOs = Qs + R * Tile::kLd;
+      const E* Qs = stages + slot * Tile::kDkvStage;
+      const E* dOs = Qs + R * Tile::kLd;
       const float* Ls = stats + slot * 2 * R;
       const float* Dl = Ls + R;
       const int r0 = i * R;
@@ -815,11 +817,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         for (int j2 = 0; j2 < NJ / 2; ++j2) {
           unsigned b[4];
           frag_b_nk<D>(b, Qs, 16 * j2, 16 * kk);
-          mma_bf16(s[2 * j2], kf[kk], b);
-          mma_bf16(s[2 * j2 + 1], kf[kk], b + 2);
+          mma16<E>(s[2 * j2], kf[kk], b);
+          mma16<E>(s[2 * j2 + 1], kf[kk], b + 2);
           frag_b_nk<D>(b, dOs, 16 * j2, 16 * kk);
-          mma_bf16(dp[2 * j2], vf[kk], b);
-          mma_bf16(dp[2 * j2 + 1], vf[kk], b + 2);
+          mma16<E>(dp[2 * j2], vf[kk], b);
+          mma16<E>(dp[2 * j2 + 1], vf[kk], b + 2);
         }
       // P^T, and dS^T = P^T * (dP^T - delta) * scale; dbias sums the
       // unscaled, unrounded dS over the queries in fp32
@@ -843,21 +845,21 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           s[j][e] = p;
         }
       // dV += P^T dO and dK += dS^T Q over the stage's queries, P and dS
-      // rounded to bf16
+      // rounded to E
 #pragma unroll
       for (int kp = 0; kp < R / 16; ++kp) {
         unsigned pa[4], da[4];
-        pack_a(pa, s[2 * kp], s[2 * kp + 1]);
-        pack_a(da, dp[2 * kp], dp[2 * kp + 1]);
+        pack_a<E>(pa, s[2 * kp], s[2 * kp + 1]);
+        pack_a<E>(da, dp[2 * kp], dp[2 * kp + 1]);
 #pragma unroll
         for (int n2 = 0; n2 < D / 16; ++n2) {
           unsigned b[4];
           frag_b_kn<D>(b, dOs, 16 * kp, 16 * n2);
-          mma_bf16(dv_acc[2 * n2], pa, b);
-          mma_bf16(dv_acc[2 * n2 + 1], pa, b + 2);
+          mma16<E>(dv_acc[2 * n2], pa, b);
+          mma16<E>(dv_acc[2 * n2 + 1], pa, b + 2);
           frag_b_kn<D>(b, Qs, 16 * kp, 16 * n2);
-          mma_bf16(dk_acc[2 * n2], da, b);
-          mma_bf16(dk_acc[2 * n2 + 1], da, b + 2);
+          mma16<E>(dk_acc[2 * n2], da, b);
+          mma16<E>(dk_acc[2 * n2 + 1], da, b + 2);
         }
       }
       __syncthreads();                   // the stage is refilled next
@@ -884,67 +886,130 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     if (key_a < T) {
       const long long o = base + (long long)key_a * D + col;
       *reinterpret_cast<unsigned*>(dk + o) =
-          pack_bf16(dk_acc[n][0], dk_acc[n][1]);
+          pack16<E>(dk_acc[n][0], dk_acc[n][1]);
       *reinterpret_cast<unsigned*>(dv + o) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+          pack16<E>(dv_acc[n][0], dv_acc[n][1]);
     }
     if (key_b < T) {
       const long long o = base + (long long)key_b * D + col;
       *reinterpret_cast<unsigned*>(dk + o) =
-          pack_bf16(dk_acc[n][2], dk_acc[n][3]);
+          pack16<E>(dk_acc[n][2], dk_acc[n][3]);
       *reinterpret_cast<unsigned*>(dv + o) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+          pack16<E>(dv_acc[n][2], dv_acc[n][3]);
     }
   }
 }
 
-template <int D>
-int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
-                   const bf16* dout, const float* lse, const float* delta,
-                   const float* bias, bf16* dq, int bh, int T, float scale,
-                   int causal, int device, cudaStream_t stream) {
+template <typename E, int D>
+int launch_dq_b16(const E* q, const E* k, const E* v, const E* dout,
+                  const float* lse, const float* delta, const float* bias,
+                  E* dq, int bh, int T, float scale, int causal, int device,
+                  cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<D>, device, done);
+  const cudaError_t e =
+      allow_smem(flash_bwd_dq_b16_kernel<E, D>, device, done);
   if (e != cudaSuccess) return (int)e;
   constexpr int KT = BwdTileB<D>::kKeys;
   const size_t bytes =
       BwdTileB<D>::kDqBytes + sizeof(int) * ((T + KT - 1) / KT + 1);
   const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_dq_b16_kernel<E, D><<<grid, kThreads, bytes, stream>>>(
       q, k, v, dout, lse, delta, bias, dq, T, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kDbias>
-int launch_dkv_bf16_kernel(const bf16* q, const bf16* k, const bf16* v,
-                           const bf16* dout, const float* lse,
-                           const float* delta, const float* bias, bf16* dk,
-                           bf16* dv, float* dbias, int bh, int T, float scale,
-                           int causal, int device, cudaStream_t stream) {
+template <typename E, int D, bool kDbias>
+int launch_dkv_b16_kernel(const E* q, const E* k, const E* v, const E* dout,
+                          const float* lse, const float* delta,
+                          const float* bias, E* dk, E* dv, float* dbias,
+                          int bh, int T, float scale, int causal, int device,
+                          cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
   const cudaError_t e =
-      allow_smem(flash_bwd_dkv_bf16_kernel<D, kDbias>, device, done);
+      allow_smem(flash_bwd_dkv_b16_kernel<E, D, kDbias>, device, done);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dkv_bf16_kernel<D, kDbias>
+  flash_bwd_dkv_b16_kernel<E, D, kDbias>
       <<<grid, kThreads, BwdTileB<D>::kDkvBytes, stream>>>(
           q, k, v, dout, lse, delta, bias, dk, dv, dbias, T, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
-                    const bf16* dout, const float* lse, const float* delta,
-                    const float* bias, bf16* dk, bf16* dv, float* dbias,
-                    int bh, int T, float scale, int causal, int device,
-                    cudaStream_t stream) {
-  if (dbias != nullptr)
-    return launch_dkv_bf16_kernel<D, true>(q, k, v, dout, lse, delta, bias,
-                                           dk, dv, dbias, bh, T, scale,
-                                           causal, device, stream);
-  return launch_dkv_bf16_kernel<D, false>(q, k, v, dout, lse, delta, bias,
-                                          dk, dv, nullptr, bh, T, scale,
-                                          causal, device, stream);
+// The dK/dV launch, with the has_dbias instantiation for a dbias output
+// (bf16 only: the fp16 one is not built, and its wrapper refuses it)
+template <typename E, int D>
+int launch_dkv_b16(const E* q, const E* k, const E* v, const E* dout,
+                   const float* lse, const float* delta, const float* bias,
+                   E* dk, E* dv, float* dbias, int bh, int T, float scale,
+                   int causal, int device, cudaStream_t stream) {
+  if (dbias != nullptr) {
+    if constexpr (std::is_same<E, bf16>::value)
+      return launch_dkv_b16_kernel<E, D, true>(q, k, v, dout, lse, delta,
+                                               bias, dk, dv, dbias, bh, T,
+                                               scale, causal, device, stream);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  return launch_dkv_b16_kernel<E, D, false>(q, k, v, dout, lse, delta, bias,
+                                            dk, dv, nullptr, bh, T, scale,
+                                            causal, device, stream);
+}
+
+// The 16-bit entries' bodies: q, k, v, dout, dq, dk, dv (bh, T, D)
+// contiguous E, 16-byte aligned; D is 32, 64 or 128.
+template <typename E>
+int dq16(const void* q, const void* k, const void* v, const void* dout,
+         const float* lse, const float* delta, const float* bias, void* dq,
+         int bh, int T, int D, float scale, int causal, int device,
+         void* stream_ptr) {
+  const int rc = check_args(bh, T, device);
+  if (rc != 0) return rc;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const E *qe = static_cast<const E*>(q), *ke = static_cast<const E*>(k),
+          *ve = static_cast<const E*>(v), *oe = static_cast<const E*>(dout);
+  E* dqe = static_cast<E*>(dq);
+  switch (D) {
+    case 32:
+      return launch_dq_b16<E, 32>(qe, ke, ve, oe, lse, delta, bias, dqe, bh,
+                                  T, scale, causal, device, stream);
+    case 64:
+      return launch_dq_b16<E, 64>(qe, ke, ve, oe, lse, delta, bias, dqe, bh,
+                                  T, scale, causal, device, stream);
+    case 128:
+      return launch_dq_b16<E, 128>(qe, ke, ve, oe, lse, delta, bias, dqe,
+                                   bh, T, scale, causal, device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+int dkv16(const void* q, const void* k, const void* v, const void* dout,
+          const float* lse, const float* delta, const float* bias, void* dk,
+          void* dv, float* dbias, int bh, int T, int D, float scale,
+          int causal, int device, void* stream_ptr) {
+  const int rc = check_args(bh, T, device);
+  if (rc != 0) return rc;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const E *qe = static_cast<const E*>(q), *ke = static_cast<const E*>(k),
+          *ve = static_cast<const E*>(v), *oe = static_cast<const E*>(dout);
+  E *dke = static_cast<E*>(dk), *dve = static_cast<E*>(dv);
+  switch (D) {
+    case 32:
+      return launch_dkv_b16<E, 32>(qe, ke, ve, oe, lse, delta, bias, dke,
+                                   dve, dbias, bh, T, scale, causal, device,
+                                   stream);
+    case 64:
+      return launch_dkv_b16<E, 64>(qe, ke, ve, oe, lse, delta, bias, dke,
+                                   dve, dbias, bh, T, scale, causal, device,
+                                   stream);
+    case 128:
+      return launch_dkv_b16<E, 128>(qe, ke, ve, oe, lse, delta, bias, dke,
+                                    dve, dbias, bh, T, scale, causal, device,
+                                    stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1001,35 +1066,17 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_f32(
   }
 }
 
-// The bf16 flavour: q, k, v, dout, dq, dk, dv (bh, T, D) contiguous bf16,
-// 16-byte aligned; lse, delta, bias and dbias as above (fp32; dbias null for
-// none). D is 32, 64 or 128.
+// The 16-bit flavours: q, k, v, dout, dq, dk, dv (bh, T, D) contiguous bf16
+// (or fp16), 16-byte aligned; lse, delta, bias and dbias as above (fp32;
+// dbias null for none). D is 32, 64 or 128. The fp16 dK/dV entry refuses a
+// dbias output (cudaErrorInvalidValue).
 extern "C" int mxtpu_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* bias, void* dq,
     int bh, int T, int D, float scale, int causal, int device,
     void* stream_ptr) {
-  const int rc = check_args(bh, T, device);
-  if (rc != 0) return rc;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bf16 *qb = static_cast<const bf16*>(q),
-             *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v),
-             *ob = static_cast<const bf16*>(dout);
-  bf16* dqb = static_cast<bf16*>(dq);
-  switch (D) {
-    case 32:
-      return launch_dq_bf16<32>(qb, kb, vb, ob, lse, delta, bias, dqb, bh, T,
-                                scale, causal, device, stream);
-    case 64:
-      return launch_dq_bf16<64>(qb, kb, vb, ob, lse, delta, bias, dqb, bh, T,
-                                scale, causal, device, stream);
-    case 128:
-      return launch_dq_bf16<128>(qb, kb, vb, ob, lse, delta, bias, dqb, bh,
-                                 T, scale, causal, device, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dq16<bf16>(q, k, v, dout, lse, delta, bias, dq, bh, T, D, scale,
+                    causal, device, stream_ptr);
 }
 
 extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
@@ -1037,26 +1084,24 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
     const float* lse, const float* delta, const float* bias, void* dk,
     void* dv, float* dbias, int bh, int T, int D, float scale, int causal,
     int device, void* stream_ptr) {
-  const int rc = check_args(bh, T, device);
-  if (rc != 0) return rc;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bf16 *qb = static_cast<const bf16*>(q),
-             *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v),
-             *ob = static_cast<const bf16*>(dout);
-  bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
-  switch (D) {
-    case 32:
-      return launch_dkv_bf16<32>(qb, kb, vb, ob, lse, delta, bias, dkb, dvb,
-                                 dbias, bh, T, scale, causal, device, stream);
-    case 64:
-      return launch_dkv_bf16<64>(qb, kb, vb, ob, lse, delta, bias, dkb, dvb,
-                                 dbias, bh, T, scale, causal, device, stream);
-    case 128:
-      return launch_dkv_bf16<128>(qb, kb, vb, ob, lse, delta, bias, dkb,
-                                  dvb, dbias, bh, T, scale, causal, device,
-                                  stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dkv16<bf16>(q, k, v, dout, lse, delta, bias, dk, dv, dbias, bh, T,
+                     D, scale, causal, device, stream_ptr);
+}
+
+extern "C" int mxtpu_flash_attention_bwd_dq_f16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* bias, void* dq,
+    int bh, int T, int D, float scale, int causal, int device,
+    void* stream_ptr) {
+  return dq16<f16>(q, k, v, dout, lse, delta, bias, dq, bh, T, D, scale,
+                   causal, device, stream_ptr);
+}
+
+extern "C" int mxtpu_flash_attention_bwd_dkv_f16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* bias, void* dk,
+    void* dv, float* dbias, int bh, int T, int D, float scale, int causal,
+    int device, void* stream_ptr) {
+  return dkv16<f16>(q, k, v, dout, lse, delta, bias, dk, dv, dbias, bh, T,
+                    D, scale, causal, device, stream_ptr);
 }

@@ -1,10 +1,11 @@
-// Attention forward with an online softmax (flash attention), fp32 and bf16,
-// for Hopper (sm_90a).
+// Attention forward with an online softmax (flash attention), fp32, bf16 and
+// fp16, for Hopper (sm_90a).
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_attention.py: _fwd_kernel
-// (reached through _fwd_call, _flash_core and flash_attention), in the two
+// (reached through _fwd_call, _flash_core and flash_attention), in the three
 // input dtypes the JAX package gives it. The fp32 route is described first;
-// the bf16 route's notes stand above its kernel, further down.
+// the 16-bit route's notes (bf16 and fp16, one kernel over the element type)
+// stand above its kernel, further down.
 //
 // What bounds it on the H100: operations. At (B*H, T, D) = (96, 512, 64) the
 // two products take 4 * BH * T * T * D = 6.4 GFLOP against about 50 MB of q,
@@ -56,6 +57,7 @@
 // (B*H, T), without the TPU's 8-sublane replication.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -64,7 +66,7 @@
 namespace {
 
 #include "flash_tf32.cuh"
-#include "flash_bf16.cuh"
+#include "flash_b16.cuh"
 
 constexpr int kFwdKeys = 32;      // keys of a K/V stage
 
@@ -309,52 +311,53 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------- bf16 and fp16
 //
-// The bf16 flavour (the TPU kernel on bf16 q, k, v under the trainer's
-// compute_dtype): both products on the tensor cores as mma.sync m16n8k16
-// with bf16 operands and fp32 accumulators, one product where the fp32
-// route takes three. What bounds it: operations, 4 * BH * T * T * D at the
-// bf16 rate (989 TFLOP/s), 6.5 us for the dense (96, 512, 64), against
-// 25 MB of bf16 q, k, v and out (7.5 us): near the ridge, so both matter.
+// The 16-bit flavours (the TPU kernel on bf16 or fp16 q, k, v under the
+// trainer's compute_dtype), one kernel over the element type E: both
+// products on the tensor cores as mma.sync m16n8k16 with E operands and
+// fp32 accumulators, one product where the fp32 route takes three. What
+// bounds it: operations, 4 * BH * T * T * D at the bf16 and fp16 rate (989
+// TFLOP/s), 6.5 us for the dense (96, 512, 64), against 25 MB of 16-bit q,
+// k, v and out (7.5 us): near the ridge, so both matter.
 // Design, a simple one first (wgmma and TMA are later work):
 // - One block a 64-row Q tile of one b*h, four warps of 16 rows; Q's A
 //   fragments are read once with ldmatrix and stay in registers.
 // - K, V and the keys' bias stream in 64-key stages through a two-stage
 //   cp.async ring; K's B fragments come by ldmatrix, V's by ldmatrix.trans.
 // - S stays in registers: its fp32 accumulators become p = exp(s - m) in
-//   place, l sums them in fp32, and p is rounded to bf16 as it is packed
-//   into P V's A fragments, where the TPU kernel rounds p to v's dtype.
+//   place, l sums them in fp32, and p is rounded to E as it is packed
+//   into P V's A fragments, where the TPU kernel rounds p to v's dtype (in
+//   fp16 a p below 2**-14 stays a subnormal). O rounds to E once.
 // - The dead-tile vote, the causal walk, the dead-row rule (exact zeros,
 //   lse 0) and the fp32 lse are the fp32 route's.
 
-constexpr int kFwdKeysB = 64;     // keys of a bf16 K/V stage
+constexpr int kFwdKeysB = 64;     // keys of a 16-bit K/V stage
 
 template <int D>
 struct FwdTileB {
-  static constexpr int kLd = D + 8;           // bf16 elements a padded row
+  static constexpr int kLd = D + 8;           // elements a padded row
   static constexpr int kTile = kBlock * kLd;  // elements of a 64-row tile
   static constexpr int kStage = 2 * kFwdKeysB * kLd;   // a stage's K and V
   // Q, two stages of K and V, then two stages of the keys' bias (fp32); the
   // count and the list of live key tiles follow (an int each, sized at
   // launch)
-  static constexpr size_t kBytes = sizeof(bf16) * (kTile + 2 * kStage) +
+  static constexpr size_t kBytes = kB16Bytes * (kTile + 2 * kStage) +
                                    sizeof(float) * 2 * kFwdKeysB;
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const float* __restrict__ bias, bf16* __restrict__ out,
-                      float* __restrict__ lse, int T, float scale,
-                      int causal) {
+flash_fwd_b16_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                     const E* __restrict__ v, const float* __restrict__ bias,
+                     E* __restrict__ out, float* __restrict__ lse, int T,
+                     float scale, int causal) {
   using Tile = FwdTileB<D>;
   constexpr int KT = kFwdKeysB, NJ = KT / 8, KK = D / 16, NT = D / 8;
 
   extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* stages = Qs + Tile::kTile;             // K, V; two of them
+  E* Qs = reinterpret_cast<E*>(smem4);
+  E* stages = Qs + Tile::kTile;             // K, V; two of them
   float* biases = reinterpret_cast<float*>(stages + 2 * Tile::kStage);
   int* n_live = reinterpret_cast<int*>(biases + 2 * KT);
   int* tiles = n_live + 1;
@@ -394,13 +397,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   if (nl > 0) {
     auto issue = [&](int i) {
-      bf16* st = stages + (i & 1) * Tile::kStage;
+      E* st = stages + (i & 1) * Tile::kStage;
       const int k0 = tiles[i] * KT;
-      load_tile_bf16<D, KT>(st, k + base, k0, T);
-      load_tile_bf16<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
+      load_tile16<D, KT>(st, k + base, k0, T);
+      load_tile16<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
       if (brow != nullptr) load_row<KT>(biases + (i & 1) * KT, brow, k0, T);
     };
-    load_tile_bf16<D, kBlock>(Qs, q + base, q0, T);
+    load_tile16<D, kBlock>(Qs, q + base, q0, T);
     cp_async_commit();
     issue(0);
     cp_async_commit();
@@ -409,15 +412,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned qf[KK][4];
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk)
-      frag_a_bf16<D>(qf[kk], Qs, 16 * warp, 16 * kk);
+      frag_a16<D>(qf[kk], Qs, 16 * warp, 16 * kk);
 
     for (int i = 0; i < nl; ++i) {
       if (i + 1 < nl) issue(i + 1);
       cp_async_commit();
       cp_async_wait<1>();                // stage i has landed
       __syncthreads();
-      const bf16* Ks = stages + (i & 1) * Tile::kStage;
-      const bf16* Vs = Ks + KT * Tile::kLd;
+      const E* Ks = stages + (i & 1) * Tile::kStage;
+      const E* Vs = Ks + KT * Tile::kLd;
       const float* Bs = biases + (i & 1) * KT;
       const int k0 = tiles[i] * KT;
 
@@ -431,8 +434,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int j2 = 0; j2 < NJ / 2; ++j2) {
           unsigned b[4];
           frag_b_nk<D>(b, Ks, 16 * j2, 16 * kk);
-          mma_bf16(s[2 * j2], qf[kk], b);
-          mma_bf16(s[2 * j2 + 1], qf[kk], b + 2);
+          mma16<E>(s[2 * j2], qf[kk], b);
+          mma16<E>(s[2 * j2 + 1], qf[kk], b + 2);
         }
 
       // scale, bias and masks; the rows' new max over the quad
@@ -479,17 +482,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc[n][3] *= alpha_b;
       }
 
-      // O += P V over the stage's keys, P rounded to bf16 in the registers
+      // O += P V over the stage's keys, P rounded to E in the registers
 #pragma unroll
       for (int kp = 0; kp < KT / 16; ++kp) {
         unsigned a[4];
-        pack_a(a, s[2 * kp], s[2 * kp + 1]);
+        pack_a<E>(a, s[2 * kp], s[2 * kp + 1]);
 #pragma unroll
         for (int n2 = 0; n2 < D / 16; ++n2) {
           unsigned b[4];
           frag_b_kn<D>(b, Vs, 16 * kp, 16 * n2);
-          mma_bf16(acc[2 * n2], a, b);
-          mma_bf16(acc[2 * n2 + 1], a, b + 2);
+          mma16<E>(acc[2 * n2], a, b);
+          mma16<E>(acc[2 * n2 + 1], a, b + 2);
         }
       }
       __syncthreads();                   // the stage is refilled next
@@ -509,10 +512,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int col = 8 * n + 2 * t;
     if (row_a < T)
       *reinterpret_cast<unsigned*>(out + base + (long long)row_a * D + col) =
-          dead_a ? 0u : pack_bf16(acc[n][0] / la, acc[n][1] / la);
+          dead_a ? 0u : pack16<E>(acc[n][0] / la, acc[n][1] / la);
     if (row_b < T)
       *reinterpret_cast<unsigned*>(out + base + (long long)row_b * D + col) =
-          dead_b ? 0u : pack_bf16(acc[n][2] / lb, acc[n][3] / lb);
+          dead_b ? 0u : pack16<E>(acc[n][2] / lb, acc[n][3] / lb);
   }
   if (t == 0) {
     if (row_a < T) lse[bh * T + row_a] = dead_a ? 0.f : m_a + logf(la);
@@ -520,19 +523,48 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                const float* bias, bf16* out, float* lse, int bh, int T,
-                float scale, int causal, int device, cudaStream_t stream) {
+template <typename E, int D>
+int launch_b16(const E* q, const E* k, const E* v, const float* bias, E* out,
+               float* lse, int bh, int T, float scale, int causal,
+               int device, cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t e = allow_smem(flash_fwd_bf16_kernel<D>, device, done);
+  const cudaError_t e = allow_smem(flash_fwd_b16_kernel<E, D>, device, done);
   if (e != cudaSuccess) return (int)e;
   const size_t bytes = FwdTileB<D>::kBytes +
                        sizeof(int) * ((T + kFwdKeysB - 1) / kFwdKeysB + 1);
   const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_b16_kernel<E, D><<<grid, kThreads, bytes, stream>>>(
       q, k, v, bias, out, lse, T, scale, causal);
   return (int)cudaGetLastError();
+}
+
+// The 16-bit entries' body: q, k, v, out (bh, T, D) contiguous E, 16-byte
+// aligned; D is 32, 64 or 128.
+template <typename E>
+int fwd16(const void* q, const void* k, const void* v, const float* bias,
+          void* out, float* lse, int bh, int T, int D, float scale,
+          int causal, int device, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bh <= 0 || bh > 65535 || T <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const E* qe = static_cast<const E*>(q);
+  const E* ke = static_cast<const E*>(k);
+  const E* ve = static_cast<const E*>(v);
+  E* oe = static_cast<E*>(out);
+  switch (D) {
+    case 32:
+      return launch_b16<E, 32>(qe, ke, ve, bias, oe, lse, bh, T, scale,
+                               causal, device, stream);
+    case 64:
+      return launch_b16<E, 64>(qe, ke, ve, bias, oe, lse, bh, T, scale,
+                               causal, device, stream);
+    case 128:
+      return launch_b16<E, 128>(qe, ke, ve, bias, oe, lse, bh, T, scale,
+                                causal, device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -564,31 +596,20 @@ extern "C" int mxtpu_flash_attention_fwd_f32(
   }
 }
 
-// The bf16 flavour: q, k, v, out (bh, T, D) contiguous bf16, 16-byte
-// aligned; bias and lse as above (fp32). D is 32, 64 or 128.
+// The 16-bit flavours: q, k, v, out (bh, T, D) contiguous bf16 (or fp16),
+// 16-byte aligned; bias and lse as above (fp32). D is 32, 64 or 128.
 extern "C" int mxtpu_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, const float* bias,
     void* out, float* lse, int bh, int T, int D, float scale, int causal,
     int device, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (bh <= 0 || bh > 65535 || T <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(out);
-  switch (D) {
-    case 32:
-      return launch_bf16<32>(qb, kb, vb, bias, ob, lse, bh, T, scale, causal,
-                             device, stream);
-    case 64:
-      return launch_bf16<64>(qb, kb, vb, bias, ob, lse, bh, T, scale, causal,
-                             device, stream);
-    case 128:
-      return launch_bf16<128>(qb, kb, vb, bias, ob, lse, bh, T, scale,
-                              causal, device, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return fwd16<bf16>(q, k, v, bias, out, lse, bh, T, D, scale, causal,
+                     device, stream_ptr);
+}
+
+extern "C" int mxtpu_flash_attention_fwd_f16(
+    const void* q, const void* k, const void* v, const float* bias,
+    void* out, float* lse, int bh, int T, int D, float scale, int causal,
+    int device, void* stream_ptr) {
+  return fwd16<f16>(q, k, v, bias, out, lse, bh, T, D, scale, causal,
+                    device, stream_ptr);
 }

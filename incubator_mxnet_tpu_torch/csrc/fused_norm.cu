@@ -1,33 +1,38 @@
-// Row LayerNorm and row softmax over the last axis, fp32 and bf16, for
-// Hopper (sm_90a).
+// Row LayerNorm and row softmax over the last axis, fp32, bf16 and fp16,
+// for Hopper (sm_90a).
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/fused_norm.py: _ln_kernel (reached
 // through _ln_call and fused_layer_norm) and _softmax_kernel (reached through
 // _softmax_core and fused_softmax), in both element types the JAX package
-// gives them: fp32, and bf16 under ShardedTrainer's compute_dtype or
-// param_dtype (x, gamma and beta all bf16, as the JAX cast leaves them).
+// gives them: fp32, bf16 under ShardedTrainer's compute_dtype or
+// param_dtype, and fp16 under its compute_dtype (x, gamma and beta all of
+// the one 16-bit type, as the JAX cast leaves them).
 //
 // What bounds it on the H100: bytes. Each element is read once and written
 // once, and the arithmetic is a few operations per element, far below the
 // ~20 fp32 operations per byte at which the CUDA cores would be the limit.
 // At (R, C) = (1024, 768) the 6.3 MB of fp32 traffic needs about 1.9 us at
-// 3.35 TB/s (bf16: half). A decode step's LayerNorm (8 rows) or a prefill
+// 3.35 TB/s (bf16 and fp16: half). A decode step's LayerNorm (8 rows) or a prefill
 // chunk's (32 rows) moves 25-100 KB, far less than a launch costs: there
 // what bounds a call is latency, the launch's own and one trip to memory.
 //
-// Every kernel is a template over the element type T (float or
-// __nv_bfloat16): loads widen to fp32, the arithmetic is fp32, and the
-// result rounds to T once, to nearest even, where the TPU kernel's
-// .astype(o_ref.dtype) rounds.
+// Every kernel is a template over the element type T (float,
+// __nv_bfloat16 or __half): loads widen to fp32, the arithmetic is fp32,
+// and the result rounds to T once, to nearest even, where the TPU kernel's
+// .astype(o_ref.dtype) rounds. fp16 rounds with __float2half_rn: a value
+// past 65504 becomes inf and one below 2**-14 an fp16 subnormal, as
+// jnp's astype gives them (no saturation, no flush to zero; the build has
+// no --use_fast_math).
 //
 // LayerNorm's routes, picked by the wrapper (ops/kernels/fused_norm.py
 // _route) and checked here:
-//   warp (C <= 1024, C a multiple of a 16-byte vector: 4 floats or 8 bf16,
+//   warp (C <= 1024, C a multiple of a 16-byte vector: 4 floats or 8
+//     16-bit values,
 //     the four bases 16-byte aligned): one warp owns a row in registers,
 //     read and written with 16-byte accesses, neighbouring lanes on
-//     neighbouring vectors. Each C bucket (128 floats or 256 bf16, one
+//     neighbouring vectors. Each C bucket (128 floats or 256 16-bit, one
 //     vector a lane) has its own instantiation, so a lane holds exactly the
-//     vectors its row needs (C = 768: six float4 or three 8-bf16 vectors,
+//     vectors its row needs (C = 768: six float4 or three 8-wide vectors,
 //     none masked). gamma and beta are loaded with x, before the two
 //     shuffle reductions, so their latency hides behind x's. Four rows a
 //     block.
@@ -50,6 +55,7 @@
 // jax.nn.softmax does.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -101,6 +107,7 @@ __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T narrow(float x);
@@ -111,6 +118,10 @@ __device__ __forceinline__ float narrow<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // elements of T in one 16-byte access
@@ -306,7 +317,8 @@ template <typename T, int VW>
 void launch_ln_warp_bucket(const T* x, const T* gamma, const T* beta, T* y,
                            int rows, int C, float eps, cudaStream_t stream) {
   // a vector a lane for each bucket of 16-byte vectors (128 floats, 256
-  // bf16); four elements a lane for each 128 of the scalar instantiation
+  // 16-bit values); four elements a lane for each 128 of the scalar
+  // instantiation
   constexpr int kBucket = VW == 1 ? 128 : kWarp * VW;
   constexpr int PB = kBucket / (kWarp * VW);
   switch ((C + kBucket - 1) / kBucket) {
@@ -423,9 +435,10 @@ int softmax(const T* x, T* y, int rows, int C, int device, void* stream_ptr) {
 // surfaces in the caller.
 //
 // LayerNorm: `route` is the wrapper's choice (LnRoute): warp takes C <= 1024
-// with C a multiple of the 16-byte vector (4 floats, 8 bf16) and four
-// 16-byte aligned bases, warp_scalar C <= 1024, and long C > 1024. The bf16
-// entries take x, gamma, beta and y all bf16 (__nv_bfloat16).
+// with C a multiple of the 16-byte vector (4 floats, 8 16-bit values) and
+// four 16-byte aligned bases, warp_scalar C <= 1024, and long C > 1024. The
+// bf16 entries take x, gamma, beta and y all bf16 (__nv_bfloat16), the f16
+// entries all fp16 (__half).
 extern "C" int mxtpu_layer_norm_f32(const float* x, const float* gamma,
                                     const float* beta, float* y, int rows,
                                     int C, float eps, int route, int device,
@@ -444,6 +457,16 @@ extern "C" int mxtpu_layer_norm_bf16(const void* x, const void* gamma,
                        C, eps, route, device, stream_ptr);
 }
 
+extern "C" int mxtpu_layer_norm_f16(const void* x, const void* gamma,
+                                    const void* beta, void* y, int rows,
+                                    int C, float eps, int route, int device,
+                                    void* stream_ptr) {
+  using H = __half;
+  return layer_norm<H>(static_cast<const H*>(x), static_cast<const H*>(gamma),
+                       static_cast<const H*>(beta), static_cast<H*>(y), rows,
+                       C, eps, route, device, stream_ptr);
+}
+
 extern "C" int mxtpu_softmax_f32(const float* x, float* y, int rows, int C,
                                  int device, void* stream_ptr) {
   return softmax<float>(x, y, rows, C, device, stream_ptr);
@@ -453,5 +476,12 @@ extern "C" int mxtpu_softmax_bf16(const void* x, void* y, int rows, int C,
                                   int device, void* stream_ptr) {
   using B = __nv_bfloat16;
   return softmax<B>(static_cast<const B*>(x), static_cast<B*>(y), rows, C,
+                    device, stream_ptr);
+}
+
+extern "C" int mxtpu_softmax_f16(const void* x, void* y, int rows, int C,
+                                 int device, void* stream_ptr) {
+  using H = __half;
+  return softmax<H>(static_cast<const H*>(x), static_cast<H*>(y), rows, C,
                     device, stream_ptr);
 }

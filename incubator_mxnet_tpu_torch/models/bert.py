@@ -21,10 +21,12 @@ LayerNorm, are differentiable through ``torch.autograd``.
 The modules are built in inference mode (``eval()``), as the JAX package's
 forward runs outside ``autograd.record()``; ``train()`` turns dropout on.
 They run in the dtype their parameters carry: under ShardedTrainer's bf16
-``compute_dtype`` every product, LayerNorm and softmax runs in bf16 (the
-kernels' bf16 flavours), the padding bias follows PyTorch's promotion as
-the JAX package's follows jnp's (a bf16 mask keeps bf16 scores; -1e30 is a
-bf16 value), and the flash path's key bias stays fp32.
+or fp16 ``compute_dtype`` every product, LayerNorm and softmax runs in that
+dtype (the kernels' 16-bit flavours), the padding bias follows PyTorch's
+promotion as the JAX package's follows jnp's (a 16-bit mask keeps 16-bit
+scores; -1e30 is a bf16 value and -inf in fp16, which the softmax turns into
+exact zeros as jax.nn.softmax does), and the flash path's key bias stays
+fp32.
 """
 
 import math

@@ -43,9 +43,11 @@ _SIGNATURES = {
     "mxtpu_layer_norm_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # x, y, rows, C, device, stream
     "mxtpu_softmax_f32": (_P, _P, _I, _I, _I, _P),
-    # the bf16 flavours of the two, with the same arguments
+    # the bf16 and fp16 flavours of the two, with the same arguments
     "mxtpu_layer_norm_bf16": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "mxtpu_softmax_bf16": (_P, _P, _I, _I, _I, _P),
+    "mxtpu_layer_norm_f16": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "mxtpu_softmax_f16": (_P, _P, _I, _I, _I, _P),
     # q, k, v, bias, out, lse, bh, T, D, scale, causal, device, stream
     "mxtpu_flash_attention_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _F, _I, _I, _P),
@@ -57,8 +59,8 @@ _SIGNATURES = {
     # causal, device, stream
     "mxtpu_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _I, _I, _I, _F, _I, _I, _P),
-    # the bf16 flavours, with the fp32 entries' arguments (dbias null for
-    # none)
+    # the bf16 and fp16 flavours, with the fp32 entries' arguments (dbias
+    # null for none; the fp16 dK/dV entry refuses one)
     "mxtpu_flash_attention_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _F, _I, _I, _P),
     "mxtpu_flash_attention_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -66,6 +68,12 @@ _SIGNATURES = {
     "mxtpu_flash_attention_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
                                            _P, _P, _I, _I, _I, _F, _I, _I,
                                            _P),
+    "mxtpu_flash_attention_fwd_f16": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _F, _I, _I, _P),
+    "mxtpu_flash_attention_bwd_dq_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _F, _I, _I, _P),
+    "mxtpu_flash_attention_bwd_dkv_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _I, _I, _I, _F, _I, _I, _P),
     # table, n_tensors, n_chunks, lr, wd, b1, b2, 1 - b1, 1 - b2, 1 - b1^t,
     # 1 - b2^t, eps, lr * wd, adamw, device, stream
     "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,

@@ -20,17 +20,22 @@ without dbias counts on ``flash_attention_bwd_dkv``, with it on
 ``has_dbias`` path); its padding mask is a constant, as in the JAX package,
 and costs no dbias.
 
-Each kernel has an fp32 and a bf16 flavour, as the TPU kernels take the
-input dtype: q, k, v (and do) of one dtype, the key bias and the lse fp32.
-``flash_attention_forward`` and ``flash_attention_backward`` route by dtype;
-the bf16 kernels count on ``flash_attention_fwd_bf16``,
+Each kernel has an fp32, a bf16 and an fp16 flavour, as the TPU kernels
+take the input dtype: q, k, v (and do) of one dtype, the key bias and the
+lse fp32. ``flash_attention_forward`` and ``flash_attention_backward`` route
+by dtype; the bf16 kernels count on ``flash_attention_fwd_bf16``,
 ``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkv_bf16`` and, with
-a learned bias's cotangent, ``flash_attention_bwd_dkv_dbias_bf16``. A bf16
-CUDA tensor launches them or raises (no cast to fp32); float16 raises
-TypeError (ROADMAP Queue 2 item 13). The plain versions round where the TPU
-kernels round: p to the input dtype before P V and dS before dS K and dS^T
-Q (a no-op for fp32), with every product taken in fp32 from the rounded
-values; dbias stays the fp32 sum of the unrounded, unscaled dS.
+a learned bias's cotangent, ``flash_attention_bwd_dkv_dbias_bf16``; the fp16
+ones on ``flash_attention_fwd_f16``, ``flash_attention_bwd_dq_f16`` and
+``flash_attention_bwd_dkv_f16``. A 16-bit CUDA tensor launches them or
+raises (no cast to fp32); a learned bias's cotangent on fp16 raises
+TypeError (its kernel is ROADMAP Queue 2 item 17). The plain versions round
+where the TPU kernels round: p to the input dtype before P V and dS before
+dS K and dS^T Q (a no-op for fp32), with every product taken in fp32 from
+the rounded values; dbias stays the fp32 sum of the unrounded, unscaled dS.
+In fp16 a rounded dS past 65504 is inf, in the kernels as in the plain
+versions (``.to(torch.float16)``), so a loss scale that overflows shows in
+dq, dk and dv.
 """
 
 import torch
@@ -44,12 +49,15 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_dbias",
            "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
            "flash_attention_bwd_dkv_bf16",
-           "flash_attention_bwd_dkv_dbias_bf16"]
+           "flash_attention_bwd_dkv_dbias_bf16", "flash_attention_fwd_f16",
+           "flash_attention_bwd_dq_f16", "flash_attention_bwd_dkv_f16"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
-#: the input dtypes with CUDA kernels; float16 is ROADMAP Queue 2 item 13
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the input dtypes with CUDA kernels
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: the 16-bit kernels' C entry suffix by input dtype
+_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def _rounded(x, dtype):
@@ -66,9 +74,9 @@ def flash_attention_reference(q, k, v, bias=None, scale=1.0, causal=False):
     scaled, plus the per-key ``bias`` (BH, T), causal scores above the
     diagonal set to -1e30, softmax through max / exp / sum, and rows whose
     max stays at or below -0.5e30 (every key masked) set to exact 0 with
-    lse 0. Returns ``(out, lse)``. In bf16, as the TPU kernel: both
-    products in fp32 from the bf16 values, p rounded to bf16 before P V, the
-    sum l and the lse from the unrounded p."""
+    lse 0. Returns ``(out, lse)``. In bf16 or fp16, as the TPU kernel: both
+    products in fp32 from the 16-bit values, p rounded to the input dtype
+    before P V, the sum l and the lse from the unrounded p."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()[:, None, :]
@@ -95,10 +103,10 @@ def _check_cuda(q, k, v, bias, dtype=None):
         if t.dtype not in _KERNEL_DTYPES or t.dtype != q.dtype \
                 or (dtype is not None and t.dtype != dtype):
             raise TypeError("flash_attention: the CUDA kernels take q, k, v "
-                            "of one dtype, float32 or bfloat16%s; %s is %s "
-                            "(float16 is ROADMAP Queue 2 item 13)"
-                            % ("" if dtype is None else
-                               " (this one %s)" % dtype, name, t.dtype))
+                            "of one dtype, float32, bfloat16 or float16%s; "
+                            "%s is %s" % ("" if dtype is None else
+                                          " (this one %s)" % dtype, name,
+                                          t.dtype))
         if t.dim() != 3 or t.shape != q.shape:
             raise ValueError("flash_attention: q, k, v must share one "
                              "(BH, T, D) shape, got %s" % (tuple(t.shape),))
@@ -155,15 +163,15 @@ def flash_attention_forward(q, k, v, bias=None, scale=None, causal=False):
     """Attention forward on (BH, T, D); ``bias`` is an additive per-key
     (BH, T) float32 tensor or None. Returns ``(out, lse)``: out in q's
     dtype, lse float32. CUDA tensors of bfloat16 go to
-    ``flash_attention_fwd_bf16``."""
+    ``flash_attention_fwd_bf16``, of float16 to ``flash_attention_fwd_f16``."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale, causal)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
-    if q.dtype == torch.bfloat16:
-        return flash_attention_fwd_bf16(q, k, v, bias, scale, causal)
+    if q.dtype in _HALF_FWD:
+        return _HALF_FWD[q.dtype](q, k, v, bias, scale, causal)
     _check_cuda(q, k, v, bias, torch.float32)
     return _forward_launch("mxtpu_flash_attention_fwd_f32",
                            flash_attention_forward, q, k, v, bias, scale,
@@ -173,22 +181,41 @@ def flash_attention_forward(q, k, v, bias=None, scale=None, causal=False):
 flash_attention_forward.launches = 0
 
 
+def _forward16(wrapper, dtype, q, k, v, bias, scale, causal):
+    """A 16-bit forward kernel's launch, counted on ``wrapper``."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type != "cuda":
+        raise ValueError("%s: takes CUDA tensors, got %s"
+                         % (wrapper.__name__, q.device))
+    _check_cuda(q, k, v, bias, dtype)
+    return _forward_launch("mxtpu_flash_attention_fwd_" + _SUFFIX[dtype],
+                           wrapper, q, k, v, bias, scale, causal)
+
+
 def flash_attention_fwd_bf16(q, k, v, bias=None, scale=None, causal=False):
     """The bf16 forward kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v,
     an fp32 (BH, T) bias or None. Returns ``(out, lse)``, out bf16 and lse
     fp32."""
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_fwd_bf16: takes CUDA tensors, got "
-                         "%s" % q.device)
-    _check_cuda(q, k, v, bias, torch.bfloat16)
-    return _forward_launch("mxtpu_flash_attention_fwd_bf16",
-                           flash_attention_fwd_bf16, q, k, v, bias, scale,
-                           causal)
+    return _forward16(flash_attention_fwd_bf16, torch.bfloat16, q, k, v,
+                      bias, scale, causal)
 
 
 flash_attention_fwd_bf16.launches = 0
+
+
+def flash_attention_fwd_f16(q, k, v, bias=None, scale=None, causal=False):
+    """The fp16 forward kernel on CUDA tensors: (BH, T, D) float16 q, k, v,
+    an fp32 (BH, T) bias or None (a -1e30 mask stays finite there). Returns
+    ``(out, lse)``, out fp16 and lse fp32."""
+    return _forward16(flash_attention_fwd_f16, torch.float16, q, k, v, bias,
+                      scale, causal)
+
+
+flash_attention_fwd_f16.launches = 0
+#: the 16-bit forward kernels by input dtype
+_HALF_FWD = {torch.bfloat16: flash_attention_fwd_bf16,
+             torch.float16: flash_attention_fwd_f16}
 
 
 def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
@@ -207,9 +234,10 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
     the gradients in the inputs' dtypes and dbias in float32; float64
     evaluates the same formulas on the same inputs in float64 and returns
     float64, the oracle that the CUDA kernels are held to on the card. For
-    bf16 inputs p and dS are rounded to bf16 before the second products, as
-    the TPU kernels round them (``_recompute_p_ds``), and delta is taken in
-    fp32 from the bf16 dO and O; dbias stays the unrounded sum."""
+    bf16 or fp16 inputs p and dS are rounded to the input dtype before the
+    second products, as the TPU kernels round them (``_recompute_p_ds``; in
+    fp16 a dS past 65504 becomes inf), and delta is taken in fp32 from the
+    16-bit dO and O; dbias stays the unrounded sum."""
     cd = compute_dtype
     qf, kf, vf, dof = q.to(cd), k.to(cd), v.to(cd), do.to(cd)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -335,44 +363,65 @@ def _backward_cost(bh, T, D, bias, causal, n_prod, n_out, elem_bytes,
     return flops, float(nbytes)
 
 
-def flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias, scale,
-                                causal):
-    """The bf16 dQ kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v, do;
-    fp32 (BH, T) lse, delta = rowsum(dO * O) in fp32, and bias or None.
-    Returns dq (bf16)."""
-    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.bfloat16)
+def _dq16(wrapper, dtype, q, k, v, do, lse, delta, bias, scale, causal):
+    """One launch of a 16-bit dQ kernel, counted on ``wrapper``."""
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, dtype)
     bh, T, D = q.shape
     dq = torch.empty_like(q)
     if bh == 0 or T == 0:
         return dq
-    rc = _build.library().mxtpu_flash_attention_bwd_dq_bf16(
+    rc = getattr(_build.library(),
+                 "mxtpu_flash_attention_bwd_dq_" + _SUFFIX[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if bias is None else bias.data_ptr(), dq.data_ptr(),
         bh, T, D, float(scale), int(bool(causal)), q.device.index,
         _stream(q))
-    _build.check(rc, "flash_attention_bwd_dq_bf16")
-    _build.count_launch(flash_attention_bwd_dq_bf16,
+    _build.check(rc, wrapper.__name__)
+    _build.count_launch(wrapper,
                         lambda: _backward_cost(bh, T, D, bias, causal, 3, 1,
                                                2))
     return dq
 
 
+def flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias, scale,
+                                causal):
+    """The bf16 dQ kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v, do;
+    fp32 (BH, T) lse, delta = rowsum(dO * O) in fp32, and bias or None.
+    Returns dq (bf16)."""
+    return _dq16(flash_attention_bwd_dq_bf16, torch.bfloat16, q, k, v, do,
+                 lse, delta, bias, scale, causal)
+
+
 flash_attention_bwd_dq_bf16.launches = 0
 
 
-def _dkv_bf16(wrapper, q, k, v, do, lse, delta, bias, scale, causal,
-              dbias):
-    """One launch of the bf16 dK/dV kernel, with the fp32 dbias output when
+def flash_attention_bwd_dq_f16(q, k, v, do, lse, delta, bias, scale,
+                               causal):
+    """The fp16 dQ kernel on CUDA tensors: (BH, T, D) float16 q, k, v, do
+    (a scaled dO under dynamic loss scaling); fp32 (BH, T) lse, delta =
+    rowsum(dO * O) in fp32, and bias or None. Returns dq (fp16; inf where a
+    scaled dS or sum overflows)."""
+    return _dq16(flash_attention_bwd_dq_f16, torch.float16, q, k, v, do,
+                 lse, delta, bias, scale, causal)
+
+
+flash_attention_bwd_dq_f16.launches = 0
+
+
+def _dkv16(wrapper, dtype, q, k, v, do, lse, delta, bias, scale, causal,
+           dbias):
+    """One launch of a 16-bit dK/dV kernel, with the fp32 dbias output when
     ``dbias``; counted on ``wrapper``. Returns ``(dk, dv[, dbias])``."""
-    _check_bwd_cuda(q, k, v, do, lse, delta, bias, torch.bfloat16)
+    _check_bwd_cuda(q, k, v, do, lse, delta, bias, dtype)
     bh, T, D = q.shape
     outs = (torch.empty_like(k), torch.empty_like(v))
     if dbias:
         outs += (torch.empty((bh, T), dtype=torch.float32, device=q.device),)
     if bh == 0 or T == 0:
         return outs
-    rc = _build.library().mxtpu_flash_attention_bwd_dkv_bf16(
+    rc = getattr(_build.library(),
+                 "mxtpu_flash_attention_bwd_dkv_" + _SUFFIX[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if bias is None else bias.data_ptr(), outs[0].data_ptr(),
@@ -388,8 +437,8 @@ def flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, bias, scale,
                                  causal):
     """The bf16 dK/dV kernel (without dbias) on CUDA tensors, with the bf16
     dQ kernel's arguments. Returns ``(dk, dv)`` (bf16)."""
-    return _dkv_bf16(flash_attention_bwd_dkv_bf16, q, k, v, do, lse, delta,
-                     bias, scale, causal, False)
+    return _dkv16(flash_attention_bwd_dkv_bf16, torch.bfloat16, q, k, v, do,
+                  lse, delta, bias, scale, causal, False)
 
 
 flash_attention_bwd_dkv_bf16.launches = 0
@@ -402,11 +451,30 @@ def flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta, bias, scale,
     kernel's arguments. Returns ``(dk, dv, dbias)``: dk and dv bf16 from dS
     rounded to bf16, dbias (BH, T) fp32, the sum over query rows of the
     unrounded, unscaled dS."""
-    return _dkv_bf16(flash_attention_bwd_dkv_dbias_bf16, q, k, v, do, lse,
-                     delta, bias, scale, causal, True)
+    return _dkv16(flash_attention_bwd_dkv_dbias_bf16, torch.bfloat16, q, k,
+                  v, do, lse, delta, bias, scale, causal, True)
 
 
 flash_attention_bwd_dkv_dbias_bf16.launches = 0
+
+
+def flash_attention_bwd_dkv_f16(q, k, v, do, lse, delta, bias, scale,
+                                causal):
+    """The fp16 dK/dV kernel (without dbias) on CUDA tensors, with the fp16
+    dQ kernel's arguments. Returns ``(dk, dv)`` (fp16)."""
+    return _dkv16(flash_attention_bwd_dkv_f16, torch.float16, q, k, v, do,
+                  lse, delta, bias, scale, causal, False)
+
+
+flash_attention_bwd_dkv_f16.launches = 0
+#: the 16-bit backward kernels by input dtype: (dQ, dK/dV, dK/dV with
+#: dbias); fp16 has no dbias kernel yet
+_HALF_BWD = {
+    torch.bfloat16: (flash_attention_bwd_dq_bf16,
+                     flash_attention_bwd_dkv_bf16,
+                     flash_attention_bwd_dkv_dbias_bf16),
+    torch.float16: (flash_attention_bwd_dq_f16, flash_attention_bwd_dkv_f16,
+                    None)}
 
 
 def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
@@ -415,8 +483,9 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
     ``lse`` and the output's cotangent ``do``: ``(dq, dk, dv)``, and with
     ``needs_dbias`` the per-key bias's cotangent (BH, T) after them, from
     the dK/dV kernel's dbias variant. Without it the bias (a padding mask)
-    gets no gradient and costs none. bf16 CUDA tensors go to the bf16
-    kernels, dbias included."""
+    gets no gradient and costs none. bf16 and fp16 CUDA tensors go to
+    their dtype's kernels, dbias included in bf16; fp16 with
+    ``needs_dbias`` raises TypeError (ROADMAP Queue 2 item 17)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
@@ -425,15 +494,20 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
                                                   needs_dbias)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: unsupported device %s" % q.device)
-    if q.dtype == torch.bfloat16:
-        # delta = rowsum(dO * O) in fp32 from the bf16 tensors, as
+    if q.dtype in _HALF_BWD:
+        dq_fn, dkv_fn, dbias_fn = _HALF_BWD[q.dtype]
+        if needs_dbias:
+            if dbias_fn is None:
+                raise TypeError("flash_attention backward: no CUDA kernel "
+                                "gives a learned bias's gradient on %s "
+                                "inputs yet (ROADMAP Queue 2 item 17)"
+                                % q.dtype)
+            dkv_fn = dbias_fn
+        # delta = rowsum(dO * O) in fp32 from the 16-bit tensors, as
         # _bwd_call takes it
         delta = (do.float() * out.float()).sum(dim=-1)
-        dq = flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias,
-                                         scale, causal)
-        dkv = flash_attention_bwd_dkv_dbias_bf16 if needs_dbias \
-            else flash_attention_bwd_dkv_bf16
-        return (dq,) + dkv(q, k, v, do, lse, delta, bias, scale, causal)
+        dq = dq_fn(q, k, v, do, lse, delta, bias, scale, causal)
+        return (dq,) + dkv_fn(q, k, v, do, lse, delta, bias, scale, causal)
     # delta = rowsum(dO * O): one reduction, as in the TPU kernel's caller
     delta = (do * out).sum(dim=-1)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, scale, causal)

@@ -13,8 +13,8 @@ CUDA tensor it launches a kernel or raises, and adds one to that kernel's
 on ``paged_flash_decode``), bf16 q over bf16 or fp32 pools the bf16 one
 (counted on ``paged_flash_decode_bf16``), the pairs a bf16 GPT feeds over a
 bf16 spec or the default one. Any other pair (an fp16 tensor, fp32 q over
-bf16 pools, K and V of two dtypes) raises TypeError naming it; no pool is
-ever converted. o comes back in q's dtype, m and l in fp32. ``paged_causal_attention`` is the whole decode-step
+bf16 pools, K and V of two dtypes) raises TypeError naming it (the fp16
+flavour is ROADMAP Queue 2 item 16); no pool is ever converted. o comes back in q's dtype, m and l in fp32. ``paged_causal_attention`` is the whole decode-step
 attention: the past term through ``paged_flash_decode``, the in-chunk causal
 term and the two-way softmax merge in plain PyTorch, as the JAX package
 computes them in lax outside its Pallas call.
@@ -84,7 +84,7 @@ def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
             "paged_flash_decode: no CUDA kernel takes q %s over k_pool %s "
             "and v_pool %s; the kernels take float32 q over float32 pools "
             "and bfloat16 q over bfloat16 or float32 pools (float16 is "
-            "ROADMAP Queue 2 item 13)" % (q.dtype, k_pool.dtype,
+            "ROADMAP Queue 2 item 16)" % (q.dtype, k_pool.dtype,
                                           v_pool.dtype))
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.device != q.device:

@@ -93,7 +93,9 @@ def _check_cuda(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
                  b3=b3)
     if x.dtype not in _DTYPES:
         raise TypeError("fused_bottleneck: the CUDA kernel takes float32 or "
-                        "bfloat16 x, got %s" % x.dtype)
+                        "bfloat16 x, got %s%s" % (
+                            x.dtype, " (the float16 route is ROADMAP Queue 2 "
+                            "item 19)" if x.dtype == torch.float16 else ""))
     for name, t in [("x", x)] + list(named.items()):
         if t.device != x.device:
             raise ValueError("fused_bottleneck: %s on %s, x on %s"

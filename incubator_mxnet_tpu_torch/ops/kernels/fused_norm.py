@@ -8,21 +8,24 @@ they are plain PyTorch, written as they are, in ``torch.autograd.Function``s
 around the forward kernels.
 
 A wrapper takes the plain version for a tensor on the CPU, and only then.
-For a CUDA tensor it launches its kernel or raises: float32 or bfloat16
-(x, gamma and beta of one dtype, as the JAX package's compute_dtype cast
-leaves them), contiguous, any row count; float16 raises TypeError. Each
-dtype has its own kernel and its own launch count: ``layer_norm`` and
-``softmax`` count the fp32 kernels and route a bf16 tensor to
-``layer_norm_bf16`` / ``softmax_bf16``, which count the bf16 ones. A bf16
-CUDA tensor launches the bf16 kernel or raises: there is no fallback and no
-cast to fp32. Inputs that need no gradient skip the autograd Function.
+For a CUDA tensor it launches its kernel or raises: float32, bfloat16 or
+float16 (x, gamma and beta of one dtype, as the JAX package's
+compute_dtype cast leaves them), contiguous, any row count. Each dtype has
+its own kernel and its own launch count: ``layer_norm`` and ``softmax``
+count the fp32 kernels and route a bf16 tensor to ``layer_norm_bf16`` /
+``softmax_bf16`` and an fp16 one to ``layer_norm_f16`` / ``softmax_f16``,
+which count theirs. A 16-bit CUDA tensor launches its kernel or raises:
+there is no fallback and no cast to fp32. The 16-bit kernels compute in
+fp32 and round the output once; in fp16 a value past 65504 rounds to inf
+and a small one to a subnormal, as jnp's ``astype`` gives them. Inputs
+that need no gradient skip the autograd Function.
 
 ``_route`` picks the LayerNorm kernel's route from the row length, the
 element size and the four tensors' addresses: ``"warp"`` (a warp a row,
 16-byte accesses) for C <= 1024 with C a multiple of a 16-byte vector (4
-floats, 8 bf16) and 16-byte aligned bases, ``"warp_scalar"`` for the other
-rows of up to 1024, ``"long"`` (a block a row) above 1024. The C entry
-refuses a route whose conditions fail.
+floats, 8 bf16 or fp16) and 16-byte aligned bases, ``"warp_scalar"`` for
+the other rows of up to 1024, ``"long"`` (a block a row) above 1024. The C
+entry refuses a route whose conditions fail.
 """
 
 import torch
@@ -31,7 +34,8 @@ from ...telemetry import costs as _costs
 from . import _build
 
 __all__ = ["layer_norm", "softmax", "layer_norm_bf16", "softmax_bf16",
-           "layer_norm_reference", "softmax_reference", "ROUTES"]
+           "layer_norm_f16", "softmax_f16", "layer_norm_reference",
+           "softmax_reference", "ROUTES"]
 
 _INT_MAX = 2 ** 31 - 1
 
@@ -73,8 +77,8 @@ def softmax_reference(x):
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
-#: the dtypes with a CUDA kernel; float16 is ROADMAP Queue 2 item 13
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the dtypes with a CUDA kernel
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check_cuda(what, *tensors):
@@ -83,9 +87,8 @@ def _check_cuda(what, *tensors):
         if t.device != dev:
             raise ValueError("%s: tensors on %s and %s" % (what, dev, t.device))
         if t.dtype not in _KERNEL_DTYPES:
-            raise TypeError("%s: the CUDA kernels take float32 or bfloat16, "
-                            "got %s (float16 is ROADMAP Queue 2 item 13)"
-                            % (what, t.dtype))
+            raise TypeError("%s: the CUDA kernels take float32, bfloat16 "
+                            "or float16, got %s" % (what, t.dtype))
         if t.dtype != dt:
             raise TypeError("%s: tensors of %s and %s; the kernel takes one "
                             "dtype" % (what, dt, t.dtype))
@@ -127,18 +130,39 @@ def _layer_norm_launch(what, entry, wrapper, x, gamma, beta, eps):
     return out
 
 
+def _half_launch(launch, wrapper, dtype, x, *args):
+    """A 16-bit kernel's wrapper: CUDA tensors of ``dtype`` only; the C
+    entry is ``mxtpu_`` and the wrapper's name."""
+    what = wrapper.__name__
+    if x.device.type != "cuda" or x.dtype != dtype:
+        raise TypeError("%s: takes %s CUDA tensors, got %s on %s"
+                        % (what, str(dtype)[6:], x.dtype, x.device))
+    return launch(what, "mxtpu_" + what, wrapper, x, *args)
+
+
 def layer_norm_bf16(x, gamma, beta, eps=1e-5):
     """The bf16 LayerNorm kernel on CUDA tensors: x, gamma and beta all
     bfloat16, contiguous; fp32 arithmetic, the output rounded to bf16 once.
     Returns y (bf16). Not differentiable by itself: ``layer_norm`` is."""
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise TypeError("layer_norm_bf16: takes bfloat16 CUDA tensors, got "
-                        "%s on %s" % (x.dtype, x.device))
-    return _layer_norm_launch("layer_norm_bf16", "mxtpu_layer_norm_bf16",
-                              layer_norm_bf16, x, gamma, beta, eps)
+    return _half_launch(_layer_norm_launch, layer_norm_bf16, torch.bfloat16,
+                        x, gamma, beta, eps)
 
 
 layer_norm_bf16.launches = 0
+
+
+def layer_norm_f16(x, gamma, beta, eps=1e-5):
+    """The fp16 LayerNorm kernel on CUDA tensors: x, gamma and beta all
+    float16, contiguous; fp32 arithmetic, the output rounded to fp16 once
+    (inf past 65504). Returns y (fp16). Not differentiable by itself:
+    ``layer_norm`` is."""
+    return _half_launch(_layer_norm_launch, layer_norm_f16, torch.float16,
+                        x, gamma, beta, eps)
+
+
+layer_norm_f16.launches = 0
+#: the 16-bit LayerNorm kernels by input dtype
+_HALF_LN = {torch.bfloat16: layer_norm_bf16, torch.float16: layer_norm_f16}
 
 
 def _layer_norm_forward(x, gamma, beta, eps):
@@ -146,8 +170,8 @@ def _layer_norm_forward(x, gamma, beta, eps):
         return layer_norm_reference(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError("layer_norm: unsupported device %s" % x.device)
-    if x.dtype == torch.bfloat16:
-        return layer_norm_bf16(x, gamma, beta, eps)
+    if x.dtype in _HALF_LN:
+        return _HALF_LN[x.dtype](x, gamma, beta, eps)
     return _layer_norm_launch("layer_norm", "mxtpu_layer_norm_f32",
                               layer_norm, x, gamma, beta, eps)
 
@@ -218,14 +242,22 @@ def softmax_bf16(x):
     """The bf16 softmax kernel on a contiguous bfloat16 CUDA tensor: fp32
     arithmetic, the output rounded to bf16 once. Not differentiable by
     itself: ``softmax`` is."""
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise TypeError("softmax_bf16: takes a bfloat16 CUDA tensor, got %s "
-                        "on %s" % (x.dtype, x.device))
-    return _softmax_launch("softmax_bf16", "mxtpu_softmax_bf16",
-                           softmax_bf16, x)
+    return _half_launch(_softmax_launch, softmax_bf16, torch.bfloat16, x)
 
 
 softmax_bf16.launches = 0
+
+
+def softmax_f16(x):
+    """The fp16 softmax kernel on a contiguous float16 CUDA tensor: fp32
+    arithmetic, the output rounded to fp16 once (a probability below 2**-14
+    a subnormal). Not differentiable by itself: ``softmax`` is."""
+    return _half_launch(_softmax_launch, softmax_f16, torch.float16, x)
+
+
+softmax_f16.launches = 0
+#: the 16-bit softmax kernels by input dtype
+_HALF_SOFTMAX = {torch.bfloat16: softmax_bf16, torch.float16: softmax_f16}
 
 
 def _softmax_forward(x):
@@ -233,8 +265,8 @@ def _softmax_forward(x):
         return softmax_reference(x)
     if x.device.type != "cuda":
         raise ValueError("softmax: unsupported device %s" % x.device)
-    if x.dtype == torch.bfloat16:
-        return softmax_bf16(x)
+    if x.dtype in _HALF_SOFTMAX:
+        return _HALF_SOFTMAX[x.dtype](x)
     return _softmax_launch("softmax", "mxtpu_softmax_f32", softmax, x)
 
 

@@ -250,6 +250,8 @@ multi_trainer_sgd_mom.launches = 0
 # ---------------------------------------------------------------------------
 
 _FLAT_DTYPES = (torch.float32, torch.bfloat16)
+#: where the flat kernels' fp16 flavour is queued
+_FP16_ITEM = " (the float16 flavour is ROADMAP Queue 2 item 18)"
 
 
 def _group(what, groups):
@@ -283,7 +285,8 @@ def _launch(what, groups, entries, scalars, clip):
     dtype = groups[0][1][0].dtype
     if dtype not in _FLAT_DTYPES:
         raise TypeError("%s: the CUDA kernel takes float32 or bfloat16, "
-                        "got %s" % (what, dtype))
+                        "got %s%s" % (what, dtype, _FP16_ITEM
+                                      if dtype == torch.float16 else ""))
     launch = _table(what, groups, dtype)
     if launch is None:
         return

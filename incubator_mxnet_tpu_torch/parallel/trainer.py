@@ -21,15 +21,20 @@ the parameters, as do parameters that take no gradient (gluon's
 
 Mixed precision follows the JAX trainer:
 
-- ``compute_dtype="bfloat16"``: the step runs the block on bf16 casts of
-  the fp32 parameters and auxiliary state and on bf16 copies of the
-  floating data, as the JAX trainer casts them inside the differentiated
-  function. Each tensor is cast once, so a tied weight stays one tensor and
-  its gradient is summed once; the gradients land on the fp32 masters
-  through the cast, and the update (the fused launch) is the fp32 one.
-  Running statistics written during the step go back to the fp32 aux.
+- ``compute_dtype="bfloat16"`` or ``"float16"``: the step runs the block on
+  casts of the fp32 parameters and auxiliary state to that dtype and on
+  copies of the floating data in it, as the JAX trainer casts them inside
+  the differentiated function. Each tensor is cast once, so a tied weight
+  stays one tensor and its gradient is summed once; the gradients land on
+  the fp32 masters through the cast, and the update (the fused launch) is
+  the fp32 one. Running statistics written during the step go back to the
+  fp32 aux. fp16 has three fewer exponent bits than bf16, so its
+  gradients want dynamic loss scaling: ``step_guarded`` with
+  ``resilience``'s ``NumericGuard`` scale (``GuardedTrainer``), as in the
+  JAX package; the plain ``step`` runs unscaled there too.
 - ``param_dtype="bfloat16"``: the differentiable parameters are stored in
-  bf16 (aux stays fp32) and the step computes in bf16. The update lifts each
+  bf16 (aux stays fp32) and the step computes in bf16; any other dtype
+  raises the JAX trainer's ValueError. The update lifts each
   parameter and gradient to fp32, runs the per-parameter rules there and
   writes back with stochastic rounding (``_stochastic_round``), its noise
   from a ``torch.Generator`` on the trainer's device seeded from the step's
@@ -47,8 +52,8 @@ learns the verdict from one 3-float read. ``device_snapshot`` and
 ring's primitive).
 
 What this slice does not carry raises NotImplementedError naming its
-ROADMAP item: fp16 compute or parameters, ZeRO-1, gradient accumulation,
-sharding rules and meshes over more than one device.
+ROADMAP item: ZeRO-1, gradient accumulation, sharding rules and meshes over
+more than one device.
 """
 
 import contextlib
@@ -141,10 +146,6 @@ class ShardedTrainer:
                            "Queue 1 item 12")
         cdt = _dtype("compute_dtype", compute_dtype)
         pdt = _dtype("param_dtype", param_dtype)
-        if torch.float16 in (cdt, pdt):
-            raise _not_yet("float16 %s" % ("compute" if cdt == torch.float16
-                                           else "parameters"),
-                           "Queue 2 item 13, the fp16 flavours")
         if pdt is not None and pdt != torch.bfloat16:
             raise ValueError("param_dtype supports bfloat16 only")
         if pdt is not None and cdt is None:

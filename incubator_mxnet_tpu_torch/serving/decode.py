@@ -14,8 +14,11 @@ inactive rows compute values that are never observed) and ``active (slots,)
 bool``; logits come back as a (slots, V) array. Without a ``prefill_fn`` a
 prompt is fed one token per step through the same path; with one (the
 gpt_decoder family) the prompt prefix is committed in chunked forwards at
-admission and the grid only feeds the last prompt token. Sampling is greedy
-argmax.
+admission and the grid only feeds the last prompt token. Those prefills run
+on the loop's thread without the loop's lock: the slot is reserved under
+the lock, prefilled, then published (the JAX package prefills under its
+lock, so a ``submit``, ``stats`` or ``drain`` waits for a whole admission
+pass there). Sampling is greedy argmax.
 
 Deadline shed: at join the loop estimates ``steps * EWMA(step seconds)``;
 mid-generation an expired deadline retires the slot (stage "decode") unless
@@ -142,6 +145,7 @@ class DecodeLoop:
         self._stopping = False
         self._draining = False
         self._in_step = False           # a step_fn call is running now
+        self._admitting = {}            # slot -> _Seq reserved, prefilling
         self._steps = 0
         self._prefills = 0
         self._tokens = {"prefill": 0, "decode": 0}
@@ -203,6 +207,10 @@ class DecodeLoop:
                                           % self.name))
                 self._cache.free(slot)
             self._active.clear()
+            # a slot still prefilling is the loop thread's to free
+            for seq in self._admitting.values():
+                seq.req.fail(RuntimeError("decode loop %r stopped"
+                                          % self.name))
 
     # ------------------------------------------------------ drain/re-admit
     @property
@@ -216,21 +224,26 @@ class DecodeLoop:
         their slots freed on the loop's next retire pass. True when the grid
         is empty and no step is in flight.
 
-        The window starts once the drain holds the loop's lock: an admission
-        pass runs its prompts' chunked prefills under that lock (hundreds of
-        ms for a few long prompts), and a deadline taken before it would
-        leave the active sequences and the in-flight step none of their
-        window (the JAX package's drain takes it before). So `timeout`
-        bounds the windows, not the call: a drain that arrives during an
-        admission pass first waits for that pass's prefills, and its wall
-        time is at most that pass plus twice `timeout`."""
+        An admission pass reserves its slots under the loop's lock and runs
+        their prompts' chunked prefills outside it, on the loop's thread
+        (hundreds of ms for a few long prompts); the reserved slots count as
+        in flight. The window starts once that pass is over: a deadline
+        taken before it would leave the sessions being admitted none of
+        their window (the JAX package's drain takes its deadline before it
+        can take the lock, which its admission pass holds through the
+        prefills). So `timeout` bounds the windows, not the call: a drain
+        that arrives during an admission pass first waits for that pass's
+        prefills, and its wall time is at most that pass plus twice
+        `timeout`."""
         with self._cond:
-            deadline = time.monotonic() + float(timeout)
             self._draining = True
             while self._pending:
                 self._shed(self._pending.popleft(), "draining",
                            "drained before admission; retry")
             self._cond.notify_all()
+            while self._admitting:
+                self._cond.wait(0.05)
+            deadline = time.monotonic() + float(timeout)
             while self._active or self._in_step:
                 left = deadline - time.monotonic()
                 if left <= 0:
@@ -285,10 +298,14 @@ class DecodeLoop:
         return req.prompt.size + req.max_new_tokens
 
     def _admit_locked(self):
-        """Join point: fill free slots from the FIFO between steps, running
-        the family's chunked prefill of the prompt prefix on admission."""
+        """Join point, under the loop's lock: fill free slots from the FIFO
+        between steps. A request whose prompt prefix needs the family's
+        chunked prefill has its slot reserved (in flight for a drain) and
+        is returned, [(slot, seq, t_adm)], for ``_prefill_reserved`` to run
+        without the lock; any other joins the grid at once."""
+        reserved = []
         if self._draining:
-            return
+            return reserved
         now = time.monotonic()
         est = self._ewma_step or 0.0
         while self._pending and self._cache.in_use < self._cache.slots:
@@ -304,7 +321,7 @@ class DecodeLoop:
                 continue
             slot = self._cache.alloc()
             if slot is None:
-                return
+                break
             self._pending.popleft()
             seq = _Seq(req)
             _cat.serving_queue_seconds.observe(
@@ -319,23 +336,44 @@ class DecodeLoop:
                     t0=t_adm - (time.monotonic() - req.arrival), t1=t_adm,
                     sampled=True, model=self.name, request_id=req.id)
             if self._prefill_fn is not None and req.prompt.size > 1:
-                t0 = time.perf_counter()
-                try:
-                    self._prefill_fn(slot, req.prompt[:-1], self._cache)
-                except Exception as e:  # noqa: BLE001 - a broken prefill
-                    # fails this request, not the serving loop
-                    if _is_capacity_error(e):
-                        self._shed(req, "capacity", str(e))
-                    elif req.fail(e):
-                        self._retired["error"] += 1
-                        _cat.serving_requests.inc(model=self.name,
-                                                  status="error")
-                    self._cache.free(slot)
-                    continue
-                dt = time.perf_counter() - t0
-                seq.fed = req.prompt.size - 1
-                self._prefills += 1
-                self._tokens["prefill"] += req.prompt.size - 1
+                self._admitting[slot] = seq
+                reserved.append((slot, seq, t_adm))
+            else:
+                self._join_locked(slot, seq, t_adm)
+        _cat.serving_decode_slots.set(len(self._active), model=self.name)
+        return reserved
+
+    def _join_locked(self, slot, seq, t_adm):
+        """The sequence enters the step grid at ``slot``."""
+        req = seq.req
+        if req.trace:
+            # join span: slot grant -> active in the step grid (the
+            # chunked prefill, when it ran, sits inside this window)
+            _tr.record_span(
+                "serve.join", req.trace[0], parent_id=req.trace[1],
+                t0=t_adm, t1=time.time(), sampled=True,
+                model=self.name, request_id=req.id, slot=slot)
+        self._active[slot] = seq
+
+    def _prefill_reserved(self, reserved):
+        """The reserved slots' chunked prefills of their prompt prefixes,
+        on the loop's thread (so never beside a grid step on the same
+        cache) and without the loop's lock, so that ``submit``, ``stats``
+        and ``drain`` are not held up by them. Each sequence is then
+        published to the grid under the lock, or failed, or shed; one that
+        was cancelled, fenced by a drain or stopped meanwhile gives its
+        slot back."""
+        for slot, seq, t_adm in reserved:
+            req = seq.req
+            error = None
+            t0 = time.perf_counter()
+            try:
+                self._prefill_fn(slot, req.prompt[:-1], self._cache)
+            except Exception as e:  # noqa: BLE001 - a broken prefill
+                # fails this request, not the serving loop
+                error = e
+            dt = time.perf_counter() - t0
+            if error is None:
                 _cat.gen_prefill_seconds.observe(
                     dt, model=self.name,
                     exemplar=req.trace[0] if req.trace else None)
@@ -351,15 +389,28 @@ class DecodeLoop:
                         sampled=True, model=self.name, request_id=req.id,
                         prefill_tokens=int(req.prompt.size - 1),
                         chunk=self._prefill_chunk, slot=slot)
-            if req.trace:
-                # join span: slot grant -> active in the step grid (the
-                # chunked prefill, when it ran, sits inside this window)
-                _tr.record_span(
-                    "serve.join", req.trace[0], parent_id=req.trace[1],
-                    t0=t_adm, t1=time.time(), sampled=True,
-                    model=self.name, request_id=req.id, slot=slot)
-            self._active[slot] = seq
-        _cat.serving_decode_slots.set(len(self._active), model=self.name)
+            with self._cond:
+                del self._admitting[slot]
+                if error is not None:
+                    if _is_capacity_error(error):
+                        self._shed(req, "capacity", str(error))
+                    elif req.fail(error):
+                        self._retired["error"] += 1
+                        _cat.serving_requests.inc(model=self.name,
+                                                  status="error")
+                    self._cache.free(slot)
+                elif req.done or self._stopping:
+                    req.fail(RuntimeError("decode loop %r stopped"
+                                          % self.name))
+                    self._cache.free(slot)
+                else:
+                    seq.fed = req.prompt.size - 1
+                    self._prefills += 1
+                    self._tokens["prefill"] += req.prompt.size - 1
+                    self._join_locked(slot, seq, t_adm)
+                _cat.serving_decode_slots.set(len(self._active),
+                                              model=self.name)
+                self._cond.notify_all()     # wake a waiting drain()
 
     def _run(self):
         slots = self._cache.slots
@@ -370,10 +421,13 @@ class DecodeLoop:
                     self._cond.wait(0.1)
                 if self._stopping:
                     return
-                self._admit_locked()
-                active = dict(self._active)
+                reserved = self._admit_locked()
+                active = {} if reserved else dict(self._active)
                 if active:
                     self._in_step = True
+            if reserved:
+                self._prefill_reserved(reserved)
+                continue
             if not active:
                 continue
             tokens = np.full(slots, self._pad, np.int32)

@@ -43,10 +43,14 @@ __all__ = ["capture_enabled", "count", "run_counted", "capture",
            "captured", "observe", "mfu", "peak_flops", "peak_bytes",
            "reset", "flash_forward_cost", "flash_decode_cost",
            "int8_matmul_cost", "rows_cost", "H100_FP32_TFLOPS",
-           "H100_HBM_GBS"]
+           "H100_HALF_TFLOPS", "H100_HBM_GBS"]
 
 #: NVIDIA H100 SXM, dense fp32 on the CUDA cores (data sheet)
 H100_FP32_TFLOPS = 67.0
+#: NVIDIA H100 SXM, dense bf16 and fp16 on the tensor cores (data sheet):
+#: the rate that bounds the 16-bit kernels' operations (their bytes count
+#: 2-byte elements in the formulas below)
+H100_HALF_TFLOPS = 989.0
 #: NVIDIA H100 SXM HBM3 bandwidth (data sheet)
 H100_HBM_GBS = 3350.0
 
@@ -82,15 +86,17 @@ def peak_bytes():
 # -- the hand kernels' work, by formula ------------------------------------
 def rows_cost(rows, C, params=0, elem_bytes=4):
     """(flops, bytes) of a row-wise normalisation (LayerNorm, softmax):
-    each row read and written once, ``params`` per-column vectors read;
-    no products."""
+    each row read and written once, ``params`` per-column vectors read
+    (``elem_bytes`` an element: 2 for the bf16 and fp16 kernels); no
+    products."""
     return 0.0, float((2 * rows * C + params * C) * elem_bytes)
 
 
 def flash_forward_cost(H, T, D, lengths, elem_bytes=4):
     """(bytes, live_flops, dense_flops) of the flash forward over B = len(
     lengths) samples whose keys past lengths[b] are masked: q, k, v read
-    and out written once (``elem_bytes`` an element), lse written, and the
+    and out written once (``elem_bytes`` an element: 2 for bf16 and
+    fp16), lse written, and the
     fp32 bias read where any key is masked; QK^T and PV over the live keys,
     and over every key."""
     B = len(lengths)

@@ -11,6 +11,7 @@ breakdown.
 """
 
 import json
+import math
 import pathlib
 import re
 import sys
@@ -620,6 +621,29 @@ def test_kernel_class_gives_the_bf16_flavours_classes_of_their_own(name,
     assert chip_smoke._kernel_class(name) == cls
 
 
+@pytest.mark.parametrize("name,cls", [
+    ("void (anonymous namespace)::ln_warp_kernel<__half, 8, 3>(__half "
+     "const*)", "layer_norm_f16"),
+    ("void (anonymous namespace)::softmax_warp_kernel<__half, 4>(__half "
+     "const*)", "softmax_f16"),
+    ("void (anonymous namespace)::flash_fwd_b16_kernel<__half, 64>(__half "
+     "const*)", "flash_attention_fwd_f16"),
+    ("void (anonymous namespace)::flash_bwd_dq_b16_kernel<__half, 64>("
+     "__half const*)", "flash_attention_bwd_dq_f16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_b16_kernel<__half, 64, "
+     "false>(__half const*)", "flash_attention_bwd_dkv_f16"),
+    ("void (anonymous namespace)::flash_fwd_b16_kernel<__nv_bfloat16, 64>("
+     "__nv_bfloat16 const*)", "flash_attention_fwd_bf16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_b16_kernel<__nv_bfloat16, "
+     "64, true>(__nv_bfloat16 const*)", "flash_attention_bwd_dkv_bf16")])
+def test_kernel_class_gives_the_fp16_flavours_classes_of_their_own(name,
+                                                                   cls):
+    """The 16-bit flash kernels are one template over the element type:
+    the profiler's demangled name carries the type, which picks the
+    class."""
+    assert chip_smoke._kernel_class(name) == cls
+
+
 @pytest.fixture
 def one_torch_thread():
     """Tiny shapes: one intra-op thread, restored after the test (several
@@ -649,9 +673,9 @@ def test_bf16_kernel_rows_on_the_cpu(monkeypatch, one_torch_thread):
     monkeypatch.setattr(chip_smoke, "cold_copies",
                         lambda torch_, inputs, nbytes: [inputs])
     cpu = torch.device("cpu")
-    rows = chip_smoke.bf16_norm_rows(torch, cpu, _randn_cpu(1), R=16, C=64,
+    rows = chip_smoke.half_norm_rows(torch, cpu, _randn_cpu(1), R=16, C=64,
                                      softmax_shape=(2, 2, 16))
-    rows += chip_smoke.bf16_flash_rows(torch, cpu, _randn_cpu(2), B=2, H=2,
+    rows += chip_smoke.half_flash_rows(torch, cpu, _randn_cpu(2), B=2, H=2,
                                        T=100, D=32, lengths=(100, 0))
     assert [r["name"] for r in rows] == [
         "layer_norm_bf16", "softmax_bf16"] + [
@@ -675,6 +699,49 @@ def test_bf16_kernel_rows_on_the_cpu(monkeypatch, one_torch_thread):
         ops / chip_smoke.BF16_FLOPS_PER_S) * 1e3)
     assert fwd_ragged["live_key_share"] == 0.5
     assert rows[3]["pair_library_backend"] == "flash"
+
+
+def test_fp16_kernel_rows_on_the_cpu(monkeypatch, one_torch_thread):
+    """The fp16 rows' drive at small shapes on the CPU (the plain versions,
+    fake clocks): the bf16 rows' five kernels under their fp16 names, each
+    marked float16, its bytes at 2 bytes an element and its operations at
+    the fp16 rate; LN, softmax and the forward held element by element
+    under fp16's rules (2**-10 of each element's own value plus floors
+    a step apart from bf16's), the gradients to FP16_REL_TOL of their
+    largest magnitude, and an inf planted in dO non-finite in every
+    gradient (dense and ragged)."""
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (1.0,
+                                                              "profiler"))
+    monkeypatch.setattr(chip_smoke, "device_kernel_names",
+                        lambda torch_, fn, inputs: ["flash_fwd_kernel"])
+    monkeypatch.setattr(chip_smoke, "cold_copies",
+                        lambda torch_, inputs, nbytes: [inputs])
+    cpu = torch.device("cpu")
+    rows = chip_smoke.half_norm_rows(torch, cpu, _randn_cpu(1), "float16",
+                                     R=16, C=64, softmax_shape=(2, 2, 16))
+    rows += chip_smoke.half_flash_rows(torch, cpu, _randn_cpu(2), "float16",
+                                       B=2, H=2, T=100, D=32,
+                                       lengths=(100, 0))
+    assert [r["name"] for r in rows] == [
+        "layer_norm_f16", "softmax_f16"] + [
+        "flash_attention_fwd_f16", "flash_attention_bwd_dq_f16",
+        "flash_attention_bwd_dkv_f16"] * 2
+    for r in rows:
+        assert r["dtype"] == "float16" and r["max_abs_err"] == 0.0
+        if r["name"].startswith("flash_attention_bwd"):
+            assert r["pair_dO_inf_nonfinite"] == [True, True, True]
+            assert r["tolerance"] > 0
+        else:
+            assert r["tolerance"] is None and r["tolerance_share"] == 0.0
+            assert "2**-10 of its own value" in r["tolerance_rule"]
+    assert chip_smoke.FP16_LN_FLOOR == 2.0 ** -19
+    assert chip_smoke.FP16_SOFTMAX_FLOOR == 1e-6 / 8
+    nbytes = (4 * 2 * 2 * 100 * 32 * 2 + 2 * 2 * 100 * 4)
+    ops = 4 * 2 * 2 * 100 * 100 * 32
+    assert rows[2]["bound_ms"] == pytest.approx(max(
+        nbytes / chip_smoke.HBM_BYTES_PER_S,
+        ops / chip_smoke.FP16_FLOPS_PER_S) * 1e3)
 
 
 def test_bf16_each_holds_every_element_to_its_own_limit():
@@ -764,6 +831,68 @@ def test_train_bf16_phase_checks_each_path_on_the_cpu(capsys,
     (timing,) = lines["train_bf16_timing"]
     assert sorted(timing) == ["bert_T128_B4", "bert_T512_B2", "card",
                               "resnet_B4"]
+
+
+def test_train_fp16_phase_checks_each_path_on_the_cpu(capsys,
+                                                      one_torch_thread):
+    """The train_fp16 drive on the CPU at a tiny size (launch counts and
+    times only on the card): step 1 of a 2-layer model against itself on
+    the CPU, the full model's plain step 1 against its own fp32 step 1, the
+    measured GuardedTrainer steps at the default guard with their scales
+    and verdicts, and the forced overflow from 2**40 (each skipped step
+    leaves every tensor bitwise, the scale halves until a step is finite);
+    each shape on a line of its own, the timing line last, its bf16 and
+    fp32 columns from the lines it is given."""
+    cpu = torch.device("cpu")
+    cfg = dict(vocab_size=300, units=64, hidden_size=128, num_layers=2,
+               num_heads=2, max_length=512)
+    bf16 = {(128, 4): dict(step_ms_median=7.0, tokens_per_s=1.0,
+                           launches={})}
+    by_path = chip_smoke.train_fp16_phase(
+        torch, cpu, cfg, shapes=((128, 4), (512, 2)), steps=2, bf16=bf16)
+    assert sorted(by_path) == ["train_fp16"]
+    lines = {}
+    for line in capsys.readouterr().out.splitlines():
+        phase, _, body = line.partition(": ")
+        lines.setdefault(phase, []).append(json.loads(body))
+    short, flash = lines["train_fp16"]
+    assert (short["flash"], flash["flash"]) == (False, True)
+    for line in (short, flash):
+        assert line["step1"]["layers"] == chip_smoke.BF16_CHECK_LAYERS
+        assert line["step1"]["loss"] == line["step1"]["cpu_loss"]
+        assert abs(line["loss_step1_diff"]) <= chip_smoke.FP16_VS_FP32_LOSS
+        assert line["scales"] == [[2.0 ** 16] * 2] * 2
+        assert line["skipped"] == [False, False]
+        assert line["replayed_scales"] == [2.0 ** 16] * 2
+        over = line["forced_overflow"]
+        assert over["state_bitwise"] and over["skipped"] >= 10
+        assert over["scales"][0] == chip_smoke.FP16_OVERFLOW_SCALE
+        assert over["scales"][-1] == over["finite_scale"]
+        assert all(math.isfinite(x) for x in over["losses_after"])
+        assert line["launches_against_bf16"] is None     # only on the card
+    (timing,) = lines["train_fp16_timing"]
+    assert timing["bert_T128_B4"]["bf16_step_ms_median"] == 7.0
+    assert timing["bert_T512_B2"]["bf16_step_ms_median"] is None
+
+
+def test_train_fp16_phase_fails_on_a_guard_that_cannot_back_off(
+        monkeypatch, one_torch_thread):
+    """A forced overflow that cannot reach a finite step within its budget
+    of skipped steps, and a step 1 that parts from fp32's, each fail the
+    phase."""
+    cpu = torch.device("cpu")
+    cfg = dict(vocab_size=300, units=64, hidden_size=128, num_layers=1,
+               num_heads=2, max_length=128)
+    monkeypatch.setattr(chip_smoke, "FP16_OVERFLOW_MAX_STEPS", 3)
+    with pytest.raises(AssertionError, match="forced overflow: 4 skipped "
+                       ".*a finite step not reached"):
+        chip_smoke.train_fp16_phase(torch, cpu, cfg, shapes=((128, 2),),
+                                    steps=1)
+    monkeypatch.setattr(chip_smoke, "FP16_OVERFLOW_MAX_STEPS", 40)
+    with pytest.raises(AssertionError, match="fp16 step 1 loss"):
+        chip_smoke.train_fp16_phase(
+            torch, cpu, cfg, shapes=((128, 2),), steps=1,
+            fp32={(128, 2): dict(loss_step1=1.0)})
 
 
 # ----------------------------------------------------------- generate_bf16

@@ -409,6 +409,43 @@ def test_decode_drain_window_starts_once_it_holds_the_loop(pkg):
         loop.stop()
 
 
+def test_decode_prefill_runs_outside_the_loop_lock():
+    """While an admission pass prefills a prompt (1 s here), a ``submit``
+    and a ``stats`` return within tens of ms: the slot is reserved under
+    the loop's lock and prefilled outside it, on the loop's thread. The
+    reference prefills under its lock, so both wait for the pass there
+    (ROADMAP, reference faults); this holds the port only. A drain sent
+    meanwhile sees the reserved slot in flight and waits for the session."""
+    started = threading.Event()
+
+    def slow_prefill(slot, tokens, cache):
+        started.set()
+        time.sleep(1.0)
+
+    loop = DecodeLoop("lm", _counting_step(delay=0.01), _toy_cache(),
+                      pad_token=0, prefill_fn=slow_prefill, prefill_chunk=8)
+    loop.start()
+    try:
+        first = loop.submit(DecodeRequest("lm", [1, 2, 3], max_new_tokens=4))
+        assert started.wait(5.0)
+        t0 = time.monotonic()
+        second = loop.submit(DecodeRequest("lm", [7], max_new_tokens=2))
+        st = loop.stats()
+        waited = time.monotonic() - t0
+        assert waited < 0.05, waited
+        assert st["active"] == 0 and st["prefills"] == 0
+        assert loop.drain(timeout=2.0) is True
+        assert time.monotonic() - t0 >= 0.9       # the prefill, then steps
+        np.testing.assert_array_equal(first.wait(5.0)["tokens"],
+                                      [4, 5, 6, 7])
+        # queued behind the reserved slot when the drain came: shed, retriable
+        with pytest.raises(serving.ShedError, match="draining"):
+            second.wait(5.0)
+        assert loop.stats()["prefills"] == 1
+    finally:
+        loop.stop()
+
+
 def test_decode_drain_waits_for_natural_finish():
     loop = DecodeLoop("lm", _counting_step(delay=0.01), _toy_cache(),
                       pad_token=0)

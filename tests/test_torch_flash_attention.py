@@ -250,62 +250,87 @@ def test_3xtf32_tiles_stay_within_2e5_of_float64_and_match_pallas(causal):
     assert (tf32_out.double() - exact[:2 * H]).abs().max().item() > 2e-5
 
 
-# ------------------------------------------------------------------- bf16
-# The JAX package's kernels take the input dtype: on bf16 q, k, v the
-# forward feeds both products in bf16 with fp32 sums and rounds p to bf16
-# before P V (flash_attention.py:88-90), O in bf16, the lse fp32. The port's
-# plain version rounds at the same point; the sums differ only in order, so
-# nearly every element is bitwise equal. Before the plain version rounded p
-# (it kept p in fp32 for P V), far fewer were: the share of bitwise-equal
-# elements is what this test holds (at least 99 %), beside every element
-# within 2**-8 of the output's largest magnitude and the lse within 1e-5.
+# ------------------------------------------------------------- bf16, fp16
+# The JAX package's kernels take the input dtype: on bf16 or fp16 q, k, v
+# the forward feeds both products in that dtype with fp32 sums and rounds p
+# to it before P V (flash_attention.py:88-90), O in the input dtype, the lse
+# fp32. The port's plain version rounds at the same point; the sums differ
+# only in order, so nearly every element is bitwise equal. Before the plain
+# version rounded p (it kept p in fp32 for P V), far fewer were: the share
+# of bitwise-equal elements is what this test holds (at least 99 %), beside
+# every element within twice the dtype's half step (2**-8 in bf16, 2**-11 in
+# fp16) of the output's largest magnitude and the lse within 1e-5.
 BF16_CASES = {"ragged": dict(lengths=[None, 77]),
               "dead_row": dict(lengths=[-5, 0]),
               "causal": dict(lengths=[None, None], causal=True)}
+#: dtype name -> (torch dtype, jnp dtype, the tolerance's share of the max)
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16, 2.0 ** -8),
+        "float16": (torch.float16, jnp.float16, 2.0 ** -11)}
 
 
-def bf16_case(B, H, T, D, case, seed):
-    """(q, k, v, g as float32 numpy rounded to bf16, the (B, T) int32 mask,
-    causal): the lengths of BF16_CASES, None for T and -n for T - n."""
+def half_case(B, H, T, D, case, seed, dtype=torch.bfloat16):
+    """(q, k, v, g as float32 numpy rounded to ``dtype``, the (B, T) int32
+    mask, causal): the lengths of BF16_CASES, None for T and -n for T -
+    n."""
     opts = BF16_CASES[case]
     rs = np.random.RandomState(seed)
     arrs = [torch.from_numpy(rs.randn(B, H, T, D).astype(np.float32))
-            .to(torch.bfloat16).float().numpy() for _ in range(4)]
+            .to(dtype).float().numpy() for _ in range(4)]
     lens = [T if n is None else (T + n if n < 0 else n)
             for n in opts["lengths"]]
     return arrs, _mask(B, T, lens), opts.get("causal", False)
 
 
-def bf16_agreement(got, want):
+def half_agreement(got, want):
     """(max |got - want| / max |want|, share of bitwise-equal elements)."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     return (float(np.abs(got - want).max() / np.abs(want).max()),
             float((got == want).mean()))
 
 
+@pytest.mark.parametrize("dtype", sorted(HALF))
 @pytest.mark.parametrize("T", [128, 256])
 @pytest.mark.parametrize("case", sorted(BF16_CASES))
-def test_bf16_forward_rounds_p_as_the_pallas_kernel_does(T, case):
+def test_half_forward_rounds_p_as_the_pallas_kernel_does(T, case, dtype):
+    tdt, jdt, rel = HALF[dtype]
     B, H, D = 2, 2, 64
-    (q, k, v, _g), mask, causal = bf16_case(B, H, T, D, case, T)
+    (q, k, v, _g), mask, causal = half_case(B, H, T, D, case, T, tdt)
     bias = np.where(mask == 0, -1e30, 0.0).astype(np.float32)
     bias3 = np.repeat(bias[:, None], H, 1).reshape(B * H, T)
-    j3 = [jnp.asarray(a.reshape(B * H, T, D), jnp.bfloat16)
-          for a in (q, k, v)]
+    j3 = [jnp.asarray(a.reshape(B * H, T, D), jdt) for a in (q, k, v)]
     out_j, lse_j = _fwd_call(*j3, jnp.asarray(np.repeat(bias3[:, None], 8,
                                                         1)),
                              1.0 / math.sqrt(D), causal, T, T,
                              interpret=True)
-    t3 = [torch.from_numpy(a.reshape(B * H, T, D)).to(torch.bfloat16)
+    t3 = [torch.from_numpy(a.reshape(B * H, T, D)).to(tdt)
           for a in (q, k, v)]
     out, lse = flash_attention_forward(*t3, torch.from_numpy(bias3),
                                        causal=causal)
-    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    err, share = bf16_agreement(out.float(),
+    assert out.dtype == tdt and lse.dtype == torch.float32
+    err, share = half_agreement(out.float(),
                                 np.asarray(out_j.astype(jnp.float32)))
-    assert err <= 2.0 ** -8 and share >= 0.99, (err, share)
+    assert err <= rel and share >= 0.99, (err, share)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, 0],
                                rtol=0, atol=1e-5)
     dead = (mask.sum(1) == 0).repeat(H)
     assert (out[torch.from_numpy(dead)] == 0).all()
     assert (lse[torch.from_numpy(dead)] == 0).all()
+
+
+def test_fp16_mask_stays_fp32_and_dead_rows_stay_zero():
+    """The public API builds the key bias in fp32 from an fp16 mask, as the
+    JAX wrapper does (flash_attention.py:432-440): -1e30 would be -inf in
+    fp16, and a dead row (m at or below -0.5e30) must still give exact
+    zeros, not NaN."""
+    B, H, T, D = 2, 2, 64, 32
+    q, k, v = (torch.from_numpy(a).half() for a in _qkv(B, H, T, D, 9))
+    mask = torch.from_numpy(_mask(B, T, [0, 40])).half()
+    out = flash_attention(q, k, v, kv_mask=mask)
+    assert out.dtype == torch.float16
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    want = jflash(*(jnp.asarray(t.float().numpy(), jnp.float16)
+                    for t in (q, k, v)),
+                  kv_mask=jnp.asarray(mask.float().numpy(), jnp.float16),
+                  interpret=True)
+    err, share = half_agreement(out.float(), np.asarray(want, np.float32))
+    assert err <= 2.0 ** -11 and share >= 0.99, (err, share)

@@ -400,13 +400,19 @@ def test_mask_only_backward_asks_for_no_dbias(monkeypatch):
     assert flash_attention_bwd_dkv_dbias.launches == n0
 
 
-# ------------------------------------------------------------------- bf16
-def _bf16_case(B, H, T, D, case, seed):
-    """(q, k, v, g as float32 numpy rounded to bf16, the (B, T) int32 mask,
-    causal) of test_torch_flash_attention.py's BF16_CASES."""
+# ------------------------------------------------------------- bf16, fp16
+#: dtype name -> (torch dtype, jnp dtype, the tolerance's share of the max:
+#: twice the dtype's half step)
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16, 2.0 ** -8),
+        "float16": (torch.float16, jnp.float16, 2.0 ** -11)}
+
+
+def _half_case(B, H, T, D, case, seed, dtype=torch.bfloat16):
+    """(q, k, v, g as float32 numpy rounded to ``dtype``, the (B, T) int32
+    mask, causal) of test_torch_flash_attention.py's BF16_CASES."""
     rs = np.random.RandomState(seed)
     arrs = [torch.from_numpy(rs.randn(B, H, T, D).astype(np.float32))
-            .to(torch.bfloat16).float().numpy() for _ in range(4)]
+            .to(dtype).float().numpy() for _ in range(4)]
     lens = {"ragged": [T, 77], "dead_row": [T - 5, 0],
             "causal": [T, T]}[case]
     mask = (np.arange(T)[None, :] < np.asarray(lens)[:, None]) \
@@ -421,32 +427,64 @@ def _bf16_agreement(got, want):
             float((got == want).mean()))
 
 
+@pytest.mark.parametrize("dtype", sorted(HALF))
 @pytest.mark.parametrize("T", [128, 256])
 @pytest.mark.parametrize("case", ["causal", "dead_row", "ragged"])
-def test_bf16_gradients_round_as_the_pallas_kernels_do(T, case):
-    """bf16 q, k, v and cotangent through the public API's autograd and
-    through jax.vjp of the JAX flash attention in interpret mode: the JAX
-    kernels round p and dS to bf16 before their second products
-    (_recompute_p_ds) and write dq, dk, dv in bf16; the plain version
-    rounds at the same points. Each gradient within 2**-8 of its largest
-    magnitude, at least 99 % of its elements bitwise equal, and a sample
-    whose keys are all masked gets exact zeros."""
+def test_half_gradients_round_as_the_pallas_kernels_do(T, case, dtype):
+    """bf16 or fp16 q, k, v and cotangent through the public API's autograd
+    and through jax.vjp of the JAX flash attention in interpret mode: the
+    JAX kernels round p and dS to the input dtype before their second
+    products (_recompute_p_ds) and write dq, dk, dv in it; the plain
+    version rounds at the same points. Each gradient within twice the
+    dtype's half step (2**-8, 2**-11) of its largest magnitude, at least
+    99 % of its elements bitwise equal, and a sample whose keys are all
+    masked gets exact zeros."""
+    tdt, jdt, rel = HALF[dtype]
     B, H, D = 2, 2, 64
-    (q, k, v, g), mask, causal = _bf16_case(B, H, T, D, case, T + 1)
+    (q, k, v, g), mask, causal = _half_case(B, H, T, D, case, T + 1, tdt)
     jm = jnp.asarray(mask)
     _out, vjp = jax.vjp(lambda a, b, c: jflash(a, b, c, causal=causal,
                                                kv_mask=jm, interpret=True),
-                        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
-    want = vjp(jnp.asarray(g, jnp.bfloat16))
-    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+                        *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g, jdt))
+    leaves = [torch.from_numpy(a).to(tdt).requires_grad_()
               for a in (q, k, v)]
     out = tflash(*leaves, causal=causal,
                  kv_mask=torch.from_numpy(mask))
-    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    out.backward(torch.from_numpy(g).to(tdt))
     dead = torch.from_numpy(mask.sum(1) == 0)
     for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
-        assert leaf.grad.dtype == torch.bfloat16, name
+        assert leaf.grad.dtype == tdt, name
         err, share = _bf16_agreement(leaf.grad.float(),
-                                    np.asarray(w.astype(jnp.float32)))
-        assert err <= 2.0 ** -8 and share >= 0.99, (name, err, share)
+                                     np.asarray(w.astype(jnp.float32)))
+        assert err <= rel and share >= 0.99, (name, err, share)
         assert (leaf.grad[dead] == 0).all(), name
+
+
+def test_fp16_overflow_in_the_cotangent_reaches_every_gradient():
+    """A cotangent scaled past fp16's range (a loss scale that overflows)
+    makes dS inf where the plain version rounds it to fp16, as the JAX
+    kernels' astype does: dq, dk and dv come out non-finite in both
+    packages, never saturated to 65504. At a scale inside the range both
+    stay finite."""
+    B, H, T, D = 1, 2, 64, 32
+    (q, k, v, g), mask, _causal = _half_case(B, H, T, D, "causal", 3,
+                                             torch.float16)
+    for scale, finite in ((2.0 ** 2, True), (2.0 ** 40, False)):
+        gs = np.clip(g * scale, -6e4, 6e4)   # a finite fp16 cotangent
+        if not finite:
+            gs[0, 0, 5, :] = np.inf          # an overflowed row upstream
+        _out, vjp = jax.vjp(lambda a, b, c: jflash(a, b, c, causal=True,
+                                                   interpret=True),
+                            *(jnp.asarray(a, jnp.float16)
+                              for a in (q, k, v)))
+        want = vjp(jnp.asarray(gs, jnp.float16))
+        leaves = [torch.from_numpy(a).half().requires_grad_()
+                  for a in (q, k, v)]
+        tflash(*leaves, causal=True).backward(torch.from_numpy(gs).half())
+        for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+            got_ok = bool(torch.isfinite(leaf.grad).all())
+            want_ok = bool(np.isfinite(np.asarray(w, np.float32)).all())
+            assert got_ok == want_ok == finite, (name, scale, got_ok,
+                                                 want_ok)
+            assert not (leaf.grad.float().abs() == 65504.0).any(), name

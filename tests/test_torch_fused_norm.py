@@ -221,89 +221,132 @@ def test_layer_norm_route_follows_c_and_alignment(C, ptrs, route):
     assert fused_norm.ROUTES[route] in range(3)
 
 
-# ------------------------------------------------------------------- bf16
-# Under the JAX trainer's compute_dtype the kernels take bf16 x (and gamma,
-# beta) and compute in fp32, writing o_ref's dtype (fused_norm.py:51-59,
-# :127-131). The Pallas kernels run here in interpret mode on one block of
-# every row (33 rows do not tile the TPU's way; interpret mode does not
-# care). Each bf16 element within 2**-8 of the output's largest magnitude,
-# and at least 99 % of the elements bitwise equal: both round once, to
-# nearest even, from fp32 arithmetic summed in other orders (all of them
-# are, at these shapes).
-def _pallas_rows(kernel, args, rows, C):
+# ------------------------------------------------------------- bf16, fp16
+# Under the JAX trainer's compute_dtype the kernels take bf16 or fp16 x (and
+# gamma, beta) and compute in fp32, writing o_ref's dtype (fused_norm.py:
+# 51-59, :127-131). The Pallas kernels run here in interpret mode on one
+# block of every row (33 rows do not tile the TPU's way; interpret mode does
+# not care). Each element within twice the dtype's half step (2**-8 in
+# bf16, 2**-11 in fp16) of the output's largest magnitude, and at least
+# 99 % of the elements bitwise equal: both round once, to nearest even,
+# from fp32 arithmetic summed in other orders (all of them are, at these
+# shapes). In fp16 the padding rows' -1e30 is -inf, on both sides.
+#: dtype name -> (torch dtype, jnp dtype, the tolerance's share of the max)
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16, 2.0 ** -8),
+        "float16": (torch.float16, jnp.float16, 2.0 ** -11)}
+
+
+def _pallas_rows(kernel, args, rows, C, jdt):
     from jax.experimental import pallas as pl
     specs = [pl.BlockSpec(a.shape, lambda i, n=a.ndim: (0,) * n)
              for a in args]
     return pl.pallas_call(
         kernel, grid=(1,), in_specs=specs,
         out_specs=pl.BlockSpec((rows, C), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, C), jnp.bfloat16),
+        out_shape=jax.ShapeDtypeStruct((rows, C), jdt),
         interpret=True)(*args)
 
 
-def _bf16_agree(got, want):
+def _half_agree(got, want, rel):
     got = got.float().numpy()
     want = np.asarray(want.astype(jnp.float32))
     err = float(np.abs(got - want).max() / np.abs(want).max())
-    assert err <= 2.0 ** -8, err
+    assert err <= rel, err
     assert float((got == want).mean()) >= 0.99
 
 
+@pytest.mark.parametrize("dtype", sorted(HALF))
 @pytest.mark.parametrize("rows", [8, 33, 256])
 @pytest.mark.parametrize("C", [768, 771])
-def test_bf16_layer_norm_matches_pallas_interpret(rows, C):
+def test_half_layer_norm_matches_pallas_interpret(rows, C, dtype):
     import functools
     from incubator_mxnet_tpu.ops.pallas.fused_norm import _ln_kernel
-    x, g, b = (torch.from_numpy(a).to(torch.bfloat16)
+    tdt, jdt, rel = HALF[dtype]
+    x, g, b = (torch.from_numpy(a).to(tdt)
                for a in _ln_inputs(rows, C, rows + C))
-    jx, jg, jb = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
-                  for t in (x, g, b))
+    jx, jg, jb = (jnp.asarray(t.float().numpy(), jdt) for t in (x, g, b))
     want = _pallas_rows(functools.partial(_ln_kernel, eps=1e-5),
-                        (jx, jg.reshape(1, C), jb.reshape(1, C)), rows, C)
+                        (jx, jg.reshape(1, C), jb.reshape(1, C)), rows, C,
+                        jdt)
     got = tnn.layer_norm(x, g, b, eps=1e-5)
-    assert got.dtype == torch.bfloat16
-    _bf16_agree(got, want)
+    assert got.dtype == tdt
+    _half_agree(got, want, rel)
 
 
+@pytest.mark.parametrize("dtype", sorted(HALF))
 @pytest.mark.parametrize("rows", [8, 33, 256])
 @pytest.mark.parametrize("C", [768, 771])
-def test_bf16_softmax_matches_pallas_interpret(rows, C):
+def test_half_softmax_matches_pallas_interpret(rows, C, dtype):
     from incubator_mxnet_tpu.ops.pallas.fused_norm import _softmax_kernel
+    tdt, jdt, rel = HALF[dtype]
     rs = np.random.RandomState(rows * C)
     x = (3 * rs.randn(rows, C)).astype(np.float32)
     x[::3, C // 2:] = -1e30                 # the padding bias's rows
-    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xt = torch.from_numpy(x).to(tdt)
     want = _pallas_rows(_softmax_kernel,
-                        (jnp.asarray(xt.float().numpy(), jnp.bfloat16),),
-                        rows, C)
+                        (jnp.asarray(xt.float().numpy(), jdt),), rows, C,
+                        jdt)
     got = tnn.softmax(xt, axis=-1)
-    assert got.dtype == torch.bfloat16
-    _bf16_agree(got, want)
+    assert got.dtype == tdt
+    _half_agree(got, want, rel)
 
 
-def test_bf16_gradients_keep_the_dtypes_of_the_pallas_vjp():
-    """``_ln_bwd`` and ``_softmax_bwd`` in fp32 from bf16 residuals: dx in
-    x's dtype and dgamma, dbeta in gamma's, as jax.vjp of the Pallas kernels
-    gives them."""
-    x, g, b = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+def test_fp16_softmax_keeps_subnormal_probabilities_as_pallas_does():
+    """A probability below 2**-14 is an fp16 subnormal on both sides (no
+    flush to zero), and one past the range cannot occur; LayerNorm's output
+    past 65504 rounds to inf on both sides (no saturation)."""
+    import functools
+    from incubator_mxnet_tpu.ops.pallas.fused_norm import (_ln_kernel,
+                                                           _softmax_kernel)
+    x = np.zeros((8, 128), np.float32)
+    x[:, 0] = 12.0                          # the rest get ~6e-6 each
+    xt = torch.from_numpy(x).half()
+    got = tnn.softmax(xt, axis=-1)
+    want = _pallas_rows(_softmax_kernel, (jnp.asarray(x, jnp.float16),), 8,
+                        128, jnp.float16)
+    sub = got[:, 1:].float()
+    assert bool(((sub > 0) & (sub < 2.0 ** -14)).all())
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    x, g, b = _ln_inputs(8, 128, 3)
+    g = np.full_like(g, 60000.0)
+    xt, gt, bt = (torch.from_numpy(a).half() for a in (x, g, b))
+    got = tnn.layer_norm(xt, gt, bt, eps=1e-5)
+    want = _pallas_rows(functools.partial(_ln_kernel, eps=1e-5),
+                        (jnp.asarray(x, jnp.float16),
+                         jnp.asarray(g, jnp.float16).reshape(1, 128),
+                         jnp.asarray(b, jnp.float16).reshape(1, 128)),
+                        8, 128, jnp.float16)
+    assert bool(torch.isinf(got).any())
+    np.testing.assert_array_equal(np.isinf(got.float().numpy()),
+                                  np.isinf(np.asarray(want, np.float32)))
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+def test_half_gradients_keep_the_dtypes_of_the_pallas_vjp(dtype):
+    """``_ln_bwd`` and ``_softmax_bwd`` in fp32 from bf16 or fp16
+    residuals: dx in x's dtype and dgamma, dbeta in gamma's, as jax.vjp of
+    the Pallas kernels gives them, within a step of the dtype (2**-7 in
+    bf16, 2**-10 in fp16) of each gradient's largest magnitude."""
+    tdt, jdt, rel = HALF[dtype]
+    x, g, b = (torch.from_numpy(a).to(tdt).requires_grad_()
                for a in _ln_inputs(16, 128, 5))
     y = tnn.layer_norm(x, g, b)
     (y.float() ** 2).sum().backward()
-    jx, jg, jb = (jnp.asarray(t.detach().float().numpy(), jnp.bfloat16)
+    jx, jg, jb = (jnp.asarray(t.detach().float().numpy(), jdt)
                   for t in (x, g, b))
     _, vjp = jax.vjp(lambda a, c, d: fused_layer_norm(a, c, d,
                                                       interpret=True),
                      jx, jg, jb)
     jy = fused_layer_norm(jx, jg, jb, interpret=True)
-    want = vjp((2 * jy.astype(jnp.float32)).astype(jnp.bfloat16))
+    want = vjp((2 * jy.astype(jnp.float32)).astype(jdt))
     for t, w in zip((x, g, b), want):
-        assert t.grad.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        assert t.grad.dtype == tdt and w.dtype == jdt
         err = np.abs(t.grad.float().numpy()
                      - np.asarray(w.astype(jnp.float32))).max()
-        assert err <= 2.0 ** -7 * np.abs(np.asarray(
+        assert err <= 2 * rel * np.abs(np.asarray(
             w.astype(jnp.float32))).max()
     s = torch.from_numpy(np.random.RandomState(6).randn(8, 128)
-                         .astype(np.float32)).to(torch.bfloat16) \
-        .requires_grad_()
+                         .astype(np.float32)).to(tdt).requires_grad_()
     tnn.softmax(s, axis=-1)[:, 0].float().sum().backward()
-    assert s.grad.dtype == torch.bfloat16
+    assert s.grad.dtype == tdt

@@ -70,9 +70,10 @@ from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_backward,
     flash_attention_backward_reference, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_bf16, flash_attention_bwd_dkv_dbias,
-    flash_attention_bwd_dq, flash_attention_bwd_dq_bf16,
+    flash_attention_bwd_dkv_f16, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_bf16, flash_attention_bwd_dq_f16,
     flash_attention_forward, flash_attention_fwd_bf16,
-    flash_attention_reference)
+    flash_attention_fwd_f16, flash_attention_reference)
 from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
     fused_adam_flat, fused_adam_flat_bf16, fused_adam_flat_reference,
     fused_adamw_flat, fused_adamw_flat_bf16, fused_adamw_flat_reference,
@@ -2393,27 +2394,39 @@ def test_flash_bf16_autograd_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.needs_cuda
 def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    """Each 16-bit wrapper takes its own dtype only, and the public
+    wrappers one dtype across their tensors; fp16 now has kernels of its
+    own (the fp16 tests below), and the fp16 flavours still queued refuse
+    naming their ROADMAP item."""
     x = torch.randn(4, 64, device=cuda)
     h, b16 = x.half(), x.to(BF16)
     with pytest.raises(TypeError, match="float16"):
-        fused_norm.layer_norm(h, h[0], h[0])
+        fused_norm.layer_norm_bf16(h, h[0], h[0])
     with pytest.raises(TypeError, match="float16"):
-        fused_norm.softmax(h)
+        fused_norm.softmax_bf16(h)
     with pytest.raises(TypeError, match="one dtype"):
         fused_norm.layer_norm(b16, x[0], x[0])
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_norm.layer_norm(h, b16[0], b16[0])
     with pytest.raises(ValueError, match="contiguous"):
         fused_norm.layer_norm_bf16(b16.t(), b16[:, 0], b16[:, 0])
     with pytest.raises(TypeError, match="bfloat16"):
         fused_norm.softmax_bf16(x)
+    with pytest.raises(TypeError, match="float16"):
+        fused_norm.softmax_f16(b16)
     q = torch.randn(2, 16, 64, device=cuda)
     qh, qb = q.half(), q.to(BF16)
     lse = torch.zeros(2, 16, device=cuda)
     with pytest.raises(TypeError, match="float16"):
-        flash_attention_forward(qh, qh, qh)
+        flash_attention_fwd_bf16(qh, qh, qh)
+    with pytest.raises(TypeError):
+        flash_attention_forward(qh, qb, qh)
     with pytest.raises(TypeError):
         flash_attention_forward(qb, q, qb)
     with pytest.raises(TypeError):
         flash_attention_fwd_bf16(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention_fwd_f16(qb, qb, qb)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_forward(qb.transpose(0, 1), qb, qb)
     unaligned = torch.empty(2 * 16 * 64 + 1, dtype=BF16,
@@ -2427,7 +2440,198 @@ def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         flash_attention_bwd_dkv_bf16(qh, qh, qh, qh, lse, lse, None, 0.125,
                                      False)
     with pytest.raises(TypeError):
+        flash_attention_bwd_dq_f16(qb, qb, qb, qb, lse, lse, None, 0.125,
+                                   False)
+    with pytest.raises(TypeError):
         flash_attention_bwd_dq(qb, qb, qb, qb, lse, lse, None, 0.125, False)
+    n0 = flash_attention_bwd_dkv_f16.launches
+    with pytest.raises(TypeError, match="Queue 2 item 17"):
+        flash_attention_backward(qh, qh, qh, qh, lse, qh, lse, 0.125,
+                                 needs_dbias=True)
+    assert flash_attention_bwd_dkv_f16.launches == n0
+
+
+# ------------------------------------------------------------ fp16 flavours
+# The fp16 LayerNorm, softmax and flash kernels against their plain versions
+# on the same fp16 inputs, by the bf16 rules with fp16's step: each element
+# of LN, softmax and the forward's O within 2**-10 of its own value plus a
+# floor (bf16's divided by 8: 2**-19 of the row's largest for LN, 1.25e-7
+# for softmax, 2**-10 of the same attention over |V| for O); dq, dk and dv
+# within 2 * 2**-11 of their largest magnitude; the lse within 1e-4; dead
+# rows exactly 0; bitwise on two calls; an inf in dO non-finite in every
+# gradient (the kernels never saturate); each call one launch of its fp16
+# kernel and none of the fp32 or bf16 ones.
+
+F16 = torch.float16
+
+
+def _f16_each(got, want, limit, what):
+    assert got.dtype == F16, what
+    gap = (got.float() - want.float()).abs()
+    out = gap > limit.float().expand_as(gap)
+    assert not bool(out.any()), (what, int(out.sum()), gap.max().item())
+
+
+def _f16_step(want, floor):
+    """One fp16 step of each element of ``want``, plus ``floor``."""
+    return 2.0 ** -10 * want.float().abs() + floor
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("rows", [1, 7, 33, 8192])
+@pytest.mark.parametrize("C", [768, 770, 33, 2000])
+def test_layer_norm_f16_kernel_matches_plain(cuda, rows, C):
+    x, g, b = (t.half() for t in _ln_inputs(rows, C, cuda))
+    n0 = (fused_norm.layer_norm.launches, fused_norm.layer_norm_bf16.launches,
+          fused_norm.layer_norm_f16.launches)
+    got = fused_norm.layer_norm(x, g, b)
+    again = fused_norm.layer_norm(x, g, b)
+    torch.cuda.synchronize()
+    assert (fused_norm.layer_norm.launches,
+            fused_norm.layer_norm_bf16.launches,
+            fused_norm.layer_norm_f16.launches) == (n0[0], n0[1], n0[2] + 2)
+    assert torch.equal(got, again)
+    want = fused_norm.layer_norm_reference(x, g, b)
+    _f16_each(got, want, _f16_step(want, 2.0 ** -19 * want.float().abs()
+                                   .amax(dim=-1, keepdim=True)), (rows, C))
+
+
+@pytest.mark.needs_cuda
+def test_layer_norm_f16_rounds_past_the_range_to_inf(cuda):
+    """An output past 65504 is inf in the kernel as in the plain version's
+    ``.to(torch.float16)``: no saturation."""
+    x, g, b = (t.half() for t in _ln_inputs(8, 768, cuda))
+    g = torch.full_like(g, 60000.0)
+    got = fused_norm.layer_norm(x, g, b)
+    # the fp32 values before the rounding: fp16 rounds to inf from 65520
+    # on; elements within 2**-10 of that edge may land on either side
+    # (the sums differ in order), the rest must land where the plain
+    # version's do
+    v = fused_norm.layer_norm_reference(x.float(), g.float(), b.float())
+    over = v.abs() > 65520.0 * (1 + 2.0 ** -10)
+    under = v.abs() < 65520.0 * (1 - 2.0 ** -10)
+    assert bool(over.any()) and bool(under.any())
+    assert bool(torch.isinf(got[over]).all())
+    assert bool(torch.isfinite(got[under]).all())
+    want = fused_norm.layer_norm_reference(x, g, b)
+    assert bool(torch.isinf(want[over]).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", [(64, 12, 128, 128), (3, 7), (33, 257),
+                                   (2, 2000)])
+def test_softmax_f16_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    x = 3 * torch.randn(*shape, generator=gen, device=cuda)
+    if len(shape) == 4:             # the padding bias (-inf in fp16)
+        x[:, :, :, 100:] = -1e30
+    x = x.half()
+    n0 = (fused_norm.softmax.launches, fused_norm.softmax_f16.launches)
+    got = fused_norm.softmax(x)
+    torch.cuda.synchronize()
+    assert (fused_norm.softmax.launches,
+            fused_norm.softmax_f16.launches) == (n0[0], n0[1] + 1)
+    want = fused_norm.softmax_reference(x)
+    _f16_each(got, want, _f16_step(want, 1e-6 / 8), shape)
+
+
+def _flash_f16_inputs(BH, T, D, device, seed):
+    q, k, v, do, bias = _flash_bf16_inputs(BH, T, D, device, seed)
+    return tuple(t.half() for t in (q, k, v, do)) + (bias,)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 128, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f16_forward_matches_plain(cuda, T, D, causal):
+    q, k, v, _do, bias = _flash_f16_inputs(6, T, D, cuda, T * D + causal)
+    scale = 1.0 / math.sqrt(D)
+    n0 = (flash_attention_forward.launches, flash_attention_fwd_bf16.launches,
+          flash_attention_fwd_f16.launches)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    again = flash_attention_forward(q, k, v, bias, scale, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_forward.launches,
+            flash_attention_fwd_bf16.launches,
+            flash_attention_fwd_f16.launches) == (n0[0], n0[1], n0[2] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = flash_attention_reference(q, k, v, bias, scale, causal)
+    mass = flash_attention_reference(q, k, v.abs(), bias, scale, causal)[0]
+    _f16_each(out, ref, _f16_step(ref, 2.0 ** -10 * mass.float()),
+              (T, D, causal))
+    assert lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert (out[0] == 0).all() and (lse[0] == 0).all()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T", [1, 63, 128, 512, 777])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f16_backward_matches_plain(cuda, T, D, causal):
+    q, k, v, do, bias = _flash_f16_inputs(6, T, D, cuda, T * D + 7)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    n0 = (flash_attention_bwd_dq_f16.launches,
+          flash_attention_bwd_dkv_f16.launches,
+          flash_attention_bwd_dq_bf16.launches,
+          flash_attention_bwd_dq.launches)
+    got = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                   causal)
+    again = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                     causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq_f16.launches,
+            flash_attention_bwd_dkv_f16.launches,
+            flash_attention_bwd_dq_bf16.launches,
+            flash_attention_bwd_dq.launches) == (n0[0] + 2, n0[1] + 2,
+                                                 n0[2], n0[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                              scale, causal)
+    top = max(w.float().abs().max().item() for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == F16 and torch.isfinite(g.float()).all(), name
+        lim = 2 * 2.0 ** -11 * max(w.float().abs().max().item(), top / 64)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= lim, (name, T, D, causal, err, lim)
+        assert (g[0] == 0).all(), name
+    # an overflowed cotangent (a loss scale past fp16's range) reaches every
+    # gradient as inf or NaN, in the kernels as in the plain version
+    do_inf = do.clone()
+    do_inf[2, T // 2] = float("inf")
+    bad = flash_attention_backward(q, k, v, out, lse, do_inf, bias, scale,
+                                   causal)
+    plain = flash_attention_backward_reference(q, k, v, out, lse, do_inf,
+                                               bias, scale, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), bad, plain):
+        assert not bool(torch.isfinite(g).all()), name
+        assert not bool(torch.isfinite(w).all()), name
+        assert not bool((g.float().abs() == 65504.0).any()), name
+
+
+@pytest.mark.needs_cuda
+def test_flash_f16_autograd_on_the_card_matches_the_cpu(cuda):
+    """The public (B, H, T, D) API on fp16 leaves with an fp16 mask (the
+    key bias stays fp32): fp16 gradients through the fp16 kernels against
+    the plain versions on the CPU, one sample's keys all masked."""
+    B, H, T, D = 2, 3, 200, 64
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen).half()
+                  for _ in range(4))
+    mask = (torch.arange(T)[None] < torch.tensor([[0], [150]])).half()
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, kv_mask=mask.to(dev))
+        assert out.dtype == F16
+        out.backward(g.to(dev))
+        grads[dev.type] = [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        lim = 2 * 2.0 ** -11 * want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= lim
+        assert (got[0] == 0).all()
 
 
 @pytest.mark.needs_cuda
@@ -2553,6 +2757,31 @@ def test_flash_decode_refuses_pairs_without_a_kernel(cuda):
         paged_flash_decode_bf16(q, kp, vp, tables, lens)
     assert (paged_flash_decode.launches,
             paged_flash_decode_bf16.launches) == n0
+
+
+@pytest.mark.needs_cuda
+def test_queued_fp16_flavours_refuse_naming_their_item(cuda):
+    """The fp16 flavours still to port raise TypeError naming their ROADMAP
+    Queue 2 item, and launch nothing: the paged decode (16), the flat seam
+    kernels (18) and the fused bottleneck (19); the fp16 dbias (17) is held
+    above."""
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
+        paged_flash_decode)
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        fused_bottleneck)
+    q, kp, vp, tables, lens = _paged_inputs(2, 1, 2, 64, 16, 2, [3, 5],
+                                            cuda, seed=3)
+    with pytest.raises(TypeError, match="Queue 2 item 16"):
+        paged_flash_decode(q.half(), kp.half(), vp.half(), tables, lens)
+    w = torch.zeros(64, device=cuda, dtype=torch.float16)
+    n0 = fused_sgd_mom_flat.launches
+    with pytest.raises(TypeError, match="Queue 2 item 18"):
+        fused_sgd_mom_flat([w], [w.clone()], [w.clone()], 0.1, 0.0, 0.9,
+                           1.0, -1.0)
+    assert fused_sgd_mom_flat.launches == n0
+    args = list(_bottleneck_inputs(1, 4, 4, 8, 4, torch.float32, cuda, 0))
+    with pytest.raises(TypeError, match="Queue 2 item 19"):
+        fused_bottleneck(*[a.half() for a in args])
 
 
 @pytest.mark.needs_cuda

@@ -1,26 +1,31 @@
-"""The port's bf16 mixed-precision training against the JAX package's
-ShardedTrainer with the same options, on the CPU.
+"""The port's bf16 and fp16 mixed-precision training against the JAX
+package's ShardedTrainer with the same options, on the CPU.
 
-- ``compute_dtype="bfloat16"`` (fp32 masters): a tied 2-layer BERT
+- ``compute_dtype`` bfloat16 or float16 (fp32 masters): a tied 2-layer BERT
   pretraining net of 64 units (T = 16, both packages attend through the
   softmax path), initialized by the JAX package from numpy's global RNG and
   carried to the port by name. Three AdamW steps: losses within rtol 1e-2
-  and the fp32 masters within 2 * lr * steps of JAX's (the most Adam can
-  move an element, so a bf16-noise sign flip of a near-zero gradient is
-  tolerated and a wrong update is not), one fused launch a step on both
-  sides (the JAX side's Pallas kernel in interpret mode). XLA's CPU backend
-  and eager PyTorch round bf16 at other points, so the bound is bf16 noise,
-  not bit equality.
+  (bf16) or 5e-3 (fp16) and the fp32 masters within 2 * lr * steps of
+  JAX's (the most Adam can move an element, so a sign flip of a near-zero
+  gradient by rounding noise is tolerated and a wrong update is not), one
+  fused launch a step on both sides (the JAX side's Pallas kernel in
+  interpret mode). XLA's CPU backend and eager PyTorch round the 16-bit
+  values at other points, so the bound is rounding noise, not bit equality.
+- fp16 under dynamic loss scaling: a guarded step at a scale that
+  overflows fp16 (2**40) is flagged and leaves every parameter and
+  optimizer slot bitwise unchanged, in both packages; at the guard's
+  default scale (2**16) the step is finite and its loss and masters follow
+  the JAX trainer's guarded step.
 - ``param_dtype="bfloat16"`` (bf16-stored weights, stochastic rounding),
   mirroring tests/test_opt_state_dtype.py: SR is unbiased and lands on the
   two neighbouring bf16 values; the bf16 trajectory tracks the fp32 one; a
   checkpoint keeps the configured precision; the optimizer state stays
   fp32; and the port's losses stay within 0.1 of the JAX trainer's with the
   same option (the two draw their rounding noise from different streams).
-- A small ResNet under ``compute_dtype="bfloat16"`` (convolutions and
-  BatchNorm in bf16, running statistics back to fp32) against the JAX
-  trainer: step 1's loss within rtol 1e-2. Later steps are not held to
-  JAX: at this size (4 images of 32 x 32, BatchNorm over 4 samples) the
+- A small ResNet under ``compute_dtype`` bfloat16 or float16 (convolutions
+  and BatchNorm in that dtype, running statistics back to fp32) against the
+  JAX trainer: step 1's loss within rtol 1e-2 (bf16) or 5e-3 (fp16). Later
+  steps are not held to JAX: at this size (4 images of 32 x 32, BatchNorm over 4 samples) the
   gradients of the BatchNorm scales are sums with heavy cancellation, so
   each package's own bf16 gradients there are far from its fp32 ones (as
   far as the two packages' bf16 gradients are from each other), and lr 0.1
@@ -60,6 +65,9 @@ LR = 1e-3
 HP = {"learning_rate": LR, "wd": 0.01}
 STEPS = 3
 BF16 = torch.bfloat16
+#: compute dtype -> (torch dtype, the losses' rtol against the JAX trainer:
+#: bf16's 1e-2, and fp16's 5e-3 for its three more mantissa bits)
+HALF = {"bfloat16": (torch.bfloat16, 1e-2), "float16": (torch.float16, 5e-3)}
 
 
 @pytest.fixture(autouse=True)
@@ -134,28 +142,36 @@ def _jax_net(tag):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(option):
+def _jax_run(option, dtype="bfloat16", guarded=None):
     """The JAX net's initial parameters (by structural name), and its
     trainer's losses and parameters after STEPS AdamW steps with
-    ``option`` ("compute" or "param") set to bfloat16."""
+    ``option`` ("compute" or "param") set to ``dtype``; with ``guarded`` (a
+    loss scale) the steps are ``step_guarded`` at that scale, and their
+    verdicts come back too."""
     mp = pytest.MonkeyPatch()
     mp.setenv("MXTPU_FUSED_OPTIM_INTERPRET", "1")
     try:
-        net = _jax_net(option)
+        net = _jax_net(option + ("" if dtype == "bfloat16" else dtype))
         by_struct = net._collect_params_with_prefix()
         params = {k[len("pretrain."):]: p.data().asnumpy()
                   for k, p in by_struct.items()}
-        kw = {"%s_dtype" % option: "bfloat16"}
+        kw = {"%s_dtype" % option: dtype}
         tr = JaxTrainer(net, _jax_loss, jax_mesh({"dp": 1},
                                                  devices=jax.devices()[:1]),
                         optimizer="adamw", optimizer_params=dict(HP),
                         data_specs=[P(), P(), P()], label_spec=P(), **kw)
         data, label = _batch()
-        losses, fused = [], []
+        losses, fused, bad = [], [], []
         for _ in range(STEPS):
-            losses.append(float(jax.device_get(tr.step(
-                [nd.array(a) for a in data],
-                [nd.array(a) for a in label]))))
+            batch = ([nd.array(a) for a in data],
+                     [nd.array(a) for a in label])
+            if guarded is None:
+                loss = tr.step(*batch)
+            else:
+                loss, notfinite, _gn = tr.step_guarded(*batch,
+                                                       loss_scale=guarded)
+                bad.append(bool(notfinite))
+            losses.append(float(jax.device_get(loss)))
             fused.append(tr._fused_launches)
         vals = {k: np.asarray(jax.device_get(v).astype(jnp.float32))
                 for k, v in tr.param_values.items()}
@@ -163,7 +179,8 @@ def _jax_run(option):
                  for k, p in by_struct.items()}
     finally:
         mp.undo()
-    return dict(params=params, losses=losses, after=after, fused=fused)
+    return dict(params=params, losses=losses, after=after, fused=fused,
+                bad=bad)
 
 
 def _port_trainer(params, **kw):
@@ -175,16 +192,17 @@ def _port_trainer(params, **kw):
 
 
 # ------------------------------------------------------------ compute dtype
-def test_bf16_compute_trains_like_the_jax_trainer():
-    want = _jax_run("compute")
+@pytest.mark.parametrize("dtype", sorted(HALF))
+def test_half_compute_trains_like_the_jax_trainer(dtype):
+    want = _jax_run("compute", dtype)
     assert want["fused"] == [1] * STEPS
-    tr = _port_trainer(want["params"], compute_dtype="bfloat16")
+    tr = _port_trainer(want["params"], compute_dtype=dtype)
     data, label = _batch()
     losses = []
     for _ in range(STEPS):
         losses.append(float(tr.step(data, label)))
         assert tr._fused_launches == 1
-    np.testing.assert_allclose(losses, want["losses"], rtol=1e-2)
+    np.testing.assert_allclose(losses, want["losses"], rtol=HALF[dtype][1])
     assert losses[-1] < losses[0]
     limit = 2 * LR * STEPS
     for name, v in tr.param_values.items():
@@ -194,13 +212,14 @@ def test_bf16_compute_trains_like_the_jax_trainer():
         assert err <= limit, (name, err, limit)
 
 
-def test_bf16_compute_runs_the_block_in_bf16_and_keeps_the_tie():
-    """Inside the step every floating parameter the block reads is a bf16
-    cast; the tied decoder reads the same cast as the embedding (one tensor,
-    its gradient summed once onto the one fp32 master); outside the step the
-    block holds its fp32 tensors again."""
-    tr = _port_trainer(_jax_run("compute")["params"],
-                       compute_dtype="bfloat16")
+@pytest.mark.parametrize("dtype", sorted(HALF))
+def test_half_compute_runs_the_block_in_its_dtype_and_keeps_the_tie(dtype):
+    """Inside the step every floating parameter the block reads is a cast
+    to the compute dtype; the tied decoder reads the same cast as the
+    embedding (one tensor, its gradient summed once onto the one fp32
+    master); outside the step the block holds its fp32 tensors again."""
+    tdt = HALF[dtype][0]
+    tr = _port_trainer(_jax_run("compute")["params"], compute_dtype=dtype)
     pre = tr._block.pretrain
     seen = {}
 
@@ -214,11 +233,83 @@ def test_bf16_compute_runs_the_block_in_bf16_and_keeps_the_tie():
         tr.step(*_batch())
     finally:
         h.remove()
-    assert seen["dec"] is seen["emb"] and seen["dec"].dtype == BF16
-    assert seen["out"] == BF16
+    assert seen["dec"] is seen["emb"] and seen["dec"].dtype == tdt
+    assert seen["out"] == tdt
     assert pre.mlm_decoder.weight is pre.bert.word_embed.weight
     assert pre.bert.word_embed.weight.dtype == torch.float32
     assert pre.bert.word_embed.weight.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("scale", [2.0 ** 12, 2.0 ** 40],
+                         ids=["in_range_scale", "overflowing_scale"])
+def test_fp16_guarded_steps_follow_the_jax_trainer(scale):
+    """``step_guarded`` under fp16 compute in both packages at one loss
+    scale for STEPS steps. At 2**40 the scaled gradients overflow fp16 (the
+    MLM logits' cotangent alone is ~2**40 / 6), so every step is flagged and
+    every parameter and optimizer slot stays bitwise what it was, in both
+    packages; at 2**12 the steps are finite and the losses and fp32 masters
+    follow the JAX trainer's as unguarded steps do. (At the guard's default
+    2**16 this tiny net sits at fp16's edge: the JAX trainer's third step
+    overflowed there and was finite at 2**15, the port's was finite.)"""
+    want = _jax_run("compute", "float16", scale)
+    tr = _port_trainer(want["params"], compute_dtype="float16")
+    before = {k: v.clone() for k, v in tr.state_dict().items()}
+    data, label = _batch()
+    losses, bad = [], []
+    for _ in range(STEPS):
+        loss, notfinite, _gn = tr.step_guarded(data, label, loss_scale=scale)
+        losses.append(float(loss))
+        bad.append(notfinite)
+    overflow = scale > 2.0 ** 30
+    assert bad == want["bad"] == [overflow] * STEPS
+    after = tr.state_dict()
+    if overflow:
+        for k, v in before.items():
+            if k != "step":
+                assert torch.equal(v, after[k]), k
+        for name, v in want["after"].items():
+            np.testing.assert_array_equal(v, want["params"][name])
+        return
+    np.testing.assert_allclose(losses, want["losses"], rtol=HALF["float16"][1])
+    limit = 2 * LR * STEPS
+    for name, v in tr.param_values.items():
+        err = np.abs(v.numpy() - want["after"][name[len("pretrain."):]]).max()
+        assert err <= limit, (name, err, limit)
+
+
+def test_fp16_guardian_backs_off_until_a_step_is_finite():
+    """``GuardedTrainer`` over fp16 compute from a guard that starts at
+    2**40: each overflowing step is skipped with the state bitwise
+    unchanged and halves the scale, until a step is finite and training
+    goes on; the scales follow ``NumericGuard``'s replay of the verdicts."""
+    from incubator_mxnet_tpu_torch.resilience import (GuardedTrainer,
+                                                      NumericGuard)
+    tr = _port_trainer(_jax_run("compute")["params"], compute_dtype="float16")
+    g = GuardedTrainer(tr, guard=NumericGuard(init_scale=2.0 ** 40,
+                                              max_scale=2.0 ** 40),
+                       rollback_after=1000, enabled=True)
+    replay = NumericGuard(init_scale=2.0 ** 40, max_scale=2.0 ** 40)
+    data, label = _batch()
+    before = {k: v.clone() for k, v in tr.state_dict().items()}
+    losses = []
+    for _ in range(40):
+        assert g.loss_scale == replay.scale
+        skipped = g.skipped_steps
+        loss = float(g.step(data, label))
+        if g.skipped_steps == skipped:
+            assert np.isfinite(loss)
+            replay.on_good_step()
+            losses.append(loss)
+            if len(losses) == 2:
+                break
+        else:
+            assert not losses          # no overflow once a step went well
+            replay.on_bad_step()
+            now = tr.state_dict()
+            assert all(torch.equal(v, now[k]) for k, v in before.items()
+                       if k != "step")
+    assert len(losses) == 2 and g.skipped_steps >= 10
+    assert g.loss_scale == replay.scale < 2.0 ** 30
 
 
 # ------------------------------------------------------- stochastic rounding
@@ -331,13 +422,22 @@ def test_bf16_params_rounding_is_keyed_by_the_step():
         assert torch.equal(v, b.param_values[n]), n
 
 
-def test_what_mixed_precision_refuses():
+@pytest.mark.parametrize("param_dtype", ["float16", "float32"])
+def test_what_mixed_precision_refuses(param_dtype):
+    """Parameters stored in anything but bf16 raise the JAX trainer's
+    ValueError, in both packages; stochastic rounding takes bf16 only."""
     params = _jax_run("compute")["params"]
-    for kw in ({"compute_dtype": "float16"}, {"param_dtype": "float16"}):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
-            _port_trainer(params, **kw)
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        _port_trainer(params, param_dtype="float32")
+    msg = "param_dtype supports bfloat16 only"
+    with pytest.raises(ValueError, match=msg):
+        JaxTrainer(_jax_net("refuse"), _jax_loss,
+                   jax_mesh({"dp": 1}, devices=jax.devices()[:1]),
+                   optimizer="adamw", data_specs=[P(), P(), P()],
+                   label_spec=P(), param_dtype=param_dtype)
+    with pytest.raises(ValueError, match=msg):
+        _port_trainer(params, param_dtype=param_dtype)
+    with pytest.raises(ValueError, match="bfloat16"):
+        _stochastic_round(torch.ones(2), getattr(torch, param_dtype),
+                          torch.Generator())
 
 
 # -------------------------------------------------------------------- ResNet
@@ -357,13 +457,24 @@ def _ce(out, lab):
     return -logp.gather(-1, lab.long()[:, None]).mean()
 
 
-def test_bf16_compute_resnet_matches_the_jax_trainer(monkeypatch):
-    """Convolutions and BatchNorm's one-pass statistics in bf16 on both
-    sides; the running statistics written back to fp32. Step 1's loss
-    within rtol 1e-2 of the JAX trainer's, and its running statistics
-    within 2**-6 of their largest magnitude of the JAX trainer's, where the
-    port's fp32 path (the casts skipped) lands farther than that from them;
-    three steps finite, one fused SGD launch a step."""
+#: compute dtype -> the running statistics' bound against the JAX trainer's
+#: after step 1, as a share of their largest magnitude: 2**-6 in bf16 (which
+#: the port's fp32 path exceeds) and 2**-9 in fp16 (where the fp32 path
+#: lands as close: 1.13e-3 and 1.14e-3 of the max, so fp16's casts are held
+#: by the logits' dtype instead)
+RESNET_STATS_REL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+def test_half_compute_resnet_matches_the_jax_trainer(monkeypatch, dtype):
+    """Convolutions and BatchNorm's one-pass statistics in bf16 or fp16 on
+    both sides; the running statistics written back to fp32. Step 1's loss
+    within rtol 1e-2 (bf16) or 5e-3 (fp16) of the JAX trainer's, its logits
+    in the compute dtype, and its running statistics within
+    RESNET_STATS_REL of their largest magnitude of the JAX trainer's, where
+    in bf16 the port's fp32 path (the casts skipped) lands farther than
+    that from them; three steps finite, one fused SGD launch a step."""
+    tdt, rtol = HALF[dtype]
     monkeypatch.setenv("MXTPU_FUSED_OPTIM_INTERPRET", "1")
     np.random.seed(0)
     net = jresnet._ResNet(**RESNET)
@@ -377,8 +488,7 @@ def test_bf16_compute_resnet_matches_the_jax_trainer(monkeypatch):
     jtr = JaxTrainer(net, _jax_ce, jax_mesh({"dp": 1},
                                             devices=jax.devices()[:1]),
                      optimizer="sgd", optimizer_params=dict(SGD_HP),
-                     data_specs=P(), label_spec=P(),
-                     compute_dtype="bfloat16")
+                     data_specs=P(), label_spec=P(), compute_dtype=dtype)
     want = float(jax.device_get(jtr.step(nd.array(x), nd.array(y))))
     jax_stats = {k: np.asarray(jtr.param_values[p.name])
                  for k, p in net._collect_params_with_prefix().items()
@@ -386,8 +496,13 @@ def test_bf16_compute_resnet_matches_the_jax_trainer(monkeypatch):
     port = params_from_jax(init, _ResNet(**RESNET, device="cpu"))
     tr = ShardedTrainer(port, _ce, optimizer="sgd",
                         optimizer_params=dict(SGD_HP), device="cpu",
-                        compute_dtype="bfloat16")
+                        compute_dtype=dtype)
+    seen = []
+    hook = port.register_forward_hook(lambda m, a, out: seen.append(
+        out.dtype))
     got = [float(tr.step(x, y))]
+    hook.remove()
+    assert seen == [tdt]
     fp32 = ShardedTrainer(params_from_jax(init, _ResNet(**RESNET,
                                                         device="cpu")),
                           _ce, optimizer="sgd", optimizer_params=dict(SGD_HP),
@@ -398,9 +513,12 @@ def test_bf16_compute_resnet_matches_the_jax_trainer(monkeypatch):
     def worst(trainer):
         return max(np.abs(trainer.param_values[k].numpy() - w).max()
                    / np.abs(w).max() for k, w in jax_stats.items())
-    assert worst(tr) <= 2.0 ** -6 < worst(fp32), (worst(tr), worst(fp32))
+    bound = RESNET_STATS_REL[dtype]
+    assert worst(tr) <= bound, (worst(tr), bound)
+    if dtype == "bfloat16":
+        assert bound < worst(fp32), (worst(tr), worst(fp32))
     got += [float(tr.step(x, y)) for _ in range(STEPS - 1)]
-    assert abs(got[0] - want) <= 1e-2 * abs(want), (got[0], want)
+    assert abs(got[0] - want) <= rtol * abs(want), (got[0], want)
     assert np.isfinite(got).all() and got[-1] < got[0]
     assert tr._fused_launches == 1
     stats = {n: v for n, v in tr.param_values.items() if "running" in n}

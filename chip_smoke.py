@@ -75,6 +75,22 @@ Phases, each printing one line:
              accepting at least 0.8 of its proposals, the speculative
              tokens against the plain run's under the margin rule;
              tokens/s and step ms of each run, the acceptance rates.
+4c. generate_fp16 - the same drive with the same weights rounded to fp16
+             (fp16 pools, fp32 pools, both speculative runs), each check at
+             2**-8 of a row's max, the fp16 decode and LayerNorm kernels
+             counted, cuBLAS summing fp16 products in fp32
+             (allow_fp16_reduced_precision_reduction off for the phase);
+             then decode_fp16: those weights exported as an fp16 checkpoint
+             and served by a ModelServer on the card (CUDA graphs, fp32
+             pools), the first batch through 8 ServingClients, every token
+             held to the CPU's full-sequence forward, one sequence's
+             prefill and steps against the CPU's logits and one step
+             replayed against the eager forward, exact fp16 launch counts
+             inside the graphs, a live deploy of a second fp16 generation
+             with no graph captured again, and an fp32 generation refused
+             by the swap's dtype rule. A generate_timing line sets the
+             engine's bf16 and fp16 tokens/s beside the served fp32 and
+             fp16 rounds'.
 5. train   - BERT-base pretraining (MLM + NSP, tied decoder, dropout 0,
              fp32) through ShardedTrainer with AdamW at lr 1e-4 on the card,
              at T = 128 x B = 64 (attention through the softmax kernel) and
@@ -203,11 +219,11 @@ Phases, each printing one line:
              autograd at BERT-base's geometry (B 8, H 12, T 512, D 64, the
              ragged padding mask of the flash backward rows): a (B, H, T)
              bias, then a (B, T) bias with causal=True, forward and
-             (out ** 2).sum().backward() each, on fp32 and then on bf16 q,
-             k and v. Exactly one dK/dV-with-dbias launch of the dtype a
-             backward; q, k, v and kv_bias gradients within 1e-4 (bf16:
-             2 * 2**-8) of each tensor's max of the CPU port's, masked
-             keys' bias gradients exactly 0.
+             (out ** 2).sum().backward() each, on fp32, then bf16, then
+             fp16 q, k and v. Exactly one dK/dV-with-dbias launch of the
+             dtype a backward; q, k, v and kv_bias gradients within 1e-4
+             (bf16: 2 * 2**-8, fp16: 2 * 2**-11) of each tensor's max of
+             the CPU port's, masked keys' bias gradients exactly 0.
 12. seam_bf16 - the ops/_optim_kernels.py seam's _multi_sgd_mom_update,
              _multi_adam_update and _multi_adamw_update on bf16 groups of
              ResNet-50 v1's 193 trainable shapes, 2 steps each: one bf16
@@ -584,13 +600,15 @@ def kernels_phase(torch, dev):
 
     rows += flash_forward_rows(torch, dev, randn)
     rows += flash_decode_rows(torch, dev, randn)
-    rows += flash_decode_bf16_rows(torch, dev, randn)
+    for dtype in ("bfloat16", "float16"):
+        rows += flash_decode_half_rows(torch, dev, randn, dtype)
     log("tc_rounding", **tensor_core_rounding(torch, dev))
     rows += flash_backward_rows(torch, dev, randn)
     for dtype in ("bfloat16", "float16"):
         rows += half_norm_rows(torch, dev, randn, dtype)
         rows += half_flash_rows(torch, dev, randn, dtype)
-    rows += bf16_dbias_rows(torch, dev, randn)
+    for dtype in ("bfloat16", "float16"):
+        rows += half_dbias_rows(torch, dev, randn, dtype)
     rows.append(trainer_adam_row(torch, dev, randn))
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
     rows += flat_rows(torch, dev, randn)
@@ -1503,79 +1521,82 @@ def flash_decode_rows(torch, dev, randn):
     return rows
 
 
-#: the bf16 decode kernel's o against its plain version: both widen the
-#: same stored values and sum in fp32 (in another order), then round o once
-#: to bf16, so each element is held to one bf16 step (BF16_STEP) of its own
-#: value plus DECODE_BF16_FLOOR, what the fp32 sums' order leaves near a
-#: zero crossing (an average of up to 1024 unit-normal V rows); m at 1e-5
-#: and l at rtol 1e-5, as in fp32, since p and its sums stay fp32
+#: the 16-bit decode kernels' o against their plain version: both widen
+#: the same stored values and sum in fp32 (in another order), then round o
+#: once to q's dtype, so each element is held to one step of that dtype
+#: (BF16_STEP, FP16_STEP) of its own value plus DECODE_BF16_FLOOR, what the
+#: fp32 sums' order leaves near a zero crossing (an average of up to 1024
+#: unit-normal V rows); m at 1e-5 and l at rtol 1e-5, as in fp32, since p
+#: and its sums stay fp32
 DECODE_BF16_FLOOR = 1e-5
 
 
-def flash_decode_bf16_rows(torch, dev, randn):
-    """The bf16 decode kernel (bf16 q) at the decode path's two shapes, the
-    prefill chunk (1, 32, 12, 64) and the decode step (8, 1, 12, 64) with
-    flash_decode_rows' pasts, over GPT-2 small's pools in fp32 (a bf16 GPT
-    over the default spec) and in bf16 (a bf16 spec; the kernels line
-    carries this last row). Each against the
-    plain version on the same tensors element by element, bitwise on two
-    calls, dead rows exact; bounds count the pools' bytes at their element
-    size and q and o at 2 bytes, and the operations at the rate of the
-    products' type: bf16 x bf16 at the bf16 tensor-core rate; bf16 q over
-    fp32 pools, an fp32 product, at the fp32 rate with the fp32-accurate
-    tensor-core rate as `tc_bound_ms`, as the fp32 rows. No library column,
-    as in fp32."""
+def flash_decode_half_rows(torch, dev, randn, dtype="bfloat16"):
+    """The bf16 or fp16 decode kernel (q of that dtype) at the decode
+    path's two shapes, the prefill chunk (1, 32, 12, 64) and the decode
+    step (8, 1, 12, 64) with flash_decode_rows' pasts, over GPT-2 small's
+    pools in fp32 (a 16-bit GPT over the default spec) and in q's dtype (a
+    spec of that dtype; the kernels line carries this last row). Each
+    against the plain version on the same tensors element by element,
+    bitwise on two calls, dead rows exact; bounds count the pools' bytes
+    at their element size and q and o at 2 bytes, and the operations at
+    the rate of the products' type: 16-bit x 16-bit at the 16-bit
+    tensor-core rate; 16-bit q over fp32 pools, an fp32 product, at the
+    fp32 rate with the fp32-accurate tensor-core rate as `tc_bound_ms`, as
+    the fp32 rows. No library column, as in fp32."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
         paged_flash_decode, paged_flash_decode_reference)
     from incubator_mxnet_tpu_torch.telemetry.costs import flash_decode_cost
+    rules = HALF_RULES[dtype]
+    name = "flash_decode_" + rules["suffix"]
+    tq = getattr(torch, dtype)
     H, D, bs, nb, mb = 12, 64, 16, 512, 64
     kp32, vp32 = randn(nb, bs, H, D), randn(nb, bs, H, D)
     perm = torch.randperm(nb, generator=torch.Generator().manual_seed(SEED))
     tables = perm.reshape(8, mb).to(torch.int32).to(dev)
     rows = []
-    for pools in ("float32", "bfloat16"):
+    for pools in ("float32", dtype):
         dt = getattr(torch, pools)
-        peaks = (dict(peak_flops=BF16_FLOPS_PER_S) if pools == "bfloat16"
+        peaks = (dict(peak_flops=rules["flops"]) if pools == dtype
                  else dict(tc_peak_flops=TF32X3_FLOPS_PER_S))
         kp, vp = kp32.to(dt), vp32.to(dt)
         for S, C, lengths in ((1, 32, [480]),
                               (8, 1, [0, 1, 16, 1024, 350, 511, 200, 777])):
-            q = randn(S, C, H, D).to(torch.bfloat16)
+            q = randn(S, C, H, D).to(tq)
             tab = tables[:S].contiguous()
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
             o, m, l = paged_flash_decode(q, kp, vp, tab, lens)
             if not all(same_bits(a, b) for a, b in zip(
                     (o, m, l), paged_flash_decode(q, kp, vp, tab, lens))):
-                raise AssertionError("flash_decode_bf16: two calls on the "
-                                     "same inputs differ")
+                raise AssertionError("%s: two calls on the same inputs "
+                                     "differ" % name)
             ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tab, lens)
-            if o.dtype != torch.bfloat16:
-                raise AssertionError("flash_decode_bf16: o is %s" % o.dtype)
+            if o.dtype != tq:
+                raise AssertionError("%s: o is %s" % (name, o.dtype))
             err, share = bf16_each(
-                "flash_decode_bf16", o, ro,
-                BF16_STEP * ro.float().abs() + DECODE_BF16_FLOOR,
-                (S, C, pools))
+                name, o, ro, rules["step"] * ro.float().abs()
+                + DECODE_BF16_FLOOR, (S, C, pools))
             torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
             if not max_err(m, rm) <= 1e-5:
-                raise AssertionError("flash_decode_bf16 (%d, %d): m error "
-                                     "%r > 1e-5" % (S, C, max_err(m, rm)))
+                raise AssertionError("%s (%d, %d): m error %r > 1e-5"
+                                     % (name, S, C, max_err(m, rm)))
             dead = [i for i, n in enumerate(lengths) if n == 0]
             if dead and not (o[dead].eq(0).all() and l[dead].eq(0).all()
                              and m[dead].eq(-1e30).all()):
-                raise AssertionError("flash_decode_bf16: a sequence with no "
-                                     "past did not give o = 0, m = -1e30, "
-                                     "l = 0 exactly")
+                raise AssertionError("%s: a sequence with no past did not "
+                                     "give o = 0, m = -1e30, l = 0 exactly"
+                                     % name)
             live = sum(lengths)
             fd_bytes, fd_flops = flash_decode_cost(S, C, H, D, live, mb, 2,
                                                    kp.element_size())
             rows.append(measure(
-                torch, "flash_decode_bf16", (S, C, H, D), err, None,
+                torch, name, (S, C, H, D), err, None,
                 (q, kp, vp, tab, lens), paged_flash_decode,
                 paged_flash_decode_reference, None, fd_bytes, fd_flops,
-                **peaks, dtype="bfloat16", pool_dtype=pools,
+                **peaks, dtype=dtype, pool_dtype=pools,
                 m_err=max_err(m, rm),
-                tolerance_rule="each element of o within 2**-7 of its own "
-                "value + 1e-5; m 1e-5, l rtol 1e-5",
+                tolerance_rule="each element of o within %s of its own "
+                "value + 1e-5; m 1e-5, l rtol 1e-5" % rules["names"][0],
                 tolerance_share=share,
                 library_note="no single PyTorch call computes paged "
                              "attention: SDPA needs the pages gathered into "
@@ -1586,34 +1607,41 @@ def flash_decode_bf16_rows(torch, dev, randn):
     return rows
 
 
-#: the bf16 dK/dV kernel's dbias (fp32) against the plain formulas in
-#: float64 on the same bf16 inputs, as a share of the larger of its largest
-#: magnitude and delta's (its terms p * (dP - delta) may cancel): the
-#: kernel's S and dP are fp32 sums of exact bf16 products (the tensor
+#: the 16-bit dK/dV kernels' dbias (fp32) against the plain formulas in
+#: float64 on the same 16-bit inputs, as a share of the larger of its
+#: largest magnitude and delta's (its terms p * (dP - delta) may cancel):
+#: the kernel's S and dP are fp32 sums of exact 16-bit products (the tensor
 #: cores' truncating sums) and dbias an fp32 sum over 512 queries of the
 #: unrounded dS
 DBIAS_BF16_TOL = 1e-4
 
 
-def bf16_dbias_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
-                    lengths=BF16_LENGTHS):
-    """The bf16 dK/dV kernel with the learned bias's cotangent (the TPU
-    kernel's has_dbias on bf16 q, k, v) at the training shape (8 * 12, 512,
-    64), dense and then with the ragged mask: dK and dV within BF16_REL_TOL
-    of their largest magnitude of the plain version's (dS rounded to bf16
-    at the same point), dbias within DBIAS_BF16_TOL (of its largest or
-    delta's) of the float64 plain formulas on the same bf16 inputs, a masked key's dbias
-    exactly 0, the same bits on two calls. The bound counts the work of
-    the live keys at the bf16 rate and the fp32 dbias written."""
+def half_dbias_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
+                    D=64, lengths=BF16_LENGTHS):
+    """The bf16 or fp16 dK/dV kernel with the learned bias's cotangent (the
+    TPU kernel's has_dbias on 16-bit q, k, v) at the training shape (8 *
+    12, 512, 64), dense and then with the ragged mask: dK and dV within
+    BF16_REL_TOL (FP16_REL_TOL) of their largest magnitude of the plain
+    version's (dS rounded to q's dtype at the same point), dbias within
+    DBIAS_BF16_TOL (of its largest or delta's) of the float64 plain
+    formulas on the same 16-bit inputs, a masked key's dbias exactly 0, the
+    same bits on two calls; in fp16 an inf planted in dO gives non-finite
+    dK, dV and dbias (`pair_dO_inf_nonfinite`: nothing saturates). The
+    bound counts the work of the live keys at the 16-bit rate and the fp32
+    dbias written."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_backward_reference,
-        flash_attention_bwd_dkv_dbias_bf16, flash_attention_forward)
-    bf = torch.bfloat16
+        flash_attention_backward_reference, flash_attention_bwd_dkv_dbias_bf16,
+        flash_attention_bwd_dkv_dbias_f16, flash_attention_forward)
+    rules = HALF_RULES[dtype]
+    kernel = {"bfloat16": flash_attention_bwd_dkv_dbias_bf16,
+              "float16": flash_attention_bwd_dkv_dbias_f16}[dtype]
+    name = kernel.__name__
+    tq = getattr(torch, dtype)
     BH, scale = B * H, 1.0 / math.sqrt(D)
     rows = []
     for lens in ([T] * B, list(lengths)):
         dense = min(lens) == T
-        q, k, v, do = (randn(BH, T, D).to(bf) for _ in range(4))
+        q, k, v, do = (randn(BH, T, D).to(tq) for _ in range(4))
         bias = 0.5 * randn(B, H, T)
         if not dense:
             live = torch.arange(T, device=dev)[None, :] < torch.tensor(
@@ -1622,17 +1650,14 @@ def bf16_dbias_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
         bias = bias.reshape(BH, T).contiguous()
         out, lse = flash_attention_forward(q, k, v, bias, scale)
         delta = (do.float() * out.float()).sum(dim=-1)
-        got = flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta,
-                                                 bias, scale, False)
-        again = flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta,
-                                                   bias, scale, False)
+        got = kernel(q, k, v, do, lse, delta, bias, scale, False)
+        again = kernel(q, k, v, do, lse, delta, bias, scale, False)
         if not all(same_bits(a, b) for a, b in zip(got, again)):
-            raise AssertionError("flash_attention_bwd_dkv_dbias_bf16: two "
-                                 "calls on the same inputs differ")
+            raise AssertionError("%s: two calls on the same inputs differ"
+                                 % name)
         want = flash_attention_backward_reference(
             q, k, v, out, lse, do, bias, scale, needs_dbias=True)
-        g_err = {n: bf16_close("flash_attention_bwd_dkv_dbias_bf16 " + n,
-                               g, w, lens)
+        g_err = {n: bf16_close(name + " " + n, g, w, lens, rules["rel"])
                  for n, g, w in zip(("dk", "dv"), got[:2], want[1:3])}
         db64 = flash_attention_backward_reference(
             q, k, v, out, lse, do, bias, scale, needs_dbias=True,
@@ -1641,34 +1666,47 @@ def bf16_dbias_rows(torch, dev, randn, B=8, H=12, T=512, D=64,
         db_top = max(float(db64.abs().max()), float(delta.abs().max()))
         if got[2].dtype != torch.float32 or not db_err <= \
                 DBIAS_BF16_TOL * db_top:
-            raise AssertionError("flash_attention_bwd_dkv_dbias_bf16 %s: "
-                                 "dbias error %r > %g x %r" % (
-                                     lens, db_err, DBIAS_BF16_TOL, db_top))
+            raise AssertionError("%s %s: dbias error %r > %g x %r" % (
+                name, lens, db_err, DBIAS_BF16_TOL, db_top))
         dead_keys = bias <= -0.5e30
         if not got[2][dead_keys].eq(0).all():
-            raise AssertionError("flash_attention_bwd_dkv_dbias_bf16: a "
-                                 "masked key's dbias is not exactly 0")
+            raise AssertionError("%s: a masked key's dbias is not exactly "
+                                 "0" % name)
+        extra = {}
+        if dtype == "float16":
+            # an overflowed cotangent reaches dk, dv and dbias as inf or
+            # NaN, never 65504
+            do_inf = do.clone()
+            do_inf[1, T // 3] = float("inf")
+            bad = kernel(q, k, v, do_inf, lse, delta, bias, scale, False)
+            extra["pair_dO_inf_nonfinite"] = [
+                not bool(torch.isfinite(g).all()) for g in bad]
+            if not all(extra["pair_dO_inf_nonfinite"]) or any(
+                    bool((g.float().abs() == 65504.0).any()) for g in bad):
+                raise AssertionError("%s: an inf in dO gave finite or "
+                                     "saturated gradients %s" % (
+                                         name, extra["pair_dO_inf_nonfinite"]))
+            del bad, do_inf
         del again, want, db64
         live_keys = H * sum(lens)
         prod = 2 * T * D * live_keys
         qkvd, row = BH * T * D * 2, BH * T * 4
         io = 4 * qkvd + 3 * row + 2 * qkvd + row      # dk, dv and dbias out
         rows.append(measure(
-            torch, "flash_attention_bwd_dkv_dbias_bf16", (BH, T, D),
+            torch, name, (BH, T, D),
             max(g_err[n][0] for n in g_err), min(g_err[n][1] for n in g_err),
             (q, k, v, do, out, lse, delta),
             lambda q, k, v, do, out, lse, delta:
-            flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta,
-                                               bias, scale, False),
+            kernel(q, k, v, do, lse, delta, bias, scale, False),
             lambda q, k, v, do, out, lse, delta:
             flash_attention_backward_reference(q, k, v, out, lse, do, bias,
                                                scale, needs_dbias=True),
-            None, io, 4 * prod, BF16_FLOPS_PER_S, dtype="bfloat16",
+            None, io, 4 * prod, rules["flops"], dtype=dtype,
             errors={**{n: g_err[n][0] for n in g_err}, "dbias": db_err},
             tolerances={**{n: g_err[n][1] for n in g_err},
                         "dbias": DBIAS_BF16_TOL * db_top},
             plain_computes="dq, dk, dv and dbias", lengths=lens,
-            live_key_share=sum(lens) / (B * T)))
+            live_key_share=sum(lens) / (B * T), **extra))
     return rows
 
 
@@ -1923,6 +1961,20 @@ GEN_BF16_KNOBS = {"MXTPU_GEN_BLOCK_SIZE": "32",
 #: within the two forwards' rounding (bf16 pools against fp32 pools parted
 #: at about 1 % of the steps); a broken accept path accepts next to nothing
 GEN_BF16_SELF_ACCEPT = 0.8
+#: an fp16 GPT's logits against the CPU port's: bf16's row bound scaled by
+#: fp16's three more mantissa bits (tests/test_torch_gpt.py holds the CPU
+#: port to the JAX package at the same 2**-8)
+GEN_FP16_ROW_TOL = 2.0 ** -8
+#: each 16-bit dtype's row bound, path name, and the decode and LayerNorm
+#: kernels (launch-count names) its GPT runs
+GEN_HALF = {
+    "bfloat16": dict(tol=GEN_BF16_ROW_TOL, path="generate_bf16",
+                     short="bf16",
+                     kernels=("flash_decode_bf16", "layer_norm_bf16")),
+    "float16": dict(tol=GEN_FP16_ROW_TOL, path="generate_fp16",
+                    short="fp16",
+                    kernels=("flash_decode_f16", "layer_norm_f16")),
+}
 
 
 class set_env:
@@ -2018,27 +2070,30 @@ def tokens_agree(what, got, want, margins, bound=GEN_BF16_ROW_TOL):
     return diffs
 
 
-def gpt_bf16_params(torch, cfg, seed):
-    """gpt_params drawn from `seed`, rounded to bf16 tensors on the host."""
-    return {n: torch.from_numpy(a).to(torch.bfloat16)
+def gpt_half_params(torch, cfg, seed, dtype="bfloat16"):
+    """gpt_params drawn from `seed`, rounded to 16-bit tensors of `dtype`
+    on the host."""
+    return {n: torch.from_numpy(a).to(getattr(torch, dtype))
             for n, a in gpt_params(np.random.RandomState(seed), cfg).items()}
 
 
-def bf16_spec(cfg):
-    """A gpt cache spec whose kv entries are bf16."""
+def half_spec(cfg, dtype="bfloat16"):
+    """A gpt cache spec whose kv entries are of a 16-bit `dtype`."""
     from incubator_mxnet_tpu_torch.generate.family import gpt_cache_spec
-    return {n: (kind, shape, "bfloat16")
+    return {n: (kind, shape, dtype)
             for n, (kind, shape) in gpt_cache_spec(cfg).items()}
 
 
-def generate_bf16_cpu_check(torch, dev, cfg, params, rs, spec, knobs):
+def generate_half_cpu_check(torch, dev, cfg, params, rs, spec, knobs,
+                            dtype="bfloat16"):
     """GEN_BF16_CHECK's prompts through GenerateEngine over the cache
     `spec` under the environment `knobs` on the card and on the CPU with the
-    same weights: every step's logits row within GEN_BF16_ROW_TOL of the
-    CPU's largest while the two contexts agree, tokens under the margin
-    rule."""
+    same 16-bit weights: every step's logits row within the dtype's row
+    bound (GEN_HALF) of the CPU's largest while the two contexts agree,
+    tokens under the margin rule."""
     from incubator_mxnet_tpu_torch.generate import GPTPagedLM, PagedKVCache
     lengths, new = GEN_BF16_CHECK
+    tol, path = GEN_HALF[dtype]["tol"], GEN_HALF[dtype]["path"]
     prompts = [list(rs.randint(0, cfg["vocab_size"], n)) for n in lengths]
     runs = {}
     with set_env(knobs):
@@ -2048,23 +2103,25 @@ def generate_bf16_cpu_check(torch, dev, cfg, params, rs, spec, knobs):
                                  max_len=DECODE_CACHE_LEN, device=where)
             eng = recording_engine(torch, model=lm, cache=cache,
                                    keep_logits=True)
-            runs[where.type] = (eng.generate(prompts, new), eng)
-    (got, card), (want, cpu) = runs[dev.type], runs["cpu"]
+            t0 = time.perf_counter()
+            runs[where.type] = (eng.generate(prompts, new), eng,
+                                time.perf_counter() - t0)
+    (got, card, _), (want, cpu, cpu_s) = runs[dev.type], runs["cpu"]
     worst = 0.0
     for j, (a, b) in enumerate(zip(card.steps, cpu.steps)):
         for row, slot in enumerate(b["slots"]):
             if got[slot][:j] != want[slot][:j]:
                 continue
-            gap = np.abs(a["logits"][row] - b["logits"][row]).max()
+            gap = np.abs(a["logits"][row].astype(np.float32)
+                         - b["logits"][row].astype(np.float32)).max()
             worst = max(worst, float(gap / b["top"][row]))
-    if not worst <= GEN_BF16_ROW_TOL:
-        raise AssertionError("generate_bf16: card logits %r of the CPU's "
-                             "row max apart (limit %g)"
-                             % (worst, GEN_BF16_ROW_TOL))
-    diffs = tokens_agree("generate_bf16 card vs CPU", got, want,
-                         step_margins(cpu, len(prompts)))
+    if not worst <= tol:
+        raise AssertionError("%s: card logits %r of the CPU's row max apart "
+                             "(limit %g)" % (path, worst, tol))
+    diffs = tokens_agree("%s card vs CPU" % path, got, want,
+                         step_margins(cpu, len(prompts)), tol)
     return dict(prompts=lengths, new_tokens=new, logits_gap_over_max=worst,
-                token_diffs=diffs)
+                token_diffs=diffs, cpu_s=cpu_s)
 
 
 class TeacherForced:
@@ -2082,6 +2139,7 @@ class TeacherForced:
 
     def __init__(self, torch, cfg, params, bound=GEN_BF16_ROW_TOL):
         from incubator_mxnet_tpu_torch.models.gpt import gpt_logits
+        params = {n: t.cpu() for n, t in params.items()}
         self.torch, self.bound, self.seen = torch, bound, {}
         self.logits = lambda seq: gpt_logits(params, cfg, torch.tensor(
             [seq], dtype=torch.int64))[0].float()
@@ -2113,28 +2171,49 @@ class TeacherForced:
         return dict(worst_short_over_top=worst, not_argmax=off, tokens=n)
 
 
-def generate_bf16_phase(torch, dev, cfg=None, draft_cfg=None,
-                        prompt_lengths=None, max_new=DECODE_NEW,
-                        slots=DECODE_SLOTS, cache_len=DECODE_CACHE_LEN,
-                        card=None):
-    """bf16 GPT generation through GenerateEngine on the card: GPT-2 small
-    with bf16 weights drawn from a seed (GPTPagedLM computes in them), 8
-    slots of 1024 positions, DECODE_PROMPTS' lengths in batches of `slots`
-    prompts, `max_new` greedy tokens each, in three configurations: bf16
-    pools under GEN_BF16_KNOBS (read by PagedKVCache and the engine: the
-    kernel walks 32-position blocks), fp32 pools at the defaults (bf16 q
-    over fp32 pools), and speculative decoding over the first batch, with a
-    bf16 2-layer draft (the target's first two layers) and with the target
+class fp16_exact_sums:
+    """Context manager: cuBLAS fp16 products sum in fp32 inside
+    (``allow_fp16_reduced_precision_reduction`` off; PyTorch's default lets
+    cuBLAS reduce them in fp16), the old setting restored after."""
+
+    def __init__(self, torch):
+        self.matmul = torch.backends.cuda.matmul
+
+    def __enter__(self):
+        self.old = self.matmul.allow_fp16_reduced_precision_reduction
+        self.matmul.allow_fp16_reduced_precision_reduction = False
+
+    def __exit__(self, *_exc):
+        self.matmul.allow_fp16_reduced_precision_reduction = self.old
+
+
+def generate_half_phase(torch, dev, dtype="bfloat16", cfg=None,
+                        draft_cfg=None, prompt_lengths=None,
+                        max_new=DECODE_NEW, slots=DECODE_SLOTS,
+                        cache_len=DECODE_CACHE_LEN, card=None,
+                        directory=None, record=None):
+    """A 16-bit GPT's generation through GenerateEngine on the card: GPT-2
+    small with bf16 or fp16 weights (`dtype`) drawn from one seed
+    (GPTPagedLM computes in them), 8 slots of 1024 positions,
+    DECODE_PROMPTS' lengths in batches of `slots` prompts, `max_new` greedy
+    tokens each, in three configurations: pools of the weights' dtype under
+    GEN_BF16_KNOBS (read by PagedKVCache and the engine: the kernel walks
+    32-position blocks), fp32 pools at the defaults (16-bit q over fp32
+    pools), and speculative decoding over the first batch, with a 16-bit
+    2-layer draft (the target's first two layers) and with the target
     itself as its draft (every proposal but a near tie's is accepted, so
     the accept-and-commit path of several tokens runs). Checks: the CPU
-    check (generate_bf16_cpu_check) over bf16 and over fp32 pools; every
-    token of each run's first batch against the CPU's full-sequence
-    forward (TeacherForced); exact launch counts of each run (the bf16
-    decode kernel L times a forward, the bf16 LayerNorm 2L + 1 times, no
-    fp32 decode or LayerNorm launch); the self-drafted run's acceptance at
-    least GEN_BF16_SELF_ACCEPT; the speculative tokens against the
-    fp32-pool run's under the margin rule. Logs tokens/s and step ms of
-    each run beside the card; returns the launch counts by path."""
+    check (generate_half_cpu_check) over both pool dtypes; every token of
+    each run's first batch against the CPU's full-sequence forward
+    (TeacherForced); exact launch counts of each run (the dtype's decode
+    kernel L times a forward, its LayerNorm 2L + 1 times, no other decode or
+    LayerNorm launch); the self-drafted run's acceptance at least
+    GEN_BF16_SELF_ACCEPT; the speculative tokens against the fp32-pool
+    run's under the margin rule; each at the dtype's row bound (GEN_HALF).
+    In fp16 (cuBLAS summing fp16 products in fp32) the phase also serves
+    the same weights as a checkpoint in `directory` (served_fp16_round).
+    Logs tokens/s and step ms of each run beside the card; fills `record`
+    with the runs' rates; returns the launch counts by path."""
     from incubator_mxnet_tpu_torch.generate import GPTPagedLM, PagedKVCache
     from incubator_mxnet_tpu_torch.models.gpt import (gpt_config,
                                                       gpt_param_shapes)
@@ -2143,22 +2222,26 @@ def generate_bf16_phase(torch, dev, cfg=None, draft_cfg=None,
     cfg = cfg or GPT2_SMALL
     draft_cfg = draft_cfg or DEPLOY_DRAFT
     prompt_lengths = prompt_lengths or DECODE_PROMPTS
+    half = GEN_HALF[dtype]
+    tol, path, short = half["tol"], half["path"], half["short"]
+    decode_k, ln_k = half["kernels"]
+    tdt = getattr(torch, dtype)
     rs = np.random.RandomState(SEED + 16)
-    params = gpt_bf16_params(torch, cfg, SEED + 16)
+    params = gpt_half_params(torch, cfg, SEED + 16, dtype)
     L, Ld = cfg["num_layers"], draft_cfg["num_layers"]
     target = CountingLM(GPTPagedLM(params, cfg, device=dev))
-    if any(p.dtype != torch.bfloat16
-           for p in target.lm.model.parameters()):
-        raise AssertionError("generate_bf16: the model is not bf16")
+    if any(p.dtype != tdt for p in target.lm.model.parameters()):
+        raise AssertionError("%s: the model is not %s" % (path, dtype))
     fields, counts_by_path = {}, {}
-    fields["cpu_check"] = generate_bf16_cpu_check(
-        torch, dev, cfg, params, rs, bf16_spec(cfg), GEN_BF16_KNOBS)
-    fields["cpu_check_fp32_pools"] = generate_bf16_cpu_check(
-        torch, dev, cfg, params, rs, target.lm.cache_spec(), {})
+    fields["cpu_check"] = generate_half_cpu_check(
+        torch, dev, cfg, params, rs, half_spec(cfg, dtype), GEN_BF16_KNOBS,
+        dtype)
+    fields["cpu_check_fp32_pools"] = generate_half_cpu_check(
+        torch, dev, cfg, params, rs, target.lm.cache_spec(), {}, dtype)
     prompts = [list(rs.randint(0, cfg["vocab_size"], n))
                for n in prompt_lengths]
     batches = [prompts[i:i + slots] for i in range(0, len(prompts), slots)]
-    forced = TeacherForced(torch, cfg, params)
+    forced = TeacherForced(torch, cfg, params, tol)
 
     def plain(spec, knobs):
         with set_env(knobs):
@@ -2177,16 +2260,14 @@ def generate_bf16_phase(torch, dev, cfg=None, draft_cfg=None,
             return out, engines, counts, cache
 
     def expect(what, counts, forwards, draft_forwards=0, draft_layers=Ld):
-        want = expected_counts(
-            flash_decode_bf16=L * forwards + draft_layers * draft_forwards,
-            layer_norm_bf16=(2 * L + 1) * forwards
-            + (2 * draft_layers + 1) * draft_forwards)
+        want = expected_counts(**{
+            decode_k: L * forwards + draft_layers * draft_forwards,
+            ln_k: (2 * L + 1) * forwards
+            + (2 * draft_layers + 1) * draft_forwards})
         if dev.type == "cuda" and counts != want:
-            raise AssertionError("generate_bf16 %s: launch counts %s, "
-                                 "expected %s" % (
-                                     what, {k: v for k, v in counts.items()
-                                            if v},
-                                     {k: v for k, v in want.items() if v}))
+            raise AssertionError("%s %s: launch counts %s, expected %s" % (
+                path, what, {k: v for k, v in counts.items() if v},
+                {k: v for k, v in want.items() if v}))
 
     def rates(engines):
         st = [e.last_stats for e in engines]
@@ -2197,34 +2278,36 @@ def generate_bf16_phase(torch, dev, cfg=None, draft_cfg=None,
                     prefill_s=sum(s["prefill_seconds"] for s in st),
                     prefill_tokens=sum(s["prefill_tokens"] for s in st))
 
-    tok_a, eng_a, counts, cache = plain(bf16_spec(cfg), GEN_BF16_KNOBS)
+    tok_a, eng_a, counts, cache = plain(half_spec(cfg, dtype),
+                                        GEN_BF16_KNOBS)
     if (cache.block_size, eng_a[0].prefill_chunk) != (32, 16) \
-            or cache.pool("k0").dtype != torch.bfloat16:
-        raise AssertionError("generate_bf16: the knobs did not reach the "
-                             "cache and engine (block %d, chunk %d)" % (
-                                 cache.block_size, eng_a[0].prefill_chunk))
-    expect("bf16 pools", counts, target.forwards)
-    counts_by_path["generate_bf16"] = counts
-    fields["bf16_pools"] = dict(
+            or cache.pool("k0").dtype != tdt:
+        raise AssertionError("%s: the knobs did not reach the cache and "
+                             "engine (block %d, chunk %d)" % (
+                                 path, cache.block_size,
+                                 eng_a[0].prefill_chunk))
+    expect("%s pools" % dtype, counts, target.forwards)
+    counts_by_path[path] = counts
+    fields[short + "_pools"] = dict(
         block_size=32, prefill_chunk=16, forwards=target.forwards,
-        teacher_forced=forced.check("generate_bf16 bf16 pools", batches[0],
-                                    tok_a[0]), **rates(eng_a))
+        teacher_forced=forced.check("%s %s pools" % (path, dtype),
+                                    batches[0], tok_a[0]), **rates(eng_a))
     tok_b, eng_b, counts, cache = plain(target.lm.cache_spec(), {})
     if cache.block_size != 16 or cache.pool("k0").dtype != torch.float32:
-        raise AssertionError("generate_bf16: the fp32-pool run's cache is "
-                             "%s at block %d" % (cache.pool("k0").dtype,
-                                                 cache.block_size))
+        raise AssertionError("%s: the fp32-pool run's cache is %s at block "
+                             "%d" % (path, cache.pool("k0").dtype,
+                                     cache.block_size))
     expect("fp32 pools", counts, target.forwards)
-    counts_by_path["generate_bf16_fp32_pools"] = counts
+    counts_by_path[path + "_fp32_pools"] = counts
     fields["fp32_pools"] = dict(
         block_size=16, prefill_chunk=32, forwards=target.forwards,
-        teacher_forced=forced.check("generate_bf16 fp32 pools", batches[0],
+        teacher_forced=forced.check("%s fp32 pools" % path, batches[0],
                                     tok_b[0]), **rates(eng_b))
-    # the bf16 pools' tokens against the fp32 pools': another rounding of
+    # the 16-bit pools' tokens against the fp32 pools': another rounding of
     # the committed K and V, under the margin rule
-    fields["bf16_vs_fp32_pools_diffs"] = [
-        tokens_agree("generate_bf16 bf16 vs fp32 pools", a, b,
-                     step_margins(e, len(b)))
+    fields[short + "_vs_fp32_pools_diffs"] = [
+        tokens_agree("%s %s vs fp32 pools" % (path, dtype), a, b,
+                     step_margins(e, len(b)), tol)
         for a, b, e in zip(tok_a, tok_b, eng_b)]
 
     def speculative(what, draft, layers):
@@ -2246,31 +2329,216 @@ def generate_bf16_phase(torch, dev, cfg=None, draft_cfg=None,
             acceptance=st["accepted"] / max(1, st["proposed"]),
             tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
             target_forwards=target.forwards, draft_forwards=draft.forwards,
-            teacher_forced=forced.check("generate_bf16 %s" % what,
-                                        batches[0], tok),
-            diffs=tokens_agree("generate_bf16 %s vs plain" % what, tok,
+            teacher_forced=forced.check("%s %s" % (path, what), batches[0],
+                                        tok),
+            diffs=tokens_agree("%s %s vs plain" % (path, what), tok,
                                tok_b[0], step_margins(eng_b[0],
-                                                      len(tok_b[0]))))
+                                                      len(tok_b[0])), tol))
 
-    # speculative: the target's first Ld layers as the draft, bf16
+    # speculative: the target's first Ld layers as the draft, 16-bit
     keep = set(gpt_param_shapes(gpt_config(draft_cfg)))
-    counts_by_path["generate_bf16_spec"], fields["speculative"] = \
-        speculative("speculative", CountingLM(GPTPagedLM(
+    counts_by_path[path + "_spec"], fields["speculative"] = speculative(
+        "speculative", CountingLM(GPTPagedLM(
             {n: t for n, t in params.items() if n in keep}, draft_cfg,
             device=dev)), Ld)
     # the target as its own draft: the proposals are the target's argmax
     # of 1-row forwards, verified by (k + 1)-row ones
-    counts_by_path["generate_bf16_self_spec"], fields["self_speculative"] = \
+    counts_by_path[path + "_self_spec"], fields["self_speculative"] = \
         speculative("self-drafted", CountingLM(target.lm), L)
     acc = fields["self_speculative"]["acceptance"]
     if not acc >= GEN_BF16_SELF_ACCEPT:
-        raise AssertionError("generate_bf16: the self-drafted run accepted "
-                             "%r of its proposals (floor %g)"
-                             % (acc, GEN_BF16_SELF_ACCEPT))
-    log("generate_bf16", card=card, model="gpt2_small bf16",
-        slots=slots, cache_len=cache_len, prompts=list(prompt_lengths),
-        max_new=max_new, **fields)
+        raise AssertionError("%s: the self-drafted run accepted %r of its "
+                             "proposals (floor %g)"
+                             % (path, acc, GEN_BF16_SELF_ACCEPT))
+    if record is not None:
+        record.update({"half_pools": fields[short + "_pools"],
+                       "fp32_pools": fields["fp32_pools"]})
+    if dtype == "float16":
+        fields["fp16_reduced_precision_reduction"] = \
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    log(path, card=card, model="gpt2_small " + dtype, slots=slots,
+        cache_len=cache_len, prompts=list(prompt_lengths), max_new=max_new,
+        **fields)
+    if dtype == "float16" and directory is not None:
+        served, served_counts = served_fp16_round(
+            torch, dev, cfg, params, batches[0], directory, forced, max_new,
+            slots, cache_len, card)
+        counts_by_path["decode_fp16"] = served_counts
+        if record is not None:
+            record["served"] = served
     return counts_by_path
+
+
+def generate_fp16_phase(torch, dev, card=None, directory=None, record=None,
+                        **kw):
+    """generate_half_phase in fp16, its fp16 products summed in fp32 by
+    cuBLAS (fp16_exact_sums), with the served round in `directory`."""
+    with fp16_exact_sums(torch):
+        return generate_half_phase(torch, dev, "float16", card=card,
+                                   directory=directory, record=record, **kw)
+
+
+#: the served fp16 round's second generation's seed
+SERVED_FP16_SWAP_SEED = SEED + 18
+
+
+def generate_timing(records, fp32_decode, fp16_reduction_outside):
+    """The generation paths' first timings side by side, from this run:
+    the eager GenerateEngine's tokens/s and step ms in bf16 and in fp16
+    over pools of their dtype and over fp32 pools, and the served (graphed)
+    decode rounds' tokens/s, step EWMA and p50 in fp32 (the `decode` line)
+    and in fp16 (`decode_fp16`, the first batch only). The fp16 runs sum
+    their cuBLAS products in fp32; the fp32 and bf16 ones ran under
+    PyTorch's setting, `fp16_reduced_precision_reduction_elsewhere`."""
+    def rate(r):
+        return {k: r[k] for k in ("tokens_per_s", "step_ms") if k in r}
+
+    out = {}
+    for dtype, rec in records.items():
+        short = GEN_HALF[dtype]["short"]
+        for pools, name in (("half_pools", short), ("fp32_pools", "fp32")):
+            if pools in rec:
+                out["engine_%s_%s_pools" % (short, name)] = rate(rec[pools])
+    served = records.get("float16", {}).get("served")
+    out["served_fp32"] = {k: fp32_decode[k] for k in (
+        "tokens_per_s", "step_ewma_ms", "p50_ms", "requests")}
+    if served is not None:
+        out["served_fp16"] = {k: served[k] for k in (
+            "tokens_per_s", "step_ewma_ms", "p50_ms", "requests")}
+    out["fp16_reduced_precision_reduction_elsewhere"] = \
+        fp16_reduction_outside
+    return out
+
+
+def served_fp16_round(torch, dev, cfg, params, prompts, directory, forced,
+                      max_new, slots, cache_len, card):
+    """An fp16 GPT-2 small checkpoint (the generation phase's weights)
+    exported with export_gpt_for_serving and served through ModelServer,
+    one CUDA graph per shape on the card, over the family's default fp32
+    pools (fp16 q over fp32 pools, as the JAX family serves it): the served
+    model's parameters fp16; `prompts` (the first batch) through
+    ServingClient.decode from `slots` client threads, every token held to
+    the CPU's full-sequence forward (`forced`, at GEN_FP16_ROW_TOL); one
+    sequence's prefill and 8 grid steps on the card against the CPU's rows
+    within GEN_FP16_ROW_TOL of each row's max, and one step replayed
+    against the eager forward (replay_vs_eager); exact launch counts inside
+    the graphs (the fp16 decode kernel L times a forward, the fp16
+    LayerNorm 2L + 1 times, nothing else); then a live deploy of a second
+    fp16 generation, with no graph captured again, its weights in place and
+    a request after it held to the CPU on those weights; and an fp32
+    generation of the same shapes refused by the swap's dtype rule, the
+    served weights untouched. Logs the `decode_fp16` line; returns its
+    fields and the round's launch counts."""
+    from incubator_mxnet_tpu_torch.generate import export_gpt_for_serving
+    from incubator_mxnet_tpu_torch.models.gpt import GPTDecoder, gpt_logits
+    from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
+                                                       reset_launch_counts)
+    from incubator_mxnet_tpu_torch.serving import (
+        GenerationMismatchError, ModelServer, ServingClient)
+    tol, L = GEN_FP16_ROW_TOL, cfg["num_layers"]
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    export_gpt_for_serving(directory, cfg, GPTDecoder(
+        device="cpu", **cfg).load_params(params))
+    export_s = time.perf_counter() - t0
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    server = ModelServer(device=dev).load(
+        "gpt", directory=directory, slots=slots, cache_len=cache_len).start()
+    failures = []
+    try:
+        served = server.served("gpt")
+        if any(p.dtype != torch.float16 for p in served.model.parameters()):
+            raise AssertionError("decode_fp16: the served model is not fp16")
+        with ServingClient(server.addr) as c:          # warm-up: captures
+            c.decode("gpt", prompts[-1][:40], max_new_tokens=4)
+        addr = tuple(server.addr)
+        _sync(torch, dev)
+        before = server.stats()["gpt"]["decode"]
+        reset_launch_counts()
+        tokens, latencies, wall = run_decode_clients(addr, prompts, slots,
+                                                     max_new)
+        _sync(torch, dev)
+        counts = launch_counts()
+        stats = server.stats()["gpt"]["decode"]
+        graphs = server.stats()["gpt"]["graphs"]
+        probe = prompts[min(6, len(prompts) - 1)]     # 100 tokens on GPT-2
+        fed, card_rows, replay = decode_rows(served, probe, slots, cache_len)
+        # a live deploy of a second fp16 generation: in place, no capture
+        params1 = gpt_half_params(torch, cfg, SERVED_FP16_SWAP_SEED,
+                                  "float16")
+        export_gpt_for_serving(directory, cfg, GPTDecoder(
+            device="cpu", **cfg).load_params(params1))
+        ids = program_ids(served)
+        t1 = time.perf_counter()
+        with ServingClient(server.addr) as c:
+            reply = c.deploy("gpt")
+            deploy_ms = (time.perf_counter() - t1) * 1e3
+            after = c.decode("gpt", probe, max_new_tokens=8)
+        check_no_recapture("decode_fp16", ids, program_ids(served))
+        if served.generation != 1 or not torch.equal(
+                served.model.wte.detach().cpu(), params1["wte"]):
+            failures.append("the deploy did not install generation 1 "
+                            "(generation %s)" % served.generation)
+    finally:
+        server.stop()
+    # an fp32 generation of the same shapes: dtype drift, refused whole
+    fp32 = {n: t.float() for n, t in params1.items()}
+    try:
+        served.swap_params(fp32, 2)
+        failures.append("an fp32 generation was swapped onto fp16 weights")
+    except GenerationMismatchError:
+        pass
+    if not torch.equal(served.model.wte.detach().cpu(), params1["wte"]):
+        failures.append("a refused swap moved the served weights")
+
+    steps = stats["steps"] - before["steps"]
+    chunks = prefill_chunks([len(p) for p in prompts], served.prefill_chunk)
+    forwards = steps + chunks
+    want = expected_counts(flash_decode_f16=L * forwards,
+                           layer_norm_f16=(2 * L + 1) * forwards)
+    if dev.type == "cuda" and counts != want:
+        failures.append("launch counts %s, expected %s from %d grid steps "
+                        "and %d prefill chunks" % (
+                            {k: v for k, v in counts.items() if v},
+                            {k: v for k, v in want.items() if v}, steps,
+                            chunks))
+    cpu_t0 = time.perf_counter()
+    outs = [tokens[i] for i in range(len(prompts))]
+    teacher = forced.check("decode_fp16", prompts, outs)
+    teacher_after = TeacherForced(torch, cfg, params1, tol).check(
+        "decode_fp16 after the deploy", [probe], [after])
+    with torch.inference_mode():
+        cpu_rows = gpt_logits({n: t for n, t in params.items()}, cfg,
+                              torch.tensor([fed]))[0]
+        cpu_rows = cpu_rows[len(probe) - 1:].float().numpy()
+    rows_gap = row_rel_diff(card_rows.astype(np.float32), cpu_rows)
+    if not rows_gap <= tol:
+        failures.append("one sequence's logits on the card and the CPU "
+                        "differ by %r of a row's max (limit %g)"
+                        % (rows_gap, tol))
+    cpu_s = time.perf_counter() - cpu_t0
+    lat = np.asarray([latencies[i] for i in sorted(latencies)])
+    generated = sum(int(t.size) for t in tokens.values())
+    fields = dict(
+        requests=len(tokens), clients=slots, slots=slots,
+        cache_len=cache_len, prompt_lengths=[len(p) for p in prompts],
+        prefill_chunk=served.prefill_chunk, max_new_tokens=max_new,
+        tokens_generated=generated, grid_steps=steps, prefill_chunks=chunks,
+        forwards=forwards, launches={k: v for k, v in counts.items() if v},
+        p50_ms=float(np.percentile(lat, 50) * 1e3),
+        p99_ms=float(np.percentile(lat, 99) * 1e3),
+        tokens_per_s=generated / wall, wall_s=wall,
+        step_ewma_ms=stats["step_ewma_s"] * 1e3, graphs=graphs,
+        replay_vs_eager_rel=replay, logits_gap_over_max=rows_gap,
+        teacher_forced=teacher, deploy=dict(
+            reply=reply, ms=deploy_ms, teacher_forced=teacher_after),
+        pools="float32", export_s=export_s, cpu_check_s=cpu_s,
+        fp16_reduced_precision_reduction=torch.backends.cuda.matmul
+        .allow_fp16_reduced_precision_reduction)
+    log("decode_fp16", card=card, model="gpt2_small float16", **fields)
+    if failures:
+        raise AssertionError("decode_fp16: %s" % "; ".join(failures))
+    return fields, counts
 
 
 def run_decode_clients(addr, prompts, clients, max_new, model="gpt",
@@ -5103,16 +5371,16 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
     """flash_attention with a learned kv_bias under autograd at BERT-base's
     geometry (B 8, H 12, T 512, D 64) with the ragged kv_mask of the flash
     backward rows: a (B, H, T) bias, then a (B, T) bias with causal=True,
-    each on fp32 q, k and v and then on bf16 ones (the bias fp32). Each
-    runs the forward and (out ** 2).sum().backward() (the sum in fp32); the
-    launches must be exactly one flash forward, one dQ and one
-    dK/dV-with-dbias of the inputs' dtype a backward (and no dK/dV without
-    it), and the gradients of q, k, v and kv_bias must be finite, within
-    1e-4 of each tensor's max of the same inputs through the port on the
-    CPU in fp32 (BF16_REL_TOL in bf16: the card's bf16 output may round to
-    a neighbouring value, which moves delta and so every gradient), and
-    exactly 0 at every masked key's bias. Logs the `attention_bias` line;
-    returns the launch counts."""
+    each on fp32 q, k and v and then on bf16 and on fp16 ones (the bias
+    fp32). Each runs the forward and (out ** 2).sum().backward() (the sum
+    in fp32); the launches must be exactly one flash forward, one dQ and
+    one dK/dV-with-dbias of the inputs' dtype a backward (and no dK/dV
+    without it), and the gradients of q, k, v and kv_bias must be finite,
+    within 1e-4 of each tensor's max of the same inputs through the port on
+    the CPU in fp32 (BF16_REL_TOL in bf16 and FP16_REL_TOL in fp16: the
+    card's 16-bit output may round to a neighbouring value, which moves
+    delta and so every gradient), and exactly 0 at every masked key's bias.
+    Logs the `attention_bias` line; returns the launch counts."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
@@ -5122,15 +5390,15 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
     mask = (np.arange(T)[None, :] < np.array(lengths)[:, None]) \
         .astype(np.float32)
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    suffix = {torch.float32: "", torch.bfloat16: "_bf16",
+              torch.float16: "_f16"}
+    for dtype in suffix:
         for form, causal in (("bht", False), ("bt_causal", True)):
             arrays = [rs.randn(B, H, T, D).astype(np.float32)
                       for _ in range(3)]
             arrays.append(rs.randn(*((B, T) if causal else (B, H, T)))
                           .astype(np.float32))
-            if dtype == torch.bfloat16:
-                form += "_bf16"
-            cases.append((form, causal, dtype, arrays))
+            cases.append((form + suffix[dtype], causal, dtype, arrays))
 
     def run(device, causal, dtype, arrays):
         leaves = [torch.from_numpy(a).to(device).to(dtype).requires_grad_()
@@ -5149,13 +5417,12 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
                  for _f, causal, dtype, arrays in cases]
     _sync(torch, dev)
     counts = launch_counts()
-    n = len(cases) // 2
+    n = len(cases) // len(suffix)
     failures = []
-    want = expected_counts(flash_attention_fwd=n, flash_attention_bwd_dq=n,
-                           flash_attention_bwd_dkv_dbias=n,
-                           flash_attention_fwd_bf16=n,
-                           flash_attention_bwd_dq_bf16=n,
-                           flash_attention_bwd_dkv_dbias_bf16=n)
+    want = expected_counts(**{
+        k + sfx: n for sfx in suffix.values()
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv_dbias")})
     if dev.type == "cuda" and counts != want:
         failures.append("launch counts %s, expected %s" % (
             {k: v for k, v in counts.items() if v},
@@ -5164,7 +5431,8 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
     for (form, causal, dtype, arrays), (loss, grads) in zip(cases,
                                                             card_runs):
         cpu_loss, cpu_grads = run(torch.device("cpu"), causal, dtype, arrays)
-        tol = BF16_REL_TOL if dtype == torch.bfloat16 else 1e-4
+        tol = {torch.bfloat16: BF16_REL_TOL,
+               torch.float16: FP16_REL_TOL}.get(dtype, 1e-4)
         rel = {}
         for name, got, ref in zip(("q", "k", "v", "kv_bias"), grads,
                                   cpu_grads):
@@ -5408,8 +5676,8 @@ BF16_CLASSES = ("layer_norm", "softmax", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                 "flash_decode")
 #: the kernels with an fp16 flavour, whose instantiations on __half the
-#: profiler names
-FP16_CLASSES = BF16_CLASSES[:5]
+#: profiler names: each of the bf16 ones
+FP16_CLASSES = BF16_CLASSES
 
 
 def _kernel_class(name):
@@ -5642,6 +5910,12 @@ KERNEL_META = {
         "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:177"),
     "flash_attention_bwd_dkv_f16": (
+        "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
+    # the fp16 generation path's decode kernel and the fp16 has_dbias
+    "flash_decode_f16": ("incubator_mxnet_tpu_torch/csrc/flash_decode.cu",
+                         "incubator_mxnet_tpu/ops/pallas/flash_decode.py:86"),
+    "flash_attention_bwd_dkv_dbias_f16": (
         "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
 }
@@ -6142,8 +6416,16 @@ def main(argv=None):
     log("decode", card=card, **dfields)
     if dprofile is not None:
         log("decode_profile", card=card, **dprofile)
-    gen_counts = phase("generate_bf16", generate_bf16_phase, torch, dev,
-                       card=card)
+    gen_records = {"bfloat16": {}, "float16": {}}
+    gen_counts = phase("generate_bf16", generate_half_phase, torch, dev,
+                       card=card, record=gen_records["bfloat16"])
+    gen_counts.update(phase(
+        "generate_fp16", generate_fp16_phase, torch, dev, card=card,
+        directory=os.path.join(HERE, "build", "chip_smoke", "gpt2_fp16"),
+        record=gen_records["float16"]))
+    log("generate_timing", card=card, **generate_timing(
+        gen_records, dfields, torch.backends.cuda.matmul
+        .allow_fp16_reduced_precision_reduction))
 
     fp32_lines, resnet_line = {}, {}
     tcounts = phase("train", train_phase, torch, dev, BERT_BASE,
@@ -6176,7 +6458,8 @@ def main(argv=None):
     tel_counts = phase("telemetry", telemetry_phase, torch, dev, card=card)
 
     # launches: each main path's run (serve, decode, each train shape, the
-    # bf16 train steps of each shape, the bf16-parameter steps and the bf16
+    # bf16 and fp16 generation runs and the served fp16 round, the bf16
+    # train steps of each shape, the bf16-parameter steps and the bf16
     # ResNet steps, the ResNet steps, the gluon steps of each optimizer, the
     # bottleneck stacks in bf16 and fp32, the word LM's fp32 and int8 decode, the
     # learned-bias attention, the bf16 seam, the rtc launches), counts reset

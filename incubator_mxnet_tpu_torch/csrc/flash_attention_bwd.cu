@@ -90,7 +90,6 @@
 #include <math.h>
 
 #include <atomic>
-#include <type_traits>
 
 namespace {
 
@@ -530,8 +529,7 @@ int check_args(int bh, int T, int device) {
 // The 16-bit flavours (the TPU kernels on bf16 or fp16 q, k, v and dO under
 // the trainer's compute_dtype), one body over the element type E; the
 // dK/dV kernel with and without has_dbias (a learned key bias trained in
-// bf16; the fp16 has_dbias instantiation is not built, its wrapper refuses
-// it): every product on the tensor cores as mma.sync m16n8k16 with E
+// bf16 or fp16): every product on the tensor cores as mma.sync m16n8k16 with E
 // operands and fp32 accumulators, one product where the fp32 route takes
 // three. What bounds it: operations, as in fp32 (seven T x T x D products
 // between the two kernels at the 16-bit rate, 989 TFLOP/s), with half the
@@ -936,20 +934,15 @@ int launch_dkv_b16_kernel(const E* q, const E* k, const E* v, const E* dout,
 }
 
 // The dK/dV launch, with the has_dbias instantiation for a dbias output
-// (bf16 only: the fp16 one is not built, and its wrapper refuses it)
 template <typename E, int D>
 int launch_dkv_b16(const E* q, const E* k, const E* v, const E* dout,
                    const float* lse, const float* delta, const float* bias,
                    E* dk, E* dv, float* dbias, int bh, int T, float scale,
                    int causal, int device, cudaStream_t stream) {
-  if (dbias != nullptr) {
-    if constexpr (std::is_same<E, bf16>::value)
-      return launch_dkv_b16_kernel<E, D, true>(q, k, v, dout, lse, delta,
-                                               bias, dk, dv, dbias, bh, T,
-                                               scale, causal, device, stream);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dbias != nullptr)
+    return launch_dkv_b16_kernel<E, D, true>(q, k, v, dout, lse, delta, bias,
+                                             dk, dv, dbias, bh, T, scale,
+                                             causal, device, stream);
   return launch_dkv_b16_kernel<E, D, false>(q, k, v, dout, lse, delta, bias,
                                             dk, dv, nullptr, bh, T, scale,
                                             causal, device, stream);
@@ -1068,8 +1061,7 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_f32(
 
 // The 16-bit flavours: q, k, v, dout, dq, dk, dv (bh, T, D) contiguous bf16
 // (or fp16), 16-byte aligned; lse, delta, bias and dbias as above (fp32;
-// dbias null for none). D is 32, 64 or 128. The fp16 dK/dV entry refuses a
-// dbias output (cudaErrorInvalidValue).
+// dbias null for none). D is 32, 64 or 128.
 extern "C" int mxtpu_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* bias, void* dq,

@@ -1,5 +1,6 @@
 // Paged attention of C query rows per sequence over its past (flash decode),
-// for Hopper (sm_90a): fp32, and bf16 q over bf16 or fp32 pools.
+// for Hopper (sm_90a): fp32, bf16 q over bf16 or fp32 pools, and fp16 q over
+// fp16 or fp32 pools.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_decode.py: _decode_kernel
 // (reached through _kernel_call and paged_flash_decode). The TPU kernel takes
@@ -92,9 +93,30 @@
 //   would save: later work.
 // - o rounds once to bf16 (round to nearest even), at the end; m and l
 //   are the fp32 kernel's.
+//
+// The fp16 flavour (the TPU kernel on an fp16 GPT's q, over an fp16 spec's
+// pools or the default fp32 ones) is the same body instantiated on __half
+// (flash_decode_kernel<D, QT, __half, TK>, TK __half or float), with what
+// _decode_kernel computes there: fp32 scores of q and k widened from their
+// stored dtype, p and its sums fp32, o rounded once to fp16, m and l fp32.
+// Bytes bound it as they bound bf16 (2-byte pool rows). Only two things
+// differ from bf16, and both sit in helpers over the element type:
+// - Widening. A bf16 value widens by a 16-bit shift; an fp16 one needs a
+//   real conversion (__half22float2 on each pair, subnormals included), so
+//   widen8<T> takes the element type and the bf16 and fp32 instantiations
+//   keep their instructions.
+// - Rounding o: __float2half_rn (round to nearest even, cvt.rn without
+//   .satfinite, so a value past 65504 is inf as .to(torch.float16) gives it).
+// On the tensor cores the fp32 route stays exact for fp16 too: an fp16
+// value has 11 significant bits, which TF32 holds, and its subnormals are
+// normal numbers in TF32's 8-bit exponent, so Q K^T's remainders are 0 and
+// P stays fp32, split hi + lo, as in bf16. m and the -1e30 mask stay fp32
+// in and out: in fp16 -1e30 would be -inf, and exp(m_p - m) NaN for a row
+// with no past.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -114,13 +136,14 @@ constexpr int kMaxStages = 4;
 constexpr size_t kSmemOptin = 232448;   // a block's shared memory, sm_90
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // Query rows a block carries: 1 for decode, 8 for short chunks, else 32 (16
 // at D = 128). From 16 rows on, the products run on the tensor cores
-// (3xTF32, as the flash forward's); below, on the CUDA cores. kKvBf16: the
-// pools hold bf16, whose ring stages are raw bf16 rows, widened into one
-// fp32 tile (kWide) laid out as an fp32 stage.
-template <int D, int QT, bool kKvBf16 = false>
+// (3xTF32, as the flash forward's); below, on the CUDA cores. kKv16: the
+// pools hold a 16-bit type (bf16 or fp16), whose ring stages are raw 16-bit
+// rows, widened into one fp32 tile (kWide) laid out as an fp32 stage.
+template <int D, int QT, bool kKv16 = false>
 struct Smem {
   static constexpr bool kTC = QT >= 16;
   // K and V rows (floats): on the tensor cores D + 4, the fragment reads'
@@ -137,8 +160,8 @@ struct Smem {
   static constexpr int kPart = QT * D + 2 * QT;     // acc, then m, then l
   static constexpr int kStat = QT * (kMaxSplit + 2);  // rows' merge weights
   // a ring stage (floats): K and V rows as the pools hold them
-  static constexpr int kRaw = kKvBf16 ? kTileK * D : kStage;
-  static constexpr int kWide = kKvBf16 ? kStage : 0;   // the widened stage
+  static constexpr int kRaw = kKv16 ? kTileK * D : kStage;
+  static constexpr int kWide = kKv16 ? kStage : 0;     // the widened stage
   // the ring, which the warps' partials reuse once the walk is done
   __host__ __device__ static constexpr int ring(int stages) {
     return stages * kRaw > kWarps * kPart ? stages * kRaw : kWarps * kPart;
@@ -153,20 +176,37 @@ struct Smem {
   }
 };
 
-// eight bf16 values (16 bytes) widened to fp32 at dst (16-byte aligned)
+// eight values of the 16-bit type T (16 bytes) widened to fp32 at dst
+// (16-byte aligned): bf16 by a 16-bit shift, fp16 by a conversion of each
+// pair (subnormals included)
+template <typename T>
 __device__ __forceinline__ void widen8(uint4 raw, float* dst) {
   const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dst[2 * i] = __uint_as_float(w[i] << 16);
+    for (int i = 0; i < 4; ++i) dst[2 * i] = __uint_as_float(w[i] << 16);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    for (int i = 0; i < 4; ++i)
+      dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  } else {
+    static_assert(std::is_same<T, f16>::value, "a 16-bit element type");
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
 }
 
-// o in q's dtype: fp32 as it is, bf16 rounded to nearest even
+// o in q's dtype: fp32 as it is, bf16 and fp16 rounded to nearest even
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_out(f16* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -199,9 +239,9 @@ flash_decode_kernel(const TQ* __restrict__ q,
                     float* __restrict__ l_out, int C, int H, int num_blocks,
                     int block_size, int max_blocks, float scale, int nsplit,
                     int stages) {
-  constexpr bool kKvBf16 = std::is_same<TK, bf16>::value;
-  constexpr bool kQBf16 = std::is_same<TQ, bf16>::value;
-  using Sm = Smem<D, QT, kKvBf16>;
+  constexpr bool kKv16 = sizeof(TK) == 2;    // bf16 or fp16 pools
+  constexpr bool kQ16 = sizeof(TQ) == 2;
+  using Sm = Smem<D, QT, kKv16>;
   constexpr bool kTC = Sm::kTC;
   constexpr int KS = Sm::kKStride, VS = Sm::kVStride, QS = Sm::kQStride;
   constexpr int D4 = D / 4;
@@ -209,7 +249,7 @@ flash_decode_kernel(const TQ* __restrict__ q,
   constexpr int DV = D / 32;      // output columns a lane (CUDA cores)
   constexpr int MT = kTC ? QT / 16 : 1;   // mma m-tiles (tensor cores)
   constexpr int NT = D / 8;               // mma n-tiles across D
-  constexpr int D8 = D / 8;               // 16-byte copies of a bf16 row
+  constexpr int D8 = D / 8;               // 16-byte copies of a 16-bit row
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -217,7 +257,7 @@ flash_decode_kernel(const TQ* __restrict__ q,
   float* Ps = q_lo + Sm::kQLo;
   float* lo_k = Ps + Sm::kP;
   float* lo_v = lo_k + kTileK * KS;
-  float* wide = lo_k + Sm::kLo;           // a bf16 stage widened to fp32
+  float* wide = lo_k + Sm::kLo;           // a 16-bit stage widened to fp32
   float* ring = wide + Sm::kWide;
   float* parts = ring + Sm::ring(stages);   // by rank, of the rows it owns
   // per row: the partials' weights exp(m - M) (kMaxSplit), then M and L
@@ -256,17 +296,17 @@ flash_decode_kernel(const TQ* __restrict__ q,
     }
     return;
   }
-  // the block's query rows, zero past C, land with the first tile; bf16
+  // the block's query rows, zero past C, land with the first tile; 16-bit
   // rows are widened as they are read (the first tile's barrier publishes
   // them)
-  if constexpr (kQBf16) {
+  if constexpr (kQ16) {
     for (int i = threadIdx.x; i < QT * D8; i += kThreads) {
       const int r = i / D8, c8 = i % D8;
       const uint4 raw =
           r < nq ? *reinterpret_cast<const uint4*>(
                        q + (((long long)s * C + c0 + r) * H + h) * D + 8 * c8)
                  : make_uint4(0u, 0u, 0u, 0u);
-      widen8(raw, Qs + r * QS + 8 * c8);
+      widen8<TQ>(raw, Qs + r * QS + 8 * c8);
     }
   } else {
     for (int i = threadIdx.x; i < QT * D4; i += kThreads) {
@@ -305,10 +345,10 @@ flash_decode_kernel(const TQ* __restrict__ q,
         ok ? ((long long)blk * block_size + pos % block_size) * pos_stride +
                  (long long)h * D
            : 0;
-    if constexpr (kKvBf16) {
-      // raw bf16 rows, D a key: 8 values a copy
-      bf16* Kr = reinterpret_cast<bf16*>(stage);
-      bf16* Vr = Kr + kTileK * D;
+    if constexpr (kKv16) {
+      // raw 16-bit rows, D a key: 8 values a copy
+      TK* Kr = reinterpret_cast<TK*>(stage);
+      TK* Vr = Kr + kTileK * D;
 #pragma unroll
       for (int c = sub; c < D8; c += 4) {
         cp_async16(reinterpret_cast<float*>(Kr + key * D + 8 * c),
@@ -375,16 +415,16 @@ flash_decode_kernel(const TQ* __restrict__ q,
     cp_async_wait_upto(stages - 1);      // tile i (and Q) have landed
     __syncthreads();
     float* Ks = ring + (i % stages) * Sm::kRaw;
-    if constexpr (kKvBf16) {
-      // the stage's bf16 rows into the fp32 tile that the products read
-      const bf16* Kr = reinterpret_cast<const bf16*>(Ks);
-      const bf16* Vr = Kr + kTileK * D;
+    if constexpr (kKv16) {
+      // the stage's 16-bit rows into the fp32 tile that the products read
+      const TK* Kr = reinterpret_cast<const TK*>(Ks);
+      const TK* Vr = Kr + kTileK * D;
       for (int j = threadIdx.x; j < kTileK * D8; j += kThreads) {
         const int r = j / D8, c = (j % D8) * 8;
-        widen8(*reinterpret_cast<const uint4*>(Kr + r * D + c),
-               wide + r * KS + c);
-        widen8(*reinterpret_cast<const uint4*>(Vr + r * D + c),
-               wide + kTileK * KS + r * VS + c);
+        widen8<TK>(*reinterpret_cast<const uint4*>(Kr + r * D + c),
+                   wide + r * KS + c);
+        widen8<TK>(*reinterpret_cast<const uint4*>(Vr + r * D + c),
+                   wide + kTileK * KS + r * VS + c);
       }
       Ks = wide;
       __syncthreads();
@@ -636,7 +676,7 @@ int launch(const TQ* q, const TK* k_pool, const TK* v_pool,
            float* l, int S, int C, int H, int num_blocks, int block_size,
            int max_blocks, float scale, int nsplit, int stages, int device,
            cudaStream_t stream) {
-  using Sm = Smem<D, QT, std::is_same<TK, bf16>::value>;
+  using Sm = Smem<D, QT, sizeof(TK) == 2>;
   static std::atomic<bool> done[kMaxDevices];
   const cudaError_t e =
       allow_smem(flash_decode_kernel<D, QT, TQ, TK>, device, done);
@@ -758,9 +798,9 @@ extern "C" int mxtpu_flash_decode_f32(
                               scale, device, stream_ptr);
 }
 
-// bf16 q and o over pools of kv_dtype: 0 bf16, 1 fp32. Any other code (an
-// fp16 pool, a pair this library was not built for) returns
-// cudaErrorInvalidValue and launches nothing.
+// bf16 q and o over pools of kv_dtype: 0 bf16, 1 fp32. Any other code (a
+// pair this library was not built for) returns cudaErrorInvalidValue and
+// launches nothing.
 extern "C" int mxtpu_flash_decode_bf16(
     const void* q, const void* k_pool, const void* v_pool,
     const int* tables, const int* lengths, void* out, float* m, float* l,
@@ -775,5 +815,24 @@ extern "C" int mxtpu_flash_decode_bf16(
     return decode<bf16, float>(q, k_pool, v_pool, tables, lengths, out, m,
                                l, S, C, H, D, num_blocks, block_size,
                                max_blocks, scale, device, stream_ptr);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fp16 q and o over pools of kv_dtype: 0 fp16, 1 fp32; any other code
+// returns cudaErrorInvalidValue and launches nothing.
+extern "C" int mxtpu_flash_decode_f16(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int* tables, const int* lengths, void* out, float* m, float* l,
+    int S, int C, int H, int D, int num_blocks, int block_size,
+    int max_blocks, float scale, int kv_dtype, int device,
+    void* stream_ptr) {
+  if (kv_dtype == 0)
+    return decode<f16, f16>(q, k_pool, v_pool, tables, lengths, out, m, l, S,
+                            C, H, D, num_blocks, block_size, max_blocks,
+                            scale, device, stream_ptr);
+  if (kv_dtype == 1)
+    return decode<f16, float>(q, k_pool, v_pool, tables, lengths, out, m, l,
+                              S, C, H, D, num_blocks, block_size, max_blocks,
+                              scale, device, stream_ptr);
   return (int)cudaErrorInvalidValue;
 }

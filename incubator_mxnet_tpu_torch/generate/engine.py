@@ -47,8 +47,9 @@ class GPTPagedLM:
     raising without CUDA; ``"cpu"`` for the plain path).
 
     ``params`` is a flat JAX-named dict (numpy arrays, ml_dtypes bfloat16
-    arrays, tensors or NDArrays); float32 and bfloat16 weights keep their
-    dtype, and the model computes in it (``models/gpt.params_from_jax``).
+    arrays, tensors or NDArrays); float32, bfloat16 and float16 weights keep
+    their dtype, and the model computes in it
+    (``models/gpt.params_from_jax``).
     ``forward(tokens, lengths, tables, k_pools, v_pools)`` takes host
     tokens, lengths and tables and device pools, and returns device tensors
     ``(logits (S, C, V), new_k, new_v)``."""

@@ -74,18 +74,23 @@ _CONFIG_KEYS = ("vocab_size", "units", "num_layers", "num_heads", "max_len",
 
 
 def _decoder(config, params, device, what):
-    """A served GPTDecoder with a checkpoint's weights, in float32 whatever
-    their dtype: the JAX family cannot load a bfloat16 checkpoint
-    (``jnp.asarray`` of the restored bf16 NDArrays raises), so a bf16 one is
-    served as the port always served it, widened to fp32 (ROADMAP Queue 3).
-    ``GPTPagedLM`` is the path that computes in bf16."""
+    """A served GPTDecoder with a checkpoint's weights in their dtype, as the
+    JAX family's ``jnp.asarray`` keeps them: an fp16 checkpoint is served in
+    fp16 (over the default fp32 pools), and a swap must then bring fp16
+    weights. A bfloat16 checkpoint is the exception: the JAX family cannot
+    load one (``jnp.asarray`` of the restored bf16 NDArrays raises), so it
+    is served as the port always served it, widened to fp32 (ROADMAP Queue
+    3); ``GPTPagedLM`` is the path that computes in bf16."""
     model = GPTDecoder(device=device,
                        **{k: config[k] for k in _CONFIG_KEYS if k in config})
     try:
-        return model.load_params(params).float()
+        model.load_params(params)
     except (KeyError, ValueError) as e:
         raise IOError("gpt serving checkpoint does not match the %s config: "
                       "%s" % (what, e)) from e
+    if any(p.dtype == torch.bfloat16 for p in model.parameters()):
+        model.float()
+    return model
 
 
 def commit_chunk(cache, num_layers, new_k, new_v, counts):

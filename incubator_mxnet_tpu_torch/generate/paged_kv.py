@@ -86,7 +86,8 @@ class PagedKVCache:
     ``slots * ceil(max_len / block_size)`` blocks, full capacity parity with
     the dense grid. Size it smaller to oversubscribe (appends then raise
     ``KVPoolExhausted``). A kv entry's spec may carry its dtype third
-    (``("kv", (H, D), "bfloat16")``); the default is float32.
+    (``("kv", (H, D), "bfloat16")`` or ``"float16"``); the default is
+    float32.
     ``device=None`` is ``cuda:0`` and raises without CUDA; pass
     ``device="cpu"`` for the host.
     """
@@ -254,8 +255,8 @@ class PagedKVCache:
     def write_rows(self, name, rows, values):
         """Copy `values` (n,) + shape into the kv entry's flat pool rows
         `rows` (a long tensor on the cache's device): one indexed write,
-        the values cast to the pool's dtype first (a bf16 model's K and V
-        into an fp32 pool, as the JAX package's numpy pools cast on
+        the values cast to the pool's dtype first (a 16-bit model's K and
+        V into an fp32 pool, as the JAX package's numpy pools cast on
         append)."""
         kind, shape, dtype = self.spec[name]
         if kind != "kv":

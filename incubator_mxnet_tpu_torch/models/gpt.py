@@ -24,10 +24,17 @@ softmax kernel, and the MLP's GELU is the tanh approximation that
 ``jax.nn.gelu`` defaults to. The MoE feed-forward (``moe_experts > 0``,
 ``parallel/moe.py`` in the JAX package) is not part of the port yet.
 
-The forwards compute in the weights' dtype, float32 or bfloat16, as the JAX
-package's do: bf16 weights give bf16 activations, logits and new K/V, the
-LayerNorm and attention kernels' bf16 flavours, and bf16 products through
-``torch.matmul`` (fp32 sums). A bf16 model may read fp32 or bf16 pools.
+The forwards compute in the weights' dtype, float32, bfloat16 or float16, as
+the JAX package's do: 16-bit weights give 16-bit activations, logits and new
+K/V, the LayerNorm and attention kernels' flavours of that dtype, and 16-bit
+products through ``torch.matmul`` (fp32 sums, rounded once to the dtype). On
+the CPU an fp16 product runs as the fp32 product of the fp16 values rounded
+once to fp16: the same function as PyTorch's CPU fp16 GEMM (fp32 sums, one
+rounding), which has no fast kernel on a CPU without fp16 arithmetic and
+there runs tens of times slower than the bf16 one. A 16-bit model may read
+fp32 pools or pools of its own dtype. The full-sequence forward masks future
+keys with -1e30 in the scores' dtype, as ``jnp.where`` does: -inf in fp16,
+which the softmax turns into exact zeros.
 """
 
 import math
@@ -96,10 +103,21 @@ def _ln(x, params, name):
                       eps=_LN_EPS)
 
 
+def _product(fn, *args):
+    """``fn(*args)``, a product of tensors of one dtype; an fp16 one on the
+    CPU as the fp32 product rounded once to fp16 (see the module
+    docstring)."""
+    ts = [a for a in args if isinstance(a, torch.Tensor)]
+    if ts[0].dtype != torch.float16 or ts[0].device.type != "cpu":
+        return fn(*args)
+    return fn(*(a.float() if isinstance(a, torch.Tensor) else a
+                for a in args)).half()
+
+
 def _dense(x, w, b):
     """x @ w + b over the last axis, w in the JAX (in, out) layout."""
     lead = x.shape[:-1]
-    return torch.addmm(b, x.reshape(-1, x.shape[-1]), w).reshape(
+    return _product(torch.addmm, b, x.reshape(-1, x.shape[-1]), w).reshape(
         *lead, w.shape[1])
 
 
@@ -107,6 +125,12 @@ def _mlp(x, params, p):
     h = F.gelu(_dense(x, params[p + "fc_w"], params[p + "fc_b"]),
                approximate="tanh")
     return _dense(h, params[p + "out_w"], params[p + "out_b"])
+
+
+def _mask_value(dtype):
+    """-1e30 rounded to ``dtype`` as jnp rounds a Python float against an
+    array of that dtype: -inf in float16."""
+    return float(torch.tensor(-1e30).to(dtype))
 
 
 def gpt_logits(params, cfg, tokens):
@@ -127,14 +151,14 @@ def gpt_logits(params, cfg, tokens):
         qkv = _dense(_ln(x, params, p + "ln1"), params[p + "qkv_w"],
                      params[p + "qkv_b"])
         q, k, v = (a.reshape(B, T, H, D) for a in qkv.split(d, dim=-1))
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-        a = softmax(s.masked_fill(future, -1e30), axis=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", a, v)
+        s = _product(torch.einsum, "bqhd,bkhd->bhqk", q, k) * scale
+        a = softmax(s.masked_fill(future, _mask_value(s.dtype)), axis=-1)
+        o = _product(torch.einsum, "bhqk,bkhd->bqhd", a, v)
         x = x + _dense(o.reshape(B, T, d), params[p + "proj_w"],
                        params[p + "proj_b"])
         x = x + _mlp(_ln(x, params, p + "ln2"), params, p)
     x = _ln(x, params, "lnf")
-    return torch.matmul(x, params["wte"].t())
+    return _product(torch.matmul, x, params["wte"].t())
 
 
 def gpt_forward_paged(params, cfg, tokens, lengths, block_tables, k_pools,
@@ -176,19 +200,20 @@ def gpt_forward_paged(params, cfg, tokens, lengths, block_tables, k_pools,
                        params[p + "proj_b"])
         x = x + _mlp(_ln(x, params, p + "ln2"), params, p)
     x = _ln(x, params, "lnf")
-    return torch.matmul(x, params["wte"].t()), new_k, new_v
+    return _product(torch.matmul, x, params["wte"].t()), new_k, new_v
 
 
 #: the dtypes a weight keeps; any other float dtype is carried as float32
-_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+_WEIGHT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def params_from_jax(params, cfg, device):
     """Carry a GPT parameter dict named as the JAX package names it onto
-    ``device``. A float32 or bfloat16 weight keeps its dtype, as the JAX
-    package's ``jnp.asarray`` keeps it, so bf16 weights compute in bf16;
-    any other dtype is carried as float32. The key set must be exactly
-    ``cfg``'s and every shape must match, else KeyError / ValueError."""
+    ``device``. A float32, bfloat16 or float16 weight keeps its dtype, as
+    the JAX package's ``jnp.asarray`` keeps it, so 16-bit weights compute
+    in their dtype; any other dtype is carried as float32. The key set must
+    be exactly ``cfg``'s and every shape must match, else KeyError /
+    ValueError."""
     expected = gpt_param_shapes(gpt_config(cfg))
     tensors = {str(k): _to_tensor(v) for k, v in params.items()}
     missing = sorted(set(expected) - set(tensors))
@@ -258,9 +283,9 @@ class GPTDecoder(nn.Module):
     def load_params(self, params):
         """Copy a JAX-named parameter dict (numpy arrays, tensors or the JAX
         package's NDArrays) into this model; every key and shape must
-        match. Each parameter takes the incoming weight's dtype (float32 or
-        bfloat16, see ``params_from_jax``), so the model computes in the
-        dtype it was given."""
+        match. Each parameter takes the incoming weight's dtype (float32,
+        bfloat16 or float16, see ``params_from_jax``), so the model computes
+        in the dtype it was given."""
         state = params_from_jax(params, self._cfg, self.device)
         with torch.no_grad():
             for name, p in self.named_parameters():

@@ -9,6 +9,7 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_bwd_dkv_bf16,
                               flash_attention_bwd_dkv_dbias,
                               flash_attention_bwd_dkv_dbias_bf16,
+                              flash_attention_bwd_dkv_dbias_f16,
                               flash_attention_bwd_dq,
                               flash_attention_bwd_dkv_f16,
                               flash_attention_bwd_dq_bf16,
@@ -19,6 +20,7 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_reference)
 from .flash_decode import (paged_causal_attention, paged_flash_decode,
                            paged_flash_decode_bf16,
+                           paged_flash_decode_f16,
                            paged_flash_decode_reference)
 from .fused_bottleneck import bottleneck_reference, fused_bottleneck
 from .fused_norm import (layer_norm, layer_norm_bf16, layer_norm_f16,
@@ -42,6 +44,7 @@ __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward"
            "flash_attention_bwd_dq_bf16", "flash_attention_fwd_bf16",
            "flash_attention_bwd_dq_f16", "flash_attention_bwd_dkv_f16",
            "flash_attention_fwd_f16", "layer_norm_f16", "softmax_f16",
+           "flash_attention_bwd_dkv_dbias_f16", "paged_flash_decode_f16",
            "fused_adam_flat_bf16",
            "fused_adamw_flat_bf16", "fused_sgd_mom_flat_bf16",
            "flash_attention_bwd_dq", "flash_attention_forward",
@@ -90,6 +93,8 @@ WRAPPERS = {
     "flash_attention_fwd_f16": flash_attention_fwd_f16,
     "flash_attention_bwd_dq_f16": flash_attention_bwd_dq_f16,
     "flash_attention_bwd_dkv_f16": flash_attention_bwd_dkv_f16,
+    "flash_attention_bwd_dkv_dbias_f16": flash_attention_bwd_dkv_dbias_f16,
+    "flash_decode_f16": paged_flash_decode_f16,
 }
 
 

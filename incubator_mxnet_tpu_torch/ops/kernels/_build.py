@@ -60,7 +60,7 @@ _SIGNATURES = {
     "mxtpu_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _I, _I, _I, _F, _I, _I, _P),
     # the bf16 and fp16 flavours, with the fp32 entries' arguments (dbias
-    # null for none; the fp16 dK/dV entry refuses one)
+    # null for none)
     "mxtpu_flash_attention_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _F, _I, _I, _P),
     "mxtpu_flash_attention_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -111,6 +111,9 @@ _SIGNATURES = {
     # entry's arguments with kv_dtype before device
     "mxtpu_flash_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _I, _I, _P),
+    # fp16 q and out over pools of kv_dtype (0 fp16, 1 fp32), likewise
+    "mxtpu_flash_decode_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

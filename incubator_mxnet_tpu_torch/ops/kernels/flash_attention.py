@@ -26,10 +26,10 @@ lse fp32. ``flash_attention_forward`` and ``flash_attention_backward`` route
 by dtype; the bf16 kernels count on ``flash_attention_fwd_bf16``,
 ``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkv_bf16`` and, with
 a learned bias's cotangent, ``flash_attention_bwd_dkv_dbias_bf16``; the fp16
-ones on ``flash_attention_fwd_f16``, ``flash_attention_bwd_dq_f16`` and
-``flash_attention_bwd_dkv_f16``. A 16-bit CUDA tensor launches them or
-raises (no cast to fp32); a learned bias's cotangent on fp16 raises
-TypeError (its kernel is ROADMAP Queue 2 item 17). The plain versions round
+ones on ``flash_attention_fwd_f16``, ``flash_attention_bwd_dq_f16``,
+``flash_attention_bwd_dkv_f16`` and ``flash_attention_bwd_dkv_dbias_f16``.
+A 16-bit CUDA tensor launches them or raises (no cast to fp32). The plain
+versions round
 where the TPU kernels round: p to the input dtype before P V and dS before
 dS K and dS^T Q (a no-op for fp32), with every product taken in fp32 from
 the rounded values; dbias stays the fp32 sum of the unrounded, unscaled dS.
@@ -50,7 +50,8 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
            "flash_attention_bwd_dkv_bf16",
            "flash_attention_bwd_dkv_dbias_bf16", "flash_attention_fwd_f16",
-           "flash_attention_bwd_dq_f16", "flash_attention_bwd_dkv_f16"]
+           "flash_attention_bwd_dq_f16", "flash_attention_bwd_dkv_f16",
+           "flash_attention_bwd_dkv_dbias_f16"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -467,14 +468,28 @@ def flash_attention_bwd_dkv_f16(q, k, v, do, lse, delta, bias, scale,
 
 
 flash_attention_bwd_dkv_f16.launches = 0
+
+
+def flash_attention_bwd_dkv_dbias_f16(q, k, v, do, lse, delta, bias, scale,
+                                      causal):
+    """The fp16 dK/dV kernel with the per-key bias's cotangent (the TPU
+    kernel's ``has_dbias`` variant on fp16 inputs), with the fp16 dQ
+    kernel's arguments. Returns ``(dk, dv, dbias)``: dk and dv fp16 from dS
+    rounded to fp16 (inf where a scaled dS overflows), dbias (BH, T) fp32,
+    the sum over query rows of the unrounded, unscaled dS."""
+    return _dkv16(flash_attention_bwd_dkv_dbias_f16, torch.float16, q, k, v,
+                  do, lse, delta, bias, scale, causal, True)
+
+
+flash_attention_bwd_dkv_dbias_f16.launches = 0
 #: the 16-bit backward kernels by input dtype: (dQ, dK/dV, dK/dV with
-#: dbias); fp16 has no dbias kernel yet
+#: dbias)
 _HALF_BWD = {
     torch.bfloat16: (flash_attention_bwd_dq_bf16,
                      flash_attention_bwd_dkv_bf16,
                      flash_attention_bwd_dkv_dbias_bf16),
     torch.float16: (flash_attention_bwd_dq_f16, flash_attention_bwd_dkv_f16,
-                    None)}
+                    flash_attention_bwd_dkv_dbias_f16)}
 
 
 def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
@@ -484,8 +499,7 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
     ``needs_dbias`` the per-key bias's cotangent (BH, T) after them, from
     the dK/dV kernel's dbias variant. Without it the bias (a padding mask)
     gets no gradient and costs none. bf16 and fp16 CUDA tensors go to
-    their dtype's kernels, dbias included in bf16; fp16 with
-    ``needs_dbias`` raises TypeError (ROADMAP Queue 2 item 17)."""
+    their dtype's kernels, dbias included."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
@@ -497,11 +511,6 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
     if q.dtype in _HALF_BWD:
         dq_fn, dkv_fn, dbias_fn = _HALF_BWD[q.dtype]
         if needs_dbias:
-            if dbias_fn is None:
-                raise TypeError("flash_attention backward: no CUDA kernel "
-                                "gives a learned bias's gradient on %s "
-                                "inputs yet (ROADMAP Queue 2 item 17)"
-                                % q.dtype)
             dkv_fn = dbias_fn
         # delta = rowsum(dO * O) in fp32 from the 16-bit tensors, as
         # _bwd_call takes it

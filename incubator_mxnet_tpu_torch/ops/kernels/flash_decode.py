@@ -11,13 +11,15 @@ and returns ``(o, m, l)``. For a CPU tensor it takes the plain version; for a
 CUDA tensor it launches a kernel or raises, and adds one to that kernel's
 ``launches`` count: fp32 q over fp32 pools launches the fp32 kernel (counted
 on ``paged_flash_decode``), bf16 q over bf16 or fp32 pools the bf16 one
-(counted on ``paged_flash_decode_bf16``), the pairs a bf16 GPT feeds over a
-bf16 spec or the default one. Any other pair (an fp16 tensor, fp32 q over
-bf16 pools, K and V of two dtypes) raises TypeError naming it (the fp16
-flavour is ROADMAP Queue 2 item 16); no pool is ever converted. o comes back in q's dtype, m and l in fp32. ``paged_causal_attention`` is the whole decode-step
-attention: the past term through ``paged_flash_decode``, the in-chunk causal
-term and the two-way softmax merge in plain PyTorch, as the JAX package
-computes them in lax outside its Pallas call.
+(counted on ``paged_flash_decode_bf16``) and fp16 q over fp16 or fp32 pools
+the fp16 one (counted on ``paged_flash_decode_f16``): the pairs a 16-bit GPT
+feeds over a spec of its dtype or the default one. Any other pair (fp32 q
+over 16-bit pools, a 16-bit q over pools of the other 16-bit type, K and V
+of two dtypes) raises TypeError naming it; no pool is ever converted. o
+comes back in q's dtype, m and l in fp32. ``paged_causal_attention`` is the
+whole decode-step attention: the past term through ``paged_flash_decode``,
+the in-chunk causal term and the two-way softmax merge in plain PyTorch, as
+the JAX package computes them in lax outside its Pallas call.
 """
 
 import math
@@ -28,7 +30,8 @@ from ...telemetry import costs as _costs
 from . import _build
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_bf16",
-           "paged_flash_decode_reference", "paged_causal_attention"]
+           "paged_flash_decode_f16", "paged_flash_decode_reference",
+           "paged_causal_attention"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -71,10 +74,13 @@ def paged_flash_decode_reference(q, k_pool, v_pool, block_tables, lengths,
 
 
 #: (q dtype, pool dtype) -> the C entry's pool code, for each pair a CUDA
-#: kernel takes: the fp32 kernel's one pair, the bf16 kernel's two
+#: kernel takes: the fp32 kernel's one pair, the bf16 and fp16 kernels' two
+#: each (0: pools of q's dtype, 1: fp32 pools)
 _PAIRS = {(torch.float32, torch.float32): None,
           (torch.bfloat16, torch.bfloat16): 0,
-          (torch.bfloat16, torch.float32): 1}
+          (torch.bfloat16, torch.float32): 1,
+          (torch.float16, torch.float16): 0,
+          (torch.float16, torch.float32): 1}
 
 
 def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
@@ -82,9 +88,9 @@ def _check_cuda(q, k_pool, v_pool, block_tables, lengths):
     if pair not in _PAIRS or v_pool.dtype != k_pool.dtype:
         raise TypeError(
             "paged_flash_decode: no CUDA kernel takes q %s over k_pool %s "
-            "and v_pool %s; the kernels take float32 q over float32 pools "
-            "and bfloat16 q over bfloat16 or float32 pools (float16 is "
-            "ROADMAP Queue 2 item 16)" % (q.dtype, k_pool.dtype,
+            "and v_pool %s; the kernels take float32 q over float32 pools, "
+            "bfloat16 q over bfloat16 or float32 pools and float16 q over "
+            "float16 or float32 pools" % (q.dtype, k_pool.dtype,
                                           v_pool.dtype))
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.device != q.device:
@@ -176,7 +182,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, scale=None):
     ``(o, m, l)``: the normalised output (S, C, H, D) and the online-softmax
     row max and denominator, both (S, C, H), for merging with in-chunk
     terms. A sequence with no past gives o = 0, m = -1e30 and l = 0. A
-    bf16 ``q`` on CUDA goes to ``paged_flash_decode_bf16``."""
+    bf16 ``q`` on CUDA goes to ``paged_flash_decode_bf16``, an fp16 one to
+    ``paged_flash_decode_f16``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -185,9 +192,9 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, scale=None):
     if q.device.type != "cuda":
         raise ValueError("paged_flash_decode: unsupported device %s"
                          % q.device)
-    if q.dtype == torch.bfloat16:
-        return paged_flash_decode_bf16(q, k_pool, v_pool, block_tables,
-                                       lengths, scale)
+    if q.dtype in _HALF:
+        return _HALF[q.dtype](q, k_pool, v_pool, block_tables, lengths,
+                              scale)
     return _launch("mxtpu_flash_decode_f32", paged_flash_decode, q, k_pool,
                    v_pool, block_tables, lengths, scale)
 
@@ -211,6 +218,27 @@ def paged_flash_decode_bf16(q, k_pool, v_pool, block_tables, lengths,
 
 
 paged_flash_decode_bf16.launches = 0
+
+
+def paged_flash_decode_f16(q, k_pool, v_pool, block_tables, lengths,
+                           scale=None):
+    """The fp16 decode kernel on CUDA tensors: float16 q (S, C, H, D) over
+    float16 or float32 pools (both of one dtype), read in place. Returns
+    ``(o, m, l)``, o fp16 (rounded once), m and l fp32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type != "cuda" or q.dtype != torch.float16:
+        raise TypeError("paged_flash_decode_f16: takes a float16 CUDA q, "
+                        "got %s on %s" % (q.dtype, q.device))
+    return _launch("mxtpu_flash_decode_f16", paged_flash_decode_f16, q,
+                   k_pool, v_pool, block_tables, lengths, scale,
+                   _PAIRS.get((q.dtype, k_pool.dtype)))
+
+
+paged_flash_decode_f16.launches = 0
+#: the 16-bit decode kernels by q's dtype
+_HALF = {torch.bfloat16: paged_flash_decode_bf16,
+         torch.float16: paged_flash_decode_f16}
 
 
 def paged_causal_attention(q, k_new, v_new, k_pool, v_pool, block_tables,

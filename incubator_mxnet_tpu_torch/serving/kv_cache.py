@@ -31,8 +31,9 @@ _KINDS = ("state", "kv")
 
 def _torch_dtype(dtype):
     """The torch dtype of a spec's dtype field: a torch dtype, a numpy
-    dtype or its name. ``"bfloat16"`` (or ml_dtypes' numpy type, by its
-    name) is torch.bfloat16 without importing ml_dtypes."""
+    dtype or its name (``"float16"`` is torch.float16). ``"bfloat16"`` (or
+    ml_dtypes' numpy type, by its name) is torch.bfloat16 without importing
+    ml_dtypes."""
     if isinstance(dtype, torch.dtype):
         return dtype
     if getattr(dtype, "__name__", None) == "bfloat16" \

@@ -110,7 +110,8 @@ def flash_forward_cost(H, T, D, lengths, elem_bytes=4):
 def flash_decode_cost(S, C, H, D, live, mb, q_bytes=4, kv_bytes=4):
     """(bytes, flops) of one paged flash-decode call: the K and V rows of
     the ``live`` past positions read once (``kv_bytes`` an element: 2 for
-    a bf16 pool), q read and out written (``q_bytes`` an element), m and l
+    a bf16 or fp16 pool), q read and out written (``q_bytes`` an element:
+    2 for a bf16 or fp16 q), m and l
     written in fp32, the int32 block tables and lengths read; QK^T and PV
     of each of the C chunk positions against the live past."""
     fd_bytes = (2 * live * H * D * kv_bytes + 2 * S * C * H * D * q_bytes

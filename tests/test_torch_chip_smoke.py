@@ -635,7 +635,14 @@ def test_kernel_class_gives_the_bf16_flavours_classes_of_their_own(name,
     ("void (anonymous namespace)::flash_fwd_b16_kernel<__nv_bfloat16, 64>("
      "__nv_bfloat16 const*)", "flash_attention_fwd_bf16"),
     ("void (anonymous namespace)::flash_bwd_dkv_b16_kernel<__nv_bfloat16, "
-     "64, true>(__nv_bfloat16 const*)", "flash_attention_bwd_dkv_bf16")])
+     "64, true>(__nv_bfloat16 const*)", "flash_attention_bwd_dkv_bf16"),
+    ("void (anonymous namespace)::flash_decode_kernel<64, 1, __half, "
+     "float>(__half const*)", "flash_decode_f16"),
+    ("void (anonymous namespace)::flash_decode_kernel<64, 32, "
+     "__nv_bfloat16, __nv_bfloat16>(__nv_bfloat16 const*)",
+     "flash_decode_bf16"),
+    ("void (anonymous namespace)::flash_decode_kernel<64, 8, float, "
+     "float>(float const*)", "flash_decode")])
 def test_kernel_class_gives_the_fp16_flavours_classes_of_their_own(name,
                                                                    cls):
     """The 16-bit flash kernels are one template over the element type:
@@ -910,7 +917,7 @@ def test_generate_bf16_phase_checks_each_run_on_the_cpu(capsys,
     cpu = torch.device("cpu")
     before = {k: chip_smoke.os.environ.get(k)
               for k in chip_smoke.GEN_BF16_KNOBS}
-    by_path = chip_smoke.generate_bf16_phase(
+    by_path = chip_smoke.generate_half_phase(
         torch, cpu, cfg=GEN_CFG, draft_cfg=dict(GEN_CFG, num_layers=1),
         prompt_lengths=[1, 8, 17, 31, 33, 64, 100], max_new=8, slots=4,
         cache_len=256)
@@ -939,6 +946,74 @@ def test_generate_bf16_phase_checks_each_run_on_the_cpu(capsys,
     assert self_spec["accepted"] > 0
 
 
+def test_generate_fp16_phase_checks_each_run_and_the_served_round_on_the_cpu(
+        capsys, tmp_path, one_torch_thread):
+    """The generate_fp16 drive on the CPU at a tiny size (launch counts only
+    on the card): the bf16 phase's runs and checks in fp16 at
+    GEN_FP16_ROW_TOL, then the served round: an fp16 checkpoint served in
+    fp16 through ModelServer, every served token held to the CPU's
+    full-sequence forward, one sequence's logits within the row bound, a
+    live deploy of a second fp16 generation (its weights in place, a
+    request after it held to them) and an fp32 generation refused. cuBLAS's
+    fp16 setting is restored after."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_fp16_reduced_precision_reduction
+    by_path = chip_smoke.generate_fp16_phase(
+        torch, torch.device("cpu"), cfg=GEN_CFG,
+        draft_cfg=dict(GEN_CFG, num_layers=1),
+        prompt_lengths=[1, 8, 17, 31, 33, 64, 100], max_new=8, slots=4,
+        cache_len=256, directory=str(tmp_path / "gpt_fp16"))
+    assert matmul.allow_fp16_reduced_precision_reduction == old
+    assert sorted(by_path) == ["decode_fp16", "generate_fp16",
+                               "generate_fp16_fp32_pools",
+                               "generate_fp16_self_spec",
+                               "generate_fp16_spec"]
+    lines = {l.partition(": ")[0]: json.loads(l.partition(": ")[2])
+             for l in capsys.readouterr().out.splitlines()
+             if l.startswith(("generate_fp16: ", "decode_fp16: "))}
+    gen, served = lines["generate_fp16"], lines["decode_fp16"]
+    tol = chip_smoke.GEN_FP16_ROW_TOL
+    for check in ("cpu_check", "cpu_check_fp32_pools"):
+        assert gen[check]["logits_gap_over_max"] == 0.0
+    for run in ("fp16_pools", "fp32_pools", "speculative",
+                "self_speculative"):
+        assert gen[run]["teacher_forced"]["tokens"] == 4 * 8
+        assert gen[run]["teacher_forced"]["worst_short_over_top"] <= 2 * tol
+    assert gen["self_speculative"]["acceptance"] >= \
+        chip_smoke.GEN_BF16_SELF_ACCEPT
+    assert gen["fp16_reduced_precision_reduction"] is False
+    assert served["requests"] == 4 and served["tokens_generated"] == 4 * 8
+    assert served["teacher_forced"]["tokens"] == 4 * 8
+    assert 0 <= served["logits_gap_over_max"] <= tol
+    assert served["deploy"]["teacher_forced"]["tokens"] == 8
+    assert served["pools"] == "float32"
+    assert served["graphs"]["captured"] == 0       # no graphs on the CPU
+
+
+def test_generate_timing_sets_each_path_beside_the_others():
+    records = {"bfloat16": {"half_pools": dict(tokens_per_s=400.0,
+                                               step_ms=20.0),
+                            "fp32_pools": dict(tokens_per_s=390.0,
+                                               step_ms=20.5)},
+               "float16": {"half_pools": dict(tokens_per_s=410.0,
+                                              step_ms=19.5),
+                           "served": dict(tokens_per_s=900.0,
+                                          step_ewma_ms=2.0, p50_ms=300.0,
+                                          requests=8)}}
+    fp32 = dict(tokens_per_s=850.0, step_ewma_ms=2.5, p50_ms=400.0,
+                requests=16, extra=1)
+    out = chip_smoke.generate_timing(records, fp32, True)
+    assert out == {
+        "engine_bf16_bf16_pools": dict(tokens_per_s=400.0, step_ms=20.0),
+        "engine_bf16_fp32_pools": dict(tokens_per_s=390.0, step_ms=20.5),
+        "engine_fp16_fp16_pools": dict(tokens_per_s=410.0, step_ms=19.5),
+        "served_fp32": dict(tokens_per_s=850.0, step_ewma_ms=2.5,
+                            p50_ms=400.0, requests=16),
+        "served_fp16": dict(tokens_per_s=900.0, step_ewma_ms=2.0,
+                            p50_ms=300.0, requests=8),
+        "fp16_reduced_precision_reduction_elsewhere": True}
+
+
 def _greedy(params, prompt, steps):
     from incubator_mxnet_tpu_torch.models.gpt import gpt_logits
     seq = list(prompt)
@@ -952,7 +1027,7 @@ def test_teacher_forced_refuses_a_token_far_below_the_top(one_torch_thread):
     """The full-sequence greedy tokens pass (each is its row's top); a token
     swapped for its row's lowest fails, and a sequence seen once is not
     computed again."""
-    params = chip_smoke.gpt_bf16_params(torch, GEN_CFG, 5)
+    params = chip_smoke.gpt_half_params(torch, GEN_CFG, 5)
     forced = chip_smoke.TeacherForced(torch, GEN_CFG, params)
     prompts = [[3, 1, 4], [15]]
     outs = [_greedy(params, p, 5) for p in prompts]
@@ -997,30 +1072,36 @@ def test_set_env_sets_then_restores_each_setting(monkeypatch):
     assert "MXTPU_GEN_PREFILL_CHUNK" not in env
 
 
-def test_flash_decode_bf16_rows_bound_each_pair_at_its_products_rate(
-        monkeypatch):
-    """The bf16 decode rows on the CPU (the plain version, fake clocks):
-    over bf16 pools the operations count at the bf16 tensor-core rate; bf16
-    q over fp32 pools is an fp32 product, at the fp32 rate with the
-    fp32-accurate tensor-core rate as tc_bound_ms, as the fp32 rows."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_decode_half_rows_bound_each_pair_at_its_products_rate(
+        monkeypatch, dtype):
+    """The bf16 and fp16 decode rows on the CPU (the plain version, fake
+    clocks): named by the dtype, over pools of q's dtype the operations
+    count at the 16-bit tensor-core rate; 16-bit q over fp32 pools is an
+    fp32 product, at the fp32 rate with the fp32-accurate tensor-core rate
+    as tc_bound_ms, as the fp32 rows; o is held to one step of q's dtype
+    (2**-7, 2**-10) of each element's own value."""
     from incubator_mxnet_tpu_torch.telemetry.costs import flash_decode_cost
     monkeypatch.setattr(chip_smoke, "device_ms",
                         lambda torch_, fn, inputs, iters=20: (1.0,
                                                               "profiler"))
     monkeypatch.setattr(chip_smoke, "cold_copies",
                         lambda torch_, inputs, nbytes: [inputs])
-    rows = chip_smoke.flash_decode_bf16_rows(torch, torch.device("cpu"),
-                                             _randn_cpu(4))
+    rows = chip_smoke.flash_decode_half_rows(torch, torch.device("cpu"),
+                                             _randn_cpu(4), dtype)
+    rules = chip_smoke.HALF_RULES[dtype]
     assert [(r["pool_dtype"], r["shape"]) for r in rows] == [
-        (p, s) for p in ("float32", "bfloat16")
+        (p, s) for p in ("float32", dtype)
         for s in ([1, 32, 12, 64], [8, 1, 12, 64])]
     for r in rows:
-        kv = 2 if r["pool_dtype"] == "bfloat16" else 4
+        assert r["name"] == "flash_decode_" + rules["suffix"]
+        assert r["dtype"] == dtype and r["tolerance_share"] == 0.0
+        assert rules["names"][0] in r["tolerance_rule"]
+        kv = 2 if r["pool_dtype"] == dtype else 4
         S, C, H, D = r["shape"]
         nbytes, ops = flash_decode_cost(S, C, H, D, r["live_positions"], 64,
                                         2, kv)
-        peak = (chip_smoke.BF16_FLOPS_PER_S if kv == 2
-                else chip_smoke.FP32_FLOPS_PER_S)
+        peak = rules["flops"] if kv == 2 else chip_smoke.FP32_FLOPS_PER_S
         assert r["bound_ms"] == pytest.approx(max(
             nbytes / chip_smoke.HBM_BYTES_PER_S, ops / peak) * 1e3)
         if kv == 2:
@@ -1029,5 +1110,21 @@ def test_flash_decode_bf16_rows_bound_each_pair_at_its_products_rate(
             assert r["tc_bound_ms"] == pytest.approx(max(
                 nbytes / chip_smoke.HBM_BYTES_PER_S,
                 ops / chip_smoke.TF32X3_FLOPS_PER_S) * 1e3)
-    prefill_bf16 = rows[2]
-    assert prefill_bf16["bound_by"] == "bytes"
+    prefill_half = rows[2]
+    assert prefill_half["bound_by"] == "bytes"
+
+
+def test_served_fp16_round_fails_on_a_model_that_is_not_fp16(
+        tmp_path, one_torch_thread):
+    """The served round on fp32 weights fails at once: the served model is
+    not fp16 (the server is stopped on the way out)."""
+    params = {n: t.float() for n, t in
+              chip_smoke.gpt_half_params(torch, GEN_CFG, 3,
+                                         "float16").items()}
+    forced = chip_smoke.TeacherForced(torch, GEN_CFG, params,
+                                      chip_smoke.GEN_FP16_ROW_TOL)
+    prompts = [[3, 1, 4, 1, 5], [9, 2], [6]]
+    with pytest.raises(AssertionError, match="the served model is not fp16"):
+        chip_smoke.served_fp16_round(
+            torch, torch.device("cpu"), GEN_CFG, params, prompts,
+            str(tmp_path / "gpt"), forced, 4, 3, 64, None)

@@ -5,7 +5,9 @@ mask, dead-row zeroing); the JAX side runs its lax oracle and, at C = 1, the
 Pallas decode kernel in interpret mode, as tests/test_generate.py does. Same
 numpy inputs from a seed. Tolerances: fp32 atol 1e-5 on o and m and rtol
 1e-5 on l (another summation order); bf16 on the plain path atol 3e-2 on o,
-as the JAX package holds its own bf16 kernel. The CUDA kernel is held
+as the JAX package holds its own bf16 kernel; bf16 and fp16 q over pools of
+their dtype or fp32 with o one step of its dtype from the JAX package's
+(2**-8, 2**-11 of its own value, plus 1e-6). The CUDA kernel is held
 against the plain version on a card in tests/test_torch_kernels_cuda.py.
 """
 
@@ -95,38 +97,43 @@ def test_flash_decode_bf16_on_the_plain_path():
     _close(got, want, atol=3e-2, rtol_l=2e-2)
 
 
-#: bf16 q over bf16 or fp32 pools (the two pairs a bf16 GPT feeds): both
-#: sides score and sum in fp32 from the same stored values and round only o
-#: to bf16, so o is held to one bf16 step of its own value (the fp32 sums
-#: differ in order and may round to a neighbouring bf16 value) plus 1e-6;
-#: m and l at ATOL and RTOL_L as in fp32
-BF16_STEP = 2.0 ** -8
+#: bf16 or fp16 q over pools of its dtype or fp32 (the two pairs a 16-bit
+#: GPT feeds): both sides score and sum in fp32 from the same stored values
+#: and round only o to q's dtype, so o is held to one step of that dtype of
+#: its own value (the fp32 sums differ in order and may round to a
+#: neighbouring value) plus 1e-6; m and l at ATOL and RTOL_L as in fp32
+HALF_STEP = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
 
 
-@pytest.mark.parametrize("pools", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("pools", ["half", "float32"])
 @pytest.mark.parametrize("C,bs", [(1, 8), (1, 32), (3, 8), (5, 32)])
-def test_flash_decode_bf16_pairs_match_jax(pools, C, bs):
-    """paged_flash_decode on bf16 q over bf16 and fp32 pools against the
-    JAX package on the same values: at C = 1 its Pallas decode kernel in
-    interpret mode, at C > 1 its lax oracle; block sizes 8 and 32, a dead
-    row, a block boundary and a full table."""
+def test_flash_decode_half_pairs_match_jax(pools, C, bs, dtype):
+    """paged_flash_decode on bf16 or fp16 q over pools of q's dtype and
+    fp32 pools against the JAX package on the same values: at C = 1 its
+    Pallas decode kernel in interpret mode, at C > 1 its lax oracle; block
+    sizes 8 and 32, a dead row, a block boundary and a full table; o in q's
+    dtype, m and l fp32 on both sides."""
     S, H, D, mb = 4, 2, 16, 3
     q, kp, vp, tables, lengths = _inputs(40 + C + bs, S, C, H, D, bs, mb,
                                          [0, bs, bs * mb, 2 * bs - 3])
-    q = q.astype(jnp.bfloat16)
-    pdt = jnp.bfloat16 if pools == "bfloat16" else jnp.float32
+    jdt, tq = getattr(jnp, dtype), getattr(torch, dtype)
+    q = q.astype(jdt)
+    pdt = jdt if pools == "half" else jnp.float32
     kp, vp = kp.astype(pdt), vp.astype(pdt)
     oracle = _jax_kernel if C == 1 else _jax_lax
     want = oracle(q, kp, vp, tables, lengths)
-    tdt = getattr(torch, pools)
+    tdt = tq if pools == "half" else torch.float32
     got = tfd.paged_flash_decode(
-        torch.from_numpy(np.asarray(q, np.float32)).bfloat16(),
+        torch.from_numpy(np.asarray(q, np.float32)).to(tq),
         torch.from_numpy(np.asarray(kp, np.float32)).to(tdt),
         torch.from_numpy(np.asarray(vp, np.float32)).to(tdt),
         torch.from_numpy(tables), torch.from_numpy(lengths))
-    assert got[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
+    assert got[0].dtype == tq and want[0].dtype == jdt
+    assert got[1].dtype == got[2].dtype == torch.float32
+    assert want[1].dtype == want[2].dtype == jnp.float32
     o, jo = got[0].float().numpy(), np.asarray(want[0], np.float32)
-    assert (np.abs(o - jo) <= BF16_STEP * np.abs(jo) + 1e-6).all()
+    assert (np.abs(o - jo) <= HALF_STEP[dtype] * np.abs(jo) + 1e-6).all()
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
                                atol=ATOL, rtol=0)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),

@@ -13,9 +13,12 @@
   package's ``export_gpt_for_serving``, with tokens equal to the JAX
   engine's greedy tokens; and the port's own export.
 - The generation plane's five knobs read alike by both packages; a bf16
-  GPT's greedy tokens against the JAX engine's over fp32 and bf16 pools
-  (equal wherever the top-2 margin exceeds twice the logits' bound); a
-  bf16 checkpoint, which the JAX family cannot load, served in fp32.
+  or fp16 GPT's greedy tokens against the JAX engine's over fp32 pools and
+  pools of its dtype (equal wherever the top-2 margin exceeds twice the
+  logits' bound); a bf16 checkpoint, which the JAX family cannot load,
+  served in fp32; an fp16 checkpoint served in fp16 by both packages, with
+  the JAX family's swap rule (an fp16 generation swaps in, an fp32 one is
+  refused).
 """
 
 import numpy as np
@@ -270,41 +273,66 @@ def test_engine_speculative_equals_plain_greedy(target_lm, draft_lm):
     assert st["proposed"] > 0 and st["accepted"] == st["proposed"]
 
 
-#: as tests/test_torch_gpt.py's bound on a bf16 GPT's logits against the
-#: JAX package's: 2**-5 of the row's largest |logit|
+#: as tests/test_torch_gpt.py's bound on a 16-bit GPT's logits against the
+#: JAX package's: 2**-5 (bf16) or 2**-8 (fp16) of the row's largest |logit|
 BF16_ROW_TOL = 2.0 ** -5
+FP16_ROW_TOL = 2.0 ** -8
+ROW_TOL = {"bfloat16": BF16_ROW_TOL, "float16": FP16_ROW_TOL}
 BF16_CFG = {"vocab_size": 64, "units": 32, "num_layers": 2, "num_heads": 2,
             "max_len": 64}
 
 
-def _bf16_spec(cfg):
+def _half_np(dtype):
+    """The numpy type of a 16-bit dtype name (ml_dtypes' for bfloat16)."""
+    if dtype == "bfloat16":
+        import ml_dtypes
+        return ml_dtypes.bfloat16
+    return np.float16
+
+
+def _half_spec(cfg, dtype="bfloat16"):
     H = cfg["num_heads"]
     spec = {}
     for i in range(cfg["num_layers"]):
         for n in ("k%d" % i, "v%d" % i):
-            spec[n] = ("kv", (H, cfg["units"] // H), "bfloat16")
+            spec[n] = ("kv", (H, cfg["units"] // H), dtype)
     return spec
 
 
-@pytest.mark.parametrize("pools", ["float32", "bfloat16"])
-def test_bf16_engine_greedy_matches_jax_engine(pools):
-    """GenerateEngine.generate in each package over the same bf16 weights
-    (ml_dtypes numpy), fp32 pools (the default spec) or bf16 ones: greedy
-    tokens equal wherever the step's top-2 margin exceeds twice
-    BF16_ROW_TOL of its row's largest |logit| (read from the JAX
+def _first_diff_at_a_near_tie(got, want, margin_logits, tol):
+    """Each sequence's tokens equal the reference's up to the first that
+    differs, whose reference row (``margin_logits(i, j)``) must have a
+    top-2 margin of at most twice ``tol`` of its largest |logit|."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert len(g) == len(w), (i, g, w)
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        logits = np.asarray(margin_logits(i, j), np.float32)
+        top = np.sort(logits)[::-1]
+        assert top[0] - top[1] <= 2 * tol * np.abs(logits).max(), \
+            (i, j, g, w)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("pools", ["float32", "half"])
+def test_half_engine_greedy_matches_jax_engine(pools, dtype):
+    """GenerateEngine.generate in each package over the same bf16 (ml_dtypes
+    numpy) or fp16 weights, fp32 pools (the default spec) or pools of the
+    weights' dtype: greedy tokens equal wherever the step's top-2 margin
+    exceeds twice ROW_TOL of its row's largest |logit| (read from the JAX
     package's full-sequence forward on the JAX engine's context); the
     first token that differs must sit at a narrower margin."""
-    import ml_dtypes
     cfg = BF16_CFG
-    params = {n: a.astype(ml_dtypes.bfloat16)
+    params = {n: a.astype(_half_np(dtype))
               for n, a in _params(cfg, 21, 0.5).items()}
     jlm = jgen.GPTPagedLM(params, cfg)
     tlm = tgen.GPTPagedLM(params, cfg, device="cpu")
-    if pools == "bfloat16":
-        jcache = jgen.PagedKVCache(3, _bf16_spec(cfg), max_len=64)
-        tcache = tgen.PagedKVCache(3, _bf16_spec(cfg), max_len=64,
+    if pools == "half":
+        jcache = jgen.PagedKVCache(3, _half_spec(cfg, dtype), max_len=64)
+        tcache = tgen.PagedKVCache(3, _half_spec(cfg, dtype), max_len=64,
                                    device="cpu")
-        assert tcache.pool("k0").dtype == torch.bfloat16
+        assert tcache.pool("k0").dtype == getattr(torch, dtype)
     else:
         jcache, tcache = jlm.make_cache(3, max_len=64), tlm.make_cache(3)
     prompts = [[3, 5, 7, 2, 11, 1, 4], [5], [i % 64 for i in range(1, 20)]]
@@ -312,15 +340,11 @@ def test_bf16_engine_greedy_matches_jax_engine(pools):
         prompts, max_new_tokens=8)
     got = tgen.GenerateEngine(tlm, tcache, prefill_chunk=4).generate(
         prompts, max_new_tokens=8)
-    for p, g, w in zip(prompts, got, want):
-        assert len(g) == len(w) == 8
-        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
-        if j is None:
-            continue
-        logits = jgen_logits(params, cfg, p + w[:j])
-        top = np.sort(logits)[::-1]
-        assert top[0] - top[1] <= 2 * BF16_ROW_TOL * np.abs(logits).max(), \
-            (p, j, g, w)
+    assert all(len(g) == len(w) == 8 for g, w in zip(got, want))
+    _first_diff_at_a_near_tie(
+        got, want, lambda i, j: jgen_logits(params, cfg,
+                                            prompts[i] + want[i][:j]),
+        ROW_TOL[dtype])
 
 
 def jgen_logits(params, cfg, context):
@@ -601,6 +625,120 @@ def test_bf16_checkpoint_serves_in_fp32_where_jax_cannot_load_it(tmp_path):
     tokens = torch.tensor([[3, 5, 7, 2]])
     np.testing.assert_array_equal(served.model(tokens).numpy(),
                                   want(tokens).numpy())
+
+
+def _served_greedy(served, prompts, n):
+    """Greedy tokens of each prompt through a served model's own prefill
+    and grid step (one active slot), with each step's logits row."""
+    cache = served.make_cache(2, 64)
+    toks, rows = [], []
+    for prompt in prompts:
+        slot = cache.alloc()
+        served.prefill_fn(slot, np.asarray(prompt[:-1], np.int32), cache)
+        grid = np.zeros(2, np.int32)
+        active = np.arange(2) == slot
+        seq, out = list(prompt), []
+        for _ in range(n):
+            grid[slot] = seq[-1]
+            out.append(np.asarray(served.step_fn(grid, cache, active))[slot])
+            seq.append(int(np.argmax(out[-1])))
+        toks.append(seq[len(prompt):])
+        rows.append(out)
+        cache.free(slot)
+    return toks, rows
+
+
+def _fp16_jax_checkpoint(directory, scales=(1.0,)):
+    """A gpt_decoder checkpoint that the JAX package exports from its
+    GPTDecoder (vocab 37, 16 units, 1 layer, 2 heads, Normal(0.05)) cast to
+    float16, one generation for each of ``scales`` (the weights times it,
+    rounded to fp16)."""
+    np.random.seed(11)
+    model, cfg = _jax_gpt("xf16_")
+    base = {n: np.asarray(p.data()._data)
+            for n, p in model._collect_params_with_prefix().items()}
+    for scale in scales:
+        for n, p in model._collect_params_with_prefix().items():
+            p.set_data(nd.array(base[n] * scale))
+        model.cast("float16")
+        jgen.export_gpt_for_serving(directory, cfg, model)
+        model.cast("float32")
+
+
+def test_fp16_checkpoint_serves_in_fp16_as_in_jax(tmp_path):
+    """An fp16 gpt_decoder checkpoint that the JAX package exported: both
+    families serve it in fp16 (the JAX family's ``jnp.asarray`` keeps the
+    dtype; the port's parameters stay fp16 and its served step returns fp16
+    logits), over the default fp32 pools. The port's ModelServer gives,
+    through ServingClient.decode, the JAX served model's greedy tokens
+    wherever the top-2 margin of the JAX family's step exceeds twice
+    FP16_ROW_TOL of its row's largest |logit|, and every step's logits row
+    of the port's served model is within FP16_ROW_TOL of the JAX one's
+    largest while the two agree."""
+    ckpt = str(tmp_path / "gpt_fp16")
+    _fp16_jax_checkpoint(ckpt)
+    jserved = jserving.load_served_model(ckpt)
+    served = serving.load_served_model(ckpt, device="cpu")
+    assert all(p.dtype == torch.float16 for p in served.model.parameters())
+    prompts = [[3, 5, 7, 2, 11, 1, 4], [5], [i % 37 for i in range(1, 40)]]
+    want, jrows = _served_greedy(jserved, prompts, 8)
+    got_rows, rows = _served_greedy(served, prompts, 8)
+    assert jrows[0][0].dtype == np.float16 and rows[0][0].dtype == np.float16
+    for i, (g, w) in enumerate(zip(got_rows, want)):
+        for j, (a, b) in enumerate(zip(rows[i], jrows[i])):
+            if g[:j] != w[:j]:
+                break
+            b = np.asarray(b, np.float32)
+            assert np.abs(np.asarray(a, np.float32) - b).max() \
+                <= FP16_ROW_TOL * np.abs(b).max(), (i, j)
+    srv = serving.ModelServer(device="cpu")
+    srv.load("gpt", directory=ckpt, slots=2, cache_len=64).start()
+    try:
+        with serving.ServingClient(srv.addr) as c:
+            got = [c.decode("gpt", np.asarray(p, np.int32),
+                            max_new_tokens=8).tolist() for p in prompts]
+    finally:
+        srv.stop()
+    _first_diff_at_a_near_tie(got, want, lambda i, j: jrows[i][j],
+                              FP16_ROW_TOL)
+
+
+def test_fp16_served_swap_follows_the_jax_rule(tmp_path):
+    """On an fp16 served model both families take a live swap of a second
+    fp16 generation (in place in the port: the same tensors, now equal to
+    a fresh load of generation 1, and the next step's logits within
+    FP16_ROW_TOL of the JAX family's row max) and refuse an fp32
+    generation of the same shapes with GenerationMismatchError (dtype
+    drift), leaving the served weights as they were."""
+    ckpt = str(tmp_path / "gpt_fp16_gens")
+    _fp16_jax_checkpoint(ckpt, scales=(1.0, 1.2))
+    served = serving.load_served_model(ckpt, device="cpu", generation=0)
+    jserved = jserving.load_served_model(ckpt, generation=0)
+    ptrs = [p.data_ptr() for p in served.model.parameters()]
+    params1, _ = serving.load_generation_params(ckpt, 1)
+    jparams1, _ = jserving.load_generation_params(ckpt, 1)
+    served.swap_params(params1, 1)
+    jserved.swap_params(jparams1, 1)
+    assert ptrs == [p.data_ptr() for p in served.model.parameters()]
+    fresh = serving.load_served_model(ckpt, device="cpu", generation=1)
+    for a, b in zip(fresh.model.parameters(), served.model.parameters()):
+        assert a.dtype == b.dtype == torch.float16 and torch.equal(a, b)
+    _, rows = _served_greedy(served, [[4, 9, 2, 7]], 2)
+    _, jrows = _served_greedy(jserved, [[4, 9, 2, 7]], 2)
+    want = np.asarray(jrows[0][0], np.float32)
+    assert np.abs(np.asarray(rows[0][0], np.float32) - want).max() \
+        <= FP16_ROW_TOL * np.abs(want).max()
+    fp32 = {k: np.asarray(v, np.float32) for k, v in params1.items()}
+    jfp32 = {k: np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v,
+                           np.float32) for k, v in jparams1.items()}
+    before = {n: p.clone() for n, p in served.model.named_parameters()}
+    with pytest.raises(serving.GenerationMismatchError, match="drifted"):
+        served.swap_params(fp32, 2)
+    with pytest.raises(jserving.GenerationMismatchError, match="drifted"):
+        jserved.swap_params(jfp32, 2)
+    assert served.generation == 1
+    for n, p in served.model.named_parameters():
+        assert torch.equal(p, before[n])
 
 
 def test_port_export_loads_in_both_packages(tmp_path):

@@ -5,8 +5,9 @@ tokens on both sides, on the CPU: the full-sequence ``gpt_logits`` and the
 paged ``gpt_forward_paged`` (logits, new_k, new_v) at rtol = atol = 1e-5
 (fp32 both sides, another summation order). The JAX side's paged forward
 takes its lax attention path, as its serving family does. bf16 weights
-(ml_dtypes numpy) through both packages' GPTPagedLM compute in bf16 on
-both sides, each logits and K/V row within 2**-5 of its largest.
+(ml_dtypes numpy) and fp16 ones through both packages' GPTPagedLM compute
+in their dtype on both sides, each logits and K/V row within 2**-5 (bf16)
+or 2**-8 (fp16) of its largest.
 """
 
 import numpy as np
@@ -163,7 +164,7 @@ def test_decoder_module_load_params_and_guards():
         tgpt.gpt_config(dict(CFG, num_heads=5))
 
 
-# ------------------------------------------------------------------- bf16
+# ------------------------------------------------------------ bf16, fp16
 #: bf16 logits and new K/V against the JAX package's, each (s, c) row
 #: within 2**-5 of its own largest magnitude: the port's LayerNorm kernel
 #: rounds once where the JAX GPT's jnp _ln rounds at every bf16 operation
@@ -173,15 +174,28 @@ def test_decoder_module_load_params_and_guards():
 #: (2**-8 relative each) apart, carried through two layers. Measured: up to
 #: 0.018 of the row's max on the logits, 0.015 on the new K/V.
 BF16_ROW_TOL = 2.0 ** -5
+#: fp16: the same rounding points, each step 2**-11 relative, so bf16's
+#: bound scaled by fp16's three more mantissa bits
+FP16_ROW_TOL = 2.0 ** -8
+#: dtype name -> the row bound
+ROW_TOL = {"bfloat16": BF16_ROW_TOL, "float16": FP16_ROW_TOL}
 BF16_CFG = {"vocab_size": 64, "units": 32, "num_layers": 2, "num_heads": 2,
             "max_len": 64}
 
 
-def _bf16_params(cfg, seed, scale):
-    """Weights drawn from a seed, rounded to bf16: an ml_dtypes dict, the
-    form the JAX package's bf16 arrays take on the host."""
-    import ml_dtypes
-    return {n: a.astype(ml_dtypes.bfloat16)
+def _half_np(dtype):
+    """The numpy type of a 16-bit dtype name (ml_dtypes' for bfloat16)."""
+    if dtype == "bfloat16":
+        import ml_dtypes
+        return ml_dtypes.bfloat16
+    return np.float16
+
+
+def _half_params(cfg, seed, scale, dtype="bfloat16"):
+    """Weights drawn from a seed, rounded to a 16-bit dtype: a numpy dict,
+    the form the JAX package's bf16 (ml_dtypes) or fp16 arrays take on the
+    host."""
+    return {n: a.astype(_half_np(dtype))
             for n, a in _params(cfg, seed, scale).items()}
 
 
@@ -194,20 +208,25 @@ def _row_gap(got, want):
                   / np.maximum(np.abs(w).max(-1), 1e-30)).max())
 
 
-@pytest.mark.parametrize("pools", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("pools", ["float32", "half"])
 @pytest.mark.parametrize("C,past", [(1, [5, 0]), (3, [5, 0])])
-def test_bf16_weights_compute_in_bf16_as_in_jax(pools, C, past):
-    """The same bf16 weights (ml_dtypes numpy) in the JAX GPTPagedLM and the
-    port's on the CPU, over fp32 pools (bf16 weights over the default spec)
-    and bf16 pools: bf16 logits and new K/V on both sides, each row within
-    BF16_ROW_TOL of its largest; a sequence with no past included."""
-    import ml_dtypes
+def test_half_weights_compute_in_their_dtype_as_in_jax(pools, C, past,
+                                                       dtype):
+    """The same bf16 (ml_dtypes numpy) or fp16 weights in the JAX
+    GPTPagedLM and the port's on the CPU, over fp32 pools (16-bit weights
+    over the default spec) and pools of the weights' dtype: parameters,
+    logits and new K/V of that dtype on both sides (a row bound alone
+    would not show an fp16 model widened to fp32: its rows sit well
+    inside it), each row within ROW_TOL of its largest; a sequence with no
+    past included."""
     from incubator_mxnet_tpu import generate as jgen
     from incubator_mxnet_tpu_torch import generate as tgen
     cfg = BF16_CFG
-    params = _bf16_params(cfg, 0, 0.5)
+    tdt, ndt, tol = getattr(torch, dtype), _half_np(dtype), ROW_TOL[dtype]
+    params = _half_params(cfg, 0, 0.5, dtype)
     tlm = tgen.GPTPagedLM(params, cfg, device="cpu")
-    assert all(p.dtype == torch.bfloat16 for p in tlm.model.parameters())
+    assert all(p.dtype == tdt for p in tlm.model.parameters())
     S, bs, mb, L = 2, 4, 4, cfg["num_layers"]
     H = cfg["num_heads"]
     D = cfg["units"] // H
@@ -217,31 +236,30 @@ def test_bf16_weights_compute_in_bf16_as_in_jax(pools, C, past):
     tables = rs.permutation(S * mb).reshape(S, mb).astype(np.int32)
     kps, vps = ([rs.randn(S * mb, bs, H, D).astype(np.float32)
                  for _ in range(L)] for _ in range(2))
-    if pools == "bfloat16":
-        kps, vps = ([a.astype(ml_dtypes.bfloat16) for a in p]
-                    for p in (kps, vps))
+    if pools == "half":
+        kps, vps = ([a.astype(ndt) for a in p] for p in (kps, vps))
     want = jgen.GPTPagedLM(params, cfg).forward(tokens, lengths, tables,
                                                 kps, vps)
     got = tlm.forward(tokens, lengths, tables,
                       *([tgpt._to_tensor(a) for a in p] for p in (kps, vps)))
-    assert want[0].dtype == ml_dtypes.bfloat16
-    assert got[0].dtype == got[1][0].dtype == got[2][0].dtype \
-        == torch.bfloat16
-    assert _row_gap(got[0], want[0]) <= BF16_ROW_TOL
+    assert want[0].dtype == want[1][0].dtype == want[2][0].dtype == ndt
+    assert got[0].dtype == got[1][0].dtype == got[2][0].dtype == tdt
+    assert _row_gap(got[0], want[0]) <= tol
     for i in range(L):
-        assert _row_gap(got[1][i], want[1][i]) <= BF16_ROW_TOL, ("k", i)
-        assert _row_gap(got[2][i], want[2][i]) <= BF16_ROW_TOL, ("v", i)
+        assert _row_gap(got[1][i], want[1][i]) <= tol, ("k", i)
+        assert _row_gap(got[2][i], want[2][i]) <= tol, ("v", i)
 
 
-def test_bf16_weights_carry_over_from_numpy_and_torch():
-    """params_from_jax keeps float32 and bfloat16 as given (an ml_dtypes
-    array bit for bit, without ml_dtypes in the port) and carries any other
-    float dtype as float32; GPTDecoder.load_params takes the weights'
-    dtype."""
-    import ml_dtypes
-    params = _bf16_params(CFG, 3, 0.05)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_weights_carry_over_from_numpy_and_torch(dtype):
+    """params_from_jax keeps float32, bfloat16 and float16 as given (a
+    numpy array bit for bit, an ml_dtypes one without ml_dtypes in the
+    port) and carries any other float dtype as float32;
+    GPTDecoder.load_params takes the weights' dtype."""
+    tdt, ndt = getattr(torch, dtype), _half_np(dtype)
+    params = _half_params(CFG, 3, 0.05, dtype)
     got = tgpt.params_from_jax(params, CFG, "cpu")
-    assert got["wte"].dtype == torch.bfloat16
+    assert got["wte"].dtype == tdt
     np.testing.assert_array_equal(
         got["wte"].view(torch.int16).numpy(),
         params["wte"].view(np.int16))
@@ -249,10 +267,25 @@ def test_bf16_weights_carry_over_from_numpy_and_torch():
                  lnf_g=torch.from_numpy(params["lnf_g"].astype(np.float32)))
     got = tgpt.params_from_jax(mixed, CFG, "cpu")
     assert (got["wpe"].dtype, got["lnf_g"].dtype, got["h0_qkv_w"].dtype) \
-        == (torch.float32, torch.float32, torch.bfloat16)
+        == (torch.float32, torch.float32, tdt)
     m = tgpt.GPTDecoder(device="cpu", **CFG).load_params(
-        {n: torch.from_numpy(a.astype(np.float32)).bfloat16()
+        {n: torch.from_numpy(a.astype(np.float32)).to(tdt)
          for n, a in params.items()})
-    assert m.wte.dtype == torch.bfloat16 and isinstance(m.wte,
-                                                        torch.nn.Parameter)
-    assert np.asarray(params["wte"]).dtype == ml_dtypes.bfloat16
+    assert m.wte.dtype == tdt and isinstance(m.wte, torch.nn.Parameter)
+    assert np.asarray(params["wte"]).dtype == ndt
+
+
+def test_fp16_full_forward_masks_with_inf_as_jnp_does():
+    """The full-sequence forward on fp16 weights: jnp.where rounds the
+    -1e30 mask to -inf in fp16, and the softmax gives the masked keys exact
+    zeros; the port's logits are fp16, finite and each row within
+    FP16_ROW_TOL of the JAX package's largest."""
+    params = _half_params(BF16_CFG, 4, 0.5, "float16")
+    tokens = np.random.RandomState(4).randint(0, 64, (2, 9))
+    want = _jax_logits({n: jnp.asarray(a) for n, a in params.items()},
+                       BF16_CFG, tokens)
+    got = tgpt.gpt_logits(tgpt.params_from_jax(params, BF16_CFG, "cpu"),
+                          BF16_CFG, torch.from_numpy(tokens))
+    assert want.dtype == np.float16 and got.dtype == torch.float16
+    assert bool(torch.isfinite(got).all())
+    assert _row_gap(got, want) <= FP16_ROW_TOL

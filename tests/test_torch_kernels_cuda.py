@@ -2396,8 +2396,9 @@ def test_flash_bf16_autograd_on_the_card_matches_the_cpu(cuda):
 def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     """Each 16-bit wrapper takes its own dtype only, and the public
     wrappers one dtype across their tensors; fp16 now has kernels of its
-    own (the fp16 tests below), and the fp16 flavours still queued refuse
-    naming their ROADMAP item."""
+    own (the fp16 tests below), a learned bias's gradient on fp16 included:
+    it launches the fp16 has_dbias kernel, and the fp16 dbias wrapper
+    refuses a bf16 tensor."""
     x = torch.randn(4, 64, device=cuda)
     h, b16 = x.half(), x.to(BF16)
     with pytest.raises(TypeError, match="float16"):
@@ -2444,11 +2445,20 @@ def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
                                    False)
     with pytest.raises(TypeError):
         flash_attention_bwd_dq(qb, qb, qb, qb, lse, lse, None, 0.125, False)
-    n0 = flash_attention_bwd_dkv_f16.launches
-    with pytest.raises(TypeError, match="Queue 2 item 17"):
-        flash_attention_backward(qh, qh, qh, qh, lse, qh, lse, 0.125,
-                                 needs_dbias=True)
-    assert flash_attention_bwd_dkv_f16.launches == n0
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv_dbias_f16)
+    n0 = (flash_attention_bwd_dkv_f16.launches,
+          flash_attention_bwd_dkv_dbias_f16.launches)
+    grads = flash_attention_backward(qh, qh, qh, qh, lse, qh, lse, 0.125,
+                                     needs_dbias=True)
+    torch.cuda.synchronize()
+    assert len(grads) == 4 and grads[3].dtype == torch.float32
+    assert (flash_attention_bwd_dkv_f16.launches,
+            flash_attention_bwd_dkv_dbias_f16.launches) == (n0[0],
+                                                             n0[1] + 1)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_dkv_dbias_f16(qb, qb, qb, qb, lse, lse, lse,
+                                          0.125, False)
 
 
 # ------------------------------------------------------------ fp16 flavours
@@ -2635,49 +2645,60 @@ def test_flash_f16_autograd_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("T", [1, 63, 128, 512, 777])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_bf16_dkv_dbias_kernel_matches_plain(cuda, T, D, causal):
-    """The bf16 dK/dV kernel's dbias variant (the TPU kernel's has_dbias on
-    bf16 inputs), through flash_attention_backward(needs_dbias=True): one
-    launch of it and none of the bf16 dK/dV kernel without dbias; dk and dv
-    bitwise those of the variant without dbias and within 2 * 2**-8 of the
-    plain version's largest; dbias fp32 within 1e-4 (of its largest or of
-    delta's) of the float64 formulas' on the same bf16 inputs; a row of
-    keys all masked and a half-masked row give dbias exactly 0 at their
-    masked keys; the same bits on two calls."""
+def test_flash_half_dkv_dbias_kernel_matches_plain(cuda, T, D, causal,
+                                                   dtype):
+    """The bf16 or fp16 dK/dV kernel's dbias variant (the TPU kernel's
+    has_dbias on 16-bit inputs), through
+    flash_attention_backward(needs_dbias=True): one launch of it and none
+    of the dK/dV kernel without dbias; dk and dv bitwise those of the
+    variant without dbias and within 2 * 2**-8 (bf16) or 2 * 2**-11 (fp16)
+    of the plain version's largest; dbias fp32 within 1e-4 (of its largest
+    or of delta's) of the float64 formulas' on the same 16-bit inputs; a
+    row of keys all masked and a half-masked (ragged) row give dbias
+    exactly 0 at their masked keys; the same bits on two calls. In fp16 an
+    inf planted in dO gives non-finite dk, dv and dbias, never 65504 (dS
+    rounds by cvt.rn, which does not saturate)."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd_dkv_dbias_bf16)
+        flash_attention_bwd_dkv_dbias_bf16, flash_attention_bwd_dkv_dbias_f16)
+    dbias_fn, plain_fn, rel = {
+        "bfloat16": (flash_attention_bwd_dkv_dbias_bf16,
+                     flash_attention_bwd_dkv_bf16, 2.0 ** -8),
+        "float16": (flash_attention_bwd_dkv_dbias_f16,
+                    flash_attention_bwd_dkv_f16, 2.0 ** -11)}[dtype]
     q, k, v, do, bias = _flash_bf16_inputs(6, T, D, cuda, T * D + 11)
+    if dtype == "float16":
+        q, k, v, do = (t.half() for t in (q, k, v, do))
     bias[2:] = torch.randn(4, T, device=cuda)       # a learned bias
     scale = 1.0 / math.sqrt(D)
     out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
-    n0 = (flash_attention_bwd_dkv_bf16.launches,
-          flash_attention_bwd_dkv_dbias_bf16.launches,
+    n0 = (plain_fn.launches, dbias_fn.launches,
           flash_attention_bwd_dkv_dbias.launches)
     got = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
                                    causal, needs_dbias=True)
     again = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
                                      causal, needs_dbias=True)
     torch.cuda.synchronize()
-    assert (flash_attention_bwd_dkv_bf16.launches,
-            flash_attention_bwd_dkv_dbias_bf16.launches,
+    assert (plain_fn.launches, dbias_fn.launches,
             flash_attention_bwd_dkv_dbias.launches) == (n0[0], n0[1] + 2,
                                                         n0[2])
     assert len(got) == 4 and all(torch.equal(a, b)
                                  for a, b in zip(got, again))
     delta = (do.float() * out.float()).sum(dim=-1)
-    dk0, dv0 = flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, bias,
-                                            scale, causal)
+    dk0, dv0 = plain_fn(q, k, v, do, lse, delta, bias, scale, causal)
     assert torch.equal(got[1], dk0) and torch.equal(got[2], dv0)
     want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
                                               scale, causal,
                                               needs_dbias=True)
     top = max(w.float().abs().max().item() for w in want[:3])
     for name, g, w in zip(("dk", "dv"), got[1:3], want[1:3]):
-        _bf16_close(g, w, (name, T, D, causal),
-                    max(w.float().abs().max().item(), top / 64))
+        assert g.dtype == q.dtype, name
+        lim = 2 * rel * max(w.float().abs().max().item(), top / 64, 1e-30)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= lim, (name, T, D, causal, err, lim)
     db64 = flash_attention_backward_reference(
         q, k, v, out, lse, do, bias, scale, causal, needs_dbias=True,
         compute_dtype=torch.float64)[3]
@@ -2688,48 +2709,62 @@ def test_flash_bf16_dkv_dbias_kernel_matches_plain(cuda, T, D, causal):
     assert (db - db64).abs().max().item() <= 1e-4 * max(
         db64.abs().max().item(), delta.abs().max().item())
     assert (db[0] == 0).all() and (db[1, T // 2:] == 0).all()
-
-
-def _paged_bf16(q, kp, vp, pools):
-    """bf16 q over pools of ``pools`` (the two pairs a bf16 GPT feeds)."""
-    dt = getattr(torch, pools)
-    return q.to(BF16), kp.to(dt), vp.to(dt)
+    if dtype == "float16":
+        do_inf = do.clone()
+        do_inf[3, T // 2] = float("inf")
+        bad = flash_attention_backward(q, k, v, out, lse, do_inf, bias,
+                                       scale, causal, needs_dbias=True)
+        for name, g in zip(("dk", "dv", "dbias"), bad[1:]):
+            assert not bool(torch.isfinite(g).all()), name
+            assert not bool((g.float().abs() == 65504.0).any()), name
 
 
 @pytest.mark.needs_cuda
-@pytest.mark.parametrize("pools", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("pools", ["half", "float32"])
 @pytest.mark.parametrize("bs", [16, 8, 32, 12])
 @pytest.mark.parametrize("C", [1, 3, 8, 32, 33])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_decode_bf16_kernel_matches_plain(cuda, pools, bs, C, D):
-    """The bf16 decode kernel on bf16 q over bf16 or fp32 pools, read in
-    place: one launch of it and none of the fp32 kernel; o bf16, each
-    element within a bf16 step (2**-7) of its own value plus 1e-5 of the
+def test_flash_decode_half_kernel_matches_plain(cuda, pools, bs, C, D,
+                                                dtype):
+    """The bf16 or fp16 decode kernel on 16-bit q over pools of q's dtype
+    or fp32, read in place: one launch of it and none of the fp32 kernel or
+    the other 16-bit one; o in q's dtype, each element within one step of
+    it (2**-7 for bf16, 2**-10 for fp16) of its own value plus 1e-5 of the
     plain version's, m within 1e-5 and l within rtol 1e-5 (p and its sums
-    stay fp32); dead rows exact; the same bits on two calls. Blocks of 16,
-    8, 32 and 12 positions (12: a block that is no multiple of 8 positions,
-    16-byte rows all the same), a table of about 1024 positions, chunks
-    from decode to two query tiles."""
+    stay fp32); a sequence with no past exact; the same bits on two calls.
+    Blocks of 16, 8, 32 and 12 positions (12: a block that is no multiple
+    of 8 positions, 16-byte rows all the same), a table of about 1024
+    positions with odd pasts, chunks from decode to two query tiles."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
-        paged_flash_decode, paged_flash_decode_bf16,
+        paged_flash_decode, paged_flash_decode_bf16, paged_flash_decode_f16,
         paged_flash_decode_reference)
+    tq = getattr(torch, dtype)
+    mine, other, step = {
+        "bfloat16": (paged_flash_decode_bf16, paged_flash_decode_f16,
+                     2.0 ** -7),
+        "float16": (paged_flash_decode_f16, paged_flash_decode_bf16,
+                    2.0 ** -10)}[dtype]
     mb = -(-1024 // bs)
     cap = mb * bs
     lengths = [0, 1, bs, cap, 350, 2 * bs - 1, cap - 1, 17]
     q, kp, vp, tables, lens = _paged_inputs(8, C, 4, D, bs, mb, lengths,
                                             cuda, seed=C * D + bs)
-    q, kp, vp = _paged_bf16(q, kp, vp, pools)
-    n0 = (paged_flash_decode.launches, paged_flash_decode_bf16.launches)
+    pdt = tq if pools == "half" else torch.float32
+    q, kp, vp = q.to(tq), kp.to(pdt), vp.to(pdt)
+    n0 = (paged_flash_decode.launches, mine.launches, other.launches)
     o, m, l = paged_flash_decode(q, kp, vp, tables, lens)
     again = paged_flash_decode(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
-    assert (paged_flash_decode.launches,
-            paged_flash_decode_bf16.launches) == (n0[0], n0[1] + 2)
+    assert (paged_flash_decode.launches, mine.launches,
+            other.launches) == (n0[0], n0[1] + 2, n0[2])
     assert all(torch.equal(a, b) for a, b in zip((o, m, l), again))
     ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tables, lens)
-    assert o.dtype == BF16 and m.dtype == l.dtype == torch.float32
-    _bf16_each(o, ro, 2.0 ** -7 * ro.float().abs() + 1e-5,
-               (pools, bs, C, D))
+    assert o.dtype == tq and m.dtype == l.dtype == torch.float32
+    gap = (o.float() - ro.float()).abs()
+    out = gap > step * ro.float().abs() + 1e-5
+    assert not bool(out.any()), (pools, bs, C, D, int(out.sum()),
+                                 gap.max().item())
     assert (m - rm).abs().max().item() <= 1e-5
     torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
     assert (o[0] == 0).all() and (l[0] == 0).all()
@@ -2738,41 +2773,47 @@ def test_flash_decode_bf16_kernel_matches_plain(cuda, pools, bs, C, D):
 
 @pytest.mark.needs_cuda
 def test_flash_decode_refuses_pairs_without_a_kernel(cuda):
-    """No kernel takes an fp16 tensor, fp32 q over bf16 pools, or K and V
-    of two dtypes: each raises TypeError naming the pair, and nothing
-    launches; the bf16 wrapper refuses an fp32 q."""
+    """No kernel takes a 16-bit q over pools of the other 16-bit type,
+    fp32 q over 16-bit pools, or K and V of two dtypes: each raises
+    TypeError naming the pair, and nothing launches; each 16-bit wrapper
+    refuses a q of another dtype. fp16 q over fp16 or fp32 pools launches
+    the fp16 kernel once."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
-        paged_flash_decode, paged_flash_decode_bf16)
+        paged_flash_decode, paged_flash_decode_bf16, paged_flash_decode_f16)
     q, kp, vp, tables, lens = _paged_inputs(2, 1, 2, 64, 16, 2, [3, 5],
                                             cuda, seed=2)
-    n0 = (paged_flash_decode.launches, paged_flash_decode_bf16.launches)
+    wrappers = (paged_flash_decode, paged_flash_decode_bf16,
+                paged_flash_decode_f16)
+    n0 = tuple(w.launches for w in wrappers)
     for qq, kk, vv in ((q.to(BF16), kp.half(), vp.half()),
-                       (q.half(), kp.half(), vp.half()),
+                       (q.half(), kp.to(BF16), vp.to(BF16)),
                        (q, kp.to(BF16), vp.to(BF16)),
-                       (q.to(BF16), kp.to(BF16), vp)):
+                       (q, kp.half(), vp.half()),
+                       (q.to(BF16), kp.to(BF16), vp),
+                       (q.half(), kp.half(), vp)):
         with pytest.raises(TypeError, match="no CUDA kernel takes q %s"
                            % qq.dtype):
             paged_flash_decode(qq, kk, vv, tables, lens)
     with pytest.raises(TypeError, match="bfloat16 CUDA q"):
         paged_flash_decode_bf16(q, kp, vp, tables, lens)
-    assert (paged_flash_decode.launches,
-            paged_flash_decode_bf16.launches) == n0
+    with pytest.raises(TypeError, match="float16 CUDA q"):
+        paged_flash_decode_f16(q.to(BF16), kp, vp, tables, lens)
+    assert tuple(w.launches for w in wrappers) == n0
+    for pools in (kp.half(), kp):
+        o, m, l = paged_flash_decode(q.half(), pools, pools, tables, lens)
+        assert o.dtype == torch.float16 and m.dtype == torch.float32
+    torch.cuda.synchronize()
+    assert tuple(w.launches for w in wrappers) == (n0[0], n0[1], n0[2] + 2)
 
 
 @pytest.mark.needs_cuda
 def test_queued_fp16_flavours_refuse_naming_their_item(cuda):
     """The fp16 flavours still to port raise TypeError naming their ROADMAP
-    Queue 2 item, and launch nothing: the paged decode (16), the flat seam
-    kernels (18) and the fused bottleneck (19); the fp16 dbias (17) is held
-    above."""
-    from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
-        paged_flash_decode)
+    Queue 2 item, and launch nothing: the flat seam kernels (18) and the
+    fused bottleneck (19); the paged decode (16) and the dbias (17) now
+    launch, held above."""
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         fused_bottleneck)
-    q, kp, vp, tables, lens = _paged_inputs(2, 1, 2, 64, 16, 2, [3, 5],
-                                            cuda, seed=3)
-    with pytest.raises(TypeError, match="Queue 2 item 16"):
-        paged_flash_decode(q.half(), kp.half(), vp.half(), tables, lens)
     w = torch.zeros(64, device=cuda, dtype=torch.float16)
     n0 = fused_sgd_mom_flat.launches
     with pytest.raises(TypeError, match="Queue 2 item 18"):

@@ -14,8 +14,9 @@ Phases, each printing one line:
              kernel / plain / library device time with the inputs out of
              L2 (the kernel's time with them in L2 beside), and the least
              time the card could take (its bound). A profiler reading below
-             the bound is retaken on CUDA events, and each column names its
-             clock; the int8 and bottleneck rows name the route their
+             the bound, or from a trace that kept fewer than half the
+             calls' events of their main kernel, is retaken on CUDA
+             events, and each column names its clock; the int8 and bottleneck rows name the route their
              kernel took. The flash forward rows (dense and ragged) and
              the flash backward rows carry a second bound at the
              tensor-core rate (3xTF32) and name the SDPA backend their
@@ -165,7 +166,17 @@ Phases, each printing one line:
              within 2**-10 of its own value plus a floor, the lse within
              1e-4, the gradients within 2 * 2**-11 of their max, dead rows
              exactly 0, the flash kernels bitwise on two calls, an inf in
-             dO giving non-finite dq, dk and dv).
+             dO giving non-finite dq, dk and dv). Then ResNet-50 under
+             compute_dtype="float16" (resnet_fp16): step 1 of a
+             one-unit-a-stage model at B = 8 x 64^2 on the card against
+             the CPU port, both backing off from the guard's 2**16 as the
+             guard does (loss rtol 5e-3, logits fp16, running statistics
+             fp32 within 2**-9 of their max, gradient norms within 0.25
+             and cosine at least 0.8), the full model's step 1 within 5e-3
+             of resnet_train's fp32 step 1, the guard backing off to a
+             finite step, then 3 guarded steps with exactly one
+             trainer_sgd_mom launch a step; its images/s in the timing
+             line beside bf16's and fp32's.
 7. gluon_train - the same model and batch through the eager gluon API:
              the zoo's resnet50_v1 initialized with mx.init.Xavier() from
              numpy's global RNG, then autograd.record -> loss.backward ->
@@ -180,10 +191,12 @@ Phases, each printing one line:
              with 'adam' and 'adamw', one launch of their flavour a step.
 8. bottleneck - bench_fused_block: three stacked stage-1 bottleneck units
              (B = 128, 56 x 56, C = 256, M = 64) through the fused kernel,
-             in bf16 and then in fp32 (the 3xTF32 tensor-core route),
-             exactly one launch a unit on the dtype's route, against the
-             same stack through the plain version, and the stack's device
-             time beside the cuDNN conv stack's (fp32: TF32 off).
+             in bf16, then in fp32 (the 3xTF32 tensor-core route) and in
+             fp16, exactly one launch a unit on the dtype's route, against
+             the same stack through the plain version (bf16 2 * 2**-8,
+             fp16 2 * 2**-11 of its max, fp32 1e-4), finite, and the
+             stack's device time beside the cuDNN conv stack's (fp32: TF32
+             off) and the plain stack's.
 9. lstm_decode - the PTB word LM (lstm_lm_ptb: 650 x 2, tied, vocab 10000)
              with seeded random weights, exported with export_for_serving
              and served by a ModelServer on the card (8 slots, the state of
@@ -224,11 +237,14 @@ Phases, each printing one line:
              dtype a backward; q, k, v and kv_bias gradients within 1e-4
              (bf16: 2 * 2**-8, fp16: 2 * 2**-11) of each tensor's max of
              the CPU port's, masked keys' bias gradients exactly 0.
-12. seam_bf16 - the ops/_optim_kernels.py seam's _multi_sgd_mom_update,
-             _multi_adam_update and _multi_adamw_update on bf16 groups of
-             ResNet-50 v1's 193 trainable shapes, 2 steps each: one bf16
-             flat launch a call, w and states bitwise against the plain
-             version on the card, and compared with the CPU port.
+12. seam_bf16, seam_fp16 - the ops/_optim_kernels.py seam's
+             _multi_sgd_mom_update, _multi_adam_update and
+             _multi_adamw_update on bf16 and then fp16 groups of ResNet-50
+             v1's 193 trainable shapes, 2 steps each: one flat launch of
+             the dtype's kernel a call, w and states bitwise against the
+             plain version on the card, and compared with the CPU port;
+             fp16 counts Adam's subnormal v and its non-finite w (eps =
+             1e-8 is 0 in fp16).
 13. rtc     - mx.rtc.CudaModule compiles the reference's axpy (cold, then
              from the cubin cache) and a template through exports; both
              launch on nd arrays of 2**24 elements on mx.gpu(0) and equal
@@ -427,11 +443,29 @@ def device_ms(torch, fn, inputs, iters=20):
     for e in device_events(prof):
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    if by_name:
-        return sum(us / n * (max(1, round(n / iters)) if 2 * n >= iters
-                             else n / iters)
-                   for n, us in by_name.values()) / 1e3, "profiler"
+    ms = trace_ms(by_name, iters)
+    if ms is not None:
+        return ms, "profiler"
     return call_ms(torch, fn, inputs, iters), "events"
+
+
+def trace_ms(by_name, iters):
+    """Mean device ms a call from a trace of `iters` calls, `by_name`
+    {kernel or copy name: (events kept, their µs)}: each name's mean
+    duration times its launches a call (see device_ms). None where the
+    trace holds nothing, or where it kept fewer than iters / 2 events of
+    the name that takes the most device time: that is the call's own work,
+    launched every call, and a trace that lost most of it (seen on the
+    card: 7 of 20 of the bottleneck kernel's events, a third of its time)
+    would read short."""
+    if not by_name:
+        return None
+    main_n, _us = max(by_name.values(), key=lambda v: v[1])
+    if 2 * main_n < iters:
+        return None
+    return sum(us / n * (max(1, round(n / iters)) if 2 * n >= iters
+                         else n / iters)
+               for n, us in by_name.values()) / 1e3
 
 
 def cold_copies(torch, inputs, bytes_moved):
@@ -465,12 +499,18 @@ def same_bits(a, b):
 
 
 # ------------------------------------------------------------------ kernels
-def timed(torch, fn, inputs, bound_ms):
-    """(ms, clock) of fn over `inputs` by `device_ms`. No card can beat the
-    bound, so a profiler reading below it is a trace that lost device
-    events: it is retaken with CUDA events over the same inputs (clock
-    "events")."""
-    t, clock = device_ms(torch, fn, inputs)
+#: calls a trace of an optimizer's plain version holds: it launches a few
+#: thousand kernels a call (each op of the rule on each tensor), whose
+#: events the profiler takes seconds to hand back for 20 calls
+PLAIN_ITERS = 5
+
+
+def timed(torch, fn, inputs, bound_ms, iters=20):
+    """(ms, clock) of fn over `inputs` by `device_ms` over `iters` calls.
+    No card can beat the bound, so a profiler reading below it is a trace
+    that lost device events: it is retaken with CUDA events over the same
+    inputs (clock "events", call_ms's own count of calls)."""
+    t, clock = device_ms(torch, fn, inputs, iters)
     if t < bound_ms:
         t, clock = call_ms(torch, fn, inputs), "events"
     return t, clock
@@ -613,6 +653,7 @@ def kernels_phase(torch, dev):
     rows.append(trainer_sgd_mom_row(torch, dev, randn))
     rows += flat_rows(torch, dev, randn)
     rows += flat_rows(torch, dev, randn, torch.bfloat16)
+    rows += flat_rows(torch, dev, randn, torch.float16)
     rows += bottleneck_rows(torch, dev)
     rows += int8_matmul_rows(torch, dev, floor["ms"])
     rows.append(rtc_axpy_row(torch, dev, randn))
@@ -1302,7 +1343,7 @@ def trainer_adam_row(torch, dev, randn):
                            multi_trainer_adam(w, g, m, v, **hp), inputs, bms)
     p_ms, plain_by = timed(torch, lambda w, g, m, v:
                            multi_trainer_adam_reference(w, g, m, v, **hp),
-                           inputs, bms)
+                           inputs, bms, PLAIN_ITERS)
     params = [torch.nn.Parameter(w.clone()) for w in ws]
     for p, g in zip(params, gs):
         p.grad = g.clone()
@@ -1359,7 +1400,7 @@ def trainer_sgd_mom_row(torch, dev, randn):
                            multi_trainer_sgd_mom(w, g, m, **hp), inputs, bms)
     p_ms, plain_by = timed(torch, lambda w, g, m:
                            multi_trainer_sgd_mom_reference(w, g, m, **hp),
-                           inputs, bms)
+                           inputs, bms, PLAIN_ITERS)
     params = [torch.nn.Parameter(w.clone()) for w in ws]
     for p, g in zip(params, gs):
         p.grad = g.clone()
@@ -1387,12 +1428,15 @@ def flat_rows(torch, dev, randn, dtype=None):
     per-parameter rule tensor by tensor) on copies; then timed against it
     and against torch.optim.SGD(momentum=0.9) / Adam / AdamW(fused=True)
     .step() on the same tensors. In fp32 SGD moves 511.5 MB a call, Adam
-    and AdamW 716.1 MB, every call cold in the 50 MB L2; in bf16 (rows
-    named *_bf16, the bf16 kernels) half as much, still five and seven
-    times the L2."""
+    and AdamW 716.1 MB, every call cold in the 50 MB L2; in bf16 and fp16
+    (rows named *_bf16 and *_f16, the 16-bit kernels) half as much, still
+    five and seven times the L2, their operations bounded at the 16-bit
+    peak."""
     dtype = dtype or torch.float32
     elem = torch.empty((), dtype=dtype).element_size()
-    suffix = "" if dtype == torch.float32 else "_bf16"
+    suffix = {torch.float32: "", torch.bfloat16: "_bf16",
+              torch.float16: "_f16"}[dtype]
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
         _ResNet)
     from incubator_mxnet_tpu_torch.ops.kernels import fused_optim as fo
@@ -1436,18 +1480,22 @@ def flat_rows(torch, dev, randn, dtype=None):
         pairs = [(a, b) for i in [0] + list(range(2, len(groups)))
                  for a, b in zip(groups[i], ref[i])]
         same = all(same_bits(a, b) for a, b in pairs)
-        err = max(max_err(a, b) for a, b in pairs)
+        # over the finite elements: same_bits holds inf and NaN in place
+        # (fp16 Adam makes some: eps = 1e-8 rounds to 0 over a v that
+        # rounded to 0)
+        err = max(max_err(a[fin], b[fin]) for a, b in pairs
+                  for fin in [a.isfinite() & b.isfinite()])
         if not same:
             raise AssertionError("%s: the kernel and its plain version "
                                  "differ (max %r); they must agree bitwise"
                                  % (name, err))
         del ref, pairs
         inputs = [tuple(groups)]
-        bms, by = bound(per_elem * n, ops * n)
+        bms, by = bound(per_elem * n, ops * n, peak)
         k_ms, timed_by = timed(torch, lambda *g: kernel(*g, **hp), inputs,
                                bms)
         p_ms, plain_by = timed(torch, lambda *g: plain(*g, **hp), inputs,
-                               bms)
+                               bms, PLAIN_ITERS)
         params = [torch.nn.Parameter(w.clone()) for w in groups[0]]
         for p_, g in zip(params, groups[1]):
             p_.grad = g.clone()
@@ -4243,6 +4291,22 @@ RESNET_BF16_NORM, RESNET_BF16_COS = 0.25, 0.8
 #: wrong bf16 path gives against it. The check of the path is the step-1
 #: comparison above
 RESNET_BF16_LOSS_RTOL = 1e-2
+#: the fp16 path's ResNet bounds (train_fp16), under the guard's loss scale
+#: (FP16_CHECK_SCALE at step 1 against the CPU): the step-1 loss within
+#: 5e-3 of the CPU's (tests/test_torch_mixed_precision.py's fp16 rule
+#: against the JAX trainer), running statistics within 2**-9 of their
+#: largest magnitude (its RESNET_STATS_REL), the gradients by norm and
+#: cosine as bf16's; the full model's step 1 within RESNET_FP16_LOSS_RTOL
+#: of the card's fp32 step 1, the same 5e-3, provisional as bf16's 1e-2
+#: (its first reading 2.7e-4; PERF.md, the fp16 ResNet findings)
+RESNET_FP16_CHECK_RTOL, RESNET_FP16_REL = 5e-3, 2.0 ** -9
+RESNET_FP16_LOSS_RTOL = 5e-3
+#: each 16-bit dtype's ResNet bounds: (step-1 loss rtol against the CPU,
+#: running statistics' share, full-depth step 1 against fp32)
+RESNET_HALF = {"bfloat16": (BF16_LOSS_RTOL, RESNET_BF16_REL,
+                            RESNET_BF16_LOSS_RTOL),
+               "float16": (RESNET_FP16_CHECK_RTOL, RESNET_FP16_REL,
+                           RESNET_FP16_LOSS_RTOL)}
 #: the fp16 path's bounds (train_fp16), from the bf16 path's (2e-2 and
 #: 2**-6): the loss's 5e-3 (bf16's scaled for fp16's three more mantissa
 #: bits, with a factor of 2 kept) tightened to 1e-3 after the card read
@@ -4543,19 +4607,41 @@ def grad_agreement(got, want):
                  for n in want}
 
 
-def resnet_bf16_step1_check(torch, dev, cfg, B, size):
+def guarded_first_step(tr, data, label, scale):
+    """`tr`'s step_guarded from loss scale `scale`, halved after each
+    skipped step as the numeric guard halves it (a skipped step changes no
+    parameter, buffer or slot): (loss, the accepted step's scale, skipped
+    steps); a NaN loss and scale None when no scale down to 1 is finite."""
+    skipped = 0
+    while scale >= 1:
+        loss, bad, _gn = tr.step_guarded(data, label, loss_scale=scale)
+        if not bad:
+            return float(loss), scale, skipped
+        scale, skipped = scale / 2, skipped + 1
+    return float("nan"), None, skipped
+
+
+def resnet_half_step1_check(torch, dev, cfg, B, size, dtype="bfloat16"):
     """Step 1 of a ResNet v1 of `cfg`'s widths with one unit a stage, under
-    compute_dtype bf16 on the card and on the CPU, from the same weights and
-    batch, and on the CPU once more from the batch perturbed by 2**-9
-    relative (the CPU's own spread; in fp32 too, from both batches). Held: the card's loss within
-    BF16_LOSS_RTOL of the CPU's, its logits bf16, its running statistics
-    (computed in bf16, written back to fp32) within RESNET_BF16_REL of their
-    largest magnitude, each gradient's norm within RESNET_BF16_NORM of the
-    CPU's and the whole gradient at a cosine of at least RESNET_BF16_COS
-    with the CPU's. The element-wise gradient gap (as a share of the
-    tensor's largest magnitude; a conv bias that feeds a BatchNorm at its
-    conv weight's, `scale_name`) is reported. Returns its fields and the
-    checks that failed."""
+    compute_dtype `dtype` (bfloat16 or float16) on the card and on the CPU,
+    from the same weights and batch, and on the CPU once more from the
+    batch perturbed by 2**-9 relative (the CPU's own spread; in fp32 too,
+    from both batches). fp16's steps run under dynamic loss scaling, as its
+    training does (`guarded_first_step` from the guard's default
+    FP16_CHECK_SCALE, which overflows ResNet's step 1 at full width, down
+    to the first finite scale; the CPU's runs start from the card's).
+    Held (RESNET_HALF): the card's
+    loss within the dtype's rtol of the CPU's, its logits of the dtype, its running statistics (computed in the dtype,
+    written back to fp32) within the dtype's share of their largest
+    magnitude, each gradient's norm within RESNET_BF16_NORM of the CPU's
+    and the whole gradient at a cosine of at least RESNET_BF16_COS with the
+    CPU's. The element-wise gradient gap (as a share of the tensor's
+    largest magnitude; a conv bias that feeds a BatchNorm at its conv
+    weight's, `scale_name`) is reported. Returns its fields and the checks
+    that failed."""
+    loss_rtol, stats_rel, _ = RESNET_HALF[dtype]
+    scale = FP16_CHECK_SCALE if dtype == "float16" else None
+    scales = {}         # run -> [its accepted step's scale, skipped steps]
     small = dict(cfg, layers=[1] * len(cfg["layers"]))
     params, data, label = resnet_batch(torch, small, B, size)
     rs = np.random.RandomState(SEED + 3)
@@ -4564,15 +4650,20 @@ def resnet_bf16_step1_check(torch, dev, cfg, B, size):
     cpu = torch.device("cpu")
     got = {}
     for key, d, batch, cdt in (
-            (dev.type, dev, data, "bfloat16"), ("cpu", cpu, data, "bfloat16"),
-            ("nudged", cpu, nudged, "bfloat16"), ("fp32", cpu, data, None),
+            (dev.type, dev, data, dtype), ("cpu", cpu, data, dtype),
+            ("nudged", cpu, nudged, dtype), ("fp32", cpu, data, None),
             ("fp32_nudged", cpu, nudged, None)):
         tr = resnet_trainer(torch, d, small, params, compute_dtype=cdt)
         logits = []
         tr._block.register_forward_hook(
             lambda _b, _a, out: logits.append(str(out.dtype)))
         t0 = time.perf_counter()
-        loss = float(tr.step(batch, label))
+        if scale is None or cdt is None:
+            loss = float(tr.step(batch, label))
+        else:
+            loss, at, skipped = guarded_first_step(tr, batch, label, scale)
+            scales[key] = [at, skipped]
+            scale = at or scale
         _sync(torch, d)
         got[key] = dict(
             loss=loss, s=time.perf_counter() - t0, logits=logits,
@@ -4598,21 +4689,19 @@ def resnet_bf16_step1_check(torch, dev, cfg, B, size):
                 / max(float(ref.abs().max()), 1e-30)
                 for n, ref in host["stats"].items()}
     failures = []
-    if not abs(card["loss"] - host["loss"]) <= BF16_LOSS_RTOL \
-            * abs(host["loss"]):
+    if not abs(card["loss"] - host["loss"]) <= loss_rtol * abs(host["loss"]):
         failures.append("ResNet step 1 loss %r on the card, %r on the CPU "
-                        "(rtol %g)" % (card["loss"], host["loss"],
-                                       BF16_LOSS_RTOL))
-    if card["logits"] != ["torch.bfloat16"] \
+                        "(rtol %g)" % (card["loss"], host["loss"], loss_rtol))
+    # (one forward a step: fp16's back-off may take a few)
+    if set(card["logits"]) != {"torch." + dtype} \
             or card["stat_dtypes"] != {"torch.float32"}:
         failures.append("ResNet: logits %s, running statistics held as %s"
                         % (card["logits"], card["stat_dtypes"]))
-    bad = sorted((n, r) for n, r in stat_rel.items()
-                 if not r <= RESNET_BF16_REL)
+    bad = sorted((n, r) for n, r in stat_rel.items() if not r <= stats_rel)
     if bad:
         failures.append("ResNet: %d running statistics differ from the "
                         "CPU's by more than %g of their max: %s"
-                        % (len(bad), RESNET_BF16_REL, bad[:8]))
+                        % (len(bad), stats_rel, bad[:8]))
     bad = sorted((n, r) for n, r in norms.items()
                  if not abs(r - 1) <= RESNET_BF16_NORM)
     if bad:
@@ -4624,7 +4713,11 @@ def resnet_bf16_step1_check(torch, dev, cfg, B, size):
                         "%r (limit %g)" % (cos, RESNET_BF16_COS))
     norm_bn = [r for n, r in norms.items()
                if n.endswith(("gamma", "beta"))]
-    return dict(layers=small["layers"], B=B, size=size, loss=card["loss"],
+    if scale is not None and None in [v[0] for v in scales.values()]:
+        failures.append("ResNet: no finite fp16 step 1 down to scale 1: %s"
+                        % scales)
+    return dict(layers=small["layers"], B=B, size=size, dtype=dtype,
+                loss_scales=scales or None, loss=card["loss"],
                 cpu_loss=host["loss"], cpu_step_s=host["s"],
                 logits=card["logits"], grads=len(gh), grad_cos=cos,
                 grad_norm_ratio=[min(norms.values()), max(norms.values())],
@@ -4645,56 +4738,83 @@ def resnet_bf16_step1_check(torch, dev, cfg, B, size):
                 if stat_rel else None), failures
 
 
-def resnet_bf16(torch, dev, cfg, B, size, steps, fp32=None,
-                profile=False, check=RESNET_BF16_CHECK):
-    """ResNet v1 under compute_dtype bf16 (convolutions through cuDNN in
-    bf16, BatchNorm's one-pass statistics in bf16 written back to fp32, the
-    fp32 fused SGD-momentum launch): first `resnet_bf16_step1_check` at
-    `check` = (B, size), then at the resnet_train phase's batch `steps`
-    steps after a first, all finite, the first's loss within
-    RESNET_BF16_LOSS_RTOL of the card's fp32 step 1 (`fp32`, the
-    resnet_train line; run here without it), one fused launch a step and
-    no other hand kernel. Returns the line's fields, its launch counts, the
-    profile and the checks that failed."""
+def resnet_half(torch, dev, cfg, B, size, steps, fp32=None,
+                profile=False, check=RESNET_BF16_CHECK, dtype="bfloat16"):
+    """ResNet v1 under compute_dtype `dtype` (bfloat16 or float16:
+    convolutions through cuDNN in the dtype, BatchNorm's one-pass
+    statistics in the dtype written back to fp32, the fp32 fused
+    SGD-momentum launch): first `resnet_half_step1_check` at `check` = (B,
+    size), then at the resnet_train phase's batch `steps` steps after a
+    first, the first's loss within the dtype's RESNET_HALF rtol of the
+    card's fp32 step 1 (`fp32`, the resnet_train line; run here without
+    it), one fused launch a step and no other hand kernel. fp16 steps
+    through resilience.GuardedTrainer at the default guard (dynamic loss
+    scaling): its scales and verdicts are logged, the accepted steps'
+    losses must be finite, and a skipped step launches the update too (the
+    guarded step computes it and keeps the old state on the device). bf16
+    steps plainly, every loss finite. Returns the line's fields, its launch
+    counts, the profile and the checks that failed."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
-    step1, failures = resnet_bf16_step1_check(torch, dev, cfg, *check)
+    from incubator_mxnet_tpu_torch.resilience import (GuardedTrainer,
+                                                      NumericGuard)
+    loss_rtol = RESNET_HALF[dtype][2]
+    step1, failures = resnet_half_step1_check(torch, dev, cfg, *check,
+                                              dtype=dtype)
     params, data, label = resnet_batch(torch, cfg, B, size)
     if fp32 is None:
         tr = resnet_trainer(torch, dev, cfg, params)
         fp32 = dict(warmup_loss=float(tr.step(data, label)),
                     step_ms_median=None)
         del tr
-    tr = resnet_trainer(torch, dev, cfg, params, compute_dtype="bfloat16")
-    loss1 = float(tr.step(data, label))
+    tr = resnet_trainer(torch, dev, cfg, params, compute_dtype=dtype)
+    guarded = None
+    if dtype == "float16":
+        guarded = GuardedTrainer(tr, guard=NumericGuard(), enabled=True)
+    step = guarded.step if guarded is not None else tr.step
+    verdicts = []
+
+    def run():
+        n = guarded.skipped_steps if guarded is not None else 0
+        scale = guarded.loss_scale if guarded is not None else None
+        loss = float(step(data, label))
+        skipped = guarded is not None and guarded.skipped_steps > n
+        verdicts.append(dict(scale=scale, skipped=skipped))
+        return loss, skipped
+
+    loss1, skipped = run()
+    # the guard backs off from its default scale before the measured steps
+    while skipped and len(verdicts) <= FP16_OVERFLOW_MAX_STEPS:
+        _loss, skipped = run()
     rel = abs(loss1 - fp32["warmup_loss"]) / abs(fp32["warmup_loss"])
-    if not rel <= RESNET_BF16_LOSS_RTOL:
-        failures.append("ResNet bf16 step 1 loss %r, fp32 %r (rtol %g)"
-                        % (loss1, fp32["warmup_loss"],
-                           RESNET_BF16_LOSS_RTOL))
+    if not rel <= loss_rtol:
+        failures.append("ResNet %s step 1 loss %r, fp32 %r (rtol %g)"
+                        % (dtype, loss1, fp32["warmup_loss"], loss_rtol))
     _sync(torch, dev)
     reset_launch_counts()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss = tr.step(data, label)
+        loss, _skipped = run()
         _sync(torch, dev)
         times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+        losses.append(loss)
     counts = launch_counts()
     want = expected_counts(trainer_sgd_mom=steps)
     if dev.type == "cuda" and (counts != want or tr._fused_launches != 1):
-        failures.append("ResNet bf16 launch counts %s, expected %s"
-                        % (counts, want))
-    if not np.isfinite([loss1] + losses).all():
-        failures.append("ResNet bf16 losses %s are not all finite"
-                        % ([loss1] + losses))
+        failures.append("ResNet %s launch counts %s, expected %s"
+                        % (dtype, counts, want))
+    accepted = [l for l, v in zip(losses, verdicts[-steps:])
+                if not v["skipped"]]
+    if not (accepted and np.isfinite(accepted).all()):
+        failures.append("ResNet %s accepted steps' losses %s are not all "
+                        "finite" % (dtype, accepted))
     stats = [v for n, v in tr.param_values.items() if "running" in n]
     if not all(v.dtype == torch.float32 for v in stats):
-        failures.append("ResNet bf16: running statistics left fp32")
-    prof = profile_round(torch, lambda: tr.step(data, label)) \
+        failures.append("ResNet %s: running statistics left fp32" % dtype)
+    prof = profile_round(torch, lambda: step(data, label)) \
         if profile else None
-    del tr
+    del tr, guarded
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     ms = np.asarray(times) * 1e3
@@ -4706,7 +4826,9 @@ def resnet_bf16(torch, dev, cfg, B, size, steps, fp32=None,
                                    if fp32.get("step_ms_median") else None),
                 loss_step1=loss1, fp32_loss_step1=fp32["warmup_loss"],
                 loss_step1_rel_diff=rel, losses=losses, step1=step1,
-                launches=counts), counts, prof, failures
+                verdicts=verdicts, launches=counts), counts, prof, failures
+
+
 
 
 def train_bf16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
@@ -4722,7 +4844,8 @@ def train_bf16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
     when a check failed. `fp32` maps (T, B) to the train phase's lines and
     `resnet_fp32` is the resnet_train line's fields; the fp32 steps run
     here where they are missing. Returns the launch counts by path;
-    `record`, a dict, gets each BERT shape's line under (T, B)."""
+    `record`, a dict, gets each BERT shape's line under (T, B) and the
+    ResNet line under "resnet"."""
     fp32 = fp32 or {}
     by_path, timing = {}, {}
     for T, B in shapes:
@@ -4745,10 +4868,12 @@ def train_bf16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
                                    "fp32_step_ms_median",
                                    "fp32_tokens_per_s")}
     if resnet_cfg is not None:
-        fields, counts, prof, failures = resnet_bf16(
+        fields, counts, prof, failures = resnet_half(
             torch, dev, resnet_cfg, *resnet_shape, resnet_steps,
             resnet_fp32, profile, resnet_check)
         log("resnet_bf16", card=card, **fields)
+        if record is not None:
+            record["resnet"] = fields
         if prof is not None:
             log("resnet_bf16_profile", card=card, **prof)
         if failures:
@@ -4944,12 +5069,19 @@ def train_fp16_shape(torch, dev, cfg, T, B, steps, fp32=None, bf16=None):
 
 
 def train_fp16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
-                     fp32=None, bf16=None, card=None):
-    """The train_fp16 phase: each BERT shape (a `train_fp16` line), then the
-    `train_fp16_timing` line (fp16's median guarded step and tokens a second
-    beside the same run's fp32 and bf16 plain steps: a first reading, not a
-    claim); raises when a check failed. `fp32` and `bf16` map (T, B) to the
-    train and train_bf16 phases' lines. Returns the launch counts by path."""
+                     fp32=None, bf16=None, card=None, resnet_cfg=None,
+                     resnet_shape=(RESNET_B, RESNET_SIZE),
+                     resnet_steps=RESNET_BF16_STEPS, resnet_fp32=None,
+                     resnet_check=RESNET_BF16_CHECK):
+    """The train_fp16 phase: each BERT shape (a `train_fp16` line), then,
+    given `resnet_cfg`, ResNet v1 of it (a `resnet_fp16` line:
+    `resnet_half` in fp16), then the `train_fp16_timing` line (fp16's
+    median guarded step and tokens or images a second beside the same
+    run's fp32 and bf16 steps: a first reading, not a claim); raises when
+    a check failed. `fp32` and `bf16` map (T, B) to the train and
+    train_bf16 phases' lines (bf16's ResNet line under "resnet"), and
+    `resnet_fp32` is the resnet_train line's fields. Returns the launch
+    counts by path."""
     fp32, bf16 = fp32 or {}, bf16 or {}
     by_path, timing = {}, {}
     for T, B in shapes:
@@ -4971,6 +5103,22 @@ def train_fp16_phase(torch, dev, cfg, shapes=TRAIN_SHAPES, steps=TRAIN_STEPS,
             fp32_tokens_per_s=f32.get("tokens_per_s"),
             bf16_step_ms_median=b16.get("step_ms_median"),
             bf16_tokens_per_s=b16.get("tokens_per_s"))
+    if resnet_cfg is not None:
+        fields, counts, _prof, failures = resnet_half(
+            torch, dev, resnet_cfg, *resnet_shape, resnet_steps,
+            resnet_fp32, check=resnet_check, dtype="float16")
+        log("resnet_fp16", card=card, **fields)
+        if failures:
+            raise AssertionError("resnet_fp16: %s" % "; ".join(failures))
+        by_path["train_fp16_resnet"] = counts
+        b16 = bf16.get("resnet", {})
+        timing["resnet_B%d" % resnet_shape[0]] = dict(
+            fp16_step_ms_median=fields["step_ms_median"],
+            fp16_images_per_s=fields["images_per_s"], fp16_guarded=True,
+            fp32_step_ms_median=fields["fp32_step_ms_median"],
+            fp32_images_per_s=fields["fp32_images_per_s"],
+            bf16_step_ms_median=b16.get("step_ms_median"),
+            bf16_images_per_s=b16.get("images_per_s"))
     log("train_fp16_timing", card=card, **timing)
     return by_path
 
@@ -5251,21 +5399,33 @@ def block_cost(B, H, W, C, M, elem_bytes):
             2 * B * H * W * (C * M + 9 * M * M + M * C))
 
 
+#: the 16-bit stacks' tolerance, a share of the output's largest magnitude:
+#: 2 steps of the dtype's mantissa (one where the two round a value from
+#: fp32 sums taken in other orders, and one for what it moves downstream);
+#: fp16's is bf16's scaled by its three more mantissa bits
+BLOCK_REL = {"bfloat16": 2 * 2 ** -8, "float16": 2 * 2 ** -11}
+#: each dtype's route at the stage-1 shape, and the name of its kernels row
+BLOCK_ROUTE = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
+BLOCK_ROW = {"float32": "fused_bottleneck", "bfloat16": "fused_bottleneck",
+             "float16": "fused_bottleneck_f16"}
+
+
 def block_tolerance(torch, ref):
-    """bf16: 2 * 2**-8 of the output's largest magnitude (one bf16 step
-    where the two round a value from fp32 sums taken in other orders);
-    fp32: 1e-4."""
-    if ref.dtype == torch.bfloat16:
-        return 2 * 2 ** -8 * float(ref.float().abs().max())
+    """bf16 and fp16: BLOCK_REL of the output's largest magnitude; fp32:
+    1e-4."""
+    rel = BLOCK_REL.get(str(ref.dtype)[6:])
+    if rel is not None:
+        return rel * float(ref.float().abs().max())
     return 1e-4
 
 
 def bottleneck_rows(torch, dev, shape=BLOCK_SHAPE):
     """The fused bottleneck kernel on one unit at bench_fused_block's shape,
-    in fp32 and bf16 (its configuration), against the plain version (fp32
-    convs on the same values), with the cuDNN unit in x's dtype (TF32 off)
-    as the library call. The fp32 row also carries its work's bound at the
-    3xTF32 tensor-core rate its kernel runs at (`tc_bound_ms`)."""
+    in fp32, fp16 (the row `fused_bottleneck_f16`) and bf16 (its
+    configuration), against the plain version (fp32 convs on the same
+    values), with the cuDNN unit in x's dtype (TF32 off) as the library
+    call. The fp32 row also carries its work's bound at the 3xTF32
+    tensor-core rate its kernel runs at (`tc_bound_ms`)."""
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         _route, bottleneck_reference, fused_bottleneck)
     s = shape
@@ -5273,6 +5433,7 @@ def bottleneck_rows(torch, dev, shape=BLOCK_SHAPE):
     # bf16 last: the kernels line carries the row of the main path's dtype
     for dtype, peak, tc_peak in (
             (torch.float32, FP32_FLOPS_PER_S, TF32X3_FLOPS_PER_S),
+            (torch.float16, BF16_FLOPS_PER_S, None),
             (torch.bfloat16, BF16_FLOPS_PER_S, None)):
         x, units = block_inputs(torch, dev, K=1, dtype=dtype, **s)
         args = (x,) + units[0]
@@ -5280,13 +5441,13 @@ def bottleneck_rows(torch, dev, shape=BLOCK_SHAPE):
         route = _route(dtype, s["C"], s["M"],
                        [t.data_ptr() for t in (x, args[1], args[4],
                                                args[7], got)])
-        want = "bf16" if dtype == torch.bfloat16 else "fp32"
+        want = BLOCK_ROUTE[str(dtype)[6:]]
         if route != want:
             raise AssertionError("fused_bottleneck %s: route %s, expected "
                                  "%s" % (dtype, route, want))
         bytes_moved, flops = block_cost(elem_bytes=x.element_size(), **s)
         rows.append(measure(
-            torch, "fused_bottleneck",
+            torch, BLOCK_ROW[str(dtype)[6:]],
             (s["B"], s["H"], s["W"], s["C"], s["M"]), max_err(got, ref),
             block_tolerance(torch, ref), args, fused_bottleneck,
             bottleneck_reference, block_library(torch), bytes_moved,
@@ -5299,13 +5460,14 @@ def bottleneck_rows(torch, dev, shape=BLOCK_SHAPE):
 def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
                      card=None):
     """bench_fused_block on the card, in bf16 (its configuration) and then
-    in fp32 from the same draws: K stacked units through the kernel
-    (exactly K launches a stack, on the dtype's route) against the same
-    stack through the plain version, then the time of a stack by CUDA
-    events, kernel against the cuDNN stack (fp32: TF32 off, as main sets
-    it). Logs a `bottleneck` line a dtype; raises when a check failed.
-    Returns the launch counts of each checked stack, by path: `bottleneck`
-    (bf16) and `bottleneck_fp32`."""
+    in fp32 and fp16 from the same draws: K stacked units through the
+    kernel (exactly K launches a stack, on the dtype's route) against the
+    same stack through the plain version (block_tolerance), finite, then
+    the time of a stack by CUDA events, kernel against the cuDNN stack
+    (fp32: TF32 off, as main sets it) and the plain stack. Logs a
+    `bottleneck` line a dtype; raises when a check failed. Returns the
+    launch counts of each checked stack, by path: `bottleneck` (bf16),
+    `bottleneck_fp32` and `bottleneck_fp16`."""
     from incubator_mxnet_tpu_torch.ops.kernels import (launch_counts,
                                                        reset_launch_counts)
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
@@ -5313,7 +5475,8 @@ def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
     by_path = {}
     failures = []
     for path, dtype in (("bottleneck", torch.bfloat16),
-                        ("bottleneck_fp32", torch.float32)):
+                        ("bottleneck_fp32", torch.float32),
+                        ("bottleneck_fp16", torch.float16)):
         x, units = block_inputs(torch, dev, K=K, dtype=dtype, **shape)
 
         def stack(fn):
@@ -5333,6 +5496,12 @@ def bottleneck_phase(torch, dev, shape=BLOCK_SHAPE, K=BLOCK_DEPTH,
         ref = stack(bottleneck_reference)(x)
         err, tol = max_err(got, ref), block_tolerance(torch, ref)
         name = "%s stack of %d" % (dtype, K)
+        want = BLOCK_ROUTE[str(dtype)[6:]]
+        if dtype != torch.float32 and (shape["C"] % 8 or shape["M"] % 8):
+            want += "_scalar"
+        if route != want:
+            failures.append("%s: route %s, expected %s" % (name, route,
+                                                            want))
         if not err <= tol:
             failures.append("%s: max error %r > %g" % (name, err, tol))
         if not torch.isfinite(got.float()).all():
@@ -5463,18 +5632,25 @@ def attention_bias_phase(torch, dev, B=8, H=12, T=512, D=64, lengths=None,
 
 # ----------------------------------------------------------------- seam_bf16
 SEAM_STEPS = 2
+#: each 16-bit seam phase: (the line's name, the flat wrappers' suffix)
+SEAM_HALF = {"bfloat16": ("seam_bf16", "_bf16"),
+             "float16": ("seam_fp16", "_f16")}
 
 
-def seam_bf16_phase(torch, dev, cfg=None, steps=SEAM_STEPS, card=None):
+def seam_half_phase(torch, dev, dtype="bfloat16", cfg=None,
+                    steps=SEAM_STEPS, card=None):
     """The ops/_optim_kernels.py seam's three calls, _multi_sgd_mom_update,
-    _multi_adam_update and _multi_adamw_update, on bf16 groups of ResNet-50
-    v1's trainable shapes (193 tensors, 25,575,912 elements), `steps` steps
-    each with rescale 1/128: exactly one bf16 flat launch a call and no
-    other kernel; after the steps, w and every state bitwise equal to the
-    plain version (the bf16 rules tensor by tensor) on the card, and
-    compared with the same steps through the port on the CPU (elements that
-    differ and the largest difference are logged, not required to be 0).
-    Logs the `seam_bf16` line; returns the launch counts."""
+    _multi_adam_update and _multi_adamw_update, on `dtype` (bfloat16 or
+    float16) groups of ResNet-50 v1's trainable shapes (193 tensors,
+    25,575,912 elements), `steps` steps each with rescale 1/128: exactly
+    one flat launch of the dtype's kernel a call and no other kernel; after
+    the steps, w and every state bitwise equal to the plain version (the
+    16-bit rules tensor by tensor) on the card, and compared with the same
+    steps through the port on the CPU (elements that differ and the largest
+    difference are logged, not required to be 0). Adam's and AdamW's v are
+    drawn at 1e-6, among fp16's subnormals: the line counts v's subnormal
+    elements before and after the steps. Logs the `seam_bf16` or
+    `seam_fp16` line; returns the launch counts."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
         _ResNet)
     from incubator_mxnet_tpu_torch.ops import _optim_kernels as seam
@@ -5486,14 +5662,20 @@ def seam_bf16_phase(torch, dev, cfg=None, steps=SEAM_STEPS, card=None):
     shapes = [tuple(p.shape) for _n, p in sorted(net.named_parameters())
               if p.requires_grad]
     del net
+    what, suffix = SEAM_HALF[dtype]
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
 
     def make(scale, absolute=False):
         out = []
         for sh in shapes:
             t = torch.randn(*sh, generator=gen, device=dev) * scale
-            out.append((t.abs() if absolute else t).to(torch.bfloat16))
+            out.append((t.abs() if absolute else t).to(dt))
         return out
+
+    def subnormal(ts):
+        tiny = torch.finfo(dt).tiny
+        return sum(int(((t != 0) & (t.abs() < tiny)).sum()) for t in ts)
 
     hp = dict(rescale=1.0 / RESNET_B, clip=-1.0)
     flavours = (
@@ -5528,8 +5710,8 @@ def seam_bf16_phase(torch, dev, cfg=None, steps=SEAM_STEPS, card=None):
             fn(*state[name]["card"], **step_args(name, fhp, step))
     _sync(torch, dev)
     counts = launch_counts()
-    want = expected_counts(sgd_mom_flat_bf16=steps, adam_flat_bf16=steps,
-                           adamw_flat_bf16=steps)
+    want = expected_counts(**{k + suffix: steps for k in (
+        "sgd_mom_flat", "adam_flat", "adamw_flat")})
     failures = []
     if dev.type == "cuda" and counts != want:
         failures.append("launch counts %s, expected %s" % (
@@ -5538,6 +5720,8 @@ def seam_bf16_phase(torch, dev, cfg=None, steps=SEAM_STEPS, card=None):
     fields = {}
     for name, n_states, fhp, plain in flavours:
         st = state.pop(name)
+        if n_states == 2:
+            v_sub = [subnormal(st["plain"][3]), subnormal(st["card"][3])]
         fn = getattr(seam, "_multi_%s_update" % name)
         for step in range(steps):
             plain(*st["plain"], **step_args(name, fhp, step))
@@ -5546,22 +5730,31 @@ def seam_bf16_phase(torch, dev, cfg=None, steps=SEAM_STEPS, card=None):
         kept = [0] + list(range(2, 2 + n_states))     # w and the states
         bitwise = all(same_bits(a, b) for i in kept
                       for a, b in zip(st["card"][i], st["plain"][i]))
+        # NaN against NaN is no difference; the largest over the finite
         differ, worst = 0, 0.0
         for i in kept:
             for a, b in zip(st["card"][i], st["cpu"][i]):
-                a = a.cpu()
-                differ += int((a.float() != b.float()).sum())
-                worst = max(worst, max_err(a, b))
+                a, b = a.cpu().float(), b.float()
+                both_nan = a.isnan() & b.isnan()
+                differ += int(((a != b) & ~both_nan).sum())
+                fin = a.isfinite() & b.isfinite()
+                worst = max(worst, max_err(a[fin], b[fin]))
+        nonfinite = sum(int((~t.isfinite()).sum()) for t in st["card"][0])
         if not bitwise:
-            failures.append("%s: the bf16 kernel and its plain version "
-                            "differ" % name)
+            failures.append("%s: the %s kernel and its plain version "
+                            "differ" % (name, dtype))
         fields[name] = dict(bitwise_plain=bitwise, cpu_elements_differ=differ,
-                            cpu_max_abs_diff=worst)
+                            cpu_max_abs_diff=worst, w_nonfinite=nonfinite)
+        if n_states == 2:
+            # v's subnormal elements before the steps (the plain copy, read
+            # before its steps ran) and after them (the card's state)
+            fields[name]["v_subnormal"] = v_sub
     n = sum(math.prod(sh) for sh in shapes)
-    log("seam_bf16", card=card, tensors=len(shapes), elements=n, steps=steps,
+    log(what, card=card, dtype=dtype, tensors=len(shapes), elements=n,
+        steps=steps, rescale=hp["rescale"],
         launches={k: v for k, v in counts.items() if v}, **fields)
     if failures:
-        raise AssertionError("seam_bf16: %s" % "; ".join(failures))
+        raise AssertionError("%s: %s" % (what, "; ".join(failures)))
     return counts
 
 
@@ -5918,7 +6111,22 @@ KERNEL_META = {
     "flash_attention_bwd_dkv_dbias_f16": (
         "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "incubator_mxnet_tpu/ops/pallas/flash_attention.py:206"),
+    # the fp16 flavours of the seam's flat kernels and of the bottleneck
+    # (whose launches count on fused_bottleneck: KERNEL_COUNTED_ON)
+    "sgd_mom_flat_f16": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                         "incubator_mxnet_tpu/ops/pallas/fused_optim.py:102"),
+    "adam_flat_f16": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                      "incubator_mxnet_tpu/ops/pallas/fused_optim.py:114"),
+    "adamw_flat_f16": ("incubator_mxnet_tpu_torch/csrc/fused_optim.cu",
+                       "incubator_mxnet_tpu/ops/pallas/fused_optim.py:133"),
+    "fused_bottleneck_f16": (
+        "incubator_mxnet_tpu_torch/csrc/fused_bottleneck.cu",
+        "incubator_mxnet_tpu/ops/pallas/fused_bottleneck.py:48"),
 }
+#: a kernels-line entry whose launches another wrapper counts: (that
+#: wrapper's name in the launch counts, the paths that launch this flavour)
+KERNEL_COUNTED_ON = {"fused_bottleneck_f16": ("fused_bottleneck",
+                                              ("bottleneck_fp16",))}
 
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072, num_layers=12,
                  num_heads=12, max_length=512)
@@ -6441,7 +6649,8 @@ def main(argv=None):
         profile=args.profile is not None, card=card, record=bf16_lines)
     fp16_counts = phase(
         "train_fp16", train_fp16_phase, torch, dev, BERT_BASE,
-        fp32=fp32_lines, bf16=bf16_lines, card=card)
+        fp32=fp32_lines, bf16=bf16_lines, card=card, resnet_cfg=RESNET50,
+        resnet_fp32=resnet_line)
     gcounts = phase("gluon_train", gluon_train_phase, torch, dev,
                     sharded_ms=resnet_ms, profile=args.profile is not None,
                     card=card)
@@ -6453,29 +6662,33 @@ def main(argv=None):
     dcounts_by_path = phase("deploy", deploy_phase, torch, dev, card=card)
     acounts = phase("attention_bias", attention_bias_phase, torch, dev,
                     card=card)
-    scounts = phase("seam_bf16", seam_bf16_phase, torch, dev, card=card)
+    seam_counts = {what: phase(what, seam_half_phase, torch, dev, dtype,
+                               card=card)
+                   for dtype, (what, _s) in SEAM_HALF.items()}
     rtc_counts = phase("rtc", rtc_phase, torch, dev, card=card)
     tel_counts = phase("telemetry", telemetry_phase, torch, dev, card=card)
 
     # launches: each main path's run (serve, decode, each train shape, the
     # bf16 and fp16 generation runs and the served fp16 round, the bf16
     # train steps of each shape, the bf16-parameter steps and the bf16
-    # ResNet steps, the ResNet steps, the gluon steps of each optimizer, the
-    # bottleneck stacks in bf16 and fp32, the word LM's fp32 and int8 decode, the
-    # learned-bias attention, the bf16 seam, the rtc launches), counts reset
+    # ResNet steps, the fp16 ResNet steps, the ResNet steps, the gluon steps
+    # of each optimizer, the bottleneck stacks in bf16, fp32 and fp16, the
+    # word LM's fp32 and int8 decode, the learned-bias attention, the bf16
+    # and fp16 seams, the rtc launches), counts reset
     # to 0 just before it and read just after; the line carries their sum
     by_path = {"serve": counts, "decode": dcounts, **gen_counts,
                "train": tcounts, **bf16_counts, **fp16_counts,
                "resnet_train": rcounts, **bcounts, **gcounts,
                **lcounts, **dcounts_by_path, "attention_bias": acounts,
-               "seam_bf16": scounts, "rtc": rtc_counts, **tel_counts}
+               **seam_counts, "rtc": rtc_counts, **tel_counts}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = [x for x in krows if x["name"] == name][-1]
+        counter, paths = KERNEL_COUNTED_ON.get(name, (name, by_path))
+        launched = {p: by_path[p].get(counter, 0) for p in paths}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(c.get(name, 0) for c in by_path.values()),
-            launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
+            launches=sum(launched.values()), launches_by_path=launched,
             max_abs_err=max(x["max_abs_err"] for x in krows
                             if x["name"] == name),
             dtype=r.get("dtype"),

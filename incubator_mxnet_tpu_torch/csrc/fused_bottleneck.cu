@@ -1,7 +1,7 @@
 // One ResNet stage-1 bottleneck unit in inference mode, fused, for Hopper
 // (sm_90a): 1x1 conv -> BN -> ReLU -> 3x3 conv (pad 1) -> BN -> ReLU ->
 // 1x1 conv -> BN -> + residual -> ReLU, NHWC, BN folded into per-channel
-// scale and shift, fp32 or bf16 in and out, fp32 accumulation.
+// scale and shift, fp32, bf16 or fp16 in and out, fp32 accumulation.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/fused_bottleneck.py: _kernel
 // (reached through fused_bottleneck, whose consumer is bench.py
@@ -10,17 +10,19 @@
 // What bounds it on the H100: at the stage-1 shape (B = 128, 56 x 56,
 // C = 256, M = 64, bf16) the unit reads x once and writes the output once,
 // 411 MB, 0.123 ms at 3.35 TB/s; its 55.9 GFLOP take 0.057 ms at the bf16
-// tensor-core peak, so bytes bound it. In fp32 the same operations take
-// 0.83 ms on the CUDA cores at 67 TFLOP/s and 0.34 ms as three TF32
-// tensor-core products each (494.7 / 3 TFLOP/s), against 0.25 ms for the
-// 822 MB of x and output: the operations bound it.
+// tensor-core peak, so bytes bound it; fp16 moves the same bytes at the
+// same peak. In fp32 the same operations take 0.83 ms on the CUDA cores at
+// 67 TFLOP/s and 0.34 ms as three TF32 tensor-core products each (494.7 / 3
+// TFLOP/s), against 0.25 ms for the 822 MB of x and output: the operations
+// bound it.
 //
-// Two kernels, one per dtype, picked by the C entry's route (the Python
-// wrapper's _route). The TPU kernel holds one whole image (~17 MB) in VMEM;
-// an SM has 227 KB of shared memory. Here one block of 8 warps owns an
-// 8 x 14 output tile (112 pixels, 7 rows of 16 of the mma; at 56 x 56 the
-// tiles cover the image without waste in 4 x 7) and keeps the unit's
-// intermediates on the SM, never in device memory:
+// Two kernels, one for fp32 and one for the 16-bit types, picked by the C
+// entry's route (the Python wrapper's _route). The TPU kernel holds one
+// whole image (~17 MB) in VMEM; an SM has 227 KB of shared memory. Here
+// one block of 8 warps owns an 8 x 14 output tile (112 pixels, 7 rows of
+// 16 of the mma; at 56 x 56 the tiles cover the image without waste in
+// 4 x 7) and keeps the unit's intermediates on the SM, never in device
+// memory:
 //   1. h1 = relu(x . w1 * s1 + b1) on the tile plus a one-pixel halo
 //      (10 x 16 = 160 pixels, 10 rows of 16; halo pixels are recomputed by
 //      the neighbouring tiles, 1.43 x the tile's pixels), streaming x and w1
@@ -60,11 +62,12 @@
 // stores; any other operands take the same kernel with 4-byte copies and
 // element-wise loads and stores.
 //
-// bf16 (tc::fused_bottleneck_tc_kernel): the same three phases as bf16 x
-// bf16 -> fp32 products on the tensor cores (mma.sync.m16n8k16, operands
-// from shared memory through ldmatrix, .trans for the (K, N) row-major
+// bf16 and fp16 (tc::fused_bottleneck_tc_kernel<E, VEC>, one body over the
+// element type E): the same three phases as E x E -> fp32 products on the
+// tensor cores (mma.sync.m16n8k16, operands from shared memory through
+// ldmatrix, .trans for the (K, N) row-major
 // weights), the same tile and halo. h1 and h2 live in shared memory in
-// bf16, each pixel's 64 (zero-padded) channels in a 144-byte row, so that
+// E, each pixel's 64 (zero-padded) channels in a 144-byte row, so that
 // ldmatrix reads them conflict-free. x's halo and every weight chunk arrive
 // by 16-byte cp.async, double-buffered (64 channels of x and w1 a step, a
 // tap of w2, 64 output channels of w3). Phase 3 stages bn3's fp32 result in
@@ -75,18 +78,25 @@
 // more than its bytes or its tensor-core operations, hence the epilogues
 // that read from shared memory. A C or M that is not a multiple
 // of 8, or a base that is not 16-byte aligned, takes the same kernel with
-// element-wise loads and stores.
+// element-wise loads and stores. fp16 differs from bf16 only in the mma's
+// operand type and in the conversions (Elt<E>): h1, h2 and the output round
+// with __floats2half2_rn / __float2half_rn, never .satfinite, so a value past
+// 65504 becomes inf as jnp's astype makes it (and an inf h1 times a 0 weight
+// is NaN in the next product, as in the JAX kernel); fp16 subnormals are
+// kept (the build flushes nothing).
 //
 // Arithmetic: fp32 accumulation; each BN is a multiply and an add rounded
 // on their own (__fmul_rn, __fadd_rn), as the plain version does them; h1
 // and h2 are rounded to x's dtype exactly where the TPU kernel calls
 // .astype(x.dtype) (in fp32, not at all), and the padding of h1 is 0, not
-// relu(b1). The sums run in another order than cuDNN's, and fp32's products
-// carry 3xTF32's error (~2^-21 of each product), so the kernels are held to
-// their plain version within a tolerance, not bitwise; two calls give the
-// same bits.
+// relu(b1). ReLU passes a NaN through, as jnp.maximum and torch.relu do
+// (fmaxf alone would make it 0). The sums run in another order than
+// cuDNN's, and fp32's products carry 3xTF32's error (~2^-21 of each
+// product), so the kernels are held to their plain version within a
+// tolerance, not bitwise; two calls give the same bits.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,9 +113,18 @@ namespace tf32x3 {
 
 constexpr int kMaxM = 64;                  // widest bottleneck (stage 1)
 
+// ReLU that passes a NaN through, in one instruction (max.NaN: a NaN
+// operand gives NaN). A select on isnan in front of fmaxf cost the bf16
+// route 8 % and the fp32 route 2 % of their time on the card.
+__device__ __forceinline__ float relu(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(0.f));
+  return r;
+}
+
 // BN (folded) then ReLU, the multiply and the add rounded on their own
 __device__ __forceinline__ float bn_relu(float acc, float s, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(acc, s), b), 0.f);
+  return relu(__fadd_rn(__fmul_rn(acc, s), b));
 }
 
 // -------------------------------------------- fp32: on tensor cores, 3xTF32
@@ -495,11 +514,10 @@ fused_bottleneck_f32_kernel(const float* __restrict__ x,
           float v[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            v[e] = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(acc[i][j][2 * h + e],
-                                                       s3c[n + e]),
-                                             b3c[n + e]),
-                                   xr[i][j][2 * h + e]),
-                         0.f);
+            v[e] = relu(__fadd_rn(__fadd_rn(__fmul_rn(acc[i][j][2 * h + e],
+                                                      s3c[n + e]),
+                                            b3c[n + e]),
+                                  xr[i][j][2 * h + e]));
           float* o = out + at[i][h] + 8 * j;
           if constexpr (VEC) {
             if (c0 + n < C)
@@ -535,8 +553,8 @@ int launch(const void* x, const void* w1, const float* s1, const float* b1,
 
 }  // namespace f32
 
-// ------------------------------------------------- bf16: on tensor cores
-// The bf16 unit as three bf16 x bf16 -> fp32 products on mma.sync
+// ------------------------------------------ bf16 and fp16: on tensor cores
+// The 16-bit unit as three E x E -> fp32 products on mma.sync
 // m16n8k16, fed by ldmatrix. Output tile 8 x 14 pixels: at 56 x 56 it
 // covers the image without waste in 4 x 7 tiles, and its halo is 10 x 16 =
 // 160 pixels, 10 rows of 16 of the mma (phase 1 computes 1.43 x the tile's
@@ -550,7 +568,7 @@ constexpr int kHaloPx = (kTH + 2) * kHW;      // 160 = 10 m16 tiles
 constexpr int kTilePx = kTH * kTW;            // 112 = 7 m16 tiles
 constexpr int kMp = 64;                       // M padded
 constexpr int kKC = 64;                       // channels a chunk: x, w1, w3
-constexpr int kRow = 72;                      // bf16 a smem row: 144 bytes,
+constexpr int kRow = 72;                      // E a smem row: 144 bytes,
                                               // conflict-free for ldmatrix
 constexpr int kStageRow = 72;                 // fp32 a row of the out stage
 
@@ -568,6 +586,69 @@ constexpr int kRegion = 2 * kP1Buf > 2 * kWBuf + kStage ? 2 * kP1Buf
 constexpr int kSmemBytes = kH1 + kH2 + kRegion;          // 103680
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+// What differs between the two element types: the mma's operand type and
+// the conversions. Rounding is to nearest even, inf past fp16's 65504.
+template <typename E>
+struct Elt;
+
+template <>
+struct Elt<bf16> {
+  // c (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+  static __device__ __forceinline__ void mma(float* c, const unsigned* a,
+                                             unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ bf16 zero() {
+    return __float2bfloat16(0.f);
+  }
+  static __device__ __forceinline__ bf16 round(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float widen(bf16 v) {
+    return __bfloat162float(v);
+  }
+  // two floats rounded, lo in the low half
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(unsigned u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+};
+
+template <>
+struct Elt<f16> {
+  // c (16 x 8 fp32) += a (16 x 16 fp16, row) * b (16 x 8 fp16, col)
+  static __device__ __forceinline__ void mma(float* c, const unsigned* a,
+                                             unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ f16 zero() { return __float2half(0.f); }
+  static __device__ __forceinline__ f16 round(float v) {
+    return __float2half_rn(v);
+  }
+  static __device__ __forceinline__ float widen(f16 v) {
+    return __half2float(v);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(unsigned u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -615,18 +696,8 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned* r) {
       : "memory");
 }
 
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // B fragments of four n8 tiles (columns n0 .. n0 + 31) at k-step k0 of a
-// (k, n) row-major bf16 tile with rows of kRow: two ldmatrix.x4.trans.
+// (k, n) row-major E tile with rows of kRow: two ldmatrix.x4.trans.
 __device__ __forceinline__ void load_b(unsigned tile, int k0, int n0,
                                        int lane, unsigned (*b)[2]) {
   const int k = k0 + (lane & 7) + 8 * ((lane >> 3) & 1);
@@ -641,13 +712,13 @@ __device__ __forceinline__ void load_b(unsigned tile, int k0, int n0,
   }
 }
 
-// rows [0, rows) x 64 columns of a bf16 tile with rows of kRow from a
+// rows [0, rows) x 64 columns of an E tile with rows of kRow from a
 // row-major source with `ld` elements a row: element (r, n) is
 // src[(r0 + r) * ld + n0 + n] where r0 + r < r_end and n0 + n < n_end,
 // else 0. VEC: 16-byte cp.async (ld, n0 and n_end multiples of 8, src
 // 16-byte aligned); else element by element.
-template <bool VEC>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+template <typename E, bool VEC>
+__device__ __forceinline__ void load_tile(E* dst, const E* src,
                                           long long ld, int r0, int r_end,
                                           int n0, int n_end, int rows) {
   if constexpr (VEC) {
@@ -662,15 +733,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
       const int r = e >> 6, n = e & 63;
       const bool ok = r0 + r < r_end && n0 + n < n_end;
       dst[r * kRow + n] =
-          ok ? src[(long long)(r0 + r) * ld + n0 + n] : __float2bfloat16(0.f);
+          ok ? src[(long long)(r0 + r) * ld + n0 + n] : Elt<E>::zero();
     }
   }
 }
 
 // channels c0 .. c0 + 63 of x on the tile's 160 halo pixels (hy, hx) ->
 // image (y0 - 1 + hy, x0 - 1 + hx); 0 outside the image and past C
-template <bool VEC>
-__device__ __forceinline__ void load_x_halo(bf16* dst, const bf16* x,
+template <typename E, bool VEC>
+__device__ __forceinline__ void load_x_halo(E* dst, const E* x,
                                             long long img, int y0, int x0,
                                             int H, int W, int C, int c0) {
   if constexpr (VEC) {
@@ -687,25 +758,26 @@ __device__ __forceinline__ void load_x_halo(bf16* dst, const bf16* x,
       const int gy = y0 - 1 + px / kHW, gx = x0 - 1 + px % kHW;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
       dst[px * kRow + c] = ok ? x[(img + (long long)gy * W + gx) * C + c0 + c]
-                              : __float2bfloat16(0.f);
+                              : Elt<E>::zero();
     }
   }
 }
 
-// VEC: x, out, w1, w2, w3 16-byte aligned, C % 8 == 0 and M % 8 == 0
-template <bool VEC>
+// E: bf16 or f16. VEC: x, out, w1, w2, w3 16-byte aligned, C % 8 == 0 and
+// M % 8 == 0
+template <typename E, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
-                           const bf16* __restrict__ w1,
+fused_bottleneck_tc_kernel(const E* __restrict__ x,
+                           const E* __restrict__ w1,
                            const float* __restrict__ s1,
                            const float* __restrict__ b1,
-                           const bf16* __restrict__ w2,
+                           const E* __restrict__ w2,
                            const float* __restrict__ s2,
                            const float* __restrict__ b2,
-                           const bf16* __restrict__ w3,
+                           const E* __restrict__ w3,
                            const float* __restrict__ s3,
                            const float* __restrict__ b3,
-                           bf16* __restrict__ out, int H, int W, int C,
+                           E* __restrict__ out, int H, int W, int C,
                            int M, int tiles_x) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
   // the BN scales and shifts, read by the epilogues from shared memory:
@@ -713,19 +785,19 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
   // of two, copied with the pass's chunk of w3)
   __shared__ float bn12[4][kMp];
   __shared__ float bn3[2][2][kKC];
-  bf16* h1s = reinterpret_cast<bf16*>(smem_tc);                 // [160][kRow]
-  bf16* h2s = reinterpret_cast<bf16*>(smem_tc + kH1);           // [112][kRow]
+  E* h1s = reinterpret_cast<E*>(smem_tc);                       // [160][kRow]
+  E* h2s = reinterpret_cast<E*>(smem_tc + kH1);                 // [112][kRow]
   unsigned char* region = smem_tc + kH1 + kH2;
   // phase 1: buffer b holds the x chunk then the w1 chunk
   auto xbuf = [&](int b) {
-    return reinterpret_cast<bf16*>(region + b * kP1Buf);
+    return reinterpret_cast<E*>(region + b * kP1Buf);
   };
   auto w1buf = [&](int b) {
-    return reinterpret_cast<bf16*>(region + b * kP1Buf + kXBuf);
+    return reinterpret_cast<E*>(region + b * kP1Buf + kXBuf);
   };
   // phases 2 and 3: two weight buffers (a tap of w2, a chunk of w3)
   auto wbuf = [&](int b) {
-    return reinterpret_cast<bf16*>(region + b * kWBuf);
+    return reinterpret_cast<E*>(region + b * kWBuf);
   };
   float* stage = reinterpret_cast<float*>(region + 2 * kWBuf);
 
@@ -766,8 +838,8 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
 
   // ---- 1. h1 on the halo: (160, C) . (C, 64)
   const int nch = (C + kKC - 1) / kKC;
-  load_x_halo<VEC>(xbuf(0), x, img, y0, x0, H, W, C, 0);
-  load_tile<VEC>(w1buf(0), w1, M, 0, C, 0, M, kKC);
+  load_x_halo<E, VEC>(xbuf(0), x, img, y0, x0, H, W, C, 0);
+  load_tile<E, VEC>(w1buf(0), w1, M, 0, C, 0, M, kKC);
   cp_async_commit();
   {
     float acc[3][4][4];
@@ -782,8 +854,9 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
       __syncthreads();   // chunk ch is in; chunk ch - 1's buffer is free
       if (ch + 1 < nch) {
         const int b = (ch + 1) & 1;
-        load_x_halo<VEC>(xbuf(b), x, img, y0, x0, H, W, C, (ch + 1) * kKC);
-        load_tile<VEC>(w1buf(b), w1, M, (ch + 1) * kKC, C, 0, M, kKC);
+        load_x_halo<E, VEC>(xbuf(b), x, img, y0, x0, H, W, C,
+                            (ch + 1) * kKC);
+        load_tile<E, VEC>(w1buf(b), w1, M, (ch + 1) * kKC, C, 0, M, kKC);
       }
       cp_async_commit();
       const unsigned xs = smem_u32(xbuf(ch & 1));
@@ -799,14 +872,15 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
           unsigned a[4];
           ldsm_x4(xs + 2 * ((mt * 16 + a_row) * kRow + ks + a_k), a);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+          for (int j = 0; j < 4; ++j)
+            Elt<E>::mma(acc[i][j], a, b[j][0], b[j][1]);
         }
       }
     }
     __syncthreads();     // every warp is done with the phase-1 buffers
-    load_tile<VEC>(wbuf(0), w2, M, 0, M, 0, M, kMp);      // tap 0 of w2
+    load_tile<E, VEC>(wbuf(0), w2, M, 0, M, 0, M, kMp);   // tap 0 of w2
     cp_async_commit();
-    // h1 = relu(bn1), rounded to bf16; 0 at halo pixels outside the image
+    // h1 = relu(bn1), rounded to E; 0 at halo pixels outside the image
     // (the 3x3 conv's padding) and in the padded channels
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -827,8 +901,8 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
                        ? bn_relu(acc[i][j][2 * h + e], bn12[0][n + e],
                                  bn12[1][n + e])
                        : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(h1s + p * kRow + n) =
-              __floats2bfloat162_rn(v[0], v[1]);
+          *reinterpret_cast<unsigned*>(h1s + p * kRow + n) =
+              Elt<E>::pack(v[0], v[1]);
         }
       }
     }
@@ -852,8 +926,9 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
       cp_async_wait_all();
       __syncthreads();   // tap in (and h1 written); the other buffer free
       if (tap + 1 < 9)
-        load_tile<VEC>(wbuf((tap + 1) & 1), w2 + (long long)(tap + 1) * M * M,
-                       M, 0, M, 0, M, kMp);
+        load_tile<E, VEC>(wbuf((tap + 1) & 1),
+                          w2 + (long long)(tap + 1) * M * M, M, 0, M, 0, M,
+                          kMp);
       cp_async_commit();
       const unsigned ws = smem_u32(wbuf(tap & 1));
       const int off = (tap / 3) * kHW + tap % 3;
@@ -867,12 +942,13 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
           unsigned a[4];
           ldsm_x4(h1a + 2 * ((base[i] + off) * kRow + ks + a_k), a);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+          for (int j = 0; j < 4; ++j)
+            Elt<E>::mma(acc[i][j], a, b[j][0], b[j][1]);
         }
       }
     }
     __syncthreads();     // every warp is done with w2's buffers
-    load_tile<VEC>(wbuf(0), w3, C, 0, M, 0, C, kMp);       // chunk 0 of w3
+    load_tile<E, VEC>(wbuf(0), w3, C, 0, M, 0, C, kMp);   // chunk 0 of w3
     load_bn3(0, 0);
     cp_async_commit();
 #pragma unroll
@@ -892,8 +968,8 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
                        ? bn_relu(acc[i][j][2 * h + e], bn12[2][n + e],
                                  bn12[3][n + e])
                        : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(h2s + p * kRow + n) =
-              __floats2bfloat162_rn(v[0], v[1]);
+          *reinterpret_cast<unsigned*>(h2s + p * kRow + n) =
+              Elt<E>::pack(v[0], v[1]);
         }
       }
     }
@@ -907,7 +983,7 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
     cp_async_wait_all();
     __syncthreads();     // chunk in (and h2 written); the stage is free
     if (c0 + kKC < C) {
-      load_tile<VEC>(wbuf((pass + 1) & 1), w3, C, 0, M, c0 + kKC, C, kMp);
+      load_tile<E, VEC>(wbuf((pass + 1) & 1), w3, C, 0, M, c0 + kKC, C, kMp);
       load_bn3((pass + 1) & 1, c0 + kKC);
     }
     cp_async_commit();
@@ -945,7 +1021,8 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
         unsigned a[4];
         ldsm_x4(h2a + 2 * ((mt * 16 + a_row) * kRow + ks + a_k), a);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+        for (int j = 0; j < 4; ++j)
+          Elt<E>::mma(acc[i][j], a, b[j][0], b[j][1]);
       }
     }
     // h3 = bn3(acc) in fp32 -> the stage
@@ -984,17 +1061,15 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
             stage + p * kStageRow + n);
         const float4 hi = *reinterpret_cast<const float4*>(
             stage + p * kStageRow + n + 4);
-        const __nv_bfloat162* xp =
-            reinterpret_cast<const __nv_bfloat162*>(&xres[it]);
+        const unsigned* xp = reinterpret_cast<const unsigned*>(&xres[it]);
         const float h3[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
         uint4 ov;
-        __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&ov);
+        unsigned* op = reinterpret_cast<unsigned*>(&ov);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float2 xf = __bfloat1622float2(xp[q]);
-          op[q] = __floats2bfloat162_rn(
-              fmaxf(__fadd_rn(h3[2 * q], xf.x), 0.f),
-              fmaxf(__fadd_rn(h3[2 * q + 1], xf.y), 0.f));
+          const float2 xf = Elt<E>::unpack(xp[q]);
+          op[q] = Elt<E>::pack(relu(__fadd_rn(h3[2 * q], xf.x)),
+                               relu(__fadd_rn(h3[2 * q + 1], xf.y)));
         }
         *reinterpret_cast<uint4*>(out + at) = ov;
       }
@@ -1004,20 +1079,19 @@ fused_bottleneck_tc_kernel(const bf16* __restrict__ x,
         const int gy = y0 + p / kTW, gx = x0 + p % kTW;
         if (gy >= H || gx >= W || c0 + n >= C) continue;
         const long long at = (img + (long long)gy * W + gx) * C + c0 + n;
-        out[at] = __float2bfloat16_rn(fmaxf(
-            __fadd_rn(stage[p * kStageRow + n], __bfloat162float(x[at])),
-            0.f));
+        out[at] = Elt<E>::round(relu(
+            __fadd_rn(stage[p * kStageRow + n], Elt<E>::widen(x[at]))));
       }
     }
   }
 }
 
-template <bool VEC>
+template <typename E, bool VEC>
 int launch(const void* x, const void* w1, const float* s1, const float* b1,
            const void* w2, const float* s2, const float* b2, const void* w3,
            const float* s3, const float* b3, void* out, int B, int H, int W,
            int C, int M, cudaStream_t stream) {
-  auto kernel = fused_bottleneck_tc_kernel<VEC>;
+  auto kernel = fused_bottleneck_tc_kernel<E, VEC>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
@@ -1025,9 +1099,9 @@ int launch(const void* x, const void* w1, const float* s1, const float* b1,
   const int tiles_y = (H + kTH - 1) / kTH;
   const dim3 grid(tiles_x * tiles_y, B);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), s1, b1,
-      static_cast<const bf16*>(w2), s2, b2, static_cast<const bf16*>(w3), s3,
-      b3, static_cast<bf16*>(out), H, W, C, M, tiles_x);
+      static_cast<const E*>(x), static_cast<const E*>(w1), s1, b1,
+      static_cast<const E*>(w2), s2, b2, static_cast<const E*>(w3), s3, b3,
+      static_cast<E*>(out), H, W, C, M, tiles_x);
   return (int)cudaGetLastError();
 }
 
@@ -1053,7 +1127,8 @@ cudaError_t use_device(int device) {
 // bf16 on the tensor cores with 16-byte loads (x, w1, w2, w3 and out
 // 16-byte aligned, C % 8 == 0 and M % 8 == 0, else refused with
 // cudaErrorInvalidValue); 2 bf16 on the tensor cores with element-wise
-// loads (any operands). Makes `device` current if it is not, launches on
+// loads (any operands); 3 and 4 the same two routes in fp16 (3 under 1's
+// conditions). Makes `device` current if it is not, launches on
 // `stream`, allocates nothing, and returns the first CUDA error (0 on
 // success).
 extern "C" int mxtpu_fused_bottleneck(const void* x, const void* w1,
@@ -1065,24 +1140,31 @@ extern "C" int mxtpu_fused_bottleneck(const void* x, const void* w1,
                                       int M, int route, int device,
                                       void* stream_ptr) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || M <= 0 ||
-      M > kMaxM || route < 0 || route > 2)
+      M > kMaxM || route < 0 || route > 4)
     return (int)cudaErrorInvalidValue;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
                           reinterpret_cast<uintptr_t>(w1) |
                           reinterpret_cast<uintptr_t>(w2) |
                           reinterpret_cast<uintptr_t>(w3) |
                           reinterpret_cast<uintptr_t>(out);
-  if (route == 1 && (bases % 16 != 0 || C % 8 != 0 || M % 8 != 0))
+  if ((route == 1 || route == 3) &&
+      (bases % 16 != 0 || C % 8 != 0 || M % 8 != 0))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (route == 1)
-    return tc::launch<true>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H,
-                            W, C, M, stream);
+    return tc::launch<tc::bf16, true>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
+                                      out, B, H, W, C, M, stream);
   if (route == 2)
-    return tc::launch<false>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B,
-                             H, W, C, M, stream);
+    return tc::launch<tc::bf16, false>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
+                                       out, B, H, W, C, M, stream);
+  if (route == 3)
+    return tc::launch<tc::f16, true>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
+                                     out, B, H, W, C, M, stream);
+  if (route == 4)
+    return tc::launch<tc::f16, false>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3,
+                                      out, B, H, W, C, M, stream);
   if (bases % 16 == 0 && C % 4 == 0 && M % 4 == 0)
     return f32::launch<true>(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B,
                              H, W, C, M, stream);

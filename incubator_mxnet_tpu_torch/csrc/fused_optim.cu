@@ -1,7 +1,7 @@
 // Fused optimizer updates over many tensors in one launch (a multi-tensor
 // apply), for Hopper (sm_90a): ShardedTrainer's Adam / AdamW and SGD with
 // momentum (fp32), and the eager seam's flat SGD-momentum, Adam and AdamW
-// with their rescale / clip prologue (fp32 and bf16).
+// with their rescale / clip prologue (fp32, bf16 and fp16).
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/fused_optim.py:
 // - _trainer_adam_kernel (reached through multi_trainer_adam, from
@@ -12,7 +12,8 @@
 //   is a bitwise no-op at rescale 1 with the clip off;
 // - _adam_kernel and _adamw_kernel through _launch (fused_adam_flat,
 //   fused_adamw_flat, from _multi_adam_update / _multi_adamw_update);
-// - the same three flat kernels on bf16 buffers (dt = bfloat16 there).
+// - the same three flat kernels on bf16 and on fp16 buffers (dt = bfloat16
+//   or float16 there).
 //
 // What bounds them on the H100: bytes. Adam reads w, g, m, v and writes w,
 // m, v: 28 bytes an element for about 15 operations. SGD with momentum
@@ -20,8 +21,8 @@
 // v1 updates 25,575,912 elements in 193 tensors: 511.5 MB (0.153 ms at
 // 3.35 TB/s) for SGD, 716.1 MB (0.214 ms) for Adam; BERT-base pretraining
 // 110,106,428 elements in 206 tensors, 3.08 GB (0.92 ms) for Adam. In bf16
-// every byte count halves: 10 and 14 bytes an element, 0.076 and 0.107 ms
-// for ResNet-50's tensors.
+// and fp16 every byte count halves: 10 and 14 bytes an element, 0.076 and
+// 0.107 ms for ResNet-50's tensors.
 //
 // What the design does about it: the TPU kernels update one flat buffer
 // that the caller had packed from every tensor (flatten_group) and split
@@ -32,7 +33,7 @@
 // and updates one chunk of kChunk elements with 16-byte loads and stores (4
 // fp32 or 8 bf16 values; scalar where a tensor's pointers are not 16-byte
 // aligned, and for the last n % 4 or n % 8 elements), so every byte moves
-// once.
+// once. A 16-bit storage type holds 8 elements a 16-byte access.
 //
 // Arithmetic: the TPU kernels', in their order, with every operation
 // rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn,
@@ -49,8 +50,21 @@
 // scalar already rounded to bf16, as the TPU kernel's `.astype(dt)` rounds
 // it; the rounding policy is a template argument, the identity for fp32, so
 // the fp32 instantiations compute what they computed before.
+//
+// fp16: the bf16 arithmetic on another policy (__float2half_rn,
+// __half2float): one rounding to fp16 per operation, never a contraction of
+// a product into the add after it. (XLA on a CPU with native fp16 FMA
+// contracts there, with one rounding for the pair; the JAX source asks for
+// an fp16 result of each operation, which this computes, and the plain
+// PyTorch version can express no single-rounded fp16 FMA; ROADMAP Queue 3
+// item 14.) fp16's range is narrow: a conversion past 65504 gives inf (no
+// .satfinite, no clamp), so Adam's g * g overflows to inf for |g'| > 256,
+// as the JAX rules do. Results below 2^-14 stay fp16 subnormals: the build
+// flushes nothing (no -ftz, no --use_fast_math). eps = 1e-8 rounds to 0 in
+// fp16, so Adam divides by sqrt(v) + 0 there, as the JAX rules do.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,7 +100,7 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b,
 }
 
 // Storage type and rounding of each operation's f32 result: none for fp32,
-// to the nearest bf16 (ties to even) for bf16.
+// to the nearest bf16 or fp16 (ties to even) for bf16 and fp16.
 struct F32 {
   using T = float;
   static __device__ __forceinline__ float r(float x) { return x; }
@@ -104,6 +118,19 @@ struct BF16 {
   }
   static __device__ __forceinline__ __nv_bfloat16 store(float x) {
     return __float2bfloat16_rn(x);
+  }
+};
+
+struct F16 {
+  using T = __half;
+  static __device__ __forceinline__ float r(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+  static __device__ __forceinline__ float load(__half x) {
+    return __half2float(x);
+  }
+  static __device__ __forceinline__ __half store(float x) {
+    return __float2half_rn(x);
   }
 };
 
@@ -284,11 +311,12 @@ int launch(const long long* table, int n_tensors, int n_chunks, const Op& op,
 
 // C entry points, bound with ctypes. `table`: (n_tensors, 4 + states) int64
 // on the device, one row (w, g, state..., n, first chunk) per tensor of
-// n > 0 elements (fp32, or bf16 for the *_bf16 entries), first chunks
-// ascending from 0 by ceil(n / 32768); n_chunks is the total. The scalars
-// are the values of the plain versions: f32, or f32 values that bf16 holds
-// exactly for the *_bf16 entries. Each updates w and its states in place on
-// `stream`, allocates nothing, and returns cudaGetLastError().
+// n > 0 elements (fp32, or bf16 / fp16 for the *_bf16 / *_f16 entries),
+// first chunks ascending from 0 by ceil(n / 32768); n_chunks is the total.
+// The scalars are the values of the plain versions: f32, or f32 values that
+// bf16 (fp16) holds exactly for the *_bf16 (*_f16) entries. Each updates w
+// and its states in place on `stream`, allocates nothing, and returns
+// cudaGetLastError().
 
 // rows (w, g, m, v, n, first chunk); scalars lr, wd, b1, b2, 1 - b1, 1 - b2,
 // 1 - b1^t, 1 - b2^t, eps and lr * wd.
@@ -348,38 +376,71 @@ extern "C" int mxtpu_flat_adamw_f32(
                    device, stream_ptr);
 }
 
-// The bf16 flavours of the three eager entries above, with their rows and
-// scalars (each scalar rounded to bf16 on the host; clip -1 when off).
-extern "C" int mxtpu_flat_sgd_mom_bf16(const long long* table, int n_tensors,
-                                       int n_chunks, float lr, float wd,
-                                       float momentum, float rescale,
-                                       float clip, int device,
-                                       void* stream_ptr) {
-  return launch<1, BF16>(table, n_tensors, n_chunks,
-                         SgdMom<BF16>{lr, wd, momentum, rescale, clip},
-                         device, stream_ptr);
+// The bf16 and fp16 flavours of the three eager entries above, with their
+// rows and scalars (each scalar rounded to the storage type on the host;
+// clip -1 when off): one body each, on the storage type's policy R.
+namespace {
+
+template <class R>
+int flat_sgd_mom(const long long* table, int n_tensors, int n_chunks,
+                 float lr, float wd, float momentum, float rescale,
+                 float clip, int device, void* stream_ptr) {
+  return launch<1, R>(table, n_tensors, n_chunks,
+                      SgdMom<R>{lr, wd, momentum, rescale, clip}, device,
+                      stream_ptr);
 }
 
-extern "C" int mxtpu_flat_adam_bf16(const long long* table, int n_tensors,
-                                    int n_chunks, float coef, float wd,
-                                    float b1, float b2, float one_minus_b1,
-                                    float one_minus_b2, float eps,
-                                    float rescale, float clip, int device,
-                                    void* stream_ptr) {
-  return launch<2, BF16>(table, n_tensors, n_chunks,
-                         FlatAdam<BF16>{coef, wd, b1, b2, one_minus_b1,
-                                        one_minus_b2, eps, rescale, clip},
-                         device, stream_ptr);
+template <class R>
+int flat_adam(const long long* table, int n_tensors, int n_chunks,
+              float coef, float wd, float b1, float b2, float one_minus_b1,
+              float one_minus_b2, float eps, float rescale, float clip,
+              int device, void* stream_ptr) {
+  return launch<2, R>(table, n_tensors, n_chunks,
+                      FlatAdam<R>{coef, wd, b1, b2, one_minus_b1,
+                                  one_minus_b2, eps, rescale, clip},
+                      device, stream_ptr);
 }
 
-extern "C" int mxtpu_flat_adamw_bf16(
-    const long long* table, int n_tensors, int n_chunks, float lr, float wd,
-    float eta, float b1, float b2, float one_minus_b1, float one_minus_b2,
-    float bias1, float bias2, float eps, float rescale, float clip,
-    int device, void* stream_ptr) {
-  return launch<2, BF16>(table, n_tensors, n_chunks,
-                         FlatAdamW<BF16>{lr, wd, eta, b1, b2, one_minus_b1,
-                                         one_minus_b2, bias1, bias2, eps,
-                                         rescale, clip},
-                         device, stream_ptr);
+template <class R>
+int flat_adamw(const long long* table, int n_tensors, int n_chunks,
+               float lr, float wd, float eta, float b1, float b2,
+               float one_minus_b1, float one_minus_b2, float bias1,
+               float bias2, float eps, float rescale, float clip, int device,
+               void* stream_ptr) {
+  return launch<2, R>(table, n_tensors, n_chunks,
+                      FlatAdamW<R>{lr, wd, eta, b1, b2, one_minus_b1,
+                                   one_minus_b2, bias1, bias2, eps, rescale,
+                                   clip},
+                      device, stream_ptr);
 }
+
+}  // namespace
+
+#define MXTPU_FLAT_ENTRIES(SUFFIX, R)                                        \
+  extern "C" int mxtpu_flat_sgd_mom_##SUFFIX(                                \
+      const long long* table, int n_tensors, int n_chunks, float lr,         \
+      float wd, float momentum, float rescale, float clip, int device,       \
+      void* stream_ptr) {                                                    \
+    return flat_sgd_mom<R>(table, n_tensors, n_chunks, lr, wd, momentum,     \
+                           rescale, clip, device, stream_ptr);               \
+  }                                                                          \
+  extern "C" int mxtpu_flat_adam_##SUFFIX(                                   \
+      const long long* table, int n_tensors, int n_chunks, float coef,       \
+      float wd, float b1, float b2, float one_minus_b1, float one_minus_b2,  \
+      float eps, float rescale, float clip, int device, void* stream_ptr) {  \
+    return flat_adam<R>(table, n_tensors, n_chunks, coef, wd, b1, b2,        \
+                        one_minus_b1, one_minus_b2, eps, rescale, clip,      \
+                        device, stream_ptr);                                 \
+  }                                                                          \
+  extern "C" int mxtpu_flat_adamw_##SUFFIX(                                  \
+      const long long* table, int n_tensors, int n_chunks, float lr,         \
+      float wd, float eta, float b1, float b2, float one_minus_b1,           \
+      float one_minus_b2, float bias1, float bias2, float eps,               \
+      float rescale, float clip, int device, void* stream_ptr) {             \
+    return flat_adamw<R>(table, n_tensors, n_chunks, lr, wd, eta, b1, b2,    \
+                         one_minus_b1, one_minus_b2, bias1, bias2, eps,      \
+                         rescale, clip, device, stream_ptr);                 \
+  }
+
+MXTPU_FLAT_ENTRIES(bf16, BF16)
+MXTPU_FLAT_ENTRIES(f16, F16)

@@ -23,6 +23,20 @@ f32 (``adam_coef``, ``adamw_bias``), rounded to the tensors' dtype, and
 shared with the kernels. ``clip <= 0`` means no clip; the clip lets a NaN
 gradient through.
 
+fp16 tensors take the same rules: each scalar rounded to fp16, each
+operation rounded to fp16, which is what the JAX source asks of each
+``jnp`` operation and what the CUDA kernels compute. The JAX rules jitted
+on a CPU with native fp16 arithmetic (AVX512-FP16) compute something else:
+LLVM contracts each fp16 product whose only use is an add or subtract into
+one fp16 FMA, rounded once. That is a liberty of XLA's CPU backend, and
+PyTorch can express no single-rounded fp16 FMA (its f64 -> fp16 cast rounds
+through f32), so the port keeps one rounding per operation; the CPU tests
+hold it to the JAX rules within 2 fp16 steps of the largest magnitude among
+each element's inputs and outputs (ROADMAP Queue 3 item 14). eps = 1e-8
+rounds to 0 in fp16 (its least subnormal is 2**-24), so Adam divides m by
+sqrt(v) + 0: NaN where m and v are 0, +-inf where only v is, as the JAX
+rules do. fp16 overflows past 65504: Adam's g * g is inf for |g'| > 256.
+
 The lazy / row-sparse rules wait for the sparse NDArray (ROADMAP Queue 1
 item 4) and raise.
 """

@@ -29,9 +29,12 @@ from .fused_norm import (layer_norm, layer_norm_bf16, layer_norm_f16,
 from .int8_matmul import (int8_matmul, int8_matmul_nk,
                           int8_matmul_nk_reference, int8_matmul_reference)
 from .fused_optim import (fused_adam_flat, fused_adam_flat_bf16,
+                          fused_adam_flat_f16,
                           fused_adam_flat_reference, fused_adamw_flat,
-                          fused_adamw_flat_bf16, fused_adamw_flat_reference,
+                          fused_adamw_flat_bf16, fused_adamw_flat_f16,
+                          fused_adamw_flat_reference,
                           fused_sgd_mom_flat, fused_sgd_mom_flat_bf16,
+                          fused_sgd_mom_flat_f16,
                           fused_sgd_mom_flat_reference,
                           multi_trainer_adam, multi_trainer_adam_reference,
                           multi_trainer_sgd_mom,
@@ -47,6 +50,8 @@ __all__ = ["bottleneck_reference", "flash_attention", "flash_attention_backward"
            "flash_attention_bwd_dkv_dbias_f16", "paged_flash_decode_f16",
            "fused_adam_flat_bf16",
            "fused_adamw_flat_bf16", "fused_sgd_mom_flat_bf16",
+           "fused_adam_flat_f16", "fused_adamw_flat_f16",
+           "fused_sgd_mom_flat_f16",
            "flash_attention_bwd_dq", "flash_attention_forward",
            "flash_attention_reference", "fused_adam_flat",
            "int8_matmul", "int8_matmul_nk", "int8_matmul_nk_reference",
@@ -95,6 +100,9 @@ WRAPPERS = {
     "flash_attention_bwd_dkv_f16": flash_attention_bwd_dkv_f16,
     "flash_attention_bwd_dkv_dbias_f16": flash_attention_bwd_dkv_dbias_f16,
     "flash_decode_f16": paged_flash_decode_f16,
+    "sgd_mom_flat_f16": fused_sgd_mom_flat_f16,
+    "adam_flat_f16": fused_adam_flat_f16,
+    "adamw_flat_f16": fused_adamw_flat_f16,
 }
 
 

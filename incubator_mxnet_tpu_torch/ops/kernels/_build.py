@@ -89,12 +89,18 @@ _SIGNATURES = {
     # 1 - b1^t, 1 - b2^t, eps, rescale, clip, device, stream
     "mxtpu_flat_adamw_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                              _F, _F, _F, _I, _P),
-    # the bf16 flavours of the three eager entries, with the same arguments
+    # the bf16 and fp16 flavours of the three eager entries, with the same
+    # arguments
     "mxtpu_flat_sgd_mom_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "mxtpu_flat_adam_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                              _I, _P),
     "mxtpu_flat_adamw_bf16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                               _F, _F, _F, _I, _P),
+    "mxtpu_flat_sgd_mom_f16": (_P, _I, _I, _F, _F, _F, _F, _F, _I, _P),
+    "mxtpu_flat_adam_f16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                            _I, _P),
+    "mxtpu_flat_adamw_f16": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                             _F, _F, _F, _I, _P),
     # x, w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, C, M, route,
     # device, stream
     "mxtpu_fused_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

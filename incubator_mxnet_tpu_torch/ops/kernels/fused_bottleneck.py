@@ -10,11 +10,13 @@ shift in fp32. It computes
     relu(bn3(conv3(relu(bn2(conv2(relu(bn1(conv1(x)))))))) + x)
 
 with fp32 accumulation, h1 and h2 rounded to x's dtype where the TPU kernel
-rounds them, and the output in x's dtype (fp32 or bf16). The kernels are in
+rounds them, and the output in x's dtype (fp32, bf16 or fp16). The kernels
+are in
 ``csrc/fused_bottleneck.cu``: a block owns an 8 x 14 tile of output pixels,
 keeps h1 (on the tile and a one-pixel halo) and h2 in shared memory, and
 runs the three products on the tensor cores: bf16 x bf16 -> fp32 in bf16,
-and in fp32 as three TF32 products each (3xTF32: the operands split into
+fp16 x fp16 -> fp32 in fp16 (the bf16 kernel's body on another element
+type), and in fp32 as three TF32 products each (3xTF32: the operands split into
 tf32 halves, hi*lo + lo*hi + hi*hi of every one or two k-steps into a fresh
 accumulator added in fp32), which keeps fp32's accuracy to ~2^-21 of each
 product.
@@ -26,8 +28,12 @@ its route from the dtype, the shape and the operands' addresses:
 ``"fp32"`` (any operands: the C entry takes 16-byte copies where every base
 is 16-byte aligned, C % 4 == 0 and M % 4 == 0, else 4-byte ones); ``"bf16"``
 (16-byte loads: every bf16 base 16-byte aligned, C % 8 == 0 and
-M % 8 == 0); ``"bf16_scalar"`` (element-wise loads, any operands). The C
-entry refuses a route whose condition fails.
+M % 8 == 0); ``"bf16_scalar"`` (element-wise loads, any operands);
+``"fp16"`` and ``"fp16_scalar"`` under the same conditions. The C entry
+refuses a route whose condition fails. fp16 rounds h1, h2 and the output to
+nearest even with no saturation: a value past 65504 becomes inf, and an inf
+h1 times a zero weight of the 3x3 conv gives NaN, as in the JAX kernel;
+ReLU passes NaN through.
 """
 
 import torch
@@ -38,9 +44,11 @@ from . import _build
 __all__ = ["fused_bottleneck", "bottleneck_reference"]
 
 MAX_M = 64                 # widest bottleneck the kernel holds (kMaxM)
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: the C entry's route codes
-ROUTES = {"fp32": 0, "bf16": 1, "bf16_scalar": 2}
+ROUTES = {"fp32": 0, "bf16": 1, "bf16_scalar": 2, "fp16": 3,
+          "fp16_scalar": 4}
+_NAMES = {torch.bfloat16: "bf16", torch.float16: "fp16"}
 
 
 def _route(dtype, C, M, ptrs):
@@ -50,14 +58,15 @@ def _route(dtype, C, M, ptrs):
     if dtype == torch.float32:
         return "fp32"
     if C % 8 == 0 and M % 8 == 0 and all(p % 16 == 0 for p in ptrs):
-        return "bf16"
-    return "bf16_scalar"
+        return _NAMES[dtype]
+    return _NAMES[dtype] + "_scalar"
 
 
 def bottleneck_reference(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
-    """The same unit through ``F.conv2d`` in fp32 on x's values (bf16
-    values are exact in fp32), with the same roundings: h1 and h2 to x's
-    dtype after their BN and ReLU, the output after the residual and ReLU.
+    """The same unit through ``F.conv2d`` in fp32 on x's values (bf16 and
+    fp16 values are exact in fp32), with the same roundings: h1 and h2 to
+    x's dtype after their BN and ReLU, the output after the residual and
+    ReLU (an fp16 value past 65504 becomes inf there).
     As the JAX package's ``bottleneck_reference`` asks its convs for fp32
     results (``preferred_element_type``)."""
     dt = x.dtype
@@ -92,10 +101,8 @@ def _check_cuda(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     named = dict(w1=w1, s1=s1, b1=b1, w2=w2, s2=s2, b2=b2, w3=w3, s3=s3,
                  b3=b3)
     if x.dtype not in _DTYPES:
-        raise TypeError("fused_bottleneck: the CUDA kernel takes float32 or "
-                        "bfloat16 x, got %s%s" % (
-                            x.dtype, " (the float16 route is ROADMAP Queue 2 "
-                            "item 19)" if x.dtype == torch.float16 else ""))
+        raise TypeError("fused_bottleneck: the CUDA kernel takes float32, "
+                        "bfloat16 or float16 x, got %s" % x.dtype)
     for name, t in [("x", x)] + list(named.items()):
         if t.device != x.device:
             raise ValueError("fused_bottleneck: %s on %s, x on %s"

@@ -36,11 +36,12 @@ launches it with rescale 1 and the clip off, where the prologue changes no
 bit. Adam's ``coef`` and AdamW's ``1 - b**t`` are computed once on the host
 (``adam_coef``, ``adamw_bias``) and passed to both. fp32 is the only dtype
 the gluon Trainer sends (``Optimizer._fusable``); the seam also takes bf16
-lists, as the JAX seam does, and launches the bf16 flavour of the same
-kernel (``mxtpu_flat_*_bf16``, counted on ``fused_*_flat_bf16``): every
-scalar rounded to bf16 on the host and every operation rounded to bf16, so
-that it equals the per-parameter rules on bf16 tensors bitwise. A call's
-lists hold one dtype; a mix raises ValueError.
+and fp16 lists, as the JAX seam does, and launches the 16-bit flavour of
+the same kernel (``mxtpu_flat_*_bf16`` / ``mxtpu_flat_*_f16``, counted on
+``fused_*_flat_bf16`` / ``fused_*_flat_f16``): every scalar rounded to the
+lists' dtype on the host and every operation rounded to it, so that it
+equals the per-parameter rules on such tensors bitwise. A call's lists hold
+one dtype; a mix raises ValueError.
 
 For CPU tensors each wrapper takes its plain version; for CUDA tensors it
 launches its kernel once for all of them or raises, and adds one to its
@@ -61,7 +62,9 @@ __all__ = ["multi_trainer_adam", "multi_trainer_adam_reference",
            "fused_adam_flat", "fused_adam_flat_reference",
            "fused_adamw_flat", "fused_adamw_flat_reference",
            "fused_sgd_mom_flat_bf16", "fused_adam_flat_bf16",
-           "fused_adamw_flat_bf16", "adam_scalars", "sgd_mom_scalars", "fused_optim_enabled"]
+           "fused_adamw_flat_bf16", "fused_sgd_mom_flat_f16",
+           "fused_adam_flat_f16", "fused_adamw_flat_f16", "adam_scalars",
+           "sgd_mom_scalars", "fused_optim_enabled"]
 
 CHUNK = 32768          # elements a block updates (csrc/fused_optim.cu kChunk)
 
@@ -249,9 +252,8 @@ multi_trainer_sgd_mom.launches = 0
 # the eager gluon Trainer's flavours (the _optim_kernels seam)
 # ---------------------------------------------------------------------------
 
-_FLAT_DTYPES = (torch.float32, torch.bfloat16)
-#: where the flat kernels' fp16 flavour is queued
-_FP16_ITEM = " (the float16 flavour is ROADMAP Queue 2 item 18)"
+#: the flat kernels' storage types, in the order of a call's ``entries``
+_FLAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _group(what, groups):
@@ -272,28 +274,28 @@ def _on_cpu(groups):
     return all(t.device.type == "cpu" for _n, ts in groups for t in ts)
 
 
-def _bf16(x):
-    """``x`` rounded to f32, then to bf16 (ties to even), as a float."""
-    return float(torch.tensor(float(np.float32(x)), dtype=torch.bfloat16))
+def _rounder(dtype):
+    """x -> x rounded to f32, then to ``dtype`` (ties to even), as a
+    float."""
+    return lambda x: float(torch.tensor(float(np.float32(x)), dtype=dtype))
 
 
 def _launch(what, groups, entries, scalars, clip):
-    """One launch of the fp32 or bf16 flavour over the table of ``groups``,
-    counted on that flavour's wrapper. ``entries`` is ((fp32 wrapper, C
-    entry), (bf16 wrapper, C entry)); ``scalars`` are rounded to f32, or to
-    bf16 for bf16 lists, and ``clip`` after them is -1 when off."""
+    """One launch of the lists' dtype's flavour over the table of
+    ``groups``, counted on that flavour's wrapper. ``entries`` holds a
+    (wrapper, C entry) pair for each of ``_FLAT_DTYPES``, in its order;
+    ``scalars`` are rounded to f32 and then to the lists' dtype, and
+    ``clip`` after them is -1 when off."""
     dtype = groups[0][1][0].dtype
     if dtype not in _FLAT_DTYPES:
-        raise TypeError("%s: the CUDA kernel takes float32 or bfloat16, "
-                        "got %s%s" % (what, dtype, _FP16_ITEM
-                                      if dtype == torch.float16 else ""))
+        raise TypeError("%s: the CUDA kernel takes float32, bfloat16 or "
+                        "float16, got %s" % (what, dtype))
     launch = _table(what, groups, dtype)
     if launch is None:
         return
     table, n_tensors, n_chunks = launch
-    bf16 = dtype == torch.bfloat16
-    wrapper, entry = entries[bf16]
-    rnd = _bf16 if bf16 else (lambda x: float(np.float32(x)))
+    wrapper, entry = entries[_FLAT_DTYPES.index(dtype)]
+    rnd = _rounder(dtype)
     clip = rnd(clip) if float(np.float32(clip)) > 0 else -1.0
     dev = groups[0][1][0].device
     rc = getattr(_build.library(), entry)(
@@ -313,8 +315,8 @@ def fused_sgd_mom_flat_reference(ws, gs, moms, lr, wd, momentum, rescale,
 
 def fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip):
     """One SGD-momentum step with the rescale / clip prologue over the
-    tensors ``ws``, gradients ``gs`` and momenta ``moms``, in place (fp32 or
-    bf16, one launch on CUDA). Returns ``(ws, moms)``."""
+    tensors ``ws``, gradients ``gs`` and momenta ``moms``, in place (fp32,
+    bf16 or fp16, one launch on CUDA). Returns ``(ws, moms)``."""
     groups = _group("fused_sgd_mom_flat",
                     (("w", ws), ("g", gs), ("mom", moms)))
     ws, gs, moms = (ts for _n, ts in groups)
@@ -325,22 +327,13 @@ def fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip):
                                             rescale, clip)
     _launch("fused_sgd_mom_flat", groups,
             ((fused_sgd_mom_flat, "mxtpu_trainer_sgd_mom_f32"),
-             (fused_sgd_mom_flat_bf16, "mxtpu_flat_sgd_mom_bf16")),
+             (fused_sgd_mom_flat_bf16, "mxtpu_flat_sgd_mom_bf16"),
+             (fused_sgd_mom_flat_f16, "mxtpu_flat_sgd_mom_f16")),
             (lr, wd, momentum, rescale), clip)
     return ws, moms
 
 
 fused_sgd_mom_flat.launches = 0
-
-
-def fused_sgd_mom_flat_bf16(ws, gs, moms, lr, wd, momentum, rescale, clip):
-    """``fused_sgd_mom_flat`` on bf16 lists: the bf16 kernel's entry, whose
-    launches are counted here."""
-    _require_bf16("fused_sgd_mom_flat_bf16", ws)
-    return fused_sgd_mom_flat(ws, gs, moms, lr, wd, momentum, rescale, clip)
-
-
-fused_sgd_mom_flat_bf16.launches = 0
 
 
 def fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
@@ -355,7 +348,8 @@ def fused_adam_flat_reference(ws, gs, ms, vs, lr, wd, b1, b2, eps, t,
 
 def fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale, clip):
     """One Adam step of step number ``t`` with the rescale / clip prologue,
-    in place (fp32 or bf16, one launch on CUDA). Returns ``(ws, ms, vs)``."""
+    in place (fp32, bf16 or fp16, one launch on CUDA). Returns
+    ``(ws, ms, vs)``."""
     groups = _group("fused_adam_flat",
                     (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
     ws, gs, ms, vs = (ts for _n, ts in groups)
@@ -367,25 +361,14 @@ def fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale, clip):
     f = np.float32
     _launch("fused_adam_flat", groups,
             ((fused_adam_flat, "mxtpu_flat_adam_f32"),
-             (fused_adam_flat_bf16, "mxtpu_flat_adam_bf16")),
+             (fused_adam_flat_bf16, "mxtpu_flat_adam_bf16"),
+             (fused_adam_flat_f16, "mxtpu_flat_adam_f16")),
             (_rules.adam_coef(lr, b1, b2, t), wd, b1, b2, 1 - f(b1),
              1 - f(b2), eps, rescale), clip)
     return ws, ms, vs
 
 
 fused_adam_flat.launches = 0
-
-
-def fused_adam_flat_bf16(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale,
-                         clip):
-    """``fused_adam_flat`` on bf16 lists: the bf16 kernel's entry, whose
-    launches are counted here."""
-    _require_bf16("fused_adam_flat_bf16", ws)
-    return fused_adam_flat(ws, gs, ms, vs, lr, wd, b1, b2, eps, t, rescale,
-                           clip)
-
-
-fused_adam_flat_bf16.launches = 0
 
 
 def fused_adamw_flat_reference(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
@@ -401,7 +384,7 @@ def fused_adamw_flat_reference(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
 def fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t, rescale,
                      clip):
     """One AdamW step of step number ``t`` with the rescale / clip
-    prologue, in place (fp32 or bf16, one launch on CUDA). Returns
+    prologue, in place (fp32, bf16 or fp16, one launch on CUDA). Returns
     ``(ws, ms, vs)``."""
     groups = _group("fused_adamw_flat",
                     (("w", ws), ("g", gs), ("m", ms), ("v", vs)))
@@ -415,7 +398,8 @@ def fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t, rescale,
     bias1, bias2 = _rules.adamw_bias(b1, b2, t)
     _launch("fused_adamw_flat", groups,
             ((fused_adamw_flat, "mxtpu_flat_adamw_f32"),
-             (fused_adamw_flat_bf16, "mxtpu_flat_adamw_bf16")),
+             (fused_adamw_flat_bf16, "mxtpu_flat_adamw_bf16"),
+             (fused_adamw_flat_f16, "mxtpu_flat_adamw_f16")),
             (lr, wd, eta, b1, b2, 1 - f(b1), 1 - f(b2), bias1, bias2, eps,
              rescale), clip)
     return ws, ms, vs
@@ -424,20 +408,31 @@ def fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t, rescale,
 fused_adamw_flat.launches = 0
 
 
-def fused_adamw_flat_bf16(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
-                          rescale, clip):
-    """``fused_adamw_flat`` on bf16 lists: the bf16 kernel's entry, whose
-    launches are counted here."""
-    _require_bf16("fused_adamw_flat_bf16", ws)
-    return fused_adamw_flat(ws, gs, ms, vs, lr, wd, eta, b1, b2, eps, t,
-                            rescale, clip)
+def _flavour(flat, dtype, suffix):
+    """``flat`` restricted to ``dtype`` lists: the wrapper named
+    ``<flat>_<suffix>`` on whose ``launches`` ``flat`` counts the launches
+    of that dtype's kernel."""
+    what = "%s_%s" % (flat.__name__, suffix)
+
+    def wrapper(ws, *args, **kwargs):
+        ws = list(ws)
+        if ws and ws[0].dtype != dtype:
+            raise TypeError("%s: takes %s lists, w[0] is %s"
+                            % (what, str(dtype)[6:], ws[0].dtype))
+        return flat(ws, *args, **kwargs)
+
+    wrapper.__name__ = wrapper.__qualname__ = what
+    wrapper.__doc__ = ("``%s`` on %s lists: the %s kernel's entry, whose "
+                       "launches are counted here." % (
+                           flat.__name__, str(dtype)[6:], suffix))
+    wrapper.launches = 0
+    return wrapper
 
 
-fused_adamw_flat_bf16.launches = 0
-
-
-def _require_bf16(what, ws):
-    ws = list(ws)
-    if ws and ws[0].dtype != torch.bfloat16:
-        raise TypeError("%s: takes bfloat16 lists, w[0] is %s"
-                        % (what, ws[0].dtype))
+fused_sgd_mom_flat_bf16 = _flavour(fused_sgd_mom_flat, torch.bfloat16,
+                                   "bf16")
+fused_adam_flat_bf16 = _flavour(fused_adam_flat, torch.bfloat16, "bf16")
+fused_adamw_flat_bf16 = _flavour(fused_adamw_flat, torch.bfloat16, "bf16")
+fused_sgd_mom_flat_f16 = _flavour(fused_sgd_mom_flat, torch.float16, "f16")
+fused_adam_flat_f16 = _flavour(fused_adam_flat, torch.float16, "f16")
+fused_adamw_flat_f16 = _flavour(fused_adamw_flat, torch.float16, "f16")

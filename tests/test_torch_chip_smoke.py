@@ -363,24 +363,51 @@ def test_int8_decode_row_times_int_mm_on_a_padded_a(monkeypatch):
     assert "padded" not in wide["library_note"]
 
 
+def test_trace_ms_counts_launches_a_call_and_refuses_a_lossy_trace():
+    """A trace's time a call: each name's mean duration times its launches
+    a call (a name seen less than every other call, a one-off, counts its
+    share); a trace that kept fewer than half the calls' events of the
+    name with the most device time is refused (None: device_ms retakes it
+    with CUDA events), as is an empty one."""
+    iters = 20
+    assert chip_smoke.trace_ms({"k": (20, 20 * 400.0)}, iters) == 0.4
+    assert chip_smoke.trace_ms({"k": (40, 40 * 100.0),
+                                "one_off": (1, 50.0)}, iters) == \
+        pytest.approx((2 * 100.0 + 50.0 / 20) / 1e3)
+    assert chip_smoke.trace_ms({"k": (7, 7 * 450.0)}, iters) is None
+    assert chip_smoke.trace_ms({"k": (7, 7 * 450.0), "copy": (20, 200.0)},
+                               iters) is None
+    assert chip_smoke.trace_ms({}, iters) is None
+
+
 # --------------------------------------------------- the bottleneck rows
 SMALL_BLOCK = dict(B=2, H=9, W=7, C=16, M=8)
 
 
 def test_bottleneck_rows_fp32_carries_the_3xtf32_bound(monkeypatch):
     """The bottleneck rows on the CPU (the plain version, fake clocks) at a
-    small shape: fp32 first, then bf16 (the row the kernels line keeps);
-    each names its route, and only the fp32 row carries the bound of its
-    work at the 3xTF32 tensor-core rate beside the CUDA-core one."""
+    small shape: fp32 first, then fp16 (its own row,
+    `fused_bottleneck_f16`), then bf16 (the `fused_bottleneck` row the
+    kernels line keeps); each names its route, the 16-bit rows are held
+    at 2 steps of their mantissa and bounded at the 16-bit peak with
+    2-byte elements, and only the fp32 row carries the bound of its work
+    at the 3xTF32 tensor-core rate beside the CUDA-core one."""
     monkeypatch.setattr(chip_smoke, "device_ms",
                         lambda torch_, fn, inputs, iters=20: (1.0,
                                                               "profiler"))
     rows = chip_smoke.bottleneck_rows(torch, torch.device("cpu"),
                                       shape=SMALL_BLOCK)
-    f32, bf16 = rows
-    assert [r["dtype"] for r in rows] == ["float32", "bfloat16"]
-    assert [r["kernel_route"] for r in rows] == ["fp32", "bf16"]
+    f32, f16, bf16 = rows
+    assert [r["dtype"] for r in rows] == ["float32", "float16", "bfloat16"]
+    assert [r["kernel_route"] for r in rows] == ["fp32", "fp16", "bf16"]
+    assert [r["name"] for r in rows] == [
+        "fused_bottleneck", "fused_bottleneck_f16", "fused_bottleneck"]
     assert f32["tolerance"] == 1e-4 and f32["max_abs_err"] == 0.0
+    for row, rel in ((f16, 2 * 2 ** -11), (bf16, 2 * 2 ** -8)):
+        assert row["tolerance"] == rel * row["ref_max_abs"]
+        nbytes, flops = chip_smoke.block_cost(elem_bytes=2, **SMALL_BLOCK)
+        assert row["bound_ms"] == chip_smoke.bound(
+            nbytes, flops, chip_smoke.BF16_FLOPS_PER_S)[0]
     nbytes, flops = chip_smoke.block_cost(elem_bytes=4, **SMALL_BLOCK)
     assert f32["bound_ms"] == chip_smoke.bound(nbytes, flops)[0]
     assert f32["tc_bound_ms"] == chip_smoke.bound(
@@ -390,21 +417,56 @@ def test_bottleneck_rows_fp32_carries_the_3xtf32_bound(monkeypatch):
 
 
 def test_bottleneck_phase_checks_a_bf16_and_an_fp32_stack(capsys):
-    """The bottleneck drive on the CPU at a small shape: one stack in bf16
-    and one in fp32 from the same draws, each checked against the plain
-    stack (fp32 at 1e-4) and logged on its own line with its route; the
-    launch counts come back by path (launch counts and times only on the
-    card)."""
+    """The bottleneck drive on the CPU at a small shape: one stack in bf16,
+    one in fp32 and one in fp16 from the same draws, each checked against
+    the plain stack (fp32 at 1e-4, fp16 at 2 * 2**-11 of its max) and on
+    its route, and logged on its own line with its route; the launch counts
+    come back by path (launch counts and times only on the card)."""
     counts = chip_smoke.bottleneck_phase(torch, torch.device("cpu"),
                                          shape=SMALL_BLOCK, K=3)
-    assert sorted(counts) == ["bottleneck", "bottleneck_fp32"]
+    assert sorted(counts) == ["bottleneck", "bottleneck_fp16",
+                              "bottleneck_fp32"]
     lines = [json.loads(line.split(": ", 1)[1])
              for line in capsys.readouterr().out.splitlines()
              if line.startswith("bottleneck: ")]
     assert [(r["dtype"], r["kernel_route"]) for r in lines] == [
-        ("bfloat16", "bf16"), ("float32", "fp32")]
+        ("bfloat16", "bf16"), ("float32", "fp32"), ("float16", "fp16")]
     assert lines[1]["tolerance"] == 1e-4
+    assert 0 < lines[2]["tolerance"] < lines[0]["tolerance"] / 4
     assert all(r["K"] == 3 and r["max_abs_err"] == 0.0 for r in lines)
+
+
+def test_bottleneck_phase_fails_on_a_wrong_route_or_a_wide_error(
+        monkeypatch):
+    """A stack whose route is not its dtype's, or whose error passes its
+    tolerance, fails the phase."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK_ROUTE",
+                        dict(chip_smoke.BLOCK_ROUTE, float16="bf16"))
+    with pytest.raises(AssertionError, match="float16 stack of 2: route "
+                       "fp16, expected bf16"):
+        chip_smoke.bottleneck_phase(torch, cpu, shape=SMALL_BLOCK, K=2)
+    monkeypatch.undo()
+    monkeypatch.setattr(chip_smoke, "block_tolerance",
+                        lambda torch_, ref: -1.0)
+    with pytest.raises(AssertionError, match="max error 0.0 > -1"):
+        chip_smoke.bottleneck_phase(torch, cpu, shape=SMALL_BLOCK, K=2)
+
+
+def test_every_kernels_entry_reads_a_launch_counter():
+    """Each entry of the kernels line reads its launches from a wrapper's
+    count: its own, or (an fp16 bottleneck, counted on fused_bottleneck)
+    the wrapper KERNEL_COUNTED_ON names, over the paths that launch it; the
+    rtc kernel's launches are the rtc phase's own count."""
+    from incubator_mxnet_tpu_torch.ops.kernels import WRAPPERS
+    for name in chip_smoke.KERNEL_META:
+        counter, paths = chip_smoke.KERNEL_COUNTED_ON.get(name, (name, None))
+        assert counter in WRAPPERS or name == "rtc_axpy", name
+        if paths is not None:
+            assert name not in WRAPPERS and paths
+    for name in ("sgd_mom_flat_f16", "adam_flat_f16", "adamw_flat_f16",
+                 "fused_bottleneck_f16"):
+        assert name in chip_smoke.KERNEL_META
 
 
 # ------------------------------------------------ graphs and the deploy phase
@@ -900,6 +962,110 @@ def test_train_fp16_phase_fails_on_a_guard_that_cannot_back_off(
         chip_smoke.train_fp16_phase(
             torch, cpu, cfg, shapes=((128, 2),), steps=1,
             fp32={(128, 2): dict(loss_step1=1.0)})
+
+
+RESNET_TINY = dict(kind="bottleneck", layers=[1, 1], channels=[8, 16, 32],
+                   classes=10)
+
+
+def test_train_fp16_phase_trains_a_resnet_under_the_guard(
+        capsys, gluon_names_unchanged, one_torch_thread):
+    """Given a ResNet configuration, the train_fp16 drive adds ResNet v1 in
+    fp16 on the CPU at a tiny size: its step 1 at one unit a stage against
+    itself on the CPU under the guard's back-off from 2**16 (logits fp16,
+    running statistics fp32), the full model's step 1 against its fp32
+    step 1, the measured guarded steps with their scales and verdicts; a
+    `resnet_fp16` line, its launch counts by path, and a ResNet entry in
+    the timing line beside bf16's."""
+    cpu = torch.device("cpu")
+    cfg = dict(vocab_size=300, units=64, hidden_size=128, num_layers=1,
+               num_heads=2, max_length=128)
+    bf16 = {"resnet": dict(step_ms_median=5.0, images_per_s=800.0)}
+    by_path = chip_smoke.train_fp16_phase(
+        torch, cpu, cfg, shapes=((128, 2),), steps=1, bf16=bf16,
+        resnet_cfg=RESNET_TINY, resnet_shape=(4, 32), resnet_steps=2,
+        resnet_check=(2, 32))
+    assert sorted(by_path) == ["train_fp16", "train_fp16_resnet"]
+    lines = {}
+    for line in capsys.readouterr().out.splitlines():
+        phase, _, body = line.partition(": ")
+        lines.setdefault(phase, []).append(json.loads(body))
+    (resnet,) = lines["resnet_fp16"]
+    assert len(resnet["losses"]) == 2 and all(
+        math.isfinite(x) for x in resnet["losses"])
+    assert resnet["loss_step1_rel_diff"] <= chip_smoke.RESNET_FP16_LOSS_RTOL
+    assert [v["scale"] for v in resnet["verdicts"]][0] == 2.0 ** 16
+    step1 = resnet["step1"]
+    assert step1["dtype"] == "float16" and step1["logits"] == [
+        "torch.float16"]
+    assert step1["loss"] == step1["cpu_loss"] and step1["stats"] > 0
+    assert step1["loss_scales"]["cpu"][0] <= 2.0 ** 16
+    assert step1["grad_cos"] == pytest.approx(1.0)
+    timing = lines["train_fp16_timing"][0]["resnet_B4"]
+    assert timing["bf16_images_per_s"] == 800.0
+    assert timing["fp16_images_per_s"] == resnet["images_per_s"]
+
+
+def test_resnet_fp16_fails_on_a_step1_that_parts_from_fp32(
+        monkeypatch, gluon_names_unchanged, one_torch_thread):
+    """A full-depth fp16 step 1 farther from the fp32 step 1 than its rtol
+    fails the phase, on its own `resnet_fp16` failure."""
+    monkeypatch.setitem(chip_smoke.RESNET_HALF, "float16",
+                        (chip_smoke.RESNET_FP16_CHECK_RTOL,
+                         chip_smoke.RESNET_FP16_REL, -1.0))
+    with pytest.raises(AssertionError, match="resnet_fp16: ResNet float16 "
+                       "step 1 loss"):
+        chip_smoke.train_fp16_phase(
+            torch, torch.device("cpu"), dict(
+                vocab_size=300, units=64, hidden_size=128, num_layers=1,
+                num_heads=2, max_length=128), shapes=(), steps=1,
+            resnet_cfg=RESNET_TINY, resnet_shape=(2, 32), resnet_steps=1,
+            resnet_check=(2, 32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_seam_half_phase_checks_each_flavour_on_the_cpu(capsys, dtype,
+                                                        gluon_names_unchanged):
+    """The seam drive on the CPU over a small ResNet's shapes (launch
+    counts only on the card): each flavour's w and states equal to the
+    plain version's, the CPU's difference counted (NaN against NaN is
+    none), v's subnormal elements counted before and after; a `seam_bf16`
+    or `seam_fp16` line."""
+    chip_smoke.seam_half_phase(torch, torch.device("cpu"), dtype,
+                               cfg=RESNET_TINY)
+    what = chip_smoke.SEAM_HALF[dtype][0]
+    (line,) = [json.loads(l.split(": ", 1)[1])
+               for l in capsys.readouterr().out.splitlines()
+               if l.startswith(what + ": ")]
+    assert line["dtype"] == dtype and line["rescale"] == 1.0 / 128
+    for name in ("sgd_mom", "adam", "adamw"):
+        assert line[name]["bitwise_plain"]
+        assert line[name]["cpu_elements_differ"] == 0
+    before, after = line["adam"]["v_subnormal"]
+    if dtype == "float16":      # v at 1e-6: mostly fp16 subnormals
+        assert before > line["elements"] // 2 and after > 0
+        assert line["adam"]["w_nonfinite"] > 0      # eps rounds to 0
+    else:
+        assert before == after == 0
+        assert line["adam"]["w_nonfinite"] == 0
+
+
+def test_seam_half_phase_fails_when_kernel_and_plain_differ(
+        monkeypatch, gluon_names_unchanged):
+    """A seam call that moves a weight the plain version does not fails
+    the phase, naming the flavour and the dtype."""
+    from incubator_mxnet_tpu_torch.ops import _optim_kernels as seam
+    call = seam._multi_sgd_mom_update
+
+    def nudged(ws, *args, **kwargs):
+        out = call(ws, *args, **kwargs)
+        ws[0].view(-1)[0] += 1
+        return out
+    monkeypatch.setattr(seam, "_multi_sgd_mom_update", nudged)
+    with pytest.raises(AssertionError, match="seam_fp16: sgd_mom: the "
+                       "float16 kernel and its plain version differ"):
+        chip_smoke.seam_half_phase(torch, torch.device("cpu"), "float16",
+                                   cfg=RESNET_TINY)
 
 
 # ----------------------------------------------------------- generate_bf16

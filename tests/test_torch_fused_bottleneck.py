@@ -6,7 +6,11 @@ its XLA conv-stack reference at tests/test_pallas.py's fp32 shape and
 tolerance (1e-5), and at a ragged shape. In bf16 both packages round h1, h2
 and the output to bf16 at the same places from fp32 sums taken in other
 orders, so a value may land one bf16 step apart: bf16 is held within
-2 * 2**-8 of the output's largest magnitude. The CUDA kernel itself is
+2 * 2**-8 of the output's largest magnitude; fp16 likewise at 2 * 2**-11
+(three more mantissa bits), against the Pallas kernel in interpret mode and
+the XLA reference, and with an h1 past fp16's 65504, which becomes inf
+(and NaN after a zero weight) at the same places in both packages. The
+CUDA kernel itself is
 held to the plain version on the card (tests/test_torch_kernels_cuda.py).
 The fp32 kernel's numerical method (3xTF32 products on the tensor cores,
 each k-step into a fresh accumulator) is emulated here on the CPU, with the
@@ -58,19 +62,66 @@ def test_plain_version_matches_jax_fp32(shape):
     np.testing.assert_allclose(got.numpy(), xla, rtol=1e-5, atol=1e-5)
 
 
-def test_plain_version_matches_jax_bf16():
-    """bench_fused_block's dtypes: x and the weights bf16, s and b fp32."""
-    arrays = _inputs(2, 8, 8, 32, 8, seed=3)
-    bf = [i in (0, 1, 4, 7) for i in range(10)]
-    jargs = [jnp.asarray(a).astype(jnp.bfloat16) if b else jnp.asarray(a)
-             for a, b in zip(arrays, bf)]
-    want = np.asarray(jfb.bottleneck_reference(*jargs).astype(jnp.float32))
-    targs = [torch.from_numpy(a).to(torch.bfloat16) if b
-             else torch.from_numpy(a) for a, b in zip(arrays, bf)]
+#: each 16-bit dtype's tolerance: 2 steps of its mantissa at the output's
+#: largest magnitude
+HALF_TOL = {"bfloat16": 2 * 2 ** -8, "float16": 2 * 2 ** -11}
+
+
+def _half_args(arrays, dtype):
+    """x and the weights in ``dtype`` (JAX and torch), s and b fp32."""
+    half = [i in (0, 1, 4, 7) for i in range(10)]
+    jdt = getattr(jnp, dtype)
+    jargs = [jnp.asarray(a).astype(jdt) if h else jnp.asarray(a)
+             for a, h in zip(arrays, half)]
+    targs = [torch.from_numpy(a).to(getattr(torch, dtype)) if h
+             else torch.from_numpy(a) for a, h in zip(arrays, half)]
+    return jargs, targs
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF_TOL))
+def test_plain_version_matches_jax_half(dtype):
+    """bench_fused_block's dtypes: x and the weights bf16 or fp16, s and b
+    fp32; against the XLA reference (both dtypes) and the Pallas kernel in
+    interpret mode (fp16)."""
+    jargs, targs = _half_args(_inputs(2, 8, 8, 32, 8, seed=3), dtype)
     got = tfb.fused_bottleneck(*targs)
-    assert got.dtype == torch.bfloat16
-    err = np.abs(got.float().numpy() - want).max()
-    assert err <= 2 * 2 ** -8 * np.abs(want).max()
+    assert got.dtype == getattr(torch, dtype)
+    wants = [jfb.bottleneck_reference(*jargs)]
+    if dtype == "float16":
+        wants.append(jfb.fused_bottleneck(*jargs, interpret=True))
+    for want in wants:
+        assert str(want.dtype) == dtype
+        want = np.asarray(want.astype(jnp.float32))
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= HALF_TOL[dtype] * np.abs(want).max()
+
+
+def test_fp16_h1_past_65504_is_inf_and_nan_where_jax_has_them():
+    """fp16 with bn1's scale of channel 0 at 3e5: h1 passes 65504 there and
+    rounds to inf in both packages. w2 reads that channel with weights >= 0
+    and one zero (the centre tap into h2's channel 0), so h2 is inf, or NaN
+    where the inf meets the zero; w3's first 16 output channels read h2
+    with weights >= 0, the others with both signs. The output is NaN and
+    inf at the same places as the JAX Pallas kernel's (interpret mode) and
+    XLA reference's (62.5 % NaN, 32 % inf), and within 2 * 2**-11 of its
+    largest finite magnitude elsewhere."""
+    arrays = [a.copy() for a in _inputs(2, 8, 8, 32, 8, seed=5)]
+    arrays[2][0] = 3e5                              # s1 of channel 0
+    arrays[4][:, 0, :] = np.abs(arrays[4][:, 0, :])
+    arrays[4][4, 0, 0] = 0.0                        # w2: centre tap, 0 -> 0
+    arrays[7][:, :16] = np.abs(arrays[7][:, :16])
+    jargs, targs = _half_args(arrays, "float16")
+    got = tfb.fused_bottleneck(*targs).float().numpy()
+    assert np.isnan(got).any() and np.isinf(got).any()
+    for want in (jfb.fused_bottleneck(*jargs, interpret=True),
+                 jfb.bottleneck_reference(*jargs)):
+        want = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.where(np.isinf(got), got, 0),
+                                      np.where(np.isinf(want), want, 0))
+        fin = np.isfinite(want)
+        err = np.abs(got[fin] - want[fin]).max()
+        assert err <= HALF_TOL["float16"] * np.abs(want[fin]).max()
 
 
 def test_cpu_call_does_not_launch_and_is_registered():
@@ -90,15 +141,21 @@ def test_cpu_call_does_not_launch_and_is_registered():
     (torch.bfloat16, 5, 64, [0, 16, 32, 48, 64], "bf16_scalar"),
     (torch.bfloat16, 256, 63, [0, 16, 32, 48, 64], "bf16_scalar"),
     (torch.bfloat16, 256, 64, [2, 16, 32, 48, 64], "bf16_scalar"),
-    (torch.bfloat16, 256, 64, [0, 16, 32, 48, 72], "bf16_scalar")])
+    (torch.bfloat16, 256, 64, [0, 16, 32, 48, 72], "bf16_scalar"),
+    (torch.float16, 256, 64, [0, 16, 32, 48, 64], "fp16"),
+    (torch.float16, 304, 8, [0, 16, 32, 48, 64], "fp16"),
+    (torch.float16, 300, 8, [0, 16, 32, 48, 64], "fp16_scalar"),
+    (torch.float16, 256, 63, [0, 16, 32, 48, 64], "fp16_scalar"),
+    (torch.float16, 256, 64, [2, 16, 32, 48, 64], "fp16_scalar")])
 def test_route_follows_dtype_alignment_and_widths(dtype, C, M, ptrs, route):
     """fp32 takes its one route whatever the shape and addresses (the C
     entry picks 16-byte or 4-byte copies inside it); bf16 takes the
     tensor-core kernel with 16-byte loads when x, w1, w2, w3 and the output
     start on 16-byte boundaries and C and M are multiples of 8, else
-    element-wise loads."""
+    element-wise loads; fp16 the same kernel's fp16 routes under the same
+    conditions."""
     assert tfb._route(dtype, C, M, ptrs) == route
-    assert tfb.ROUTES[route] in (0, 1, 2)
+    assert tfb.ROUTES[route] in (0, 1, 2, 3, 4)
 
 
 # ------------------------------------------- the fp32 kernel's arithmetic

@@ -20,11 +20,17 @@ after it into one FMA where the port rounds each on its own, and Adam's
 in the port and from XLA's in the JAX package, which may differ in the
 last bit.
 
-bf16: the port's per-parameter rules and ``_multi_*_update`` seam on bf16
-tensors against the JAX package's rules (jitted, Python-float scalars) and
-its seam in interpret mode, bitwise. Both round every scalar to bf16 before
-it meets a tensor and every operation's f32 result to bf16, so nothing is
-left to differ; the fp32 pins above are unchanged.
+bf16 and fp16: the port's per-parameter rules and ``_multi_*_update`` seam
+on 16-bit tensors against the JAX package's rules (jitted, Python-float
+scalars) and its seam in interpret mode. In bf16, bitwise: both round every
+scalar to bf16 before it meets a tensor and every operation's f32 result to
+bf16, so nothing is left to differ; the fp32 pins above are unchanged. In
+fp16 the port rounds each operation on its own, as the JAX source and the
+CUDA kernel do, while XLA on a CPU with native fp16 arithmetic contracts a
+product into the add after it (one fp16 FMA, rounded once): the port is
+held within 2 fp16 steps of the largest magnitude among each element's
+inputs and outputs (w, g * rescale, the states, both results), with inf
+and NaN at the same places (ROADMAP Queue 3 item 14).
 """
 
 import numpy as np
@@ -217,12 +223,16 @@ def test_flat_plain_rules_match_the_jax_seam_interpret(flavour, clip):
 
 
 def test_flat_wrappers_count_no_cpu_launch_and_refuse_bf16():
-    """The flat wrappers, fp32 and bf16, are registered and launch nothing
-    on the CPU; a call that mixes bf16 with fp32 is refused."""
+    """The flat wrappers, fp32, bf16 and fp16, are registered and launch
+    nothing on the CPU; a call that mixes bf16 with fp32 is refused, and
+    each 16-bit wrapper takes its own dtype only."""
     for name in ("sgd_mom_flat", "adam_flat", "adamw_flat"):
         assert WRAPPERS[name] is getattr(tfo, "fused_" + name)
-        assert WRAPPERS[name + "_bf16"] is getattr(tfo,
-                                                   "fused_%s_bf16" % name)
+        for suffix in ("_bf16", "_f16"):
+            assert WRAPPERS[name + suffix] is getattr(
+                tfo, "fused_%s%s" % (name, suffix))
+            assert WRAPPERS[name + suffix].__name__ == "fused_%s%s" % (
+                name, suffix)
     n0 = tfo.fused_adam_flat.launches
     ws, gs, ms, vs = (_torch(g) for g in _state(8))
     tfo.fused_adam_flat(ws, gs, ms, vs, rescale=1.0, clip=-1.0,
@@ -240,6 +250,14 @@ def test_flat_wrappers_count_no_cpu_launch_and_refuse_bf16():
     with pytest.raises(TypeError, match="bfloat16"):
         tfo.fused_sgd_mom_flat_bf16(ws[:1], gs[:1], ms[:1], rescale=1.0,
                                     clip=-1.0, **FLAT["sgd_mom"][0])
+    hws, hgs, hms, hvs = ([t.half() for t in g] for g in (ws, gs, ms, vs))
+    n0 = tfo.fused_adam_flat_f16.launches
+    tfo.fused_adam_flat_f16(hws, hgs, hms, hvs, rescale=1.0, clip=-1.0,
+                            **FLAT["adam"][0])
+    assert tfo.fused_adam_flat_f16.launches == n0
+    with pytest.raises(TypeError, match="float16"):
+        tfo.fused_adamw_flat_f16(bws, bgs, bms, bvs, rescale=1.0, clip=-1.0,
+                                 **FLAT["adamw"][0])
     with pytest.raises(ValueError, match="1 w, 2 g"):
         tfo.fused_sgd_mom_flat(ws[:1], gs[:2], ms[:1], rescale=1.0,
                                clip=-1.0, **FLAT["sgd_mom"][0])
@@ -253,8 +271,9 @@ def test_clip_lets_a_nan_gradient_through():
     assert torch.equal(m[1:], torch.tensor([-0.1, 0.1]))
 
 
-# ------------------------------------------------------------------ bf16
+# ----------------------------------------------------------- bf16 and fp16
 BF16_SHAPES = [(3, 5), (7,), (2, 2, 4), (1,)]   # tests/test_fused_optim.py
+HALF = {"bfloat16": jnp.bfloat16, "float16": jnp.float16}
 RULE_HP = dict(lr=0.1, wd=1e-4, rescale=1.0 / 32)
 RULES = {
     "sgd": (dict(RULE_HP), 0),
@@ -263,43 +282,88 @@ RULES = {
     "adam": (dict(RULE_HP, b1=0.9, b2=0.999, eps=1e-8, t=3), 2),
     "adamw": (dict(RULE_HP, eta=0.5, b1=0.9, b2=0.999, eps=1e-8, t=3), 2),
 }
+#: fp16 against the JAX rules: steps of the largest magnitude an element
+#: may lie apart (sgd_mom's w read 2.0 at most, the rest 1.0 or less)
+FP16_STEPS = 2
 
 
-def _bf16_state(seed, shapes):
-    """w, g, m (randn) and v (|randn|) cast to bf16, as numpy f32 arrays
-    that bf16 holds exactly and as JAX bf16 arrays."""
+def _half_state(seed, shapes, dtype="bfloat16", g_scale=1.0):
+    """w, g (times g_scale), m (randn) and v (|randn|) cast to ``dtype`` as
+    JAX arrays."""
     rs = np.random.RandomState(seed)
     groups = [[rs.randn(*s) for s in shapes] for _ in range(3)]
+    groups[1] = [a * g_scale for a in groups[1]]
     groups.append([np.abs(rs.randn(*s)) for s in shapes])
-    jgroups = [[jnp.asarray(a.astype(np.float32), jnp.bfloat16) for a in g]
-               for g in groups]
-    return jgroups
+    return [[jnp.asarray(a.astype(np.float32), HALF[dtype]) for a in g]
+            for g in groups]
 
 
 def _t(jarrays):
+    dtype = getattr(torch, str(jarrays[0].dtype))
     return [torch.from_numpy(np.asarray(a.astype(jnp.float32)).copy())
-            .bfloat16() for a in jarrays]
+            .to(dtype) for a in jarrays]
 
 
-def _assert_bits(got, want, what):
+def _f64(a):
+    a = a.double().numpy() if isinstance(a, torch.Tensor) else a
+    return np.asarray(jnp.asarray(a).astype(jnp.float32), np.float64)
+
+
+def _fp16_steps(got, want, inputs):
+    """(largest gap in fp16 steps of each element's largest magnitude among
+    ``inputs``, ``got`` and ``want``, over the elements where both are
+    finite; whether inf and NaN lie at the same places)."""
+    a, b = _f64(got), _f64(want)
+    same = (np.array_equal(np.isnan(a), np.isnan(b))
+            and np.array_equal(np.where(np.isinf(a), a, 0),
+                               np.where(np.isinf(b), b, 0)))
+    mag = np.maximum(np.abs(a), np.abs(b))
+    for x in inputs:
+        mag = np.maximum(mag, np.abs(x))
+    fin = np.isfinite(a) & np.isfinite(b) & np.isfinite(mag)
+    step = np.exp2(np.floor(np.log2(np.maximum(mag[fin], 2.0 ** -14))) - 10)
+    gap = np.abs(a[fin] - b[fin]) / step
+    return (float(gap.max()) if gap.size else 0.0), same
+
+
+def _assert_rule(got, want, inputs, what):
+    """bf16: bitwise; fp16: within FP16_STEPS of the largest magnitude
+    among the element's ``inputs`` and every output of either side (see
+    the module docstring)."""
+    if got[0].dtype == torch.float16:
+        inputs = list(inputs) + [_f64(x) for x in list(got) + list(want)]
+        inputs = [np.where(np.isfinite(x), x, 0) for x in inputs]
     for i, (a, b) in enumerate(zip(got, want)):
-        assert a.dtype == torch.bfloat16, what
-        b32 = np.asarray(jnp.asarray(b).astype(jnp.float32))
-        np.testing.assert_array_equal(a.float().numpy(), b32,
-                                      err_msg="%s[%d]" % (what, i))
+        assert str(a.dtype)[6:] == str(b.dtype), what
+        if a.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(a.float().numpy(), _f64(b),
+                                          err_msg="%s[%d]" % (what, i))
+        else:
+            gap, same = _fp16_steps(a, b, inputs)
+            assert same and gap <= FP16_STEPS, ("%s[%d]" % (what, i), gap,
+                                                same)
 
 
+def _rule_inputs(jargs, rescale):
+    """w, g * rescale and the states (the per-element magnitudes)."""
+    out = [_f64(a) for a in jargs]
+    out[1] = out[1] * rescale
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
 @pytest.mark.parametrize("clip", [-1.0, 2.0], ids=["noclip", "clip"])
 @pytest.mark.parametrize("rule", sorted(RULES))
 @pytest.mark.parametrize("shapes", [BF16_SHAPES, [(200000,)]],
                          ids=["seam_shapes", "200k"])
-def test_bf16_rules_equal_the_jax_rules_bitwise(rule, clip, shapes):
-    """Each per-parameter rule on bf16 tensors, tensor by tensor, against
-    the JAX rule called as the seam's tests call it (Python floats): the
-    weight and every state bitwise. The 200,000-element vector is the
-    input on which the port once differed (ROADMAP Queue 3 item 4)."""
+def test_half_rules_match_the_jax_rules(rule, clip, shapes, dtype):
+    """Each per-parameter rule on bf16 or fp16 tensors, tensor by tensor,
+    against the JAX rule called as the seam's tests call it (Python
+    floats): the weight and every state bitwise in bf16, within FP16_STEPS
+    in fp16. The 200,000-element vector is the input on which the port once
+    differed in bf16 (ROADMAP Queue 3 item 4)."""
     hp, n_states = RULES[rule]
-    jw, jg, jm, jv = _bf16_state(40 + n_states, shapes)
+    jw, jg, jm, jv = _half_state(40 + n_states, shapes, dtype)
     jrule = getattr(jseam, "_%s_update" % rule)
     trule = getattr(tseam, "_%s_update" % rule)
     states = [jm, jv][:n_states]
@@ -311,25 +375,93 @@ def test_bf16_rules_equal_the_jax_rules_bitwise(rule, clip, shapes):
         got = trule(*targs, clip=clip, **hp)
         got = got if isinstance(got, tuple) else (got,)
         assert got[0] is targs[0]
-        _assert_bits(got, want, "%s[%d]" % (rule, i))
+        _assert_rule(got, want, _rule_inputs(jargs, hp["rescale"]),
+                     "%s[%d]" % (rule, i))
+
+
+#: the inputs on which the fp16 rules were found to differ (ROADMAP Queue 3
+#: item 14): one tensor of 3,000 elements from RandomState(0), w randn,
+#: g randn * 300, m randn, v |randn|, cast to fp16
+FAULT_E_HP = {
+    "sgd": dict(lr=0.1, wd=1e-4, rescale=1.0 / 32),
+    "sgd_mom": dict(lr=0.1, wd=1e-4, momentum=0.9, rescale=1.0 / 32),
+    "nag": dict(lr=0.1, wd=1e-4, momentum=0.9, rescale=1.0 / 32),
+    "adam": dict(lr=1e-3, wd=1e-4, b1=0.9, b2=0.999, eps=1e-8, t=3,
+                 rescale=1.0 / 32),
+    "adamw": dict(lr=1e-3, wd=1e-4, eta=0.5, b1=0.9, b2=0.999, eps=1e-8,
+                  t=3, rescale=1.0 / 32),
+}
 
 
 @pytest.mark.parametrize("clip", [-1.0, 2.0], ids=["noclip", "clip"])
+@pytest.mark.parametrize("rule", sorted(FAULT_E_HP))
+def test_fp16_rules_hold_to_the_jax_rules_on_the_fault_e_inputs(rule, clip):
+    """The probe's inputs: |g * rescale| reaches ~40, so that every product
+    is large against the sum it enters and the JAX rules' contraction shows
+    (hundreds of elements apart in sgd_mom's w and mom, Adam's m and v); the
+    port stays within FP16_STEPS of them, inf and NaN at the same places."""
+    hp = FAULT_E_HP[rule]
+    n_states = RULES[rule][1]
+    rs = np.random.RandomState(0)
+    n = 3000
+    w, g, m = rs.randn(n), rs.randn(n) * 300, rs.randn(n)
+    v = np.abs(rs.randn(n))
+    jargs = [jnp.asarray(a.astype(np.float16)) for a in [w, g, m, v]]
+    jargs = jargs[:2 + n_states]
+    want = getattr(jseam, "_%s_update" % rule)(*jargs, clip=clip, **hp)
+    want = want if isinstance(want, tuple) else (want,)
+    got = getattr(tseam, "_%s_update" % rule)(*_t(jargs), clip=clip, **hp)
+    got = got if isinstance(got, tuple) else (got,)
+    _assert_rule(got, want, _rule_inputs(jargs, hp["rescale"]), rule)
+
+
+@pytest.mark.parametrize("rule", ["adam", "adamw"])
+def test_fp16_eps_rounds_to_zero_and_v_zero_gives_the_jax_nan_and_inf(rule):
+    """eps = 1e-8 is 0 in fp16: where v is 0 after the step, Adam and AdamW
+    divide by sqrt(0) + 0, so m = 0 gives NaN and m != 0 gives +-inf in w,
+    at the same places as in the JAX rules; the other elements within
+    FP16_STEPS."""
+    hp = dict(FAULT_E_HP[rule], rescale=1.0)
+    z = [0.0] * 4
+    w = np.array(z + [1.0, -1.0, 0.5, 2.0] + [0.3, -0.7], np.float16)
+    g = np.array(z + [0.0, 0.0, 0.0, 0.0] + [0.5, -0.25], np.float16)
+    m = np.array(z + [1.0, -1.0, 0.25, -2.0] + [0.1, 0.2], np.float16)
+    v = np.array(z + [0.0] * 4 + [0.01, 0.02], np.float16)
+    jargs = [jnp.asarray(a) for a in (w, g, m, v)]
+    want = getattr(jseam, "_%s_update" % rule)(*jargs, clip=-1.0, **hp)
+    got = getattr(tseam, "_%s_update" % rule)(*_t(jargs), clip=-1.0, **hp)
+    w_got = got[0].double().numpy()
+    assert np.isnan(w_got[:4]).all()
+    assert np.isinf(w_got[4:8]).all() and np.isfinite(w_got[8:]).all()
+    _assert_rule(got, want, _rule_inputs(jargs, 1.0), rule)
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+@pytest.mark.parametrize("clip", [-1.0, 2.0], ids=["noclip", "clip"])
 @pytest.mark.parametrize("flavour", sorted(FLAT))
-def test_bf16_seam_equals_the_jax_seam_interpret_bitwise(flavour, clip):
-    """The port's ``_multi_*_update`` on bf16 groups (its plain version on
-    the CPU: the bf16 rules tensor by tensor) against the JAX seam, whose
-    Pallas kernel runs in interpret mode over the packed bf16 buffer, two
-    steps, w and every state bitwise."""
+def test_half_seam_matches_the_jax_seam_interpret(flavour, clip, dtype):
+    """The port's ``_multi_*_update`` on bf16 or fp16 groups (its plain
+    version on the CPU: the 16-bit rules tensor by tensor) against the JAX
+    seam, whose Pallas kernel runs in interpret mode over the packed
+    buffer, two steps, w and every state: bitwise in bf16, within
+    FP16_STEPS in fp16 (the gradient times 300, as in the fault-E inputs,
+    so that the contraction shows)."""
     hp, n_states = FLAT[flavour]
     hp = dict(hp, rescale=1.0 / 32, clip=clip)
-    jw, jg, jm, jv = _bf16_state(50 + n_states, BF16_SHAPES)
+    jw, jg, jm, jv = _half_state(50 + n_states, BF16_SHAPES, dtype,
+                                 1.0 if dtype == "bfloat16" else 300.0)
     jgroups = [jw, jg, jm] + ([jv] if n_states == 2 else [])
     tgroups = [_t(g) for g in jgroups]
     for step in range(2):
         jout = getattr(jseam, "_multi_%s_update" % flavour)(
             *jgroups, interpret=True, **hp)
         tout = getattr(tseam, "_multi_%s_update" % flavour)(*tgroups, **hp)
+        for i in range(len(BF16_SHAPES)):
+            inputs = _rule_inputs([g[i] for g in jgroups], hp["rescale"])
+            _assert_rule([o[i] for o in tout], [o[i] for o in jout], inputs,
+                         "%s step %d [%d]" % (flavour, step, i))
+        if dtype == "float16":      # step 2 from the JAX package's state
+            for k, o in zip([0] + list(range(2, len(tgroups))), jout):
+                for t_, j in zip(tgroups[k], o):
+                    t_.copy_(_t([j])[0])
         jgroups = [jout[0], jg] + list(jout[1:])
-        for what, got, want in zip("wmv", tout, jout):
-            _assert_bits(got, want, "%s %s step %d" % (flavour, what, step))

@@ -75,9 +75,10 @@ from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_forward, flash_attention_fwd_bf16,
     flash_attention_fwd_f16, flash_attention_reference)
 from incubator_mxnet_tpu_torch.ops.kernels.fused_optim import (
-    fused_adam_flat, fused_adam_flat_bf16, fused_adam_flat_reference,
-    fused_adamw_flat, fused_adamw_flat_bf16, fused_adamw_flat_reference,
-    fused_sgd_mom_flat, fused_sgd_mom_flat_bf16,
+    fused_adam_flat, fused_adam_flat_bf16, fused_adam_flat_f16,
+    fused_adam_flat_reference, fused_adamw_flat, fused_adamw_flat_bf16,
+    fused_adamw_flat_f16, fused_adamw_flat_reference, fused_sgd_mom_flat,
+    fused_sgd_mom_flat_bf16, fused_sgd_mom_flat_f16,
     fused_sgd_mom_flat_reference, multi_trainer_adam,
     multi_trainer_adam_reference, multi_trainer_sgd_mom,
     multi_trainer_sgd_mom_reference)
@@ -595,9 +596,22 @@ def _bottleneck_inputs(B, H, W, C, M, dtype, device, seed):
     return x, w1, s1, b1, w2, s2, b2, w3, s3, b3
 
 
+#: the 16-bit bottleneck's tolerance: 2 steps of the dtype's mantissa at
+#: the output's largest magnitude (fp32: 1e-4)
+_BLOCK_TOL = {torch.bfloat16: 2 * 2 ** -8, torch.float16: 2 * 2 ** -11}
+
+
+def _block_err_ok(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.float32:
+        return err <= 1e-4
+    return err <= _BLOCK_TOL[got.dtype] * want.float().abs().max().item()
+
+
 @pytest.mark.needs_cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("B,H,W,C,M", [(2, 56, 56, 256, 64),
                                        (3, 13, 11, 64, 16),
                                        (1, 8, 8, 32, 8),
@@ -613,26 +627,24 @@ def test_fused_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, M):
     assert fused_bottleneck.launches == n0 + 1
     want = bottleneck_reference(*args)
     assert got.dtype == dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs().max().item()
-    if dtype == torch.float32:
-        assert err <= 1e-4
-    else:
-        assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+    assert _block_err_ok(got, want)
 
 
 @pytest.mark.needs_cuda
 @pytest.mark.parametrize("H,W", [(57, 55), (13, 11), (1, 3)])
 @pytest.mark.parametrize("C", [5, 64, 256, 300])
 @pytest.mark.parametrize("M", [1, 8, 16, 63, 64])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16],
+                         ids=["bf16", "fp32", "fp16"])
 def test_fused_bottleneck_bf16_tensor_cores_match_plain(cuda, H, W, C, M,
                                                         dtype):
     """Both tensor-core kernels on image sizes that are not multiples of
     their 8 x 14 tile, C and M on both sides of each one's 16-byte copies
-    (bf16: C % 8 and M % 8, two routes; fp32: C % 4 and M % 4 inside the
-    one "fp32" route): bf16 within 2 * 2**-8 of the output's max of the
-    plain version, fp32 (3xTF32) within 1e-4; two calls equal bitwise."""
+    (bf16 and fp16: C % 8 and M % 8, two routes each; fp32: C % 4 and
+    M % 4 inside the one "fp32" route): bf16 within 2 * 2**-8 of the
+    output's max of the plain version, fp16 within 2 * 2**-11, fp32
+    (3xTF32) within 1e-4; two calls equal bitwise."""
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         _route, bottleneck_reference, fused_bottleneck)
     B = 2 if H * W < 100 else 1
@@ -642,39 +654,71 @@ def test_fused_bottleneck_bf16_tensor_cores_match_plain(cuda, H, W, C, M,
     if dtype == torch.float32:
         want_route = "fp32"
     else:
-        want_route = "bf16" if C % 8 == 0 and M % 8 == 0 else "bf16_scalar"
+        want_route = "bf16" if dtype == torch.bfloat16 else "fp16"
+        if C % 8 or M % 8:
+            want_route += "_scalar"
     assert _route(dtype, C, M, ptrs + [ptrs[0]]) == want_route
     got = fused_bottleneck(*args)
     again = fused_bottleneck(*args)
     torch.cuda.synchronize()
     want = bottleneck_reference(*args)
     assert got.dtype == dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs().max().item()
-    if dtype == torch.float32:
-        assert err <= 1e-4
-    else:
-        assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+    assert _block_err_ok(got, want)
     assert torch.equal(got, again)
 
 
 @pytest.mark.needs_cuda
-def test_fused_bottleneck_bf16_misaligned_views_take_the_scalar_route(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_fused_bottleneck_bf16_misaligned_views_take_the_scalar_route(
+        cuda, dtype):
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         _route, bottleneck_reference, fused_bottleneck)
-    args = list(_bottleneck_inputs(2, 9, 15, 64, 16, torch.bfloat16, cuda,
-                                   seed=3))
-    buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
-                      device=cuda)
+    args = list(_bottleneck_inputs(2, 9, 15, 64, 16, dtype, cuda, seed=3))
+    buf = torch.empty(args[0].numel() + 1, dtype=dtype, device=cuda)
     x = buf[1:].view(args[0].shape)
     x.copy_(args[0])
     args[0] = x
-    assert _route(torch.bfloat16, 64, 16,
+    scalar = ("bf16" if dtype == torch.bfloat16 else "fp16") + "_scalar"
+    assert _route(dtype, 64, 16,
                   [x.data_ptr(), args[1].data_ptr(), args[4].data_ptr(),
-                   args[7].data_ptr(), args[1].data_ptr()]) == "bf16_scalar"
+                   args[7].data_ptr(), args[1].data_ptr()]) == scalar
     got = fused_bottleneck(*args)
+    again = fused_bottleneck(*args)
     want = bottleneck_reference(*args)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2 * 2 ** -8 * want.float().abs().max().item()
+    assert _block_err_ok(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("C,M", [(256, 64), (300, 63)],
+                         ids=["fp16", "fp16_scalar"])
+def test_fused_bottleneck_fp16_overflow_is_inf_and_nan_as_plain(cuda, C, M):
+    """fp16 on both routes with bn1's scale of channel 0 at 3e5: h1 passes
+    65504 and rounds to inf (no saturation), w2 reads that channel with
+    weights >= 0 and one zero (the centre tap into h2's channel 0), w3's
+    first half of the output channels reads h2 with weights >= 0: the
+    output is NaN and inf at the same places as the plain version's, and
+    within 2 * 2**-11 of its largest finite magnitude elsewhere."""
+    from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
+        bottleneck_reference, fused_bottleneck)
+    args = list(_bottleneck_inputs(2, 16, 16, C, M, torch.float32, cuda,
+                                   seed=5))
+    args[2][0] = 3e5
+    args[4][:, 0, :] = args[4][:, 0, :].abs()
+    args[4][4, 0, 0] = 0
+    args[7][:, :C // 2] = args[7][:, :C // 2].abs()
+    args = [a.half() if i in (0, 1, 4, 7) else a for i, a in enumerate(args)]
+    got = fused_bottleneck(*args).float()
+    want = bottleneck_reference(*args).float()
+    torch.cuda.synchronize()
+    assert want.isnan().any() and want.isinf().any()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.where(got.isinf(), got, 0),
+                       torch.where(want.isinf(), want, 0))
+    fin = want.isfinite()
+    err = (got[fin] - want[fin]).abs().max().item()
+    assert err <= 2 * 2 ** -11 * want[fin].abs().max().item()
 
 
 @pytest.mark.needs_cuda
@@ -708,7 +752,7 @@ def test_fused_bottleneck_wrapper_refuses_what_the_kernel_does_not_take(
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         fused_bottleneck)
     args = list(_bottleneck_inputs(1, 4, 4, 8, 4, torch.float32, cuda, 0))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         fused_bottleneck(*[a.double() for a in args])
     bad = list(args)
     bad[1] = args[1].to(torch.bfloat16)
@@ -1489,50 +1533,115 @@ def test_flash_backward_at_the_ragged_training_shape(cuda):
     got, _ = _backward_against_fp64(cuda, q, k, v, do, bias, dbias=True)
     assert all((g.view(B, H, T, -1)[2] == 0).all() for g in got[:3])
 
-# ------------------------------------------------- the seam's bf16 flavours
-_FLAT_BF16 = {"sgd_mom": fused_sgd_mom_flat_bf16,
-              "adam": fused_adam_flat_bf16, "adamw": fused_adamw_flat_bf16}
+# ------------------------------------------ the seam's bf16 and fp16 flavours
+_FLAT_HALF = {
+    torch.bfloat16: {"sgd_mom": fused_sgd_mom_flat_bf16,
+                     "adam": fused_adam_flat_bf16,
+                     "adamw": fused_adamw_flat_bf16},
+    torch.float16: {"sgd_mom": fused_sgd_mom_flat_f16,
+                    "adam": fused_adam_flat_f16,
+                    "adamw": fused_adamw_flat_f16},
+}
 
 
-@pytest.mark.needs_cuda
-@pytest.mark.parametrize("flavour", sorted(_FLAT))
-@pytest.mark.parametrize("clip", [-1.0, 2e-3], ids=["noclip", "clip"])
-def test_flat_bf16_kernels_equal_plain_bitwise(cuda, flavour, clip):
-    """The bf16 flavour of each flat kernel over one table: sizes 0, 1, 3,
+def _flat_half_case(cuda, flavour, clip, dtype, plant=None):
+    """The 16-bit flavour of one flat kernel over one table: sizes 0, 1, 3,
     7, 8, 9, 32767, 32768, 32769 and 2**20 (tails of every length short of
     a 16-byte access), a view one element (2 bytes) off 16-byte alignment
     (scalar loads) and one 8 elements (16 bytes) in (vector loads), a NaN
-    in one gradient, rescale 1/128, the clip off and on: w and its states
-    bitwise against the bf16 rules tensor by tensor after two steps; the
-    launches are counted on the bf16 wrapper, none on the fp32 one."""
+    in one gradient, rescale 1/128, the clip off and on, and what ``plant``
+    writes into the lists: w and its states bitwise against the 16-bit
+    rules tensor by tensor after two steps; the launches are counted on the
+    dtype's wrapper, none on the fp32 one. Returns the lists."""
     kernel, plain, n_states, hp = _FLAT[flavour]
     sizes = [0, 1, 3, 7, 8, 9, 32767, 32768, 32769, 1 << 20, 4096, 4096]
     groups32 = _adam_state(sizes, cuda, seed=41 + len(flavour))
     groups32[1] = [x * 1e3 for x in groups32[1]]
-    ws, gs, ms, vs = ([x.bfloat16() for x in g] for g in groups32)
+    ws, gs, ms, vs = ([x.to(dtype) for x in g] for g in groups32)
+    if plant is not None:
+        plant(ws, gs, ms, vs)
     for g in (ws, gs, ms, vs):      # the last two become offset views
         for j, off in ((-2, 1), (-1, 8)):
-            base = torch.empty(g[j].numel() + off, dtype=torch.bfloat16,
-                               device=cuda)
+            base = torch.empty(g[j].numel() + off, dtype=dtype, device=cuda)
             base[off:].copy_(g[j])
             g[j] = base[off:]
     assert ws[-2].data_ptr() % 16 == 2 and ws[-1].data_ptr() % 16 == 0
     gs[2][1] = float("nan")
     groups = [ws, gs, ms] + ([vs] if n_states == 2 else [])
     ref = [[x.clone() for x in g] for g in groups]
-    bf16 = _FLAT_BF16[flavour]
-    n0 = (kernel.launches, bf16.launches)
+    half = _FLAT_HALF[dtype][flavour]
+    n0 = (kernel.launches, half.launches)
     for step in range(2):
-        (kernel if step == 0 else bf16)(*groups, rescale=1.0 / 128,
+        (kernel if step == 0 else half)(*groups, rescale=1.0 / 128,
                                         clip=clip, **hp)
         plain(*ref, rescale=1.0 / 128, clip=clip, **hp)
     torch.cuda.synchronize()
-    assert (kernel.launches, bf16.launches) == (n0[0], n0[1] + 2)
+    assert (kernel.launches, half.launches) == (n0[0], n0[1] + 2)
     for i in [0] + list(range(2, len(groups))):
         for a, b in zip(groups[i], ref[i]):
-            assert a.dtype == torch.bfloat16
+            assert a.dtype == dtype
             assert _same_bits(a.float(), b.float()), (flavour, i, a.numel())
-    assert ws[2].isnan().any() and not ws[3].isnan().any()
+    assert ws[2].isnan().any()
+    if dtype == torch.bfloat16:
+        # in fp16, eps = 1e-8 is 0 and a small v can round to 0: Adam's
+        # division then gives inf, and NaN a step later, without a NaN
+        # gradient (the plain version too; bitwise above)
+        assert not ws[3].isnan().any()
+    return ws, gs, ms, vs
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("flavour", sorted(_FLAT))
+@pytest.mark.parametrize("clip", [-1.0, 2e-3], ids=["noclip", "clip"])
+def test_flat_bf16_kernels_equal_plain_bitwise(cuda, flavour, clip):
+    """The bf16 flavour of each flat kernel (``_flat_half_case``)."""
+    _flat_half_case(cuda, flavour, clip, torch.bfloat16)
+
+
+def _plant_fp16(ws, gs, ms, vs):
+    """fp16's edges, in tensors 5 to 7 of ``_flat_half_case``'s lists:
+    (5) g, v and the first four w and m 0, the other m +-0.5: eps = 1e-8
+    is 0 in fp16, so Adam and AdamW divide 0 by 0 (NaN) and m by 0 (inf);
+    (6) the first eight w, m and v fp16 subnormals and g 0 there, so that
+    the step's arithmetic stays among the subnormals; (7) |g| 60000 (468
+    after 1/128, past 256) on v = 65504 and w, m at 65000 and 60000, so
+    that v and SGD's w + mom round past 65504 to inf."""
+    f16 = dict(dtype=torch.float16, device=ws[0].device)
+    gs[5].zero_()
+    vs[5].zero_()
+    ws[5][:4] = 0
+    ms[5][:4] = 0
+    ms[5][4:] = torch.tensor([0.5, -0.5, 0.5, -0.5, 0.5], **f16)
+    sub = torch.tensor([2 ** -15, -2 ** -18, 2 ** -24, 3 * 2 ** -20,
+                        -2 ** -24, 2 ** -16, -5 * 2 ** -22, 2 ** -14.5],
+                       **f16)
+    ws[6][:8], ms[6][:8], vs[6][:8] = sub, sub.flip(0), sub.abs()
+    gs[6][:8] = 0
+    gs[7][:4] = torch.tensor([6e4, -6e4, 6e4, -6e4], **f16)
+    vs[7][:4] = 65504
+    ws[7][:4] = torch.tensor([65000, -65000, 1, -1], **f16)
+    ms[7][:4] = torch.tensor([60000, -60000, 0, 0], **f16)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("flavour", sorted(_FLAT))
+@pytest.mark.parametrize("clip", [-1.0, 2e-3], ids=["noclip", "clip"])
+def test_flat_f16_kernels_equal_plain_bitwise(cuda, flavour, clip):
+    """The fp16 flavour of each flat kernel (``_flat_half_case``) with
+    fp16's edges planted (``_plant_fp16``): NaN and inf where eps rounds to
+    0 over v = 0 in Adam and AdamW, subnormal w, m and v kept, inf where v
+    or SGD's w passes 65504, all bitwise with the plain version."""
+    ws, _gs, ms, vs = _flat_half_case(cuda, flavour, clip, torch.float16,
+                                      _plant_fp16)
+    # after two steps the first step's inf has met a 0 or an inf: NaN
+    if flavour != "sgd_mom":
+        assert ws[5][:4].isnan().all() and not ws[5].isfinite().any()
+        if clip < 0:
+            assert vs[7][:2].isinf().all()
+    else:
+        assert not ws[7][:2].isfinite().any()
+    sub = ms[6][:8].float().abs()
+    assert ((sub > 0) & (sub < 2 ** -14)).any()
 
 
 # ---------------------------------------------------------------- mx.rtc
@@ -2807,22 +2916,28 @@ def test_flash_decode_refuses_pairs_without_a_kernel(cuda):
 
 
 @pytest.mark.needs_cuda
-def test_queued_fp16_flavours_refuse_naming_their_item(cuda):
-    """The fp16 flavours still to port raise TypeError naming their ROADMAP
-    Queue 2 item, and launch nothing: the flat seam kernels (18) and the
-    fused bottleneck (19); the paged decode (16) and the dbias (17) now
-    launch, held above."""
+def test_fp16_seam_and_bottleneck_launch_and_a_dtype_mix_raises(cuda):
+    """The last fp16 flavours launch: the flat seam kernel (counted on its
+    fp16 wrapper, not the fp32 one) and the fused bottleneck on its fp16
+    route; a call that mixes fp16 with fp32 still raises ValueError and
+    launches nothing."""
     from incubator_mxnet_tpu_torch.ops.kernels.fused_bottleneck import (
         fused_bottleneck)
     w = torch.zeros(64, device=cuda, dtype=torch.float16)
-    n0 = fused_sgd_mom_flat.launches
-    with pytest.raises(TypeError, match="Queue 2 item 18"):
-        fused_sgd_mom_flat([w], [w.clone()], [w.clone()], 0.1, 0.0, 0.9,
+    n0 = (fused_sgd_mom_flat.launches, fused_sgd_mom_flat_f16.launches)
+    fused_sgd_mom_flat([w], [w.clone()], [w.clone()], 0.1, 0.0, 0.9, 1.0,
+                       -1.0)
+    with pytest.raises(ValueError, match="mix"):
+        fused_sgd_mom_flat([w], [w.float()], [w.clone()], 0.1, 0.0, 0.9,
                            1.0, -1.0)
-    assert fused_sgd_mom_flat.launches == n0
-    args = list(_bottleneck_inputs(1, 4, 4, 8, 4, torch.float32, cuda, 0))
-    with pytest.raises(TypeError, match="Queue 2 item 19"):
-        fused_bottleneck(*[a.half() for a in args])
+    assert (fused_sgd_mom_flat.launches,
+            fused_sgd_mom_flat_f16.launches) == (n0[0], n0[1] + 1)
+    args = list(_bottleneck_inputs(1, 4, 4, 8, 4, torch.float16, cuda, 0))
+    n0 = fused_bottleneck.launches
+    out = fused_bottleneck(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16 and out.isfinite().all()
+    assert fused_bottleneck.launches == n0 + 1
 
 
 @pytest.mark.needs_cuda

@@ -1114,6 +1114,16 @@ def half_norm_rows(torch, dev, randn, dtype="bfloat16", R=8192, C=768,
     return rows
 
 
+def half_delta(torch, fa, sfx, q, k, v, do, out, lse, bias, scale):
+    """delta = rowsum(dO * O) as the 16-bit dK/dV kernels read it: the dQ
+    kernel's second output (``flash_attention_bwd_dq_<sfx>``) on the card;
+    on the CPU rehearsal, which has no kernel, its plain formula in fp32."""
+    if q.device.type == "cuda":
+        return getattr(fa, "flash_attention_bwd_dq_" + sfx)(
+            q, k, v, do, out, lse, bias, scale, False)[1]
+    return (do.float() * out.float()).sum(dim=-1)
+
+
 def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
                     D=64, lengths=BF16_LENGTHS):
     """The 16-bit (``dtype``: bfloat16 or float16) flash forward and
@@ -1132,8 +1142,12 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
     non-finite: the kernels round without saturating. Bounds count the
     live keys' work at the 16-bit rate. The forward's library column is
     F.scaled_dot_product_attention in that dtype (the bias as its mask, at
-    most the dtype's lowest value); the backward rows carry the pair (delta
-    and both kernels) beside SDPA's backward, whose backends are named."""
+    most the dtype's lowest value); the backward rows carry the pair (both
+    kernels; the dQ kernel takes delta itself) beside SDPA's backward, whose
+    backends are named, and one reading of the four PyTorch launches that
+    took delta = rowsum(dO * O) before the dQ kernel did
+    (`pair_old_delta_ms`). The dQ row times dQ and delta together; the
+    dK/dV rows read the dQ kernel's delta (`half_delta`)."""
     import importlib
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
@@ -1243,7 +1257,8 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
         prod = 2 * T * D * live_keys
         qkvd, row = BH * T * D * 2, BH * T * 4
         io = 4 * qkvd + 2 * row + (0 if dense else row)
-        delta = (do.float() * out.float()).sum(dim=-1)
+        delta = half_delta(torch, fa, sfx, q, k, v, do, out, lse, bias,
+                           scale)
         bw_inputs = (q, k, v, do, out, lse, delta)
 
         def sdpa_graph(q, k, v, do):
@@ -1263,7 +1278,16 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
         graphs = [sdpa_graph(c[0], c[1], c[2], c[3]) for c in cold]
         pair_bound = bound(pair_bytes, 5 * prod, rule["flops"])[0]
         sdpa_names = device_kernel_names(torch, sdpa_backward, graphs[0])
+        # delta as the wrapper took it before the dQ kernel did: dO and O
+        # read, delta written
+        old_delta_bound = bound(2 * qkvd + row, 2 * BH * T * D,
+                                rule["flops"])[0]
         pair = dict(
+            pair_old_delta_ms=timed(
+                torch, lambda q, k, v, do, out, lse, _d:
+                (do.float() * out.float()).sum(dim=-1), cold,
+                old_delta_bound)[0],
+            pair_old_delta_bound_ms=old_delta_bound,
             pair_ms=timed(torch, lambda q, k, v, do, out, lse, _d:
                           flash_attention_backward(q, k, v, out, lse, do,
                                                    bias, scale),
@@ -1281,17 +1305,21 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
             live_key_share=sum(lens) / (B * T),
             pair_dO_inf_nonfinite=overflow)
         del graphs, cold
-        for name, tensors, n_prod, out_bytes in (
-                ("flash_attention_bwd_dq_" + sfx, ("dq",), 3, qkvd),
-                ("flash_attention_bwd_dkv_" + sfx, ("dk", "dv"), 4,
-                 2 * qkvd)):
-            fn = getattr(fa, name)
+        # the dQ kernel reads O and writes delta (where dK/dV reads it) and
+        # dq; dK/dV writes dk and dv
+        dq_fn = getattr(fa, "flash_attention_bwd_dq_" + sfx)
+        dkv_fn = getattr(fa, "flash_attention_bwd_dkv_" + sfx)
+        for name, tensors, n_prod, out_bytes, kernel in (
+                (dq_fn.__name__, ("dq",), 3, 2 * qkvd,
+                 lambda q, k, v, do, out, lse, _d:
+                 dq_fn(q, k, v, do, out, lse, bias, scale, False)),
+                (dkv_fn.__name__, ("dk", "dv"), 4, 2 * qkvd,
+                 lambda q, k, v, do, out, lse, delta:
+                 dkv_fn(q, k, v, do, lse, delta, bias, scale, False))):
             rows.append(measure(
                 torch, name, (BH, T, D),
                 max(g_err[n][0] for n in tensors),
-                min(g_err[n][1] for n in tensors), bw_inputs,
-                lambda q, k, v, do, out, lse, delta, fn=fn:
-                fn(q, k, v, do, lse, delta, bias, scale, False),
+                min(g_err[n][1] for n in tensors), bw_inputs, kernel,
                 lambda q, k, v, do, out, lse, delta:
                 flash_attention_backward_reference(q, k, v, out, lse, do,
                                                    bias, scale),
@@ -1677,9 +1705,12 @@ def half_dbias_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
     dK, dV and dbias (`pair_dO_inf_nonfinite`: nothing saturates). The
     bound counts the work of the live keys at the 16-bit rate and the fp32
     dbias written."""
+    import importlib
     from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_backward_reference, flash_attention_bwd_dkv_dbias_bf16,
         flash_attention_bwd_dkv_dbias_f16, flash_attention_forward)
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.kernels.flash_attention")
     rules = HALF_RULES[dtype]
     kernel = {"bfloat16": flash_attention_bwd_dkv_dbias_bf16,
               "float16": flash_attention_bwd_dkv_dbias_f16}[dtype]
@@ -1697,7 +1728,8 @@ def half_dbias_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
             bias = bias.masked_fill(~live[:, None, :], -1e30)
         bias = bias.reshape(BH, T).contiguous()
         out, lse = flash_attention_forward(q, k, v, bias, scale)
-        delta = (do.float() * out.float()).sum(dim=-1)
+        delta = half_delta(torch, fa, rules["suffix"], q, k, v, do, out,
+                           lse, bias, scale)
         got = kernel(q, k, v, do, lse, delta, bias, scale, False)
         again = kernel(q, k, v, do, lse, delta, bias, scale, False)
         if not all(same_bits(a, b) for a, b in zip(got, again)):

@@ -1,14 +1,14 @@
 // Attention backward from the saved log-sum-exp (flash attention), fp32,
 // bf16 and fp16, for Hopper (sm_90a): one kernel for dQ and one for dK and
 // dV in each. The fp32 route is described first; the 16-bit route's notes
-// (bf16 and fp16, one body over the element type) stand above its kernels,
-// further down.
+// (bf16 and fp16, one body over the element type, on wgmma fed by TMA)
+// stand above its kernels, further down.
 //
 // Replaces incubator_mxnet_tpu/ops/pallas/flash_attention.py: _dq_kernel and
 // _dkv_kernel, the latter with and without has_dbias (reached through
 // _bwd_call and the custom VJP _flash_bwd of _flash_core). delta =
-// rowsum(dO * O) is one PyTorch reduction in the wrapper, as it is one jnp
-// reduction in _bwd_call.
+// rowsum(dO * O), one jnp reduction in _bwd_call, is one PyTorch reduction
+// in the fp32 route's wrapper and the 16-bit dQ kernel's own work.
 //
 // What bounds it on the H100: operations. The gradient needs five T x T x D
 // products per (batch, head): S = Q K^T, dP = dO V^T, dQ = dS K, dK = dS^T Q
@@ -84,17 +84,21 @@
 // nothing to dk and dv. Any T: rows and keys past T are zero-filled in the
 // tiles and get p = 0.
 
+#include <cuda.h>    // CUtensorMap and its enums (no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
 #include "flash_tf32.cuh"
 #include "flash_b16.cuh"
+#include "hopper.cuh"
 
 constexpr int kDkvRows = 32;      // queries of a dK/dV stage
 constexpr int kDqKeys = 32;       // keys of a dQ stage
@@ -529,89 +533,553 @@ int check_args(int bh, int T, int device) {
 // The 16-bit flavours (the TPU kernels on bf16 or fp16 q, k, v and dO under
 // the trainer's compute_dtype), one body over the element type E; the
 // dK/dV kernel with and without has_dbias (a learned key bias trained in
-// bf16 or fp16): every product on the tensor cores as mma.sync m16n8k16 with E
-// operands and fp32 accumulators, one product where the fp32 route takes
-// three. What bounds it: operations, as in fp32 (seven T x T x D products
+// bf16 or fp16). What bounds them: operations (seven T x T x D products
 // between the two kernels at the 16-bit rate, 989 TFLOP/s), with half the
-// fp32 bytes. Design, a simple one first
-// (wgmma and TMA are later work):
-// - The fp32 route's split: the dQ kernel owns a 64-row Q tile and walks the
-//   keys (64 a stage at D <= 64, 32 at D = 128), the dK/dV kernel owns a
-//   64-key tile and walks the queries (64 a stage at D <= 64, 16 at D =
-//   128), each through a two-stage cp.async ring; no atomics, and two calls
+// fp32 bytes. The design is Hopper's own (hopper.cuh):
+// - The JAX split: a dQ block owns 128 Q rows and walks the keys, 64 a
+//   stage; a dK/dV block owns 128 keys and walks the queries, 32 a stage
+//   (16 at D = 128, where dk's and dv's accumulators take 128 registers).
+//   No atomics: each output element is written by one block, and two calls
 //   on the same inputs are bitwise equal.
-// - The resident operands (Q and dO, or K and V) are read once with ldmatrix
-//   into A fragments held in registers; the streamed ones come by ldmatrix
-//   (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) or ldmatrix.trans
-//   (dQ += dS K, dV += P^T dO, dK += dS^T Q).
-// - S and dP stay in registers: p = exp(s - lse) and dS = p * (dP - delta)
-//   * scale in fp32, then p and dS are rounded to E as they are packed
-//   into the second products' A fragments, where the TPU kernel rounds them
-//   to v's dtype (_recompute_p_ds). The sums stay fp32 in the accumulators,
-//   and dq, dk and dv round to E once, at the end. In fp16 a dS past 65504
-//   (a loss scale that overflows) rounds to inf and so does every gradient
-//   it feeds: the rounding never saturates, so the guard's finite check
-//   sees the overflow.
+// - A block is three warpgroups, one an SM: a producer, whose first warp
+//   keeps a ring of stages (4 for dQ, 6 for dK/dV) filled with TMA loads,
+//   and two consumers, each owning 64 of the block's rows (keys), that run
+//   every product as wgmma on the stages they share as they land. Full and
+//   empty mbarriers hand the stages over. setmaxnreg gives the producer 24
+//   registers a thread and the consumers 240 at run time; ptxas 12.8 still
+//   compiles every region to the launch bound's 168, so the tiles are
+//   sized to fit 168 (no spills at D <= 64).
+// - Products, all m64nNk16 with E operands and fp32 accumulators: S = Q K^T
+//   and dP = dO V^T (dQ kernel), S^T = K Q^T and dP^T = V dO^T (dK/dV
+//   kernel) take both operands K-major from shared memory, the resident
+//   tile as A and the stage as B; dQ += dS K, dV += P^T dO and dK += dS^T Q
+//   take A from registers (P and dS, taken from the first products'
+//   accumulators into registers of their own and rounded to E by pack_a:
+//   they never leave registers) and B from the same stage read MN-major
+//   (the transposed-B descriptor; no transposed copy). B is read from
+//   shared memory once a warpgroup, not once a warp. Only the products
+//   write their accumulators (the first of a sum overwrites), so ptxas
+//   keeps them asynchronous.
+// - Overlap: S and dP are two commit groups; the exp of a stage runs while
+//   its dP product does (wait_group 1), and a stage's second products run
+//   while the next stage's S and dP are issued. A stage goes back to the
+//   producer once the products of the stage after it have started, so the
+//   ring runs up to three stages ahead. The two consumers take turns at
+//   the tensor cores (named barriers 1 and 2), so that one's exp and
+//   rounding run while the other's products do.
+// - TMA reads 3-D tensor maps (D, T, B*H), one a tensor, in boxes of 64
+//   (D >= 64, 128-byte swizzle) or 32 (D = 32, 64-byte swizzle) columns;
+//   rows past T land as zeros and never reach the next head's rows (in fp16
+//   an inf in dO then stays in its head). The maps are encoded on the host
+//   for each call and passed as __grid_constant__ parameters.
+// - delta = rowsum(dO * O) is the dQ kernel's: each consumer takes it in
+//   fp32 for its 64 rows from dO and O while its first stage's products run
+//   (the products of two 16-bit values are exact in fp32), uses it, and
+//   writes it out (B*H, T) for the dK/dV kernel, which runs after it on the
+//   same stream.
+// - p = 2^(s * scale * log2(e) + (bias - lse) * log2(e)) by ex2.approx
+//   without .ftz, with no branch: a stage that reaches past T or across the
+//   causal diagonal sets its dead scores' argument to -1e30 (p = 0), and
+//   one that does not skips the test. dS = p * (dP - delta) * scale, in
+//   fp32; p and dS round to E (cvt.rn) as they are packed into the second
+//   products' A fragments, where the TPU kernel rounds them to v's dtype
+//   (_recompute_p_ds). The sums stay fp32, and dq, dk and dv round to E
+//   once, at the end. In fp16 a dS past 65504 (a loss scale that overflows)
+//   rounds to inf and so does every gradient it feeds: the rounding never
+//   saturates, so the guard's finite check sees the overflow.
 // - The dead-tile rules are the fp32 route's: the dQ kernel walks only key
-//   tiles with a live key, and a dK/dV block whose 64 keys are all dead
-//   writes zeros.
+//   tiles with a live key (a vote of the whole block before the roles
+//   split), a dK/dV block whose 128 keys are all dead writes zeros, and the
+//   causal walks end (dQ) or start (dK/dV) at the diagonal.
 // - dbias (kDbias): each thread sums, in fp32 registers, the unscaled and
 //   unrounded dS = p * (dP - delta) of its two keys over the queries it
 //   holds, as _dkv_kernel sums ds_bias; the quad's four partial sums meet
-//   by two shuffles at the end. dK takes the same dS times scale, rounded to
-//   E as it is packed. A masked key's p is 0 for every query, so its
-//   dbias is exactly 0. The extra work is one add a score.
+//   by two shuffles at the end. A masked key's p is 0 for every query, so
+//   its dbias is exactly 0.
 
+// wgmma m64nNk16, fp32 accumulators d (N / 2 a thread; acc 0 overwrites
+// them): ss reads A and B K-major from shared memory (descriptors); rs
+// takes A from registers and reads B MN-major (tnspB).
+__device__ __forceinline__ void wgmma_ss_n16_bf16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n16_f16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32_bf16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32_f16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_bf16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_f16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32_bf16(float* d, const unsigned* a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32_f16(float* d, const unsigned* a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_bf16(float* d, const unsigned* a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_f16(float* d, const unsigned* a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_bf16(float* d, const unsigned* a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_f16(float* d, const unsigned* a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+constexpr int kConsumers = 2;       // consumer warpgroups of a block
+constexpr int kWgThreads = 128 * (kConsumers + 1);    // + a producer
+constexpr int kRowsBlock = kBlock * kConsumers;       // rows (keys) a block
+constexpr int kKeysDq = 64;         // keys of a dQ stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the shared-memory image of an R x D tile of E as TMA writes it: D / kCols
+// panels of R rows of kCols elements (128-byte rows, 128-byte swizzle at D
+// >= 64; 64-byte rows, 64-byte swizzle at D = 32), one after the other
 template <int D>
-struct BwdTileB {
-  static constexpr int kLd = D + 8;           // elements a padded row
-  static constexpr int kTile = kBlock * kLd;  // elements of a 64-row tile
-  static constexpr int kKeys = D <= 64 ? 64 : 32;   // keys of a dQ stage
-  static constexpr int kRows = D <= 64 ? 64 : 16;   // queries of a dK/dV stage
-  // dQ: Q and dO, two stages of K and V, two stages of the keys' bias; the
-  // count and the list of live key tiles follow (sized at launch)
-  static constexpr int kDqStage = 2 * kKeys * kLd;
-  static constexpr size_t kDqBytes = kB16Bytes * (2 * kTile + 2 * kDqStage) +
-                                     sizeof(float) * 2 * kKeys;
-  // dK/dV: K and V, two stages of Q and dO, two stages of lse and delta
-  static constexpr int kDkvStage = 2 * kRows * kLd;
-  static constexpr size_t kDkvBytes =
-      kB16Bytes * (2 * kTile + 2 * kDkvStage) + sizeof(float) * 4 * kRows;
+struct Pan {
+  static constexpr int kCols = D >= 64 ? 64 : 32;
+  static constexpr int kRowBytes = kCols * kB16Bytes;
+  static constexpr unsigned kMode = D >= 64 ? 1u : 2u;
+  static constexpr unsigned kAtom = 8 * kRowBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+
+  // the K-major descriptor of k16 step kk (columns 16 kk ..) of an R-row
+  // tile at `tile`
+  template <int R>
+  static __device__ __forceinline__ uint64_t k(unsigned tile, int kk) {
+    const int col = 16 * kk;
+    return kmajor_desc(tile + (col / kCols) * R * kRowBytes +
+                           (col % kCols) * kB16Bytes,
+                       kAtom, kMode);
+  }
+  // the MN-major descriptor of k16 step kp (rows 16 kp ..) of an R-row tile
+  template <int R>
+  static __device__ __forceinline__ uint64_t mn(unsigned tile, int kp) {
+    return mn_desc(tile + 16 * kp * kRowBytes, R * kRowBytes, kAtom, kMode);
+  }
+  // rows [r0, r0 + R) of head bh into the tile, each panel one TMA box
+  template <int R>
+  static __device__ __forceinline__ void load(unsigned tile,
+                                              const CUtensorMap* map,
+                                              unsigned bar, int r0, int bh) {
+#pragma unroll
+    for (int p = 0; p < D / kCols; ++p)
+      tma_load3(tile + p * R * kRowBytes, map, bar, p * kCols, r0, bh);
+  }
+};
+
+// wgmma m64nNk16 of element type E, fp32 accumulators d (N / 2 a thread);
+// acc 0 overwrites d. ss: A and B from shared memory, both K-major. rs: A
+// from registers (four packed pairs, the m16n8k16 A fragment of the
+// thread's warp's 16 rows), B MN-major.
+template <typename E, int N>
+__device__ __forceinline__ void wg_ss(float* d, uint64_t a, uint64_t b,
+                                      int acc) {
+  static_assert(N == 16 || N == 32 || N == 64, "wg_ss: N");
+  if constexpr (std::is_same<E, bf16>::value) {
+    if constexpr (N == 16) wgmma_ss_n16_bf16(d, a, b, acc);
+    else if constexpr (N == 32) wgmma_ss_n32_bf16(d, a, b, acc);
+    else wgmma_ss_n64_bf16(d, a, b, acc);
+  } else {
+    if constexpr (N == 16) wgmma_ss_n16_f16(d, a, b, acc);
+    else if constexpr (N == 32) wgmma_ss_n32_f16(d, a, b, acc);
+    else wgmma_ss_n64_f16(d, a, b, acc);
+  }
+}
+
+template <typename E, int N>
+__device__ __forceinline__ void wg_rs(float* d, const unsigned* a,
+                                      uint64_t b, int acc) {
+  static_assert(N == 32 || N == 64 || N == 128, "wg_rs: N");
+  if constexpr (std::is_same<E, bf16>::value) {
+    if constexpr (N == 32) wgmma_rs_n32_bf16(d, a, b, acc);
+    else if constexpr (N == 64) wgmma_rs_n64_bf16(d, a, b, acc);
+    else wgmma_rs_n128_bf16(d, a, b, acc);
+  } else {
+    if constexpr (N == 32) wgmma_rs_n32_f16(d, a, b, acc);
+    else if constexpr (N == 64) wgmma_rs_n64_f16(d, a, b, acc);
+    else wgmma_rs_n128_f16(d, a, b, acc);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(unsigned (*a)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      fence_operand(reinterpret_cast<int&>(a[i][j]));
+}
+
+// 2^x (ex2.approx without .ftz: a subnormal result survives)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the producer warpgroup gives back registers (24 a thread), the consumers
+// take them (240): 128 * 24 + 256 * 240 = 384 * 168, the block's share of
+// the register file at one block an SM
+__device__ __forceinline__ void setmaxnreg_dec24() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+__device__ __forceinline__ void setmaxnreg_inc240() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads) order the two consumer
+// warpgroups' turns at the tensor cores: a warpgroup waits for its own
+// barrier (its 128 threads sync, the other's 128 arrive) before it issues a
+// stage's products, and arrives on the other's once they are issued, so that
+// one warpgroup's exp and rounding run while the other's products do.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// two packed E values as floats
+template <typename E>
+__device__ __forceinline__ float2 widen2(unsigned u) {
+  if constexpr (std::is_same<E, bf16>::value)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  else
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+// the sum over n elements (a multiple of 8, 16-byte aligned) of x * y in
+// fp32, in order; a product of two 16-bit values is exact in fp32
+template <typename E, int n>
+__device__ __forceinline__ float dot16(const E* x, const E* y) {
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < n; c += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(x + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(y + c);
+    const unsigned ua[4] = {a.x, a.y, a.z, a.w}, ub[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fa = widen2<E>(ua[i]), fb = widen2<E>(ub[i]);
+      sum = fmaf(fa.x, fb.x, sum);
+      sum = fmaf(fa.y, fb.y, sum);
+    }
+  }
+  return sum;
+}
+
+template <typename E>
+struct TmaType;
+template <>
+struct TmaType<bf16> {
+  static constexpr CUtensorMapDataType kValue =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<f16> {
+  static constexpr CUtensorMapDataType kValue =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// the 3-D map (D, T, bh) of a (bh, T, D) tensor of E, in boxes of an R-row
+// panel
+template <typename E, int D>
+bool map16(EncodeTiled encode, CUtensorMap* map, const void* ptr, int T,
+           int bh, int rows) {
+  return make_map3(encode, map, ptr, TmaType<E>::kValue, kB16Bytes, D, T, bh,
+                   Pan<D>::kCols, rows, Pan<D>::kSwizzle);
+}
+
+// byte offsets from the 1024-aligned base of the dQ kernel's shared memory:
+// each consumer's Q, then each one's dO, the ring of K and V stages, each
+// stage's key biases * log2(e), the mbarriers (Q/dO, full[kStages],
+// empty[kStages]); the count and list of live key tiles follow (sized at
+// launch)
+template <int D>
+struct DqTile {
+  static constexpr int kStages = 4;
+  static constexpr int kTile = kBlock * D * kB16Bytes;      // Q or dO
+  static constexpr int kKv = kKeysDq * D * kB16Bytes;       // K or V
+  static constexpr int kStage = 2 * kKv;
+  static constexpr int kRing = 2 * kConsumers * kTile;
+  static constexpr int kBias = kRing + kStages * kStage;
+  static constexpr int kBars = kBias + kStages * kKeysDq * 4;
+  static constexpr int kList = kBars + (1 + 2 * kStages) * 8;
+  static constexpr size_t kBytes = kList + 1024;            // + alignment
+};
+
+// byte offsets of the dK/dV kernel's: each consumer's K, then each one's
+// V, the ring of Q and dO stages of kRows queries, each stage's lse *
+// log2(e) and delta, the mbarriers (K/V, full[kStages], empty[kStages]).
+// kRows keeps a consumer's accumulators (dk, dv: D each; S^T, dP^T: kRows
+// each, over 128 threads) inside the 168 registers a thread of a 384-thread
+// block has
+template <int D>
+struct DkvTile {
+  static constexpr int kRows = D == 128 ? 16 : 32;
+  static constexpr int kStages = 6;
+  static constexpr int kTile = kBlock * D * kB16Bytes;      // K or V
+  static constexpr int kQo = kRows * D * kB16Bytes;         // Q or dO
+  static constexpr int kStage = 2 * kQo;
+  static constexpr int kRing = 2 * kConsumers * kTile;
+  static constexpr int kStats = kRing + kStages * kStage;
+  static constexpr int kBars = kStats + kStages * 2 * kRows * 4;
+  static constexpr size_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
 };
 
 template <typename E, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_b16_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                        const E* __restrict__ v, const E* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const float* __restrict__ bias, E* __restrict__ dq,
-                        int T, float scale, int causal) {
-  using Tile = BwdTileB<D>;
-  constexpr int KT = Tile::kKeys, NJ = KT / 8, KK = D / 16, NT = D / 8;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const E* __restrict__ dout, const E* __restrict__ out,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ bias, E* __restrict__ dq,
+                       float* __restrict__ delta, int T, float scale,
+                       int causal) {
+  using Tile = DqTile<D>;
+  using P = Pan<D>;
+  constexpr int KT = kKeysDq, S = Tile::kStages, NS = KT / 2, NQ = D / 2;
 
-  extern __shared__ float4 smem4[];
-  E* Qs = reinterpret_cast<E*>(smem4);
-  E* dOs = Qs + Tile::kTile;
-  E* stages = dOs + Tile::kTile;               // K, V; two of them
-  float* biases = reinterpret_cast<float*>(stages + 2 * Tile::kDqStage);
-  int* n_live = reinterpret_cast<int*>(biases + 2 * KT);
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  float* biases = reinterpret_cast<float*>(gbase + Tile::kBias);
+  const unsigned qbar = base + Tile::kBars, full = qbar + 8,
+                 empty = full + 8 * S;
+  int* n_live = reinterpret_cast<int*>(gbase + Tile::kList);
   int* tiles = n_live + 1;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * kBlock;
-  const long long bh = blockIdx.y;
-  const long long base = bh * T * D;
-  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
+  const int q0 = blockIdx.x * kRowsBlock;
+  const int bh = blockIdx.y;
+  const long long rbase = (long long)bh * T;
+  const float* brow = bias == nullptr ? nullptr : bias + rbase;
 
-  // the key tiles to walk: up to the causal diagonal, and only those with a
-  // live key (a dead tile adds exact zeros)
+  // the key tiles to walk: up to the causal diagonal of the block's last
+  // row, and only those with a live key (a dead tile adds exact zeros)
   int n_tiles = (T + KT - 1) / KT;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlock, T) - 1) / KT + 1);
-  for (int i = warp; i < n_tiles; i += kWarps) {
+  if (causal)
+    n_tiles = min(n_tiles, (min(q0 + kRowsBlock, T) - 1) / KT + 1);
+  for (int i = warp; i < n_tiles; i += kWgThreads / 32) {
     const bool live = any_live<KT>(brow, i * KT, T);
     if (lane == 0) tiles[i] = live;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 32);        // each lane of the producer warp
+      mbar_init(empty + 8 * s, 4 * kConsumers);   // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -623,354 +1091,625 @@ flash_bwd_dq_b16_kernel(const E* __restrict__ q, const E* __restrict__ k,
   __syncthreads();
   const int nl = *n_live;
 
-  // this thread's accumulator rows; columns 8n + 2t and + 1
-  const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  if (nl > 0) {
-    auto issue = [&](int i) {
-      E* st = stages + (i & 1) * Tile::kDqStage;
-      const int k0 = tiles[i] * KT;
-      load_tile16<D, KT>(st, k + base, k0, T);
-      load_tile16<D, KT>(st + KT * Tile::kLd, v + base, k0, T);
-      if (brow != nullptr) load_row<KT>(biases + (i & 1) * KT, brow, k0, T);
-    };
-    load_tile16<D, kBlock>(Qs, q + base, q0, T);
-    load_tile16<D, kBlock>(dOs, dout + base, q0, T);
-    cp_async_commit();
-    issue(0);
-    cp_async_commit();
-    const float lse_a = row_a < T ? lse[bh * T + row_a] : 0.f;
-    const float lse_b = row_b < T ? lse[bh * T + row_b] : 0.f;
-    const float delta_a = row_a < T ? delta[bh * T + row_a] : 0.f;
-    const float delta_b = row_b < T ? delta[bh * T + row_b] : 0.f;
-    cp_async_wait<1>();                  // Q and dO have landed
-    __syncthreads();
-    unsigned qf[KK][4], of[KK][4];
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      frag_a16<D>(qf[kk], Qs, 16 * warp, 16 * kk);
-      frag_a16<D>(of[kk], dOs, 16 * warp, 16 * kk);
-    }
-
-    for (int i = 0; i < nl; ++i) {
-      if (i + 1 < nl) issue(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();                // stage i has landed
-      __syncthreads();
-      const E* Ks = stages + (i & 1) * Tile::kDqStage;
-      const E* Vs = Ks + KT * Tile::kLd;
-      const float* Bs = biases + (i & 1) * KT;
-      const int k0 = tiles[i] * KT;
-
-      // S = Q K^T and dP = dO V^T over the stage's keys
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-        for (int j2 = 0; j2 < NJ / 2; ++j2) {
-          unsigned b[4];
-          frag_b_nk<D>(b, Ks, 16 * j2, 16 * kk);
-          mma16<E>(s[2 * j2], qf[kk], b);
-          mma16<E>(s[2 * j2 + 1], qf[kk], b + 2);
-          frag_b_nk<D>(b, Vs, 16 * j2, 16 * kk);
-          mma16<E>(dp[2 * j2], of[kk], b);
-          mma16<E>(dp[2 * j2 + 1], of[kk], b + 2);
-        }
-      // dS = P * (dP - delta) * scale, P = exp(S * scale + bias - lse)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          const int key = k0 + col;
-          const bool lo_row = e < 2;
-          float x = s[j][e] * scale + (brow != nullptr ? Bs[col] : 0.f);
-          if (causal && key > (lo_row ? row_a : row_b)) x = kNegInf;
-          const float p = key < T ? expf(x - (lo_row ? lse_a : lse_b)) : 0.f;
-          s[j][e] = p * (dp[j][e] - (lo_row ? delta_a : delta_b)) * scale;
-        }
-      // dQ += dS K over the stage's keys, dS rounded to E
-#pragma unroll
-      for (int kp = 0; kp < KT / 16; ++kp) {
-        unsigned a[4];
-        pack_a<E>(a, s[2 * kp], s[2 * kp + 1]);
-#pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
-          unsigned b[4];
-          frag_b_kn<D>(b, Ks, 16 * kp, 16 * n2);
-          mma16<E>(acc[2 * n2], a, b);
-          mma16<E>(acc[2 * n2 + 1], a, b + 2);
+  // the warpgroup, as the compiler can see it is uniform across it
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == kConsumers) {
+    // producer: its first warp loads Q and dO once, then the live key
+    // tiles' K, V (TMA, lane 0) and key biases (every lane; zeros without
+    // a bias) into the ring
+    setmaxnreg_dec24();
+    if (warp == 4 * kConsumers && nl > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(qbar, 2 * kConsumers * Tile::kTile);
+        for (int c = 0; c < kConsumers; ++c) {
+          P::template load<kBlock>(base + c * Tile::kTile, &map_q, qbar,
+                                   q0 + c * kBlock, bh);
+          P::template load<kBlock>(base + (kConsumers + c) * Tile::kTile,
+                                   &map_do, qbar, q0 + c * kBlock, bh);
         }
       }
-      __syncthreads();                   // the stage is refilled next
+      for (int i = 0; i < nl; ++i) {
+        const int s = i % S, k0 = tiles[i] * KT;
+        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
+        for (int j = lane; j < KT; j += 32)
+          biases[s * KT + j] = (brow != nullptr && k0 + j < T)
+                                   ? brow[k0 + j] * kLog2e
+                                   : 0.f;
+        if (lane == 0) {
+          const unsigned st = base + Tile::kRing + s * Tile::kStage;
+          mbar_expect_tx(full + 8 * s, Tile::kStage);
+          P::template load<KT>(st, &map_k, full + 8 * s, k0, bh);
+          P::template load<KT>(st + Tile::kKv, &map_v, full + 8 * s, k0,
+                               bh);
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      }
     }
-  }
+  } else {
+    // consumer warpgroup wg: its warp w owns rows q0 + 64 wg + 16 w .. +
+    // 15; its thread's accumulator rows are row_a and row_b, columns 8 n +
+    // 2 t and + 1
+    setmaxnreg_inc240();
+    const int w = warp % 4, g = lane / 4, t = lane % 4;
+    const int row_lo = q0 + kBlock * wg;  // the warpgroup's first row
+    const int row_a = row_lo + 16 * w + g, row_b = row_a + 8;
 
+    // delta of rows row_a and row_b: each thread of a quad sums a quarter
+    // of the row, the quad adds the four sums
+    float dl[2];
+    auto take_delta = [&]() {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (row_a < T)
-      *reinterpret_cast<unsigned*>(dq + base + (long long)row_a * D + col) =
-          pack16<E>(acc[n][0], acc[n][1]);
-    if (row_b < T)
-      *reinterpret_cast<unsigned*>(dq + base + (long long)row_b * D + col) =
-          pack16<E>(acc[n][2], acc[n][3]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? row_b : row_a;
+        float sum = 0.f;
+        if (row < T) {
+          const long long o = (rbase + row) * D + t * (D / 4);
+          sum = dot16<E, D / 4>(dout + o, out + o);
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        dl[h] = sum;
+      }
+      if (t == 0) {
+        if (row_a < T) delta[rbase + row_a] = dl[0];
+        if (row_b < T) delta[rbase + row_b] = dl[1];
+      }
+    };
+
+    // dq's sums: written by the products only (the first overwrites), or
+    // zeros where no key tile is live
+    float acc[NQ];
+    if (nl == 0) {
+      take_delta();
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) acc[i] = 0.f;
+    } else {
+      const float sl2 = scale * kLog2e;
+      const float lse_a = row_a < T ? lse[rbase + row_a] * kLog2e : 0.f;
+      const float lse_b = row_b < T ? lse[rbase + row_b] * kLog2e : 0.f;
+      const unsigned qs = base + wg * Tile::kTile,
+                     dos = base + (kConsumers + wg) * Tile::kTile;
+      // S and dP are the products' alone; P, then dS, are taken into p
+      float s[NS], dp[NS], p[NS];
+      unsigned a[KT / 16][4];
+      // S = Q K^T and dP = dO V^T of stage i, two commit groups
+      auto issue = [&](int i) {
+        const int slot = i % S;
+        const unsigned st = base + Tile::kRing + slot * Tile::kStage;
+        mbar_wait(full + 8 * slot, (i / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wg_ss<E, KT>(s, P::template k<kBlock>(qs, kk),
+                       P::template k<KT>(st, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wg_ss<E, KT>(dp, P::template k<kBlock>(dos, kk),
+                       P::template k<KT>(st + Tile::kKv, kk), kk > 0);
+        wgmma_commit();
+      };
+      mbar_wait(qbar, 0);
+      if (wg == 1) turn_pass(1);        // warpgroup 0 issues first
+      turn_wait(wg);
+      issue(0);
+      turn_pass(wg);
+      take_delta();                     // while stage 0's products run
+      for (int i = 0; i < nl; ++i) {
+        const int slot = i % S, k0 = tiles[i] * KT;
+        const unsigned st = base + Tile::kRing + slot * Tile::kStage;
+        const float* bs = biases + slot * KT;
+        // S of stage i has landed, and stage i - 1's dQ product is done:
+        // its K and V go back to the producer
+        wgmma_wait<1>();
+        fence_all<NS>(s);
+        fence_all<KT / 16>(a);
+        if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % S));
+        // P = exp(S * scale + bias - lse), while dP runs; a stage that
+        // reaches past T or across this warpgroup's causal diagonal masks
+        // its scores one by one (to -1e30: p = 0), without a branch
+        if (k0 + KT <= T && (!causal || k0 + KT - 1 <= row_lo)) {
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float b = bs[8 * j + 2 * t + e];
+              p[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, b - lse_a));
+              p[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], sl2, b - lse_b));
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1), key = k0 + col;
+              const bool lo = e < 2;
+              const bool dead =
+                  key >= T || (causal && key > (lo ? row_a : row_b));
+              const float x =
+                  fmaf(s[4 * j + e], sl2, bs[col] - (lo ? lse_a : lse_b));
+              p[4 * j + e] = ex2(dead ? kNegInf : x);
+            }
+        }
+        wgmma_wait<0>();
+        fence_all<NS>(dp);
+        // dS = P * (dP - delta) * scale, rounded to E into dQ's A
+        // fragments
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[4 * j + e] =
+                p[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]) * scale;
+#pragma unroll
+        for (int kp = 0; kp < KT / 16; ++kp)
+          pack_a<E>(a[kp], p + 8 * kp, p + 8 * kp + 4);
+        // dQ += dS K over the stage's keys, K read MN-major, then the next
+        // stage's S and dP, in this warpgroup's turn
+        turn_wait(wg);
+        wgmma_fence();
+#pragma unroll
+        for (int kp = 0; kp < KT / 16; ++kp)
+          wg_rs<E, D>(acc, a[kp], P::template mn<KT>(st, kp), i + kp > 0);
+        wgmma_commit();
+        if (i + 1 < nl) issue(i + 1);
+        if (wg == 0 || i + 1 < nl) turn_pass(wg);
+      }
+      wgmma_wait<0>();
+      fence_all<NQ>(acc);
+      fence_all<KT / 16>(a);
+    }
+
+    E* dq_a = dq + (rbase + row_a) * D;
+    E* dq_b = dq + (rbase + row_b) * D;
+#pragma unroll
+    for (int n = 0; n < NQ / 4; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (row_a < T)
+        *reinterpret_cast<unsigned*>(dq_a + col) =
+            pack16<E>(acc[4 * n], acc[4 * n + 1]);
+      if (row_b < T)
+        *reinterpret_cast<unsigned*>(dq_b + col) =
+            pack16<E>(acc[4 * n + 2], acc[4 * n + 3]);
+    }
   }
 }
 
 template <typename E, int D, bool kDbias>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_b16_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                         const E* __restrict__ v, const E* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ bias, E* __restrict__ dk,
-                         E* __restrict__ dv, float* __restrict__ dbias, int T,
-                         float scale, int causal) {
-  using Tile = BwdTileB<D>;
-  constexpr int R = Tile::kRows, NJ = R / 8, KK = D / 16, NT = D / 8;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ bias, E* __restrict__ dk,
+                        E* __restrict__ dv, float* __restrict__ dbias, int T,
+                        float scale, int causal) {
+  using Tile = DkvTile<D>;
+  using P = Pan<D>;
+  constexpr int R = Tile::kRows, S = Tile::kStages, NS = R / 2, NQ = D / 2;
 
-  extern __shared__ float4 smem4[];
-  E* Ks = reinterpret_cast<E*>(smem4);
-  E* Vs = Ks + Tile::kTile;
-  E* stages = Vs + Tile::kTile;                // Q, dO; two of them
-  float* stats = reinterpret_cast<float*>(stages + 2 * Tile::kDkvStage);
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  float* stats = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                          Tile::kStats);
+  const unsigned kvbar = base + Tile::kBars, full = kvbar + 8,
+                 empty = full + 8 * S;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * kBlock;
-  const long long bh = blockIdx.y;
-  const long long base = bh * T * D;
-  const float* brow = bias == nullptr ? nullptr : bias + bh * T;
+  const int k0 = blockIdx.x * kRowsBlock;
+  const int bh = blockIdx.y;
+  const long long rbase = (long long)bh * T;
+  const float* brow = bias == nullptr ? nullptr : bias + rbase;
 
-  // this thread's accumulator rows are keys key_a and key_b; columns 8n + 2t
-  // and + 1
-  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  float db_a = 0.f, db_b = 0.f;            // dbias of keys key_a, key_b
-
-  // a block whose keys are all dead writes zeros
-  const bool any = threadIdx.x < kBlock && live_key(brow, k0 + threadIdx.x, T);
-  if (__syncthreads_or(any)) {
-    const float bias_a = (brow != nullptr && key_a < T) ? brow[key_a] : 0.f;
-    const float bias_b = (brow != nullptr && key_b < T) ? brow[key_b] : 0.f;
-    // causal: the query tiles before this key tile see none of its keys
-    const int t0 = causal ? k0 / R : 0;
-    const int n_q = (T + R - 1) / R;
-    auto issue = [&](int i) {
-      const int slot = (i - t0) & 1;
-      E* st = stages + slot * Tile::kDkvStage;
-      const int r0 = i * R;
-      load_tile16<D, R>(st, q + base, r0, T);
-      load_tile16<D, R>(st + R * Tile::kLd, dout + base, r0, T);
-      load_row<R>(stats + slot * 2 * R, lse + bh * T, r0, T);
-      load_row<R>(stats + slot * 2 * R + R, delta + bh * T, r0, T);
-    };
-    load_tile16<D, kBlock>(Ks, k + base, k0, T);
-    load_tile16<D, kBlock>(Vs, v + base, k0, T);
-    cp_async_commit();
-    issue(t0);
-    cp_async_commit();
-    cp_async_wait<1>();                  // K and V have landed
-    __syncthreads();
-    unsigned kf[KK][4], vf[KK][4];
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      frag_a16<D>(kf[kk], Ks, 16 * warp, 16 * kk);
-      frag_a16<D>(vf[kk], Vs, 16 * warp, 16 * kk);
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 32);        // each lane of the producer warp
+      mbar_init(empty + 8 * s, 4 * kConsumers);   // each consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // a block whose keys are all dead writes zeros
+  const bool any =
+      threadIdx.x < kRowsBlock && live_key(brow, k0 + threadIdx.x, T);
+  const bool live = __syncthreads_or(any);
+  // causal: the query stages before this key tile see none of its keys
+  const int t0 = causal ? k0 / R : 0;
+  const int n_q = (T + R - 1) / R;
 
-    for (int i = t0; i < n_q; ++i) {
-      if (i + 1 < n_q) issue(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();                // stage i has landed
-      __syncthreads();
-      const int slot = (i - t0) & 1;
-      const E* Qs = stages + slot * Tile::kDkvStage;
-      const E* dOs = Qs + R * Tile::kLd;
-      const float* Ls = stats + slot * 2 * R;
-      const float* Dl = Ls + R;
-      const int r0 = i * R;
-
-      // S^T = K Q^T and dP^T = V dO^T over the stage's queries
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-        for (int j2 = 0; j2 < NJ / 2; ++j2) {
-          unsigned b[4];
-          frag_b_nk<D>(b, Qs, 16 * j2, 16 * kk);
-          mma16<E>(s[2 * j2], kf[kk], b);
-          mma16<E>(s[2 * j2 + 1], kf[kk], b + 2);
-          frag_b_nk<D>(b, dOs, 16 * j2, 16 * kk);
-          mma16<E>(dp[2 * j2], vf[kk], b);
-          mma16<E>(dp[2 * j2 + 1], vf[kk], b + 2);
-        }
-      // P^T, and dS^T = P^T * (dP^T - delta) * scale; dbias sums the
-      // unscaled, unrounded dS over the queries in fp32
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          const int query = r0 + col;
-          const bool lo_row = e < 2;
-          const int key = lo_row ? key_a : key_b;
-          float x = s[j][e] * scale + (lo_row ? bias_a : bias_b);
-          if (causal && key > query) x = kNegInf;
-          const float p = (key < T && query < T) ? expf(x - Ls[col]) : 0.f;
-          const float ds = p * (dp[j][e] - Dl[col]);
-          if (kDbias) {
-            if (lo_row) db_a += ds;
-            else db_b += ds;
-          }
-          dp[j][e] = ds * scale;
-          s[j][e] = p;
-        }
-      // dV += P^T dO and dK += dS^T Q over the stage's queries, P and dS
-      // rounded to E
-#pragma unroll
-      for (int kp = 0; kp < R / 16; ++kp) {
-        unsigned pa[4], da[4];
-        pack_a<E>(pa, s[2 * kp], s[2 * kp + 1]);
-        pack_a<E>(da, dp[2 * kp], dp[2 * kp + 1]);
-#pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
-          unsigned b[4];
-          frag_b_kn<D>(b, dOs, 16 * kp, 16 * n2);
-          mma16<E>(dv_acc[2 * n2], pa, b);
-          mma16<E>(dv_acc[2 * n2 + 1], pa, b + 2);
-          frag_b_kn<D>(b, Qs, 16 * kp, 16 * n2);
-          mma16<E>(dk_acc[2 * n2], da, b);
-          mma16<E>(dk_acc[2 * n2 + 1], da, b + 2);
+  // the warpgroup, as the compiler can see it is uniform across it
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == kConsumers) {
+    // producer: its first warp loads K and V once, then each query stage's
+    // Q, dO (TMA, lane 0), lse * log2(e) and delta (every lane) into the
+    // ring
+    setmaxnreg_dec24();
+    if (warp == 4 * kConsumers && live) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * kConsumers * Tile::kTile);
+        for (int c = 0; c < kConsumers; ++c) {
+          P::template load<kBlock>(base + c * Tile::kTile, &map_k, kvbar,
+                                   k0 + c * kBlock, bh);
+          P::template load<kBlock>(base + (kConsumers + c) * Tile::kTile,
+                                   &map_v, kvbar, k0 + c * kBlock, bh);
         }
       }
-      __syncthreads();                   // the stage is refilled next
+      for (int i = t0; i < n_q; ++i) {
+        const int it = i - t0, s = it % S, r0 = i * R;
+        mbar_wait(empty + 8 * s, ((it / S) & 1) ^ 1);
+        float* st = stats + s * 2 * R;
+        for (int j = lane; j < R; j += 32) {
+          const bool ok = r0 + j < T;
+          st[j] = ok ? lse[rbase + r0 + j] * kLog2e : 0.f;
+          st[R + j] = ok ? delta[rbase + r0 + j] : 0.f;
+        }
+        if (lane == 0) {
+          const unsigned qs = base + Tile::kRing + s * Tile::kStage;
+          mbar_expect_tx(full + 8 * s, Tile::kStage);
+          P::template load<R>(qs, &map_q, full + 8 * s, r0, bh);
+          P::template load<R>(qs + Tile::kQo, &map_do, full + 8 * s, r0,
+                              bh);
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      }
     }
-  }
-
-  if (kDbias) {
-    // the four threads of a quad hold the same two keys; a masked key's
-    // p is 0 for every query, so its dbias is exactly 0
+  } else {
+    // consumer warpgroup wg: its warp w owns keys k0 + 64 wg + 16 w .. +
+    // 15; its thread's accumulator rows are keys key_a and key_b, columns
+    // 8 n + 2 t and + 1
+    setmaxnreg_inc240();
+    const int w = warp % 4, g = lane / 4, t = lane % 4;
+    const int key_a = k0 + kBlock * wg + 16 * w + g, key_b = key_a + 8;
+    const int key_hi = k0 + kBlock * wg + kBlock - 1;   // its last key
+    // dk's and dv's sums: written by the products only (the first
+    // overwrites), or zeros where every key is dead
+    float dk_acc[NQ], dv_acc[NQ];
+    float db_a = 0.f, db_b = 0.f;          // dbias of keys key_a, key_b
+    if (!live) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      db_a += __shfl_xor_sync(0xffffffffu, db_a, off);
-      db_b += __shfl_xor_sync(0xffffffffu, db_b, off);
+      for (int i = 0; i < NQ; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    } else {
+      const float sl2 = scale * kLog2e;
+      const float bias_a =
+          (brow != nullptr && key_a < T) ? brow[key_a] * kLog2e : 0.f;
+      const float bias_b =
+          (brow != nullptr && key_b < T) ? brow[key_b] * kLog2e : 0.f;
+      const unsigned ks = base + wg * Tile::kTile,
+                     vs = base + (kConsumers + wg) * Tile::kTile;
+      // S^T and dP^T are the products' alone; P^T, then dS^T, are taken
+      // into p
+      float s[NS], dp[NS], p[NS];
+      unsigned pa[R / 16][4], da[R / 16][4];
+      // S^T = K Q^T and dP^T = V dO^T of query stage i, two commit groups
+      auto issue = [&](int i) {
+        const int it = i - t0, slot = it % S;
+        const unsigned qs = base + Tile::kRing + slot * Tile::kStage;
+        mbar_wait(full + 8 * slot, (it / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wg_ss<E, R>(s, P::template k<kBlock>(ks, kk),
+                      P::template k<R>(qs, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wg_ss<E, R>(dp, P::template k<kBlock>(vs, kk),
+                      P::template k<R>(qs + Tile::kQo, kk), kk > 0);
+        wgmma_commit();
+      };
+      mbar_wait(kvbar, 0);
+      if (wg == 1) turn_pass(1);        // warpgroup 0 issues first
+      turn_wait(wg);
+      issue(t0);
+      turn_pass(wg);
+      for (int i = t0; i < n_q; ++i) {
+        const int it = i - t0, slot = it % S, r0 = i * R;
+        const unsigned qs = base + Tile::kRing + slot * Tile::kStage;
+        const float* Ls = stats + slot * 2 * R;
+        const float* Dl = Ls + R;
+        // S^T of stage i has landed, and stage i - 1's dV and dK products
+        // are done: its Q and dO go back to the producer
+        wgmma_wait<1>();
+        fence_all<NS>(s);
+        fence_all<R / 16>(pa);
+        fence_all<R / 16>(da);
+        if (it > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+        // P^T = exp(S^T * scale + bias - lse), while dP^T runs; a stage
+        // that reaches past T, or a warpgroup whose keys do, or one that
+        // crosses the causal diagonal, masks its scores one by one (to
+        // -1e30: p = 0), without a branch
+        if (r0 + R <= T && key_hi < T && (!causal || r0 >= key_hi)) {
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float l = Ls[8 * j + 2 * t + e];
+              p[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, bias_a - l));
+              p[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], sl2, bias_b - l));
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1), query = r0 + col;
+              const bool lo = e < 2;
+              const int key = lo ? key_a : key_b;
+              const bool dead =
+                  key >= T || query >= T || (causal && key > query);
+              const float x =
+                  fmaf(s[4 * j + e], sl2, (lo ? bias_a : bias_b) - Ls[col]);
+              p[4 * j + e] = ex2(dead ? kNegInf : x);
+            }
+        }
+        wgmma_wait<0>();
+        fence_all<NS>(dp);
+        // P^T rounded to E into the A fragments of dV += P^T dO; then dS^T
+        // = P^T * (dP^T - delta) * scale into those of dK += dS^T Q (dO and
+        // Q read MN-major); dbias sums the unscaled, unrounded dS over the
+        // queries in fp32
+#pragma unroll
+        for (int kp = 0; kp < R / 16; ++kp)
+          pack_a<E>(pa[kp], p + 8 * kp, p + 8 * kp + 4);
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const float ds = p[4 * j + e] * (dp[4 * j + e] - Dl[col]);
+            if (kDbias) {
+              if (e < 2) db_a += ds;
+              else db_b += ds;
+            }
+            p[4 * j + e] = ds * scale;
+          }
+#pragma unroll
+        for (int kp = 0; kp < R / 16; ++kp)
+          pack_a<E>(da[kp], p + 8 * kp, p + 8 * kp + 4);
+        turn_wait(wg);
+        wgmma_fence();
+#pragma unroll
+        for (int kp = 0; kp < R / 16; ++kp)
+          wg_rs<E, D>(dv_acc, pa[kp], P::template mn<R>(qs + Tile::kQo, kp),
+                      it + kp > 0);
+#pragma unroll
+        for (int kp = 0; kp < R / 16; ++kp)
+          wg_rs<E, D>(dk_acc, da[kp], P::template mn<R>(qs, kp),
+                      it + kp > 0);
+        wgmma_commit();
+        if (i + 1 < n_q) issue(i + 1);
+        if (wg == 0 || i + 1 < n_q) turn_pass(wg);
+      }
+      wgmma_wait<0>();
+      fence_all<NQ>(dk_acc);
+      fence_all<NQ>(dv_acc);
+      fence_all<R / 16>(pa);
+      fence_all<R / 16>(da);
     }
-    if (t == 0) {
-      if (key_a < T) dbias[bh * T + key_a] = db_a;
-      if (key_b < T) dbias[bh * T + key_b] = db_b;
+
+    if (kDbias) {
+      // the four threads of a quad hold the same two keys; a masked key's
+      // p is 0 for every query, so its dbias is exactly 0
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        db_a += __shfl_xor_sync(0xffffffffu, db_a, off);
+        db_b += __shfl_xor_sync(0xffffffffu, db_b, off);
+      }
+      if (t == 0) {
+        if (key_a < T) dbias[rbase + key_a] = db_a;
+        if (key_b < T) dbias[rbase + key_b] = db_b;
+      }
     }
-  }
 
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (key_a < T) {
-      const long long o = base + (long long)key_a * D + col;
-      *reinterpret_cast<unsigned*>(dk + o) =
-          pack16<E>(dk_acc[n][0], dk_acc[n][1]);
-      *reinterpret_cast<unsigned*>(dv + o) =
-          pack16<E>(dv_acc[n][0], dv_acc[n][1]);
-    }
-    if (key_b < T) {
-      const long long o = base + (long long)key_b * D + col;
-      *reinterpret_cast<unsigned*>(dk + o) =
-          pack16<E>(dk_acc[n][2], dk_acc[n][3]);
-      *reinterpret_cast<unsigned*>(dv + o) =
-          pack16<E>(dv_acc[n][2], dv_acc[n][3]);
+    for (int n = 0; n < NQ / 4; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (key_a < T) {
+        const long long o = (rbase + key_a) * D + col;
+        *reinterpret_cast<unsigned*>(dk + o) =
+            pack16<E>(dk_acc[4 * n], dk_acc[4 * n + 1]);
+        *reinterpret_cast<unsigned*>(dv + o) =
+            pack16<E>(dv_acc[4 * n], dv_acc[4 * n + 1]);
+      }
+      if (key_b < T) {
+        const long long o = (rbase + key_b) * D + col;
+        *reinterpret_cast<unsigned*>(dk + o) =
+            pack16<E>(dk_acc[4 * n + 2], dk_acc[4 * n + 3]);
+        *reinterpret_cast<unsigned*>(dv + o) =
+            pack16<E>(dv_acc[4 * n + 2], dv_acc[4 * n + 3]);
+      }
     }
   }
 }
 
+// The descriptors' own check: one 64 x D tile of q and of k (E) through
+// the kernels' maps, panels and products: s = q k^T (64 x 64, both K-major
+// from shared memory, as S = Q K^T) and o = p k (64 x D, p rounded to E
+// from registers and k read MN-major, as dQ += dS K), fp32 row-major out.
 template <typename E, int D>
-int launch_dq_b16(const E* q, const E* k, const E* v, const E* dout,
-                  const float* lse, const float* delta, const float* bias,
-                  E* dq, int bh, int T, float scale, int causal, int device,
-                  cudaStream_t stream) {
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_probe_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const float* __restrict__ p,
+                             float* __restrict__ s_out,
+                             float* __restrict__ o_out) {
+  using P = Pan<D>;
+  constexpr int kTile = kBlock * D * kB16Bytes;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned bar = base + 2 * kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = 16 * warp + g, row_b = row_a + 8;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 2 * kTile);
+    P::template load<kBlock>(base, &map_q, bar, 0, 0);
+    P::template load<kBlock>(base + kTile, &map_k, bar, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float s[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wg_ss<E, 64>(s, P::template k<kBlock>(base, kk),
+                 P::template k<kBlock>(base + kTile, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_all<32>(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s_out[(e < 2 ? row_a : row_b) * 64 + 8 * j + 2 * t + (e & 1)] =
+          s[4 * j + e];
+  // the accumulator layout of p, packed as dS is
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * j + e] = p[(e < 2 ? row_a : row_b) * 64 + 8 * j + 2 * t + (e & 1)];
+  unsigned a[4][4];
+#pragma unroll
+  for (int kp = 0; kp < 4; ++kp) pack_a<E>(a[kp], s + 8 * kp, s + 8 * kp + 4);
+  float o[D / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kp = 0; kp < 4; ++kp)
+    wg_rs<E, D>(o, a[kp], P::template mn<kBlock>(base + kTile, kp), kp > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_all<D / 2>(o);
+  fence_all<4>(a);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_out[(e < 2 ? row_a : row_b) * D + 8 * n + 2 * t + (e & 1)] =
+          o[4 * n + e];
+}
+
+template <typename E, int D>
+int launch_dq_wg(const E* q, const E* k, const E* v, const E* dout,
+                 const E* out, const float* lse, const float* bias, E* dq,
+                 float* delta, int bh, int T, float scale, int causal,
+                 int device, cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
   const cudaError_t e =
-      allow_smem(flash_bwd_dq_b16_kernel<E, D>, device, done);
+      allow_smem(flash_bwd_dq_wg_kernel<E, D>, device, done);
   if (e != cudaSuccess) return (int)e;
-  constexpr int KT = BwdTileB<D>::kKeys;
-  const size_t bytes =
-      BwdTileB<D>::kDqBytes + sizeof(int) * ((T + KT - 1) / KT + 1);
-  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dq_b16_kernel<E, D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, dout, lse, delta, bias, dq, T, scale, causal);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!map16<E, D>(encode, &mq, q, T, bh, kBlock) ||
+      !map16<E, D>(encode, &mk, k, T, bh, kKeysDq) ||
+      !map16<E, D>(encode, &mv, v, T, bh, kKeysDq) ||
+      !map16<E, D>(encode, &mdo, dout, T, bh, kBlock))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = DqTile<D>::kBytes +
+                       sizeof(int) * ((T + kKeysDq - 1) / kKeysDq + 1);
+  const dim3 grid((unsigned)((T + kRowsBlock - 1) / kRowsBlock),
+                  (unsigned)bh);
+  flash_bwd_dq_wg_kernel<E, D><<<grid, kWgThreads, bytes, stream>>>(
+      mq, mk, mv, mdo, dout, out, lse, bias, dq, delta, T, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename E, int D, bool kDbias>
-int launch_dkv_b16_kernel(const E* q, const E* k, const E* v, const E* dout,
-                          const float* lse, const float* delta,
-                          const float* bias, E* dk, E* dv, float* dbias,
-                          int bh, int T, float scale, int causal, int device,
-                          cudaStream_t stream) {
+int launch_dkv_wg_kernel(const E* q, const E* k, const E* v, const E* dout,
+                         const float* lse, const float* delta,
+                         const float* bias, E* dk, E* dv, float* dbias,
+                         int bh, int T, float scale, int causal, int device,
+                         cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
   const cudaError_t e =
-      allow_smem(flash_bwd_dkv_b16_kernel<E, D, kDbias>, device, done);
+      allow_smem(flash_bwd_dkv_wg_kernel<E, D, kDbias>, device, done);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((T + kBlock - 1) / kBlock), (unsigned)bh);
-  flash_bwd_dkv_b16_kernel<E, D, kDbias>
-      <<<grid, kThreads, BwdTileB<D>::kDkvBytes, stream>>>(
-          q, k, v, dout, lse, delta, bias, dk, dv, dbias, T, scale, causal);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  constexpr int R = DkvTile<D>::kRows;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!map16<E, D>(encode, &mq, q, T, bh, R) ||
+      !map16<E, D>(encode, &mk, k, T, bh, kBlock) ||
+      !map16<E, D>(encode, &mv, v, T, bh, kBlock) ||
+      !map16<E, D>(encode, &mdo, dout, T, bh, R))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((T + kRowsBlock - 1) / kRowsBlock),
+                  (unsigned)bh);
+  flash_bwd_dkv_wg_kernel<E, D, kDbias>
+      <<<grid, kWgThreads, DkvTile<D>::kBytes, stream>>>(
+          mq, mk, mv, mdo, lse, delta, bias, dk, dv, dbias, T, scale,
+          causal);
   return (int)cudaGetLastError();
 }
 
 // The dK/dV launch, with the has_dbias instantiation for a dbias output
 template <typename E, int D>
-int launch_dkv_b16(const E* q, const E* k, const E* v, const E* dout,
-                   const float* lse, const float* delta, const float* bias,
-                   E* dk, E* dv, float* dbias, int bh, int T, float scale,
-                   int causal, int device, cudaStream_t stream) {
+int launch_dkv_wg(const E* q, const E* k, const E* v, const E* dout,
+                  const float* lse, const float* delta, const float* bias,
+                  E* dk, E* dv, float* dbias, int bh, int T, float scale,
+                  int causal, int device, cudaStream_t stream) {
   if (dbias != nullptr)
-    return launch_dkv_b16_kernel<E, D, true>(q, k, v, dout, lse, delta, bias,
-                                             dk, dv, dbias, bh, T, scale,
-                                             causal, device, stream);
-  return launch_dkv_b16_kernel<E, D, false>(q, k, v, dout, lse, delta, bias,
-                                            dk, dv, nullptr, bh, T, scale,
+    return launch_dkv_wg_kernel<E, D, true>(q, k, v, dout, lse, delta, bias,
+                                            dk, dv, dbias, bh, T, scale,
                                             causal, device, stream);
+  return launch_dkv_wg_kernel<E, D, false>(q, k, v, dout, lse, delta, bias,
+                                           dk, dv, nullptr, bh, T, scale,
+                                           causal, device, stream);
 }
 
-// The 16-bit entries' bodies: q, k, v, dout, dq, dk, dv (bh, T, D)
+template <typename E, int D>
+int launch_probe(const void* q, const void* k, const float* p, float* s,
+                 float* o, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mk;
+  if (!map16<E, D>(encode, &mq, q, kBlock, 1, kBlock) ||
+      !map16<E, D>(encode, &mk, k, kBlock, 1, kBlock))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = 2 * kBlock * D * kB16Bytes + 8 + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_probe_kernel<E, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_probe_kernel<E, D><<<1, 128, bytes, stream>>>(mq, mk, p, s,
+                                                                o);
+  return (int)cudaGetLastError();
+}
+
+// The 16-bit entries' bodies: q, k, v, dout, out, dq, dk, dv (bh, T, D)
 // contiguous E, 16-byte aligned; D is 32, 64 or 128.
 template <typename E>
 int dq16(const void* q, const void* k, const void* v, const void* dout,
-         const float* lse, const float* delta, const float* bias, void* dq,
-         int bh, int T, int D, float scale, int causal, int device,
-         void* stream_ptr) {
+         const void* out, const float* lse, const float* bias, void* dq,
+         float* delta, int bh, int T, int D, float scale, int causal,
+         int device, void* stream_ptr) {
   const int rc = check_args(bh, T, device);
   if (rc != 0) return rc;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const E *qe = static_cast<const E*>(q), *ke = static_cast<const E*>(k),
-          *ve = static_cast<const E*>(v), *oe = static_cast<const E*>(dout);
+          *ve = static_cast<const E*>(v), *de = static_cast<const E*>(dout),
+          *oe = static_cast<const E*>(out);
   E* dqe = static_cast<E*>(dq);
   switch (D) {
     case 32:
-      return launch_dq_b16<E, 32>(qe, ke, ve, oe, lse, delta, bias, dqe, bh,
-                                  T, scale, causal, device, stream);
+      return launch_dq_wg<E, 32>(qe, ke, ve, de, oe, lse, bias, dqe, delta,
+                                 bh, T, scale, causal, device, stream);
     case 64:
-      return launch_dq_b16<E, 64>(qe, ke, ve, oe, lse, delta, bias, dqe, bh,
-                                  T, scale, causal, device, stream);
+      return launch_dq_wg<E, 64>(qe, ke, ve, de, oe, lse, bias, dqe, delta,
+                                 bh, T, scale, causal, device, stream);
     case 128:
-      return launch_dq_b16<E, 128>(qe, ke, ve, oe, lse, delta, bias, dqe,
-                                   bh, T, scale, causal, device, stream);
+      return launch_dq_wg<E, 128>(qe, ke, ve, de, oe, lse, bias, dqe, delta,
+                                  bh, T, scale, causal, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -989,17 +1728,35 @@ int dkv16(const void* q, const void* k, const void* v, const void* dout,
   E *dke = static_cast<E*>(dk), *dve = static_cast<E*>(dv);
   switch (D) {
     case 32:
-      return launch_dkv_b16<E, 32>(qe, ke, ve, oe, lse, delta, bias, dke,
-                                   dve, dbias, bh, T, scale, causal, device,
-                                   stream);
+      return launch_dkv_wg<E, 32>(qe, ke, ve, oe, lse, delta, bias, dke, dve,
+                                  dbias, bh, T, scale, causal, device,
+                                  stream);
     case 64:
-      return launch_dkv_b16<E, 64>(qe, ke, ve, oe, lse, delta, bias, dke,
+      return launch_dkv_wg<E, 64>(qe, ke, ve, oe, lse, delta, bias, dke, dve,
+                                  dbias, bh, T, scale, causal, device,
+                                  stream);
+    case 128:
+      return launch_dkv_wg<E, 128>(qe, ke, ve, oe, lse, delta, bias, dke,
                                    dve, dbias, bh, T, scale, causal, device,
                                    stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+int probe16(const void* q, const void* k, const float* p, float* s, float* o,
+            int D, int device, void* stream_ptr) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (D) {
+    case 32:
+      return launch_probe<E, 32>(q, k, p, s, o, stream);
+    case 64:
+      return launch_probe<E, 64>(q, k, p, s, o, stream);
     case 128:
-      return launch_dkv_b16<E, 128>(qe, ke, ve, oe, lse, delta, bias, dke,
-                                    dve, dbias, bh, T, scale, causal, device,
-                                    stream);
+      return launch_probe<E, 128>(q, k, p, s, o, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1059,16 +1816,18 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_f32(
   }
 }
 
-// The 16-bit flavours: q, k, v, dout, dq, dk, dv (bh, T, D) contiguous bf16
-// (or fp16), 16-byte aligned; lse, delta, bias and dbias as above (fp32;
-// dbias null for none). D is 32, 64 or 128.
+// The 16-bit flavours: q, k, v, dout, out, dq, dk, dv (bh, T, D) contiguous
+// bf16 (or fp16), 16-byte aligned; lse, bias and dbias as above (fp32; dbias
+// null for none). The dQ entries read out (the forward's output) in place
+// of delta and write delta = rowsum(dO * O), (bh, T) fp32, beside dq; the
+// dK/dV entries read that delta. D is 32, 64 or 128.
 extern "C" int mxtpu_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, const float* bias, void* dq,
-    int bh, int T, int D, float scale, int causal, int device,
+    const void* out, const float* lse, const float* bias, void* dq,
+    float* delta, int bh, int T, int D, float scale, int causal, int device,
     void* stream_ptr) {
-  return dq16<bf16>(q, k, v, dout, lse, delta, bias, dq, bh, T, D, scale,
-                    causal, device, stream_ptr);
+  return dq16<bf16>(q, k, v, dout, out, lse, bias, dq, delta, bh, T, D,
+                    scale, causal, device, stream_ptr);
 }
 
 extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
@@ -1082,10 +1841,10 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_bf16(
 
 extern "C" int mxtpu_flash_attention_bwd_dq_f16(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, const float* bias, void* dq,
-    int bh, int T, int D, float scale, int causal, int device,
+    const void* out, const float* lse, const float* bias, void* dq,
+    float* delta, int bh, int T, int D, float scale, int causal, int device,
     void* stream_ptr) {
-  return dq16<f16>(q, k, v, dout, lse, delta, bias, dq, bh, T, D, scale,
+  return dq16<f16>(q, k, v, dout, out, lse, bias, dq, delta, bh, T, D, scale,
                    causal, device, stream_ptr);
 }
 
@@ -1096,4 +1855,18 @@ extern "C" int mxtpu_flash_attention_bwd_dkv_f16(
     int device, void* stream_ptr) {
   return dkv16<f16>(q, k, v, dout, lse, delta, bias, dk, dv, dbias, bh, T,
                     D, scale, causal, device, stream_ptr);
+}
+
+// The descriptors' check (flash_bwd_dq_probe_kernel): q, k (64, D)
+// contiguous bf16 (dtype 0) or fp16 (dtype 1), 16-byte aligned; p (64, 64)
+// fp32; s (64, 64) = q k^T and o (64, D) = p k, fp32 outputs.
+extern "C" int mxtpu_flash_bwd_wgmma_probe(const void* q, const void* k,
+                                           const float* p, float* s,
+                                           float* o, int D, int dtype,
+                                           int device, void* stream_ptr) {
+  if (dtype == 0)
+    return probe16<bf16>(q, k, p, s, o, D, device, stream_ptr);
+  if (dtype == 1)
+    return probe16<f16>(q, k, p, s, o, D, device, stream_ptr);
+  return (int)cudaErrorInvalidValue;
 }

@@ -67,6 +67,8 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+#include "hopper.cuh"
+
 // 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes instead.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -371,74 +373,6 @@ constexpr int kStageBytes = kABytes + kBN * kBK;  // + 32 KB of W
 // align the base to the 1024 bytes of a 128-byte swizzle atom
 constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of `bar` with parity `parity` has completed. A wait
-// that outlasts 2^25 polls (far beyond any load's latency) traps, so that a
-// broken pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned polls = 0; !done; ++polls) {
-    if (polls == (1u << 25)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of `map` at (k, row) -> shared memory at dst; its bytes count
-// against `bar`'s transaction.
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
-                                         unsigned bar, int k, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(k),
-      "r"(row)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile written by TMA with the
-// 128-byte swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across wgmma
-__device__ __forceinline__ void fence_operand(int& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
 // d (64 x 256 s32, the wgmma accumulator fragment) += A (64 x 32 s8, from
 // desc_a) x B (256 x 32 s8, from desc_b)^T: both operands K-major.
 __device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t desc_a,
@@ -588,32 +522,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: the library
-// is linked without -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // (rows, K) int8 row-major at `ptr`, read in boxes of 128 bytes x box_rows

@@ -63,17 +63,22 @@ _SIGNATURES = {
     # null for none)
     "mxtpu_flash_attention_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _F, _I, _I, _P),
-    "mxtpu_flash_attention_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _F, _I, _I, _P),
+    # the 16-bit dQ entries read out and write delta: q, k, v, dout, out,
+    # lse, bias, dq, delta, bh, T, D, scale, causal, device, stream
+    "mxtpu_flash_attention_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _F, _I, _I, _P),
     "mxtpu_flash_attention_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
                                            _P, _P, _I, _I, _I, _F, _I, _I,
                                            _P),
     "mxtpu_flash_attention_fwd_f16": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _F, _I, _I, _P),
-    "mxtpu_flash_attention_bwd_dq_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _F, _I, _I, _P),
+    "mxtpu_flash_attention_bwd_dq_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _F, _I, _I, _P),
     "mxtpu_flash_attention_bwd_dkv_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, p, s, o, D, dtype (0 bf16, 1 fp16), device, stream: one wgmma
+    # tile through the 16-bit backward's descriptors (a card test's probe)
+    "mxtpu_flash_bwd_wgmma_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # table, n_tensors, n_chunks, lr, wd, b1, b2, 1 - b1, 1 - b2, 1 - b1^t,
     # 1 - b2^t, eps, lr * wd, adamw, device, stream
     "mxtpu_trainer_adam_f32": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,

@@ -28,8 +28,10 @@ by dtype; the bf16 kernels count on ``flash_attention_fwd_bf16``,
 a learned bias's cotangent, ``flash_attention_bwd_dkv_dbias_bf16``; the fp16
 ones on ``flash_attention_fwd_f16``, ``flash_attention_bwd_dq_f16``,
 ``flash_attention_bwd_dkv_f16`` and ``flash_attention_bwd_dkv_dbias_f16``.
-A 16-bit CUDA tensor launches them or raises (no cast to fp32). The plain
-versions round
+A 16-bit CUDA tensor launches them or raises (no cast to fp32). The 16-bit
+dQ kernels take the forward's ``out`` where the fp32 one takes delta =
+rowsum(dO * O): they compute delta for their own rows and return ``(dq,
+delta)``, and the dK/dV kernels read that delta. The plain versions round
 where the TPU kernels round: p to the input dtype before P V and dS before
 dS K and dS^T Q (a no-op for fp32), with every product taken in fp32 from
 the rounded values; dbias stays the fp32 sum of the unrounded, unscaled dS.
@@ -264,21 +266,32 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, bias=None,
     return grads
 
 
-def _check_bwd_cuda(q, k, v, do, lse, delta, bias, dtype):
+def _check_bwd_cuda(q, k, v, do, lse, delta, bias, dtype, out=None):
+    """A backward kernel's inputs: q, k, v and the bias as the forward's,
+    ``do`` (and ``out``, for the 16-bit dQ kernels, which take it in
+    delta's place: pass ``delta=None``) of q's dtype and shape, lse (and
+    delta) contiguous float32 (BH, T), all on one CUDA device. A missing
+    tensor is refused as a wrong one is."""
     _check_cuda(q, k, v, bias, dtype)
     bh, T, _D = q.shape
-    if do.device != q.device or do.dtype != q.dtype \
-            or do.shape != q.shape or not do.is_contiguous() \
-            or do.data_ptr() % 16:
-        raise ValueError("flash_attention backward: do must be a contiguous, "
-                         "16-byte aligned %s %s tensor on %s"
-                         % (q.dtype, tuple(q.shape), q.device))
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.device != q.device or t.dtype != torch.float32 \
+    for name, t in (("do", do),) + ((("out", out),) if delta is None
+                                    else ()):
+        if t is None or t.device != q.device or t.dtype != q.dtype \
+                or t.shape != q.shape or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("flash_attention backward: %s must be a "
+                             "contiguous, 16-byte aligned %s %s tensor on %s"
+                             % (name, q.dtype, tuple(q.shape), q.device))
+    for name, t in (("lse", lse),) + ((("delta", delta),) if delta is not None
+                                      else ()):
+        if t is None or t.device != q.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != (bh, T) or not t.is_contiguous():
             raise ValueError("flash_attention backward: %s must be a "
                              "contiguous float32 (%d, %d) tensor on %s"
                              % (name, bh, T, q.device))
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention backward: the kernels take CUDA "
+                         "tensors, got %s" % q.device)
 
 
 def _stream(t):
@@ -353,58 +366,64 @@ flash_attention_bwd_dkv_dbias.launches = 0
 
 
 def _backward_cost(bh, T, D, bias, causal, n_prod, n_out, elem_bytes,
-                   dbias=False):
+                   dbias=False, reads_out=False):
     """(flops, bytes) of one backward launch: ``n_prod`` T x T x D products
     over every key (half under a causal mask); q, k, v and do read, lse and
     delta (and the bias) read, ``n_out`` (BH, T, D) outputs written, and
-    the fp32 (BH, T) dbias with ``dbias``."""
+    the fp32 (BH, T) dbias with ``dbias``. With ``reads_out`` (the 16-bit
+    dQ kernels) the forward's out is read too, and delta is written rather
+    than read: the same (BH, T) floats."""
     flops = 2.0 * n_prod * bh * T * T * D / (2 if causal else 1)
-    nbytes = ((4 + n_out) * bh * T * D * elem_bytes
+    nbytes = ((4 + n_out + bool(reads_out)) * bh * T * D * elem_bytes
               + (2 + (bias is not None) + bool(dbias)) * bh * T * 4)
     return flops, float(nbytes)
 
 
-def _dq16(wrapper, dtype, q, k, v, do, lse, delta, bias, scale, causal):
-    """One launch of a 16-bit dQ kernel, counted on ``wrapper``."""
-    _check_bwd_cuda(q, k, v, do, lse, delta, bias, dtype)
+def _dq16(wrapper, dtype, q, k, v, do, out, lse, bias, scale, causal):
+    """One launch of a 16-bit dQ kernel, counted on ``wrapper``. Returns
+    ``(dq, delta)``."""
+    _check_bwd_cuda(q, k, v, do, lse, None, bias, dtype, out)
     bh, T, D = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((bh, T), dtype=torch.float32, device=q.device)
     if bh == 0 or T == 0:
-        return dq
+        return dq, delta
     rc = getattr(_build.library(),
                  "mxtpu_flash_attention_bwd_dq_" + _SUFFIX[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
         None if bias is None else bias.data_ptr(), dq.data_ptr(),
-        bh, T, D, float(scale), int(bool(causal)), q.device.index,
-        _stream(q))
+        delta.data_ptr(), bh, T, D, float(scale), int(bool(causal)),
+        q.device.index, _stream(q))
     _build.check(rc, wrapper.__name__)
     _build.count_launch(wrapper,
                         lambda: _backward_cost(bh, T, D, bias, causal, 3, 1,
-                                               2))
-    return dq
+                                               2, reads_out=True))
+    return dq, delta
 
 
-def flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, bias, scale,
+def flash_attention_bwd_dq_bf16(q, k, v, do, out, lse, bias, scale,
                                 causal):
-    """The bf16 dQ kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v, do;
-    fp32 (BH, T) lse, delta = rowsum(dO * O) in fp32, and bias or None.
-    Returns dq (bf16)."""
+    """The bf16 dQ kernel on CUDA tensors: (BH, T, D) bfloat16 q, k, v, do
+    and the forward's out; fp32 (BH, T) lse, and bias or None. Returns
+    ``(dq, delta)``: dq bf16, and delta = rowsum(dO * O) in fp32, (BH, T),
+    which the kernel takes for its own rows and the dK/dV kernel reads."""
     return _dq16(flash_attention_bwd_dq_bf16, torch.bfloat16, q, k, v, do,
-                 lse, delta, bias, scale, causal)
+                 out, lse, bias, scale, causal)
 
 
 flash_attention_bwd_dq_bf16.launches = 0
 
 
-def flash_attention_bwd_dq_f16(q, k, v, do, lse, delta, bias, scale,
+def flash_attention_bwd_dq_f16(q, k, v, do, out, lse, bias, scale,
                                causal):
-    """The fp16 dQ kernel on CUDA tensors: (BH, T, D) float16 q, k, v, do
-    (a scaled dO under dynamic loss scaling); fp32 (BH, T) lse, delta =
-    rowsum(dO * O) in fp32, and bias or None. Returns dq (fp16; inf where a
-    scaled dS or sum overflows)."""
+    """The fp16 dQ kernel on CUDA tensors: (BH, T, D) float16 q, k, v, do (a
+    scaled dO under dynamic loss scaling) and the forward's out; fp32 (BH,
+    T) lse, and bias or None. Returns ``(dq, delta)``: dq fp16 (inf where a
+    scaled dS or sum overflows), and delta = rowsum(dO * O) in fp32, (BH,
+    T)."""
     return _dq16(flash_attention_bwd_dq_f16, torch.float16, q, k, v, do,
-                 lse, delta, bias, scale, causal)
+                 out, lse, bias, scale, causal)
 
 
 flash_attention_bwd_dq_f16.launches = 0
@@ -436,8 +455,9 @@ def _dkv16(wrapper, dtype, q, k, v, do, lse, delta, bias, scale, causal,
 
 def flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, bias, scale,
                                  causal):
-    """The bf16 dK/dV kernel (without dbias) on CUDA tensors, with the bf16
-    dQ kernel's arguments. Returns ``(dk, dv)`` (bf16)."""
+    """The bf16 dK/dV kernel (without dbias) on CUDA tensors: (BH, T, D)
+    bfloat16 q, k, v, do; fp32 (BH, T) lse, delta (the bf16 dQ kernel's),
+    and bias or None. Returns ``(dk, dv)`` (bf16)."""
     return _dkv16(flash_attention_bwd_dkv_bf16, torch.bfloat16, q, k, v, do,
                   lse, delta, bias, scale, causal, False)
 
@@ -448,7 +468,7 @@ flash_attention_bwd_dkv_bf16.launches = 0
 def flash_attention_bwd_dkv_dbias_bf16(q, k, v, do, lse, delta, bias, scale,
                                        causal):
     """The bf16 dK/dV kernel with the per-key bias's cotangent (the TPU
-    kernel's ``has_dbias`` variant on bf16 inputs), with the bf16 dQ
+    kernel's ``has_dbias`` variant on bf16 inputs), with the bf16 dK/dV
     kernel's arguments. Returns ``(dk, dv, dbias)``: dk and dv bf16 from dS
     rounded to bf16, dbias (BH, T) fp32, the sum over query rows of the
     unrounded, unscaled dS."""
@@ -461,8 +481,9 @@ flash_attention_bwd_dkv_dbias_bf16.launches = 0
 
 def flash_attention_bwd_dkv_f16(q, k, v, do, lse, delta, bias, scale,
                                 causal):
-    """The fp16 dK/dV kernel (without dbias) on CUDA tensors, with the fp16
-    dQ kernel's arguments. Returns ``(dk, dv)`` (fp16)."""
+    """The fp16 dK/dV kernel (without dbias) on CUDA tensors: (BH, T, D)
+    float16 q, k, v, do; fp32 (BH, T) lse, delta (the fp16 dQ kernel's), and
+    bias or None. Returns ``(dk, dv)`` (fp16)."""
     return _dkv16(flash_attention_bwd_dkv_f16, torch.float16, q, k, v, do,
                   lse, delta, bias, scale, causal, False)
 
@@ -473,7 +494,7 @@ flash_attention_bwd_dkv_f16.launches = 0
 def flash_attention_bwd_dkv_dbias_f16(q, k, v, do, lse, delta, bias, scale,
                                       causal):
     """The fp16 dK/dV kernel with the per-key bias's cotangent (the TPU
-    kernel's ``has_dbias`` variant on fp16 inputs), with the fp16 dQ
+    kernel's ``has_dbias`` variant on fp16 inputs), with the fp16 dK/dV
     kernel's arguments. Returns ``(dk, dv, dbias)``: dk and dv fp16 from dS
     rounded to fp16 (inf where a scaled dS overflows), dbias (BH, T) fp32,
     the sum over query rows of the unrounded, unscaled dS."""
@@ -512,10 +533,9 @@ def flash_attention_backward(q, k, v, out, lse, do, bias=None, scale=None,
         dq_fn, dkv_fn, dbias_fn = _HALF_BWD[q.dtype]
         if needs_dbias:
             dkv_fn = dbias_fn
-        # delta = rowsum(dO * O) in fp32 from the 16-bit tensors, as
-        # _bwd_call takes it
-        delta = (do.float() * out.float()).sum(dim=-1)
-        dq = dq_fn(q, k, v, do, lse, delta, bias, scale, causal)
+        # the dQ kernel takes delta = rowsum(dO * O) in fp32 from the
+        # 16-bit tensors, as _bwd_call does, and hands it to dK/dV
+        dq, delta = dq_fn(q, k, v, do, out, lse, bias, scale, causal)
         return (dq,) + dkv_fn(q, k, v, do, lse, delta, bias, scale, causal)
     # delta = rowsum(dO * O): one reduction, as in the TPU kernel's caller
     delta = (do * out).sum(dim=-1)

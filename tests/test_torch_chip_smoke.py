@@ -704,7 +704,33 @@ def test_kernel_class_gives_the_bf16_flavours_classes_of_their_own(name,
      "__nv_bfloat16, __nv_bfloat16>(__nv_bfloat16 const*)",
      "flash_decode_bf16"),
     ("void (anonymous namespace)::flash_decode_kernel<64, 8, float, "
-     "float>(float const*)", "flash_decode")])
+     "float>(float const*)", "flash_decode"),
+    # the 16-bit backward on wgmma and TMA: its maps come first in the
+    # argument list, its element type in the template arguments
+    ("void (anonymous namespace)::flash_bwd_dq_wg_kernel<__nv_bfloat16, "
+     "64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*)",
+     "flash_attention_bwd_dq_bf16"),
+    ("void (anonymous namespace)::flash_bwd_dq_wg_kernel<__half, 128>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__half const*, __half const*, float const*)",
+     "flash_attention_bwd_dq_f16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wg_kernel<__nv_bfloat16, "
+     "64, false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float const*)",
+     "flash_attention_bwd_dkv_bf16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wg_kernel<__nv_bfloat16, "
+     "64, true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float const*)",
+     "flash_attention_bwd_dkv_bf16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wg_kernel<__half, 32, "
+     "false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float const*)",
+     "flash_attention_bwd_dkv_f16"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wg_kernel<__half, 64, "
+     "true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, float const*)",
+     "flash_attention_bwd_dkv_f16")])
 def test_kernel_class_gives_the_fp16_flavours_classes_of_their_own(name,
                                                                    cls):
     """The 16-bit flash kernels are one template over the element type:

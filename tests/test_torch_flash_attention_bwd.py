@@ -500,3 +500,91 @@ def test_fp16_overflow_in_the_cotangent_reaches_every_gradient():
             assert got_ok == want_ok == finite, (name, scale, got_ok,
                                                  want_ok)
             assert not (leaf.grad.float().abs() == 65504.0).any(), name
+
+
+# ------------------------------------------ the 16-bit dQ kernels' contract
+_HALF_DQ = {torch.bfloat16: "flash_attention_bwd_dq_bf16",
+            torch.float16: "flash_attention_bwd_dq_f16"}
+
+
+def _dq_args(dtype, BH=2, T=16, D=64):
+    """(q, k, v, do, out, lse, bias, scale, causal) on the CPU, the 16-bit
+    dQ wrappers' arguments."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do, out = (torch.randn(BH, T, D, generator=gen).to(dtype)
+                        for _ in range(5))
+    return [q, k, v, do, out, torch.zeros(BH, T), None, 0.125, False]
+
+
+@pytest.mark.parametrize("dtype", sorted(_HALF_DQ, key=str))
+def test_half_dq_wrappers_take_out_and_refuse_as_the_checks_do(dtype):
+    """The 16-bit dQ wrappers take (q, k, v, do, out, lse, bias, scale,
+    causal), out where the fp32 one takes delta, and return (dq, delta).
+    Before any kernel is reached they refuse what _check_bwd_cuda refuses,
+    with its errors: mixed dtypes (TypeError), an out that is missing or
+    not of q's dtype and shape (ValueError naming out), a do likewise, and
+    tensors that do not lie on a CUDA card (ValueError: no CPU mode)."""
+    fn = getattr(fa, _HALF_DQ[dtype])
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+    n0 = fn.launches
+
+    def refused(args):
+        with pytest.raises((TypeError, ValueError)) as got:
+            fn(*args)
+        return got
+
+    args = _dq_args(dtype)
+    mixed = list(args)
+    mixed[1] = mixed[1].to(other)
+    got = refused(mixed)
+    assert got.type is TypeError and "one dtype" in str(got.value)
+    for i, name in ((4, "out"), (3, "do")):
+        for bad in (None, args[i].to(other), args[i][:, :8]):
+            wrong = list(args)
+            wrong[i] = bad
+            got = refused(wrong)
+            assert got.type is ValueError
+            assert "%s must be a contiguous" % name in str(got.value)
+    got = refused(args)
+    assert got.type is ValueError and "CUDA" in str(got.value)
+    # the same inputs through the check itself give the same errors
+    q, k, v, do, out, lse, bias = args[:7]
+    with pytest.raises(ValueError, match="out must be a contiguous"):
+        fa._check_bwd_cuda(q, k, v, do, lse, None, bias, dtype, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._check_bwd_cuda(q, k, v, do, lse, None, bias, dtype, out)
+    assert fn.launches == n0
+
+
+def test_fp32_backward_wrappers_refuse_cpu_tensors_before_the_library():
+    """The fp32 dQ and dK/dV wrappers keep delta among their arguments and
+    refuse CPU tensors with the same error, before any build is tried."""
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn(2, 16, 64, generator=gen)
+    lse = torch.zeros(2, 16)
+    for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv,
+               flash_attention_bwd_dkv_dbias):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, q, lse, lse, None, 0.125, False)
+
+
+@pytest.mark.parametrize("bias", [None, "bias"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_cost_counts_the_dq_kernels_out_and_delta(bias, causal):
+    """_backward_cost's bytes for the 16-bit dQ kernels (reads_out): q, k,
+    v, do and the forward's out read and dq written (six (BH, T, D) 16-bit
+    tensors), lse read and delta written (two (BH, T) fp32 rows, the same
+    two the fp32 dQ kernel reads), the bias read where there is one; the
+    operations those of three T x T x D products, halved under a causal
+    mask. dK/dV's count is unchanged."""
+    BH, T, D = 96, 512, 64
+    b = None if bias is None else torch.zeros(BH, T)
+    flops, nbytes = fa._backward_cost(BH, T, D, b, causal, 3, 1, 2,
+                                      reads_out=True)
+    rows = 2 + (bias is not None)
+    assert nbytes == 6 * BH * T * D * 2 + rows * BH * T * 4
+    assert flops == 2.0 * 3 * BH * T * T * D / (2 if causal else 1)
+    old = fa._backward_cost(BH, T, D, b, causal, 3, 1, 2)
+    assert nbytes - old[1] == BH * T * D * 2 and flops == old[0]
+    dkv = fa._backward_cost(BH, T, D, b, causal, 4, 2, 2, True)
+    assert dkv[1] == 6 * BH * T * D * 2 + (rows + 1) * BH * T * 4

@@ -42,7 +42,11 @@ taken in other orders, and P and dS round at the same points but may land
 on neighbouring bf16 values), the lse within 1e-4, dead rows exactly 0.
 The bf16 dK/dV kernel's dbias variant holds dk and dv to the same rule and
 its fp32 dbias within 1e-4 of its largest of the float64 formulas on the
-same bf16 inputs. The bf16 decode kernel (bf16 q over bf16 or fp32 pools)
+same bf16 inputs. The 16-bit backward's shared-memory layouts are held
+on one wgmma tile to torch.matmul exactly (small integers, whose fp32 sums
+are exact in any order), and the dQ kernel's delta within 1e-6 of each
+row's sum of |dO * O| (the products are exact in fp32; the sums are taken
+in another order). The bf16 decode kernel (bf16 q over bf16 or fp32 pools)
 holds each element of o within a bf16 step (2**-7) of its own value plus
 1e-5 of the plain version's (both round o once from fp32 sums taken in
 other orders), m within 1e-5 and l within rtol 1e-5 (p stays fp32).
@@ -91,6 +95,11 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+#: the 16-bit dQ kernels, which also give delta = rowsum(dO * O)
+_DQ16 = {"bfloat16": flash_attention_bwd_dq_bf16,
+         "float16": flash_attention_bwd_dq_f16}
 
 
 def _ln_inputs(rows, C, device):
@@ -1427,19 +1436,69 @@ def _backward_against_fp64(cuda, q, k, v, do, bias, causal=False,
     return got, want
 
 
+#: the 16-bit backward's rule: 2 * one step of the dtype, of each
+#: gradient's largest magnitude (or 1/64 of the three's largest)
+_HALF_REL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+def _half_backward(q, k, v, do, bias, causal=False, dbias=False):
+    """The forward, then the 16-bit dQ and dK/dV kernels (with dbias when
+    asked) through flash_attention_backward, held to the plain version on
+    the same 16-bit inputs by the sweeps' rule (dq, dk, dv within 2 * a
+    step of the dtype of their largest magnitude, or of 1/64 of the three's
+    largest), dbias within 1e-4 of its largest or delta's of the float64
+    formulas. Returns the kernels' outputs and the plain version's."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = flash_attention_forward(q, k, v, bias, scale, causal)
+    got = flash_attention_backward(q, k, v, out, lse, do, bias, scale,
+                                   causal, needs_dbias=dbias)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
+                                              scale, causal,
+                                              needs_dbias=dbias)
+    top = max(w.float().abs().max().item() for w in want[:3])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and torch.isfinite(g.float()).all(), name
+        lim = 2 * _HALF_REL[q.dtype] * max(w.float().abs().max().item(),
+                                           top / 64)
+        assert (g.float() - w.float()).abs().max().item() <= lim, name
+    if dbias:
+        db64 = flash_attention_backward_reference(
+            q, k, v, out, lse, do, bias, scale, causal, needs_dbias=True,
+            compute_dtype=torch.float64)[3]
+        delta = (do.float() * out.float()).sum(dim=-1)
+        assert got[3].dtype == torch.float32
+        assert (got[3] - db64).abs().max().item() <= 1e-4 * max(
+            db64.abs().max().item(), delta.abs().max().item())
+    return got, want
+
+
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("T, D, causal", [(100, 32, False), (512, 64, True),
                                           (777, 128, False)])
-def test_flash_backward_two_calls_are_bitwise_equal(cuda, T, D, causal):
+def test_flash_backward_two_calls_are_bitwise_equal(cuda, T, D, causal,
+                                                    dtype):
     """No atomics, one block per output element: the same inputs give the
     same bits, dq, dk, dv and dbias alike, and the dbias variant's dk and dv
-    are the plain variant's."""
+    are the plain variant's; in fp32 (held to float64) and through the
+    16-bit kernels (held to the plain version on the same inputs)."""
     BH = 4
     gen = torch.Generator(device=cuda).manual_seed(T + D)
     q, k, v, do = (torch.randn(BH, T, D, generator=gen, device=cuda)
                    for _ in range(4))
     bias = torch.randn(BH, T, generator=gen, device=cuda)
     bias[1, T // 3:] = -1e30
+    if dtype != torch.float32:
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        first, _ = _half_backward(q, k, v, do, bias, causal, True)
+        second, _ = _half_backward(q, k, v, do, bias, causal, True)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        plain, _ = _half_backward(q, k, v, do, bias, causal)
+        assert torch.equal(plain[1], first[1])
+        assert torch.equal(plain[2], first[2])
+        return
     first, _ = _backward_against_fp64(cuda, q, k, v, do, bias, causal, True)
     second, _ = _backward_against_fp64(cuda, q, k, v, do, bias, causal, True)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -1474,11 +1533,14 @@ def test_flash_backward_key_lengths_at_tile_edges(cuda, T, n):
 
 
 @pytest.mark.needs_cuda
-def test_flash_backward_dead_tiles_beside_live_ones(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_backward_dead_tiles_beside_live_ones(cuda, dtype):
     """Per (b*h) row: a live key tile between dead ones; a single live key
     in the last tile; live keys only in the middle of a tile; and a tile
     whose biases are all -60, very negative but finite, which is not dead:
-    it is computed, its dk is non-zero and within 2e-5 of float64."""
+    it is computed, its dk is non-zero and within 2e-5 of float64 (fp32),
+    or within the 16-bit rule of the plain version (bf16, fp16)."""
     BH, T, D = 4, 512, 64
     gen = torch.Generator(device=cuda).manual_seed(99)
     q, k, v, do = (torch.randn(BH, T, D, generator=gen, device=cuda)
@@ -1489,10 +1551,19 @@ def test_flash_backward_dead_tiles_beside_live_ones(cuda):
     bias[2, 200:230] = torch.randn(30, generator=gen, device=cuda)
     bias[3, 128:192] = -60.0
     bias[3, 300:400] = 0.0
-    got, want = _backward_against_fp64(cuda, q, k, v, do, bias, dbias=True)
+    if dtype == torch.float32:
+        got, want = _backward_against_fp64(cuda, q, k, v, do, bias,
+                                           dbias=True)
+    else:
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        got, want = _half_backward(q, k, v, do, bias, dbias=True)
     dq, dk, dv, db = got
-    assert dk[3, 128:192].abs().max().item() > 0
-    assert dv[3, 128:192].abs().max().item() > 0
+    assert db[3, 128:192].abs().max().item() > 0
+    if dtype != torch.float16:
+        # in fp16 p ~ e^-60 rounds to 0 before the second products, in the
+        # plain version as in the kernels: only the fp32 dbias shows it
+        assert dk[3, 128:192].abs().max().item() > 0
+        assert dv[3, 128:192].abs().max().item() > 0
     assert (dk[0, :64] == 0).all() and (dk[0, 128:] == 0).all()
     assert (db[1, :T - 1] == 0).all() and (dk[1, :T - 1] == 0).all()
 
@@ -2544,13 +2615,13 @@ def test_bf16_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         flash_attention_forward(unaligned, qb, qb)
     with pytest.raises(ValueError, match="do must be"):
-        flash_attention_bwd_dq_bf16(qb, qb, qb, q, lse, lse, None, 0.125,
+        flash_attention_bwd_dq_bf16(qb, qb, qb, q, qb, lse, None, 0.125,
                                     False)
     with pytest.raises(TypeError):
         flash_attention_bwd_dkv_bf16(qh, qh, qh, qh, lse, lse, None, 0.125,
                                      False)
     with pytest.raises(TypeError):
-        flash_attention_bwd_dq_f16(qb, qb, qb, qb, lse, lse, None, 0.125,
+        flash_attention_bwd_dq_f16(qb, qb, qb, qb, qb, lse, None, 0.125,
                                    False)
     with pytest.raises(TypeError):
         flash_attention_bwd_dq(qb, qb, qb, qb, lse, lse, None, 0.125, False)
@@ -2796,7 +2867,8 @@ def test_flash_half_dkv_dbias_kernel_matches_plain(cuda, T, D, causal,
                                                         n0[2])
     assert len(got) == 4 and all(torch.equal(a, b)
                                  for a, b in zip(got, again))
-    delta = (do.float() * out.float()).sum(dim=-1)
+    # the delta the pair fed dK/dV: the dQ kernel's
+    delta = _DQ16[dtype](q, k, v, do, out, lse, bias, scale, causal)[1]
     dk0, dv0 = plain_fn(q, k, v, do, lse, delta, bias, scale, causal)
     assert torch.equal(got[1], dk0) and torch.equal(got[2], dv0)
     want = flash_attention_backward_reference(q, k, v, out, lse, do, bias,
@@ -2826,6 +2898,95 @@ def test_flash_half_dkv_dbias_kernel_matches_plain(cuda, T, D, causal,
         for name, g in zip(("dk", "dv", "dbias"), bad[1:]):
             assert not bool(torch.isfinite(g).all()), name
             assert not bool((g.float().abs() == 65504.0).any()), name
+
+
+# --------------------------------------- the 16-bit backward on wgmma + TMA
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_wgmma_descriptors_match_matmul_on_one_tile(cuda, D, dtype):
+    """The 16-bit backward's shared-memory layouts on one 64-row tile
+    (csrc flash_bwd_dq_probe_kernel): q and k loaded by TMA as the
+    kernels load them, s = q k^T with both operands K-major (S = Q K^T)
+    and o = p k with k read MN-major through the transposed-B descriptor
+    (dQ += dS K), against torch.matmul in fp32 on the same values. The
+    inputs are small integers, exact in both 16-bit types, whose sums are
+    exact in fp32 in any order: the two must be equal, so a wrong stride
+    or swizzle shows here rather than as a wrong gradient."""
+    from incubator_mxnet_tpu_torch.ops.kernels import _build
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k = (torch.randint(-8, 9, (64, D), generator=gen, device=cuda).to(dt)
+            for _ in range(2))
+    p = torch.randint(-4, 5, (64, 64), generator=gen, device=cuda).float()
+    s = torch.full((64, 64), float("nan"), device=cuda)
+    o = torch.full((64, D), float("nan"), device=cuda)
+    rc = _build.library().mxtpu_flash_bwd_wgmma_probe(
+        q.data_ptr(), k.data_ptr(), p.data_ptr(), s.data_ptr(), o.data_ptr(),
+        D, 0 if dtype == "bfloat16" else 1, cuda.index,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check(rc, "mxtpu_flash_bwd_wgmma_probe")
+    torch.cuda.synchronize()
+    want_s = torch.matmul(q.float(), k.float().t())
+    want_o = torch.matmul(p, k.float())
+    assert want_s.abs().max().item() > 0 and want_o.abs().max().item() > 0
+    assert torch.equal(s, want_s)
+    assert torch.equal(o, want_o)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("T, D", [(1, 32), (100, 64), (512, 64),
+                                  (777, 128)])
+def test_flash_half_dq_kernel_takes_delta(cuda, T, D, dtype):
+    """The 16-bit dQ kernel's second output: delta = rowsum(dO * O) in
+    fp32, each row within 1e-6 of its sum of |dO * O| of the plain
+    (do.float() * out.float()).sum(-1) (the products are exact in fp32; the
+    sums are taken in another order), exactly 0 on a row whose keys are all
+    masked; and its dq is the pair's."""
+    q, k, v, do, bias = _flash_bf16_inputs(5, T, D, cuda, T * D + 3)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (t.to(dt) for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, bias, scale)
+    fn = _DQ16[dtype]
+    n0 = fn.launches
+    dq, delta = fn(q, k, v, do, out, lse, bias, scale, False)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert delta.dtype == torch.float32 and delta.shape == (5, T)
+    prod = do.float() * out.float()
+    want, mass = prod.sum(dim=-1), prod.abs().sum(dim=-1)
+    assert ((delta - want).abs() <= 1e-6 * mass).all()
+    assert (delta[0] == 0).all()
+    pair = flash_attention_backward(q, k, v, out, lse, do, bias, scale)
+    assert torch.equal(dq, pair[0])
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T, D", [(100, 64), (777, 128), (63, 32)])
+@pytest.mark.parametrize("where", ["past_last_full_tile", "first_rows"])
+def test_flash_f16_inf_in_do_stays_in_its_head(cuda, T, D, where):
+    """fp16 at a ragged T (not a multiple of the 64-row tiles): an inf in
+    one head's dO, in a row past its last full tile or in one of its first
+    rows (those a neighbour's tile past T would reach if the tiles were cut
+    from (B*H*T, D) rows), makes that head's dq, dk and dv non-finite and
+    leaves every other head's finite: the 3-D tensor maps fill rows past T
+    with zeros."""
+    BH = 4
+    gen = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v, do = (torch.randn(BH, T, D, generator=gen, device=cuda).half()
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention_forward(q, k, v, None, scale)
+    row = T - 1 if where == "past_last_full_tile" else min(3, T - 1)
+    do[1, row] = float("inf")
+    grads = flash_attention_backward(q, k, v, out, lse, do, None, scale)
+    torch.cuda.synchronize()
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        assert not bool(torch.isfinite(g[1]).all()), name
+        others = torch.cat([g[:1], g[2:]])
+        assert bool(torch.isfinite(others).all()), name
 
 
 @pytest.mark.needs_cuda

@@ -1124,6 +1124,60 @@ def half_delta(torch, fa, sfx, q, k, v, do, out, lse, bias, scale):
     return (do.float() * out.float()).sum(dim=-1)
 
 
+#: ex2 a clock on an SM of a Hopper card (its MUFU units, 4 a clock on
+#: each of the four sub-partitions)
+MUFU_EX2_PER_CLOCK = 16
+
+
+def exp_floor(torch, dev, exps):
+    """The least time the card's MUFU units take for `exps` ex2 (one a live
+    score of the flash forward): MUFU_EX2_PER_CLOCK a clock on each SM at
+    the SM's highest clock (nvidia-smi's clocks.max.sm), as a dict (ms,
+    exps, sms, sm_clock_mhz); None off the card."""
+    if dev.type != "cuda":
+        return None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    mhz = float(r.stdout.split()[0])
+    return dict(ms=exps / (MUFU_EX2_PER_CLOCK * sms * mhz * 1e6) * 1e3,
+                exps=exps, sms=sms, sm_clock_mhz=mhz)
+
+
+def forward_waves(torch, dev, randn, dtype, D, scale, rows=128,
+                  stage_keys=128):
+    """The 16-bit forward kernel's time against its grid, dense without a
+    bias (the persistent grid: one block on each SM walks tiles of `rows` Q
+    rows): at T = 512 with 33, 66 and 99 heads (132, 264 and 396 tiles: one
+    to three tiles a block on 132 SMs) and the training shape's 96 heads
+    (384 tiles: 120 blocks take three, 12 take two), and at T = 128 with 132
+    heads (132 tiles of one key stage where T = 512's have T / stage_keys).
+    `per_tile_us` is the slope from one tile a block to three;
+    `per_stage_us` and `first_tile_fixed_us` split a one-tile block's time
+    into its key stages and the rest (the launch, the barriers' set-up, Q's
+    and the first stage's loads, the epilogue), which a block pays once and
+    its later tiles overlap. Device times (`timed`) over copies cold in L2;
+    None off the card."""
+    if dev.type != "cuda":
+        return None
+    from incubator_mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_forward)
+
+    def ms(BH, T):
+        q, k, v = (randn(BH, T, D).to(dtype) for _ in range(3))
+        cold = cold_copies(torch, (q, k, v), 4 * BH * T * D * 2)
+        return timed(torch, lambda q, k, v: flash_attention_forward(
+            q, k, v, None, scale), cold, 0.0)[0]
+    t512 = {BH: ms(BH, 512) for BH in (33, 66, 99, 96)}
+    t128 = ms(132, 128)
+    stage = (t512[33] - t128) / (512 // stage_keys - 1) * 1e3
+    return dict(t512_ms_by_heads=t512, t128_132_heads_ms=t128,
+                per_tile_us=(t512[99] - t512[33]) / 2 * 1e3,
+                per_stage_us=stage, first_tile_fixed_us=t128 * 1e3 - stage,
+                rows_a_tile=rows, stage_keys=stage_keys)
+
+
 def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
                     D=64, lengths=BF16_LENGTHS):
     """The 16-bit (``dtype``: bfloat16 or float16) flash forward and
@@ -1139,11 +1193,16 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
     BF16_LSE_TOL, the gradients within the dtype's `rel` of their largest
     magnitude; the forward must give the same bits on two calls, and so
     must the backward. In fp16 an inf planted in dO must make dq, dk and dv
-    non-finite: the kernels round without saturating. Bounds count the
-    live keys' work at the 16-bit rate. The forward's library column is
-    F.scaled_dot_product_attention in that dtype (the bias as its mask, at
-    most the dtype's lowest value); the backward rows carry the pair (both
-    kernels; the dQ kernel takes delta itself) beside SDPA's backward, whose
+    non-finite: the kernels round without saturating; and an inf planted in
+    one head's V must make that head's O non-finite and leave every other
+    head's bits as they were. Bounds count the live keys' work at the
+    16-bit rate; the forward's rows also carry `exp_floor` (one ex2 a live
+    score at the MUFU rate, `exp_floor`) and, dense, `waves`
+    (`forward_waves`: the persistent grid's time by tiles a block). The
+    forward's library column is F.scaled_dot_product_attention in that
+    dtype (the bias as its mask, at most the dtype's lowest value); the
+    backward rows carry the pair (both kernels; the dQ kernel takes delta
+    itself) beside SDPA's backward, whose
     backends are named, and one reading of the four PyTorch launches that
     took delta = rowsum(dO * O) before the dQ kernel did
     (`pair_old_delta_ms`). The dQ row times dQ and delta together; the
@@ -1189,6 +1248,21 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
         if not lse_err <= BF16_LSE_TOL:
             raise AssertionError("flash_attention_fwd_%s: lse error %r > %g"
                                  % (sfx, lse_err, BF16_LSE_TOL))
+        fwd_extra = {}
+        if dtype == "float16":
+            # an inf in one head's V (an fp16 overflow upstream) stays in
+            # that head's O: every other head keeps its bits
+            v_inf = v.clone()
+            v_inf[1, 5] = float("inf")
+            o_inf = flash_attention_forward(q, k, v_inf, bias, scale)[0]
+            others = [i for i in range(BH) if i != 1]
+            if bool(torch.isfinite(o_inf[1]).all()) or not torch.equal(
+                    o_inf[others], out[others]):
+                raise AssertionError("flash_attention_fwd_f16: an inf in one "
+                                     "head's V did not stay in that head's "
+                                     "O")
+            fwd_extra["inf_in_v_stays_in_its_head"] = True
+            del v_inf, o_inf
         dead = [i for i, n in enumerate(lens) if n == 0]
         grads = flash_attention_backward(q, k, v, out, lse, do, bias, scale)
         again = flash_attention_backward(q, k, v, out, lse, do, bias, scale)
@@ -1235,6 +1309,11 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
         inputs = (q, k, v) if dense else (q, k, v, bias)
         names = device_kernel_names(torch, sdpa, inputs)
         fbytes, live_flops, dense_flops = flash_forward_cost(H, T, D, lens, 2)
+        fwd_extra["exp_floor"] = exp_floor(torch, dev, live_flops // (4 * D))
+        if dense:
+            fwd_extra["waves"] = forward_waves(
+                torch, dev, randn, bf, D, scale,
+                stage_keys=64 if D == 128 else 128)
         rows.append(measure(
             torch, "flash_attention_fwd_" + sfx, (B, H, T, D), err, None,
             inputs,
@@ -1251,7 +1330,7 @@ def half_flash_rows(torch, dev, randn, dtype="bfloat16", B=8, H=12, T=512,
             dense_bound_ms=bound(fbytes, dense_flops, rule["flops"])[0],
             live_key_share=live_flops / dense_flops,
             library_backend=sdpa_backend(names),
-            library_kernels=[n[:120] for n in names[:4]]))
+            library_kernels=[n[:120] for n in names[:4]], **fwd_extra))
 
         live_keys = H * sum(lens)
         prod = 2 * T * D * live_keys

@@ -71,26 +71,28 @@
 // dtype, p and its sums in fp32, o normalised and written once in q's dtype,
 // m and l fp32. What bounds it: bytes, as in fp32, with a bf16 pool's K and
 // V rows half as many (8 sequences of ~350 positions at H * D = 768: ~8.6
-// MB, ~2.6 us at 3.35 TB/s). The design is the fp32 kernel's, templated on
-// the element types of q (TQ) and of the pools (TK), a simple first version:
-// - A bf16 pool's K and V rows come through the same cp.async ring at half
-//   the bytes: a 16-byte copy is 8 bf16 values, a D-wide head row is D / 8
+// MB, ~2.6 us at 3.35 TB/s). The kernel is the fp32 one, templated on the
+// element types of q (TQ) and of the pools (TK):
+// - A 16-bit pool's K and V rows come through the same cp.async ring at
+//   half the bytes: a 16-byte copy is 8 values, a D-wide head row is D / 8
 //   copies (D = 32, 64, 128: whole copies, whatever the block size, since
-//   each position's row is copied on its own after its table lookup). Once
-//   a stage has landed, the block widens it into one fp32 tile laid out as
-//   the fp32 ring's stage (one shared-memory pass and a barrier), and every
-//   product after that is the fp32 kernel's code on that tile: no converted
-//   copy of a pool in device memory, and the fp32 instantiation unchanged.
-// - bf16 q is widened as it is loaded into the block's fp32 query rows.
-// - On the tensor cores (chunks of 16 rows and more) both products stay on
-//   the 3xTF32 route: a bf16 value is exact in TF32 (its remainder is 0),
-//   so Q K^T sums exact products, and P, an fp32 value, is split into TF32
-//   hi and lo as in fp32, so P V keeps P at about fp32 precision. Rounding
-//   P to bf16 for an m16n8k16 bf16 product would add up to 2**-9 relative
-//   error a weight where the TPU kernel keeps p in fp32; the bf16 inputs'
-//   zero remainders waste two of QK^T's three products, which a faster
-//   bf16 route (one m16n8k16 for QK^T, P split in bf16 hi + lo for PV)
-//   would save: later work.
+//   each position's row is copied on its own after its table lookup). The
+//   products read the stage as it landed and widen each value in
+//   registers: no fp32 copy of a stage, no pass or barrier to make one, no
+//   converted copy of a pool in device memory. The rows' pitches (Smem)
+//   keep each route's reads conflict-free.
+// - On the CUDA cores (up to 8 rows) a quad-lane reads its quarter of a K
+//   row as 16-byte vectors of 8 values, and P V reads V's 16-bit columns.
+// - On the tensor cores (chunks of 16 rows and more; q and the pools of one
+//   type there) a 16-bit value is exact in TF32 (its remainder is 0), and
+//   so is q: Q K^T is one TF32 product a k-step, where the fp32 pools' route
+//   takes three, and no tile is split. P, an fp32 value, is split into TF32
+//   hi and lo as in fp32, and P V is two TF32 products against V taken
+//   exactly: P keeps about 22 bits, where the TPU kernel keeps p in fp32
+//   (rounding P to bf16 for an m16n8k16 product would keep 8, and P in two
+//   bf16 terms 16, against the 1e-5 floor of its limit).
+// - bf16 q over fp32 pools is widened as it is loaded into the block's fp32
+//   query rows, and the fp32 kernel's code runs unchanged.
 // - o rounds once to bf16 (round to nearest even), at the end; m and l
 //   are the fp32 kernel's.
 //
@@ -103,14 +105,13 @@
 // differ from bf16, and both sit in helpers over the element type:
 // - Widening. A bf16 value widens by a 16-bit shift; an fp16 one needs a
 //   real conversion (__half22float2 on each pair, subnormals included), so
-//   widen8<T> takes the element type and the bf16 and fp32 instantiations
-//   keep their instructions.
+//   widen8<T> and widen1<T> take the element type and the bf16 and fp32
+//   instantiations keep their instructions.
 // - Rounding o: __float2half_rn (round to nearest even, cvt.rn without
 //   .satfinite, so a value past 65504 is inf as .to(torch.float16) gives it).
-// On the tensor cores the fp32 route stays exact for fp16 too: an fp16
+// On the tensor cores the 16-bit route stays exact for fp16 too: an fp16
 // value has 11 significant bits, which TF32 holds, and its subnormals are
-// normal numbers in TF32's 8-bit exponent, so Q K^T's remainders are 0 and
-// P stays fp32, split hi + lo, as in bf16. m and the -1e30 mask stay fp32
+// normal numbers in TF32's 8-bit exponent. m and the -1e30 mask stay fp32
 // in and out: in fp16 -1e30 would be -inf, and exp(m_p - m) NaN for a row
 // with no past.
 
@@ -139,39 +140,52 @@ using bf16 = __nv_bfloat16;
 using f16 = __half;
 
 // Query rows a block carries: 1 for decode, 8 for short chunks, else 32 (16
-// at D = 128). From 16 rows on, the products run on the tensor cores
-// (3xTF32, as the flash forward's); below, on the CUDA cores. kKv16: the
+// at D = 128). From 16 rows on, the products run on the tensor cores (over
+// fp32 pools 3xTF32, as the flash forward's; over 16-bit pools one TF32
+// product for Q K^T and two for P V); below, on the CUDA cores. kKv16: the
 // pools hold a 16-bit type (bf16 or fp16), whose ring stages are raw 16-bit
-// rows, widened into one fp32 tile (kWide) laid out as an fp32 stage.
+// rows that the products read as they landed.
 template <int D, int QT, bool kKv16 = false>
 struct Smem {
   static constexpr bool kTC = QT >= 16;
-  // K and V rows (floats): on the tensor cores D + 4, the fragment reads'
-  // conflict-free pitch; on the CUDA cores K rows D + 16, so that the two
-  // keys of a quarter-warp's float4 reads fall on distinct banks
+  // fp32 pools' K and V rows (floats): on the tensor cores D + 4, the
+  // fragment reads' conflict-free pitch; on the CUDA cores K rows D + 16, so
+  // that the two keys of a quarter-warp's float4 reads fall on distinct
+  // banks
   static constexpr int kKStride = kTC ? D + 4 : D + 16;
   static constexpr int kVStride = kTC ? D + 4 : D;
   static constexpr int kStage = kTileK * (kKStride + kVStride);   // K, V
+  // 16-bit pools' K and V rows (elements; 16-byte row starts for cp.async):
+  // on the tensor cores D + 8, so that a fragment read's eight K rows (g)
+  // and four V row pairs (t) start on distinct banks; on the CUDA cores K
+  // rows 64 bytes on from a multiple of 128 (D + 32; D at D = 32), so that
+  // the two keys of a quarter-warp's 16-byte reads fall on distinct banks,
+  // and V rows D, which the warp reads along a row
+  static constexpr int kKPitch16 = kTC ? D + 8 : (D == 32 ? D : D + 32);
+  static constexpr int kVPitch16 = kTC ? D + 8 : D;
   static constexpr int kQStride = kTC ? D + 4 : D;
   static constexpr int kQ = QT * kQStride;          // the block's query rows
-  static constexpr int kQLo = kTC ? kQ : 0;         // their tf32 remainders
-  static constexpr int kLo = kTC ? kStage : 0;      // a stage's remainders
+  // the tf32 remainders of the query rows and of a stage: on the tensor
+  // cores over fp32 pools (a 16-bit value, and q of the pools' type, has
+  // none)
+  static constexpr bool kSplit = kTC && !kKv16;
+  static constexpr int kQLo = kSplit ? kQ : 0;
+  static constexpr int kLo = kSplit ? kStage : 0;
   static constexpr int kP = kTC ? 0 : kWarps * QT * 8;   // each warp's p
   static constexpr int kPart = QT * D + 2 * QT;     // acc, then m, then l
   static constexpr int kStat = QT * (kMaxSplit + 2);  // rows' merge weights
   // a ring stage (floats): K and V rows as the pools hold them
-  static constexpr int kRaw = kKv16 ? kTileK * D : kStage;
-  static constexpr int kWide = kKv16 ? kStage : 0;     // the widened stage
+  static constexpr int kRaw =
+      kKv16 ? kTileK * (kKPitch16 + kVPitch16) / 2 : kStage;
   // the ring, which the warps' partials reuse once the walk is done
   __host__ __device__ static constexpr int ring(int stages) {
     return stages * kRaw > kWarps * kPart ? stages * kRaw : kWarps * kPart;
   }
-  // query rows (and remainders), p, a stage's remainders, the widened
-  // stage, the ring, the cluster's partials of the rows this block merges,
-  // the rows' weights
+  // query rows (and remainders), p, a stage's remainders, the ring, the
+  // cluster's partials of the rows this block merges, the rows' weights
   __host__ __device__ static constexpr size_t bytes(int stages,
                                                     int nsplit) {
-    return sizeof(float) * (kQ + kQLo + kP + kLo + kWide + ring(stages) +
+    return sizeof(float) * (kQ + kQLo + kP + kLo + ring(stages) +
                             nsplit * kPart + kStat);
   }
 };
@@ -198,6 +212,36 @@ __device__ __forceinline__ void widen8(uint4 raw, float* dst) {
       dst[2 * i + 1] = f.y;
     }
   }
+}
+
+// one value of the 16-bit type T widened to fp32 (exact, subnormals
+// included), and its bits as a TF32 operand: a 16-bit value fits TF32's 10
+// mantissa bits and 8-bit exponent, so it needs no split
+template <typename T>
+__device__ __forceinline__ float widen1(T x) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return __bfloat162float(x);
+  else
+    return __half2float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned tf32_of(T x) {
+  return __float_as_uint(widen1<T>(x));
+}
+
+// acc += (ahi + alo) * b where b is exact in TF32: the two products into a
+// fresh accumulator, which is added to acc rounding to nearest (mma3's
+// rule, without the products of b's remainder, which is 0)
+__device__ __forceinline__ void mma2(float* acc, const unsigned* ahi,
+                                     const unsigned* alo,
+                                     const unsigned* b) {
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  float t[4];
+  mma_tf32(t, ahi, b, zero);
+  mma_tf32(t, alo, b, t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
 }
 
 // o in q's dtype: fp32 as it is, bf16 and fp16 rounded to nearest even
@@ -244,6 +288,7 @@ flash_decode_kernel(const TQ* __restrict__ q,
   using Sm = Smem<D, QT, kKv16>;
   constexpr bool kTC = Sm::kTC;
   constexpr int KS = Sm::kKStride, VS = Sm::kVStride, QS = Sm::kQStride;
+  constexpr int KP = Sm::kKPitch16, VP = Sm::kVPitch16;
   constexpr int D4 = D / 4;
   constexpr int DS = D / 16;      // float4 a lane reads of a K row
   constexpr int DV = D / 32;      // output columns a lane (CUDA cores)
@@ -257,8 +302,7 @@ flash_decode_kernel(const TQ* __restrict__ q,
   float* Ps = q_lo + Sm::kQLo;
   float* lo_k = Ps + Sm::kP;
   float* lo_v = lo_k + kTileK * KS;
-  float* wide = lo_k + Sm::kLo;           // a 16-bit stage widened to fp32
-  float* ring = wide + Sm::kWide;
+  float* ring = lo_k + Sm::kLo;
   float* parts = ring + Sm::ring(stages);   // by rank, of the rows it owns
   // per row: the partials' weights exp(m - M) (kMaxSplit), then M and L
   float* stat = parts + nsplit * Sm::kPart;
@@ -346,14 +390,14 @@ flash_decode_kernel(const TQ* __restrict__ q,
                  (long long)h * D
            : 0;
     if constexpr (kKv16) {
-      // raw 16-bit rows, D a key: 8 values a copy
+      // raw 16-bit rows, D a key at the pitches KP and VP: 8 values a copy
       TK* Kr = reinterpret_cast<TK*>(stage);
-      TK* Vr = Kr + kTileK * D;
+      TK* Vr = Kr + kTileK * KP;
 #pragma unroll
       for (int c = sub; c < D8; c += 4) {
-        cp_async16(reinterpret_cast<float*>(Kr + key * D + 8 * c),
+        cp_async16(reinterpret_cast<float*>(Kr + key * KP + 8 * c),
                    reinterpret_cast<const float*>(k_pool + row + 8 * c), ok);
-        cp_async16(reinterpret_cast<float*>(Vr + key * D + 8 * c),
+        cp_async16(reinterpret_cast<float*>(Vr + key * VP + 8 * c),
                    reinterpret_cast<const float*>(v_pool + row + 8 * c), ok);
       }
     } else {
@@ -414,43 +458,55 @@ flash_decode_kernel(const TQ* __restrict__ q,
     ahead = j + 1 < n_t ? entry(j + 1) : 0;
     cp_async_wait_upto(stages - 1);      // tile i (and Q) have landed
     __syncthreads();
+    // the stage as it landed: fp32 rows (Ks, Vs), or 16-bit rows (Kr, Vr)
+    // that the products widen as they read them
     float* Ks = ring + (i % stages) * Sm::kRaw;
-    if constexpr (kKv16) {
-      // the stage's 16-bit rows into the fp32 tile that the products read
-      const TK* Kr = reinterpret_cast<const TK*>(Ks);
-      const TK* Vr = Kr + kTileK * D;
-      for (int j = threadIdx.x; j < kTileK * D8; j += kThreads) {
-        const int r = j / D8, c = (j % D8) * 8;
-        widen8<TK>(*reinterpret_cast<const uint4*>(Kr + r * D + c),
-                   wide + r * KS + c);
-        widen8<TK>(*reinterpret_cast<const uint4*>(Vr + r * D + c),
-                   wide + kTileK * KS + r * VS + c);
-      }
-      Ks = wide;
-      __syncthreads();
-    }
     float* Vs = Ks + kTileK * KS;
+    const TK* Kr = reinterpret_cast<const TK*>(Ks);
+    const TK* Vr = Kr + kTileK * KP;
     const int p0 = p_begin + i * kTileK;
 
     if constexpr (kTC) {
-      // the stage (and, once, Q) into tf32 halves
-      split_tile<D, kTileK>(Ks, lo_k);
-      split_tile<D, kTileK>(Vs, lo_v);
-      if (i == 0) split_tile<D, QT>(Qs, q_lo);
-      __syncthreads();
       // S = Q K^T over this warp's eight keys, every row
       float sc[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) sc[mt][0] = sc[mt][1] = sc[mt][2] = sc[mt][3] = 0.f;
+      if constexpr (kKv16) {
+        // one TF32 product a k-step: the 16-bit K values and q (of the
+        // pools' type) are exact in TF32
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        unsigned bh[2], bl[2];
-        pre_b_nk<D>(Ks, lo_k, 8 * warp + g, 8 * kk + t, bh, bl);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const TK* kr = Kr + (8 * warp + g) * KP + 8 * kk + t;
+          const unsigned b[2] = {tf32_of<TK>(kr[0]), tf32_of<TK>(kr[4])};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          unsigned ah[4], al[4];
-          pre_a<D>(Qs, q_lo, 16 * mt + g, 8 * kk + t, ah, al);
-          mma3(sc[mt], ah, al, bh, bl);
+          for (int mt = 0; mt < MT; ++mt) {
+            const float* qr = Qs + (16 * mt + g) * QS + 8 * kk + t;
+            const unsigned a[4] = {
+                __float_as_uint(qr[0]), __float_as_uint(qr[8 * QS]),
+                __float_as_uint(qr[4]), __float_as_uint(qr[8 * QS + 4])};
+            float tt[4];
+            mma_tf32(tt, a, b, zero);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[mt][e] += tt[e];
+          }
+        }
+      } else {
+        // the stage (and, once, Q) into tf32 halves
+        split_tile<D, kTileK>(Ks, lo_k);
+        split_tile<D, kTileK>(Vs, lo_v);
+        if (i == 0) split_tile<D, QT>(Qs, q_lo);
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          unsigned bh[2], bl[2];
+          pre_b_nk<D>(Ks, lo_k, 8 * warp + g, 8 * kk + t, bh, bl);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            unsigned ah[4], al[4];
+            pre_a<D>(Qs, q_lo, 16 * mt + g, 8 * kk + t, ah, al);
+            mma3(sc[mt], ah, al, bh, bl);
+          }
         }
       }
       // the online softmax over the warp's keys: this thread's two
@@ -483,30 +539,52 @@ flash_decode_kernel(const TQ* __restrict__ q,
         }
         frag_acc(sc[mt], ph[mt], pl[mt]);
       }
-      // O += P V over the warp's keys, P straight from the registers
+      // O += P V over the warp's keys, P straight from the registers (tf32
+      // hi and lo: about 22 bits, where the TPU kernel keeps p in fp32)
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        unsigned vh[2], vl[2];
-        pre_b_kn<D>(Vs, lo_v, 8 * warp + 2 * t, 8 * n + g, vh, vl);
+        if constexpr (kKv16) {
+          // V exact in TF32: two products, P's hi and lo
+          const TK* vr = Vr + (8 * warp + 2 * t) * VP + 8 * n + g;
+          const unsigned b[2] = {tf32_of<TK>(vr[0]), tf32_of<TK>(vr[VP])};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma3(of[mt][n], ph[mt], pl[mt], vh, vl);
+          for (int mt = 0; mt < MT; ++mt) mma2(of[mt][n], ph[mt], pl[mt], b);
+        } else {
+          unsigned vh[2], vl[2];
+          pre_b_kn<D>(Vs, lo_v, 8 * warp + 2 * t, 8 * n + g, vh, vl);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma3(of[mt][n], ph[mt], pl[mt], vh, vl);
+        }
       }
     } else {
       // score this warp's key 8w + g against every query row: lane t takes
-      // columns 4t + 16j
+      // columns 4t + 16j of an fp32 row, or 8t + 32j of a 16-bit one (16
+      // bytes a read either way, widened in registers)
       const int kl = 8 * warp + g;
       const bool valid = p0 + kl < p_end;
       float4 kr[DS];
+      if constexpr (kKv16) {
 #pragma unroll
-      for (int j = 0; j < DS; ++j)
-        kr[j] = *reinterpret_cast<const float4*>(Ks + kl * KS + 4 * t + 16 * j);
+        for (int j = 0; j < D / 32; ++j)
+          widen8<TK>(*reinterpret_cast<const uint4*>(Kr + kl * KP + 8 * t +
+                                                     32 * j),
+                     reinterpret_cast<float*>(kr + 2 * j));
+      } else {
+#pragma unroll
+        for (int j = 0; j < DS; ++j)
+          kr[j] = *reinterpret_cast<const float4*>(Ks + kl * KS + 4 * t + 16 * j);
+      }
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
         float d = 0.f;
 #pragma unroll
-        for (int j = 0; j < DS; ++j)
-          d = dot4(*reinterpret_cast<const float4*>(Qs + r * QS + 4 * t + 16 * j),
+        for (int j = 0; j < DS; ++j) {
+          // the query columns of kr[j]
+          const int col = kKv16 ? 8 * t + 32 * (j / 2) + 4 * (j % 2)
+                                : 4 * t + 16 * j;
+          d = dot4(*reinterpret_cast<const float4*>(Qs + r * QS + col),
                    kr[j], d);
+        }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         d += __shfl_xor_sync(0xffffffffu, d, 2);
         const float sv = valid ? d * scale : -INFINITY;
@@ -530,8 +608,12 @@ flash_decode_kernel(const TQ* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c = 0; c < DV; ++c)
-          vv[j][c] = Vs[(8 * warp + j) * VS + lane + 32 * c];
+        for (int c = 0; c < DV; ++c) {
+          if constexpr (kKv16)
+            vv[j][c] = widen1<TK>(Vr[(8 * warp + j) * VP + lane + 32 * c]);
+          else
+            vv[j][c] = Vs[(8 * warp + j) * VS + lane + 32 * c];
+        }
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
         const float4 pa = *reinterpret_cast<const float4*>(Pw + r * 8);

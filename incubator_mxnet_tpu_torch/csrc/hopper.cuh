@@ -1,5 +1,6 @@
 // Hopper primitives shared by the kernels that feed wgmma from TMA
-// (int8_matmul.cu's tma route, flash_attention_bwd.cu's 16-bit kernels):
+// (int8_matmul.cu's tma route, the 16-bit flash kernels of
+// flash_attention_fwd.cu and flash_attention_bwd.cu):
 // mbarriers, TMA tile loads (2-D and 3-D), wgmma shared-memory descriptors
 // (K-major and MN-major, over 128- or 64-byte swizzled tiles), the wgmma
 // fence / commit / wait, and, on the host, cuTensorMapEncodeTiled through the
@@ -133,6 +134,42 @@ __device__ __forceinline__ uint64_t mn_desc(unsigned addr, unsigned panel,
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((panel >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(atom >> 4) << 32) | ((uint64_t)mode << 62);
+}
+
+// shared memory at src -> one box of a 3-D `map` at (c0, c1, c2), in a
+// bulk group of the issuing thread; elements past an edge of the tensor
+// are not written
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           unsigned src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<unsigned long long>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the issuing thread's bulk stores: commit them as a group; wait until
+// every group has read its shared memory
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// orders this thread's shared-memory writes before the async proxy's
+// (TMA's) reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// pulls a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's cache ahead of its first load
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<unsigned long long>(map))
+               : "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

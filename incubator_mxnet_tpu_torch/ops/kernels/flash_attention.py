@@ -185,13 +185,16 @@ flash_attention_forward.launches = 0
 
 
 def _forward16(wrapper, dtype, q, k, v, bias, scale, causal):
-    """A 16-bit forward kernel's launch, counted on ``wrapper``."""
+    """A 16-bit forward kernel's launch, counted on ``wrapper``. Refuses
+    what ``_check_cuda`` refuses (dtypes, shapes, head dim, contiguity,
+    alignment, the bias), then tensors that do not lie on a CUDA card,
+    before the library is built or reached."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    _check_cuda(q, k, v, bias, dtype)
     if q.device.type != "cuda":
         raise ValueError("%s: takes CUDA tensors, got %s"
                          % (wrapper.__name__, q.device))
-    _check_cuda(q, k, v, bias, dtype)
     return _forward_launch("mxtpu_flash_attention_fwd_" + _SUFFIX[dtype],
                            wrapper, q, k, v, bias, scale, causal)
 

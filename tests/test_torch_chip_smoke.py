@@ -739,6 +739,90 @@ def test_kernel_class_gives_the_fp16_flavours_classes_of_their_own(name,
     assert chip_smoke._kernel_class(name) == cls
 
 
+# the 16-bit forward on wgmma and TMA: its four maps first, its element type
+# in the template arguments
+@pytest.mark.parametrize("name,cls", [
+    ("void (anonymous namespace)::flash_fwd_wg_kernel<__nv_bfloat16, 64>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float*, int, int, float, int)",
+     "flash_attention_fwd_bf16"),
+    ("void (anonymous namespace)::flash_fwd_wg_kernel<__half, 64>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float*, int, int, float, int)",
+     "flash_attention_fwd_f16"),
+    ("void (anonymous namespace)::flash_fwd_wg_kernel<__half, 128>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float*, int, int, float, int)",
+     "flash_attention_fwd_f16"),
+    ("void (anonymous namespace)::flash_fwd_wg_kernel<__nv_bfloat16, 32>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float*, int, int, float, int)",
+     "flash_attention_fwd_bf16"),
+    ("void (anonymous namespace)::flash_fwd_kernel<64>(float const*, "
+     "float const*, float const*, float const*, float*, float*, int, "
+     "float, int)", "flash_attention_fwd")])
+def test_kernel_class_names_the_wgmma_forward_by_its_element_type(name, cls):
+    assert chip_smoke._kernel_class(name) == cls
+
+
+def test_exp_floor_counts_one_ex2_a_live_score(monkeypatch):
+    """The forward rows' exp floor: the live scores' ex2 at 16 a clock on
+    each SM at its highest clock (nvidia-smi's clocks.max.sm); none off the
+    card. (96, 512, 512) scores on 132 SMs at 1980 MHz: 6.02 us."""
+    assert chip_smoke.exp_floor(torch, torch.device("cpu"), 10) is None
+
+    class Props:
+        multi_processor_count = 132
+
+    class Run:
+        stdout = "1980\n"
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props())
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Run())
+    got = chip_smoke.exp_floor(torch, torch.device("cuda", 0),
+                               96 * 512 * 512)
+    assert got["sms"] == 132 and got["sm_clock_mhz"] == 1980.0
+    assert got["ms"] == pytest.approx(96 * 512 * 512 / (16 * 132 * 1.98e9)
+                                      * 1e3)
+    assert got["ms"] == pytest.approx(6.018e-3, rel=1e-3)
+
+
+def test_fp16_forward_rows_hold_an_inf_in_v_to_its_head(monkeypatch,
+                                                         one_torch_thread):
+    """The fp16 forward rows plant an inf in one head's V: that head's O
+    must be non-finite and every other head's bits unchanged (the row says
+    so); a forward that let the inf reach another head fails the row."""
+    import importlib
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.kernels.flash_attention")
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch_, fn, inputs, iters=20: (1.0,
+                                                              "profiler"))
+    monkeypatch.setattr(chip_smoke, "device_kernel_names",
+                        lambda torch_, fn, inputs: ["flash_fwd_kernel"])
+    monkeypatch.setattr(chip_smoke, "cold_copies",
+                        lambda torch_, inputs, nbytes: [inputs])
+    cpu = torch.device("cpu")
+    rows = chip_smoke.half_flash_rows(torch, cpu, _randn_cpu(3), "float16",
+                                      B=1, H=3, T=40, D=32, lengths=(40,))
+    fwd = [r for r in rows if r["name"] == "flash_attention_fwd_f16"]
+    assert fwd and all(r["inf_in_v_stays_in_its_head"] for r in fwd)
+    assert all(r["exp_floor"] is None and r.get("waves") is None
+               for r in fwd)
+    plain = fa.flash_attention_reference
+
+    def leaky(q, k, v, bias=None, scale=1.0, causal=False):
+        out, lse = plain(q, k, v, bias, scale, causal)
+        if not bool(torch.isfinite(v).all()):
+            out = out.clone()
+            out[0, 0] = float("inf")      # another head than the planted one
+        return out, lse
+    monkeypatch.setattr(fa, "flash_attention_reference", leaky)
+    with pytest.raises(AssertionError, match="did not stay in that head"):
+        chip_smoke.half_flash_rows(torch, cpu, _randn_cpu(3), "float16",
+                                   B=1, H=3, T=40, D=32, lengths=(40,))
+
+
 @pytest.fixture
 def one_torch_thread():
     """Tiny shapes: one intra-op thread, restored after the test (several

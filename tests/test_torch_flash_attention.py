@@ -334,3 +334,78 @@ def test_fp16_mask_stays_fp32_and_dead_rows_stay_zero():
                   interpret=True)
     err, share = half_agreement(out.float(), np.asarray(want, np.float32))
     assert err <= 2.0 ** -11 and share >= 0.99, (err, share)
+
+
+# ------------------------------------- the 16-bit forward wrappers' contract
+def _no_library():
+    raise AssertionError("the kernel library was reached")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_forward_wrappers_refuse_as_the_checks_do(dtype, monkeypatch):
+    """flash_attention_fwd_bf16 and _f16 take (BH, T, D) q, k, v of their
+    own dtype, contiguous and 16-byte aligned, D in (32, 64, 128), and an
+    fp32 (BH, T) bias or None. Before the library is built or reached they
+    refuse, with _check_cuda's errors: another dtype or mixed dtypes
+    (TypeError), shapes that differ or are not 3-D, a head dim outside the
+    three, a transposed view, a view 2 bytes off alignment and a bias of
+    another dtype or shape (ValueError); tensors that pass every check but
+    lie on the CPU (ValueError: the kernel has no CPU mode). No launch is
+    counted."""
+    import importlib
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.kernels.flash_attention")
+    monkeypatch.setattr(fa._build, "library", _no_library)
+    dt = getattr(torch, dtype)
+    other = torch.float16 if dt == torch.bfloat16 else torch.bfloat16
+    fn = getattr(fa, "flash_attention_fwd_" + ("bf16" if dtype == "bfloat16"
+                                               else "f16"))
+    n0 = fn.launches
+    gen = torch.Generator().manual_seed(21)
+    q = torch.randn(2, 16, 64, generator=gen).to(dt)
+    q48 = torch.randn(2, 16, 48, generator=gen).to(dt)
+    qt = q.transpose(0, 1)
+    off = torch.empty(q.numel() + 1, dtype=dt)[1:].view(2, 16, 64)
+    off.copy_(q)
+    assert off.data_ptr() % 16 == 2
+    bias = torch.zeros(2, 16)
+    cases = [
+        ((q, q.to(other), q, None), TypeError, "one dtype"),
+        ((q.float(), q.float(), q.float(), None), TypeError, "one dtype"),
+        ((q, q[:, :8], q, None), ValueError, "share one"),
+        ((q[0], q[0], q[0], None), ValueError, "share one"),
+        ((q48, q48, q48, None), ValueError, "head dim 48"),
+        ((qt, qt, qt, None), ValueError, "contiguous"),
+        ((off, q, q, None), ValueError, "aligned"),
+        ((q, q, q, bias.to(dt)), ValueError, "bias must be"),
+        ((q, q, q, bias[:, :8]), ValueError, "bias must be"),
+        ((q, q, q, bias), ValueError, "CUDA"),
+        ((q, q, q, None), ValueError, "CUDA"),
+    ]
+    for (a, b, c, bb), exc, match in cases:
+        with pytest.raises(exc, match=match):
+            fn(a, b, c, bb)
+    # the public wrapper takes the plain version for CPU tensors
+    out, lse = fa.flash_attention_forward(q, q, q, bias)
+    assert out.dtype == dt and lse.dtype == torch.float32
+    assert fn.launches == n0
+
+
+@pytest.mark.parametrize("bias", [None, "bias"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_cost_counts_two_byte_elements(bias, causal):
+    """_forward_cost for the 16-bit kernels: q, k, v read and out written at
+    2 bytes an element, lse written and the bias read at 4; the operations
+    those of two T x T x D products, halved under a causal mask. Only the
+    element bytes differ from the fp32 count."""
+    import importlib
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.ops.kernels.flash_attention")
+    BH, T, D = 96, 512, 64
+    b = None if bias is None else torch.zeros(BH, T)
+    flops, nbytes = fa._forward_cost(BH, T, D, b, causal, 2)
+    rows = 1 + (bias is not None)
+    assert nbytes == 4 * BH * T * D * 2 + rows * BH * T * 4
+    assert flops == 4.0 * BH * T * T * D / (2 if causal else 1)
+    f32 = fa._forward_cost(BH, T, D, b, causal)
+    assert f32[1] - nbytes == 4 * BH * T * D * 2 and f32[0] == flops

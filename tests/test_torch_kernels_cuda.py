@@ -50,6 +50,12 @@ in another order). The bf16 decode kernel (bf16 q over bf16 or fp32 pools)
 holds each element of o within a bf16 step (2**-7) of its own value plus
 1e-5 of the plain version's (both round o once from fp32 sums taken in
 other orders), m within 1e-5 and l within rtol 1e-5 (p stays fp32).
+The forward's edge, dead-tile, masked, causal, learned-bias and bitwise
+cases run in fp32, bf16 and fp16 (`_fwd_against_plain`: fp32 at 2e-5, the
+16-bit kernels within a step of each element's value plus a step of the
+same attention over |V|, their lse within 1e-4), and the decode kernel's
+split, bitwise and long-table cases over fp32 pools and over 16-bit pools
+of q's dtype (`_decode_against_plain`).
 The GPT test holds whole generations on the card and the CPU token for
 token. A served shape's CUDA graph (compilecache.aot.BlockProgram) replays
 the eager forward's kernels in the same order on the same inputs, so a
@@ -1814,18 +1820,41 @@ def test_rtc_refuses_cpu_arrays_wrong_types_and_bad_source(cuda):
 
 
 # ------------------------------- the flash forward on the tensor cores
+#: the forward kernel of each input dtype, and one step of each 16-bit one
+_FWD = {torch.float32: flash_attention_forward,
+        torch.bfloat16: flash_attention_fwd_bf16,
+        torch.float16: flash_attention_fwd_f16}
+_STEP16 = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
 def _fwd_against_plain(q, k, v, bias, causal=False):
-    """The forward kernel once, held to its plain version at atol 2e-5 on
-    out and lse; returns both."""
+    """The forward kernel of q's dtype once (one launch of its wrapper),
+    held to its plain version: in fp32 out and lse at atol 2e-5; in bf16 or
+    fp16 by the 16-bit rule, each element of out within one step of the
+    dtype of its own value plus one step of the same attention over |V|
+    (p rounds to a neighbouring 16-bit value, against the running max),
+    and the fp32 lse within 1e-4. Returns both."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    n0 = flash_attention_forward.launches
+    wrapper = _FWD[q.dtype]
+    n0 = wrapper.launches
     got = flash_attention_forward(q, k, v, bias, scale, causal)
     torch.cuda.synchronize()
-    assert flash_attention_forward.launches == n0 + 1
+    assert wrapper.launches == n0 + 1
     want = flash_attention_reference(q, k, v, bias, scale, causal)
-    for a, b in zip(got, want):
-        assert torch.isfinite(a).all()
-        assert (a - b).abs().max().item() <= 2e-5
+    if q.dtype == torch.float32:
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            assert (a - b).abs().max().item() <= 2e-5
+        return got
+    out, lse = got
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    step = _STEP16[q.dtype]
+    mass = flash_attention_reference(q, k, v.abs(), bias, scale, causal)[0]
+    gap = (out.float() - want[0].float()).abs()
+    bad = gap > step * (want[0].float().abs() + mass.float())
+    assert not bool(bad.any()), (int(bad.sum()), gap.max().item())
+    assert (lse - want[1]).abs().max().item() <= 1e-4
     return got
 
 
@@ -1833,17 +1862,26 @@ def _randn(gen, *shape, device):
     return torch.randn(*shape, generator=gen, device=device)
 
 
+_FWD_DTYPES = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.bfloat16, torch.float16],
+    ids=["float32", "bfloat16", "float16"])
+
+
 @pytest.mark.needs_cuda
+@_FWD_DTYPES
 @pytest.mark.parametrize("T, n", [(T, n) for T in (512, 777)
-                                  for n in (1, 63, 64, 65, 511, 777)
+                                  for n in (1, 63, 64, 65, 127, 128, 129,
+                                            511, 777)
                                   if n <= T])
-def test_flash_fwd_key_lengths_at_tile_edges(cuda, T, n):
-    """Live keys ending at, before and after the 32- and 64-key edges (the
-    tiles past the last live key are skipped): out and lse within 2e-5 of
-    the plain version, one row with no live key exact zeros and lse 0."""
+def test_flash_fwd_key_lengths_at_tile_edges(cuda, T, n, dtype):
+    """Live keys ending at, before and after the 32-, 64- and 128-key edges
+    of the kernels' stages (the tiles past the last live key are skipped):
+    out and lse held to the plain version by _fwd_against_plain's rule of
+    the dtype, one row with no live key exact zeros and lse 0."""
     BH, D = 3, 64
     gen = torch.Generator(device=cuda).manual_seed(T * 1000 + n)
-    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    q, k, v = (_randn(gen, BH, T, D, device=cuda).to(dtype)
+               for _ in range(3))
     bias = torch.zeros(BH, T, device=cuda)
     bias[:2, n:] = -1e30
     bias[2] = -1e30
@@ -1852,8 +1890,9 @@ def test_flash_fwd_key_lengths_at_tile_edges(cuda, T, n):
 
 
 @pytest.mark.needs_cuda
+@_FWD_DTYPES
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_fwd_dead_tiles_beside_live_ones(cuda, D):
+def test_flash_fwd_dead_tiles_beside_live_ones(cuda, D, dtype):
     """Per (b*h) row: a live tile between dead ones; a single live key in
     the last tile; live keys only in the middle of a tile; a tile of -60
     biases beside live keys; and a row whose only keys above -0.5e30 are
@@ -1862,7 +1901,8 @@ def test_flash_fwd_dead_tiles_beside_live_ones(cuda, D):
     not zeros."""
     BH, T = 5, 512
     gen = torch.Generator(device=cuda).manual_seed(99 + D)
-    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    q, k, v = (_randn(gen, BH, T, D, device=cuda).to(dtype)
+               for _ in range(3))
     bias = torch.full((BH, T), -1e30, device=cuda)
     bias[0, 64:128] = 0.0
     bias[1, T - 1] = 0.5
@@ -1871,19 +1911,22 @@ def test_flash_fwd_dead_tiles_beside_live_ones(cuda, D):
     bias[3, 300:400] = 0.0
     bias[4, 128:192] = -60.0
     out, lse = _fwd_against_plain(q, k, v, bias)
-    assert out[4].abs().max().item() > 0
+    assert out[4].float().abs().max().item() > 0
     assert lse[4].max().item() < -50.0
 
 
 @pytest.mark.needs_cuda
+@_FWD_DTYPES
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_fwd_fully_masked_sample_gives_exact_zeros(cuda, causal):
+def test_flash_fwd_fully_masked_sample_gives_exact_zeros(cuda, causal,
+                                                         dtype):
     """chip_smoke.py's ragged serving shape, (8 * 12, 512, 64) with key
     lengths 512, 300, 0, 511, 64, 1, 450 and 129: the sample with no live
     key skips every tile and writes exact zeros and lse 0."""
     B, H, T, D = 8, 12, 512, 64
     gen = torch.Generator(device=cuda).manual_seed(1234 + causal)
-    q, k, v = (_randn(gen, B * H, T, D, device=cuda) for _ in range(3))
+    q, k, v = (_randn(gen, B * H, T, D, device=cuda).to(dtype)
+               for _ in range(3))
     live = torch.arange(T, device=cuda)[None] < torch.tensor(
         [512, 300, 0, 511, 64, 1, 450, 129], device=cuda)[:, None]
     bias = torch.zeros(B, T, device=cuda).masked_fill(~live, -1e30)
@@ -1894,32 +1937,37 @@ def test_flash_fwd_fully_masked_sample_gives_exact_zeros(cuda, causal):
 
 
 @pytest.mark.needs_cuda
+@_FWD_DTYPES
 @pytest.mark.parametrize("T", [1, 33, 100, 300, 777])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_fwd_causal_with_t_not_a_multiple_of_64(cuda, T, D):
+def test_flash_fwd_causal_with_t_not_a_multiple_of_64(cuda, T, D, dtype):
     """Causal, with a padding mask that kills the first keys of one row (so
     its first query rows see no live key and come out zero) and the last
-    keys of another."""
+    keys of another; and causal without a bias."""
     BH = 4
     gen = torch.Generator(device=cuda).manual_seed(T * D + 7)
-    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    q, k, v = (_randn(gen, BH, T, D, device=cuda).to(dtype)
+               for _ in range(3))
     bias = _randn(gen, BH, T, device=cuda)
     bias[1, :T // 3] = -1e30
     bias[2, T // 2:] = -1e30
     out, lse = _fwd_against_plain(q, k, v, bias, causal=True)
     assert (out[1, :T // 3] == 0).all() and (lse[1, :T // 3] == 0).all()
+    _fwd_against_plain(q, k, v, None, causal=True)
 
 
 @pytest.mark.needs_cuda
+@_FWD_DTYPES
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_fwd_learned_bias_plus_mask(cuda, causal, D):
+def test_flash_fwd_learned_bias_plus_mask(cuda, causal, D, dtype):
     """A learned bias added to a padding mask, as flash_attention builds it
     for kv_bias and kv_mask together; and the public (B, H, T, D) API with
     both against the plain version."""
     B, H, T = 2, 3, 300
     gen = torch.Generator(device=cuda).manual_seed(7 + causal + D)
-    q, k, v = (_randn(gen, B, H, T, D, device=cuda) for _ in range(3))
+    q, k, v = (_randn(gen, B, H, T, D, device=cuda).to(dtype)
+               for _ in range(3))
     learned = 2 * _randn(gen, B, H, T, device=cuda)
     mask = (torch.arange(T, device=cuda)[None] < torch.tensor(
         [[T], [130]], device=cuda)).float()
@@ -1929,39 +1977,92 @@ def test_flash_fwd_learned_bias_plus_mask(cuda, causal, D):
     out, _ = _fwd_against_plain(q3, k3, v3, bias, causal)
     pub = flash_attention(q, k, v, kv_mask=mask, kv_bias=learned,
                           causal=causal)
-    assert (pub - out.view(B, H, T, D)).abs().max().item() <= 2e-5
+    assert (pub.float() - out.view(B, H, T, D).float()).abs().max().item() \
+        <= 2e-5
 
 
 @pytest.mark.needs_cuda
+@_FWD_DTYPES
 @pytest.mark.parametrize("T, D, causal", [(100, 32, False), (512, 64, True),
                                           (777, 128, False)])
-def test_flash_fwd_two_calls_are_bitwise_equal(cuda, T, D, causal):
-    """One block per output row and a fixed walk: the same inputs give the
-    same bits."""
+def test_flash_fwd_two_calls_are_bitwise_equal(cuda, T, D, causal, dtype):
+    """One block per output row and a fixed walk, with a bias and without
+    one (in 16 bits: a block a tile, and the persistent grid's walk of
+    tiles b, b + grid, ...): the same inputs give the same bits."""
     BH = 4
     gen = torch.Generator(device=cuda).manual_seed(T + D)
-    q, k, v = (_randn(gen, BH, T, D, device=cuda) for _ in range(3))
+    q, k, v = (_randn(gen, BH, T, D, device=cuda).to(dtype)
+               for _ in range(3))
     bias = _randn(gen, BH, T, device=cuda)
     bias[1, T // 3:] = -1e30
-    first = _fwd_against_plain(q, k, v, bias, causal)
-    second = _fwd_against_plain(q, k, v, bias, causal)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for b in (bias, None):
+        first = _fwd_against_plain(q, k, v, b, causal)
+        second = _fwd_against_plain(q, k, v, b, causal)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("T, D", [(100, 64), (777, 128), (63, 32),
+                                  (512, 64)])
+@pytest.mark.parametrize("where", ["past_last_full_tile", "first_rows"])
+def test_flash_f16_inf_in_v_stays_in_its_head(cuda, T, D, where):
+    """fp16: an inf in one head's V, in a row past its last full key stage
+    or in one of its first rows (those a neighbour's stage past T would
+    reach if the stages were cut from (B*H*T, D) rows), makes that head's O
+    non-finite and leaves every other head's O bit for bit as it was, with
+    the persistent grid (no bias) and a block a tile (a bias): the 3-D
+    tensor maps fill rows past T with zeros."""
+    BH = 4
+    gen = torch.Generator(device=cuda).manual_seed(T + D + 1)
+    q, k, v = (torch.randn(BH, T, D, generator=gen, device=cuda).half()
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(D)
+    row = T - 1 if where == "past_last_full_tile" else min(3, T - 1)
+    bad = v.clone()
+    bad[1, row] = float("inf")
+    for bias in (None, torch.zeros(BH, T, device=cuda)):
+        clean = flash_attention_forward(q, k, v, bias, scale)[0]
+        out = flash_attention_forward(q, k, bad, bias, scale)[0]
+        torch.cuda.synchronize()
+        assert not bool(torch.isfinite(out[1]).all())
+        others = [0, 2, 3]
+        assert bool(torch.isfinite(out[others]).all())
+        assert torch.equal(out[others], clean[others])
 
 
 # ------------------------------------------------- split-KV flash decode
+_DECODE_DTYPES = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.bfloat16, torch.float16],
+    ids=["float32", "bfloat16", "float16"])
+
+
 def _decode_against_plain(q, kp, vp, tables, lens):
-    """The decode kernel once, held to its plain version: o within 2e-5, m
-    within 1e-5, l within rtol 1e-5; a sequence with no past gives o = 0,
-    m = -1e30 and l = 0 exactly. Returns (o, m, l)."""
+    """The decode kernel of q's dtype once (one launch of its wrapper),
+    held to its plain version: o within 2e-5 in fp32, and over 16-bit
+    pools of q's dtype (read in place, no widening pass) each element of o
+    within one step of the dtype of its own value plus 1e-5 (both round o
+    once from fp32 sums taken in other orders); m within 1e-5, l within
+    rtol 1e-5 (p and its sums stay fp32); a sequence with no past gives o =
+    0, m = -1e30 and l = 0 exactly. Returns (o, m, l)."""
     from incubator_mxnet_tpu_torch.ops.kernels.flash_decode import (
-        paged_flash_decode, paged_flash_decode_reference)
-    n0 = paged_flash_decode.launches
+        paged_flash_decode, paged_flash_decode_bf16, paged_flash_decode_f16,
+        paged_flash_decode_reference)
+    wrapper = {torch.float32: paged_flash_decode,
+               torch.bfloat16: paged_flash_decode_bf16,
+               torch.float16: paged_flash_decode_f16}[q.dtype]
+    n0 = wrapper.launches
     o, m, l = paged_flash_decode(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
-    assert paged_flash_decode.launches == n0 + 1
+    assert wrapper.launches == n0 + 1
     ro, rm, rl = paged_flash_decode_reference(q, kp, vp, tables, lens)
-    assert torch.isfinite(o).all()
-    assert (o - ro).abs().max().item() <= 2e-5
+    assert o.dtype == q.dtype and torch.isfinite(o.float()).all()
+    if q.dtype == torch.float32:
+        assert (o - ro).abs().max().item() <= 2e-5
+    else:
+        gap = (o.float() - ro.float()).abs()
+        step = _STEP16[q.dtype]
+        assert not bool((gap > step * ro.float().abs() + 1e-5).any()), \
+            gap.max().item()
     assert (m - rm).abs().max().item() <= 1e-5
     torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
     dead = (lens == 0).nonzero().flatten().tolist()
@@ -1972,19 +2073,23 @@ def _decode_against_plain(q, kp, vp, tables, lens):
 
 
 @pytest.mark.needs_cuda
+@_DECODE_DTYPES
 @pytest.mark.parametrize("bs", [16, 8])
 @pytest.mark.parametrize("C", [1, 8, 32, 33])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_decode_split_kv_pasts_and_chunks(cuda, bs, C, D):
+def test_flash_decode_split_kv_pasts_and_chunks(cuda, bs, C, D, dtype):
     """A table of 1024 positions (a cluster of four blocks of eight tiles
     for one query row, of eight blocks of four tiles for a chunk) and seven
     sequences, an odd count: pasts of 0, 1, 16, 1023, 1024 (the full
     table), 500 and 33; chunks of 1, 8, 32 and 33 query rows (33 takes two
-    query tiles); blocks of 16 and of 8 positions."""
+    query tiles); blocks of 16 and of 8 positions; fp32 q over fp32 pools,
+    and 16-bit q over pools of its own dtype, read as they landed (the
+    CUDA-core route up to 8 rows, the tensor-core route from 16)."""
     lengths = [0, 1, 16, 1023, 1024, 500, 33]
     q, kp, vp, tables, lens = _paged_inputs(7, C, 2, D, bs, 1024 // bs,
                                             lengths, cuda,
                                             seed=C * D + bs)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     _decode_against_plain(q, kp, vp, tables, lens)
 
 
@@ -2005,28 +2110,34 @@ def test_flash_decode_splits_of_other_capacities(cuda, bs, mb, C):
 
 
 @pytest.mark.needs_cuda
+@_DECODE_DTYPES
 @pytest.mark.parametrize("S, C", [(8, 1), (1, 32), (3, 33)])
-def test_flash_decode_two_calls_are_bitwise_equal(cuda, S, C):
+def test_flash_decode_two_calls_are_bitwise_equal(cuda, S, C, dtype):
     """The split depends on the shapes alone and every merge adds in a
-    fixed order: two calls on the same inputs give the same bits."""
+    fixed order: two calls on the same inputs give the same bits, over fp32
+    pools and over 16-bit pools of q's dtype."""
     lengths = [1024, 700, 0, 1, 350, 511, 200, 777][:S]
     q, kp, vp, tables, lens = _paged_inputs(S, C, 12, 64, 16, 64, lengths,
                                             cuda, seed=S * C)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     first = _decode_against_plain(q, kp, vp, tables, lens)
     second = _decode_against_plain(q, kp, vp, tables, lens)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.needs_cuda
+@_DECODE_DTYPES
 @pytest.mark.parametrize("C", [1, 32])
-def test_flash_decode_long_table_at_d128(cuda, C):
+def test_flash_decode_long_table_at_d128(cuda, C, dtype):
     """A table of 4096 positions: eight blocks of sixteen tiles, so the
     host asks for the deepest ring; at D = 128 with a chunk's 16-row tiles
-    that ring would not fit beside the cluster's partials, and the launch
-    takes a shallower one."""
+    that ring would not fit beside the cluster's partials (fp32 pools), and
+    the launch takes a shallower one; 16-bit pools' stages are half the
+    size."""
     lengths = [4096, 0, 2500]
     q, kp, vp, tables, lens = _paged_inputs(3, C, 2, 128, 16, 256, lengths,
                                             cuda, seed=4096 + C)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     _decode_against_plain(q, kp, vp, tables, lens)
 
 

@@ -30,6 +30,17 @@ Phases, each printing one line:
              it and their gap over max(bound, floor), and the int8 decode
              row's library column runs torch._int_mm on A zero-padded to
              24 rows.
+2b. softmax_routes - the bf16 and fp16 softmax off the main path's vec
+             route (16-byte vectors, a lane group a row): the scalar route
+             (C = 100), the long route (C = 1500), the vec route (C = 128,
+             24 and 520: the last two end inside a lane group) and a view
+             of the C = 128 rows one element off a 16-byte boundary
+             (scalar), each with a partly -inf and an all -inf row,
+             against the plain version: the route taken, bitwise on two
+             calls, NaN exactly in the all -inf row, each other element
+             within a step of its dtype of its own value plus the softmax
+             floor. The kernels phase's 16-bit softmax rows name their
+             route (vec).
 3. serve   - a BERT-base (768 x 12, vocab 30522) with seeded random weights
              is exported with the port's export_for_serving, loaded by a
              ModelServer on the card with buckets (128, 512), and 8
@@ -631,12 +642,14 @@ def kernels_phase(torch, dev):
     lengths = torch.tensor([128, 20, 77, 128, 1, 100, 64, 127], device=dev)
     live = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).float()
     s = 3 * randn(B, H, T, T) + ((1 - live) * -1e30)[:, None, None, :]
+    y = fused_norm.softmax(s)
     rows.append(measure(
         torch, "softmax", (B, H, T, T),
-        max_err(fused_norm.softmax(s), fused_norm.softmax_reference(s)),
+        max_err(y, fused_norm.softmax_reference(s)),
         1e-5, (s,), fused_norm.softmax, fused_norm.softmax_reference,
         lambda s: torch.softmax(s, dim=-1), 2 * s.numel() * 4,
-        5 * s.numel()))
+        5 * s.numel(), kernel_route=fused_norm._softmax_route(
+            T, s.data_ptr(), y.data_ptr(), 4)))
 
     rows += flash_forward_rows(torch, dev, randn)
     rows += flash_decode_rows(torch, dev, randn)
@@ -1101,7 +1114,8 @@ def half_norm_rows(torch, dev, randn, dtype="bfloat16", R=8192, C=768,
     s = (3 * randn(B, H, T, T)
          + ((1 - live) * -1e30)[:, None, None, :]).to(bf)
     want = fused_norm.softmax_reference(s).float()
-    err, share = bf16_each("softmax_" + sfx, fused_norm.softmax(s), want,
+    y = fused_norm.softmax(s)
+    err, share = bf16_each("softmax_" + sfx, y, want,
                            rule["step"] * want.abs() + rule["softmax_floor"],
                            (B, H, T, T))
     rows.append(measure(
@@ -1109,9 +1123,74 @@ def half_norm_rows(torch, dev, randn, dtype="bfloat16", R=8192, C=768,
         fused_norm.softmax, fused_norm.softmax_reference,
         lambda s: torch.softmax(s, dim=-1), 2 * s.numel() * 2,
         5 * s.numel(), rule["flops"], dtype=dtype,
+        kernel_route=fused_norm._softmax_route(T, s.data_ptr(), y.data_ptr(),
+                                               2),
         tolerance_rule="each element within %s of its own value + %s"
         % (n_step, n_sm), tolerance_share=share))
     return rows
+
+
+#: the 16-bit softmax's cases besides the main path's vec rows: (name, C,
+#: the route it must take); "view" is the vec case's rows one element off
+#: a 16-byte boundary; "vec_small" (3 vectors a row, a group of 4 lanes)
+#: and "vec_tail" (65 vectors, 3 a lane of 32) leave lanes of a row's group
+#: past its end
+SOFTMAX_ROUTE_CASES = (("scalar", 100, "scalar"), ("long", 1500, "long"),
+                       ("vec", 128, "vec"), ("view", 128, "scalar"),
+                       ("vec_small", 24, "vec"), ("vec_tail", 520, "vec"))
+
+
+def softmax_routes_phase(torch, dev, rows=64):
+    """The 16-bit softmax off the main path's vec route: the scalar route
+    (C = 100), the long route (C = 1500), the vec route (C = 128, and
+    C = 24 and 520, whose rows leave lanes of their group idle) and a
+    view of the C = 128 rows one element off a 16-byte boundary (the scalar
+    route), in each dtype, each with a row partly -inf and a row all
+    -inf, against the plain version on the same inputs: the route the
+    wrapper picks, two calls bitwise, the all -inf row NaN and only it, the
+    partly -inf row 0 there, every other element within HALF_RULES' step
+    of its own value plus the softmax floor. Raises on any failure;
+    returns {dtype: {case: (route, max error, worst share of a limit)}}."""
+    from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for dtype, rule in HALF_RULES.items():
+        dt = getattr(torch, dtype)
+        got_cases = {}
+        made = {}
+        for name, C, route in SOFTMAX_ROUTE_CASES:
+            what = "softmax_%s %s (%d, %d)" % (rule["suffix"], name, rows, C)
+            if name == "view":
+                x = torch.empty(rows * C + 1, dtype=dt, device=dev)[1:] \
+                    .view(rows, C)
+                x.copy_(made["vec"])
+            else:
+                x = 3 * torch.randn(rows, C, generator=gen, device=dev)
+                x[1, C // 2:] = float("-inf")
+                x[2] = float("-inf")
+                x = made[name] = x.to(dt)
+            y, again = fused_norm.softmax(x), fused_norm.softmax(x)
+            took = fused_norm._softmax_route(C, x.data_ptr(), y.data_ptr(), 2)
+            if took != route:
+                raise AssertionError("%s: route %s, want %s"
+                                     % (what, took, route))
+            if not same_bits(y, again):
+                raise AssertionError("%s: two calls differ" % what)
+            want = fused_norm.softmax_reference(x).float()
+            nan = y.isnan()
+            if not (torch.equal(nan, want.isnan()) and bool(nan[2].all())):
+                raise AssertionError("%s: NaN outside the all -inf row, or "
+                                     "not all of it" % what)
+            if not bool((y[1, C // 2:] == 0).all()):
+                raise AssertionError("%s: a -inf position is not 0" % what)
+            live = ~nan
+            err, share = bf16_each(
+                what, y[live], want[live],
+                rule["step"] * want[live].abs() + rule["softmax_floor"],
+                "off the main path")
+            got_cases[name] = (took, err, share)
+        out[dtype] = got_cases
+    return out
 
 
 def half_delta(torch, fa, sfx, q, k, v, do, out, lse, bias, scale):
@@ -5989,6 +6068,7 @@ def _kernel_class(name):
     for key, cls in (("ln_warp", "layer_norm"), ("ln_block", "layer_norm"),
                      ("noop_kernel", "noop"),
                      ("softmax_warp", "softmax"), ("softmax_block", "softmax"),
+                     ("softmax_vec", "softmax"),
                      ("flash_fwd", "flash_attention_fwd"),
                      ("flash_bwd_dq", "flash_attention_bwd_dq"),
                      ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
@@ -6717,6 +6797,8 @@ def main(argv=None):
         return out
 
     krows = phase("kernels", kernels_phase, torch, dev)
+    log("softmax_routes", card=card,
+        **phase("softmax_routes", softmax_routes_phase, torch, dev))
 
     fields, counts, profile = phase(
         "serve", serve_phase, torch, dev, BERT_BASE, SERVE_LENGTHS,

@@ -16,7 +16,8 @@ capture) and returns that result; then the forward is captured, in
 ``thread_local`` mode so that other threads (other tenants' schedulers, RPC
 handlers) keep using the card. Every later call replays. A capture that
 fails raises ``CaptureError`` naming the program: there is no eager fallback
-on CUDA. Captures are serialized across threads.
+on CUDA. Captures are serialized across threads by one lock
+(``capture_lock()``), which a deploy's pinning of host memory takes too.
 
 Launch counts stay true: a kernel wrapper called during the capture does not
 run its kernel, so its call is recorded instead of counted
@@ -50,9 +51,16 @@ from ..telemetry import catalog as _cat
 from ..telemetry import costs as _costs
 from ..telemetry import memz as _memz
 
-__all__ = ["BlockProgram", "CaptureError"]
+__all__ = ["BlockProgram", "CaptureError", "capture_lock"]
 
 _capture_lock = threading.Lock()
+
+
+def capture_lock():
+    """The process's capture lock, which every warm-up and capture holds.
+    Work on another thread that must not overlap a capture (pinning host
+    memory: ``serving.loader.load_generation_params``) takes it too."""
+    return _capture_lock
 
 
 class CaptureError(RuntimeError):

@@ -4,9 +4,9 @@
 // type E, bf16 or fp16: the wgmma m64nNk16 products with E operands and
 // fp32 accumulators (A and B K-major from shared memory, or A from
 // registers and B MN-major), the block of two consumer warpgroups and a
-// producer with their register split and turns at the tensor cores, ex2,
-// the shared-memory image of a tile as TMA writes it (Pan) and its 3-D
-// tensor map (map16). sm_90a only.
+// producer with their register split and turns at the tensor cores, ex2
+// (from ex2.cuh), the shared-memory image of a tile as TMA writes it (Pan)
+// and its 3-D tensor map (map16). sm_90a only.
 //
 // Included inside each source's anonymous namespace after flash_tf32.cuh
 // (kBlock, smem_u32), flash_b16.cuh (bf16, f16, kB16Bytes) and hopper.cuh
@@ -418,20 +418,7 @@ __device__ __forceinline__ void fence_all(unsigned (*a)[4]) {
       fence_operand(reinterpret_cast<int&>(a[i][j]));
 }
 
-// 2^x (ex2.approx without .ftz: a subnormal result survives)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 2^x flushed to 0 below 2^-126 (ex2.approx.ftz: one MUFU.EX2, where
-// ex2 takes three more instructions to keep a subnormal result)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+#include "ex2.cuh"   // ex2, ex2_ftz
 
 // the producer warpgroup gives back registers (24 a thread), the consumers
 // take them (240): 128 * 24 + 256 * 240 = 384 * 168, the block's share of

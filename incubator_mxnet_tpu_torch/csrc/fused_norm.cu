@@ -45,14 +45,35 @@
 // count: spreading 8 or 32 rows over more SMs does not shorten a call
 // whose time is a launch and one trip to memory.
 // Any row count: the grid masks the ragged end, so the TPU kernel's rows % 8
-// and vector-memory rules do not apply here. Softmax keeps one warp a row
-// of up to 1024 values (ceil(C / 32) a lane) and the long-row block above.
+// and vector-memory rules do not apply here.
+//
+// Softmax's routes. fp32 takes one warp a row of up to 1024 values (ceil(C
+// / 32) a lane) and a block a row above. bf16 and fp16 take a route code
+// from the wrapper (ops/kernels/fused_norm.py _softmax_route), checked here:
+//   vec (C <= 1024, C a multiple of 8, both bases 16-byte aligned): a group
+//     of G lanes (a power of two sized to C's bucket) owns a row, read and
+//     written as 16-byte vectors of 8 values and reduced by shuffles inside
+//     the group. At C = 128 that is 16 lanes a row, two rows to each
+//     warp-wide access. Each lane holds kVecLoads vectors, so a warp has
+//     several rows' loads in flight before its first reduction (the count
+//     is a sweep's choice on the card: PERF.md §6).
+//   scalar (the other rows up to 1024): the fp32 warp kernel on T.
+//   long (C > 1024): the fp32 block kernel on T.
+// Bytes bound the vec route (about 5 fp32 operations for the 4 bytes a
+// value moves); what the earlier one-value-a-lane kernel (the scalar route
+// now) spent at C = 128 was issue slots (a 2-byte load and store, a bounds
+// test, an expf and an IEEE division for each value) and the latency of
+// one 256-byte row a warp with nothing else in flight.
 //
 // Numerics follow the TPU kernels: LayerNorm takes the mean, then the
 // centred variance, then (x - mean) * rsqrt(var + eps) * gamma + beta.
 // Softmax takes the max, exp(x - max), the sum, then divides; a row that is
 // partly -inf gives 0 there, and a row that is all -inf gives NaN, as
-// jax.nn.softmax does.
+// jax.nn.softmax does. The vec route computes exp as 2^((x - max) *
+// log2(e)) by ex2.approx.ftz and the quotient as a product by the row's
+// one reciprocal: each moves the fp32 value by a couple of ulps before the
+// one rounding to 16 bits (a probability below 2^-126 becomes 0, inside
+// the plain version's limits).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -62,19 +83,25 @@
 
 namespace {
 
+#include "ex2.cuh"
+
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 4;    // rows per block on the warp path
 constexpr int kRowThreads = 256;     // threads per block on the long-row path
 
+// The sum (max) over the G lanes of an aligned group of the warp, G a power
+// of two (the whole warp by default); every lane of the warp takes part.
+template <int G = kWarp>
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+template <int G = kWarp>
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = G / 2; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
@@ -159,7 +186,7 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
 
 // ---------------------------------------------------------------- LayerNorm
 
-constexpr int kLnMaxC = 1024;    // longest row of the warp route
+constexpr int kMaxWarpC = 1024;    // longest row of the warp routes
 
 // One warp a row: NV vectors of VW elements a lane, 32 * NV * VW >= C and
 // C % VW == 0. x, gamma and beta are all requested before the first sum.
@@ -297,6 +324,101 @@ softmax_block_kernel(const T* __restrict__ x, T* __restrict__ y, int C) {
     yr[c] = narrow<T>(expf(widen(xr[c]) - m) / s);
 }
 
+// 16-byte vectors a lane holds in flight on the vec route: the rows a lane
+// group takes at once are this over the row's vectors a lane, at least 1.
+// A sweep on an H100 at the training path's (64, 12, 128, 128) chose it
+// (PERF.md §6; µs a call, bf16 and fp16 alike): 1 vector 16.6-16.8,
+// 2 15.8-16.1, 4 16.3-16.5, 8 19.6-19.8 (96 registers a thread).
+constexpr int kVecLoads = 2;
+template <int NV>
+constexpr int kVecRows = kVecLoads / NV > 0 ? kVecLoads / NV : 1;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The vec route: a group of G lanes owns a row of C 16-bit values (C % 8 ==
+// 0, C <= G * NV * 8), NV 16-byte vectors a lane, neighbouring lanes on
+// neighbouring vectors; a warp holds 32 / G rows at each access, and R =
+// kVecRows<NV> of those accesses, all requested before the first max. A
+// vector past the row's end, or of a row past `rows`, reads as -inf and is
+// not stored. Loads and stores are load_vec / store_vec (one 16-byte
+// access, narrow<T>'s round to nearest even: fp16 subnormals kept).
+//
+// exp: (x - max) then * log2(e) then ex2. One FFMA, x * log2(e) - max *
+// log2(e), would save an FADD but carry max * log2(e)'s rounding, |max| *
+// 2^-24 in the exponent, into every value: at fp16's range that is several
+// fp16 steps. x - max is exact near the max, so this form keeps a couple of
+// ulps. A row whose max is -inf (all -inf) gets -inf - (-inf) = NaN, so its
+// output is NaN, as the plain version's is.
+// Quotient: one correctly rounded reciprocal a row, then a product a value
+// (two roundings where a division has one).
+template <typename T, int G, int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+softmax_vec_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
+                   int C) {
+  constexpr int VW = kVec16<T>;
+  constexpr int kGroups = kWarp / G;
+  constexpr int R = kVecRows<NV>;
+  const int lane = threadIdx.x % kWarp;
+  const int sub = lane % G;
+  const long long first =
+      ((long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp) *
+          (kGroups * R) + lane / G;
+  const int nvec = C / VW;
+  float v[R][NV][VW];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long row = first + r * kGroups;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = sub + i * G;
+      if (row < rows && j < nvec) {
+        load_vec<T, VW>(v[r][i], x + row * C + j * VW);
+      } else {
+#pragma unroll
+        for (int k = 0; k < VW; ++k) v[r][i][k] = -INFINITY;
+      }
+    }
+  }
+  float m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int k = 0; k < VW; ++k) m[r] = fmaxf(m[r], v[r][i][k]);
+    m[r] = warp_max<G>(m[r]);
+  }
+  float s[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    s[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        const float e = ex2_ftz((v[r][i][k] - m[r]) * kLog2e);
+        v[r][i][k] = e;
+        s[r] += e;
+      }
+    s[r] = warp_sum<G>(s[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long row = first + r * kGroups;
+    const float inv = __frcp_rn(s[r]);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = sub + i * G;
+      if (row < rows && j < nvec) {
+#pragma unroll
+        for (int k = 0; k < VW; ++k) v[r][i][k] *= inv;
+        store_vec<T, VW>(y + row * C + j * VW, v[r][i]);
+      }
+    }
+  }
+}
+
 unsigned warp_grid(int rows) {
   return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -335,7 +457,7 @@ void launch_ln_warp_bucket(const T* x, const T* gamma, const T* beta, T* y,
       return launch_ln_warp<T, VW, 4 * PB>(x, gamma, beta, y, rows, C, eps,
                                            stream);
     default:
-      if constexpr (kBucket * 4 >= kLnMaxC) {
+      if constexpr (kBucket * 4 >= kMaxWarpC) {
         return;   // unreachable: the entry point refuses C > 1024
       } else {
         switch ((C + kBucket - 1) / kBucket) {
@@ -380,9 +502,9 @@ int layer_norm(const T* x, const T* gamma, const T* beta, T* y, int rows,
   if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const bool vec = C % VW == 0 && aligned16(x) && aligned16(gamma) &&
                    aligned16(beta) && aligned16(y);
-  const bool ok = route == kLnLong         ? C > kLnMaxC
-                  : route == kLnWarp       ? C <= kLnMaxC && vec
-                  : route == kLnWarpScalar ? C <= kLnMaxC
+  const bool ok = route == kLnLong         ? C > kMaxWarpC
+                  : route == kLnWarp       ? C <= kMaxWarpC && vec
+                  : route == kLnWarpScalar ? C <= kMaxWarpC
                                            : false;
   if (!ok) return (int)cudaErrorInvalidValue;
   const cudaError_t e = use_device(device);
@@ -401,12 +523,41 @@ int layer_norm(const T* x, const T* gamma, const T* beta, T* y, int rows,
   return (int)cudaGetLastError();
 }
 
+// Softmax's 16-bit route codes, as ops/kernels/fused_norm.py
+// SOFTMAX_ROUTES gives them.
+enum SoftmaxRoute { kSmVec = 0, kSmScalar = 1, kSmLong = 2 };
+
+template <typename T, int G, int NV>
+void launch_softmax_vec(const T* x, T* y, int rows, int C,
+                        cudaStream_t stream) {
+  constexpr long long kRows = kWarpsPerBlock * (kWarp / G) * kVecRows<NV>;
+  const unsigned grid = (unsigned)((rows + kRows - 1) / kRows);
+  softmax_vec_kernel<T, G, NV><<<grid, kWarpsPerBlock * kWarp, 0, stream>>>(
+      x, y, rows, C);
+}
+
+// The vec route's instantiation for C's bucket: the fewest lanes (a power
+// of two) that hold a row at one vector each, then 2-4 vectors a lane.
 template <typename T>
-int softmax(const T* x, T* y, int rows, int C, int device, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+void launch_softmax_vec_bucket(const T* x, T* y, int rows, int C,
+                               cudaStream_t stream) {
+  const int nvec = C / kVec16<T>;
+  if (nvec <= 1) return launch_softmax_vec<T, 1, 1>(x, y, rows, C, stream);
+  if (nvec <= 2) return launch_softmax_vec<T, 2, 1>(x, y, rows, C, stream);
+  if (nvec <= 4) return launch_softmax_vec<T, 4, 1>(x, y, rows, C, stream);
+  if (nvec <= 8) return launch_softmax_vec<T, 8, 1>(x, y, rows, C, stream);
+  if (nvec <= 16) return launch_softmax_vec<T, 16, 1>(x, y, rows, C, stream);
+  if (nvec <= 32) return launch_softmax_vec<T, 32, 1>(x, y, rows, C, stream);
+  if (nvec <= 64) return launch_softmax_vec<T, 32, 2>(x, y, rows, C, stream);
+  if (nvec <= 96) return launch_softmax_vec<T, 32, 3>(x, y, rows, C, stream);
+  return launch_softmax_vec<T, 32, 4>(x, y, rows, C, stream);
+}
+
+// fp32's kernels, and the 16-bit scalar and long routes: a warp a row up
+// to 1024 values, a block a row above
+template <typename T>
+void launch_softmax_rows(const T* x, T* y, int rows, int C,
+                         cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * kWarp);
   if (C <= 128) {
     softmax_warp_kernel<T, 4><<<warp_grid(rows), block, 0, stream>>>(
@@ -417,13 +568,45 @@ int softmax(const T* x, T* y, int rows, int C, int device, void* stream_ptr) {
   } else if (C <= 512) {
     softmax_warp_kernel<T, 16><<<warp_grid(rows), block, 0, stream>>>(
         x, y, rows, C);
-  } else if (C <= 1024) {
+  } else if (C <= kMaxWarpC) {
     softmax_warp_kernel<T, 32><<<warp_grid(rows), block, 0, stream>>>(
         x, y, rows, C);
   } else {
     softmax_block_kernel<T><<<(unsigned)rows, kRowThreads, 0, stream>>>(
         x, y, C);
   }
+}
+
+int softmax_f32(const float* x, float* y, int rows, int C, int device,
+                void* stream_ptr) {
+  if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return (int)e;
+  launch_softmax_rows<float>(x, y, rows, C,
+                             static_cast<cudaStream_t>(stream_ptr));
+  return (int)cudaGetLastError();
+}
+
+// y = softmax(x) over rows of C 16-bit values on the wrapper's route
+// (SoftmaxRoute); a route whose conditions fail is refused with
+// cudaErrorInvalidValue.
+template <typename T>
+int softmax_half(const T* x, T* y, int rows, int C, int route, int device,
+                 void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec = C % kVec16<T> == 0 && aligned16(x) && aligned16(y);
+  const bool ok = route == kSmLong     ? C > kMaxWarpC
+                  : route == kSmVec    ? C <= kMaxWarpC && vec
+                  : route == kSmScalar ? C <= kMaxWarpC
+                                       : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return (int)e;
+  if (route == kSmVec)
+    launch_softmax_vec_bucket<T>(x, y, rows, C, stream);
+  else
+    launch_softmax_rows<T>(x, y, rows, C, stream);
   return (int)cudaGetLastError();
 }
 
@@ -467,21 +650,24 @@ extern "C" int mxtpu_layer_norm_f16(const void* x, const void* gamma,
                        C, eps, route, device, stream_ptr);
 }
 
+// Softmax: the fp32 entry picks its kernel from C; the bf16 and f16
+// entries take `route` (SoftmaxRoute): vec takes C <= 1024 with C % 8 == 0
+// and both bases 16-byte aligned, scalar C <= 1024, long C > 1024.
 extern "C" int mxtpu_softmax_f32(const float* x, float* y, int rows, int C,
                                  int device, void* stream_ptr) {
-  return softmax<float>(x, y, rows, C, device, stream_ptr);
+  return softmax_f32(x, y, rows, C, device, stream_ptr);
 }
 
 extern "C" int mxtpu_softmax_bf16(const void* x, void* y, int rows, int C,
-                                  int device, void* stream_ptr) {
+                                  int route, int device, void* stream_ptr) {
   using B = __nv_bfloat16;
-  return softmax<B>(static_cast<const B*>(x), static_cast<B*>(y), rows, C,
-                    device, stream_ptr);
+  return softmax_half<B>(static_cast<const B*>(x), static_cast<B*>(y), rows,
+                         C, route, device, stream_ptr);
 }
 
 extern "C" int mxtpu_softmax_f16(const void* x, void* y, int rows, int C,
-                                 int device, void* stream_ptr) {
+                                 int route, int device, void* stream_ptr) {
   using H = __half;
-  return softmax<H>(static_cast<const H*>(x), static_cast<H*>(y), rows, C,
-                    device, stream_ptr);
+  return softmax_half<H>(static_cast<const H*>(x), static_cast<H*>(y), rows,
+                         C, route, device, stream_ptr);
 }

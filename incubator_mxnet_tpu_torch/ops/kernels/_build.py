@@ -43,11 +43,12 @@ _SIGNATURES = {
     "mxtpu_layer_norm_f32": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # x, y, rows, C, device, stream
     "mxtpu_softmax_f32": (_P, _P, _I, _I, _I, _P),
-    # the bf16 and fp16 flavours of the two, with the same arguments
+    # the bf16 and fp16 flavours of the two, with the same arguments but
+    # softmax's route before device: x, y, rows, C, route, device, stream
     "mxtpu_layer_norm_bf16": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    "mxtpu_softmax_bf16": (_P, _P, _I, _I, _I, _P),
+    "mxtpu_softmax_bf16": (_P, _P, _I, _I, _I, _I, _P),
     "mxtpu_layer_norm_f16": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    "mxtpu_softmax_f16": (_P, _P, _I, _I, _I, _P),
+    "mxtpu_softmax_f16": (_P, _P, _I, _I, _I, _I, _P),
     # q, k, v, bias, out, lse, bh, T, D, scale, causal, device, stream
     "mxtpu_flash_attention_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _F, _I, _I, _P),

@@ -26,6 +26,13 @@ element size and the four tensors' addresses: ``"warp"`` (a warp a row,
 floats, 8 bf16 or fp16) and 16-byte aligned bases, ``"warp_scalar"`` for
 the other rows of up to 1024, ``"long"`` (a block a row) above 1024. The C
 entry refuses a route whose conditions fail.
+
+``_softmax_route`` does the same for the 16-bit softmax entries:
+``"vec"`` (a group of lanes a row, 16-byte vectors of 8 values, several
+rows in flight a lane) for C <= 1024 with C a multiple of 8 and x and the
+output 16-byte aligned, ``"scalar"`` (a warp a row, a value a lane) for the
+other rows of up to 1024, ``"long"`` above 1024. fp32 has no ``vec``
+kernel: its entry takes no route and runs ``scalar`` or ``long`` by C.
 """
 
 import torch
@@ -35,12 +42,14 @@ from . import _build
 
 __all__ = ["layer_norm", "softmax", "layer_norm_bf16", "softmax_bf16",
            "layer_norm_f16", "softmax_f16", "layer_norm_reference",
-           "softmax_reference", "ROUTES"]
+           "softmax_reference", "ROUTES", "SOFTMAX_ROUTES"]
 
 _INT_MAX = 2 ** 31 - 1
 
 #: the C entry's LayerNorm route codes
 ROUTES = {"warp": 0, "warp_scalar": 1, "long": 2}
+#: the C entries' 16-bit softmax route codes
+SOFTMAX_ROUTES = {"vec": 0, "scalar": 1, "long": 2}
 #: the longest row of the warp routes (one row in a warp's registers)
 MAX_WARP_C = 1024
 
@@ -54,6 +63,17 @@ def _route(C, x_ptr, g_ptr, b_ptr, y_ptr, elem_bytes=4):
     vec = C % (16 // elem_bytes) == 0 and all(
         p % 16 == 0 for p in (x_ptr, g_ptr, b_ptr, y_ptr))
     return "warp" if vec else "warp_scalar"
+
+
+def _softmax_route(C, x_ptr, y_ptr, elem_bytes):
+    """The softmax kernel's route for rows of ``C`` elements of
+    ``elem_bytes`` bytes whose input and output start at those byte
+    addresses (``vec`` only for 2-byte elements)."""
+    if C > MAX_WARP_C:
+        return "long"
+    vec = elem_bytes == 2 and C % 8 == 0 and x_ptr % 16 == 0 \
+        and y_ptr % 16 == 0
+    return "vec" if vec else "scalar"
 
 
 def layer_norm_reference(x, gamma, beta, eps=1e-5):
@@ -228,11 +248,15 @@ def _softmax_launch(what, entry, wrapper, x):
     out = torch.empty_like(x)
     if rows == 0 or C == 0:
         return out
+    ptrs = (x.data_ptr(), out.data_ptr())
+    esize = x.element_size()
+    # the 16-bit entries take the route; fp32's picks its kernel from C
+    route = () if esize == 4 else (
+        SOFTMAX_ROUTES[_softmax_route(C, *ptrs, esize)],)
     rc = getattr(_build.library(), entry)(
-        x.data_ptr(), out.data_ptr(), rows, C, x.device.index,
+        *ptrs, rows, C, *route, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, what)
-    esize = x.element_size()
     _build.count_launch(wrapper,
                         lambda: _costs.rows_cost(rows, C, 0, esize))
     return out

@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from ..compilecache.aot import BlockProgram
+from ..compilecache.aot import BlockProgram, capture_lock
 from ..telemetry import costs as _costs
 from ..context import resolve_device
 from ..utils.checkpoint import CheckpointManager
@@ -295,7 +295,15 @@ def load_generation_params(directory, generation=None, pin=False):
             % (generation, directory, sorted(gens)))
     _step, params, _trainer, meta = mgr.restore(gens[generation])
     if pin:
-        params = {k: v.pin_memory() for k, v in params.items()}
+        # Pinning allocates page-locked host memory (cudaHostAlloc through
+        # PyTorch's caching host allocator) while a served model keeps
+        # running; a CUDA graph capture on the batcher's thread was once
+        # invalidated (cudaErrorStreamCaptureInvalidated) during a deploy's
+        # pinning. The copies therefore hold the capture lock: no capture
+        # runs while they do, and none waits longer than they take, since
+        # the read from disk above runs without it.
+        with capture_lock():
+            params = {k: v.pin_memory() for k, v in params.items()}
     return params, meta
 
 

@@ -258,14 +258,16 @@ class ModelServer:
 
     def deploy(self, name, generation=None, directory=None):
         """Live weight push: load the target generation's params onto the
-        host (pinned on a CUDA server), drain the model (never swap
-        mid-batch), swap them in place into the tensors every captured
-        graph reads, re-admit. ``generation=None`` follows the directory's
-        generation pointer; ``directory=None`` is the directory the model
-        was loaded from. Deploying the live generation is a no-op; a
-        generation that is not retained raises before the drain. Any
-        failure re-admits the old weights. The reply carries the drain,
-        swap and admit milliseconds (the admission outage)."""
+        host (pinned on a CUDA server, under the CUDA graph capture lock so
+        that no capture of a shape overlaps the pinning; the read from disk
+        takes no lock), drain the model (never swap mid-batch), swap them
+        in place into the tensors every captured graph reads, re-admit.
+        ``generation=None`` follows the directory's generation pointer;
+        ``directory=None`` is the directory the model was loaded from.
+        Deploying the live generation is a no-op; a generation that is not
+        retained raises before the drain. Any failure re-admits the old
+        weights. The reply carries the drain, swap and admit milliseconds
+        (the admission outage)."""
         t = self._tenant(name)
         directory = directory or t.directory
         if directory is None:

@@ -765,6 +765,42 @@ def test_kernel_class_names_the_wgmma_forward_by_its_element_type(name, cls):
     assert chip_smoke._kernel_class(name) == cls
 
 
+@pytest.mark.parametrize("name,cls", [
+    ("void (anonymous namespace)::softmax_vec_kernel<__nv_bfloat16, 16, 1>("
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int)", "softmax_bf16"),
+    ("void (anonymous namespace)::softmax_vec_kernel<__half, 32, 4>(__half "
+     "const*, __half*, int, int)", "softmax_f16"),
+    ("void (anonymous namespace)::softmax_block_kernel<__half>(__half "
+     "const*, __half*, int)", "softmax_f16"),
+    ("void (anonymous namespace)::softmax_warp_kernel<float, 4>(float "
+     "const*, float*, int, int)", "softmax")])
+def test_kernel_class_names_each_softmax_route_by_its_element_type(name,
+                                                                   cls):
+    assert chip_smoke._kernel_class(name) == cls
+
+
+def test_softmax_routes_phase_holds_each_route_on_the_cpu():
+    """The phase's drive on the CPU (the plain version): each case takes
+    the route it names from its addresses and row length, and the checks
+    (NaN row, -inf positions, each element's limit) pass with 0 error."""
+    out = chip_smoke.softmax_routes_phase(torch, torch.device("cpu"),
+                                          rows=8)
+    assert sorted(out) == ["bfloat16", "float16"]
+    for cases in out.values():
+        assert {n: r for n, (r, _e, _s) in cases.items()} == {
+            "scalar": "scalar", "long": "long", "vec": "vec",
+            "view": "scalar", "vec_small": "vec", "vec_tail": "vec"}
+        assert all(e == 0.0 for _r, e, _s in cases.values())
+
+
+def test_softmax_routes_phase_fails_on_a_wrong_route(monkeypatch):
+    from incubator_mxnet_tpu_torch.ops.kernels import fused_norm
+    monkeypatch.setattr(fused_norm, "_softmax_route",
+                        lambda C, x, y, elem_bytes: "scalar")
+    with pytest.raises(AssertionError, match="route scalar, want long"):
+        chip_smoke.softmax_routes_phase(torch, torch.device("cpu"), rows=8)
+
+
 def test_exp_floor_counts_one_ex2_a_live_score(monkeypatch):
     """The forward rows' exp floor: the live scores' ex2 at 16 a clock on
     each SM at its highest clock (nvidia-smi's clocks.max.sm); none off the
@@ -854,6 +890,7 @@ def test_bf16_kernel_rows_on_the_cpu(monkeypatch, one_torch_thread):
     cpu = torch.device("cpu")
     rows = chip_smoke.half_norm_rows(torch, cpu, _randn_cpu(1), R=16, C=64,
                                      softmax_shape=(2, 2, 16))
+    assert rows[1]["kernel_route"] == "vec"
     rows += chip_smoke.half_flash_rows(torch, cpu, _randn_cpu(2), B=2, H=2,
                                        T=100, D=32, lengths=(100, 0))
     assert [r["name"] for r in rows] == [
@@ -899,6 +936,7 @@ def test_fp16_kernel_rows_on_the_cpu(monkeypatch, one_torch_thread):
     cpu = torch.device("cpu")
     rows = chip_smoke.half_norm_rows(torch, cpu, _randn_cpu(1), "float16",
                                      R=16, C=64, softmax_shape=(2, 2, 16))
+    assert rows[1]["kernel_route"] == "vec"
     rows += chip_smoke.half_flash_rows(torch, cpu, _randn_cpu(2), "float16",
                                        B=2, H=2, T=100, D=32,
                                        lengths=(100, 0))

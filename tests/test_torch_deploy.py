@@ -508,6 +508,49 @@ def test_client_single_replica_backs_off_then_recovers(monkeypatch):
     assert meta["ok"] and len(attempts) == 3
 
 
+# ============================================ pinning vs CUDA graph capture
+def test_deploy_pins_under_the_capture_lock_and_reads_outside_it(
+        bert_dir, monkeypatch):
+    """A deploy pins the next generation's weights holding the CUDA graph
+    capture lock (no capture of a served shape overlaps the pinning) and
+    reads the checkpoint from disk without it (a capture waits no longer
+    than the pinning). A CPU server pins nothing, so the server's load is
+    made to pin and ``pin_memory`` records the lock and copies."""
+    from incubator_mxnet_tpu_torch.compilecache import aot
+    from incubator_mxnet_tpu_torch.serving import loader
+    from incubator_mxnet_tpu_torch.serving import server as server_mod
+    lock = aot.capture_lock()
+    held = {"read": [], "pin": []}
+    restore = loader.CheckpointManager.restore
+    load = server_mod.load_generation_params
+
+    def read(self, *args, **kw):
+        held["read"].append(lock.locked())
+        return restore(self, *args, **kw)
+
+    def pin(self):
+        held["pin"].append(lock.locked())
+        return self.clone()
+
+    n_params = len(load(bert_dir, 1)[0])
+    srv = serving.ModelServer(device="cpu")
+    srv.load("bert", directory=bert_dir, generation=0, max_wait_ms=0,
+             buckets=(8,))
+    srv.start()
+    try:
+        monkeypatch.setattr(loader.CheckpointManager, "restore", read)
+        monkeypatch.setattr(torch.Tensor, "pin_memory", pin)
+        monkeypatch.setattr(server_mod, "load_generation_params",
+                            lambda d, g, pin=False: load(d, g, pin=True))
+        r = srv.deploy("bert", generation=1)
+        assert r["generation"] == 1 and r["previous"] == 0
+    finally:
+        srv.stop()
+    assert held["read"] == [False]
+    assert len(held["pin"]) == n_params > 0 and all(held["pin"])
+    assert not lock.locked()
+
+
 # ============================================ in-process serve.deploy op
 def test_server_deploy_swap_rollback_and_noop(bert_dir):
     srv = serving.ModelServer(device="cpu")

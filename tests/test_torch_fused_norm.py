@@ -221,6 +221,31 @@ def test_layer_norm_route_follows_c_and_alignment(C, ptrs, route):
     assert fused_norm.ROUTES[route] in range(3)
 
 
+#: the 16-bit softmax route of rows of C at 16-byte aligned bases
+SOFTMAX_ALIGNED = {1: "scalar", 7: "scalar", 8: "vec", 128: "vec",
+                   136: "vec", 1024: "vec", 1025: "long"}
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("ptrs", [(0, 16), (4096, 4096 + 256), (2, 16),
+                                  (0, 18), (8, 8)],
+                         ids=["aligned", "aligned_far", "x_off", "y_off",
+                              "both_off"])
+@pytest.mark.parametrize("C", sorted(SOFTMAX_ALIGNED))
+def test_softmax_route_follows_c_alignment_and_element_size(C, ptrs,
+                                                            elem_bytes):
+    """The softmax kernel's route: ``vec`` (16-byte vectors of 8 values)
+    only for 2-byte elements, C <= 1024 a multiple of 8 and both bases on
+    16-byte boundaries; else ``scalar`` up to 1024 values and ``long``
+    above. fp32 has no vec kernel: its rows are scalar or long."""
+    route = fused_norm._softmax_route(C, *ptrs, elem_bytes)
+    want = SOFTMAX_ALIGNED[C]
+    if want == "vec" and (elem_bytes == 4 or ptrs[0] % 16 or ptrs[1] % 16):
+        want = "scalar"
+    assert route == want
+    assert fused_norm.SOFTMAX_ROUTES[route] in range(3)
+
+
 # ------------------------------------------------------------- bf16, fp16
 # Under the JAX trainer's compute_dtype the kernels take bf16 or fp16 x (and
 # gamma, beta) and compute in fp32, writing o_ref's dtype (fused_norm.py:

@@ -35,6 +35,10 @@ LayerNorm is held at atol 1e-5 on each of its three routes (a warp a row in
 16-byte and scalar forms, and the long-row block), each case asserting the
 route the wrapper picks; its C entry refuses a route whose conditions
 fail.
+The 16-bit softmax is held on each of its three routes (vec: 16-byte
+vectors, a lane group a row; scalar; long) within a step of its dtype of
+each element's value plus a floor, each case asserting the route the
+wrapper picks; its C entries refuse a route whose conditions fail.
 The bf16 flavours of LayerNorm, softmax and the flash forward and backward
 are held to their plain versions on the same bf16 inputs within 2 * 2**-8
 of each output's largest magnitude (both round to bf16 from fp32 sums
@@ -2834,6 +2838,130 @@ def test_softmax_f16_kernel_matches_plain(cuda, shape):
             fused_norm.softmax_f16.launches) == (n0[0], n0[1] + 1)
     want = fused_norm.softmax_reference(x)
     _f16_each(got, want, _f16_step(want, 1e-6 / 8), shape)
+
+
+# The 16-bit softmax on each of its routes (fused_norm._softmax_route):
+# vec (C <= 1024, C % 8 == 0, x and the output 16-byte aligned), scalar
+# (the other rows up to 1024: odd C, or a view one element off a 16-byte
+# boundary) and long (C > 1024). Each element within one step of its dtype
+# (2**-7 bf16, 2**-10 fp16) of the plain version's value plus the floor
+# (1e-6 bf16, 1.25e-7 fp16); a partly -inf row 0 there, an all -inf row
+# NaN; bitwise on two calls; each call one launch of the dtype's kernel.
+#: dtype -> (one step as a share of the value, the floor)
+HALF_SOFTMAX = {BF16: (2.0 ** -7, 1e-6), F16: (2.0 ** -10, 1e-6 / 8)}
+HALF_WRAPPER = {BF16: fused_norm.softmax_bf16, F16: fused_norm.softmax_f16}
+
+
+def _half_softmax_check(x, route, what):
+    wrapper = HALF_WRAPPER[x.dtype]
+    n0 = (fused_norm.softmax.launches, wrapper.launches)
+    got = fused_norm.softmax(x)
+    again = fused_norm.softmax(x)
+    torch.cuda.synchronize()
+    assert (fused_norm.softmax.launches, wrapper.launches) == (n0[0],
+                                                              n0[1] + 2)
+    C = x.shape[-1]
+    assert fused_norm._softmax_route(C, x.data_ptr(), got.data_ptr(),
+                                     2) == route, what
+    nan = got.isnan()
+    assert torch.equal(nan, again.isnan()), what
+    assert torch.equal(got.masked_fill(nan, 0), again.masked_fill(nan, 0))
+    want = fused_norm.softmax_reference(x)
+    assert torch.equal(nan, want.isnan()), what
+    step, floor = HALF_SOFTMAX[x.dtype]
+    gap = (got.float() - want.float()).abs()[~nan]
+    limit = step * want.float().abs()[~nan] + floor
+    assert bool((gap <= limit).all()), (what, gap.max().item())
+    return got
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [BF16, F16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("C,route", [(1, "scalar"), (7, "scalar"),
+                                     (100, "scalar"), (8, "vec"),
+                                     (16, "vec"), (24, "vec"), (56, "vec"),
+                                     (128, "vec"), (136, "vec"),
+                                     (264, "vec"), (520, "vec"),
+                                     (1024, "vec"), (1500, "long")])
+@pytest.mark.parametrize("rows", [1, 33, 4096])
+def test_half_softmax_routes_match_plain(cuda, dtype, C, route, rows):
+    """Each route against the plain version. The vec cases reach each of
+    its nine instantiations a dtype (csrc/fused_norm.cu
+    launch_softmax_vec_bucket), most with lanes of the row's group past its
+    end: C = 8 one lane a row, 16 a group of 2, 24 a group of 4 (3 vectors),
+    56 a group of 8 (7), 128 a full group of 16, and groups of 32 at 1
+    vector a lane (136: 17 vectors), 2 (264: 33), 3 (520: 65) and a full
+    4 (1024)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * C)
+    x = 3 * torch.randn(rows, C, generator=gen, device=cuda)
+    x[0, (C + 1) // 2:] = float("-inf")    # partly -inf: 0 there
+    if rows > 1:
+        x[rows // 2] = float("-inf")        # all -inf: NaN
+    got = _half_softmax_check(x.to(dtype), route, (rows, C))
+    if (C + 1) // 2 < C:
+        assert bool((got[0, (C + 1) // 2:] == 0).all())
+    if rows > 1:
+        assert bool(got[rows // 2].isnan().all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [BF16, F16], ids=["bf16", "f16"])
+def test_half_softmax_misaligned_view_takes_the_scalar_route(cuda, dtype):
+    x = (3 * torch.randn(64, 128, device=cuda)).to(dtype)
+    view = torch.empty(64 * 128 + 1, dtype=dtype, device=cuda)[1:] \
+        .view(64, 128)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 2 and view.is_contiguous()
+    _half_softmax_check(view, "scalar", "view")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("C,route", [(128, "vec"), (100, "scalar"),
+                                     (1500, "long")])
+def test_f16_softmax_keeps_subnormal_probabilities(cuda, C, route):
+    """Probabilities of ~6e-6, below fp16's smallest normal 2**-14, are
+    fp16 subnormals on every route, as in the plain version: no flush to
+    zero on the output."""
+    x = torch.zeros(8, C, device=cuda)
+    x[:, 0] = 12.0
+    got = _half_softmax_check(x.half(), route, C)
+    sub = got[:, 1:].float()
+    assert bool(((sub > 0) & (sub < 2.0 ** -14)).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [BF16, F16], ids=["bf16", "f16"])
+def test_softmax_c_entry_refuses_a_route_whose_conditions_fail(cuda, dtype):
+    """The 16-bit C entries refuse, before any launch, vec for a misaligned
+    input or output, C % 8 != 0 or C > 1024; scalar above 1024; long at or
+    below it; an unknown route code; and take each route whose conditions
+    hold."""
+    from incubator_mxnet_tpu_torch.ops.kernels import _build
+    entry = getattr(_build.library(), "mxtpu_softmax_" + (
+        "bf16" if dtype == BF16 else "f16"))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def rc(x, y, route):
+        return entry(x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+                     route, cuda.index, stream)
+
+    x = torch.randn(8, 128, device=cuda).to(dtype)
+    y = torch.empty_like(x)
+    off = torch.empty(8 * 128 + 1, dtype=dtype, device=cuda)[1:].view(8, 128)
+    odd, wide = (torch.randn(8, c, device=cuda).to(dtype) for c in (100, 1032))
+    vec, scalar, long_ = (fused_norm.SOFTMAX_ROUTES[r]
+                          for r in ("vec", "scalar", "long"))
+    for a, b, route in ((off, y, vec), (x, off, vec),
+                        (odd, torch.empty_like(odd), vec),
+                        (wide, torch.empty_like(wide), vec),
+                        (wide, torch.empty_like(wide), scalar),
+                        (x, y, long_), (x, y, 3)):
+        assert rc(a, b, route) != 0, (tuple(a.shape), route)
+    for a, route in ((x, vec), (x, scalar), (odd, scalar), (wide, long_)):
+        assert rc(a, torch.empty_like(a), route) == 0, (tuple(a.shape),
+                                                        route)
+    torch.cuda.synchronize()
+    assert fused_norm.SOFTMAX_ROUTES == {"vec": 0, "scalar": 1, "long": 2}
 
 
 def _flash_f16_inputs(BH, T, D, device, seed):
